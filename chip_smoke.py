@@ -1,0 +1,243 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one NVIDIA card and check it.
+
+    python3 chip_smoke.py
+
+Phases (each prints one JSON line; any failure raises and exits non-zero):
+
+1. device  -- `nvidia-smi` name and power limit, torch and CUDA versions, then
+   the tick kernel's build from raft_sim_tpu_torch/csrc (nvcc, sm_90a) with its
+   seconds and the compiler's register/spill report.
+2. kernel_vs_plain -- presets config1-config5 at a batch of 200 (one full
+   block and a ragged edge; config1 at its batch of 1): every tick, the kernel
+   (`step_cuda`) on the card equals the plain PyTorch tick
+   (`raft_batched.step_b`) on the card from the same state and inputs, leaf
+   for leaf; then `simulate` through the kernel equals `simulate` through the
+   plain tick. Exact equality: the tick is integer-only.
+3. card_vs_cpu -- the port's `simulate` on the card equals the port on the CPU
+   (config2, config4). The CPU tests hold the CPU port equal to the JAX package.
+4. full_width -- the main path, `simulate` at the presets' own batch through the
+   kernel: config2 at 1,000 clusters (client traffic) and config3 and config4
+   at 100,000 for 1,000 ticks, config5 at 10,000 for 200. Launch counts are
+   zeroed just before each run and read just after; each must equal the tick
+   count. Every run must have zero invariant violations and a leader elected
+   in every cluster, and config2 a commit in every cluster. Then, from the
+   run's final state: FULL_HOLD_TICKS ticks of kernel == plain tick at full
+   width (state and StepInfo, exact), kernel ms/tick (CUDA events) against its
+   bound (bytes read + written over 3.35 TB/s), and ms/tick for input
+   generation, the wrapped step, the plain step and the metric fold (host
+   clock to a synchronize).
+5. The kernels line, the card's name and power limit, and the result line.
+
+Exits 2 without a result when torch sees no CUDA device. It imports nothing of
+jax and nothing of the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+BW_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+SEED = 0
+FULL_HOLD_TICKS = 16  # kernel-vs-plain ticks at full width, per cell
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check_equal(want, got, what: str) -> None:
+    """Raise unless trees `want` and `got` agree exactly on every leaf."""
+    from raft_sim_tpu_torch import bridge
+
+    diff = bridge.first_difference(want, got)
+    if diff is not None:
+        raise AssertionError(f"{what}: {diff}")
+
+
+def wall_ms(fn, reps: int) -> float:
+    """Host-clock milliseconds per call of `fn`, to a synchronize."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    import raft_sim_tpu_torch
+    from raft_sim_tpu_torch.kernels import tick_engine
+    from raft_sim_tpu_torch.models import raft_batched
+    from raft_sim_tpu_torch.sim import faults, scan
+    from raft_sim_tpu_torch.summary import summarize
+    from raft_sim_tpu_torch.types import init_batch
+    from raft_sim_tpu_torch.utils import threefry
+    from raft_sim_tpu_torch.utils.config import PRESETS
+
+    if not os.path.abspath(raft_sim_tpu_torch.__file__).startswith(HERE + os.sep):
+        raise RuntimeError(f"raft_sim_tpu_torch imported from {raft_sim_tpu_torch.__file__}, not {HERE}")
+    dev = torch.device("cuda")
+
+    # ---- 1: device and build ---------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
+          "cuda": torch.version.cuda, "kind": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count()})
+    t0 = time.perf_counter()
+    lib_path = tick_engine.build()
+    tick_engine._load_cuda()
+    ptxas = [ln.strip() for ln in tick_engine.BUILD_INFO.get("ptxas", "").splitlines()
+             if "registers" in ln or "stack frame" in ln or "spill" in ln]
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "nvcc_seconds": tick_engine.BUILD_INFO.get("seconds"), "library": os.path.relpath(lib_path, HERE),
+          "ptxas": ptxas[:6]})
+
+    def hold_ticks(cfg, s, keys, t0: int, n: int, what: str):
+        """`n` ticks from batch-minor state `s`: each tick the kernel equals
+        the plain tick on the card, state and StepInfo, leaf for leaf."""
+        for t in range(t0, t0 + n):
+            inp = raft_batched.to_batch_minor(faults.make_inputs(cfg, keys, t))
+            ref_s, ref_i = raft_batched.step_b(cfg, s, inp, t)
+            got_s, got_i = tick_engine.step_cuda(cfg, s, inp, t)
+            check_equal(ref_s, got_s, f"{what} tick {t}: step_cuda state != step_b")
+            check_equal(ref_i, got_i, f"{what} tick {t}: step_cuda StepInfo != step_b")
+            s = got_s
+        return s
+
+    # Every comparison below raises on the first differing leaf, so an exact
+    # match (max |err| 0) is what reaching the kernels line means.
+    max_err = 0
+
+    # ---- 2: kernel vs plain, on the card ---------------------------------------
+    # 200 clusters: one full block of 128 threads and a ragged, masked edge.
+    for name in ("config1", "config2", "config3", "config4", "config5"):
+        cfg, _ = PRESETS[name]
+        batch = 1 if name == "config1" else 200
+        ticks = 96
+        s = raft_batched.to_batch_minor(init_batch(cfg, threefry.key(SEED, dev), batch))
+        keys = threefry.split(threefry.key(SEED + 1, dev), batch)
+        hold_ticks(cfg, s, keys, 0, ticks, name)
+        f_k, m_k = scan.simulate(cfg, SEED, batch, ticks, device=dev)
+        f_p, m_p = scan.simulate(cfg, SEED, batch, ticks, device=dev, step_fn=raft_batched.step_b)
+        check_equal(f_p, f_k, f"{name}: simulate state, kernel != plain")
+        check_equal(m_p, m_k, f"{name}: simulate RunMetrics, kernel != plain")
+        emit({"phase": "kernel_vs_plain", "preset": name, "batch": batch, "ticks": ticks,
+              "per_tick": "equal", "simulate": "equal", "max_abs_err": max_err,
+              "max_commit": int(m_k.max_commit.max()), "violations": int(m_k.violations.sum())})
+
+    # ---- 3: card vs CPU --------------------------------------------------------
+    for name in ("config2", "config4"):
+        cfg, _ = PRESETS[name]
+        batch, ticks = 64, 100
+        f_g, m_g = scan.simulate(cfg, SEED, batch, ticks, device=dev)
+        f_c, m_c = scan.simulate(cfg, SEED, batch, ticks, device="cpu")
+        check_equal(f_c, f_g, f"{name}: simulate state, card != CPU")
+        check_equal(m_c, m_g, f"{name}: simulate RunMetrics, card != CPU")
+        emit({"phase": "card_vs_cpu", "preset": name, "batch": batch, "ticks": ticks,
+              "max_abs_err": max_err, "summary_equal": summarize(m_g) == summarize(m_c)})
+
+    # ---- 4: full width, the main path -----------------------------------------
+    cells = []
+    total_launches = 0
+    for name, ticks in (("config2", 1000), ("config3", 1000), ("config4", 1000), ("config5", 200)):
+        cfg, batch = PRESETS[name]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tick_engine.step_cuda.launches = 0
+        t0 = time.perf_counter()
+        final, metrics = scan.simulate(cfg, SEED, batch, ticks, device=dev)
+        summ = summarize(metrics)  # copies to the host: waits for the device
+        wall = time.perf_counter() - t0
+        launches = tick_engine.step_cuda.launches
+        peak = torch.cuda.max_memory_allocated()
+        total_launches += launches
+        if launches != ticks:
+            raise AssertionError(f"{name}: {launches} kernel launches for {ticks} ticks")
+        if summ.total_violations != 0:
+            raise AssertionError(f"{name}: {summ.total_violations} violations")
+        if int((metrics.first_leader_tick >= scan.NEVER).sum()) != 0:
+            raise AssertionError(f"{name}: a cluster never elected a leader")
+        if cfg.client_interval and not (summ.total_cmds > 0 and int(metrics.max_commit.min()) > 0):
+            raise AssertionError(f"{name}: a cluster committed no client command")
+
+        # Kernel vs plain at full width from the run's final state, for
+        # FULL_HOLD_TICKS ticks (one log-matching tick at config5's interval
+        # of 16, two client offers at config2's interval of 8).
+        s = raft_batched.to_batch_minor(final)
+        keys = threefry.split(threefry.split(threefry.key(SEED, dev), 2)[1], batch)
+        hold_ticks(cfg, s, keys, ticks, FULL_HOLD_TICKS, f"{name} full width")
+
+        # Per-tick breakdown on the run's final state, at full width.
+        inp = raft_batched.to_batch_minor(faults.make_inputs(cfg, keys, ticks))
+        m_t = raft_batched.to_batch_minor(scan.init_metrics_batch(batch, dev))
+        _, info = tick_engine.step_cuda(cfg, s, inp, ticks)
+        kernel_ms = tick_engine.time_kernel(cfg, s, inp, reps=20, now=ticks)
+        inputs_ms = wall_ms(
+            lambda: raft_batched.to_batch_minor(faults.make_inputs(cfg, keys, ticks)), 5)
+        step_ms = wall_ms(lambda: tick_engine.step_cuda(cfg, s, inp, ticks), 10)
+        plain_ms = wall_ms(lambda: raft_batched.step_b(cfg, s, inp, ticks), 3)
+        acc_ms = wall_ms(lambda: scan._accumulate(m_t, info, s.now), 10)
+        rd, wr = tick_engine.traffic_bytes(cfg, batch)
+        bound_ms = (rd + wr) / BW_BYTES_PER_S * 1e3
+        cell = {
+            "phase": "full_width", "preset": name, "batch": batch, "ticks": ticks,
+            "launches": launches, "kernel_vs_plain_ticks": FULL_HOLD_TICKS, "wall_s": wall,
+            "cluster_ticks_per_s": batch * ticks / wall,
+            "kernel_ms": kernel_ms, "bound_ms": bound_ms, "bytes_read": rd,
+            "bytes_written": wr, "bound_share": bound_ms / kernel_ms,
+            "inputs_ms": inputs_ms, "step_ms": step_ms, "plain_ms": plain_ms,
+            "accumulate_ms": acc_ms, "peak_mem_bytes": peak,
+            "summary": summ._asdict(),
+        }
+        cells.append(cell)
+        emit(cell)
+        del final, metrics, s, inp, info
+        torch.cuda.empty_cache()
+
+    # ---- 5: the kernels line, the card, the result -----------------------------
+    # config3: the 100,000-cluster BASELINE throughput row.
+    main_cell = next(c for c in cells if c["preset"] == "config3")
+    emit({"kernels": [{
+        "name": "tick",
+        "route": "cuda",
+        "source": "raft_sim_tpu_torch/csrc/tick.cu",
+        "replaces": "raft_sim_tpu/experiments/pallas_engine.py:70",
+        "launches": total_launches,
+        "max_abs_err": max_err,
+        "ms": main_cell["kernel_ms"],
+        "plain_ms": main_cell["plain_ms"],
+        "bound_ms": main_cell["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "match": True,
+        "measured_at": f"{main_cell['preset']} batch {main_cell['batch']}",
+        "cells": {c["preset"]: {k: c[k] for k in ("batch", "kernel_ms", "bound_ms", "plain_ms",
+                                                  "launches", "kernel_vs_plain_ticks")}
+                  for c in cells},
+    }]})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

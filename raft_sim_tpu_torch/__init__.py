@@ -1,0 +1,40 @@
+"""raft_sim_tpu_torch: the batched Raft cluster simulator in PyTorch, with the
+tick as a hand-written CUDA kernel for Hopper (sm_90a).
+
+A port of the JAX package `raft_sim_tpu`, which stays the reference: the same
+configs, the same threefry streams, and every leaf of every tick equal to the
+JAX package's on the same seed (tests/test_torch_*.py). This package imports
+torch and numpy only -- never jax, and nothing of raft_sim_tpu.
+
+Main path: `sim.scan.simulate(cfg, seed, batch, n_ticks, device="cuda")` on
+presets config1-config5; CLI: `python -m raft_sim_tpu_torch run --preset ...`.
+"""
+
+from raft_sim_tpu_torch.types import (
+    CANDIDATE,
+    FOLLOWER,
+    LEADER,
+    NIL,
+    ClusterState,
+    Mailbox,
+    StepInfo,
+    StepInputs,
+    init_batch,
+    init_state,
+)
+from raft_sim_tpu_torch.utils.config import PRESETS, RaftConfig
+
+__all__ = [
+    "CANDIDATE",
+    "FOLLOWER",
+    "LEADER",
+    "NIL",
+    "ClusterState",
+    "Mailbox",
+    "PRESETS",
+    "RaftConfig",
+    "StepInfo",
+    "StepInputs",
+    "init_batch",
+    "init_state",
+]

@@ -1,0 +1,371 @@
+"""The Hopper tick kernel's wrapper: `step_cuda(cfg, s, inp)`.
+
+The port of raft_sim_tpu/experiments/pallas_engine.py `step_pallas` -- one
+whole tick (`step_b` + `_step_info_b`) as one kernel -- minus its `block_b`
+and `interpret` arguments: any batch size is taken (the kernel masks the
+ragged edge), and there is no interpret mode.
+
+Dispatch is by the device the tensors lie on. CPU tensors go to the plain
+PyTorch tick (models/raft_batched.step_b). CUDA tensors go to the kernel
+(csrc/tick.cu, one thread per cluster over the scalar body csrc/tick.cuh), or
+raise: unsupported gates raise NotImplementedError, a leaf of the wrong device,
+dtype, shape or layout raises ValueError, and a refused launch raises
+RuntimeError. Nothing falls back.
+
+Build: at first use, `nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17
+-O3 -shared -Xcompiler -fPIC` compiles csrc/tick.cu into
+raft_sim_tpu_torch/build/ (ignored by git), named by a hash of the sources, and
+ctypes loads it. The library has a plain C interface, so the build takes
+seconds. `step_cuda.launches` counts kernel launches (and nothing else).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import math
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+from raft_sim_tpu_torch import types as T
+from raft_sim_tpu_torch.ops import bitplane
+from raft_sim_tpu_torch.models import raft_batched
+
+PKG = Path(__file__).resolve().parent.parent
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG / "build"
+SOURCES = ("tick.cuh", "tick.cu")
+
+# Leaf pointers in the order of csrc/tick.cuh's `Ptr` enum.
+STATE_IN = (
+    "role", "term", "voted_for", "leader_id", "votes", "next_index",
+    "match_index", "ack_age", "commit_index", "commit_chk", "log_base",
+    "base_chk", "log_term", "log_val", "log_tick", "log_len", "clock",
+    "deadline", "lat_frontier", "now",
+)
+MAILBOX_IO = (
+    "req_type", "req_term", "req_commit", "req_last_index", "req_last_term",
+    "ent_start", "ent_prev_term", "ent_count", "ent_term", "ent_val",
+    "ent_tick", "req_off", "resp_kind", "v_to", "a_ok_to", "a_match",
+    "a_hint", "resp_term",
+)
+INPUTS_IN = ("deliver_mask", "skew", "timeout_draw", "client_cmd", "alive", "restarted")
+STATE_OUT = (
+    "role", "term", "voted_for", "leader_id", "votes", "next_index",
+    "match_index", "ack_age", "commit_index", "commit_chk", "log_term",
+    "log_val", "log_tick", "log_len", "clock", "deadline", "lat_frontier", "now",
+)
+INFO_OUT = (
+    "viol_election_safety", "viol_commit", "viol_log_matching", "leader",
+    "n_leaders", "max_term", "max_commit", "min_commit", "msgs_delivered",
+    "cmds_injected", "lat_sum", "lat_cnt", "lat_hist", "lat_excluded",
+)
+PTR_ORDER = (
+    [("state", f) for f in STATE_IN]
+    + [("mailbox", f) for f in MAILBOX_IO]
+    + [("inputs", f) for f in INPUTS_IN]
+    + [("state_out", f) for f in STATE_OUT]
+    + [("mailbox_out", f) for f in MAILBOX_IO]
+    + [("info_out", f) for f in INFO_OUT]
+)
+# Legs the kernel neither reads nor writes unless the offer-tick plane is live.
+_TRACK_ONLY = {("state", "log_tick"), ("mailbox", "ent_tick"),
+               ("state_out", "log_tick"), ("mailbox_out", "ent_tick")}
+MAX_NODES = 64
+MAX_ENTRIES = 16
+
+
+class TickParams(ctypes.Structure):
+    """csrc/tick.cuh `TickParams`."""
+
+    _fields_ = [
+        ("b", ctypes.c_int64),
+        ("n", ctypes.c_int32),
+        ("e", ctypes.c_int32),
+        ("cap", ctypes.c_int32),
+        ("w", ctypes.c_int32),
+        ("quorum", ctypes.c_int32),
+        ("heartbeat", ctypes.c_int32),
+        ("ack_sat", ctypes.c_int32),
+        ("ack_timeout", ctypes.c_int32),
+        ("check_invariants", ctypes.c_int32),
+        ("log_matching_due", ctypes.c_int32),
+        ("track", ctypes.c_int32),
+    ]
+
+
+def _source_tag() -> str:
+    h = hashlib.sha256()
+    for name in SOURCES:
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.environ.get("CUDA_HOME") and os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"),
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+BUILD_INFO: dict = {}
+
+
+def build() -> Path:
+    """Compile csrc/tick.cu for sm_90a into BUILD_DIR (once per source hash)
+    and return the library's path. BUILD_INFO records the seconds and the
+    compiler's register/spill report of the last build."""
+    out = BUILD_DIR / f"libtick_{_source_tag()}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [
+        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+        "-o", str(tmp), str(CSRC / "tick.cu"),
+    ]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    os.replace(tmp, out)
+    BUILD_INFO.update(seconds=time.perf_counter() - t0, ptxas=proc.stderr, path=str(out))
+    return out
+
+
+_LIB = None
+
+
+def _load_cuda():
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        lib.rs_tick_launch.argtypes = [
+            ctypes.POINTER(TickParams), ctypes.POINTER(ctypes.c_void_p),
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.rs_tick_launch.restype = ctypes.c_int
+        lib.rs_tick_n_ptr.restype = ctypes.c_int
+        if lib.rs_tick_n_ptr() != len(PTR_ORDER):
+            raise RuntimeError("csrc/tick.cuh Ptr enum and PTR_ORDER disagree")
+        _LIB = lib
+    return _LIB
+
+
+def leaf_specs(cfg: T.RaftConfig, b: int) -> dict:
+    """{(group, name): (shape, dtype)} of every batch-minor leaf the kernel
+    reads, for `b` clusters."""
+    boot = T.boot_state(cfg, torch.empty((b, cfg.n_nodes), dtype=torch.int32, device="meta"))
+    minor = lambda x: (tuple(x.shape[1:]) + (b,), x.dtype)  # noqa: E731
+    specs = {("state", f): minor(getattr(boot, f)) for f in STATE_IN}
+    specs.update({("mailbox", f): minor(getattr(boot.mailbox, f)) for f in MAILBOX_IO})
+    n, w = cfg.n_nodes, bitplane.n_words(cfg.n_nodes)
+    specs.update({
+        ("inputs", "deliver_mask"): ((n, w, b), torch.int32),
+        ("inputs", "skew"): ((n, b), torch.int32),
+        ("inputs", "timeout_draw"): ((n, b), torch.int32),
+        ("inputs", "client_cmd"): ((b,), torch.int32),
+        ("inputs", "alive"): ((n, b), torch.bool),
+        ("inputs", "restarted"): ((n, b), torch.bool),
+    })
+    return specs
+
+
+def check_supported(cfg: T.RaftConfig) -> None:
+    """Raise NotImplementedError for what the kernel does not take."""
+    raft_batched.check_gates(cfg, "step_cuda")
+    if cfg.n_nodes > MAX_NODES:
+        raise NotImplementedError(f"step_cuda takes n_nodes <= {MAX_NODES}, got {cfg.n_nodes}")
+    if cfg.max_entries_per_rpc > MAX_ENTRIES:
+        raise NotImplementedError(
+            f"step_cuda takes max_entries_per_rpc <= {MAX_ENTRIES}, got {cfg.max_entries_per_rpc}"
+        )
+
+
+def _prepare(cfg, s, inp, now, device_type):
+    """Validate every leaf, allocate the outputs and build the launch
+    arguments: (params, ptrs, tiers, outs). `tiers` are the byte widths of the
+    index, ack and node dtypes."""
+    check_supported(cfg)
+    b = s.role.shape[-1]
+    groups = {"state": s, "mailbox": s.mailbox, "inputs": inp}
+    for (group, name), (shape, dtype) in leaf_specs(cfg, b).items():
+        x = getattr(groups[group], name)
+        if not isinstance(x, torch.Tensor):
+            raise ValueError(f"{group}.{name}: expected a tensor, got {type(x).__name__}")
+        if x.device.type != device_type:
+            raise ValueError(f"{group}.{name}: on {x.device}, expected {device_type}")
+        if x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(
+                f"{group}.{name}: {tuple(x.shape)} {x.dtype}, expected {shape} {dtype}"
+            )
+        if not x.is_contiguous():
+            raise ValueError(f"{group}.{name}: not contiguous")
+        if x.device != s.role.device:
+            raise ValueError(f"{group}.{name}: on {x.device}, state on {s.role.device}")
+    track = cfg.track_offer_ticks
+    dev = s.role.device
+    outs = {
+        "state_out": {f: torch.empty_like(getattr(s, f)) for f in STATE_OUT},
+        "mailbox_out": {f: torch.empty_like(getattr(s.mailbox, f)) for f in MAILBOX_IO},
+        "info_out": {},
+    }
+    for f in INFO_OUT:
+        if f.startswith("viol"):
+            shape, dtype = (b,), torch.bool
+        elif f == "lat_hist":
+            shape, dtype = (T.LAT_HIST_BINS, b), torch.int32
+        else:
+            shape, dtype = (b,), torch.int32
+        outs["info_out"][f] = torch.empty(shape, dtype=dtype, device=dev)
+    if not track:  # gated-off legs pass through untouched
+        del outs["state_out"]["log_tick"], outs["mailbox_out"]["ent_tick"]
+    ptrs = (ctypes.c_void_p * len(PTR_ORDER))()
+    for k, (group, name) in enumerate(PTR_ORDER):
+        if not track and (group, name) in _TRACK_ONLY:
+            ptrs[k] = None
+            continue
+        src = outs[group][name] if group in outs else getattr(groups[group], name)
+        ptrs[k] = src.data_ptr()
+    params = TickParams(
+        b=b, n=cfg.n_nodes, e=cfg.max_entries_per_rpc, cap=cfg.log_capacity,
+        w=bitplane.n_words(cfg.n_nodes), quorum=cfg.quorum,
+        heartbeat=cfg.heartbeat_ticks, ack_sat=cfg.ack_age_sat,
+        ack_timeout=cfg.ack_timeout_ticks,
+        check_invariants=int(cfg.check_invariants),
+        log_matching_due=int(raft_batched.log_matching_due(cfg, s, now)),
+        track=int(track),
+    )
+    tiers = (
+        s.next_index.element_size(), s.ack_age.element_size(),
+        s.mailbox.v_to.element_size(),
+    )
+    return params, ptrs, tiers, outs
+
+
+def _assemble(s, outs):
+    """The new state (gated-off legs passed through) and StepInfo (gated-off
+    leaves as zeros of the JAX dtype and shape)."""
+    b = s.role.shape[-1]
+    dev = s.role.device
+    new_mb = s.mailbox._replace(**outs["mailbox_out"])
+    new_state = s._replace(**outs["state_out"], mailbox=new_mb)
+    z = torch.zeros((b,), dtype=torch.int32, device=dev)
+    step_info = T.StepInfo(
+        **outs["info_out"],
+        noop_blocked=z,
+        lm_skipped_pairs=z.clone(),
+        reads_served=z.clone(),
+        read_lat_sum=z.clone(),
+        read_hist=torch.zeros((T.LAT_HIST_BINS, b), dtype=torch.int32, device=dev),
+        viol_read_stale=torch.zeros((b,), dtype=torch.bool, device=dev),
+        fsync_lag_sum=z.clone(),
+        fsync_lag_max=z.clone(),
+    )
+    return new_state, step_info
+
+
+def _cuda_launch(params, ptrs, tiers, device) -> None:
+    """THE launch site: one tick kernel on the current stream, counted."""
+    lib = _load_cuda()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = lib.rs_tick_launch(ctypes.byref(params), ptrs, *tiers, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"tick kernel refused or failed to launch (code {rc})")
+    step_cuda.launches += 1
+
+
+def step_cuda(cfg: T.RaftConfig, s: T.ClusterState, inp: T.StepInputs, now: int | None = None):
+    """One tick for B clusters, batch-minor. CPU tensors run the plain
+    PyTorch tick; CUDA tensors run the Hopper kernel (or raise). `now` is the
+    host's copy of the lockstep tick (read back once when not given and the
+    log-matching cadence needs it)."""
+    if s.role.device.type == "cpu":
+        return raft_batched.step_b(cfg, s, inp, now)
+    if s.role.device.type != "cuda":
+        raise ValueError(f"step_cuda: tensors on {s.role.device}, expected cpu or cuda")
+    with torch.cuda.device(s.role.device):
+        params, ptrs, tiers, outs = _prepare(cfg, s, inp, now, "cuda")
+        _cuda_launch(params, ptrs, tiers, s.role.device)
+        return _assemble(s, outs)
+
+
+step_cuda.launches = 0
+
+
+def time_kernel(cfg, s, inp, reps: int = 20, now: int | None = None) -> float:
+    """Device milliseconds per kernel launch on CUDA state `s` and inputs
+    `inp`: the leaves are checked and the outputs allocated once, then `reps`
+    launches run back to back between two CUDA events, behind a device-side
+    sleep so the host's enqueueing stays off the clock. Each launch counts."""
+    with torch.cuda.device(s.role.device):
+        params, ptrs, tiers, outs = _prepare(cfg, s, inp, now, "cuda")
+        _cuda_launch(params, ptrs, tiers, s.role.device)  # warm-up
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)
+        start.record()
+        for _ in range(reps):
+            _cuda_launch(params, ptrs, tiers, s.role.device)
+        end.record()
+        torch.cuda.synchronize()
+        del outs
+        return start.elapsed_time(end) / reps
+
+
+def load_host(path) -> ctypes.CDLL:
+    """Load a CPU build of the tick body (csrc/tick_host.cpp compiled with a
+    host C++ compiler) for `step_host`."""
+    lib = ctypes.CDLL(str(path))
+    lib.rs_tick_host.argtypes = [
+        ctypes.POINTER(TickParams), ctypes.POINTER(ctypes.c_void_p),
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ]
+    lib.rs_tick_host.restype = ctypes.c_int
+    lib.rs_tick_n_ptr.restype = ctypes.c_int
+    if lib.rs_tick_n_ptr() != len(PTR_ORDER):
+        raise RuntimeError("csrc/tick.cuh Ptr enum and PTR_ORDER disagree")
+    return lib
+
+
+def step_host(lib, cfg, s, inp, now: int | None = None):
+    """The kernel's per-cluster body, built for the CPU (`load_host`), on CPU
+    tensors: the same leaf checks, pointer table and outputs as `step_cuda`,
+    so tests hold the kernel's own logic against the plain tick."""
+    params, ptrs, tiers, outs = _prepare(cfg, s, inp, now, "cpu")
+    rc = lib.rs_tick_host(ctypes.byref(params), ptrs, *tiers)
+    if rc != 0:
+        raise RuntimeError(f"tick body refused the shapes or tiers (code {rc})")
+    return _assemble(s, outs)
+
+
+def traffic_bytes(cfg: T.RaftConfig, b: int) -> tuple[int, int]:
+    """(bytes read, bytes written) by one tick of the kernel on `b` clusters:
+    every leaf it reads once and every leaf it writes once -- the memory
+    traffic its bound is computed from."""
+    track = cfg.track_offer_ticks
+    size = lambda shape, dtype: math.prod(shape) * torch.empty((), dtype=dtype).element_size()  # noqa: E731
+    read = sum(
+        size(shape, dtype)
+        for key, (shape, dtype) in leaf_specs(cfg, b).items()
+        if track or key not in _TRACK_ONLY
+    )
+    specs = leaf_specs(cfg, b)
+    written = sum(
+        size(*specs[("state", f)]) for f in STATE_OUT if track or f != "log_tick"
+    ) + sum(
+        size(*specs[("mailbox", f)]) for f in MAILBOX_IO if track or f != "ent_tick"
+    )
+    written += 3 * b + (len(INFO_OUT) - 4) * 4 * b + T.LAT_HIST_BINS * 4 * b
+    return read, written

@@ -1,0 +1,182 @@
+"""The tick loop with per-cluster metrics (the port of raft_sim_tpu/sim/scan.py's
+batch-minor path).
+
+`simulate(cfg, seed, batch, n_ticks)` is the main path: init from the seed,
+then `n_ticks` of `tick_batch_minor` -- input draws (sim/faults.py), the tick
+(kernels/tick_engine.step_cuda: the Hopper kernel for CUDA tensors, the plain
+PyTorch step for CPU tensors) and the metric fold. The JAX `lax.scan` becomes a
+Python loop. All clusters run in lockstep, so the loop keeps `now` on the host
+and reads nothing back from the device per tick.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from raft_sim_tpu_torch.kernels import tick_engine
+from raft_sim_tpu_torch.models import raft_batched
+from raft_sim_tpu_torch.sim import faults
+from raft_sim_tpu_torch.types import LAT_HIST_BINS, NIL, ClusterState, StepInfo, init_batch
+from raft_sim_tpu_torch.utils import device as device_mod
+from raft_sim_tpu_torch.utils import threefry
+from raft_sim_tpu_torch.utils.config import RaftConfig
+
+NEVER = 2**31 - 1
+_BIG = NEVER
+
+
+class RunMetrics(NamedTuple):
+    """Per-cluster run summary; fields, dtypes and meaning as the JAX
+    RunMetrics. Public layout [B] ([B, BINS] for the histograms)."""
+
+    violations: torch.Tensor
+    first_leader_tick: torch.Tensor
+    last_leaderless_tick: torch.Tensor
+    max_term: torch.Tensor
+    max_commit: torch.Tensor
+    min_commit: torch.Tensor
+    total_msgs: torch.Tensor
+    total_cmds: torch.Tensor
+    lat_sum: torch.Tensor
+    lat_cnt: torch.Tensor
+    lat_hist: torch.Tensor
+    lat_excluded: torch.Tensor
+    noop_blocked: torch.Tensor
+    lm_skipped_pairs: torch.Tensor
+    reads_served: torch.Tensor
+    read_lat_sum: torch.Tensor
+    read_hist: torch.Tensor
+    fsync_lag_sum: torch.Tensor
+    fsync_lag_max: torch.Tensor
+    multi_leader: torch.Tensor
+    ticks: torch.Tensor
+
+
+def init_metrics_batch(batch: int, device="cpu") -> RunMetrics:
+    """Zeroed RunMetrics with a leading [batch] axis."""
+    z = lambda v=0: torch.full((batch,), v, dtype=torch.int32, device=device)  # noqa: E731
+    h = lambda: torch.zeros((batch, LAT_HIST_BINS), dtype=torch.int32, device=device)  # noqa: E731
+    return RunMetrics(
+        violations=z(),
+        first_leader_tick=z(NEVER),
+        last_leaderless_tick=z(-1),
+        max_term=z(),
+        max_commit=z(),
+        min_commit=z(),
+        total_msgs=z(),
+        total_cmds=z(),
+        lat_sum=z(),
+        lat_cnt=z(),
+        lat_hist=h(),
+        lat_excluded=z(),
+        noop_blocked=z(),
+        lm_skipped_pairs=z(),
+        reads_served=z(),
+        read_lat_sum=z(),
+        read_hist=h(),
+        fsync_lag_sum=z(),
+        fsync_lag_max=z(),
+        multi_leader=z(),
+        ticks=z(),
+    )
+
+
+def step_bad(info: StepInfo) -> torch.Tensor:
+    """Per-tick any-invariant-tripped predicate (the JAX step_bad). The port's
+    step emits real zero tensors for gated-off legs, where JAX emits host
+    constants and skips their folds; folding those zeros leaves the JAX values."""
+    return (
+        info.viol_election_safety
+        | info.viol_commit
+        | info.viol_log_matching
+        | info.viol_read_stale
+    )
+
+
+def _accumulate(m: RunMetrics, info: StepInfo, tick: torch.Tensor) -> RunMetrics:
+    has_leader = info.leader != NIL
+    i32 = torch.int32
+    return RunMetrics(
+        violations=m.violations + step_bad(info).to(i32),
+        first_leader_tick=torch.minimum(
+            m.first_leader_tick, torch.where(has_leader, tick, _BIG)
+        ),
+        last_leaderless_tick=torch.maximum(
+            m.last_leaderless_tick, torch.where(has_leader, -1, tick)
+        ),
+        max_term=torch.maximum(m.max_term, info.max_term),
+        max_commit=torch.maximum(m.max_commit, info.max_commit),
+        min_commit=info.min_commit,
+        total_msgs=m.total_msgs + info.msgs_delivered,
+        total_cmds=m.total_cmds + info.cmds_injected,
+        lat_sum=m.lat_sum + info.lat_sum,
+        lat_cnt=m.lat_cnt + info.lat_cnt,
+        lat_hist=m.lat_hist + info.lat_hist,
+        lat_excluded=m.lat_excluded + info.lat_excluded,
+        noop_blocked=m.noop_blocked + info.noop_blocked,
+        lm_skipped_pairs=m.lm_skipped_pairs + info.lm_skipped_pairs,
+        reads_served=m.reads_served + info.reads_served,
+        read_lat_sum=m.read_lat_sum + info.read_lat_sum,
+        read_hist=m.read_hist + info.read_hist,
+        fsync_lag_sum=m.fsync_lag_sum + info.fsync_lag_sum,
+        fsync_lag_max=torch.maximum(m.fsync_lag_max, info.fsync_lag_max),
+        multi_leader=m.multi_leader + (info.n_leaders >= 2).to(i32),
+        ticks=m.ticks + 1,
+    )
+
+
+def tick_batch_minor(cfg, s, keys, metrics, now: int, step_fn=None):
+    """ONE tick of the batch-minor path: input draws, step, metric fold.
+    `s`/`metrics` are batch-minor, `keys` [B, 2], `now` the host's copy of the
+    lockstep tick. Returns (state, metrics, StepInfo), all batch-minor."""
+    if step_fn is None:
+        step_fn = tick_engine.step_cuda
+    inp = faults.make_inputs(cfg, keys, now)
+    inp_t = raft_batched.to_batch_minor(inp)
+    s2, info = step_fn(cfg, s, inp_t, now)
+    return s2, _accumulate(metrics, info, s.now), info
+
+
+def run_batch_minor(
+    cfg: RaftConfig,
+    state: ClusterState,
+    keys: torch.Tensor,
+    n_ticks: int,
+    step_fn=None,
+    now: int | None = None,
+):
+    """`n_ticks` ticks from a [B, ...]-leading `state`; returns (final state,
+    RunMetrics), both [B, ...]-leading. The batch axis moves minor once at
+    entry and back once at exit. `now` is the host's copy of the state's tick
+    (read once from the state when not given)."""
+    batch = state.role.shape[0]
+    if now is None:
+        now = int(state.now.reshape(-1)[0]) if batch else 0
+    s = raft_batched.to_batch_minor(state)
+    m = raft_batched.to_batch_minor(init_metrics_batch(batch, state.role.device))
+    for t in range(now, now + n_ticks):
+        s, m, _ = tick_batch_minor(cfg, s, keys, m, t, step_fn=step_fn)
+    return raft_batched.from_batch_minor(s), raft_batched.from_batch_minor(m)
+
+
+def simulate(
+    cfg: RaftConfig, seed: int, batch: int, n_ticks: int, device="cuda", step_fn=None
+):
+    """One-call batched simulation from a seed: init + `n_ticks` ticks, on
+    `device`. Same key derivation as the JAX `simulate` (root key, split into
+    init and run streams), so the result equals it leaf for leaf. `step_fn`
+    overrides the tick (default: kernels/tick_engine.step_cuda)."""
+    dev = device_mod.resolve(device)
+    root = threefry.key(seed, dev)
+    k_init, k_run = threefry.split(root, 2).unbind(dim=-2)
+    state = init_batch(cfg, k_init, batch)
+    keys = threefry.split(k_run, batch)
+    return run_batch_minor(cfg, state, keys, n_ticks, step_fn=step_fn, now=0)
+
+
+def stable_leader_ticks(metrics: RunMetrics) -> torch.Tensor:
+    """Ticks-to-stable-leader per cluster (_BIG if the run ended leaderless)."""
+    ended_with_leader = metrics.last_leaderless_tick < metrics.ticks - 1
+    return torch.where(ended_with_leader, metrics.last_leaderless_tick + 1, _BIG)

@@ -1,0 +1,329 @@
+"""Struct-of-arrays state for batched Raft cluster simulation (the port of
+raft_sim_tpu/types.py).
+
+`Mailbox`, `ClusterState`, `StepInputs` and `StepInfo` keep the JAX package's
+field names and order, so leaves line up one to one (raft_sim_tpu_torch/
+bridge.py converts between the two). Read the JAX module for what each field
+means; this one restates only shapes and dtypes.
+
+Dtypes follow the JAX package's tiers (`index_dtype`, `ack_dtype`,
+`node_dtype`), with one carrier change: the JAX uint32 legs (the packed
+bit-planes `votes`, `member_*`, `base_mold`, `read_acks`, `pv_grant`,
+`req_base_mold`, `deliver_mask`, and the checksums `commit_chk`, `base_chk`,
+`req_base_chk`) ride `torch.int32` holding the same bit patterns, because
+torch's CPU uint32 lacks add/lt/rshift/sum. `U32_LEAVES` names them; the bridge
+views them back as uint32.
+
+Public shapes are `[B, ...]`-leading like the JAX package's `init_batch`; the
+tick runs batch-minor `[..., B]` (sim/scan.py moves the axis once per run).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from raft_sim_tpu_torch.ops import bitplane
+from raft_sim_tpu_torch.utils import config as config_mod
+from raft_sim_tpu_torch.utils import threefry
+from raft_sim_tpu_torch.utils.config import (  # noqa: F401  (re-exported)
+    ACK_AGE_SAT,
+    ACK_AGE_SAT_NARROW,
+    MAX_LOG_CAPACITY,
+    RaftConfig,
+)
+from raft_sim_tpu_torch.utils.rng import draw_timeouts
+
+FOLLOWER = 0
+CANDIDATE = 1
+LEADER = 2
+PRECANDIDATE = 3
+
+REQ_NONE = 0
+REQ_VOTE = 1
+REQ_APPEND = 2
+REQ_PREVOTE = 3
+REQ_TIMEOUT_NOW = 4
+
+RESP_NONE = 0
+RESP_VOTE = 1
+RESP_APPEND = 2
+RESP_PREVOTE = 3
+
+NIL = -1
+LAT_HIST_BINS = 16
+NOOP = -2
+
+MAX_INT8_LOG_CAPACITY = config_mod.max_log_capacity_for(127)
+MAX_INT8_NODES = config_mod.max_nodes_for(127)
+
+# Leaves whose JAX dtype is uint32 (carried here as int32 bit patterns).
+U32_LEAVES = frozenset(
+    {
+        "votes",
+        "commit_chk",
+        "base_chk",
+        "member_old",
+        "member_new",
+        "base_mold",
+        "read_acks",
+        "req_base_chk",
+        "req_base_mold",
+        "pv_grant",
+        "deliver_mask",
+    }
+)
+
+
+def ack_dtype(cfg: RaftConfig) -> torch.dtype:
+    """Ack-age plane: int8 whenever the saturation ceiling fits it."""
+    return torch.int8 if cfg.ack_age_sat < 127 else torch.int16
+
+
+def index_dtype(cfg: RaftConfig) -> torch.dtype:
+    """Per-edge log-index planes and the match/hint wire fields."""
+    if cfg.compaction:
+        return torch.int32
+    return torch.int8 if cfg.log_capacity <= MAX_INT8_LOG_CAPACITY else torch.int16
+
+
+def node_dtype(cfg: RaftConfig) -> torch.dtype:
+    """Node-id wire fields (xfer_tgt/v_to/a_ok_to)."""
+    return torch.int8 if cfg.n_nodes <= MAX_INT8_NODES else torch.int16
+
+
+class Mailbox(NamedTuple):
+    req_type: torch.Tensor  # [N] int32
+    req_term: torch.Tensor  # [N] int32
+    req_commit: torch.Tensor  # [N] int32
+    req_last_index: torch.Tensor  # [N] int32
+    req_last_term: torch.Tensor  # [N] int32
+    ent_start: torch.Tensor  # [N] int32
+    ent_prev_term: torch.Tensor  # [N] int32
+    ent_count: torch.Tensor  # [N] int32
+    ent_term: torch.Tensor  # [N, E] int32
+    ent_val: torch.Tensor  # [N, E] int32
+    ent_tick: torch.Tensor  # [N, E] int32
+    req_base: torch.Tensor  # [N] int32
+    req_base_term: torch.Tensor  # [N] int32
+    req_base_chk: torch.Tensor  # [N] uint32 (int32 carrier)
+    xfer_tgt: torch.Tensor  # [N] node_dtype
+    req_disrupt: torch.Tensor  # [N] int8
+    ent_cfg: torch.Tensor  # [N, E] int32
+    req_base_mold: torch.Tensor  # [N, W] uint32 (int32 carrier)
+    req_base_pend: torch.Tensor  # [N] int32
+    req_base_epoch: torch.Tensor  # [N] int32
+    req_off: torch.Tensor  # [N(sender), N(receiver)] int8
+    resp_kind: torch.Tensor  # [N(receiver), N(responder)] int8
+    pv_grant: torch.Tensor  # [N, W] uint32 (int32 carrier)
+    v_to: torch.Tensor  # [N] node_dtype
+    a_ok_to: torch.Tensor  # [N] node_dtype
+    a_match: torch.Tensor  # [N] index_dtype
+    a_hint: torch.Tensor  # [N] index_dtype
+    resp_term: torch.Tensor  # [N] int32
+
+
+class ClusterState(NamedTuple):
+    role: torch.Tensor  # [N] int32
+    term: torch.Tensor  # [N] int32
+    voted_for: torch.Tensor  # [N] int32
+    leader_id: torch.Tensor  # [N] int32
+    votes: torch.Tensor  # [N, W] uint32 (int32 carrier)
+    next_index: torch.Tensor  # [N, N] index_dtype
+    match_index: torch.Tensor  # [N, N] index_dtype
+    ack_age: torch.Tensor  # [N, N] ack_dtype
+    commit_index: torch.Tensor  # [N] int32
+    commit_chk: torch.Tensor  # [N] uint32 (int32 carrier)
+    log_base: torch.Tensor  # [N] int32
+    base_term: torch.Tensor  # [N] int32
+    base_chk: torch.Tensor  # [N] uint32 (int32 carrier)
+    log_term: torch.Tensor  # [N, CAP] int32
+    log_val: torch.Tensor  # [N, CAP] int32
+    log_tick: torch.Tensor  # [N, CAP] int32
+    log_len: torch.Tensor  # [N] int32
+    dur_len: torch.Tensor  # [N] int32
+    dur_term: torch.Tensor  # [N] int32
+    dur_vote: torch.Tensor  # [N] int32
+    clock: torch.Tensor  # [N] int32
+    deadline: torch.Tensor  # [N] int32
+    heard_clock: torch.Tensor  # [N] int32
+    member_old: torch.Tensor  # [N, W] uint32 (int32 carrier)
+    member_new: torch.Tensor  # [N, W] uint32 (int32 carrier)
+    cfg_epoch: torch.Tensor  # [N] int32
+    cfg_pend: torch.Tensor  # [N] int32
+    log_cfg: torch.Tensor  # [N, CAP] int32
+    base_mold: torch.Tensor  # [N, W] uint32 (int32 carrier)
+    base_pend: torch.Tensor  # [N] int32
+    base_epoch: torch.Tensor  # [N] int32
+    xfer_to: torch.Tensor  # [N] int32
+    read_idx: torch.Tensor  # [N] int32
+    read_tick: torch.Tensor  # [N] int32
+    read_acks: torch.Tensor  # [N, W] uint32 (int32 carrier)
+    read_fr: torch.Tensor  # [N] int32
+    client_pend: torch.Tensor  # [K] int32
+    client_dst: torch.Tensor  # [K] int32
+    client_tick: torch.Tensor  # [K] int32
+    lat_frontier: torch.Tensor  # scalar int32
+    now: torch.Tensor  # scalar int32
+    mailbox: Mailbox
+
+
+class StepInputs(NamedTuple):
+    deliver_mask: torch.Tensor  # [N, W] uint32 (int32 carrier); bit src of row dst
+    skew: torch.Tensor  # [N] int32
+    timeout_draw: torch.Tensor  # [N] int32
+    client_cmd: torch.Tensor  # scalar int32
+    client_target: torch.Tensor  # scalar int32
+    client_bounce: torch.Tensor  # [K] int32
+    alive: torch.Tensor  # [N] bool
+    restarted: torch.Tensor  # [N] bool
+    reconfig_cmd: torch.Tensor  # scalar int32
+    transfer_cmd: torch.Tensor  # scalar int32
+    read_cmd: torch.Tensor  # scalar int32
+    fsync_fire: torch.Tensor  # [N] bool
+    torn_drop: torch.Tensor  # [N] int32
+
+
+class StepInfo(NamedTuple):
+    viol_election_safety: torch.Tensor  # bool
+    viol_commit: torch.Tensor  # bool
+    viol_log_matching: torch.Tensor  # bool
+    leader: torch.Tensor  # int32
+    n_leaders: torch.Tensor  # int32
+    max_term: torch.Tensor  # int32
+    max_commit: torch.Tensor  # int32
+    min_commit: torch.Tensor  # int32
+    msgs_delivered: torch.Tensor  # int32
+    cmds_injected: torch.Tensor  # int32
+    lat_sum: torch.Tensor  # int32
+    lat_cnt: torch.Tensor  # int32
+    lat_hist: torch.Tensor  # [LAT_HIST_BINS] int32
+    lat_excluded: torch.Tensor  # int32
+    noop_blocked: torch.Tensor  # int32
+    lm_skipped_pairs: torch.Tensor  # int32
+    reads_served: torch.Tensor  # int32
+    read_lat_sum: torch.Tensor  # int32
+    read_hist: torch.Tensor  # [LAT_HIST_BINS] int32
+    viol_read_stale: torch.Tensor  # bool
+    fsync_lag_sum: torch.Tensor  # int32
+    fsync_lag_max: torch.Tensor  # int32
+
+
+def empty_mailbox(cfg: RaftConfig, lead=(), device="cpu") -> Mailbox:
+    """The JAX package's empty_mailbox, with optional leading batch dims."""
+    n, e = cfg.n_nodes, cfg.max_entries_per_rpc
+    w = bitplane.n_words(n)
+
+    def full(shape, value, dtype):
+        return torch.full(tuple(lead) + shape, value, dtype=dtype, device=device)
+
+    i = lambda *s: full(s, 0, torch.int32)  # noqa: E731
+    return Mailbox(
+        req_type=i(n),
+        req_term=i(n),
+        req_commit=i(n),
+        req_last_index=i(n),
+        req_last_term=i(n),
+        ent_start=i(n),
+        ent_prev_term=i(n),
+        ent_count=i(n),
+        ent_term=i(n, e),
+        ent_val=i(n, e),
+        ent_tick=i(n, e),
+        req_base=i(n),
+        req_base_term=i(n),
+        req_base_chk=i(n),
+        xfer_tgt=full((n,), NIL, node_dtype(cfg)),
+        req_disrupt=full((n,), 0, torch.int8),
+        ent_cfg=i(n, e),
+        req_base_mold=i(n, w),
+        req_base_pend=i(n),
+        req_base_epoch=i(n),
+        req_off=full((n, n), 0, torch.int8),
+        resp_kind=full((n, n), 0, torch.int8),
+        pv_grant=i(n, w),
+        v_to=full((n,), NIL, node_dtype(cfg)),
+        a_ok_to=full((n,), NIL, node_dtype(cfg)),
+        a_match=full((n,), 0, index_dtype(cfg)),
+        a_hint=full((n,), 0, index_dtype(cfg)),
+        resp_term=i(n),
+    )
+
+
+def boot_state(cfg: RaftConfig, deadline: torch.Tensor) -> ClusterState:
+    """Boot state around `deadline` ([*lead, N] int32): the JAX init_state."""
+    if cfg.compact_planes:
+        raise NotImplementedError(
+            "compact_planes (the compacted carry layout) is not ported yet"
+        )
+    lead = tuple(deadline.shape[:-1])
+    dev = deadline.device
+    n, cap, k = cfg.n_nodes, cfg.log_capacity, cfg.client_pipeline
+    w = bitplane.n_words(n)
+
+    def full(shape, value, dtype=torch.int32):
+        return torch.full(lead + shape, value, dtype=dtype, device=dev)
+
+    def member():
+        if cfg.reconfig:
+            return bitplane.full_row(n, dev).expand(lead + (n, w)).clone()
+        return full((n, w), 0)
+
+    return ClusterState(
+        role=full((n,), FOLLOWER),
+        term=full((n,), 1),
+        voted_for=full((n,), NIL),
+        leader_id=full((n,), NIL),
+        votes=full((n, w), 0),
+        next_index=full((n, n), 1, index_dtype(cfg)),
+        match_index=full((n, n), 0, index_dtype(cfg)),
+        ack_age=full((n, n), cfg.ack_age_sat, ack_dtype(cfg)),
+        commit_index=full((n,), 0),
+        commit_chk=full((n,), 0),
+        log_base=full((n,), 0),
+        base_term=full((n,), 0),
+        base_chk=full((n,), 0),
+        log_term=full((n, cap), 0),
+        log_val=full((n, cap), 0),
+        log_tick=full((n, cap), 0),
+        log_len=full((n,), 0),
+        dur_len=full((n,), 0),
+        dur_term=full((n,), 1),
+        dur_vote=full((n,), NIL),
+        clock=full((n,), 0),
+        deadline=deadline.to(torch.int32),
+        heard_clock=full((n,), -cfg.election_min_ticks),
+        member_old=member(),
+        member_new=member(),
+        cfg_epoch=full((n,), 0),
+        cfg_pend=full((n,), 0),
+        log_cfg=full((n, cap), 0),
+        base_mold=member(),
+        base_pend=full((n,), 0),
+        base_epoch=full((n,), 0),
+        xfer_to=full((n,), NIL),
+        read_idx=full((n,), 0),
+        read_tick=full((n,), 0),
+        read_acks=full((n, w), 0),
+        read_fr=full((n,), 0),
+        client_pend=full((k,), NIL),
+        client_dst=full((k,), 0),
+        client_tick=full((k,), 0),
+        lat_frontier=full((), 0),
+        now=full((), 0),
+        mailbox=empty_mailbox(cfg, lead, dev),
+    )
+
+
+def init_state(cfg: RaftConfig, key: torch.Tensor) -> ClusterState:
+    """Fresh cluster from one `[2]` key: all followers at term 1, empty logs,
+    randomized initial deadlines (the JAX init_state)."""
+    return boot_state(cfg, draw_timeouts(cfg, key, cfg.n_nodes))
+
+
+def init_batch(cfg: RaftConfig, key: torch.Tensor, batch: int) -> ClusterState:
+    """[batch, ...] clusters, cluster b keyed by split(key, batch)[b] -- the
+    JAX `jax.vmap(init_state)(jax.random.split(key, batch))`."""
+    keys = threefry.split(key, batch)
+    return boot_state(cfg, draw_timeouts(cfg, keys, cfg.n_nodes))

@@ -1,0 +1,84 @@
+"""The port's per-tick input draws (raft_sim_tpu_torch/sim/faults.py) against
+`jax.vmap(faults.make_inputs)`.
+
+Tolerance: exact equality of every StepInputs leaf (value, dtype, shape; the
+packed delivery mask compared as uint32).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+import raft_sim_tpu as rst
+from raft_sim_tpu.sim import faults as jfaults
+from raft_sim_tpu_torch import bridge
+from raft_sim_tpu_torch.sim import faults as tfaults
+from raft_sim_tpu_torch.utils import config as tconfig
+from raft_sim_tpu_torch.utils import threefry
+
+torch.set_num_threads(1)
+
+ROWS = [
+    pytest.param(rst.PRESETS[name][0], id=name)
+    for name in ("config1", "config2", "config3", "config4", "config5")
+] + [
+    # tests/test_oracle_parity.py's no-crash rows.
+    pytest.param(rst.RaftConfig(n_nodes=3, log_capacity=8, client_interval=3), id="n3"),
+    pytest.param(
+        rst.RaftConfig(n_nodes=5, log_capacity=8, max_entries_per_rpc=2, client_interval=2),
+        id="n5-narrow-rpc",
+    ),
+    pytest.param(
+        rst.RaftConfig(
+            n_nodes=5, log_capacity=6, client_interval=1, drop_prob=0.25, clock_skew_prob=0.2
+        ),
+        id="n5-faults",
+    ),
+    pytest.param(
+        rst.RaftConfig(
+            n_nodes=4, log_capacity=8, client_interval=4, drop_prob=0.15,
+            partition_period=10, partition_prob=0.7,
+        ),
+        id="n4-partitions",
+    ),
+    pytest.param(rst.RaftConfig(n_nodes=5, drop_prob=1.0, drop_prob_uniform=True), id="drop-1.0-uniform"),
+]
+TICKS = list(range(0, 40)) + [63, 64, 65, 95, 96, 1000, 2**20 + 3]
+
+
+def _port_cfg(jcfg):
+    return tconfig.RaftConfig(**{f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)})
+
+
+@pytest.mark.parametrize("jcfg", ROWS)
+def test_make_inputs_matches_jax(jcfg):
+    cfg = _port_cfg(jcfg)
+    B = 6
+    keys = jax.random.split(jax.random.key(21), B)
+    tkeys = threefry.split(threefry.key(21), B)
+    draw = jax.jit(lambda k, now: jax.vmap(lambda kk: jfaults.make_inputs(jcfg, kk, now))(k))
+    for now in TICKS:
+        want = jax.device_get(draw(keys, jnp.int32(now)))
+        got = tfaults.make_inputs(cfg, tkeys, now)
+        diff = bridge.first_difference(want, got)
+        assert diff is None, f"tick {now}: {diff}"
+
+
+@pytest.mark.parametrize(
+    "kw,gate",
+    [
+        (dict(crash_prob=0.2), "crash_prob"),
+        (dict(client_redirect=True, client_interval=4), "client_redirect"),
+        (dict(reconfig_interval=10), "reconfig"),
+        (dict(read_interval=3), "reads"),
+        (dict(fsync_interval=3), "durable_storage"),
+    ],
+    ids=lambda x: x if isinstance(x, str) else None,
+)
+def test_unported_input_gates_raise(kw, gate):
+    cfg = tconfig.RaftConfig(**kw)
+    with pytest.raises(NotImplementedError, match=gate):
+        tfaults.make_inputs(cfg, threefry.split(threefry.key(0), 2), 0)

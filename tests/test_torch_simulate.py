@@ -1,0 +1,147 @@
+"""The port's main path end to end on the CPU: `simulate` (init from the seed,
+input draws, tick, metric fold) against the JAX package's `scan.simulate`, the
+fleet summary against `parallel.summarize`, the CLI, and the device rules.
+
+Tolerance: exact equality of the final ClusterState and every RunMetrics leaf
+(value, dtype, shape), and equal FleetSummary values.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import pytest
+import torch
+
+import raft_sim_tpu as rst
+from raft_sim_tpu.parallel import summarize as jsummarize
+from raft_sim_tpu.sim import scan as jscan
+from raft_sim_tpu_torch import bridge
+from raft_sim_tpu_torch.sim import scan as tscan
+from raft_sim_tpu_torch.summary import summarize as tsummarize
+from raft_sim_tpu_torch.utils import config as tconfig
+
+torch.set_num_threads(1)
+REPO = Path(__file__).resolve().parent.parent
+
+CASES = [
+    # (preset, batch, ticks): small B and T; config1 at its own batch of 1.
+    pytest.param("config1", 1, 100, id="config1"),
+    pytest.param("config2", 8, 100, id="config2"),
+    pytest.param("config3", 8, 80, id="config3"),
+    pytest.param("config4", 8, 100, id="config4"),
+    pytest.param("config5", 4, 64, id="config5"),
+]
+
+
+@pytest.mark.parametrize("name,batch,ticks", CASES)
+def test_simulate_matches_jax(name, batch, ticks):
+    jcfg, _ = rst.PRESETS[name]
+    tcfg, _ = tconfig.PRESETS[name]
+    want_s, want_m = jax.device_get(jscan.simulate(jcfg, 7, batch, ticks))
+    got_s, got_m = tscan.simulate(tcfg, 7, batch, ticks, device="cpu")
+    assert bridge.first_difference(want_s, got_s) is None
+    assert bridge.first_difference(want_m, got_m) is None
+    assert tsummarize(got_m)._asdict() == jsummarize(want_m)._asdict()
+    assert int(got_m.violations.sum()) == 0
+
+
+def test_summarize_matches_jax_with_latency_traffic():
+    """A run with client traffic exercises every latency readout."""
+    jcfg = rst.RaftConfig(n_nodes=5, log_capacity=64, client_interval=2, drop_prob=0.1)
+    tcfg = tconfig.RaftConfig(**{f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)})
+    _, want_m = jax.device_get(jscan.simulate(jcfg, 3, 12, 120))
+    _, got_m = tscan.simulate(tcfg, 3, 12, 120, device="cpu")
+    want = jsummarize(want_m)._asdict()
+    got = tsummarize(got_m)._asdict()
+    assert got == want
+    assert want["lat_p99"] is not None and want["total_cmds"] > 0
+
+
+def test_stable_leader_ticks_matches_jax():
+    jcfg, _ = rst.PRESETS["config4"]
+    tcfg, _ = tconfig.PRESETS["config4"]
+    _, want_m = jscan.simulate(jcfg, 1, 6, 60)
+    _, got_m = tscan.simulate(tcfg, 1, 6, 60, device="cpu")
+    assert jax.device_get(jscan.stable_leader_ticks(want_m)).tolist() == (
+        tscan.stable_leader_ticks(got_m).tolist()
+    )
+
+
+def _run_cli(*args):
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    return subprocess.run(
+        [sys.executable, "-m", "raft_sim_tpu_torch", *args],
+        capture_output=True, text=True, cwd=REPO, env=env, timeout=300,
+    )
+
+
+def test_cli_run_on_cpu():
+    import json
+
+    proc = _run_cli("run", "--preset", "config2", "--batch", "8", "--ticks", "50", "--device", "cpu")
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["n_clusters"] == 8 and out["total_violations"] == 0 and out["device"] == "cpu"
+
+
+def test_cli_presets():
+    proc = _run_cli("presets")
+    assert proc.returncode == 0, proc.stderr
+    assert "config5: batch=10000" in proc.stdout
+
+
+def test_default_device_raises_without_a_card():
+    """The entry points default to the card and never drop to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    cfg, _ = tconfig.PRESETS["config2"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tscan.simulate(cfg, 0, 2, 3)
+    proc = _run_cli("run", "--preset", "config2", "--batch", "2", "--ticks", "3")
+    assert proc.returncode != 0 and "no CUDA device" in proc.stderr
+
+
+@pytest.mark.parametrize(
+    "kw,gate",
+    [(dict(pre_vote=True), "pre_vote"), (dict(crash_prob=0.2), "crash_prob"),
+     (dict(compact_margin=4, log_capacity=16), "compaction")],
+    ids=lambda x: x if isinstance(x, str) else None,
+)
+def test_simulate_unsupported_gate_raises(kw, gate):
+    with pytest.raises(NotImplementedError, match=gate):
+        tscan.simulate(tconfig.RaftConfig(**kw), 0, 2, 3, device="cpu")
+
+
+def test_tick_batch_minor_matches_jax():
+    """tick_batch_minor's state, metrics and StepInfo equal the JAX
+    package's, tick by tick for 8 ticks with client traffic, from the same
+    mid-run state carried across by the bridge."""
+    from raft_sim_tpu.models import raft_batched as jrb
+    from raft_sim_tpu_torch import types as ttypes
+    from raft_sim_tpu_torch.models import raft_batched as trb
+    from raft_sim_tpu_torch.utils import threefry
+
+    jcfg, _ = rst.PRESETS["config2"]
+    tcfg, _ = tconfig.PRESETS["config2"]
+    B, T = 4, 30
+    state, _ = jscan.simulate(jcfg, 2, B, T)
+    keys = jax.random.split(jax.random.split(jax.random.key(2))[1], B)
+    s_t = jrb.to_batch_minor(state)
+    m_t = jrb.to_batch_minor(jscan.init_metrics_batch(B))
+    ps = trb.to_batch_minor(bridge.to_port(jax.device_get(state), ttypes.ClusterState))
+    pm = trb.to_batch_minor(tscan.init_metrics_batch(B))
+    tkeys = threefry.split(threefry.split(threefry.key(2), 2)[1], B)
+    injected = 0
+    for t in range(T, T + 8):
+        s_t, m_t, j_info = jscan.tick_batch_minor(jcfg, s_t, keys, m_t)
+        want = jax.device_get((s_t, m_t, j_info))
+        got = tscan.tick_batch_minor(tcfg, ps, tkeys, pm, t)
+        for w, g in zip(want, got):
+            assert bridge.first_difference(w, g) is None
+        ps, pm, info = got
+        injected += int(info.cmds_injected.sum())
+    assert injected > 0
