@@ -8,25 +8,35 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
 1. device  -- `nvidia-smi` name and power limit, torch and CUDA versions, then
    the tick kernel's build from raft_sim_tpu_torch/csrc (nvcc, sm_90a) with its
    seconds and the compiler's register/spill report.
-2. kernel_vs_plain -- presets config1-config5 at a batch of 200 (one full
-   block and a ragged edge; config1 at its batch of 1): every tick, the kernel
-   (`step_cuda`) on the card equals the plain PyTorch tick
-   (`raft_batched.step_b`) on the card from the same state and inputs, leaf
-   for leaf; then `simulate` through the kernel equals `simulate` through the
-   plain tick. Exact equality: the tick is integer-only.
+2. kernel_vs_plain -- presets config1-config5 and config3p for 96 ticks,
+   config6 and config6r for 400 (their CAP=32 rings wrap near tick 130), at a
+   batch of 200 (one full block and a ragged edge; config1 at its batch of 1),
+   plus config6-cap8 (config6 on an 8-slot ring with 2-entry windows and an
+   offer every 2 ticks) for 200 ticks: every tick, the kernel (`step_cuda`) on
+   the card equals the plain PyTorch tick (`raft_batched.step_b`) on the card
+   from the same state and inputs, leaf for leaf; then `simulate` through the
+   kernel equals `simulate` through the plain tick for up to 96 ticks (the
+   per-tick check already covers the longer runs). Exact equality: the tick
+   is integer-only. Over the slice-2 runs it counts restarts drawn, compactions
+   (log_base advanced), InstallSnapshot sentinels sent (AppendEntries edges
+   with offset -1) and redirect bounces to a down target (config6r), and
+   requires each above 0. config6 itself sends no sentinel in 400 ticks at
+   this batch (no follower falls 24 entries behind); config6-cap8 does.
 3. card_vs_cpu -- the port's `simulate` on the card equals the port on the CPU
-   (config2, config4). The CPU tests hold the CPU port equal to the JAX package.
+   (config2, config4 at 64 x 100; config6r, config3p at 64 x 200). The CPU
+   tests hold the CPU port equal to the JAX package.
 4. full_width -- the main path, `simulate` at the presets' own batch through the
-   kernel: config2 at 1,000 clusters (client traffic) and config3 and config4
-   at 100,000 for 1,000 ticks, config5 at 10,000 for 200. Launch counts are
-   zeroed just before each run and read just after; each must equal the tick
-   count. Every run must have zero invariant violations and a leader elected
-   in every cluster, and config2 a commit in every cluster. Then, from the
-   run's final state: FULL_HOLD_TICKS ticks of kernel == plain tick at full
-   width (state and StepInfo, exact), kernel ms/tick (CUDA events) against its
-   bound (bytes read + written over 3.35 TB/s), and ms/tick for input
-   generation, the wrapped step, the plain step and the metric fold (host
-   clock to a synchronize).
+   kernel: config2, config6 and config6r at 1,000 clusters, config3,
+   config3p and config4 at 100,000 for 1,000 ticks, config5 at 10,000 for
+   200. Launch counts are zeroed just before each run and read just after;
+   each must equal the tick count. Every run must have zero invariant
+   violations and a leader elected in every cluster, config2 a commit in
+   every cluster, and config6/config6r every cluster's max commit above CAP
+   (its ring wrapped). Then, from the run's final state: FULL_HOLD_TICKS ticks
+   of kernel == plain tick at full width (state and StepInfo, exact), kernel
+   ms/tick (CUDA events) against its bound (bytes read + written over
+   3.35 TB/s), and ms/tick for input generation, the wrapped step, the plain
+   step and the metric fold (host clock to a synchronize).
 5. The kernels line, the card's name and power limit, and the result line.
 
 Exits 2 without a result when torch sees no CUDA device. It imports nothing of
@@ -35,6 +45,7 @@ jax and nothing of the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -82,6 +93,7 @@ def main() -> int:
     sys.path.insert(0, HERE)
     import raft_sim_tpu_torch
     from raft_sim_tpu_torch.kernels import tick_engine
+    from raft_sim_tpu_torch import types as T
     from raft_sim_tpu_torch.models import raft_batched
     from raft_sim_tpu_torch.sim import faults, scan
     from raft_sim_tpu_torch.summary import summarize
@@ -92,6 +104,7 @@ def main() -> int:
     if not os.path.abspath(raft_sim_tpu_torch.__file__).startswith(HERE + os.sep):
         raise RuntimeError(f"raft_sim_tpu_torch imported from {raft_sim_tpu_torch.__file__}, not {HERE}")
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
 
     # ---- 1: device and build ---------------------------------------------------
     smi = subprocess.run(
@@ -110,17 +123,38 @@ def main() -> int:
           "nvcc_seconds": tick_engine.BUILD_INFO.get("seconds"), "library": os.path.relpath(lib_path, HERE),
           "ptxas": ptxas[:6]})
 
-    def hold_ticks(cfg, s, keys, t0: int, n: int, what: str):
+    def hold_ticks(cfg, s, keys, t0: int, n: int, what: str, events=None):
         """`n` ticks from batch-minor state `s`: each tick the kernel equals
-        the plain tick on the card, state and StepInfo, leaf for leaf."""
+        the plain tick on the card, state and StepInfo, leaf for leaf.
+        `events`, a dict, accumulates the slice-2 event counts."""
         for t in range(t0, t0 + n):
             inp = raft_batched.to_batch_minor(faults.make_inputs(cfg, keys, t))
             ref_s, ref_i = raft_batched.step_b(cfg, s, inp, t)
             got_s, got_i = tick_engine.step_cuda(cfg, s, inp, t)
             check_equal(ref_s, got_s, f"{what} tick {t}: step_cuda state != step_b")
             check_equal(ref_i, got_i, f"{what} tick {t}: step_cuda StepInfo != step_b")
+            if events is not None:
+                count_events(cfg, s, inp, got_s, events)
             s = got_s
         return s
+
+    def count_events(cfg, s, inp, new, ev):
+        """One tick's restarts drawn, compactions (log_base advanced),
+        InstallSnapshot sentinels sent and redirect bounces to a down target."""
+        ev["restarts"] += int(inp.restarted.sum())
+        if cfg.compaction:
+            ev["compactions"] += int((new.log_base > s.log_base).sum())
+            sentinel = (new.mailbox.req_type == T.REQ_APPEND)[:, None, :] & (new.mailbox.req_off == -1)
+            ev["snapshot_sentinels"] += int(sentinel.sum())
+        if cfg.client_redirect:
+            # The offer each slot held in phase 6: a fresh offer takes the
+            # first free slot; an offer still pending after a tick whose
+            # target node was down bounced.
+            free = s.client_pend == T.NIL
+            fresh = (inp.client_cmd != T.NIL)[None] & free & (free.to(torch.int32).cumsum(0) == 1)
+            tgt = torch.where(fresh, inp.client_target[None], s.client_dst).long()
+            down = ~torch.gather(inp.alive, 0, tgt)
+            ev["redirect_bounces"] += int(((new.client_pend != T.NIL) & down).sum())
 
     # Every comparison below raises on the first differing leaf, so an exact
     # match (max |err| 0) is what reaching the kernels line means.
@@ -128,25 +162,41 @@ def main() -> int:
 
     # ---- 2: kernel vs plain, on the card ---------------------------------------
     # 200 clusters: one full block of 128 threads and a ragged, masked edge.
-    for name in ("config1", "config2", "config3", "config4", "config5"):
-        cfg, _ = PRESETS[name]
-        batch = 1 if name == "config1" else 200
-        ticks = 96
+    # config6-cap8 makes followers fall behind the leader's base, so the
+    # InstallSnapshot path runs (config6 itself sends no sentinel at this size).
+    cfg6 = PRESETS["config6"][0]
+    parity = [(name, PRESETS[name][0], 1 if name == "config1" else 200, 96)
+              for name in ("config1", "config2", "config3", "config4", "config5", "config3p")]
+    parity += [("config6", cfg6, 200, 400), ("config6r", PRESETS["config6r"][0], 200, 400),
+               ("config6-cap8", dataclasses.replace(cfg6, log_capacity=8, compact_margin=4,
+                                                    max_entries_per_rpc=2, client_interval=2),
+                200, 200)]
+    events = {"restarts": 0, "compactions": 0, "snapshot_sentinels": 0, "redirect_bounces": 0}
+    for name, cfg, batch, ticks in parity:
         s = raft_batched.to_batch_minor(init_batch(cfg, threefry.key(SEED, dev), batch))
         keys = threefry.split(threefry.key(SEED + 1, dev), batch)
-        hold_ticks(cfg, s, keys, 0, ticks, name)
-        f_k, m_k = scan.simulate(cfg, SEED, batch, ticks, device=dev)
-        f_p, m_p = scan.simulate(cfg, SEED, batch, ticks, device=dev, step_fn=raft_batched.step_b)
+        ev = dict.fromkeys(events, 0)
+        hold_ticks(cfg, s, keys, 0, ticks, name, ev)
+        for k in events:
+            events[k] += ev[k]
+        sim_ticks = min(ticks, 96)
+        f_k, m_k = scan.simulate(cfg, SEED, batch, sim_ticks, device=dev)
+        f_p, m_p = scan.simulate(cfg, SEED, batch, sim_ticks, device=dev, step_fn=raft_batched.step_b)
         check_equal(f_p, f_k, f"{name}: simulate state, kernel != plain")
         check_equal(m_p, m_k, f"{name}: simulate RunMetrics, kernel != plain")
         emit({"phase": "kernel_vs_plain", "preset": name, "batch": batch, "ticks": ticks,
-              "per_tick": "equal", "simulate": "equal", "max_abs_err": max_err,
-              "max_commit": int(m_k.max_commit.max()), "violations": int(m_k.violations.sum())})
+              "per_tick": "equal", "simulate_ticks": sim_ticks, "simulate": "equal", "max_abs_err": max_err,
+              "max_commit": int(m_k.max_commit.max()), "violations": int(m_k.violations.sum()),
+              "events": ev})
+    emit({"phase": "slice2_events", **events})
+    for k, v in events.items():
+        if v <= 0:
+            raise AssertionError(f"kernel_vs_plain: no {k} on the slice-2 runs")
 
     # ---- 3: card vs CPU --------------------------------------------------------
-    for name in ("config2", "config4"):
+    for name, ticks in (("config2", 100), ("config4", 100), ("config6r", 200), ("config3p", 200)):
         cfg, _ = PRESETS[name]
-        batch, ticks = 64, 100
+        batch = 64
         f_g, m_g = scan.simulate(cfg, SEED, batch, ticks, device=dev)
         f_c, m_c = scan.simulate(cfg, SEED, batch, ticks, device="cpu")
         check_equal(f_c, f_g, f"{name}: simulate state, card != CPU")
@@ -157,7 +207,9 @@ def main() -> int:
     # ---- 4: full width, the main path -----------------------------------------
     cells = []
     total_launches = 0
-    for name, ticks in (("config2", 1000), ("config3", 1000), ("config4", 1000), ("config5", 200)):
+    full_cells = (("config2", 1000), ("config3", 1000), ("config4", 1000), ("config5", 200),
+                  ("config6", 1000), ("config6r", 1000), ("config3p", 1000))
+    for name, ticks in full_cells:
         cfg, batch = PRESETS[name]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -175,8 +227,11 @@ def main() -> int:
             raise AssertionError(f"{name}: {summ.total_violations} violations")
         if int((metrics.first_leader_tick >= scan.NEVER).sum()) != 0:
             raise AssertionError(f"{name}: a cluster never elected a leader")
-        if cfg.client_interval and not (summ.total_cmds > 0 and int(metrics.max_commit.min()) > 0):
+        min_commit = int(metrics.max_commit.min())  # the least of the clusters' max commits
+        if cfg.client_interval and not (summ.total_cmds > 0 and min_commit > 0):
             raise AssertionError(f"{name}: a cluster committed no client command")
+        if cfg.compaction and min_commit <= cfg.log_capacity:
+            raise AssertionError(f"{name}: a cluster's ring never wrapped (min max_commit {min_commit})")
 
         # Kernel vs plain at full width from the run's final state, for
         # FULL_HOLD_TICKS ticks (one log-matching tick at config5's interval
@@ -205,6 +260,9 @@ def main() -> int:
             "bytes_written": wr, "bound_share": bound_ms / kernel_ms,
             "inputs_ms": inputs_ms, "step_ms": step_ms, "plain_ms": plain_ms,
             "accumulate_ms": acc_ms, "peak_mem_bytes": peak,
+            "max_commit_min": min_commit,
+            "max_commit_median": float(metrics.max_commit.float().median()),
+            "noop_blocked": int(metrics.noop_blocked.sum()),
             "summary": summ._asdict(),
         }
         cells.append(cell)
@@ -213,6 +271,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # ---- 5: the kernels line, the card, the result -----------------------------
+    emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start})
     # config3: the 100,000-cluster BASELINE throughput row.
     main_cell = next(c for c in cells if c["preset"] == "config3")
     emit({"kernels": [{

@@ -7,14 +7,22 @@
 //
 // What bounds it on an H100: memory. The tick is integer compare/select work,
 // a few thousand operations per cluster, against the leaves it must read once
-// and write once every tick -- 2.09 KB read and 2.08 KB written per cluster at
-// config3 (N=5, CAP=32; legs the gate set leaves untouched pass through and
-// are not copied): 100,000 clusters move 0.42 GB per tick, 0.124 ms at
-// 3.35 TB/s (kernels/tick_engine.traffic_bytes). The design keeps to one pass
-// over those leaves: each thread reads its cluster's leaves, keeps every
-// per-node intermediate in registers or thread-local arrays, and writes each
-// output leaf once -- no intermediate ever goes to device memory. Leaves are batch-minor, so a warp's
-// 32 threads read and write 32 consecutive elements of every leaf (coalesced).
+// and write once every tick. Each gate makes its own legs live, and legs a
+// gate leaves untouched pass through uncopied (kernels/tick_engine.leg_live):
+// compaction the snapshot triple (base_term in, log_base/base_term/base_chk
+// out), the mailbox's req_base/req_base_term/req_base_chk and StepInfo's
+// noop_blocked; PreVote heard_clock and the packed pv_grant plane; the
+// redirect client its K pipeline slots (client_pend/client_dst, client_tick
+// with the offer-tick plane) and the client_target/client_bounce inputs.
+// Per cluster (kernels/tick_engine.traffic_bytes), bytes read / written:
+// config3 (N=5, CAP=32) 2,087 / 2,080; config3p 2,127 / 2,120; config6
+// (CAP=32, E=4, int32 index tier) 3,067 / 3,104; config6r (K=5) 3,151 /
+// 3,164. 100,000 config3 clusters move 0.42 GB per tick, 0.124 ms at
+// 3.35 TB/s. The design keeps to one pass over those leaves: each thread
+// reads its cluster's leaves, keeps every per-node intermediate in registers
+// or thread-local arrays, and writes each output leaf once -- no intermediate
+// ever goes to device memory. Leaves are batch-minor, so a warp's 32 threads
+// read and write 32 consecutive elements of every leaf (coalesced).
 // Not yet done (later work): staging the [N, N] planes in shared memory for
 // N=51, drawing the threefry inputs inside the kernel instead of reading them,
 // and a CUDA graph over ticks.

@@ -2,25 +2,35 @@
 // the Hopper tick kernel (tick.cu) and of its CPU build (tick_host.cpp).
 //
 // Semantics are raft_sim_tpu/models/raft_batched.py `_step_b` + `_step_info_b`
-// (dense layout, single device) over the gate set of presets config1-config5:
-// invariants, log matching, the direct client's cadence with the offer-tick
-// latency plane, drop, partitions and skew. Every leaf it writes equals the
-// JAX tick's. The JAX form is a vectorised `where` lattice over [N, N, B]
-// planes; here thread b walks its own cluster with loops over nodes and log
-// entries, in the JAX phase order (-1 restart, 0 delivery, 1 term adoption,
-// 2 RequestVote, 3 AppendEntries, 4 responses, 5 commit, latency, 6 client
-// injection, 7 timers, 8 outbox, checksum, 9 StepInfo).
+// (dense layout, single device) over the gate set of presets config1-config6r
+// and config3p: invariants, log matching, the client's cadence (direct, or the
+// redirect client with its K-deep pipeline) with the offer-tick latency plane,
+// drop, partitions, skew, crash/restart, ring-log compaction with the
+// InstallSnapshot analogue, and PreVote. Every leaf it writes equals the JAX
+// tick's. The JAX form is a vectorised `where` lattice over [N, N, B] planes;
+// here thread b walks its own cluster with loops over nodes and log entries,
+// in the JAX phase order (-1 restart, 0 delivery, 1 term adoption,
+// 2 RequestVote, 3 AppendEntries and snapshot install, 3.5 PreVote requests,
+// 4 responses, 4.5 PreVote promotion, 5 commit, latency, 5.5 compaction and
+// the ring checksum, 6 no-op / client injection / redirect routing, 7 timers,
+// 8 outbox, prefix checksum, 9 StepInfo).
 //
 // Layout: every leaf is batch-minor. Leaf [d0, d1, ..., B] element
 // (i, j, ..., b) sits at ((i * d1 + j) * ... ) * B + b, so neighbouring
 // threads touch neighbouring addresses. The wrapper (kernels/tick_engine.py)
 // passes one pointer per leaf in the order of the Ptr enum below; output
-// leaves are fresh buffers, never aliases of inputs.
+// leaves are fresh buffers, never aliases of inputs. A leg whose gate is off
+// gets a null pointer and is never touched (the wrapper passes it through).
+//
+// Log layout: without compaction 1-based entry i sits at slot i - 1; under
+// compaction (P.comp) at slot (i - 1) mod CAP, with the live entries
+// (log_base, log_len] and the compacted prefix summarised by (log_base,
+// base_term, base_chk).
 //
 // Integer rules: uint32 legs (packed planes, checksums) use uint32_t, whose
 // arithmetic wraps mod 2^32 like the JAX uint32 leaves; signed values never
-// overflow on a well-formed state (the JAX dtype-tier bounds), and no signed
-// division or modulo is taken.
+// overflow on a well-formed state (the JAX dtype-tier bounds), and signed
+// modulo is taken only through pmod (floor modulo, as jnp's `%`).
 #pragma once
 
 #include <stdint.h>
@@ -36,41 +46,48 @@ namespace rs {
 constexpr int MAXN = 64;  // nodes per cluster this body supports
 constexpr int MAXW = 2;   // packed words per node row (ceil(MAXN / 32))
 constexpr int MAXE = 16;  // entries per AppendEntries window
+constexpr int MAXK = 16;  // redirect pipeline slots (RaftConfig.client_pipeline <= 16)
 constexpr int BINS = 16;  // latency histogram bins (types.LAT_HIST_BINS)
 
-constexpr int FOLLOWER = 0, CANDIDATE = 1, LEADER = 2;
-constexpr int NIL = -1;
-constexpr int REQ_VOTE = 1, REQ_APPEND = 2;
-constexpr int RESP_VOTE = 1, RESP_APPEND = 2;
+constexpr int FOLLOWER = 0, CANDIDATE = 1, LEADER = 2, PRECANDIDATE = 3;
+constexpr int NIL = -1, NOOP = -2;
+constexpr int REQ_VOTE = 1, REQ_APPEND = 2, REQ_PREVOTE = 3;
+constexpr int RESP_VOTE = 1, RESP_APPEND = 2, RESP_PREVOTE = 3;
 
 // Leaf pointers, in the order tick_engine.PTR_ORDER lists them.
 enum Ptr {
   // ClusterState, read
   S_ROLE, S_TERM, S_VOTED_FOR, S_LEADER_ID, S_VOTES, S_NEXT_INDEX,
   S_MATCH_INDEX, S_ACK_AGE, S_COMMIT_INDEX, S_COMMIT_CHK, S_LOG_BASE,
-  S_BASE_CHK, S_LOG_TERM, S_LOG_VAL, S_LOG_TICK, S_LOG_LEN, S_CLOCK,
-  S_DEADLINE, S_LAT_FRONTIER, S_NOW,
+  S_BASE_TERM, S_BASE_CHK, S_LOG_TERM, S_LOG_VAL, S_LOG_TICK, S_LOG_LEN,
+  S_CLOCK, S_DEADLINE, S_HEARD_CLOCK, S_CLIENT_PEND, S_CLIENT_DST,
+  S_CLIENT_TICK, S_LAT_FRONTIER, S_NOW,
   // Mailbox, read
   M_REQ_TYPE, M_REQ_TERM, M_REQ_COMMIT, M_REQ_LAST_INDEX, M_REQ_LAST_TERM,
   M_ENT_START, M_ENT_PREV_TERM, M_ENT_COUNT, M_ENT_TERM, M_ENT_VAL,
-  M_ENT_TICK, M_REQ_OFF, M_RESP_KIND, M_V_TO, M_A_OK_TO, M_A_MATCH,
-  M_A_HINT, M_RESP_TERM,
+  M_ENT_TICK, M_REQ_BASE, M_REQ_BASE_TERM, M_REQ_BASE_CHK, M_REQ_OFF,
+  M_RESP_KIND, M_PV_GRANT, M_V_TO, M_A_OK_TO, M_A_MATCH, M_A_HINT,
+  M_RESP_TERM,
   // StepInputs, read
-  I_DELIVER_MASK, I_SKEW, I_TIMEOUT_DRAW, I_CLIENT_CMD, I_ALIVE, I_RESTARTED,
+  I_DELIVER_MASK, I_SKEW, I_TIMEOUT_DRAW, I_CLIENT_CMD, I_CLIENT_TARGET,
+  I_CLIENT_BOUNCE, I_ALIVE, I_RESTARTED,
   // ClusterState, written
   O_ROLE, O_TERM, O_VOTED_FOR, O_LEADER_ID, O_VOTES, O_NEXT_INDEX,
-  O_MATCH_INDEX, O_ACK_AGE, O_COMMIT_INDEX, O_COMMIT_CHK, O_LOG_TERM,
-  O_LOG_VAL, O_LOG_TICK, O_LOG_LEN, O_CLOCK, O_DEADLINE, O_LAT_FRONTIER,
-  O_NOW,
+  O_MATCH_INDEX, O_ACK_AGE, O_COMMIT_INDEX, O_COMMIT_CHK, O_LOG_BASE,
+  O_BASE_TERM, O_BASE_CHK, O_LOG_TERM, O_LOG_VAL, O_LOG_TICK, O_LOG_LEN,
+  O_CLOCK, O_DEADLINE, O_HEARD_CLOCK, O_CLIENT_PEND, O_CLIENT_DST,
+  O_CLIENT_TICK, O_LAT_FRONTIER, O_NOW,
   // Mailbox, written
   OM_REQ_TYPE, OM_REQ_TERM, OM_REQ_COMMIT, OM_REQ_LAST_INDEX,
   OM_REQ_LAST_TERM, OM_ENT_START, OM_ENT_PREV_TERM, OM_ENT_COUNT,
-  OM_ENT_TERM, OM_ENT_VAL, OM_ENT_TICK, OM_REQ_OFF, OM_RESP_KIND, OM_V_TO,
+  OM_ENT_TERM, OM_ENT_VAL, OM_ENT_TICK, OM_REQ_BASE, OM_REQ_BASE_TERM,
+  OM_REQ_BASE_CHK, OM_REQ_OFF, OM_RESP_KIND, OM_PV_GRANT, OM_V_TO,
   OM_A_OK_TO, OM_A_MATCH, OM_A_HINT, OM_RESP_TERM,
   // StepInfo, written
   F_VIOL_ELECTION_SAFETY, F_VIOL_COMMIT, F_VIOL_LOG_MATCHING, F_LEADER,
   F_N_LEADERS, F_MAX_TERM, F_MAX_COMMIT, F_MIN_COMMIT, F_MSGS_DELIVERED,
   F_CMDS_INJECTED, F_LAT_SUM, F_LAT_CNT, F_LAT_HIST, F_LAT_EXCLUDED,
+  F_NOOP_BLOCKED,
   N_PTR
 };
 
@@ -81,11 +98,21 @@ struct TickParams {
   int32_t check_invariants;  // cfg.check_invariants
   int32_t log_matching_due;  // the host-side cadence decision for this tick
   int32_t track;             // cfg.track_offer_ticks (offer-tick plane live)
+  int32_t comp;              // cfg.compaction (ring log + snapshot catch-up)
+  int32_t compact_margin;    // cfg.compact_margin
+  int32_t pre_vote;          // cfg.pre_vote
+  int32_t election_min;      // cfg.election_min_ticks (the PreVote quiet window)
+  int32_t redirect;          // cfg.client_redirect (the K-deep pipeline)
+  int32_t k;                 // cfg.client_pipeline
 };
 
 RS_HD int imin(int a, int b) { return a < b ? a : b; }
 RS_HD int imax(int a, int b) { return a > b ? a : b; }
 RS_HD int iclamp(int x, int lo, int hi) { return imin(imax(x, lo), hi); }
+RS_HD int pmod(int x, int m) {  // floor modulo (jnp's `%`), m > 0
+  const int r = x % m;
+  return r < 0 ? r + m : r;
+}
 
 RS_HD int popcount32(uint32_t x) {
 #ifdef __CUDA_ARCH__
@@ -111,15 +138,30 @@ RS_HD int log2_bin(int v) {
 RS_HD uint32_t chk_w_term(uint32_t k) { return (k * 2654435761u + 0x9E3779B9u) | 1u; }
 RS_HD uint32_t chk_w_val(uint32_t k) { return (k * 0x85EBCA77u + 0xC2B2AE3Du) | 1u; }
 
+// Term of 1-based entry idx in the row whose slot s sits at row[s * B]
+// (log_ops.term_at_b / term_at_rb): 0 for "no entry"; on a ring, base_term at
+// or below the base; without the ring, 0 outside [1, cap].
+RS_HD int term_at(const int32_t* row, int64_t B, int cap, bool ring, int base, int bterm,
+                  int idx) {
+  if (ring) {
+    if (idx == 0) return 0;
+    if (idx <= base) return bterm;
+    return row[(int64_t)pmod(idx - 1, cap) * B];
+  }
+  return (idx >= 1 && idx <= cap) ? row[(int64_t)(idx - 1) * B] : 0;
+}
+
 template <class IdxT, class AckT, class NodeT>
 RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
   const int n = P.n, e = P.e, cap = P.cap, W = P.w;
+  const bool comp = P.comp != 0, pv = P.pre_vote != 0;
   const int64_t B = P.b;
   // Batch-minor offsets: [N, B] and [N, inner, B].
 #define RS_AT1(i) ((int64_t)(i) * B + b)
 #define RS_AT2(i, j, inner) (((int64_t)(i) * (inner) + (j)) * B + b)
 #define RS_IN(T, P_) ((const T*)ptr[P_])
 #define RS_OUT(T, P_) ((T*)ptr[P_])
+#define RS_ROW(arr, i) ((arr) + RS_AT2(i, 0, cap))  // slot s of node i at [s * B]
 
   const int32_t now = RS_IN(int32_t, S_NOW)[b];
   const int32_t lat_frontier0 = RS_IN(int32_t, S_LAT_FRONTIER)[b];
@@ -142,15 +184,18 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
   // Per-node state, after phase -1 (restart).
   bool alive[MAXN], rs_[MAXN], up[MAXN];
   int role[MAXN], term[MAXN], vf[MAXN], lid[MAXN];
-  int len0[MAXN], llen[MAXN], base[MAXN], commit0[MAXN], commit[MAXN];
-  int clock0[MAXN], deadline0[MAXN], tdraw[MAXN], my_last_term[MAXN];
-  uint32_t votes[MAXN][MAXW], mask[MAXN][MAXW], chk0[MAXN];
+  int len0[MAXN], llen[MAXN], commit0[MAXN], commit[MAXN];
+  int base0[MAXN], bterm0[MAXN], base[MAXN], bterm[MAXN];  // input and current snapshot
+  int clock0[MAXN], clock1[MAXN], deadline0[MAXN], tdraw[MAXN], heard[MAXN];
+  int my_last_term[MAXN];
+  uint32_t votes[MAXN][MAXW], mask[MAXN][MAXW], pvg[MAXN][MAXW];
+  uint32_t chk0[MAXN], bchk[MAXN], chk_new[MAXN];
   // Mailbox headers, per sender / responder.
   int rtype[MAXN], rterm[MAXN], rli[MAXN], rlt[MAXN];
   int resp_term[MAXN], v_to[MAXN], a_ok_to[MAXN], a_match[MAXN], a_hint[MAXN];
   // Per-node facts carried between phases.
-  bool saw_higher[MAXN], granted_any[MAXN], has_ae[MAXN], win[MAXN];
-  bool is_leader[MAXN], heartbeat[MAXN], start_el[MAXN];
+  bool saw_higher[MAXN], granted_any[MAXN], has_ae[MAXN], win[MAXN], pre_win[MAXN];
+  bool applied_snap[MAXN], is_leader[MAXN], heartbeat[MAXN], start_el[MAXN], start_pv[MAXN];
   int grant_to[MAXN];
   int len4[MAXN];  // log length after phase 3: the phase-4/phase-8 `len_i`
 
@@ -160,19 +205,26 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
     up[i] = alive[i] && !rs_[i];
     tdraw[i] = RS_IN(int32_t, I_TIMEOUT_DRAW)[RS_AT1(i)];
     clock0[i] = RS_IN(int32_t, S_CLOCK)[RS_AT1(i)];
-    base[i] = RS_IN(int32_t, S_LOG_BASE)[RS_AT1(i)];
+    clock1[i] = clock0[i] + RS_IN(int32_t, I_SKEW)[RS_AT1(i)];
+    base0[i] = base[i] = RS_IN(int32_t, S_LOG_BASE)[RS_AT1(i)];
+    bterm0[i] = bterm[i] = comp ? RS_IN(int32_t, S_BASE_TERM)[RS_AT1(i)] : 0;
+    bchk[i] = RS_IN(uint32_t, S_BASE_CHK)[RS_AT1(i)];
     role[i] = rs_[i] ? FOLLOWER : RS_IN(int32_t, S_ROLE)[RS_AT1(i)];
     lid[i] = rs_[i] ? NIL : RS_IN(int32_t, S_LEADER_ID)[RS_AT1(i)];
     term[i] = RS_IN(int32_t, S_TERM)[RS_AT1(i)];
     vf[i] = RS_IN(int32_t, S_VOTED_FOR)[RS_AT1(i)];
     len0[i] = RS_IN(int32_t, S_LOG_LEN)[RS_AT1(i)];
-    commit0[i] = rs_[i] ? base[i] : RS_IN(int32_t, S_COMMIT_INDEX)[RS_AT1(i)];
-    chk0[i] = rs_[i] ? RS_IN(uint32_t, S_BASE_CHK)[RS_AT1(i)]
-                     : RS_IN(uint32_t, S_COMMIT_CHK)[RS_AT1(i)];
+    commit0[i] = rs_[i] ? base0[i] : RS_IN(int32_t, S_COMMIT_INDEX)[RS_AT1(i)];
+    chk0[i] = rs_[i] ? bchk[i] : RS_IN(uint32_t, S_COMMIT_CHK)[RS_AT1(i)];
     deadline0[i] = rs_[i] ? clock0[i] + tdraw[i] : RS_IN(int32_t, S_DEADLINE)[RS_AT1(i)];
+    // A restarted node remembers no leader contact (PreVote's quiet rule).
+    heard[i] = !pv ? 0
+               : rs_[i] ? clock0[i] - P.election_min
+                        : RS_IN(int32_t, S_HEARD_CLOCK)[RS_AT1(i)];
     for (int w = 0; w < W; ++w) {
       votes[i][w] = rs_[i] ? 0u : RS_IN(uint32_t, S_VOTES)[RS_AT2(i, w, W)];
       mask[i][w] = RS_IN(uint32_t, I_DELIVER_MASK)[RS_AT2(i, w, W)];
+      pvg[i][w] = 0u;
     }
     rtype[i] = RS_IN(int32_t, M_REQ_TYPE)[RS_AT1(i)];
     rterm[i] = RS_IN(int32_t, M_REQ_TERM)[RS_AT1(i)];
@@ -198,7 +250,8 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
 #define RS_DELIVERED(d, s) \
   (up[d] && (s) != (d) && alive[s] && ((mask[d][(s) >> 5] >> ((s) & 31)) & 1u))
 
-  // ---- phase 1: term adoption --------------------------------------------
+  // ---- phase 1: term adoption (PreVote probes carry a prospective term,
+  // never adopted) -----------------------------------------------------------
   int msgs = 0;
   for (int d = 0; d < n; ++d) {
     int in_term = 0;
@@ -206,7 +259,7 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
       if (!RS_DELIVERED(d, s)) continue;
       if (rtype[s] != 0) {
         ++msgs;
-        in_term = imax(in_term, rterm[s]);
+        if (!(pv && rtype[s] == REQ_PREVOTE)) in_term = imax(in_term, rterm[s]);
       }
       if (resp_kind_in[RS_AT2(d, s, n)] != 0) {
         ++msgs;
@@ -221,9 +274,12 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
       lid[d] = NIL;
       for (int w = 0; w < W; ++w) votes[d][w] = 0u;
     }
-    const int l = len0[d];
-    my_last_term[d] = (l >= 1 && l <= cap) ? log_term_in[RS_AT2(d, l - 1, cap)] : 0;
+    my_last_term[d] = term_at(RS_ROW(log_term_in, d), B, cap, comp, base0[d], bterm0[d], len0[d]);
   }
+
+  // Up-to-date test of candidate c's log against voter v's (phases 2 and 3.5).
+#define RS_UTD(c, v) \
+  (rlt[c] > my_last_term[v] || (rlt[c] == my_last_term[v] && rli[c] >= len0[v]))
 
   // ---- phase 2: RequestVote requests --------------------------------------
   for (int v = 0; v < n; ++v) {
@@ -231,9 +287,7 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
     bool grant_prev = false;  // the candidate v already voted for is grantable
     for (int c = 0; c < n; ++c) {
       if (!RS_DELIVERED(v, c) || rtype[c] != REQ_VOTE || rterm[c] != term[v]) continue;
-      const bool utd = rlt[c] > my_last_term[v] ||
-                       (rlt[c] == my_last_term[v] && rli[c] >= len0[v]);
-      if (!utd) continue;
+      if (!RS_UTD(c, v)) continue;
       if (c < lowest) lowest = c;
       if (c == vf[v]) grant_prev = true;
     }
@@ -242,7 +296,7 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
     grant_to[v] = granted_any[v] ? vf[v] : NIL;
   }
 
-  // ---- phase 3: AppendEntries requests -------------------------------------
+  // ---- phase 3: AppendEntries requests and snapshot install ----------------
   for (int f = 0; f < n; ++f) {
     int src = n;
     for (int l = 0; l < n; ++l) {
@@ -267,31 +321,39 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
         if (P.track) w_tick[k] = RS_IN(int32_t, M_ENT_TICK)[RS_AT2(src, k, e)];
       }
     }
+    // The InstallSnapshot analogue: offset sentinel -1.
+    const bool snap = comp && has_ae[f] && j_in < 0;
+    const bool ae_norm = has_ae[f] && !snap;
     const int j = iclamp(j_in, 0, e);
-    const int prev_i = has_ae[f] ? ws_in + j : 0;
-    const int n_ent = has_ae[f] ? iclamp(ecount - j, 0, e) : 0;
+    const int prev_i = ae_norm ? ws_in + j : 0;
+    const int n_ent = ae_norm ? iclamp(ecount - j, 0, e) : 0;
     const int prev_t = (j == 0) ? eprev : w_term[j - 1];
     const int off = iclamp(j, 0, e - 1);  // this receiver's entries start at slot j
     if (has_ae[f]) {
-      if (role[f] == CANDIDATE) role[f] = FOLLOWER;
+      if (role[f] == CANDIDATE || (pv && role[f] == PRECANDIDATE)) role[f] = FOLLOWER;
       lid[f] = src;
     }
     const int stored_prev =
-        (prev_i >= 1 && prev_i <= cap) ? log_term_in[RS_AT2(f, prev_i - 1, cap)] : 0;
-    const bool ae_ok = has_ae[f] && (prev_i == 0 || (prev_i <= len0[f] && stored_prev == prev_t));
+        term_at(RS_ROW(log_term_in, f), B, cap, comp, base0[f], bterm0[f], prev_i);
+    // Under compaction a prev below the base is committed and compacted.
+    const bool ae_ok = ae_norm && (prev_i == 0 || (comp && prev_i < base0[f]) ||
+                                   (prev_i <= len0[f] && stored_prev == prev_t));
+    // Entries [lo, n_acc) of the window are written: the ring skips what is
+    // already compacted and accepts only what it can hold.
+    const int lo = comp ? iclamp(base0[f] - prev_i, 0, e) : 0;
+    const int n_acc = comp ? imin(n_ent, imax(base0[f] + cap - prev_i, 0)) : n_ent;
     bool mismatch = false;
-    for (int k = 0; k < n_ent; ++k) {
+    for (int k = lo; k < n_acc; ++k) {
       if (prev_i + k < len0[f]) {
-        const int stored = log_term_in[RS_AT2(f, iclamp(prev_i + k, 0, cap - 1), cap)];
-        if (stored != w_term[imin(off + k, e - 1)]) mismatch = true;
+        const int sl = comp ? pmod(prev_i + k, cap) : iclamp(prev_i + k, 0, cap - 1);
+        if (log_term_in[RS_AT2(f, sl, cap)] != w_term[imin(off + k, e - 1)]) mismatch = true;
       }
     }
-    const int appended = imin(prev_i + n_ent, cap);
+    const int appended = comp ? prev_i + n_acc : imin(prev_i + n_ent, cap);
     llen[f] = ae_ok ? (mismatch ? appended : imax(len0[f], appended)) : len0[f];
-    len4[f] = llen[f];
     if (ae_ok) {
-      for (int k = 0; k < n_ent; ++k) {
-        const int slot = prev_i + k;
+      for (int k = lo; k < n_acc; ++k) {
+        const int slot = comp ? pmod(prev_i + k, cap) : prev_i + k;
         if (slot < 0 || slot >= cap) continue;
         const int wk = imin(off + k, e - 1);
         log_term[RS_AT2(f, slot, cap)] = w_term[wk];
@@ -299,14 +361,50 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
         if (P.track) log_tick[RS_AT2(f, slot, cap)] = w_tick[wk];
       }
     }
-    const int last_new = imax(imin(prev_i + n_ent, llen[f]), 0);
+    const int last_new = imax(imin(prev_i + n_acc, llen[f]), 0);
     commit[f] = ae_ok ? imax(commit0[f], imin(lcommit, last_new)) : commit0[f];
-    RS_OUT(NodeT, OM_A_OK_TO)[RS_AT1(f)] = (NodeT)(ae_ok ? src : NIL);
-    RS_OUT(IdxT, OM_A_MATCH)[RS_AT1(f)] = (IdxT)(ae_ok ? last_new : 0);
+    // Snapshot install: adopt the sender's base; keep our suffix when it
+    // extends through L with L's term, else wipe the log to L.
+    int L = 0;
+    applied_snap[f] = false;
+    if (snap) {
+      L = RS_IN(int32_t, M_REQ_BASE)[RS_AT1(src)];
+      const int Lt = RS_IN(int32_t, M_REQ_BASE_TERM)[RS_AT1(src)];
+      if (L > base0[f]) {
+        applied_snap[f] = true;
+        const bool keep = L <= len0[f] &&
+            term_at(RS_ROW(log_term_in, f), B, cap, true, base0[f], bterm0[f], L) == Lt;
+        bterm[f] = Lt;
+        bchk[f] = RS_IN(uint32_t, M_REQ_BASE_CHK)[RS_AT1(src)];
+        base[f] = L;
+        if (!keep) llen[f] = L;
+        commit[f] = imax(commit[f], L);
+      }
+    }
+    len4[f] = llen[f];
+    // Snapshot receivers always ack, with match = the snapshot index.
+    RS_OUT(NodeT, OM_A_OK_TO)[RS_AT1(f)] = (NodeT)((ae_ok || snap) ? src : NIL);
+    RS_OUT(IdxT, OM_A_MATCH)[RS_AT1(f)] = (IdxT)(snap ? L : (ae_ok ? last_new : 0));
     RS_OUT(IdxT, OM_A_HINT)[RS_AT1(f)] = (IdxT)llen[f];
   }
 
-  // ---- phases 4 + 5, per node: responses, then leader commit ---------------
+  // ---- phase 3.5: PreVote requests. A voter grants a probe of a term at
+  // least its own from an up-to-date log, unless it heard a leader within
+  // election_min ticks of its clock or leads itself. -------------------------
+  if (pv) {
+    for (int v = 0; v < n; ++v) {
+      if (has_ae[v]) heard[v] = clock1[v];
+      const bool quiet = clock1[v] - heard[v] >= P.election_min && role[v] != LEADER;
+      if (!quiet) continue;
+      for (int c = 0; c < n; ++c) {
+        if (RS_DELIVERED(v, c) && rtype[c] == REQ_PREVOTE && rterm[c] >= term[v] && RS_UTD(c, v))
+          pvg[c][v >> 5] |= 1u << (v & 31);
+      }
+    }
+  }
+
+  // ---- phases 4 + 5, per node: responses, PreVote promotion, then leader
+  // commit ----------------------------------------------------------------------
   for (int q = 0; q < n; ++q) {
     if (role[q] == CANDIDATE) {
       for (int r = 0; r < n; ++r) {
@@ -321,6 +419,25 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
     if (win[q]) {
       role[q] = LEADER;
       lid[q] = q;
+    }
+    // Phase 4.5: pre-vote grants ride the packed pv_grant plane.
+    pre_win[q] = false;
+    if (pv && role[q] == PRECANDIDATE) {
+      const uint32_t* grant_row = RS_IN(uint32_t, M_PV_GRANT);
+      for (int r = 0; r < n; ++r) {
+        if (RS_DELIVERED(q, r) && resp_kind_in[RS_AT2(q, r, n)] == RESP_PREVOTE &&
+            ((grant_row[RS_AT2(q, r >> 5, W)] >> (r & 31)) & 1u))
+          votes[q][r >> 5] |= 1u << (r & 31);
+      }
+      int npv = 0;
+      for (int w = 0; w < W; ++w) npv += popcount32(votes[q][w]);
+      pre_win[q] = npv >= P.quorum && alive[q];
+      if (pre_win[q]) {
+        term[q] += 1;
+        role[q] = CANDIDATE;
+        vf[q] = q;
+        for (int w = 0; w < W; ++w) votes[q][w] = (w == (q >> 5)) ? (1u << (q & 31)) : 0u;
+      }
     }
     const int len_i = len4[q];
     int mws[MAXN];              // match_with_self row
@@ -359,7 +476,7 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
         for (int k = 0; k < n; ++k) cnt += mws[k] >= mws[c];
         if (cnt >= P.quorum && mws[c] > qm) qm = mws[c];
       }
-      const int qt = (qm >= 1 && qm <= cap) ? log_term[RS_AT2(q, qm - 1, cap)] : 0;
+      const int qt = term_at(RS_ROW(log_term, q), B, cap, comp, base[q], bterm[q], qm);
       if (qm > commit[q] && qt == term[q]) commit[q] = qm;
     }
   }
@@ -380,8 +497,13 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
     for (int i = 0; i < n; ++i) {
       const bool lead_ok = is_leader[i] && alive[i];
       // Entries newly past the carried frontier: 1-based (frontier, commit].
-      const int hi = imin(commit[i], cap);
-      for (int k = imax(lat_frontier0, 0); k < hi; ++k) {
+      // Without the ring slot k holds entry k + 1, so only those slots are
+      // visited; on the ring every slot is, at its absolute index.
+      const int k0 = comp ? 0 : imax(lat_frontier0, 0);
+      const int k1 = comp ? cap : imin(commit[i], cap);
+      for (int k = k0; k < k1; ++k) {
+        const int abs1 = comp ? base[i] + pmod(k - base[i], cap) + 1 : k + 1;
+        if (abs1 <= lat_frontier0 || abs1 > commit[i]) continue;
         const int tk = log_tick[RS_AT2(i, k, cap)];
         if (tk < 1 || tk > now) continue;  // not a client entry
         if (lead_ok) {
@@ -396,34 +518,129 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
   }
   RS_OUT(int32_t, O_LAT_FRONTIER)[b] = P.track ? imax(lat_frontier0, maxc) : lat_frontier0;
 
-  // ---- phase 6: client command injection -----------------------------------
-  bool any_client = false;
+  // ---- phase 5.5: compaction and the ring checksum. The checksum is anchored
+  // at the post-install, pre-advance base and runs before phase 6: an
+  // injection into a slot this tick's rebase freed would otherwise alias. -----
+  bool chk_bad = false;
+  if (comp) {
+    for (int i = 0; i < n; ++i) {
+      const int base_mid = base[i];
+      const uint32_t bchk_mid = bchk[i];
+      const int base2 = imax(base_mid, imin(commit[i], llen[i] - (cap - P.compact_margin)));
+      bterm[i] = term_at(RS_ROW(log_term, i), B, cap, true, base_mid, bterm[i], base2);
+      base[i] = base2;
+      const int co = imax(commit0[i], base_mid);  // snapshot installs skip the check
+      uint32_t s_co = 0u, s_bf = 0u, s_cn = 0u;
+      for (int k = 0; k < cap; ++k) {
+        const int a0 = base_mid + pmod(k - base_mid, cap);  // 0-based entry index of slot k
+        const uint32_t c =
+            (uint32_t)log_term[RS_AT2(i, k, cap)] * chk_w_term((uint32_t)a0) +
+            (uint32_t)log_val[RS_AT2(i, k, cap)] * chk_w_val((uint32_t)a0);
+        if (a0 < co) s_co += c;
+        if (a0 < base2) s_bf += c;
+        if (a0 < commit[i]) s_cn += c;
+      }
+      if (P.check_invariants && bchk_mid + s_co != chk0[i] && !applied_snap[i]) chk_bad = true;
+      bchk[i] = bchk_mid + s_bf;
+      chk_new[i] = bchk_mid + s_cn;
+    }
+  }
+
+  // ---- phase 6: election-win no-op, client injection, redirect routing ------
+  // Under compaction a fresh leader's no-op needs a free slot, and client
+  // commands stop `reserve` slots short so the no-op always finds one.
+  const int reserve = imax(1, P.compact_margin / 2);
+  int noop_blocked = 0, cmds = 0;
+  bool noop[MAXN], node_ok[MAXN], client_ok[MAXN];
+  int wval[MAXN], wtick[MAXN];
   for (int i = 0; i < n; ++i) {
-    const bool ok = client_cmd != NIL && is_leader[i] && alive[i] && llen[i] - base[i] < cap;
-    if (!ok) continue;
-    any_client = true;
-    const int pos = llen[i];
+    const bool has_slot = llen[i] - base[i] < cap;
+    noop[i] = comp && win[i] && has_slot;
+    if (comp && win[i] && !has_slot) ++noop_blocked;
+    const bool room = comp ? llen[i] - base[i] < cap - reserve : has_slot;
+    node_ok[i] = is_leader[i] && alive[i] && room && !noop[i];
+    client_ok[i] = !P.redirect && client_cmd != NIL && node_ok[i];
+    wval[i] = client_cmd;
+    wtick[i] = now + 1;  // a direct offer is accepted on its offer tick
+    if (client_ok[i]) cmds = 1;  // offers, not appends
+  }
+  if (P.redirect) {
+    // K-deep pipeline: the first free slot takes a fresh offer; each pending
+    // offer goes to its target node, which accepts its lowest slot if it
+    // leads; the rest chase the target's believed leader or bounce.
+    const int K = P.k;
+    int pend[MAXK], tgt[MAXK], ptk[MAXK], low_k[MAXN];
+    bool fresh_done = false;
+    for (int k = 0; k < K; ++k) {
+      pend[k] = RS_IN(int32_t, S_CLIENT_PEND)[RS_AT1(k)];
+      tgt[k] = RS_IN(int32_t, S_CLIENT_DST)[RS_AT1(k)];
+      ptk[k] = P.track ? RS_IN(int32_t, S_CLIENT_TICK)[RS_AT1(k)] : 0;
+      if (!fresh_done && pend[k] == NIL) {
+        fresh_done = true;
+        if (client_cmd != NIL) {
+          pend[k] = client_cmd;
+          tgt[k] = RS_IN(int32_t, I_CLIENT_TARGET)[b];
+          ptk[k] = now + 1;  // the offer stamp rides the slot
+        }
+      }
+    }
+    for (int i = 0; i < n; ++i) low_k[i] = K;
+    for (int k = K - 1; k >= 0; --k)
+      if (pend[k] != NIL && tgt[k] >= 0 && tgt[k] < n) low_k[tgt[k]] = k;
+    for (int i = 0; i < n; ++i) {
+      client_ok[i] = low_k[i] < K && node_ok[i];
+      if (client_ok[i]) {
+        wval[i] = pend[low_k[i]];
+        wtick[i] = ptk[low_k[i]];
+      }
+    }
+    for (int k = 0; k < K; ++k) {
+      const bool active = pend[k] != NIL;
+      const int t = tgt[k];
+      const bool valid = active && t >= 0 && t < n;
+      const bool accepted = valid && low_k[t] == k && node_ok[t];
+      cmds += accepted;
+      const bool pend_on = active && !accepted;
+      const int tgt_ld = valid ? lid[t] : NIL;
+      const bool tgt_up = valid && alive[t];
+      RS_OUT(int32_t, O_CLIENT_PEND)[RS_AT1(k)] = pend_on ? pend[k] : NIL;
+      RS_OUT(int32_t, O_CLIENT_DST)[RS_AT1(k)] =
+          !pend_on ? 0
+          : (tgt_up && tgt_ld != NIL) ? tgt_ld
+                                      : RS_IN(int32_t, I_CLIENT_BOUNCE)[RS_AT1(k)];
+      if (P.track) RS_OUT(int32_t, O_CLIENT_TICK)[RS_AT1(k)] = pend_on ? ptk[k] : 0;
+    }
+  }
+  for (int i = 0; i < n; ++i) {
+    if (!(noop[i] || client_ok[i])) continue;
+    const int pos = comp ? pmod(llen[i], cap) : llen[i];
     if (pos >= 0 && pos < cap) {
       log_term[RS_AT2(i, pos, cap)] = term[i];
-      log_val[RS_AT2(i, pos, cap)] = client_cmd;
-      if (P.track) log_tick[RS_AT2(i, pos, cap)] = now + 1;
+      log_val[RS_AT2(i, pos, cap)] = noop[i] ? NOOP : wval[i];
+      if (P.track) log_tick[RS_AT2(i, pos, cap)] = noop[i] ? 0 : wtick[i];  // no-ops: stamp 0
     }
     llen[i] += 1;
   }
 
   // ---- phase 7: timers -----------------------------------------------------
   for (int i = 0; i < n; ++i) {
-    const int clock = clock0[i] + RS_IN(int32_t, I_SKEW)[RS_AT1(i)];
+    const int clock = clock1[i];
     int dl = (granted_any[i] || has_ae[i] || saw_higher[i]) ? clock + tdraw[i] : deadline0[i];
     if (win[i]) dl = clock + P.heartbeat;
+    if (pre_win[i]) dl = clock + tdraw[i];
     const bool expired = clock >= dl && alive[i];
     heartbeat[i] = expired && is_leader[i];
     if (heartbeat[i]) dl = clock + P.heartbeat;
-    start_el[i] = expired && !is_leader[i];
-    if (start_el[i]) {
-      term[i] += 1;
-      role[i] = CANDIDATE;
-      vf[i] = i;
+    // Under PreVote expiry starts a probe (no term bump); the real election
+    // started at the phase-4.5 promotion.
+    start_pv[i] = pv && expired && !is_leader[i];
+    start_el[i] = pv ? pre_win[i] : expired && !is_leader[i];
+    if (start_pv[i] || (!pv && start_el[i])) {
+      if (!pv) {
+        term[i] += 1;
+        vf[i] = i;
+      }
+      role[i] = pv ? PRECANDIDATE : CANDIDATE;
       lid[i] = NIL;
       for (int w = 0; w < W; ++w) votes[i][w] = (w == (i >> 5)) ? (1u << (i & 31)) : 0u;
       dl = clock + tdraw[i];
@@ -433,73 +650,90 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
   }
 
   // ---- phase 8: outbox -----------------------------------------------------
-  const int K = cap + 1;
   for (int i = 0; i < n; ++i) {
     const bool send = win[i] || heartbeat[i];
     const int len_i = len4[i];
-    // Shared window start: minimum prev over responsive peers, else over all
-    // peers (responsive peers ride +0, unresponsive +K, self +2K).
-    int m = 0x7FFFFFFF;
+    // Shared window start: the minimum prev over responsive peers, else over
+    // all peers, clamped to the pre-injection length and (ring) the base.
+    int ws_resp = 0x7FFFFFFF, ws_all = 0x7FFFFFFF;
     for (int j = 0; j < n; ++j) {
+      if (j == i) continue;
       const int prev = imin(imax((int)next_out[RS_AT2(i, j, n)] - 1, 0), len_i);
-      const int enc = prev + (j == i ? 2 * K
-                              : ((int)ack_out[RS_AT2(i, j, n)] <= P.ack_timeout ? 0 : K));
-      m = imin(m, enc);
+      ws_all = imin(ws_all, prev);
+      if ((int)ack_out[RS_AT2(i, j, n)] <= P.ack_timeout) ws_resp = imin(ws_resp, prev);
     }
-    int ws = imax(m >= K ? m - K : m, 0);
-    ws = imin(ws, len_i);
+    int ws = imin(ws_resp == 0x7FFFFFFF ? ws_all : ws_resp, len_i);
+    if (comp) ws = imax(ws, base[i]);
     for (int j = 0; j < n; ++j) {
       const int prev = imin(imax((int)next_out[RS_AT2(i, j, n)] - 1, 0), len_i);
-      RS_OUT(int8_t, OM_REQ_OFF)[RS_AT2(i, j, n)] =
-          (int8_t)((send && j != i) ? iclamp(prev - ws, 0, e) : 0);
+      int off_j = 0;
+      if (send && j != i) off_j = (comp && prev < base[i]) ? -1 : iclamp(prev - ws, 0, e);
+      RS_OUT(int8_t, OM_REQ_OFF)[RS_AT2(i, j, n)] = (int8_t)off_j;
     }
     const int n_ship = iclamp(llen[i] - ws, 0, e);
     for (int k = 0; k < e; ++k) {
       const bool used = send && k < n_ship;
-      const int slot = iclamp(ws + k, 0, cap - 1);
+      const int slot = comp ? pmod(ws + k, cap) : iclamp(ws + k, 0, cap - 1);
       RS_OUT(int32_t, OM_ENT_TERM)[RS_AT2(i, k, e)] = used ? log_term[RS_AT2(i, slot, cap)] : 0;
       RS_OUT(int32_t, OM_ENT_VAL)[RS_AT2(i, k, e)] = used ? log_val[RS_AT2(i, slot, cap)] : 0;
       if (P.track)
         RS_OUT(int32_t, OM_ENT_TICK)[RS_AT2(i, k, e)] = used ? log_tick[RS_AT2(i, slot, cap)] : 0;
     }
-    const int req_type = start_el[i] ? REQ_VOTE : (send ? REQ_APPEND : 0);
+    int req_type = start_el[i] ? REQ_VOTE : (send ? REQ_APPEND : 0);
+    if (start_pv[i]) req_type = REQ_PREVOTE;
+    const bool rv_like = start_el[i] || start_pv[i];
     const int l = llen[i];
-    const int last_term = (l >= 1 && l <= cap) ? log_term[RS_AT2(i, l - 1, cap)] : 0;
-    const int pterm = (ws >= 1 && ws <= cap) ? log_term[RS_AT2(i, ws - 1, cap)] : 0;
+    const int last_term = term_at(RS_ROW(log_term, i), B, cap, comp, base[i], bterm[i], l);
+    const int pterm = term_at(RS_ROW(log_term, i), B, cap, comp, base[i], bterm[i], ws);
     RS_OUT(int32_t, OM_REQ_TYPE)[RS_AT1(i)] = req_type;
-    RS_OUT(int32_t, OM_REQ_TERM)[RS_AT1(i)] = req_type != 0 ? term[i] : 0;
+    // A probe carries the prospective term.
+    RS_OUT(int32_t, OM_REQ_TERM)[RS_AT1(i)] =
+        start_pv[i] ? term[i] + 1 : (req_type != 0 ? term[i] : 0);
     RS_OUT(int32_t, OM_REQ_COMMIT)[RS_AT1(i)] = send ? commit[i] : 0;
-    RS_OUT(int32_t, OM_REQ_LAST_INDEX)[RS_AT1(i)] = start_el[i] ? l : 0;
-    RS_OUT(int32_t, OM_REQ_LAST_TERM)[RS_AT1(i)] = start_el[i] ? last_term : 0;
+    RS_OUT(int32_t, OM_REQ_LAST_INDEX)[RS_AT1(i)] = rv_like ? l : 0;
+    RS_OUT(int32_t, OM_REQ_LAST_TERM)[RS_AT1(i)] = rv_like ? last_term : 0;
     RS_OUT(int32_t, OM_ENT_START)[RS_AT1(i)] = send ? ws : 0;
     RS_OUT(int32_t, OM_ENT_PREV_TERM)[RS_AT1(i)] = send ? pterm : 0;
     RS_OUT(int32_t, OM_ENT_COUNT)[RS_AT1(i)] = send ? n_ship : 0;
+    if (comp) {
+      RS_OUT(int32_t, OM_REQ_BASE)[RS_AT1(i)] = send ? base[i] : 0;
+      RS_OUT(int32_t, OM_REQ_BASE_TERM)[RS_AT1(i)] = send ? bterm[i] : 0;
+      RS_OUT(uint32_t, OM_REQ_BASE_CHK)[RS_AT1(i)] = send ? bchk[i] : 0u;
+    }
+    if (pv)
+      for (int w = 0; w < W; ++w) RS_OUT(uint32_t, OM_PV_GRANT)[RS_AT2(i, w, W)] = pvg[i][w];
     RS_OUT(NodeT, OM_V_TO)[RS_AT1(i)] = (NodeT)grant_to[i];
     RS_OUT(int32_t, OM_RESP_TERM)[RS_AT1(i)] = term[i];
     // Responses on edge [requester i, responder v]: the type of the request
     // v received from i this tick.
     for (int v = 0; v < n; ++v) {
       int kind = 0;
-      if (RS_DELIVERED(v, i)) kind = rtype[i] == REQ_VOTE ? RESP_VOTE : (rtype[i] == REQ_APPEND ? RESP_APPEND : 0);
+      if (RS_DELIVERED(v, i)) {
+        kind = rtype[i] == REQ_VOTE      ? RESP_VOTE
+               : rtype[i] == REQ_APPEND  ? RESP_APPEND
+               : rtype[i] == REQ_PREVOTE ? RESP_PREVOTE
+                                         : 0;
+      }
       RS_OUT(int8_t, OM_RESP_KIND)[RS_AT2(i, v, n)] = (int8_t)kind;
     }
   }
 
-  // ---- committed-prefix checksum + end-of-tick state ------------------------
-  bool chk_bad = false;
+  // ---- committed-prefix checksum (prefix form) + end-of-tick state ----------
   for (int i = 0; i < n; ++i) {
-    uint32_t chk_new = chk0[i];
-    if (P.check_invariants) {
-      uint32_t s_old = 0u, s_new = 0u;
-      const int hi = imin(imax(commit0[i], commit[i]), cap);
-      for (int k = 0; k < hi; ++k) {
-        const uint32_t c = (uint32_t)log_term[RS_AT2(i, k, cap)] * chk_w_term((uint32_t)k) +
-                           (uint32_t)log_val[RS_AT2(i, k, cap)] * chk_w_val((uint32_t)k);
-        if (k < commit0[i]) s_old += c;
-        if (k < commit[i]) s_new += c;
+    if (!comp) {
+      chk_new[i] = chk0[i];
+      if (P.check_invariants) {
+        uint32_t s_old = 0u, s_new = 0u;
+        const int hi = imin(imax(commit0[i], commit[i]), cap);
+        for (int k = 0; k < hi; ++k) {
+          const uint32_t c = (uint32_t)log_term[RS_AT2(i, k, cap)] * chk_w_term((uint32_t)k) +
+                             (uint32_t)log_val[RS_AT2(i, k, cap)] * chk_w_val((uint32_t)k);
+          if (k < commit0[i]) s_old += c;
+          if (k < commit[i]) s_new += c;
+        }
+        if (s_old != chk0[i]) chk_bad = true;
+        chk_new[i] = s_new;
       }
-      if (s_old != chk0[i]) chk_bad = true;
-      chk_new = s_new;
     }
     RS_OUT(int32_t, O_ROLE)[RS_AT1(i)] = role[i];
     RS_OUT(int32_t, O_TERM)[RS_AT1(i)] = term[i];
@@ -507,8 +741,14 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
     RS_OUT(int32_t, O_LEADER_ID)[RS_AT1(i)] = lid[i];
     for (int w = 0; w < W; ++w) RS_OUT(uint32_t, O_VOTES)[RS_AT2(i, w, W)] = votes[i][w];
     RS_OUT(int32_t, O_COMMIT_INDEX)[RS_AT1(i)] = commit[i];
-    RS_OUT(uint32_t, O_COMMIT_CHK)[RS_AT1(i)] = chk_new;
+    RS_OUT(uint32_t, O_COMMIT_CHK)[RS_AT1(i)] = chk_new[i];
     RS_OUT(int32_t, O_LOG_LEN)[RS_AT1(i)] = llen[i];
+    if (comp) {
+      RS_OUT(int32_t, O_LOG_BASE)[RS_AT1(i)] = base[i];
+      RS_OUT(int32_t, O_BASE_TERM)[RS_AT1(i)] = bterm[i];
+      RS_OUT(uint32_t, O_BASE_CHK)[RS_AT1(i)] = bchk[i];
+    }
+    if (pv) RS_OUT(int32_t, O_HEARD_CLOCK)[RS_AT1(i)] = heard[i];
   }
   RS_OUT(int32_t, O_NOW)[b] = now + 1;
 
@@ -538,6 +778,7 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
     // Every pair agrees on its common committed prefix iff every node agrees
     // with the max-commit node on its own committed prefix (equality is
     // transitive), so one pass against node hnode decides the pairwise check.
+    // (Prefix layout only: the wrapper refuses log matching under compaction.)
     for (int i = 0; i < n && !viol_match; ++i) {
       if (i == hnode) continue;
       const int hi = imin(commit[i], cap);
@@ -559,13 +800,16 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
   RS_OUT(int32_t, F_MAX_COMMIT)[b] = max_commit;
   RS_OUT(int32_t, F_MIN_COMMIT)[b] = min_commit;
   RS_OUT(int32_t, F_MSGS_DELIVERED)[b] = msgs;
-  RS_OUT(int32_t, F_CMDS_INJECTED)[b] = any_client ? 1 : 0;
+  RS_OUT(int32_t, F_CMDS_INJECTED)[b] = cmds;
   RS_OUT(int32_t, F_LAT_SUM)[b] = (int32_t)lat_sum;
   RS_OUT(int32_t, F_LAT_CNT)[b] = lat_cnt;
   for (int k = 0; k < BINS; ++k) RS_OUT(int32_t, F_LAT_HIST)[(int64_t)k * B + b] = hist[k];
   RS_OUT(int32_t, F_LAT_EXCLUDED)[b] = imax(crossed - lat_cnt, 0);
+  if (comp) RS_OUT(int32_t, F_NOOP_BLOCKED)[b] = noop_blocked;
 
+#undef RS_UTD
 #undef RS_DELIVERED
+#undef RS_ROW
 #undef RS_AT1
 #undef RS_AT2
 #undef RS_IN
@@ -573,7 +817,8 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
 }
 
 // Calls CALL(IdxT, AckT, NodeT) for the dtype tiers given as byte widths
-// (1 = int8, 2 = int16); evaluates FAIL for any other combination.
+// (1 = int8, 2 = int16, 4 = int32: the index tier under compaction);
+// evaluates FAIL for any other combination.
 #define RS_DISPATCH_TIERS(ib, ab, nb, CALL, FAIL)                   \
   do {                                                              \
     if (ib == 1 && ab == 1 && nb == 1) { CALL(int8_t, int8_t, int8_t); }       \
@@ -584,6 +829,10 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
     else if (ib == 2 && ab == 1 && nb == 2) { CALL(int16_t, int8_t, int16_t); } \
     else if (ib == 1 && ab == 2 && nb == 2) { CALL(int8_t, int16_t, int16_t); } \
     else if (ib == 2 && ab == 2 && nb == 2) { CALL(int16_t, int16_t, int16_t); } \
+    else if (ib == 4 && ab == 1 && nb == 1) { CALL(int32_t, int8_t, int8_t); } \
+    else if (ib == 4 && ab == 2 && nb == 1) { CALL(int32_t, int16_t, int8_t); } \
+    else if (ib == 4 && ab == 1 && nb == 2) { CALL(int32_t, int8_t, int16_t); } \
+    else if (ib == 4 && ab == 2 && nb == 2) { CALL(int32_t, int16_t, int16_t); } \
     else { FAIL; }                                                  \
   } while (0)
 
@@ -593,6 +842,7 @@ inline int check_params(const TickParams& p) {
   if (p.w != (p.n + 31) / 32 || p.w > MAXW) return 2;
   if (p.e < 1 || p.e > MAXE || p.cap < 1) return 3;
   if (p.quorum < 1 || p.b < 0) return 4;
+  if (p.redirect && (p.k < 1 || p.k > MAXK)) return 5;
   return 0;
 }
 

@@ -41,41 +41,71 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "build"
 SOURCES = ("tick.cuh", "tick.cu")
 
-# Leaf pointers in the order of csrc/tick.cuh's `Ptr` enum.
-STATE_IN = (
+# Leaf pointers in the order of csrc/tick.cuh's `Ptr` enum. State and mailbox
+# leaves are read and written under the same names.
+STATE_IO = (
     "role", "term", "voted_for", "leader_id", "votes", "next_index",
     "match_index", "ack_age", "commit_index", "commit_chk", "log_base",
-    "base_chk", "log_term", "log_val", "log_tick", "log_len", "clock",
-    "deadline", "lat_frontier", "now",
+    "base_term", "base_chk", "log_term", "log_val", "log_tick", "log_len",
+    "clock", "deadline", "heard_clock", "client_pend", "client_dst",
+    "client_tick", "lat_frontier", "now",
 )
 MAILBOX_IO = (
     "req_type", "req_term", "req_commit", "req_last_index", "req_last_term",
     "ent_start", "ent_prev_term", "ent_count", "ent_term", "ent_val",
-    "ent_tick", "req_off", "resp_kind", "v_to", "a_ok_to", "a_match",
-    "a_hint", "resp_term",
+    "ent_tick", "req_base", "req_base_term", "req_base_chk", "req_off",
+    "resp_kind", "pv_grant", "v_to", "a_ok_to", "a_match", "a_hint",
+    "resp_term",
 )
-INPUTS_IN = ("deliver_mask", "skew", "timeout_draw", "client_cmd", "alive", "restarted")
-STATE_OUT = (
-    "role", "term", "voted_for", "leader_id", "votes", "next_index",
-    "match_index", "ack_age", "commit_index", "commit_chk", "log_term",
-    "log_val", "log_tick", "log_len", "clock", "deadline", "lat_frontier", "now",
+INPUTS_IN = (
+    "deliver_mask", "skew", "timeout_draw", "client_cmd", "client_target",
+    "client_bounce", "alive", "restarted",
 )
 INFO_OUT = (
     "viol_election_safety", "viol_commit", "viol_log_matching", "leader",
     "n_leaders", "max_term", "max_commit", "min_commit", "msgs_delivered",
     "cmds_injected", "lat_sum", "lat_cnt", "lat_hist", "lat_excluded",
+    "noop_blocked",
 )
 PTR_ORDER = (
-    [("state", f) for f in STATE_IN]
+    [("state", f) for f in STATE_IO]
     + [("mailbox", f) for f in MAILBOX_IO]
     + [("inputs", f) for f in INPUTS_IN]
-    + [("state_out", f) for f in STATE_OUT]
+    + [("state_out", f) for f in STATE_IO]
     + [("mailbox_out", f) for f in MAILBOX_IO]
     + [("info_out", f) for f in INFO_OUT]
 )
-# Legs the kernel neither reads nor writes unless the offer-tick plane is live.
-_TRACK_ONLY = {("state", "log_tick"), ("mailbox", "ent_tick"),
-               ("state_out", "log_tick"), ("mailbox_out", "ent_tick")}
+# Legs a gate makes live, by name (either direction): with the gate off the
+# kernel neither reads nor writes them -- they get a null pointer and pass
+# through uncopied. log_base and base_chk are read on every config (a restart
+# resumes commit at the snapshot) but written only under compaction.
+_GATED = {
+    "log_tick": lambda c: c.track_offer_ticks,
+    "ent_tick": lambda c: c.track_offer_ticks,
+    "base_term": lambda c: c.compaction,
+    "req_base": lambda c: c.compaction,
+    "req_base_term": lambda c: c.compaction,
+    "req_base_chk": lambda c: c.compaction,
+    "noop_blocked": lambda c: c.compaction,
+    "heard_clock": lambda c: c.pre_vote,
+    "pv_grant": lambda c: c.pre_vote,
+    "client_pend": lambda c: c.client_redirect,
+    "client_dst": lambda c: c.client_redirect,
+    "client_target": lambda c: c.client_redirect,
+    "client_bounce": lambda c: c.client_redirect,
+    "client_tick": lambda c: c.client_redirect and c.track_offer_ticks,
+}
+_WRITTEN_UNDER_COMPACTION = ("log_base", "base_chk")
+
+
+def leg_live(cfg: T.RaftConfig, group: str, name: str) -> bool:
+    """Whether the kernel touches leg `name` of `group` under `cfg`."""
+    if group == "state_out" and name in _WRITTEN_UNDER_COMPACTION:
+        return cfg.compaction
+    gate = _GATED.get(name)
+    return gate is None or gate(cfg)
+
+
 MAX_NODES = 64
 MAX_ENTRIES = 16
 
@@ -96,6 +126,12 @@ class TickParams(ctypes.Structure):
         ("check_invariants", ctypes.c_int32),
         ("log_matching_due", ctypes.c_int32),
         ("track", ctypes.c_int32),
+        ("comp", ctypes.c_int32),
+        ("compact_margin", ctypes.c_int32),
+        ("pre_vote", ctypes.c_int32),
+        ("election_min", ctypes.c_int32),
+        ("redirect", ctypes.c_int32),
+        ("k", ctypes.c_int32),
     ]
 
 
@@ -164,10 +200,10 @@ def _load_cuda():
 
 def leaf_specs(cfg: T.RaftConfig, b: int) -> dict:
     """{(group, name): (shape, dtype)} of every batch-minor leaf the kernel
-    reads, for `b` clusters."""
+    may read, for `b` clusters (`leg_live` says which the config makes live)."""
     boot = T.boot_state(cfg, torch.empty((b, cfg.n_nodes), dtype=torch.int32, device="meta"))
     minor = lambda x: (tuple(x.shape[1:]) + (b,), x.dtype)  # noqa: E731
-    specs = {("state", f): minor(getattr(boot, f)) for f in STATE_IN}
+    specs = {("state", f): minor(getattr(boot, f)) for f in STATE_IO}
     specs.update({("mailbox", f): minor(getattr(boot.mailbox, f)) for f in MAILBOX_IO})
     n, w = cfg.n_nodes, bitplane.n_words(cfg.n_nodes)
     specs.update({
@@ -175,10 +211,20 @@ def leaf_specs(cfg: T.RaftConfig, b: int) -> dict:
         ("inputs", "skew"): ((n, b), torch.int32),
         ("inputs", "timeout_draw"): ((n, b), torch.int32),
         ("inputs", "client_cmd"): ((b,), torch.int32),
+        ("inputs", "client_target"): ((b,), torch.int32),
+        ("inputs", "client_bounce"): ((cfg.client_pipeline, b), torch.int32),
         ("inputs", "alive"): ((n, b), torch.bool),
         ("inputs", "restarted"): ((n, b), torch.bool),
     })
     return specs
+
+
+def _info_spec(name: str, b: int):
+    if name.startswith("viol"):
+        return (b,), torch.bool
+    if name.endswith("_hist"):
+        return (T.LAT_HIST_BINS, b), torch.int32
+    return (b,), torch.int32
 
 
 def check_supported(cfg: T.RaftConfig) -> None:
@@ -200,6 +246,8 @@ def _prepare(cfg, s, inp, now, device_type):
     b = s.role.shape[-1]
     groups = {"state": s, "mailbox": s.mailbox, "inputs": inp}
     for (group, name), (shape, dtype) in leaf_specs(cfg, b).items():
+        if not leg_live(cfg, group, name):
+            continue
         x = getattr(groups[group], name)
         if not isinstance(x, torch.Tensor):
             raise ValueError(f"{group}.{name}: expected a tensor, got {type(x).__name__}")
@@ -213,29 +261,22 @@ def _prepare(cfg, s, inp, now, device_type):
             raise ValueError(f"{group}.{name}: not contiguous")
         if x.device != s.role.device:
             raise ValueError(f"{group}.{name}: on {x.device}, state on {s.role.device}")
-    track = cfg.track_offer_ticks
     dev = s.role.device
-    outs = {
-        "state_out": {f: torch.empty_like(getattr(s, f)) for f in STATE_OUT},
-        "mailbox_out": {f: torch.empty_like(getattr(s.mailbox, f)) for f in MAILBOX_IO},
-        "info_out": {},
-    }
-    for f in INFO_OUT:
-        if f.startswith("viol"):
-            shape, dtype = (b,), torch.bool
-        elif f == "lat_hist":
-            shape, dtype = (T.LAT_HIST_BINS, b), torch.int32
-        else:
-            shape, dtype = (b,), torch.int32
-        outs["info_out"][f] = torch.empty(shape, dtype=dtype, device=dev)
-    if not track:  # gated-off legs pass through untouched
-        del outs["state_out"]["log_tick"], outs["mailbox_out"]["ent_tick"]
+    outs = {"state_out": {}, "mailbox_out": {}, "info_out": {}}
     ptrs = (ctypes.c_void_p * len(PTR_ORDER))()
     for k, (group, name) in enumerate(PTR_ORDER):
-        if not track and (group, name) in _TRACK_ONLY:
-            ptrs[k] = None
+        if not leg_live(cfg, group, name):
+            ptrs[k] = None  # gated off: never touched, passed through
             continue
-        src = outs[group][name] if group in outs else getattr(groups[group], name)
+        if group == "state_out":
+            src = outs[group][name] = torch.empty_like(getattr(s, name))
+        elif group == "mailbox_out":
+            src = outs[group][name] = torch.empty_like(getattr(s.mailbox, name))
+        elif group == "info_out":
+            shape, dtype = _info_spec(name, b)
+            src = outs[group][name] = torch.empty(shape, dtype=dtype, device=dev)
+        else:
+            src = getattr(groups[group], name)
         ptrs[k] = src.data_ptr()
     params = TickParams(
         b=b, n=cfg.n_nodes, e=cfg.max_entries_per_rpc, cap=cfg.log_capacity,
@@ -244,7 +285,10 @@ def _prepare(cfg, s, inp, now, device_type):
         ack_timeout=cfg.ack_timeout_ticks,
         check_invariants=int(cfg.check_invariants),
         log_matching_due=int(raft_batched.log_matching_due(cfg, s, now)),
-        track=int(track),
+        track=int(cfg.track_offer_ticks),
+        comp=int(cfg.compaction), compact_margin=cfg.compact_margin,
+        pre_vote=int(cfg.pre_vote), election_min=cfg.election_min_ticks,
+        redirect=int(cfg.client_redirect), k=cfg.client_pipeline,
     )
     tiers = (
         s.next_index.element_size(), s.ack_age.element_size(),
@@ -260,19 +304,12 @@ def _assemble(s, outs):
     dev = s.role.device
     new_mb = s.mailbox._replace(**outs["mailbox_out"])
     new_state = s._replace(**outs["state_out"], mailbox=new_mb)
-    z = torch.zeros((b,), dtype=torch.int32, device=dev)
-    step_info = T.StepInfo(
-        **outs["info_out"],
-        noop_blocked=z,
-        lm_skipped_pairs=z.clone(),
-        reads_served=z.clone(),
-        read_lat_sum=z.clone(),
-        read_hist=torch.zeros((T.LAT_HIST_BINS, b), dtype=torch.int32, device=dev),
-        viol_read_stale=torch.zeros((b,), dtype=torch.bool, device=dev),
-        fsync_lag_sum=z.clone(),
-        fsync_lag_max=z.clone(),
-    )
-    return new_state, step_info
+    info = dict(outs["info_out"])
+    for f in T.StepInfo._fields:
+        if f not in info:
+            shape, dtype = _info_spec(f, b)
+            info[f] = torch.zeros(shape, dtype=dtype, device=dev)
+    return new_state, T.StepInfo(**info)
 
 
 def _cuda_launch(params, ptrs, tiers, device) -> None:
@@ -352,20 +389,17 @@ def step_host(lib, cfg, s, inp, now: int | None = None):
 
 def traffic_bytes(cfg: T.RaftConfig, b: int) -> tuple[int, int]:
     """(bytes read, bytes written) by one tick of the kernel on `b` clusters:
-    every leaf it reads once and every leaf it writes once -- the memory
+    every live leg it reads once and every live leg it writes once (legs a
+    gate leaves untouched pass through and move nothing) -- the memory
     traffic its bound is computed from."""
-    track = cfg.track_offer_ticks
     size = lambda shape, dtype: math.prod(shape) * torch.empty((), dtype=dtype).element_size()  # noqa: E731
-    read = sum(
-        size(shape, dtype)
-        for key, (shape, dtype) in leaf_specs(cfg, b).items()
-        if track or key not in _TRACK_ONLY
-    )
     specs = leaf_specs(cfg, b)
+    read = sum(size(*spec) for (group, name), spec in specs.items() if leg_live(cfg, group, name))
     written = sum(
-        size(*specs[("state", f)]) for f in STATE_OUT if track or f != "log_tick"
+        size(*specs[("state", f)]) for f in STATE_IO if leg_live(cfg, "state_out", f)
     ) + sum(
-        size(*specs[("mailbox", f)]) for f in MAILBOX_IO if track or f != "ent_tick"
+        size(*specs[("mailbox", f)]) for f in MAILBOX_IO if leg_live(cfg, "mailbox_out", f)
+    ) + sum(
+        size(*_info_spec(f, b)) for f in INFO_OUT if leg_live(cfg, "info_out", f)
     )
-    written += 3 * b + (len(INFO_OUT) - 4) * 4 * b + T.LAT_HIST_BINS * 4 * b
     return read, written

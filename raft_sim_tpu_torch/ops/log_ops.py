@@ -1,10 +1,14 @@
-"""Fixed-capacity replicated-log ops, batch-minor prefix forms.
+"""Fixed-capacity replicated-log ops, batch-minor prefix and ring forms.
 
-The port of the non-ring batch-minor half of raft_sim_tpu/ops/log_ops.py: a log
-is `[N, CAP, B]` terms/values plus `[N, B]` lengths, 1-based entry i at slot
-i-1, index 0 meaning "no entry". The JAX forms are one-hot compare-and-reduce
-passes (TPU gathers along the lane axis serialize); these are gathers with the
-same values, including the out-of-range conventions each JAX form documents.
+The port of the batch-minor half of raft_sim_tpu/ops/log_ops.py: a log is
+`[N, CAP, B]` terms/values plus `[N, B]` lengths, 1-based entry i at slot
+i-1, index 0 meaning "no entry". Under compaction (the `_rb` ring forms) entry
+i lives at slot (i - 1) mod CAP, the live entries are (log_base, log_len], and
+entries at or below log_base exist only as (log_base, base_term, base_chk).
+The JAX forms are one-hot compare-and-reduce passes (TPU gathers along the
+lane axis serialize); these are gathers with the same values, including the
+out-of-range conventions each JAX form documents. `%` is floor modulo on both
+sides, as in JAX.
 
 Checksums wrap mod 2^32: they are computed in int64 with masking and returned
 as int32-carried uint32 bit patterns (ops/bitplane.py `i32`).
@@ -96,6 +100,61 @@ def prefix_chk2_b(log_term, log_val, upto_a, upto_b):
     return (
         i32(torch.where(in_a, contrib, z).sum(1)),
         i32(torch.where(in_b, contrib, z).sum(1)),
+    )
+
+
+def term_at_rb(log_term, base, base_term, index1) -> torch.Tensor:
+    """Ring term_at. log_term [N, CAP, B]; base/base_term/index1 [N, B] ->
+    [N, B]: 0 for index1 == 0, base_term for index1 <= base (the compacted
+    prefix), else the term at slot (index1 - 1) mod CAP."""
+    cap = log_term.shape[1]
+    idx = (index1.to(torch.int64) - 1) % cap
+    got = torch.gather(log_term, 1, idx[:, None, :]).squeeze(1)
+    return torch.where(
+        index1 == 0, torch.zeros_like(got), torch.where(index1 <= base, base_term, got)
+    )
+
+
+def window_rb(arr: torch.Tensor, start0: torch.Tensor, e: int) -> torch.Tensor:
+    """Ring window: out[n, k, b] = arr[n, (start0[n, b] + k) mod CAP, b].
+    arr [N, CAP, B]; start0 [N, B] -> [N, E, B]."""
+    cap = arr.shape[1]
+    ks = torch.arange(e, dtype=torch.int64, device=arr.device)[None, :, None]
+    return torch.gather(arr, 1, (start0.to(torch.int64)[:, None, :] + ks) % cap)
+
+
+def write_window_rb(arr, start0, vals, gate, lo, count) -> torch.Tensor:
+    """Where gate[n, b]: vals[n, k, b] -> arr[n, (start0 + k) mod CAP, b] for
+    lo <= k < min(count, E). The `lo` bound skips shipped entries at or below
+    the receiver's log_base. arr [N, CAP, B]; vals [N, E, B]; start0/gate/lo/
+    count [N, B]. Returns a new tensor."""
+    cap = arr.shape[1]
+    e = vals.shape[1]
+    cnt = torch.where(gate, count, torch.zeros_like(count)).clamp(max=e).to(torch.int64)
+    lo = lo.clamp(0, e).to(torch.int64)
+    cs = torch.arange(cap, dtype=torch.int64, device=arr.device)[None, :, None]
+    rel = (cs - start0.to(torch.int64)[:, None, :]) % cap  # the slot's window offset
+    hit = (rel >= lo[:, None, :]) & (rel < cnt[:, None, :])
+    val = torch.gather(vals, 1, rel.clamp(max=e - 1).expand(arr.shape)).to(arr.dtype)
+    return torch.where(hit, val, arr)
+
+
+def ring_chk_b(log_term, log_val, base, uptos):
+    """Checksums over the live ring entries (base, upto] for each upto in
+    `uptos`, weighted by absolute entry index (the ring form of prefix_chk2_b;
+    equal to it for base == 0). log_term/log_val [N, CAP, B]; base and each
+    upto [N, B] -> a tuple of int32-carried uint32 [N, B]."""
+    cap = log_term.shape[1]
+    s = torch.arange(cap, dtype=torch.int64, device=log_term.device)[None, :, None]
+    b64 = base.to(torch.int64)[:, None, :]
+    abs0 = b64 + (s - b64) % cap  # [N, CAP, B] 0-based entry index of slot s
+    w_t, w_v = chk_weights_at(abs0)
+    contrib = (
+        (log_term.to(torch.int64) & MASK32) * w_t + (log_val.to(torch.int64) & MASK32) * w_v
+    ) & MASK32
+    z = torch.zeros((), dtype=torch.int64, device=log_term.device)
+    return tuple(
+        i32(torch.where(abs0 < u.to(torch.int64)[:, None, :], contrib, z).sum(1)) for u in uptos
     )
 
 

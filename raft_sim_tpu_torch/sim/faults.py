@@ -8,11 +8,12 @@ threshold compares (`bits < threshold`, unsigned): draws are int64 values in
 [0, 2^32), so a plain compare is the unsigned one.
 
 Ported: message drop (with the per-cluster uniform rate), rolling partitions,
-clock skew, election-timeout draws and the direct client's cadence. Gated-off
-fields come out exactly as the JAX function emits them (zeros / NIL). Crash
-schedules (`alive_at`), the redirect client's routing draws, the
-reconfiguration plane's admin commands and the storage plane's draws are later
-slices; a config that turns one on raises NotImplementedError naming it.
+clock skew, election-timeout draws, the client's cadence, the crash schedule
+(`alive_at`: the `alive` and `restarted` legs) and the redirect client's
+routing draws (`client_target`, `client_bounce`). Gated-off fields come out
+exactly as the JAX function emits them (zeros / NIL). The reconfiguration
+plane's admin commands and the storage plane's draws are later slices; a
+config that turns one on raises NotImplementedError naming it.
 """
 
 from __future__ import annotations
@@ -40,12 +41,8 @@ def bern_u32(key: torch.Tensor, thresh, shape=()) -> torch.Tensor:
 
 
 def unsupported_input_gates(cfg: RaftConfig) -> list[str]:
-    """Input mechanisms of `cfg` this slice does not draw yet."""
+    """Input mechanisms of `cfg` the port does not draw yet."""
     gates = []
-    if cfg.crash_prob > 0:
-        gates.append("crash_prob (alive_at)")
-    if cfg.client_redirect:
-        gates.append("client_redirect")
     if cfg.reconfig:
         gates.append("reconfig")
     if cfg.leader_transfer:
@@ -77,6 +74,42 @@ def _skew_draw(n: int, k_skew: torch.Tensor, skew_t: int) -> torch.Tensor:
     return torch.where(
         r < (skew_t >> 1), 0 * one, torch.where(r < skew_t, 2 * one, one)
     ).to(torch.int32)
+
+
+def crash_key(keys: torch.Tensor) -> torch.Tensor:
+    """The crash-schedule stream of each cluster key ([..., 2]):
+    fold_in(split(key, 3)[2], -1), with -1 taken as uint32."""
+    return threefry.fold_in(threefry.split(keys, 3)[..., 2, :], -1)
+
+
+def alive_at(cfg: RaftConfig, ckey: torch.Tensor, now: int) -> torch.Tensor:
+    """[..., N] bool node liveness at tick `now` (the JAX `alive_at`): in
+    window w = now // crash_period each node crashes with prob crash_prob and
+    is down over [start, start + dur) of the window, start uniform in
+    [0, period), dur uniform in [1, crash_down_ticks]. A tick below 0 reports
+    alive, so tick 0 is never a restart."""
+    n = cfg.n_nodes
+    lead = ckey.shape[:-1]
+    if cfg.crash_prob <= 0 or now < 0:
+        return torch.ones(lead + (n,), dtype=torch.bool, device=ckey.device)
+    period = cfg.crash_period
+    window = now // period
+    off = now - window * period
+    wkey = threefry.fold_in(ckey, window)
+    k_sel, k_start, k_dur = threefry.split(wkey, 3).unbind(dim=-2)
+    crashed = bern_u32(k_sel, p_to_u32(cfg.crash_prob), (n,))
+    start = threefry.randint(k_start, (n,), 0, period)
+    dur = threefry.randint(k_dur, (n,), 1, cfg.crash_down_ticks + 1)
+    return ~(crashed & (off >= start) & (off < start + dur))
+
+
+def _client_routing(cfg: RaftConfig, tkey: torch.Tensor):
+    """(client_target [B], client_bounce [B, K]) for the redirect client: one
+    random target node per offer and one bounce node per pipeline slot, from
+    fold_in(tick key, 3)."""
+    n = cfg.n_nodes
+    k_tgt, k_bnc = threefry.split(threefry.fold_in(tkey, 3), 2).unbind(dim=-2)
+    return threefry.randint(k_tgt, (), 0, n), threefry.randint(k_bnc, (cfg.client_pipeline,), 0, n)
 
 
 def make_inputs(cfg: RaftConfig, keys: torch.Tensor, now: int) -> StepInputs:
@@ -118,6 +151,19 @@ def make_inputs(cfg: RaftConfig, keys: torch.Tensor, now: int) -> StepInputs:
 
     ci = cfg.client_interval
     cmd = now + 1 if ci > 0 and now % ci == 0 else NIL
+    if cfg.client_redirect:
+        client_target, client_bounce = _client_routing(cfg, tkey)
+    else:
+        client_target = torch.zeros((bsz,), dtype=torch.int32, device=dev)
+        client_bounce = torch.zeros((bsz, cfg.client_pipeline), dtype=torch.int32, device=dev)
+
+    if cfg.crash_prob > 0:
+        ckey = crash_key(keys)
+        alive = alive_at(cfg, ckey, now)
+        restarted = alive & ~alive_at(cfg, ckey, now - 1)
+    else:
+        alive = torch.ones((bsz, n), dtype=torch.bool, device=dev)
+        restarted = torch.zeros((bsz, n), dtype=torch.bool, device=dev)
 
     def full(shape, value, dtype=torch.int32):
         return torch.full((bsz,) + shape, value, dtype=dtype, device=dev)
@@ -127,10 +173,10 @@ def make_inputs(cfg: RaftConfig, keys: torch.Tensor, now: int) -> StepInputs:
         skew=skew,
         timeout_draw=timeout_draw,
         client_cmd=full((), cmd),
-        client_target=full((), 0),
-        client_bounce=full((cfg.client_pipeline,), 0),
-        alive=full((n,), True, torch.bool),
-        restarted=full((n,), False, torch.bool),
+        client_target=client_target,
+        client_bounce=client_bounce,
+        alive=alive,
+        restarted=restarted,
         reconfig_cmd=full((), NIL),
         transfer_cmd=full((), NIL),
         read_cmd=full((), NIL),

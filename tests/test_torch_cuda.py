@@ -29,24 +29,29 @@ def card():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("name", ["config1", "config2", "config3", "config4", "config5"])
+@pytest.mark.parametrize(
+    "name", ["config1", "config2", "config3", "config4", "config5", "config3p", "config6", "config6r"]
+)
 def test_step_cuda_matches_plain_step(card, name):
     cfg, _ = tconfig.PRESETS[name]
     batch = 1 if name == "config1" else 200  # 200: a ragged last block
+    ticks = 400 if cfg.compaction else 64  # config6's CAP=32 ring wraps near tick 130
     s = trb.to_batch_minor(ttypes.init_batch(cfg, threefry.key(0, card), batch))
     keys = threefry.split(threefry.key(1, card), batch)
     before = tick_engine.step_cuda.launches
-    for t in range(64):
+    for t in range(ticks):
         inp = trb.to_batch_minor(faults.make_inputs(cfg, keys, t))
         want = trb.step_b(cfg, s, inp, t)
         got = tick_engine.step_cuda(cfg, s, inp, t)
         diff = bridge.first_difference(want[0], got[0]) or bridge.first_difference(want[1], got[1])
         assert diff is None, f"tick {t}: {diff}"
         s = got[0]
-    assert tick_engine.step_cuda.launches == before + 64
+    assert tick_engine.step_cuda.launches == before + ticks
+    if cfg.compaction:
+        assert int(s.log_base.min()) > 0  # every node of every cluster compacted
 
 
-@pytest.mark.parametrize("name", ["config2", "config4"])
+@pytest.mark.parametrize("name", ["config2", "config4", "config6r"])
 def test_simulate_card_matches_cpu(card, name):
     cfg, _ = tconfig.PRESETS[name]
     got = scan.simulate(cfg, 3, 32, 80, device=card)

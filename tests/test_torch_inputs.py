@@ -47,31 +47,68 @@ ROWS = [
     pytest.param(rst.RaftConfig(n_nodes=5, drop_prob=1.0, drop_prob_uniform=True), id="drop-1.0-uniform"),
 ]
 TICKS = list(range(0, 40)) + [63, 64, 65, 95, 96, 1000, 2**20 + 3]
+ROWS.append(pytest.param(rst.PRESETS["config3p"][0], id="config3p"))
+# Crash schedules run in windows of crash_period ticks: every tick of the
+# first two windows and into a third, so restarts and window edges are covered.
+CRASH_ROWS = [
+    pytest.param(rst.PRESETS[name][0], 140, id=name) for name in ("config6", "config6r")
+] + [
+    # Non-power-of-two randint spans for the window start, the down span and
+    # the redirect targets (jax's two-draw algorithm, not a modulo).
+    pytest.param(
+        rst.RaftConfig(n_nodes=7, crash_prob=0.6, crash_period=37, crash_down_ticks=9,
+                       client_interval=3, client_redirect=True, client_pipeline=3),
+        80, id="n7-crash-p37-redirect-k3",
+    ),
+]
 
 
 def _port_cfg(jcfg):
     return tconfig.RaftConfig(**{f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)})
 
 
-@pytest.mark.parametrize("jcfg", ROWS)
-def test_make_inputs_matches_jax(jcfg):
+def _check_make_inputs(jcfg, ticks):
     cfg = _port_cfg(jcfg)
     B = 6
     keys = jax.random.split(jax.random.key(21), B)
     tkeys = threefry.split(threefry.key(21), B)
     draw = jax.jit(lambda k, now: jax.vmap(lambda kk: jfaults.make_inputs(jcfg, kk, now))(k))
-    for now in TICKS:
+    restarts = 0
+    for now in ticks:
         want = jax.device_get(draw(keys, jnp.int32(now)))
         got = tfaults.make_inputs(cfg, tkeys, now)
         diff = bridge.first_difference(want, got)
         assert diff is None, f"tick {now}: {diff}"
+        restarts += int(got.restarted.sum())
+    return restarts
+
+
+@pytest.mark.parametrize("jcfg", ROWS)
+def test_make_inputs_matches_jax(jcfg):
+    _check_make_inputs(jcfg, TICKS)
+
+
+@pytest.mark.parametrize("jcfg,n_ticks", CRASH_ROWS)
+def test_make_inputs_crash_and_redirect_match_jax(jcfg, n_ticks):
+    restarts = _check_make_inputs(jcfg, list(range(n_ticks)) + [1000, 2**20 + 3])
+    assert restarts > 0  # the schedule really restarted nodes
+
+
+@pytest.mark.parametrize(
+    "kw", [dict(crash_prob=0.2), dict(client_redirect=True, client_interval=4, client_pipeline=3)],
+    ids=["crash_prob", "client_redirect"],
+)
+def test_crash_and_redirect_inputs_are_accepted(kw):
+    """The crash schedule and the redirect routing are drawn, not refused."""
+    cfg = tconfig.RaftConfig(**kw)
+    got = tfaults.make_inputs(cfg, threefry.split(threefry.key(0), 2), 0)
+    assert got.alive.all() and not got.restarted.any()  # tick 0 is never a restart
+    assert got.client_bounce.shape == (2, cfg.client_pipeline)
 
 
 @pytest.mark.parametrize(
     "kw,gate",
     [
-        (dict(crash_prob=0.2), "crash_prob"),
-        (dict(client_redirect=True, client_interval=4), "client_redirect"),
         (dict(reconfig_interval=10), "reconfig"),
         (dict(read_interval=3), "reads"),
         (dict(fsync_interval=3), "durable_storage"),

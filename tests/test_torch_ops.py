@@ -103,3 +103,47 @@ def test_log2_bin_matches_jax():
     np.testing.assert_array_equal(
         tlo.log2_bin(torch.from_numpy(v), 16).numpy(), np.asarray(jlo.log2_bin(jnp.asarray(v), 16))
     )
+
+
+@pytest.mark.parametrize("cap,e", [(8, 2), (8, 4), (32, 4), (16, 8)])
+def test_ring_log_ops_match_jax(cap, e):
+    """The four ring forms (compaction) on random rings with nonzero bases:
+    indices below, at and above each node's base, across the wrap."""
+    rng = np.random.default_rng(100 + cap + e)
+    n, b = 5, 9
+    log_term = rng.integers(-3, 1000, (n, cap, b), dtype=np.int32)
+    log_val = rng.integers(-(2**31), 2**31, (n, cap, b), dtype=np.int32)
+    base = rng.integers(0, 5 * cap, (n, b), dtype=np.int32)
+    base_term = rng.integers(0, 50, (n, b), dtype=np.int32)
+    idx = np.where(rng.random((n, b)) < 0.1, 0, base + rng.integers(-cap, cap + 1, (n, b))).astype(np.int32)
+    idx = np.maximum(idx, 0)
+    j = lambda a: jnp.asarray(a)  # noqa: E731
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    np.testing.assert_array_equal(
+        tlo.term_at_rb(t(log_term), t(base), t(base_term), t(idx)).numpy(),
+        np.asarray(jlo.term_at_rb(j(log_term), j(base), j(base_term), j(idx))),
+    )
+    start = (base + rng.integers(0, cap, (n, b))).astype(np.int32)
+    np.testing.assert_array_equal(
+        tlo.window_rb(t(log_term), t(start), e).numpy(),
+        np.asarray(jlo.window_rb(j(log_term), j(start), e)),
+    )
+    vals = rng.integers(0, 99, (n, e, b), dtype=np.int32)
+    gate = rng.random((n, b)) < 0.7
+    lo = rng.integers(-1, e + 2, (n, b), dtype=np.int32)
+    count = rng.integers(0, e + 2, (n, b), dtype=np.int32)
+    want = jlo.write_window_rb(j(log_term), j(start), j(vals), j(gate), j(lo), j(count))
+    got = tlo.write_window_rb(t(log_term), t(start), t(vals), t(gate), t(lo), t(count))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    uptos = tuple(
+        (base + rng.integers(0, cap + 1, (n, b))).astype(np.int32) for _ in range(3)
+    )
+    want_c = jlo.ring_chk_b(j(log_term), j(log_val), j(base), tuple(j(u) for u in uptos))
+    got_c = tlo.ring_chk_b(t(log_term), t(log_val), t(base), tuple(t(u) for u in uptos))
+    for w, g in zip(want_c, got_c):
+        np.testing.assert_array_equal(_u32(g), np.asarray(w))
+    # With base 0 the ring checksum is the prefix checksum.
+    z = np.zeros((n, b), np.int32)
+    ring0 = tlo.ring_chk_b(t(log_term), t(log_val), t(z), (t(uptos[0] % (cap + 1)),))[0]
+    pre0 = tlo.prefix_chk2_b(t(log_term), t(log_val), t(z), t(uptos[0] % (cap + 1)))[1]
+    np.testing.assert_array_equal(ring0.numpy(), pre0.numpy())

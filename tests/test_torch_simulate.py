@@ -34,6 +34,11 @@ CASES = [
     pytest.param("config3", 8, 80, id="config3"),
     pytest.param("config4", 8, 100, id="config4"),
     pytest.param("config5", 4, 64, id="config5"),
+    # Slice 2: crash schedules, the compacting ring (wrapped by tick ~130),
+    # the redirect client and PreVote.
+    pytest.param("config6", 4, 200, id="config6"),
+    pytest.param("config6r", 4, 200, id="config6r"),
+    pytest.param("config3p", 8, 80, id="config3p"),
 ]
 
 
@@ -47,6 +52,8 @@ def test_simulate_matches_jax(name, batch, ticks):
     assert bridge.first_difference(want_m, got_m) is None
     assert tsummarize(got_m)._asdict() == jsummarize(want_m)._asdict()
     assert int(got_m.violations.sum()) == 0
+    if tcfg.compaction:  # every cluster's ring wrapped
+        assert int(got_s.log_base.amin()) > 0 and int(got_m.max_commit.amin()) > tcfg.log_capacity
 
 
 def test_summarize_matches_jax_with_latency_traffic():
@@ -107,8 +114,8 @@ def test_default_device_raises_without_a_card():
 
 @pytest.mark.parametrize(
     "kw,gate",
-    [(dict(pre_vote=True), "pre_vote"), (dict(crash_prob=0.2), "crash_prob"),
-     (dict(compact_margin=4, log_capacity=16), "compaction")],
+    [(dict(reconfig_interval=10), "reconfig"), (dict(read_interval=3), "reads"),
+     (dict(fsync_interval=3), "durable_storage")],
     ids=lambda x: x if isinstance(x, str) else None,
 )
 def test_simulate_unsupported_gate_raises(kw, gate):

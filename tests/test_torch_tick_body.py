@@ -9,10 +9,12 @@ Tolerance: exact equality of every ClusterState and StepInfo leaf.
 Skips only where no g++ is installed.
 """
 
+import dataclasses
 import re
 import shutil
 import subprocess
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -24,6 +26,7 @@ from raft_sim_tpu_torch.models import raft_batched as trb
 from raft_sim_tpu_torch.sim import faults
 from raft_sim_tpu_torch.utils import config as tconfig
 from raft_sim_tpu_torch.utils import threefry
+from tests.test_torch_step import HAND_BUILT, hand_built_batch
 
 torch.set_num_threads(1)
 
@@ -79,6 +82,28 @@ ROWS = [
         tconfig.RaftConfig(n_nodes=4, client_interval=3, check_invariants=False, ack_timeout_ticks=200),
         6, 100, 0.03, id="n4-no-invariants-ack-int16",
     ),
+    # The slice-2 presets under their own crash schedules, long enough for
+    # config6's CAP=32 ring to wrap; then the fast-wrapping ring under fuzz.
+    pytest.param(tconfig.PRESETS["config6"][0], 8, 160, 0.0, id="config6"),
+    pytest.param(tconfig.PRESETS["config6r"][0], 7, 160, 0.0, id="config6r-ragged-b7"),
+    pytest.param(tconfig.PRESETS["config3p"][0], 8, 120, 0.0, id="config3p"),
+    pytest.param(
+        dataclasses.replace(tconfig.PRESETS["config6"][0], log_capacity=8, compact_margin=4,
+                            max_entries_per_rpc=2, client_interval=2),
+        8, 150, 0.06, id="config6-cap8-fast-wrap-crash-fuzz",
+    ),
+    pytest.param(
+        tconfig.RaftConfig(n_nodes=5, log_capacity=8, compact_margin=2, max_entries_per_rpc=4,
+                           client_interval=1, client_redirect=True, client_pipeline=3,
+                           drop_prob=0.2, pre_vote=True, clock_skew_prob=0.1),
+        8, 150, 0.05, id="n5-prevote-redirect-cap8-crash-fuzz",
+    ),
+    pytest.param(
+        tconfig.RaftConfig(n_nodes=7, log_capacity=12, compact_margin=3, max_entries_per_rpc=3,
+                           client_interval=2, check_invariants=False, pre_vote=True,
+                           ack_timeout_ticks=200),
+        6, 120, 0.05, id="n7-compaction-prevote-no-invariants-ack-int16",
+    ),
 ]
 
 
@@ -99,6 +124,26 @@ def test_tick_body_matches_plain_step(host_lib, cfg, batch, ticks, p_down):
         led += int(want[1].n_leaders.sum() > 0)
         s = want[0]
     assert led > 0
+    if cfg.compaction:  # the trajectory compacted: log_base moved off 0
+        assert int(s.log_base.max()) > 0
+
+
+@pytest.mark.parametrize("name", HAND_BUILT)
+def test_tick_body_matches_plain_step_on_hand_built_compaction_states(host_lib, name):
+    """The snapshot wipe/keep/conflict and same-tick rebase states of
+    tests/test_torch_step.py, two ticks each."""
+    from raft_sim_tpu_torch.utils.config import RaftConfig
+
+    jcfg, st, inp = hand_built_batch(name)
+    cfg = RaftConfig(**{f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)})
+    s = bridge.to_port(jax.device_get(st), ttypes.ClusterState)
+    inp = bridge.to_port(jax.device_get(inp), ttypes.StepInputs)
+    for t in range(2):
+        want = trb.step_b(cfg, s, inp)
+        got = tick_engine.step_host(host_lib, cfg, s, inp)
+        diff = bridge.first_difference(want[0], got[0]) or bridge.first_difference(want[1], got[1])
+        assert diff is None, f"{name} tick {t}: {diff}"
+        s = want[0]
 
 
 def test_wrapper_rejects_bad_leaves(host_lib):
@@ -113,3 +158,50 @@ def test_wrapper_rejects_bad_leaves(host_lib):
         tick_engine.step_host(host_lib, cfg, s, inp._replace(skew=inp.skew[:, :2]), 0)
     with pytest.raises(NotImplementedError, match="n_nodes"):
         tick_engine.check_supported(tconfig.RaftConfig(n_nodes=101))
+
+
+@pytest.mark.parametrize(
+    "name,per_cluster",
+    [
+        # (bytes read, bytes written) per cluster. config1-config5 were
+        # counted before the compaction, PreVote and redirect legs existed;
+        # those legs stay gated off there, so these do not move.
+        ("config1", (124_067, 124_060)),
+        ("config2", (2_807, 2_800)),
+        ("config3", (2_087, 2_080)),
+        ("config4", (2_987, 2_936)),
+        ("config5", (26_787, 25_564)),
+        # Compaction: int32 index planes, the snapshot triple, req_base legs
+        # and noop_blocked; redirect: the K=5 pipeline slots and routing
+        # inputs; PreVote: heard_clock and the packed pv_grant plane.
+        ("config6", (3_067, 3_104)),
+        ("config6r", (3_151, 3_164)),
+        ("config3p", (2_127, 2_120)),
+    ],
+)
+def test_traffic_bytes_pinned(name, per_cluster):
+    cfg, batch = tconfig.PRESETS[name]
+    assert tick_engine.traffic_bytes(cfg, 1) == per_cluster
+    assert tick_engine.traffic_bytes(cfg, batch) == (per_cluster[0] * batch, per_cluster[1] * batch)
+
+
+def test_gated_legs_follow_the_config():
+    """Legs a gate leaves untouched get no pointer; the live set grows with
+    each gate and nothing else."""
+    def live(cfg):
+        return {(g, f) for g, f in tick_engine.PTR_ORDER if tick_engine.leg_live(cfg, g, f)}
+
+    plain = live(tconfig.PRESETS["config3"][0])
+    assert live(tconfig.PRESETS["config3p"][0]) - plain == {
+        ("state", "heard_clock"), ("state_out", "heard_clock"),
+        ("mailbox", "pv_grant"), ("mailbox_out", "pv_grant"),
+    }
+    comp = live(tconfig.PRESETS["config6"][0]) - live(tconfig.PRESETS["config2"][0])
+    assert {f for _, f in comp} == {
+        "log_base", "base_term", "base_chk", "req_base", "req_base_term", "req_base_chk",
+        "noop_blocked",
+    }
+    redirect = live(tconfig.PRESETS["config6r"][0]) - live(tconfig.PRESETS["config6"][0])
+    assert {f for _, f in redirect} == {
+        "client_pend", "client_dst", "client_tick", "client_target", "client_bounce",
+    }
