@@ -7,32 +7,41 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
 
 1. device  -- `nvidia-smi` name and power limit, torch and CUDA versions, then
    the tick kernel's build from raft_sim_tpu_torch/csrc (nvcc, sm_90a) with its
-   seconds and the compiler's register/spill report.
+   seconds and the compiler's register/stack/spill report per instantiation.
 2. kernel_vs_plain -- presets config1-config5 and config3p for 96 ticks,
-   config6 and config6r for 400 (their CAP=32 rings wrap near tick 130), at a
-   batch of 200 (one full block and a ragged edge; config1 at its batch of 1),
-   plus config6-cap8 (config6 on an 8-slot ring with 2-entry windows and an
-   offer every 2 ticks) for 200 ticks: every tick, the kernel (`step_cuda`) on
-   the card equals the plain PyTorch tick (`raft_batched.step_b`) on the card
-   from the same state and inputs, leaf for leaf; then `simulate` through the
-   kernel equals `simulate` through the plain tick for up to 96 ticks (the
-   per-tick check already covers the longer runs). Exact equality: the tick
-   is integer-only. Over the slice-2 runs it counts restarts drawn, compactions
+   config6 and config6r for 400 (their CAP=32 rings wrap near tick 130),
+   config8 and config9 for 400, at a batch of 200 (one full block and a
+   ragged edge; config1 at its batch of 1), plus config6-cap8 (config6 on an
+   8-slot ring with 2-entry windows and an offer every 2 ticks) for 200
+   ticks: every tick, the kernel (`step_cuda`) on the card equals the plain
+   PyTorch tick (`raft_batched.step_b`) on the card from the same state and
+   inputs, leaf for leaf; then `simulate` through the kernel equals
+   `simulate` through the plain tick for up to 96 ticks (the per-tick check
+   already covers the longer runs). Exact equality: the tick is
+   integer-only. Over the slice-2 runs it counts restarts drawn, compactions
    (log_base advanced), InstallSnapshot sentinels sent (AppendEntries edges
    with offset -1) and redirect bounces to a down target (config6r), and
    requires each above 0. config6 itself sends no sentinel in 400 ticks at
-   this batch (no follower falls 24 entries behind); config6-cap8 does.
+   this batch (no follower falls 24 entries behind); config6-cap8 does. Over
+   config8 and config9 it counts the slice-3 events -- config entries
+   appended (a node's cfg_epoch rising), joint exits, TimeoutNow requests
+   sent, transfer-sanctioned RequestVotes (req_disrupt), reads served at
+   config8 and one-tick (lease) reads at config9 -- and requires each above
+   0; config rollbacks (cfg_epoch falling) and removed-leader stepdowns are
+   reported, not required.
 3. card_vs_cpu -- the port's `simulate` on the card equals the port on the CPU
-   (config2, config4 at 64 x 100; config6r, config3p at 64 x 200). The CPU
-   tests hold the CPU port equal to the JAX package.
+   (config2, config4 at 64 x 100; config6r, config3p, config8, config9 at
+   64 x 200). The CPU tests hold the CPU port equal to the JAX package.
 4. full_width -- the main path, `simulate` at the presets' own batch through the
-   kernel: config2, config6 and config6r at 1,000 clusters, config3,
-   config3p and config4 at 100,000 for 1,000 ticks, config5 at 10,000 for
-   200. Launch counts are zeroed just before each run and read just after;
-   each must equal the tick count. Every run must have zero invariant
-   violations and a leader elected in every cluster, config2 a commit in
-   every cluster, and config6/config6r every cluster's max commit above CAP
-   (its ring wrapped). Then, from the run's final state: FULL_HOLD_TICKS ticks
+   kernel: config2, config6, config6r, config8 and config9 at 1,000
+   clusters, config3, config3p and config4 at 100,000 for 1,000 ticks,
+   config5 at 10,000 for 200. Launch counts are zeroed just before each run
+   and read just after; each must equal the tick count. Every run must have
+   zero invariant violations (stale lease reads included) and a leader
+   elected in every cluster, the client presets a commit in every cluster,
+   config6/config6r/config9 every cluster's max commit above CAP (its ring
+   wrapped), and config8/config9 reads served in every cluster. Then, from
+   the run's final state: FULL_HOLD_TICKS ticks
    of kernel == plain tick at full width (state and StepInfo, exact), kernel
    ms/tick (CUDA events) against its bound (bytes read + written over
    3.35 TB/s), and ms/tick for input generation, the wrapped step, the plain
@@ -95,6 +104,7 @@ def main() -> int:
     from raft_sim_tpu_torch.kernels import tick_engine
     from raft_sim_tpu_torch import types as T
     from raft_sim_tpu_torch.models import raft_batched
+    from raft_sim_tpu_torch.ops import bitplane
     from raft_sim_tpu_torch.sim import faults, scan
     from raft_sim_tpu_torch.summary import summarize
     from raft_sim_tpu_torch.types import init_batch
@@ -117,16 +127,18 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path = tick_engine.build()
     tick_engine._load_cuda()
-    ptxas = [ln.strip() for ln in tick_engine.BUILD_INFO.get("ptxas", "").splitlines()
-             if "registers" in ln or "stack frame" in ln or "spill" in ln]
+    # One entry per instantiation: its name, then stack/spill and registers.
+    ptxas = [ln.split("ptxas info    :")[-1].strip()
+             for ln in tick_engine.BUILD_INFO.get("ptxas", "").splitlines()
+             if "Compiling entry" in ln or "registers" in ln or "stack frame" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": tick_engine.BUILD_INFO.get("seconds"), "library": os.path.relpath(lib_path, HERE),
-          "ptxas": ptxas[:6]})
+          "ptxas": ptxas})
 
     def hold_ticks(cfg, s, keys, t0: int, n: int, what: str, events=None):
         """`n` ticks from batch-minor state `s`: each tick the kernel equals
         the plain tick on the card, state and StepInfo, leaf for leaf.
-        `events`, a dict, accumulates the slice-2 event counts."""
+        `events`, a dict, accumulates the slice-2 and slice-3 event counts."""
         for t in range(t0, t0 + n):
             inp = raft_batched.to_batch_minor(faults.make_inputs(cfg, keys, t))
             ref_s, ref_i = raft_batched.step_b(cfg, s, inp, t)
@@ -134,14 +146,35 @@ def main() -> int:
             check_equal(ref_s, got_s, f"{what} tick {t}: step_cuda state != step_b")
             check_equal(ref_i, got_i, f"{what} tick {t}: step_cuda StepInfo != step_b")
             if events is not None:
-                count_events(cfg, s, inp, got_s, events)
+                count_events(cfg, s, inp, got_s, got_i, events)
             s = got_s
         return s
 
-    def count_events(cfg, s, inp, new, ev):
+    def count_events(cfg, s, inp, new, info, ev):
         """One tick's restarts drawn, compactions (log_base advanced),
-        InstallSnapshot sentinels sent and redirect bounces to a down target."""
+        InstallSnapshot sentinels sent and redirect bounces to a down target;
+        and on the reconfiguration plane config entries appended, rollbacks,
+        joint exits, removed-leader stepdowns, TimeoutNow requests,
+        transfer-sanctioned RequestVotes and reads served (all, and in one
+        tick)."""
         ev["restarts"] += int(inp.restarted.sum())
+        if cfg.reconfig:
+            ev["config_appends"] += int((new.cfg_epoch > s.cfg_epoch).sum())
+            ev["config_rollbacks"] += int((new.cfg_epoch < s.cfg_epoch).sum())
+            ev["joint_exits"] += int(((s.cfg_pend > 0) & (new.cfg_pend == 0)).sum())
+            ids = torch.arange(cfg.n_nodes, device=s.role.device)[:, None]
+            member = bitplane.unpack(new.member_old | new.member_new, cfg.n_nodes, axis=1)
+            self_in = torch.gather(member, 1, ids.expand(-1, s.role.shape[-1])[:, None]).squeeze(1)
+            ev["removed_leader_stepdowns"] += int(
+                ((s.role == T.LEADER) & (new.role == T.FOLLOWER) & (new.term == s.term)
+                 & ~inp.restarted & ~self_in).sum())
+        if cfg.leader_transfer:
+            ev["timeout_now_sent"] += int((new.mailbox.req_type == T.REQ_TIMEOUT_NOW).sum())
+            ev["sanctioned_votes"] += int(
+                ((new.mailbox.req_disrupt != 0) & (new.mailbox.req_type == T.REQ_VOTE)).sum())
+        if cfg.read_index:
+            ev["reads_served"] += int(info.reads_served.sum())
+            ev["one_tick_reads"] += int(info.read_hist[0].sum())
         if cfg.compaction:
             ev["compactions"] += int((new.log_base > s.log_base).sum())
             sentinel = (new.mailbox.req_type == T.REQ_APPEND)[:, None, :] & (new.mailbox.req_off == -1)
@@ -170,15 +203,29 @@ def main() -> int:
     parity += [("config6", cfg6, 200, 400), ("config6r", PRESETS["config6r"][0], 200, 400),
                ("config6-cap8", dataclasses.replace(cfg6, log_capacity=8, compact_margin=4,
                                                     max_entries_per_rpc=2, client_interval=2),
-                200, 200)]
+                200, 200),
+               ("config8", PRESETS["config8"][0], 200, 400), ("config9", PRESETS["config9"][0], 200, 400)]
     events = {"restarts": 0, "compactions": 0, "snapshot_sentinels": 0, "redirect_bounces": 0}
+    slice3 = {"config_appends": 0, "joint_exits": 0, "timeout_now_sent": 0, "sanctioned_votes": 0,
+              "reads_served_config8": 0, "one_tick_reads_config9": 0,
+              "config_rollbacks": 0, "removed_leader_stepdowns": 0}
     for name, cfg, batch, ticks in parity:
         s = raft_batched.to_batch_minor(init_batch(cfg, threefry.key(SEED, dev), batch))
         keys = threefry.split(threefry.key(SEED + 1, dev), batch)
         ev = dict.fromkeys(events, 0)
+        ev.update(config_appends=0, config_rollbacks=0, joint_exits=0, removed_leader_stepdowns=0,
+                  timeout_now_sent=0, sanctioned_votes=0, reads_served=0, one_tick_reads=0)
         hold_ticks(cfg, s, keys, 0, ticks, name, ev)
-        for k in events:
-            events[k] += ev[k]
+        if name in ("config8", "config9"):
+            for k in slice3:
+                slice3[k] += ev.get(k, 0)
+            if name == "config8":
+                slice3["reads_served_config8"] += ev["reads_served"]
+            else:  # config9's one-tick reads are lease serves
+                slice3["one_tick_reads_config9"] += ev["one_tick_reads"]
+        else:
+            for k in events:
+                events[k] += ev[k]
         sim_ticks = min(ticks, 96)
         f_k, m_k = scan.simulate(cfg, SEED, batch, sim_ticks, device=dev)
         f_p, m_p = scan.simulate(cfg, SEED, batch, sim_ticks, device=dev, step_fn=raft_batched.step_b)
@@ -192,9 +239,14 @@ def main() -> int:
     for k, v in events.items():
         if v <= 0:
             raise AssertionError(f"kernel_vs_plain: no {k} on the slice-2 runs")
+    emit({"phase": "slice3_events", **slice3})
+    for k, v in slice3.items():
+        if v <= 0 and k not in ("config_rollbacks", "removed_leader_stepdowns"):
+            raise AssertionError(f"kernel_vs_plain: no {k} on the slice-3 runs")
 
     # ---- 3: card vs CPU --------------------------------------------------------
-    for name, ticks in (("config2", 100), ("config4", 100), ("config6r", 200), ("config3p", 200)):
+    for name, ticks in (("config2", 100), ("config4", 100), ("config6r", 200), ("config3p", 200),
+                        ("config8", 200), ("config9", 200)):
         cfg, _ = PRESETS[name]
         batch = 64
         f_g, m_g = scan.simulate(cfg, SEED, batch, ticks, device=dev)
@@ -208,7 +260,8 @@ def main() -> int:
     cells = []
     total_launches = 0
     full_cells = (("config2", 1000), ("config3", 1000), ("config4", 1000), ("config5", 200),
-                  ("config6", 1000), ("config6r", 1000), ("config3p", 1000))
+                  ("config6", 1000), ("config6r", 1000), ("config3p", 1000), ("config8", 1000),
+                  ("config9", 1000))
     for name, ticks in full_cells:
         cfg, batch = PRESETS[name]
         torch.cuda.synchronize()
@@ -232,6 +285,8 @@ def main() -> int:
             raise AssertionError(f"{name}: a cluster committed no client command")
         if cfg.compaction and min_commit <= cfg.log_capacity:
             raise AssertionError(f"{name}: a cluster's ring never wrapped (min max_commit {min_commit})")
+        if cfg.read_index and int((metrics.reads_served <= 0).sum()) != 0:
+            raise AssertionError(f"{name}: a cluster served no read")
 
         # Kernel vs plain at full width from the run's final state, for
         # FULL_HOLD_TICKS ticks (one log-matching tick at config5's interval
@@ -263,6 +318,7 @@ def main() -> int:
             "max_commit_min": min_commit,
             "max_commit_median": float(metrics.max_commit.float().median()),
             "noop_blocked": int(metrics.noop_blocked.sum()),
+            "reads_served_min": int(metrics.reads_served.min()),
             "summary": summ._asdict(),
         }
         cells.append(cell)

@@ -2,18 +2,26 @@
 // the Hopper tick kernel (tick.cu) and of its CPU build (tick_host.cpp).
 //
 // Semantics are raft_sim_tpu/models/raft_batched.py `_step_b` + `_step_info_b`
-// (dense layout, single device) over the gate set of presets config1-config6r
+// (dense layout, single device) over the gate set of presets config1-config9
 // and config3p: invariants, log matching, the client's cadence (direct, or the
 // redirect client with its K-deep pipeline) with the offer-tick latency plane,
 // drop, partitions, skew, crash/restart, ring-log compaction with the
-// InstallSnapshot analogue, and PreVote. Every leaf it writes equals the JAX
-// tick's. The JAX form is a vectorised `where` lattice over [N, N, B] planes;
-// here thread b walks its own cluster with loops over nodes and log entries,
-// in the JAX phase order (-1 restart, 0 delivery, 1 term adoption,
-// 2 RequestVote, 3 AppendEntries and snapshot install, 3.5 PreVote requests,
-// 4 responses, 4.5 PreVote promotion, 5 commit, latency, 5.5 compaction and
-// the ring checksum, 6 no-op / client injection / redirect routing, 7 timers,
-// 8 outbox, prefix checksum, 9 StepInfo).
+// InstallSnapshot analogue, PreVote, and the reconfiguration plane: log-carried
+// joint-consensus membership (with the snapshot config context under
+// compaction), TimeoutNow transfer, ReadIndex and lease reads. Every leaf it
+// writes equals the JAX tick's. The JAX form is a vectorised `where` lattice
+// over [N, N, B] planes; here thread b walks its own cluster with loops over
+// nodes and log entries, in the JAX phase order (-1 restart, 0 delivery,
+// 1 term adoption, 2 RequestVote, 3 AppendEntries and snapshot install,
+// 3.5 PreVote requests, 3.7 TimeoutNow receipt, 4 responses, 4.5 PreVote
+// promotion, 5 commit, 5.2 transfer and reads, latency, 5.5 compaction and the
+// ring checksum, 6 no-op / config entry / client injection / redirect routing,
+// 7 timers, 8 outbox, prefix checksum, end-of-tick configuration, 9 StepInfo).
+//
+// Membership: every quorum a node tests (elections, pre-votes, commit, read
+// confirmation, leases, transfer targets) is masked by that node's TICK-START
+// member rows (m_old / m_new, dual while its cfg_pend is open); the rows
+// derived from the log at the end of the tick go to the output only.
 //
 // Layout: every leaf is batch-minor. Leaf [d0, d1, ..., B] element
 // (i, j, ..., b) sits at ((i * d1 + j) * ... ) * B + b, so neighbouring
@@ -51,7 +59,7 @@ constexpr int BINS = 16;  // latency histogram bins (types.LAT_HIST_BINS)
 
 constexpr int FOLLOWER = 0, CANDIDATE = 1, LEADER = 2, PRECANDIDATE = 3;
 constexpr int NIL = -1, NOOP = -2;
-constexpr int REQ_VOTE = 1, REQ_APPEND = 2, REQ_PREVOTE = 3;
+constexpr int REQ_VOTE = 1, REQ_APPEND = 2, REQ_PREVOTE = 3, REQ_TIMEOUT_NOW = 4;
 constexpr int RESP_VOTE = 1, RESP_APPEND = 2, RESP_PREVOTE = 3;
 
 // Leaf pointers, in the order tick_engine.PTR_ORDER lists them.
@@ -61,33 +69,42 @@ enum Ptr {
   S_MATCH_INDEX, S_ACK_AGE, S_COMMIT_INDEX, S_COMMIT_CHK, S_LOG_BASE,
   S_BASE_TERM, S_BASE_CHK, S_LOG_TERM, S_LOG_VAL, S_LOG_TICK, S_LOG_LEN,
   S_CLOCK, S_DEADLINE, S_HEARD_CLOCK, S_CLIENT_PEND, S_CLIENT_DST,
-  S_CLIENT_TICK, S_LAT_FRONTIER, S_NOW,
+  S_CLIENT_TICK, S_LAT_FRONTIER, S_NOW, S_MEMBER_OLD, S_MEMBER_NEW,
+  S_CFG_EPOCH, S_CFG_PEND, S_LOG_CFG, S_BASE_MOLD, S_BASE_PEND, S_BASE_EPOCH,
+  S_XFER_TO, S_READ_IDX, S_READ_TICK, S_READ_ACKS, S_READ_FR,
   // Mailbox, read
   M_REQ_TYPE, M_REQ_TERM, M_REQ_COMMIT, M_REQ_LAST_INDEX, M_REQ_LAST_TERM,
   M_ENT_START, M_ENT_PREV_TERM, M_ENT_COUNT, M_ENT_TERM, M_ENT_VAL,
   M_ENT_TICK, M_REQ_BASE, M_REQ_BASE_TERM, M_REQ_BASE_CHK, M_REQ_OFF,
   M_RESP_KIND, M_PV_GRANT, M_V_TO, M_A_OK_TO, M_A_MATCH, M_A_HINT,
-  M_RESP_TERM,
+  M_RESP_TERM, M_XFER_TGT, M_REQ_DISRUPT, M_ENT_CFG, M_REQ_BASE_MOLD,
+  M_REQ_BASE_PEND, M_REQ_BASE_EPOCH,
   // StepInputs, read
   I_DELIVER_MASK, I_SKEW, I_TIMEOUT_DRAW, I_CLIENT_CMD, I_CLIENT_TARGET,
-  I_CLIENT_BOUNCE, I_ALIVE, I_RESTARTED,
+  I_CLIENT_BOUNCE, I_ALIVE, I_RESTARTED, I_RECONFIG_CMD, I_TRANSFER_CMD,
+  I_READ_CMD,
   // ClusterState, written
   O_ROLE, O_TERM, O_VOTED_FOR, O_LEADER_ID, O_VOTES, O_NEXT_INDEX,
   O_MATCH_INDEX, O_ACK_AGE, O_COMMIT_INDEX, O_COMMIT_CHK, O_LOG_BASE,
   O_BASE_TERM, O_BASE_CHK, O_LOG_TERM, O_LOG_VAL, O_LOG_TICK, O_LOG_LEN,
   O_CLOCK, O_DEADLINE, O_HEARD_CLOCK, O_CLIENT_PEND, O_CLIENT_DST,
-  O_CLIENT_TICK, O_LAT_FRONTIER, O_NOW,
+  O_CLIENT_TICK, O_LAT_FRONTIER, O_NOW, O_MEMBER_OLD, O_MEMBER_NEW,
+  O_CFG_EPOCH, O_CFG_PEND, O_LOG_CFG, O_BASE_MOLD, O_BASE_PEND, O_BASE_EPOCH,
+  O_XFER_TO, O_READ_IDX, O_READ_TICK, O_READ_ACKS, O_READ_FR,
   // Mailbox, written
   OM_REQ_TYPE, OM_REQ_TERM, OM_REQ_COMMIT, OM_REQ_LAST_INDEX,
   OM_REQ_LAST_TERM, OM_ENT_START, OM_ENT_PREV_TERM, OM_ENT_COUNT,
   OM_ENT_TERM, OM_ENT_VAL, OM_ENT_TICK, OM_REQ_BASE, OM_REQ_BASE_TERM,
   OM_REQ_BASE_CHK, OM_REQ_OFF, OM_RESP_KIND, OM_PV_GRANT, OM_V_TO,
-  OM_A_OK_TO, OM_A_MATCH, OM_A_HINT, OM_RESP_TERM,
+  OM_A_OK_TO, OM_A_MATCH, OM_A_HINT, OM_RESP_TERM, OM_XFER_TGT,
+  OM_REQ_DISRUPT, OM_ENT_CFG, OM_REQ_BASE_MOLD, OM_REQ_BASE_PEND,
+  OM_REQ_BASE_EPOCH,
   // StepInfo, written
   F_VIOL_ELECTION_SAFETY, F_VIOL_COMMIT, F_VIOL_LOG_MATCHING, F_LEADER,
   F_N_LEADERS, F_MAX_TERM, F_MAX_COMMIT, F_MIN_COMMIT, F_MSGS_DELIVERED,
   F_CMDS_INJECTED, F_LAT_SUM, F_LAT_CNT, F_LAT_HIST, F_LAT_EXCLUDED,
-  F_NOOP_BLOCKED,
+  F_NOOP_BLOCKED, F_READS_SERVED, F_READ_LAT_SUM, F_READ_HIST,
+  F_VIOL_READ_STALE,
   N_PTR
 };
 
@@ -104,6 +121,11 @@ struct TickParams {
   int32_t election_min;      // cfg.election_min_ticks (the PreVote quiet window)
   int32_t redirect;          // cfg.client_redirect (the K-deep pipeline)
   int32_t k;                 // cfg.client_pipeline
+  int32_t reconfig;          // cfg.reconfig (log-carried membership)
+  int32_t transfer;          // cfg.leader_transfer (TimeoutNow)
+  int32_t reads;             // cfg.read_index (ReadIndex reads)
+  int32_t lease;             // cfg.read_lease (lease reads)
+  int32_t lease_ticks;       // cfg.read_lease_ticks (the lease window on ack_age)
 };
 
 RS_HD int imin(int a, int b) { return a < b ? a : b; }
@@ -138,6 +160,58 @@ RS_HD int log2_bin(int v) {
 RS_HD uint32_t chk_w_term(uint32_t k) { return (k * 2654435761u + 0x9E3779B9u) | 1u; }
 RS_HD uint32_t chk_w_val(uint32_t k) { return (k * 0x85EBCA77u + 0xC2B2AE3Du) | 1u; }
 
+// Set bits of the packed row a & b (b == nullptr: all of a).
+RS_HD int popc_and(const uint32_t* a, const uint32_t* b, int W) {
+  int c = 0;
+  for (int w = 0; w < W; ++w) c += popcount32(b ? (a[w] & b[w]) : a[w]);
+  return c;
+}
+
+RS_HD bool has_bit(const uint32_t* row, int i) { return (row[i >> 5] >> (i & 31)) & 1u; }
+
+// The maj-th largest of mws[k] over the members k of `mask` (0 when there
+// are fewer): the configuration-masked quorum match of one leader.
+RS_HD int masked_qmatch(const int* mws, int n, const uint32_t* mask, int maj) {
+  int qm = 0;
+  for (int c = 0; c < n; ++c) {
+    if (!has_bit(mask, c)) continue;
+    int cnt = 0;
+    for (int k = 0; k < n; ++k) cnt += has_bit(mask, k) && mws[k] >= mws[c];
+    if (cnt >= maj && mws[c] > qm) qm = mws[c];
+  }
+  return qm;
+}
+
+// One parity fold over a node's config entries with absolute index in
+// (lo, hi], slot k holding entry anchor + pmod(k - anchor, cap) + 1 on a ring
+// (k + 1 otherwise): final entries (code < 0) toggle bit -code - 1 of `fold`;
+// returns the entry count, and the latest entry's index and code.
+struct CfgFold {
+  uint32_t fold[MAXW];
+  int hi, code_hi, count;
+};
+
+RS_HD CfgFold fold_cfg(const int32_t* row, int64_t B, int cap, int n, int W, bool ring,
+                       int anchor, int lo, int hi) {
+  CfgFold f;
+  for (int w = 0; w < W; ++w) f.fold[w] = 0u;
+  f.hi = f.code_hi = f.count = 0;
+  for (int k = 0; k < cap; ++k) {
+    const int abs1 = ring ? anchor + pmod(k - anchor, cap) + 1 : k + 1;
+    if (abs1 <= lo || abs1 > hi) continue;
+    const int code = row[(int64_t)k * B];
+    if (code == 0) continue;
+    ++f.count;
+    if (abs1 > f.hi) {
+      f.hi = abs1;
+      f.code_hi = code;
+    }
+    const int v = -code - 1;
+    if (code < 0 && v < n) f.fold[v >> 5] ^= 1u << (v & 31);
+  }
+  return f;
+}
+
 // Term of 1-based entry idx in the row whose slot s sits at row[s * B]
 // (log_ops.term_at_b / term_at_rb): 0 for "no entry"; on a ring, base_term at
 // or below the base; without the ring, 0 outside [1, cap].
@@ -155,6 +229,11 @@ template <class IdxT, class AckT, class NodeT>
 RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
   const int n = P.n, e = P.e, cap = P.cap, W = P.w;
   const bool comp = P.comp != 0, pv = P.pre_vote != 0;
+  const bool rcf = P.reconfig != 0, xfr = P.transfer != 0, rdx = P.reads != 0;
+  const bool rdl = P.lease != 0;
+  const bool hc_live = pv || rdl || rcf;  // heard_clock: quiet rule and vote denial
+  const bool deny = rcf || rdl;           // the heard-a-leader vote denial
+  const bool disrupt_live = xfr && deny;  // req_disrupt overrides the denial
   const int64_t B = P.b;
   // Batch-minor offsets: [N, B] and [N, inner, B].
 #define RS_AT1(i) ((int64_t)(i) * B + b)
@@ -169,9 +248,11 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
   const int32_t* log_term_in = RS_IN(int32_t, S_LOG_TERM);
   const int32_t* log_val_in = RS_IN(int32_t, S_LOG_VAL);
   const int32_t* log_tick_in = RS_IN(int32_t, S_LOG_TICK);
+  const int32_t* log_cfg_in = RS_IN(int32_t, S_LOG_CFG);
   int32_t* log_term = RS_OUT(int32_t, O_LOG_TERM);
   int32_t* log_val = RS_OUT(int32_t, O_LOG_VAL);
   int32_t* log_tick = RS_OUT(int32_t, O_LOG_TICK);
+  int32_t* log_cfg = RS_OUT(int32_t, O_LOG_CFG);
   const IdxT* next_in = RS_IN(IdxT, S_NEXT_INDEX);
   const IdxT* match_in = RS_IN(IdxT, S_MATCH_INDEX);
   const AckT* ack_in = RS_IN(AckT, S_ACK_AGE);
@@ -187,16 +268,27 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
   int len0[MAXN], llen[MAXN], commit0[MAXN], commit[MAXN];
   int base0[MAXN], bterm0[MAXN], base[MAXN], bterm[MAXN];  // input and current snapshot
   int clock0[MAXN], clock1[MAXN], deadline0[MAXN], tdraw[MAXN], heard[MAXN];
+  bool heard_recent[MAXN];  // heard a leader within election_min of the tick's clock
   int my_last_term[MAXN];
   uint32_t votes[MAXN][MAXW], mask[MAXN][MAXW], pvg[MAXN][MAXW];
   uint32_t chk0[MAXN], bchk[MAXN], chk_new[MAXN];
+  // Membership: tick-start rows and the snapshot config context.
+  uint32_t m_old[MAXN][MAXW], m_new[MAXN][MAXW], bmold[MAXN][MAXW];
+  bool joint[MAXN], member_b[MAXN];
+  int maj_old[MAXN], maj_new[MAXN], cfg_pend0[MAXN], bpend[MAXN], bepoch[MAXN];
+  // Transfer and reads, after the restart wipe.
+  int xfer0[MAXN], xto[MAXN], read_idx0[MAXN], read_tick0[MAXN], read_fr0[MAXN];
+  uint32_t acks[MAXN][MAXW];
   // Mailbox headers, per sender / responder.
-  int rtype[MAXN], rterm[MAXN], rli[MAXN], rlt[MAXN];
+  int rtype[MAXN], rterm[MAXN], rli[MAXN], rlt[MAXN], xtgt[MAXN];
+  bool disrupt[MAXN];
   int resp_term[MAXN], v_to[MAXN], a_ok_to[MAXN], a_match[MAXN], a_hint[MAXN];
   // Per-node facts carried between phases.
   bool saw_higher[MAXN], granted_any[MAXN], has_ae[MAXN], win[MAXN], pre_win[MAXN];
   bool applied_snap[MAXN], is_leader[MAXN], heartbeat[MAXN], start_el[MAXN], start_pv[MAXN];
-  int grant_to[MAXN];
+  bool xfer_elect[MAXN], xe[MAXN], xpend[MAXN];
+  int grant_to[MAXN], age_t[MAXN];
+  uint32_t fresh[MAXN][MAXW];  // peers acked within the lease window (lease)
   int len4[MAXN];  // log length after phase 3: the phase-4/phase-8 `len_i`
 
   for (int i = 0; i < n; ++i) {
@@ -217,8 +309,8 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
     commit0[i] = rs_[i] ? base0[i] : RS_IN(int32_t, S_COMMIT_INDEX)[RS_AT1(i)];
     chk0[i] = rs_[i] ? bchk[i] : RS_IN(uint32_t, S_COMMIT_CHK)[RS_AT1(i)];
     deadline0[i] = rs_[i] ? clock0[i] + tdraw[i] : RS_IN(int32_t, S_DEADLINE)[RS_AT1(i)];
-    // A restarted node remembers no leader contact (PreVote's quiet rule).
-    heard[i] = !pv ? 0
+    // A restarted node remembers no leader contact.
+    heard[i] = !hc_live ? 0
                : rs_[i] ? clock0[i] - P.election_min
                         : RS_IN(int32_t, S_HEARD_CLOCK)[RS_AT1(i)];
     for (int w = 0; w < W; ++w) {
@@ -226,6 +318,36 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
       mask[i][w] = RS_IN(uint32_t, I_DELIVER_MASK)[RS_AT2(i, w, W)];
       pvg[i][w] = 0u;
     }
+    // The reconfiguration plane's legs are loaded (and their local arrays
+    // touched) only under their gates; every later read is gated the same way.
+    if (deny) heard_recent[i] = clock1[i] - heard[i] < P.election_min;
+    if (rcf) {
+      cfg_pend0[i] = RS_IN(int32_t, S_CFG_PEND)[RS_AT1(i)];
+      joint[i] = cfg_pend0[i] > 0;
+      bpend[i] = RS_IN(int32_t, S_BASE_PEND)[RS_AT1(i)];
+      bepoch[i] = RS_IN(int32_t, S_BASE_EPOCH)[RS_AT1(i)];
+      for (int w = 0; w < W; ++w) {
+        m_old[i][w] = RS_IN(uint32_t, S_MEMBER_OLD)[RS_AT2(i, w, W)];
+        m_new[i][w] = RS_IN(uint32_t, S_MEMBER_NEW)[RS_AT2(i, w, W)];
+        bmold[i][w] = RS_IN(uint32_t, S_BASE_MOLD)[RS_AT2(i, w, W)];
+      }
+      maj_old[i] = popc_and(m_old[i], nullptr, W) / 2 + 1;
+      maj_new[i] = popc_and(m_new[i], nullptr, W) / 2 + 1;
+      member_b[i] = has_bit(m_old[i], i) || has_bit(m_new[i], i);  // i in its own view
+    }
+    // Volatile transfer and read state dies with the process.
+    if (xfr) {
+      xfer0[i] = rs_[i] ? NIL : RS_IN(int32_t, S_XFER_TO)[RS_AT1(i)];
+      xtgt[i] = RS_IN(NodeT, M_XFER_TGT)[RS_AT1(i)];
+    }
+    if (disrupt_live) disrupt[i] = RS_IN(int8_t, M_REQ_DISRUPT)[RS_AT1(i)] != 0;
+    if (rdx) {
+      read_idx0[i] = rs_[i] ? 0 : RS_IN(int32_t, S_READ_IDX)[RS_AT1(i)];
+      read_tick0[i] = rs_[i] ? 0 : RS_IN(int32_t, S_READ_TICK)[RS_AT1(i)];
+      for (int w = 0; w < W; ++w)
+        acks[i][w] = rs_[i] ? 0u : RS_IN(uint32_t, S_READ_ACKS)[RS_AT2(i, w, W)];
+    }
+    if (rdl) read_fr0[i] = rs_[i] ? 0 : RS_IN(int32_t, S_READ_FR)[RS_AT1(i)];
     rtype[i] = RS_IN(int32_t, M_REQ_TYPE)[RS_AT1(i)];
     rterm[i] = RS_IN(int32_t, M_REQ_TERM)[RS_AT1(i)];
     rli[i] = RS_IN(int32_t, M_REQ_LAST_INDEX)[RS_AT1(i)];
@@ -240,8 +362,16 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
       log_term[RS_AT2(i, k, cap)] = log_term_in[RS_AT2(i, k, cap)];
       log_val[RS_AT2(i, k, cap)] = log_val_in[RS_AT2(i, k, cap)];
       if (P.track) log_tick[RS_AT2(i, k, cap)] = log_tick_in[RS_AT2(i, k, cap)];
+      if (rcf) log_cfg[RS_AT2(i, k, cap)] = log_cfg_in[RS_AT2(i, k, cap)];
     }
   }
+
+  // Quorum test of node i over a packed row: its own member rows, dual while
+  // joint (reconfig), else the fixed majority.
+#define RS_QUORUM(i, rows)                                                          \
+  (rcf ? (popc_and(rows, m_old[i], W) >= maj_old[i] &&                             \
+          (!joint[i] || popc_and(rows, m_new[i], W) >= maj_new[i]))                \
+       : popc_and(rows, nullptr, W) >= P.quorum)
 
   // ---- phase 0: delivery. The message on physical edge [dst d, src s] is
   // delivered iff d is up now and was at send time, s is alive, s != d, and
@@ -249,9 +379,12 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
   // responses [receiver, responder] -- the same physical edge test.
 #define RS_DELIVERED(d, s) \
   (up[d] && (s) != (d) && alive[s] && ((mask[d][(s) >> 5] >> ((s) & 31)) & 1u))
+  // Voter v denies candidate c's RequestVote: v heard a leader recently and
+  // the request carries no transfer sanction.
+#define RS_DENIED(c, v) (deny && heard_recent[v] && !(disrupt_live && disrupt[c]))
 
   // ---- phase 1: term adoption (PreVote probes carry a prospective term,
-  // never adopted) -----------------------------------------------------------
+  // never adopted; a denied RequestVote under reconfig is not processed) ------
   int msgs = 0;
   for (int d = 0; d < n; ++d) {
     int in_term = 0;
@@ -259,7 +392,9 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
       if (!RS_DELIVERED(d, s)) continue;
       if (rtype[s] != 0) {
         ++msgs;
-        if (!(pv && rtype[s] == REQ_PREVOTE)) in_term = imax(in_term, rterm[s]);
+        const bool probe = pv && rtype[s] == REQ_PREVOTE;
+        const bool denied = rcf && rtype[s] == REQ_VOTE && RS_DENIED(s, d);
+        if (!probe && !denied) in_term = imax(in_term, rterm[s]);
       }
       if (resp_kind_in[RS_AT2(d, s, n)] != 0) {
         ++msgs;
@@ -287,7 +422,7 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
     bool grant_prev = false;  // the candidate v already voted for is grantable
     for (int c = 0; c < n; ++c) {
       if (!RS_DELIVERED(v, c) || rtype[c] != REQ_VOTE || rterm[c] != term[v]) continue;
-      if (!RS_UTD(c, v)) continue;
+      if (!RS_UTD(c, v) || RS_DENIED(c, v)) continue;
       if (c < lowest) lowest = c;
       if (c == vf[v]) grant_prev = true;
     }
@@ -307,8 +442,8 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
     }
     has_ae[f] = src < n;
     int j_in = 0, ws_in = 0, lcommit = 0, ecount = 0, eprev = 0;
-    int w_term[MAXE], w_val[MAXE], w_tick[MAXE];
-    for (int k = 0; k < e; ++k) w_term[k] = w_val[k] = w_tick[k] = 0;
+    int w_term[MAXE], w_val[MAXE], w_tick[MAXE], w_cfg[MAXE];
+    for (int k = 0; k < e; ++k) w_term[k] = w_val[k] = w_tick[k] = w_cfg[k] = 0;
     if (has_ae[f]) {
       j_in = req_off_in[RS_AT2(src, f, n)];
       ws_in = RS_IN(int32_t, M_ENT_START)[RS_AT1(src)];
@@ -319,6 +454,7 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
         w_term[k] = RS_IN(int32_t, M_ENT_TERM)[RS_AT2(src, k, e)];
         w_val[k] = RS_IN(int32_t, M_ENT_VAL)[RS_AT2(src, k, e)];
         if (P.track) w_tick[k] = RS_IN(int32_t, M_ENT_TICK)[RS_AT2(src, k, e)];
+        if (rcf) w_cfg[k] = RS_IN(int32_t, M_ENT_CFG)[RS_AT2(src, k, e)];
       }
     }
     // The InstallSnapshot analogue: offset sentinel -1.
@@ -359,12 +495,14 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
         log_term[RS_AT2(f, slot, cap)] = w_term[wk];
         log_val[RS_AT2(f, slot, cap)] = w_val[wk];
         if (P.track) log_tick[RS_AT2(f, slot, cap)] = w_tick[wk];
+        // Non-config entries ship 0 and scrub stale commands off reused slots.
+        if (rcf) log_cfg[RS_AT2(f, slot, cap)] = w_cfg[wk];
       }
     }
     const int last_new = imax(imin(prev_i + n_acc, llen[f]), 0);
     commit[f] = ae_ok ? imax(commit0[f], imin(lcommit, last_new)) : commit0[f];
-    // Snapshot install: adopt the sender's base; keep our suffix when it
-    // extends through L with L's term, else wipe the log to L.
+    // Snapshot install: adopt the sender's base (and config context); keep our
+    // suffix when it extends through L with L's term, else wipe the log to L.
     int L = 0;
     applied_snap[f] = false;
     if (snap) {
@@ -379,6 +517,12 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
         base[f] = L;
         if (!keep) llen[f] = L;
         commit[f] = imax(commit[f], L);
+        if (rcf) {
+          for (int w = 0; w < W; ++w)
+            bmold[f][w] = RS_IN(uint32_t, M_REQ_BASE_MOLD)[RS_AT2(src, w, W)];
+          bpend[f] = RS_IN(int32_t, M_REQ_BASE_PEND)[RS_AT1(src)];
+          bepoch[f] = RS_IN(int32_t, M_REQ_BASE_EPOCH)[RS_AT1(src)];
+        }
       }
     }
     len4[f] = llen[f];
@@ -391,20 +535,30 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
   // ---- phase 3.5: PreVote requests. A voter grants a probe of a term at
   // least its own from an up-to-date log, unless it heard a leader within
   // election_min ticks of its clock or leads itself. -------------------------
-  if (pv) {
-    for (int v = 0; v < n; ++v) {
-      if (has_ae[v]) heard[v] = clock1[v];
-      const bool quiet = clock1[v] - heard[v] >= P.election_min && role[v] != LEADER;
-      if (!quiet) continue;
-      for (int c = 0; c < n; ++c) {
-        if (RS_DELIVERED(v, c) && rtype[c] == REQ_PREVOTE && rterm[c] >= term[v] && RS_UTD(c, v))
-          pvg[c][v >> 5] |= 1u << (v & 31);
-      }
+  for (int v = 0; v < n; ++v) {
+    if (hc_live && has_ae[v]) heard[v] = clock1[v];
+    if (!pv) continue;
+    const bool quiet = clock1[v] - heard[v] >= P.election_min && role[v] != LEADER;
+    if (!quiet) continue;
+    for (int c = 0; c < n; ++c) {
+      if (RS_DELIVERED(v, c) && rtype[c] == REQ_PREVOTE && rterm[c] >= term[v] && RS_UTD(c, v))
+        pvg[c][v >> 5] |= 1u << (v & 31);
     }
+  }
+
+  // ---- phase 3.7: TimeoutNow receipt: the target of a current-term
+  // TimeoutNow starts an election this tick (non-voters never campaign). -----
+  for (int r = 0; r < n && xfr; ++r) {
+    bool tn = false;
+    for (int s = 0; s < n; ++s)
+      tn = tn || (RS_DELIVERED(r, s) && rtype[s] == REQ_TIMEOUT_NOW && xtgt[s] == r &&
+                  rterm[s] == term[r]);
+    xfer_elect[r] = tn && alive[r] && role[r] != LEADER && (!rcf || member_b[r]);
   }
 
   // ---- phases 4 + 5, per node: responses, PreVote promotion, then leader
   // commit ----------------------------------------------------------------------
+  uint32_t aresp_bits[MAXW];
   for (int q = 0; q < n; ++q) {
     if (role[q] == CANDIDATE) {
       for (int r = 0; r < n; ++r) {
@@ -413,9 +567,8 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
           votes[q][r >> 5] |= 1u << (r & 31);
       }
     }
-    int nvotes = 0;
-    for (int w = 0; w < W; ++w) nvotes += popcount32(votes[q][w]);
-    win[q] = role[q] == CANDIDATE && nvotes >= P.quorum && alive[q];
+    // A removed node cannot win on banked votes.
+    win[q] = role[q] == CANDIDATE && RS_QUORUM(q, votes[q]) && alive[q] && (!rcf || member_b[q]);
     if (win[q]) {
       role[q] = LEADER;
       lid[q] = q;
@@ -429,9 +582,7 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
             ((grant_row[RS_AT2(q, r >> 5, W)] >> (r & 31)) & 1u))
           votes[q][r >> 5] |= 1u << (r & 31);
       }
-      int npv = 0;
-      for (int w = 0; w < W; ++w) npv += popcount32(votes[q][w]);
-      pre_win[q] = npv >= P.quorum && alive[q];
+      pre_win[q] = RS_QUORUM(q, votes[q]) && alive[q] && (!rcf || member_b[q]);
       if (pre_win[q]) {
         term[q] += 1;
         role[q] = CANDIDATE;
@@ -440,7 +591,11 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
       }
     }
     const int len_i = len4[q];
-    int mws[MAXN];              // match_with_self row
+    const int xt = xfr ? iclamp(xfer0[q], 0, n - 1) : -1;  // the pending transfer's target
+    int mws[MAXN];                                         // match_with_self row
+    if (rdx)
+      for (int w = 0; w < W; ++w) aresp_bits[w] = fresh[q][w] = 0u;
+    if (xfr) age_t[q] = 0;
     for (int r = 0; r < n; ++r) {
       int nx = rs_[q] ? 1 : (int)next_in[RS_AT2(q, r, n)];
       int mt = rs_[q] ? 0 : (int)match_in[RS_AT2(q, r, n)];
@@ -452,6 +607,7 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
       const bool aresp = RS_DELIVERED(q, r) && resp_kind_in[RS_AT2(q, r, n)] == RESP_APPEND &&
                          role[q] == LEADER && resp_term[r] == term[q];
       if (aresp) {
+        if (rdx) aresp_bits[r >> 5] |= 1u << (r & 31);
         if (a_ok_to[r] == q) {
           mt = imax(mt, a_match[r]);
           nx = imax(nx, a_match[r] + 1);
@@ -461,27 +617,38 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
       }
       ag = imin(ag + 1, P.ack_sat);
       if (win[q] || aresp) ag = 0;
+      if (rdl && ag <= P.lease_ticks) fresh[q][r >> 5] |= 1u << (r & 31);
+      if (r == xt) age_t[q] = ag;
       next_out[RS_AT2(q, r, n)] = (IdxT)nx;
       match_out[RS_AT2(q, r, n)] = (IdxT)mt;
       ack_out[RS_AT2(q, r, n)] = (AckT)ag;
       mws[r] = (r == q) ? len_i : mt;
     }
+    if (rdx) {  // a pending read on a leader banks this tick's acks
+      const bool keep_r = role[q] == LEADER && read_idx0[q] > 0;
+      for (int w = 0; w < W; ++w) acks[q][w] = keep_r ? (acks[q][w] | aresp_bits[w]) : 0u;
+    }
     is_leader[q] = role[q] == LEADER;
     if (is_leader[q] && alive[q]) {
       // The quorum-th largest match: the largest value reached by at least
-      // `quorum` entries of the row (an exact order statistic).
+      // `quorum` entries of the row (an exact order statistic); under
+      // reconfig, over the leader's own members, the min of both while joint.
       int qm = 0;
-      for (int c = 0; c < n; ++c) {
-        int cnt = 0;
-        for (int k = 0; k < n; ++k) cnt += mws[k] >= mws[c];
-        if (cnt >= P.quorum && mws[c] > qm) qm = mws[c];
+      if (rcf) {
+        qm = masked_qmatch(mws, n, m_old[q], maj_old[q]);
+        if (joint[q]) qm = imin(qm, masked_qmatch(mws, n, m_new[q], maj_new[q]));
+      } else {
+        for (int c = 0; c < n; ++c) {
+          int cnt = 0;
+          for (int k = 0; k < n; ++k) cnt += mws[k] >= mws[c];
+          if (cnt >= P.quorum && mws[c] > qm) qm = mws[c];
+        }
       }
       const int qt = term_at(RS_ROW(log_term, q), B, cap, comp, base[q], bterm[q], qm);
       if (qm > commit[q] && qt == term[q]) commit[q] = qm;
     }
   }
 
-  // ---- offer->commit latency (offer-tick plane) ----------------------------
   int maxc = 0, hnode = -1;  // the lowest-id max-commit node
   for (int i = 0; i < n; ++i) {
     if (hnode < 0 || commit[i] > maxc) {
@@ -489,6 +656,78 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
       hnode = i;
     }
   }
+
+  // ---- phase 5.2: transfer keep/accept. A pending transfer survives while
+  // its leader leads and the target stays responsive; the lowest-id live
+  // leader takes a new target that is a voter of its own target config. ------
+  if (xfr) {
+    const int t_x = RS_IN(int32_t, I_TRANSFER_CMD)[b];
+    int ldx = n;
+    for (int i = n - 1; i >= 0; --i)
+      if (is_leader[i] && alive[i] && (!rcf || member_b[i])) ldx = i;
+    for (int i = 0; i < n; ++i) {
+      const bool keep_x = is_leader[i] && xfer0[i] != NIL && age_t[i] <= P.ack_timeout;
+      xto[i] = keep_x ? xfer0[i] : NIL;
+      const bool t_voter = !rcf || (t_x >= 0 && t_x < n && has_bit(m_new[i], t_x));
+      if (t_x != NIL && t_voter && i == ldx && t_x != i && xto[i] == NIL) xto[i] = t_x;
+      xpend[i] = xto[i] != NIL;
+    }
+  }
+#define RS_XPEND(i) (xfr && xpend[i])
+
+  // ---- phase 5.2: ReadIndex and lease reads. A pending read serves once its
+  // acks (with self) reach the leader's quorum, or at once on a lease (a
+  // quorum acked within lease_ticks); the lowest-id leader with a committed
+  // entry of its term captures a new read at commit + 1. ------------------
+  int reads_served = 0, low_cap = n;
+  uint32_t read_lat_sum = 0u;
+  int read_hist[BINS];
+  bool serve[MAXN], viol_stale = false;
+  for (int k = 0; k < BINS; ++k) read_hist[k] = 0;
+  if (rdx) {
+    const int read_cmd = RS_IN(int32_t, I_READ_CMD)[b];
+    for (int i = 0; i < n; ++i) {
+      const bool pend0 = read_idx0[i] > 0;
+      const bool keep_r = is_leader[i] && pend0;
+      uint32_t self_row[MAXW];
+      for (int w = 0; w < W; ++w) self_row[w] = acks[i][w] | ((w == (i >> 5)) ? 1u << (i & 31) : 0u);
+      serve[i] = keep_r && alive[i] && RS_QUORUM(i, self_row);
+      if (rdl) {
+        for (int w = 0; w < W; ++w) self_row[w] = fresh[i][w] | ((w == (i >> 5)) ? 1u << (i & 31) : 0u);
+        // A pending transfer's handoff covers the read path.
+        const bool lease_ok = RS_QUORUM(i, self_row) && !RS_XPEND(i);
+        serve[i] = serve[i] || (keep_r && alive[i] && lease_ok);
+      }
+      if (serve[i]) {
+        const int lat = imax(now + 1 - read_tick0[i], 1);
+        ++reads_served;
+        read_lat_sum += (uint32_t)lat;
+        ++read_hist[log2_bin(lat)];
+        if (P.check_invariants && rdl && read_idx0[i] - 1 < read_fr0[i]) viol_stale = true;
+      }
+      const bool cur_committed =
+          term_at(RS_ROW(log_term, i), B, cap, comp, base[i], bterm[i], commit[i]) == term[i];
+      const bool can_cap = read_cmd != NIL && is_leader[i] && alive[i] && !pend0 &&
+                           cur_committed && !RS_XPEND(i);
+      if (can_cap && low_cap == n) low_cap = i;
+    }
+    const int fr_now = imax(lat_frontier0, maxc);
+    for (int i = 0; i < n; ++i) {
+      const bool pend0 = read_idx0[i] > 0;
+      const bool cleared = serve[i] || (pend0 && !(is_leader[i] && pend0));
+      const bool cap_r = i == low_cap;
+      const int ridx = cap_r ? commit[i] + 1 : cleared ? 0 : read_idx0[i];
+      const int rtick = cap_r ? now + 1 : cleared ? 0 : read_tick0[i];
+      RS_OUT(int32_t, O_READ_IDX)[RS_AT1(i)] = ridx;
+      RS_OUT(int32_t, O_READ_TICK)[RS_AT1(i)] = rtick;
+      for (int w = 0; w < W; ++w)
+        RS_OUT(uint32_t, O_READ_ACKS)[RS_AT2(i, w, W)] = (cap_r || serve[i]) ? 0u : acks[i][w];
+      if (rdl)  // the staleness anchor: the frontier at capture
+        RS_OUT(int32_t, O_READ_FR)[RS_AT1(i)] = cap_r ? fr_now : cleared ? 0 : read_fr0[i];
+    }
+  }
+
+  // ---- offer->commit latency (offer-tick plane) ----------------------------
   uint32_t lat_sum = 0;
   int lat_cnt = 0, crossed = 0;
   int hist[BINS];
@@ -518,9 +757,10 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
   }
   RS_OUT(int32_t, O_LAT_FRONTIER)[b] = P.track ? imax(lat_frontier0, maxc) : lat_frontier0;
 
-  // ---- phase 5.5: compaction and the ring checksum. The checksum is anchored
-  // at the post-install, pre-advance base and runs before phase 6: an
-  // injection into a slot this tick's rebase freed would otherwise alias. -----
+  // ---- phase 5.5: compaction and the ring checksum. The checksum (and the
+  // config fold of the compacted span) is anchored at the post-install,
+  // pre-advance base and runs before phase 6: an injection into a slot this
+  // tick's rebase freed would otherwise alias. -------------------------------
   bool chk_bad = false;
   if (comp) {
     for (int i = 0; i < n; ++i) {
@@ -528,6 +768,12 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
       const uint32_t bchk_mid = bchk[i];
       const int base2 = imax(base_mid, imin(commit[i], llen[i] - (cap - P.compact_margin)));
       bterm[i] = term_at(RS_ROW(log_term, i), B, cap, true, base_mid, bterm[i], base2);
+      if (rcf) {
+        const CfgFold f = fold_cfg(RS_ROW(log_cfg, i), B, cap, n, W, true, base_mid, base_mid, base2);
+        for (int w = 0; w < W; ++w) bmold[i][w] ^= f.fold[w];
+        if (f.hi > 0) bpend[i] = f.code_hi > 0 ? f.code_hi : 0;
+        bepoch[i] += f.count;
+      }
       base[i] = base2;
       const int co = imax(commit0[i], base_mid);  // snapshot installs skip the check
       uint32_t s_co = 0u, s_bf = 0u, s_cn = 0u;
@@ -546,19 +792,48 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
     }
   }
 
-  // ---- phase 6: election-win no-op, client injection, redirect routing ------
-  // Under compaction a fresh leader's no-op needs a free slot, and client
-  // commands stop `reserve` slots short so the no-op always finds one.
+  // ---- phase 6: election-win no-op, config entry, client injection, redirect
+  // routing: one append per node, at priority no-op > config > client. Under
+  // compaction a fresh leader's no-op needs a free slot, and client commands
+  // stop `reserve` slots short so the no-op always finds one. ---------------
   const int reserve = imax(1, P.compact_margin / 2);
   int noop_blocked = 0, cmds = 0;
-  bool noop[MAXN], node_ok[MAXN], client_ok[MAXN];
-  int wval[MAXN], wtick[MAXN];
+  bool noop[MAXN], node_ok[MAXN], client_ok[MAXN], cfg_write[MAXN];
+  int wval[MAXN], wtick[MAXN], cfg_code[MAXN];
   for (int i = 0; i < n; ++i) {
     const bool has_slot = llen[i] - base[i] < cap;
     noop[i] = comp && win[i] && has_slot;
     if (comp && win[i] && !has_slot) ++noop_blocked;
     const bool room = comp ? llen[i] - base[i] < cap - reserve : has_slot;
     node_ok[i] = is_leader[i] && alive[i] && room && !noop[i];
+  }
+  if (rcf) {
+    // A joint entry on the admin's toggle (lowest-id eligible leader, not
+    // joint, leaving at least 2 voters); a final entry once the governing
+    // joint entry commits on the leader. Judged on each leader's own
+    // tick-start configuration.
+    const int t_r = RS_IN(int32_t, I_RECONFIG_CMD)[b];
+    const bool t_ok = t_r != NIL && t_r >= 0 && t_r < n;
+    int ldj = n;
+    for (int i = n - 1; i >= 0; --i)
+      if (node_ok[i] && member_b[i] && !joint[i]) ldj = i;
+    for (int i = 0; i < n; ++i) {
+      const bool ld_ok = node_ok[i] && member_b[i];
+      int toggled = 0;
+      for (int w = 0; w < W; ++w)
+        toggled += popcount32(m_new[i][w] ^ ((t_ok && w == (t_r >> 5)) ? 1u << (t_r & 31) : 0u));
+      const bool accept_j = t_ok && i == ldj && ld_ok && !joint[i] && toggled >= 2;
+      int pend_v = n;  // the open toggle: the lowest bit the two rows differ on
+      for (int v = n - 1; v >= 0; --v)
+        if (has_bit(m_old[i], v) != has_bit(m_new[i], v)) pend_v = v;
+      const bool accept_f = ld_ok && joint[i] && commit[i] >= cfg_pend0[i];
+      cfg_code[i] = accept_j ? t_r + 1 : accept_f ? -(pend_v + 1) : 0;
+      cfg_write[i] = accept_j || accept_f;
+    }
+  }
+  for (int i = 0; i < n; ++i) {
+    // The slot holds a config entry; a pending transfer refuses clients.
+    node_ok[i] = node_ok[i] && !(rcf && cfg_write[i]) && !RS_XPEND(i);
     client_ok[i] = !P.redirect && client_cmd != NIL && node_ok[i];
     wval[i] = client_cmd;
     wtick[i] = now + 1;  // a direct offer is accepted on its offer tick
@@ -612,12 +887,17 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
     }
   }
   for (int i = 0; i < n; ++i) {
-    if (!(noop[i] || client_ok[i])) continue;
+    const bool cfg_w = rcf && cfg_write[i];
+    if (!(noop[i] || cfg_w || client_ok[i])) continue;
     const int pos = comp ? pmod(llen[i], cap) : llen[i];
     if (pos >= 0 && pos < cap) {
+      // No-op and config entries carry stamp 0; config entries value 0, their
+      // command riding the config plane (0 for every other entry).
+      const bool proto = noop[i] || cfg_w;
       log_term[RS_AT2(i, pos, cap)] = term[i];
-      log_val[RS_AT2(i, pos, cap)] = noop[i] ? NOOP : wval[i];
-      if (P.track) log_tick[RS_AT2(i, pos, cap)] = noop[i] ? 0 : wtick[i];  // no-ops: stamp 0
+      log_val[RS_AT2(i, pos, cap)] = noop[i] ? NOOP : cfg_w ? 0 : wval[i];
+      if (P.track) log_tick[RS_AT2(i, pos, cap)] = proto ? 0 : wtick[i];
+      if (rcf) log_cfg[RS_AT2(i, pos, cap)] = cfg_code[i];
     }
     llen[i] += 1;
   }
@@ -632,19 +912,30 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
     heartbeat[i] = expired && is_leader[i];
     if (heartbeat[i]) dl = clock + P.heartbeat;
     // Under PreVote expiry starts a probe (no term bump); the real election
-    // started at the phase-4.5 promotion.
-    start_pv[i] = pv && expired && !is_leader[i];
-    start_el[i] = pv ? pre_win[i] : expired && !is_leader[i];
-    if (start_pv[i] || (!pv && start_el[i])) {
-      if (!pv) {
-        term[i] += 1;
-        vf[i] = i;
-      }
-      role[i] = pv ? PRECANDIDATE : CANDIDATE;
+    // started at the phase-4.5 promotion. Non-voters never campaign, and a
+    // TimeoutNow target skips the probe: its election starts now.
+    const bool voter = !rcf || member_b[i];
+    const bool xfer_el = xfr && xfer_elect[i];
+    const bool xe_i = xfer_el && !pre_win[i] && !is_leader[i];
+    if (xfr) xe[i] = xe_i;
+    start_pv[i] = pv && expired && !is_leader[i] && voter && !xfer_el;
+    start_el[i] = pv ? pre_win[i] : expired && !is_leader[i] && voter;
+    if (start_pv[i]) {
+      role[i] = PRECANDIDATE;
       lid[i] = NIL;
       for (int w = 0; w < W; ++w) votes[i][w] = (w == (i >> 5)) ? (1u << (i & 31)) : 0u;
       dl = clock + tdraw[i];
     }
+    const bool bump = xe_i || (!pv && start_el[i]);
+    if (bump) {
+      term[i] += 1;
+      vf[i] = i;
+      role[i] = CANDIDATE;
+      lid[i] = NIL;
+      for (int w = 0; w < W; ++w) votes[i][w] = (w == (i >> 5)) ? (1u << (i & 31)) : 0u;
+      dl = clock + tdraw[i];
+    }
+    start_el[i] = start_el[i] || xe_i;
     RS_OUT(int32_t, O_CLOCK)[RS_AT1(i)] = clock;
     RS_OUT(int32_t, O_DEADLINE)[RS_AT1(i)] = dl;
   }
@@ -678,6 +969,8 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
       RS_OUT(int32_t, OM_ENT_VAL)[RS_AT2(i, k, e)] = used ? log_val[RS_AT2(i, slot, cap)] : 0;
       if (P.track)
         RS_OUT(int32_t, OM_ENT_TICK)[RS_AT2(i, k, e)] = used ? log_tick[RS_AT2(i, slot, cap)] : 0;
+      if (rcf)
+        RS_OUT(int32_t, OM_ENT_CFG)[RS_AT2(i, k, e)] = used ? log_cfg[RS_AT2(i, slot, cap)] : 0;
     }
     int req_type = start_el[i] ? REQ_VOTE : (send ? REQ_APPEND : 0);
     if (start_pv[i]) req_type = REQ_PREVOTE;
@@ -685,10 +978,19 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
     const int l = llen[i];
     const int last_term = term_at(RS_ROW(log_term, i), B, cap, comp, base[i], bterm[i], l);
     const int pterm = term_at(RS_ROW(log_term, i), B, cap, comp, base[i], bterm[i], ws);
-    RS_OUT(int32_t, OM_REQ_TYPE)[RS_AT1(i)] = req_type;
     // A probe carries the prospective term.
-    RS_OUT(int32_t, OM_REQ_TERM)[RS_AT1(i)] =
-        start_pv[i] ? term[i] + 1 : (req_type != 0 ? term[i] : 0);
+    const int req_term = start_pv[i] ? term[i] + 1 : (req_type != 0 ? term[i] : 0);
+    if (xfr) {
+      // TimeoutNow replaces the heartbeat once the target's match reaches the
+      // leader's (post-injection) log length.
+      const bool fire = send && xto[i] != NIL &&
+                        (int)match_out[RS_AT2(i, iclamp(xto[i], 0, n - 1), n)] >= l;
+      if (fire) req_type = REQ_TIMEOUT_NOW;
+      RS_OUT(NodeT, OM_XFER_TGT)[RS_AT1(i)] = (NodeT)(fire ? xto[i] : NIL);
+      if (disrupt_live) RS_OUT(int8_t, OM_REQ_DISRUPT)[RS_AT1(i)] = (int8_t)xe[i];
+    }
+    RS_OUT(int32_t, OM_REQ_TYPE)[RS_AT1(i)] = req_type;
+    RS_OUT(int32_t, OM_REQ_TERM)[RS_AT1(i)] = req_term;
     RS_OUT(int32_t, OM_REQ_COMMIT)[RS_AT1(i)] = send ? commit[i] : 0;
     RS_OUT(int32_t, OM_REQ_LAST_INDEX)[RS_AT1(i)] = rv_like ? l : 0;
     RS_OUT(int32_t, OM_REQ_LAST_TERM)[RS_AT1(i)] = rv_like ? last_term : 0;
@@ -699,13 +1001,19 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
       RS_OUT(int32_t, OM_REQ_BASE)[RS_AT1(i)] = send ? base[i] : 0;
       RS_OUT(int32_t, OM_REQ_BASE_TERM)[RS_AT1(i)] = send ? bterm[i] : 0;
       RS_OUT(uint32_t, OM_REQ_BASE_CHK)[RS_AT1(i)] = send ? bchk[i] : 0u;
+      if (rcf) {  // the snapshot config context rides the header
+        for (int w = 0; w < W; ++w)
+          RS_OUT(uint32_t, OM_REQ_BASE_MOLD)[RS_AT2(i, w, W)] = send ? bmold[i][w] : 0u;
+        RS_OUT(int32_t, OM_REQ_BASE_PEND)[RS_AT1(i)] = send ? bpend[i] : 0;
+        RS_OUT(int32_t, OM_REQ_BASE_EPOCH)[RS_AT1(i)] = send ? bepoch[i] : 0;
+      }
     }
     if (pv)
       for (int w = 0; w < W; ++w) RS_OUT(uint32_t, OM_PV_GRANT)[RS_AT2(i, w, W)] = pvg[i][w];
     RS_OUT(NodeT, OM_V_TO)[RS_AT1(i)] = (NodeT)grant_to[i];
     RS_OUT(int32_t, OM_RESP_TERM)[RS_AT1(i)] = term[i];
     // Responses on edge [requester i, responder v]: the type of the request
-    // v received from i this tick.
+    // v received from i this tick (a TimeoutNow gets none).
     for (int v = 0; v < n; ++v) {
       int kind = 0;
       if (RS_DELIVERED(v, i)) {
@@ -718,7 +1026,8 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
     }
   }
 
-  // ---- committed-prefix checksum (prefix form) + end-of-tick state ----------
+  // ---- committed-prefix checksum (prefix form), end-of-tick configuration
+  // and state -------------------------------------------------------------------
   for (int i = 0; i < n; ++i) {
     if (!comp) {
       chk_new[i] = chk0[i];
@@ -735,6 +1044,38 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
         chk_new[i] = s_new;
       }
     }
+    if (rcf) {
+      // The node's configuration from its own log (base, llen] and snapshot
+      // context: C_old folds the final entries' toggles; the latest entry's
+      // sign decides jointness. A removed leader steps down once its removal
+      // commits on it; a removed candidate stops campaigning.
+      const CfgFold f = fold_cfg(RS_ROW(log_cfg, i), B, cap, n, W, comp, base[i], base[i], llen[i]);
+      const int pend_code = f.hi > 0 ? f.code_hi : bpend[i];
+      const bool joint2 = pend_code > 0;
+      const int pv_ = pend_code - 1;
+      uint32_t d_old[MAXW], d_new[MAXW];
+      for (int w = 0; w < W; ++w) {
+        d_old[w] = bmold[i][w] ^ f.fold[w];
+        const uint32_t tb = (joint2 && pv_ < n && w == (pv_ >> 5)) ? 1u << (pv_ & 31) : 0u;
+        d_new[w] = d_old[w] ^ tb;
+        RS_OUT(uint32_t, O_MEMBER_OLD)[RS_AT2(i, w, W)] = d_old[w];
+        RS_OUT(uint32_t, O_MEMBER_NEW)[RS_AT2(i, w, W)] = d_new[w];
+      }
+      RS_OUT(int32_t, O_CFG_PEND)[RS_AT1(i)] = joint2 ? (f.hi > 0 ? f.hi : imax(base[i], 1)) : 0;
+      RS_OUT(int32_t, O_CFG_EPOCH)[RS_AT1(i)] = bepoch[i] + f.count;
+      const bool self_in = has_bit(d_old, i) || has_bit(d_new, i);
+      const bool cand = role[i] == CANDIDATE || role[i] == PRECANDIDATE;
+      if (!self_in && ((role[i] == LEADER && commit[i] >= imax(f.hi, base[i])) || cand)) {
+        role[i] = FOLLOWER;
+        lid[i] = NIL;
+      }
+      if (comp) {
+        for (int w = 0; w < W; ++w) RS_OUT(uint32_t, O_BASE_MOLD)[RS_AT2(i, w, W)] = bmold[i][w];
+        RS_OUT(int32_t, O_BASE_PEND)[RS_AT1(i)] = bpend[i];
+        RS_OUT(int32_t, O_BASE_EPOCH)[RS_AT1(i)] = bepoch[i];
+      }
+    }
+    if (xfr) RS_OUT(int32_t, O_XFER_TO)[RS_AT1(i)] = xto[i];
     RS_OUT(int32_t, O_ROLE)[RS_AT1(i)] = role[i];
     RS_OUT(int32_t, O_TERM)[RS_AT1(i)] = term[i];
     RS_OUT(int32_t, O_VOTED_FOR)[RS_AT1(i)] = vf[i];
@@ -748,7 +1089,7 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
       RS_OUT(int32_t, O_BASE_TERM)[RS_AT1(i)] = bterm[i];
       RS_OUT(uint32_t, O_BASE_CHK)[RS_AT1(i)] = bchk[i];
     }
-    if (pv) RS_OUT(int32_t, O_HEARD_CLOCK)[RS_AT1(i)] = heard[i];
+    if (hc_live) RS_OUT(int32_t, O_HEARD_CLOCK)[RS_AT1(i)] = heard[i];
   }
   RS_OUT(int32_t, O_NOW)[b] = now + 1;
 
@@ -806,7 +1147,16 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
   for (int k = 0; k < BINS; ++k) RS_OUT(int32_t, F_LAT_HIST)[(int64_t)k * B + b] = hist[k];
   RS_OUT(int32_t, F_LAT_EXCLUDED)[b] = imax(crossed - lat_cnt, 0);
   if (comp) RS_OUT(int32_t, F_NOOP_BLOCKED)[b] = noop_blocked;
+  if (rdx) {
+    RS_OUT(int32_t, F_READS_SERVED)[b] = reads_served;
+    RS_OUT(int32_t, F_READ_LAT_SUM)[b] = (int32_t)read_lat_sum;
+    for (int k = 0; k < BINS; ++k) RS_OUT(int32_t, F_READ_HIST)[(int64_t)k * B + b] = read_hist[k];
+  }
+  if (rdl) RS_OUT(uint8_t, F_VIOL_READ_STALE)[b] = viol_stale;
 
+#undef RS_XPEND
+#undef RS_QUORUM
+#undef RS_DENIED
 #undef RS_UTD
 #undef RS_DELIVERED
 #undef RS_ROW
@@ -815,6 +1165,12 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
 #undef RS_IN
 #undef RS_OUT
 }
+
+// One launch's arguments, passed by value to the kernel.
+struct TickArgs {
+  TickParams p;
+  void* ptr[N_PTR];
+};
 
 // Calls CALL(IdxT, AckT, NodeT) for the dtype tiers given as byte widths
 // (1 = int8, 2 = int16, 4 = int32: the index tier under compaction);

@@ -13,15 +13,18 @@ dtype, shape or layout raises ValueError, and a refused launch raises
 RuntimeError. Nothing falls back.
 
 Build: at first use, `nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17
--O3 -shared -Xcompiler -fPIC` compiles csrc/tick.cu into
-raft_sim_tpu_torch/build/ (ignored by git), named by a hash of the sources, and
-ctypes loads it. The library has a plain C interface, so the build takes
-seconds. `step_cuda.launches` counts kernel launches (and nothing else).
+-O3 -Xcompiler -fPIC -c` compiles csrc/tick.cu once per index dtype tier
+(-DRS_IDX_BYTES=1, 2, 4: three nvcc processes started together), and
+`nvcc -shared` links the objects into one library in raft_sim_tpu_torch/build/
+(ignored by git), named by a hash of the sources; ctypes loads it. The library
+has a plain C interface (no PyTorch headers), so the build takes well under
+two minutes. `step_cuda.launches` counts kernel launches (and nothing else).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import math
 import os
@@ -48,24 +51,29 @@ STATE_IO = (
     "match_index", "ack_age", "commit_index", "commit_chk", "log_base",
     "base_term", "base_chk", "log_term", "log_val", "log_tick", "log_len",
     "clock", "deadline", "heard_clock", "client_pend", "client_dst",
-    "client_tick", "lat_frontier", "now",
+    "client_tick", "lat_frontier", "now", "member_old", "member_new",
+    "cfg_epoch", "cfg_pend", "log_cfg", "base_mold", "base_pend", "base_epoch",
+    "xfer_to", "read_idx", "read_tick", "read_acks", "read_fr",
 )
 MAILBOX_IO = (
     "req_type", "req_term", "req_commit", "req_last_index", "req_last_term",
     "ent_start", "ent_prev_term", "ent_count", "ent_term", "ent_val",
     "ent_tick", "req_base", "req_base_term", "req_base_chk", "req_off",
     "resp_kind", "pv_grant", "v_to", "a_ok_to", "a_match", "a_hint",
-    "resp_term",
+    "resp_term", "xfer_tgt", "req_disrupt", "ent_cfg", "req_base_mold",
+    "req_base_pend", "req_base_epoch",
 )
 INPUTS_IN = (
     "deliver_mask", "skew", "timeout_draw", "client_cmd", "client_target",
-    "client_bounce", "alive", "restarted",
+    "client_bounce", "alive", "restarted", "reconfig_cmd", "transfer_cmd",
+    "read_cmd",
 )
 INFO_OUT = (
     "viol_election_safety", "viol_commit", "viol_log_matching", "leader",
     "n_leaders", "max_term", "max_commit", "min_commit", "msgs_delivered",
     "cmds_injected", "lat_sum", "lat_cnt", "lat_hist", "lat_excluded",
-    "noop_blocked",
+    "noop_blocked", "reads_served", "read_lat_sum", "read_hist",
+    "viol_read_stale",
 )
 PTR_ORDER = (
     [("state", f) for f in STATE_IO]
@@ -77,8 +85,9 @@ PTR_ORDER = (
 )
 # Legs a gate makes live, by name (either direction): with the gate off the
 # kernel neither reads nor writes them -- they get a null pointer and pass
-# through uncopied. log_base and base_chk are read on every config (a restart
-# resumes commit at the snapshot) but written only under compaction.
+# through uncopied.
+_rcf = lambda c: c.reconfig  # noqa: E731
+_rcf_comp = lambda c: c.reconfig and c.compaction  # noqa: E731
 _GATED = {
     "log_tick": lambda c: c.track_offer_ticks,
     "ent_tick": lambda c: c.track_offer_ticks,
@@ -87,21 +96,58 @@ _GATED = {
     "req_base_term": lambda c: c.compaction,
     "req_base_chk": lambda c: c.compaction,
     "noop_blocked": lambda c: c.compaction,
-    "heard_clock": lambda c: c.pre_vote,
+    "heard_clock": lambda c: c.pre_vote or c.read_lease or c.reconfig,
     "pv_grant": lambda c: c.pre_vote,
     "client_pend": lambda c: c.client_redirect,
     "client_dst": lambda c: c.client_redirect,
     "client_target": lambda c: c.client_redirect,
     "client_bounce": lambda c: c.client_redirect,
     "client_tick": lambda c: c.client_redirect and c.track_offer_ticks,
+    # The reconfiguration plane: membership, transfer, reads, leases.
+    "member_old": _rcf,
+    "member_new": _rcf,
+    "cfg_pend": _rcf,
+    "log_cfg": _rcf,
+    "ent_cfg": _rcf,
+    "reconfig_cmd": _rcf,
+    "req_base_mold": _rcf_comp,
+    "req_base_pend": _rcf_comp,
+    "req_base_epoch": _rcf_comp,
+    "xfer_to": lambda c: c.leader_transfer,
+    "xfer_tgt": lambda c: c.leader_transfer,
+    "transfer_cmd": lambda c: c.leader_transfer,
+    "req_disrupt": lambda c: c.leader_transfer and (c.reconfig or c.read_lease),
+    "read_idx": lambda c: c.read_index,
+    "read_tick": lambda c: c.read_index,
+    "read_acks": lambda c: c.read_index,
+    "read_cmd": lambda c: c.read_index,
+    "reads_served": lambda c: c.read_index,
+    "read_lat_sum": lambda c: c.read_index,
+    "read_hist": lambda c: c.read_index,
+    "read_fr": lambda c: c.read_lease,
+    "viol_read_stale": lambda c: c.read_lease,
 }
-_WRITTEN_UNDER_COMPACTION = ("log_base", "base_chk")
+# Legs whose read and write sides differ: (read gate, write gate). log_base
+# and base_chk are read on every config (a restart resumes commit at the
+# snapshot) but written only under compaction; cfg_epoch is only derived; the
+# snapshot config context is read under reconfig (the end-of-tick
+# derivation) but moves only under compaction.
+_always = lambda c: True  # noqa: E731
+_SPLIT = {
+    "log_base": (_always, lambda c: c.compaction),
+    "base_chk": (_always, lambda c: c.compaction),
+    "cfg_epoch": (lambda c: False, _rcf),
+    "base_mold": (_rcf, _rcf_comp),
+    "base_pend": (_rcf, _rcf_comp),
+    "base_epoch": (_rcf, _rcf_comp),
+}
 
 
 def leg_live(cfg: T.RaftConfig, group: str, name: str) -> bool:
     """Whether the kernel touches leg `name` of `group` under `cfg`."""
-    if group == "state_out" and name in _WRITTEN_UNDER_COMPACTION:
-        return cfg.compaction
+    if name in _SPLIT:
+        read, write = _SPLIT[name]
+        return (write if group.endswith("_out") else read)(cfg)
     gate = _GATED.get(name)
     return gate is None or gate(cfg)
 
@@ -132,6 +178,11 @@ class TickParams(ctypes.Structure):
         ("election_min", ctypes.c_int32),
         ("redirect", ctypes.c_int32),
         ("k", ctypes.c_int32),
+        ("reconfig", ctypes.c_int32),
+        ("transfer", ctypes.c_int32),
+        ("reads", ctypes.c_int32),
+        ("lease", ctypes.c_int32),
+        ("lease_ticks", ctypes.c_int32),
     ]
 
 
@@ -156,26 +207,44 @@ def _nvcc() -> str:
 BUILD_INFO: dict = {}
 
 
+IDX_TIERS = (1, 2, 4)  # index dtype byte widths: one object per tier
+
+
 def build() -> Path:
     """Compile csrc/tick.cu for sm_90a into BUILD_DIR (once per source hash)
-    and return the library's path. BUILD_INFO records the seconds and the
-    compiler's register/spill report of the last build."""
-    out = BUILD_DIR / f"libtick_{_source_tag()}.so"
+    and return the library's path: one nvcc per index tier, all started
+    together, then one link. BUILD_INFO records the seconds and the
+    compiler's register/stack/spill report of the last build."""
+    tag = _source_tag()
+    out = BUILD_DIR / f"libtick_{tag}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-o", str(tmp), str(CSRC / "tick.cu"),
-    ]
+    nvcc, pid = _nvcc(), os.getpid()
+    arch = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    objs, procs = [], []
+    for k in IDX_TIERS:
+        obj = BUILD_DIR / f"tick_i{k}_{tag}.{pid}.o"
+        cmd = [nvcc, *arch, "-Xptxas", "-v", "-c", f"-DRS_IDX_BYTES={k}", "-o", str(obj),
+               str(CSRC / "tick.cu")]
+        objs.append(obj)
+        procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    try:
+        reports = [proc.communicate()[1] for proc in procs]  # waits for every one
+        for k, proc, err in zip(IDX_TIERS, procs, reports):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc (index tier {k}) failed ({proc.returncode}):\n{err[-4000:]}")
+        tmp = out.with_suffix(f".{pid}.tmp")
+        link = subprocess.run([nvcc, *arch, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr[-4000:]}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)
-    BUILD_INFO.update(seconds=time.perf_counter() - t0, ptxas=proc.stderr, path=str(out))
+    BUILD_INFO.update(seconds=time.perf_counter() - t0, ptxas="".join(reports), path=str(out))
     return out
 
 
@@ -198,9 +267,13 @@ def _load_cuda():
     return _LIB
 
 
+@functools.lru_cache(maxsize=64)
 def leaf_specs(cfg: T.RaftConfig, b: int) -> dict:
     """{(group, name): (shape, dtype)} of every batch-minor leaf the kernel
-    may read, for `b` clusters (`leg_live` says which the config makes live)."""
+    may read, for `b` clusters (`leg_live` says which the config makes live).
+    Cached per (config, batch): the boot state it is read from is built on
+    the meta device, whose ops run as Python reference code (milliseconds a
+    launch under reconfig). Callers only read the dict."""
     boot = T.boot_state(cfg, torch.empty((b, cfg.n_nodes), dtype=torch.int32, device="meta"))
     minor = lambda x: (tuple(x.shape[1:]) + (b,), x.dtype)  # noqa: E731
     specs = {("state", f): minor(getattr(boot, f)) for f in STATE_IO}
@@ -215,6 +288,9 @@ def leaf_specs(cfg: T.RaftConfig, b: int) -> dict:
         ("inputs", "client_bounce"): ((cfg.client_pipeline, b), torch.int32),
         ("inputs", "alive"): ((n, b), torch.bool),
         ("inputs", "restarted"): ((n, b), torch.bool),
+        ("inputs", "reconfig_cmd"): ((b,), torch.int32),
+        ("inputs", "transfer_cmd"): ((b,), torch.int32),
+        ("inputs", "read_cmd"): ((b,), torch.int32),
     })
     return specs
 
@@ -289,6 +365,9 @@ def _prepare(cfg, s, inp, now, device_type):
         comp=int(cfg.compaction), compact_margin=cfg.compact_margin,
         pre_vote=int(cfg.pre_vote), election_min=cfg.election_min_ticks,
         redirect=int(cfg.client_redirect), k=cfg.client_pipeline,
+        reconfig=int(cfg.reconfig), transfer=int(cfg.leader_transfer),
+        reads=int(cfg.read_index), lease=int(cfg.read_lease),
+        lease_ticks=cfg.read_lease_ticks,
     )
     tiers = (
         s.next_index.element_size(), s.ack_age.element_size(),

@@ -14,17 +14,23 @@ Gate set: invariants, log matching at `log_matching_interval`, the client's
 cadence (direct, or the redirect client with its K-deep pipeline) with the
 offer-tick latency plane, drop, partitions, skew, crash/restart (phase -1
 runs unconditionally, as in JAX), ring-log compaction with the snapshot
-catch-up (`compact_margin > 0`) and PreVote. Every other structural gate
-raises NotImplementedError naming the gate (`unsupported_gates`), and so does
-log matching under compaction (the JAX ring form with `lm_skipped_pairs` is
-not ported). Gated-off legs pass through untouched; gated-off StepInfo leaves
-are zeros with the JAX dtype and shape.
+catch-up (`compact_margin > 0`), PreVote, and the reconfiguration plane:
+log-carried joint-consensus membership (`reconfig`, with its snapshot config
+context under compaction), TimeoutNow leadership transfer (`transfer`),
+ReadIndex reads (`reads`) and lease reads (`lease`). Every other structural
+gate raises NotImplementedError naming the gate (`unsupported_gates`): the
+durable storage plane, the compacted layout, trace tracking, serve ingest
+(writes and reads: their overrides come from the serve plane), log matching
+under compaction (the JAX ring form with `lm_skipped_pairs` is not ported),
+and a TEST-ONLY mutant hook turned off. Gated-off legs pass through
+untouched; gated-off StepInfo leaves are zeros with the JAX dtype and shape.
 """
 
 from __future__ import annotations
 
 import torch
 
+from raft_sim_tpu_torch.models import cfglog
 from raft_sim_tpu_torch.ops import bitplane, log_ops
 from raft_sim_tpu_torch.types import (
     CANDIDATE,
@@ -36,6 +42,7 @@ from raft_sim_tpu_torch.types import (
     PRECANDIDATE,
     REQ_APPEND,
     REQ_PREVOTE,
+    REQ_TIMEOUT_NOW,
     REQ_VOTE,
     RESP_APPEND,
     RESP_PREVOTE,
@@ -50,20 +57,26 @@ from raft_sim_tpu_torch.utils.config import RaftConfig
 I32 = torch.int32
 BIG = 2**31 - 1
 
+# TEST-ONLY mutant hooks of the reconfiguration plane (RaftConfig properties,
+# True in production): each weakens one rule. The port runs the production
+# rules only and refuses a config that turns a hook off.
+MUTANT_HOOKS = (
+    "joint_consensus", "act_on_append", "truncation_rollback", "read_confirm",
+    "xfer_election", "lease_skew_safe",
+)
+
 
 def unsupported_gates(cfg: RaftConfig) -> list[str]:
     """Structural gates of `cfg` the port's tick does not take yet."""
     checks = [
-        ("reconfig", cfg.reconfig),
-        ("transfer", cfg.leader_transfer),
-        ("reads", cfg.read_index),
-        ("lease", cfg.read_lease),
         ("durable_storage", cfg.durable_storage),
         ("compact_planes", cfg.compact_planes),
         ("track_trace", cfg.track_trace),
         ("serve_ingest", cfg.serve_ingest),
+        ("serve_reads", cfg.serve_reads),
         ("log matching under compaction", cfg.compaction and cfg.check_log_matching),
     ]
+    checks += [(f"mutant hook {h}", not getattr(cfg, h)) for h in MUTANT_HOOKS]
     return [name for name, on in checks if on]
 
 
@@ -111,6 +124,11 @@ def step_b(
     track = cfg.track_offer_ticks
     comp = cfg.compaction
     pv = cfg.pre_vote
+    rcf = cfg.reconfig  # log-carried joint-consensus membership
+    xfr = cfg.leader_transfer  # TimeoutNow transfer
+    rdx = cfg.read_index  # ReadIndex reads
+    rdl = cfg.read_lease  # lease reads
+    hc_live = pv or rdl or rcf  # heard_clock: the quiet rule and the vote denial
     dev = s.role.device
     b = s.role.shape[-1]
     idt = s.next_index.dtype
@@ -137,10 +155,20 @@ def step_b(
         commit_chk=torch.where(rs, s.base_chk, s.commit_chk),
         deadline=torch.where(rs, s.clock + inp.timeout_draw, s.deadline),
     )
-    if pv:  # a restarted node remembers no leader contact
+    if hc_live:  # a restarted node remembers no leader contact
         s = s._replace(
             heard_clock=torch.where(rs, s.clock - cfg.election_min_ticks, s.heard_clock)
         )
+    if xfr:  # a pending transfer is volatile leader state
+        s = s._replace(xfer_to=torch.where(rs, NIL, s.xfer_to))
+    if rdx:  # pending reads die with the process
+        s = s._replace(
+            read_idx=torch.where(rs, 0, s.read_idx),
+            read_tick=torch.where(rs, 0, s.read_tick),
+            read_acks=torch.where(rs2, 0, s.read_acks),
+        )
+        if rdl:
+            s = s._replace(read_fr=torch.where(rs, 0, s.read_fr))
     mb = s.mailbox
     base, bterm, bchk = s.log_base, s.base_term, s.base_chk
 
@@ -149,6 +177,24 @@ def step_b(
             return log_ops.term_at_rb(log_term, base, bterm, index1)
         return log_ops.term_at_b(log_term, index1)
 
+    # Membership: each node's tick-start derived rows mask every quorum test
+    # it makes, dual while its own cfg_pend marks an open joint entry.
+    if rcf:
+        bmold, bpend, bepoch = s.base_mold, s.base_pend, s.base_epoch
+        m_old, m_new = s.member_old, s.member_new  # [N, W, B]
+        joint = s.cfg_pend > 0
+        maj_old = bitplane.count(m_old, axis=1) // 2 + 1
+        maj_new = bitplane.count(m_new, axis=1) // 2 + 1
+        member_b = (((m_old | m_new) & eye_p3) != 0).any(1)  # node i in its own view
+
+        def packed_quorum(rows):  # [N, W, B] packed grant rows -> [N, B]
+            ok = bitplane.count(rows & m_old, axis=1) >= maj_old
+            return ok & (~joint | (bitplane.count(rows & m_new, axis=1) >= maj_new))
+    else:
+
+        def packed_quorum(rows):
+            return bitplane.count(rows, axis=1) >= cfg.quorum
+
     # ---- phase 0: delivery ----------------------------------------------------
     dst_up = alive & ~rs
     dmask = bitplane.unpack(inp.deliver_mask, n, axis=1)  # [dst, src, B]
@@ -156,8 +202,19 @@ def step_b(
     req_in = deliver.transpose(0, 1) & (mb.req_type != 0)[:, None, :]  # [snd, rcv, B]
     resp_in = deliver & (mb.resp_kind != 0)  # [rcv, responder, B]
 
+    # Heard-a-leader vote denial (reconfig and lease), which a transfer's
+    # sanctioned RequestVote (req_disrupt) overrides.
+    if rcf or rdl:
+        heard_recent = (s.clock + inp.skew) - s.heard_clock < cfg.election_min_ticks
+        if xfr:
+            rv_denied = heard_recent[None, :, :] & (mb.req_disrupt == 0)[:, None, :]
+        else:
+            rv_denied = heard_recent[None, :, :].expand(n, n, b)
+
     # ---- phase 1: term adoption (PreVote probes carry a prospective term) -----
     term_req = req_in & (mb.req_type != REQ_PREVOTE)[:, None, :] if pv else req_in
+    if rcf:  # a denied RequestVote is not processed: no term adoption either
+        term_req = term_req & ~((mb.req_type == REQ_VOTE)[:, None, :] & rv_denied)
     in_term = torch.maximum(
         torch.where(term_req, mb.req_term[:, None, :], 0).amax(0),
         torch.where(resp_in, mb.resp_term[None, :, :], 0).amax(1),
@@ -178,6 +235,8 @@ def step_b(
         & (mb.req_last_index[:, None, :] >= my_last_idx[None, :, :])
     )
     can_grant = cur_rv & up_to_date
+    if rcf or rdl:
+        can_grant = can_grant & ~rv_denied
     lowest = torch.where(can_grant, snd_ids, n).amin(0)  # [N, B]
     has_vote = (voted_for != NIL)[None, :, :]
     grant = (has_vote & can_grant & (snd_ids == voted_for[None, :, :])) | (
@@ -255,6 +314,10 @@ def step_b(
         log_tick_arr = write(s.log_tick, log_ops.window_b(pick_w(mb.ent_tick), off, e))
     else:
         log_tick_arr = s.log_tick
+    if rcf:  # non-config entries ship 0 and scrub stale commands off reused slots
+        log_cfg_arr = write(s.log_cfg, log_ops.window_b(pick_w(mb.ent_cfg), off, e))
+    else:
+        log_cfg_arr = s.log_cfg
     last_new = torch.minimum(prev_i + n_acc, log_len).clamp(min=0)
     commit = torch.where(
         ae_ok,
@@ -275,6 +338,11 @@ def step_b(
         base = torch.where(apply_snap, L, base)
         log_len = torch.where(wipe, L, log_len)
         commit = torch.where(apply_snap, torch.maximum(commit, L), commit)
+        if rcf:  # the snapshot's config context installs with it
+            got = torch.gather(mb.req_base_mold, 0, src[:, None, :].expand(m_old.shape))
+            bmold = torch.where(apply_snap[:, None, :], got, bmold)
+            bpend = torch.where(apply_snap, pick_h(mb.req_base_pend), bpend)
+            bepoch = torch.where(apply_snap, pick_h(mb.req_base_epoch), bepoch)
         out_a_ok_to = torch.where(ae_ok | snap, ae_src, NIL).to(ndt)
         out_a_match = torch.where(snap, L, torch.where(ae_ok, last_new, 0)).to(idt)
     else:
@@ -285,8 +353,8 @@ def step_b(
 
     # ---- phase 3.5: PreVote requests ------------------------------------------
     clock = s.clock + inp.skew  # phase 7's clock
+    heard = torch.where(has_ae, clock, s.heard_clock) if hc_live else s.heard_clock
     if pv:
-        heard = torch.where(has_ae, clock, s.heard_clock)
         is_pv = req_in & (mb.req_type == REQ_PREVOTE)[:, None, :]  # [cand, voter, B]
         quiet = (clock - heard >= cfg.election_min_ticks) & (role != LEADER)
         pv_grant = (
@@ -295,8 +363,18 @@ def step_b(
             & up_to_date
             & quiet[None, :, :]
         )
-    else:
-        heard = s.heard_clock
+
+    # ---- phase 3.7: TimeoutNow receipt ----------------------------------------
+    if xfr:
+        is_tn = req_in & (mb.req_type == REQ_TIMEOUT_NOW)[:, None, :]  # [snd, rcv, B]
+        tn_cur = (
+            is_tn
+            & (mb.xfer_tgt.to(I32)[:, None, :] == ids[None, :, None])
+            & (mb.req_term[:, None, :] == term[None, :, :])
+        )
+        xfer_elect = tn_cur.any(0) & alive & (role != LEADER)
+        if rcf:
+            xfer_elect = xfer_elect & member_b  # non-voters never campaign
 
     # ---- phase 4: responses ---------------------------------------------------
     vresp = resp_in & (mb.resp_kind == RESP_VOTE)
@@ -307,7 +385,9 @@ def step_b(
         & (role == CANDIDATE)[:, None, :]
     )
     votes = votes | bitplane.pack(new_votes, axis=1)
-    win = (role == CANDIDATE) & (bitplane.count(votes, axis=1) >= cfg.quorum) & alive
+    win = (role == CANDIDATE) & packed_quorum(votes) & alive
+    if rcf:
+        win = win & member_b  # a removed node cannot win on banked votes
     role = torch.where(win, LEADER, role)
     leader_id = torch.where(win, ids2, leader_id)
     len_i = log_len.to(idt)
@@ -321,7 +401,9 @@ def step_b(
             (role == PRECANDIDATE)[:, None, :], bitplane.pack(pvresp, axis=1) & mb.pv_grant, 0
         )
         votes = votes | new_pv
-        pre_win = (role == PRECANDIDATE) & (bitplane.count(votes, axis=1) >= cfg.quorum) & alive
+        pre_win = (role == PRECANDIDATE) & packed_quorum(votes) & alive
+        if rcf:
+            pre_win = pre_win & member_b
         term = term + pre_win.to(I32)
         role = torch.where(pre_win, CANDIDATE, role)
         voted_for = torch.where(pre_win, ids2, voted_for)
@@ -349,17 +431,98 @@ def step_b(
     # ---- phase 5: leader commit advancement ------------------------------------
     is_leader = role == LEADER
     match_with_self = torch.where(eye3, len_i[:, None, :], match_index).to(I32)
-    # The quorum-th largest match per leader: an order statistic, so any exact
-    # method equals the JAX counting forms.
-    quorum_match = torch.sort(match_with_self, dim=1, descending=True).values[
-        :, cfg.quorum - 1, :
-    ]
+    if rcf:
+        # Per-leader quorum match under the leader's own member rows: the
+        # maj-th largest of its members' matches, the min of both
+        # configurations while joint.
+        mws = match_with_self
+        ge_m = mws[:, None, :, :] >= mws[:, :, None, :]  # [i, j(cand), k, B]
+
+        def masked_qmatch(mask_b, maj):
+            cnt = (ge_m & mask_b[:, None, :, :]).sum(2)  # [N, N, B]
+            ok = (cnt >= maj[:, None, :]) & mask_b
+            return torch.where(ok, mws, 0).amax(1)
+
+        qm_old = masked_qmatch(bitplane.unpack(m_old, n, axis=1), maj_old)
+        qm_new = masked_qmatch(bitplane.unpack(m_new, n, axis=1), maj_new)
+        quorum_match = torch.where(joint, torch.minimum(qm_old, qm_new), qm_old)
+    else:
+        # The quorum-th largest match per leader: an order statistic, so any
+        # exact method equals the JAX counting forms.
+        quorum_match = torch.sort(match_with_self, dim=1, descending=True).values[
+            :, cfg.quorum - 1, :
+        ]
     quorum_term = term_at(log_term_arr, quorum_match)
     commit = torch.where(
         is_leader & alive & (quorum_match > commit) & (quorum_term == term),
         quorum_match,
         commit,
     )
+
+    # ---- phase 5.2: transfer keep/accept, ReadIndex and lease reads ----------
+    if xfr:
+        tgt_oh_x = ids[None, :, None] == s.xfer_to.clamp(0, n - 1)[:, None, :]
+        age_t = torch.where(tgt_oh_x, ack_age.to(I32), 0).sum(1)
+        keep_x = is_leader & (s.xfer_to != NIL) & (age_t <= cfg.ack_timeout_ticks)
+        xfer_to = torch.where(keep_x, s.xfer_to, NIL)
+        t_x = inp.transfer_cmd  # [B]
+        ld_ok_x = is_leader & alive
+        if rcf:
+            ld_ok_x = ld_ok_x & member_b
+            # The target must be a voter of the leader's own target config.
+            t_voter = ((m_new & bitplane.one_bit(t_x, n)[None]) != 0).any(1)
+        else:
+            t_voter = torch.ones_like(ld_ok_x)
+        ldx = torch.where(ld_ok_x, ids2, n).amin(0)
+        can_x = (
+            (t_x != NIL)[None, :]
+            & t_voter
+            & (ids2 == ldx[None, :])
+            & ld_ok_x
+            & (t_x[None, :] != ids2)
+            & (xfer_to == NIL)
+        )
+        xfer_to = torch.where(can_x, t_x[None, :], xfer_to)
+        xfer_pend = xfer_to != NIL
+    zb = torch.zeros((b,), dtype=I32, device=dev)
+    viol_read_stale = torch.zeros((b,), dtype=torch.bool, device=dev)
+    if rdx:
+        pend0 = s.read_idx > 0
+        keep_r = is_leader & pend0
+        read_acks = torch.where(keep_r[:, None, :], s.read_acks | bitplane.pack(aresp, axis=1), 0)
+        serve = keep_r & alive & packed_quorum(read_acks | eye_p3)
+        if rdl:  # the lease fast path on the global-tick ack_age plane
+            fresh_p = bitplane.pack(ack_age <= cfg.read_lease_ticks, axis=1)
+            lease_ok = packed_quorum(fresh_p | eye_p3)
+            if xfr:
+                lease_ok = lease_ok & ~xfer_pend  # the transfer handoff covers reads
+            serve = serve | (keep_r & alive & lease_ok)
+        lat_r = (s.now[None, :] + 1 - s.read_tick).clamp(min=1)
+        reads_served = serve.sum(0).to(I32)
+        read_lat_sum = torch.where(serve, lat_r, 0).sum(0).to(I32)
+        bins_r = torch.arange(LAT_HIST_BINS, dtype=I32, device=dev)[None, :, None]
+        bin_r = log_ops.log2_bin(lat_r, LAT_HIST_BINS)
+        read_hist = ((bins_r == bin_r[:, None, :]) & serve[:, None, :]).sum(0).to(I32)
+        cur_committed = term_at(log_term_arr, commit) == term
+        can_cap = (inp.read_cmd != NIL)[None, :] & is_leader & alive & ~pend0 & cur_committed
+        if xfr:
+            can_cap = can_cap & ~xfer_pend
+        low_cap = torch.where(can_cap, ids2, n).amin(0)
+        cap_r = can_cap & (ids2 == low_cap[None, :])
+        cleared = serve | (pend0 & ~keep_r)
+        read_idx = torch.where(cap_r, commit + 1, torch.where(cleared, 0, s.read_idx))
+        read_tick = torch.where(
+            cap_r, (s.now + 1)[None, :], torch.where(cleared, 0, s.read_tick)
+        )
+        read_acks = torch.where((cap_r | serve)[:, None, :], 0, read_acks)
+        if rdl:  # the staleness anchor and its device invariant
+            fr_now = torch.maximum(s.lat_frontier, commit.amax(0))
+            read_fr = torch.where(cap_r, fr_now[None, :], torch.where(cleared, 0, s.read_fr))
+            if cfg.check_invariants:
+                viol_read_stale = (serve & (s.read_idx - 1 < s.read_fr)).any(0)
+    else:
+        reads_served, read_lat_sum = zb, zb.clone()
+        read_hist = torch.zeros((LAT_HIST_BINS, b), dtype=I32, device=dev)
 
     # ---- offer->commit latency ----------------------------------------------
     if track:
@@ -391,6 +554,10 @@ def step_b(
         base_mid, bchk_mid = base, bchk  # post-install, pre-advance: the checksum anchor
         base2 = torch.maximum(base, torch.minimum(commit, log_len - (cap - cfg.compact_margin)))
         bterm = term_at(log_term_arr, base2)
+        if rcf:  # fold the compacted span's config entries into the snapshot context
+            bmold, bpend, bepoch = cfglog.fold_span(
+                cfg, log_cfg_arr, base_mid, base2, bmold, bpend, bepoch
+            )
         base = base2
         # ---- committed-prefix checksum, ring form (before phase 6: an injection
         # into a slot this tick's rebase freed would alias) -----------------------
@@ -404,7 +571,8 @@ def step_b(
         bchk = add(bchk_mid, s_bf)
         chk_new = add(bchk_mid, s_cn)
 
-    # ---- phase 6: client injection, redirect routing, election-win no-op ------
+    # ---- phase 6: no-op, config entry, client injection, redirect routing -----
+    # One append per node per tick, at priority no-op > config > client.
     if comp:
         reserve = max(1, cfg.compact_margin // 2)
         has_slot = log_len - base < cap
@@ -415,7 +583,35 @@ def step_b(
         noop = torch.zeros_like(is_leader)
         room = log_len - base < cap
         noop_blocked = torch.zeros_like(s.now)
+    if rcf:
+        # Joint entry on the admin's toggle, final entry once the governing
+        # joint entry commits on the leader; judged on the leader's own
+        # tick-start configuration.
+        t_r = inp.reconfig_cmd
+        tbit = bitplane.one_bit(t_r, n)  # [W, B]; all zero for NIL
+        toggled = m_new ^ tbit[None]
+        ld_ok = is_leader & alive & member_b & room & ~noop
+        ldj = torch.where(ld_ok & ~joint, ids2, n).amin(0)
+        accept_j = (
+            (t_r != NIL)[None, :]
+            & (ids2 == ldj[None, :])
+            & ld_ok
+            & ~joint
+            & (bitplane.count(tbit, axis=0) > 0)[None, :]
+            & (bitplane.count(toggled, axis=1) >= 2)
+        )
+        pvbits = bitplane.unpack(m_old ^ m_new, n, axis=1)  # [N, N, B]
+        pend_v = torch.where(pvbits, ids[None, :, None], n).amin(1)  # the open toggle
+        accept_f = ld_ok & joint & (commit >= s.cfg_pend)
+        cfg_code = torch.where(
+            accept_j, t_r[None, :] + 1, torch.where(accept_f, -(pend_v + 1), 0)
+        ).to(I32)
+        cfg_write = accept_j | accept_f
     node_ok = is_leader & alive & room & ~noop
+    if rcf:
+        node_ok = node_ok & ~cfg_write  # the slot holds a config entry
+    if xfr:
+        node_ok = node_ok & ~xfer_pend  # the transfer's lease handoff
     if cfg.client_redirect:
         kdim = cfg.client_pipeline
         kk = torch.arange(kdim, dtype=I32, device=dev)
@@ -449,12 +645,22 @@ def step_b(
         cmds_cnt = client_ok.any(0).to(I32)
         client_pend, client_dst, client_tick = s.client_pend, s.client_dst, s.client_tick
     do_write = noop | client_ok
+    wval = torch.where(noop, NOOP, wval_cl)
+    wtick = torch.where(noop, 0, wtick_cl)  # no-op entries carry stamp 0
+    if rcf:  # config entries carry value 0 and stamp 0; the command rides log_cfg
+        do_write = do_write | cfg_write
+        wval = torch.where(cfg_write, 0, wval)
+        wtick = torch.where(cfg_write, 0, wtick)
     inj_pos = torch.where(do_write, log_len % cap if comp else log_len, cap)
     inj_oh = torch.arange(cap, dtype=I32, device=dev)[None, :, None] == inj_pos[:, None, :]
     log_term_arr = torch.where(inj_oh, term[:, None, :], log_term_arr)
-    log_val_arr = torch.where(inj_oh, torch.where(noop, NOOP, wval_cl)[:, None, :], log_val_arr)
-    if track:  # no-op entries carry stamp 0
-        log_tick_arr = torch.where(inj_oh, torch.where(noop, 0, wtick_cl)[:, None, :], log_tick_arr)
+    log_val_arr = torch.where(inj_oh, wval[:, None, :], log_val_arr)
+    if track:
+        log_tick_arr = torch.where(inj_oh, wtick[:, None, :], log_tick_arr)
+    if rcf:  # every append writes the config plane (0 for non-config entries)
+        log_cfg_arr = torch.where(
+            inj_oh, torch.where(cfg_write, cfg_code, 0)[:, None, :], log_cfg_arr
+        )
     log_len = log_len + do_write.to(I32)
 
     # ---- phase 7: timers ------------------------------------------------------
@@ -466,23 +672,48 @@ def step_b(
     expired = (clock >= deadline) & alive
     heartbeat = expired & is_leader
     deadline = torch.where(heartbeat, clock + cfg.heartbeat_ticks, deadline)
+
+    def campaign(start, role, term, voted_for, leader_id, votes, deadline, bump):
+        """Start a real election at `start` (or a probe when not `bump`)."""
+        if bump:
+            term = term + start.to(I32)
+            voted_for = torch.where(start, ids2, voted_for)
+        role = torch.where(start, CANDIDATE if bump else PRECANDIDATE, role)
+        leader_id = torch.where(start, NIL, leader_id)
+        votes = torch.where(start[:, None, :], eye_p3, votes)
+        deadline = torch.where(start, clock + inp.timeout_draw, deadline)
+        return role, term, voted_for, leader_id, votes, deadline
+
     if pv:
         # Expiry starts a pre-vote probe; real elections start at promotions.
         start_prevote = expired & ~is_leader
-        role = torch.where(start_prevote, PRECANDIDATE, role)
-        leader_id = torch.where(start_prevote, NIL, leader_id)
-        votes = torch.where(start_prevote[:, None, :], eye_p3, votes)
-        deadline = torch.where(start_prevote, clock + inp.timeout_draw, deadline)
+        if rcf:
+            start_prevote = start_prevote & member_b  # non-voters never campaign
+        if xfr:
+            start_prevote = start_prevote & ~xfer_elect  # the TimeoutNow bypass
+        role, term, voted_for, leader_id, votes, deadline = campaign(
+            start_prevote, role, term, voted_for, leader_id, votes, deadline, False
+        )
         start_election = pre_win
+        if xfr:
+            # A TimeoutNow election: a real one without the pre-quorum (a
+            # phase-4 win may have promoted the target this very tick).
+            xe = xfer_elect & ~pre_win & ~is_leader
+            role, term, voted_for, leader_id, votes, deadline = campaign(
+                xe, role, term, voted_for, leader_id, votes, deadline, True
+            )
+            start_election = pre_win | xe
         rv_like = start_election | start_prevote
     else:
         start_election = expired & ~is_leader
-        term = term + start_election.to(I32)
-        role = torch.where(start_election, CANDIDATE, role)
-        voted_for = torch.where(start_election, ids2, voted_for)
-        leader_id = torch.where(start_election, NIL, leader_id)
-        votes = torch.where(start_election[:, None, :], eye_p3, votes)
-        deadline = torch.where(start_election, clock + inp.timeout_draw, deadline)
+        if rcf:
+            start_election = start_election & member_b
+        if xfr:
+            xe = xfer_elect & ~is_leader
+            start_election = start_election | xe
+        role, term, voted_for, leader_id, votes, deadline = campaign(
+            start_election, role, term, voted_for, leader_id, votes, deadline, True
+        )
         rv_like = start_election
 
     # ---- phase 8: outbox ------------------------------------------------------
@@ -497,6 +728,19 @@ def step_b(
     out_req_term = torch.where(out_req_type != 0, term, 0)
     if pv:
         out_req_term = torch.where(start_prevote, term + 1, out_req_term)  # prospective
+    if xfr:
+        # TimeoutNow replaces the heartbeat once the target has caught up.
+        tgt_oh8 = ids[None, :, None] == xfer_to.clamp(0, n - 1)[:, None, :]
+        t_match = torch.where(tgt_oh8, match_index.to(I32), 0).sum(1)
+        fire = send_append & (xfer_to != NIL) & (t_match >= log_len)
+        out_req_type = torch.where(fire, REQ_TIMEOUT_NOW, out_req_type).to(I32)
+        out_xfer_tgt = torch.where(fire, xfer_to, NIL).to(ndt)
+    else:
+        out_xfer_tgt = mb.xfer_tgt
+    if xfr and (rcf or rdl):  # written only where a denial gate reads it
+        out_req_disrupt = xe.to(torch.int8)
+    else:
+        out_req_disrupt = mb.req_disrupt
     len32 = len_i.to(I32)  # the phase-4 (pre-injection) length
     prev_out = torch.minimum((next_index.to(I32) - 1).clamp(min=0), len32[:, None, :])
     responsive = ack_age <= cfg.ack_timeout_ticks
@@ -527,6 +771,7 @@ def step_b(
         out_ent_tick = torch.where(ship_used, window(log_tick_arr, ws, e), 0)
     else:
         out_ent_tick = mb.ent_tick
+    out_ent_cfg = torch.where(ship_used, window(log_cfg_arr, ws, e), 0) if rcf else mb.ent_cfg
     out_resp_kind = torch.where(is_rv, RESP_VOTE, 0) + torch.where(is_ae, RESP_APPEND, 0)
     if pv:
         out_resp_kind = out_resp_kind + torch.where(is_pv, RESP_PREVOTE, 0)
@@ -550,6 +795,9 @@ def step_b(
         req_base=torch.where(send_append, base, z) if comp else mb.req_base,
         req_base_term=torch.where(send_append, bterm, z) if comp else mb.req_base_term,
         req_base_chk=torch.where(send_append, bchk, z) if comp else mb.req_base_chk,
+        xfer_tgt=out_xfer_tgt,
+        req_disrupt=out_req_disrupt,
+        ent_cfg=out_ent_cfg,
         req_off=out_req_off,
         resp_kind=out_resp_kind.to(torch.int8),
         pv_grant=out_pv_grant,
@@ -559,6 +807,12 @@ def step_b(
         a_hint=out_a_hint,
         resp_term=term,
     )
+    if comp and rcf:  # the snapshot config context rides the AppendEntries header
+        new_mb = new_mb._replace(
+            req_base_mold=torch.where(send_append[:, None, :], bmold, 0),
+            req_base_pend=torch.where(send_append, bpend, z),
+            req_base_epoch=torch.where(send_append, bepoch, z),
+        )
 
     # Committed-prefix checksum, prefix form (the JAX log_ops module comment).
     if not comp:
@@ -592,6 +846,7 @@ def step_b(
         clock=clock,
         deadline=deadline,
         heard_clock=heard,
+        log_cfg=log_cfg_arr,
         client_pend=client_pend,
         client_dst=client_dst,
         client_tick=client_tick,
@@ -599,9 +854,36 @@ def step_b(
         now=s.now + 1,
         mailbox=new_mb,
     )
+    # ---- end of tick: each node's configuration from its own log ---------------
+    if rcf:
+        d_mold, d_mnew, d_pend, d_epoch, d_hi = cfglog.derive(
+            cfg, log_cfg_arr, log_len, base, bmold, bpend, bepoch
+        )
+        # A removed leader steps down once its removal commits on it; a
+        # removed candidate stops campaigning.
+        self_in = (((d_mold | d_mnew) & eye_p3) != 0).any(1)
+        is_cand = (role == CANDIDATE) | (role == PRECANDIDATE)
+        demote = ~self_in & (((role == LEADER) & (commit >= d_hi)) | is_cand)
+        new_state = new_state._replace(
+            role=torch.where(demote, FOLLOWER, role),
+            leader_id=torch.where(demote, NIL, leader_id),
+            member_old=d_mold,
+            member_new=d_mnew,
+            cfg_epoch=d_epoch,
+            cfg_pend=d_pend,
+        )
+        if comp:
+            new_state = new_state._replace(base_mold=bmold, base_pend=bpend, base_epoch=bepoch)
+    if xfr:
+        new_state = new_state._replace(xfer_to=xfer_to)
+    if rdx:
+        new_state = new_state._replace(read_idx=read_idx, read_tick=read_tick, read_acks=read_acks)
+        if rdl:
+            new_state = new_state._replace(read_fr=read_fr)
     info = _step_info_b(
         cfg, s, new_state, req_in, resp_in, alive, cmds_cnt, chk_ok,
         lat_sum, lat_cnt, lat_hist, lat_excluded, noop_blocked,
+        reads_served, read_lat_sum, read_hist, viol_read_stale,
         log_matching_due(cfg, s, now),
     )
     # Broadcasts over the transposed request plane leave some results in a
@@ -611,7 +893,8 @@ def step_b(
 
 def _step_info_b(
     cfg, old, new, req_in, resp_in, alive, cmds_cnt, chk_ok,
-    lat_sum, lat_cnt, lat_hist, lat_excluded, noop_blocked, lm_due,
+    lat_sum, lat_cnt, lat_hist, lat_excluded, noop_blocked,
+    reads_served, read_lat_sum, read_hist, viol_read_stale, lm_due,
 ) -> StepInfo:
     """Batched phase 9 (the JAX `_step_info_b`). All outputs [B] (histograms
     [BINS, B])."""
@@ -669,10 +952,10 @@ def _step_info_b(
         lat_excluded=lat_excluded,
         noop_blocked=noop_blocked,
         lm_skipped_pairs=z,
-        reads_served=z.clone(),
-        read_lat_sum=z.clone(),
-        read_hist=torch.zeros((LAT_HIST_BINS, b), dtype=I32, device=dev),
-        viol_read_stale=f.clone(),
+        reads_served=reads_served,
+        read_lat_sum=read_lat_sum,
+        read_hist=read_hist,
+        viol_read_stale=viol_read_stale,
         fsync_lag_sum=z.clone(),
         fsync_lag_max=z.clone(),
     )

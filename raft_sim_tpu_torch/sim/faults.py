@@ -9,11 +9,12 @@ threshold compares (`bits < threshold`, unsigned): draws are int64 values in
 
 Ported: message drop (with the per-cluster uniform rate), rolling partitions,
 clock skew, election-timeout draws, the client's cadence, the crash schedule
-(`alive_at`: the `alive` and `restarted` legs) and the redirect client's
-routing draws (`client_target`, `client_bounce`). Gated-off fields come out
-exactly as the JAX function emits them (zeros / NIL). The reconfiguration
-plane's admin commands and the storage plane's draws are later slices; a
-config that turns one on raises NotImplementedError naming it.
+(`alive_at`: the `alive` and `restarted` legs), the redirect client's
+routing draws (`client_target`, `client_bounce`) and the reconfiguration
+plane's admin commands (`reconfig_cmd`, `transfer_cmd`, `read_cmd`).
+Gated-off fields come out exactly as the JAX function emits them (zeros /
+NIL). The storage plane's draws are a later slice; a config that turns it
+(or the compacted layout) on raises NotImplementedError naming it.
 """
 
 from __future__ import annotations
@@ -43,12 +44,6 @@ def bern_u32(key: torch.Tensor, thresh, shape=()) -> torch.Tensor:
 def unsupported_input_gates(cfg: RaftConfig) -> list[str]:
     """Input mechanisms of `cfg` the port does not draw yet."""
     gates = []
-    if cfg.reconfig:
-        gates.append("reconfig")
-    if cfg.leader_transfer:
-        gates.append("transfer")
-    if cfg.read_index:
-        gates.append("reads")
     if cfg.durable_storage:
         gates.append("durable_storage")
     if cfg.compact_planes:
@@ -112,6 +107,29 @@ def _client_routing(cfg: RaftConfig, tkey: torch.Tensor):
     return threefry.randint(k_tgt, (), 0, n), threefry.randint(k_bnc, (cfg.client_pipeline,), 0, n)
 
 
+def _admin_cmds(cfg: RaftConfig, tkey: torch.Tensor, now: int):
+    """(reconfig_cmd, transfer_cmd, read_cmd), each [B] int32: the
+    reconfiguration plane's admin offers. The toggle and transfer targets
+    are drawn every tick from split(fold_in(tick key, 5)) and offered on
+    their cadence from tick 1; a read is offered on its cadence from tick 0.
+    A disabled plane gives NIL."""
+    n = cfg.n_nodes
+    k_rcfg, k_xfer = threefry.split(threefry.fold_in(tkey, 5), 2).unbind(dim=-2)
+    nil = torch.full(tkey.shape[:-1], NIL, dtype=torch.int32, device=tkey.device)
+
+    def offer(interval: int, key: torch.Tensor) -> torch.Tensor:
+        tgt = threefry.randint(key, (), 0, n)
+        on = interval > 0 and now % interval == 0 and now > 0
+        return tgt if on else nil
+
+    reconfig_cmd = offer(cfg.reconfig_interval, k_rcfg) if cfg.reconfig else nil
+    transfer_cmd = offer(cfg.transfer_interval, k_xfer) if cfg.leader_transfer else nil
+    ri = cfg.read_interval
+    read_on = cfg.read_index and ri > 0 and now % ri == 0
+    read_cmd = torch.ones_like(nil) if read_on else nil
+    return reconfig_cmd, transfer_cmd, read_cmd
+
+
 def make_inputs(cfg: RaftConfig, keys: torch.Tensor, now: int) -> StepInputs:
     """Inputs at tick `now` for the clusters keyed by `keys` ([B, 2]), batch-
     leading ([B, ...]) like `jax.vmap(make_inputs)`. All clusters run in
@@ -165,6 +183,8 @@ def make_inputs(cfg: RaftConfig, keys: torch.Tensor, now: int) -> StepInputs:
         alive = torch.ones((bsz, n), dtype=torch.bool, device=dev)
         restarted = torch.zeros((bsz, n), dtype=torch.bool, device=dev)
 
+    reconfig_cmd, transfer_cmd, read_cmd = _admin_cmds(cfg, tkey, now)
+
     def full(shape, value, dtype=torch.int32):
         return torch.full((bsz,) + shape, value, dtype=dtype, device=dev)
 
@@ -177,9 +197,9 @@ def make_inputs(cfg: RaftConfig, keys: torch.Tensor, now: int) -> StepInputs:
         client_bounce=client_bounce,
         alive=alive,
         restarted=restarted,
-        reconfig_cmd=full((), NIL),
-        transfer_cmd=full((), NIL),
-        read_cmd=full((), NIL),
+        reconfig_cmd=reconfig_cmd,
+        transfer_cmd=transfer_cmd,
+        read_cmd=read_cmd,
         fsync_fire=full((n,), False, torch.bool),
         torn_drop=full((n,), 0),
     )

@@ -63,6 +63,22 @@ CRASH_ROWS = [
 ]
 
 
+# The reconfiguration plane's admin cadences: config8 toggles membership
+# every 97 ticks, transfers every 61 and reads every 7; config9 reads every 3.
+# 250 ticks cross both admin cadences twice (and tick 0, where only a read is
+# offered); the oracle row's 11/13/3 cadences cross many times.
+ADMIN_ROWS = [
+    pytest.param(rst.PRESETS[name][0], 250, id=name) for name in ("config8", "config9")
+] + [
+    pytest.param(
+        rst.RaftConfig(n_nodes=5, log_capacity=8, client_interval=2, reconfig_interval=11,
+                       transfer_interval=13, read_interval=3, drop_prob=0.2, crash_prob=0.4,
+                       crash_period=16, crash_down_ticks=8),
+        120, id="n5-reconfig-plane",
+    ),
+]
+
+
 def _port_cfg(jcfg):
     return tconfig.RaftConfig(**{f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)})
 
@@ -94,24 +110,36 @@ def test_make_inputs_crash_and_redirect_match_jax(jcfg, n_ticks):
     assert restarts > 0  # the schedule really restarted nodes
 
 
+@pytest.mark.parametrize("jcfg,n_ticks", ADMIN_ROWS)
+def test_make_inputs_admin_commands_match_jax(jcfg, n_ticks):
+    cfg = _port_cfg(jcfg)
+    _check_make_inputs(jcfg, list(range(n_ticks)) + [1000, 2**20 + 3])
+    got = tfaults.make_inputs(cfg, threefry.split(threefry.key(0), 2), cfg.read_interval)
+    assert (got.read_cmd == 1).all()  # the read cadence fired
+
+
 @pytest.mark.parametrize(
-    "kw", [dict(crash_prob=0.2), dict(client_redirect=True, client_interval=4, client_pipeline=3)],
-    ids=["crash_prob", "client_redirect"],
+    "kw", [dict(crash_prob=0.2), dict(client_redirect=True, client_interval=4, client_pipeline=3),
+           dict(reconfig_interval=10), dict(transfer_interval=10), dict(read_interval=3)],
+    ids=["crash_prob", "client_redirect", "reconfig", "transfer", "reads"],
 )
 def test_crash_and_redirect_inputs_are_accepted(kw):
-    """The crash schedule and the redirect routing are drawn, not refused."""
+    """The crash schedule, the redirect routing and the admin commands are
+    drawn, not refused; tick 0 offers no toggle and no transfer."""
     cfg = tconfig.RaftConfig(**kw)
     got = tfaults.make_inputs(cfg, threefry.split(threefry.key(0), 2), 0)
     assert got.alive.all() and not got.restarted.any()  # tick 0 is never a restart
     assert got.client_bounce.shape == (2, cfg.client_pipeline)
+    assert (got.reconfig_cmd == -1).all() and (got.transfer_cmd == -1).all()
+    assert (got.read_cmd == (1 if cfg.read_index else -1)).all()
 
 
 @pytest.mark.parametrize(
     "kw,gate",
     [
-        (dict(reconfig_interval=10), "reconfig"),
-        (dict(read_interval=3), "reads"),
         (dict(fsync_interval=3), "durable_storage"),
+        (dict(compact_planes=True), "compact_planes"),
+        (dict(fsync_interval=5, fsync_jitter_prob=0.1), "durable_storage"),
     ],
     ids=lambda x: x if isinstance(x, str) else None,
 )

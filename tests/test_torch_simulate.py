@@ -39,6 +39,10 @@ CASES = [
     pytest.param("config6", 4, 200, id="config6"),
     pytest.param("config6r", 4, 200, id="config6r"),
     pytest.param("config3p", 8, 80, id="config3p"),
+    # Slice 3: config8 past its first transfers (61, 122) and membership
+    # toggle (97); config9's lease reads until its CAP=64 ring wraps.
+    pytest.param("config8", 4, 200, id="config8"),
+    pytest.param("config9", 4, 320, id="config9"),
 ]
 
 
@@ -50,8 +54,11 @@ def test_simulate_matches_jax(name, batch, ticks):
     got_s, got_m = tscan.simulate(tcfg, 7, batch, ticks, device="cpu")
     assert bridge.first_difference(want_s, got_s) is None
     assert bridge.first_difference(want_m, got_m) is None
-    assert tsummarize(got_m)._asdict() == jsummarize(want_m)._asdict()
+    summary = tsummarize(got_m)
+    assert summary._asdict() == jsummarize(want_m)._asdict()
     assert int(got_m.violations.sum()) == 0
+    if tcfg.read_index:  # the read quantiles were computed from real reads
+        assert summary.reads_served > 0 and summary.read_p99 is not None
     if tcfg.compaction:  # every cluster's ring wrapped
         assert int(got_s.log_base.amin()) > 0 and int(got_m.max_commit.amin()) > tcfg.log_capacity
 
@@ -114,7 +121,7 @@ def test_default_device_raises_without_a_card():
 
 @pytest.mark.parametrize(
     "kw,gate",
-    [(dict(reconfig_interval=10), "reconfig"), (dict(read_interval=3), "reads"),
+    [(dict(serve_reads=True), "serve_reads"), (dict(track_trace=True), "track_trace"),
      (dict(fsync_interval=3), "durable_storage")],
     ids=lambda x: x if isinstance(x, str) else None,
 )

@@ -75,6 +75,11 @@ def trajectory(jcfg, batch, ticks, seed, p_down=0.0, step=trb.step_b):
     return led
 
 
+RECONFIG_PLANE = rst.RaftConfig(
+    n_nodes=5, log_capacity=8, client_interval=2, reconfig_interval=11, transfer_interval=13,
+    read_interval=3, drop_prob=0.2, crash_prob=0.4, crash_period=16, crash_down_ticks=8,
+)
+
 ROWS = [
     # tests/test_pallas.py's rows.
     pytest.param(rst.RaftConfig(n_nodes=3, log_capacity=8, max_entries_per_rpc=2), 8, 60, 0.0, id="n3-small"),
@@ -109,6 +114,28 @@ ROWS = [
         dataclasses.replace(rst.PRESETS["config6"][0], log_capacity=8, compact_margin=4,
                             max_entries_per_rpc=2, client_interval=2),
         8, 100, 0.06, id="config6-cap8-fast-wrap-crash-fuzz",
+    ),
+    # The slice-3 presets: config8 (joint-consensus membership, TimeoutNow,
+    # ReadIndex under drop and crashes) past its first toggle (tick 97) and
+    # transfers (61, 122); config9 (lease reads on a compacting ring under
+    # drop and skew) until it compacts.
+    pytest.param(rst.PRESETS["config8"][0], 8, 200, 0.0, id="config8"),
+    pytest.param(rst.PRESETS["config9"][0], 8, 260, 0.0, id="config9"),
+    # tests/test_oracle_parity.py's reconfiguration rows: all three
+    # extensions under drop and crash churn, then crossed with PreVote and a
+    # fast-wrapping ring (the snapshot config context, fold_span).
+    pytest.param(RECONFIG_PLANE, 8, 120, 0.0, id="n5-reconfig-plane"),
+    pytest.param(
+        dataclasses.replace(RECONFIG_PLANE, compact_margin=4, client_interval=1, pre_vote=True),
+        8, 120, 0.0, id="n5-reconfig-prevote-compaction",
+    ),
+    # Crash fuzz on top of the plane, with lease reads and transfers together.
+    pytest.param(
+        rst.RaftConfig(n_nodes=5, log_capacity=8, client_interval=2, reconfig_interval=7,
+                       transfer_interval=5, read_interval=2, read_lease_ticks=3,
+                       election_min_ticks=10, election_range_ticks=6, drop_prob=0.2,
+                       clock_skew_prob=0.2),
+        8, 120, 0.06, id="n5-reconfig-lease-transfer-crash-fuzz",
     ),
 ]
 
@@ -199,6 +226,171 @@ def _jitted_step_b(jcfg):
     return jax.jit(lambda s, i: jrb.step_b(jcfg, s, i))
 
 
+def reconfig_cases():
+    """Short runs from the one-tick states of the JAX package's own
+    reconfiguration and lease tests (tests/test_reconfig.py,
+    tests/test_lease.py): {name: (JAX cfg, unbatched JAX state, [JAX
+    StepInputs per tick])}. The states are built exactly as those tests
+    build them."""
+    from raft_sim_tpu.types import CANDIDATE, LEADER, REQ_VOTE
+    from tests import test_lease as tl
+    from tests import test_reconfig as tr
+
+    cases = {}
+    full = lambda n, v: jnp.full((n,), v, jnp.int32)  # noqa: E731
+
+    # The log-carried joint lifecycle and the removed leader's stepdown
+    # (test_reconfig.py:160): the toggle, then replication, the final entry
+    # and the stepdown over 16 quiet ticks.
+    n = 5
+    cfg = rst.RaftConfig(n_nodes=n, log_capacity=8, reconfig_interval=1000)
+    s = rst.init_state(cfg, jax.random.key(0))
+    s = s._replace(
+        role=s.role.at[0].set(LEADER), term=full(n, 2), leader_id=full(n, 0),
+        ack_age=jnp.zeros((n, n), s.ack_age.dtype), deadline=s.deadline.at[0].set(1),
+    )
+    q = tr._quiet_inputs(cfg)
+    cases["joint-lifecycle-and-stepdown"] = (
+        cfg, s, [tr._quiet_inputs(cfg, reconfig_cmd=jnp.int32(0))] + [q] * 16)
+
+    # Origination refused while joint, and below two voters (:213).
+    n = 3
+    cfg = rst.RaftConfig(n_nodes=n, log_capacity=8, reconfig_interval=1000)
+    s = rst.init_state(cfg, jax.random.key(0))
+    s = s._replace(role=s.role.at[0].set(LEADER), term=full(n, 2),
+                   member_new=tr._mask_rows(n, {0, 1}), cfg_pend=full(n, 1000))
+    cmd = [tr._quiet_inputs(cfg, reconfig_cmd=jnp.int32(1))]
+    cases["refused-while-joint"] = (cfg, s, cmd)
+    cases["refused-below-two-voters"] = (
+        cfg, s._replace(cfg_pend=full(n, 0), member_old=tr._mask_rows(n, {0, 1})), cmd)
+
+    # A transfer parks, refuses a client command and fires TimeoutNow (:308).
+    n = 5
+    cfg = rst.RaftConfig(n_nodes=n, log_capacity=8, transfer_interval=1000, client_interval=4)
+    s = rst.init_state(cfg, jax.random.key(0))
+    s = s._replace(
+        role=s.role.at[0].set(LEADER), term=full(n, 2), leader_id=full(n, 0),
+        ack_age=jnp.zeros((n, n), s.ack_age.dtype), deadline=s.deadline.at[0].set(1),
+    )
+    q = tr._quiet_inputs(cfg)
+    cases["transfer-fire"] = (
+        cfg, s, [tr._quiet_inputs(cfg, transfer_cmd=jnp.int32(3), client_cmd=jnp.int32(77))]
+        + [q] * 3)
+
+    # A transfer accepted, fired and won while the joint phase stays open (:337).
+    cfg = rst.RaftConfig(n_nodes=n, log_capacity=8, reconfig_interval=1000,
+                         transfer_interval=1000, client_interval=4)
+    s = rst.init_state(cfg, jax.random.key(0))
+    s = s._replace(
+        role=s.role.at[0].set(LEADER), term=full(n, 2), leader_id=full(n, 0),
+        ack_age=jnp.zeros((n, n), s.ack_age.dtype), deadline=s.deadline.at[0].set(1),
+        log_term=s.log_term.at[:, 0].set(1), log_cfg=s.log_cfg.at[:, 0].set(4 + 1),
+        log_len=jnp.ones((n,), s.log_len.dtype), match_index=s.match_index.at[0, :].set(1),
+        next_index=s.next_index.at[0, :].set(2), member_new=tr._mask_rows(n, {0, 1, 2, 3}),
+        cfg_pend=full(n, 1), cfg_epoch=full(n, 1),
+    )
+    q = tr._quiet_inputs(cfg)
+    cases["transfer-during-joint"] = (
+        cfg, s, [tr._quiet_inputs(cfg, transfer_cmd=jnp.int32(1))] + [q] * 4)
+
+    # The transfer's sanctioned RequestVote overrides the lease denial; a
+    # plain election under the same armed denial gets no grant (:410).
+    cfg = rst.RaftConfig(n_nodes=n, log_capacity=8, client_interval=2, read_interval=3,
+                         election_min_ticks=12, election_range_ticks=6, read_lease_ticks=4,
+                         transfer_interval=1000)
+    s = rst.init_state(cfg, jax.random.key(0))
+    s = s._replace(
+        role=s.role.at[0].set(LEADER), term=full(n, 2), leader_id=full(n, 0),
+        ack_age=jnp.zeros((n, n), s.ack_age.dtype), heard_clock=full(n, 0),
+        deadline=s.deadline.at[0].set(1),
+    )
+    q = tr._quiet_inputs(cfg)
+    cases["transfer-overrides-lease-denial"] = (
+        cfg, s, [tr._quiet_inputs(cfg, transfer_cmd=jnp.int32(2))] + [q] * 3)
+    s = s._replace(role=s.role.at[3].set(CANDIDATE), term=s.term.at[3].set(3),
+                   voted_for=s.voted_for.at[3].set(3), votes=s.votes.at[3].set(tr._mask(n, {3})),
+                   deadline=s.deadline.at[3].set(1))
+    cases["plain-election-denied-under-lease"] = (cfg, s, [q] * 3)
+
+    # Read confirmation judged on the tick-start (joint) config at a joint
+    # exit (:484).
+    cfg = rst.RaftConfig(n_nodes=n, log_capacity=8, reconfig_interval=1000, read_interval=1000)
+    s = rst.init_state(cfg, jax.random.key(0))
+    s = s._replace(
+        role=s.role.at[0].set(LEADER), term=full(n, 2), leader_id=full(n, 0),
+        member_old=tr._mask_rows(n, {0, 1, 2, 3}), member_new=tr._mask_rows(n, {0, 1, 2, 3, 4}),
+        cfg_pend=full(n, 1), read_idx=s.read_idx.at[0].set(1), read_tick=s.read_tick.at[0].set(1),
+        read_acks=s.read_acks.at[0].set(tr._mask(n, {1, 4})),
+    )
+    cases["tick-start-config-at-joint-exit"] = (cfg, s, [tr._quiet_inputs(cfg)])
+
+    # Leases (test_lease.py:102-161): the one-tick serve, an expired lease,
+    # a stale serve and its legal twin, the vote denial and its expiry and
+    # restart wipe.
+    lcfg = tl.LCFG
+    q = tl._quiet_inputs(lcfg)
+    read = tl._quiet_inputs(lcfg, read_cmd=jnp.int32(1))
+    cases["lease-one-tick-serve"] = (lcfg, tl._leader_state(lcfg), [read, q])
+    cases["lease-expired"] = (lcfg, tl._leader_state(lcfg, ack_age_val=50), [read] + [q] * 3)
+    base = tl._leader_state(lcfg)
+    pending = dict(read_idx=base.read_idx.at[0].set(2), read_tick=base.read_tick.at[0].set(1))
+    cases["lease-stale-serve"] = (lcfg, base._replace(**pending, read_fr=base.read_fr.at[0].set(3)), [q])
+    cases["lease-legal-serve"] = (lcfg, base._replace(**pending, read_fr=base.read_fr.at[0].set(1)), [q])
+    s = rst.init_state(lcfg, jax.random.key(1))
+    mb = s.mailbox
+    s = s._replace(
+        term=full(n, 2), role=s.role.at[1].set(CANDIDATE), deadline=full(n, 10_000),
+        heard_clock=full(n, 0),
+        mailbox=mb._replace(req_type=mb.req_type.at[1].set(REQ_VOTE),
+                            req_term=mb.req_term.at[1].set(2)),
+    )
+    cases["lease-vote-denial"] = (lcfg, s, [q])
+    cases["lease-vote-after-window"] = (lcfg, s._replace(heard_clock=full(n, -50)), [q])
+    cases["lease-vote-restart-wipe"] = (
+        lcfg, s, [tl._quiet_inputs(lcfg, restarted=jnp.asarray([False, False, True, False, False]))])
+    return cases
+
+
+RECONFIG_CASES = [
+    "joint-lifecycle-and-stepdown", "refused-while-joint", "refused-below-two-voters",
+    "transfer-fire", "transfer-during-joint", "transfer-overrides-lease-denial",
+    "plain-election-denied-under-lease", "tick-start-config-at-joint-exit",
+    "lease-one-tick-serve", "lease-expired", "lease-stale-serve", "lease-legal-serve",
+    "lease-vote-denial", "lease-vote-after-window", "lease-vote-restart-wipe",
+]
+
+
+@functools.lru_cache(maxsize=1)
+def _reconfig_cases():
+    return reconfig_cases()
+
+
+def reconfig_case_batch(name):
+    """(JAX cfg, JAX batch-minor state, [JAX batch-minor inputs]) of one case, B=1."""
+    jcfg, s, inps = _reconfig_cases()[name]
+    lift = lambda t: jax.tree.map(lambda x: jnp.asarray(x)[..., None], t)  # noqa: E731
+    return jcfg, lift(s), [lift(i) for i in inps]
+
+
+@pytest.mark.parametrize("name", RECONFIG_CASES)
+def test_plain_step_matches_jax_on_reconfig_and_lease_states(name):
+    """The plain tick against JAX `step_b` every tick of each case's run,
+    from the JAX state of the tick before."""
+    jcfg, st, inps = reconfig_case_batch(name)
+    cfg = _port_cfg(jcfg)
+    jstep = _jitted_step_b(jcfg)
+    for t, inp in enumerate(inps):
+        st2, info = jstep(st, inp)
+        want_s, want_i = jax.device_get((st2, info))
+        s_np, i_np = jax.device_get((st, inp))
+        got_s, got_i = trb.step_b(
+            cfg, bridge.to_port(s_np, ttypes.ClusterState), bridge.to_port(i_np, ttypes.StepInputs)
+        )
+        diff = bridge.first_difference(want_s, got_s) or bridge.first_difference(want_i, got_i)
+        assert diff is None, f"{name} tick {t}: {diff}"
+        st = st2
+
+
 def test_step_cuda_on_cpu_tensors_is_the_plain_step():
     """step_cuda dispatches CPU tensors to the plain tick (no kernel launch)."""
     before = tick_engine.step_cuda.launches
@@ -260,15 +452,51 @@ def test_plain_step_matches_step_pallas_interpret_compaction_prevote():
     assert bridge.first_difference(want_i, got_i) is None
 
 
+LEASE_KW = dict(client_interval=4, read_interval=3, election_min_ticks=12, read_lease_ticks=4)
+
+
+def test_plain_step_matches_step_pallas_interpret_reconfig_plane():
+    """K1 on the reconfiguration plane: step_pallas (interpret mode) on
+    config8, two ticks from a state past the first transfer and membership
+    toggle (ticks 61 and 97), with config entries, TimeoutNow and pending
+    reads in the logs and mailboxes."""
+    jcfg = rst.PRESETS["config8"][0]
+    cfg = _port_cfg(jcfg)
+    B = 4
+    st = jrb.to_batch_minor(rst.init_batch(jcfg, jax.random.key(7), B))
+    keys = jax.random.split(jax.random.key(8), B)
+    jstep = _jitted_step_b(jcfg)
+    draw = jax.jit(
+        lambda k, now: jrb.to_batch_minor(jax.vmap(lambda kk: jfaults.make_inputs(jcfg, kk, now))(k))
+    )
+    for t in range(100):
+        st = jstep(st, draw(keys, jnp.int32(t)))[0]
+    assert int(np.asarray(st.cfg_epoch).max()) > 0  # a config entry was appended
+    for t in range(100, 102):
+        inp = draw(keys, jnp.int32(t))
+        want_s, want_i = jax.device_get(pallas_engine.step_pallas(jcfg, st, inp, block_b=4, interpret=True))
+        s_np, i_np = jax.device_get((st, inp))
+        got_s, got_i = trb.step_b(
+            cfg, bridge.to_port(s_np, ttypes.ClusterState), bridge.to_port(i_np, ttypes.StepInputs), t
+        )
+        assert bridge.first_difference(want_s, got_s) is None, t
+        assert bridge.first_difference(want_i, got_i) is None, t
+        st = jstep(st, inp)[0]
+
+
 @pytest.mark.parametrize(
     "kw",
     [dict(pre_vote=True), dict(compact_margin=4, log_capacity=16),
-     dict(client_redirect=True, client_interval=4, client_pipeline=5)],
-    ids=["pre_vote", "compaction", "client_redirect"],
+     dict(client_redirect=True, client_interval=4, client_pipeline=5),
+     dict(reconfig_interval=10), dict(transfer_interval=10), dict(read_interval=3), LEASE_KW,
+     dict(reconfig_interval=10, compact_margin=4, log_capacity=16)],
+    ids=["pre_vote", "compaction", "client_redirect", "reconfig", "transfer", "reads", "lease",
+         "reconfig-under-compaction"],
 )
-def test_slice2_gates_are_accepted(kw):
-    """PreVote, compaction and the redirect client run through both the plain
-    tick and the kernel's gate check."""
+def test_ported_gates_are_accepted(kw):
+    """PreVote, compaction, the redirect client and the reconfiguration plane
+    (membership, transfer, reads, leases; membership under compaction) run
+    through both the plain tick and the kernel's gate check."""
     cfg = tconfig.RaftConfig(**kw)
     assert trb.unsupported_gates(cfg) == []
     tick_engine.check_supported(cfg)
@@ -281,23 +509,42 @@ def test_slice2_gates_are_accepted(kw):
     assert int(s2.now[0]) == 1
 
 
+@dataclasses.dataclass(frozen=True)
+class _SingleServerChange(tconfig.RaftConfig):
+    """A TEST-ONLY mutant config: membership changes without a joint phase."""
+
+    @property
+    def joint_consensus(self) -> bool:
+        return False
+
+
+@dataclasses.dataclass(frozen=True)
+class _LeaseSkewUnsafe(tconfig.RaftConfig):
+    """A TEST-ONLY mutant config: the lease window ignores clock skew."""
+
+    @property
+    def lease_skew_safe(self) -> bool:
+        return False
+
+
 @pytest.mark.parametrize(
     "kw,gate",
     [
         (dict(compact_margin=4, log_capacity=16, check_log_matching=True),
          "log matching under compaction"),
-        (dict(reconfig_interval=10), "reconfig"),
-        (dict(transfer_interval=10), "transfer"),
-        (dict(read_interval=3), "reads"),
+        (dict(serve_reads=True), "serve_reads"),
+        (dict(cls=_SingleServerChange, reconfig_interval=10), "mutant hook joint_consensus"),
         (dict(fsync_interval=3), "durable_storage"),
         (dict(compact_planes=True), "compact_planes"),
         (dict(track_trace=True), "track_trace"),
         (dict(serve_ingest=True), "serve_ingest"),
+        (dict(cls=_LeaseSkewUnsafe, **LEASE_KW), "mutant hook lease_skew_safe"),
     ],
     ids=lambda x: x if isinstance(x, str) else None,
 )
 def test_unsupported_gates_raise(kw, gate):
-    cfg = tconfig.RaftConfig(**kw)
+    kw = dict(kw)
+    cfg = kw.pop("cls", tconfig.RaftConfig)(**kw)
     base = tconfig.RaftConfig()
     s = trb.to_batch_minor(ttypes.init_batch(base, torch.tensor([0, 1]), 2))
     with pytest.raises(NotImplementedError, match=gate):

@@ -26,7 +26,7 @@ from raft_sim_tpu_torch.models import raft_batched as trb
 from raft_sim_tpu_torch.sim import faults
 from raft_sim_tpu_torch.utils import config as tconfig
 from raft_sim_tpu_torch.utils import threefry
-from tests.test_torch_step import HAND_BUILT, hand_built_batch
+from tests.test_torch_step import HAND_BUILT, RECONFIG_CASES, hand_built_batch, reconfig_case_batch
 
 torch.set_num_threads(1)
 
@@ -104,6 +104,34 @@ ROWS = [
                            ack_timeout_ticks=200),
         6, 120, 0.05, id="n7-compaction-prevote-no-invariants-ack-int16",
     ),
+    # The slice-3 presets, then the reconfiguration plane under crash fuzz:
+    # with PreVote on a fast-wrapping ring (the snapshot config context), with
+    # leases and transfers together, and at N=33 (two packed words per
+    # member row) with the redirect client.
+    pytest.param(tconfig.PRESETS["config8"][0], 8, 200, 0.0, id="config8"),
+    pytest.param(tconfig.PRESETS["config9"][0], 7, 260, 0.0, id="config9-ragged-b7"),
+    pytest.param(
+        tconfig.RaftConfig(n_nodes=5, log_capacity=8, compact_margin=4, client_interval=1,
+                           reconfig_interval=11, transfer_interval=13, read_interval=3,
+                           pre_vote=True, drop_prob=0.2, crash_prob=0.4, crash_period=16,
+                           crash_down_ticks=8),
+        8, 150, 0.05, id="n5-reconfig-prevote-compaction-crash-fuzz",
+    ),
+    pytest.param(
+        tconfig.RaftConfig(n_nodes=5, log_capacity=8, client_interval=2, reconfig_interval=7,
+                           transfer_interval=5, read_interval=2, read_lease_ticks=3,
+                           election_min_ticks=10, election_range_ticks=6, drop_prob=0.2,
+                           clock_skew_prob=0.2),
+        8, 150, 0.06, id="n5-reconfig-lease-transfer-crash-fuzz",
+    ),
+    pytest.param(
+        tconfig.RaftConfig(n_nodes=33, log_capacity=12, compact_margin=3, max_entries_per_rpc=3,
+                           client_interval=2, client_redirect=True, client_pipeline=3,
+                           reconfig_interval=5, transfer_interval=7, read_interval=2,
+                           read_lease_ticks=2, election_min_ticks=8, election_range_ticks=6,
+                           drop_prob=0.1),
+        3, 120, 0.03, id="n33-reconfig-lease-redirect-compaction-crash-fuzz",
+    ),
 ]
 
 
@@ -146,6 +174,23 @@ def test_tick_body_matches_plain_step_on_hand_built_compaction_states(host_lib, 
         s = want[0]
 
 
+@pytest.mark.parametrize("name", RECONFIG_CASES)
+def test_tick_body_matches_plain_step_on_reconfig_and_lease_states(host_lib, name):
+    """The joint lifecycle, origination refusals, transfers, the tick-start
+    config at a joint exit and the lease cases of tests/test_torch_step.py,
+    each tick of each run."""
+    jcfg, st, inps = reconfig_case_batch(name)
+    cfg = tconfig.RaftConfig(**{f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)})
+    s = bridge.to_port(jax.device_get(st), ttypes.ClusterState)
+    for t, inp in enumerate(inps):
+        inp = bridge.to_port(jax.device_get(inp), ttypes.StepInputs)
+        want = trb.step_b(cfg, s, inp)
+        got = tick_engine.step_host(host_lib, cfg, s, inp)
+        diff = bridge.first_difference(want[0], got[0]) or bridge.first_difference(want[1], got[1])
+        assert diff is None, f"{name} tick {t}: {diff}"
+        s = want[0]
+
+
 def test_wrapper_rejects_bad_leaves(host_lib):
     cfg = tconfig.PRESETS["config2"][0]
     s = trb.to_batch_minor(ttypes.init_batch(cfg, threefry.key(0), 4))
@@ -177,6 +222,11 @@ def test_wrapper_rejects_bad_leaves(host_lib):
         ("config6", (3_067, 3_104)),
         ("config6r", (3_151, 3_164)),
         ("config3p", (2_127, 2_120)),
+        # The reconfiguration plane: config8 adds the member rows, the config
+        # plane, the transfer and read legs and the admin inputs; config9 the
+        # read legs, the lease anchor and heard_clock on config6's ring.
+        ("config8", (6_389, 6_402)),
+        ("config9", (5_091, 5_197)),
     ],
 )
 def test_traffic_bytes_pinned(name, per_cluster):
@@ -205,3 +255,44 @@ def test_gated_legs_follow_the_config():
     assert {f for _, f in redirect} == {
         "client_pend", "client_dst", "client_tick", "client_target", "client_bounce",
     }
+    # Reconfig on the plain log: the member rows and config plane both ways,
+    # cfg_epoch written only, the snapshot context read only (it moves only
+    # under compaction), heard_clock for the vote denial.
+    plain5 = tconfig.RaftConfig(n_nodes=5, log_capacity=8, client_interval=2)
+    rcf = live(dataclasses.replace(plain5, reconfig_interval=9)) - live(plain5)
+    assert rcf == {
+        ("state", "member_old"), ("state_out", "member_old"),
+        ("state", "member_new"), ("state_out", "member_new"),
+        ("state", "cfg_pend"), ("state_out", "cfg_pend"),
+        ("state", "log_cfg"), ("state_out", "log_cfg"),
+        ("mailbox", "ent_cfg"), ("mailbox_out", "ent_cfg"),
+        ("state_out", "cfg_epoch"), ("state", "base_mold"), ("state", "base_pend"),
+        ("state", "base_epoch"), ("inputs", "reconfig_cmd"),
+        ("state", "heard_clock"), ("state_out", "heard_clock"),
+    }
+    # ...and under compaction the snapshot context moves and rides the header.
+    comp5 = dataclasses.replace(plain5, compact_margin=2)
+    rcf_comp = live(dataclasses.replace(comp5, reconfig_interval=9)) - live(comp5)
+    assert rcf_comp - rcf == {
+        ("state_out", "base_mold"), ("state_out", "base_pend"), ("state_out", "base_epoch"),
+        ("mailbox", "req_base_mold"), ("mailbox_out", "req_base_mold"),
+        ("mailbox", "req_base_pend"), ("mailbox_out", "req_base_pend"),
+        ("mailbox", "req_base_epoch"), ("mailbox_out", "req_base_epoch"),
+    }
+    # Transfer alone: its own legs; the disruption flag only beside a denial gate.
+    xfr = live(dataclasses.replace(plain5, transfer_interval=9)) - live(plain5)
+    assert {f for _, f in xfr} == {"xfer_to", "xfer_tgt", "transfer_cmd"}
+    xfr_rcf = live(dataclasses.replace(plain5, transfer_interval=9, reconfig_interval=9))
+    assert xfr_rcf - live(dataclasses.replace(plain5, reconfig_interval=9)) - xfr == {
+        ("mailbox", "req_disrupt"), ("mailbox_out", "req_disrupt"),
+    }
+    # ReadIndex reads, then leases on top.
+    reads = live(dataclasses.replace(plain5, read_interval=3)) - live(plain5)
+    assert {f for _, f in reads} == {
+        "read_idx", "read_tick", "read_acks", "read_cmd", "reads_served", "read_lat_sum",
+        "read_hist",
+    }
+    lease_cfg = dataclasses.replace(plain5, read_interval=3, read_lease_ticks=2,
+                                    election_min_ticks=8)
+    lease = live(lease_cfg) - live(dataclasses.replace(plain5, read_interval=3))
+    assert {f for _, f in lease} == {"read_fr", "viol_read_stale", "heard_clock"}
