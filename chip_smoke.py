@@ -10,8 +10,8 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    seconds and the compiler's register/stack/spill report per instantiation.
 2. kernel_vs_plain -- presets config1-config5 and config3p for 96 ticks,
    config6 and config6r for 400 (their CAP=32 rings wrap near tick 130),
-   config8 and config9 for 400, at a batch of 200 (one full block and a
-   ragged edge; config1 at its batch of 1), plus config6-cap8 (config6 on an
+   config8, config9 and config10 for 400, at a batch of 200 (one full block
+   and a ragged edge; config1 at its batch of 1), plus config6-cap8 (config6 on an
    8-slot ring with 2-entry windows and an offer every 2 ticks) for 200
    ticks: every tick, the kernel (`step_cuda`) on the card equals the plain
    PyTorch tick (`raft_batched.step_b`) on the card from the same state and
@@ -28,25 +28,36 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    sent, transfer-sanctioned RequestVotes (req_disrupt), reads served at
    config8 and one-tick (lease) reads at config9 -- and requires each above
    0; config rollbacks (cfg_epoch falling) and removed-leader stepdowns are
-   reported, not required.
+   reported, not required. Over config10 it counts the slice-4 events --
+   completed flushes (a node's dur_len rising), recoveries that cut a torn
+   log to max(dur_len, log_len - torn_drop), term/vote rewinds to the durable
+   snapshot, late vote responses and AppendEntries acks held at the
+   watermark -- and requires each above 0 (jitter stalls are reported); every
+   tick, every node's dur_len must stay at or below its log_len.
 3. card_vs_cpu -- the port's `simulate` on the card equals the port on the CPU
-   (config2, config4 at 64 x 100; config6r, config3p, config8, config9 at
-   64 x 200). The CPU tests hold the CPU port equal to the JAX package.
+   (config2, config4 at 64 x 100; config6r, config3p, config8, config9,
+   config10 at 64 x 200). The CPU tests hold the CPU port equal to the JAX
+   package.
 4. full_width -- the main path, `simulate` at the presets' own batch through the
-   kernel: config2, config6, config6r, config8 and config9 at 1,000
-   clusters, config3, config3p and config4 at 100,000 for 1,000 ticks,
+   kernel: config2, config6, config6r, config8, config9 and config10 at
+   1,000 clusters, config3, config3p and config4 at 100,000 for 1,000 ticks,
    config5 at 10,000 for 200. Launch counts are zeroed just before each run
    and read just after; each must equal the tick count. Every run must have
    zero invariant violations (stale lease reads included) and a leader
    elected in every cluster, the client presets a commit in every cluster,
    config6/config6r/config9 every cluster's max commit above CAP (its ring
-   wrapped), and config8/config9 reads served in every cluster. Then, from
-   the run's final state: FULL_HOLD_TICKS ticks
+   wrapped), config8/config9 reads served in every cluster, and config10 an
+   fsync lag in every cluster and dur_len <= log_len on every node of the
+   final state. Then, from the run's final state: FULL_HOLD_TICKS ticks
    of kernel == plain tick at full width (state and StepInfo, exact), kernel
    ms/tick (CUDA events) against its bound (bytes read + written over
    3.35 TB/s), and ms/tick for input generation, the wrapped step, the plain
    step and the metric fold (host clock to a synchronize).
-5. The kernels line, the card's name and power limit, and the result line.
+5. bench_row -- the port's bench (raft_sim_tpu_torch/bench.py) on config2 at
+   64 x 200 ticks, 3 quality seeds and 2 repeats, on the card and on the CPU:
+   every quality field equal; the card's row carries backend "cuda", the
+   card's name and its power limit.
+6. The kernels line, the card's name and power limit, and the result line.
 
 Exits 2 without a result when torch sees no CUDA device. It imports nothing of
 jax and nothing of the JAX package.
@@ -57,7 +68,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -93,7 +103,80 @@ def wall_ms(fn, reps: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
+# The slice-4 events phase 2 requires above 0 on config10 (jitter stalls are
+# reported only).
+SLICE4_REQUIRED = ("flushes", "torn_cuts", "rewinds", "late_votes", "ack_clamps")
+
+
+def count_events(cfg, t, s, inp, new, info, ev) -> None:
+    """Add one tick's events to the Counter `ev`: restarts drawn, compactions
+    (log_base advanced), InstallSnapshot sentinels sent and redirect bounces
+    to a down target; on the reconfiguration plane config entries appended,
+    rollbacks, joint exits, removed-leader stepdowns, TimeoutNow requests,
+    transfer-sanctioned RequestVotes and reads served (all, and in one tick);
+    on the storage plane completed flushes, recoveries that cut a torn log,
+    term/vote rewinds, late vote responses, acks held at the watermark and
+    jitter stalls. `s`/`inp` are the tick's batch-minor state and inputs,
+    `new`/`info` its results. Raises if a node's dur_len passes its log_len."""
+    import torch
+    from raft_sim_tpu_torch import types as T
+    from raft_sim_tpu_torch.ops import bitplane
+
+    ev["restarts"] += int(inp.restarted.sum())
+    if cfg.reconfig:
+        ev["config_appends"] += int((new.cfg_epoch > s.cfg_epoch).sum())
+        ev["config_rollbacks"] += int((new.cfg_epoch < s.cfg_epoch).sum())
+        ev["joint_exits"] += int(((s.cfg_pend > 0) & (new.cfg_pend == 0)).sum())
+        ids = torch.arange(cfg.n_nodes, device=s.role.device)[:, None]
+        member = bitplane.unpack(new.member_old | new.member_new, cfg.n_nodes, axis=1)
+        self_in = torch.gather(member, 1, ids.expand(-1, s.role.shape[-1])[:, None]).squeeze(1)
+        ev["removed_leader_stepdowns"] += int(
+            ((s.role == T.LEADER) & (new.role == T.FOLLOWER) & (new.term == s.term)
+             & ~inp.restarted & ~self_in).sum())
+    if cfg.leader_transfer:
+        ev["timeout_now_sent"] += int((new.mailbox.req_type == T.REQ_TIMEOUT_NOW).sum())
+        ev["sanctioned_votes"] += int(
+            ((new.mailbox.req_disrupt != 0) & (new.mailbox.req_type == T.REQ_VOTE)).sum())
+    if cfg.read_index:
+        ev["reads_served"] += int(info.reads_served.sum())
+        ev["one_tick_reads"] += int(info.read_hist[0].sum())
+    if cfg.compaction:
+        ev["compactions"] += int((new.log_base > s.log_base).sum())
+        sentinel = (new.mailbox.req_type == T.REQ_APPEND)[:, None, :] & (new.mailbox.req_off == -1)
+        ev["snapshot_sentinels"] += int(sentinel.sum())
+    if cfg.client_redirect:
+        # The offer each slot held in phase 6: a fresh offer takes the first
+        # free slot; an offer still pending after a tick whose target node
+        # was down bounced.
+        free = s.client_pend == T.NIL
+        fresh = (inp.client_cmd != T.NIL)[None] & free & (free.to(torch.int32).cumsum(0) == 1)
+        tgt = torch.where(fresh, inp.client_target[None], s.client_dst).long()
+        down = ~torch.gather(inp.alive, 0, tgt)
+        ev["redirect_bounces"] += int(((new.client_pend != T.NIL) & down).sum())
+    if cfg.durable_storage:
+        if bool((new.dur_len > new.log_len).any()):
+            raise AssertionError(f"tick {t}: a node's dur_len passed its log_len")
+        rs, torn = inp.restarted, inp.torn_drop
+        ev["flushes"] += int((new.dur_len > s.dur_len).sum())
+        # A restarted node receives nothing and appends nothing on its
+        # restart tick, so its new log length is the recovered one.
+        rec = torch.maximum(s.dur_len, s.log_len - torn)
+        ev["torn_cuts"] += int((rs & (torn > 0) & (new.log_len == rec) & (rec < s.log_len)).sum())
+        ev["rewinds"] += int((rs & ((s.term != s.dur_term) | (s.voted_for != s.dur_vote))).sum())
+        # A vote response to a node that sent no RequestVote last tick.
+        mb, mb2 = s.mailbox, new.mailbox
+        late = (mb2.resp_kind == T.RESP_VOTE) & (mb.req_type != T.REQ_VOTE)[:, None, :]
+        ev["late_votes"] += int(late.sum())
+        acked = mb2.a_ok_to.to(torch.int32) != T.NIL
+        held = acked & (mb2.a_match.to(torch.int32) == new.dur_len) & (new.dur_len < new.log_len)
+        ev["ack_clamps"] += int(held.sum())
+        if t % cfg.fsync_interval == 0:
+            ev["jitter_stalls"] += int((inp.alive & ~inp.fsync_fire).sum())
+
+
 def main() -> int:
+    import collections
+
     import torch
 
     if not torch.cuda.is_available():
@@ -102,9 +185,8 @@ def main() -> int:
     sys.path.insert(0, HERE)
     import raft_sim_tpu_torch
     from raft_sim_tpu_torch.kernels import tick_engine
-    from raft_sim_tpu_torch import types as T
+    from raft_sim_tpu_torch import bench
     from raft_sim_tpu_torch.models import raft_batched
-    from raft_sim_tpu_torch.ops import bitplane
     from raft_sim_tpu_torch.sim import faults, scan
     from raft_sim_tpu_torch.summary import summarize
     from raft_sim_tpu_torch.types import init_batch
@@ -117,10 +199,7 @@ def main() -> int:
     t_start = time.perf_counter()
 
     # ---- 1: device and build ---------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = bench.card_line()
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count()})
@@ -138,7 +217,7 @@ def main() -> int:
     def hold_ticks(cfg, s, keys, t0: int, n: int, what: str, events=None):
         """`n` ticks from batch-minor state `s`: each tick the kernel equals
         the plain tick on the card, state and StepInfo, leaf for leaf.
-        `events`, a dict, accumulates the slice-2 and slice-3 event counts."""
+        `events`, a Counter, accumulates the slice-2/3/4 event counts."""
         for t in range(t0, t0 + n):
             inp = raft_batched.to_batch_minor(faults.make_inputs(cfg, keys, t))
             ref_s, ref_i = raft_batched.step_b(cfg, s, inp, t)
@@ -146,48 +225,9 @@ def main() -> int:
             check_equal(ref_s, got_s, f"{what} tick {t}: step_cuda state != step_b")
             check_equal(ref_i, got_i, f"{what} tick {t}: step_cuda StepInfo != step_b")
             if events is not None:
-                count_events(cfg, s, inp, got_s, got_i, events)
+                count_events(cfg, t, s, inp, got_s, got_i, events)
             s = got_s
         return s
-
-    def count_events(cfg, s, inp, new, info, ev):
-        """One tick's restarts drawn, compactions (log_base advanced),
-        InstallSnapshot sentinels sent and redirect bounces to a down target;
-        and on the reconfiguration plane config entries appended, rollbacks,
-        joint exits, removed-leader stepdowns, TimeoutNow requests,
-        transfer-sanctioned RequestVotes and reads served (all, and in one
-        tick)."""
-        ev["restarts"] += int(inp.restarted.sum())
-        if cfg.reconfig:
-            ev["config_appends"] += int((new.cfg_epoch > s.cfg_epoch).sum())
-            ev["config_rollbacks"] += int((new.cfg_epoch < s.cfg_epoch).sum())
-            ev["joint_exits"] += int(((s.cfg_pend > 0) & (new.cfg_pend == 0)).sum())
-            ids = torch.arange(cfg.n_nodes, device=s.role.device)[:, None]
-            member = bitplane.unpack(new.member_old | new.member_new, cfg.n_nodes, axis=1)
-            self_in = torch.gather(member, 1, ids.expand(-1, s.role.shape[-1])[:, None]).squeeze(1)
-            ev["removed_leader_stepdowns"] += int(
-                ((s.role == T.LEADER) & (new.role == T.FOLLOWER) & (new.term == s.term)
-                 & ~inp.restarted & ~self_in).sum())
-        if cfg.leader_transfer:
-            ev["timeout_now_sent"] += int((new.mailbox.req_type == T.REQ_TIMEOUT_NOW).sum())
-            ev["sanctioned_votes"] += int(
-                ((new.mailbox.req_disrupt != 0) & (new.mailbox.req_type == T.REQ_VOTE)).sum())
-        if cfg.read_index:
-            ev["reads_served"] += int(info.reads_served.sum())
-            ev["one_tick_reads"] += int(info.read_hist[0].sum())
-        if cfg.compaction:
-            ev["compactions"] += int((new.log_base > s.log_base).sum())
-            sentinel = (new.mailbox.req_type == T.REQ_APPEND)[:, None, :] & (new.mailbox.req_off == -1)
-            ev["snapshot_sentinels"] += int(sentinel.sum())
-        if cfg.client_redirect:
-            # The offer each slot held in phase 6: a fresh offer takes the
-            # first free slot; an offer still pending after a tick whose
-            # target node was down bounced.
-            free = s.client_pend == T.NIL
-            fresh = (inp.client_cmd != T.NIL)[None] & free & (free.to(torch.int32).cumsum(0) == 1)
-            tgt = torch.where(fresh, inp.client_target[None], s.client_dst).long()
-            down = ~torch.gather(inp.alive, 0, tgt)
-            ev["redirect_bounces"] += int(((new.client_pend != T.NIL) & down).sum())
 
     # Every comparison below raises on the first differing leaf, so an exact
     # match (max |err| 0) is what reaching the kernels line means.
@@ -204,7 +244,8 @@ def main() -> int:
                ("config6-cap8", dataclasses.replace(cfg6, log_capacity=8, compact_margin=4,
                                                     max_entries_per_rpc=2, client_interval=2),
                 200, 200),
-               ("config8", PRESETS["config8"][0], 200, 400), ("config9", PRESETS["config9"][0], 200, 400)]
+               ("config8", PRESETS["config8"][0], 200, 400), ("config9", PRESETS["config9"][0], 200, 400),
+               ("config10", PRESETS["config10"][0], 200, 400)]
     events = {"restarts": 0, "compactions": 0, "snapshot_sentinels": 0, "redirect_bounces": 0}
     slice3 = {"config_appends": 0, "joint_exits": 0, "timeout_now_sent": 0, "sanctioned_votes": 0,
               "reads_served_config8": 0, "one_tick_reads_config9": 0,
@@ -212,11 +253,11 @@ def main() -> int:
     for name, cfg, batch, ticks in parity:
         s = raft_batched.to_batch_minor(init_batch(cfg, threefry.key(SEED, dev), batch))
         keys = threefry.split(threefry.key(SEED + 1, dev), batch)
-        ev = dict.fromkeys(events, 0)
-        ev.update(config_appends=0, config_rollbacks=0, joint_exits=0, removed_leader_stepdowns=0,
-                  timeout_now_sent=0, sanctioned_votes=0, reads_served=0, one_tick_reads=0)
+        ev = collections.Counter()
         hold_ticks(cfg, s, keys, 0, ticks, name, ev)
-        if name in ("config8", "config9"):
+        if name == "config10":
+            slice4 = {k: ev[k] for k in (*SLICE4_REQUIRED, "jitter_stalls", "restarts")}
+        elif name in ("config8", "config9"):
             for k in slice3:
                 slice3[k] += ev.get(k, 0)
             if name == "config8":
@@ -234,7 +275,7 @@ def main() -> int:
         emit({"phase": "kernel_vs_plain", "preset": name, "batch": batch, "ticks": ticks,
               "per_tick": "equal", "simulate_ticks": sim_ticks, "simulate": "equal", "max_abs_err": max_err,
               "max_commit": int(m_k.max_commit.max()), "violations": int(m_k.violations.sum()),
-              "events": ev})
+              "events": dict(ev)})
     emit({"phase": "slice2_events", **events})
     for k, v in events.items():
         if v <= 0:
@@ -243,10 +284,14 @@ def main() -> int:
     for k, v in slice3.items():
         if v <= 0 and k not in ("config_rollbacks", "removed_leader_stepdowns"):
             raise AssertionError(f"kernel_vs_plain: no {k} on the slice-3 runs")
+    emit({"phase": "slice4_events", **slice4})
+    for k in SLICE4_REQUIRED:
+        if slice4[k] <= 0:
+            raise AssertionError(f"kernel_vs_plain: no {k} on the config10 run")
 
     # ---- 3: card vs CPU --------------------------------------------------------
     for name, ticks in (("config2", 100), ("config4", 100), ("config6r", 200), ("config3p", 200),
-                        ("config8", 200), ("config9", 200)):
+                        ("config8", 200), ("config9", 200), ("config10", 200)):
         cfg, _ = PRESETS[name]
         batch = 64
         f_g, m_g = scan.simulate(cfg, SEED, batch, ticks, device=dev)
@@ -261,7 +306,7 @@ def main() -> int:
     total_launches = 0
     full_cells = (("config2", 1000), ("config3", 1000), ("config4", 1000), ("config5", 200),
                   ("config6", 1000), ("config6r", 1000), ("config3p", 1000), ("config8", 1000),
-                  ("config9", 1000))
+                  ("config9", 1000), ("config10", 1000))
     for name, ticks in full_cells:
         cfg, batch = PRESETS[name]
         torch.cuda.synchronize()
@@ -287,6 +332,11 @@ def main() -> int:
             raise AssertionError(f"{name}: a cluster's ring never wrapped (min max_commit {min_commit})")
         if cfg.read_index and int((metrics.reads_served <= 0).sum()) != 0:
             raise AssertionError(f"{name}: a cluster served no read")
+        if cfg.durable_storage:
+            if int((metrics.fsync_lag_sum <= 0).sum()) != 0:
+                raise AssertionError(f"{name}: a cluster's disk never lagged its log")
+            if bool((final.dur_len > final.log_len).any()):
+                raise AssertionError(f"{name}: a node's dur_len passed its log_len")
 
         # Kernel vs plain at full width from the run's final state, for
         # FULL_HOLD_TICKS ticks (one log-matching tick at config5's interval
@@ -319,6 +369,7 @@ def main() -> int:
             "max_commit_median": float(metrics.max_commit.float().median()),
             "noop_blocked": int(metrics.noop_blocked.sum()),
             "reads_served_min": int(metrics.reads_served.min()),
+            "fsync_lag_sum_min": int(metrics.fsync_lag_sum.min()),
             "summary": summ._asdict(),
         }
         cells.append(cell)
@@ -326,7 +377,22 @@ def main() -> int:
         del final, metrics, s, inp, info
         torch.cuda.empty_cache()
 
-    # ---- 5: the kernels line, the card, the result -----------------------------
+    # ---- 5: the port's bench row, card vs CPU -----------------------------------
+    cfg2 = PRESETS["config2"][0]
+    row_g = bench.bench(cfg2, 64, 200, repeats=2, quality_seeds=3, config_name="config2", device=dev)
+    row_c = bench.bench(cfg2, 64, 200, repeats=2, quality_seeds=3, config_name="config2", device="cpu")
+    quality = ("p50_stable_tick", "pct_stable", "p50_commit_latency", "lat_p50", "lat_p95", "lat_p99",
+               "lat_excluded", "total_cmds", "violations", "noop_blocked", "lm_skipped_pairs",
+               "multi_leader")
+    differ = [k for k in quality if row_g[k] != row_c[k]]
+    if differ:
+        raise AssertionError(f"bench_row: card != CPU on {differ}")
+    if row_g["backend"] != "cuda" or row_g.get("nvidia_smi") != smi or not row_g.get("device"):
+        raise AssertionError(f"bench_row: the card's row lacks its backend or card: {row_g}")
+    emit({"phase": "bench_row", "preset": "config2", "quality_equal": True, "card": row_g,
+          "cpu_cluster_ticks_per_s": row_c["cluster_ticks_per_s"]})
+
+    # ---- 6: the kernels line, the card, the result -----------------------------
     emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start})
     # config3: the 100,000-cluster BASELINE throughput row.
     main_cell = next(c for c in cells if c["preset"] == "config3")

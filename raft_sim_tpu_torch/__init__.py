@@ -7,8 +7,9 @@ JAX package's on the same seed (tests/test_torch_*.py). This package imports
 torch and numpy only -- never jax, and nothing of raft_sim_tpu.
 
 Main path: `sim.scan.simulate(cfg, seed, batch, n_ticks, device="cuda")` on
-presets config1-config5, config6, config6r and config3p; CLI:
-`python -m raft_sim_tpu_torch run --preset ...`.
+presets config1-config6, config6r, config3p, config8, config9 and config10;
+CLI: `python -m raft_sim_tpu_torch run --preset ...`, and
+`python -m raft_sim_tpu_torch bench` for the bench rows (bench.py).
 """
 
 from raft_sim_tpu_torch.types import (

@@ -1,10 +1,12 @@
-"""Command line: `python -m raft_sim_tpu_torch run|presets`.
+"""Command line: `python -m raft_sim_tpu_torch run|bench|presets`.
 
-The port of raft_sim_tpu/driver.py's `run` and `presets` subcommands, cut down
-to --preset/--batch/--ticks/--seed/--device. `run` calls sim.scan.simulate and
-prints the fleet summary as one JSON line, with the wall time and the device
-it ran on. The default device is the card; with none present `run` fails
-rather than running on the CPU (pass --device cpu for that).
+`run` and `presets` are the port of raft_sim_tpu/driver.py's subcommands, cut
+down to --preset/--batch/--ticks/--seed/--device: `run` calls
+sim.scan.simulate and prints the fleet summary as one JSON line, with the wall
+time and the device it ran on. `bench` is the port of bench.py (bench.py in
+this package): one JSON document of bench rows. The default device is the
+card; with none present `run` and `bench` fail rather than running on the CPU
+(pass --device cpu for that).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import time
 
 import torch
 
+from raft_sim_tpu_torch import bench
 from raft_sim_tpu_torch.sim import scan
 from raft_sim_tpu_torch.summary import summarize
 from raft_sim_tpu_torch.utils import device as device_mod
@@ -31,9 +34,13 @@ def main(argv=None) -> int:
     run_p.add_argument("--ticks", type=int, default=1000)
     run_p.add_argument("--seed", type=int, default=0)
     run_p.add_argument("--device", default="cuda")
+    bench_p = sub.add_parser("bench", help="cluster-ticks/s and quality rows per preset")
+    bench.add_arguments(bench_p)
     sub.add_parser("presets", help="list the config presets")
     args = ap.parse_args(argv)
 
+    if args.cmd == "bench":
+        return bench.run(bench_p, args)
     if args.cmd == "presets":
         for name, (cfg, batch) in sorted(PRESETS.items()):
             print(f"{name}: batch={batch} {cfg}")

@@ -1,0 +1,226 @@
+"""The port's bench: cluster-ticks/s and the quality rollup, one row per preset
+(the port of bench.py `bench` and its matrix sizing rules).
+
+    python -m raft_sim_tpu_torch bench                    # the matrix, on the card
+    python -m raft_sim_tpu_torch bench --preset config2   # one row
+    python -m raft_sim_tpu_torch bench --smoke --device cpu
+
+A row keeps the reference's discipline and field names. Quality runs use the
+fixed seeds 0..quality_seeds-1 and pool their per-cluster metrics through
+`summary.summarize`, so the quality fields equal the JAX bench's on the same
+seeds and sizes. Timed repeats use time-salted seeds; each is timed to a host
+copy of `metrics.ticks` after `torch.cuda.synchronize`, and the steady-state
+statistics leave out the first repeat. Throughput means something only from a
+card run (`backend: "cuda"`, with the card's name and power limit as
+`nvidia-smi` prints them).
+
+Not ported yet: the telemetry sink (`telemetry_dir`), the scenario input path,
+the serve row, the measurement pass and its mesh leg, and the roofline-pin
+fields (the JAX cost model's TPU prices are no yardstick for the card).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from raft_sim_tpu_torch.sim import scan
+from raft_sim_tpu_torch.summary import summarize
+from raft_sim_tpu_torch.utils import device as device_mod
+from raft_sim_tpu_torch.utils.config import PRESETS, RaftConfig
+
+NORTH_STAR = 1_000_000.0  # cluster-ticks/s, the BASELINE north star
+
+# Ticks per timed run and the smoke shrink, as bench.py sizes its matrix.
+MATRIX_TICKS = {
+    "config1": 10_000,
+    "config9": 500,
+    "config2": 2_000,
+    "config3": 500,
+    "config3p": 500,
+    "config4": 300,
+    "config4c": 300,
+    "config5": 200,
+    "config5c": 200,
+    "config6": 5_000,
+    "config6r": 5_000,
+}
+SMOKE_BATCH = {
+    "config2": 64,
+    "config8": 64,
+    "config10": 64,
+    "config9": 64,
+    "config3": 512,
+    "config3p": 512,
+    "config4": 256,
+    "config4c": 256,
+    "config5": 16,
+    "config5c": 16,
+    "config6": 64,
+    "config6r": 64,
+}
+SMOKE_TICKS = {"config1": 1_000, "config6": 1_000, "config6r": 1_000}
+
+# The reference matrix (bench.py main) minus the rows the port cannot run yet.
+MATRIX = (
+    "config1", "config2", "config3", "config3p", "config4", "config4c",
+    "config5", "config6", "config6r",
+)
+NOT_PORTED = {
+    "config5c": "the compacted carry layout (ROADMAP item 9)",
+    "config9-serve": "the serve-throughput row (ROADMAP item 16)",
+}
+# bench.py's TPU artifacts; cost_model reads these names.
+_RESERVED_OUT = re.compile(r"BENCH_r\d+\.json")
+
+
+def _matrix_sizing(name: str, smoke: bool) -> tuple[int, int]:
+    """(batch, ticks) for one matrix row under the standard sizing rules."""
+    _, preset_batch = PRESETS[name]
+    batch = SMOKE_BATCH.get(name, min(preset_batch, 256)) if smoke else preset_batch
+    ticks = SMOKE_TICKS[name] if smoke and name in SMOKE_TICKS else MATRIX_TICKS.get(name, 300)
+    return batch, ticks
+
+
+def card_line() -> str:
+    """`nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`, first card."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout
+    return out.strip().splitlines()[0]
+
+
+def _pool(runs: list[scan.RunMetrics]) -> scan.RunMetrics:
+    """Per-cluster metrics of several runs as one [sum of batches] RunMetrics."""
+    return scan.RunMetrics(*(torch.cat([getattr(m, f).cpu() for m in runs])
+                             for f in scan.RunMetrics._fields))
+
+
+def bench(cfg: RaftConfig, batch: int, ticks: int, repeats: int = 3,
+          quality_seeds: int = 3, config_name: str = "custom", smoke: bool = False,
+          device="cuda") -> dict:
+    """One bench row for `cfg` (named `config_name` in the row): quality over
+    the fixed seeds, throughput over `repeats` time-salted runs (the first
+    also pays the kernel build and warm-up)."""
+    dev = device_mod.resolve(device)
+    on_card = dev.type == "cuda"
+
+    def sim(seed):
+        return scan.simulate(cfg, seed, batch, ticks, device=dev)
+
+    q_metrics = _pool([sim(qs)[1] for qs in range(quality_seeds)])
+
+    seed_base = int(time.time_ns() % ((1 << 31) - 1 - repeats))
+    walls = []
+    for r in range(1, repeats + 1):
+        t0 = time.perf_counter()
+        _, metrics = sim(seed_base + r)
+        if on_card:
+            torch.cuda.synchronize(dev)
+        metrics.ticks.cpu().numpy()  # a host copy: the data is there
+        walls.append(time.perf_counter() - t0)
+    best = min(walls)
+    steady_walls = walls[1:] if len(walls) > 1 else walls
+    steady_mean = float(np.mean(steady_walls))
+    steady_cv = (
+        round(float(np.std(steady_walls) / steady_mean), 4)
+        if len(steady_walls) > 1 and steady_mean > 0
+        else (0.0 if len(steady_walls) > 1 else None)
+    )
+
+    s = summarize(q_metrics)
+    value = batch * ticks / best
+    row = {
+        "cluster_ticks_per_s": round(value, 1),
+        "vs_baseline": round(value / NORTH_STAR, 3),
+        "legacy": ["cluster_ticks_per_s", "wall_s", "vs_baseline"],
+        "steady_ticks_per_s": round(batch * ticks / steady_mean, 1),
+        "repeat_walls_s": [round(w, 4) for w in walls],
+        "repeat_cv": steady_cv,
+        "backend": dev.type,
+        "layout": "dense",
+        "batch": batch,
+        "n_nodes": cfg.n_nodes,
+        "ticks": ticks,
+        "wall_s": round(best, 3),
+        "p50_stable_tick": s.p50_stable_tick,
+        "pct_stable": round(100.0 * s.n_stable / s.n_clusters, 1),
+        "p50_commit_latency": s.p50_commit_latency,
+        "lat_p50": s.lat_p50,
+        "lat_p95": s.lat_p95,
+        "lat_p99": s.lat_p99,
+        "lat_excluded": s.lat_excluded,
+        "total_cmds": s.total_cmds,
+        "violations": s.total_violations,
+        "noop_blocked": s.noop_blocked,
+        "lm_skipped_pairs": s.lm_skipped_pairs,
+        "multi_leader": s.multi_leader,
+        "quality_seeds": quality_seeds,
+        "preset": config_name,
+    }
+    if on_card:
+        row["device"] = torch.cuda.get_device_name(dev)
+        row["nvidia_smi"] = card_line()
+    if smoke:
+        row["smoke"] = True
+    return row
+
+
+def add_arguments(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--preset", default=None, choices=sorted(PRESETS),
+                    help="bench one preset instead of the matrix")
+    ap.add_argument("--batch", type=int, default=None)
+    ap.add_argument("--ticks", type=int, default=None)
+    ap.add_argument("--repeats", type=int, default=3,
+                    help="timed repeats per row; the first is left out of "
+                         "steady_ticks_per_s (default 3)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the matrix at small batches (CPU-sized)")
+    ap.add_argument("--out", default=None, metavar="PATH",
+                    help="write the whole document to PATH and print a one-line "
+                         "headline (BENCH_r<N>.json names are refused)")
+    ap.add_argument("--device", default="cuda")
+
+
+def run(ap: argparse.ArgumentParser, args) -> int:
+    if args.out and _RESERVED_OUT.fullmatch(os.path.basename(args.out)):
+        ap.error(f"--out {args.out}: BENCH_r<N>.json files are the JAX package's "
+                 "TPU artifacts; name the port's document otherwise")
+    names = [args.preset] if args.preset else list(MATRIX)
+    matrix = {}
+    for name in names:
+        batch, ticks = _matrix_sizing(name, args.smoke)
+        batch, ticks = args.batch or batch, args.ticks or ticks
+        print(f"bench {name}: batch={batch} ticks={ticks}...", file=sys.stderr)
+        matrix[name] = bench(PRESETS[name][0], batch, ticks, args.repeats,
+                             config_name=name, smoke=args.smoke, device=args.device)
+    headline_name = "config3" if "config3" in matrix else names[0]
+    headline = matrix[headline_name]
+    doc = {
+        "metric": "cluster-ticks/sec/chip",
+        "value": headline["cluster_ticks_per_s"],
+        "unit": "cluster-ticks/s",
+        "vs_baseline": headline["vs_baseline"],
+        "workload": headline_name,
+        "matrix": matrix,
+        "not_ported": NOT_PORTED,
+    }
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(doc, f, indent=1)
+            f.write("\n")
+        per_cfg = " ".join(f"{n}={r['cluster_ticks_per_s']:g}" for n, r in matrix.items())
+        print(f"{headline_name} {headline['cluster_ticks_per_s']:g} cluster-ticks/s "
+              f"({headline['vs_baseline']}x north star) | {per_cfg} | full matrix: {args.out}")
+    else:
+        print(json.dumps(doc))
+    return 0

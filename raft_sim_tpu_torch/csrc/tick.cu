@@ -15,12 +15,14 @@
 // redirect client its K pipeline slots (client_pend/client_dst, client_tick
 // with the offer-tick plane) and the client_target/client_bounce inputs; the
 // reconfiguration plane its member rows, config-entry plane, snapshot config
-// context, transfer and read legs and admin inputs.
+// context, transfer and read legs and admin inputs; the storage plane its
+// durable watermarks, the fsync_fire/torn_drop inputs and the fsync-lag pair.
 // Per cluster (kernels/tick_engine.traffic_bytes), bytes read / written:
 // config3 (N=5, CAP=32) 2,087 / 2,080; config3p 2,127 / 2,120; config6
 // (CAP=32, E=4, int32 index tier) 3,067 / 3,104; config6r (K=5) 3,151 /
 // 3,164; config8 (CAP=64, reconfig + transfer + reads) 6,389 / 6,402;
-// config9 (CAP=64 ring, reads + lease) 5,091 / 5,197. 100,000 config3
+// config9 (CAP=64 ring, reads + lease) 5,091 / 5,197; config10 (CAP=64,
+// durable storage) 4,872 / 4,848. 100,000 config3
 // clusters move 0.42 GB per tick, 0.124 ms at 3.35 TB/s. The design keeps to
 // one pass over those leaves: each thread reads its cluster's leaves, keeps
 // every per-node intermediate in registers or thread-local arrays, and writes

@@ -2,26 +2,35 @@
 // the Hopper tick kernel (tick.cu) and of its CPU build (tick_host.cpp).
 //
 // Semantics are raft_sim_tpu/models/raft_batched.py `_step_b` + `_step_info_b`
-// (dense layout, single device) over the gate set of presets config1-config9
+// (dense layout, single device) over the gate set of presets config1-config10
 // and config3p: invariants, log matching, the client's cadence (direct, or the
 // redirect client with its K-deep pipeline) with the offer-tick latency plane,
 // drop, partitions, skew, crash/restart, ring-log compaction with the
 // InstallSnapshot analogue, PreVote, and the reconfiguration plane: log-carried
 // joint-consensus membership (with the snapshot config context under
-// compaction), TimeoutNow transfer, ReadIndex and lease reads. Every leaf it
-// writes equals the JAX tick's. The JAX form is a vectorised `where` lattice
-// over [N, N, B] planes; here thread b walks its own cluster with loops over
-// nodes and log entries, in the JAX phase order (-1 restart, 0 delivery,
-// 1 term adoption, 2 RequestVote, 3 AppendEntries and snapshot install,
-// 3.5 PreVote requests, 3.7 TimeoutNow receipt, 4 responses, 4.5 PreVote
-// promotion, 5 commit, 5.2 transfer and reads, latency, 5.5 compaction and the
-// ring checksum, 6 no-op / config entry / client injection / redirect routing,
-// 7 timers, 8 outbox, prefix checksum, end-of-tick configuration, 9 StepInfo).
+// compaction), TimeoutNow transfer, ReadIndex and lease reads, and the durable
+// storage plane (fsync watermarks, the durability gate, crash recovery).
+// Every leaf it writes equals the JAX tick's. The JAX form is a vectorised
+// `where` lattice over [N, N, B] planes; here thread b walks its own cluster
+// with loops over nodes and log entries, in the JAX phase order (-1 restart
+// and recovery, 0 delivery, 1 term adoption, 2 RequestVote, 3 AppendEntries
+// and snapshot install, 3.5 PreVote requests, 3.7 TimeoutNow receipt,
+// 4 responses, 4.5 PreVote promotion, 5 commit, 5.2 transfer and reads,
+// latency, 5.5 compaction and the ring checksum, 6 no-op / config entry /
+// client injection / redirect routing, 7 timers, 7.5 fsync flush and the
+// durability gate, 8 outbox, prefix checksum, end-of-tick configuration,
+// 9 StepInfo).
 //
 // Membership: every quorum a node tests (elections, pre-votes, commit, read
 // confirmation, leases, transfer targets) is masked by that node's TICK-START
 // member rows (m_old / m_new, dual while its cfg_pend is open); the rows
 // derived from the log at the end of the tick go to the output only.
+//
+// Durable storage: three snapshots of the watermark. `dur_mid` is the
+// tick-start dur_len clamped by phase 3's truncation, and is what a leader's
+// own slot in the commit quorum reads (phase 5); the flush (phase 7.5) snaps
+// to the final log length, term and vote, and the ack clamp reads that
+// post-flush value. Recovery (phase -1) rewinds term/vote/log_len at load.
 //
 // Layout: every leaf is batch-minor. Leaf [d0, d1, ..., B] element
 // (i, j, ..., b) sits at ((i * d1 + j) * ... ) * B + b, so neighbouring
@@ -71,7 +80,8 @@ enum Ptr {
   S_CLOCK, S_DEADLINE, S_HEARD_CLOCK, S_CLIENT_PEND, S_CLIENT_DST,
   S_CLIENT_TICK, S_LAT_FRONTIER, S_NOW, S_MEMBER_OLD, S_MEMBER_NEW,
   S_CFG_EPOCH, S_CFG_PEND, S_LOG_CFG, S_BASE_MOLD, S_BASE_PEND, S_BASE_EPOCH,
-  S_XFER_TO, S_READ_IDX, S_READ_TICK, S_READ_ACKS, S_READ_FR,
+  S_XFER_TO, S_READ_IDX, S_READ_TICK, S_READ_ACKS, S_READ_FR, S_DUR_LEN,
+  S_DUR_TERM, S_DUR_VOTE,
   // Mailbox, read
   M_REQ_TYPE, M_REQ_TERM, M_REQ_COMMIT, M_REQ_LAST_INDEX, M_REQ_LAST_TERM,
   M_ENT_START, M_ENT_PREV_TERM, M_ENT_COUNT, M_ENT_TERM, M_ENT_VAL,
@@ -82,7 +92,7 @@ enum Ptr {
   // StepInputs, read
   I_DELIVER_MASK, I_SKEW, I_TIMEOUT_DRAW, I_CLIENT_CMD, I_CLIENT_TARGET,
   I_CLIENT_BOUNCE, I_ALIVE, I_RESTARTED, I_RECONFIG_CMD, I_TRANSFER_CMD,
-  I_READ_CMD,
+  I_READ_CMD, I_FSYNC_FIRE, I_TORN_DROP,
   // ClusterState, written
   O_ROLE, O_TERM, O_VOTED_FOR, O_LEADER_ID, O_VOTES, O_NEXT_INDEX,
   O_MATCH_INDEX, O_ACK_AGE, O_COMMIT_INDEX, O_COMMIT_CHK, O_LOG_BASE,
@@ -90,7 +100,8 @@ enum Ptr {
   O_CLOCK, O_DEADLINE, O_HEARD_CLOCK, O_CLIENT_PEND, O_CLIENT_DST,
   O_CLIENT_TICK, O_LAT_FRONTIER, O_NOW, O_MEMBER_OLD, O_MEMBER_NEW,
   O_CFG_EPOCH, O_CFG_PEND, O_LOG_CFG, O_BASE_MOLD, O_BASE_PEND, O_BASE_EPOCH,
-  O_XFER_TO, O_READ_IDX, O_READ_TICK, O_READ_ACKS, O_READ_FR,
+  O_XFER_TO, O_READ_IDX, O_READ_TICK, O_READ_ACKS, O_READ_FR, O_DUR_LEN,
+  O_DUR_TERM, O_DUR_VOTE,
   // Mailbox, written
   OM_REQ_TYPE, OM_REQ_TERM, OM_REQ_COMMIT, OM_REQ_LAST_INDEX,
   OM_REQ_LAST_TERM, OM_ENT_START, OM_ENT_PREV_TERM, OM_ENT_COUNT,
@@ -104,7 +115,7 @@ enum Ptr {
   F_N_LEADERS, F_MAX_TERM, F_MAX_COMMIT, F_MIN_COMMIT, F_MSGS_DELIVERED,
   F_CMDS_INJECTED, F_LAT_SUM, F_LAT_CNT, F_LAT_HIST, F_LAT_EXCLUDED,
   F_NOOP_BLOCKED, F_READS_SERVED, F_READ_LAT_SUM, F_READ_HIST,
-  F_VIOL_READ_STALE,
+  F_VIOL_READ_STALE, F_FSYNC_LAG_SUM, F_FSYNC_LAG_MAX,
   N_PTR
 };
 
@@ -126,6 +137,8 @@ struct TickParams {
   int32_t reads;             // cfg.read_index (ReadIndex reads)
   int32_t lease;             // cfg.read_lease (lease reads)
   int32_t lease_ticks;       // cfg.read_lease_ticks (the lease window on ack_age)
+  int32_t durable;           // cfg.durable_storage (fsync watermarks, recovery)
+  int32_t durable_acks;      // cfg.durable_acks (the durability gate; 1 in production)
 };
 
 RS_HD int imin(int a, int b) { return a < b ? a : b; }
@@ -231,6 +244,8 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
   const bool comp = P.comp != 0, pv = P.pre_vote != 0;
   const bool rcf = P.reconfig != 0, xfr = P.transfer != 0, rdx = P.reads != 0;
   const bool rdl = P.lease != 0;
+  const bool dur = P.durable != 0;
+  const bool dacks = dur && P.durable_acks != 0;  // the durability gate
   const bool hc_live = pv || rdl || rcf;  // heard_clock: quiet rule and vote denial
   const bool deny = rcf || rdl;           // the heard-a-leader vote denial
   const bool disrupt_live = xfr && deny;  // req_disrupt overrides the denial
@@ -290,6 +305,10 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
   int grant_to[MAXN], age_t[MAXN];
   uint32_t fresh[MAXN][MAXW];  // peers acked within the lease window (lease)
   int len4[MAXN];  // log length after phase 3: the phase-4/phase-8 `len_i`
+  // Durable storage: the watermark after phase 3's truncation, and the grants
+  // a flush newly covered this tick (phase 7.5).
+  int dur_mid[MAXN];
+  bool late_grant[MAXN];
 
   for (int i = 0; i < n; ++i) {
     alive[i] = RS_IN(uint8_t, I_ALIVE)[RS_AT1(i)] != 0;
@@ -306,6 +325,14 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
     term[i] = RS_IN(int32_t, S_TERM)[RS_AT1(i)];
     vf[i] = RS_IN(int32_t, S_VOTED_FOR)[RS_AT1(i)];
     len0[i] = RS_IN(int32_t, S_LOG_LEN)[RS_AT1(i)];
+    if (dur && rs_[i]) {
+      // Crash recovery: term and vote rewind to the durable snapshot; the
+      // log keeps its fsynced prefix (a floor) and the rest less a torn tail.
+      term[i] = RS_IN(int32_t, S_DUR_TERM)[RS_AT1(i)];
+      vf[i] = RS_IN(int32_t, S_DUR_VOTE)[RS_AT1(i)];
+      len0[i] = imax(RS_IN(int32_t, S_DUR_LEN)[RS_AT1(i)],
+                     len0[i] - RS_IN(int32_t, I_TORN_DROP)[RS_AT1(i)]);
+    }
     commit0[i] = rs_[i] ? base0[i] : RS_IN(int32_t, S_COMMIT_INDEX)[RS_AT1(i)];
     chk0[i] = rs_[i] ? bchk[i] : RS_IN(uint32_t, S_COMMIT_CHK)[RS_AT1(i)];
     deadline0[i] = rs_[i] ? clock0[i] + tdraw[i] : RS_IN(int32_t, S_DEADLINE)[RS_AT1(i)];
@@ -487,6 +514,7 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
     }
     const int appended = comp ? prev_i + n_acc : imin(prev_i + n_ent, cap);
     llen[f] = ae_ok ? (mismatch ? appended : imax(len0[f], appended)) : len0[f];
+    if (dur) dur_mid[f] = imin(RS_IN(int32_t, S_DUR_LEN)[RS_AT1(f)], llen[f]);
     if (ae_ok) {
       for (int k = lo; k < n_acc; ++k) {
         const int slot = comp ? pmod(prev_i + k, cap) : prev_i + k;
@@ -622,7 +650,8 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
       next_out[RS_AT2(q, r, n)] = (IdxT)nx;
       match_out[RS_AT2(q, r, n)] = (IdxT)mt;
       ack_out[RS_AT2(q, r, n)] = (AckT)ag;
-      mws[r] = (r == q) ? len_i : mt;
+      // Under the durability gate a leader's own slot is its durable length.
+      mws[r] = (r == q) ? (dacks ? dur_mid[q] : len_i) : mt;
     }
     if (rdx) {  // a pending read on a leader banks this tick's acks
       const bool keep_r = role[q] == LEADER && read_idx0[q] > 0;
@@ -940,6 +969,35 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
     RS_OUT(int32_t, O_DEADLINE)[RS_AT1(i)] = dl;
   }
 
+  // ---- phase 7.5: fsync flush and the durability gate. A live node's due
+  // flush snaps its durable snapshot to its final log length, term and vote;
+  // its AppendEntries ack names only fsynced entries, and a vote grant is
+  // sent once durable -- a flush that newly covers a grant made on an earlier
+  // tick sends it late (phase 8). -------------------------------------------
+  int lag_sum = 0, lag_max = -2147483647 - 1;
+  for (int i = 0; i < n && dur; ++i) {
+    const bool fs = alive[i] && RS_IN(uint8_t, I_FSYNC_FIRE)[RS_AT1(i)] != 0;
+    const int d_term = RS_IN(int32_t, S_DUR_TERM)[RS_AT1(i)];
+    const int d_vote = RS_IN(int32_t, S_DUR_VOTE)[RS_AT1(i)];
+    const int len2 = fs ? llen[i] : dur_mid[i];
+    const int term2 = fs ? term[i] : d_term;
+    const int vote2 = fs ? vf[i] : d_vote;
+    RS_OUT(int32_t, O_DUR_LEN)[RS_AT1(i)] = len2;
+    RS_OUT(int32_t, O_DUR_TERM)[RS_AT1(i)] = term2;
+    RS_OUT(int32_t, O_DUR_VOTE)[RS_AT1(i)] = vote2;
+    late_grant[i] = false;
+    if (dacks) {
+      IdxT* am = RS_OUT(IdxT, OM_A_MATCH) + RS_AT1(i);
+      *am = (IdxT)imin((int)*am, len2);
+      const bool covered0 = d_term == term[i] && d_vote == vf[i] && vf[i] != NIL;
+      const bool covered2 = term2 == term[i] && vote2 == vf[i] && vf[i] != NIL;
+      grant_to[i] = covered2 ? vf[i] : NIL;
+      late_grant[i] = covered2 && !covered0 && !granted_any[i];
+    }
+    lag_sum += llen[i] - len2;
+    lag_max = imax(lag_max, llen[i] - len2);
+  }
+
   // ---- phase 8: outbox -----------------------------------------------------
   for (int i = 0; i < n; ++i) {
     const bool send = win[i] || heartbeat[i];
@@ -1022,6 +1080,8 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
                : rtype[i] == REQ_PREVOTE ? RESP_PREVOTE
                                          : 0;
       }
+      // The late RESP_VOTE, only on an edge with no other response.
+      if (dacks && kind == 0 && late_grant[v] && vf[v] == i) kind = RESP_VOTE;
       RS_OUT(int8_t, OM_RESP_KIND)[RS_AT2(i, v, n)] = (int8_t)kind;
     }
   }
@@ -1153,6 +1213,10 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
     for (int k = 0; k < BINS; ++k) RS_OUT(int32_t, F_READ_HIST)[(int64_t)k * B + b] = read_hist[k];
   }
   if (rdl) RS_OUT(uint8_t, F_VIOL_READ_STALE)[b] = viol_stale;
+  if (dur) {
+    RS_OUT(int32_t, F_FSYNC_LAG_SUM)[b] = lag_sum;
+    RS_OUT(int32_t, F_FSYNC_LAG_MAX)[b] = lag_max;
+  }
 
 #undef RS_XPEND
 #undef RS_QUORUM

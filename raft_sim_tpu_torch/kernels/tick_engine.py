@@ -53,7 +53,8 @@ STATE_IO = (
     "clock", "deadline", "heard_clock", "client_pend", "client_dst",
     "client_tick", "lat_frontier", "now", "member_old", "member_new",
     "cfg_epoch", "cfg_pend", "log_cfg", "base_mold", "base_pend", "base_epoch",
-    "xfer_to", "read_idx", "read_tick", "read_acks", "read_fr",
+    "xfer_to", "read_idx", "read_tick", "read_acks", "read_fr", "dur_len",
+    "dur_term", "dur_vote",
 )
 MAILBOX_IO = (
     "req_type", "req_term", "req_commit", "req_last_index", "req_last_term",
@@ -66,14 +67,14 @@ MAILBOX_IO = (
 INPUTS_IN = (
     "deliver_mask", "skew", "timeout_draw", "client_cmd", "client_target",
     "client_bounce", "alive", "restarted", "reconfig_cmd", "transfer_cmd",
-    "read_cmd",
+    "read_cmd", "fsync_fire", "torn_drop",
 )
 INFO_OUT = (
     "viol_election_safety", "viol_commit", "viol_log_matching", "leader",
     "n_leaders", "max_term", "max_commit", "min_commit", "msgs_delivered",
     "cmds_injected", "lat_sum", "lat_cnt", "lat_hist", "lat_excluded",
     "noop_blocked", "reads_served", "read_lat_sum", "read_hist",
-    "viol_read_stale",
+    "viol_read_stale", "fsync_lag_sum", "fsync_lag_max",
 )
 PTR_ORDER = (
     [("state", f) for f in STATE_IO]
@@ -88,6 +89,7 @@ PTR_ORDER = (
 # through uncopied.
 _rcf = lambda c: c.reconfig  # noqa: E731
 _rcf_comp = lambda c: c.reconfig and c.compaction  # noqa: E731
+_dur = lambda c: c.durable_storage  # noqa: E731
 _GATED = {
     "log_tick": lambda c: c.track_offer_ticks,
     "ent_tick": lambda c: c.track_offer_ticks,
@@ -126,6 +128,14 @@ _GATED = {
     "read_hist": lambda c: c.read_index,
     "read_fr": lambda c: c.read_lease,
     "viol_read_stale": lambda c: c.read_lease,
+    # The durable storage plane: watermarks, disk draws, the lag pair.
+    "dur_len": _dur,
+    "dur_term": _dur,
+    "dur_vote": _dur,
+    "fsync_fire": _dur,
+    "torn_drop": _dur,
+    "fsync_lag_sum": _dur,
+    "fsync_lag_max": _dur,
 }
 # Legs whose read and write sides differ: (read gate, write gate). log_base
 # and base_chk are read on every config (a restart resumes commit at the
@@ -183,6 +193,8 @@ class TickParams(ctypes.Structure):
         ("reads", ctypes.c_int32),
         ("lease", ctypes.c_int32),
         ("lease_ticks", ctypes.c_int32),
+        ("durable", ctypes.c_int32),
+        ("durable_acks", ctypes.c_int32),
     ]
 
 
@@ -291,6 +303,8 @@ def leaf_specs(cfg: T.RaftConfig, b: int) -> dict:
         ("inputs", "reconfig_cmd"): ((b,), torch.int32),
         ("inputs", "transfer_cmd"): ((b,), torch.int32),
         ("inputs", "read_cmd"): ((b,), torch.int32),
+        ("inputs", "fsync_fire"): ((n, b), torch.bool),
+        ("inputs", "torn_drop"): ((n, b), torch.int32),
     })
     return specs
 
@@ -368,6 +382,7 @@ def _prepare(cfg, s, inp, now, device_type):
         reconfig=int(cfg.reconfig), transfer=int(cfg.leader_transfer),
         reads=int(cfg.read_index), lease=int(cfg.read_lease),
         lease_ticks=cfg.read_lease_ticks,
+        durable=int(cfg.durable_storage), durable_acks=int(cfg.durable_acks),
     )
     tiers = (
         s.next_index.element_size(), s.ack_age.element_size(),

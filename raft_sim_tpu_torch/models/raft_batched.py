@@ -17,9 +17,11 @@ runs unconditionally, as in JAX), ring-log compaction with the snapshot
 catch-up (`compact_margin > 0`), PreVote, and the reconfiguration plane:
 log-carried joint-consensus membership (`reconfig`, with its snapshot config
 context under compaction), TimeoutNow leadership transfer (`transfer`),
-ReadIndex reads (`reads`) and lease reads (`lease`). Every other structural
+ReadIndex reads (`reads`) and lease reads (`lease`), and the durable
+storage plane (`dur`: fsync watermarks, the durability gate on acks and vote
+grants, crash recovery to the durable snapshot). Every other structural
 gate raises NotImplementedError naming the gate (`unsupported_gates`): the
-durable storage plane, the compacted layout, trace tracking, serve ingest
+compacted layout, trace tracking, serve ingest
 (writes and reads: their overrides come from the serve plane), log matching
 under compaction (the JAX ring form with `lm_skipped_pairs` is not ported),
 and a TEST-ONLY mutant hook turned off. Gated-off legs pass through
@@ -32,6 +34,7 @@ import torch
 
 from raft_sim_tpu_torch.models import cfglog
 from raft_sim_tpu_torch.ops import bitplane, log_ops
+from raft_sim_tpu_torch.storage import plane as storage_plane
 from raft_sim_tpu_torch.types import (
     CANDIDATE,
     FOLLOWER,
@@ -57,19 +60,18 @@ from raft_sim_tpu_torch.utils.config import RaftConfig
 I32 = torch.int32
 BIG = 2**31 - 1
 
-# TEST-ONLY mutant hooks of the reconfiguration plane (RaftConfig properties,
-# True in production): each weakens one rule. The port runs the production
-# rules only and refuses a config that turns a hook off.
+# TEST-ONLY mutant hooks of the reconfiguration and storage planes (RaftConfig
+# properties, True in production): each weakens one rule. The port runs the
+# production rules only and refuses a config that turns a hook off.
 MUTANT_HOOKS = (
     "joint_consensus", "act_on_append", "truncation_rollback", "read_confirm",
-    "xfer_election", "lease_skew_safe",
+    "xfer_election", "lease_skew_safe", "durable_acks", "persist_vote",
 )
 
 
 def unsupported_gates(cfg: RaftConfig) -> list[str]:
     """Structural gates of `cfg` the port's tick does not take yet."""
     checks = [
-        ("durable_storage", cfg.durable_storage),
         ("compact_planes", cfg.compact_planes),
         ("track_trace", cfg.track_trace),
         ("serve_ingest", cfg.serve_ingest),
@@ -128,6 +130,8 @@ def step_b(
     xfr = cfg.leader_transfer  # TimeoutNow transfer
     rdx = cfg.read_index  # ReadIndex reads
     rdl = cfg.read_lease  # lease reads
+    dur = cfg.durable_storage  # fsync watermarks and crash recovery
+    dacks = dur and cfg.durable_acks  # the durability gate on acks and grants
     hc_live = pv or rdl or rcf  # heard_clock: the quiet rule and the vote denial
     dev = s.role.device
     b = s.role.shape[-1]
@@ -155,6 +159,12 @@ def step_b(
         commit_chk=torch.where(rs, s.base_chk, s.commit_chk),
         deadline=torch.where(rs, s.clock + inp.timeout_draw, s.deadline),
     )
+    if dur:  # crash recovery: rewind to the durable snapshot
+        r_term, r_vote, r_len = storage_plane.recover(
+            cfg, rs, inp.torn_drop, s.dur_len, s.dur_term, s.dur_vote,
+            s.term, s.voted_for, s.log_len,
+        )
+        s = s._replace(term=r_term, voted_for=r_vote, log_len=r_len)
     if hc_live:  # a restarted node remembers no leader contact
         s = s._replace(
             heard_clock=torch.where(rs, s.clock - cfg.election_min_ticks, s.heard_clock)
@@ -302,6 +312,8 @@ def step_b(
         any_mismatch, appended_len, torch.maximum(s.log_len, appended_len)
     )
     log_len = torch.where(ae_ok, new_len, s.log_len)
+    if dur:  # the watermark after the conflict truncation
+        dur_mid = torch.minimum(s.dur_len, log_len)
 
     def write(arr, vals):
         if comp:
@@ -430,7 +442,9 @@ def step_b(
 
     # ---- phase 5: leader commit advancement ------------------------------------
     is_leader = role == LEADER
-    match_with_self = torch.where(eye3, len_i[:, None, :], match_index).to(I32)
+    # Under the durability gate a leader's own slot is its durable length.
+    self_len = dur_mid.to(idt) if dacks else len_i
+    match_with_self = torch.where(eye3, self_len[:, None, :], match_index).to(I32)
     if rcf:
         # Per-leader quorum match under the leader's own member rows: the
         # maj-th largest of its members' matches, the min of both
@@ -716,6 +730,21 @@ def step_b(
         )
         rv_like = start_election
 
+    # ---- phase 7.5: fsync flush and the durability gate ------------------------
+    if dur:
+        fs_fire = inp.fsync_fire & alive  # dead disks never flush
+        dur2_len, dur2_term, dur2_vote = storage_plane.flush(
+            fs_fire, dur_mid, s.dur_term, s.dur_vote, log_len, term, voted_for
+        )
+    if dacks:
+        # Acks name only fsynced entries; a grant is sent once durable, and a
+        # flush that newly covers an earlier grant sends it late.
+        out_a_match = torch.minimum(out_a_match.to(I32), dur2_len).to(idt)
+        covered0 = storage_plane.covered(s.dur_term, s.dur_vote, term, voted_for)
+        covered2 = storage_plane.covered(dur2_term, dur2_vote, term, voted_for)
+        grant_to = torch.where(covered2, voted_for, NIL).to(ndt)
+        late_grant = covered2 & ~covered0 & ~granted_any
+
     # ---- phase 8: outbox ------------------------------------------------------
     send_append = win | heartbeat
     new_last_idx, new_last_term = log_len, term_at(log_term_arr, log_len)
@@ -778,6 +807,10 @@ def step_b(
         out_pv_grant = bitplane.pack(pv_grant, axis=1)  # [cand, W(bit = voter), B]
     else:
         out_pv_grant = mb.pv_grant
+    if dacks:  # the late RESP_VOTE, only on an edge with no other response
+        vfc = voted_for.clamp(0, n - 1)
+        late_edge = (ids2[:, :, None] == vfc[None, :, :]) & late_grant[None, :, :]
+        out_resp_kind = torch.where(late_edge & (out_resp_kind == 0), RESP_VOTE, out_resp_kind)
     pterm = term_at(log_term_arr, ws)
     z = torch.zeros_like(base)
     new_mb = mb._replace(
@@ -843,6 +876,9 @@ def step_b(
         log_val=log_val_arr,
         log_tick=log_tick_arr,
         log_len=log_len,
+        dur_len=dur2_len if dur else s.dur_len,
+        dur_term=dur2_term if dur else s.dur_term,
+        dur_vote=dur2_vote if dur else s.dur_vote,
         clock=clock,
         deadline=deadline,
         heard_clock=heard,
@@ -880,11 +916,16 @@ def step_b(
         new_state = new_state._replace(read_idx=read_idx, read_tick=read_tick, read_acks=read_acks)
         if rdl:
             new_state = new_state._replace(read_fr=read_fr)
+    if dur:  # durability lag: the un-fsynced suffix per node
+        lag = log_len - dur2_len
+        fsync_lag_sum, fsync_lag_max = lag.sum(0).to(I32), lag.amax(0).to(I32)
+    else:
+        fsync_lag_sum, fsync_lag_max = zb.clone(), zb.clone()
     info = _step_info_b(
         cfg, s, new_state, req_in, resp_in, alive, cmds_cnt, chk_ok,
         lat_sum, lat_cnt, lat_hist, lat_excluded, noop_blocked,
         reads_served, read_lat_sum, read_hist, viol_read_stale,
-        log_matching_due(cfg, s, now),
+        fsync_lag_sum, fsync_lag_max, log_matching_due(cfg, s, now),
     )
     # Broadcasts over the transposed request plane leave some results in a
     # permuted layout; the carry is kept contiguous (the kernel requires it).
@@ -894,7 +935,8 @@ def step_b(
 def _step_info_b(
     cfg, old, new, req_in, resp_in, alive, cmds_cnt, chk_ok,
     lat_sum, lat_cnt, lat_hist, lat_excluded, noop_blocked,
-    reads_served, read_lat_sum, read_hist, viol_read_stale, lm_due,
+    reads_served, read_lat_sum, read_hist, viol_read_stale,
+    fsync_lag_sum, fsync_lag_max, lm_due,
 ) -> StepInfo:
     """Batched phase 9 (the JAX `_step_info_b`). All outputs [B] (histograms
     [BINS, B])."""
@@ -956,6 +998,6 @@ def _step_info_b(
         read_lat_sum=read_lat_sum,
         read_hist=read_hist,
         viol_read_stale=viol_read_stale,
-        fsync_lag_sum=z.clone(),
-        fsync_lag_max=z.clone(),
+        fsync_lag_sum=fsync_lag_sum,
+        fsync_lag_max=fsync_lag_max,
     )

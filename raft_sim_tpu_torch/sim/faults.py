@@ -10,11 +10,12 @@ threshold compares (`bits < threshold`, unsigned): draws are int64 values in
 Ported: message drop (with the per-cluster uniform rate), rolling partitions,
 clock skew, election-timeout draws, the client's cadence, the crash schedule
 (`alive_at`: the `alive` and `restarted` legs), the redirect client's
-routing draws (`client_target`, `client_bounce`) and the reconfiguration
-plane's admin commands (`reconfig_cmd`, `transfer_cmd`, `read_cmd`).
-Gated-off fields come out exactly as the JAX function emits them (zeros /
-NIL). The storage plane's draws are a later slice; a config that turns it
-(or the compacted layout) on raises NotImplementedError naming it.
+routing draws (`client_target`, `client_bounce`), the reconfiguration
+plane's admin commands (`reconfig_cmd`, `transfer_cmd`, `read_cmd`) and the
+storage plane's disk draws (`fsync_fire`, `torn_drop`). Gated-off fields come
+out exactly as the JAX function emits them (zeros / NIL). The compacted
+layout is not ported; a config that turns it on raises NotImplementedError
+naming it.
 """
 
 from __future__ import annotations
@@ -43,12 +44,7 @@ def bern_u32(key: torch.Tensor, thresh, shape=()) -> torch.Tensor:
 
 def unsupported_input_gates(cfg: RaftConfig) -> list[str]:
     """Input mechanisms of `cfg` the port does not draw yet."""
-    gates = []
-    if cfg.durable_storage:
-        gates.append("durable_storage")
-    if cfg.compact_planes:
-        gates.append("compact_planes")
-    return gates
+    return ["compact_planes"] if cfg.compact_planes else []
 
 
 def _partition_cut(n: int, k_part: torch.Tensor, now: int, period: int, part_t: int):
@@ -130,6 +126,28 @@ def _admin_cmds(cfg: RaftConfig, tkey: torch.Tensor, now: int):
     return reconfig_cmd, transfer_cmd, read_cmd
 
 
+def _storage_draws(cfg: RaftConfig, tkey: torch.Tensor, now: int):
+    """(fsync_fire [B, N] bool, torn_drop [B, N] int32): the storage plane's
+    disk draws from split(fold_in(tick key, 7), 3). A node's flush completes
+    on the fsync cadence tick unless its jitter draw stalls it; torn_drop is
+    the torn tail (1..lost_suffix_span entries, with prob torn_tail_prob) a
+    restart would lose, drawn every tick on every node and read by the tick
+    only on restarts. Gate off: zeros."""
+    n = cfg.n_nodes
+    lead = tkey.shape[:-1]
+    if not cfg.durable_storage:
+        return (torch.zeros(lead + (n,), dtype=torch.bool, device=tkey.device),
+                torch.zeros(lead + (n,), dtype=torch.int32, device=tkey.device))
+    k_jit, k_torn, k_span = threefry.split(threefry.fold_in(tkey, 7), 3).unbind(dim=-2)
+    if now % cfg.fsync_interval == 0:  # the jitter stall matters on cadence ticks only
+        fire = ~bern_u32(k_jit, p_to_u32(cfg.fsync_jitter_prob), (n,))
+    else:
+        fire = torch.zeros(lead + (n,), dtype=torch.bool, device=tkey.device)
+    torn = bern_u32(k_torn, p_to_u32(cfg.torn_tail_prob), (n,))
+    extra = threefry.randint(k_span, (n,), 1, cfg.lost_suffix_span + 1)
+    return fire, torch.where(torn, extra, 0).to(torch.int32)
+
+
 def make_inputs(cfg: RaftConfig, keys: torch.Tensor, now: int) -> StepInputs:
     """Inputs at tick `now` for the clusters keyed by `keys` ([B, 2]), batch-
     leading ([B, ...]) like `jax.vmap(make_inputs)`. All clusters run in
@@ -184,6 +202,7 @@ def make_inputs(cfg: RaftConfig, keys: torch.Tensor, now: int) -> StepInputs:
         restarted = torch.zeros((bsz, n), dtype=torch.bool, device=dev)
 
     reconfig_cmd, transfer_cmd, read_cmd = _admin_cmds(cfg, tkey, now)
+    fsync_fire, torn_drop = _storage_draws(cfg, tkey, now)
 
     def full(shape, value, dtype=torch.int32):
         return torch.full((bsz,) + shape, value, dtype=dtype, device=dev)
@@ -200,6 +219,6 @@ def make_inputs(cfg: RaftConfig, keys: torch.Tensor, now: int) -> StepInputs:
         reconfig_cmd=reconfig_cmd,
         transfer_cmd=transfer_cmd,
         read_cmd=read_cmd,
-        fsync_fire=full((n,), False, torch.bool),
-        torn_drop=full((n,), 0),
+        fsync_fire=fsync_fire,
+        torn_drop=torn_drop,
     )

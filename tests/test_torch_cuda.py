@@ -31,14 +31,15 @@ def card():
 
 @pytest.mark.parametrize(
     "name", ["config1", "config2", "config3", "config4", "config5", "config3p", "config6", "config6r",
-             "config8", "config9"]
+             "config8", "config9", "config10"]
 )
 def test_step_cuda_matches_plain_step(card, name):
     cfg, _ = tconfig.PRESETS[name]
     batch = 1 if name == "config1" else 200  # 200: a ragged last block
     # config6's CAP=32 ring wraps near tick 130; config8's first toggle lands
-    # at tick 97 and its transfers at 61 and 122.
-    ticks = 400 if cfg.compaction else 200 if cfg.reconfig else 64
+    # at tick 97 and its transfers at 61 and 122; config10's crash windows
+    # end at 64 and 128.
+    ticks = 400 if cfg.compaction else 200 if cfg.reconfig or cfg.durable_storage else 64
     s = trb.to_batch_minor(ttypes.init_batch(cfg, threefry.key(0, card), batch))
     keys = threefry.split(threefry.key(1, card), batch)
     before = tick_engine.step_cuda.launches
@@ -54,7 +55,7 @@ def test_step_cuda_matches_plain_step(card, name):
         assert int(s.log_base.min()) > 0  # every node of every cluster compacted
 
 
-@pytest.mark.parametrize("name", ["config2", "config4", "config6r", "config8", "config9"])
+@pytest.mark.parametrize("name", ["config2", "config4", "config6r", "config8", "config9", "config10"])
 def test_simulate_card_matches_cpu(card, name):
     cfg, _ = tconfig.PRESETS[name]
     got = scan.simulate(cfg, 3, 32, 80, device=card)

@@ -78,6 +78,24 @@ ADMIN_ROWS = [
     ),
 ]
 
+# The storage plane's disk draws: config10's 3-tick fsync cadence with 20%
+# jitter and torn tails of 1..3 entries, the oracle row's 25% jitter, and a
+# non-power-of-two span (jax's two-draw randint, not a modulo).
+STORAGE_ROWS = [
+    pytest.param(rst.PRESETS["config10"][0], 250, id="config10"),
+    pytest.param(
+        rst.RaftConfig(n_nodes=5, log_capacity=8, client_interval=2, fsync_interval=3,
+                       fsync_jitter_prob=0.25, torn_tail_prob=0.3, lost_suffix_span=3,
+                       drop_prob=0.2, crash_prob=0.5, crash_period=16, crash_down_ticks=8),
+        200, id="n5-durable-crashes",
+    ),
+    pytest.param(
+        rst.RaftConfig(n_nodes=7, log_capacity=16, fsync_interval=5, fsync_jitter_prob=0.5,
+                       torn_tail_prob=0.9, lost_suffix_span=7),
+        200, id="n7-fsync5-span7",
+    ),
+]
+
 
 def _port_cfg(jcfg):
     return tconfig.RaftConfig(**{f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)})
@@ -118,29 +136,45 @@ def test_make_inputs_admin_commands_match_jax(jcfg, n_ticks):
     assert (got.read_cmd == 1).all()  # the read cadence fired
 
 
+@pytest.mark.parametrize("jcfg,n_ticks", STORAGE_ROWS)
+def test_make_inputs_storage_draws_match_jax(jcfg, n_ticks):
+    """fsync_fire and torn_drop (with every other leaf) equal JAX's every
+    tick; the run drew flushes, jitter stalls and torn tails."""
+    cfg = _port_cfg(jcfg)
+    _check_make_inputs(jcfg, list(range(n_ticks)) + [1000, 2**20 + 3])
+    keys = threefry.split(threefry.key(21), 6)
+    draws = [tfaults.make_inputs(cfg, keys, t) for t in range(n_ticks)]
+    due = [d for t, d in enumerate(draws) if t % cfg.fsync_interval == 0]
+    assert all(not d.fsync_fire.any() for t, d in enumerate(draws) if t % cfg.fsync_interval)
+    assert any(d.fsync_fire.any() for d in due) and any((~d.fsync_fire).any() for d in due)
+    torn = torch.stack([d.torn_drop for d in draws])
+    assert int(torn.max()) == cfg.lost_suffix_span and int(torn[torn > 0].min()) == 1
+
+
 @pytest.mark.parametrize(
     "kw", [dict(crash_prob=0.2), dict(client_redirect=True, client_interval=4, client_pipeline=3),
-           dict(reconfig_interval=10), dict(transfer_interval=10), dict(read_interval=3)],
-    ids=["crash_prob", "client_redirect", "reconfig", "transfer", "reads"],
+           dict(reconfig_interval=10), dict(transfer_interval=10), dict(read_interval=3),
+           dict(fsync_interval=3), dict(fsync_interval=5, fsync_jitter_prob=0.1)],
+    ids=["crash_prob", "client_redirect", "reconfig", "transfer", "reads", "durable_storage",
+         "durable_storage-jitter"],
 )
 def test_crash_and_redirect_inputs_are_accepted(kw):
-    """The crash schedule, the redirect routing and the admin commands are
-    drawn, not refused; tick 0 offers no toggle and no transfer."""
+    """The crash schedule, the redirect routing, the admin commands and the
+    disk draws are drawn, not refused; tick 0 offers no toggle and no
+    transfer, and is an fsync cadence tick."""
     cfg = tconfig.RaftConfig(**kw)
     got = tfaults.make_inputs(cfg, threefry.split(threefry.key(0), 2), 0)
     assert got.alive.all() and not got.restarted.any()  # tick 0 is never a restart
     assert got.client_bounce.shape == (2, cfg.client_pipeline)
     assert (got.reconfig_cmd == -1).all() and (got.transfer_cmd == -1).all()
     assert (got.read_cmd == (1 if cfg.read_index else -1)).all()
+    assert got.fsync_fire.shape == got.torn_drop.shape == (2, cfg.n_nodes)
+    assert bool(got.fsync_fire.any()) == cfg.durable_storage
 
 
 @pytest.mark.parametrize(
     "kw,gate",
-    [
-        (dict(fsync_interval=3), "durable_storage"),
-        (dict(compact_planes=True), "compact_planes"),
-        (dict(fsync_interval=5, fsync_jitter_prob=0.1), "durable_storage"),
-    ],
+    [(dict(compact_planes=True), "compact_planes")],
     ids=lambda x: x if isinstance(x, str) else None,
 )
 def test_unported_input_gates_raise(kw, gate):

@@ -43,6 +43,9 @@ CASES = [
     # toggle (97); config9's lease reads until its CAP=64 ring wraps.
     pytest.param("config8", 4, 200, id="config8"),
     pytest.param("config9", 4, 320, id="config9"),
+    # Slice 4: config10's fsync cadence, recovery and durability gate under
+    # crash churn (its first crash windows end at ticks 64 and 128).
+    pytest.param("config10", 4, 200, id="config10"),
 ]
 
 
@@ -59,6 +62,8 @@ def test_simulate_matches_jax(name, batch, ticks):
     assert int(got_m.violations.sum()) == 0
     if tcfg.read_index:  # the read quantiles were computed from real reads
         assert summary.reads_served > 0 and summary.read_p99 is not None
+    if tcfg.durable_storage:  # the fsync-lag rollup was computed from real lag
+        assert summary.fsync_lag_total > 0 and summary.fsync_lag_p95 is not None
     if tcfg.compaction:  # every cluster's ring wrapped
         assert int(got_s.log_base.amin()) > 0 and int(got_m.max_commit.amin()) > tcfg.log_capacity
 
@@ -122,7 +127,7 @@ def test_default_device_raises_without_a_card():
 @pytest.mark.parametrize(
     "kw,gate",
     [(dict(serve_reads=True), "serve_reads"), (dict(track_trace=True), "track_trace"),
-     (dict(fsync_interval=3), "durable_storage")],
+     (dict(compact_planes=True), "compact_planes")],
     ids=lambda x: x if isinstance(x, str) else None,
 )
 def test_simulate_unsupported_gate_raises(kw, gate):

@@ -75,6 +75,20 @@ def trajectory(jcfg, batch, ticks, seed, p_down=0.0, step=trb.step_b):
     return led
 
 
+# tests/test_oracle_parity.py's storage rows: the durable plane under crash
+# churn, and its PreVote row on the dense layout (JAX pins the compacted
+# layout equal to the dense one, tests/test_storage.py).
+DURABLE_CRASHES = rst.RaftConfig(
+    n_nodes=5, log_capacity=8, client_interval=2, fsync_interval=3, fsync_jitter_prob=0.25,
+    torn_tail_prob=0.3, lost_suffix_span=3, drop_prob=0.2, crash_prob=0.5, crash_period=16,
+    crash_down_ticks=8,
+)
+DURABLE_PREVOTE_DENSE = rst.RaftConfig(
+    n_nodes=5, log_capacity=8, max_entries_per_rpc=2, client_interval=1, fsync_interval=4,
+    fsync_jitter_prob=0.3, torn_tail_prob=0.4, lost_suffix_span=4, pre_vote=True,
+    drop_prob=0.25, crash_prob=0.5, crash_period=14, crash_down_ticks=8,
+)
+
 RECONFIG_PLANE = rst.RaftConfig(
     n_nodes=5, log_capacity=8, client_interval=2, reconfig_interval=11, transfer_interval=13,
     read_interval=3, drop_prob=0.2, crash_prob=0.4, crash_period=16, crash_down_ticks=8,
@@ -137,6 +151,13 @@ ROWS = [
                        clock_skew_prob=0.2),
         8, 120, 0.06, id="n5-reconfig-lease-transfer-crash-fuzz",
     ),
+    # The storage plane: config10 (fsync every 3 ticks with jitter, torn
+    # tails, crash churn), the oracle's two storage rows, and crash fuzz on
+    # top (restarts outside the schedule, so recovery runs on many ticks).
+    pytest.param(rst.PRESETS["config10"][0], 8, 160, 0.0, id="config10"),
+    pytest.param(DURABLE_CRASHES, 8, 150, 0.0, id="n5-durable-crashes"),
+    pytest.param(DURABLE_PREVOTE_DENSE, 8, 150, 0.0, id="n5-durable-prevote-dense"),
+    pytest.param(DURABLE_CRASHES, 8, 100, 0.08, id="n5-durable-crash-fuzz"),
 ]
 
 
@@ -391,6 +412,56 @@ def test_plain_step_matches_jax_on_reconfig_and_lease_states(name):
         st = st2
 
 
+def storage_edge_case(n):
+    """The word-edge recovery fixture of tests/test_storage.py at N nodes:
+    (JAX cfg, batch-minor JAX state, [batch-minor JAX inputs per tick], B=1).
+    Tick 0 forces restarts on the even nodes with torn spans 0..6 against
+    logs of (7 i) % 17 entries fsynced to half (no flush, no client offer);
+    three drawn ticks follow."""
+    from raft_sim_tpu.types import NIL
+    from tests.test_storage import _dur_cfg
+
+    cfg = _dur_cfg(n)
+    k_init, k_run = jax.random.split(jax.random.key(n))
+    s = rst.init_state(cfg, k_init)
+    ar = np.arange(n)
+    log_len = ((ar * 7) % 17).astype(np.int32)
+    s = s._replace(log_len=jnp.asarray(log_len), dur_len=jnp.asarray(log_len // 2))
+    inp0 = jfaults.make_inputs(cfg, k_run, s.now)._replace(
+        restarted=jnp.asarray(ar % 2 == 0), alive=jnp.ones(n, bool),
+        torn_drop=jnp.asarray((ar % 7).astype(np.int32)), fsync_fire=jnp.zeros(n, bool),
+        client_cmd=jnp.int32(NIL),
+    )
+    inps = [inp0] + [jfaults.make_inputs(cfg, k_run, jnp.int32(t)) for t in range(1, 4)]
+    lift = lambda t: jax.tree.map(lambda x: jnp.asarray(x)[..., None], t)  # noqa: E731
+    return cfg, lift(s), [lift(i) for i in inps]
+
+
+@pytest.mark.parametrize("n", [31, 32, 33])
+def test_plain_step_matches_jax_on_recovery_word_edges(n):
+    """Recovery truncates every restarted log to max(dur_len, log_len -
+    torn_drop) and rewinds term/vote, at N straddling the packed vote word;
+    the plain tick equals JAX step_b on the forced tick and three after."""
+    jcfg, st, inps = storage_edge_case(n)
+    cfg = _port_cfg(jcfg)
+    jstep = _jitted_step_b(jcfg)
+    ar = np.arange(n)
+    log_len = (ar * 7) % 17
+    for t, inp in enumerate(inps):
+        want_s, want_i = jax.device_get(jstep(st, inp))
+        s_np, i_np = jax.device_get((st, inp))
+        got_s, got_i = trb.step_b(
+            cfg, bridge.to_port(s_np, ttypes.ClusterState), bridge.to_port(i_np, ttypes.StepInputs)
+        )
+        diff = bridge.first_difference(want_s, got_s) or bridge.first_difference(want_i, got_i)
+        assert diff is None, f"N={n} tick {t}: {diff}"
+        if t == 0:
+            expect = np.where(ar % 2 == 0, np.maximum(log_len // 2, log_len - ar % 7), log_len)
+            assert got_s.log_len[:, 0].tolist() == expect.tolist()
+            assert got_s.dur_len[:, 0].tolist() == np.minimum(log_len // 2, expect).tolist()
+        st = jstep(st, inp)[0]
+
+
 def test_step_cuda_on_cpu_tensors_is_the_plain_step():
     """step_cuda dispatches CPU tensors to the plain tick (no kernel launch)."""
     before = tick_engine.step_cuda.launches
@@ -484,19 +555,48 @@ def test_plain_step_matches_step_pallas_interpret_reconfig_plane():
         st = jstep(st, inp)[0]
 
 
+def test_plain_step_matches_step_pallas_interpret_durable_storage():
+    """K1 on the storage plane: step_pallas (interpret mode) on config10, two
+    ticks from a mid-run state (flushes, restarts, watermarks behind logs)."""
+    jcfg = rst.PRESETS["config10"][0]
+    cfg = _port_cfg(jcfg)
+    B = 4
+    st = jrb.to_batch_minor(rst.init_batch(jcfg, jax.random.key(9), B))
+    keys = jax.random.split(jax.random.key(10), B)
+    jstep = _jitted_step_b(jcfg)
+    draw = jax.jit(
+        lambda k, now: jrb.to_batch_minor(jax.vmap(lambda kk: jfaults.make_inputs(jcfg, kk, now))(k))
+    )
+    for t in range(70):
+        st = jstep(st, draw(keys, jnp.int32(t)))[0]
+    assert int(np.asarray(st.dur_len).max()) > 0  # flushes completed
+    for t in range(70, 72):
+        inp = draw(keys, jnp.int32(t))
+        want_s, want_i = jax.device_get(pallas_engine.step_pallas(jcfg, st, inp, block_b=4, interpret=True))
+        s_np, i_np = jax.device_get((st, inp))
+        got_s, got_i = trb.step_b(
+            cfg, bridge.to_port(s_np, ttypes.ClusterState), bridge.to_port(i_np, ttypes.StepInputs), t
+        )
+        assert bridge.first_difference(want_s, got_s) is None, t
+        assert bridge.first_difference(want_i, got_i) is None, t
+        st = jstep(st, inp)[0]
+
+
 @pytest.mark.parametrize(
     "kw",
     [dict(pre_vote=True), dict(compact_margin=4, log_capacity=16),
      dict(client_redirect=True, client_interval=4, client_pipeline=5),
      dict(reconfig_interval=10), dict(transfer_interval=10), dict(read_interval=3), LEASE_KW,
-     dict(reconfig_interval=10, compact_margin=4, log_capacity=16)],
+     dict(reconfig_interval=10, compact_margin=4, log_capacity=16),
+     dict(fsync_interval=3)],
     ids=["pre_vote", "compaction", "client_redirect", "reconfig", "transfer", "reads", "lease",
-         "reconfig-under-compaction"],
+         "reconfig-under-compaction", "durable_storage"],
 )
 def test_ported_gates_are_accepted(kw):
-    """PreVote, compaction, the redirect client and the reconfiguration plane
-    (membership, transfer, reads, leases; membership under compaction) run
-    through both the plain tick and the kernel's gate check."""
+    """PreVote, compaction, the redirect client, the reconfiguration plane
+    (membership, transfer, reads, leases; membership under compaction) and
+    the durable storage plane run through both the plain tick and the
+    kernel's gate check."""
     cfg = tconfig.RaftConfig(**kw)
     assert trb.unsupported_gates(cfg) == []
     tick_engine.check_supported(cfg)
@@ -527,6 +627,24 @@ class _LeaseSkewUnsafe(tconfig.RaftConfig):
         return False
 
 
+@dataclasses.dataclass(frozen=True)
+class _AckBeforeFsync(tconfig.RaftConfig):
+    """A TEST-ONLY mutant config: acks and grants expose volatile state."""
+
+    @property
+    def durable_acks(self) -> bool:
+        return False
+
+
+@dataclasses.dataclass(frozen=True)
+class _VolatileVote(tconfig.RaftConfig):
+    """A TEST-ONLY mutant config: recovery forgets votedFor."""
+
+    @property
+    def persist_vote(self) -> bool:
+        return False
+
+
 @pytest.mark.parametrize(
     "kw,gate",
     [
@@ -534,7 +652,8 @@ class _LeaseSkewUnsafe(tconfig.RaftConfig):
          "log matching under compaction"),
         (dict(serve_reads=True), "serve_reads"),
         (dict(cls=_SingleServerChange, reconfig_interval=10), "mutant hook joint_consensus"),
-        (dict(fsync_interval=3), "durable_storage"),
+        (dict(cls=_AckBeforeFsync, fsync_interval=3), "mutant hook durable_acks"),
+        (dict(cls=_VolatileVote, fsync_interval=3), "mutant hook persist_vote"),
         (dict(compact_planes=True), "compact_planes"),
         (dict(track_trace=True), "track_trace"),
         (dict(serve_ingest=True), "serve_ingest"),

@@ -26,7 +26,16 @@ from raft_sim_tpu_torch.models import raft_batched as trb
 from raft_sim_tpu_torch.sim import faults
 from raft_sim_tpu_torch.utils import config as tconfig
 from raft_sim_tpu_torch.utils import threefry
-from tests.test_torch_step import HAND_BUILT, RECONFIG_CASES, hand_built_batch, reconfig_case_batch
+from tests.test_torch_step import (
+    DURABLE_CRASHES,
+    DURABLE_PREVOTE_DENSE,
+    HAND_BUILT,
+    RECONFIG_CASES,
+    _port_cfg,
+    hand_built_batch,
+    reconfig_case_batch,
+    storage_edge_case,
+)
 
 torch.set_num_threads(1)
 
@@ -132,6 +141,19 @@ ROWS = [
                            drop_prob=0.1),
         3, 120, 0.03, id="n33-reconfig-lease-redirect-compaction-crash-fuzz",
     ),
+    # The storage plane: config10, the oracle's storage rows (the PreVote one
+    # on the dense layout) under crash fuzz, and N=33 (two packed vote words)
+    # with transfers and PreVote beside it.
+    pytest.param(tconfig.PRESETS["config10"][0], 7, 200, 0.0, id="config10-ragged-b7"),
+    pytest.param(_port_cfg(DURABLE_CRASHES), 8, 150, 0.06, id="n5-durable-crashes-crash-fuzz"),
+    pytest.param(_port_cfg(DURABLE_PREVOTE_DENSE), 8, 150, 0.06, id="n5-durable-prevote-dense-crash-fuzz"),
+    pytest.param(
+        tconfig.RaftConfig(n_nodes=33, log_capacity=12, client_interval=2, fsync_interval=2,
+                           fsync_jitter_prob=0.3, torn_tail_prob=0.5, lost_suffix_span=4,
+                           transfer_interval=7, pre_vote=True, election_min_ticks=8,
+                           election_range_ticks=6, drop_prob=0.1),
+        3, 120, 0.04, id="n33-durable-prevote-transfer-crash-fuzz",
+    ),
 ]
 
 
@@ -191,6 +213,22 @@ def test_tick_body_matches_plain_step_on_reconfig_and_lease_states(host_lib, nam
         s = want[0]
 
 
+@pytest.mark.parametrize("n", [31, 32, 33])
+def test_tick_body_matches_plain_step_on_recovery_word_edges(host_lib, n):
+    """The word-edge recovery fixture of tests/test_torch_step.py (forced
+    restarts with torn spans at N=31/32/33), each tick of its run."""
+    jcfg, st, inps = storage_edge_case(n)
+    cfg = _port_cfg(jcfg)
+    s = bridge.to_port(jax.device_get(st), ttypes.ClusterState)
+    for t, inp in enumerate(inps):
+        inp = bridge.to_port(jax.device_get(inp), ttypes.StepInputs)
+        want = trb.step_b(cfg, s, inp)
+        got = tick_engine.step_host(host_lib, cfg, s, inp)
+        diff = bridge.first_difference(want[0], got[0]) or bridge.first_difference(want[1], got[1])
+        assert diff is None, f"N={n} tick {t}: {diff}"
+        s = want[0]
+
+
 def test_wrapper_rejects_bad_leaves(host_lib):
     cfg = tconfig.PRESETS["config2"][0]
     s = trb.to_batch_minor(ttypes.init_batch(cfg, threefry.key(0), 4))
@@ -227,6 +265,9 @@ def test_wrapper_rejects_bad_leaves(host_lib):
         # read legs, the lease anchor and heard_clock on config6's ring.
         ("config8", (6_389, 6_402)),
         ("config9", (5_091, 5_197)),
+        # The storage plane: the three watermarks both ways, the two disk
+        # inputs and the lag pair, on an N=5, CAP=64 log (int16 index tier).
+        ("config10", (4_872, 4_848)),
     ],
 )
 def test_traffic_bytes_pinned(name, per_cluster):
@@ -296,3 +337,13 @@ def test_gated_legs_follow_the_config():
                                     election_min_ticks=8)
     lease = live(lease_cfg) - live(dataclasses.replace(plain5, read_interval=3))
     assert {f for _, f in lease} == {"read_fr", "viol_read_stale", "heard_clock"}
+    # The storage plane: the watermarks both ways, the disk draws in, the
+    # lag pair out.
+    dur = live(dataclasses.replace(plain5, fsync_interval=3)) - live(plain5)
+    assert dur == {
+        ("state", "dur_len"), ("state_out", "dur_len"),
+        ("state", "dur_term"), ("state_out", "dur_term"),
+        ("state", "dur_vote"), ("state_out", "dur_vote"),
+        ("inputs", "fsync_fire"), ("inputs", "torn_drop"),
+        ("info_out", "fsync_lag_sum"), ("info_out", "fsync_lag_max"),
+    }
