@@ -7,11 +7,14 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
 
 1. device  -- `nvidia-smi` name and power limit, torch and CUDA versions, then
    the tick kernel's build from raft_sim_tpu_torch/csrc (nvcc, sm_90a) with its
-   seconds and the compiler's register/stack/spill report per instantiation.
+   seconds and the compiler's register/stack/spill report per instantiation
+   (tick_kernel<index, ack, node dtype, nodes per thread, full gate set>).
 2. kernel_vs_plain -- presets config1-config5 and config3p for 96 ticks,
    config6 and config6r for 400 (their CAP=32 rings wrap near tick 130),
-   config8, config9 and config10 for 400, at a batch of 200 (one full block
-   and a ragged edge; config1 at its batch of 1), plus config6-cap8 (config6 on an
+   config8, config9 and config10 for 400, at a batch of 200 (config1 at its
+   batch of 1), config2 and config5 at a batch of 45 for 96 (a ragged last
+   block of clusters at N=5 and at N=51, two nodes a thread), plus
+   config6-cap8 (config6 on an
    8-slot ring with 2-entry windows and an offer every 2 ticks) for 200
    ticks: every tick, the kernel (`step_cuda`) on the card equals the plain
    PyTorch tick (`raft_batched.step_b`) on the card from the same state and
@@ -48,7 +51,11 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    config6/config6r/config9 every cluster's max commit above CAP (its ring
    wrapped), config8/config9 reads served in every cluster, and config10 an
    fsync lag in every cluster and dur_len <= log_len on every node of the
-   final state. Then, from the run's final state: FULL_HOLD_TICKS ticks
+   final state. A `kernel_shape` line gives the launch's block shape (tc
+   clusters x s node slots, nodes per thread), its dynamic shared-memory
+   bytes, the gate set of the body it runs (as the kernel's library decides
+   it) and ptxas's registers/stack/spills for that instantiation.
+   Then, from the run's final state: FULL_HOLD_TICKS ticks
    of kernel == plain tick at full width (state and StepInfo, exact), kernel
    ms/tick (CUDA events) against its bound (bytes read + written over
    3.35 TB/s), and ms/tick for input generation, the wrapped step, the plain
@@ -234,12 +241,14 @@ def main() -> int:
     max_err = 0
 
     # ---- 2: kernel vs plain, on the card ---------------------------------------
-    # 200 clusters: one full block of 128 threads and a ragged, masked edge.
-    # config6-cap8 makes followers fall behind the leader's base, so the
-    # InstallSnapshot path runs (config6 itself sends no sentinel at this size).
+    # 45 clusters: a ragged, masked last block at any block shape (8, 16 or
+    # 32 clusters a block). config6-cap8 makes followers fall behind the
+    # leader's base, so the InstallSnapshot path runs (config6 itself sends no
+    # sentinel at this size).
     cfg6 = PRESETS["config6"][0]
     parity = [(name, PRESETS[name][0], 1 if name == "config1" else 200, 96)
               for name in ("config1", "config2", "config3", "config4", "config5", "config3p")]
+    parity += [(f"{name}-ragged-b45", PRESETS[name][0], 45, 96) for name in ("config2", "config5")]
     parity += [("config6", cfg6, 200, 400), ("config6r", PRESETS["config6r"][0], 200, 400),
                ("config6-cap8", dataclasses.replace(cfg6, log_capacity=8, compact_margin=4,
                                                     max_entries_per_rpc=2, client_interval=2),
@@ -338,10 +347,14 @@ def main() -> int:
             if bool((final.dur_len > final.log_len).any()):
                 raise AssertionError(f"{name}: a node's dur_len passed its log_len")
 
+        s = raft_batched.to_batch_minor(final)
+        shape = tick_engine.launch_shape(cfg, batch, dev)
+        shape.update(tick_engine.kernel_report(cfg, s, shape["nodes_per_thread"]), body="node-parallel")
+        emit({"phase": "kernel_shape", "preset": name, "batch": batch, **shape})
+
         # Kernel vs plain at full width from the run's final state, for
         # FULL_HOLD_TICKS ticks (one log-matching tick at config5's interval
         # of 16, two client offers at config2's interval of 8).
-        s = raft_batched.to_batch_minor(final)
         keys = threefry.split(threefry.split(threefry.key(SEED, dev), 2)[1], batch)
         hold_ticks(cfg, s, keys, ticks, FULL_HOLD_TICKS, f"{name} full width")
 
@@ -370,7 +383,7 @@ def main() -> int:
             "noop_blocked": int(metrics.noop_blocked.sum()),
             "reads_served_min": int(metrics.reads_served.min()),
             "fsync_lag_sum_min": int(metrics.fsync_lag_sum.min()),
-            "summary": summ._asdict(),
+            "summary": summ._asdict(), "shape": shape,
         }
         cells.append(cell)
         emit(cell)
@@ -411,7 +424,7 @@ def main() -> int:
         "match": True,
         "measured_at": f"{main_cell['preset']} batch {main_cell['batch']}",
         "cells": {c["preset"]: {k: c[k] for k in ("batch", "kernel_ms", "bound_ms", "plain_ms",
-                                                  "launches", "kernel_vs_plain_ticks")}
+                                                  "launches", "kernel_vs_plain_ticks", "shape")}
                   for c in cells},
     }]})
     print(smi, flush=True)

@@ -1,46 +1,62 @@
-// Hopper tick kernel: one whole Raft tick for B clusters, one thread per
-// cluster, running the scalar per-cluster body of tick.cuh.
+// Hopper tick kernel: one whole Raft tick for B clusters, node-parallel, over
+// the phase functions of tick.cuh.
 //
 // Replaces the repository's one TPU kernel, raft_sim_tpu/experiments/
 // pallas_engine.py `step_pallas` (its pl.pallas_call fuses raft_batched.step_b
 // + _step_info_b over blocks of clusters held in VMEM).
 //
-// What bounds it on an H100: memory. The tick is integer compare/select work,
-// a few thousand operations per cluster, against the leaves it must read once
-// and write once every tick. Each gate makes its own legs live, and legs a
-// gate leaves untouched pass through uncopied (kernels/tick_engine.leg_live):
-// compaction the snapshot triple (base_term in, log_base/base_term/base_chk
-// out), the mailbox's req_base/req_base_term/req_base_chk and StepInfo's
-// noop_blocked; PreVote heard_clock and the packed pv_grant plane; the
-// redirect client its K pipeline slots (client_pend/client_dst, client_tick
-// with the offer-tick plane) and the client_target/client_bounce inputs; the
-// reconfiguration plane its member rows, config-entry plane, snapshot config
-// context, transfer and read legs and admin inputs; the storage plane its
-// durable watermarks, the fsync_fire/torn_drop inputs and the fsync-lag pair.
-// Per cluster (kernels/tick_engine.traffic_bytes), bytes read / written:
-// config3 (N=5, CAP=32) 2,087 / 2,080; config3p 2,127 / 2,120; config6
-// (CAP=32, E=4, int32 index tier) 3,067 / 3,104; config6r (K=5) 3,151 /
-// 3,164; config8 (CAP=64, reconfig + transfer + reads) 6,389 / 6,402;
-// config9 (CAP=64 ring, reads + lease) 5,091 / 5,197; config10 (CAP=64,
-// durable storage) 4,872 / 4,848. 100,000 config3
-// clusters move 0.42 GB per tick, 0.124 ms at 3.35 TB/s. The design keeps to
-// one pass over those leaves: each thread reads its cluster's leaves, keeps
-// every per-node intermediate in registers or thread-local arrays, and writes
-// each output leaf once -- no intermediate ever goes to device memory. Leaves
-// are batch-minor, so a warp's 32 threads read and write 32 consecutive
-// elements of every leaf (coalesced).
-// Not yet done (later work): staging the [N, N] planes in shared memory for
-// N=51, drawing the threefry inputs inside the kernel instead of reading them,
-// and a CUDA graph over ticks.
+// Thread mapping. A block holds `tc` consecutive clusters x `s` node slots:
+// thread t owns cluster t % tc of the block and the nodes slot, slot + s
+// (slot = t / tc), NPT = ceil(N / s) of them, 1 or 2 (a template parameter,
+// so each node's NodeCtx sits in registers with compile-time indices). With
+// tc = 32 a warp is 32 consecutive clusters of one node slot; with tc = 16 or
+// 8 it is 2 or 4 runs of 16 or 8; every [.., B] leaf access by a warp stays
+// runs of consecutive addresses, as the layout is batch-minor. s = N for
+// N <= 32, else 32 with two nodes a thread (node slot, then slot + 32, so a
+// warp is on one node at a time). The wrapper (kernels/tick_engine.py
+// `block_shape`) picks tc from N and B: 32 while s <= 16, else 16 (at most
+// 512 threads a block, so up to 128 registers a thread), halved down to 8
+// while that gives fewer than two blocks per SM. Intermediates one node
+// writes and another reads in a later phase, and the per-cluster
+// accumulators, live in dynamic shared memory (tick.cuh `Xch`,
+// `smem_bytes`); a __syncthreads() ends each of the seven phases, and every
+// thread reaches every barrier (a thread past the ragged batch edge, or
+// whose second node slot is >= N, skips the work only). Log matching reads
+// the max-commit node's output log rows, which its own thread of the same
+// block wrote before the last barriers.
+//
+// What bounds it on an H100: memory, at 100,000 clusters -- the tick is
+// integer compare/select work against the leaves it must read once and write
+// once. Per cluster (kernels/tick_engine.traffic_bytes), bytes read /
+// written: config3 (N=5, CAP=32) 2,087 / 2,080; config5 (N=51) 26,787 /
+// 25,564; config8 6,389 / 6,402. 100,000 config3 clusters move 0.42 GB per
+// tick, 0.124 ms at 3.35 TB/s. At 1,000 and 10,000 clusters the bound is
+// micro-seconds and the kernel is latency-bound: the length of one worker's
+// dependency chain and the number of blocks in flight decide its time. The
+// first design ran one thread per cluster over every node in turn: ~30
+// [MAXN] arrays indexed by a runtime node, so 19 KB of stack a thread in
+// local memory, O(N^2) serial steps a phase at N=51, and 8 blocks at 1,000
+// clusters. This one keeps a node's state in registers, makes each worker's
+// chain O(N) (O(N^2) only for a leader's quorum match and the redirect
+// slots), and runs N times the threads: 5,000 at N=5 x 1,000 clusters in
+// 125 blocks, 320,000 at N=51 x 10,000 in 625 blocks. Each node's mailbox
+// header is staged once in shared memory (phase 0), so the per-sender loops
+// of every node read it there. The body is instantiated for the lean gate
+// set (config1-config5, config3p) with the other gates compile-time off: 63
+// registers a thread instead of 108, so an SM holds twice the clusters.
+// Not yet done (later work): drawing the threefry inputs inside the kernel
+// instead of reading them, and a CUDA graph over ticks.
 //
 // Build (kernels/tick_engine.py does this at first use): this file is
 // compiled once per index dtype tier, the three nvcc runs in parallel,
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC
 //        -c -DRS_IDX_BYTES=1|2|4 -o tick_i<k>.o tick.cu
 // and the objects are linked into one shared library (nvcc -shared). Each
-// object holds its tier's four (ack, node) instantiations and
-// `rs_tick_launch_i<k>`; the RS_IDX_BYTES=1 object also holds the entry points
-// `rs_tick_launch` and `rs_tick_n_ptr`.
+// object holds its tier's (ack dtype, nodes per thread, gate set)
+// instantiations -- eight, four for the int32 tier (full gate set only) --
+// and `rs_tick_launch_i<k>`; the RS_IDX_BYTES=1 object also holds the entry
+// points `rs_tick_launch`, `rs_tick_n_ptr`, `rs_tick_smem_bytes` and
+// `rs_tick_lean` (which body a launch runs, for the wrapper's report).
 #include <cuda_runtime.h>
 
 #include "tick.cuh"
@@ -62,56 +78,129 @@ typedef int32_t TierIdx;
 #define RS_CAT(a, b) RS_CAT2(a, b)
 #define RS_TIER_LAUNCH RS_CAT(rs_tick_launch_i, RS_IDX_BYTES)
 
-extern "C" int rs_tick_launch_i1(const rs::TickArgs*, int, int, unsigned, cudaStream_t);
-extern "C" int rs_tick_launch_i2(const rs::TickArgs*, int, int, unsigned, cudaStream_t);
-extern "C" int rs_tick_launch_i4(const rs::TickArgs*, int, int, unsigned, cudaStream_t);
+struct LaunchShape {
+  unsigned grid;
+  int tc, s, npt, smem;
+};
+
+extern "C" int rs_tick_launch_i1(const rs::TickArgs*, int, int, const LaunchShape*, cudaStream_t);
+extern "C" int rs_tick_launch_i2(const rs::TickArgs*, int, int, const LaunchShape*, cudaStream_t);
+extern "C" int rs_tick_launch_i4(const rs::TickArgs*, int, int, const LaunchShape*, cudaStream_t);
 
 namespace {
 
-template <class I, class A, class N>
-__global__ void __launch_bounds__(128) tick_kernel(const rs::TickArgs a) {
-  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b < a.p.b) rs::tick_cluster<I, A, N>(a.p, a.ptr, b);  // ragged edge masked
+// Phase PH for this thread: its nodes, then (node slot 0) its cluster.
+template <class I, class A, class N, int NPT, bool FULL, int PH>
+__device__ __forceinline__ void run_phase(const rs::TickArgs& a, rs::NodeCtx* x, const rs::Xch& X,
+                                          int64_t b, int ci, int slot, int s) {
+#pragma unroll
+  for (int k = 0; k < NPT; ++k) {
+    const int i = slot + k * s;
+    if (i < a.p.n) rs::node_phase<I, A, N, FULL, PH>(a.p, a.ptr, x[k], X, b, ci, i);
+  }
+  if (slot == 0) rs::cluster_phase<FULL, PH>(a.p, a.ptr, X, b, ci);
 }
 
-template <class A, class N>
-void launch(const rs::TickArgs* args, unsigned grid, cudaStream_t s) {
-  tick_kernel<TierIdx, A, N><<<grid, 128, 0, s>>>(*args);
+template <class I, class A, class N, int NPT, bool FULL>
+__global__ void __launch_bounds__(rs::MAX_THREADS) tick_kernel(const rs::TickArgs a, int tc, int s) {
+  extern __shared__ int32_t smem[];
+  const int t = threadIdx.x;
+  const int ci = t % tc, slot = t / tc;
+  const int64_t b = (int64_t)blockIdx.x * tc + ci;
+  const bool live = b < a.p.b;  // ragged edge masked; every barrier still reached
+  const rs::Xch X{smem, a.p.n, tc};
+  rs::NodeCtx x[NPT];
+#define RS_PHASE(PH) \
+  if (live) run_phase<I, A, N, NPT, FULL, PH>(a, x, X, b, ci, slot, s)
+  RS_PHASE(0);
+  __syncthreads();
+  RS_PHASE(1);
+  __syncthreads();
+  RS_PHASE(2);
+  __syncthreads();
+  RS_PHASE(3);
+  __syncthreads();
+  RS_PHASE(4);
+  __syncthreads();
+  RS_PHASE(5);
+  __syncthreads();
+  RS_PHASE(6);
+#undef RS_PHASE
+}
+
+template <class A, int NPT, bool FULL>
+int launch(const rs::TickArgs* args, const LaunchShape* sh, cudaStream_t st) {
+  auto kern = tick_kernel<TierIdx, A, int8_t, NPT, FULL>;
+  if (sh->smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, sh->smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kern<<<sh->grid, sh->tc * sh->s, sh->smem, st>>>(*args, sh->tc, sh->s);
+  return 0;
+}
+
+// The body for the config's gate set: lean (the gates of config1-config5
+// and config3p, FULL = false) or every gate. The int32 index tier comes only with compaction,
+// outside the lean set, so its object holds the full body alone.
+template <class A, int NPT>
+int launch_gates(const rs::TickArgs* args, const LaunchShape* sh, cudaStream_t st) {
+#if RS_IDX_BYTES != 4
+  if (rs::lean_gates(args->p)) return launch<A, NPT, false>(args, sh, st);
+#endif
+  return launch<A, NPT, true>(args, sh, st);
+}
+
+template <class A>
+int launch_npt(const rs::TickArgs* args, const LaunchShape* sh, cudaStream_t st) {
+  return sh->npt == 1 ? launch_gates<A, 1>(args, sh, st) : launch_gates<A, 2>(args, sh, st);
 }
 
 }  // namespace
 
-// This tier's four (ack, node) instantiations; 99 for a combination none takes.
+// This tier's (ack, nodes-per-thread, gate set) instantiations; 99 for a
+// combination none takes. The node dtype is int8: N <= MAXN = 64 is within
+// its tier (types.node_dtype), so the int16 node tier never reaches the kernel.
 extern "C" int RS_TIER_LAUNCH(const rs::TickArgs* args, int ack_bytes, int node_bytes,
-                              unsigned grid, cudaStream_t s) {
-  if (ack_bytes == 1 && node_bytes == 1) launch<int8_t, int8_t>(args, grid, s);
-  else if (ack_bytes == 2 && node_bytes == 1) launch<int16_t, int8_t>(args, grid, s);
-  else if (ack_bytes == 1 && node_bytes == 2) launch<int8_t, int16_t>(args, grid, s);
-  else if (ack_bytes == 2 && node_bytes == 2) launch<int16_t, int16_t>(args, grid, s);
-  else return 99;
-  return 0;
+                              const LaunchShape* sh, cudaStream_t st) {
+  if (node_bytes != 1) return 99;
+  if (ack_bytes == 1) return launch_npt<int8_t>(args, sh, st);
+  if (ack_bytes == 2) return launch_npt<int16_t>(args, sh, st);
+  return 99;
 }
 
 #if RS_IDX_BYTES == 1
-// Launches one tick on `stream`; returns cudaGetLastError() (0 = launched),
-// or 100+ / 99 for shapes or dtype tiers this kernel does not take.
+// Launches one tick on `stream` with blocks of `tc` clusters x `s` node
+// slots; returns cudaGetLastError() (0 = launched), or 100+ / 99 for shapes,
+// block shapes or dtype tiers this kernel does not take.
 extern "C" int rs_tick_launch(const rs::TickParams* p, void* const* ptrs, int idx_bytes,
-                              int ack_bytes, int node_bytes, void* stream) {
+                              int ack_bytes, int node_bytes, int tc, int s, void* stream) {
   const int bad = rs::check_params(*p);
   if (bad) return 100 + bad;
+  if (tc < 1 || s < 1 || tc * s > rs::MAX_THREADS) return 120;
+  LaunchShape sh;
+  sh.tc = tc;
+  sh.s = s;
+  sh.npt = (p->n + s - 1) / s;
+  if (sh.npt > 2) return 121;
+  const int64_t smem = rs::smem_bytes(p->n, tc);
+  if (smem > 232448) return 122;  // the most a block may have on Hopper
+  sh.smem = (int)smem;
   if (p->b == 0) return 0;
+  sh.grid = (unsigned)((p->b + tc - 1) / tc);
   rs::TickArgs args;
   args.p = *p;
   for (int k = 0; k < rs::N_PTR; ++k) args.ptr[k] = ptrs[k];
-  const unsigned grid = (unsigned)((p->b + 127) / 128);
-  cudaStream_t s = (cudaStream_t)stream;
+  cudaStream_t st = (cudaStream_t)stream;
   int rc = 99;
-  if (idx_bytes == 1) rc = rs_tick_launch_i1(&args, ack_bytes, node_bytes, grid, s);
-  else if (idx_bytes == 2) rc = rs_tick_launch_i2(&args, ack_bytes, node_bytes, grid, s);
-  else if (idx_bytes == 4) rc = rs_tick_launch_i4(&args, ack_bytes, node_bytes, grid, s);
+  if (idx_bytes == 1) rc = rs_tick_launch_i1(&args, ack_bytes, node_bytes, &sh, st);
+  else if (idx_bytes == 2) rc = rs_tick_launch_i2(&args, ack_bytes, node_bytes, &sh, st);
+  else if (idx_bytes == 4) rc = rs_tick_launch_i4(&args, ack_bytes, node_bytes, &sh, st);
   if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }
 
 extern "C" int rs_tick_n_ptr() { return rs::N_PTR; }
+extern "C" long long rs_tick_smem_bytes(int n, int tc) { return rs::smem_bytes(n, tc); }
+extern "C" int rs_tick_lean(const rs::TickParams* p) { return rs::lean_gates(*p); }
 #endif

@@ -1,5 +1,5 @@
-// One Raft tick for one cluster, as a scalar algorithm: the per-cluster body of
-// the Hopper tick kernel (tick.cu) and of its CPU build (tick_host.cpp).
+// One Raft tick for a tile of clusters, node-parallel: the body of the Hopper
+// tick kernel (tick.cu) and of its CPU build (tick_host.cpp).
 //
 // Semantics are raft_sim_tpu/models/raft_batched.py `_step_b` + `_step_info_b`
 // (dense layout, single device) over the gate set of presets config1-config10
@@ -10,16 +10,42 @@
 // joint-consensus membership (with the snapshot config context under
 // compaction), TimeoutNow transfer, ReadIndex and lease reads, and the durable
 // storage plane (fsync watermarks, the durability gate, crash recovery).
-// Every leaf it writes equals the JAX tick's. The JAX form is a vectorised
-// `where` lattice over [N, N, B] planes; here thread b walks its own cluster
-// with loops over nodes and log entries, in the JAX phase order (-1 restart
-// and recovery, 0 delivery, 1 term adoption, 2 RequestVote, 3 AppendEntries
-// and snapshot install, 3.5 PreVote requests, 3.7 TimeoutNow receipt,
-// 4 responses, 4.5 PreVote promotion, 5 commit, 5.2 transfer and reads,
-// latency, 5.5 compaction and the ring checksum, 6 no-op / config entry /
-// client injection / redirect routing, 7 timers, 7.5 fsync flush and the
-// durability gate, 8 outbox, prefix checksum, end-of-tick configuration,
-// 9 StepInfo).
+// Every leaf it writes equals the JAX tick's.
+//
+// Work split: one worker per (cluster, node). A worker keeps its node's state
+// in a NodeCtx (registers on the card) and runs the tick as a sequence of
+// phase functions; a barrier ends each phase. A worker reads its own node's
+// values, any node's INPUT leaves (the deliver-mask rows and the mailbox's
+// per-edge planes straight from device memory; mailbox headers and
+// alive/up from their copy in the exchange, staged in phase 0), and other
+// nodes' INTERMEDIATES only through the exchange (`Xch`), and only values
+// written in an earlier phase. Cluster-scoped work (the accumulators, the redirect
+// pipeline's K slots, the [B]-shaped outputs) runs on one worker per cluster
+// (`cluster_phase`), under the same rule. Counters summed over nodes go to
+// per-cluster accumulators by atomic add / min / max / or, whose result does
+// not depend on the order of the workers.
+//
+// Phases (JAX phase numbers in brackets):
+//   0 each node stages its mailbox header and alive/up flags in the exchange
+//     (every node's loops over senders read them there); (cluster) zero the
+//     accumulators.
+//   1 load [-1 restart and recovery], term adoption [1], RequestVote [2],
+//     AppendEntries and snapshot install [3], the PreVote voter's grant row
+//     [3.5], TimeoutNow receipt [3.7], responses, PreVote promotion and leader
+//     commit [4, 4.5, 5]. Exports commit, leader id, transfer eligibility and
+//     the grant row.
+//   2 the max-commit node, transfer keep/accept and ReadIndex/lease serving
+//     [5.2], offer latency, compaction and the ring checksum [5.5], the no-op
+//     slot [6]. Exports read-capture and config-toggle eligibility.
+//     (cluster) the latency frontier and `now`.
+//   3 read capture [5.2], config entry, client offer and injection [6], timers
+//     [7], fsync flush and the durability gate [7.5]. Exports node_ok and the
+//     late vote.
+//   4 outbox [8], prefix checksum and end-of-tick configuration, state out,
+//     the node's StepInfo terms [9]. Exports final role and term.
+//     (cluster) the redirect pipeline's K slots.
+//   5 election safety and log matching [9].
+//   6 (cluster) StepInfo out.
 //
 // Membership: every quorum a node tests (elections, pre-votes, commit, read
 // confirmation, leases, transfer targets) is masked by that node's TICK-START
@@ -28,16 +54,19 @@
 //
 // Durable storage: three snapshots of the watermark. `dur_mid` is the
 // tick-start dur_len clamped by phase 3's truncation, and is what a leader's
-// own slot in the commit quorum reads (phase 5); the flush (phase 7.5) snaps
-// to the final log length, term and vote, and the ack clamp reads that
-// post-flush value. Recovery (phase -1) rewinds term/vote/log_len at load.
+// own slot in the commit quorum reads; the flush (phase 7.5) snaps to the
+// final log length, term and vote, and the ack clamp reads that post-flush
+// value. Recovery (phase -1) rewinds term/vote/log_len at load.
 //
 // Layout: every leaf is batch-minor. Leaf [d0, d1, ..., B] element
-// (i, j, ..., b) sits at ((i * d1 + j) * ... ) * B + b, so neighbouring
-// threads touch neighbouring addresses. The wrapper (kernels/tick_engine.py)
-// passes one pointer per leaf in the order of the Ptr enum below; output
-// leaves are fresh buffers, never aliases of inputs. A leg whose gate is off
-// gets a null pointer and is never touched (the wrapper passes it through).
+// (i, j, ..., b) sits at ((i * d1 + j) * ... ) * B + b, so workers of
+// neighbouring clusters touch neighbouring addresses. The wrapper
+// (kernels/tick_engine.py) passes one pointer per leaf in the order of the
+// Ptr enum below; output leaves are fresh buffers, never aliases of inputs. A
+// leg whose gate is off gets a null pointer and is never touched (the wrapper
+// passes it through). A worker reads back only output rows of its own node,
+// except log matching (phase 5), which reads the max-commit node's log rows
+// after the barriers that end every log write.
 //
 // Log layout: without compaction 1-based entry i sits at slot i - 1; under
 // compaction (P.comp) at slot (i - 1) mod CAP, with the live entries
@@ -65,11 +94,13 @@ constexpr int MAXW = 2;   // packed words per node row (ceil(MAXN / 32))
 constexpr int MAXE = 16;  // entries per AppendEntries window
 constexpr int MAXK = 16;  // redirect pipeline slots (RaftConfig.client_pipeline <= 16)
 constexpr int BINS = 16;  // latency histogram bins (types.LAT_HIST_BINS)
+constexpr int MAX_THREADS = 512;  // workers per block (tick.cu)
 
 constexpr int FOLLOWER = 0, CANDIDATE = 1, LEADER = 2, PRECANDIDATE = 3;
 constexpr int NIL = -1, NOOP = -2;
 constexpr int REQ_VOTE = 1, REQ_APPEND = 2, REQ_PREVOTE = 3, REQ_TIMEOUT_NOW = 4;
 constexpr int RESP_VOTE = 1, RESP_APPEND = 2, RESP_PREVOTE = 3;
+constexpr int32_t I32_MIN = -2147483647 - 1, I32_MAX = 2147483647;
 
 // Leaf pointers, in the order tick_engine.PTR_ORDER lists them.
 enum Ptr {
@@ -141,6 +172,7 @@ struct TickParams {
   int32_t durable_acks;      // cfg.durable_acks (the durability gate; 1 in production)
 };
 
+
 RS_HD int imin(int a, int b) { return a < b ? a : b; }
 RS_HD int imax(int a, int b) { return a > b ? a : b; }
 RS_HD int iclamp(int x, int lo, int hi) { return imin(imax(x, lo), hi); }
@@ -173,26 +205,23 @@ RS_HD int log2_bin(int v) {
 RS_HD uint32_t chk_w_term(uint32_t k) { return (k * 2654435761u + 0x9E3779B9u) | 1u; }
 RS_HD uint32_t chk_w_val(uint32_t k) { return (k * 0x85EBCA77u + 0xC2B2AE3Du) | 1u; }
 
+// Packed rows are MAXW words; words at and past a config's W are kept 0, so
+// every row operation runs over all MAXW words with compile-time indices.
 // Set bits of the packed row a & b (b == nullptr: all of a).
-RS_HD int popc_and(const uint32_t* a, const uint32_t* b, int W) {
+RS_HD int popc_and(const uint32_t* a, const uint32_t* b) {
   int c = 0;
-  for (int w = 0; w < W; ++w) c += popcount32(b ? (a[w] & b[w]) : a[w]);
+  for (int w = 0; w < MAXW; ++w) c += popcount32(b ? (a[w] & b[w]) : a[w]);
   return c;
 }
 
-RS_HD bool has_bit(const uint32_t* row, int i) { return (row[i >> 5] >> (i & 31)) & 1u; }
-
-// The maj-th largest of mws[k] over the members k of `mask` (0 when there
-// are fewer): the configuration-masked quorum match of one leader.
-RS_HD int masked_qmatch(const int* mws, int n, const uint32_t* mask, int maj) {
-  int qm = 0;
-  for (int c = 0; c < n; ++c) {
-    if (!has_bit(mask, c)) continue;
-    int cnt = 0;
-    for (int k = 0; k < n; ++k) cnt += has_bit(mask, k) && mws[k] >= mws[c];
-    if (cnt >= maj && mws[c] > qm) qm = mws[c];
-  }
-  return qm;
+RS_HD uint32_t word_of(const uint32_t* row, int i) { return i < 32 ? row[0] : row[1]; }
+RS_HD bool has_bit(const uint32_t* row, int i) { return (word_of(row, i) >> (i & 31)) & 1u; }
+RS_HD void set_bit(uint32_t* row, int i) {
+  if (i < 32) row[0] |= 1u << (i & 31);
+  else row[1] |= 1u << (i & 31);
+}
+RS_HD void self_row(uint32_t* row, int i) {  // only bit i
+  for (int w = 0; w < MAXW; ++w) row[w] = (w == (i >> 5)) ? 1u << (i & 31) : 0u;
 }
 
 // One parity fold over a node's config entries with absolute index in
@@ -204,10 +233,10 @@ struct CfgFold {
   int hi, code_hi, count;
 };
 
-RS_HD CfgFold fold_cfg(const int32_t* row, int64_t B, int cap, int n, int W, bool ring,
-                       int anchor, int lo, int hi) {
+RS_HD CfgFold fold_cfg(const int32_t* row, int64_t B, int cap, int n, bool ring, int anchor,
+                       int lo, int hi) {
   CfgFold f;
-  for (int w = 0; w < W; ++w) f.fold[w] = 0u;
+  for (int w = 0; w < MAXW; ++w) f.fold[w] = 0u;
   f.hi = f.code_hi = f.count = 0;
   for (int k = 0; k < cap; ++k) {
     const int abs1 = ring ? anchor + pmod(k - anchor, cap) + 1 : k + 1;
@@ -220,7 +249,10 @@ RS_HD CfgFold fold_cfg(const int32_t* row, int64_t B, int cap, int n, int W, boo
       f.code_hi = code;
     }
     const int v = -code - 1;
-    if (code < 0 && v < n) f.fold[v >> 5] ^= 1u << (v & 31);
+    if (code < 0 && v < n) {
+      if (v < 32) f.fold[0] ^= 1u << (v & 31);
+      else f.fold[1] ^= 1u << (v & 31);
+    }
   }
   return f;
 }
@@ -238,605 +270,784 @@ RS_HD int term_at(const int32_t* row, int64_t B, int cap, bool ring, int base, i
   return (idx >= 1 && idx <= cap) ? row[(int64_t)(idx - 1) * B] : 0;
 }
 
-template <class IdxT, class AckT, class NodeT>
-RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
-  const int n = P.n, e = P.e, cap = P.cap, W = P.w;
-  const bool comp = P.comp != 0, pv = P.pre_vote != 0;
-  const bool rcf = P.reconfig != 0, xfr = P.transfer != 0, rdx = P.reads != 0;
-  const bool rdl = P.lease != 0;
-  const bool dur = P.durable != 0;
-  const bool dacks = dur && P.durable_acks != 0;  // the durability gate
-  const bool hc_live = pv || rdl || rcf;  // heard_clock: quiet rule and vote denial
-  const bool deny = rcf || rdl;           // the heard-a-leader vote denial
-  const bool disrupt_live = xfr && deny;  // req_disrupt overrides the denial
-  const int64_t B = P.b;
-  // Batch-minor offsets: [N, B] and [N, inner, B].
+// The lean gate set: none of compaction, the redirect client, the
+// reconfiguration plane (membership, transfer, reads, leases) or durable
+// storage; PreVote stays a runtime gate -- config1-config5 and config3p. The
+// body is instantiated for it with those gates compile-time off (FULL =
+// false), so their code and per-node state drop out, and for every gate
+// (FULL = true); the launch picks by the config's gates alone.
+inline bool lean_gates(const TickParams& p) {
+  return !(p.comp || p.redirect || p.reconfig || p.transfer || p.reads || p.lease || p.durable);
+}
+
+// The gates of one config, decoded once per phase; with full == false (a
+// compile-time constant) every gate outside the lean set is off.
+struct Gates {
+  bool comp, pv, redir, rcf, xfr, rdx, rdl, dur, dacks, hc_live, deny, disrupt_live;
+  RS_HD Gates(const TickParams& P, bool full)
+      : comp(full && P.comp != 0), pv(P.pre_vote != 0), redir(full && P.redirect != 0),
+        rcf(full && P.reconfig != 0), xfr(full && P.transfer != 0), rdx(full && P.reads != 0),
+        rdl(full && P.lease != 0), dur(full && P.durable != 0),
+        dacks(dur && P.durable_acks != 0),  // the durability gate
+        hc_live(pv || rdl || rcf),          // heard_clock: quiet rule, vote denial
+        deny(rcf || rdl),                   // the heard-a-leader vote denial
+        disrupt_live(xfr && deny) {}        // req_disrupt overrides it
+};
+
+// ---- The exchange: shared memory on the card, a host buffer in the CPU build.
+// Per-node intermediates one node writes and others read in a later phase,
+// [field][node][cluster-in-tile], then per-cluster accumulators
+// [field][cluster-in-tile]; all int32.
+enum XField {
+  // Each node's mailbox header and up/alive flags, staged in phase 0 and read
+  // by every node of its cluster from phase 1 on.
+  X_HFLAGS,      // bit 0 alive, bit 1 up (alive and not restarted)
+  X_HRTYPE,      // req_type
+  X_HRTERM,      // req_term
+  X_HRLI,        // req_last_index
+  X_HRLT,        // req_last_term
+  X_HRESP_TERM,  // resp_term
+  X_HVTO,        // v_to
+  X_HAOKTO,      // a_ok_to
+  X_HAMATCH,     // a_match
+  X_HAHINT,      // a_hint
+  X_HDISRUPT,    // req_disrupt (transfer beside a vote denial)
+  X_HXTGT,       // xfer_tgt (transfer)
+  X_COMMIT,  // commit after phase 5 (phase 1): the max-commit node, read frontier
+  X_LID,     // leader id after phase 5 (phase 1): redirect chase
+  X_ELIGX,   // live leader and voter (phase 1): transfer's lowest-id leader
+  X_PVG,     // PreVote grant row of a voter, MAXW words (phase 1): pv_grant out
+  X_CANCAP = X_PVG + MAXW,  // may capture a read (phase 2): lowest-id capture
+  X_LDJ,     // may take the admin toggle (phase 2): lowest-id joint entry
+  X_NODEOK,  // may take a client command (phase 3): redirect acceptance
+  X_LATE,    // late vote's candidate, else NIL (phase 3): late RESP_VOTE
+  X_ROLE,    // final role (phase 4): election safety
+  X_TERM,    // final term (phase 4): election safety
+  NXF
+};
+enum AccField {
+  A_MSGS, A_CMDS, A_LAT_SUM, A_LAT_CNT, A_CROSSED, A_NOOP_BLOCKED, A_READS, A_READ_LAT_SUM,
+  A_VIOL_STALE, A_LAG_SUM, A_LAG_MAX, A_CHK_BAD, A_VIOL_ELECTION, A_VIOL_COMMIT,
+  A_VIOL_MATCH, A_LEADER, A_N_LEADERS, A_MAX_TERM, A_MAX_COMMIT, A_MIN_COMMIT,
+  A_HIST, A_READ_HIST = A_HIST + BINS, NACC = A_READ_HIST + BINS
+};
+
+// Exchange bytes for a tile of `tc` clusters of `n` nodes.
+inline int64_t smem_bytes(int n, int tc) { return 4 * (int64_t)tc * ((int64_t)NXF * n + NACC); }
+
+struct Xch {
+  int32_t* base;
+  int n, tc;
+  RS_HD int32_t& at(int f, int node, int ci) const {
+    return base[((int64_t)f * n + node) * tc + ci];
+  }
+  RS_HD int32_t* acc(int f, int ci) const { return base + ((int64_t)NXF * n + f) * tc + ci; }
+};
+
+// Accumulator updates: atomic on the card (any order gives the same integer),
+// plain on the host. Sums wrap mod 2^32 like the JAX uint32 / int32 leaves.
+RS_HD void acc_add(int32_t* p, int v) {
+#ifdef __CUDA_ARCH__
+  atomicAdd((unsigned*)p, (unsigned)v);
+#else
+  *p = (int32_t)((uint32_t)*p + (uint32_t)v);
+#endif
+}
+RS_HD void acc_max(int32_t* p, int v) {
+#ifdef __CUDA_ARCH__
+  atomicMax(p, v);
+#else
+  if (v > *p) *p = v;
+#endif
+}
+RS_HD void acc_min(int32_t* p, int v) {
+#ifdef __CUDA_ARCH__
+  atomicMin(p, v);
+#else
+  if (v < *p) *p = v;
+#endif
+}
+
+// One node's state, carried between phases (registers on the card). Rows are
+// MAXW words with the words past W zero.
+struct NodeCtx {
+  bool alive, rs, up, heard_recent, joint, member_b;
+  bool saw_higher, granted_any, has_ae, win, pre_win, applied_snap, is_leader;
+  bool heartbeat, start_el, start_pv, xfer_elect, xe, xpend, late_grant, serve;
+  bool noop, node_ok, client_ok, cfg_write;
+  int role, term, vf, lid, len0, llen, len4, commit0, commit;
+  int base0, bterm0, base, bterm, clock1, deadline0, tdraw, heard, my_last_term;
+  int maj_old, maj_new, cfg_pend0, bpend, bepoch;
+  int xfer0, xto, read_idx0, read_tick0, read_fr0;
+  int grant_to, age_t, dur_mid, hnode, maxc, wval, wtick, cfg_code;
+  uint32_t chk0, bchk, chk_new;
+  uint32_t votes[MAXW], mask[MAXW], m_old[MAXW], m_new[MAXW], bmold[MAXW];
+  uint32_t acks[MAXW], fresh[MAXW];
+};
+
+// Batch-minor offsets ([N, B] and [N, inner, B]) and leaf access, inside a
+// phase function with locals `ptr`, `B` and `b` in scope.
 #define RS_AT1(i) ((int64_t)(i) * B + b)
 #define RS_AT2(i, j, inner) (((int64_t)(i) * (inner) + (j)) * B + b)
 #define RS_IN(T, P_) ((const T*)ptr[P_])
 #define RS_OUT(T, P_) ((T*)ptr[P_])
-#define RS_ROW(arr, i) ((arr) + RS_AT2(i, 0, cap))  // slot s of node i at [s * B]
+#define RS_ROW(arr, i) ((arr) + RS_AT2(i, 0, P.cap))  // slot s of node i at [s * B]
+// Input leaves of any node of the cluster, from the staged headers.
+#define RS_H(f, j) (X.at(f, j, ci))
+#define RS_ALIVE(j) ((RS_H(X_HFLAGS, j) & 1) != 0)
+#define RS_UP(j) ((RS_H(X_HFLAGS, j) & 2) != 0)
+#define RS_RTYPE(j) RS_H(X_HRTYPE, j)
+#define RS_RTERM(j) RS_H(X_HRTERM, j)
+// The message on physical edge [dst i (this node), src s] is delivered iff i
+// is up now and was at send time, s is alive, s != i, and bit s of i's mask
+// row is set. Requests ride [sender, receiver] edges, responses [receiver,
+// responder] -- the same physical edge test.
+#define RS_DELIVERED(s) (x.up && (s) != i && RS_ALIVE(s) && has_bit(x.mask, s))
+// Up-to-date test of candidate c's log against this node's (phases 2, 3.5).
+#define RS_UTD(c)                                                          \
+  (RS_H(X_HRLT, c) > x.my_last_term ||                                     \
+   (RS_H(X_HRLT, c) == x.my_last_term && RS_H(X_HRLI, c) >= x.len0))
+// This voter denies candidate c's RequestVote: it heard a leader recently and
+// the request carries no transfer sanction.
+#define RS_DENIED(c) \
+  (g.deny && x.heard_recent && !(g.disrupt_live && RS_H(X_HDISRUPT, c) != 0))
+// Quorum test over a packed row: this node's own member rows, dual while
+// joint (reconfig), else the fixed majority.
+#define RS_QUORUM(rows)                                                     \
+  (g.rcf ? (popc_and(rows, x.m_old) >= x.maj_old &&                         \
+            (!x.joint || popc_and(rows, x.m_new) >= x.maj_new))             \
+         : popc_and(rows, nullptr) >= P.quorum)
+#define RS_XPEND (g.xfr && x.xpend)
+#define RS_PHASE_ARGS \
+  const TickParams &P, void *const *ptr, NodeCtx &x, const Xch &X, int64_t b, int ci, int i
 
-  const int32_t now = RS_IN(int32_t, S_NOW)[b];
-  const int32_t lat_frontier0 = RS_IN(int32_t, S_LAT_FRONTIER)[b];
-  const int32_t client_cmd = RS_IN(int32_t, I_CLIENT_CMD)[b];
+// The maj-th largest of a leader's match_with_self row over the members of
+// `mask` (nullptr: every node; 0 when fewer qualify): the row is this node's
+// own match_index output row, with `self` at its own slot. A candidate value
+// no larger than the best so far cannot raise it, so its count is skipped.
+template <class IdxT>
+RS_HD int qmatch(const IdxT* mrow, int64_t B, int n, int i, int self, const uint32_t* mask,
+                 int maj) {
+  int qm = 0;
+  for (int c = 0; c < n; ++c) {
+    if (mask && !has_bit(mask, c)) continue;
+    const int vc = c == i ? self : (int)mrow[(int64_t)c * B];
+    if (vc <= qm) continue;
+    int cnt = 0;
+    for (int k = 0; k < n; ++k) {
+      if (mask && !has_bit(mask, k)) continue;
+      cnt += (k == i ? self : (int)mrow[(int64_t)k * B]) >= vc;
+    }
+    if (cnt >= maj) qm = vc;
+  }
+  return qm;
+}
+
+// ---- phase 0: this node's mailbox header and liveness into the exchange.
+template <class IdxT, class AckT, class NodeT, bool FULL>
+RS_HD void phase_headers(RS_PHASE_ARGS) {
+  const Gates g(P, FULL);
+  const int64_t B = P.b;
+  const bool alive = RS_IN(uint8_t, I_ALIVE)[RS_AT1(i)] != 0;
+  const bool up = alive && RS_IN(uint8_t, I_RESTARTED)[RS_AT1(i)] == 0;
+  X.at(X_HFLAGS, i, ci) = (alive ? 1 : 0) | (up ? 2 : 0);
+  X.at(X_HRTYPE, i, ci) = RS_IN(int32_t, M_REQ_TYPE)[RS_AT1(i)];
+  X.at(X_HRTERM, i, ci) = RS_IN(int32_t, M_REQ_TERM)[RS_AT1(i)];
+  X.at(X_HRLI, i, ci) = RS_IN(int32_t, M_REQ_LAST_INDEX)[RS_AT1(i)];
+  X.at(X_HRLT, i, ci) = RS_IN(int32_t, M_REQ_LAST_TERM)[RS_AT1(i)];
+  X.at(X_HRESP_TERM, i, ci) = RS_IN(int32_t, M_RESP_TERM)[RS_AT1(i)];
+  X.at(X_HVTO, i, ci) = RS_IN(NodeT, M_V_TO)[RS_AT1(i)];
+  X.at(X_HAOKTO, i, ci) = RS_IN(NodeT, M_A_OK_TO)[RS_AT1(i)];
+  X.at(X_HAMATCH, i, ci) = RS_IN(IdxT, M_A_MATCH)[RS_AT1(i)];
+  X.at(X_HAHINT, i, ci) = RS_IN(IdxT, M_A_HINT)[RS_AT1(i)];
+  if (g.disrupt_live) X.at(X_HDISRUPT, i, ci) = RS_IN(int8_t, M_REQ_DISRUPT)[RS_AT1(i)];
+  if (g.xfr) X.at(X_HXTGT, i, ci) = RS_IN(NodeT, M_XFER_TGT)[RS_AT1(i)];
+  (void)x;
+}
+
+// ---- phase 1: everything a node decides from the tick's inputs and its own
+// state: restart and recovery, term adoption, votes, AppendEntries, its
+// PreVote grants, TimeoutNow receipt, responses and commit. -----------------
+template <class IdxT, class AckT, class NodeT, bool FULL>
+RS_HD void phase_load_to_commit(RS_PHASE_ARGS) {
+  const Gates g(P, FULL);
+  const int64_t B = P.b;
+  const int n = P.n, e = P.e, cap = P.cap, W = P.w;
   const int32_t* log_term_in = RS_IN(int32_t, S_LOG_TERM);
-  const int32_t* log_val_in = RS_IN(int32_t, S_LOG_VAL);
-  const int32_t* log_tick_in = RS_IN(int32_t, S_LOG_TICK);
-  const int32_t* log_cfg_in = RS_IN(int32_t, S_LOG_CFG);
   int32_t* log_term = RS_OUT(int32_t, O_LOG_TERM);
   int32_t* log_val = RS_OUT(int32_t, O_LOG_VAL);
   int32_t* log_tick = RS_OUT(int32_t, O_LOG_TICK);
   int32_t* log_cfg = RS_OUT(int32_t, O_LOG_CFG);
-  const IdxT* next_in = RS_IN(IdxT, S_NEXT_INDEX);
-  const IdxT* match_in = RS_IN(IdxT, S_MATCH_INDEX);
-  const AckT* ack_in = RS_IN(AckT, S_ACK_AGE);
-  IdxT* next_out = RS_OUT(IdxT, O_NEXT_INDEX);
-  IdxT* match_out = RS_OUT(IdxT, O_MATCH_INDEX);
-  AckT* ack_out = RS_OUT(AckT, O_ACK_AGE);
   const int8_t* resp_kind_in = RS_IN(int8_t, M_RESP_KIND);
-  const int8_t* req_off_in = RS_IN(int8_t, M_REQ_OFF);
 
-  // Per-node state, after phase -1 (restart).
-  bool alive[MAXN], rs_[MAXN], up[MAXN];
-  int role[MAXN], term[MAXN], vf[MAXN], lid[MAXN];
-  int len0[MAXN], llen[MAXN], commit0[MAXN], commit[MAXN];
-  int base0[MAXN], bterm0[MAXN], base[MAXN], bterm[MAXN];  // input and current snapshot
-  int clock0[MAXN], clock1[MAXN], deadline0[MAXN], tdraw[MAXN], heard[MAXN];
-  bool heard_recent[MAXN];  // heard a leader within election_min of the tick's clock
-  int my_last_term[MAXN];
-  uint32_t votes[MAXN][MAXW], mask[MAXN][MAXW], pvg[MAXN][MAXW];
-  uint32_t chk0[MAXN], bchk[MAXN], chk_new[MAXN];
-  // Membership: tick-start rows and the snapshot config context.
-  uint32_t m_old[MAXN][MAXW], m_new[MAXN][MAXW], bmold[MAXN][MAXW];
-  bool joint[MAXN], member_b[MAXN];
-  int maj_old[MAXN], maj_new[MAXN], cfg_pend0[MAXN], bpend[MAXN], bepoch[MAXN];
-  // Transfer and reads, after the restart wipe.
-  int xfer0[MAXN], xto[MAXN], read_idx0[MAXN], read_tick0[MAXN], read_fr0[MAXN];
-  uint32_t acks[MAXN][MAXW];
-  // Mailbox headers, per sender / responder.
-  int rtype[MAXN], rterm[MAXN], rli[MAXN], rlt[MAXN], xtgt[MAXN];
-  bool disrupt[MAXN];
-  int resp_term[MAXN], v_to[MAXN], a_ok_to[MAXN], a_match[MAXN], a_hint[MAXN];
-  // Per-node facts carried between phases.
-  bool saw_higher[MAXN], granted_any[MAXN], has_ae[MAXN], win[MAXN], pre_win[MAXN];
-  bool applied_snap[MAXN], is_leader[MAXN], heartbeat[MAXN], start_el[MAXN], start_pv[MAXN];
-  bool xfer_elect[MAXN], xe[MAXN], xpend[MAXN];
-  int grant_to[MAXN], age_t[MAXN];
-  uint32_t fresh[MAXN][MAXW];  // peers acked within the lease window (lease)
-  int len4[MAXN];  // log length after phase 3: the phase-4/phase-8 `len_i`
-  // Durable storage: the watermark after phase 3's truncation, and the grants
-  // a flush newly covered this tick (phase 7.5).
-  int dur_mid[MAXN];
-  bool late_grant[MAXN];
-
-  for (int i = 0; i < n; ++i) {
-    alive[i] = RS_IN(uint8_t, I_ALIVE)[RS_AT1(i)] != 0;
-    rs_[i] = RS_IN(uint8_t, I_RESTARTED)[RS_AT1(i)] != 0;
-    up[i] = alive[i] && !rs_[i];
-    tdraw[i] = RS_IN(int32_t, I_TIMEOUT_DRAW)[RS_AT1(i)];
-    clock0[i] = RS_IN(int32_t, S_CLOCK)[RS_AT1(i)];
-    clock1[i] = clock0[i] + RS_IN(int32_t, I_SKEW)[RS_AT1(i)];
-    base0[i] = base[i] = RS_IN(int32_t, S_LOG_BASE)[RS_AT1(i)];
-    bterm0[i] = bterm[i] = comp ? RS_IN(int32_t, S_BASE_TERM)[RS_AT1(i)] : 0;
-    bchk[i] = RS_IN(uint32_t, S_BASE_CHK)[RS_AT1(i)];
-    role[i] = rs_[i] ? FOLLOWER : RS_IN(int32_t, S_ROLE)[RS_AT1(i)];
-    lid[i] = rs_[i] ? NIL : RS_IN(int32_t, S_LEADER_ID)[RS_AT1(i)];
-    term[i] = RS_IN(int32_t, S_TERM)[RS_AT1(i)];
-    vf[i] = RS_IN(int32_t, S_VOTED_FOR)[RS_AT1(i)];
-    len0[i] = RS_IN(int32_t, S_LOG_LEN)[RS_AT1(i)];
-    if (dur && rs_[i]) {
-      // Crash recovery: term and vote rewind to the durable snapshot; the
-      // log keeps its fsynced prefix (a floor) and the rest less a torn tail.
-      term[i] = RS_IN(int32_t, S_DUR_TERM)[RS_AT1(i)];
-      vf[i] = RS_IN(int32_t, S_DUR_VOTE)[RS_AT1(i)];
-      len0[i] = imax(RS_IN(int32_t, S_DUR_LEN)[RS_AT1(i)],
-                     len0[i] - RS_IN(int32_t, I_TORN_DROP)[RS_AT1(i)]);
-    }
-    commit0[i] = rs_[i] ? base0[i] : RS_IN(int32_t, S_COMMIT_INDEX)[RS_AT1(i)];
-    chk0[i] = rs_[i] ? bchk[i] : RS_IN(uint32_t, S_COMMIT_CHK)[RS_AT1(i)];
-    deadline0[i] = rs_[i] ? clock0[i] + tdraw[i] : RS_IN(int32_t, S_DEADLINE)[RS_AT1(i)];
-    // A restarted node remembers no leader contact.
-    heard[i] = !hc_live ? 0
-               : rs_[i] ? clock0[i] - P.election_min
-                        : RS_IN(int32_t, S_HEARD_CLOCK)[RS_AT1(i)];
-    for (int w = 0; w < W; ++w) {
-      votes[i][w] = rs_[i] ? 0u : RS_IN(uint32_t, S_VOTES)[RS_AT2(i, w, W)];
-      mask[i][w] = RS_IN(uint32_t, I_DELIVER_MASK)[RS_AT2(i, w, W)];
-      pvg[i][w] = 0u;
-    }
-    // The reconfiguration plane's legs are loaded (and their local arrays
-    // touched) only under their gates; every later read is gated the same way.
-    if (deny) heard_recent[i] = clock1[i] - heard[i] < P.election_min;
-    if (rcf) {
-      cfg_pend0[i] = RS_IN(int32_t, S_CFG_PEND)[RS_AT1(i)];
-      joint[i] = cfg_pend0[i] > 0;
-      bpend[i] = RS_IN(int32_t, S_BASE_PEND)[RS_AT1(i)];
-      bepoch[i] = RS_IN(int32_t, S_BASE_EPOCH)[RS_AT1(i)];
-      for (int w = 0; w < W; ++w) {
-        m_old[i][w] = RS_IN(uint32_t, S_MEMBER_OLD)[RS_AT2(i, w, W)];
-        m_new[i][w] = RS_IN(uint32_t, S_MEMBER_NEW)[RS_AT2(i, w, W)];
-        bmold[i][w] = RS_IN(uint32_t, S_BASE_MOLD)[RS_AT2(i, w, W)];
-      }
-      maj_old[i] = popc_and(m_old[i], nullptr, W) / 2 + 1;
-      maj_new[i] = popc_and(m_new[i], nullptr, W) / 2 + 1;
-      member_b[i] = has_bit(m_old[i], i) || has_bit(m_new[i], i);  // i in its own view
-    }
-    // Volatile transfer and read state dies with the process.
-    if (xfr) {
-      xfer0[i] = rs_[i] ? NIL : RS_IN(int32_t, S_XFER_TO)[RS_AT1(i)];
-      xtgt[i] = RS_IN(NodeT, M_XFER_TGT)[RS_AT1(i)];
-    }
-    if (disrupt_live) disrupt[i] = RS_IN(int8_t, M_REQ_DISRUPT)[RS_AT1(i)] != 0;
-    if (rdx) {
-      read_idx0[i] = rs_[i] ? 0 : RS_IN(int32_t, S_READ_IDX)[RS_AT1(i)];
-      read_tick0[i] = rs_[i] ? 0 : RS_IN(int32_t, S_READ_TICK)[RS_AT1(i)];
-      for (int w = 0; w < W; ++w)
-        acks[i][w] = rs_[i] ? 0u : RS_IN(uint32_t, S_READ_ACKS)[RS_AT2(i, w, W)];
-    }
-    if (rdl) read_fr0[i] = rs_[i] ? 0 : RS_IN(int32_t, S_READ_FR)[RS_AT1(i)];
-    rtype[i] = RS_IN(int32_t, M_REQ_TYPE)[RS_AT1(i)];
-    rterm[i] = RS_IN(int32_t, M_REQ_TERM)[RS_AT1(i)];
-    rli[i] = RS_IN(int32_t, M_REQ_LAST_INDEX)[RS_AT1(i)];
-    rlt[i] = RS_IN(int32_t, M_REQ_LAST_TERM)[RS_AT1(i)];
-    resp_term[i] = RS_IN(int32_t, M_RESP_TERM)[RS_AT1(i)];
-    v_to[i] = RS_IN(NodeT, M_V_TO)[RS_AT1(i)];
-    a_ok_to[i] = RS_IN(NodeT, M_A_OK_TO)[RS_AT1(i)];
-    a_match[i] = RS_IN(IdxT, M_A_MATCH)[RS_AT1(i)];
-    a_hint[i] = RS_IN(IdxT, M_A_HINT)[RS_AT1(i)];
-    // The log copies forward; phases 3 and 6 overwrite what they append.
-    for (int k = 0; k < cap; ++k) {
-      log_term[RS_AT2(i, k, cap)] = log_term_in[RS_AT2(i, k, cap)];
-      log_val[RS_AT2(i, k, cap)] = log_val_in[RS_AT2(i, k, cap)];
-      if (P.track) log_tick[RS_AT2(i, k, cap)] = log_tick_in[RS_AT2(i, k, cap)];
-      if (rcf) log_cfg[RS_AT2(i, k, cap)] = log_cfg_in[RS_AT2(i, k, cap)];
-    }
+  // ---- phase -1: load, restart wipe and crash recovery.
+  x.alive = RS_IN(uint8_t, I_ALIVE)[RS_AT1(i)] != 0;
+  x.rs = RS_IN(uint8_t, I_RESTARTED)[RS_AT1(i)] != 0;
+  x.up = x.alive && !x.rs;
+  x.tdraw = RS_IN(int32_t, I_TIMEOUT_DRAW)[RS_AT1(i)];
+  const int clock0 = RS_IN(int32_t, S_CLOCK)[RS_AT1(i)];
+  x.clock1 = clock0 + RS_IN(int32_t, I_SKEW)[RS_AT1(i)];
+  x.base0 = x.base = RS_IN(int32_t, S_LOG_BASE)[RS_AT1(i)];
+  x.bterm0 = x.bterm = g.comp ? RS_IN(int32_t, S_BASE_TERM)[RS_AT1(i)] : 0;
+  x.bchk = RS_IN(uint32_t, S_BASE_CHK)[RS_AT1(i)];
+  x.role = x.rs ? FOLLOWER : RS_IN(int32_t, S_ROLE)[RS_AT1(i)];
+  x.lid = x.rs ? NIL : RS_IN(int32_t, S_LEADER_ID)[RS_AT1(i)];
+  x.term = RS_IN(int32_t, S_TERM)[RS_AT1(i)];
+  x.vf = RS_IN(int32_t, S_VOTED_FOR)[RS_AT1(i)];
+  x.len0 = RS_IN(int32_t, S_LOG_LEN)[RS_AT1(i)];
+  if (g.dur && x.rs) {
+    // Crash recovery: term and vote rewind to the durable snapshot; the log
+    // keeps its fsynced prefix (a floor) and the rest less a torn tail.
+    x.term = RS_IN(int32_t, S_DUR_TERM)[RS_AT1(i)];
+    x.vf = RS_IN(int32_t, S_DUR_VOTE)[RS_AT1(i)];
+    x.len0 = imax(RS_IN(int32_t, S_DUR_LEN)[RS_AT1(i)],
+                  x.len0 - RS_IN(int32_t, I_TORN_DROP)[RS_AT1(i)]);
   }
-
-  // Quorum test of node i over a packed row: its own member rows, dual while
-  // joint (reconfig), else the fixed majority.
-#define RS_QUORUM(i, rows)                                                          \
-  (rcf ? (popc_and(rows, m_old[i], W) >= maj_old[i] &&                             \
-          (!joint[i] || popc_and(rows, m_new[i], W) >= maj_new[i]))                \
-       : popc_and(rows, nullptr, W) >= P.quorum)
-
-  // ---- phase 0: delivery. The message on physical edge [dst d, src s] is
-  // delivered iff d is up now and was at send time, s is alive, s != d, and
-  // bit s of d's mask row is set. Requests ride [sender, receiver] edges,
-  // responses [receiver, responder] -- the same physical edge test.
-#define RS_DELIVERED(d, s) \
-  (up[d] && (s) != (d) && alive[s] && ((mask[d][(s) >> 5] >> ((s) & 31)) & 1u))
-  // Voter v denies candidate c's RequestVote: v heard a leader recently and
-  // the request carries no transfer sanction.
-#define RS_DENIED(c, v) (deny && heard_recent[v] && !(disrupt_live && disrupt[c]))
+  x.commit0 = x.rs ? x.base0 : RS_IN(int32_t, S_COMMIT_INDEX)[RS_AT1(i)];
+  x.chk0 = x.rs ? x.bchk : RS_IN(uint32_t, S_COMMIT_CHK)[RS_AT1(i)];
+  x.deadline0 = x.rs ? clock0 + x.tdraw : RS_IN(int32_t, S_DEADLINE)[RS_AT1(i)];
+  // A restarted node remembers no leader contact.
+  x.heard = !g.hc_live ? 0
+            : x.rs     ? clock0 - P.election_min
+                       : RS_IN(int32_t, S_HEARD_CLOCK)[RS_AT1(i)];
+  for (int w = 0; w < MAXW; ++w) {
+    const bool live_w = w < W;
+    x.votes[w] = (live_w && !x.rs) ? RS_IN(uint32_t, S_VOTES)[RS_AT2(i, w, W)] : 0u;
+    x.mask[w] = live_w ? RS_IN(uint32_t, I_DELIVER_MASK)[RS_AT2(i, w, W)] : 0u;
+    x.m_old[w] = x.m_new[w] = x.bmold[w] = x.acks[w] = x.fresh[w] = 0u;
+  }
+  // The reconfiguration plane's legs are loaded only under their gates;
+  // every later read is gated the same way.
+  x.heard_recent = g.deny && x.clock1 - x.heard < P.election_min;
+  x.joint = false;
+  x.member_b = true;
+  x.cfg_pend0 = x.bpend = x.bepoch = x.maj_old = x.maj_new = 0;
+  if (g.rcf) {
+    x.cfg_pend0 = RS_IN(int32_t, S_CFG_PEND)[RS_AT1(i)];
+    x.joint = x.cfg_pend0 > 0;
+    x.bpend = RS_IN(int32_t, S_BASE_PEND)[RS_AT1(i)];
+    x.bepoch = RS_IN(int32_t, S_BASE_EPOCH)[RS_AT1(i)];
+    for (int w = 0; w < MAXW; ++w) {
+      if (w >= W) continue;
+      x.m_old[w] = RS_IN(uint32_t, S_MEMBER_OLD)[RS_AT2(i, w, W)];
+      x.m_new[w] = RS_IN(uint32_t, S_MEMBER_NEW)[RS_AT2(i, w, W)];
+      x.bmold[w] = RS_IN(uint32_t, S_BASE_MOLD)[RS_AT2(i, w, W)];
+    }
+    x.maj_old = popc_and(x.m_old, nullptr) / 2 + 1;
+    x.maj_new = popc_and(x.m_new, nullptr) / 2 + 1;
+    x.member_b = has_bit(x.m_old, i) || has_bit(x.m_new, i);  // i in its own view
+  }
+  // Volatile transfer and read state dies with the process.
+  x.xfer0 = x.xto = NIL;
+  if (g.xfr) x.xfer0 = x.rs ? NIL : RS_IN(int32_t, S_XFER_TO)[RS_AT1(i)];
+  x.read_idx0 = x.read_tick0 = x.read_fr0 = 0;
+  if (g.rdx) {
+    x.read_idx0 = x.rs ? 0 : RS_IN(int32_t, S_READ_IDX)[RS_AT1(i)];
+    x.read_tick0 = x.rs ? 0 : RS_IN(int32_t, S_READ_TICK)[RS_AT1(i)];
+    for (int w = 0; w < MAXW; ++w)
+      if (w < W) x.acks[w] = x.rs ? 0u : RS_IN(uint32_t, S_READ_ACKS)[RS_AT2(i, w, W)];
+  }
+  if (g.rdl) x.read_fr0 = x.rs ? 0 : RS_IN(int32_t, S_READ_FR)[RS_AT1(i)];
+  // The log copies forward; phases 3 and 6 overwrite what they append.
+  for (int k = 0; k < cap; ++k) {
+    log_term[RS_AT2(i, k, cap)] = log_term_in[RS_AT2(i, k, cap)];
+    log_val[RS_AT2(i, k, cap)] = RS_IN(int32_t, S_LOG_VAL)[RS_AT2(i, k, cap)];
+    if (P.track) log_tick[RS_AT2(i, k, cap)] = RS_IN(int32_t, S_LOG_TICK)[RS_AT2(i, k, cap)];
+    if (g.rcf) log_cfg[RS_AT2(i, k, cap)] = RS_IN(int32_t, S_LOG_CFG)[RS_AT2(i, k, cap)];
+  }
 
   // ---- phase 1: term adoption (PreVote probes carry a prospective term,
-  // never adopted; a denied RequestVote under reconfig is not processed) ------
-  int msgs = 0;
-  for (int d = 0; d < n; ++d) {
-    int in_term = 0;
-    for (int s = 0; s < n; ++s) {
-      if (!RS_DELIVERED(d, s)) continue;
-      if (rtype[s] != 0) {
-        ++msgs;
-        const bool probe = pv && rtype[s] == REQ_PREVOTE;
-        const bool denied = rcf && rtype[s] == REQ_VOTE && RS_DENIED(s, d);
-        if (!probe && !denied) in_term = imax(in_term, rterm[s]);
-      }
-      if (resp_kind_in[RS_AT2(d, s, n)] != 0) {
-        ++msgs;
-        in_term = imax(in_term, resp_term[s]);
-      }
+  // never adopted; a denied RequestVote under reconfig is not processed).
+  int msgs = 0, in_term = 0;
+  for (int s = 0; s < n; ++s) {
+    if (!RS_DELIVERED(s)) continue;
+    const int rt = RS_RTYPE(s);
+    if (rt != 0) {
+      ++msgs;
+      const bool probe = g.pv && rt == REQ_PREVOTE;
+      const bool denied = g.rcf && rt == REQ_VOTE && RS_DENIED(s);
+      if (!probe && !denied) in_term = imax(in_term, RS_RTERM(s));
     }
-    saw_higher[d] = in_term > term[d];
-    if (saw_higher[d]) {
-      term[d] = in_term;
-      role[d] = FOLLOWER;
-      vf[d] = NIL;
-      lid[d] = NIL;
-      for (int w = 0; w < W; ++w) votes[d][w] = 0u;
+    if (resp_kind_in[RS_AT2(i, s, n)] != 0) {
+      ++msgs;
+      in_term = imax(in_term, RS_H(X_HRESP_TERM, s));
     }
-    my_last_term[d] = term_at(RS_ROW(log_term_in, d), B, cap, comp, base0[d], bterm0[d], len0[d]);
   }
+  if (msgs) acc_add(X.acc(A_MSGS, ci), msgs);
+  x.saw_higher = in_term > x.term;
+  if (x.saw_higher) {
+    x.term = in_term;
+    x.role = FOLLOWER;
+    x.vf = NIL;
+    x.lid = NIL;
+    for (int w = 0; w < MAXW; ++w) x.votes[w] = 0u;
+  }
+  x.my_last_term = term_at(RS_ROW(log_term_in, i), B, cap, g.comp, x.base0, x.bterm0, x.len0);
 
-  // Up-to-date test of candidate c's log against voter v's (phases 2 and 3.5).
-#define RS_UTD(c, v) \
-  (rlt[c] > my_last_term[v] || (rlt[c] == my_last_term[v] && rli[c] >= len0[v]))
-
-  // ---- phase 2: RequestVote requests --------------------------------------
-  for (int v = 0; v < n; ++v) {
+  // ---- phase 2: RequestVote requests.
+  {
     int lowest = n;
-    bool grant_prev = false;  // the candidate v already voted for is grantable
+    bool grant_prev = false;  // the candidate this node already voted for is grantable
     for (int c = 0; c < n; ++c) {
-      if (!RS_DELIVERED(v, c) || rtype[c] != REQ_VOTE || rterm[c] != term[v]) continue;
-      if (!RS_UTD(c, v) || RS_DENIED(c, v)) continue;
+      if (!RS_DELIVERED(c) || RS_RTYPE(c) != REQ_VOTE || RS_RTERM(c) != x.term) continue;
+      if (!RS_UTD(c) || RS_DENIED(c)) continue;
       if (c < lowest) lowest = c;
-      if (c == vf[v]) grant_prev = true;
+      if (c == x.vf) grant_prev = true;
     }
-    granted_any[v] = (vf[v] != NIL) ? grant_prev : (lowest < n);
-    if (vf[v] == NIL && granted_any[v]) vf[v] = lowest;
-    grant_to[v] = granted_any[v] ? vf[v] : NIL;
+    x.granted_any = (x.vf != NIL) ? grant_prev : (lowest < n);
+    if (x.vf == NIL && x.granted_any) x.vf = lowest;
+    x.grant_to = x.granted_any ? x.vf : NIL;
   }
 
-  // ---- phase 3: AppendEntries requests and snapshot install ----------------
-  for (int f = 0; f < n; ++f) {
+  // ---- phase 3: AppendEntries requests and snapshot install. The window's
+  // entries are read from the sender's mailbox row where they are used.
+  {
     int src = n;
     for (int l = 0; l < n; ++l) {
-      if (RS_DELIVERED(f, l) && rtype[l] == REQ_APPEND && rterm[l] == term[f]) {
+      if (RS_DELIVERED(l) && RS_RTYPE(l) == REQ_APPEND && RS_RTERM(l) == x.term) {
         src = l;
         break;
       }
     }
-    has_ae[f] = src < n;
+    x.has_ae = src < n;
+    const int32_t* ent_term = RS_IN(int32_t, M_ENT_TERM);
     int j_in = 0, ws_in = 0, lcommit = 0, ecount = 0, eprev = 0;
-    int w_term[MAXE], w_val[MAXE], w_tick[MAXE], w_cfg[MAXE];
-    for (int k = 0; k < e; ++k) w_term[k] = w_val[k] = w_tick[k] = w_cfg[k] = 0;
-    if (has_ae[f]) {
-      j_in = req_off_in[RS_AT2(src, f, n)];
+    if (x.has_ae) {
+      j_in = RS_IN(int8_t, M_REQ_OFF)[RS_AT2(src, i, n)];
       ws_in = RS_IN(int32_t, M_ENT_START)[RS_AT1(src)];
       lcommit = RS_IN(int32_t, M_REQ_COMMIT)[RS_AT1(src)];
       ecount = RS_IN(int32_t, M_ENT_COUNT)[RS_AT1(src)];
       eprev = RS_IN(int32_t, M_ENT_PREV_TERM)[RS_AT1(src)];
-      for (int k = 0; k < e; ++k) {
-        w_term[k] = RS_IN(int32_t, M_ENT_TERM)[RS_AT2(src, k, e)];
-        w_val[k] = RS_IN(int32_t, M_ENT_VAL)[RS_AT2(src, k, e)];
-        if (P.track) w_tick[k] = RS_IN(int32_t, M_ENT_TICK)[RS_AT2(src, k, e)];
-        if (rcf) w_cfg[k] = RS_IN(int32_t, M_ENT_CFG)[RS_AT2(src, k, e)];
-      }
     }
+    // Window entry k of the sender (0 without a sender).
+#define RS_WIN(P_, k) (x.has_ae ? RS_IN(int32_t, P_)[RS_AT2(src, k, e)] : 0)
     // The InstallSnapshot analogue: offset sentinel -1.
-    const bool snap = comp && has_ae[f] && j_in < 0;
-    const bool ae_norm = has_ae[f] && !snap;
+    const bool snap = g.comp && x.has_ae && j_in < 0;
+    const bool ae_norm = x.has_ae && !snap;
     const int j = iclamp(j_in, 0, e);
     const int prev_i = ae_norm ? ws_in + j : 0;
     const int n_ent = ae_norm ? iclamp(ecount - j, 0, e) : 0;
-    const int prev_t = (j == 0) ? eprev : w_term[j - 1];
+    const int prev_t = (j == 0) ? eprev : RS_WIN(M_ENT_TERM, j - 1);
     const int off = iclamp(j, 0, e - 1);  // this receiver's entries start at slot j
-    if (has_ae[f]) {
-      if (role[f] == CANDIDATE || (pv && role[f] == PRECANDIDATE)) role[f] = FOLLOWER;
-      lid[f] = src;
+    if (x.has_ae) {
+      if (x.role == CANDIDATE || (g.pv && x.role == PRECANDIDATE)) x.role = FOLLOWER;
+      x.lid = src;
     }
     const int stored_prev =
-        term_at(RS_ROW(log_term_in, f), B, cap, comp, base0[f], bterm0[f], prev_i);
+        term_at(RS_ROW(log_term_in, i), B, cap, g.comp, x.base0, x.bterm0, prev_i);
     // Under compaction a prev below the base is committed and compacted.
-    const bool ae_ok = ae_norm && (prev_i == 0 || (comp && prev_i < base0[f]) ||
-                                   (prev_i <= len0[f] && stored_prev == prev_t));
+    const bool ae_ok = ae_norm && (prev_i == 0 || (g.comp && prev_i < x.base0) ||
+                                   (prev_i <= x.len0 && stored_prev == prev_t));
     // Entries [lo, n_acc) of the window are written: the ring skips what is
     // already compacted and accepts only what it can hold.
-    const int lo = comp ? iclamp(base0[f] - prev_i, 0, e) : 0;
-    const int n_acc = comp ? imin(n_ent, imax(base0[f] + cap - prev_i, 0)) : n_ent;
+    const int lo = g.comp ? iclamp(x.base0 - prev_i, 0, e) : 0;
+    const int n_acc = g.comp ? imin(n_ent, imax(x.base0 + cap - prev_i, 0)) : n_ent;
     bool mismatch = false;
     for (int k = lo; k < n_acc; ++k) {
-      if (prev_i + k < len0[f]) {
-        const int sl = comp ? pmod(prev_i + k, cap) : iclamp(prev_i + k, 0, cap - 1);
-        if (log_term_in[RS_AT2(f, sl, cap)] != w_term[imin(off + k, e - 1)]) mismatch = true;
+      if (prev_i + k < x.len0) {
+        const int sl = g.comp ? pmod(prev_i + k, cap) : iclamp(prev_i + k, 0, cap - 1);
+        if (log_term_in[RS_AT2(i, sl, cap)] != ent_term[RS_AT2(src, imin(off + k, e - 1), e)])
+          mismatch = true;
       }
     }
-    const int appended = comp ? prev_i + n_acc : imin(prev_i + n_ent, cap);
-    llen[f] = ae_ok ? (mismatch ? appended : imax(len0[f], appended)) : len0[f];
-    if (dur) dur_mid[f] = imin(RS_IN(int32_t, S_DUR_LEN)[RS_AT1(f)], llen[f]);
+    const int appended = g.comp ? prev_i + n_acc : imin(prev_i + n_ent, cap);
+    x.llen = ae_ok ? (mismatch ? appended : imax(x.len0, appended)) : x.len0;
+    x.dur_mid = g.dur ? imin(RS_IN(int32_t, S_DUR_LEN)[RS_AT1(i)], x.llen) : 0;
     if (ae_ok) {
       for (int k = lo; k < n_acc; ++k) {
-        const int slot = comp ? pmod(prev_i + k, cap) : prev_i + k;
+        const int slot = g.comp ? pmod(prev_i + k, cap) : prev_i + k;
         if (slot < 0 || slot >= cap) continue;
         const int wk = imin(off + k, e - 1);
-        log_term[RS_AT2(f, slot, cap)] = w_term[wk];
-        log_val[RS_AT2(f, slot, cap)] = w_val[wk];
-        if (P.track) log_tick[RS_AT2(f, slot, cap)] = w_tick[wk];
+        log_term[RS_AT2(i, slot, cap)] = RS_WIN(M_ENT_TERM, wk);
+        log_val[RS_AT2(i, slot, cap)] = RS_WIN(M_ENT_VAL, wk);
+        if (P.track) log_tick[RS_AT2(i, slot, cap)] = RS_WIN(M_ENT_TICK, wk);
         // Non-config entries ship 0 and scrub stale commands off reused slots.
-        if (rcf) log_cfg[RS_AT2(f, slot, cap)] = w_cfg[wk];
+        if (g.rcf) log_cfg[RS_AT2(i, slot, cap)] = RS_WIN(M_ENT_CFG, wk);
       }
     }
-    const int last_new = imax(imin(prev_i + n_acc, llen[f]), 0);
-    commit[f] = ae_ok ? imax(commit0[f], imin(lcommit, last_new)) : commit0[f];
+#undef RS_WIN
+    const int last_new = imax(imin(prev_i + n_acc, x.llen), 0);
+    x.commit = ae_ok ? imax(x.commit0, imin(lcommit, last_new)) : x.commit0;
     // Snapshot install: adopt the sender's base (and config context); keep our
     // suffix when it extends through L with L's term, else wipe the log to L.
     int L = 0;
-    applied_snap[f] = false;
+    x.applied_snap = false;
     if (snap) {
       L = RS_IN(int32_t, M_REQ_BASE)[RS_AT1(src)];
       const int Lt = RS_IN(int32_t, M_REQ_BASE_TERM)[RS_AT1(src)];
-      if (L > base0[f]) {
-        applied_snap[f] = true;
-        const bool keep = L <= len0[f] &&
-            term_at(RS_ROW(log_term_in, f), B, cap, true, base0[f], bterm0[f], L) == Lt;
-        bterm[f] = Lt;
-        bchk[f] = RS_IN(uint32_t, M_REQ_BASE_CHK)[RS_AT1(src)];
-        base[f] = L;
-        if (!keep) llen[f] = L;
-        commit[f] = imax(commit[f], L);
-        if (rcf) {
-          for (int w = 0; w < W; ++w)
-            bmold[f][w] = RS_IN(uint32_t, M_REQ_BASE_MOLD)[RS_AT2(src, w, W)];
-          bpend[f] = RS_IN(int32_t, M_REQ_BASE_PEND)[RS_AT1(src)];
-          bepoch[f] = RS_IN(int32_t, M_REQ_BASE_EPOCH)[RS_AT1(src)];
+      if (L > x.base0) {
+        x.applied_snap = true;
+        const bool keep = L <= x.len0 &&
+            term_at(RS_ROW(log_term_in, i), B, cap, true, x.base0, x.bterm0, L) == Lt;
+        x.bterm = Lt;
+        x.bchk = RS_IN(uint32_t, M_REQ_BASE_CHK)[RS_AT1(src)];
+        x.base = L;
+        if (!keep) x.llen = L;
+        x.commit = imax(x.commit, L);
+        if (g.rcf) {
+          for (int w = 0; w < MAXW; ++w)
+            if (w < W) x.bmold[w] = RS_IN(uint32_t, M_REQ_BASE_MOLD)[RS_AT2(src, w, W)];
+          x.bpend = RS_IN(int32_t, M_REQ_BASE_PEND)[RS_AT1(src)];
+          x.bepoch = RS_IN(int32_t, M_REQ_BASE_EPOCH)[RS_AT1(src)];
         }
       }
     }
-    len4[f] = llen[f];
+    x.len4 = x.llen;
     // Snapshot receivers always ack, with match = the snapshot index.
-    RS_OUT(NodeT, OM_A_OK_TO)[RS_AT1(f)] = (NodeT)((ae_ok || snap) ? src : NIL);
-    RS_OUT(IdxT, OM_A_MATCH)[RS_AT1(f)] = (IdxT)(snap ? L : (ae_ok ? last_new : 0));
-    RS_OUT(IdxT, OM_A_HINT)[RS_AT1(f)] = (IdxT)llen[f];
+    RS_OUT(NodeT, OM_A_OK_TO)[RS_AT1(i)] = (NodeT)((ae_ok || snap) ? src : NIL);
+    RS_OUT(IdxT, OM_A_MATCH)[RS_AT1(i)] = (IdxT)(snap ? L : (ae_ok ? last_new : 0));
+    RS_OUT(IdxT, OM_A_HINT)[RS_AT1(i)] = (IdxT)x.llen;
   }
 
-  // ---- phase 3.5: PreVote requests. A voter grants a probe of a term at
-  // least its own from an up-to-date log, unless it heard a leader within
-  // election_min ticks of its clock or leads itself. -------------------------
-  for (int v = 0; v < n; ++v) {
-    if (hc_live && has_ae[v]) heard[v] = clock1[v];
-    if (!pv) continue;
-    const bool quiet = clock1[v] - heard[v] >= P.election_min && role[v] != LEADER;
-    if (!quiet) continue;
-    for (int c = 0; c < n; ++c) {
-      if (RS_DELIVERED(v, c) && rtype[c] == REQ_PREVOTE && rterm[c] >= term[v] && RS_UTD(c, v))
-        pvg[c][v >> 5] |= 1u << (v & 31);
+  // ---- phase 3.5: this voter's PreVote grants. It grants a probe of a term
+  // at least its own from an up-to-date log, unless it heard a leader within
+  // election_min ticks of its clock or leads itself. The grant row goes to
+  // the exchange; each candidate gathers its column in phase 4.
+  if (g.hc_live && x.has_ae) x.heard = x.clock1;
+  if (g.pv) {
+    uint32_t row[MAXW] = {0u, 0u};
+    const bool quiet = x.clock1 - x.heard >= P.election_min && x.role != LEADER;
+    if (quiet) {
+      for (int c = 0; c < n; ++c) {
+        if (RS_DELIVERED(c) && RS_RTYPE(c) == REQ_PREVOTE && RS_RTERM(c) >= x.term && RS_UTD(c))
+          set_bit(row, c);
+      }
     }
+    for (int w = 0; w < MAXW; ++w) X.at(X_PVG + w, i, ci) = (int32_t)row[w];
   }
 
   // ---- phase 3.7: TimeoutNow receipt: the target of a current-term
-  // TimeoutNow starts an election this tick (non-voters never campaign). -----
-  for (int r = 0; r < n && xfr; ++r) {
+  // TimeoutNow starts an election this tick (non-voters never campaign).
+  x.xfer_elect = false;
+  if (g.xfr) {
     bool tn = false;
     for (int s = 0; s < n; ++s)
-      tn = tn || (RS_DELIVERED(r, s) && rtype[s] == REQ_TIMEOUT_NOW && xtgt[s] == r &&
-                  rterm[s] == term[r]);
-    xfer_elect[r] = tn && alive[r] && role[r] != LEADER && (!rcf || member_b[r]);
+      tn = tn || (RS_DELIVERED(s) && RS_RTYPE(s) == REQ_TIMEOUT_NOW &&
+                  RS_H(X_HXTGT, s) == i && RS_RTERM(s) == x.term);
+    x.xfer_elect = tn && x.alive && x.role != LEADER && (!g.rcf || x.member_b);
   }
 
-  // ---- phases 4 + 5, per node: responses, PreVote promotion, then leader
-  // commit ----------------------------------------------------------------------
-  uint32_t aresp_bits[MAXW];
-  for (int q = 0; q < n; ++q) {
-    if (role[q] == CANDIDATE) {
-      for (int r = 0; r < n; ++r) {
-        if (RS_DELIVERED(q, r) && resp_kind_in[RS_AT2(q, r, n)] == RESP_VOTE &&
-            v_to[r] == q && resp_term[r] == term[q])
-          votes[q][r >> 5] |= 1u << (r & 31);
-      }
-    }
-    // A removed node cannot win on banked votes.
-    win[q] = role[q] == CANDIDATE && RS_QUORUM(q, votes[q]) && alive[q] && (!rcf || member_b[q]);
-    if (win[q]) {
-      role[q] = LEADER;
-      lid[q] = q;
-    }
-    // Phase 4.5: pre-vote grants ride the packed pv_grant plane.
-    pre_win[q] = false;
-    if (pv && role[q] == PRECANDIDATE) {
-      const uint32_t* grant_row = RS_IN(uint32_t, M_PV_GRANT);
-      for (int r = 0; r < n; ++r) {
-        if (RS_DELIVERED(q, r) && resp_kind_in[RS_AT2(q, r, n)] == RESP_PREVOTE &&
-            ((grant_row[RS_AT2(q, r >> 5, W)] >> (r & 31)) & 1u))
-          votes[q][r >> 5] |= 1u << (r & 31);
-      }
-      pre_win[q] = RS_QUORUM(q, votes[q]) && alive[q] && (!rcf || member_b[q]);
-      if (pre_win[q]) {
-        term[q] += 1;
-        role[q] = CANDIDATE;
-        vf[q] = q;
-        for (int w = 0; w < W; ++w) votes[q][w] = (w == (q >> 5)) ? (1u << (q & 31)) : 0u;
-      }
-    }
-    const int len_i = len4[q];
-    const int xt = xfr ? iclamp(xfer0[q], 0, n - 1) : -1;  // the pending transfer's target
-    int mws[MAXN];                                         // match_with_self row
-    if (rdx)
-      for (int w = 0; w < W; ++w) aresp_bits[w] = fresh[q][w] = 0u;
-    if (xfr) age_t[q] = 0;
+  // ---- phases 4 + 5: responses, PreVote promotion, then leader commit.
+  if (x.role == CANDIDATE) {
     for (int r = 0; r < n; ++r) {
-      int nx = rs_[q] ? 1 : (int)next_in[RS_AT2(q, r, n)];
-      int mt = rs_[q] ? 0 : (int)match_in[RS_AT2(q, r, n)];
-      int ag = rs_[q] ? P.ack_sat : (int)ack_in[RS_AT2(q, r, n)];
-      if (win[q]) {
+      if (RS_DELIVERED(r) && resp_kind_in[RS_AT2(i, r, n)] == RESP_VOTE &&
+          RS_H(X_HVTO, r) == i && RS_H(X_HRESP_TERM, r) == x.term)
+        set_bit(x.votes, r);
+    }
+  }
+  // A removed node cannot win on banked votes.
+  x.win = x.role == CANDIDATE && RS_QUORUM(x.votes) && x.alive && (!g.rcf || x.member_b);
+  if (x.win) {
+    x.role = LEADER;
+    x.lid = i;
+  }
+  // Phase 4.5: pre-vote grants ride the packed pv_grant plane.
+  x.pre_win = false;
+  if (g.pv && x.role == PRECANDIDATE) {
+    const uint32_t* grant_row = RS_IN(uint32_t, M_PV_GRANT);
+    for (int r = 0; r < n; ++r) {
+      if (RS_DELIVERED(r) && resp_kind_in[RS_AT2(i, r, n)] == RESP_PREVOTE &&
+          ((grant_row[RS_AT2(i, r >> 5, W)] >> (r & 31)) & 1u))
+        set_bit(x.votes, r);
+    }
+    x.pre_win = RS_QUORUM(x.votes) && x.alive && (!g.rcf || x.member_b);
+    if (x.pre_win) {
+      x.term += 1;
+      x.role = CANDIDATE;
+      x.vf = i;
+      self_row(x.votes, i);
+    }
+  }
+  {
+    const IdxT* next_in = RS_IN(IdxT, S_NEXT_INDEX);
+    const IdxT* match_in = RS_IN(IdxT, S_MATCH_INDEX);
+    const AckT* ack_in = RS_IN(AckT, S_ACK_AGE);
+    IdxT* next_out = RS_OUT(IdxT, O_NEXT_INDEX);
+    IdxT* match_out = RS_OUT(IdxT, O_MATCH_INDEX);
+    AckT* ack_out = RS_OUT(AckT, O_ACK_AGE);
+    const int len_i = x.len4;
+    const int xt = g.xfr ? iclamp(x.xfer0, 0, n - 1) : -1;  // the pending transfer's target
+    uint32_t aresp_bits[MAXW] = {0u, 0u};
+    x.age_t = 0;
+    for (int r = 0; r < n; ++r) {
+      int nx = x.rs ? 1 : (int)next_in[RS_AT2(i, r, n)];
+      int mt = x.rs ? 0 : (int)match_in[RS_AT2(i, r, n)];
+      int ag = x.rs ? P.ack_sat : (int)ack_in[RS_AT2(i, r, n)];
+      if (x.win) {
         nx = len_i + 1;
         mt = 0;
       }
-      const bool aresp = RS_DELIVERED(q, r) && resp_kind_in[RS_AT2(q, r, n)] == RESP_APPEND &&
-                         role[q] == LEADER && resp_term[r] == term[q];
+      const bool aresp = RS_DELIVERED(r) && resp_kind_in[RS_AT2(i, r, n)] == RESP_APPEND &&
+                         x.role == LEADER && RS_H(X_HRESP_TERM, r) == x.term;
       if (aresp) {
-        if (rdx) aresp_bits[r >> 5] |= 1u << (r & 31);
-        if (a_ok_to[r] == q) {
-          mt = imax(mt, a_match[r]);
-          nx = imax(nx, a_match[r] + 1);
+        if (g.rdx) set_bit(aresp_bits, r);
+        const int am = RS_H(X_HAMATCH, r);
+        if (RS_H(X_HAOKTO, r) == i) {
+          mt = imax(mt, am);
+          nx = imax(nx, am + 1);
         } else {
-          nx = imax(imin(nx - 1, a_hint[r] + 1), 1);
+          nx = imax(imin(nx - 1, RS_H(X_HAHINT, r) + 1), 1);
         }
       }
       ag = imin(ag + 1, P.ack_sat);
-      if (win[q] || aresp) ag = 0;
-      if (rdl && ag <= P.lease_ticks) fresh[q][r >> 5] |= 1u << (r & 31);
-      if (r == xt) age_t[q] = ag;
-      next_out[RS_AT2(q, r, n)] = (IdxT)nx;
-      match_out[RS_AT2(q, r, n)] = (IdxT)mt;
-      ack_out[RS_AT2(q, r, n)] = (AckT)ag;
-      // Under the durability gate a leader's own slot is its durable length.
-      mws[r] = (r == q) ? (dacks ? dur_mid[q] : len_i) : mt;
+      if (x.win || aresp) ag = 0;
+      if (g.rdl && ag <= P.lease_ticks) set_bit(x.fresh, r);
+      if (r == xt) x.age_t = ag;
+      next_out[RS_AT2(i, r, n)] = (IdxT)nx;
+      match_out[RS_AT2(i, r, n)] = (IdxT)mt;
+      ack_out[RS_AT2(i, r, n)] = (AckT)ag;
     }
-    if (rdx) {  // a pending read on a leader banks this tick's acks
-      const bool keep_r = role[q] == LEADER && read_idx0[q] > 0;
-      for (int w = 0; w < W; ++w) acks[q][w] = keep_r ? (acks[q][w] | aresp_bits[w]) : 0u;
+    if (g.rdx) {  // a pending read on a leader banks this tick's acks
+      const bool keep_r = x.role == LEADER && x.read_idx0 > 0;
+      for (int w = 0; w < MAXW; ++w) x.acks[w] = keep_r ? (x.acks[w] | aresp_bits[w]) : 0u;
     }
-    is_leader[q] = role[q] == LEADER;
-    if (is_leader[q] && alive[q]) {
+    x.is_leader = x.role == LEADER;
+    if (x.is_leader && x.alive) {
       // The quorum-th largest match: the largest value reached by at least
       // `quorum` entries of the row (an exact order statistic); under
       // reconfig, over the leader's own members, the min of both while joint.
-      int qm = 0;
-      if (rcf) {
-        qm = masked_qmatch(mws, n, m_old[q], maj_old[q]);
-        if (joint[q]) qm = imin(qm, masked_qmatch(mws, n, m_new[q], maj_new[q]));
+      // Under the durability gate a leader's own slot is its durable length.
+      const IdxT* mrow = match_out + RS_AT2(i, 0, n);
+      const int self = g.dacks ? x.dur_mid : len_i;
+      int qm;
+      if (g.rcf) {
+        qm = qmatch(mrow, B, n, i, self, x.m_old, x.maj_old);
+        if (x.joint) qm = imin(qm, qmatch(mrow, B, n, i, self, x.m_new, x.maj_new));
       } else {
-        for (int c = 0; c < n; ++c) {
-          int cnt = 0;
-          for (int k = 0; k < n; ++k) cnt += mws[k] >= mws[c];
-          if (cnt >= P.quorum && mws[c] > qm) qm = mws[c];
-        }
+        qm = qmatch(mrow, B, n, i, self, (const uint32_t*)nullptr, P.quorum);
       }
-      const int qt = term_at(RS_ROW(log_term, q), B, cap, comp, base[q], bterm[q], qm);
-      if (qm > commit[q] && qt == term[q]) commit[q] = qm;
+      const int qt = term_at(RS_ROW(log_term, i), B, cap, g.comp, x.base, x.bterm, qm);
+      if (qm > x.commit && qt == x.term) x.commit = qm;
     }
   }
+  X.at(X_COMMIT, i, ci) = x.commit;
+  X.at(X_LID, i, ci) = x.lid;
+  X.at(X_ELIGX, i, ci) = x.is_leader && x.alive && (!g.rcf || x.member_b);
+}
 
-  int maxc = 0, hnode = -1;  // the lowest-id max-commit node
-  for (int i = 0; i < n; ++i) {
-    if (hnode < 0 || commit[i] > maxc) {
-      maxc = commit[i];
-      hnode = i;
+// ---- phase 2: what needs the other nodes' phase-1 commit, leadership and
+// eligibility: the max-commit node, transfer keep/accept, serving reads,
+// offer latency, compaction and the ring checksum, the no-op slot. --------
+template <class IdxT, class AckT, class NodeT, bool FULL>
+RS_HD void phase_serve_and_compact(RS_PHASE_ARGS) {
+  const Gates g(P, FULL);
+  const int64_t B = P.b;
+  const int n = P.n, cap = P.cap;
+  const int32_t now = RS_IN(int32_t, S_NOW)[b];
+  const int32_t lat_frontier0 = RS_IN(int32_t, S_LAT_FRONTIER)[b];
+  int32_t* log_term = RS_OUT(int32_t, O_LOG_TERM);
+  int32_t* log_val = RS_OUT(int32_t, O_LOG_VAL);
+
+  // The lowest-id max-commit node.
+  x.maxc = 0;
+  x.hnode = -1;
+  for (int j = 0; j < n; ++j) {
+    const int c = X.at(X_COMMIT, j, ci);
+    if (x.hnode < 0 || c > x.maxc) {
+      x.maxc = c;
+      x.hnode = j;
     }
   }
 
   // ---- phase 5.2: transfer keep/accept. A pending transfer survives while
   // its leader leads and the target stays responsive; the lowest-id live
-  // leader takes a new target that is a voter of its own target config. ------
-  if (xfr) {
+  // leader takes a new target that is a voter of its own target config.
+  x.xpend = false;
+  if (g.xfr) {
     const int t_x = RS_IN(int32_t, I_TRANSFER_CMD)[b];
     int ldx = n;
-    for (int i = n - 1; i >= 0; --i)
-      if (is_leader[i] && alive[i] && (!rcf || member_b[i])) ldx = i;
-    for (int i = 0; i < n; ++i) {
-      const bool keep_x = is_leader[i] && xfer0[i] != NIL && age_t[i] <= P.ack_timeout;
-      xto[i] = keep_x ? xfer0[i] : NIL;
-      const bool t_voter = !rcf || (t_x >= 0 && t_x < n && has_bit(m_new[i], t_x));
-      if (t_x != NIL && t_voter && i == ldx && t_x != i && xto[i] == NIL) xto[i] = t_x;
-      xpend[i] = xto[i] != NIL;
-    }
+    for (int j = 0; j < n && ldx == n; ++j)
+      if (X.at(X_ELIGX, j, ci)) ldx = j;
+    const bool keep_x = x.is_leader && x.xfer0 != NIL && x.age_t <= P.ack_timeout;
+    x.xto = keep_x ? x.xfer0 : NIL;
+    const bool t_voter = !g.rcf || (t_x >= 0 && t_x < n && has_bit(x.m_new, t_x));
+    if (t_x != NIL && t_voter && i == ldx && t_x != i && x.xto == NIL) x.xto = t_x;
+    x.xpend = x.xto != NIL;
   }
-#define RS_XPEND(i) (xfr && xpend[i])
 
   // ---- phase 5.2: ReadIndex and lease reads. A pending read serves once its
   // acks (with self) reach the leader's quorum, or at once on a lease (a
   // quorum acked within lease_ticks); the lowest-id leader with a committed
-  // entry of its term captures a new read at commit + 1. ------------------
-  int reads_served = 0, low_cap = n;
-  uint32_t read_lat_sum = 0u;
-  int read_hist[BINS];
-  bool serve[MAXN], viol_stale = false;
-  for (int k = 0; k < BINS; ++k) read_hist[k] = 0;
-  if (rdx) {
+  // entry of its term captures a new read at commit + 1 (phase 3).
+  x.serve = false;
+  if (g.rdx) {
     const int read_cmd = RS_IN(int32_t, I_READ_CMD)[b];
-    for (int i = 0; i < n; ++i) {
-      const bool pend0 = read_idx0[i] > 0;
-      const bool keep_r = is_leader[i] && pend0;
-      uint32_t self_row[MAXW];
-      for (int w = 0; w < W; ++w) self_row[w] = acks[i][w] | ((w == (i >> 5)) ? 1u << (i & 31) : 0u);
-      serve[i] = keep_r && alive[i] && RS_QUORUM(i, self_row);
-      if (rdl) {
-        for (int w = 0; w < W; ++w) self_row[w] = fresh[i][w] | ((w == (i >> 5)) ? 1u << (i & 31) : 0u);
-        // A pending transfer's handoff covers the read path.
-        const bool lease_ok = RS_QUORUM(i, self_row) && !RS_XPEND(i);
-        serve[i] = serve[i] || (keep_r && alive[i] && lease_ok);
-      }
-      if (serve[i]) {
-        const int lat = imax(now + 1 - read_tick0[i], 1);
-        ++reads_served;
-        read_lat_sum += (uint32_t)lat;
-        ++read_hist[log2_bin(lat)];
-        if (P.check_invariants && rdl && read_idx0[i] - 1 < read_fr0[i]) viol_stale = true;
-      }
-      const bool cur_committed =
-          term_at(RS_ROW(log_term, i), B, cap, comp, base[i], bterm[i], commit[i]) == term[i];
-      const bool can_cap = read_cmd != NIL && is_leader[i] && alive[i] && !pend0 &&
-                           cur_committed && !RS_XPEND(i);
-      if (can_cap && low_cap == n) low_cap = i;
+    const bool pend0 = x.read_idx0 > 0;
+    const bool keep_r = x.is_leader && pend0;
+    uint32_t row[MAXW];
+    self_row(row, i);
+    for (int w = 0; w < MAXW; ++w) row[w] |= x.acks[w];
+    x.serve = keep_r && x.alive && RS_QUORUM(row);
+    if (g.rdl) {
+      self_row(row, i);
+      for (int w = 0; w < MAXW; ++w) row[w] |= x.fresh[w];
+      // A pending transfer's handoff covers the read path.
+      const bool lease_ok = RS_QUORUM(row) && !RS_XPEND;
+      x.serve = x.serve || (keep_r && x.alive && lease_ok);
     }
-    const int fr_now = imax(lat_frontier0, maxc);
-    for (int i = 0; i < n; ++i) {
-      const bool pend0 = read_idx0[i] > 0;
-      const bool cleared = serve[i] || (pend0 && !(is_leader[i] && pend0));
-      const bool cap_r = i == low_cap;
-      const int ridx = cap_r ? commit[i] + 1 : cleared ? 0 : read_idx0[i];
-      const int rtick = cap_r ? now + 1 : cleared ? 0 : read_tick0[i];
-      RS_OUT(int32_t, O_READ_IDX)[RS_AT1(i)] = ridx;
-      RS_OUT(int32_t, O_READ_TICK)[RS_AT1(i)] = rtick;
-      for (int w = 0; w < W; ++w)
-        RS_OUT(uint32_t, O_READ_ACKS)[RS_AT2(i, w, W)] = (cap_r || serve[i]) ? 0u : acks[i][w];
-      if (rdl)  // the staleness anchor: the frontier at capture
-        RS_OUT(int32_t, O_READ_FR)[RS_AT1(i)] = cap_r ? fr_now : cleared ? 0 : read_fr0[i];
+    if (x.serve) {
+      const int lat = imax(now + 1 - x.read_tick0, 1);
+      acc_add(X.acc(A_READS, ci), 1);
+      acc_add(X.acc(A_READ_LAT_SUM, ci), lat);
+      acc_add(X.acc(A_READ_HIST + log2_bin(lat), ci), 1);
+      if (P.check_invariants && g.rdl && x.read_idx0 - 1 < x.read_fr0)
+        acc_max(X.acc(A_VIOL_STALE, ci), 1);
     }
+    const bool cur_committed =
+        term_at(RS_ROW(log_term, i), B, cap, g.comp, x.base, x.bterm, x.commit) == x.term;
+    X.at(X_CANCAP, i, ci) = read_cmd != NIL && x.is_leader && x.alive && !pend0 &&
+                            cur_committed && !RS_XPEND;
   }
 
-  // ---- offer->commit latency (offer-tick plane) ----------------------------
-  uint32_t lat_sum = 0;
-  int lat_cnt = 0, crossed = 0;
-  int hist[BINS];
-  for (int k = 0; k < BINS; ++k) hist[k] = 0;
+  // ---- offer->commit latency (offer-tick plane): entries newly past the
+  // carried frontier, 1-based (frontier, commit]. Without the ring slot k
+  // holds entry k + 1, so only those slots are visited; on the ring every
+  // slot is, at its absolute index.
   if (P.track) {
-    for (int i = 0; i < n; ++i) {
-      const bool lead_ok = is_leader[i] && alive[i];
-      // Entries newly past the carried frontier: 1-based (frontier, commit].
-      // Without the ring slot k holds entry k + 1, so only those slots are
-      // visited; on the ring every slot is, at its absolute index.
-      const int k0 = comp ? 0 : imax(lat_frontier0, 0);
-      const int k1 = comp ? cap : imin(commit[i], cap);
-      for (int k = k0; k < k1; ++k) {
-        const int abs1 = comp ? base[i] + pmod(k - base[i], cap) + 1 : k + 1;
-        if (abs1 <= lat_frontier0 || abs1 > commit[i]) continue;
-        const int tk = log_tick[RS_AT2(i, k, cap)];
-        if (tk < 1 || tk > now) continue;  // not a client entry
-        if (lead_ok) {
-          const int lat = now - tk + 1;
-          lat_sum += (uint32_t)lat;
-          ++lat_cnt;
-          ++hist[log2_bin(lat)];
-        }
-        if (i == hnode) ++crossed;
+    const bool lead_ok = x.is_leader && x.alive;
+    const int32_t* log_tick = RS_OUT(int32_t, O_LOG_TICK);
+    uint32_t lat_sum = 0u;
+    int lat_cnt = 0, crossed = 0;
+    const int k0 = g.comp ? 0 : imax(lat_frontier0, 0);
+    const int k1 = g.comp ? cap : imin(x.commit, cap);
+    for (int k = k0; k < k1; ++k) {
+      const int abs1 = g.comp ? x.base + pmod(k - x.base, cap) + 1 : k + 1;
+      if (abs1 <= lat_frontier0 || abs1 > x.commit) continue;
+      const int tk = log_tick[RS_AT2(i, k, cap)];
+      if (tk < 1 || tk > now) continue;  // not a client entry
+      if (lead_ok) {
+        const int lat = now - tk + 1;
+        lat_sum += (uint32_t)lat;
+        ++lat_cnt;
+        acc_add(X.acc(A_HIST + log2_bin(lat), ci), 1);
       }
+      if (i == x.hnode) ++crossed;
     }
+    if (lat_cnt) {
+      acc_add(X.acc(A_LAT_SUM, ci), (int)lat_sum);
+      acc_add(X.acc(A_LAT_CNT, ci), lat_cnt);
+    }
+    if (crossed) acc_add(X.acc(A_CROSSED, ci), crossed);
   }
-  RS_OUT(int32_t, O_LAT_FRONTIER)[b] = P.track ? imax(lat_frontier0, maxc) : lat_frontier0;
 
   // ---- phase 5.5: compaction and the ring checksum. The checksum (and the
   // config fold of the compacted span) is anchored at the post-install,
   // pre-advance base and runs before phase 6: an injection into a slot this
-  // tick's rebase freed would otherwise alias. -------------------------------
-  bool chk_bad = false;
-  if (comp) {
-    for (int i = 0; i < n; ++i) {
-      const int base_mid = base[i];
-      const uint32_t bchk_mid = bchk[i];
-      const int base2 = imax(base_mid, imin(commit[i], llen[i] - (cap - P.compact_margin)));
-      bterm[i] = term_at(RS_ROW(log_term, i), B, cap, true, base_mid, bterm[i], base2);
-      if (rcf) {
-        const CfgFold f = fold_cfg(RS_ROW(log_cfg, i), B, cap, n, W, true, base_mid, base_mid, base2);
-        for (int w = 0; w < W; ++w) bmold[i][w] ^= f.fold[w];
-        if (f.hi > 0) bpend[i] = f.code_hi > 0 ? f.code_hi : 0;
-        bepoch[i] += f.count;
-      }
-      base[i] = base2;
-      const int co = imax(commit0[i], base_mid);  // snapshot installs skip the check
-      uint32_t s_co = 0u, s_bf = 0u, s_cn = 0u;
-      for (int k = 0; k < cap; ++k) {
-        const int a0 = base_mid + pmod(k - base_mid, cap);  // 0-based entry index of slot k
-        const uint32_t c =
-            (uint32_t)log_term[RS_AT2(i, k, cap)] * chk_w_term((uint32_t)a0) +
-            (uint32_t)log_val[RS_AT2(i, k, cap)] * chk_w_val((uint32_t)a0);
-        if (a0 < co) s_co += c;
-        if (a0 < base2) s_bf += c;
-        if (a0 < commit[i]) s_cn += c;
-      }
-      if (P.check_invariants && bchk_mid + s_co != chk0[i] && !applied_snap[i]) chk_bad = true;
-      bchk[i] = bchk_mid + s_bf;
-      chk_new[i] = bchk_mid + s_cn;
+  // tick's rebase freed would otherwise alias.
+  if (g.comp) {
+    const int base_mid = x.base;
+    const uint32_t bchk_mid = x.bchk;
+    const int base2 = imax(base_mid, imin(x.commit, x.llen - (cap - P.compact_margin)));
+    x.bterm = term_at(RS_ROW(log_term, i), B, cap, true, base_mid, x.bterm, base2);
+    if (g.rcf) {
+      const CfgFold f = fold_cfg(RS_ROW(RS_OUT(int32_t, O_LOG_CFG), i), B, cap, n, true,
+                                 base_mid, base_mid, base2);
+      for (int w = 0; w < MAXW; ++w) x.bmold[w] ^= f.fold[w];
+      if (f.hi > 0) x.bpend = f.code_hi > 0 ? f.code_hi : 0;
+      x.bepoch += f.count;
+    }
+    x.base = base2;
+    const int co = imax(x.commit0, base_mid);  // snapshot installs skip the check
+    uint32_t s_co = 0u, s_bf = 0u, s_cn = 0u;
+    for (int k = 0; k < cap; ++k) {
+      const int a0 = base_mid + pmod(k - base_mid, cap);  // 0-based entry index of slot k
+      const uint32_t c = (uint32_t)log_term[RS_AT2(i, k, cap)] * chk_w_term((uint32_t)a0) +
+                         (uint32_t)log_val[RS_AT2(i, k, cap)] * chk_w_val((uint32_t)a0);
+      if (a0 < co) s_co += c;
+      if (a0 < base2) s_bf += c;
+      if (a0 < x.commit) s_cn += c;
+    }
+    if (P.check_invariants && bchk_mid + s_co != x.chk0 && !x.applied_snap)
+      acc_max(X.acc(A_CHK_BAD, ci), 1);
+    x.bchk = bchk_mid + s_bf;
+    x.chk_new = bchk_mid + s_cn;
+  }
+
+  // ---- phase 6, first part: the election-win no-op. Under compaction a
+  // fresh leader's no-op needs a free slot, and client commands stop
+  // `reserve` slots short so the no-op always finds one.
+  const int reserve = imax(1, P.compact_margin / 2);
+  const bool has_slot = x.llen - x.base < cap;
+  x.noop = g.comp && x.win && has_slot;
+  if (g.comp && x.win && !has_slot) acc_add(X.acc(A_NOOP_BLOCKED, ci), 1);
+  const bool room = g.comp ? x.llen - x.base < cap - reserve : has_slot;
+  x.node_ok = x.is_leader && x.alive && room && !x.noop;
+  if (g.rcf) X.at(X_LDJ, i, ci) = x.node_ok && x.member_b && !x.joint;
+}
+
+// Phase 2, per cluster: the latency frontier and the tick counter.
+RS_HD void cluster_frontier(const TickParams& P, void* const* ptr, const Xch& X, int64_t b,
+                            int ci) {
+  int maxc = X.at(X_COMMIT, 0, ci);
+  for (int j = 1; j < P.n; ++j) maxc = imax(maxc, X.at(X_COMMIT, j, ci));
+  const int32_t lat_frontier0 = RS_IN(int32_t, S_LAT_FRONTIER)[b];
+  RS_OUT(int32_t, O_LAT_FRONTIER)[b] = P.track ? imax(lat_frontier0, maxc) : lat_frontier0;
+  RS_OUT(int32_t, O_NOW)[b] = RS_IN(int32_t, S_NOW)[b] + 1;
+}
+
+// The redirect pipeline's slot k after this tick's fresh offer: the first
+// free slot takes it (with the offer stamp). Every worker of a cluster
+// derives the same slots from the inputs.
+struct Slot {
+  int pend, tgt, tick;
+};
+
+RS_HD Slot redirect_slot(const TickParams& P, void* const* ptr, int64_t b, int k, int fresh_k) {
+  const int64_t B = P.b;
+  Slot sl;
+  sl.pend = RS_IN(int32_t, S_CLIENT_PEND)[RS_AT1(k)];
+  sl.tgt = RS_IN(int32_t, S_CLIENT_DST)[RS_AT1(k)];
+  sl.tick = P.track ? RS_IN(int32_t, S_CLIENT_TICK)[RS_AT1(k)] : 0;
+  const int32_t client_cmd = RS_IN(int32_t, I_CLIENT_CMD)[b];
+  if (k == fresh_k && client_cmd != NIL) {
+    sl.pend = client_cmd;
+    sl.tgt = RS_IN(int32_t, I_CLIENT_TARGET)[b];
+    sl.tick = RS_IN(int32_t, S_NOW)[b] + 1;
+  }
+  return sl;
+}
+
+// The first free pipeline slot (K when none is free).
+RS_HD int redirect_fresh_slot(const TickParams& P, void* const* ptr, int64_t b) {
+  const int64_t B = P.b;
+  for (int k = 0; k < P.k; ++k)
+    if (RS_IN(int32_t, S_CLIENT_PEND)[RS_AT1(k)] == NIL) return k;
+  return P.k;
+}
+
+// ---- phase 3: read capture, the one append a node makes (no-op > config
+// entry > client), timers, and the fsync flush. ---------------------------
+template <class IdxT, class AckT, class NodeT, bool FULL>
+RS_HD void phase_append_and_timers(RS_PHASE_ARGS) {
+  const Gates g(P, FULL);
+  const int64_t B = P.b;
+  const int n = P.n, cap = P.cap, W = P.w;
+  const int32_t now = RS_IN(int32_t, S_NOW)[b];
+  const int32_t client_cmd = RS_IN(int32_t, I_CLIENT_CMD)[b];
+
+  // ---- phase 5.2, read capture: the lowest-id node that may capture does.
+  if (g.rdx) {
+    const bool pend0 = x.read_idx0 > 0;
+    const bool cleared = x.serve || (pend0 && !(x.is_leader && pend0));
+    bool cap_r = X.at(X_CANCAP, i, ci) != 0;
+    for (int j = 0; j < i && cap_r; ++j)
+      if (X.at(X_CANCAP, j, ci)) cap_r = false;
+    const int ridx = cap_r ? x.commit + 1 : cleared ? 0 : x.read_idx0;
+    const int rtick = cap_r ? now + 1 : cleared ? 0 : x.read_tick0;
+    RS_OUT(int32_t, O_READ_IDX)[RS_AT1(i)] = ridx;
+    RS_OUT(int32_t, O_READ_TICK)[RS_AT1(i)] = rtick;
+    for (int w = 0; w < MAXW; ++w)
+      if (w < W) RS_OUT(uint32_t, O_READ_ACKS)[RS_AT2(i, w, W)] = (cap_r || x.serve) ? 0u : x.acks[w];
+    if (g.rdl) {  // the staleness anchor: the frontier at capture
+      const int fr_now = imax(RS_IN(int32_t, S_LAT_FRONTIER)[b], x.maxc);
+      RS_OUT(int32_t, O_READ_FR)[RS_AT1(i)] = cap_r ? fr_now : cleared ? 0 : x.read_fr0;
     }
   }
 
-  // ---- phase 6: election-win no-op, config entry, client injection, redirect
-  // routing: one append per node, at priority no-op > config > client. Under
-  // compaction a fresh leader's no-op needs a free slot, and client commands
-  // stop `reserve` slots short so the no-op always finds one. ---------------
-  const int reserve = imax(1, P.compact_margin / 2);
-  int noop_blocked = 0, cmds = 0;
-  bool noop[MAXN], node_ok[MAXN], client_ok[MAXN], cfg_write[MAXN];
-  int wval[MAXN], wtick[MAXN], cfg_code[MAXN];
-  for (int i = 0; i < n; ++i) {
-    const bool has_slot = llen[i] - base[i] < cap;
-    noop[i] = comp && win[i] && has_slot;
-    if (comp && win[i] && !has_slot) ++noop_blocked;
-    const bool room = comp ? llen[i] - base[i] < cap - reserve : has_slot;
-    node_ok[i] = is_leader[i] && alive[i] && room && !noop[i];
-  }
-  if (rcf) {
+  // ---- phase 6: config entry, client offer, injection.
+  x.cfg_write = false;
+  x.cfg_code = 0;
+  if (g.rcf) {
     // A joint entry on the admin's toggle (lowest-id eligible leader, not
     // joint, leaving at least 2 voters); a final entry once the governing
     // joint entry commits on the leader. Judged on each leader's own
@@ -844,127 +1055,91 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
     const int t_r = RS_IN(int32_t, I_RECONFIG_CMD)[b];
     const bool t_ok = t_r != NIL && t_r >= 0 && t_r < n;
     int ldj = n;
-    for (int i = n - 1; i >= 0; --i)
-      if (node_ok[i] && member_b[i] && !joint[i]) ldj = i;
-    for (int i = 0; i < n; ++i) {
-      const bool ld_ok = node_ok[i] && member_b[i];
-      int toggled = 0;
-      for (int w = 0; w < W; ++w)
-        toggled += popcount32(m_new[i][w] ^ ((t_ok && w == (t_r >> 5)) ? 1u << (t_r & 31) : 0u));
-      const bool accept_j = t_ok && i == ldj && ld_ok && !joint[i] && toggled >= 2;
-      int pend_v = n;  // the open toggle: the lowest bit the two rows differ on
-      for (int v = n - 1; v >= 0; --v)
-        if (has_bit(m_old[i], v) != has_bit(m_new[i], v)) pend_v = v;
-      const bool accept_f = ld_ok && joint[i] && commit[i] >= cfg_pend0[i];
-      cfg_code[i] = accept_j ? t_r + 1 : accept_f ? -(pend_v + 1) : 0;
-      cfg_write[i] = accept_j || accept_f;
-    }
+    for (int j = 0; j < n && ldj == n; ++j)
+      if (X.at(X_LDJ, j, ci)) ldj = j;
+    const bool ld_ok = x.node_ok && x.member_b;
+    int toggled = 0;
+    for (int w = 0; w < MAXW; ++w)
+      toggled += popcount32(x.m_new[w] ^ ((t_ok && w == (t_r >> 5)) ? 1u << (t_r & 31) : 0u));
+    const bool accept_j = t_ok && i == ldj && ld_ok && !x.joint && toggled >= 2;
+    int pend_v = n;  // the open toggle: the lowest bit the two rows differ on
+    for (int v = 0; v < n && pend_v == n; ++v)
+      if (has_bit(x.m_old, v) != has_bit(x.m_new, v)) pend_v = v;
+    const bool accept_f = ld_ok && x.joint && x.commit >= x.cfg_pend0;
+    x.cfg_code = accept_j ? t_r + 1 : accept_f ? -(pend_v + 1) : 0;
+    x.cfg_write = accept_j || accept_f;
   }
-  for (int i = 0; i < n; ++i) {
-    // The slot holds a config entry; a pending transfer refuses clients.
-    node_ok[i] = node_ok[i] && !(rcf && cfg_write[i]) && !RS_XPEND(i);
-    client_ok[i] = !P.redirect && client_cmd != NIL && node_ok[i];
-    wval[i] = client_cmd;
-    wtick[i] = now + 1;  // a direct offer is accepted on its offer tick
-    if (client_ok[i]) cmds = 1;  // offers, not appends
-  }
-  if (P.redirect) {
-    // K-deep pipeline: the first free slot takes a fresh offer; each pending
-    // offer goes to its target node, which accepts its lowest slot if it
-    // leads; the rest chase the target's believed leader or bounce.
-    const int K = P.k;
-    int pend[MAXK], tgt[MAXK], ptk[MAXK], low_k[MAXN];
-    bool fresh_done = false;
-    for (int k = 0; k < K; ++k) {
-      pend[k] = RS_IN(int32_t, S_CLIENT_PEND)[RS_AT1(k)];
-      tgt[k] = RS_IN(int32_t, S_CLIENT_DST)[RS_AT1(k)];
-      ptk[k] = P.track ? RS_IN(int32_t, S_CLIENT_TICK)[RS_AT1(k)] : 0;
-      if (!fresh_done && pend[k] == NIL) {
-        fresh_done = true;
-        if (client_cmd != NIL) {
-          pend[k] = client_cmd;
-          tgt[k] = RS_IN(int32_t, I_CLIENT_TARGET)[b];
-          ptk[k] = now + 1;  // the offer stamp rides the slot
-        }
+  // The slot holds a config entry; a pending transfer refuses clients.
+  x.node_ok = x.node_ok && !(g.rcf && x.cfg_write) && !RS_XPEND;
+  x.client_ok = !g.redir && client_cmd != NIL && x.node_ok;
+  x.wval = client_cmd;
+  x.wtick = now + 1;  // a direct offer is accepted on its offer tick
+  if (x.client_ok) acc_max(X.acc(A_CMDS, ci), 1);  // offers, not appends
+  if (g.redir) {
+    // K-deep pipeline: each pending offer goes to its target node, which
+    // accepts its lowest slot if it leads (the slots' outputs: phase 4).
+    const int fresh_k = redirect_fresh_slot(P, ptr, b);
+    for (int k = 0; k < P.k; ++k) {
+      const Slot sl = redirect_slot(P, ptr, b, k, fresh_k);
+      if (sl.pend != NIL && sl.tgt == i) {
+        x.client_ok = x.node_ok;
+        x.wval = sl.pend;
+        x.wtick = sl.tick;
+        break;
       }
     }
-    for (int i = 0; i < n; ++i) low_k[i] = K;
-    for (int k = K - 1; k >= 0; --k)
-      if (pend[k] != NIL && tgt[k] >= 0 && tgt[k] < n) low_k[tgt[k]] = k;
-    for (int i = 0; i < n; ++i) {
-      client_ok[i] = low_k[i] < K && node_ok[i];
-      if (client_ok[i]) {
-        wval[i] = pend[low_k[i]];
-        wtick[i] = ptk[low_k[i]];
-      }
-    }
-    for (int k = 0; k < K; ++k) {
-      const bool active = pend[k] != NIL;
-      const int t = tgt[k];
-      const bool valid = active && t >= 0 && t < n;
-      const bool accepted = valid && low_k[t] == k && node_ok[t];
-      cmds += accepted;
-      const bool pend_on = active && !accepted;
-      const int tgt_ld = valid ? lid[t] : NIL;
-      const bool tgt_up = valid && alive[t];
-      RS_OUT(int32_t, O_CLIENT_PEND)[RS_AT1(k)] = pend_on ? pend[k] : NIL;
-      RS_OUT(int32_t, O_CLIENT_DST)[RS_AT1(k)] =
-          !pend_on ? 0
-          : (tgt_up && tgt_ld != NIL) ? tgt_ld
-                                      : RS_IN(int32_t, I_CLIENT_BOUNCE)[RS_AT1(k)];
-      if (P.track) RS_OUT(int32_t, O_CLIENT_TICK)[RS_AT1(k)] = pend_on ? ptk[k] : 0;
-    }
+    X.at(X_NODEOK, i, ci) = x.node_ok;
   }
-  for (int i = 0; i < n; ++i) {
-    const bool cfg_w = rcf && cfg_write[i];
-    if (!(noop[i] || cfg_w || client_ok[i])) continue;
-    const int pos = comp ? pmod(llen[i], cap) : llen[i];
-    if (pos >= 0 && pos < cap) {
-      // No-op and config entries carry stamp 0; config entries value 0, their
-      // command riding the config plane (0 for every other entry).
-      const bool proto = noop[i] || cfg_w;
-      log_term[RS_AT2(i, pos, cap)] = term[i];
-      log_val[RS_AT2(i, pos, cap)] = noop[i] ? NOOP : cfg_w ? 0 : wval[i];
-      if (P.track) log_tick[RS_AT2(i, pos, cap)] = proto ? 0 : wtick[i];
-      if (rcf) log_cfg[RS_AT2(i, pos, cap)] = cfg_code[i];
+  {
+    const bool cfg_w = g.rcf && x.cfg_write;
+    if (x.noop || cfg_w || x.client_ok) {
+      const int pos = g.comp ? pmod(x.llen, cap) : x.llen;
+      if (pos >= 0 && pos < cap) {
+        // No-op and config entries carry stamp 0; config entries value 0,
+        // their command riding the config plane (0 for every other entry).
+        const bool proto = x.noop || cfg_w;
+        RS_OUT(int32_t, O_LOG_TERM)[RS_AT2(i, pos, cap)] = x.term;
+        RS_OUT(int32_t, O_LOG_VAL)[RS_AT2(i, pos, cap)] = x.noop ? NOOP : cfg_w ? 0 : x.wval;
+        if (P.track) RS_OUT(int32_t, O_LOG_TICK)[RS_AT2(i, pos, cap)] = proto ? 0 : x.wtick;
+        if (g.rcf) RS_OUT(int32_t, O_LOG_CFG)[RS_AT2(i, pos, cap)] = x.cfg_code;
+      }
+      x.llen += 1;
     }
-    llen[i] += 1;
   }
 
-  // ---- phase 7: timers -----------------------------------------------------
-  for (int i = 0; i < n; ++i) {
-    const int clock = clock1[i];
-    int dl = (granted_any[i] || has_ae[i] || saw_higher[i]) ? clock + tdraw[i] : deadline0[i];
-    if (win[i]) dl = clock + P.heartbeat;
-    if (pre_win[i]) dl = clock + tdraw[i];
-    const bool expired = clock >= dl && alive[i];
-    heartbeat[i] = expired && is_leader[i];
-    if (heartbeat[i]) dl = clock + P.heartbeat;
+  // ---- phase 7: timers.
+  {
+    const int clock = x.clock1;
+    int dl = (x.granted_any || x.has_ae || x.saw_higher) ? clock + x.tdraw : x.deadline0;
+    if (x.win) dl = clock + P.heartbeat;
+    if (x.pre_win) dl = clock + x.tdraw;
+    const bool expired = clock >= dl && x.alive;
+    x.heartbeat = expired && x.is_leader;
+    if (x.heartbeat) dl = clock + P.heartbeat;
     // Under PreVote expiry starts a probe (no term bump); the real election
     // started at the phase-4.5 promotion. Non-voters never campaign, and a
     // TimeoutNow target skips the probe: its election starts now.
-    const bool voter = !rcf || member_b[i];
-    const bool xfer_el = xfr && xfer_elect[i];
-    const bool xe_i = xfer_el && !pre_win[i] && !is_leader[i];
-    if (xfr) xe[i] = xe_i;
-    start_pv[i] = pv && expired && !is_leader[i] && voter && !xfer_el;
-    start_el[i] = pv ? pre_win[i] : expired && !is_leader[i] && voter;
-    if (start_pv[i]) {
-      role[i] = PRECANDIDATE;
-      lid[i] = NIL;
-      for (int w = 0; w < W; ++w) votes[i][w] = (w == (i >> 5)) ? (1u << (i & 31)) : 0u;
-      dl = clock + tdraw[i];
+    const bool voter = !g.rcf || x.member_b;
+    const bool xfer_el = g.xfr && x.xfer_elect;
+    x.xe = xfer_el && !x.pre_win && !x.is_leader;
+    x.start_pv = g.pv && expired && !x.is_leader && voter && !xfer_el;
+    x.start_el = g.pv ? x.pre_win : expired && !x.is_leader && voter;
+    if (x.start_pv) {
+      x.role = PRECANDIDATE;
+      x.lid = NIL;
+      self_row(x.votes, i);
+      dl = clock + x.tdraw;
     }
-    const bool bump = xe_i || (!pv && start_el[i]);
+    const bool bump = x.xe || (!g.pv && x.start_el);
     if (bump) {
-      term[i] += 1;
-      vf[i] = i;
-      role[i] = CANDIDATE;
-      lid[i] = NIL;
-      for (int w = 0; w < W; ++w) votes[i][w] = (w == (i >> 5)) ? (1u << (i & 31)) : 0u;
-      dl = clock + tdraw[i];
+      x.term += 1;
+      x.vf = i;
+      x.role = CANDIDATE;
+      x.lid = NIL;
+      self_row(x.votes, i);
+      dl = clock + x.tdraw;
     }
-    start_el[i] = start_el[i] || xe_i;
+    x.start_el = x.start_el || x.xe;
     RS_OUT(int32_t, O_CLOCK)[RS_AT1(i)] = clock;
     RS_OUT(int32_t, O_DEADLINE)[RS_AT1(i)] = dl;
   }
@@ -973,262 +1148,377 @@ RS_HD void tick_cluster(const TickParams& P, void* const* ptr, int64_t b) {
   // flush snaps its durable snapshot to its final log length, term and vote;
   // its AppendEntries ack names only fsynced entries, and a vote grant is
   // sent once durable -- a flush that newly covers a grant made on an earlier
-  // tick sends it late (phase 8). -------------------------------------------
-  int lag_sum = 0, lag_max = -2147483647 - 1;
-  for (int i = 0; i < n && dur; ++i) {
-    const bool fs = alive[i] && RS_IN(uint8_t, I_FSYNC_FIRE)[RS_AT1(i)] != 0;
+  // tick sends it late (phase 8).
+  x.late_grant = false;
+  if (g.dur) {
+    const bool fs = x.alive && RS_IN(uint8_t, I_FSYNC_FIRE)[RS_AT1(i)] != 0;
     const int d_term = RS_IN(int32_t, S_DUR_TERM)[RS_AT1(i)];
     const int d_vote = RS_IN(int32_t, S_DUR_VOTE)[RS_AT1(i)];
-    const int len2 = fs ? llen[i] : dur_mid[i];
-    const int term2 = fs ? term[i] : d_term;
-    const int vote2 = fs ? vf[i] : d_vote;
+    const int len2 = fs ? x.llen : x.dur_mid;
+    const int term2 = fs ? x.term : d_term;
+    const int vote2 = fs ? x.vf : d_vote;
     RS_OUT(int32_t, O_DUR_LEN)[RS_AT1(i)] = len2;
     RS_OUT(int32_t, O_DUR_TERM)[RS_AT1(i)] = term2;
     RS_OUT(int32_t, O_DUR_VOTE)[RS_AT1(i)] = vote2;
-    late_grant[i] = false;
-    if (dacks) {
+    if (g.dacks) {
       IdxT* am = RS_OUT(IdxT, OM_A_MATCH) + RS_AT1(i);
       *am = (IdxT)imin((int)*am, len2);
-      const bool covered0 = d_term == term[i] && d_vote == vf[i] && vf[i] != NIL;
-      const bool covered2 = term2 == term[i] && vote2 == vf[i] && vf[i] != NIL;
-      grant_to[i] = covered2 ? vf[i] : NIL;
-      late_grant[i] = covered2 && !covered0 && !granted_any[i];
+      const bool covered0 = d_term == x.term && d_vote == x.vf && x.vf != NIL;
+      const bool covered2 = term2 == x.term && vote2 == x.vf && x.vf != NIL;
+      x.grant_to = covered2 ? x.vf : NIL;
+      x.late_grant = covered2 && !covered0 && !x.granted_any;
+      X.at(X_LATE, i, ci) = x.late_grant ? x.vf : NIL;
     }
-    lag_sum += llen[i] - len2;
-    lag_max = imax(lag_max, llen[i] - len2);
+    acc_add(X.acc(A_LAG_SUM, ci), x.llen - len2);
+    acc_max(X.acc(A_LAG_MAX, ci), x.llen - len2);
   }
+}
 
-  // ---- phase 8: outbox -----------------------------------------------------
-  for (int i = 0; i < n; ++i) {
-    const bool send = win[i] || heartbeat[i];
-    const int len_i = len4[i];
-    // Shared window start: the minimum prev over responsive peers, else over
-    // all peers, clamped to the pre-injection length and (ring) the base.
-    int ws_resp = 0x7FFFFFFF, ws_all = 0x7FFFFFFF;
-    for (int j = 0; j < n; ++j) {
-      if (j == i) continue;
-      const int prev = imin(imax((int)next_out[RS_AT2(i, j, n)] - 1, 0), len_i);
-      ws_all = imin(ws_all, prev);
-      if ((int)ack_out[RS_AT2(i, j, n)] <= P.ack_timeout) ws_resp = imin(ws_resp, prev);
+// Phase 4, per cluster: the redirect pipeline's K slots. An offer is
+// accepted by its target when the target takes a client command and this is
+// the lowest pending slot naming it; the rest chase the target's believed
+// leader, or bounce while the target is down or knows none.
+template <bool FULL>
+RS_HD void cluster_redirect(const TickParams& P, void* const* ptr, const Xch& X, int64_t b,
+                            int ci) {
+  if (!Gates(P, FULL).redir) return;
+  const int64_t B = P.b;
+  const int n = P.n;
+  const int fresh_k = redirect_fresh_slot(P, ptr, b);
+  uint64_t claimed = 0;  // targets a lower pending slot names
+  int cmds = 0;
+  for (int k = 0; k < P.k; ++k) {
+    const Slot sl = redirect_slot(P, ptr, b, k, fresh_k);
+    const bool active = sl.pend != NIL;
+    const int t = sl.tgt;
+    const bool valid = active && t >= 0 && t < n;
+    const bool lowest = valid && !((claimed >> t) & 1u);
+    if (valid) claimed |= (uint64_t)1 << t;
+    const bool accepted = lowest && X.at(X_NODEOK, t, ci) != 0;
+    cmds += accepted;
+    const bool pend_on = active && !accepted;
+    const int tgt_ld = valid ? X.at(X_LID, t, ci) : NIL;
+    const bool tgt_up = valid && RS_ALIVE(t);
+    RS_OUT(int32_t, O_CLIENT_PEND)[RS_AT1(k)] = pend_on ? sl.pend : NIL;
+    RS_OUT(int32_t, O_CLIENT_DST)[RS_AT1(k)] =
+        !pend_on ? 0
+        : (tgt_up && tgt_ld != NIL) ? tgt_ld
+                                    : RS_IN(int32_t, I_CLIENT_BOUNCE)[RS_AT1(k)];
+    if (P.track) RS_OUT(int32_t, O_CLIENT_TICK)[RS_AT1(k)] = pend_on ? sl.tick : 0;
+  }
+  if (cmds) acc_add(X.acc(A_CMDS, ci), cmds);
+}
+
+// ---- phase 4: outbox, prefix checksum, end-of-tick configuration, state
+// out, and this node's StepInfo terms. -------------------------------------
+template <class IdxT, class AckT, class NodeT, bool FULL>
+RS_HD void phase_outbox_and_state(RS_PHASE_ARGS) {
+  const Gates g(P, FULL);
+  const int64_t B = P.b;
+  const int n = P.n, e = P.e, cap = P.cap, W = P.w;
+  const int32_t* log_term = RS_OUT(int32_t, O_LOG_TERM);
+  const int32_t* log_val = RS_OUT(int32_t, O_LOG_VAL);
+  const IdxT* next_out = RS_OUT(IdxT, O_NEXT_INDEX);
+  const AckT* ack_out = RS_OUT(AckT, O_ACK_AGE);
+
+  // ---- phase 8: outbox.
+  const bool send = x.win || x.heartbeat;
+  const int len_i = x.len4;
+  // Shared window start: the minimum prev over responsive peers, else over
+  // all peers, clamped to the pre-injection length and (ring) the base.
+  int ws_resp = I32_MAX, ws_all = I32_MAX;
+  for (int j = 0; j < n; ++j) {
+    if (j == i) continue;
+    const int prev = imin(imax((int)next_out[RS_AT2(i, j, n)] - 1, 0), len_i);
+    ws_all = imin(ws_all, prev);
+    if ((int)ack_out[RS_AT2(i, j, n)] <= P.ack_timeout) ws_resp = imin(ws_resp, prev);
+  }
+  int ws = imin(ws_resp == I32_MAX ? ws_all : ws_resp, len_i);
+  if (g.comp) ws = imax(ws, x.base);
+  for (int j = 0; j < n; ++j) {
+    const int prev = imin(imax((int)next_out[RS_AT2(i, j, n)] - 1, 0), len_i);
+    int off_j = 0;
+    if (send && j != i) off_j = (g.comp && prev < x.base) ? -1 : iclamp(prev - ws, 0, e);
+    RS_OUT(int8_t, OM_REQ_OFF)[RS_AT2(i, j, n)] = (int8_t)off_j;
+  }
+  const int n_ship = iclamp(x.llen - ws, 0, e);
+  for (int k = 0; k < e; ++k) {
+    const bool used = send && k < n_ship;
+    const int slot = g.comp ? pmod(ws + k, cap) : iclamp(ws + k, 0, cap - 1);
+    RS_OUT(int32_t, OM_ENT_TERM)[RS_AT2(i, k, e)] = used ? log_term[RS_AT2(i, slot, cap)] : 0;
+    RS_OUT(int32_t, OM_ENT_VAL)[RS_AT2(i, k, e)] = used ? log_val[RS_AT2(i, slot, cap)] : 0;
+    if (P.track)
+      RS_OUT(int32_t, OM_ENT_TICK)[RS_AT2(i, k, e)] =
+          used ? RS_OUT(int32_t, O_LOG_TICK)[RS_AT2(i, slot, cap)] : 0;
+    if (g.rcf)
+      RS_OUT(int32_t, OM_ENT_CFG)[RS_AT2(i, k, e)] =
+          used ? RS_OUT(int32_t, O_LOG_CFG)[RS_AT2(i, slot, cap)] : 0;
+  }
+  int req_type = x.start_el ? REQ_VOTE : (send ? REQ_APPEND : 0);
+  if (x.start_pv) req_type = REQ_PREVOTE;
+  const bool rv_like = x.start_el || x.start_pv;
+  const int l = x.llen;
+  const int last_term = term_at(RS_ROW(log_term, i), B, cap, g.comp, x.base, x.bterm, l);
+  const int pterm = term_at(RS_ROW(log_term, i), B, cap, g.comp, x.base, x.bterm, ws);
+  // A probe carries the prospective term.
+  const int req_term = x.start_pv ? x.term + 1 : (req_type != 0 ? x.term : 0);
+  if (g.xfr) {
+    // TimeoutNow replaces the heartbeat once the target's match reaches the
+    // leader's (post-injection) log length.
+    const bool fire = send && x.xto != NIL &&
+        (int)RS_OUT(IdxT, O_MATCH_INDEX)[RS_AT2(i, iclamp(x.xto, 0, n - 1), n)] >= l;
+    if (fire) req_type = REQ_TIMEOUT_NOW;
+    RS_OUT(NodeT, OM_XFER_TGT)[RS_AT1(i)] = (NodeT)(fire ? x.xto : NIL);
+    if (g.disrupt_live) RS_OUT(int8_t, OM_REQ_DISRUPT)[RS_AT1(i)] = (int8_t)x.xe;
+  }
+  RS_OUT(int32_t, OM_REQ_TYPE)[RS_AT1(i)] = req_type;
+  RS_OUT(int32_t, OM_REQ_TERM)[RS_AT1(i)] = req_term;
+  RS_OUT(int32_t, OM_REQ_COMMIT)[RS_AT1(i)] = send ? x.commit : 0;
+  RS_OUT(int32_t, OM_REQ_LAST_INDEX)[RS_AT1(i)] = rv_like ? l : 0;
+  RS_OUT(int32_t, OM_REQ_LAST_TERM)[RS_AT1(i)] = rv_like ? last_term : 0;
+  RS_OUT(int32_t, OM_ENT_START)[RS_AT1(i)] = send ? ws : 0;
+  RS_OUT(int32_t, OM_ENT_PREV_TERM)[RS_AT1(i)] = send ? pterm : 0;
+  RS_OUT(int32_t, OM_ENT_COUNT)[RS_AT1(i)] = send ? n_ship : 0;
+  if (g.comp) {
+    RS_OUT(int32_t, OM_REQ_BASE)[RS_AT1(i)] = send ? x.base : 0;
+    RS_OUT(int32_t, OM_REQ_BASE_TERM)[RS_AT1(i)] = send ? x.bterm : 0;
+    RS_OUT(uint32_t, OM_REQ_BASE_CHK)[RS_AT1(i)] = send ? x.bchk : 0u;
+    if (g.rcf) {  // the snapshot config context rides the header
+      for (int w = 0; w < MAXW; ++w)
+        if (w < W) RS_OUT(uint32_t, OM_REQ_BASE_MOLD)[RS_AT2(i, w, W)] = send ? x.bmold[w] : 0u;
+      RS_OUT(int32_t, OM_REQ_BASE_PEND)[RS_AT1(i)] = send ? x.bpend : 0;
+      RS_OUT(int32_t, OM_REQ_BASE_EPOCH)[RS_AT1(i)] = send ? x.bepoch : 0;
     }
-    int ws = imin(ws_resp == 0x7FFFFFFF ? ws_all : ws_resp, len_i);
-    if (comp) ws = imax(ws, base[i]);
-    for (int j = 0; j < n; ++j) {
-      const int prev = imin(imax((int)next_out[RS_AT2(i, j, n)] - 1, 0), len_i);
-      int off_j = 0;
-      if (send && j != i) off_j = (comp && prev < base[i]) ? -1 : iclamp(prev - ws, 0, e);
-      RS_OUT(int8_t, OM_REQ_OFF)[RS_AT2(i, j, n)] = (int8_t)off_j;
-    }
-    const int n_ship = iclamp(llen[i] - ws, 0, e);
-    for (int k = 0; k < e; ++k) {
-      const bool used = send && k < n_ship;
-      const int slot = comp ? pmod(ws + k, cap) : iclamp(ws + k, 0, cap - 1);
-      RS_OUT(int32_t, OM_ENT_TERM)[RS_AT2(i, k, e)] = used ? log_term[RS_AT2(i, slot, cap)] : 0;
-      RS_OUT(int32_t, OM_ENT_VAL)[RS_AT2(i, k, e)] = used ? log_val[RS_AT2(i, slot, cap)] : 0;
-      if (P.track)
-        RS_OUT(int32_t, OM_ENT_TICK)[RS_AT2(i, k, e)] = used ? log_tick[RS_AT2(i, slot, cap)] : 0;
-      if (rcf)
-        RS_OUT(int32_t, OM_ENT_CFG)[RS_AT2(i, k, e)] = used ? log_cfg[RS_AT2(i, slot, cap)] : 0;
-    }
-    int req_type = start_el[i] ? REQ_VOTE : (send ? REQ_APPEND : 0);
-    if (start_pv[i]) req_type = REQ_PREVOTE;
-    const bool rv_like = start_el[i] || start_pv[i];
-    const int l = llen[i];
-    const int last_term = term_at(RS_ROW(log_term, i), B, cap, comp, base[i], bterm[i], l);
-    const int pterm = term_at(RS_ROW(log_term, i), B, cap, comp, base[i], bterm[i], ws);
-    // A probe carries the prospective term.
-    const int req_term = start_pv[i] ? term[i] + 1 : (req_type != 0 ? term[i] : 0);
-    if (xfr) {
-      // TimeoutNow replaces the heartbeat once the target's match reaches the
-      // leader's (post-injection) log length.
-      const bool fire = send && xto[i] != NIL &&
-                        (int)match_out[RS_AT2(i, iclamp(xto[i], 0, n - 1), n)] >= l;
-      if (fire) req_type = REQ_TIMEOUT_NOW;
-      RS_OUT(NodeT, OM_XFER_TGT)[RS_AT1(i)] = (NodeT)(fire ? xto[i] : NIL);
-      if (disrupt_live) RS_OUT(int8_t, OM_REQ_DISRUPT)[RS_AT1(i)] = (int8_t)xe[i];
-    }
-    RS_OUT(int32_t, OM_REQ_TYPE)[RS_AT1(i)] = req_type;
-    RS_OUT(int32_t, OM_REQ_TERM)[RS_AT1(i)] = req_term;
-    RS_OUT(int32_t, OM_REQ_COMMIT)[RS_AT1(i)] = send ? commit[i] : 0;
-    RS_OUT(int32_t, OM_REQ_LAST_INDEX)[RS_AT1(i)] = rv_like ? l : 0;
-    RS_OUT(int32_t, OM_REQ_LAST_TERM)[RS_AT1(i)] = rv_like ? last_term : 0;
-    RS_OUT(int32_t, OM_ENT_START)[RS_AT1(i)] = send ? ws : 0;
-    RS_OUT(int32_t, OM_ENT_PREV_TERM)[RS_AT1(i)] = send ? pterm : 0;
-    RS_OUT(int32_t, OM_ENT_COUNT)[RS_AT1(i)] = send ? n_ship : 0;
-    if (comp) {
-      RS_OUT(int32_t, OM_REQ_BASE)[RS_AT1(i)] = send ? base[i] : 0;
-      RS_OUT(int32_t, OM_REQ_BASE_TERM)[RS_AT1(i)] = send ? bterm[i] : 0;
-      RS_OUT(uint32_t, OM_REQ_BASE_CHK)[RS_AT1(i)] = send ? bchk[i] : 0u;
-      if (rcf) {  // the snapshot config context rides the header
-        for (int w = 0; w < W; ++w)
-          RS_OUT(uint32_t, OM_REQ_BASE_MOLD)[RS_AT2(i, w, W)] = send ? bmold[i][w] : 0u;
-        RS_OUT(int32_t, OM_REQ_BASE_PEND)[RS_AT1(i)] = send ? bpend[i] : 0;
-        RS_OUT(int32_t, OM_REQ_BASE_EPOCH)[RS_AT1(i)] = send ? bepoch[i] : 0;
-      }
-    }
-    if (pv)
-      for (int w = 0; w < W; ++w) RS_OUT(uint32_t, OM_PV_GRANT)[RS_AT2(i, w, W)] = pvg[i][w];
-    RS_OUT(NodeT, OM_V_TO)[RS_AT1(i)] = (NodeT)grant_to[i];
-    RS_OUT(int32_t, OM_RESP_TERM)[RS_AT1(i)] = term[i];
-    // Responses on edge [requester i, responder v]: the type of the request
-    // v received from i this tick (a TimeoutNow gets none).
+  }
+  if (g.pv) {
+    // This candidate's pv_grant row: bit v where voter v's phase-1 grant row
+    // names it.
+    uint32_t pvg[MAXW] = {0u, 0u};
+    for (int v = 0; v < n; ++v)
+      if ((((uint32_t)X.at(X_PVG + (i >> 5), v, ci)) >> (i & 31)) & 1u) set_bit(pvg, v);
+    for (int w = 0; w < MAXW; ++w)
+      if (w < W) RS_OUT(uint32_t, OM_PV_GRANT)[RS_AT2(i, w, W)] = pvg[w];
+  }
+  RS_OUT(NodeT, OM_V_TO)[RS_AT1(i)] = (NodeT)x.grant_to;
+  RS_OUT(int32_t, OM_RESP_TERM)[RS_AT1(i)] = x.term;
+  // Responses on edge [requester i, responder v]: the type of the request
+  // v received from i this tick (a TimeoutNow gets none). Delivery to v is
+  // the input test of v's row.
+  {
+    const int rt = RS_RTYPE(i);
+    const int kind_req = rt == REQ_VOTE      ? RESP_VOTE
+                         : rt == REQ_APPEND  ? RESP_APPEND
+                         : rt == REQ_PREVOTE ? RESP_PREVOTE
+                                             : 0;
     for (int v = 0; v < n; ++v) {
       int kind = 0;
-      if (RS_DELIVERED(v, i)) {
-        kind = rtype[i] == REQ_VOTE      ? RESP_VOTE
-               : rtype[i] == REQ_APPEND  ? RESP_APPEND
-               : rtype[i] == REQ_PREVOTE ? RESP_PREVOTE
-                                         : 0;
-      }
+      if (kind_req != 0 && v != i && x.alive && RS_UP(v) &&
+          ((RS_IN(uint32_t, I_DELIVER_MASK)[RS_AT2(v, i >> 5, W)] >> (i & 31)) & 1u))
+        kind = kind_req;
       // The late RESP_VOTE, only on an edge with no other response.
-      if (dacks && kind == 0 && late_grant[v] && vf[v] == i) kind = RESP_VOTE;
+      if (g.dacks && kind == 0 && X.at(X_LATE, v, ci) == i) kind = RESP_VOTE;
       RS_OUT(int8_t, OM_RESP_KIND)[RS_AT2(i, v, n)] = (int8_t)kind;
     }
   }
 
   // ---- committed-prefix checksum (prefix form), end-of-tick configuration
-  // and state -------------------------------------------------------------------
-  for (int i = 0; i < n; ++i) {
-    if (!comp) {
-      chk_new[i] = chk0[i];
-      if (P.check_invariants) {
-        uint32_t s_old = 0u, s_new = 0u;
-        const int hi = imin(imax(commit0[i], commit[i]), cap);
-        for (int k = 0; k < hi; ++k) {
-          const uint32_t c = (uint32_t)log_term[RS_AT2(i, k, cap)] * chk_w_term((uint32_t)k) +
-                             (uint32_t)log_val[RS_AT2(i, k, cap)] * chk_w_val((uint32_t)k);
-          if (k < commit0[i]) s_old += c;
-          if (k < commit[i]) s_new += c;
-        }
-        if (s_old != chk0[i]) chk_bad = true;
-        chk_new[i] = s_new;
+  // and state.
+  if (!g.comp) {
+    x.chk_new = x.chk0;
+    if (P.check_invariants) {
+      uint32_t s_old = 0u, s_new = 0u;
+      const int hi = imin(imax(x.commit0, x.commit), cap);
+      for (int k = 0; k < hi; ++k) {
+        const uint32_t c = (uint32_t)log_term[RS_AT2(i, k, cap)] * chk_w_term((uint32_t)k) +
+                           (uint32_t)log_val[RS_AT2(i, k, cap)] * chk_w_val((uint32_t)k);
+        if (k < x.commit0) s_old += c;
+        if (k < x.commit) s_new += c;
       }
+      if (s_old != x.chk0) acc_max(X.acc(A_CHK_BAD, ci), 1);
+      x.chk_new = s_new;
     }
-    if (rcf) {
-      // The node's configuration from its own log (base, llen] and snapshot
-      // context: C_old folds the final entries' toggles; the latest entry's
-      // sign decides jointness. A removed leader steps down once its removal
-      // commits on it; a removed candidate stops campaigning.
-      const CfgFold f = fold_cfg(RS_ROW(log_cfg, i), B, cap, n, W, comp, base[i], base[i], llen[i]);
-      const int pend_code = f.hi > 0 ? f.code_hi : bpend[i];
-      const bool joint2 = pend_code > 0;
-      const int pv_ = pend_code - 1;
-      uint32_t d_old[MAXW], d_new[MAXW];
-      for (int w = 0; w < W; ++w) {
-        d_old[w] = bmold[i][w] ^ f.fold[w];
-        const uint32_t tb = (joint2 && pv_ < n && w == (pv_ >> 5)) ? 1u << (pv_ & 31) : 0u;
-        d_new[w] = d_old[w] ^ tb;
+  }
+  if (g.rcf) {
+    // The node's configuration from its own log (base, llen] and snapshot
+    // context: C_old folds the final entries' toggles; the latest entry's
+    // sign decides jointness. A removed leader steps down once its removal
+    // commits on it; a removed candidate stops campaigning.
+    const CfgFold f = fold_cfg(RS_ROW(RS_OUT(int32_t, O_LOG_CFG), i), B, cap, n, g.comp,
+                               x.base, x.base, x.llen);
+    const int pend_code = f.hi > 0 ? f.code_hi : x.bpend;
+    const bool joint2 = pend_code > 0;
+    const int pv_ = pend_code - 1;
+    uint32_t d_old[MAXW], d_new[MAXW];
+    for (int w = 0; w < MAXW; ++w) {
+      d_old[w] = x.bmold[w] ^ f.fold[w];
+      const uint32_t tb = (joint2 && pv_ < n && w == (pv_ >> 5)) ? 1u << (pv_ & 31) : 0u;
+      d_new[w] = d_old[w] ^ tb;
+      if (w < W) {
         RS_OUT(uint32_t, O_MEMBER_OLD)[RS_AT2(i, w, W)] = d_old[w];
         RS_OUT(uint32_t, O_MEMBER_NEW)[RS_AT2(i, w, W)] = d_new[w];
       }
-      RS_OUT(int32_t, O_CFG_PEND)[RS_AT1(i)] = joint2 ? (f.hi > 0 ? f.hi : imax(base[i], 1)) : 0;
-      RS_OUT(int32_t, O_CFG_EPOCH)[RS_AT1(i)] = bepoch[i] + f.count;
-      const bool self_in = has_bit(d_old, i) || has_bit(d_new, i);
-      const bool cand = role[i] == CANDIDATE || role[i] == PRECANDIDATE;
-      if (!self_in && ((role[i] == LEADER && commit[i] >= imax(f.hi, base[i])) || cand)) {
-        role[i] = FOLLOWER;
-        lid[i] = NIL;
-      }
-      if (comp) {
-        for (int w = 0; w < W; ++w) RS_OUT(uint32_t, O_BASE_MOLD)[RS_AT2(i, w, W)] = bmold[i][w];
-        RS_OUT(int32_t, O_BASE_PEND)[RS_AT1(i)] = bpend[i];
-        RS_OUT(int32_t, O_BASE_EPOCH)[RS_AT1(i)] = bepoch[i];
-      }
     }
-    if (xfr) RS_OUT(int32_t, O_XFER_TO)[RS_AT1(i)] = xto[i];
-    RS_OUT(int32_t, O_ROLE)[RS_AT1(i)] = role[i];
-    RS_OUT(int32_t, O_TERM)[RS_AT1(i)] = term[i];
-    RS_OUT(int32_t, O_VOTED_FOR)[RS_AT1(i)] = vf[i];
-    RS_OUT(int32_t, O_LEADER_ID)[RS_AT1(i)] = lid[i];
-    for (int w = 0; w < W; ++w) RS_OUT(uint32_t, O_VOTES)[RS_AT2(i, w, W)] = votes[i][w];
-    RS_OUT(int32_t, O_COMMIT_INDEX)[RS_AT1(i)] = commit[i];
-    RS_OUT(uint32_t, O_COMMIT_CHK)[RS_AT1(i)] = chk_new[i];
-    RS_OUT(int32_t, O_LOG_LEN)[RS_AT1(i)] = llen[i];
-    if (comp) {
-      RS_OUT(int32_t, O_LOG_BASE)[RS_AT1(i)] = base[i];
-      RS_OUT(int32_t, O_BASE_TERM)[RS_AT1(i)] = bterm[i];
-      RS_OUT(uint32_t, O_BASE_CHK)[RS_AT1(i)] = bchk[i];
+    RS_OUT(int32_t, O_CFG_PEND)[RS_AT1(i)] = joint2 ? (f.hi > 0 ? f.hi : imax(x.base, 1)) : 0;
+    RS_OUT(int32_t, O_CFG_EPOCH)[RS_AT1(i)] = x.bepoch + f.count;
+    const bool self_in = has_bit(d_old, i) || has_bit(d_new, i);
+    const bool cand = x.role == CANDIDATE || x.role == PRECANDIDATE;
+    if (!self_in && ((x.role == LEADER && x.commit >= imax(f.hi, x.base)) || cand)) {
+      x.role = FOLLOWER;
+      x.lid = NIL;
     }
-    if (hc_live) RS_OUT(int32_t, O_HEARD_CLOCK)[RS_AT1(i)] = heard[i];
+    if (g.comp) {
+      for (int w = 0; w < MAXW; ++w)
+        if (w < W) RS_OUT(uint32_t, O_BASE_MOLD)[RS_AT2(i, w, W)] = x.bmold[w];
+      RS_OUT(int32_t, O_BASE_PEND)[RS_AT1(i)] = x.bpend;
+      RS_OUT(int32_t, O_BASE_EPOCH)[RS_AT1(i)] = x.bepoch;
+    }
   }
-  RS_OUT(int32_t, O_NOW)[b] = now + 1;
+  if (g.xfr) RS_OUT(int32_t, O_XFER_TO)[RS_AT1(i)] = x.xto;
+  RS_OUT(int32_t, O_ROLE)[RS_AT1(i)] = x.role;
+  RS_OUT(int32_t, O_TERM)[RS_AT1(i)] = x.term;
+  RS_OUT(int32_t, O_VOTED_FOR)[RS_AT1(i)] = x.vf;
+  RS_OUT(int32_t, O_LEADER_ID)[RS_AT1(i)] = x.lid;
+  for (int w = 0; w < MAXW; ++w)
+    if (w < W) RS_OUT(uint32_t, O_VOTES)[RS_AT2(i, w, W)] = x.votes[w];
+  RS_OUT(int32_t, O_COMMIT_INDEX)[RS_AT1(i)] = x.commit;
+  RS_OUT(uint32_t, O_COMMIT_CHK)[RS_AT1(i)] = x.chk_new;
+  RS_OUT(int32_t, O_LOG_LEN)[RS_AT1(i)] = x.llen;
+  if (g.comp) {
+    RS_OUT(int32_t, O_LOG_BASE)[RS_AT1(i)] = x.base;
+    RS_OUT(int32_t, O_BASE_TERM)[RS_AT1(i)] = x.bterm;
+    RS_OUT(uint32_t, O_BASE_CHK)[RS_AT1(i)] = x.bchk;
+  }
+  if (g.hc_live) RS_OUT(int32_t, O_HEARD_CLOCK)[RS_AT1(i)] = x.heard;
 
-  // ---- phase 9: StepInfo ---------------------------------------------------
-  bool viol_election = false, viol_commit = false, viol_match = false;
-  int leader = NIL, n_leaders = 0, max_term = -2147483647 - 1, max_commit = maxc;
-  int min_commit = 2147483647;
-  for (int i = 0; i < n; ++i) {
-    const bool ldr = role[i] == LEADER;
-    if (ldr && alive[i]) {
-      if (leader == NIL) leader = i;
-      ++n_leaders;
-    }
-    if (P.check_invariants) {
-      for (int j = i + 1; j < n && ldr; ++j)
-        if (role[j] == LEADER && term[j] == term[i]) viol_election = true;
-      if (commit[i] < commit0[i] || commit[i] > llen[i] || commit[i] < base[i] ||
-          llen[i] - base[i] > cap)
-        viol_commit = true;
-    }
-    max_term = imax(max_term, term[i]);
-    max_commit = imax(max_commit, commit[i]);
-    min_commit = imin(min_commit, commit[i]);
+  // ---- phase 9, this node's terms.
+  X.at(X_ROLE, i, ci) = x.role;
+  X.at(X_TERM, i, ci) = x.term;
+  if (x.role == LEADER && x.alive) {
+    acc_min(X.acc(A_LEADER, ci), i);
+    acc_add(X.acc(A_N_LEADERS, ci), 1);
   }
-  if (P.check_invariants && chk_bad) viol_commit = true;
-  if (P.log_matching_due) {
-    // Every pair agrees on its common committed prefix iff every node agrees
-    // with the max-commit node on its own committed prefix (equality is
-    // transitive), so one pass against node hnode decides the pairwise check.
-    // (Prefix layout only: the wrapper refuses log matching under compaction.)
-    for (int i = 0; i < n && !viol_match; ++i) {
-      if (i == hnode) continue;
-      const int hi = imin(commit[i], cap);
-      for (int k = 0; k < hi; ++k) {
-        if (log_term[RS_AT2(i, k, cap)] != log_term[RS_AT2(hnode, k, cap)] ||
-            log_val[RS_AT2(i, k, cap)] != log_val[RS_AT2(hnode, k, cap)]) {
-          viol_match = true;
-          break;
-        }
+  if (P.check_invariants && (x.commit < x.commit0 || x.commit > x.llen || x.commit < x.base ||
+                             x.llen - x.base > cap))
+    acc_max(X.acc(A_VIOL_COMMIT, ci), 1);
+  acc_max(X.acc(A_MAX_TERM, ci), x.term);
+  acc_max(X.acc(A_MAX_COMMIT, ci), x.commit);
+  acc_min(X.acc(A_MIN_COMMIT, ci), x.commit);
+}
+
+// ---- phase 5: the pairwise checks. Two leaders of one term break election
+// safety. Every pair agrees on its common committed prefix iff every node
+// agrees with the max-commit node on its own committed prefix (equality is
+// transitive), so each node checks itself against that node's final log
+// rows (written by their own worker before the last barriers). Prefix layout
+// only: the wrapper refuses log matching under compaction. --------------
+template <class IdxT, class AckT, class NodeT, bool FULL>
+RS_HD void phase_pair_checks(RS_PHASE_ARGS) {
+  const int64_t B = P.b;
+  const int n = P.n, cap = P.cap;
+  if (P.check_invariants && x.role == LEADER) {
+    for (int j = i + 1; j < n; ++j)
+      if (X.at(X_ROLE, j, ci) == LEADER && X.at(X_TERM, j, ci) == x.term) {
+        acc_max(X.acc(A_VIOL_ELECTION, ci), 1);
+        break;
+      }
+  }
+  if (P.log_matching_due && i != x.hnode) {
+    const int32_t* log_term = RS_OUT(int32_t, O_LOG_TERM);
+    const int32_t* log_val = RS_OUT(int32_t, O_LOG_VAL);
+    const int h = x.hnode;
+    const int hi = imin(x.commit, cap);
+    for (int k = 0; k < hi; ++k) {
+      if (log_term[RS_AT2(i, k, cap)] != log_term[RS_AT2(h, k, cap)] ||
+          log_val[RS_AT2(i, k, cap)] != log_val[RS_AT2(h, k, cap)]) {
+        acc_max(X.acc(A_VIOL_MATCH, ci), 1);
+        break;
       }
     }
   }
-  RS_OUT(uint8_t, F_VIOL_ELECTION_SAFETY)[b] = viol_election;
-  RS_OUT(uint8_t, F_VIOL_COMMIT)[b] = viol_commit;
-  RS_OUT(uint8_t, F_VIOL_LOG_MATCHING)[b] = viol_match;
-  RS_OUT(int32_t, F_LEADER)[b] = leader;
-  RS_OUT(int32_t, F_N_LEADERS)[b] = n_leaders;
-  RS_OUT(int32_t, F_MAX_TERM)[b] = max_term;
-  RS_OUT(int32_t, F_MAX_COMMIT)[b] = max_commit;
-  RS_OUT(int32_t, F_MIN_COMMIT)[b] = min_commit;
-  RS_OUT(int32_t, F_MSGS_DELIVERED)[b] = msgs;
-  RS_OUT(int32_t, F_CMDS_INJECTED)[b] = cmds;
-  RS_OUT(int32_t, F_LAT_SUM)[b] = (int32_t)lat_sum;
-  RS_OUT(int32_t, F_LAT_CNT)[b] = lat_cnt;
-  for (int k = 0; k < BINS; ++k) RS_OUT(int32_t, F_LAT_HIST)[(int64_t)k * B + b] = hist[k];
-  RS_OUT(int32_t, F_LAT_EXCLUDED)[b] = imax(crossed - lat_cnt, 0);
-  if (comp) RS_OUT(int32_t, F_NOOP_BLOCKED)[b] = noop_blocked;
-  if (rdx) {
-    RS_OUT(int32_t, F_READS_SERVED)[b] = reads_served;
-    RS_OUT(int32_t, F_READ_LAT_SUM)[b] = (int32_t)read_lat_sum;
-    for (int k = 0; k < BINS; ++k) RS_OUT(int32_t, F_READ_HIST)[(int64_t)k * B + b] = read_hist[k];
-  }
-  if (rdl) RS_OUT(uint8_t, F_VIOL_READ_STALE)[b] = viol_stale;
-  if (dur) {
-    RS_OUT(int32_t, F_FSYNC_LAG_SUM)[b] = lag_sum;
-    RS_OUT(int32_t, F_FSYNC_LAG_MAX)[b] = lag_max;
-  }
+}
 
+// Phase 0, per cluster: the accumulators' identities.
+RS_HD void cluster_init(const Xch& X, int ci) {
+  for (int f = 0; f < NACC; ++f) *X.acc(f, ci) = 0;
+  *X.acc(A_LAG_MAX, ci) = I32_MIN;
+  *X.acc(A_MAX_TERM, ci) = I32_MIN;
+  *X.acc(A_MAX_COMMIT, ci) = I32_MIN;
+  *X.acc(A_LEADER, ci) = I32_MAX;
+  *X.acc(A_MIN_COMMIT, ci) = I32_MAX;
+}
+
+// Phase 6, per cluster: StepInfo out.
+template <bool FULL>
+RS_HD void cluster_info(const TickParams& P, void* const* ptr, const Xch& X, int64_t b, int ci) {
+  const Gates g(P, FULL);
+  const int64_t B = P.b;
+  const int a_viol_commit = *X.acc(A_VIOL_COMMIT, ci) | (P.check_invariants && *X.acc(A_CHK_BAD, ci));
+  const int leader = *X.acc(A_LEADER, ci);
+  RS_OUT(uint8_t, F_VIOL_ELECTION_SAFETY)[b] = (uint8_t)(*X.acc(A_VIOL_ELECTION, ci) != 0);
+  RS_OUT(uint8_t, F_VIOL_COMMIT)[b] = (uint8_t)(a_viol_commit != 0);
+  RS_OUT(uint8_t, F_VIOL_LOG_MATCHING)[b] = (uint8_t)(*X.acc(A_VIOL_MATCH, ci) != 0);
+  RS_OUT(int32_t, F_LEADER)[b] = leader == I32_MAX ? NIL : leader;
+  RS_OUT(int32_t, F_N_LEADERS)[b] = *X.acc(A_N_LEADERS, ci);
+  RS_OUT(int32_t, F_MAX_TERM)[b] = *X.acc(A_MAX_TERM, ci);
+  RS_OUT(int32_t, F_MAX_COMMIT)[b] = *X.acc(A_MAX_COMMIT, ci);
+  RS_OUT(int32_t, F_MIN_COMMIT)[b] = *X.acc(A_MIN_COMMIT, ci);
+  RS_OUT(int32_t, F_MSGS_DELIVERED)[b] = *X.acc(A_MSGS, ci);
+  RS_OUT(int32_t, F_CMDS_INJECTED)[b] = *X.acc(A_CMDS, ci);
+  RS_OUT(int32_t, F_LAT_SUM)[b] = *X.acc(A_LAT_SUM, ci);
+  RS_OUT(int32_t, F_LAT_CNT)[b] = *X.acc(A_LAT_CNT, ci);
+  for (int k = 0; k < BINS; ++k) RS_OUT(int32_t, F_LAT_HIST)[RS_AT1(k)] = *X.acc(A_HIST + k, ci);
+  RS_OUT(int32_t, F_LAT_EXCLUDED)[b] = imax(*X.acc(A_CROSSED, ci) - *X.acc(A_LAT_CNT, ci), 0);
+  if (g.comp) RS_OUT(int32_t, F_NOOP_BLOCKED)[b] = *X.acc(A_NOOP_BLOCKED, ci);
+  if (g.rdx) {
+    RS_OUT(int32_t, F_READS_SERVED)[b] = *X.acc(A_READS, ci);
+    RS_OUT(int32_t, F_READ_LAT_SUM)[b] = *X.acc(A_READ_LAT_SUM, ci);
+    for (int k = 0; k < BINS; ++k)
+      RS_OUT(int32_t, F_READ_HIST)[RS_AT1(k)] = *X.acc(A_READ_HIST + k, ci);
+  }
+  if (g.rdl) RS_OUT(uint8_t, F_VIOL_READ_STALE)[b] = (uint8_t)(*X.acc(A_VIOL_STALE, ci) != 0);
+  if (g.dur) {
+    RS_OUT(int32_t, F_FSYNC_LAG_SUM)[b] = *X.acc(A_LAG_SUM, ci);
+    RS_OUT(int32_t, F_FSYNC_LAG_MAX)[b] = *X.acc(A_LAG_MAX, ci);
+  }
+}
+
+// The node part of phase PH (a barrier ends each phase).
+template <class IdxT, class AckT, class NodeT, bool FULL, int PH>
+RS_HD void node_phase(RS_PHASE_ARGS) {
+  if (PH == 0) phase_headers<IdxT, AckT, NodeT, FULL>(P, ptr, x, X, b, ci, i);
+  if (PH == 1) phase_load_to_commit<IdxT, AckT, NodeT, FULL>(P, ptr, x, X, b, ci, i);
+  if (PH == 2) phase_serve_and_compact<IdxT, AckT, NodeT, FULL>(P, ptr, x, X, b, ci, i);
+  if (PH == 3) phase_append_and_timers<IdxT, AckT, NodeT, FULL>(P, ptr, x, X, b, ci, i);
+  if (PH == 4) phase_outbox_and_state<IdxT, AckT, NodeT, FULL>(P, ptr, x, X, b, ci, i);
+  if (PH == 5) phase_pair_checks<IdxT, AckT, NodeT, FULL>(P, ptr, x, X, b, ci, i);
+}
+
+// The cluster part of phase PH. It reads exchange values of earlier phases
+// only, so it may run before, after or beside the same phase's node parts.
+template <bool FULL, int PH>
+RS_HD void cluster_phase(const TickParams& P, void* const* ptr, const Xch& X, int64_t b, int ci) {
+  if (PH == 0) cluster_init(X, ci);
+  if (PH == 2) cluster_frontier(P, ptr, X, b, ci);
+  if (PH == 4) cluster_redirect<FULL>(P, ptr, X, b, ci);
+  if (PH == 6) cluster_info<FULL>(P, ptr, X, b, ci);
+}
+
+#undef RS_PHASE_ARGS
 #undef RS_XPEND
 #undef RS_QUORUM
 #undef RS_DENIED
 #undef RS_UTD
 #undef RS_DELIVERED
+#undef RS_RTERM
+#undef RS_RTYPE
+#undef RS_UP
+#undef RS_ALIVE
+#undef RS_H
 #undef RS_ROW
-#undef RS_AT1
-#undef RS_AT2
-#undef RS_IN
 #undef RS_OUT
-}
+#undef RS_IN
+#undef RS_AT2
+#undef RS_AT1
 
 // One launch's arguments, passed by value to the kernel.
 struct TickArgs {
@@ -1237,23 +1527,19 @@ struct TickArgs {
 };
 
 // Calls CALL(IdxT, AckT, NodeT) for the dtype tiers given as byte widths
-// (1 = int8, 2 = int16, 4 = int32: the index tier under compaction);
-// evaluates FAIL for any other combination.
-#define RS_DISPATCH_TIERS(ib, ab, nb, CALL, FAIL)                   \
-  do {                                                              \
-    if (ib == 1 && ab == 1 && nb == 1) { CALL(int8_t, int8_t, int8_t); }       \
-    else if (ib == 2 && ab == 1 && nb == 1) { CALL(int16_t, int8_t, int8_t); } \
-    else if (ib == 1 && ab == 2 && nb == 1) { CALL(int8_t, int16_t, int8_t); } \
-    else if (ib == 2 && ab == 2 && nb == 1) { CALL(int16_t, int16_t, int8_t); } \
-    else if (ib == 1 && ab == 1 && nb == 2) { CALL(int8_t, int8_t, int16_t); } \
-    else if (ib == 2 && ab == 1 && nb == 2) { CALL(int16_t, int8_t, int16_t); } \
-    else if (ib == 1 && ab == 2 && nb == 2) { CALL(int8_t, int16_t, int16_t); } \
-    else if (ib == 2 && ab == 2 && nb == 2) { CALL(int16_t, int16_t, int16_t); } \
-    else if (ib == 4 && ab == 1 && nb == 1) { CALL(int32_t, int8_t, int8_t); } \
-    else if (ib == 4 && ab == 2 && nb == 1) { CALL(int32_t, int16_t, int8_t); } \
-    else if (ib == 4 && ab == 1 && nb == 2) { CALL(int32_t, int8_t, int16_t); } \
-    else if (ib == 4 && ab == 2 && nb == 2) { CALL(int32_t, int16_t, int16_t); } \
-    else { FAIL; }                                                  \
+// (1 = int8, 2 = int16, 4 = int32: the index tier under compaction), the
+// combinations the CUDA launcher takes; evaluates FAIL for any other. The
+// node tier is int8: N <= MAXN is within it (types.node_dtype).
+#define RS_DISPATCH_TIERS(ib, ab, nb, CALL, FAIL)                              \
+  do {                                                                         \
+    if (nb != 1) { FAIL; }                                                     \
+    else if (ib == 1 && ab == 1) { CALL(int8_t, int8_t, int8_t); }             \
+    else if (ib == 2 && ab == 1) { CALL(int16_t, int8_t, int8_t); }            \
+    else if (ib == 1 && ab == 2) { CALL(int8_t, int16_t, int8_t); }            \
+    else if (ib == 2 && ab == 2) { CALL(int16_t, int16_t, int8_t); }           \
+    else if (ib == 4 && ab == 1) { CALL(int32_t, int8_t, int8_t); }            \
+    else if (ib == 4 && ab == 2) { CALL(int32_t, int16_t, int8_t); }           \
+    else { FAIL; }                                                             \
   } while (0)
 
 // Checks the shape limits of this body; 0 when it can run the tick.

@@ -7,7 +7,8 @@ ragged edge), and there is no interpret mode.
 
 Dispatch is by the device the tensors lie on. CPU tensors go to the plain
 PyTorch tick (models/raft_batched.step_b). CUDA tensors go to the kernel
-(csrc/tick.cu, one thread per cluster over the scalar body csrc/tick.cuh), or
+(csrc/tick.cu: one thread per node of a cluster, blocks of `block_shape`
+clusters x node slots, over the phase functions of csrc/tick.cuh), or
 raise: unsupported gates raise NotImplementedError, a leaf of the wrong device,
 dtype, shape or layout raises ValueError, and a refused launch raises
 RuntimeError. Nothing falls back.
@@ -28,6 +29,7 @@ import functools
 import hashlib
 import math
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -260,7 +262,49 @@ def build() -> Path:
     return out
 
 
+def ptxas_report(text: str | None = None) -> dict:
+    """{mangled kernel name: {"registers", "stack", "spill_stores",
+    "spill_loads"}} from nvcc's -Xptxas -v output (the last build's)."""
+    text = BUILD_INFO.get("ptxas", "") if text is None else text
+    out, name = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and name:
+            out[name].update(stack=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out[name]["registers"] = int(m[1])
+    return out
+
+
+_ITANIUM = {1: "a", 2: "s", 4: "i"}  # int8_t, int16_t, int32_t in a mangled name
+
+
+def kernel_report(cfg: T.RaftConfig, s: T.ClusterState, nodes_per_thread: int, lib=None) -> dict:
+    """The body a launch on state `s` runs, at `nodes_per_thread` (from
+    `launch_shape`): its gate set, as the library `lib` (default: the card's)
+    decides it (csrc/tick.cuh `lean_gates`), and ptxas's report of its
+    instantiation tick_kernel<IdxT, AckT, NodeT, nodes per thread, full gate set>."""
+    lib = _load_cuda() if lib is None else lib
+    lean = bool(lib.rs_tick_lean(ctypes.byref(_params(cfg, s, False))))
+    tag = "tick_kernelI" + "".join(
+        _ITANIUM[x.element_size()] for x in (s.next_index, s.ack_age, s.mailbox.v_to)
+    ) + f"Li{nodes_per_thread}ELb{int(not lean)}E"
+    hits = [v for k, v in ptxas_report().items() if tag in k]
+    return dict(hits[0] if hits else {}, instantiation=tag, gate_set="lean" if lean else "full")
+
+
 _LIB = None
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _load_cuda():
@@ -269,14 +313,25 @@ def _load_cuda():
         lib = ctypes.CDLL(str(build()))
         lib.rs_tick_launch.argtypes = [
             ctypes.POINTER(TickParams), ctypes.POINTER(ctypes.c_void_p),
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
         ]
         lib.rs_tick_launch.restype = ctypes.c_int
-        lib.rs_tick_n_ptr.restype = ctypes.c_int
-        if lib.rs_tick_n_ptr() != len(PTR_ORDER):
-            raise RuntimeError("csrc/tick.cuh Ptr enum and PTR_ORDER disagree")
+        lib.rs_tick_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.rs_tick_smem_bytes.restype = ctypes.c_longlong
+        _check_lib(lib)
         _LIB = lib
     return _LIB
+
+
+def _check_lib(lib) -> None:
+    """Declare the entry points the card's library and the host build share,
+    and check their pointer table against PTR_ORDER."""
+    lib.rs_tick_n_ptr.restype = ctypes.c_int
+    lib.rs_tick_lean.argtypes = [ctypes.POINTER(TickParams)]
+    lib.rs_tick_lean.restype = ctypes.c_int
+    if lib.rs_tick_n_ptr() != len(PTR_ORDER):
+        raise RuntimeError("csrc/tick.cuh Ptr enum and PTR_ORDER disagree")
 
 
 @functools.lru_cache(maxsize=64)
@@ -328,6 +383,27 @@ def check_supported(cfg: T.RaftConfig) -> None:
         )
 
 
+def _params(cfg: T.RaftConfig, s: T.ClusterState, lm_due: bool) -> TickParams:
+    """The kernel's TickParams for state `s`; `lm_due` says whether this tick
+    runs the log-matching check."""
+    return TickParams(
+        b=s.role.shape[-1], n=cfg.n_nodes, e=cfg.max_entries_per_rpc, cap=cfg.log_capacity,
+        w=bitplane.n_words(cfg.n_nodes), quorum=cfg.quorum,
+        heartbeat=cfg.heartbeat_ticks, ack_sat=cfg.ack_age_sat,
+        ack_timeout=cfg.ack_timeout_ticks,
+        check_invariants=int(cfg.check_invariants),
+        log_matching_due=int(lm_due),
+        track=int(cfg.track_offer_ticks),
+        comp=int(cfg.compaction), compact_margin=cfg.compact_margin,
+        pre_vote=int(cfg.pre_vote), election_min=cfg.election_min_ticks,
+        redirect=int(cfg.client_redirect), k=cfg.client_pipeline,
+        reconfig=int(cfg.reconfig), transfer=int(cfg.leader_transfer),
+        reads=int(cfg.read_index), lease=int(cfg.read_lease),
+        lease_ticks=cfg.read_lease_ticks,
+        durable=int(cfg.durable_storage), durable_acks=int(cfg.durable_acks),
+    )
+
+
 def _prepare(cfg, s, inp, now, device_type):
     """Validate every leaf, allocate the outputs and build the launch
     arguments: (params, ptrs, tiers, outs). `tiers` are the byte widths of the
@@ -368,22 +444,7 @@ def _prepare(cfg, s, inp, now, device_type):
         else:
             src = getattr(groups[group], name)
         ptrs[k] = src.data_ptr()
-    params = TickParams(
-        b=b, n=cfg.n_nodes, e=cfg.max_entries_per_rpc, cap=cfg.log_capacity,
-        w=bitplane.n_words(cfg.n_nodes), quorum=cfg.quorum,
-        heartbeat=cfg.heartbeat_ticks, ack_sat=cfg.ack_age_sat,
-        ack_timeout=cfg.ack_timeout_ticks,
-        check_invariants=int(cfg.check_invariants),
-        log_matching_due=int(raft_batched.log_matching_due(cfg, s, now)),
-        track=int(cfg.track_offer_ticks),
-        comp=int(cfg.compaction), compact_margin=cfg.compact_margin,
-        pre_vote=int(cfg.pre_vote), election_min=cfg.election_min_ticks,
-        redirect=int(cfg.client_redirect), k=cfg.client_pipeline,
-        reconfig=int(cfg.reconfig), transfer=int(cfg.leader_transfer),
-        reads=int(cfg.read_index), lease=int(cfg.read_lease),
-        lease_ticks=cfg.read_lease_ticks,
-        durable=int(cfg.durable_storage), durable_acks=int(cfg.durable_acks),
-    )
+    params = _params(cfg, s, raft_batched.log_matching_due(cfg, s, now))
     tiers = (
         s.next_index.element_size(), s.ack_age.element_size(),
         s.mailbox.v_to.element_size(),
@@ -406,11 +467,36 @@ def _assemble(s, outs):
     return new_state, T.StepInfo(**info)
 
 
+@functools.lru_cache(maxsize=64)
+def block_shape(n: int, b: int, sms: int) -> tuple[int, int]:
+    """(tc, s): a block of `tc` consecutive clusters x `s` node slots for `b`
+    clusters of `n` nodes on a card of `sms` SMs. s = n up to 32 nodes, else
+    32 with two nodes a thread; tc = 32 while s <= 16, else 16 (at most 512
+    threads a block, csrc/tick.cuh MAX_THREADS), halved down to 8 while that
+    leaves fewer than two blocks per SM."""
+    s = n if n <= 32 else 32
+    tc = 32 if s <= 16 else 16
+    while tc > 8 and -(-b // tc) < 2 * sms:
+        tc //= 2
+    return tc, s
+
+
+def launch_shape(cfg: T.RaftConfig, b: int, device=None) -> dict:
+    """The block shape, nodes per thread and dynamic shared-memory bytes a
+    launch for `b` clusters of `cfg` takes on `device` (a card)."""
+    dev = torch.device("cuda", torch.cuda.current_device()) if device is None else torch.device(device)
+    tc, s = block_shape(cfg.n_nodes, b, _sm_count(dev))
+    smem = int(_load_cuda().rs_tick_smem_bytes(cfg.n_nodes, tc))
+    return {"tc": tc, "s": s, "threads": tc * s, "nodes_per_thread": -(-cfg.n_nodes // s),
+            "blocks": -(-b // tc), "smem_bytes": smem}
+
+
 def _cuda_launch(params, ptrs, tiers, device) -> None:
     """THE launch site: one tick kernel on the current stream, counted."""
     lib = _load_cuda()
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = lib.rs_tick_launch(ctypes.byref(params), ptrs, *tiers, ctypes.c_void_p(stream))
+    tc, s = block_shape(params.n, params.b, _sm_count(device))
+    rc = lib.rs_tick_launch(ctypes.byref(params), ptrs, *tiers, tc, s, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"tick kernel refused or failed to launch (code {rc})")
     step_cuda.launches += 1
@@ -461,21 +547,20 @@ def load_host(path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     lib.rs_tick_host.argtypes = [
         ctypes.POINTER(TickParams), ctypes.POINTER(ctypes.c_void_p),
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ]
     lib.rs_tick_host.restype = ctypes.c_int
-    lib.rs_tick_n_ptr.restype = ctypes.c_int
-    if lib.rs_tick_n_ptr() != len(PTR_ORDER):
-        raise RuntimeError("csrc/tick.cuh Ptr enum and PTR_ORDER disagree")
+    _check_lib(lib)
     return lib
 
 
-def step_host(lib, cfg, s, inp, now: int | None = None):
-    """The kernel's per-cluster body, built for the CPU (`load_host`), on CPU
-    tensors: the same leaf checks, pointer table and outputs as `step_cuda`,
-    so tests hold the kernel's own logic against the plain tick."""
+def step_host(lib, cfg, s, inp, now: int | None = None, reverse: bool = False):
+    """The kernel's phase-structured body, built for the CPU (`load_host`), on
+    CPU tensors: the same leaf checks, pointer table and outputs as
+    `step_cuda`, so tests hold the kernel's own logic against the plain tick.
+    `reverse` runs each phase's (cluster, node) workers in reverse order."""
     params, ptrs, tiers, outs = _prepare(cfg, s, inp, now, "cpu")
-    rc = lib.rs_tick_host(ctypes.byref(params), ptrs, *tiers)
+    rc = lib.rs_tick_host(ctypes.byref(params), ptrs, *tiers, int(reverse))
     if rc != 0:
         raise RuntimeError(f"tick body refused the shapes or tiers (code {rc})")
     return _assemble(s, outs)

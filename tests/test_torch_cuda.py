@@ -35,7 +35,7 @@ def card():
 )
 def test_step_cuda_matches_plain_step(card, name):
     cfg, _ = tconfig.PRESETS[name]
-    batch = 1 if name == "config1" else 200  # 200: a ragged last block
+    batch = 1 if name == "config1" else 200  # ragged batches: the test below
     # config6's CAP=32 ring wraps near tick 130; config8's first toggle lands
     # at tick 97 and its transfers at 61 and 122; config10's crash windows
     # end at 64 and 128.
@@ -53,6 +53,29 @@ def test_step_cuda_matches_plain_step(card, name):
     assert tick_engine.step_cuda.launches == before + ticks
     if cfg.compaction:
         assert int(s.log_base.min()) > 0  # every node of every cluster compacted
+
+
+@pytest.mark.parametrize(
+    "name,batch",
+    [("config1", 1)] + [(name, 45) for name in ("config2", "config5", "config3p", "config6", "config6r",
+                                                  "config8", "config9", "config10")],
+)
+def test_step_cuda_matches_plain_step_on_small_and_ragged_batches(card, name, batch):
+    """One cluster, and 45 clusters (a ragged last block at every block
+    shape): at N=5 and at N=51 with two nodes a thread, on each gate set.
+    Small enough for a race checker:
+    compute-sanitizer --tool racecheck --kernel-name kns=tick_kernel
+        python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -k ragged"""
+    cfg, _ = tconfig.PRESETS[name]
+    s = trb.to_batch_minor(ttypes.init_batch(cfg, threefry.key(0, card), batch))
+    keys = threefry.split(threefry.key(1, card), batch)
+    for t in range(96):
+        inp = trb.to_batch_minor(faults.make_inputs(cfg, keys, t))
+        want = trb.step_b(cfg, s, inp, t)
+        got = tick_engine.step_cuda(cfg, s, inp, t)
+        diff = bridge.first_difference(want[0], got[0]) or bridge.first_difference(want[1], got[1])
+        assert diff is None, f"tick {t}: {diff}"
+        s = got[0]
 
 
 @pytest.mark.parametrize("name", ["config2", "config4", "config6r", "config8", "config9", "config10"])

@@ -1,8 +1,9 @@
-"""The Hopper tick kernel's own logic, on the CPU: csrc/tick.cuh (the scalar
-per-cluster body the CUDA kernel runs) compiled with g++ through the plain C
-harness csrc/tick_host.cpp, loaded with ctypes, and driven through the same
-leaf checks and pointer table as the CUDA wrapper (kernels/tick_engine.py
-`step_host`). It is held against the plain PyTorch tick, which
+"""The Hopper tick kernel's own logic, on the CPU: csrc/tick.cuh (the
+node-parallel phase functions the CUDA kernel runs) compiled with g++ through
+the plain C harness csrc/tick_host.cpp, which runs each phase over every
+(cluster, node) of a tile of clusters before the next, loaded with ctypes, and
+driven through the same leaf checks and pointer table as the CUDA wrapper
+(kernels/tick_engine.py `step_host`). It is held against the plain PyTorch tick, which
 tests/test_torch_step.py holds against the JAX package.
 
 Tolerance: exact equality of every ClusterState and StepInfo leaf.
@@ -141,6 +142,16 @@ ROWS = [
                            drop_prob=0.1),
         3, 120, 0.03, id="n33-reconfig-lease-redirect-compaction-crash-fuzz",
     ),
+    # N=64: two full packed words a row, and on the card two nodes a worker
+    # at the widest the body takes.
+    pytest.param(
+        tconfig.RaftConfig(n_nodes=64, log_capacity=12, compact_margin=3, max_entries_per_rpc=3,
+                           client_interval=2, client_redirect=True, client_pipeline=3,
+                           reconfig_interval=5, transfer_interval=7, read_interval=2,
+                           read_lease_ticks=2, pre_vote=True, election_min_ticks=8,
+                           election_range_ticks=6, drop_prob=0.1),
+        2, 100, 0.03, id="n64-reconfig-lease-prevote-redirect-compaction-crash-fuzz",
+    ),
     # The storage plane: config10, the oracle's storage rows (the PreVote one
     # on the dense layout) under crash fuzz, and N=33 (two packed vote words)
     # with transfers and PreVote beside it.
@@ -176,6 +187,28 @@ def test_tick_body_matches_plain_step(host_lib, cfg, batch, ticks, p_down):
     assert led > 0
     if cfg.compaction:  # the trajectory compacted: log_base moved off 0
         assert int(s.log_base.max()) > 0
+
+
+@pytest.mark.parametrize("cfg,batch,ticks,p_down", ROWS)
+def test_tick_body_reverse_worker_order(host_lib, cfg, batch, ticks, p_down):
+    """Each phase's (cluster, node) workers run in reverse order and give the
+    same leaves as the forward order and the plain tick: no phase reads a
+    value another node writes in the same phase (on the card those workers
+    run concurrently between two barriers)."""
+    rng = np.random.default_rng(5)
+    s = trb.to_batch_minor(ttypes.init_batch(cfg, threefry.key(2), batch))
+    keys = threefry.split(threefry.key(3), batch)
+    for t in range(ticks):
+        inp = trb.to_batch_minor(faults.make_inputs(cfg, keys, t))
+        if p_down:
+            inp = _fuzz(inp, rng, p_down)
+        want = trb.step_b(cfg, s, inp, t)
+        fwd = tick_engine.step_host(host_lib, cfg, s, inp, t)
+        rev = tick_engine.step_host(host_lib, cfg, s, inp, t, reverse=True)
+        for got, order in ((rev, "reverse"), (fwd, "forward")):
+            diff = bridge.first_difference(want[0], got[0]) or bridge.first_difference(want[1], got[1])
+            assert diff is None, f"tick {t}, {order} order: {diff}"
+        s = want[0]
 
 
 @pytest.mark.parametrize("name", HAND_BUILT)
@@ -241,6 +274,30 @@ def test_wrapper_rejects_bad_leaves(host_lib):
         tick_engine.step_host(host_lib, cfg, s, inp._replace(skew=inp.skew[:, :2]), 0)
     with pytest.raises(NotImplementedError, match="n_nodes"):
         tick_engine.check_supported(tconfig.RaftConfig(n_nodes=101))
+
+
+def test_kernel_report_names_each_cells_instantiation(host_lib, monkeypatch):
+    """chip_smoke.py's per-cell ptxas line: the report is parsed per kernel,
+    and each preset maps to its (index, ack, node, nodes a thread, gate set)
+    instantiation, with the gate set as the body's `lean_gates` decides it."""
+    entries = {"IaaaLi1ELb0E": (63, 0), "IaaaLi2ELb0E": (64, 136), "IiaaLi1ELb1E": (112, 0)}
+    text = "".join(
+        f"ptxas info    : Compiling entry function '_ZN4anon11tick_kernel{tag}EvN2rs8TickArgsEii' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for _ZN4anon11tick_kernel{tag}EvN2rs8TickArgsEii\n"
+        f"    {stack} bytes stack frame, {stack} bytes spill stores, {2 * stack} bytes spill loads\n"
+        f"ptxas info    : Used {regs} registers, used 1 barriers\n"
+        for tag, (regs, stack) in entries.items()
+    )
+    monkeypatch.setitem(tick_engine.BUILD_INFO, "ptxas", text)
+    for name, npt, tag in (("config3", 1, "IaaaLi1ELb0E"), ("config5", 2, "IaaaLi2ELb0E"),
+                           ("config6", 1, "IiaaLi1ELb1E")):
+        cfg = tconfig.PRESETS[name][0]
+        s = trb.to_batch_minor(ttypes.init_batch(cfg, threefry.key(0), 1))
+        got = tick_engine.kernel_report(cfg, s, npt, host_lib)
+        regs, stack = entries[tag]
+        assert got == {"instantiation": "tick_kernel" + tag, "registers": regs, "stack": stack,
+                       "spill_stores": stack, "spill_loads": 2 * stack,
+                       "gate_set": "full" if name == "config6" else "lean"}, name
 
 
 @pytest.mark.parametrize(
