@@ -8,7 +8,9 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
 1. device  -- `nvidia-smi` name and power limit, torch and CUDA versions, then
    the tick kernel's build from raft_sim_tpu_torch/csrc (nvcc, sm_90a) with its
    seconds and the compiler's register/stack/spill report per instantiation
-   (tick_kernel<index, ack, node dtype, nodes per thread, full gate set>).
+   (tick_kernel<index, ack, node dtype, width tier, nodes per thread, full
+   gate set>), nine nvcc runs in parallel. The race proxy's library (below)
+   builds in the background from here on.
 2. kernel_vs_plain -- presets config1-config5 and config3p for 96 ticks,
    config6 and config6r for 400 (their CAP=32 rings wrap near tick 130),
    config8, config9 and config10 for 400, at a batch of 200 (config1 at its
@@ -36,15 +38,30 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    log to max(dur_len, log_len - torn_drop), term/vote rewinds to the durable
    snapshot, late vote responses and AppendEntries acks held at the
    watermark -- and requires each above 0 (jitter stalls are reported); every
-   tick, every node's dur_len must stay at or below its log_len.
+   tick, every node's dur_len must stay at or below its log_len. Slice 6
+   adds config4c (200 x 96), config7 (N=101: 200 x 96 and a ragged 45 x 96),
+   config7's mix dense at N=128 and at N=255 under partitions (45 x 64), and
+   a full-gate row at N=101 (crash churn, compaction, PreVote, membership,
+   transfers, reads; 200 x 200), whose restarts, compactions, config
+   appends, joint exits, TimeoutNow requests and reads must each be above 0
+   (the `slice6_events` line).
+2b. race_proxy -- the kernel built with RS_RACE_PROXY (csrc/tick.cu: node
+   slots and clusters-in-tile mapped to threads in reverse, each exchange
+   field poisoned once its last reader's phase is over) equals the plain
+   tick every tick on config1 and config7 at 1 cluster, on a ragged 45 of
+   config2, config5, config3p, config6, config6r, config8, config9,
+   config10, config4c and config7 for 96 ticks, and on the N=128 and N=255
+   rows for 64. It stands in for a race checker, which the card's machine
+   refuses.
 3. card_vs_cpu -- the port's `simulate` on the card equals the port on the CPU
    (config2, config4 at 64 x 100; config6r, config3p, config8, config9,
-   config10 at 64 x 200). The CPU tests hold the CPU port equal to the JAX
-   package.
+   config10 at 64 x 200; config7 at 16 x 100). The CPU tests hold the CPU
+   port equal to the JAX package.
 4. full_width -- the main path, `simulate` at the presets' own batch through the
-   kernel: config2, config6, config6r, config8, config9 and config10 at
-   1,000 clusters, config3, config3p and config4 at 100,000 for 1,000 ticks,
-   config5 at 10,000 for 200. Launch counts are zeroed just before each run
+   kernel: config2, config6, config6r, config7, config8, config9 and config10
+   at 1,000 clusters, config3, config3p, config4 and config4c at 100,000, for
+   1,000 ticks (config6, config6r, config8 and config10 for 400), config5 at
+   10,000 for 200. Launch counts are zeroed just before each run
    and read just after; each must equal the tick count. Every run must have
    zero invariant violations (stale lease reads included) and a leader
    elected in every cluster, the client presets a commit in every cluster,
@@ -77,6 +94,7 @@ import json
 import os
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 BW_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
@@ -113,6 +131,23 @@ def wall_ms(fn, reps: int) -> float:
 # The slice-4 events phase 2 requires above 0 on config10 (jitter stalls are
 # reported only).
 SLICE4_REQUIRED = ("flushes", "torn_cuts", "rewinds", "late_votes", "ack_clamps")
+
+
+# The events phase 2 requires above 0 on the full-gate row above 64 nodes.
+SLICE6_REQUIRED = ("restarts", "compactions", "config_appends", "joint_exits", "timeout_now_sent",
+                   "reads_served")
+
+
+def n101_full_gates():
+    """Phase 2's full-gate row above 64 nodes: N=101 with crash churn,
+    compaction, PreVote, the reconfiguration plane, transfers and reads, so
+    the wide full body's instantiations run."""
+    from raft_sim_tpu_torch.utils.config import RaftConfig
+
+    return RaftConfig(n_nodes=101, log_capacity=16, compact_margin=4, max_entries_per_rpc=4,
+                      client_interval=4, pre_vote=True, reconfig_interval=23, transfer_interval=17,
+                      read_interval=5, drop_prob=0.05, crash_prob=0.3, crash_period=32,
+                      crash_down_ticks=8)
 
 
 def count_events(cfg, t, s, inp, new, info, ev) -> None:
@@ -220,15 +255,22 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": tick_engine.BUILD_INFO.get("seconds"), "library": os.path.relpath(lib_path, HERE),
           "ptxas": ptxas})
+    # The race proxy's library builds beside phase 2 (its nvcc runs share the
+    # host's cores with the input draws); phase 2b waits for it, and a
+    # failed build raises there. The pool's thread is joined at exit, so no
+    # nvcc outlives the script.
+    pool = ThreadPoolExecutor(max_workers=1)
+    proxy_build = pool.submit(tick_engine.build, proxy=True)
 
-    def hold_ticks(cfg, s, keys, t0: int, n: int, what: str, events=None):
-        """`n` ticks from batch-minor state `s`: each tick the kernel equals
-        the plain tick on the card, state and StepInfo, leaf for leaf.
-        `events`, a Counter, accumulates the slice-2/3/4 event counts."""
+    def hold_ticks(cfg, s, keys, t0: int, n: int, what: str, events=None, proxy=False):
+        """`n` ticks from batch-minor state `s`: each tick the kernel (with
+        `proxy`, its race proxy) equals the plain tick on the card, state and
+        StepInfo, leaf for leaf. `events`, a Counter, accumulates the
+        slice-2/3/4 event counts."""
         for t in range(t0, t0 + n):
             inp = raft_batched.to_batch_minor(faults.make_inputs(cfg, keys, t))
             ref_s, ref_i = raft_batched.step_b(cfg, s, inp, t)
-            got_s, got_i = tick_engine.step_cuda(cfg, s, inp, t)
+            got_s, got_i = tick_engine.step_cuda(cfg, s, inp, t, proxy=proxy)
             check_equal(ref_s, got_s, f"{what} tick {t}: step_cuda state != step_b")
             check_equal(ref_i, got_i, f"{what} tick {t}: step_cuda StepInfo != step_b")
             if events is not None:
@@ -255,6 +297,20 @@ def main() -> int:
                 200, 200),
                ("config8", PRESETS["config8"][0], 200, 400), ("config9", PRESETS["config9"][0], 200, 400),
                ("config10", PRESETS["config10"][0], 200, 400)]
+    # Slice 6: config4c, and clusters above 64 nodes -- config7 (N=101, width
+    # tier 4), its mix dense at N=128 (int16 node ids) and at N=255 (width
+    # tier 8) under partitions, and the full gate body at N=101.
+    slice2_rows = {name for name, *_ in parity} - {"config8", "config9", "config10"}
+    cfg7 = PRESETS["config7"][0]
+    wide = {
+        "config7-mix-n128": dataclasses.replace(cfg7, n_nodes=128),
+        "config7-mix-n255-partitions": dataclasses.replace(cfg7, n_nodes=255, partition_period=32,
+                                                           partition_prob=0.25),
+    }
+    parity += [("config4c", PRESETS["config4c"][0], 200, 96), ("config7", cfg7, 200, 96),
+               ("config7-ragged-b45", cfg7, 45, 96)]
+    parity += [(f"{name}-b45", cfg, 45, 64) for name, cfg in wide.items()]
+    parity += [("n101-full-gates", n101_full_gates(), 200, 200)]
     events = {"restarts": 0, "compactions": 0, "snapshot_sentinels": 0, "redirect_bounces": 0}
     slice3 = {"config_appends": 0, "joint_exits": 0, "timeout_now_sent": 0, "sanctioned_votes": 0,
               "reads_served_config8": 0, "one_tick_reads_config9": 0,
@@ -273,9 +329,11 @@ def main() -> int:
                 slice3["reads_served_config8"] += ev["reads_served"]
             else:  # config9's one-tick reads are lease serves
                 slice3["one_tick_reads_config9"] += ev["one_tick_reads"]
-        else:
+        elif name in slice2_rows:
             for k in events:
                 events[k] += ev[k]
+        elif name == "n101-full-gates":
+            slice6 = {k: ev[k] for k in SLICE6_REQUIRED}
         sim_ticks = min(ticks, 96)
         f_k, m_k = scan.simulate(cfg, SEED, batch, sim_ticks, device=dev)
         f_p, m_p = scan.simulate(cfg, SEED, batch, sim_ticks, device=dev, step_fn=raft_batched.step_b)
@@ -297,12 +355,40 @@ def main() -> int:
     for k in SLICE4_REQUIRED:
         if slice4[k] <= 0:
             raise AssertionError(f"kernel_vs_plain: no {k} on the config10 run")
+    emit({"phase": "slice6_events", **slice6})
+    for k in SLICE6_REQUIRED:
+        if slice6[k] <= 0:
+            raise AssertionError(f"kernel_vs_plain: no {k} on the n101-full-gates run")
+
+    # ---- 2b: the race proxy, on the card ---------------------------------------
+    # No race checker runs on this machine (PERF.md), so the proxy build of
+    # the kernel (csrc/tick.cu with RS_RACE_PROXY: node slots and clusters
+    # mapped to threads in reverse, each exchange field poisoned once its last
+    # reader's phase is over) is held to the plain tick on one cluster and on
+    # a ragged 45 of every gate set and width tier.
+    t0 = time.perf_counter()
+    proxy_path = proxy_build.result()
+    pool.shutdown()
+    emit({"phase": "race_proxy_build", "waited_s": time.perf_counter() - t0,
+          "nvcc_seconds": tick_engine.PROXY_BUILD_INFO.get("seconds"),
+          "library": os.path.relpath(proxy_path, HERE)})
+    proxy_rows = [("config1", PRESETS["config1"][0], 1, 96), ("config7", cfg7, 1, 96)]
+    proxy_rows += [(name, PRESETS[name][0], 45, 96)
+                   for name in ("config2", "config5", "config3p", "config6", "config6r", "config8",
+                                "config9", "config10", "config4c", "config7")]
+    proxy_rows += [(name, cfg, 45, 64) for name, cfg in wide.items()]
+    for name, cfg, batch, ticks in proxy_rows:
+        s = raft_batched.to_batch_minor(init_batch(cfg, threefry.key(SEED, dev), batch))
+        keys = threefry.split(threefry.key(SEED + 1, dev), batch)
+        hold_ticks(cfg, s, keys, 0, ticks, f"race proxy {name}", proxy=True)
+        emit({"phase": "race_proxy", "preset": name, "batch": batch, "ticks": ticks,
+              "per_tick": "equal", "max_abs_err": max_err})
 
     # ---- 3: card vs CPU --------------------------------------------------------
-    for name, ticks in (("config2", 100), ("config4", 100), ("config6r", 200), ("config3p", 200),
-                        ("config8", 200), ("config9", 200), ("config10", 200)):
+    for name, batch, ticks in (("config2", 64, 100), ("config4", 64, 100), ("config6r", 64, 200),
+                               ("config3p", 64, 200), ("config8", 64, 200), ("config9", 64, 200),
+                               ("config10", 64, 200), ("config7", 16, 100)):
         cfg, _ = PRESETS[name]
-        batch = 64
         f_g, m_g = scan.simulate(cfg, SEED, batch, ticks, device=dev)
         f_c, m_c = scan.simulate(cfg, SEED, batch, ticks, device="cpu")
         check_equal(f_c, f_g, f"{name}: simulate state, card != CPU")
@@ -313,9 +399,13 @@ def main() -> int:
     # ---- 4: full width, the main path -----------------------------------------
     cells = []
     total_launches = 0
+    # The four crash cells run 400 full-width ticks (their input draws take
+    # 52-68 ms a tick), so the script keeps well inside its time limit with
+    # config4c and config7 beside them; every other cell runs 1,000 (config5
+    # 200).
     full_cells = (("config2", 1000), ("config3", 1000), ("config4", 1000), ("config5", 200),
-                  ("config6", 1000), ("config6r", 1000), ("config3p", 1000), ("config8", 1000),
-                  ("config9", 1000), ("config10", 1000))
+                  ("config6", 400), ("config6r", 400), ("config3p", 1000), ("config8", 400),
+                  ("config9", 1000), ("config10", 400), ("config4c", 1000), ("config7", 1000))
     for name, ticks in full_cells:
         cfg, batch = PRESETS[name]
         torch.cuda.synchronize()

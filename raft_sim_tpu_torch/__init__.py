@@ -7,7 +7,8 @@ JAX package's on the same seed (tests/test_torch_*.py). This package imports
 torch and numpy only -- never jax, and nothing of raft_sim_tpu.
 
 Main path: `sim.scan.simulate(cfg, seed, batch, n_ticks, device="cuda")` on
-presets config1-config6, config6r, config3p, config8, config9 and config10;
+presets config1-config6, config6r, config3p, config4c, config7 (N=101),
+config8, config9 and config10 -- the kernel takes any N from 2 to 255;
 CLI: `python -m raft_sim_tpu_torch run --preset ...`, and
 `python -m raft_sim_tpu_torch bench` for the bench rows (bench.py).
 """

@@ -9,14 +9,25 @@
 // thread t owns cluster t % tc of the block and the nodes slot, slot + s
 // (slot = t / tc), NPT = ceil(N / s) of them, 1 or 2 (a template parameter,
 // so each node's NodeCtx sits in registers with compile-time indices). With
-// tc = 32 a warp is 32 consecutive clusters of one node slot; with tc = 16 or
-// 8 it is 2 or 4 runs of 16 or 8; every [.., B] leaf access by a warp stays
-// runs of consecutive addresses, as the layout is batch-minor. s = N for
-// N <= 32, else 32 with two nodes a thread (node slot, then slot + 32, so a
-// warp is on one node at a time). The wrapper (kernels/tick_engine.py
-// `block_shape`) picks tc from N and B: 32 while s <= 16, else 16 (at most
-// 512 threads a block, so up to 128 registers a thread), halved down to 8
-// while that gives fewer than two blocks per SM. Intermediates one node
+// tc = 32 a warp is 32 consecutive clusters of one node slot; with tc = 16, 8
+// or 4 it is 2, 4 or 8 runs of 16, 8 or 4; every [.., B] leaf access by a
+// warp stays runs of consecutive addresses, as the layout is batch-minor.
+// s = N for N <= 32, else 32 x the width tier (below) with two nodes a
+// thread: 32 for N <= 64, 64 for N <= 128, 128 above (node slot, then slot +
+// s, so a warp is on one node at a time). The wrapper (kernels/tick_engine.py
+// `block_shape`) picks tc from N and B: 32 while s <= 16, 16 at s = 32 (at
+// most 512 threads a block, so up to 128 registers a thread), each halved
+// down to 8 while that gives fewer than two blocks per SM; 8 at s = 64 and 4
+// at s = 128 (512 threads, and an exchange of 119,152 bytes at N = 255 where
+// 8 clusters would pass the 232,448 a block may have).
+//
+// Width tiers. Packed rows (votes, deliver mask, member rows, grant rows)
+// are MW = 2, 4 or 8 words in registers and in the exchange, a template
+// parameter chosen from N (tick.cuh `width_for`): the narrow bodies keep the
+// registers they had before the wider tiers came, and a node's bit is picked
+// by comparing word indices, never by a runtime index into a register array.
+// Node ids are int8 up to 126 nodes and int16 above (types.node_dtype).
+// Intermediates one node
 // writes and another reads in a later phase, and the per-cluster
 // accumulators, live in dynamic shared memory (tick.cuh `Xch`,
 // `smem_bytes`); a __syncthreads() ends each of the seven phases, and every
@@ -47,16 +58,29 @@
 // Not yet done (later work): drawing the threefry inputs inside the kernel
 // instead of reading them, and a CUDA graph over ticks.
 //
+// Above 64 nodes a leader's quorum match walks N x N match entries on one
+// thread (about 10,000 steps at N = 101, 65,000 at N = 255), and each
+// worker walks N staged headers a phase: correct, not yet fast.
+//
 // Build (kernels/tick_engine.py does this at first use): this file is
-// compiled once per index dtype tier, the three nvcc runs in parallel,
+// compiled once per (index dtype tier, width tier), the nine nvcc runs in
+// parallel,
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC
-//        -c -DRS_IDX_BYTES=1|2|4 -o tick_i<k>.o tick.cu
+//        -c -DRS_IDX_BYTES=1|2|4 -DRS_WIDTH=2|4|8 -o tick_i<k>_w<w>.o tick.cu
 // and the objects are linked into one shared library (nvcc -shared). Each
-// object holds its tier's (ack dtype, nodes per thread, gate set)
-// instantiations -- eight, four for the int32 tier (full gate set only) --
-// and `rs_tick_launch_i<k>`; the RS_IDX_BYTES=1 object also holds the entry
-// points `rs_tick_launch`, `rs_tick_n_ptr`, `rs_tick_smem_bytes` and
-// `rs_tick_lean` (which body a launch runs, for the wrapper's report).
+// object holds its pair's (ack dtype, node dtype, nodes per thread, gate set)
+// instantiations -- eight at width 2 and 4, four at width 8, half that in
+// the int32 tier (full gate set only) -- and `rs_tick_launch_i<k>_w<w>`; the
+// (1, 2) object also holds the entry points `rs_tick_launch`,
+// `rs_tick_n_ptr`, `rs_tick_smem_bytes` and `rs_tick_lean` (which body a
+// launch runs, for the wrapper's report).
+//
+// The race proxy (-DRS_RACE_PROXY, a library of its own that chip_smoke.py
+// and tests/test_torch_cuda.py build; never the main path): node slots and
+// clusters-in-tile map to threads in reverse, and before each phase's node
+// part a node poisons its exchange fields whose last reader's phase is over
+// (tick.cuh `poison_fields`), so a read that depends on the thread order or
+// outlives the barrier schedule shows as a difference from the plain tick.
 #include <cuda_runtime.h>
 
 #include "tick.cuh"
@@ -73,43 +97,71 @@ typedef int32_t TierIdx;
 #else
 #error "RS_IDX_BYTES must be 1, 2 or 4"
 #endif
+#if !defined(RS_WIDTH) || (RS_WIDTH != 2 && RS_WIDTH != 4 && RS_WIDTH != 8)
+#error "compile once per width tier: -DRS_WIDTH=2, 4 or 8"
+#endif
 
-#define RS_CAT2(a, b) a##b
-#define RS_CAT(a, b) RS_CAT2(a, b)
-#define RS_TIER_LAUNCH RS_CAT(rs_tick_launch_i, RS_IDX_BYTES)
+#define RS_CAT4(a, b, c, d) a##b##c##d
+#define RS_LAUNCH_NAME(k, w) RS_CAT4(rs_tick_launch_i, k, _w, w)
+#define RS_PART_LAUNCH RS_LAUNCH_NAME(RS_IDX_BYTES, RS_WIDTH)
 
 struct LaunchShape {
   unsigned grid;
   int tc, s, npt, smem;
 };
 
-extern "C" int rs_tick_launch_i1(const rs::TickArgs*, int, int, const LaunchShape*, cudaStream_t);
-extern "C" int rs_tick_launch_i2(const rs::TickArgs*, int, int, const LaunchShape*, cudaStream_t);
-extern "C" int rs_tick_launch_i4(const rs::TickArgs*, int, int, const LaunchShape*, cudaStream_t);
+#define RS_DECLARE_PART(k, w)                                                          \
+  extern "C" int RS_LAUNCH_NAME(k, w)(const rs::TickArgs*, int, int, const LaunchShape*, \
+                                      cudaStream_t);
+RS_DECLARE_PART(1, 2)
+RS_DECLARE_PART(1, 4)
+RS_DECLARE_PART(1, 8)
+RS_DECLARE_PART(2, 2)
+RS_DECLARE_PART(2, 4)
+RS_DECLARE_PART(2, 8)
+RS_DECLARE_PART(4, 2)
+RS_DECLARE_PART(4, 4)
+RS_DECLARE_PART(4, 8)
+#undef RS_DECLARE_PART
 
 namespace {
 
-// Phase PH for this thread: its nodes, then (node slot 0) its cluster.
+constexpr int MW = RS_WIDTH;
+
+// Phase PH for this thread: its nodes, then (node slot 0) its cluster. The
+// race proxy poisons each node's exchange fields whose readers are done first.
 template <class I, class A, class N, int NPT, bool FULL, int PH>
-__device__ __forceinline__ void run_phase(const rs::TickArgs& a, rs::NodeCtx* x, const rs::Xch& X,
-                                          int64_t b, int ci, int slot, int s) {
+__device__ __forceinline__ void run_phase(const rs::TickArgs& a, rs::NodeCtx<MW>* x,
+                                          const rs::Xch<MW>& X, int64_t b, int ci, int slot,
+                                          int s) {
 #pragma unroll
   for (int k = 0; k < NPT; ++k) {
     const int i = slot + k * s;
-    if (i < a.p.n) rs::node_phase<I, A, N, FULL, PH>(a.p, a.ptr, x[k], X, b, ci, i);
+    if (i < a.p.n) {
+#ifdef RS_RACE_PROXY
+      rs::poison_fields<MW, PH>(X, ci, i);
+#endif
+      rs::node_phase<I, A, N, MW, FULL, PH>(a.p, a.ptr, x[k], X, b, ci, i);
+    }
   }
-  if (slot == 0) rs::cluster_phase<FULL, PH>(a.p, a.ptr, X, b, ci);
+  if (slot == 0) rs::cluster_phase<MW, FULL, PH>(a.p, a.ptr, X, b, ci);
 }
 
-template <class I, class A, class N, int NPT, bool FULL>
+template <class I, class A, class N, int W, int NPT, bool FULL>
 __global__ void __launch_bounds__(rs::MAX_THREADS) tick_kernel(const rs::TickArgs a, int tc, int s) {
+  static_assert(W == MW, "one width tier an object");
   extern __shared__ int32_t smem[];
   const int t = threadIdx.x;
+#ifdef RS_RACE_PROXY
+  // The race proxy: node slots and clusters-in-tile to threads in reverse.
+  const int ci = tc - 1 - t % tc, slot = s - 1 - t / tc;
+#else
   const int ci = t % tc, slot = t / tc;
+#endif
   const int64_t b = (int64_t)blockIdx.x * tc + ci;
   const bool live = b < a.p.b;  // ragged edge masked; every barrier still reached
-  const rs::Xch X{smem, a.p.n, tc};
-  rs::NodeCtx x[NPT];
+  const rs::Xch<MW> X{smem, a.p.n, tc};
+  rs::NodeCtx<MW> x[NPT];
 #define RS_PHASE(PH) \
   if (live) run_phase<I, A, N, NPT, FULL, PH>(a, x, X, b, ci, slot, s)
   RS_PHASE(0);
@@ -128,9 +180,9 @@ __global__ void __launch_bounds__(rs::MAX_THREADS) tick_kernel(const rs::TickArg
 #undef RS_PHASE
 }
 
-template <class A, int NPT, bool FULL>
+template <class A, class N, int NPT, bool FULL>
 int launch(const rs::TickArgs* args, const LaunchShape* sh, cudaStream_t st) {
-  auto kern = tick_kernel<TierIdx, A, int8_t, NPT, FULL>;
+  auto kern = tick_kernel<TierIdx, A, N, MW, NPT, FULL>;
   if (sh->smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, sh->smem);
@@ -140,36 +192,54 @@ int launch(const rs::TickArgs* args, const LaunchShape* sh, cudaStream_t st) {
   return 0;
 }
 
-// The body for the config's gate set: lean (the gates of config1-config5
-// and config3p, FULL = false) or every gate. The int32 index tier comes only with compaction,
-// outside the lean set, so its object holds the full body alone.
-template <class A, int NPT>
+// The body for the config's gate set: lean (the gates of config1-config5,
+// config3p and config7, FULL = false) or every gate. The int32 index tier
+// comes only with compaction, outside the lean set, so its objects hold the
+// full body alone.
+template <class A, class N, int NPT>
 int launch_gates(const rs::TickArgs* args, const LaunchShape* sh, cudaStream_t st) {
 #if RS_IDX_BYTES != 4
-  if (rs::lean_gates(args->p)) return launch<A, NPT, false>(args, sh, st);
+  if (rs::lean_gates(args->p)) return launch<A, N, NPT, false>(args, sh, st);
 #endif
-  return launch<A, NPT, true>(args, sh, st);
+  return launch<A, N, NPT, true>(args, sh, st);
 }
 
-template <class A>
+// Nodes a thread: 1 or 2 at the narrow width tier (N <= 32 or not); above it
+// always 2 (block_shape's slots are half the tier's node range).
+template <class A, class N>
 int launch_npt(const rs::TickArgs* args, const LaunchShape* sh, cudaStream_t st) {
-  return sh->npt == 1 ? launch_gates<A, 1>(args, sh, st) : launch_gates<A, 2>(args, sh, st);
+#if RS_WIDTH == 2
+  if (sh->npt == 1) return launch_gates<A, N, 1>(args, sh, st);
+#endif
+  if (sh->npt == 2) return launch_gates<A, N, 2>(args, sh, st);
+  return 99;
+}
+
+template <class N>
+int launch_ack(const rs::TickArgs* args, int ack_bytes, const LaunchShape* sh, cudaStream_t st) {
+  if (ack_bytes == 1) return launch_npt<int8_t, N>(args, sh, st);
+  if (ack_bytes == 2) return launch_npt<int16_t, N>(args, sh, st);
+  return 99;
 }
 
 }  // namespace
 
-// This tier's (ack, nodes-per-thread, gate set) instantiations; 99 for a
-// combination none takes. The node dtype is int8: N <= MAXN = 64 is within
-// its tier (types.node_dtype), so the int16 node tier never reaches the kernel.
-extern "C" int RS_TIER_LAUNCH(const rs::TickArgs* args, int ack_bytes, int node_bytes,
+// This (index tier, width tier)'s instantiations: (ack dtype, node dtype,
+// nodes a thread, gate set); 99 for a combination none takes. Node ids are
+// int8 up to 126 nodes and int16 above (types.node_dtype): width tier 2 (N <=
+// 64) takes int8 only, 4 (N <= 128) both, 8 (N >= 129) int16 only.
+extern "C" int RS_PART_LAUNCH(const rs::TickArgs* args, int ack_bytes, int node_bytes,
                               const LaunchShape* sh, cudaStream_t st) {
-  if (node_bytes != 1) return 99;
-  if (ack_bytes == 1) return launch_npt<int8_t>(args, sh, st);
-  if (ack_bytes == 2) return launch_npt<int16_t>(args, sh, st);
+#if RS_WIDTH != 8
+  if (node_bytes == 1) return launch_ack<int8_t>(args, ack_bytes, sh, st);
+#endif
+#if RS_WIDTH != 2
+  if (node_bytes == 2) return launch_ack<int16_t>(args, ack_bytes, sh, st);
+#endif
   return 99;
 }
 
-#if RS_IDX_BYTES == 1
+#if RS_IDX_BYTES == 1 && RS_WIDTH == 2
 // Launches one tick on `stream` with blocks of `tc` clusters x `s` node
 // slots; returns cudaGetLastError() (0 = launched), or 100+ / 99 for shapes,
 // block shapes or dtype tiers this kernel does not take.
@@ -193,9 +263,14 @@ extern "C" int rs_tick_launch(const rs::TickParams* p, void* const* ptrs, int id
   for (int k = 0; k < rs::N_PTR; ++k) args.ptr[k] = ptrs[k];
   cudaStream_t st = (cudaStream_t)stream;
   int rc = 99;
-  if (idx_bytes == 1) rc = rs_tick_launch_i1(&args, ack_bytes, node_bytes, &sh, st);
-  else if (idx_bytes == 2) rc = rs_tick_launch_i2(&args, ack_bytes, node_bytes, &sh, st);
-  else if (idx_bytes == 4) rc = rs_tick_launch_i4(&args, ack_bytes, node_bytes, &sh, st);
+  const int w = rs::width_for(p->n);
+#define RS_TRY(k, w_)                                                   \
+  if (idx_bytes == k && w == w_)                                         \
+    rc = RS_LAUNCH_NAME(k, w_)(&args, ack_bytes, node_bytes, &sh, st);
+  RS_TRY(1, 2) RS_TRY(1, 4) RS_TRY(1, 8)
+  RS_TRY(2, 2) RS_TRY(2, 4) RS_TRY(2, 8)
+  RS_TRY(4, 2) RS_TRY(4, 4) RS_TRY(4, 8)
+#undef RS_TRY
   if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }

@@ -12,6 +12,10 @@
 // storage plane (fsync watermarks, the durability gate, crash recovery).
 // Every leaf it writes equals the JAX tick's.
 //
+// Any N from 2 to 255 (RaftConfig's range), dense layout: the body is a
+// template on the width tier MW (packed words a row: 2 up to 64 nodes, 4 up
+// to 128, 8 above; `width_for`).
+//
 // Work split: one worker per (cluster, node). A worker keeps its node's state
 // in a NodeCtx (registers on the card) and runs the tick as a sequence of
 // phase functions; a barrier ends each phase. A worker reads its own node's
@@ -89,12 +93,17 @@
 
 namespace rs {
 
-constexpr int MAXN = 64;  // nodes per cluster this body supports
-constexpr int MAXW = 2;   // packed words per node row (ceil(MAXN / 32))
+constexpr int MAXN = 255;  // nodes per cluster this body supports (RaftConfig's ceiling)
+constexpr int MAXW = 8;    // packed words per node row (ceil(MAXN / 32))
 constexpr int MAXE = 16;  // entries per AppendEntries window
 constexpr int MAXK = 16;  // redirect pipeline slots (RaftConfig.client_pipeline <= 16)
 constexpr int BINS = 16;  // latency histogram bins (types.LAT_HIST_BINS)
 constexpr int MAX_THREADS = 512;  // workers per block (tick.cu)
+
+// The body's width tier for N nodes: packed words a row in registers and in
+// the exchange (MW). Rows of a narrower config keep their top words 0; three
+// tiers keep the narrow bodies' registers what they were at N <= 64.
+RS_HD constexpr int width_for(int n) { return n <= 64 ? 2 : n <= 128 ? 4 : 8; }
 
 constexpr int FOLLOWER = 0, CANDIDATE = 1, LEADER = 2, PRECANDIDATE = 3;
 constexpr int NIL = -1, NOOP = -2;
@@ -205,38 +214,70 @@ RS_HD int log2_bin(int v) {
 RS_HD uint32_t chk_w_term(uint32_t k) { return (k * 2654435761u + 0x9E3779B9u) | 1u; }
 RS_HD uint32_t chk_w_val(uint32_t k) { return (k * 0x85EBCA77u + 0xC2B2AE3Du) | 1u; }
 
-// Packed rows are MAXW words; words at and past a config's W are kept 0, so
-// every row operation runs over all MAXW words with compile-time indices.
+// Packed rows are MW words (the body's width tier, `width_for`); words at and
+// past a config's W are kept 0, so every row operation runs over all MW words
+// with compile-time indices: a node's bit is picked by comparing its word
+// index with each word's, never by indexing a row with a runtime value (a
+// register array so indexed would go to local memory). MW = 2 keeps the
+// two-word forms the narrow bodies were tuned with.
 // Set bits of the packed row a & b (b == nullptr: all of a).
+template <int MW>
 RS_HD int popc_and(const uint32_t* a, const uint32_t* b) {
   int c = 0;
-  for (int w = 0; w < MAXW; ++w) c += popcount32(b ? (a[w] & b[w]) : a[w]);
+  for (int w = 0; w < MW; ++w) c += popcount32(b ? (a[w] & b[w]) : a[w]);
   return c;
 }
 
-RS_HD uint32_t word_of(const uint32_t* row, int i) { return i < 32 ? row[0] : row[1]; }
-RS_HD bool has_bit(const uint32_t* row, int i) { return (word_of(row, i) >> (i & 31)) & 1u; }
-RS_HD void set_bit(uint32_t* row, int i) {
-  if (i < 32) row[0] |= 1u << (i & 31);
-  else row[1] |= 1u << (i & 31);
+template <int MW>
+RS_HD uint32_t word_of(const uint32_t* row, int i) {
+  if constexpr (MW == 2) {
+    return i < 32 ? row[0] : row[1];
+  } else {
+    uint32_t v = row[0];
+    for (int w = 1; w < MW; ++w) v = (i >> 5) == w ? row[w] : v;
+    return v;
+  }
 }
+template <int MW>
+RS_HD bool has_bit(const uint32_t* row, int i) { return (word_of<MW>(row, i) >> (i & 31)) & 1u; }
+template <int MW>
+RS_HD void set_bit(uint32_t* row, int i) {
+  if constexpr (MW == 2) {
+    if (i < 32) row[0] |= 1u << (i & 31);
+    else row[1] |= 1u << (i & 31);
+  } else {
+    for (int w = 0; w < MW; ++w) row[w] |= (w == (i >> 5)) ? 1u << (i & 31) : 0u;
+  }
+}
+template <int MW>
+RS_HD void flip_bit(uint32_t* row, int i) {
+  if constexpr (MW == 2) {
+    if (i < 32) row[0] ^= 1u << (i & 31);
+    else row[1] ^= 1u << (i & 31);
+  } else {
+    for (int w = 0; w < MW; ++w) row[w] ^= (w == (i >> 5)) ? 1u << (i & 31) : 0u;
+  }
+}
+template <int MW>
 RS_HD void self_row(uint32_t* row, int i) {  // only bit i
-  for (int w = 0; w < MAXW; ++w) row[w] = (w == (i >> 5)) ? 1u << (i & 31) : 0u;
+  for (int w = 0; w < MW; ++w) row[w] = (w == (i >> 5)) ? 1u << (i & 31) : 0u;
 }
 
 // One parity fold over a node's config entries with absolute index in
 // (lo, hi], slot k holding entry anchor + pmod(k - anchor, cap) + 1 on a ring
 // (k + 1 otherwise): final entries (code < 0) toggle bit -code - 1 of `fold`;
 // returns the entry count, and the latest entry's index and code.
+template <int MW>
 struct CfgFold {
-  uint32_t fold[MAXW];
+  uint32_t fold[MW];
   int hi, code_hi, count;
 };
 
-RS_HD CfgFold fold_cfg(const int32_t* row, int64_t B, int cap, int n, bool ring, int anchor,
-                       int lo, int hi) {
-  CfgFold f;
-  for (int w = 0; w < MAXW; ++w) f.fold[w] = 0u;
+template <int MW>
+RS_HD CfgFold<MW> fold_cfg(const int32_t* row, int64_t B, int cap, int n, bool ring, int anchor,
+                           int lo, int hi) {
+  CfgFold<MW> f;
+  for (int w = 0; w < MW; ++w) f.fold[w] = 0u;
   f.hi = f.code_hi = f.count = 0;
   for (int k = 0; k < cap; ++k) {
     const int abs1 = ring ? anchor + pmod(k - anchor, cap) + 1 : k + 1;
@@ -249,10 +290,7 @@ RS_HD CfgFold fold_cfg(const int32_t* row, int64_t B, int cap, int n, bool ring,
       f.code_hi = code;
     }
     const int v = -code - 1;
-    if (code < 0 && v < n) {
-      if (v < 32) f.fold[0] ^= 1u << (v & 31);
-      else f.fold[1] ^= 1u << (v & 31);
-    }
+    if (code < 0 && v < n) flip_bit<MW>(f.fold, v);
   }
   return f;
 }
@@ -272,10 +310,11 @@ RS_HD int term_at(const int32_t* row, int64_t B, int cap, bool ring, int base, i
 
 // The lean gate set: none of compaction, the redirect client, the
 // reconfiguration plane (membership, transfer, reads, leases) or durable
-// storage; PreVote stays a runtime gate -- config1-config5 and config3p. The
-// body is instantiated for it with those gates compile-time off (FULL =
-// false), so their code and per-node state drop out, and for every gate
-// (FULL = true); the launch picks by the config's gates alone.
+// storage; PreVote stays a runtime gate -- config1-config5, config3p,
+// config4c and config7. The body is instantiated for it with those gates
+// compile-time off (FULL = false), so their code and per-node state drop
+// out, and for every gate (FULL = true); the launch picks by the config's
+// gates alone.
 inline bool lean_gates(const TickParams& p) {
   return !(p.comp || p.redirect || p.reconfig || p.transfer || p.reads || p.lease || p.durable);
 }
@@ -297,7 +336,8 @@ struct Gates {
 // ---- The exchange: shared memory on the card, a host buffer in the CPU build.
 // Per-node intermediates one node writes and others read in a later phase,
 // [field][node][cluster-in-tile], then per-cluster accumulators
-// [field][cluster-in-tile]; all int32.
+// [field][cluster-in-tile]; all int32. The fields past the PreVote grant row
+// (MW words) sit at offsets that follow the width tier (`XTail`).
 enum XField {
   // Each node's mailbox header and up/alive flags, staged in phase 0 and read
   // by every node of its cluster from phase 1 on.
@@ -316,14 +356,19 @@ enum XField {
   X_COMMIT,  // commit after phase 5 (phase 1): the max-commit node, read frontier
   X_LID,     // leader id after phase 5 (phase 1): redirect chase
   X_ELIGX,   // live leader and voter (phase 1): transfer's lowest-id leader
-  X_PVG,     // PreVote grant row of a voter, MAXW words (phase 1): pv_grant out
-  X_CANCAP = X_PVG + MAXW,  // may capture a read (phase 2): lowest-id capture
-  X_LDJ,     // may take the admin toggle (phase 2): lowest-id joint entry
-  X_NODEOK,  // may take a client command (phase 3): redirect acceptance
-  X_LATE,    // late vote's candidate, else NIL (phase 3): late RESP_VOTE
-  X_ROLE,    // final role (phase 4): election safety
-  X_TERM,    // final term (phase 4): election safety
-  NXF
+  X_PVG,     // PreVote grant row of a voter, MW words (phase 1): pv_grant out
+};
+template <int MW>
+struct XTail {
+  enum {
+    CANCAP = X_PVG + MW,  // may capture a read (phase 2): lowest-id capture
+    LDJ,     // may take the admin toggle (phase 2): lowest-id joint entry
+    NODEOK,  // may take a client command (phase 3): redirect acceptance
+    LATE,    // late vote's candidate, else NIL (phase 3): late RESP_VOTE
+    ROLE,    // final role (phase 4): election safety
+    TERM,    // final term (phase 4): election safety
+    NXF
+  };
 };
 enum AccField {
   A_MSGS, A_CMDS, A_LAT_SUM, A_LAT_CNT, A_CROSSED, A_NOOP_BLOCKED, A_READS, A_READ_LAT_SUM,
@@ -332,16 +377,24 @@ enum AccField {
   A_HIST, A_READ_HIST = A_HIST + BINS, NACC = A_READ_HIST + BINS
 };
 
-// Exchange bytes for a tile of `tc` clusters of `n` nodes.
-inline int64_t smem_bytes(int n, int tc) { return 4 * (int64_t)tc * ((int64_t)NXF * n + NACC); }
+// Exchange bytes for a tile of `tc` clusters of `n` nodes (at n's width tier).
+inline int64_t smem_bytes(int n, int tc) {
+  const int w = width_for(n);
+  const int64_t nxf = w == 2 ? (int)XTail<2>::NXF : w == 4 ? (int)XTail<4>::NXF
+                                                   : (int)XTail<8>::NXF;
+  return 4 * (int64_t)tc * (nxf * n + NACC);
+}
 
+template <int MW>
 struct Xch {
   int32_t* base;
   int n, tc;
   RS_HD int32_t& at(int f, int node, int ci) const {
     return base[((int64_t)f * n + node) * tc + ci];
   }
-  RS_HD int32_t* acc(int f, int ci) const { return base + ((int64_t)NXF * n + f) * tc + ci; }
+  RS_HD int32_t* acc(int f, int ci) const {
+    return base + ((int64_t)XTail<MW>::NXF * n + f) * tc + ci;
+  }
 };
 
 // Accumulator updates: atomic on the card (any order gives the same integer),
@@ -369,7 +422,8 @@ RS_HD void acc_min(int32_t* p, int v) {
 }
 
 // One node's state, carried between phases (registers on the card). Rows are
-// MAXW words with the words past W zero.
+// MW words with the words past W zero.
+template <int MW>
 struct NodeCtx {
   bool alive, rs, up, heard_recent, joint, member_b;
   bool saw_higher, granted_any, has_ae, win, pre_win, applied_snap, is_leader;
@@ -381,8 +435,8 @@ struct NodeCtx {
   int xfer0, xto, read_idx0, read_tick0, read_fr0;
   int grant_to, age_t, dur_mid, hnode, maxc, wval, wtick, cfg_code;
   uint32_t chk0, bchk, chk_new;
-  uint32_t votes[MAXW], mask[MAXW], m_old[MAXW], m_new[MAXW], bmold[MAXW];
-  uint32_t acks[MAXW], fresh[MAXW];
+  uint32_t votes[MW], mask[MW], m_old[MW], m_new[MW], bmold[MW];
+  uint32_t acks[MW], fresh[MW];
 };
 
 // Batch-minor offsets ([N, B] and [N, inner, B]) and leaf access, inside a
@@ -402,7 +456,7 @@ struct NodeCtx {
 // is up now and was at send time, s is alive, s != i, and bit s of i's mask
 // row is set. Requests ride [sender, receiver] edges, responses [receiver,
 // responder] -- the same physical edge test.
-#define RS_DELIVERED(s) (x.up && (s) != i && RS_ALIVE(s) && has_bit(x.mask, s))
+#define RS_DELIVERED(s) (x.up && (s) != i && RS_ALIVE(s) && has_bit<MW>(x.mask, s))
 // Up-to-date test of candidate c's log against this node's (phases 2, 3.5).
 #define RS_UTD(c)                                                          \
   (RS_H(X_HRLT, c) > x.my_last_term ||                                     \
@@ -414,28 +468,28 @@ struct NodeCtx {
 // Quorum test over a packed row: this node's own member rows, dual while
 // joint (reconfig), else the fixed majority.
 #define RS_QUORUM(rows)                                                     \
-  (g.rcf ? (popc_and(rows, x.m_old) >= x.maj_old &&                         \
-            (!x.joint || popc_and(rows, x.m_new) >= x.maj_new))             \
-         : popc_and(rows, nullptr) >= P.quorum)
+  (g.rcf ? (popc_and<MW>(rows, x.m_old) >= x.maj_old &&                     \
+            (!x.joint || popc_and<MW>(rows, x.m_new) >= x.maj_new))         \
+         : popc_and<MW>(rows, nullptr) >= P.quorum)
 #define RS_XPEND (g.xfr && x.xpend)
 #define RS_PHASE_ARGS \
-  const TickParams &P, void *const *ptr, NodeCtx &x, const Xch &X, int64_t b, int ci, int i
+  const TickParams &P, void *const *ptr, NodeCtx<MW> &x, const Xch<MW> &X, int64_t b, int ci, int i
 
 // The maj-th largest of a leader's match_with_self row over the members of
 // `mask` (nullptr: every node; 0 when fewer qualify): the row is this node's
 // own match_index output row, with `self` at its own slot. A candidate value
 // no larger than the best so far cannot raise it, so its count is skipped.
-template <class IdxT>
+template <int MW, class IdxT>
 RS_HD int qmatch(const IdxT* mrow, int64_t B, int n, int i, int self, const uint32_t* mask,
                  int maj) {
   int qm = 0;
   for (int c = 0; c < n; ++c) {
-    if (mask && !has_bit(mask, c)) continue;
+    if (mask && !has_bit<MW>(mask, c)) continue;
     const int vc = c == i ? self : (int)mrow[(int64_t)c * B];
     if (vc <= qm) continue;
     int cnt = 0;
     for (int k = 0; k < n; ++k) {
-      if (mask && !has_bit(mask, k)) continue;
+      if (mask && !has_bit<MW>(mask, k)) continue;
       cnt += (k == i ? self : (int)mrow[(int64_t)k * B]) >= vc;
     }
     if (cnt >= maj) qm = vc;
@@ -444,7 +498,7 @@ RS_HD int qmatch(const IdxT* mrow, int64_t B, int n, int i, int self, const uint
 }
 
 // ---- phase 0: this node's mailbox header and liveness into the exchange.
-template <class IdxT, class AckT, class NodeT, bool FULL>
+template <class IdxT, class AckT, class NodeT, int MW, bool FULL>
 RS_HD void phase_headers(RS_PHASE_ARGS) {
   const Gates g(P, FULL);
   const int64_t B = P.b;
@@ -468,7 +522,7 @@ RS_HD void phase_headers(RS_PHASE_ARGS) {
 // ---- phase 1: everything a node decides from the tick's inputs and its own
 // state: restart and recovery, term adoption, votes, AppendEntries, its
 // PreVote grants, TimeoutNow receipt, responses and commit. -----------------
-template <class IdxT, class AckT, class NodeT, bool FULL>
+template <class IdxT, class AckT, class NodeT, int MW, bool FULL>
 RS_HD void phase_load_to_commit(RS_PHASE_ARGS) {
   const Gates g(P, FULL);
   const int64_t B = P.b;
@@ -510,7 +564,7 @@ RS_HD void phase_load_to_commit(RS_PHASE_ARGS) {
   x.heard = !g.hc_live ? 0
             : x.rs     ? clock0 - P.election_min
                        : RS_IN(int32_t, S_HEARD_CLOCK)[RS_AT1(i)];
-  for (int w = 0; w < MAXW; ++w) {
+  for (int w = 0; w < MW; ++w) {
     const bool live_w = w < W;
     x.votes[w] = (live_w && !x.rs) ? RS_IN(uint32_t, S_VOTES)[RS_AT2(i, w, W)] : 0u;
     x.mask[w] = live_w ? RS_IN(uint32_t, I_DELIVER_MASK)[RS_AT2(i, w, W)] : 0u;
@@ -527,15 +581,15 @@ RS_HD void phase_load_to_commit(RS_PHASE_ARGS) {
     x.joint = x.cfg_pend0 > 0;
     x.bpend = RS_IN(int32_t, S_BASE_PEND)[RS_AT1(i)];
     x.bepoch = RS_IN(int32_t, S_BASE_EPOCH)[RS_AT1(i)];
-    for (int w = 0; w < MAXW; ++w) {
+    for (int w = 0; w < MW; ++w) {
       if (w >= W) continue;
       x.m_old[w] = RS_IN(uint32_t, S_MEMBER_OLD)[RS_AT2(i, w, W)];
       x.m_new[w] = RS_IN(uint32_t, S_MEMBER_NEW)[RS_AT2(i, w, W)];
       x.bmold[w] = RS_IN(uint32_t, S_BASE_MOLD)[RS_AT2(i, w, W)];
     }
-    x.maj_old = popc_and(x.m_old, nullptr) / 2 + 1;
-    x.maj_new = popc_and(x.m_new, nullptr) / 2 + 1;
-    x.member_b = has_bit(x.m_old, i) || has_bit(x.m_new, i);  // i in its own view
+    x.maj_old = popc_and<MW>(x.m_old, nullptr) / 2 + 1;
+    x.maj_new = popc_and<MW>(x.m_new, nullptr) / 2 + 1;
+    x.member_b = has_bit<MW>(x.m_old, i) || has_bit<MW>(x.m_new, i);  // i in its own view
   }
   // Volatile transfer and read state dies with the process.
   x.xfer0 = x.xto = NIL;
@@ -544,7 +598,7 @@ RS_HD void phase_load_to_commit(RS_PHASE_ARGS) {
   if (g.rdx) {
     x.read_idx0 = x.rs ? 0 : RS_IN(int32_t, S_READ_IDX)[RS_AT1(i)];
     x.read_tick0 = x.rs ? 0 : RS_IN(int32_t, S_READ_TICK)[RS_AT1(i)];
-    for (int w = 0; w < MAXW; ++w)
+    for (int w = 0; w < MW; ++w)
       if (w < W) x.acks[w] = x.rs ? 0u : RS_IN(uint32_t, S_READ_ACKS)[RS_AT2(i, w, W)];
   }
   if (g.rdl) x.read_fr0 = x.rs ? 0 : RS_IN(int32_t, S_READ_FR)[RS_AT1(i)];
@@ -580,7 +634,7 @@ RS_HD void phase_load_to_commit(RS_PHASE_ARGS) {
     x.role = FOLLOWER;
     x.vf = NIL;
     x.lid = NIL;
-    for (int w = 0; w < MAXW; ++w) x.votes[w] = 0u;
+    for (int w = 0; w < MW; ++w) x.votes[w] = 0u;
   }
   x.my_last_term = term_at(RS_ROW(log_term_in, i), B, cap, g.comp, x.base0, x.bterm0, x.len0);
 
@@ -685,7 +739,7 @@ RS_HD void phase_load_to_commit(RS_PHASE_ARGS) {
         if (!keep) x.llen = L;
         x.commit = imax(x.commit, L);
         if (g.rcf) {
-          for (int w = 0; w < MAXW; ++w)
+          for (int w = 0; w < MW; ++w)
             if (w < W) x.bmold[w] = RS_IN(uint32_t, M_REQ_BASE_MOLD)[RS_AT2(src, w, W)];
           x.bpend = RS_IN(int32_t, M_REQ_BASE_PEND)[RS_AT1(src)];
           x.bepoch = RS_IN(int32_t, M_REQ_BASE_EPOCH)[RS_AT1(src)];
@@ -705,15 +759,15 @@ RS_HD void phase_load_to_commit(RS_PHASE_ARGS) {
   // the exchange; each candidate gathers its column in phase 4.
   if (g.hc_live && x.has_ae) x.heard = x.clock1;
   if (g.pv) {
-    uint32_t row[MAXW] = {0u, 0u};
+    uint32_t row[MW] = {};
     const bool quiet = x.clock1 - x.heard >= P.election_min && x.role != LEADER;
     if (quiet) {
       for (int c = 0; c < n; ++c) {
         if (RS_DELIVERED(c) && RS_RTYPE(c) == REQ_PREVOTE && RS_RTERM(c) >= x.term && RS_UTD(c))
-          set_bit(row, c);
+          set_bit<MW>(row, c);
       }
     }
-    for (int w = 0; w < MAXW; ++w) X.at(X_PVG + w, i, ci) = (int32_t)row[w];
+    for (int w = 0; w < MW; ++w) X.at(X_PVG + w, i, ci) = (int32_t)row[w];
   }
 
   // ---- phase 3.7: TimeoutNow receipt: the target of a current-term
@@ -732,7 +786,7 @@ RS_HD void phase_load_to_commit(RS_PHASE_ARGS) {
     for (int r = 0; r < n; ++r) {
       if (RS_DELIVERED(r) && resp_kind_in[RS_AT2(i, r, n)] == RESP_VOTE &&
           RS_H(X_HVTO, r) == i && RS_H(X_HRESP_TERM, r) == x.term)
-        set_bit(x.votes, r);
+        set_bit<MW>(x.votes, r);
     }
   }
   // A removed node cannot win on banked votes.
@@ -748,14 +802,14 @@ RS_HD void phase_load_to_commit(RS_PHASE_ARGS) {
     for (int r = 0; r < n; ++r) {
       if (RS_DELIVERED(r) && resp_kind_in[RS_AT2(i, r, n)] == RESP_PREVOTE &&
           ((grant_row[RS_AT2(i, r >> 5, W)] >> (r & 31)) & 1u))
-        set_bit(x.votes, r);
+        set_bit<MW>(x.votes, r);
     }
     x.pre_win = RS_QUORUM(x.votes) && x.alive && (!g.rcf || x.member_b);
     if (x.pre_win) {
       x.term += 1;
       x.role = CANDIDATE;
       x.vf = i;
-      self_row(x.votes, i);
+      self_row<MW>(x.votes, i);
     }
   }
   {
@@ -767,7 +821,7 @@ RS_HD void phase_load_to_commit(RS_PHASE_ARGS) {
     AckT* ack_out = RS_OUT(AckT, O_ACK_AGE);
     const int len_i = x.len4;
     const int xt = g.xfr ? iclamp(x.xfer0, 0, n - 1) : -1;  // the pending transfer's target
-    uint32_t aresp_bits[MAXW] = {0u, 0u};
+    uint32_t aresp_bits[MW] = {};
     x.age_t = 0;
     for (int r = 0; r < n; ++r) {
       int nx = x.rs ? 1 : (int)next_in[RS_AT2(i, r, n)];
@@ -780,7 +834,7 @@ RS_HD void phase_load_to_commit(RS_PHASE_ARGS) {
       const bool aresp = RS_DELIVERED(r) && resp_kind_in[RS_AT2(i, r, n)] == RESP_APPEND &&
                          x.role == LEADER && RS_H(X_HRESP_TERM, r) == x.term;
       if (aresp) {
-        if (g.rdx) set_bit(aresp_bits, r);
+        if (g.rdx) set_bit<MW>(aresp_bits, r);
         const int am = RS_H(X_HAMATCH, r);
         if (RS_H(X_HAOKTO, r) == i) {
           mt = imax(mt, am);
@@ -791,7 +845,7 @@ RS_HD void phase_load_to_commit(RS_PHASE_ARGS) {
       }
       ag = imin(ag + 1, P.ack_sat);
       if (x.win || aresp) ag = 0;
-      if (g.rdl && ag <= P.lease_ticks) set_bit(x.fresh, r);
+      if (g.rdl && ag <= P.lease_ticks) set_bit<MW>(x.fresh, r);
       if (r == xt) x.age_t = ag;
       next_out[RS_AT2(i, r, n)] = (IdxT)nx;
       match_out[RS_AT2(i, r, n)] = (IdxT)mt;
@@ -799,7 +853,7 @@ RS_HD void phase_load_to_commit(RS_PHASE_ARGS) {
     }
     if (g.rdx) {  // a pending read on a leader banks this tick's acks
       const bool keep_r = x.role == LEADER && x.read_idx0 > 0;
-      for (int w = 0; w < MAXW; ++w) x.acks[w] = keep_r ? (x.acks[w] | aresp_bits[w]) : 0u;
+      for (int w = 0; w < MW; ++w) x.acks[w] = keep_r ? (x.acks[w] | aresp_bits[w]) : 0u;
     }
     x.is_leader = x.role == LEADER;
     if (x.is_leader && x.alive) {
@@ -811,10 +865,10 @@ RS_HD void phase_load_to_commit(RS_PHASE_ARGS) {
       const int self = g.dacks ? x.dur_mid : len_i;
       int qm;
       if (g.rcf) {
-        qm = qmatch(mrow, B, n, i, self, x.m_old, x.maj_old);
-        if (x.joint) qm = imin(qm, qmatch(mrow, B, n, i, self, x.m_new, x.maj_new));
+        qm = qmatch<MW>(mrow, B, n, i, self, x.m_old, x.maj_old);
+        if (x.joint) qm = imin(qm, qmatch<MW>(mrow, B, n, i, self, x.m_new, x.maj_new));
       } else {
-        qm = qmatch(mrow, B, n, i, self, (const uint32_t*)nullptr, P.quorum);
+        qm = qmatch<MW>(mrow, B, n, i, self, (const uint32_t*)nullptr, P.quorum);
       }
       const int qt = term_at(RS_ROW(log_term, i), B, cap, g.comp, x.base, x.bterm, qm);
       if (qm > x.commit && qt == x.term) x.commit = qm;
@@ -828,8 +882,9 @@ RS_HD void phase_load_to_commit(RS_PHASE_ARGS) {
 // ---- phase 2: what needs the other nodes' phase-1 commit, leadership and
 // eligibility: the max-commit node, transfer keep/accept, serving reads,
 // offer latency, compaction and the ring checksum, the no-op slot. --------
-template <class IdxT, class AckT, class NodeT, bool FULL>
+template <class IdxT, class AckT, class NodeT, int MW, bool FULL>
 RS_HD void phase_serve_and_compact(RS_PHASE_ARGS) {
+  using XT = XTail<MW>;
   const Gates g(P, FULL);
   const int64_t B = P.b;
   const int n = P.n, cap = P.cap;
@@ -860,7 +915,7 @@ RS_HD void phase_serve_and_compact(RS_PHASE_ARGS) {
       if (X.at(X_ELIGX, j, ci)) ldx = j;
     const bool keep_x = x.is_leader && x.xfer0 != NIL && x.age_t <= P.ack_timeout;
     x.xto = keep_x ? x.xfer0 : NIL;
-    const bool t_voter = !g.rcf || (t_x >= 0 && t_x < n && has_bit(x.m_new, t_x));
+    const bool t_voter = !g.rcf || (t_x >= 0 && t_x < n && has_bit<MW>(x.m_new, t_x));
     if (t_x != NIL && t_voter && i == ldx && t_x != i && x.xto == NIL) x.xto = t_x;
     x.xpend = x.xto != NIL;
   }
@@ -874,13 +929,13 @@ RS_HD void phase_serve_and_compact(RS_PHASE_ARGS) {
     const int read_cmd = RS_IN(int32_t, I_READ_CMD)[b];
     const bool pend0 = x.read_idx0 > 0;
     const bool keep_r = x.is_leader && pend0;
-    uint32_t row[MAXW];
-    self_row(row, i);
-    for (int w = 0; w < MAXW; ++w) row[w] |= x.acks[w];
+    uint32_t row[MW];
+    self_row<MW>(row, i);
+    for (int w = 0; w < MW; ++w) row[w] |= x.acks[w];
     x.serve = keep_r && x.alive && RS_QUORUM(row);
     if (g.rdl) {
-      self_row(row, i);
-      for (int w = 0; w < MAXW; ++w) row[w] |= x.fresh[w];
+      self_row<MW>(row, i);
+      for (int w = 0; w < MW; ++w) row[w] |= x.fresh[w];
       // A pending transfer's handoff covers the read path.
       const bool lease_ok = RS_QUORUM(row) && !RS_XPEND;
       x.serve = x.serve || (keep_r && x.alive && lease_ok);
@@ -895,8 +950,8 @@ RS_HD void phase_serve_and_compact(RS_PHASE_ARGS) {
     }
     const bool cur_committed =
         term_at(RS_ROW(log_term, i), B, cap, g.comp, x.base, x.bterm, x.commit) == x.term;
-    X.at(X_CANCAP, i, ci) = read_cmd != NIL && x.is_leader && x.alive && !pend0 &&
-                            cur_committed && !RS_XPEND;
+    X.at(XT::CANCAP, i, ci) = read_cmd != NIL && x.is_leader && x.alive && !pend0 &&
+                              cur_committed && !RS_XPEND;
   }
 
   // ---- offer->commit latency (offer-tick plane): entries newly past the
@@ -940,9 +995,9 @@ RS_HD void phase_serve_and_compact(RS_PHASE_ARGS) {
     const int base2 = imax(base_mid, imin(x.commit, x.llen - (cap - P.compact_margin)));
     x.bterm = term_at(RS_ROW(log_term, i), B, cap, true, base_mid, x.bterm, base2);
     if (g.rcf) {
-      const CfgFold f = fold_cfg(RS_ROW(RS_OUT(int32_t, O_LOG_CFG), i), B, cap, n, true,
-                                 base_mid, base_mid, base2);
-      for (int w = 0; w < MAXW; ++w) x.bmold[w] ^= f.fold[w];
+      const CfgFold<MW> f = fold_cfg<MW>(RS_ROW(RS_OUT(int32_t, O_LOG_CFG), i), B, cap, n,
+                                         true, base_mid, base_mid, base2);
+      for (int w = 0; w < MW; ++w) x.bmold[w] ^= f.fold[w];
       if (f.hi > 0) x.bpend = f.code_hi > 0 ? f.code_hi : 0;
       x.bepoch += f.count;
     }
@@ -972,11 +1027,12 @@ RS_HD void phase_serve_and_compact(RS_PHASE_ARGS) {
   if (g.comp && x.win && !has_slot) acc_add(X.acc(A_NOOP_BLOCKED, ci), 1);
   const bool room = g.comp ? x.llen - x.base < cap - reserve : has_slot;
   x.node_ok = x.is_leader && x.alive && room && !x.noop;
-  if (g.rcf) X.at(X_LDJ, i, ci) = x.node_ok && x.member_b && !x.joint;
+  if (g.rcf) X.at(XT::LDJ, i, ci) = x.node_ok && x.member_b && !x.joint;
 }
 
 // Phase 2, per cluster: the latency frontier and the tick counter.
-RS_HD void cluster_frontier(const TickParams& P, void* const* ptr, const Xch& X, int64_t b,
+template <int MW>
+RS_HD void cluster_frontier(const TickParams& P, void* const* ptr, const Xch<MW>& X, int64_t b,
                             int ci) {
   int maxc = X.at(X_COMMIT, 0, ci);
   for (int j = 1; j < P.n; ++j) maxc = imax(maxc, X.at(X_COMMIT, j, ci));
@@ -1017,8 +1073,9 @@ RS_HD int redirect_fresh_slot(const TickParams& P, void* const* ptr, int64_t b) 
 
 // ---- phase 3: read capture, the one append a node makes (no-op > config
 // entry > client), timers, and the fsync flush. ---------------------------
-template <class IdxT, class AckT, class NodeT, bool FULL>
+template <class IdxT, class AckT, class NodeT, int MW, bool FULL>
 RS_HD void phase_append_and_timers(RS_PHASE_ARGS) {
+  using XT = XTail<MW>;
   const Gates g(P, FULL);
   const int64_t B = P.b;
   const int n = P.n, cap = P.cap, W = P.w;
@@ -1029,14 +1086,14 @@ RS_HD void phase_append_and_timers(RS_PHASE_ARGS) {
   if (g.rdx) {
     const bool pend0 = x.read_idx0 > 0;
     const bool cleared = x.serve || (pend0 && !(x.is_leader && pend0));
-    bool cap_r = X.at(X_CANCAP, i, ci) != 0;
+    bool cap_r = X.at(XT::CANCAP, i, ci) != 0;
     for (int j = 0; j < i && cap_r; ++j)
-      if (X.at(X_CANCAP, j, ci)) cap_r = false;
+      if (X.at(XT::CANCAP, j, ci)) cap_r = false;
     const int ridx = cap_r ? x.commit + 1 : cleared ? 0 : x.read_idx0;
     const int rtick = cap_r ? now + 1 : cleared ? 0 : x.read_tick0;
     RS_OUT(int32_t, O_READ_IDX)[RS_AT1(i)] = ridx;
     RS_OUT(int32_t, O_READ_TICK)[RS_AT1(i)] = rtick;
-    for (int w = 0; w < MAXW; ++w)
+    for (int w = 0; w < MW; ++w)
       if (w < W) RS_OUT(uint32_t, O_READ_ACKS)[RS_AT2(i, w, W)] = (cap_r || x.serve) ? 0u : x.acks[w];
     if (g.rdl) {  // the staleness anchor: the frontier at capture
       const int fr_now = imax(RS_IN(int32_t, S_LAT_FRONTIER)[b], x.maxc);
@@ -1056,15 +1113,15 @@ RS_HD void phase_append_and_timers(RS_PHASE_ARGS) {
     const bool t_ok = t_r != NIL && t_r >= 0 && t_r < n;
     int ldj = n;
     for (int j = 0; j < n && ldj == n; ++j)
-      if (X.at(X_LDJ, j, ci)) ldj = j;
+      if (X.at(XT::LDJ, j, ci)) ldj = j;
     const bool ld_ok = x.node_ok && x.member_b;
     int toggled = 0;
-    for (int w = 0; w < MAXW; ++w)
+    for (int w = 0; w < MW; ++w)
       toggled += popcount32(x.m_new[w] ^ ((t_ok && w == (t_r >> 5)) ? 1u << (t_r & 31) : 0u));
     const bool accept_j = t_ok && i == ldj && ld_ok && !x.joint && toggled >= 2;
     int pend_v = n;  // the open toggle: the lowest bit the two rows differ on
     for (int v = 0; v < n && pend_v == n; ++v)
-      if (has_bit(x.m_old, v) != has_bit(x.m_new, v)) pend_v = v;
+      if (has_bit<MW>(x.m_old, v) != has_bit<MW>(x.m_new, v)) pend_v = v;
     const bool accept_f = ld_ok && x.joint && x.commit >= x.cfg_pend0;
     x.cfg_code = accept_j ? t_r + 1 : accept_f ? -(pend_v + 1) : 0;
     x.cfg_write = accept_j || accept_f;
@@ -1088,7 +1145,7 @@ RS_HD void phase_append_and_timers(RS_PHASE_ARGS) {
         break;
       }
     }
-    X.at(X_NODEOK, i, ci) = x.node_ok;
+    X.at(XT::NODEOK, i, ci) = x.node_ok;
   }
   {
     const bool cfg_w = g.rcf && x.cfg_write;
@@ -1127,7 +1184,7 @@ RS_HD void phase_append_and_timers(RS_PHASE_ARGS) {
     if (x.start_pv) {
       x.role = PRECANDIDATE;
       x.lid = NIL;
-      self_row(x.votes, i);
+      self_row<MW>(x.votes, i);
       dl = clock + x.tdraw;
     }
     const bool bump = x.xe || (!g.pv && x.start_el);
@@ -1136,7 +1193,7 @@ RS_HD void phase_append_and_timers(RS_PHASE_ARGS) {
       x.vf = i;
       x.role = CANDIDATE;
       x.lid = NIL;
-      self_row(x.votes, i);
+      self_row<MW>(x.votes, i);
       dl = clock + x.tdraw;
     }
     x.start_el = x.start_el || x.xe;
@@ -1167,34 +1224,50 @@ RS_HD void phase_append_and_timers(RS_PHASE_ARGS) {
       const bool covered2 = term2 == x.term && vote2 == x.vf && x.vf != NIL;
       x.grant_to = covered2 ? x.vf : NIL;
       x.late_grant = covered2 && !covered0 && !x.granted_any;
-      X.at(X_LATE, i, ci) = x.late_grant ? x.vf : NIL;
+      X.at(XT::LATE, i, ci) = x.late_grant ? x.vf : NIL;
     }
     acc_add(X.acc(A_LAG_SUM, ci), x.llen - len2);
     acc_max(X.acc(A_LAG_MAX, ci), x.llen - len2);
   }
 }
 
+// A set of node ids, one bit a node: one 64-bit word at the narrow width
+// tier, MW packed words above it.
+template <int MW>
+struct NodeSet {
+  uint32_t row[MW] = {};
+  RS_HD bool has(int t) const { return has_bit<MW>(row, t); }
+  RS_HD void set(int t) { set_bit<MW>(row, t); }
+};
+template <>
+struct NodeSet<2> {
+  uint64_t bits = 0;
+  RS_HD bool has(int t) const { return (bits >> t) & 1u; }
+  RS_HD void set(int t) { bits |= (uint64_t)1 << t; }
+};
+
 // Phase 4, per cluster: the redirect pipeline's K slots. An offer is
 // accepted by its target when the target takes a client command and this is
 // the lowest pending slot naming it; the rest chase the target's believed
 // leader, or bounce while the target is down or knows none.
-template <bool FULL>
-RS_HD void cluster_redirect(const TickParams& P, void* const* ptr, const Xch& X, int64_t b,
+template <int MW, bool FULL>
+RS_HD void cluster_redirect(const TickParams& P, void* const* ptr, const Xch<MW>& X, int64_t b,
                             int ci) {
   if (!Gates(P, FULL).redir) return;
+  using XT = XTail<MW>;
   const int64_t B = P.b;
   const int n = P.n;
   const int fresh_k = redirect_fresh_slot(P, ptr, b);
-  uint64_t claimed = 0;  // targets a lower pending slot names
+  NodeSet<MW> claimed;  // targets a lower pending slot names
   int cmds = 0;
   for (int k = 0; k < P.k; ++k) {
     const Slot sl = redirect_slot(P, ptr, b, k, fresh_k);
     const bool active = sl.pend != NIL;
     const int t = sl.tgt;
     const bool valid = active && t >= 0 && t < n;
-    const bool lowest = valid && !((claimed >> t) & 1u);
-    if (valid) claimed |= (uint64_t)1 << t;
-    const bool accepted = lowest && X.at(X_NODEOK, t, ci) != 0;
+    const bool lowest = valid && !claimed.has(t);
+    if (valid) claimed.set(t);
+    const bool accepted = lowest && X.at(XT::NODEOK, t, ci) != 0;
     cmds += accepted;
     const bool pend_on = active && !accepted;
     const int tgt_ld = valid ? X.at(X_LID, t, ci) : NIL;
@@ -1211,8 +1284,9 @@ RS_HD void cluster_redirect(const TickParams& P, void* const* ptr, const Xch& X,
 
 // ---- phase 4: outbox, prefix checksum, end-of-tick configuration, state
 // out, and this node's StepInfo terms. -------------------------------------
-template <class IdxT, class AckT, class NodeT, bool FULL>
+template <class IdxT, class AckT, class NodeT, int MW, bool FULL>
 RS_HD void phase_outbox_and_state(RS_PHASE_ARGS) {
+  using XT = XTail<MW>;
   const Gates g(P, FULL);
   const int64_t B = P.b;
   const int n = P.n, e = P.e, cap = P.cap, W = P.w;
@@ -1284,7 +1358,7 @@ RS_HD void phase_outbox_and_state(RS_PHASE_ARGS) {
     RS_OUT(int32_t, OM_REQ_BASE_TERM)[RS_AT1(i)] = send ? x.bterm : 0;
     RS_OUT(uint32_t, OM_REQ_BASE_CHK)[RS_AT1(i)] = send ? x.bchk : 0u;
     if (g.rcf) {  // the snapshot config context rides the header
-      for (int w = 0; w < MAXW; ++w)
+      for (int w = 0; w < MW; ++w)
         if (w < W) RS_OUT(uint32_t, OM_REQ_BASE_MOLD)[RS_AT2(i, w, W)] = send ? x.bmold[w] : 0u;
       RS_OUT(int32_t, OM_REQ_BASE_PEND)[RS_AT1(i)] = send ? x.bpend : 0;
       RS_OUT(int32_t, OM_REQ_BASE_EPOCH)[RS_AT1(i)] = send ? x.bepoch : 0;
@@ -1293,10 +1367,10 @@ RS_HD void phase_outbox_and_state(RS_PHASE_ARGS) {
   if (g.pv) {
     // This candidate's pv_grant row: bit v where voter v's phase-1 grant row
     // names it.
-    uint32_t pvg[MAXW] = {0u, 0u};
+    uint32_t pvg[MW] = {};
     for (int v = 0; v < n; ++v)
-      if ((((uint32_t)X.at(X_PVG + (i >> 5), v, ci)) >> (i & 31)) & 1u) set_bit(pvg, v);
-    for (int w = 0; w < MAXW; ++w)
+      if ((((uint32_t)X.at(X_PVG + (i >> 5), v, ci)) >> (i & 31)) & 1u) set_bit<MW>(pvg, v);
+    for (int w = 0; w < MW; ++w)
       if (w < W) RS_OUT(uint32_t, OM_PV_GRANT)[RS_AT2(i, w, W)] = pvg[w];
   }
   RS_OUT(NodeT, OM_V_TO)[RS_AT1(i)] = (NodeT)x.grant_to;
@@ -1316,7 +1390,7 @@ RS_HD void phase_outbox_and_state(RS_PHASE_ARGS) {
           ((RS_IN(uint32_t, I_DELIVER_MASK)[RS_AT2(v, i >> 5, W)] >> (i & 31)) & 1u))
         kind = kind_req;
       // The late RESP_VOTE, only on an edge with no other response.
-      if (g.dacks && kind == 0 && X.at(X_LATE, v, ci) == i) kind = RESP_VOTE;
+      if (g.dacks && kind == 0 && X.at(XT::LATE, v, ci) == i) kind = RESP_VOTE;
       RS_OUT(int8_t, OM_RESP_KIND)[RS_AT2(i, v, n)] = (int8_t)kind;
     }
   }
@@ -1343,13 +1417,13 @@ RS_HD void phase_outbox_and_state(RS_PHASE_ARGS) {
     // context: C_old folds the final entries' toggles; the latest entry's
     // sign decides jointness. A removed leader steps down once its removal
     // commits on it; a removed candidate stops campaigning.
-    const CfgFold f = fold_cfg(RS_ROW(RS_OUT(int32_t, O_LOG_CFG), i), B, cap, n, g.comp,
-                               x.base, x.base, x.llen);
+    const CfgFold<MW> f = fold_cfg<MW>(RS_ROW(RS_OUT(int32_t, O_LOG_CFG), i), B, cap, n,
+                                       g.comp, x.base, x.base, x.llen);
     const int pend_code = f.hi > 0 ? f.code_hi : x.bpend;
     const bool joint2 = pend_code > 0;
     const int pv_ = pend_code - 1;
-    uint32_t d_old[MAXW], d_new[MAXW];
-    for (int w = 0; w < MAXW; ++w) {
+    uint32_t d_old[MW], d_new[MW];
+    for (int w = 0; w < MW; ++w) {
       d_old[w] = x.bmold[w] ^ f.fold[w];
       const uint32_t tb = (joint2 && pv_ < n && w == (pv_ >> 5)) ? 1u << (pv_ & 31) : 0u;
       d_new[w] = d_old[w] ^ tb;
@@ -1360,14 +1434,14 @@ RS_HD void phase_outbox_and_state(RS_PHASE_ARGS) {
     }
     RS_OUT(int32_t, O_CFG_PEND)[RS_AT1(i)] = joint2 ? (f.hi > 0 ? f.hi : imax(x.base, 1)) : 0;
     RS_OUT(int32_t, O_CFG_EPOCH)[RS_AT1(i)] = x.bepoch + f.count;
-    const bool self_in = has_bit(d_old, i) || has_bit(d_new, i);
+    const bool self_in = has_bit<MW>(d_old, i) || has_bit<MW>(d_new, i);
     const bool cand = x.role == CANDIDATE || x.role == PRECANDIDATE;
     if (!self_in && ((x.role == LEADER && x.commit >= imax(f.hi, x.base)) || cand)) {
       x.role = FOLLOWER;
       x.lid = NIL;
     }
     if (g.comp) {
-      for (int w = 0; w < MAXW; ++w)
+      for (int w = 0; w < MW; ++w)
         if (w < W) RS_OUT(uint32_t, O_BASE_MOLD)[RS_AT2(i, w, W)] = x.bmold[w];
       RS_OUT(int32_t, O_BASE_PEND)[RS_AT1(i)] = x.bpend;
       RS_OUT(int32_t, O_BASE_EPOCH)[RS_AT1(i)] = x.bepoch;
@@ -1378,7 +1452,7 @@ RS_HD void phase_outbox_and_state(RS_PHASE_ARGS) {
   RS_OUT(int32_t, O_TERM)[RS_AT1(i)] = x.term;
   RS_OUT(int32_t, O_VOTED_FOR)[RS_AT1(i)] = x.vf;
   RS_OUT(int32_t, O_LEADER_ID)[RS_AT1(i)] = x.lid;
-  for (int w = 0; w < MAXW; ++w)
+  for (int w = 0; w < MW; ++w)
     if (w < W) RS_OUT(uint32_t, O_VOTES)[RS_AT2(i, w, W)] = x.votes[w];
   RS_OUT(int32_t, O_COMMIT_INDEX)[RS_AT1(i)] = x.commit;
   RS_OUT(uint32_t, O_COMMIT_CHK)[RS_AT1(i)] = x.chk_new;
@@ -1391,8 +1465,8 @@ RS_HD void phase_outbox_and_state(RS_PHASE_ARGS) {
   if (g.hc_live) RS_OUT(int32_t, O_HEARD_CLOCK)[RS_AT1(i)] = x.heard;
 
   // ---- phase 9, this node's terms.
-  X.at(X_ROLE, i, ci) = x.role;
-  X.at(X_TERM, i, ci) = x.term;
+  X.at(XT::ROLE, i, ci) = x.role;
+  X.at(XT::TERM, i, ci) = x.term;
   if (x.role == LEADER && x.alive) {
     acc_min(X.acc(A_LEADER, ci), i);
     acc_add(X.acc(A_N_LEADERS, ci), 1);
@@ -1411,13 +1485,14 @@ RS_HD void phase_outbox_and_state(RS_PHASE_ARGS) {
 // transitive), so each node checks itself against that node's final log
 // rows (written by their own worker before the last barriers). Prefix layout
 // only: the wrapper refuses log matching under compaction. --------------
-template <class IdxT, class AckT, class NodeT, bool FULL>
+template <class IdxT, class AckT, class NodeT, int MW, bool FULL>
 RS_HD void phase_pair_checks(RS_PHASE_ARGS) {
+  using XT = XTail<MW>;
   const int64_t B = P.b;
   const int n = P.n, cap = P.cap;
   if (P.check_invariants && x.role == LEADER) {
     for (int j = i + 1; j < n; ++j)
-      if (X.at(X_ROLE, j, ci) == LEADER && X.at(X_TERM, j, ci) == x.term) {
+      if (X.at(XT::ROLE, j, ci) == LEADER && X.at(XT::TERM, j, ci) == x.term) {
         acc_max(X.acc(A_VIOL_ELECTION, ci), 1);
         break;
       }
@@ -1438,7 +1513,8 @@ RS_HD void phase_pair_checks(RS_PHASE_ARGS) {
 }
 
 // Phase 0, per cluster: the accumulators' identities.
-RS_HD void cluster_init(const Xch& X, int ci) {
+template <int MW>
+RS_HD void cluster_init(const Xch<MW>& X, int ci) {
   for (int f = 0; f < NACC; ++f) *X.acc(f, ci) = 0;
   *X.acc(A_LAG_MAX, ci) = I32_MIN;
   *X.acc(A_MAX_TERM, ci) = I32_MIN;
@@ -1448,8 +1524,9 @@ RS_HD void cluster_init(const Xch& X, int ci) {
 }
 
 // Phase 6, per cluster: StepInfo out.
-template <bool FULL>
-RS_HD void cluster_info(const TickParams& P, void* const* ptr, const Xch& X, int64_t b, int ci) {
+template <int MW, bool FULL>
+RS_HD void cluster_info(const TickParams& P, void* const* ptr, const Xch<MW>& X, int64_t b,
+                        int ci) {
   const Gates g(P, FULL);
   const int64_t B = P.b;
   const int a_viol_commit = *X.acc(A_VIOL_COMMIT, ci) | (P.check_invariants && *X.acc(A_CHK_BAD, ci));
@@ -1483,24 +1560,51 @@ RS_HD void cluster_info(const TickParams& P, void* const* ptr, const Xch& X, int
 }
 
 // The node part of phase PH (a barrier ends each phase).
-template <class IdxT, class AckT, class NodeT, bool FULL, int PH>
+template <class IdxT, class AckT, class NodeT, int MW, bool FULL, int PH>
 RS_HD void node_phase(RS_PHASE_ARGS) {
-  if (PH == 0) phase_headers<IdxT, AckT, NodeT, FULL>(P, ptr, x, X, b, ci, i);
-  if (PH == 1) phase_load_to_commit<IdxT, AckT, NodeT, FULL>(P, ptr, x, X, b, ci, i);
-  if (PH == 2) phase_serve_and_compact<IdxT, AckT, NodeT, FULL>(P, ptr, x, X, b, ci, i);
-  if (PH == 3) phase_append_and_timers<IdxT, AckT, NodeT, FULL>(P, ptr, x, X, b, ci, i);
-  if (PH == 4) phase_outbox_and_state<IdxT, AckT, NodeT, FULL>(P, ptr, x, X, b, ci, i);
-  if (PH == 5) phase_pair_checks<IdxT, AckT, NodeT, FULL>(P, ptr, x, X, b, ci, i);
+  if (PH == 0) phase_headers<IdxT, AckT, NodeT, MW, FULL>(P, ptr, x, X, b, ci, i);
+  if (PH == 1) phase_load_to_commit<IdxT, AckT, NodeT, MW, FULL>(P, ptr, x, X, b, ci, i);
+  if (PH == 2) phase_serve_and_compact<IdxT, AckT, NodeT, MW, FULL>(P, ptr, x, X, b, ci, i);
+  if (PH == 3) phase_append_and_timers<IdxT, AckT, NodeT, MW, FULL>(P, ptr, x, X, b, ci, i);
+  if (PH == 4) phase_outbox_and_state<IdxT, AckT, NodeT, MW, FULL>(P, ptr, x, X, b, ci, i);
+  if (PH == 5) phase_pair_checks<IdxT, AckT, NodeT, MW, FULL>(P, ptr, x, X, b, ci, i);
 }
 
 // The cluster part of phase PH. It reads exchange values of earlier phases
 // only, so it may run before, after or beside the same phase's node parts.
-template <bool FULL, int PH>
-RS_HD void cluster_phase(const TickParams& P, void* const* ptr, const Xch& X, int64_t b, int ci) {
+template <int MW, bool FULL, int PH>
+RS_HD void cluster_phase(const TickParams& P, void* const* ptr, const Xch<MW>& X, int64_t b,
+                         int ci) {
   if (PH == 0) cluster_init(X, ci);
   if (PH == 2) cluster_frontier(P, ptr, X, b, ci);
-  if (PH == 4) cluster_redirect<FULL>(P, ptr, X, b, ci);
-  if (PH == 6) cluster_info<FULL>(P, ptr, X, b, ci);
+  if (PH == 4) cluster_redirect<MW, FULL>(P, ptr, X, b, ci);
+  if (PH == 6) cluster_info<MW, FULL>(P, ptr, X, b, ci);
+}
+
+// The race proxy's poison, never on the main path (tick.cu built with
+// RS_RACE_PROXY; the CPU build on request): at the start of phase PH, before
+// its node part, each node overwrites the exchange fields of its own slot
+// whose last reader ran in phase PH - 1. A read of one in a later phase sees
+// the pattern instead of the value -- and on the card so does a read that a
+// missing barrier lets run late. The schedule is the readers' (phase 1 reads
+// the staged headers; phase 2 the commit and transfer eligibility; phase 3
+// the read-capture and toggle flags; phase 4 the flags, request type, grant
+// rows, leader id, node_ok and late vote; phase 5 the final role and term).
+constexpr int32_t POISON = -1515870811;  // 0xA5A5A5A5
+
+template <int MW, int PH>
+RS_HD void poison_fields(const Xch<MW>& X, int ci, int i) {
+  using XT = XTail<MW>;
+  if (PH == 2)
+    for (int f = X_HRTERM; f <= X_HXTGT; ++f) X.at(f, i, ci) = POISON;
+  if (PH == 3) X.at(X_COMMIT, i, ci) = X.at(X_ELIGX, i, ci) = POISON;
+  if (PH == 4) X.at(XT::CANCAP, i, ci) = X.at(XT::LDJ, i, ci) = POISON;
+  if (PH == 5) {
+    X.at(X_HFLAGS, i, ci) = X.at(X_HRTYPE, i, ci) = X.at(X_LID, i, ci) = POISON;
+    for (int w = 0; w < MW; ++w) X.at(X_PVG + w, i, ci) = POISON;
+    X.at(XT::NODEOK, i, ci) = X.at(XT::LATE, i, ci) = POISON;
+  }
+  if (PH == 6) X.at(XT::ROLE, i, ci) = X.at(XT::TERM, i, ci) = POISON;
 }
 
 #undef RS_PHASE_ARGS
@@ -1525,22 +1629,6 @@ struct TickArgs {
   TickParams p;
   void* ptr[N_PTR];
 };
-
-// Calls CALL(IdxT, AckT, NodeT) for the dtype tiers given as byte widths
-// (1 = int8, 2 = int16, 4 = int32: the index tier under compaction), the
-// combinations the CUDA launcher takes; evaluates FAIL for any other. The
-// node tier is int8: N <= MAXN is within it (types.node_dtype).
-#define RS_DISPATCH_TIERS(ib, ab, nb, CALL, FAIL)                              \
-  do {                                                                         \
-    if (nb != 1) { FAIL; }                                                     \
-    else if (ib == 1 && ab == 1) { CALL(int8_t, int8_t, int8_t); }             \
-    else if (ib == 2 && ab == 1) { CALL(int16_t, int8_t, int8_t); }            \
-    else if (ib == 1 && ab == 2) { CALL(int8_t, int16_t, int8_t); }            \
-    else if (ib == 2 && ab == 2) { CALL(int16_t, int16_t, int8_t); }           \
-    else if (ib == 4 && ab == 1) { CALL(int32_t, int8_t, int8_t); }            \
-    else if (ib == 4 && ab == 2) { CALL(int32_t, int16_t, int8_t); }           \
-    else { FAIL; }                                                             \
-  } while (0)
 
 // Checks the shape limits of this body; 0 when it can run the tick.
 inline int check_params(const TickParams& p) {

@@ -8,7 +8,8 @@ an older one unpacked beside it -- on one card, in turns (old, new, new,
 old), each in its own process. Both build their states the same way: the
 preset's own batch, `simulate` through the kernel for WARM_TICKS ticks from
 seed 0, then the next tick's inputs; the port is bit-exact, so both time the
-same state. Per cell it prints one JSON line: device ms per launch (CUDA
+same state. A cell the checkout's kernel refuses prints one "refused" line.
+Per cell it prints one JSON line: device ms per launch (CUDA
 events over REPS back-to-back launches, `tick_engine.time_kernel`, as
 chip_smoke.py's full-width phase times it), the
 bound (bytes read + written once over 3.35 TB/s) and, where the checkout has
@@ -33,7 +34,7 @@ BW_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 WARM_TICKS = 200  # ticks simulated before timing (config5's full-width run is 200 long)
 REPS = 20  # launches timed per cell
 CELLS = ("config2", "config3", "config4", "config5", "config3p", "config6", "config6r", "config8",
-         "config9", "config10")
+         "config9", "config10", "config4c", "config7")
 
 
 def main(argv=None) -> int:
@@ -64,6 +65,11 @@ def main(argv=None) -> int:
     print(json.dumps({"root": root, "build_s": time.perf_counter() - t0}), flush=True)
     for name in CELLS:
         cfg, batch = PRESETS[name]
+        try:
+            tick_engine.check_supported(cfg)
+        except NotImplementedError as e:  # an older checkout's kernel refuses the cell
+            print(json.dumps({"preset": name, "refused": str(e)}), flush=True)
+            continue
         final, _ = scan.simulate(cfg, 0, batch, WARM_TICKS, device=dev)
         s = raft_batched.to_batch_minor(final)
         keys = threefry.split(threefry.split(threefry.key(0, dev), 2)[1], batch)

@@ -14,12 +14,13 @@ dtype, shape or layout raises ValueError, and a refused launch raises
 RuntimeError. Nothing falls back.
 
 Build: at first use, `nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17
--O3 -Xcompiler -fPIC -c` compiles csrc/tick.cu once per index dtype tier
-(-DRS_IDX_BYTES=1, 2, 4: three nvcc processes started together), and
-`nvcc -shared` links the objects into one library in raft_sim_tpu_torch/build/
-(ignored by git), named by a hash of the sources; ctypes loads it. The library
-has a plain C interface (no PyTorch headers), so the build takes well under
-two minutes. `step_cuda.launches` counts kernel launches (and nothing else).
+-O3 -Xcompiler -fPIC -c` compiles csrc/tick.cu once per (index dtype tier,
+width tier) (-DRS_IDX_BYTES=1, 2, 4 x -DRS_WIDTH=2, 4, 8: nine nvcc processes
+started together), and `nvcc -shared` links the objects into one library in
+raft_sim_tpu_torch/build/ (ignored by git), named by a hash of the sources;
+ctypes loads it. The library has a plain C interface (no PyTorch headers), so
+the build takes well under two minutes. `step_cuda.launches` counts kernel
+launches (and nothing else).
 """
 
 from __future__ import annotations
@@ -164,7 +165,6 @@ def leg_live(cfg: T.RaftConfig, group: str, name: str) -> bool:
     return gate is None or gate(cfg)
 
 
-MAX_NODES = 64
 MAX_ENTRIES = 16
 
 
@@ -219,36 +219,43 @@ def _nvcc() -> str:
 
 
 BUILD_INFO: dict = {}
+PROXY_BUILD_INFO: dict = {}
+
+IDX_TIERS = (1, 2, 4)  # index dtype byte widths
+WIDTH_TIERS = (2, 4, 8)  # packed words a row (`width_tier`): one object per (index, width) pair
 
 
-IDX_TIERS = (1, 2, 4)  # index dtype byte widths: one object per tier
-
-
-def build() -> Path:
+def build(proxy: bool = False) -> Path:
     """Compile csrc/tick.cu for sm_90a into BUILD_DIR (once per source hash)
-    and return the library's path: one nvcc per index tier, all started
-    together, then one link. BUILD_INFO records the seconds and the
-    compiler's register/stack/spill report of the last build."""
+    and return the library's path: one nvcc per (index tier, width tier), all
+    started together, then one link. BUILD_INFO records the seconds and the
+    compiler's register/stack/spill report of the last build. `proxy` builds
+    the race proxy instead (-DRS_RACE_PROXY: reversed thread map, poisoned
+    exchange; csrc/tick.cu), a library of its own that the main path never
+    loads; PROXY_BUILD_INFO records its build."""
     tag = _source_tag()
-    out = BUILD_DIR / f"libtick_{tag}.so"
+    name = "libtick_proxy" if proxy else "libtick"
+    out = BUILD_DIR / f"{name}_{tag}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc, pid = _nvcc(), os.getpid()
     arch = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+    defs = ["-DRS_RACE_PROXY"] if proxy else []
+    parts = [(k, w) for k in IDX_TIERS for w in WIDTH_TIERS]
     t0 = time.perf_counter()
     objs, procs = [], []
-    for k in IDX_TIERS:
-        obj = BUILD_DIR / f"tick_i{k}_{tag}.{pid}.o"
-        cmd = [nvcc, *arch, "-Xptxas", "-v", "-c", f"-DRS_IDX_BYTES={k}", "-o", str(obj),
-               str(CSRC / "tick.cu")]
+    for k, w in parts:
+        obj = BUILD_DIR / f"{name}_i{k}_w{w}_{tag}.{pid}.o"
+        cmd = [nvcc, *arch, *defs, "-Xptxas", "-v", "-c", f"-DRS_IDX_BYTES={k}", f"-DRS_WIDTH={w}",
+               "-o", str(obj), str(CSRC / "tick.cu")]
         objs.append(obj)
         procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     try:
         reports = [proc.communicate()[1] for proc in procs]  # waits for every one
-        for k, proc, err in zip(IDX_TIERS, procs, reports):
+        for part, proc, err in zip(parts, procs, reports):
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc (index tier {k}) failed ({proc.returncode}):\n{err[-4000:]}")
+                raise RuntimeError(f"nvcc (index, width tier {part}) failed ({proc.returncode}):\n{err[-4000:]}")
         tmp = out.with_suffix(f".{pid}.tmp")
         link = subprocess.run([nvcc, *arch, "-shared", "-o", str(tmp), *map(str, objs)],
                               capture_output=True, text=True)
@@ -258,7 +265,8 @@ def build() -> Path:
         for obj in objs:
             obj.unlink(missing_ok=True)
     os.replace(tmp, out)
-    BUILD_INFO.update(seconds=time.perf_counter() - t0, ptxas="".join(reports), path=str(out))
+    info = PROXY_BUILD_INFO if proxy else BUILD_INFO
+    info.update(seconds=time.perf_counter() - t0, ptxas="".join(reports), path=str(out))
     return out
 
 
@@ -289,17 +297,18 @@ def kernel_report(cfg: T.RaftConfig, s: T.ClusterState, nodes_per_thread: int, l
     """The body a launch on state `s` runs, at `nodes_per_thread` (from
     `launch_shape`): its gate set, as the library `lib` (default: the card's)
     decides it (csrc/tick.cuh `lean_gates`), and ptxas's report of its
-    instantiation tick_kernel<IdxT, AckT, NodeT, nodes per thread, full gate set>."""
+    instantiation tick_kernel<IdxT, AckT, NodeT, width tier, nodes per thread,
+    full gate set>."""
     lib = _load_cuda() if lib is None else lib
     lean = bool(lib.rs_tick_lean(ctypes.byref(_params(cfg, s, False))))
     tag = "tick_kernelI" + "".join(
         _ITANIUM[x.element_size()] for x in (s.next_index, s.ack_age, s.mailbox.v_to)
-    ) + f"Li{nodes_per_thread}ELb{int(not lean)}E"
+    ) + f"Li{width_tier(cfg.n_nodes)}ELi{nodes_per_thread}ELb{int(not lean)}E"
     hits = [v for k, v in ptxas_report().items() if tag in k]
     return dict(hits[0] if hits else {}, instantiation=tag, gate_set="lean" if lean else "full")
 
 
-_LIB = None
+_LIBS: dict = {}
 
 
 @functools.lru_cache(maxsize=8)
@@ -307,10 +316,10 @@ def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _load_cuda():
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
+def _load_cuda(proxy: bool = False):
+    """The card's library (`build`), or the race proxy's with `proxy`."""
+    if proxy not in _LIBS:
+        lib = ctypes.CDLL(str(build(proxy)))
         lib.rs_tick_launch.argtypes = [
             ctypes.POINTER(TickParams), ctypes.POINTER(ctypes.c_void_p),
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -320,8 +329,8 @@ def _load_cuda():
         lib.rs_tick_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.rs_tick_smem_bytes.restype = ctypes.c_longlong
         _check_lib(lib)
-        _LIB = lib
-    return _LIB
+        _LIBS[proxy] = lib
+    return _LIBS[proxy]
 
 
 def _check_lib(lib) -> None:
@@ -375,8 +384,6 @@ def _info_spec(name: str, b: int):
 def check_supported(cfg: T.RaftConfig) -> None:
     """Raise NotImplementedError for what the kernel does not take."""
     raft_batched.check_gates(cfg, "step_cuda")
-    if cfg.n_nodes > MAX_NODES:
-        raise NotImplementedError(f"step_cuda takes n_nodes <= {MAX_NODES}, got {cfg.n_nodes}")
     if cfg.max_entries_per_rpc > MAX_ENTRIES:
         raise NotImplementedError(
             f"step_cuda takes max_entries_per_rpc <= {MAX_ENTRIES}, got {cfg.max_entries_per_rpc}"
@@ -467,14 +474,24 @@ def _assemble(s, outs):
     return new_state, T.StepInfo(**info)
 
 
+def width_tier(n: int) -> int:
+    """Packed words a row in the body instantiated for `n` nodes
+    (csrc/tick.cuh `width_for`): 2 up to 64 nodes, 4 up to 128, else 8."""
+    return 2 if n <= 64 else 4 if n <= 128 else 8
+
+
 @functools.lru_cache(maxsize=64)
 def block_shape(n: int, b: int, sms: int) -> tuple[int, int]:
     """(tc, s): a block of `tc` consecutive clusters x `s` node slots for `b`
     clusters of `n` nodes on a card of `sms` SMs. s = n up to 32 nodes, else
-    32 with two nodes a thread; tc = 32 while s <= 16, else 16 (at most 512
-    threads a block, csrc/tick.cuh MAX_THREADS), halved down to 8 while that
-    leaves fewer than two blocks per SM."""
-    s = n if n <= 32 else 32
+    the width tier's 32 x words (32, 64 or 128) with two nodes a thread; tc =
+    32 while s <= 16, 16 at s = 32 -- each halved down to 8 while that leaves
+    fewer than two blocks per SM -- and 512 / s above (8 or 4): at most 512
+    threads a block (csrc/tick.cuh MAX_THREADS), and the exchange of 4 x 255
+    nodes fits a block's shared memory where 8 would not."""
+    s = n if n <= 32 else 16 * width_tier(n)
+    if s > 32:
+        return 512 // s, s
     tc = 32 if s <= 16 else 16
     while tc > 8 and -(-b // tc) < 2 * sms:
         tc //= 2
@@ -491,9 +508,9 @@ def launch_shape(cfg: T.RaftConfig, b: int, device=None) -> dict:
             "blocks": -(-b // tc), "smem_bytes": smem}
 
 
-def _cuda_launch(params, ptrs, tiers, device) -> None:
+def _cuda_launch(params, ptrs, tiers, device, proxy: bool = False) -> None:
     """THE launch site: one tick kernel on the current stream, counted."""
-    lib = _load_cuda()
+    lib = _load_cuda(proxy)
     stream = torch.cuda.current_stream(device).cuda_stream
     tc, s = block_shape(params.n, params.b, _sm_count(device))
     rc = lib.rs_tick_launch(ctypes.byref(params), ptrs, *tiers, tc, s, ctypes.c_void_p(stream))
@@ -502,18 +519,21 @@ def _cuda_launch(params, ptrs, tiers, device) -> None:
     step_cuda.launches += 1
 
 
-def step_cuda(cfg: T.RaftConfig, s: T.ClusterState, inp: T.StepInputs, now: int | None = None):
+def step_cuda(cfg: T.RaftConfig, s: T.ClusterState, inp: T.StepInputs, now: int | None = None,
+              proxy: bool = False):
     """One tick for B clusters, batch-minor. CPU tensors run the plain
     PyTorch tick; CUDA tensors run the Hopper kernel (or raise). `now` is the
     host's copy of the lockstep tick (read back once when not given and the
-    log-matching cadence needs it)."""
+    log-matching cadence needs it). `proxy` runs the race proxy's build of
+    the kernel (`build(proxy=True)`) instead: a check for chip_smoke.py and
+    the card tests, never the main path."""
     if s.role.device.type == "cpu":
         return raft_batched.step_b(cfg, s, inp, now)
     if s.role.device.type != "cuda":
         raise ValueError(f"step_cuda: tensors on {s.role.device}, expected cpu or cuda")
     with torch.cuda.device(s.role.device):
         params, ptrs, tiers, outs = _prepare(cfg, s, inp, now, "cuda")
-        _cuda_launch(params, ptrs, tiers, s.role.device)
+        _cuda_launch(params, ptrs, tiers, s.role.device, proxy)
         return _assemble(s, outs)
 
 
@@ -541,26 +561,54 @@ def time_kernel(cfg, s, inp, reps: int = 20, now: int | None = None) -> float:
         return start.elapsed_time(end) / reps
 
 
+# csrc/tick_host.cpp's parts: (width tier, node-id bytes) pairs the body is
+# instantiated for, one object each.
+HOST_PARTS = ((2, 1), (4, 1), (4, 2), (8, 2))
+
+
+def build_host(out: Path, cxx: str) -> Path:
+    """Compile the CPU build of the tick body (csrc/tick_host.cpp) with the
+    host C++ compiler `cxx` into the shared library `out`: one object per
+    part of HOST_PARTS, the compilers started together, then one link."""
+    flags = ["-std=c++17", "-O2", "-Wall", "-Werror", "-fPIC"]
+    objs = [out.with_name(f"{out.stem}_w{w}_n{nb}.o") for w, nb in HOST_PARTS]
+    procs = [
+        subprocess.Popen([cxx, *flags, "-c", f"-DRS_HOST_WIDTH={w}", f"-DRS_HOST_NODE_BYTES={nb}",
+                          "-o", str(obj), str(CSRC / "tick_host.cpp")],
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for (w, nb), obj in zip(HOST_PARTS, objs)
+    ]
+    errs = [proc.communicate()[1] for proc in procs]  # waits for every one
+    for part, proc, err in zip(HOST_PARTS, procs, errs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"{cxx} (part {part}) failed ({proc.returncode}):\n{err[-4000:]}")
+    subprocess.run([cxx, "-shared", "-o", str(out), *map(str, objs)], check=True,
+                   capture_output=True, text=True)
+    return out
+
+
 def load_host(path) -> ctypes.CDLL:
-    """Load a CPU build of the tick body (csrc/tick_host.cpp compiled with a
-    host C++ compiler) for `step_host`."""
+    """Load a CPU build of the tick body (`build_host`) for `step_host`."""
     lib = ctypes.CDLL(str(path))
     lib.rs_tick_host.argtypes = [
         ctypes.POINTER(TickParams), ctypes.POINTER(ctypes.c_void_p),
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ]
     lib.rs_tick_host.restype = ctypes.c_int
     _check_lib(lib)
     return lib
 
 
-def step_host(lib, cfg, s, inp, now: int | None = None, reverse: bool = False):
+def step_host(lib, cfg, s, inp, now: int | None = None, reverse: bool = False,
+              poison: bool = False):
     """The kernel's phase-structured body, built for the CPU (`load_host`), on
     CPU tensors: the same leaf checks, pointer table and outputs as
     `step_cuda`, so tests hold the kernel's own logic against the plain tick.
-    `reverse` runs each phase's (cluster, node) workers in reverse order."""
+    `reverse` runs each phase's (cluster, node) workers in reverse order;
+    `poison` overwrites each exchange field after its last reader's phase
+    (the race proxy's schedule, csrc/tick.cuh `poison_fields`)."""
     params, ptrs, tiers, outs = _prepare(cfg, s, inp, now, "cpu")
-    rc = lib.rs_tick_host(ctypes.byref(params), ptrs, *tiers, int(reverse))
+    rc = lib.rs_tick_host(ctypes.byref(params), ptrs, *tiers, int(reverse), int(poison))
     if rc != 0:
         raise RuntimeError(f"tick body refused the shapes or tiers (code {rc})")
     return _assemble(s, outs)

@@ -8,6 +8,8 @@ no CUDA device; on a machine with one H100:
 Tolerance: exact equality of every leaf.
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -29,9 +31,25 @@ def card():
     return torch.device("cuda")
 
 
+def _hold(cfg, batch, ticks, card, proxy=False):
+    """`ticks` ticks from the seed-0 state of `batch` clusters: each tick the
+    kernel (or its race proxy) equals the plain tick on the same CUDA tensors,
+    state and StepInfo, leaf for leaf. Returns the final state."""
+    s = trb.to_batch_minor(ttypes.init_batch(cfg, threefry.key(0, card), batch))
+    keys = threefry.split(threefry.key(1, card), batch)
+    for t in range(ticks):
+        inp = trb.to_batch_minor(faults.make_inputs(cfg, keys, t))
+        want = trb.step_b(cfg, s, inp, t)
+        got = tick_engine.step_cuda(cfg, s, inp, t, proxy=proxy)
+        diff = bridge.first_difference(want[0], got[0]) or bridge.first_difference(want[1], got[1])
+        assert diff is None, f"tick {t}: {diff}"
+        s = got[0]
+    return s
+
+
 @pytest.mark.parametrize(
     "name", ["config1", "config2", "config3", "config4", "config5", "config3p", "config6", "config6r",
-             "config8", "config9", "config10"]
+             "config8", "config9", "config10", "config4c", "config7"]
 )
 def test_step_cuda_matches_plain_step(card, name):
     cfg, _ = tconfig.PRESETS[name]
@@ -40,45 +58,55 @@ def test_step_cuda_matches_plain_step(card, name):
     # at tick 97 and its transfers at 61 and 122; config10's crash windows
     # end at 64 and 128.
     ticks = 400 if cfg.compaction else 200 if cfg.reconfig or cfg.durable_storage else 64
-    s = trb.to_batch_minor(ttypes.init_batch(cfg, threefry.key(0, card), batch))
-    keys = threefry.split(threefry.key(1, card), batch)
     before = tick_engine.step_cuda.launches
-    for t in range(ticks):
-        inp = trb.to_batch_minor(faults.make_inputs(cfg, keys, t))
-        want = trb.step_b(cfg, s, inp, t)
-        got = tick_engine.step_cuda(cfg, s, inp, t)
-        diff = bridge.first_difference(want[0], got[0]) or bridge.first_difference(want[1], got[1])
-        assert diff is None, f"tick {t}: {diff}"
-        s = got[0]
+    s = _hold(cfg, batch, ticks, card)
     assert tick_engine.step_cuda.launches == before + ticks
     if cfg.compaction:
         assert int(s.log_base.min()) > 0  # every node of every cluster compacted
 
 
-@pytest.mark.parametrize(
-    "name,batch",
-    [("config1", 1)] + [(name, 45) for name in ("config2", "config5", "config3p", "config6", "config6r",
-                                                  "config8", "config9", "config10")],
+# One cluster, and 45 clusters (a ragged last block at every block shape): at
+# N=5, N=51 and N=101 (two nodes a thread, width tier 4), on each gate set;
+# then config7's mix dense at N=128 (int16 node ids) and at N=255 (width tier
+# 8, 4 clusters a block) under partitions.
+SMALL_AND_RAGGED = (
+    [("config1", 1), ("config7", 1)]
+    + [(name, 45) for name in ("config2", "config5", "config3p", "config6", "config6r", "config8",
+                               "config9", "config10", "config4c", "config7")]
+    + [("config7-n128", 45), ("config7-n255-partitions", 45)]
 )
+
+
+def _small_cfg(name):
+    cfg7 = tconfig.PRESETS["config7"][0]
+    if name == "config7-n128":
+        return dataclasses.replace(cfg7, n_nodes=128)
+    if name == "config7-n255-partitions":
+        return dataclasses.replace(cfg7, n_nodes=255, partition_period=32, partition_prob=0.25)
+    return tconfig.PRESETS[name][0]
+
+
+@pytest.mark.parametrize("name,batch", SMALL_AND_RAGGED)
 def test_step_cuda_matches_plain_step_on_small_and_ragged_batches(card, name, batch):
-    """One cluster, and 45 clusters (a ragged last block at every block
-    shape): at N=5 and at N=51 with two nodes a thread, on each gate set.
-    Small enough for a race checker:
+    """Small enough for a race checker, if the card's machine allows one:
     compute-sanitizer --tool racecheck --kernel-name kns=tick_kernel
-        python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -k ragged"""
-    cfg, _ = tconfig.PRESETS[name]
-    s = trb.to_batch_minor(ttypes.init_batch(cfg, threefry.key(0, card), batch))
-    keys = threefry.split(threefry.key(1, card), batch)
-    for t in range(96):
-        inp = trb.to_batch_minor(faults.make_inputs(cfg, keys, t))
-        want = trb.step_b(cfg, s, inp, t)
-        got = tick_engine.step_cuda(cfg, s, inp, t)
-        diff = bridge.first_difference(want[0], got[0]) or bridge.first_difference(want[1], got[1])
-        assert diff is None, f"tick {t}: {diff}"
-        s = got[0]
+        python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -k "ragged and not proxy"
+    """
+    _hold(_small_cfg(name), batch, 96 if name in tconfig.PRESETS else 64, card)
 
 
-@pytest.mark.parametrize("name", ["config2", "config4", "config6r", "config8", "config9", "config10"])
+@pytest.mark.parametrize("name,batch", SMALL_AND_RAGGED)
+def test_race_proxy_matches_plain_step_on_small_and_ragged_batches(card, name, batch):
+    """The race proxy (csrc/tick.cu built with RS_RACE_PROXY: node slots and
+    clusters mapped to threads in reverse, each exchange field poisoned once
+    its last reader's phase is over) equals the plain tick on the same rows.
+    A proxy for a race checker, not one: it shows that no read depends on
+    the thread order or outlives the barrier schedule on these inputs."""
+    _hold(_small_cfg(name), batch, 96 if name in tconfig.PRESETS else 64, card, proxy=True)
+
+
+@pytest.mark.parametrize("name", ["config2", "config4", "config6r", "config8", "config9", "config10",
+                                  "config7"])
 def test_simulate_card_matches_cpu(card, name):
     cfg, _ = tconfig.PRESETS[name]
     got = scan.simulate(cfg, 3, 32, 80, device=card)

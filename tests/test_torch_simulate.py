@@ -46,6 +46,10 @@ CASES = [
     # Slice 4: config10's fsync cadence, recovery and durability gate under
     # crash churn (its first crash windows end at ticks 64 and 128).
     pytest.param("config10", 4, 200, id="config10"),
+    # config4c (config4's faults with a client, CAP=64) and config7 (N=101:
+    # four packed words a row, a client every 4 ticks under drop).
+    pytest.param("config4c", 4, 100, id="config4c"),
+    pytest.param("config7", 3, 40, id="config7"),
 ]
 
 

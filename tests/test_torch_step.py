@@ -158,6 +158,17 @@ ROWS = [
     pytest.param(DURABLE_CRASHES, 8, 150, 0.0, id="n5-durable-crashes"),
     pytest.param(DURABLE_PREVOTE_DENSE, 8, 150, 0.0, id="n5-durable-prevote-dense"),
     pytest.param(DURABLE_CRASHES, 8, 100, 0.08, id="n5-durable-crash-fuzz"),
+    # config4c: config4's uniform drop and skew carrying a client on a
+    # CAP=64 log with 8-entry windows (a row of the port's bench matrix).
+    pytest.param(rst.PRESETS["config4c"][0], 8, 80, 0.0, id="config4c"),
+    # Clusters above 64 nodes: config7 (N=101, W=4 packed words), then its
+    # mix dense at N=128 (the last int16-node width-4 row) and at N=255
+    # (W=8) under rolling partitions, as config7x runs it compacted.
+    pytest.param(rst.PRESETS["config7"][0], 3, 40, 0.0, id="config7-n101"),
+    pytest.param(dataclasses.replace(rst.PRESETS["config7"][0], n_nodes=128), 2, 24, 0.0,
+                 id="config7-mix-n128"),
+    pytest.param(dataclasses.replace(rst.PRESETS["config7"][0], n_nodes=255, partition_period=32,
+                                     partition_prob=0.25), 2, 24, 0.0, id="config7-mix-n255-partitions"),
 ]
 
 

@@ -13,7 +13,6 @@ Skips only where no g++ is installed.
 import dataclasses
 import re
 import shutil
-import subprocess
 
 import jax
 import numpy as np
@@ -47,12 +46,7 @@ def host_lib(tmp_path_factory):
     if gxx is None:
         pytest.skip("g++ is not installed")
     out = tmp_path_factory.mktemp("tick_host") / "libtick_host.so"
-    subprocess.run(
-        [gxx, "-std=c++17", "-O2", "-Wall", "-Werror", "-shared", "-fPIC",
-         "-o", str(out), str(tick_engine.CSRC / "tick_host.cpp")],
-        check=True, capture_output=True, text=True,
-    )
-    return tick_engine.load_host(out)
+    return tick_engine.load_host(tick_engine.build_host(out, gxx))
 
 
 def test_ptr_enum_matches_wrapper_order():
@@ -165,6 +159,35 @@ ROWS = [
                            election_range_ticks=6, drop_prob=0.1),
         3, 120, 0.04, id="n33-durable-prevote-transfer-crash-fuzz",
     ),
+    # config4c (a ragged tile at B=5), then clusters above 64 nodes: config7
+    # (N=101, four packed words a row), its mix at N=65 (W=3), at the int8 ->
+    # int16 node-id edge (N=126/127), at the width-4 -> width-8 edge
+    # (N=128/129) and at N=255 under rolling partitions; the full gate set at
+    # N=101 under crash fuzz; the storage plane at N=129.
+    pytest.param(tconfig.PRESETS["config4c"][0], 5, 60, 0.0, id="config4c-ragged-b5"),
+    pytest.param(tconfig.PRESETS["config7"][0], 3, 60, 0.0, id="config7-n101"),
+    *(pytest.param(dataclasses.replace(tconfig.PRESETS["config7"][0], n_nodes=n), 2, 40, 0.0,
+                   id=f"config7-mix-n{n}") for n in (65, 126, 127, 128, 129)),
+    pytest.param(
+        dataclasses.replace(tconfig.PRESETS["config7"][0], n_nodes=255, partition_period=32,
+                            partition_prob=0.25),
+        2, 48, 0.0, id="config7-mix-n255-partitions",
+    ),
+    pytest.param(
+        tconfig.RaftConfig(n_nodes=101, log_capacity=12, compact_margin=3, max_entries_per_rpc=3,
+                           client_interval=2, client_redirect=True, client_pipeline=3,
+                           reconfig_interval=5, transfer_interval=7, read_interval=2,
+                           read_lease_ticks=2, pre_vote=True, election_min_ticks=8,
+                           election_range_ticks=6, drop_prob=0.1),
+        2, 80, 0.03, id="n101-reconfig-lease-prevote-redirect-compaction-crash-fuzz",
+    ),
+    pytest.param(
+        tconfig.RaftConfig(n_nodes=129, log_capacity=12, client_interval=2, fsync_interval=2,
+                           fsync_jitter_prob=0.3, torn_tail_prob=0.5, lost_suffix_span=4,
+                           transfer_interval=7, pre_vote=True, election_min_ticks=8,
+                           election_range_ticks=6, drop_prob=0.1),
+        2, 60, 0.04, id="n129-durable-prevote-transfer-crash-fuzz",
+    ),
 ]
 
 
@@ -194,7 +217,9 @@ def test_tick_body_reverse_worker_order(host_lib, cfg, batch, ticks, p_down):
     """Each phase's (cluster, node) workers run in reverse order and give the
     same leaves as the forward order and the plain tick: no phase reads a
     value another node writes in the same phase (on the card those workers
-    run concurrently between two barriers)."""
+    run concurrently between two barriers). Both orders run with the race
+    proxy's poison (each exchange field overwritten once its last reader's
+    phase is over), so no phase reads a field past that schedule either."""
     rng = np.random.default_rng(5)
     s = trb.to_batch_minor(ttypes.init_batch(cfg, threefry.key(2), batch))
     keys = threefry.split(threefry.key(3), batch)
@@ -203,8 +228,8 @@ def test_tick_body_reverse_worker_order(host_lib, cfg, batch, ticks, p_down):
         if p_down:
             inp = _fuzz(inp, rng, p_down)
         want = trb.step_b(cfg, s, inp, t)
-        fwd = tick_engine.step_host(host_lib, cfg, s, inp, t)
-        rev = tick_engine.step_host(host_lib, cfg, s, inp, t, reverse=True)
+        fwd = tick_engine.step_host(host_lib, cfg, s, inp, t, poison=True)
+        rev = tick_engine.step_host(host_lib, cfg, s, inp, t, reverse=True, poison=True)
         for got, order in ((rev, "reverse"), (fwd, "forward")):
             diff = bridge.first_difference(want[0], got[0]) or bridge.first_difference(want[1], got[1])
             assert diff is None, f"tick {t}, {order} order: {diff}"
@@ -272,15 +297,37 @@ def test_wrapper_rejects_bad_leaves(host_lib):
         tick_engine.step_host(host_lib, cfg, s._replace(log_term=s.log_term.transpose(0, 1).contiguous().transpose(0, 1)), inp, 0)
     with pytest.raises(ValueError, match="skew"):
         tick_engine.step_host(host_lib, cfg, s, inp._replace(skew=inp.skew[:, :2]), 0)
-    with pytest.raises(NotImplementedError, match="n_nodes"):
-        tick_engine.check_supported(tconfig.RaftConfig(n_nodes=101))
+    with pytest.raises(NotImplementedError, match="compact_planes"):
+        tick_engine.check_supported(tconfig.RaftConfig(n_nodes=101, compact_planes=True))
+
+
+def test_every_dense_cluster_size_is_taken(host_lib):
+    """The kernel takes every N that RaftConfig admits (2..255, dense): the
+    wrapper accepts it, and its block shape keeps at most 512 threads, at
+    most two nodes a thread and an exchange within a block's shared memory
+    (232,448 bytes on Hopper) at any batch."""
+    for n in range(2, 256):
+        tick_engine.check_supported(tconfig.RaftConfig(n_nodes=n))
+        for b in (1, 45, 1_000, 100_000):
+            tc, s = tick_engine.block_shape(n, b, 132)
+            assert tc * s <= 512 and -(-n // s) <= 2, (n, b, tc, s)
+            assert host_lib.rs_tick_smem_bytes(n, tc) <= 232_448, (n, b, tc)
+    assert tick_engine.block_shape(101, 1_000, 132) == (8, 64)
+    assert tick_engine.block_shape(255, 1_000, 132) == (4, 128)
+    assert host_lib.rs_tick_smem_bytes(101, 8) == 82_464
+    assert host_lib.rs_tick_smem_bytes(255, 4) == 119_152
+    assert host_lib.rs_tick_smem_bytes(51, 16) == 78_400
 
 
 def test_kernel_report_names_each_cells_instantiation(host_lib, monkeypatch):
     """chip_smoke.py's per-cell ptxas line: the report is parsed per kernel,
-    and each preset maps to its (index, ack, node, nodes a thread, gate set)
-    instantiation, with the gate set as the body's `lean_gates` decides it."""
-    entries = {"IaaaLi1ELb0E": (63, 0), "IaaaLi2ELb0E": (64, 136), "IiaaLi1ELb1E": (112, 0)}
+    and each preset maps to its (index, ack, node, width tier, nodes a
+    thread, gate set) instantiation, with the gate set as the body's
+    `lean_gates` decides it -- config7 at width 4 with int8 node ids, N=255
+    at width 8 with int16 ones."""
+    entries = {"IaaaLi2ELi1ELb0E": (63, 0), "IaaaLi2ELi2ELb0E": (64, 136),
+               "IiaaLi2ELi1ELb1E": (112, 0), "IaaaLi4ELi2ELb0E": (128, 512),
+               "IaasLi8ELi2ELb0E": (128, 1024)}
     text = "".join(
         f"ptxas info    : Compiling entry function '_ZN4anon11tick_kernel{tag}EvN2rs8TickArgsEii' for 'sm_90a'\n"
         f"ptxas info    : Function properties for _ZN4anon11tick_kernel{tag}EvN2rs8TickArgsEii\n"
@@ -289,9 +336,11 @@ def test_kernel_report_names_each_cells_instantiation(host_lib, monkeypatch):
         for tag, (regs, stack) in entries.items()
     )
     monkeypatch.setitem(tick_engine.BUILD_INFO, "ptxas", text)
-    for name, npt, tag in (("config3", 1, "IaaaLi1ELb0E"), ("config5", 2, "IaaaLi2ELb0E"),
-                           ("config6", 1, "IiaaLi1ELb1E")):
-        cfg = tconfig.PRESETS[name][0]
+    wide = dataclasses.replace(tconfig.PRESETS["config7"][0], n_nodes=255)
+    for name, npt, tag in (("config3", 1, "IaaaLi2ELi1ELb0E"), ("config5", 2, "IaaaLi2ELi2ELb0E"),
+                           ("config6", 1, "IiaaLi2ELi1ELb1E"), ("config7", 2, "IaaaLi4ELi2ELb0E"),
+                           ("config7-n255", 2, "IaasLi8ELi2ELb0E")):
+        cfg = wide if name == "config7-n255" else tconfig.PRESETS[name][0]
         s = trb.to_batch_minor(ttypes.init_batch(cfg, threefry.key(0), 1))
         got = tick_engine.kernel_report(cfg, s, npt, host_lib)
         regs, stack = entries[tag]
