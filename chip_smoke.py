@@ -12,8 +12,8 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    gate set>), nine nvcc runs in parallel. The race proxy's library (below)
    builds in the background from here on.
 2. kernel_vs_plain -- presets config1-config5 and config3p for 96 ticks,
-   config6 and config6r for 400 (their CAP=32 rings wrap near tick 130),
-   config8, config9 and config10 for 400, at a batch of 200 (config1 at its
+   config6 and config6r for 200 (their CAP=32 rings wrap near tick 130),
+   config8, config9 and config10 for 200, at a batch of 200 (config1 at its
    batch of 1), config2 and config5 at a batch of 45 for 96 (a ragged last
    block of clusters at N=5 and at N=51, two nodes a thread), plus
    config6-cap8 (config6 on an
@@ -44,15 +44,20 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    a full-gate row at N=101 (crash churn, compaction, PreVote, membership,
    transfers, reads; 200 x 200), whose restarts, compactions, config
    appends, joint exits, TimeoutNow requests and reads must each be above 0
-   (the `slice6_events` line).
+   (the `slice6_events` line). Slice 7 adds log matching on the compacting
+   ring (K1-b): config6 and config9 with the check every tick (200 x 400),
+   config6-cap8 with it (200 x 200; its incomparable pairs,
+   `lm_skipped_pairs`, must sum above 0) and config7's mix at N=101
+   compacting with it (45 x 96, width tier 4, two nodes a thread); each row
+   prints a `slice7_events` line and must show no log-matching violation.
 2b. race_proxy -- the kernel built with RS_RACE_PROXY (csrc/tick.cu: node
    slots and clusters-in-tile mapped to threads in reverse, each exchange
    field poisoned once its last reader's phase is over) equals the plain
    tick every tick on config1 and config7 at 1 cluster, on a ragged 45 of
    config2, config5, config3p, config6, config6r, config8, config9,
-   config10, config4c and config7 for 96 ticks, and on the N=128 and N=255
-   rows for 64. It stands in for a race checker, which the card's machine
-   refuses.
+   config10, config4c, config7 and config6-cap8 with log matching for 96
+   ticks, and on the N=128 and N=255 rows for 64. It stands in for a race
+   checker, which the card's machine refuses.
 3. card_vs_cpu -- the port's `simulate` on the card equals the port on the CPU
    (config2, config4 at 64 x 100; config6r, config3p, config8, config9,
    config10 at 64 x 200; config7 at 16 x 100). The CPU tests hold the CPU
@@ -60,7 +65,7 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
 4. full_width -- the main path, `simulate` at the presets' own batch through the
    kernel: config2, config6, config6r, config7, config8, config9 and config10
    at 1,000 clusters, config3, config3p, config4 and config4c at 100,000, for
-   1,000 ticks (config6, config6r, config8 and config10 for 400), config5 at
+   600 ticks (config6, config6r, config8 and config10 for 400), config5 at
    10,000 for 200. Launch counts are zeroed just before each run
    and read just after; each must equal the tick count. Every run must have
    zero invariant violations (stale lease reads included) and a leader
@@ -77,6 +82,21 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    ms/tick (CUDA events) against its bound (bytes read + written over
    3.35 TB/s), and ms/tick for input generation, the wrapped step, the plain
    step and the metric fold (host clock to a synchronize).
+4b. long_run -- the slice-7 path at full width: config6 with log matching
+   every tick at its preset batch of 1,000 through `driver.Session` and the
+   kernel. `simulate` for LONG_T ticks (timed: its ms a tick); a Session run
+   of 2 x LONG_T ticks in chunks of LONG_CHUNK with cluster 0's apply log
+   attached (timed: the chunked run's ms a tick; launches zeroed before it
+   and read after, equal to its ticks); a second Session run of LONG_T
+   ticks (equal to `simulate`'s), a `save` (seconds, file size), a
+   `restore` (seconds) and LONG_T more ticks, whose state and metrics must
+   equal the uninterrupted run's leaf for leaf, with zero violations; every
+   node's apply-log stream nonempty and in agreement with the others
+   (`stream_check`: a gapless stream is a prefix of the committed values,
+   each run between snapshot gaps a contiguous run of them). Then
+   FULL_HOLD_TICKS ticks of kernel == plain from the final state, and the
+   kernel's ms a tick with and without log matching (CUDA events, in turns)
+   against its bound, and the plain tick's.
 5. bench_row -- the port's bench (raft_sim_tpu_torch/bench.py) on config2 at
    64 x 200 ticks, 3 quality seeds and 2 repeats, on the card and on the CPU:
    every quality field equal; the card's row carries backend "cuda", the
@@ -100,6 +120,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 BW_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 SEED = 0
 FULL_HOLD_TICKS = 16  # kernel-vs-plain ticks at full width, per cell
+LONG_T = 250  # long_run: the resumed run's half (2 x LONG_T uninterrupted)
+LONG_CHUNK = 50  # long_run's chunk: commit moves < CAP - margin a chunk
 
 
 def emit(obj) -> None:
@@ -182,6 +204,9 @@ def count_events(cfg, t, s, inp, new, info, ev) -> None:
     if cfg.read_index:
         ev["reads_served"] += int(info.reads_served.sum())
         ev["one_tick_reads"] += int(info.read_hist[0].sum())
+    if cfg.compaction and cfg.check_log_matching:
+        ev["lm_skipped_pairs"] += int(info.lm_skipped_pairs.sum())
+        ev["viol_log_matching"] += int(info.viol_log_matching.sum())
     if cfg.compaction:
         ev["compactions"] += int((new.log_base > s.log_base).sum())
         sentinel = (new.mailbox.req_type == T.REQ_APPEND)[:, None, :] & (new.mailbox.req_off == -1)
@@ -214,6 +239,129 @@ def count_events(cfg, t, s, inp, new, info, ev) -> None:
         ev["ack_clamps"] += int(held.sum())
         if t % cfg.fsync_interval == 0:
             ev["jitter_stalls"] += int((inp.alive & ~inp.fsync_fire).sum())
+
+
+def stream_check(writer, n_nodes: int) -> dict:
+    """The apply-log streams of one cluster agree. A client value is its
+    offer tick + 1, and a log holds entries in the order they were offered,
+    so every node's committed values rise, and the committed sequence is the
+    sorted union of what the nodes exported. Each node's file is cut into
+    runs at its `# snapshot gap` lines (a node that caught up by snapshot
+    never held the span): every node exports some value, each run is a
+    contiguous run of that sequence, and a gapless stream is a prefix of it."""
+    runs = []
+    for path in writer.paths:
+        cut = [[]]
+        with open(path) as fh:
+            for line in fh:
+                if line.startswith("#"):
+                    cut.append([])
+                else:
+                    cut[-1].append(int(line))
+        runs.append([r for r in cut if r])
+    ref = sorted({v for node_runs in runs for run in node_runs for v in run})
+    where = {v: k for k, v in enumerate(ref)}
+    gapped = [bool(writer.gaps(i)) for i in range(n_nodes)]
+    for i, node_runs in enumerate(runs):
+        if not node_runs:
+            raise AssertionError(f"long_run: node_{i}.log holds no value")
+        if not gapped[i] and where[node_runs[0][0]] != 0:
+            raise AssertionError(f"long_run: node_{i}.log is gapless but starts past the first value")
+        for k, run in enumerate(node_runs):
+            at = where[run[0]]
+            if run != ref[at:at + len(run)]:
+                raise AssertionError(f"long_run: node_{i}.log run {k} is not a run of the committed values")
+    return {"values_per_node": [sum(map(len, r)) for r in runs], "gapped_nodes": sum(gapped),
+            "committed_values": len(ref)}
+
+
+def long_run(dev, hold_ticks, wall_ms) -> dict:
+    """Phase 4b: config6 with log matching at its preset batch through
+    driver.Session and the kernel -- chunked runs, a checkpoint round trip
+    and the apply log (see the module docstring). Returns its cell."""
+    import shutil
+
+    import torch
+    from raft_sim_tpu_torch.driver import Session
+    from raft_sim_tpu_torch.kernels import tick_engine
+    from raft_sim_tpu_torch.models import raft_batched
+    from raft_sim_tpu_torch.sim import faults, scan
+    from raft_sim_tpu_torch.utils.config import PRESETS
+
+    base, batch = PRESETS["config6"]
+    cfg = dataclasses.replace(base, check_log_matching=True)
+    work = os.path.join(HERE, "raft_sim_tpu_torch", "build", "long_run")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t_len = LONG_T
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (sim_s, sim_m), sim_wall = timed(lambda: scan.simulate(cfg, SEED, batch, t_len, device=dev))
+
+    whole = Session(cfg, batch=batch, seed=SEED, device=dev)
+    whole.attach_apply_log(os.path.join(work, "apply_whole"), cluster=0)
+    tick_engine.step_cuda.launches = 0
+    _, whole_wall = timed(lambda: whole.run(2 * t_len, chunk=LONG_CHUNK))
+    launches = tick_engine.step_cuda.launches
+    if launches != 2 * t_len:
+        raise AssertionError(f"long_run: {launches} kernel launches for {2 * t_len} ticks")
+    streams = stream_check(whole.apply_writer, cfg.n_nodes)
+
+    half = Session(cfg, batch=batch, seed=SEED, device=dev)
+    half.run(t_len, chunk=LONG_CHUNK)
+    check_equal(sim_s, half.state, "long_run: Session state != simulate")
+    check_equal(sim_m, half.metrics, "long_run: Session RunMetrics != simulate")
+    path, save_s = timed(lambda: half.save(os.path.join(work, "ck")))
+    size = os.path.getsize(path)
+    again, load_s = timed(lambda: Session.restore(path, device=dev))
+    again.run(t_len, chunk=LONG_CHUNK)
+    check_equal(whole.state, again.state, "long_run: resumed state != uninterrupted")
+    check_equal(whole.metrics, again.metrics, "long_run: resumed RunMetrics != uninterrupted")
+    summ = whole.summary()
+    if summ["total_violations"] != 0:
+        raise AssertionError(f"long_run: {summ['total_violations']} violations")
+    if int(whole.metrics.max_commit.min()) <= cfg.log_capacity:
+        raise AssertionError("long_run: a cluster's ring never wrapped")
+
+    # Kernel == plain at full width from the final state, then the kernel
+    # with and without log matching on it, in turns.
+    s = raft_batched.to_batch_minor(whole.state)
+    now = 2 * t_len
+    hold_ticks(cfg, s, whole.keys, now, FULL_HOLD_TICKS, "config6-lm full width")
+    inp = raft_batched.to_batch_minor(faults.make_inputs(cfg, whole.keys, now))
+    lm_ms, nolm_ms = [], []
+    for _ in range(2):
+        lm_ms.append(tick_engine.time_kernel(cfg, s, inp, reps=20, now=now))
+        nolm_ms.append(tick_engine.time_kernel(base, s, inp, reps=20, now=now))
+    plain_ms = wall_ms(lambda: raft_batched.step_b(cfg, s, inp, now), 3)
+    rd, wr = tick_engine.traffic_bytes(cfg, batch)
+    bound_ms = (rd + wr) / BW_BYTES_PER_S * 1e3
+    shape = tick_engine.launch_shape(cfg, batch, dev)
+    shape.update(tick_engine.kernel_report(cfg, s, shape["nodes_per_thread"]))
+    cell = {
+        "phase": "long_run", "preset": "config6-lm", "batch": batch, "ticks": 5 * t_len,
+        "chunk": LONG_CHUNK, "resumed_equal": True, "violations": summ["total_violations"],
+        "launches": launches, "lm_skipped_pairs": summ["lm_skipped_pairs"],
+        "max_commit_min": int(whole.metrics.max_commit.min()),
+        "simulate_ms_per_tick": sim_wall * 1e3 / t_len,
+        "chunked_ms_per_tick": whole_wall * 1e3 / (2 * t_len),
+        "save_s": save_s, "load_s": load_s, "checkpoint_bytes": size,
+        "kernel_ms": sum(lm_ms) / len(lm_ms), "kernel_ms_runs": lm_ms,
+        "kernel_ms_without_lm": sum(nolm_ms) / len(nolm_ms), "kernel_ms_without_lm_runs": nolm_ms,
+        "bound_ms": bound_ms, "bytes_read": rd, "bytes_written": wr, "plain_ms": plain_ms,
+        "kernel_vs_plain_ticks": FULL_HOLD_TICKS, "apply_log": streams, "shape": shape,
+    }
+    emit(cell)
+    del whole, half, again, s, inp, sim_s, sim_m
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return cell
 
 
 def main() -> int:
@@ -291,12 +439,12 @@ def main() -> int:
     parity = [(name, PRESETS[name][0], 1 if name == "config1" else 200, 96)
               for name in ("config1", "config2", "config3", "config4", "config5", "config3p")]
     parity += [(f"{name}-ragged-b45", PRESETS[name][0], 45, 96) for name in ("config2", "config5")]
-    parity += [("config6", cfg6, 200, 400), ("config6r", PRESETS["config6r"][0], 200, 400),
-               ("config6-cap8", dataclasses.replace(cfg6, log_capacity=8, compact_margin=4,
-                                                    max_entries_per_rpc=2, client_interval=2),
-                200, 200),
-               ("config8", PRESETS["config8"][0], 200, 400), ("config9", PRESETS["config9"][0], 200, 400),
-               ("config10", PRESETS["config10"][0], 200, 400)]
+    cap8 = dataclasses.replace(cfg6, log_capacity=8, compact_margin=4, max_entries_per_rpc=2,
+                               client_interval=2)
+    parity += [("config6", cfg6, 200, 200), ("config6r", PRESETS["config6r"][0], 200, 200),
+               ("config6-cap8", cap8, 200, 200),
+               ("config8", PRESETS["config8"][0], 200, 200), ("config9", PRESETS["config9"][0], 200, 200),
+               ("config10", PRESETS["config10"][0], 200, 200)]
     # Slice 6: config4c, and clusters above 64 nodes -- config7 (N=101, width
     # tier 4), its mix dense at N=128 (int16 node ids) and at N=255 (width
     # tier 8) under partitions, and the full gate body at N=101.
@@ -311,6 +459,15 @@ def main() -> int:
                ("config7-ragged-b45", cfg7, 45, 96)]
     parity += [(f"{name}-b45", cfg, 45, 64) for name, cfg in wide.items()]
     parity += [("n101-full-gates", n101_full_gates(), 200, 200)]
+    # Slice 7: log matching on the compacting ring (K1-b).
+    ring_lm = {
+        "config6-lm": (dataclasses.replace(cfg6, check_log_matching=True), 200, 400),
+        "config9-lm": (dataclasses.replace(PRESETS["config9"][0], check_log_matching=True), 200, 400),
+        "config6-cap8-lm": (dataclasses.replace(cap8, check_log_matching=True), 200, 200),
+        "config7-mix-n101-compaction-lm-b45": (
+            dataclasses.replace(cfg7, compact_margin=4, check_log_matching=True), 45, 96),
+    }
+    parity += [(name, cfg, batch, ticks) for name, (cfg, batch, ticks) in ring_lm.items()]
     events = {"restarts": 0, "compactions": 0, "snapshot_sentinels": 0, "redirect_bounces": 0}
     slice3 = {"config_appends": 0, "joint_exits": 0, "timeout_now_sent": 0, "sanctioned_votes": 0,
               "reads_served_config8": 0, "one_tick_reads_config9": 0,
@@ -334,6 +491,14 @@ def main() -> int:
                 events[k] += ev[k]
         elif name == "n101-full-gates":
             slice6 = {k: ev[k] for k in SLICE6_REQUIRED}
+        elif name in ring_lm:
+            slice7 = {k: ev[k] for k in ("lm_skipped_pairs", "viol_log_matching", "compactions",
+                                         "restarts")}
+            emit({"phase": "slice7_events", "preset": name, "batch": batch, "ticks": ticks, **slice7})
+            if slice7["viol_log_matching"] or slice7["compactions"] <= 0:
+                raise AssertionError(f"{name}: {slice7}")
+            if name == "config6-cap8-lm" and slice7["lm_skipped_pairs"] <= 0:
+                raise AssertionError(f"{name}: no incomparable pair met ({slice7})")
         sim_ticks = min(ticks, 96)
         f_k, m_k = scan.simulate(cfg, SEED, batch, sim_ticks, device=dev)
         f_p, m_p = scan.simulate(cfg, SEED, batch, sim_ticks, device=dev, step_fn=raft_batched.step_b)
@@ -359,6 +524,7 @@ def main() -> int:
     for k in SLICE6_REQUIRED:
         if slice6[k] <= 0:
             raise AssertionError(f"kernel_vs_plain: no {k} on the n101-full-gates run")
+    emit({"phase": "phase_end", "name": "kernel_vs_plain", "seconds": time.perf_counter() - t_start})
 
     # ---- 2b: the race proxy, on the card ---------------------------------------
     # No race checker runs on this machine (PERF.md), so the proxy build of
@@ -377,12 +543,14 @@ def main() -> int:
                    for name in ("config2", "config5", "config3p", "config6", "config6r", "config8",
                                 "config9", "config10", "config4c", "config7")]
     proxy_rows += [(name, cfg, 45, 64) for name, cfg in wide.items()]
+    proxy_rows += [("config6-cap8-lm", ring_lm["config6-cap8-lm"][0], 45, 96)]
     for name, cfg, batch, ticks in proxy_rows:
         s = raft_batched.to_batch_minor(init_batch(cfg, threefry.key(SEED, dev), batch))
         keys = threefry.split(threefry.key(SEED + 1, dev), batch)
         hold_ticks(cfg, s, keys, 0, ticks, f"race proxy {name}", proxy=True)
         emit({"phase": "race_proxy", "preset": name, "batch": batch, "ticks": ticks,
               "per_tick": "equal", "max_abs_err": max_err})
+    emit({"phase": "phase_end", "name": "race_proxy", "seconds": time.perf_counter() - t_start})
 
     # ---- 3: card vs CPU --------------------------------------------------------
     for name, batch, ticks in (("config2", 64, 100), ("config4", 64, 100), ("config6r", 64, 200),
@@ -395,17 +563,17 @@ def main() -> int:
         check_equal(m_c, m_g, f"{name}: simulate RunMetrics, card != CPU")
         emit({"phase": "card_vs_cpu", "preset": name, "batch": batch, "ticks": ticks,
               "max_abs_err": max_err, "summary_equal": summarize(m_g) == summarize(m_c)})
+    emit({"phase": "phase_end", "name": "card_vs_cpu", "seconds": time.perf_counter() - t_start})
 
     # ---- 4: full width, the main path -----------------------------------------
     cells = []
     total_launches = 0
     # The four crash cells run 400 full-width ticks (their input draws take
-    # 52-68 ms a tick), so the script keeps well inside its time limit with
-    # config4c and config7 beside them; every other cell runs 1,000 (config5
-    # 200).
-    full_cells = (("config2", 1000), ("config3", 1000), ("config4", 1000), ("config5", 200),
-                  ("config6", 400), ("config6r", 400), ("config3p", 1000), ("config8", 400),
-                  ("config9", 1000), ("config10", 400), ("config4c", 1000), ("config7", 1000))
+    # 44-84 ms a tick) and every other cell 600 (config5 200), so the script
+    # keeps inside its time limit with the long-horizon phase beside them.
+    full_cells = (("config2", 600), ("config3", 600), ("config4", 600), ("config5", 200),
+                  ("config6", 400), ("config6r", 400), ("config3p", 600), ("config8", 400),
+                  ("config9", 600), ("config10", 400), ("config4c", 600), ("config7", 600))
     for name, ticks in full_cells:
         cfg, batch = PRESETS[name]
         torch.cuda.synchronize()
@@ -480,6 +648,14 @@ def main() -> int:
         del final, metrics, s, inp, info
         torch.cuda.empty_cache()
 
+    emit({"phase": "phase_end", "name": "full_width", "seconds": time.perf_counter() - t_start})
+
+    # ---- 4b: the long-horizon path, config6 with log matching at 1,000 ---------
+    long_cell = long_run(dev, hold_ticks, wall_ms)
+    cells.append(long_cell)
+    total_launches += long_cell["launches"]
+    emit({"phase": "phase_end", "name": "long_run", "seconds": time.perf_counter() - t_start})
+
     # ---- 5: the port's bench row, card vs CPU -----------------------------------
     cfg2 = PRESETS["config2"][0]
     row_g = bench.bench(cfg2, 64, 200, repeats=2, quality_seeds=3, config_name="config2", device=dev)
@@ -514,7 +690,8 @@ def main() -> int:
         "match": True,
         "measured_at": f"{main_cell['preset']} batch {main_cell['batch']}",
         "cells": {c["preset"]: {k: c[k] for k in ("batch", "kernel_ms", "bound_ms", "plain_ms",
-                                                  "launches", "kernel_vs_plain_ticks", "shape")}
+                                                  "launches", "kernel_vs_plain_ticks", "shape")
+                                if k in c}
                   for c in cells},
     }]})
     print(smi, flush=True)

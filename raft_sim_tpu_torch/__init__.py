@@ -9,8 +9,11 @@ torch and numpy only -- never jax, and nothing of raft_sim_tpu.
 Main path: `sim.scan.simulate(cfg, seed, batch, n_ticks, device="cuda")` on
 presets config1-config6, config6r, config3p, config4c, config7 (N=101),
 config8, config9 and config10 -- the kernel takes any N from 2 to 255;
-CLI: `python -m raft_sim_tpu_torch run --preset ...`, and
-`python -m raft_sim_tpu_torch bench` for the bench rows (bench.py).
+long runs: `driver.Session` (chunked runs, checkpoints in the JAX package's
+file format, the apply-log stream); CLI: `python -m raft_sim_tpu_torch run
+--preset ...` (with --chunk, --save, --resume, --apply-log and one flag per
+RaftConfig field), and `python -m raft_sim_tpu_torch bench` for the bench
+rows (bench.py).
 """
 
 from raft_sim_tpu_torch.types import (

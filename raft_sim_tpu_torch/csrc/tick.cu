@@ -33,8 +33,12 @@
 // `smem_bytes`); a __syncthreads() ends each of the seven phases, and every
 // thread reaches every barrier (a thread past the ragged batch edge, or
 // whose second node slot is >= N, skips the work only). Log matching reads
-// the max-commit node's output log rows, which its own thread of the same
-// block wrote before the last barriers.
+// the max-commit node's output log rows (prefix layout) or, on the ring,
+// every higher-id partner's output rows, commit, base and base checksum,
+// which their own threads of the same block wrote before the last barriers.
+// The ring form is O(N^2 x CAP) a cluster on the ticks it is due (10 pairs x
+// 32 slots = 320 slot visits a cluster at config6; 5,050 x 16 = 80,800 at
+// N=101 and CAP=16); `log_matching_interval` spaces it out.
 //
 // What bounds it on an H100: memory, at 100,000 clusters -- the tick is
 // integer compare/select work against the leaves it must read once and write

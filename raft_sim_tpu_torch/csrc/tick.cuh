@@ -70,7 +70,8 @@
 // leg whose gate is off gets a null pointer and is never touched (the wrapper
 // passes it through). A worker reads back only output rows of its own node,
 // except log matching (phase 5), which reads the max-commit node's log rows
-// after the barriers that end every log write.
+// (prefix layout) or every higher-id partner's log rows, commit, base and
+// base checksum (ring layout) after the barriers that end every such write.
 //
 // Log layout: without compaction 1-based entry i sits at slot i - 1; under
 // compaction (P.comp) at slot (i - 1) mod CAP, with the live entries
@@ -155,7 +156,7 @@ enum Ptr {
   F_N_LEADERS, F_MAX_TERM, F_MAX_COMMIT, F_MIN_COMMIT, F_MSGS_DELIVERED,
   F_CMDS_INJECTED, F_LAT_SUM, F_LAT_CNT, F_LAT_HIST, F_LAT_EXCLUDED,
   F_NOOP_BLOCKED, F_READS_SERVED, F_READ_LAT_SUM, F_READ_HIST,
-  F_VIOL_READ_STALE, F_FSYNC_LAG_SUM, F_FSYNC_LAG_MAX,
+  F_VIOL_READ_STALE, F_FSYNC_LAG_SUM, F_FSYNC_LAG_MAX, F_LM_SKIPPED_PAIRS,
   N_PTR
 };
 
@@ -374,7 +375,7 @@ enum AccField {
   A_MSGS, A_CMDS, A_LAT_SUM, A_LAT_CNT, A_CROSSED, A_NOOP_BLOCKED, A_READS, A_READ_LAT_SUM,
   A_VIOL_STALE, A_LAG_SUM, A_LAG_MAX, A_CHK_BAD, A_VIOL_ELECTION, A_VIOL_COMMIT,
   A_VIOL_MATCH, A_LEADER, A_N_LEADERS, A_MAX_TERM, A_MAX_COMMIT, A_MIN_COMMIT,
-  A_HIST, A_READ_HIST = A_HIST + BINS, NACC = A_READ_HIST + BINS
+  A_HIST, A_READ_HIST = A_HIST + BINS, A_LM_SKIPPED = A_READ_HIST + BINS, NACC
 };
 
 // Exchange bytes for a tile of `tc` clusters of `n` nodes (at n's width tier).
@@ -1479,15 +1480,61 @@ RS_HD void phase_outbox_and_state(RS_PHASE_ARGS) {
   acc_min(X.acc(A_MIN_COMMIT, ci), x.commit);
 }
 
+// Ring-form log matching of node i against every partner j > i (the JAX
+// `_step_info_b` ring form): for a comparable pair (min commit >= max base
+// mb), slot s of both rings is compared where both slots' absolute 0-based
+// indices lie in [mb, min commit), and each node's checksum at mb (its base
+// checksum plus its entries below mb, at their absolute indices) must equal
+// the other's. Partner j's final rows and header leaves are its outputs,
+// written before the last barriers; node i's are its own.
+template <int MW>
+RS_HD void ring_pair_checks(const TickParams& P, void* const* ptr, const NodeCtx<MW>& x,
+                            const Xch<MW>& X, int64_t b, int ci, int i) {
+  const int64_t B = P.b;
+  const int n = P.n, cap = P.cap;
+  const int32_t* log_term = RS_OUT(int32_t, O_LOG_TERM);
+  const int32_t* log_val = RS_OUT(int32_t, O_LOG_VAL);
+  const int32_t* commit_out = RS_OUT(int32_t, O_COMMIT_INDEX);
+  const int32_t* base_out = RS_OUT(int32_t, O_LOG_BASE);
+  const uint32_t* bchk_out = RS_OUT(uint32_t, O_BASE_CHK);
+  int skipped = 0;
+  bool bad = false;
+  for (int j = i + 1; j < n; ++j) {
+    const int bj = base_out[RS_AT1(j)];
+    const int minc = imin(x.commit, commit_out[RS_AT1(j)]), mb = imax(x.base, bj);
+    if (minc < mb) {
+      ++skipped;
+      continue;
+    }
+    if (bad) continue;
+    uint32_t chk_i = x.bchk, chk_j = bchk_out[RS_AT1(j)];
+    for (int sl = 0; sl < cap; ++sl) {
+      const int ai = x.base + pmod(sl - x.base, cap), aj = bj + pmod(sl - bj, cap);
+      const int ti = log_term[RS_AT2(i, sl, cap)], vi = log_val[RS_AT2(i, sl, cap)];
+      const int tj = log_term[RS_AT2(j, sl, cap)], vj = log_val[RS_AT2(j, sl, cap)];
+      if (ai >= mb && ai < minc && aj >= mb && aj < minc && (ti != tj || vi != vj)) bad = true;
+      if (ai < mb) chk_i += (uint32_t)ti * chk_w_term((uint32_t)ai) + (uint32_t)vi * chk_w_val((uint32_t)ai);
+      if (aj < mb) chk_j += (uint32_t)tj * chk_w_term((uint32_t)aj) + (uint32_t)vj * chk_w_val((uint32_t)aj);
+    }
+    if (chk_i != chk_j) bad = true;
+  }
+  if (skipped) acc_add(X.acc(A_LM_SKIPPED, ci), skipped);
+  if (bad) acc_max(X.acc(A_VIOL_MATCH, ci), 1);
+}
+
 // ---- phase 5: the pairwise checks. Two leaders of one term break election
-// safety. Every pair agrees on its common committed prefix iff every node
-// agrees with the max-commit node on its own committed prefix (equality is
-// transitive), so each node checks itself against that node's final log
-// rows (written by their own worker before the last barriers). Prefix layout
-// only: the wrapper refuses log matching under compaction. --------------
+// safety. Log matching, prefix layout: every pair agrees on its common
+// committed prefix iff every node agrees with the max-commit node on its own
+// committed prefix (equality is transitive), so each node checks itself
+// against that node's final log rows (written by their own worker before the
+// last barriers). On the ring (compaction) a pair is comparable only when
+// min(commit) >= max(base), so transitivity breaks at an incomparable pair:
+// each node checks every partner j > i from j's final rows, commit, base and
+// base checksum (`ring_pair_checks`), and counts the incomparable pairs. --
 template <class IdxT, class AckT, class NodeT, int MW, bool FULL>
 RS_HD void phase_pair_checks(RS_PHASE_ARGS) {
   using XT = XTail<MW>;
+  const Gates g(P, FULL);
   const int64_t B = P.b;
   const int n = P.n, cap = P.cap;
   if (P.check_invariants && x.role == LEADER) {
@@ -1497,7 +1544,9 @@ RS_HD void phase_pair_checks(RS_PHASE_ARGS) {
         break;
       }
   }
-  if (P.log_matching_due && i != x.hnode) {
+  if (g.comp) {
+    if (P.log_matching_due) ring_pair_checks<MW>(P, ptr, x, X, b, ci, i);
+  } else if (P.log_matching_due && i != x.hnode) {
     const int32_t* log_term = RS_OUT(int32_t, O_LOG_TERM);
     const int32_t* log_val = RS_OUT(int32_t, O_LOG_VAL);
     const int h = x.hnode;
@@ -1545,7 +1594,12 @@ RS_HD void cluster_info(const TickParams& P, void* const* ptr, const Xch<MW>& X,
   RS_OUT(int32_t, F_LAT_CNT)[b] = *X.acc(A_LAT_CNT, ci);
   for (int k = 0; k < BINS; ++k) RS_OUT(int32_t, F_LAT_HIST)[RS_AT1(k)] = *X.acc(A_HIST + k, ci);
   RS_OUT(int32_t, F_LAT_EXCLUDED)[b] = imax(*X.acc(A_CROSSED, ci) - *X.acc(A_LAT_CNT, ci), 0);
-  if (g.comp) RS_OUT(int32_t, F_NOOP_BLOCKED)[b] = *X.acc(A_NOOP_BLOCKED, ci);
+  if (g.comp) {
+    RS_OUT(int32_t, F_NOOP_BLOCKED)[b] = *X.acc(A_NOOP_BLOCKED, ci);
+    // Live under compaction with log matching on (zero off its cadence).
+    int32_t* skipped = RS_OUT(int32_t, F_LM_SKIPPED_PAIRS);
+    if (skipped) skipped[b] = *X.acc(A_LM_SKIPPED, ci);
+  }
   if (g.rdx) {
     RS_OUT(int32_t, F_READS_SERVED)[b] = *X.acc(A_READS, ci);
     RS_OUT(int32_t, F_READ_LAT_SUM)[b] = *X.acc(A_READ_LAT_SUM, ci);

@@ -9,6 +9,8 @@ old), each in its own process. Both build their states the same way: the
 preset's own batch, `simulate` through the kernel for WARM_TICKS ticks from
 seed 0, then the next tick's inputs; the port is bit-exact, so both time the
 same state. A cell the checkout's kernel refuses prints one "refused" line.
+Cells are presets, and config6-lm: config6 with log matching every tick
+(the ring form, K1-b).
 Per cell it prints one JSON line: device ms per launch (CUDA
 events over REPS back-to-back launches, `tick_engine.time_kernel`, as
 chip_smoke.py's full-width phase times it), the
@@ -20,6 +22,7 @@ and its power limit. Needs a card; exits 2 without one.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -34,7 +37,7 @@ BW_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 WARM_TICKS = 200  # ticks simulated before timing (config5's full-width run is 200 long)
 REPS = 20  # launches timed per cell
 CELLS = ("config2", "config3", "config4", "config5", "config3p", "config6", "config6r", "config8",
-         "config9", "config10", "config4c", "config7")
+         "config9", "config10", "config4c", "config7", "config6-lm")
 
 
 def main(argv=None) -> int:
@@ -64,7 +67,9 @@ def main(argv=None) -> int:
     tick_engine._load_cuda()
     print(json.dumps({"root": root, "build_s": time.perf_counter() - t0}), flush=True)
     for name in CELLS:
-        cfg, batch = PRESETS[name]
+        cfg, batch = PRESETS[name.removesuffix("-lm")]
+        if name.endswith("-lm"):
+            cfg = dataclasses.replace(cfg, check_log_matching=True)
         try:
             tick_engine.check_supported(cfg)
         except NotImplementedError as e:  # an older checkout's kernel refuses the cell

@@ -77,7 +77,7 @@ INFO_OUT = (
     "n_leaders", "max_term", "max_commit", "min_commit", "msgs_delivered",
     "cmds_injected", "lat_sum", "lat_cnt", "lat_hist", "lat_excluded",
     "noop_blocked", "reads_served", "read_lat_sum", "read_hist",
-    "viol_read_stale", "fsync_lag_sum", "fsync_lag_max",
+    "viol_read_stale", "fsync_lag_sum", "fsync_lag_max", "lm_skipped_pairs",
 )
 PTR_ORDER = (
     [("state", f) for f in STATE_IO]
@@ -139,6 +139,8 @@ _GATED = {
     "torn_drop": _dur,
     "fsync_lag_sum": _dur,
     "fsync_lag_max": _dur,
+    # Ring-form log matching counts the pairs it cannot compare.
+    "lm_skipped_pairs": lambda c: c.compaction and c.check_log_matching,
 }
 # Legs whose read and write sides differ: (read gate, write gate). log_base
 # and base_chk are read on every config (a restart resumes commit at the

@@ -22,9 +22,10 @@ storage plane (`dur`: fsync watermarks, the durability gate on acks and vote
 grants, crash recovery to the durable snapshot). Every other structural
 gate raises NotImplementedError naming the gate (`unsupported_gates`): the
 compacted layout, trace tracking, serve ingest
-(writes and reads: their overrides come from the serve plane), log matching
-under compaction (the JAX ring form with `lm_skipped_pairs` is not ported),
-and a TEST-ONLY mutant hook turned off. Gated-off legs pass through
+(writes and reads: their overrides come from the serve plane), and a
+TEST-ONLY mutant hook turned off. Under compaction log matching takes the
+JAX ring form (comparable pairs, checksums at the larger base) and counts
+the pairs it cannot compare (`lm_skipped_pairs`). Gated-off legs pass through
 untouched; gated-off StepInfo leaves are zeros with the JAX dtype and shape.
 """
 
@@ -76,7 +77,6 @@ def unsupported_gates(cfg: RaftConfig) -> list[str]:
         ("track_trace", cfg.track_trace),
         ("serve_ingest", cfg.serve_ingest),
         ("serve_reads", cfg.serve_reads),
-        ("log matching under compaction", cfg.compaction and cfg.check_log_matching),
     ]
     checks += [(f"mutant hook {h}", not getattr(cfg, h)) for h in MUTANT_HOOKS]
     return [name for name, on in checks if on]
@@ -967,15 +967,18 @@ def _step_info_b(
     else:
         viol_election = f
         viol_commit = f
-    if lm_due:
+    if lm_due and cfg.compaction:
+        viol_match, lm_skipped = _ring_log_matching(cfg, new)
+    elif lm_due:
         minc = torch.minimum(new.commit_index[:, None, :], new.commit_index[None, :, :])
         differ = (new.log_term[:, None] != new.log_term[None, :]) | (
             new.log_val[:, None] != new.log_val[None, :]
         )  # [N, N, CAP, B]
         slots = torch.arange(cfg.log_capacity, dtype=I32, device=dev)[None, None, :, None]
         viol_match = ((slots < minc[:, :, None, :]) & differ).flatten(0, 2).any(0)
+        lm_skipped = z
     else:
-        viol_match = f
+        viol_match, lm_skipped = f, z
     leader = torch.where(live_leader, ids1, n).amin(0)
     return StepInfo(
         viol_election_safety=viol_election,
@@ -993,7 +996,7 @@ def _step_info_b(
         lat_hist=lat_hist,
         lat_excluded=lat_excluded,
         noop_blocked=noop_blocked,
-        lm_skipped_pairs=z,
+        lm_skipped_pairs=lm_skipped,
         reads_served=reads_served,
         read_lat_sum=read_lat_sum,
         read_hist=read_hist,
@@ -1001,3 +1004,31 @@ def _step_info_b(
         fsync_lag_sum=fsync_lag_sum,
         fsync_lag_max=fsync_lag_max,
     )
+
+
+def _ring_log_matching(cfg, new):
+    """Log matching on the ring (the JAX `_step_info_b` ring form): a pair of
+    nodes is comparable when min(commit) >= max(base). For such a pair, slot s
+    of both rings is compared where both slots' absolute 0-based indices lie
+    in [max base, min commit), and each node's checksum at the larger base
+    (its base_chk plus its entries below that base) must equal the other's.
+    Returns (violation [B], incomparable unordered pairs [B] int32)."""
+    dev = new.role.device
+    abs0, contrib = log_ops.ring_contrib(new.log_term, new.log_val, new.log_base)  # [N, CAP, B]
+    bb = new.log_base.to(torch.int64)  # [N, B]
+    minc = torch.minimum(new.commit_index[:, None, :], new.commit_index[None, :, :]).to(torch.int64)
+    mb = torch.maximum(bb[:, None, :], bb[None, :, :])  # [N, N, B]
+    comparable = minc >= mb
+    lo, hi = mb[:, :, None, :], minc[:, :, None, :]
+    in_i = (abs0[:, None] >= lo) & (abs0[:, None] < hi)  # [N(i), N(j), CAP, B]
+    in_j = (abs0[None, :] >= lo) & (abs0[None, :] < hi)
+    differ = (new.log_term[:, None] != new.log_term[None, :]) | (
+        new.log_val[:, None] != new.log_val[None, :]
+    )
+    viol_suffix = (comparable[:, :, None, :] & in_i & in_j & differ).flatten(0, 2).any(0)
+    below = torch.where(abs0[:, None] < lo, contrib[:, None], torch.zeros((), dtype=torch.int64, device=dev))
+    chk_at_mb = ((new.base_chk.to(torch.int64) & bitplane.MASK32)[:, None, :] + below.sum(2)) & bitplane.MASK32
+    viol_prefix = (comparable & (chk_at_mb != chk_at_mb.transpose(0, 1))).flatten(0, 1).any(0)
+    eye3 = torch.eye(cfg.n_nodes, dtype=torch.bool, device=dev)[:, :, None]
+    skipped = ((~comparable & ~eye3).flatten(0, 1).sum(0) // 2).to(I32)
+    return viol_suffix | viol_prefix, skipped

@@ -139,19 +139,27 @@ def write_window_rb(arr, start0, vals, gate, lo, count) -> torch.Tensor:
     return torch.where(hit, val, arr)
 
 
+def ring_contrib(log_term, log_val, base):
+    """(abs0, contrib): the 0-based absolute entry index of each ring slot,
+    and the slot's checksum term at that index, as int64 in [0, 2^32).
+    log_term/log_val [N, CAP, B]; base [N, B] -> two [N, CAP, B]."""
+    cap = log_term.shape[1]
+    s = torch.arange(cap, dtype=torch.int64, device=log_term.device)[None, :, None]
+    b64 = base.to(torch.int64)[:, None, :]
+    abs0 = b64 + (s - b64) % cap
+    w_t, w_v = chk_weights_at(abs0)
+    contrib = (
+        (log_term.to(torch.int64) & MASK32) * w_t + (log_val.to(torch.int64) & MASK32) * w_v
+    ) & MASK32
+    return abs0, contrib
+
+
 def ring_chk_b(log_term, log_val, base, uptos):
     """Checksums over the live ring entries (base, upto] for each upto in
     `uptos`, weighted by absolute entry index (the ring form of prefix_chk2_b;
     equal to it for base == 0). log_term/log_val [N, CAP, B]; base and each
     upto [N, B] -> a tuple of int32-carried uint32 [N, B]."""
-    cap = log_term.shape[1]
-    s = torch.arange(cap, dtype=torch.int64, device=log_term.device)[None, :, None]
-    b64 = base.to(torch.int64)[:, None, :]
-    abs0 = b64 + (s - b64) % cap  # [N, CAP, B] 0-based entry index of slot s
-    w_t, w_v = chk_weights_at(abs0)
-    contrib = (
-        (log_term.to(torch.int64) & MASK32) * w_t + (log_val.to(torch.int64) & MASK32) * w_v
-    ) & MASK32
+    abs0, contrib = ring_contrib(log_term, log_val, base)
     z = torch.zeros((), dtype=torch.int64, device=log_term.device)
     return tuple(
         i32(torch.where(abs0 < u.to(torch.int64)[:, None, :], contrib, z).sum(1)) for u in uptos

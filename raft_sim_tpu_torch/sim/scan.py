@@ -154,11 +154,19 @@ def run_batch_minor(
     batch = state.role.shape[0]
     if now is None:
         now = int(state.now.reshape(-1)[0]) if batch else 0
-    s = raft_batched.to_batch_minor(state)
-    m = raft_batched.to_batch_minor(init_metrics_batch(batch, state.role.device))
+    s, m = run_minor(cfg, raft_batched.to_batch_minor(state), keys, n_ticks, now, step_fn)
+    return raft_batched.from_batch_minor(s), raft_batched.from_batch_minor(m)
+
+
+def run_minor(cfg: RaftConfig, s: ClusterState, keys: torch.Tensor, n_ticks: int, now: int,
+              step_fn=None):
+    """`n_ticks` ticks from a batch-minor state `s` whose lockstep tick is the
+    host's `now`; returns (state, RunMetrics of these ticks), batch-minor."""
+    batch = s.role.shape[-1]
+    m = raft_batched.to_batch_minor(init_metrics_batch(batch, s.role.device))
     for t in range(now, now + n_ticks):
         s, m, _ = tick_batch_minor(cfg, s, keys, m, t, step_fn=step_fn)
-    return raft_batched.from_batch_minor(s), raft_batched.from_batch_minor(m)
+    return s, m
 
 
 def simulate(
@@ -168,12 +176,16 @@ def simulate(
     `device`. Same key derivation as the JAX `simulate` (root key, split into
     init and run streams), so the result equals it leaf for leaf. `step_fn`
     overrides the tick (default: kernels/tick_engine.step_cuda)."""
-    dev = device_mod.resolve(device)
-    root = threefry.key(seed, dev)
-    k_init, k_run = threefry.split(root, 2).unbind(dim=-2)
-    state = init_batch(cfg, k_init, batch)
-    keys = threefry.split(k_run, batch)
+    state, keys = seed_fleet(cfg, seed, batch, device_mod.resolve(device))
     return run_batch_minor(cfg, state, keys, n_ticks, step_fn=step_fn, now=0)
+
+
+def seed_fleet(cfg: RaftConfig, seed: int, batch: int, device):
+    """(state, keys) of a fresh fleet on `device`: the JAX key derivation (the
+    root key split into init and run streams, the run stream split per
+    cluster), so runs from it equal the JAX package's on the same seed."""
+    k_init, k_run = threefry.split(threefry.key(seed, device), 2).unbind(dim=-2)
+    return init_batch(cfg, k_init, batch), threefry.split(k_run, batch)
 
 
 def stable_leader_ticks(metrics: RunMetrics) -> torch.Tensor:

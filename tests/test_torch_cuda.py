@@ -74,7 +74,21 @@ SMALL_AND_RAGGED = (
     + [(name, 45) for name in ("config2", "config5", "config3p", "config6", "config6r", "config8",
                                "config9", "config10", "config4c", "config7")]
     + [("config7-n128", 45), ("config7-n255-partitions", 45)]
+    + [("config6-cap8-lm", 45), ("config7-n101-compaction-lm", 45)]
 )
+
+# Log matching on the compacting ring (K1-b): config6 and config9 with the
+# check every tick, config6 on an 8-slot ring (incomparable pairs), and
+# config7's mix at N=101 compacting (two nodes a thread, width tier 4).
+RING_LM = {
+    "config6-lm": dataclasses.replace(tconfig.PRESETS["config6"][0], check_log_matching=True),
+    "config9-lm": dataclasses.replace(tconfig.PRESETS["config9"][0], check_log_matching=True),
+    "config6-cap8-lm": dataclasses.replace(tconfig.PRESETS["config6"][0], log_capacity=8,
+                                           compact_margin=4, max_entries_per_rpc=2,
+                                           client_interval=2, check_log_matching=True),
+    "config7-n101-compaction-lm": dataclasses.replace(tconfig.PRESETS["config7"][0], compact_margin=4,
+                                                      check_log_matching=True),
+}
 
 
 def _small_cfg(name):
@@ -83,7 +97,56 @@ def _small_cfg(name):
         return dataclasses.replace(cfg7, n_nodes=128)
     if name == "config7-n255-partitions":
         return dataclasses.replace(cfg7, n_nodes=255, partition_period=32, partition_prob=0.25)
+    if name in RING_LM:
+        return RING_LM[name]
     return tconfig.PRESETS[name][0]
+
+
+@pytest.mark.parametrize(
+    "name,batch,ticks",
+    [("config6-lm", 200, 400), ("config9-lm", 200, 400), ("config6-cap8-lm", 200, 200),
+     ("config7-n101-compaction-lm", 45, 96)],
+)
+def test_step_cuda_matches_plain_step_ring_log_matching(card, name, batch, ticks):
+    """K1-b: the kernel's ring-form log matching (every partner pair, the
+    checksum at the larger base, the skipped-pair count) equals the plain
+    tick every tick, and the 8-slot ring meets incomparable pairs."""
+    cfg = RING_LM[name]
+    s = trb.to_batch_minor(ttypes.init_batch(cfg, threefry.key(0, card), batch))
+    keys = threefry.split(threefry.key(1, card), batch)
+    skipped = 0
+    for t in range(ticks):
+        inp = trb.to_batch_minor(faults.make_inputs(cfg, keys, t))
+        want = trb.step_b(cfg, s, inp, t)
+        got = tick_engine.step_cuda(cfg, s, inp, t)
+        diff = bridge.first_difference(want[0], got[0]) or bridge.first_difference(want[1], got[1])
+        assert diff is None, f"tick {t}: {diff}"
+        skipped += int(got[1].lm_skipped_pairs.sum())
+        assert not bool(got[1].viol_log_matching.any()), t
+        s = got[0]
+    assert int(s.log_base.max()) > 0
+    if name == "config6-cap8-lm":
+        assert skipped > 0
+
+
+def test_session_resume_on_the_card_equals_one_run(card, tmp_path):
+    """The long-horizon path on the card: a Session of config6 with log
+    matching, run 96 ticks, saved, restored and run 96 more, equals one
+    uninterrupted 192-tick Session and the same run on the CPU."""
+    from raft_sim_tpu_torch.driver import Session
+
+    cfg = RING_LM["config6-lm"]
+    whole = Session(cfg, batch=64, seed=3, device=card)
+    whole.run(192, chunk=32)
+    half = Session(cfg, batch=64, seed=3, device=card)
+    half.run(96, chunk=32)
+    again = Session.restore(half.save(str(tmp_path / "ck")), device=card)
+    again.run(96, chunk=32)
+    cpu = Session(cfg, batch=64, seed=3, device="cpu")
+    cpu.run(192, chunk=64)
+    for got in (again, cpu):
+        assert bridge.first_difference(whole.state, got.state) is None
+        assert bridge.first_difference(whole.metrics, got.metrics) is None
 
 
 @pytest.mark.parametrize("name,batch", SMALL_AND_RAGGED)
@@ -92,7 +155,7 @@ def test_step_cuda_matches_plain_step_on_small_and_ragged_batches(card, name, ba
     compute-sanitizer --tool racecheck --kernel-name kns=tick_kernel
         python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -k "ragged and not proxy"
     """
-    _hold(_small_cfg(name), batch, 96 if name in tconfig.PRESETS else 64, card)
+    _hold(_small_cfg(name), batch, 96 if name in tconfig.PRESETS or name in RING_LM else 64, card)
 
 
 @pytest.mark.parametrize("name,batch", SMALL_AND_RAGGED)
@@ -102,7 +165,8 @@ def test_race_proxy_matches_plain_step_on_small_and_ragged_batches(card, name, b
     its last reader's phase is over) equals the plain tick on the same rows.
     A proxy for a race checker, not one: it shows that no read depends on
     the thread order or outlives the barrier schedule on these inputs."""
-    _hold(_small_cfg(name), batch, 96 if name in tconfig.PRESETS else 64, card, proxy=True)
+    _hold(_small_cfg(name), batch, 96 if name in tconfig.PRESETS or name in RING_LM else 64, card,
+          proxy=True)
 
 
 @pytest.mark.parametrize("name", ["config2", "config4", "config6r", "config8", "config9", "config10",

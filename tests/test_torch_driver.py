@@ -1,0 +1,128 @@
+"""The port's `run` subcommand and Session (raft_sim_tpu_torch/driver.py) on
+the CPU: a run saved and resumed equals one uninterrupted run, leaf for leaf
+in the checkpoint and field for field in the printed summary; --resume is
+exclusive with every flag that sets the experiment; each RaftConfig field
+has a flag that reaches the config; flags the port has not taken are unknown
+to the parser. The default device (the card) is tested in
+tests/test_torch_simulate.py.
+"""
+
+import argparse
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from raft_sim_tpu_torch import __main__ as cli
+from raft_sim_tpu_torch import driver
+from raft_sim_tpu_torch.utils import config as tconfig
+
+REPO = Path(__file__).resolve().parent.parent
+RUN = ("run", "--device", "cpu", "--chunk", "16")
+LM6 = ("--preset", "config6", "--check-log-matching", "true", "--batch", "3")
+
+
+def _run_cli(*args):
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-m", "raft_sim_tpu_torch", *args],
+                          capture_output=True, text=True, cwd=REPO, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    for k in ("wall_s", "cluster_ticks_per_s"):
+        out.pop(k)
+    return out
+
+
+def test_save_then_resume_equals_one_run(tmp_path):
+    """`run ... --chunk 16 --save X` for 48 ticks, then `run --resume X` for
+    48 more, equals one run of 96 ticks: every array of the two checkpoints
+    and every field of the final summary."""
+    x, y, z = (str(tmp_path / n) for n in ("x.npz", "y.npz", "z.npz"))
+    _run_cli(*RUN, *LM6, "--ticks", "48", "--save", x)
+    resumed = _run_cli(*RUN, "--resume", x, "--ticks", "48", "--save", y)
+    whole = _run_cli(*RUN, *LM6, "--ticks", "96", "--save", z)
+    assert resumed == whole
+    assert whole["total_violations"] == 0 and whole["device"] == "cpu"
+    with np.load(y) as zy, np.load(z) as zz:
+        assert sorted(zy.files) == sorted(zz.files)
+        for f in zz.files:
+            assert zy[f].dtype == zz[f].dtype and np.array_equal(zy[f], zz[f]), f
+        assert json.loads(bytes(zz["config_json"]).decode())["check_log_matching"] is True
+        assert int(zz["metrics_ticks"].min()) == 96
+
+
+def _parse(*args):
+    ap = argparse.ArgumentParser()
+    driver.add_run_arguments(ap)
+    return ap, ap.parse_args(list(args))
+
+
+def test_config_flags_reach_the_config():
+    """Every RaftConfig field has a flag; --check-log-matching true turns the
+    ring form on over config6, and the preset's batch is kept."""
+    ap, args = _parse("--preset", "config6", "--check-log-matching", "true",
+                      "--log-matching-interval", "4", "--drop-prob", "0.2")
+    cfg, batch = driver.build_config(args)
+    assert cfg == dataclasses.replace(tconfig.PRESETS["config6"][0], check_log_matching=True,
+                                      log_matching_interval=4, drop_prob=0.2)
+    assert batch == tconfig.PRESETS["config6"][1]
+    _, args = _parse("--check-log-matching", "no", "--batch", "7")
+    cfg, batch = driver.build_config(args)
+    assert cfg == tconfig.RaftConfig() and batch == 7
+
+
+@pytest.mark.parametrize(
+    "flags,named",
+    [
+        (("--check-log-matching", "true"), "check_log_matching"),
+        (("--preset", "config6"), "preset"),
+        (("--batch", "4"), "batch"),
+        (("--seed", "3"), "seed"),
+    ],
+    ids=["config-field", "preset", "batch", "seed"],
+)
+def test_resume_is_exclusive_with_config_flags(capsys, flags, named):
+    with pytest.raises(SystemExit) as ex:
+        cli.main(["run", "--device", "cpu", "--resume", "ck.npz", *flags])
+    assert ex.value.code == 2
+    err = capsys.readouterr().err
+    assert "--resume is exclusive with config flags" in err and named in err
+
+
+@pytest.mark.parametrize("flag", ["--mutant", "--telemetry-dir", "--trace", "--perf", "--health",
+                                  "--devices", "--sanitize", "--profile", "--backend"])
+def test_unported_flags_are_unknown(capsys, flag):
+    """A flag of the JAX `run` the port has not taken is refused, never
+    accepted and ignored."""
+    with pytest.raises(SystemExit) as ex:
+        cli.main(["run", "--device", "cpu", flag, "x"])
+    assert ex.value.code == 2
+    assert "unrecognized arguments" in capsys.readouterr().err
+
+
+def test_apply_cluster_out_of_range_is_a_usage_error(capsys):
+    with pytest.raises(SystemExit) as ex:
+        cli.main(["run", "--device", "cpu", "--batch", "2", "--ticks", "1",
+                  "--apply-log", "unused", "--apply-cluster", "2"])
+    assert ex.value.code == 2
+    assert "out of range" in capsys.readouterr().err
+
+
+def test_session_run_equals_simulate():
+    """A Session's chunked run equals `simulate` from the same seed."""
+    from raft_sim_tpu_torch import bridge
+    from raft_sim_tpu_torch.sim import scan
+
+    cfg = tconfig.PRESETS["config2"][0]
+    sess = driver.Session(cfg, batch=3, seed=4, device="cpu")
+    sess.run(30, chunk=7)
+    sess.run(20, chunk=50)
+    want_s, want_m = scan.simulate(cfg, 4, 3, 50, device="cpu")
+    assert bridge.first_difference(want_s, sess.state) is None
+    assert bridge.first_difference(want_m, sess.metrics) is None
+    assert sess.now == 50

@@ -50,13 +50,20 @@ CASES = [
     # four packed words a row, a client every 4 ticks under drop).
     pytest.param("config4c", 4, 100, id="config4c"),
     pytest.param("config7", 3, 40, id="config7"),
+    # Slice 7: config6 with log matching on its ring every tick, which
+    # counts incomparable pairs (lm_skipped_pairs).
+    pytest.param("config6-lm", 4, 200, id="config6-lm"),
 ]
 
 
 @pytest.mark.parametrize("name,batch,ticks", CASES)
 def test_simulate_matches_jax(name, batch, ticks):
-    jcfg, _ = rst.PRESETS[name]
-    tcfg, _ = tconfig.PRESETS[name]
+    lm = name.endswith("-lm")
+    jcfg, _ = rst.PRESETS[name.removesuffix("-lm")]
+    tcfg, _ = tconfig.PRESETS[name.removesuffix("-lm")]
+    if lm:
+        jcfg = dataclasses.replace(jcfg, check_log_matching=True)
+        tcfg = dataclasses.replace(tcfg, check_log_matching=True)
     want_s, want_m = jax.device_get(jscan.simulate(jcfg, 7, batch, ticks))
     got_s, got_m = tscan.simulate(tcfg, 7, batch, ticks, device="cpu")
     assert bridge.first_difference(want_s, got_s) is None
@@ -70,6 +77,8 @@ def test_simulate_matches_jax(name, batch, ticks):
         assert summary.fsync_lag_total > 0 and summary.fsync_lag_p95 is not None
     if tcfg.compaction:  # every cluster's ring wrapped
         assert int(got_s.log_base.amin()) > 0 and int(got_m.max_commit.amin()) > tcfg.log_capacity
+    if lm:  # the ring form met incomparable pairs
+        assert summary.lm_skipped_pairs > 0
 
 
 def test_summarize_matches_jax_with_latency_traffic():
@@ -117,7 +126,7 @@ def test_cli_presets():
     assert "config5: batch=10000" in proc.stdout
 
 
-def test_default_device_raises_without_a_card():
+def test_default_device_raises_without_a_card(tmp_path):
     """The entry points default to the card and never drop to the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is usable")
@@ -125,6 +134,19 @@ def test_default_device_raises_without_a_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tscan.simulate(cfg, 0, 2, 3)
     proc = _run_cli("run", "--preset", "config2", "--batch", "2", "--ticks", "3")
+    assert proc.returncode != 0 and "no CUDA device" in proc.stderr
+    # The long-horizon path: a Session, a checkpoint load and `run --resume`.
+    from raft_sim_tpu_torch.driver import Session
+    from raft_sim_tpu_torch.utils import checkpoint
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Session(cfg, batch=2)
+    path = Session(cfg, batch=2, device="cpu").save(str(tmp_path / "ck"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        checkpoint.load(path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Session.restore(path)
+    proc = _run_cli("run", "--resume", path, "--ticks", "3")
     assert proc.returncode != 0 and "no CUDA device" in proc.stderr
 
 

@@ -94,6 +94,13 @@ RECONFIG_PLANE = rst.RaftConfig(
     read_interval=3, drop_prob=0.2, crash_prob=0.4, crash_period=16, crash_down_ticks=8,
 )
 
+# config6 on an 8-slot ring with 2-entry windows and an offer every 2 ticks,
+# checking log matching every tick: snapshots and incomparable pairs.
+RING_LM_CAP8 = dataclasses.replace(
+    rst.PRESETS["config6"][0], log_capacity=8, compact_margin=4, max_entries_per_rpc=2,
+    client_interval=2, check_log_matching=True,
+)
+
 ROWS = [
     # tests/test_pallas.py's rows.
     pytest.param(rst.RaftConfig(n_nodes=3, log_capacity=8, max_entries_per_rpc=2), 8, 60, 0.0, id="n3-small"),
@@ -169,6 +176,14 @@ ROWS = [
                  id="config7-mix-n128"),
     pytest.param(dataclasses.replace(rst.PRESETS["config7"][0], n_nodes=255, partition_period=32,
                                      partition_prob=0.25), 2, 24, 0.0, id="config7-mix-n255-partitions"),
+    # Log matching on the compacting ring (the ring form, lm_skipped_pairs):
+    # config6 and config9 checked every tick and every 4th, and the
+    # fast-wrapping 8-slot ring, where followers fall behind the leader's
+    # base and many pairs are incomparable.
+    *(pytest.param(dataclasses.replace(rst.PRESETS[name][0], check_log_matching=True,
+                                       log_matching_interval=k), 4, ticks, 0.0, id=f"{name}-lm-every-{k}")
+      for name, ticks in (("config6", 160), ("config9", 260)) for k in (1, 4)),
+    pytest.param(RING_LM_CAP8, 4, 120, 0.06, id="config6-cap8-lm-crash-fuzz"),
 ]
 
 
@@ -473,6 +488,102 @@ def test_plain_step_matches_jax_on_recovery_word_edges(n):
         st = jstep(st, inp)[0]
 
 
+def ring_lm_cases():
+    """One-tick states for ring-form log matching, B=1: tests/test_metrics.py's
+    skipped-pair fixture (node 0 compacted past every other node's commit:
+    four incomparable pairs), and two planted faults on wrapped rings (CAP=8,
+    bases past the capacity) that only the ring form sees: a differing entry
+    inside the comparable suffix, and a differing entry below the larger
+    base, which only the checksum at that base compares. {name: (JAX cfg,
+    batch-minor JAX state, batch-minor quiet inputs, expected StepInfo
+    values)}."""
+    from tests.test_compaction import CFG as RING_CFG
+    from tests.test_compaction import hist, with_ring_log
+    from tests.test_handlers import base_state, quiet_inputs
+
+    cfg = dataclasses.replace(RING_CFG, check_log_matching=True)
+    lift = lambda t: jax.tree.map(lambda x: jnp.asarray(x)[..., None], t)  # noqa: E731
+    quiet = lift(quiet_inputs(cfg))
+    cases = {}
+    s = base_state(cfg)
+    s = with_ring_log(s, 0, base=6, entries=hist(6, 8), commit=8)
+    s = with_ring_log(s, 1, base=0, entries=hist(0, 2), commit=2)
+    cases["skipped-pairs"] = (cfg, lift(s), quiet, dict(lm_skipped_pairs=4, viol_log_matching=False))
+    good = with_ring_log(with_ring_log(base_state(cfg), 0, base=9, entries=hist(9, 14), commit=14),
+                         1, base=11, entries=hist(11, 16), commit=14)
+    cases["wrapped-rings-agree"] = (cfg, lift(good), quiet, dict(viol_log_matching=False))
+    # Node 1's entry 13 (slot 4 of both rings) differs: [max base, min commit)
+    # = [11, 14) holds it.
+    bad = good._replace(log_val=good.log_val.at[1, 12 % 8].set(4242))
+    cases["wrapped-suffix-mismatch"] = (cfg, lift(bad), quiet, dict(viol_log_matching=True))
+    # Node 0's entry 10 (absolute 0-based 9, below node 1's base 11) differs:
+    # only node 0's checksum at base 11 can see it.
+    bad = good._replace(log_val=good.log_val.at[0, 9 % 8].set(4242))
+    cases["wrapped-prefix-checksum-mismatch"] = (cfg, lift(bad), quiet, dict(viol_log_matching=True))
+    return cases
+
+
+RING_LM_CASES = ["skipped-pairs", "wrapped-rings-agree", "wrapped-suffix-mismatch",
+                 "wrapped-prefix-checksum-mismatch"]
+
+
+@pytest.mark.parametrize("name", RING_LM_CASES)
+def test_plain_step_matches_jax_on_ring_log_matching_states(name):
+    """The plain tick against JAX step_b on each fixture, with the JAX
+    StepInfo holding the expected verdict and skipped-pair count."""
+    jcfg, st, inp, expect = ring_lm_cases()[name]
+    want_s, want_i = jax.device_get(_jitted_step_b(jcfg)(st, inp))
+    for k, v in expect.items():
+        assert getattr(want_i, k).tolist() == [v], (k, getattr(want_i, k))
+    s_np, i_np = jax.device_get((st, inp))
+    got_s, got_i = trb.step_b(
+        _port_cfg(jcfg), bridge.to_port(s_np, ttypes.ClusterState), bridge.to_port(i_np, ttypes.StepInputs)
+    )
+    diff = bridge.first_difference(want_s, got_s) or bridge.first_difference(want_i, got_i)
+    assert diff is None, f"{name}: {diff}"
+
+
+@pytest.mark.parametrize(
+    "jcfg,warm",
+    [
+        pytest.param(RING_LM_CAP8, 80, id="config6-cap8-lm"),
+        pytest.param(dataclasses.replace(rst.PRESETS["config6"][0], check_log_matching=True), 180,
+                     id="config6-lm"),
+        # Due on the second of the two ticks only (post-tick now 264).
+        pytest.param(dataclasses.replace(rst.PRESETS["config9"][0], check_log_matching=True,
+                                         log_matching_interval=4), 262, id="config9-lm-every-4"),
+    ],
+)
+def test_plain_step_matches_step_pallas_interpret_ring_log_matching(jcfg, warm):
+    """K1-b: step_pallas (interpret mode) with log matching on a wrapped
+    ring, two ticks from a mid-run state (on the 8-slot ring, with
+    incomparable pairs)."""
+    cfg = _port_cfg(jcfg)
+    B = 4
+    st = jrb.to_batch_minor(rst.init_batch(jcfg, jax.random.key(11), B))
+    keys = jax.random.split(jax.random.key(12), B)
+    jstep = _jitted_step_b(jcfg)
+    draw = jax.jit(
+        lambda k, now: jrb.to_batch_minor(jax.vmap(lambda kk: jfaults.make_inputs(jcfg, kk, now))(k))
+    )
+    for t in range(warm):
+        st = jstep(st, draw(keys, jnp.int32(t)))[0]
+    assert int(np.asarray(st.log_base).min()) > 0  # every node has compacted
+    skipped = 0
+    for t in range(warm, warm + 2):
+        inp = draw(keys, jnp.int32(t))
+        want_s, want_i = jax.device_get(pallas_engine.step_pallas(jcfg, st, inp, block_b=4, interpret=True))
+        s_np, i_np = jax.device_get((st, inp))
+        got_s, got_i = trb.step_b(
+            cfg, bridge.to_port(s_np, ttypes.ClusterState), bridge.to_port(i_np, ttypes.StepInputs), t
+        )
+        assert bridge.first_difference(want_s, got_s) is None, t
+        assert bridge.first_difference(want_i, got_i) is None, t
+        skipped += int(np.asarray(want_i.lm_skipped_pairs).sum())
+        st = jstep(st, inp)[0]
+    assert skipped > 0 or jcfg is not RING_LM_CAP8
+
+
 def test_step_cuda_on_cpu_tensors_is_the_plain_step():
     """step_cuda dispatches CPU tensors to the plain tick (no kernel launch)."""
     before = tick_engine.step_cuda.launches
@@ -599,15 +710,16 @@ def test_plain_step_matches_step_pallas_interpret_durable_storage():
      dict(client_redirect=True, client_interval=4, client_pipeline=5),
      dict(reconfig_interval=10), dict(transfer_interval=10), dict(read_interval=3), LEASE_KW,
      dict(reconfig_interval=10, compact_margin=4, log_capacity=16),
-     dict(fsync_interval=3)],
+     dict(fsync_interval=3),
+     dict(compact_margin=4, log_capacity=16, check_log_matching=True)],
     ids=["pre_vote", "compaction", "client_redirect", "reconfig", "transfer", "reads", "lease",
-         "reconfig-under-compaction", "durable_storage"],
+         "reconfig-under-compaction", "durable_storage", "log matching under compaction"],
 )
 def test_ported_gates_are_accepted(kw):
     """PreVote, compaction, the redirect client, the reconfiguration plane
-    (membership, transfer, reads, leases; membership under compaction) and
-    the durable storage plane run through both the plain tick and the
-    kernel's gate check."""
+    (membership, transfer, reads, leases; membership under compaction), the
+    durable storage plane and log matching under compaction run through both
+    the plain tick and the kernel's gate check."""
     cfg = tconfig.RaftConfig(**kw)
     assert trb.unsupported_gates(cfg) == []
     tick_engine.check_supported(cfg)
@@ -659,8 +771,6 @@ class _VolatileVote(tconfig.RaftConfig):
 @pytest.mark.parametrize(
     "kw,gate",
     [
-        (dict(compact_margin=4, log_capacity=16, check_log_matching=True),
-         "log matching under compaction"),
         (dict(serve_reads=True), "serve_reads"),
         (dict(cls=_SingleServerChange, reconfig_interval=10), "mutant hook joint_consensus"),
         (dict(cls=_AckBeforeFsync, fsync_interval=3), "mutant hook durable_acks"),

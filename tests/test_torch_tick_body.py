@@ -31,9 +31,12 @@ from tests.test_torch_step import (
     DURABLE_PREVOTE_DENSE,
     HAND_BUILT,
     RECONFIG_CASES,
+    RING_LM_CAP8,
+    RING_LM_CASES,
     _port_cfg,
     hand_built_batch,
     reconfig_case_batch,
+    ring_lm_cases,
     storage_edge_case,
 )
 
@@ -65,6 +68,11 @@ def _fuzz(inp, rng, p_down):
     restarted = alive & torch.from_numpy(rng.random(tuple(inp.alive.shape)) < p_down)
     return inp._replace(alive=alive, restarted=restarted)
 
+
+# config7's mix (N=101, CAP=16, a client every 4 ticks, drop 0.05) on a
+# compacting ring with log matching every tick.
+N101_RING_LM = dataclasses.replace(tconfig.PRESETS["config7"][0], compact_margin=4,
+                                   check_log_matching=True)
 
 ROWS = [
     pytest.param(tconfig.RaftConfig(n_nodes=3, log_capacity=8, max_entries_per_rpc=2), 8, 120, 0.0, id="n3-small"),
@@ -188,6 +196,15 @@ ROWS = [
                            election_range_ticks=6, drop_prob=0.1),
         2, 60, 0.04, id="n129-durable-prevote-transfer-crash-fuzz",
     ),
+    # Log matching on the compacting ring (every partner pair, the checksum
+    # at the larger base, skipped pairs): config6 and config9 checked every
+    # tick and every 4th, the fast-wrapping 8-slot ring under crash fuzz, and
+    # config7's mix at N=101 compacting (two nodes a worker on the card).
+    *(pytest.param(dataclasses.replace(tconfig.PRESETS[name][0], check_log_matching=True,
+                                       log_matching_interval=k), 4, ticks, 0.0, id=f"{name}-lm-every-{k}")
+      for name, ticks in (("config6", 160), ("config9", 260)) for k in (1, 4)),
+    pytest.param(_port_cfg(RING_LM_CAP8), 4, 120, 0.06, id="config6-cap8-lm-crash-fuzz"),
+    pytest.param(N101_RING_LM, 2, 80, 0.0, id="config7-mix-n101-compaction-lm"),
 ]
 
 
@@ -271,6 +288,22 @@ def test_tick_body_matches_plain_step_on_reconfig_and_lease_states(host_lib, nam
         s = want[0]
 
 
+@pytest.mark.parametrize("name", RING_LM_CASES)
+def test_tick_body_matches_plain_step_on_ring_log_matching_states(host_lib, name):
+    """The skipped-pair fixture and the planted suffix and prefix-checksum
+    mismatches on wrapped rings of tests/test_torch_step.py, in both worker
+    orders with the race proxy's poison."""
+    jcfg, st, inp, _ = ring_lm_cases()[name]
+    cfg = _port_cfg(jcfg)
+    s = bridge.to_port(jax.device_get(st), ttypes.ClusterState)
+    inp = bridge.to_port(jax.device_get(inp), ttypes.StepInputs)
+    want = trb.step_b(cfg, s, inp)
+    for reverse in (False, True):
+        got = tick_engine.step_host(host_lib, cfg, s, inp, reverse=reverse, poison=True)
+        diff = bridge.first_difference(want[0], got[0]) or bridge.first_difference(want[1], got[1])
+        assert diff is None, f"{name}, reverse={reverse}: {diff}"
+
+
 @pytest.mark.parametrize("n", [31, 32, 33])
 def test_tick_body_matches_plain_step_on_recovery_word_edges(host_lib, n):
     """The word-edge recovery fixture of tests/test_torch_step.py (forced
@@ -314,9 +347,9 @@ def test_every_dense_cluster_size_is_taken(host_lib):
             assert host_lib.rs_tick_smem_bytes(n, tc) <= 232_448, (n, b, tc)
     assert tick_engine.block_shape(101, 1_000, 132) == (8, 64)
     assert tick_engine.block_shape(255, 1_000, 132) == (4, 128)
-    assert host_lib.rs_tick_smem_bytes(101, 8) == 82_464
-    assert host_lib.rs_tick_smem_bytes(255, 4) == 119_152
-    assert host_lib.rs_tick_smem_bytes(51, 16) == 78_400
+    assert host_lib.rs_tick_smem_bytes(101, 8) == 82_496
+    assert host_lib.rs_tick_smem_bytes(255, 4) == 119_168
+    assert host_lib.rs_tick_smem_bytes(51, 16) == 78_464
 
 
 def test_kernel_report_names_each_cells_instantiation(host_lib, monkeypatch):
@@ -453,3 +486,17 @@ def test_gated_legs_follow_the_config():
         ("inputs", "fsync_fire"), ("inputs", "torn_drop"),
         ("info_out", "fsync_lag_sum"), ("info_out", "fsync_lag_max"),
     }
+
+
+def test_lm_skipped_pairs_leg_is_live_only_with_ring_log_matching():
+    """The kernel writes StepInfo.lm_skipped_pairs only where the ring form
+    of log matching runs (compaction with log matching on); elsewhere the
+    wrapper hands back zeros."""
+    def live(cfg):
+        return {(g, f) for g, f in tick_engine.PTR_ORDER if tick_engine.leg_live(cfg, g, f)}
+
+    ring = tconfig.PRESETS["config6"][0]
+    assert live(dataclasses.replace(ring, check_log_matching=True)) - live(ring) == {
+        ("info_out", "lm_skipped_pairs")}
+    prefix = tconfig.PRESETS["config2"][0]
+    assert live(dataclasses.replace(prefix, check_log_matching=True)) == live(prefix)
