@@ -12,21 +12,21 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    gate set>), nine nvcc runs in parallel. The race proxy's library (below)
    builds in the background from here on.
 2. kernel_vs_plain -- presets config1-config5 and config3p for 96 ticks,
-   config6 and config6r for 200 (their CAP=32 rings wrap near tick 130),
-   config8, config9 and config10 for 200, at a batch of 200 (config1 at its
+   config6 and config6r for 160 (their CAP=32 rings wrap near tick 130),
+   config8, config9 and config10 for 160, at a batch of 200 (config1 at its
    batch of 1), config2 and config5 at a batch of 45 for 96 (a ragged last
    block of clusters at N=5 and at N=51, two nodes a thread), plus
    config6-cap8 (config6 on an
-   8-slot ring with 2-entry windows and an offer every 2 ticks) for 200
+   8-slot ring with 2-entry windows and an offer every 2 ticks) for 160
    ticks: every tick, the kernel (`step_cuda`) on the card equals the plain
    PyTorch tick (`raft_batched.step_b`) on the card from the same state and
    inputs, leaf for leaf; then `simulate` through the kernel equals
-   `simulate` through the plain tick for up to 96 ticks (the per-tick check
+   `simulate` through the plain tick for SIM_TICKS ticks (the per-tick check
    already covers the longer runs). Exact equality: the tick is
    integer-only. Over the slice-2 runs it counts restarts drawn, compactions
    (log_base advanced), InstallSnapshot sentinels sent (AppendEntries edges
    with offset -1) and redirect bounces to a down target (config6r), and
-   requires each above 0. config6 itself sends no sentinel in 400 ticks at
+   requires each above 0. config6 itself sends no sentinel in 160 ticks at
    this batch (no follower falls 24 entries behind); config6-cap8 does. Over
    config8 and config9 it counts the slice-3 events -- config entries
    appended (a node's cfg_epoch rising), joint exits, TimeoutNow requests
@@ -42,10 +42,11 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    adds config4c (200 x 96), config7 (N=101: 200 x 96 and a ragged 45 x 96),
    config7's mix dense at N=128 and at N=255 under partitions (45 x 64), and
    a full-gate row at N=101 (crash churn, compaction, PreVote, membership,
-   transfers, reads; 200 x 200), whose restarts, compactions, config
+   transfers, reads; 200 x 160), whose restarts, compactions, config
    appends, joint exits, TimeoutNow requests and reads must each be above 0
    (the `slice6_events` line). Slice 7 adds log matching on the compacting
-   ring (K1-b): config6 and config9 with the check every tick (200 x 400),
+   ring (K1-b): config6 and config9 with the check every tick (200 x 200 and
+   200 x 400),
    config6-cap8 with it (200 x 200; its incomparable pairs,
    `lm_skipped_pairs`, must sum above 0) and config7's mix at N=101
    compacting with it (45 x 96, width tier 4, two nodes a thread); each row
@@ -55,18 +56,18 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    field poisoned once its last reader's phase is over) equals the plain
    tick every tick on config1 and config7 at 1 cluster, on a ragged 45 of
    config2, config5, config3p, config6, config6r, config8, config9,
-   config10, config4c, config7 and config6-cap8 with log matching for 96
-   ticks, and on the N=128 and N=255 rows for 64. It stands in for a race
+   config10, config4c, config7 and config6-cap8 with log matching, and on
+   the N=128 and N=255 rows, for 64 ticks each. It stands in for a race
    checker, which the card's machine refuses.
 3. card_vs_cpu -- the port's `simulate` on the card equals the port on the CPU
-   (config2, config4 at 64 x 100; config6r, config3p, config8, config9,
-   config10 at 64 x 200; config7 at 16 x 100). The CPU tests hold the CPU
+   (config2, config4, config6r, config3p, config8, config9 and config10 at
+   64 x 100; config7 at 16 x 100). The CPU tests hold the CPU
    port equal to the JAX package.
 4. full_width -- the main path, `simulate` at the presets' own batch through the
    kernel: config2, config6, config6r, config7, config8, config9 and config10
    at 1,000 clusters, config3, config3p, config4 and config4c at 100,000, for
-   600 ticks (config6, config6r, config8 and config10 for 400), config5 at
-   10,000 for 200. Launch counts are zeroed just before each run
+   200 ticks (config6 and config6r 300, config9 and config4c 400: their
+   liveness checks need the depth), config5 at 10,000 for 200. Launch counts are zeroed just before each run
    and read just after; each must equal the tick count. Every run must have
    zero invariant violations (stale lease reads included) and a leader
    elected in every cluster, the client presets a commit in every cluster,
@@ -97,8 +98,28 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    FULL_HOLD_TICKS ticks of kernel == plain from the final state, and the
    kernel's ms a tick with and without log matching (CUDA events, in turns)
    against its bound, and the plain tick's.
+4c. serve -- the slice-8 path: the standing-fleet serve loop
+   (raft_sim_tpu_torch/serve/), every served tick one launch of the kernel
+   with the `serve_ingest`/`serve_reads` gates (K1-c). (a) Kernel == plain
+   tick every tick under served per-cluster planes at 200 clusters x
+   SERVE_T ticks: config9 under the bench's load (4 tenants, a command in
+   every (tick, cluster) slot, a read every other tick), config6r, config10
+   and config2 (the lean body; writes only), each split among 4 tenants;
+   every tenant must have commands acked (the commit-delta stream), and on
+   config9 reads served; then the race proxy on a ragged 45 of served
+   config9 and config2. (b) A served config9 ServeSession on the card
+   equals it on the CPU (16 clusters, a warmup and 2 serving chunks of 64):
+   state, metrics, window lines and delta rows. (c) The `config9-serve`
+   bench row at 1,000 clusters through ServeSession with a sink: launches
+   (zeroed before, read after) equal to the ticks run, zero violations,
+   every acknowledged write read back from a quorum of the final state's
+   nodes (`readback_check`), the sink valid, the tenants' window lines
+   summing to the fleet's; it prints ops/s, commands/s, reads/s, ms per
+   chunk, ms per extraction round (CUDA events), the kernel's ms a tick
+   served and unserved on the final state against its bound, the input
+   draws' ms, and a `kernel_shape` line.
 5. bench_row -- the port's bench (raft_sim_tpu_torch/bench.py) on config2 at
-   64 x 200 ticks, 3 quality seeds and 2 repeats, on the card and on the CPU:
+   64 x 100 ticks, 3 quality seeds and 2 repeats, on the card and on the CPU:
    every quality field equal; the card's row carries backend "cuda", the
    card's name and its power limit.
 6. The kernels line, the card's name and power limit, and the result line.
@@ -120,8 +141,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 BW_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 SEED = 0
 FULL_HOLD_TICKS = 16  # kernel-vs-plain ticks at full width, per cell
-LONG_T = 250  # long_run: the resumed run's half (2 x LONG_T uninterrupted)
+LONG_T = 150  # long_run: the resumed run's half (2 x LONG_T uninterrupted)
+SIM_TICKS = 32  # phase 2: ticks of `simulate` through the kernel vs the plain tick
 LONG_CHUNK = 50  # long_run's chunk: commit moves < CAP - margin a chunk
+SERVE_T = 256  # serve (a): ticks of kernel vs plain under served planes
+SERVE_CHUNKS = 8  # serve (c): serving chunks of the config9-serve row
 
 
 def emit(obj) -> None:
@@ -364,6 +388,232 @@ def long_run(dev, hold_ticks, wall_ms) -> dict:
     return cell
 
 
+def readback_check(rows: list[dict], state, quorum: int) -> dict:
+    """Every acknowledged write is held by a quorum of the final state's
+    nodes: for each delta row's entry (cluster c, 1-based index i, value
+    v), a node holds it if i is at or below its log_base (compacted into
+    its snapshot) or its log reaches i with v in i's ring slot; at least
+    `quorum` nodes must hold it, and no node whose commit index reaches i
+    may keep another value there. Returns the counts checked."""
+    import numpy as np
+
+    cl, idx, val = [], [], []
+    for row in rows:
+        n = len(row["values"])
+        cl.append(np.full(n, row["cluster"], np.int64))
+        idx.append(row["start"] + np.arange(n, dtype=np.int64))
+        val.append(np.asarray(row["values"], np.int64))
+    cl, idx, val = (np.concatenate(x) for x in (cl, idx, val))
+    log_val = state.log_val.cpu().numpy()  # [B, N, CAP]
+    cap = log_val.shape[-1]
+    base = state.log_base.cpu().numpy()[cl]  # [E, N]
+    length = state.log_len.cpu().numpy()[cl]
+    commit = state.commit_index.cpu().numpy()[cl]
+    at = log_val[cl, :, (idx - 1) % cap]  # [E, N]
+    live = idx[:, None] > base
+    match = at == val[:, None]
+    held = ~live | ((idx[:, None] <= length) & match)
+    bad = live & (idx[:, None] <= commit) & ~match
+    short = held.sum(axis=1) < quorum
+    if bad.any() or short.any():
+        e = int(np.flatnonzero(bad.any(axis=1) | short)[0])
+        raise AssertionError(f"serve: acked entry (cluster {cl[e]}, index {idx[e]}, value "
+                             f"{val[e]}) is held by {int(held[e].sum())} nodes, conflicts on "
+                             f"{int(bad[e].sum())}")
+    return {"entries": int(idx.size), "entries_uncompacted_somewhere": int(live.any(axis=1).sum()),
+            "min_holders": int(held.sum(axis=1).min()) if idx.size else None}
+
+
+def serve_phase(dev, wall_ms) -> dict:
+    """Phase 4c: the serve path (see the module docstring). Returns its cell."""
+    import shutil
+
+    import torch
+    from raft_sim_tpu_torch import bench
+    from raft_sim_tpu_torch.kernels import tick_engine
+    from raft_sim_tpu_torch.models import raft_batched
+    from raft_sim_tpu_torch.serve import ServeSession, TenantRouter
+    from raft_sim_tpu_torch.serve.deltas import DeltaStream
+    from raft_sim_tpu_torch.serve.loop import serve_config
+    from raft_sim_tpu_torch.sim import faults
+    from raft_sim_tpu_torch.types import init_batch
+    from raft_sim_tpu_torch.utils import threefry
+    from raft_sim_tpu_torch.utils.config import PRESETS
+    from raft_sim_tpu_torch.utils.telemetry_sink import TelemetrySink, read_windows, validate
+
+    work = os.path.join(HERE, "raft_sim_tpu_torch", "build", "serve")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+
+    def served_inputs(cfg, keys, t, cmds, reads, k):
+        inp = faults.make_inputs(cfg, keys, t)
+        inp = inp._replace(client_cmd=cmds[k])
+        if reads is not None:
+            inp = inp._replace(read_cmd=reads[k])
+        return raft_batched.to_batch_minor(inp)
+
+    def hold_served(name, cfg, batch, ticks, proxy=False):
+        """`ticks` ticks of kernel (or proxy) == plain under the bench load's
+        planes for `batch` clusters split among 4 tenants; returns the
+        per-tenant acks and reads."""
+        router = TenantRouter(bench.serve_tenants(batch, 4, reads=cfg.read_index), batch,
+                              cfg.read_index)
+        cmds_np, reads_np = router.pack(ticks)
+        cmds = torch.from_numpy(cmds_np).to(dev)
+        reads = None if reads_np is None else torch.from_numpy(reads_np).to(dev)
+        s = raft_batched.to_batch_minor(init_batch(cfg, threefry.key(SEED, dev), batch))
+        keys = threefry.split(threefry.key(SEED + 1, dev), batch)
+        served = torch.zeros(batch, dtype=torch.int64, device=dev)
+        viol = 0
+        for t in range(ticks):
+            inp = served_inputs(cfg, keys, t, cmds, reads, t)
+            ref_s, ref_i = raft_batched.step_b(cfg, s, inp, t)
+            got_s, got_i = tick_engine.step_cuda(cfg, s, inp, t, proxy=proxy)
+            check_equal(ref_s, got_s, f"serve {name} tick {t}: step_cuda state != step_b")
+            check_equal(ref_i, got_i, f"serve {name} tick {t}: step_cuda StepInfo != step_b")
+            served += got_i.reads_served
+            viol += int((got_i.viol_election_safety | got_i.viol_commit | got_i.viol_log_matching
+                         | got_i.viol_read_stale).sum())
+            s = got_s
+        router.route_deltas(DeltaStream(batch, depth=64, device=dev, batch_minor=True).drain(s))
+        acked = [len(t.acked_values) for t in router.tenants]
+        reads_t = [int(served[t.lo:t.hi].sum()) for t in router.tenants]
+        if viol or min(acked) <= 0 or (cfg.read_index and min(reads_t) <= 0):
+            raise AssertionError(f"serve {name}: violations {viol}, acked per tenant {acked}, "
+                                 f"reads per tenant {reads_t}")
+        return {"acked_per_tenant": acked, "reads_per_tenant": reads_t}
+
+    # ---- (a) kernel == plain under served planes, then the race proxy ------
+    rows = [(f"{name}-served", serve_config(PRESETS[name][0]))
+            for name in ("config9", "config6r", "config10", "config2")]
+    for name, cfg in rows:
+        out = hold_served(name, cfg, 200, SERVE_T)
+        emit({"phase": "serve_kernel_vs_plain", "preset": name, "batch": 200, "ticks": SERVE_T,
+              "per_tick": "equal", "max_abs_err": 0, **out})
+    for name, cfg in rows:
+        if name in ("config9-served", "config2-served"):
+            hold_served(name, cfg, 45, 96, proxy=True)
+            emit({"phase": "race_proxy", "preset": name, "batch": 45, "ticks": 96,
+                  "per_tick": "equal", "max_abs_err": 0})
+
+    # ---- (b) a served ServeSession, card == CPU -----------------------------
+    cfg9, batch9 = PRESETS["config9"]
+    small = {}
+    for label, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        sink = TelemetrySink(os.path.join(work, label), serve_config(cfg9), seed=2, batch=16,
+                             window=16, ring=0, source="serve", backend=d.type)
+        sess = ServeSession(cfg9, batch=16, seed=2, chunk=64, window=16, delta_depth=16, sink=sink,
+                            warmup_ticks=64, tenants=bench.serve_tenants(16, 4), device=d)
+        st = sess.serve(chunks=2)
+        st.pop("wall_s")
+        small[label] = (sess, st)
+    (g, g_st), (c, c_st) = small["card"], small["cpu"]
+    if g_st != c_st:
+        raise AssertionError(f"serve card_vs_cpu: stats {g_st} != {c_st}")
+    check_equal(c.state, g.state, "serve card_vs_cpu: state")
+    check_equal(c.metrics, g.metrics, "serve card_vs_cpu: metrics")
+    if c.delta_rows != g.delta_rows:
+        raise AssertionError("serve card_vs_cpu: delta rows differ")
+    for f in ("windows.jsonl", "deltas.jsonl", "tenants/t0/windows.jsonl"):
+        with open(os.path.join(work, "card", f), "rb") as a, open(os.path.join(work, "cpu", f), "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"serve card_vs_cpu: {f} differs")
+    emit({"phase": "serve_card_vs_cpu", "preset": "config9-served", "batch": 16, "chunks": 2,
+          "chunk": 64, "equal": ["state", "metrics", "stats", "delta_rows", "windows.jsonl",
+                                 "deltas.jsonl", "tenants"], "max_abs_err": 0, **g_st})
+    del small, g, c
+
+    # ---- (c) the config9-serve row at full width ----------------------------
+    scfg = serve_config(cfg9)
+    full_dir = os.path.join(work, "full")
+    sink = TelemetrySink(full_dir, scfg, seed=0, batch=batch9, window=64, ring=0, source="serve",
+                         backend="cuda")
+    torch.cuda.synchronize()
+    tick_engine.step_cuda.launches = 0
+    sess = ServeSession(cfg9, batch=batch9, seed=0, chunk=256, window=64, sink=sink,
+                        warmup_ticks=256, tenants=bench.serve_tenants(batch9, 4), device=dev)
+    stats = sess.serve(chunks=SERVE_CHUNKS)
+    torch.cuda.synchronize()
+    launches = tick_engine.step_cuda.launches
+    ticks_run = (sess.warmup_chunks + sess.chunks_done) * sess.chunk
+    if launches != ticks_run:
+        raise AssertionError(f"serve: {launches} kernel launches for {ticks_run} ticks")
+    if stats["violations"] != 0:
+        raise AssertionError(f"serve: {stats['violations']} violations")
+    row = bench.serve_row(sess, stats, "config9", 4, smoke=False)
+    state = sess.state
+    readback = readback_check(sess.delta_rows, state, scfg.quorum)
+    problems = validate(full_dir)
+    if problems:
+        raise AssertionError(f"serve: sink invalid: {problems[:5]}")
+    fleet = read_windows(full_dir)
+    per = [read_windows(os.path.join(full_dir, "tenants", t.name)) for t in sess.router.tenants]
+    for k, line in enumerate(fleet):
+        for field in ("cmds", "reads", "msgs", "violations", "lat_cnt"):
+            if line[field] != sum(p[k][field] for p in per):
+                raise AssertionError(f"serve: window {k} {field}: tenants do not sum to the fleet")
+    acked = [len(t.acked_values) for t in sess.router.tenants]
+    reads_t = [t.reads_served for t in sess.router.tenants]
+    if min(acked) <= 0 or min(reads_t) <= 0:
+        raise AssertionError(f"serve: a tenant got no acks or reads ({acked}, {reads_t})")
+
+    # The kernel on the final state: served inputs against the unserved
+    # preset's, in turns, with the input draws and the bound beside them.
+    s = sess._s
+    now = sess.now
+    cmds_np, reads_np = sess.router.pack(FULL_HOLD_TICKS)
+    cmds, reads = torch.from_numpy(cmds_np).to(dev), torch.from_numpy(reads_np).to(dev)
+    inp_served = served_inputs(scfg, sess.keys, now, cmds, reads, 0)
+    inp_plain = raft_batched.to_batch_minor(faults.make_inputs(cfg9, sess.keys, now))
+    served_ms, plain_cfg_ms = [], []
+    for _ in range(2):
+        served_ms.append(tick_engine.time_kernel(scfg, s, inp_served, reps=20, now=now))
+        plain_cfg_ms.append(tick_engine.time_kernel(cfg9, s, inp_plain, reps=20, now=now))
+    inputs_ms = wall_ms(lambda: faults.make_inputs(scfg, sess.keys, now), 5)
+    plain_ms = wall_ms(lambda: raft_batched.step_b(scfg, s, inp_served, now), 3)
+    # FULL_HOLD_TICKS more served ticks at full width: kernel == plain.
+    s_h = s
+    for k in range(FULL_HOLD_TICKS):
+        inp = served_inputs(scfg, sess.keys, now + k, cmds, reads, k)
+        ref_s, ref_i = raft_batched.step_b(scfg, s_h, inp, now + k)
+        got_s, got_i = tick_engine.step_cuda(scfg, s_h, inp, now + k)
+        check_equal(ref_s, got_s, f"serve full width tick {now + k}: step_cuda state != step_b")
+        check_equal(ref_i, got_i, f"serve full width tick {now + k}: step_cuda StepInfo != step_b")
+        s_h = got_s
+    rd, wr = tick_engine.traffic_bytes(scfg, batch9)
+    bound_ms = (rd + wr) / BW_BYTES_PER_S * 1e3
+    shape = tick_engine.launch_shape(scfg, batch9, dev)
+    shape.update(tick_engine.kernel_report(scfg, s, shape["nodes_per_thread"]), body="node-parallel")
+    emit({"phase": "kernel_shape", "preset": "config9-served", "batch": batch9, **shape})
+    syncs = sess.sync_times
+    chunk_ms = (syncs[-1] - syncs[0]) * 1e3 / (len(syncs) - 1)
+    kernel_ms = sum(served_ms) / len(served_ms)
+    cell = {
+        "phase": "serve", "preset": "config9-serve", "batch": batch9, "ticks": ticks_run,
+        "launches": launches, "violations": stats["violations"], "tenants": 4,
+        "chunk": sess.chunk, "chunks": stats["chunks"], "warmup_chunks": stats["warmup_chunks"],
+        "commands_acked": stats["commands_acked"], "reads_served": stats["reads_served"],
+        "ops_per_s": row["ops_per_s"], "commands_per_s": row["commands_per_s"],
+        "reads_per_s": row["reads_per_s"], "steady_ticks_per_s": row["steady_ticks_per_s"],
+        "wall_s": stats["wall_s"], "ms_per_chunk": chunk_ms, "ms_per_tick": chunk_ms / sess.chunk,
+        "extract_ms_per_round": row["extract_ms_per_round"],
+        "extract_rounds_per_chunk": sess._drain_rounds,
+        "kernel_ms": kernel_ms, "kernel_ms_runs": served_ms,
+        "kernel_ms_unserved": sum(plain_cfg_ms) / len(plain_cfg_ms),
+        "kernel_ms_unserved_runs": plain_cfg_ms, "bound_ms": bound_ms, "bytes_read": rd,
+        "bytes_written": wr, "bound_share": bound_ms / kernel_ms, "inputs_ms": inputs_ms,
+        "plain_ms": plain_ms, "acked_per_tenant": acked, "reads_per_tenant": reads_t,
+        "readback": readback, "sink_valid": True, "kernel_vs_plain_ticks": FULL_HOLD_TICKS,
+        "shape": shape,
+        "nvidia_smi": row["nvidia_smi"],
+    }
+    emit(cell)
+    del sess, state, s, s_h, inp, inp_served, inp_plain
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return cell
+
+
 def main() -> int:
     import collections
 
@@ -441,10 +691,10 @@ def main() -> int:
     parity += [(f"{name}-ragged-b45", PRESETS[name][0], 45, 96) for name in ("config2", "config5")]
     cap8 = dataclasses.replace(cfg6, log_capacity=8, compact_margin=4, max_entries_per_rpc=2,
                                client_interval=2)
-    parity += [("config6", cfg6, 200, 200), ("config6r", PRESETS["config6r"][0], 200, 200),
-               ("config6-cap8", cap8, 200, 200),
-               ("config8", PRESETS["config8"][0], 200, 200), ("config9", PRESETS["config9"][0], 200, 200),
-               ("config10", PRESETS["config10"][0], 200, 200)]
+    parity += [("config6", cfg6, 200, 160), ("config6r", PRESETS["config6r"][0], 200, 160),
+               ("config6-cap8", cap8, 200, 160),
+               ("config8", PRESETS["config8"][0], 200, 160), ("config9", PRESETS["config9"][0], 200, 160),
+               ("config10", PRESETS["config10"][0], 200, 160)]
     # Slice 6: config4c, and clusters above 64 nodes -- config7 (N=101, width
     # tier 4), its mix dense at N=128 (int16 node ids) and at N=255 (width
     # tier 8) under partitions, and the full gate body at N=101.
@@ -458,10 +708,11 @@ def main() -> int:
     parity += [("config4c", PRESETS["config4c"][0], 200, 96), ("config7", cfg7, 200, 96),
                ("config7-ragged-b45", cfg7, 45, 96)]
     parity += [(f"{name}-b45", cfg, 45, 64) for name, cfg in wide.items()]
-    parity += [("n101-full-gates", n101_full_gates(), 200, 200)]
+    parity += [("n101-full-gates", n101_full_gates(), 200, 160)]
     # Slice 7: log matching on the compacting ring (K1-b).
     ring_lm = {
-        "config6-lm": (dataclasses.replace(cfg6, check_log_matching=True), 200, 400),
+        "config6-lm": (dataclasses.replace(cfg6, check_log_matching=True), 200, 200),
+        # config9's CAP=64 ring first compacts near tick 300 at this batch.
         "config9-lm": (dataclasses.replace(PRESETS["config9"][0], check_log_matching=True), 200, 400),
         "config6-cap8-lm": (dataclasses.replace(cap8, check_log_matching=True), 200, 200),
         "config7-mix-n101-compaction-lm-b45": (
@@ -499,7 +750,7 @@ def main() -> int:
                 raise AssertionError(f"{name}: {slice7}")
             if name == "config6-cap8-lm" and slice7["lm_skipped_pairs"] <= 0:
                 raise AssertionError(f"{name}: no incomparable pair met ({slice7})")
-        sim_ticks = min(ticks, 96)
+        sim_ticks = min(ticks, SIM_TICKS)
         f_k, m_k = scan.simulate(cfg, SEED, batch, sim_ticks, device=dev)
         f_p, m_p = scan.simulate(cfg, SEED, batch, sim_ticks, device=dev, step_fn=raft_batched.step_b)
         check_equal(f_p, f_k, f"{name}: simulate state, kernel != plain")
@@ -538,12 +789,12 @@ def main() -> int:
     emit({"phase": "race_proxy_build", "waited_s": time.perf_counter() - t0,
           "nvcc_seconds": tick_engine.PROXY_BUILD_INFO.get("seconds"),
           "library": os.path.relpath(proxy_path, HERE)})
-    proxy_rows = [("config1", PRESETS["config1"][0], 1, 96), ("config7", cfg7, 1, 96)]
-    proxy_rows += [(name, PRESETS[name][0], 45, 96)
+    proxy_rows = [("config1", PRESETS["config1"][0], 1, 64), ("config7", cfg7, 1, 64)]
+    proxy_rows += [(name, PRESETS[name][0], 45, 64)
                    for name in ("config2", "config5", "config3p", "config6", "config6r", "config8",
                                 "config9", "config10", "config4c", "config7")]
     proxy_rows += [(name, cfg, 45, 64) for name, cfg in wide.items()]
-    proxy_rows += [("config6-cap8-lm", ring_lm["config6-cap8-lm"][0], 45, 96)]
+    proxy_rows += [("config6-cap8-lm", ring_lm["config6-cap8-lm"][0], 45, 64)]
     for name, cfg, batch, ticks in proxy_rows:
         s = raft_batched.to_batch_minor(init_batch(cfg, threefry.key(SEED, dev), batch))
         keys = threefry.split(threefry.key(SEED + 1, dev), batch)
@@ -553,9 +804,9 @@ def main() -> int:
     emit({"phase": "phase_end", "name": "race_proxy", "seconds": time.perf_counter() - t_start})
 
     # ---- 3: card vs CPU --------------------------------------------------------
-    for name, batch, ticks in (("config2", 64, 100), ("config4", 64, 100), ("config6r", 64, 200),
-                               ("config3p", 64, 200), ("config8", 64, 200), ("config9", 64, 200),
-                               ("config10", 64, 200), ("config7", 16, 100)):
+    for name, batch, ticks in (("config2", 64, 100), ("config4", 64, 100), ("config6r", 64, 100),
+                               ("config3p", 64, 100), ("config8", 64, 100), ("config9", 64, 100),
+                               ("config10", 64, 100), ("config7", 16, 100)):
         cfg, _ = PRESETS[name]
         f_g, m_g = scan.simulate(cfg, SEED, batch, ticks, device=dev)
         f_c, m_c = scan.simulate(cfg, SEED, batch, ticks, device="cpu")
@@ -568,12 +819,14 @@ def main() -> int:
     # ---- 4: full width, the main path -----------------------------------------
     cells = []
     total_launches = 0
-    # The four crash cells run 400 full-width ticks (their input draws take
-    # 44-84 ms a tick) and every other cell 600 (config5 200), so the script
-    # keeps inside its time limit with the long-horizon phase beside them.
-    full_cells = (("config2", 600), ("config3", 600), ("config4", 600), ("config5", 200),
-                  ("config6", 400), ("config6r", 400), ("config3p", 600), ("config8", 400),
-                  ("config9", 600), ("config10", 400), ("config4c", 600), ("config7", 600))
+    # 200 full-width ticks a cell, so the script keeps well inside its time
+    # limit with the long-horizon and serve phases beside them (the crash
+    # cells' input draws take 50-75 ms a tick); longer where a liveness check
+    # needs the depth: config6/config6r's and config9's rings must wrap
+    # (300 and 400), and every config4c cluster must commit (400).
+    full_cells = (("config2", 200), ("config3", 200), ("config4", 200), ("config5", 200),
+                  ("config6", 300), ("config6r", 300), ("config3p", 200), ("config8", 200),
+                  ("config9", 400), ("config10", 200), ("config4c", 400), ("config7", 200))
     for name, ticks in full_cells:
         cfg, batch = PRESETS[name]
         torch.cuda.synchronize()
@@ -656,10 +909,16 @@ def main() -> int:
     total_launches += long_cell["launches"]
     emit({"phase": "phase_end", "name": "long_run", "seconds": time.perf_counter() - t_start})
 
+    # ---- 4c: the serve path, the config9-serve row at 1,000 -------------------
+    serve_cell = serve_phase(dev, wall_ms)
+    cells.append(serve_cell)
+    total_launches += serve_cell["launches"]
+    emit({"phase": "phase_end", "name": "serve", "seconds": time.perf_counter() - t_start})
+
     # ---- 5: the port's bench row, card vs CPU -----------------------------------
     cfg2 = PRESETS["config2"][0]
-    row_g = bench.bench(cfg2, 64, 200, repeats=2, quality_seeds=3, config_name="config2", device=dev)
-    row_c = bench.bench(cfg2, 64, 200, repeats=2, quality_seeds=3, config_name="config2", device="cpu")
+    row_g = bench.bench(cfg2, 64, 100, repeats=2, quality_seeds=3, config_name="config2", device=dev)
+    row_c = bench.bench(cfg2, 64, 100, repeats=2, quality_seeds=3, config_name="config2", device="cpu")
     quality = ("p50_stable_tick", "pct_stable", "p50_commit_latency", "lat_p50", "lat_p95", "lat_p99",
                "lat_excluded", "total_cmds", "violations", "noop_blocked", "lm_skipped_pairs",
                "multi_leader")

@@ -10,10 +10,13 @@ Main path: `sim.scan.simulate(cfg, seed, batch, n_ticks, device="cuda")` on
 presets config1-config6, config6r, config3p, config4c, config7 (N=101),
 config8, config9 and config10 -- the kernel takes any N from 2 to 255;
 long runs: `driver.Session` (chunked runs, checkpoints in the JAX package's
-file format, the apply-log stream); CLI: `python -m raft_sim_tpu_torch run
---preset ...` (with --chunk, --save, --resume, --apply-log and one flag per
-RaftConfig field), and `python -m raft_sim_tpu_torch bench` for the bench
-rows (bench.py).
+file format, the apply-log stream, windowed telemetry, single offered
+commands and reads); the standing fleet: `serve.ServeSession` (streamed
+commands and reads in, telemetry windows and commit deltas out, tenants);
+CLI: `python -m raft_sim_tpu_torch run --preset ...` (with --chunk, --save,
+--resume, --apply-log, --telemetry-dir and one flag per RaftConfig field),
+`python -m raft_sim_tpu_torch serve`, and `python -m raft_sim_tpu_torch
+bench` for the bench rows (bench.py).
 """
 
 from raft_sim_tpu_torch.types import (

@@ -1,13 +1,15 @@
-"""Command line: `python -m raft_sim_tpu_torch run|bench|presets`.
+"""Command line: `python -m raft_sim_tpu_torch run|serve|bench|presets`.
 
-`run` and `presets` are the port of raft_sim_tpu/driver.py's subcommands:
-`run` drives a `driver.Session` (chunked runs, checkpoints with --save and
---resume, the apply-log stream, one flag per RaftConfig field) and prints the
-fleet summary as one JSON line, with the wall time and the device it ran on
-(driver.py). `bench` is the port of bench.py (bench.py in this package): one
-JSON document of bench rows. The default device is the card; with none
-present `run` and `bench` fail rather than running on the CPU (pass --device
-cpu for that).
+`run`, `serve` and `presets` are the port of raft_sim_tpu/driver.py's
+subcommands: `run` drives a `driver.Session` (chunked runs, checkpoints with
+--save and --resume, the apply-log stream, the telemetry sink, one flag per
+RaftConfig field) and prints the fleet summary as one JSON line, with the
+wall time and the device it ran on (driver.py); `serve` runs the standing
+fleet of serve/loop.py on a JSONL command source (tenants, read demands, the
+telemetry and delta streams). `bench` is the port of bench.py (bench.py in
+this package): one JSON document of bench rows. The default device is the
+card; with none present `run`, `serve` and `bench` fail rather than running
+on the CPU (pass --device cpu for that).
 """
 
 from __future__ import annotations
@@ -24,6 +26,9 @@ def main(argv=None) -> int:
     sub = ap.add_subparsers(dest="cmd", required=True)
     run_p = sub.add_parser("run", help="simulate a batch of clusters")
     driver.add_run_arguments(run_p)
+    serve_p = sub.add_parser("serve", help="standing-fleet service loop: streamed client "
+                             "commands in, telemetry windows and commit deltas out")
+    driver.add_serve_arguments(serve_p)
     bench_p = sub.add_parser("bench", help="cluster-ticks/s and quality rows per preset")
     bench.add_arguments(bench_p)
     sub.add_parser("presets", help="list the config presets")
@@ -31,6 +36,8 @@ def main(argv=None) -> int:
 
     if args.cmd == "bench":
         return bench.run(bench_p, args)
+    if args.cmd == "serve":
+        return driver.serve(serve_p, args)
     if args.cmd == "presets":
         for name, (cfg, batch) in sorted(PRESETS.items()):
             print(f"{name}: batch={batch} {cfg}")

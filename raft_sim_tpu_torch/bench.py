@@ -14,9 +14,15 @@ statistics leave out the first repeat. Throughput means something only from a
 card run (`backend: "cuda"`, with the card's name and power limit as
 `nvidia-smi` prints them).
 
+The serve-throughput row (`serve_bench`, `--serve`, and `config9-serve` in
+the matrix) runs a multi-tenant `ServeSession` under saturating load and
+counts commands+reads/s, the service's unit of work.
+
 Not ported yet: the telemetry sink (`telemetry_dir`), the scenario input path,
-the serve row, the measurement pass and its mesh leg, and the roofline-pin
-fields (the JAX cost model's TPU prices are no yardstick for the card).
+the measurement pass and its mesh leg, the serve row's per-chunk `perf`
+rollup (ROADMAP item 18), and the roofline-pin fields and the serve row's
+`reconciliation` (the JAX cost model's TPU prices are no yardstick for the
+card).
 """
 
 from __future__ import annotations
@@ -76,8 +82,8 @@ MATRIX = (
 )
 NOT_PORTED = {
     "config5c": "the compacted carry layout (ROADMAP item 9)",
-    "config9-serve": "the serve-throughput row (ROADMAP item 16)",
 }
+SERVE_PRESET = "config9"  # the serve row's read-carrying preset (bench.py main)
 # bench.py's TPU artifacts; cost_model reads these names.
 _RESERVED_OUT = re.compile(r"BENCH_r\d+\.json")
 
@@ -175,6 +181,84 @@ def bench(cfg: RaftConfig, batch: int, ticks: int, repeats: int = 3,
     return row
 
 
+def serve_tenants(batch: int, tenants_n: int = 4, reads: bool = True) -> list:
+    """The serve row's load: `tenants_n` tenants split the fleet evenly; each
+    offers one distinct command per (tick, cluster) slot for ever and (with
+    `reads`) demands more reads than a run can serve, offered one per
+    cluster every other tick."""
+    import itertools
+
+    from raft_sim_tpu_torch.serve import Tenant
+    from raft_sim_tpu_torch.serve.tenancy import split_even
+
+    sizes = split_even(batch, tenants_n)
+    counter = itertools.count(1)
+    return [
+        Tenant(f"t{i}", sizes[i], source=(next(counter) for _ in itertools.repeat(0)),
+               reads=10**9 if reads else 0, read_every=2)
+        for i in range(tenants_n)
+    ]
+
+
+def serve_row(sess, stats: dict, preset: str, tenants_n: int, smoke: bool) -> dict:
+    """The serve-throughput row of a finished ServeSession run (`stats` from
+    its serve()). `steady_ticks_per_s` leaves out the first serving chunk
+    (its wall runs from the loop's start to its sync)."""
+    wall = stats["wall_s"]
+    syncs = sess.sync_times
+    steady_s = syncs[-1] - syncs[0] if len(syncs) > 1 else 0.0
+    row = {
+        "kind": "serve-throughput",
+        "unit": "commands+reads/s",
+        "config": preset,
+        "backend": sess.device.type,
+        "smoke": bool(smoke),
+        "batch": sess.batch,
+        "tenants": tenants_n,
+        "chunk": sess.chunk,
+        "window": sess.window,
+        "chunks": stats["chunks"],
+        "ticks": stats["ticks"],
+        "commands_acked": stats["commands_acked"],
+        "reads_served": stats["reads_served"],
+        "ops_done": stats["ops_done"],
+        "ops_per_s": round(stats["ops_done"] / wall, 1) if wall else None,
+        "commands_per_s": round(stats["commands_acked"] / wall, 1) if wall else None,
+        "reads_per_s": round(stats["reads_served"] / wall, 1) if wall else None,
+        "violations": stats["violations"],
+        "steady_ticks_per_s": (round(sess.batch * sess.chunk * (len(syncs) - 1) / steady_s, 1)
+                               if steady_s > 0 else None),
+        "wall_s": wall,
+        "perf": None,
+        "reconciliation": None,
+    }
+    if sess.device.type == "cuda":
+        row["device"] = torch.cuda.get_device_name(sess.device)
+        row["nvidia_smi"] = card_line()
+        row["extract_ms_per_round"] = (sum(sess.extract_ms) / len(sess.extract_ms)
+                                       if sess.extract_ms else None)
+    return row
+
+
+def serve_bench(preset: str = SERVE_PRESET, batch: int | None = None, chunks: int = 8,
+                chunk: int = 256, window: int = 64, tenants_n: int = 4, smoke: bool = False,
+                device="cuda") -> dict:
+    """The serve-throughput row: a `serve_tenants` load on `preset` at its
+    batch (64 under `smoke`), one warmup chunk, then `chunks` serving
+    chunks, counted in commands+reads/s."""
+    from raft_sim_tpu_torch.serve import ServeSession
+
+    cfg, preset_batch = PRESETS[preset]
+    if batch is None:
+        batch = min(preset_batch, 64) if smoke else preset_batch
+    if not cfg.read_index:
+        raise ValueError(f"serve bench needs a read-carrying preset, got {preset}")
+    sess = ServeSession(cfg, batch=batch, seed=0, chunk=chunk, window=window, sink=None,
+                        warmup_ticks=chunk, tenants=serve_tenants(batch, tenants_n),
+                        device=device)
+    return serve_row(sess, sess.serve(chunks=chunks), preset, tenants_n, smoke)
+
+
 def add_arguments(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--preset", default=None, choices=sorted(PRESETS),
                     help="bench one preset instead of the matrix")
@@ -188,6 +272,10 @@ def add_arguments(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--out", default=None, metavar="PATH",
                     help="write the whole document to PATH and print a one-line "
                          "headline (BENCH_r<N>.json names are refused)")
+    ap.add_argument("--serve", action="store_true",
+                    help="bench only the serve-throughput row (commands+reads/s)")
+    ap.add_argument("--serve-chunks", type=int, default=8,
+                    help="serving chunks of the serve row (default 8)")
     ap.add_argument("--device", default="cuda")
 
 
@@ -195,6 +283,10 @@ def run(ap: argparse.ArgumentParser, args) -> int:
     if args.out and _RESERVED_OUT.fullmatch(os.path.basename(args.out)):
         ap.error(f"--out {args.out}: BENCH_r<N>.json files are the JAX package's "
                  "TPU artifacts; name the port's document otherwise")
+    if args.serve:
+        print(json.dumps(serve_bench(batch=args.batch, chunks=args.serve_chunks,
+                                     smoke=args.smoke, device=args.device)))
+        return 0
     names = [args.preset] if args.preset else list(MATRIX)
     matrix = {}
     for name in names:
@@ -203,6 +295,11 @@ def run(ap: argparse.ArgumentParser, args) -> int:
         print(f"bench {name}: batch={batch} ticks={ticks}...", file=sys.stderr)
         matrix[name] = bench(PRESETS[name][0], batch, ticks, args.repeats,
                              config_name=name, smoke=args.smoke, device=args.device)
+    if not args.preset:
+        # The standing serve-throughput row rides every full-matrix run.
+        print(f"bench {SERVE_PRESET}-serve: serve-throughput row...", file=sys.stderr)
+        matrix[f"{SERVE_PRESET}-serve"] = serve_bench(chunks=args.serve_chunks, smoke=args.smoke,
+                                                      device=args.device)
     headline_name = "config3" if "config3" in matrix else names[0]
     headline = matrix[headline_name]
     doc = {
@@ -218,7 +315,10 @@ def run(ap: argparse.ArgumentParser, args) -> int:
         with open(args.out, "w") as f:
             json.dump(doc, f, indent=1)
             f.write("\n")
-        per_cfg = " ".join(f"{n}={r['cluster_ticks_per_s']:g}" for n, r in matrix.items())
+        per_cfg = " ".join(
+            f"{n}={r['cluster_ticks_per_s']:g}" if "cluster_ticks_per_s" in r
+            else f"{n}={r['ops_per_s'] or 0:g}ops/s"
+            for n, r in matrix.items())
         print(f"{headline_name} {headline['cluster_ticks_per_s']:g} cluster-ticks/s "
               f"({headline['vs_baseline']}x north star) | {per_cfg} | full matrix: {args.out}")
     else:

@@ -10,7 +10,8 @@ leaf and keeps every shape, so both the batch-leading and the batch-minor
 layouts cross unchanged.
 
 `first_difference` compares two such trees leaf by leaf -- dtype, shape and
-exact values -- and names the first differing leaf and index. Nothing here
+exact values, nested NamedTuples included (a WindowRecord's metrics, a flight
+recorder's ring) -- and names the first differing leaf and index. Nothing here
 imports jax: the tests that need both packages hand numpy trees across.
 """
 
@@ -78,7 +79,7 @@ def first_difference(a, b, prefix: str = "") -> str | None:
         return f"{prefix or 'tree'}: fields {list(fa)} != {list(fb)}"
     for f in fa:
         name = f"{prefix}.{f}" if prefix else f
-        if f == "mailbox":
+        if f == "mailbox" or hasattr(fa[f], "_fields"):
             d = first_difference(fa[f], fb[f], name)
             if d:
                 return d

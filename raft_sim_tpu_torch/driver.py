@@ -1,11 +1,14 @@
-"""Host driver: `Session` and the `run` subcommand (the port of the plain
-path of raft_sim_tpu/driver.py).
+"""Host driver: `Session` and the `run` and `serve` subcommands (the port of
+raft_sim_tpu/driver.py's plain, telemetry and serve paths).
 
 `Session` holds one experiment -- a config, a fleet of `batch` clusters from
 a seed, its run keys and accumulated metrics -- and steps it in chunks
-(sim/chunked.py), optionally exporting one cluster's committed values
-(utils/apply_log.py) between chunks, and saving or restoring the whole of it
-(utils/checkpoint.py, the JAX package's file format):
+(sim/chunked.py, or sim/telemetry.py with a telemetry sink attached),
+optionally exporting one cluster's committed values (utils/apply_log.py)
+between chunks, offering single client commands and reads (`offer`,
+`offer_read`, acked through the commit-delta stream of serve/deltas.py),
+and saving or restoring the whole of it (utils/checkpoint.py, the JAX
+package's file format):
 
     s = Session(PRESETS["config6"][0], batch=1000, seed=0)
     s.run(10_000, chunk=1024)
@@ -19,7 +22,10 @@ what the apply log and the progress line ask for.
 `add_run_arguments` / `run` are the CLI's `run` subcommand: --preset, one
 flag per RaftConfig field (`add_config_flags`, `build_config`), --batch,
 --ticks, --seed, --chunk, --save, --resume (exclusive with every flag that
-sets the experiment), --apply-log, --apply-cluster, --progress and --device.
+sets the experiment), --apply-log, --apply-cluster, --telemetry-dir,
+--telemetry-window, --telemetry-ring, --progress and --device.
+`add_serve_arguments` / `serve` are the `serve` subcommand: the standing
+fleet of serve/loop.py fed from a JSONL command source.
 """
 
 from __future__ import annotations
@@ -30,9 +36,11 @@ import json
 import sys
 import time
 
+import numpy as np
 import torch
 
-from raft_sim_tpu_torch.sim import chunked, scan
+from raft_sim_tpu_torch.models import raft_batched
+from raft_sim_tpu_torch.sim import chunked, scan, telemetry
 from raft_sim_tpu_torch.summary import summarize
 from raft_sim_tpu_torch.utils import checkpoint
 from raft_sim_tpu_torch.utils import device as device_mod
@@ -42,7 +50,8 @@ from raft_sim_tpu_torch.utils.config import PRESETS, RaftConfig
 
 class Session:
     """One experiment and the verbs over it: run, reset, summary, save,
-    restore, and the apply-log export."""
+    restore, offer, offer_read, the apply-log export and the telemetry
+    sink."""
 
     def __init__(self, cfg: RaftConfig, batch: int = 1, seed: int = 0, device="cuda"):
         self.cfg = cfg
@@ -50,17 +59,25 @@ class Session:
         self.seed = seed
         self.device = device_mod.resolve(device)
         self.apply_writer = None
+        self.telemetry = None  # TelemetrySink (attach_telemetry)
+        self._tel_rec = None  # the flight recorder's carry (batch-minor)
+        self._deltas = None  # serve.deltas.DeltaStream: offer()'s ack watcher
         self.reset()
 
     def reset(self) -> None:
         """Back to tick 0 with the same seed: the same key derivation as
         `scan.simulate`, so a Session's run equals `simulate` leaf for leaf.
-        An attached apply log starts over (files truncated)."""
+        An attached apply log or telemetry sink starts over (files
+        truncated)."""
         self.state, self.keys = scan.seed_fleet(self.cfg, self.seed, self.batch, self.device)
         self.metrics = scan.init_metrics_batch(self.batch, self.device)
         self.now = 0
+        self._deltas = None
         if self.apply_writer is not None:
             self.attach_apply_log(self.apply_writer.directory, self.apply_writer.cluster)
+        if self.telemetry is not None:
+            self.attach_telemetry(self.telemetry.directory, window=self.telemetry.window,
+                                  ring=self.telemetry.ring)
 
     def attach_apply_log(self, directory: str, cluster: int = 0) -> None:
         """Stream cluster `cluster`'s committed values to
@@ -72,11 +89,30 @@ class Session:
         self.apply_writer = ApplyLogWriter(directory, self.cfg, cluster)
         self.apply_writer.update(self.state)  # anything already committed
 
+    def attach_telemetry(self, directory: str, window: int = 64, ring: int = 32) -> None:
+        """Stream windowed fleet telemetry to `directory` (manifest and
+        windows.jsonl, utils/telemetry_sink.py) and arm a `ring`-deep flight
+        recorder that freezes each cluster's last ticks at its first
+        violation (ring=0: none). run() then goes through sim/telemetry.py:
+        the same trajectory as the plain path. finalize_telemetry() writes
+        the flights and the summary at the end."""
+        from raft_sim_tpu_torch.utils.telemetry_sink import TelemetrySink
+
+        if window < 1:
+            raise ValueError(f"telemetry window must be >= 1, got {window}")
+        if ring < 0:
+            raise ValueError(f"telemetry ring must be >= 0, got {ring}")
+        self.telemetry = TelemetrySink(directory, self.cfg, seed=self.seed, batch=self.batch,
+                                       window=window, ring=ring, backend=self.device.type)
+        self._tel_rec = (telemetry.init_recorder(self.cfg, ring, self.batch, self.device)
+                         if ring else None)
+
     def run(self, n_ticks: int, chunk: int = 4096, progress: bool = False) -> None:
         """Step the fleet `n_ticks` in chunks of `chunk` ticks through the
-        tick kernel (the plain tick on the CPU), folding the metrics."""
+        tick kernel (the plain tick on the CPU), folding the metrics; with a
+        telemetry sink attached, each chunk's windows stream to it."""
 
-        def cb(done, state, metrics):
+        def after_chunk(done, state, metrics):
             if self.apply_writer is not None:
                 self.apply_writer.update(state)
             if progress:
@@ -84,11 +120,129 @@ class Session:
                 print(f"  {done}/{n_ticks} ticks, violations={v}", file=sys.stderr)
             return False
 
-        self.state, m = chunked.run_chunked(
-            self.cfg, self.state, self.keys, n_ticks, chunk=chunk, callback=cb, now=self.now
-        )
+        if self.telemetry is not None:
+            def cb_t(done, state, metrics, records):
+                self.telemetry.append_windows(records)
+                return after_chunk(done, state, metrics)
+
+            self.state, m, self._tel_rec = telemetry.run_chunked_telemetry(
+                self.cfg, self.state, self.keys, n_ticks, window=self.telemetry.window,
+                recorder=self._tel_rec, chunk=chunk, callback=cb_t, now=self.now)
+        else:
+            self.state, m = chunked.run_chunked(
+                self.cfg, self.state, self.keys, n_ticks, chunk=chunk, callback=after_chunk,
+                now=self.now)
         self.metrics = chunked.merge_metrics(self.metrics, m)
         self.now += n_ticks
+
+    def finalize_telemetry(self, max_flights: int = 8) -> dict:
+        """End-of-experiment export: summary.json, and the flight recording
+        of up to `max_flights` clusters whose recorder froze as
+        flight_<cluster>.jsonl. Returns {"flights": clusters written,
+        "flights_frozen", "flights_exported", "summary": path}; the frozen
+        and exported counts are in summary.json too."""
+        if self.telemetry is None:
+            raise RuntimeError("no telemetry attached (attach_telemetry)")
+        flights = []
+        frozen_total = 0
+        if self._tel_rec is not None:
+            frozen = np.flatnonzero(self._tel_rec.frozen.cpu().numpy())
+            frozen_total = int(frozen.size)
+            for cluster in frozen[:max_flights]:
+                ticks, infos = telemetry.export_cluster(self._tel_rec, int(cluster))
+                self.telemetry.write_flight(int(cluster), ticks, infos)
+                flights.append(int(cluster))
+            if frozen.size > max_flights:
+                print(f"telemetry: {frozen.size} frozen clusters, exported first {max_flights} "
+                      f"flight recordings ({frozen.size - max_flights} not exported -- raise "
+                      "max_flights to keep them)", file=sys.stderr)
+        summary = self.summary()
+        summary["flights_frozen"] = frozen_total
+        summary["flights_exported"] = len(flights)
+        path = self.telemetry.write_summary(summary)
+        return {"flights": flights, "flights_frozen": frozen_total,
+                "flights_exported": len(flights), "summary": path}
+
+    def _offer_step(self, client_cmd=None, read_cmd=None):
+        """One tick through the shared tick body with an offer override;
+        returns its StepInfo."""
+        s, m, info = scan.tick_batch_minor(
+            self.cfg, raft_batched.to_batch_minor(self.state), self.keys,
+            raft_batched.to_batch_minor(self.metrics), self.now,
+            client_cmd=client_cmd, read_cmd=read_cmd)
+        self.state = raft_batched.from_batch_minor(s)
+        self.metrics = raft_batched.from_batch_minor(m)
+        self.now += 1
+        if self.apply_writer is not None:
+            self.apply_writer.update(self.state)
+        return info
+
+    def offer(self, value: int, wait: int = 0) -> dict:
+        """Offer one client command in place of this tick's scheduled one and
+        advance a tick; then step up to `wait` more ticks while clusters
+        have yet to commit it. Returns {"accepted", "committed", "waited"}:
+        `accepted` counts clusters whose leader appended the value on the
+        offer tick; `committed` those whose commit-delta stream (node 0's
+        apply stream, serve/deltas.py) delivered the pair (value, offer
+        tick + 1) after the offer. Any int32 but NIL/NOOP is a legal value.
+        With the offer-tick plane off (no client cadence, no serve_ingest)
+        the match is by value alone."""
+        from raft_sim_tpu_torch.serve.deltas import DeltaStream
+        from raft_sim_tpu_torch.serve.ingest import check_value
+
+        value = check_value(value)
+        if self._deltas is None:
+            self._deltas = DeltaStream(self.batch, depth=32, device=self.device)
+        self._deltas.skip_to_now(self.state)  # only later commits can ack it
+        track = self.cfg.track_offer_ticks
+        stamp = self.now + 1
+        acked: set[int] = set()
+
+        def fresh() -> int:
+            for row in self._deltas.drain(self.state):
+                for v, tk in zip(row["values"], row["ticks"]):
+                    if v == value and (not track or tk == stamp):
+                        acked.add(row["cluster"])
+            return len(acked)
+
+        info = self._offer_step(client_cmd=value)
+        accepted = int(info.cmds_injected.sum())
+        committed, waited = fresh(), 0
+        # Redirect mode: acceptance trickles in over the bounces, so keep
+        # stepping until every cluster committed or the wait runs out.
+        goal = self.batch if self.cfg.client_redirect else accepted
+        while waited < wait and committed < goal:
+            self.run(1, chunk=1)
+            waited += 1
+            committed = fresh()
+        return {"accepted": accepted, "committed": committed, "waited": waited}
+
+    def offer_read(self, wait: int = 0) -> dict:
+        """Offer one ReadIndex read in place of this tick's scheduled one and
+        advance a tick; then step up to `wait` more ticks while reads are
+        unserved. Returns {"captured", "served", "waited"}: `captured` counts
+        clusters whose leader took the read on the offer tick, `served` the
+        reads served since (the reads_served counter). Needs cfg.read_index."""
+        if not self.cfg.read_index:
+            raise ValueError(
+                "offer_read needs the ReadIndex plane: set read_interval > 0 or serve_reads=True")
+        before = self.metrics.reads_served.to(torch.int64).clone()
+        stamp = self.now + 1
+        self._offer_step(read_cmd=1)
+        # Captures of this offer only: a fresh capture stamps read_tick with
+        # the offer tick + 1.
+        captured = int(((self.state.read_idx > 0) & (self.state.read_tick == stamp))
+                       .any(dim=1).sum())
+
+        def served_now() -> int:
+            return int((self.metrics.reads_served.to(torch.int64) - before).sum())
+
+        served, waited = served_now(), 0
+        while waited < wait and served < self.batch:
+            self.run(1, chunk=1)
+            waited += 1
+            served = served_now()
+        return {"captured": captured, "served": served, "waited": waited}
 
     def summary(self) -> dict:
         """The fleet rollup (summary.summarize) as a dict."""
@@ -116,6 +270,9 @@ class Session:
         self.seed = seed
         self.device = state.role.device
         self.apply_writer = None
+        self.telemetry = None
+        self._tel_rec = None
+        self._deltas = None
         self.state = state
         self.keys = keys
         self.metrics = metrics
@@ -167,6 +324,14 @@ def add_run_arguments(p: argparse.ArgumentParser) -> None:
                    help="stream one cluster's committed values to DIR/node_<i>.log")
     p.add_argument("--apply-cluster", type=int, default=0,
                    help="the cluster --apply-log exports (default 0)")
+    p.add_argument("--telemetry-dir", metavar="DIR", default=None,
+                   help="write windowed fleet telemetry (manifest + windows.jsonl) and the "
+                        "flight recordings of violating clusters to DIR")
+    p.add_argument("--telemetry-window", type=int, default=64, metavar="W",
+                   help="ticks aggregated per telemetry window record (default 64)")
+    p.add_argument("--telemetry-ring", type=int, default=32, metavar="K",
+                   help="flight-recorder depth: the last K ticks of StepInfo per cluster, "
+                        "frozen at the first violation (0 disables; default 32)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     add_config_flags(p)
 
@@ -195,15 +360,162 @@ def run(ap: argparse.ArgumentParser, args) -> int:
             sess.attach_apply_log(args.apply_log, cluster=args.apply_cluster)
         except IndexError as ex:
             ap.error(str(ex))
+    if args.telemetry_dir:
+        try:
+            sess.attach_telemetry(args.telemetry_dir, window=args.telemetry_window,
+                                  ring=args.telemetry_ring)
+        except ValueError as ex:
+            ap.error(str(ex))
     t0 = time.perf_counter()
     sess.run(args.ticks, chunk=args.chunk, progress=args.progress)
     out = sess.summary()  # copies to the host: waits for the device
     dt = time.perf_counter() - t0
     out["wall_s"] = dt
     out["cluster_ticks_per_s"] = sess.batch * args.ticks / dt
-    dev = sess.device
-    out["device"] = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    out["device"] = _device_name(sess.device)
     print(json.dumps(out))
+    if args.telemetry_dir:
+        fin = sess.finalize_telemetry()
+        if fin["flights"]:
+            print(f"telemetry: flight recordings exported for clusters {fin['flights']} "
+                  f"under {args.telemetry_dir}", file=sys.stderr)
     if args.save:
         sess.save(args.save)
+    return 0
+
+
+def _device_name(dev: torch.device) -> str:
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+
+def add_serve_arguments(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--source", metavar="FILE", default="-",
+                   help="JSONL command source: one command per line, a bare int or "
+                        "{\"value\": v}; '-' = stdin (default)")
+    p.add_argument("--preset", choices=sorted(PRESETS), default=None)
+    p.add_argument("--batch", type=int, default=None)
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--chunk", type=int, default=256,
+                   help="ticks per device chunk (the ingest/export cadence; default 256)")
+    p.add_argument("--window", type=int, default=64,
+                   help="telemetry window ticks (must divide --chunk; default 64)")
+    p.add_argument("--chunks", type=int, default=None,
+                   help="stop after N chunks (default: run until the source is exhausted, "
+                        "then --drain-chunks more)")
+    p.add_argument("--drain-chunks", type=int, default=4,
+                   help="offer-free chunks run after the source is exhausted, so trailing "
+                        "commits flush through the delta stream (default 4)")
+    p.add_argument("--warmup", type=int, default=0, metavar="TICKS",
+                   help="ticks simulated before the first offer (elect leaders first)")
+    p.add_argument("--tenants", type=int, default=None, metavar="N",
+                   help="partition the fleet's clusters among N tenants (per-tenant "
+                        "sources, sinks and read demands); the command stream is dealt "
+                        "round-robin, weighted by cluster count")
+    p.add_argument("--reads-per-tenant", type=int, default=0, metavar="R",
+                   help="ReadIndex reads each tenant must get served (re-offered until "
+                        "served; needs a read-carrying config, e.g. --preset config9)")
+    p.add_argument("--delta-depth", type=int, default=64,
+                   help="per-cluster commit-delta buffer per extraction round "
+                        "(backpressure, not loss; default 64)")
+    p.add_argument("--sink", metavar="DIR", default=None,
+                   help="stream telemetry windows (windows.jsonl) and commit deltas "
+                        "(deltas.jsonl) to DIR")
+    p.add_argument("--progress", action="store_true", help="a line on stderr per chunk")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    add_config_flags(p)
+
+
+def _shard_round_robin(it, weights: list[int]):
+    """One lazy payload iterator split into len(weights) shard iterators,
+    dealt in weighted round-robin order (shard i takes weights[i]
+    consecutive commands a cycle), so each tenant's queue stays within one
+    chunk's imbalance."""
+    from collections import deque
+
+    src = iter(it)
+    order = [i for i, w in enumerate(weights) for _ in range(w)]
+    queues = [deque() for _ in weights]
+    turn = [0]
+
+    def shard(i: int):
+        while True:
+            if queues[i]:
+                yield queues[i].popleft()
+                continue
+            try:
+                v = next(src)
+            except StopIteration:
+                return
+            queues[order[turn[0]]].append(v)
+            turn[0] = (turn[0] + 1) % len(order)
+
+    return [shard(i) for i in range(len(weights))]
+
+
+def serve(ap: argparse.ArgumentParser, args) -> int:
+    """The `serve` subcommand: a standing fleet takes streamed client
+    commands between chunks and streams telemetry windows and commit deltas
+    to the sink; prints the fleet summary with the serve stats, the rates
+    and the device as one JSON line. `--tenants N` partitions the clusters;
+    `--reads-per-tenant R` adds a read demand per tenant."""
+    from raft_sim_tpu_torch.serve import CommandSource, ServeSession, jsonl_commands
+    from raft_sim_tpu_torch.serve.loop import serve_config
+    from raft_sim_tpu_torch.serve.tenancy import Tenant, split_even
+    from raft_sim_tpu_torch.utils.telemetry_sink import TelemetrySink
+
+    cfg, batch = build_config(args)
+    cfg = serve_config(cfg)
+    dev = device_mod.resolve(args.device)
+    if args.source != "-":
+        try:  # fail before the warmup, not at the first chunk
+            open(args.source).close()
+        except OSError as ex:
+            ap.error(f"--source: {ex}")
+    seed = args.seed or 0
+    sink = None
+    if args.sink:
+        sink = TelemetrySink(args.sink, cfg, seed=seed, batch=batch, window=args.window, ring=0,
+                             source="serve", backend=dev.type)
+    if args.reads_per_tenant < 0:
+        ap.error("--reads-per-tenant must be >= 0")
+    if args.tenants is not None and not 1 <= args.tenants <= batch:
+        ap.error(f"--tenants must be in [1, batch={batch}]")
+    tenants = None
+    if args.tenants is None and args.reads_per_tenant:
+        # One tenant over the whole fleet whose writes keep the broadcast
+        # form: a read demand never reshapes the write path.
+        tenants = [Tenant("tenant0", batch, source=jsonl_commands(args.source),
+                          reads=args.reads_per_tenant, broadcast=True)]
+    elif args.tenants is not None:
+        sizes = split_even(batch, args.tenants)
+        shards = _shard_round_robin(jsonl_commands(args.source), sizes)
+        tenants = [Tenant(f"tenant{i}", sizes[i], source=shards[i], reads=args.reads_per_tenant)
+                   for i in range(args.tenants)]
+    try:
+        sess = ServeSession(cfg, batch=batch, seed=seed, chunk=args.chunk, window=args.window,
+                            delta_depth=args.delta_depth, sink=sink, warmup_ticks=args.warmup,
+                            tenants=tenants, device=dev)
+    except ValueError as ex:
+        ap.error(str(ex))
+    source = None if tenants is not None else CommandSource(jsonl_commands(args.source))
+
+    def progress(st):
+        if args.progress:
+            print(f"  chunk {st['chunks']}: {st['ticks']} ticks, {st['deltas_exported']} deltas, "
+                  f"{st['reads_served']} reads, violations={st['violations']}", file=sys.stderr)
+
+    try:
+        stats = sess.serve(source, chunks=args.chunks, drain_chunks=args.drain_chunks,
+                           progress=progress)
+    except ValueError as ex:
+        ap.error(str(ex))
+    out = summarize(sess.metrics)._asdict()
+    out.update(stats)
+    if stats["wall_s"] > 0:
+        out["cluster_ticks_per_s"] = round(batch * stats["ticks"] / stats["wall_s"], 1)
+        out["ops_per_s"] = round(stats["ops_done"] / stats["wall_s"], 1)
+    if args.sink:
+        out["sink"] = args.sink
+    out["device"] = _device_name(dev)
+    print(json.dumps(out))
     return 0

@@ -75,8 +75,6 @@ def unsupported_gates(cfg: RaftConfig) -> list[str]:
     checks = [
         ("compact_planes", cfg.compact_planes),
         ("track_trace", cfg.track_trace),
-        ("serve_ingest", cfg.serve_ingest),
-        ("serve_reads", cfg.serve_reads),
     ]
     checks += [(f"mutant hook {h}", not getattr(cfg, h)) for h in MUTANT_HOOKS]
     return [name for name, on in checks if on]

@@ -127,13 +127,29 @@ def _accumulate(m: RunMetrics, info: StepInfo, tick: torch.Tensor) -> RunMetrics
     )
 
 
-def tick_batch_minor(cfg, s, keys, metrics, now: int, step_fn=None):
+def _override(plane: torch.Tensor, value) -> torch.Tensor:
+    """`value` (a scalar, or a [B] tensor or array) broadcast over the [B]
+    input `plane`, in its dtype and on its device."""
+    v = torch.as_tensor(value, dtype=plane.dtype, device=plane.device)
+    return v.expand(plane.shape).contiguous()
+
+
+def tick_batch_minor(cfg, s, keys, metrics, now: int, step_fn=None, client_cmd=None,
+                     read_cmd=None):
     """ONE tick of the batch-minor path: input draws, step, metric fold.
     `s`/`metrics` are batch-minor, `keys` [B, 2], `now` the host's copy of the
-    lockstep tick. Returns (state, metrics, StepInfo), all batch-minor."""
+    lockstep tick. `client_cmd` replaces the scheduled client input this
+    tick, and `read_cmd` the scheduled ReadIndex offer: each a scalar (one
+    offer fleet-wide, Session.offer/offer_read) or a [B] plane (one slot per
+    cluster, NIL = none: the serve loop). A read plane needs cfg.read_index.
+    Returns (state, metrics, StepInfo), all batch-minor."""
     if step_fn is None:
         step_fn = tick_engine.step_cuda
     inp = faults.make_inputs(cfg, keys, now)
+    if client_cmd is not None:
+        inp = inp._replace(client_cmd=_override(inp.client_cmd, client_cmd))
+    if read_cmd is not None:
+        inp = inp._replace(read_cmd=_override(inp.read_cmd, read_cmd))
     inp_t = raft_batched.to_batch_minor(inp)
     s2, info = step_fn(cfg, s, inp_t, now)
     return s2, _accumulate(metrics, info, s.now), info

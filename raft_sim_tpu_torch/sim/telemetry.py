@@ -1,0 +1,290 @@
+"""Fleet telemetry: windowed aggregation and a violation flight recorder (the
+port of raft_sim_tpu/sim/telemetry.py, less its trace and genome branches).
+
+Two mechanisms over the same tick as the main path (`scan.tick_batch_minor`,
+so telemetry never observes another trajectory than the one it reports):
+
+1. **Windowed aggregation** (`run_batch_minor_telemetry`): each tick's
+   StepInfo folds into a window-local RunMetrics, and every `window` ticks one
+   `WindowRecord` comes out -- [T/W] records instead of [T] rows. Every fold
+   is associative across window cuts, so merging the records with
+   `chunked.merge_metrics` gives the run's RunMetrics exactly
+   (`reduce_records`). `first_viol_tick` adds when, inside the window, the
+   first invariant tripped (NEVER if none did).
+
+2. **Flight recorder** (`FlightRecorder`): a K-deep ring of the last K ticks'
+   StepInfo per cluster that freezes on the first tick any `viol_*` flag
+   fires, that tick included (written first, then latched).
+
+The loops keep `now` on the host, as sim/scan.py does; the per-window and
+per-tick values that land in the records come from the state's own `now`
+leaf, as in the JAX package. The scenario input path (`genome`,
+ROADMAP item 17) and the protocol trace plane (`trace_spec`,
+`trigger_kind`, item 14) are not ported: passing them raises.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from raft_sim_tpu_torch.models import raft_batched
+from raft_sim_tpu_torch.sim import scan
+from raft_sim_tpu_torch.sim.chunked import merge_metrics
+from raft_sim_tpu_torch.types import LAT_HIST_BINS, StepInfo
+from raft_sim_tpu_torch.utils import device as device_mod
+from raft_sim_tpu_torch.utils.config import RaftConfig
+
+NEVER = scan.NEVER
+
+
+class WindowRecord(NamedTuple):
+    """One W-tick window's telemetry for every cluster (public layout after a
+    run: every leaf leads with [batch, n_windows, ...])."""
+
+    start: torch.Tensor  # int32: absolute tick of the window's first tick
+    first_viol_tick: torch.Tensor  # int32: first violating tick in the window, or NEVER
+    metrics: scan.RunMetrics  # this window's RunMetrics
+
+
+class FlightRecorder(NamedTuple):
+    """Ring of the last K ticks' StepInfo per cluster, frozen at the first
+    violation; batch-minor (`ring` leaves [K, ..., B])."""
+
+    ring: StepInfo  # each StepInfo leaf stacked K deep along axis 0
+    tick: torch.Tensor  # [K, B] int32: the tick each slot holds (-1 = empty)
+    pos: torch.Tensor  # [B] int32: ticks recorded so far (next slot = pos % K)
+    frozen: torch.Tensor  # [B] bool: latched by the first viol_* tick
+
+
+def _refuse_unported(genome=None, trace_spec=None, trigger_kind=None) -> None:
+    if genome is not None:
+        raise NotImplementedError(
+            "telemetry: the scenario input path (genome) is not ported yet (ROADMAP item 17)")
+    if trace_spec is not None or trigger_kind is not None:
+        raise NotImplementedError(
+            "telemetry: the protocol trace plane (trace_spec / trigger_kind) is not ported "
+            "yet (ROADMAP item 14)")
+
+
+def init_recorder(cfg: RaftConfig, k: int, batch: int, device="cpu") -> FlightRecorder:
+    """Zeroed K-deep recorder, batch-minor ([..., B] trailing on every leaf)."""
+
+    def leaf(name):
+        dtype = torch.bool if name.startswith("viol") else torch.int32
+        mid = (LAT_HIST_BINS,) if name.endswith("_hist") else ()
+        return torch.zeros((k, *mid, batch), dtype=dtype, device=device)
+
+    return FlightRecorder(
+        ring=StepInfo(**{f: leaf(f) for f in StepInfo._fields}),
+        tick=torch.full((k, batch), -1, dtype=torch.int32, device=device),
+        pos=torch.zeros((batch,), dtype=torch.int32, device=device),
+        frozen=torch.zeros((batch,), dtype=torch.bool, device=device),
+    )
+
+
+def _record(rec: FlightRecorder, info: StepInfo, now: torch.Tensor, k: int,
+            trig: torch.Tensor) -> FlightRecorder:
+    """Write one tick's StepInfo into slot pos % K of each unfrozen cluster,
+    then latch `frozen` where `trig` fired, so the triggering tick is the
+    ring's newest entry."""
+    slot = rec.pos % k  # [B]
+    write = ~rec.frozen  # [B]
+    ks = torch.arange(k, dtype=torch.int32, device=slot.device)
+    oh1 = (ks[:, None] == slot[None, :]) & write[None, :]
+
+    def upd(leaf, val):
+        oh = oh1.reshape((k,) + (1,) * (leaf.dim() - 2) + oh1.shape[-1:])
+        return torch.where(oh, val[None], leaf)
+
+    ring = StepInfo(*(upd(leaf, v) for leaf, v in zip(rec.ring, info)))
+    return FlightRecorder(
+        ring=ring,
+        tick=upd(rec.tick, now),
+        pos=rec.pos + write.to(torch.int32),
+        frozen=rec.frozen | (write & trig),
+    )
+
+
+def _stack_records(recs: list[WindowRecord]) -> WindowRecord:
+    """Per-window batch-minor records -> one record in the public
+    [B, n_windows, ...] layout."""
+    stacked = WindowRecord(
+        start=torch.stack([r.start for r in recs]),
+        first_viol_tick=torch.stack([r.first_viol_tick for r in recs]),
+        metrics=scan.RunMetrics(*(torch.stack(leaves) for leaves in zip(*(r.metrics for r in recs)))),
+    )
+    return raft_batched.from_batch_minor(stacked)
+
+
+def run_minor_telemetry(cfg: RaftConfig, s, keys: torch.Tensor, n_ticks: int, window: int,
+                        now: int, recorder: FlightRecorder | None = None, step_fn=None,
+                        cmds=None, reads=None):
+    """The windowed loop on a batch-minor state `s` whose lockstep tick is the
+    host's `now`: returns (state, RunMetrics of these ticks, records,
+    recorder) -- state and metrics batch-minor, records public. `cmds` and
+    `reads` ([n_ticks, B] planes or None) are the per-tick offer overrides of
+    the serve loop (serve/loop.py). `n_ticks` must divide by `window`."""
+    if n_ticks % window:
+        raise ValueError(f"n_ticks {n_ticks} must divide by window {window}")
+    batch = s.role.shape[-1]
+    dev = s.role.device
+    ring_k = 0 if recorder is None else recorder.tick.shape[0]
+    m0 = raft_batched.to_batch_minor(scan.init_metrics_batch(batch, dev))
+    metrics = m0
+    recs = []
+    t = now
+    for _ in range(n_ticks // window):
+        start = s.now
+        wm = m0
+        fv = torch.full((batch,), NEVER, dtype=torch.int32, device=dev)
+        for _ in range(window):
+            tick_now = s.now
+            s, wm, info = scan.tick_batch_minor(
+                cfg, s, keys, wm, t, step_fn=step_fn,
+                client_cmd=None if cmds is None else cmds[t - now],
+                read_cmd=None if reads is None else reads[t - now],
+            )
+            bad = scan.step_bad(info)
+            fv = torch.minimum(fv, torch.where(bad, tick_now, NEVER))
+            if ring_k:
+                recorder = _record(recorder, info, tick_now, ring_k, bad)
+            t += 1
+        recs.append(WindowRecord(start=start, first_viol_tick=fv, metrics=wm))
+        metrics = merge_metrics(metrics, wm)
+    return s, metrics, _stack_records(recs), recorder
+
+
+def run_batch_minor_telemetry(cfg: RaftConfig, state, keys: torch.Tensor, n_ticks: int,
+                              window: int, recorder: FlightRecorder | None = None,
+                              step_fn=None, genome=None, trace_spec=None,
+                              trigger_kind: int | None = None, now: int | None = None):
+    """The windowed run from a [B, ...]-leading `state`: the same trajectory
+    as `scan.run_batch_minor`, plus [n_ticks/window] WindowRecords and the
+    optional flight recorder (batch-minor in and out). Returns (final_state,
+    metrics, records, recorder); state, metrics and records [B, ...]-leading.
+    `now` is the host's copy of the state's tick (read once when not given).
+    `genome` and the trace plane (`trace_spec`, `trigger_kind`) raise (not
+    ported)."""
+    _refuse_unported(genome, trace_spec, trigger_kind)
+    batch = state.role.shape[0]
+    if now is None:
+        now = int(state.now.reshape(-1)[0]) if batch else 0
+    s, metrics, recs, rec = run_minor_telemetry(
+        cfg, raft_batched.to_batch_minor(state), keys, n_ticks, window, now, recorder, step_fn)
+    return raft_batched.from_batch_minor(s), raft_batched.from_batch_minor(metrics), recs, rec
+
+
+def simulate_windowed(cfg: RaftConfig, seed: int, batch: int, n_ticks: int, window: int,
+                      ring: int = 0, genome=None, trace=None, trigger_kind: int | None = None,
+                      device="cuda", step_fn=None):
+    """`scan.simulate` with telemetry: the same key derivation and
+    trajectory, returning (final_state, metrics, records, recorder).
+    `ring` > 0 arms the flight recorder at that depth."""
+    _refuse_unported(genome, trace, trigger_kind)
+    dev = device_mod.resolve(device)
+    state, keys = scan.seed_fleet(cfg, seed, batch, dev)
+    rec = init_recorder(cfg, ring, batch, dev) if ring else None
+    return run_batch_minor_telemetry(cfg, state, keys, n_ticks, window, rec, step_fn=step_fn,
+                                     now=0)
+
+
+def run_chunked_telemetry(cfg: RaftConfig, state, keys: torch.Tensor, n_ticks: int,
+                          window: int, recorder: FlightRecorder | None = None,
+                          chunk: int = 4096, callback=None, genome=None, perf=None,
+                          trace_spec=None, trigger_kind: int | None = None,
+                          now: int | None = None):
+    """Long telemetry runs: `chunked.run_chunked` with the window records
+    handed to the host between chunks. Chunks are whole windows; a final
+    window shorter than `window` closes a run that does not divide
+    (`metrics.ticks` carries each window's width).
+    `callback(ticks_done, state, merged_metrics, records)` gets each chunk's
+    records in the public layout; returning True stops the run. Returns
+    (final_state, merged_metrics, recorder). The caller's `state` is never
+    written (every tick is out of place). `perf` (ROADMAP item 18), `genome`
+    and the trace plane raise (not ported)."""
+    _refuse_unported(genome, trace_spec, trigger_kind)
+    if perf is not None:
+        raise NotImplementedError(
+            "run_chunked_telemetry: perf attribution is not ported yet (ROADMAP item 18)")
+    batch = state.role.shape[0]
+    if now is None:
+        now = int(state.now.reshape(-1)[0]) if batch else 0
+    win_per_chunk = max(1, chunk // window)
+    metrics = scan.init_metrics_batch(batch, state.role.device)
+    s = raft_batched.to_batch_minor(state)
+    out = state
+    done = 0
+    while done < n_ticks:
+        left = n_ticks - done
+        if left >= window:
+            n = min(win_per_chunk, left // window) * window
+            w = window
+        else:
+            n = w = left  # the remainder: one final short window
+        s, m, recs, recorder = run_minor_telemetry(cfg, s, keys, n, w, now + done, recorder)
+        metrics = merge_metrics(metrics, raft_batched.from_batch_minor(m))
+        done += n
+        out = raft_batched.from_batch_minor(s)
+        if callback is not None and callback(done, out, metrics, recs):
+            break
+    return out, metrics, recorder
+
+
+def reduce_records(records: WindowRecord) -> scan.RunMetrics:
+    """Fold a stacked WindowRecord (leaves [B, n_windows, ...]) back into the
+    run-level RunMetrics ([B, ...]): equal to the run's metrics exactly."""
+    n_windows = records.start.shape[1]
+    take = lambda w: scan.RunMetrics(*(x[:, w] for x in records.metrics))  # noqa: E731
+    m = take(0)
+    for w in range(1, n_windows):
+        m = merge_metrics(m, take(w))
+    return m
+
+
+def window_cluster_counters(records: WindowRecord) -> list[dict]:
+    """A stacked WindowRecord (public layout) as one dict of per-cluster
+    numpy counters per window -- the health plane's window units.
+    `leaderless` marks clusters that saw no leader in that window."""
+    if isinstance(records.start, torch.Tensor):
+        records = device_mod.host_numpy(*device_mod.to_host_async(records))
+    start = np.asarray(records.start)
+    m = {
+        f: np.asarray(getattr(records.metrics, f))
+        for f in ("ticks", "violations", "first_leader_tick", "total_cmds", "reads_served",
+                  "lat_sum", "lat_cnt", "lat_hist", "read_hist", "fsync_lag_sum",
+                  "fsync_lag_max")
+    }
+    units = []
+    for w in range(start.shape[1]):
+        units.append({
+            "start": int(start[0, w]),
+            "ticks": int(m["ticks"][0, w]),
+            "violations": m["violations"][:, w].astype(np.int64),
+            "leaderless": m["first_leader_tick"][:, w] == NEVER,
+            "cmds": m["total_cmds"][:, w].astype(np.int64),
+            "reads": m["reads_served"][:, w].astype(np.int64),
+            "lat_sum": m["lat_sum"][:, w].astype(np.int64),
+            "lat_cnt": m["lat_cnt"][:, w].astype(np.int64),
+            "lat_hist": m["lat_hist"][:, w].astype(np.int64),
+            "read_hist": m["read_hist"][:, w].astype(np.int64),
+            "fsync_lag_sum": m["fsync_lag_sum"][:, w].astype(np.int64),
+            "fsync_lag_max": m["fsync_lag_max"][:, w].astype(np.int64),
+        })
+    return units
+
+
+def export_cluster(recorder: FlightRecorder, cluster: int):
+    """One cluster's ring, oldest tick first, empty slots dropped:
+    (ticks [k_valid] numpy, StepInfo of numpy leaves with a leading
+    [k_valid] axis). For a frozen cluster the last row is the violation."""
+
+    def leaf(x):  # [K, ..., B] -> this cluster's [K, ...]
+        return np.moveaxis(x.detach().cpu().numpy(), -1, 0)[cluster]
+
+    ticks = leaf(recorder.tick)
+    order = np.argsort(ticks, kind="stable")
+    order = order[ticks[order] >= 0]
+    return ticks[order], StepInfo(*(leaf(x)[order] for x in recorder.ring))

@@ -87,3 +87,20 @@ def test_cli_bench_refuses_bench_artifact_names(tmp_path):
     proc = _run_cli("bench", "--preset", "config2", "--out", str(out), "--device", "cpu")
     assert proc.returncode == 2 and "BENCH_r" in proc.stderr
     assert not out.exists()
+
+
+def test_serve_row_matches_bench_py():
+    """The config9-serve row at a small size (16 clusters, 4 tenants, chunks
+    of 32, one warmup chunk, 3 serving chunks): its work counts equal
+    bench.py's `serve_bench` row's; only config5c stays unported."""
+    kw = dict(batch=16, chunks=3, chunk=32, window=16, tenants_n=4, smoke=True)
+    want = jbench.serve_bench("config9", **kw)
+    got = tbench.serve_bench("config9", device="cpu", **kw)
+    counts = ("kind", "unit", "config", "smoke", "batch", "tenants", "chunk", "window", "chunks",
+              "ticks", "commands_acked", "reads_served", "ops_done", "violations")
+    assert {k: got[k] for k in counts} == {k: want[k] for k in counts}
+    assert got["commands_acked"] > 0 and got["reads_served"] > 0 and got["violations"] == 0
+    assert got["backend"] == "cpu" and got["perf"] is None and got["reconciliation"] is None
+    assert got["ops_per_s"] > 0 and got["steady_ticks_per_s"] > 0
+    assert set(want) - set(got) == set() and set(got) - set(want) == {"wall_s"}
+    assert list(tbench.NOT_PORTED) == ["config5c"]

@@ -10,6 +10,7 @@ Tolerance: exact equality of every leaf.
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -22,6 +23,61 @@ from raft_sim_tpu_torch.utils import config as tconfig
 from raft_sim_tpu_torch.utils import threefry
 
 pytestmark = pytest.mark.cuda
+
+NIL = ttypes.NIL
+INT32_EDGES = np.array([-(2**31), -(2**31) + 1, -3, 0, 1, 2**31 - 2, 2**31 - 1], np.int64)
+
+
+def served_planes(batch: int, ticks: int, seed: int, reads: bool = True):
+    """(cmds, reads) offer planes [ticks, batch] int32 from a numpy seed, as
+    the serve loop feeds them: a distinct-ish payload per (tick, cluster)
+    slot, a fifth of them at or next to the int32 extremes, NIL holes in
+    three slots of ten (NIL and NOOP never offered), and a read offered in
+    half the slots (None when `reads` is False)."""
+    rng = np.random.default_rng(seed)
+    cmds = rng.integers(-(2**31), 2**31, size=(ticks, batch), dtype=np.int64)
+    edge = rng.random((ticks, batch)) < 0.2
+    cmds[edge] = rng.choice(INT32_EDGES, size=int(edge.sum()))
+    cmds[(cmds == NIL) | (cmds == ttypes.NOOP)] = 7
+    cmds[rng.random((ticks, batch)) < 0.3] = NIL
+    read_plane = np.where(rng.random((ticks, batch)) < 0.5, 1, NIL).astype(np.int32)
+    return cmds.astype(np.int32), (read_plane if reads else None)
+
+
+def served_inputs(cfg, keys, t: int, cmds, reads):
+    """Tick t's batch-minor inputs with the planes' row t in place of the
+    scheduled client command and read offer (scan.tick_batch_minor's
+    overrides)."""
+    inp = faults.make_inputs(cfg, keys, t)
+    dev = keys.device
+    inp = inp._replace(client_cmd=torch.as_tensor(cmds[t], device=dev))
+    if reads is not None:
+        inp = inp._replace(read_cmd=torch.as_tensor(reads[t], device=dev))
+    return trb.to_batch_minor(inp)
+
+
+def _serve_config(cfg):
+    from raft_sim_tpu_torch.serve.loop import serve_config
+
+    return serve_config(cfg)
+
+
+# The served rows (K1-c): the presets under serve_config -- the client and
+# read cadences replaced by offered planes, the offer-tick plane live --
+# config2 on the lean body, config9/config6r/config10 on the full one,
+# config7 (N=101, two nodes a thread) and the full gate set at N=129 (int16
+# node ids, width tier 8) with reads.
+SERVED = {
+    "config2-served": _serve_config(tconfig.PRESETS["config2"][0]),
+    "config9-served": _serve_config(tconfig.PRESETS["config9"][0]),
+    "config6r-served": _serve_config(tconfig.PRESETS["config6r"][0]),
+    "config10-served": _serve_config(tconfig.PRESETS["config10"][0]),
+    "config7-served": _serve_config(tconfig.PRESETS["config7"][0]),
+    "n129-full-served": _serve_config(tconfig.RaftConfig(
+        n_nodes=129, log_capacity=12, compact_margin=3, max_entries_per_rpc=3, client_interval=2,
+        reconfig_interval=5, transfer_interval=7, read_interval=2, pre_vote=True,
+        election_min_ticks=8, election_range_ticks=6, drop_prob=0.1)),
+}
 
 
 @pytest.fixture(scope="module")
@@ -177,3 +233,57 @@ def test_simulate_card_matches_cpu(card, name):
     want = scan.simulate(cfg, 3, 32, 80, device="cpu")
     assert bridge.first_difference(want[0], got[0]) is None
     assert bridge.first_difference(want[1], got[1]) is None
+
+
+@pytest.mark.parametrize("proxy", [False, True], ids=["kernel", "proxy"])
+@pytest.mark.parametrize("name,batch,ticks", [
+    ("config2-served", 45, 96), ("config9-served", 45, 160), ("config6r-served", 45, 160),
+    ("config10-served", 45, 160), ("config7-served", 45, 64), ("n129-full-served", 45, 64),
+])
+def test_step_cuda_matches_plain_step_served_ragged(card, name, batch, ticks, proxy):
+    """K1-c: the kernel (and its race proxy) under served per-cluster offer
+    and read planes with NIL holes and int32-edge payloads equals the plain
+    tick every tick, on a ragged 45 clusters."""
+    cfg = SERVED[name]
+    cmds, reads = served_planes(batch, ticks, 5, cfg.read_index)
+    s = trb.to_batch_minor(ttypes.init_batch(cfg, threefry.key(0, card), batch))
+    keys = threefry.split(threefry.key(1, card), batch)
+    injected = served = 0
+    for t in range(ticks):
+        inp = served_inputs(cfg, keys, t, cmds, reads)
+        want = trb.step_b(cfg, s, inp, t)
+        got = tick_engine.step_cuda(cfg, s, inp, t, proxy=proxy)
+        diff = bridge.first_difference(want[0], got[0]) or bridge.first_difference(want[1], got[1])
+        assert diff is None, f"tick {t}: {diff}"
+        injected += int(got[1].cmds_injected.sum())
+        served += int(got[1].reads_served.sum())
+        s = got[0]
+    assert injected > 0
+    assert served > 0 or not cfg.read_index
+
+
+def test_serve_session_card_matches_cpu(card):
+    """The serve loop on the card equals it on the CPU: a served config9 of
+    16 clusters, 4 tenants, two serving chunks of 64 after one warmup chunk
+    -- state, metrics, window lines and delta rows."""
+    import itertools
+
+    from raft_sim_tpu_torch.serve import ServeSession, Tenant
+
+    def session(dev):
+        counter = itertools.count(1)
+        tenants = [Tenant(f"t{i}", 4, source=(next(counter) for _ in itertools.repeat(0)),
+                          reads=10**6) for i in range(4)]
+        sess = ServeSession(tconfig.PRESETS["config9"][0], batch=16, seed=2, chunk=64,
+                            window=16, delta_depth=16, warmup_ticks=64, tenants=tenants,
+                            device=dev)
+        stats = sess.serve(chunks=2)
+        stats.pop("wall_s")
+        return sess, stats
+
+    g, g_stats = session(card)
+    c, c_stats = session("cpu")
+    assert g_stats == c_stats and g_stats["commands_acked"] > 0 and g_stats["reads_served"] > 0
+    assert bridge.first_difference(c.state, g.state) is None
+    assert bridge.first_difference(c.metrics, g.metrics) is None
+    assert c.delta_rows == g.delta_rows

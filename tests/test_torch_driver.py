@@ -2,8 +2,8 @@
 the CPU: a run saved and resumed equals one uninterrupted run, leaf for leaf
 in the checkpoint and field for field in the printed summary; --resume is
 exclusive with every flag that sets the experiment; each RaftConfig field
-has a flag that reaches the config; flags the port has not taken are unknown
-to the parser. The default device (the card) is tested in
+has a flag that reaches the config; `--telemetry-dir` writes the JAX CLI's
+files; flags the port has not taken are unknown to the parser. The default device (the card) is tested in
 tests/test_torch_simulate.py.
 """
 
@@ -94,7 +94,7 @@ def test_resume_is_exclusive_with_config_flags(capsys, flags, named):
     assert "--resume is exclusive with config flags" in err and named in err
 
 
-@pytest.mark.parametrize("flag", ["--mutant", "--telemetry-dir", "--trace", "--perf", "--health",
+@pytest.mark.parametrize("flag", ["--mutant", "--trace", "--perf", "--health",
                                   "--devices", "--sanitize", "--profile", "--backend"])
 def test_unported_flags_are_unknown(capsys, flag):
     """A flag of the JAX `run` the port has not taken is refused, never
@@ -103,6 +103,40 @@ def test_unported_flags_are_unknown(capsys, flag):
         cli.main(["run", "--device", "cpu", flag, "x"])
     assert ex.value.code == 2
     assert "unrecognized arguments" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag", ["--perf", "--health", "--profile", "--sanitize", "--backend"])
+def test_serve_unported_flags_are_unknown(capsys, flag):
+    """The JAX `serve` flags the port has not taken (chunk timing, SLO
+    monitors, the profiler, the donation sanitizer, the JAX backend) are
+    refused by the port's `serve`."""
+    with pytest.raises(SystemExit) as ex:
+        cli.main(["serve", "--device", "cpu", flag, "x"])
+    assert ex.value.code == 2
+    assert "unrecognized arguments" in capsys.readouterr().err
+
+
+def test_telemetry_dir_matches_jax(tmp_path):
+    """`run --telemetry-dir` (with --telemetry-window and --telemetry-ring)
+    writes the JAX CLI's windows.jsonl byte for byte and its summary.json
+    value for value, and the JAX package's validate() accepts the port's
+    directory."""
+    jdir, tdir = tmp_path / "jax", tmp_path / "port"
+    flags = ("--preset", "config9", "--batch", "4", "--ticks", "100", "--chunk", "32",
+             "--telemetry-window", "16", "--telemetry-ring", "8")
+    env = dict(os.environ, PYTHONPATH=str(REPO), JAX_PLATFORMS="cpu")
+    proc = subprocess.run([sys.executable, "-m", "raft_sim_tpu", "run", *flags, "--backend", "cpu",
+                           "--telemetry-dir", str(jdir)],
+                          capture_output=True, text=True, cwd=REPO, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    _run_cli("run", "--device", "cpu", *flags, "--telemetry-dir", str(tdir))
+    assert (jdir / "windows.jsonl").read_bytes() == (tdir / "windows.jsonl").read_bytes()
+    assert len((tdir / "windows.jsonl").read_text().splitlines()) == 7  # 6 x 16 + 4
+    want, got = (json.loads((d / "summary.json").read_text()) for d in (jdir, tdir))
+    assert got == want and got["flights_frozen"] == 0
+    from raft_sim_tpu.utils import telemetry_sink as jsink
+
+    assert jsink.validate(str(tdir)) == []
 
 
 def test_apply_cluster_out_of_range_is_a_usage_error(capsys):

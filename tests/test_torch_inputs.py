@@ -136,6 +136,19 @@ def test_make_inputs_admin_commands_match_jax(jcfg, n_ticks):
     assert (got.read_cmd == 1).all()  # the read cadence fired
 
 
+@pytest.mark.parametrize("name", ["config2", "config6r", "config9", "config10"])
+def test_make_inputs_served_configs_match_jax(name):
+    """Under serve_config (client_interval 0 with the offer-tick plane live,
+    the read cadence replaced by serve_reads): no scheduled client command
+    or read, and every draw equal to the JAX package's."""
+    from raft_sim_tpu.serve.loop import serve_config
+
+    jcfg = serve_config(rst.PRESETS[name][0])
+    _check_make_inputs(jcfg, list(range(40)) + [1000])
+    got = tfaults.make_inputs(_port_cfg(jcfg), threefry.split(threefry.key(0), 2), 0)
+    assert (got.client_cmd == -1).all() and (got.read_cmd == -1).all()
+
+
 @pytest.mark.parametrize("jcfg,n_ticks", STORAGE_ROWS)
 def test_make_inputs_storage_draws_match_jax(jcfg, n_ticks):
     """fsync_fire and torn_drop (with every other leaf) equal JAX's every

@@ -152,13 +152,28 @@ def test_default_device_raises_without_a_card(tmp_path):
 
 @pytest.mark.parametrize(
     "kw,gate",
-    [(dict(serve_reads=True), "serve_reads"), (dict(track_trace=True), "track_trace"),
-     (dict(compact_planes=True), "compact_planes")],
+    [(dict(track_trace=True), "track_trace"), (dict(compact_planes=True), "compact_planes")],
     ids=lambda x: x if isinstance(x, str) else None,
 )
 def test_simulate_unsupported_gate_raises(kw, gate):
     with pytest.raises(NotImplementedError, match=gate):
         tscan.simulate(tconfig.RaftConfig(**kw), 0, 2, 3, device="cpu")
+
+
+@pytest.mark.parametrize("name,gate", [("config9", "serve_reads"), ("config2", "serve_ingest")],
+                         ids=["serve_reads", "serve_ingest"])
+def test_simulate_takes_serve_gates(name, gate):
+    """The serve gates on top of a preset's own cadences: `simulate` equals
+    the JAX package's, and the cadences still run (reads served, commands
+    committed with their latency tracked)."""
+    jcfg = dataclasses.replace(rst.PRESETS[name][0], **{gate: True})
+    tcfg = dataclasses.replace(tconfig.PRESETS[name][0], **{gate: True})
+    want_s, want_m = jax.device_get(jscan.simulate(jcfg, 5, 6, 120))
+    got_s, got_m = tscan.simulate(tcfg, 5, 6, 120, device="cpu")
+    assert bridge.first_difference(want_s, got_s) is None
+    assert bridge.first_difference(want_m, got_m) is None
+    assert int(got_m.lat_cnt.sum()) > 0
+    assert int(got_m.reads_served.sum()) > 0 or gate != "serve_reads"
 
 
 def test_tick_batch_minor_matches_jax():

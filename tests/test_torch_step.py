@@ -45,9 +45,11 @@ def _fuzz(inp, rng, p_down):
     return inp._replace(alive=jnp.asarray(alive), restarted=jnp.asarray(restarted))
 
 
-def trajectory(jcfg, batch, ticks, seed, p_down=0.0, step=trb.step_b):
+def trajectory(jcfg, batch, ticks, seed, p_down=0.0, step=trb.step_b, planes=None):
     """Run the JAX tick along a trajectory and hold the port's `step` to it
-    every tick. Returns the number of ticks that had a leader somewhere."""
+    every tick. `planes` ((cmds, reads), [ticks, batch] int32; reads may be
+    None) replace each tick's client command and read offer, as the serve
+    loop does. Returns the number of ticks that had a leader somewhere."""
     cfg = _port_cfg(jcfg)
     rng = np.random.default_rng(seed)
     st = jrb.to_batch_minor(rst.init_batch(jcfg, jax.random.key(seed), batch))
@@ -61,6 +63,8 @@ def trajectory(jcfg, batch, ticks, seed, p_down=0.0, step=trb.step_b):
         inp = draw(keys, jnp.int32(t))
         if p_down:
             inp = _fuzz(inp, rng, p_down)
+        if planes is not None:
+            inp = _offer(inp, planes, t)
         want_s, want_i = jax.device_get(jstep(st, inp))
         s_np, i_np = jax.device_get((st, inp))
         got_s, got_i = step(
@@ -191,6 +195,32 @@ ROWS = [
 def test_plain_step_matches_jax_step_b(jcfg, batch, ticks, p_down):
     led = trajectory(jcfg, batch, ticks, seed=3, p_down=p_down)
     assert led > 0  # the trajectory reached leadership, so phases 4-8 ran
+
+
+def _offer(inp, planes, t):
+    """Batch-minor JAX inputs with row t of the offer planes in place of the
+    scheduled client command and read offer."""
+    cmds, reads = planes
+    inp = inp._replace(client_cmd=jnp.asarray(cmds[t]))
+    return inp if reads is None else inp._replace(read_cmd=jnp.asarray(reads[t]))
+
+
+@pytest.mark.parametrize("name,batch,ticks,p_down", [
+    ("config2", 6, 80, 0.0), ("config9", 5, 200, 0.0), ("config6r", 5, 160, 0.0),
+    ("config10", 5, 160, 0.0), ("config8", 4, 120, 0.05),
+])
+def test_plain_step_matches_jax_step_b_under_served_planes(name, batch, ticks, p_down):
+    """serve_ingest/serve_reads (K1-c's gates) in the plain tick: the preset
+    under the JAX serve_config -- no client or read cadence, the offer-tick
+    plane live -- fed per-cluster planes with NIL holes and int32-edge
+    payloads, equals the JAX tick every tick."""
+    from raft_sim_tpu.serve.loop import serve_config
+    from tests.test_torch_cuda import served_planes
+
+    jcfg = serve_config(rst.PRESETS[name][0])
+    assert jcfg.serve_ingest and jcfg.client_interval == 0
+    planes = served_planes(batch, ticks, 9, jcfg.read_index)
+    assert trajectory(jcfg, batch, ticks, seed=3, p_down=p_down, planes=planes) > 0
 
 
 def hand_built_cases():
@@ -616,6 +646,38 @@ def test_plain_step_matches_step_pallas_interpret():
     assert bridge.first_difference(want_i, got_i) is None
 
 
+def test_plain_step_matches_step_pallas_interpret_served_planes():
+    """K1-c as the JAX tests run K1: step_pallas (interpret mode) on a served
+    config9 (offered writes and reads, per-cluster planes with holes), two
+    ticks from a mid-trajectory state with reads pending."""
+    from raft_sim_tpu.serve.loop import serve_config
+    from tests.test_torch_cuda import served_planes
+
+    jcfg = serve_config(rst.PRESETS["config9"][0])
+    cfg = _port_cfg(jcfg)
+    B = 4
+    planes = served_planes(B, 62, 13, True)
+    st = jrb.to_batch_minor(rst.init_batch(jcfg, jax.random.key(5), B))
+    keys = jax.random.split(jax.random.key(6), B)
+    jstep = _jitted_step_b(jcfg)
+    draw = jax.jit(
+        lambda k, now: jrb.to_batch_minor(jax.vmap(lambda kk: jfaults.make_inputs(jcfg, kk, now))(k))
+    )
+    for t in range(60):
+        st = jstep(st, _offer(draw(keys, jnp.int32(t)), planes, t))[0]
+    for t in range(60, 62):
+        inp = _offer(draw(keys, jnp.int32(t)), planes, t)
+        want_s, want_i = jax.device_get(pallas_engine.step_pallas(jcfg, st, inp, block_b=4, interpret=True))
+        s_np, i_np = jax.device_get((st, inp))
+        got_s, got_i = trb.step_b(
+            cfg, bridge.to_port(s_np, ttypes.ClusterState), bridge.to_port(i_np, ttypes.StepInputs), t
+        )
+        assert bridge.first_difference(want_s, got_s) is None
+        assert bridge.first_difference(want_i, got_i) is None
+        st = jstep(st, inp)[0]
+    assert int(np.asarray(st.commit_index).max()) > 0
+
+
 def test_plain_step_matches_step_pallas_interpret_compaction_prevote():
     """K1 under the slice-2 gates: step_pallas (interpret mode) with a wrapped
     compacting ring, PreVote, crashes and the redirect client, one tick from
@@ -711,15 +773,18 @@ def test_plain_step_matches_step_pallas_interpret_durable_storage():
      dict(reconfig_interval=10), dict(transfer_interval=10), dict(read_interval=3), LEASE_KW,
      dict(reconfig_interval=10, compact_margin=4, log_capacity=16),
      dict(fsync_interval=3),
-     dict(compact_margin=4, log_capacity=16, check_log_matching=True)],
+     dict(compact_margin=4, log_capacity=16, check_log_matching=True),
+     dict(serve_ingest=True), dict(serve_reads=True)],
     ids=["pre_vote", "compaction", "client_redirect", "reconfig", "transfer", "reads", "lease",
-         "reconfig-under-compaction", "durable_storage", "log matching under compaction"],
+         "reconfig-under-compaction", "durable_storage", "log matching under compaction",
+         "serve_ingest", "serve_reads"],
 )
 def test_ported_gates_are_accepted(kw):
     """PreVote, compaction, the redirect client, the reconfiguration plane
     (membership, transfer, reads, leases; membership under compaction), the
-    durable storage plane and log matching under compaction run through both
-    the plain tick and the kernel's gate check."""
+    durable storage plane, log matching under compaction and the serve
+    gates (offered writes and reads) run through both the plain tick and the
+    kernel's gate check."""
     cfg = tconfig.RaftConfig(**kw)
     assert trb.unsupported_gates(cfg) == []
     tick_engine.check_supported(cfg)
@@ -771,13 +836,11 @@ class _VolatileVote(tconfig.RaftConfig):
 @pytest.mark.parametrize(
     "kw,gate",
     [
-        (dict(serve_reads=True), "serve_reads"),
         (dict(cls=_SingleServerChange, reconfig_interval=10), "mutant hook joint_consensus"),
         (dict(cls=_AckBeforeFsync, fsync_interval=3), "mutant hook durable_acks"),
         (dict(cls=_VolatileVote, fsync_interval=3), "mutant hook persist_vote"),
         (dict(compact_planes=True), "compact_planes"),
         (dict(track_trace=True), "track_trace"),
-        (dict(serve_ingest=True), "serve_ingest"),
         (dict(cls=_LeaseSkewUnsafe, **LEASE_KW), "mutant hook lease_skew_safe"),
     ],
     ids=lambda x: x if isinstance(x, str) else None,

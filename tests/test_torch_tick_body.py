@@ -26,6 +26,7 @@ from raft_sim_tpu_torch.models import raft_batched as trb
 from raft_sim_tpu_torch.sim import faults
 from raft_sim_tpu_torch.utils import config as tconfig
 from raft_sim_tpu_torch.utils import threefry
+from tests.test_torch_cuda import SERVED, served_inputs, served_planes
 from tests.test_torch_step import (
     DURABLE_CRASHES,
     DURABLE_PREVOTE_DENSE,
@@ -251,6 +252,50 @@ def test_tick_body_reverse_worker_order(host_lib, cfg, batch, ticks, p_down):
             diff = bridge.first_difference(want[0], got[0]) or bridge.first_difference(want[1], got[1])
             assert diff is None, f"tick {t}, {order} order: {diff}"
         s = want[0]
+
+
+@pytest.mark.parametrize("name,batch,ticks", [
+    ("config2-served", 5, 96), ("config9-served", 7, 200), ("config6r-served", 5, 160),
+    ("config10-served", 5, 160), ("config7-served", 2, 48), ("n129-full-served", 2, 48),
+])
+def test_tick_body_matches_plain_step_under_served_planes(host_lib, name, batch, ticks):
+    """K1-c: the body under served per-cluster offer and read planes (NIL
+    holes, int32-edge payloads, client and read cadences off, the offer-tick
+    plane live), in both worker orders with the race proxy's poison, equals
+    the plain tick every tick."""
+    cfg = SERVED[name]
+    cmds, reads = served_planes(batch, ticks, 11, cfg.read_index)
+    s = trb.to_batch_minor(ttypes.init_batch(cfg, threefry.key(2), batch))
+    keys = threefry.split(threefry.key(3), batch)
+    injected = served = 0
+    for t in range(ticks):
+        inp = served_inputs(cfg, keys, t, cmds, reads)
+        want = trb.step_b(cfg, s, inp, t)
+        for reverse in (False, True):
+            got = tick_engine.step_host(host_lib, cfg, s, inp, t, reverse=reverse, poison=True)
+            diff = bridge.first_difference(want[0], got[0]) or bridge.first_difference(want[1], got[1])
+            assert diff is None, f"tick {t}, {'reverse' if reverse else 'forward'} order: {diff}"
+        injected += int(want[1].cmds_injected.sum())
+        served += int(want[1].reads_served.sum())
+        s = want[0]
+    assert injected > 0
+    assert served > 0 or not cfg.read_index
+
+
+@pytest.mark.parametrize("name,lean", [("config2-served", True), ("config7-served", True),
+                                       ("config9-served", False), ("config6r-served", False),
+                                       ("config10-served", False), ("n129-full-served", False)])
+def test_served_configs_keep_their_gate_set(host_lib, name, lean):
+    """serve_ingest/serve_reads add no gate of their own: a served config2
+    or config7 stays on the lean body (the offer-tick plane is a runtime
+    gate), and the read-carrying or compacting ones take the full body."""
+    import ctypes
+
+    cfg = SERVED[name]
+    s = trb.to_batch_minor(ttypes.init_batch(cfg, threefry.key(0), 1))
+    params = tick_engine._params(cfg, s, False)
+    assert params.track == 1 and params.reads == int(cfg.read_index)
+    assert bool(host_lib.rs_tick_lean(ctypes.byref(params))) is lean
 
 
 @pytest.mark.parametrize("name", HAND_BUILT)
