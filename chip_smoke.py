@@ -8,8 +8,8 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
 1. device  -- `nvidia-smi` name and power limit, torch and CUDA versions, then
    the tick kernel's build from raft_sim_tpu_torch/csrc (nvcc, sm_90a) with its
    seconds and the compiler's register/stack/spill report per instantiation
-   (tick_kernel<index, ack, node dtype, width tier, nodes per thread, full
-   gate set>), nine nvcc runs in parallel. The race proxy's library (below)
+   (tick_kernel<index, ack, node dtype, width tier, nodes per thread, body:
+   0 lean, 1 full, 2 mutant>), nine nvcc runs in parallel. The race proxy's library (below)
    builds in the background from here on.
 2. kernel_vs_plain -- presets config1-config5 and config3p for 96 ticks,
    config6 and config6r for 160 (their CAP=32 rings wrap near tick 130),
@@ -118,6 +118,31 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    chunk, ms per extraction round (CUDA events), the kernel's ms a tick
    served and unserved on the final state against its bound, the input
    draws' ms, and a `kernel_shape` line.
+4d. scenario -- the slice-9 path: the scenario engine
+   (raft_sim_tpu_torch/scenario/) with the TEST-ONLY mutant hooks in the
+   kernel (K1-d). (a) Kernel == plain tick every tick under each of the ten
+   mutation.py registry names at its corpus artifact's config (stale-read on
+   config9, ignore-truncation-rollback on config8: no artifact), 200
+   clusters x SCEN_T ticks, inputs on the scenario path from a numpy-seeded
+   genome with a different fault setting in every cluster and two segments
+   of SCEN_SEG ticks; the race proxy on a ragged 45 under blind-transfer and
+   ack-before-fsync; each row reports its violating cluster-ticks, and a
+   `kernel_shape` line shows blind-transfer on the mutant body. (b) Each of
+   the seven tests/corpus artifacts replays through the kernel (one launch a
+   tick) to its tick and kinds, past it by the event context, with the
+   file's events and state lines. (c) A weak-quorum search on the JAX
+   scenario tests' kitchen-sink config (16 x 128, 2 generations) on the card
+   equals it on the CPU. (d) Full width on config4c: `scenario run`'s
+   library path (driver.run_scenario) over a calm / storm (drop 0.2,
+   partitions of period 32 at 0.3, skew 0.1) / calm program of 100-tick
+   segments at the preset batch of 100,000 for 300 ticks -- launches ==
+   ticks, zero violations, a leader in every cluster, FULL_HOLD_TICKS ticks
+   of kernel == plain after it, the wall ms a tick, the input draws', the
+   kernel's against its bound, peak memory; then a weak-quorum hunt at a
+   population of HUNT_POP, HUNT_T ticks, window HUNT_WINDOW, at most 4
+   generations, which must hit; its hit is shrunk and the artifact replays
+   to the identical tick through the kernel, and the real config4c on the
+   hunt's last generation of genomes shows zero violations.
 5. bench_row -- the port's bench (raft_sim_tpu_torch/bench.py) on config2 at
    64 x 100 ticks, 3 quality seeds and 2 repeats, on the card and on the CPU:
    every quality field equal; the card's row carries backend "cuda", the
@@ -146,6 +171,9 @@ SIM_TICKS = 32  # phase 2: ticks of `simulate` through the kernel vs the plain t
 LONG_CHUNK = 50  # long_run's chunk: commit moves < CAP - margin a chunk
 SERVE_T = 256  # serve (a): ticks of kernel vs plain under served planes
 SERVE_CHUNKS = 8  # serve (c): serving chunks of the config9-serve row
+SCEN_T = 128  # scenario (a): ticks of kernel vs plain under each mutant
+SCEN_SEG = 64  # scenario (a): ticks a genome segment
+HUNT_POP, HUNT_T, HUNT_WINDOW = 10_000, 256, 64  # scenario (d): the weak-quorum hunt
 
 
 def emit(obj) -> None:
@@ -204,13 +232,15 @@ def count_events(cfg, t, s, inp, new, info, ev) -> None:
     transfer-sanctioned RequestVotes and reads served (all, and in one tick);
     on the storage plane completed flushes, recoveries that cut a torn log,
     term/vote rewinds, late vote responses, acks held at the watermark and
-    jitter stalls. `s`/`inp` are the tick's batch-minor state and inputs,
+    jitter stalls; and the cluster-ticks that tripped an invariant. `s`/`inp` are the tick's batch-minor state and inputs,
     `new`/`info` its results. Raises if a node's dur_len passes its log_len."""
     import torch
     from raft_sim_tpu_torch import types as T
     from raft_sim_tpu_torch.ops import bitplane
 
     ev["restarts"] += int(inp.restarted.sum())
+    ev["violation_ticks"] += int((info.viol_election_safety | info.viol_commit
+                                  | info.viol_log_matching | info.viol_read_stale).sum())
     if cfg.reconfig:
         ev["config_appends"] += int((new.cfg_epoch > s.cfg_epoch).sum())
         ev["config_rollbacks"] += int((new.cfg_epoch < s.cfg_epoch).sum())
@@ -614,6 +644,267 @@ def serve_phase(dev, wall_ms) -> dict:
     return cell
 
 
+# The kitchen-sink config of the JAX scenario tests (tests/test_scenario.py):
+# every fault mechanism on, with a client.
+KITCHEN_SINK = dict(n_nodes=5, log_capacity=8, client_interval=4, drop_prob=0.2,
+                    partition_period=16, partition_prob=0.3, crash_prob=0.3, crash_period=32,
+                    crash_down_ticks=8, clock_skew_prob=0.1)
+
+# scenario (d): the three-segment nemesis program of the config4c run row.
+STORM_PROGRAM = {
+    "name": "calm-storm-calm", "seg_len": 100,
+    "segments": [
+        {"client_interval": 8},
+        {"client_interval": 8, "drop_prob": 0.2, "partition_period": 32, "partition_prob": 0.3,
+         "clock_skew_prob": 0.1},
+        {"client_interval": 8},
+    ],
+}
+
+
+def random_genome(cfg, batch: int, seed: int, segments: int, device):
+    """A [batch, segments] genome from a numpy seed: a different fault
+    setting in every cluster and segment (drop, partitions, crashes, skew,
+    and the cadences and disk faults of the planes `cfg` runs)."""
+    import numpy as np
+    import torch
+    from raft_sim_tpu_torch.scenario import genome as genome_mod
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(batch):
+        segs = []
+        for _ in range(segments):
+            kw = dict(drop_prob=rng.uniform(0, 0.4), partition_period=int(rng.integers(0, 65)),
+                      partition_prob=rng.uniform(0, 1), crash_prob=rng.uniform(0, 0.5),
+                      crash_down_ticks=int(rng.integers(1, cfg.crash_period + 1)),
+                      clock_skew_prob=rng.uniform(0, 0.3))
+            for f, on in (("client_interval", cfg.client_interval > 0),
+                          ("reconfig_interval", cfg.reconfig),
+                          ("transfer_interval", cfg.leader_transfer),
+                          ("read_interval", cfg.read_index)):
+                if on:
+                    kw[f] = int(rng.integers(1, 2 * getattr(cfg, f) + 1))
+            if cfg.durable_storage:
+                kw.update(fsync_interval=int(rng.integers(1, 9)),
+                          fsync_jitter_prob=rng.uniform(0, 0.6), torn_tail_prob=rng.uniform(0, 0.6),
+                          lost_suffix_span=int(rng.integers(1, cfg.log_capacity // 2 + 1)))
+            segs.append(genome_mod.segment(**kw))
+        rows.append(segs)
+    g = genome_mod.ScenarioGenome(**{
+        f: torch.tensor([[sg[f] for sg in r] for r in rows], dtype=genome_mod.leaf_dtype(f))
+        for f in genome_mod.ScenarioGenome._fields
+    })
+    genome_mod.validate(cfg, g)
+    return genome_mod.to_device(g, device)
+
+
+def scenario_phase(dev, wall_ms, hold_ticks) -> dict:
+    """Phase 4d: the scenario engine (raft_sim_tpu_torch/scenario/) on the
+    card, every tick one launch of the kernel, under the mutant hooks
+    (K1-d). Returns the config4c run row's cell (the main path's)."""
+    import collections
+    import glob
+
+    import torch
+    from raft_sim_tpu_torch import driver
+    from raft_sim_tpu_torch.kernels import tick_engine
+    from raft_sim_tpu_torch.models import raft_batched
+    from raft_sim_tpu_torch.scenario import genome as genome_mod
+    from raft_sim_tpu_torch.scenario import program as program_mod
+    from raft_sim_tpu_torch.scenario import search as search_mod
+    from raft_sim_tpu_torch.scenario import shrink as shrink_mod
+    from raft_sim_tpu_torch.scenario.mutation import MUTANTS, mutant_config
+    from raft_sim_tpu_torch.sim import faults, scan, telemetry
+    from raft_sim_tpu_torch.summary import summarize
+    from raft_sim_tpu_torch.types import init_batch
+    from raft_sim_tpu_torch.utils import threefry
+    from raft_sim_tpu_torch.utils.config import PRESETS, RaftConfig
+
+    corpus = {}
+    for path in sorted(glob.glob(os.path.join(HERE, "tests", "corpus", "*.json"))):
+        art = shrink_mod.load_artifact(path)
+        corpus[art["mutant"]] = (os.path.relpath(path, HERE), art)
+    if len(corpus) != 7:
+        raise AssertionError(f"scenario: {len(corpus)} corpus artifacts, expected 7")
+
+    # ---- (a) kernel == plain every tick under each mutant, heterogeneous genomes
+    rows = []
+    for name in MUTANTS:
+        src = "single-server-change" if name == "joint-bypass" else name
+        if src in corpus:
+            origin, base = corpus[src][0], RaftConfig(**corpus[src][1]["config"])
+        else:  # no artifact: config9 (ReadIndex) and config8 (membership)
+            origin = "config9" if name == "stale-read" else "config8"
+            base = PRESETS[origin][0]
+        rows.append((name, mutant_config(name, base), origin, 200, False))
+    rows += [(f"{name}-proxy-b45", cfg, origin, 45, True)
+             for name, cfg, origin, _, _ in rows if name in ("blind-transfer", "ack-before-fsync")]
+    for k, (name, cfg, origin, batch, proxy) in enumerate(rows):
+        g = random_genome(cfg, batch, SEED + k, 2, dev)
+        s = raft_batched.to_batch_minor(init_batch(cfg, threefry.key(SEED, dev), batch))
+        keys = threefry.split(threefry.key(SEED + 1, dev), batch)
+        ev = collections.Counter()
+        s = hold_ticks(cfg, s, keys, 0, SCEN_T, f"scenario {name}", ev, proxy=proxy, genome=g,
+                       seg_len=SCEN_SEG)
+        emit({"phase": "scenario_kernel_vs_plain", "mutant": name, "config": origin,
+              "batch": batch, "ticks": SCEN_T, "segments": 2, "seg_len": SCEN_SEG,
+              "race_proxy": proxy, "per_tick": "equal", "max_abs_err": 0,
+              "violation_ticks": ev["violation_ticks"], "restarts": ev["restarts"]})
+        if name == "blind-transfer":
+            shape = tick_engine.launch_shape(cfg, batch, dev)
+            shape.update(tick_engine.kernel_report(cfg, s, shape["nodes_per_thread"]))
+            emit({"phase": "kernel_shape", "preset": f"{origin} blind-transfer", "batch": batch,
+                  **shape})
+            if shape["gate_set"] != "mutant":
+                raise AssertionError(f"scenario: blind-transfer ran the {shape['gate_set']} body")
+
+    # ---- (b) the corpus through the kernel ---------------------------------
+    replayed = 0
+    for mutant, (path, art) in sorted(corpus.items()):
+        # Past the violation by the artifact's event context, so the events
+        # after it come back too (the file's stop where its hunt's run did).
+        horizon = art["tick"] + 31
+        tick_engine.step_cuda.launches = 0
+        t0 = time.perf_counter()
+        rep = shrink_mod.replay_artifact(art, horizon=horizon, device=dev)
+        wall = time.perf_counter() - t0
+        if tick_engine.step_cuda.launches != horizon:
+            raise AssertionError(f"scenario corpus {path}: {tick_engine.step_cuda.launches} "
+                                 f"launches for {horizon} ticks")
+        last = max(t for t, _ in art["events"])
+        events = [[t, e] for t, e in rep["events"] if t <= last]
+        ok = (rep["tick"] == art["tick"] and rep["kinds"] == art["kinds"]
+              and events == art["events"] and rep["state_lines"] == art["state_lines"])
+        if not ok:
+            raise AssertionError(f"scenario corpus {path}: tick {rep['tick']} {rep['kinds']}, "
+                                 f"expected {art['tick']} {art['kinds']}, events or state lines")
+        replayed += horizon
+        emit({"phase": "scenario_corpus", "artifact": path, "mutant": mutant, "tick": rep["tick"],
+              "kinds": rep["kinds"], "events": len(events), "state_lines": "equal",
+              "horizon": horizon, "launches": horizon, "wall_s": wall})
+
+    # ---- (c) a search on the card equals it on the CPU ----------------------
+    ks = mutant_config("weak-quorum", RaftConfig(**KITCHEN_SINK))
+    spec = search_mod.SearchSpec(generations=2, population=16, ticks=128, window=32, seed=SEED)
+    res_g = search_mod.search(ks, spec, device=dev)
+    res_c = search_mod.search(ks, spec, device="cpu")
+    if res_g.to_json() != res_c.to_json():
+        raise AssertionError("scenario search: card != CPU")
+    emit({"phase": "scenario_card_vs_cpu", "mutant": "weak-quorum", "population": 16,
+          "ticks": 128, "generations": len(res_g.generations), "hit": res_g.hit is not None,
+          "equal": ["generations", "hit", "spec"], "max_abs_err": 0})
+
+    # ---- (d) full width: a program run and a hunt on config4c ---------------
+    cfg4c, batch = PRESETS["config4c"]
+    prog = program_mod.from_dict(STORM_PROGRAM, cfg4c)
+    run_t = prog.seg_len * prog.n_segments
+    state, keys = scan.seed_fleet(cfg4c, SEED, batch, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tick_engine.step_cuda.launches = 0
+    t0 = time.perf_counter()
+    final, metrics = driver.run_scenario(cfg4c, prog, run_t, state, keys, chunk=prog.seg_len)
+    summ = summarize(metrics)  # copies to the host: waits for the device
+    wall = time.perf_counter() - t0
+    launches = tick_engine.step_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+    if launches != run_t:
+        raise AssertionError(f"scenario run: {launches} kernel launches for {run_t} ticks")
+    if summ.total_violations != 0:
+        raise AssertionError(f"scenario run: {summ.total_violations} violations")
+    if int((metrics.first_leader_tick >= scan.NEVER).sum()) != 0:
+        raise AssertionError("scenario run: a cluster never elected a leader")
+    g = genome_mod.to_device(genome_mod.broadcast(prog.genome, batch), dev)
+    s = raft_batched.to_batch_minor(final)
+    hold_ticks(cfg4c, s, keys, run_t, FULL_HOLD_TICKS, "scenario run full width", genome=g,
+               seg_len=prog.seg_len)
+    storm = prog.seg_len  # the storm segment's first tick: every mechanism draws
+    inp = raft_batched.to_batch_minor(faults.make_inputs(cfg4c, keys, storm, genome=g,
+                                                         seg_len=prog.seg_len))
+    inputs_ms = wall_ms(lambda: faults.make_inputs(cfg4c, keys, storm, genome=g,
+                                                   seg_len=prog.seg_len), 5)
+    kernel_ms = tick_engine.time_kernel(cfg4c, s, inp, reps=20, now=run_t)
+    plain_ms = wall_ms(lambda: raft_batched.step_b(cfg4c, s, inp, run_t), 3)
+    rd, wr = tick_engine.traffic_bytes(cfg4c, batch)
+    bound_ms = (rd + wr) / BW_BYTES_PER_S * 1e3
+    run_cell = {
+        "phase": "scenario_run", "preset": "config4c-storm", "program": prog.name, "batch": batch,
+        "ticks": run_t, "segments": prog.n_segments, "seg_len": prog.seg_len,
+        "launches": launches, "violations": summ.total_violations,
+        "wall_s": wall, "wall_ms_per_tick": wall * 1e3 / run_t,
+        "inputs_ms": inputs_ms, "kernel_ms": kernel_ms, "bound_ms": bound_ms,
+        "bound_share": bound_ms / kernel_ms, "plain_ms": plain_ms, "bytes_read": rd,
+        "bytes_written": wr, "peak_mem_bytes": peak, "kernel_vs_plain_ticks": FULL_HOLD_TICKS,
+        "max_term": summ.max_term, "total_cmds": summ.total_cmds,
+    }
+    emit(run_cell)
+    del final, metrics, s, inp, g, state
+    torch.cuda.empty_cache()
+
+    pop, hunt_t, window = HUNT_POP, HUNT_T, HUNT_WINDOW
+    wq = mutant_config("weak-quorum", cfg4c)
+    spec = search_mod.SearchSpec(generations=4, population=pop, ticks=hunt_t, window=window,
+                                 seed=SEED, stop_on_hit=True)
+    last = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tick_engine.step_cuda.launches = 0
+    t0 = time.perf_counter()
+    res = search_mod.search(wq, spec, device=dev,
+                            on_generation=lambda gen, g, seed: last.update(genome=g, seed=seed))
+    hunt_wall = time.perf_counter() - t0
+    hunt_launches = tick_engine.step_cuda.launches
+    hunt_peak = torch.cuda.max_memory_allocated()
+    if hunt_launches != hunt_t * len(res.generations):
+        raise AssertionError(f"scenario hunt: {hunt_launches} launches for "
+                             f"{len(res.generations)} generations")
+    if res.hit is None:
+        raise AssertionError(f"scenario hunt: weak-quorum survived {res.generations}")
+    tick_engine.step_cuda.launches = 0
+    t0 = time.perf_counter()
+    art = shrink_mod.shrink(wq, res.hit, mutant="weak-quorum", device=dev)
+    shrink_wall = time.perf_counter() - t0
+    shrink_launches = tick_engine.step_cuda.launches
+    rep = shrink_mod.replay_artifact(art, device=dev)
+    if not rep["reproduced"] or rep["tick"] != art["tick"]:
+        raise AssertionError(f"scenario hunt: the artifact replayed to {rep['tick']} "
+                             f"{rep['kinds']}, expected {art['tick']} {art['kinds']}")
+    # The real config on the hunt's last generation of genomes: clean.
+    g_last = genome_mod.to_device(last["genome"], dev)
+    final, m_real, _, _ = telemetry.simulate_windowed(cfg4c, last["seed"], pop, hunt_t, window,
+                                                      genome=g_last, device=dev)
+    real_viol = int(m_real.violations.sum())
+    if real_viol != 0:
+        raise AssertionError(f"scenario hunt: the real config4c broke on the last generation "
+                             f"({real_viol} violating cluster-ticks)")
+    keys = scan.seed_fleet(cfg4c, last["seed"], pop, dev)[1]
+    s = raft_batched.to_batch_minor(final)
+    inp = raft_batched.to_batch_minor(faults.make_inputs(wq, keys, hunt_t, genome=g_last))
+    inputs_ms = wall_ms(lambda: faults.make_inputs(wq, keys, hunt_t, genome=g_last), 5)
+    kernel_ms = tick_engine.time_kernel(wq, s, inp, reps=20, now=hunt_t)
+    plain_ms = wall_ms(lambda: raft_batched.step_b(wq, s, inp, hunt_t), 3)
+    rd, wr = tick_engine.traffic_bytes(wq, pop)
+    hunt_bound = (rd + wr) / BW_BYTES_PER_S * 1e3
+    emit({"phase": "scenario_hunt", "preset": "config4c", "mutant": "weak-quorum",
+          "population": pop, "ticks": hunt_t, "window": window,
+          "generations": len(res.generations), "hit": {k: res.hit[k] for k in (
+              "seed", "cluster", "first_viol_tick")},
+          "violating_clusters": [gn["violating_clusters"] for gn in res.generations],
+          "launches": hunt_launches, "wall_s": hunt_wall,
+          "wall_ms_per_tick": hunt_wall * 1e3 / (hunt_t * len(res.generations)),
+          "shrink": {"tick": art["tick"], "kinds": art["kinds"], "removed": art["removed"],
+                     "launches": shrink_launches, "wall_s": shrink_wall},
+          "replay": {"reproduced": rep["reproduced"], "tick": rep["tick"]},
+          "real_config_violations": real_viol, "inputs_ms": inputs_ms, "kernel_ms": kernel_ms,
+          "bound_ms": hunt_bound, "bound_share": hunt_bound / kernel_ms, "plain_ms": plain_ms,
+          "bytes_read": rd, "bytes_written": wr, "peak_mem_bytes": hunt_peak,
+          "corpus_ticks_replayed": replayed})
+    del final, m_real, s, inp, g_last, last
+    torch.cuda.empty_cache()
+    return run_cell
+
+
 def main() -> int:
     import collections
 
@@ -660,13 +951,18 @@ def main() -> int:
     pool = ThreadPoolExecutor(max_workers=1)
     proxy_build = pool.submit(tick_engine.build, proxy=True)
 
-    def hold_ticks(cfg, s, keys, t0: int, n: int, what: str, events=None, proxy=False):
+    def hold_ticks(cfg, s, keys, t0: int, n: int, what: str, events=None, proxy=False,
+                   genome=None, seg_len=1):
         """`n` ticks from batch-minor state `s`: each tick the kernel (with
         `proxy`, its race proxy) equals the plain tick on the card, state and
         StepInfo, leaf for leaf. `events`, a Counter, accumulates the
-        slice-2/3/4 event counts."""
-        for t in range(t0, t0 + n):
-            inp = raft_batched.to_batch_minor(faults.make_inputs(cfg, keys, t))
+        slice-2/3/4 event counts and the violating cluster-ticks. `genome`
+        ([B, S] rows on the card) draws the inputs on the scenario path, a span
+        of ticks at a time (scan.input_ticks)."""
+        drawn = (scan.input_ticks(cfg, keys, t0, n, genome, seg_len) if genome is not None
+                 else (faults.make_inputs(cfg, keys, t) for t in range(t0, t0 + n)))
+        for t, inp in zip(range(t0, t0 + n), drawn):
+            inp = raft_batched.to_batch_minor(inp)
             ref_s, ref_i = raft_batched.step_b(cfg, s, inp, t)
             got_s, got_i = tick_engine.step_cuda(cfg, s, inp, t, proxy=proxy)
             check_equal(ref_s, got_s, f"{what} tick {t}: step_cuda state != step_b")
@@ -914,6 +1210,12 @@ def main() -> int:
     cells.append(serve_cell)
     total_launches += serve_cell["launches"]
     emit({"phase": "phase_end", "name": "serve", "seconds": time.perf_counter() - t_start})
+
+    # ---- 4d: the scenario engine under the mutant hooks ------------------------
+    scen_cell = scenario_phase(dev, wall_ms, hold_ticks)
+    cells.append(scen_cell)
+    total_launches += scen_cell["launches"]
+    emit({"phase": "phase_end", "name": "scenario", "seconds": time.perf_counter() - t_start})
 
     # ---- 5: the port's bench row, card vs CPU -----------------------------------
     cfg2 = PRESETS["config2"][0]

@@ -1,4 +1,4 @@
-"""Command line: `python -m raft_sim_tpu_torch run|serve|bench|presets`.
+"""Command line: `python -m raft_sim_tpu_torch run|serve|scenario|bench|presets`.
 
 `run`, `serve` and `presets` are the port of raft_sim_tpu/driver.py's
 subcommands: `run` drives a `driver.Session` (chunked runs, checkpoints with
@@ -6,10 +6,12 @@ subcommands: `run` drives a `driver.Session` (chunked runs, checkpoints with
 RaftConfig field) and prints the fleet summary as one JSON line, with the
 wall time and the device it ran on (driver.py); `serve` runs the standing
 fleet of serve/loop.py on a JSONL command source (tenants, read demands, the
-telemetry and delta streams). `bench` is the port of bench.py (bench.py in
+telemetry and delta streams); `scenario run|search|shrink` is the scenario
+engine (scenario/: nemesis programs, the violation hunt, repro artifacts).
+`bench` is the port of bench.py (bench.py in
 this package): one JSON document of bench rows. The default device is the
 card; with none present `run`, `serve` and `bench` fail rather than running
-on the CPU (pass --device cpu for that).
+on the CPU (pass --device cpu for that); so does `scenario`.
 """
 
 from __future__ import annotations
@@ -29,6 +31,9 @@ def main(argv=None) -> int:
     serve_p = sub.add_parser("serve", help="standing-fleet service loop: streamed client "
                              "commands in, telemetry windows and commit deltas out")
     driver.add_serve_arguments(serve_p)
+    sc_p = sub.add_parser("scenario", help="the scenario engine: phased nemesis runs, the "
+                          "violation-hunting search and hit shrinking")
+    sc_parsers = driver.add_scenario_arguments(sc_p)
     bench_p = sub.add_parser("bench", help="cluster-ticks/s and quality rows per preset")
     bench.add_arguments(bench_p)
     sub.add_parser("presets", help="list the config presets")
@@ -38,6 +43,8 @@ def main(argv=None) -> int:
         return bench.run(bench_p, args)
     if args.cmd == "serve":
         return driver.serve(serve_p, args)
+    if args.cmd == "scenario":
+        return driver.scenario(sc_parsers, args)
     if args.cmd == "presets":
         for name, (cfg, batch) in sorted(PRESETS.items()):
             print(f"{name}: batch={batch} {cfg}")

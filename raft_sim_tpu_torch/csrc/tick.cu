@@ -72,12 +72,12 @@
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC
 //        -c -DRS_IDX_BYTES=1|2|4 -DRS_WIDTH=2|4|8 -o tick_i<k>_w<w>.o tick.cu
 // and the objects are linked into one shared library (nvcc -shared). Each
-// object holds its pair's (ack dtype, node dtype, nodes per thread, gate set)
-// instantiations -- eight at width 2 and 4, four at width 8, half that in
-// the int32 tier (full gate set only) -- and `rs_tick_launch_i<k>_w<w>`; the
-// (1, 2) object also holds the entry points `rs_tick_launch`,
-// `rs_tick_n_ptr`, `rs_tick_smem_bytes` and `rs_tick_lean` (which body a
-// launch runs, for the wrapper's report).
+// object holds its pair's (ack dtype, node dtype, nodes per thread, body)
+// instantiations -- twelve at width 2 and 4, six at width 8, two thirds of
+// that in the int32 tier (full and mutant bodies only) -- and
+// `rs_tick_launch_i<k>_w<w>`; the (1, 2) object also holds the entry points
+// `rs_tick_launch`, `rs_tick_n_ptr`, `rs_tick_smem_bytes`, `rs_tick_lean`
+// and `rs_tick_body` (which body a launch runs, for the wrapper's report).
 //
 // The race proxy (-DRS_RACE_PROXY, a library of its own that chip_smoke.py
 // and tests/test_torch_cuda.py build; never the main path): node slots and
@@ -134,7 +134,7 @@ constexpr int MW = RS_WIDTH;
 
 // Phase PH for this thread: its nodes, then (node slot 0) its cluster. The
 // race proxy poisons each node's exchange fields whose readers are done first.
-template <class I, class A, class N, int NPT, bool FULL, int PH>
+template <class I, class A, class N, int NPT, int FULL, int PH>
 __device__ __forceinline__ void run_phase(const rs::TickArgs& a, rs::NodeCtx<MW>* x,
                                           const rs::Xch<MW>& X, int64_t b, int ci, int slot,
                                           int s) {
@@ -151,7 +151,7 @@ __device__ __forceinline__ void run_phase(const rs::TickArgs& a, rs::NodeCtx<MW>
   if (slot == 0) rs::cluster_phase<MW, FULL, PH>(a.p, a.ptr, X, b, ci);
 }
 
-template <class I, class A, class N, int W, int NPT, bool FULL>
+template <class I, class A, class N, int W, int NPT, int FULL>
 __global__ void __launch_bounds__(rs::MAX_THREADS) tick_kernel(const rs::TickArgs a, int tc, int s) {
   static_assert(W == MW, "one width tier an object");
   extern __shared__ int32_t smem[];
@@ -184,7 +184,7 @@ __global__ void __launch_bounds__(rs::MAX_THREADS) tick_kernel(const rs::TickArg
 #undef RS_PHASE
 }
 
-template <class A, class N, int NPT, bool FULL>
+template <class A, class N, int NPT, int FULL>
 int launch(const rs::TickArgs* args, const LaunchShape* sh, cudaStream_t st) {
   auto kern = tick_kernel<TierIdx, A, N, MW, NPT, FULL>;
   if (sh->smem > 48 * 1024) {
@@ -196,16 +196,19 @@ int launch(const rs::TickArgs* args, const LaunchShape* sh, cudaStream_t st) {
   return 0;
 }
 
-// The body for the config's gate set: lean (the gates of config1-config5,
-// config3p and config7, FULL = false) or every gate. The int32 index tier
-// comes only with compaction, outside the lean set, so its objects hold the
-// full body alone.
+// The body for the config's gate set (tick.cuh `body_for`): lean (the gates
+// of config1-config5, config3p and config7, FULL = 0), every gate (1), or
+// every gate with the TEST-ONLY mutant hooks read from the parameters (2).
+// The int32 index tier comes only with compaction, outside the lean set, so
+// its objects hold the full and mutant bodies alone.
 template <class A, class N, int NPT>
 int launch_gates(const rs::TickArgs* args, const LaunchShape* sh, cudaStream_t st) {
+  const int body = rs::body_for(args->p);
 #if RS_IDX_BYTES != 4
-  if (rs::lean_gates(args->p)) return launch<A, N, NPT, false>(args, sh, st);
+  if (body == 0) return launch<A, N, NPT, 0>(args, sh, st);
 #endif
-  return launch<A, N, NPT, true>(args, sh, st);
+  if (body == 2) return launch<A, N, NPT, 2>(args, sh, st);
+  return launch<A, N, NPT, 1>(args, sh, st);
 }
 
 // Nodes a thread: 1 or 2 at the narrow width tier (N <= 32 or not); above it
@@ -282,4 +285,5 @@ extern "C" int rs_tick_launch(const rs::TickParams* p, void* const* ptrs, int id
 extern "C" int rs_tick_n_ptr() { return rs::N_PTR; }
 extern "C" long long rs_tick_smem_bytes(int n, int tc) { return rs::smem_bytes(n, tc); }
 extern "C" int rs_tick_lean(const rs::TickParams* p) { return rs::lean_gates(*p); }
+extern "C" int rs_tick_body(const rs::TickParams* p) { return rs::body_for(*p); }
 #endif

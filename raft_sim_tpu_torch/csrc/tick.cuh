@@ -9,8 +9,12 @@
 // InstallSnapshot analogue, PreVote, and the reconfiguration plane: log-carried
 // joint-consensus membership (with the snapshot config context under
 // compaction), TimeoutNow transfer, ReadIndex and lease reads, and the durable
-// storage plane (fsync watermarks, the durability gate, crash recovery).
-// Every leaf it writes equals the JAX tick's.
+// storage plane (fsync watermarks, the durability gate, crash recovery),
+// and the eight TEST-ONLY mutant hooks of scenario/mutation.py (each weakens
+// one rule at its JAX site: the config entry and derivation, the truncation
+// rollback, ReadIndex confirmation, TimeoutNow election, the lease window,
+// the durability gate, the persisted vote). Every leaf it writes equals the
+// JAX tick's.
 //
 // Any N from 2 to 255 (RaftConfig's range), dense layout: the body is a
 // template on the width tier MW (packed words a row: 2 up to 64 nodes, 4 up
@@ -180,6 +184,15 @@ struct TickParams {
   int32_t lease_ticks;       // cfg.read_lease_ticks (the lease window on ack_age)
   int32_t durable;           // cfg.durable_storage (fsync watermarks, recovery)
   int32_t durable_acks;      // cfg.durable_acks (the durability gate; 1 in production)
+  // The TEST-ONLY mutant hooks (RaftConfig properties, 1 in production),
+  // read by the mutant body only (`mutant_body`). lease_skew_safe needs no
+  // flag: the host passes its window as lease_ticks.
+  int32_t joint_consensus;      // 0: a membership change is one final entry
+  int32_t act_on_append;        // 0: configurations derive from the committed prefix
+  int32_t truncation_rollback;  // 0: a truncation that lost config entries keeps the old
+  int32_t read_confirm;         // 0: ReadIndex without confirmation or the capture gate
+  int32_t xfer_election;        // 0: TimeoutNow fires at once and the target takes over
+  int32_t persist_vote;         // 0: crash recovery forgets votedFor
 };
 
 
@@ -266,8 +279,9 @@ RS_HD void self_row(uint32_t* row, int i) {  // only bit i
 
 // One parity fold over a node's config entries with absolute index in
 // (lo, hi], slot k holding entry anchor + pmod(k - anchor, cap) + 1 on a ring
-// (k + 1 otherwise): final entries (code < 0) toggle bit -code - 1 of `fold`;
-// returns the entry count, and the latest entry's index and code.
+// (k + 1 otherwise): final entries (code < 0; every entry with `all_final`,
+// the single-server mutant) toggle bit |code| - 1 of `fold`; returns the
+// entry count, and the latest entry's index and code.
 template <int MW>
 struct CfgFold {
   uint32_t fold[MW];
@@ -276,7 +290,7 @@ struct CfgFold {
 
 template <int MW>
 RS_HD CfgFold<MW> fold_cfg(const int32_t* row, int64_t B, int cap, int n, bool ring, int anchor,
-                           int lo, int hi) {
+                           int lo, int hi, bool all_final) {
   CfgFold<MW> f;
   for (int w = 0; w < MW; ++w) f.fold[w] = 0u;
   f.hi = f.code_hi = f.count = 0;
@@ -290,8 +304,8 @@ RS_HD CfgFold<MW> fold_cfg(const int32_t* row, int64_t B, int cap, int n, bool r
       f.hi = abs1;
       f.code_hi = code;
     }
-    const int v = -code - 1;
-    if (code < 0 && v < n) flip_bit<MW>(f.fold, v);
+    const int v = (code < 0 || !all_final) ? -code - 1 : code - 1;
+    if ((code < 0 || all_final) && v < n) flip_bit<MW>(f.fold, v);
   }
   return f;
 }
@@ -313,25 +327,43 @@ RS_HD int term_at(const int32_t* row, int64_t B, int cap, bool ring, int base, i
 // reconfiguration plane (membership, transfer, reads, leases) or durable
 // storage; PreVote stays a runtime gate -- config1-config5, config3p,
 // config4c and config7. The body is instantiated for it with those gates
-// compile-time off (FULL = false), so their code and per-node state drop
-// out, and for every gate (FULL = true); the launch picks by the config's
-// gates alone.
+// compile-time off (FULL = 0), so their code and per-node state drop out,
+// for every gate (FULL = 1), and for every gate with the mutant hooks
+// (FULL = 2, `mutant_body`); the launch picks by the config (`body_for`).
 inline bool lean_gates(const TickParams& p) {
   return !(p.comp || p.redirect || p.reconfig || p.transfer || p.reads || p.lease || p.durable);
 }
 
-// The gates of one config, decoded once per phase; with full == false (a
-// compile-time constant) every gate outside the lean set is off.
+// A TEST-ONLY mutant hook is off. Every one of them lives in a plane outside
+// the lean set, so a lean config runs the lean body whatever its hooks say;
+// any other config with a hook off runs the mutant body (FULL = 2): the full
+// body with each hook read from P, so the production full body (FULL = 1)
+// keeps the code it had without them.
+inline bool mutant_body(const TickParams& p) {
+  return !(p.joint_consensus && p.act_on_append && p.truncation_rollback && p.read_confirm &&
+           p.xfer_election && p.persist_vote);
+}
+
+// The body a launch runs: 0 lean, 1 full, 2 mutant.
+inline int body_for(const TickParams& p) { return lean_gates(p) ? 0 : mutant_body(p) ? 2 : 1; }
+
+// The gates of one config, decoded once per phase. `full` is a compile-time
+// constant: 0 turns every gate outside the lean set off; below 2 every
+// mutant hook is on (production), and 2 reads the hooks from P.
 struct Gates {
   bool comp, pv, redir, rcf, xfr, rdx, rdl, dur, dacks, hc_live, deny, disrupt_live;
-  RS_HD Gates(const TickParams& P, bool full)
+  bool jc, aoa, trb, rconf, xel, pvote;  // the mutant hooks, true in production
+  RS_HD Gates(const TickParams& P, int full)
       : comp(full && P.comp != 0), pv(P.pre_vote != 0), redir(full && P.redirect != 0),
         rcf(full && P.reconfig != 0), xfr(full && P.transfer != 0), rdx(full && P.reads != 0),
         rdl(full && P.lease != 0), dur(full && P.durable != 0),
         dacks(dur && P.durable_acks != 0),  // the durability gate
         hc_live(pv || rdl || rcf),          // heard_clock: quiet rule, vote denial
         deny(rcf || rdl),                   // the heard-a-leader vote denial
-        disrupt_live(xfr && deny) {}        // req_disrupt overrides it
+        disrupt_live(xfr && deny),          // req_disrupt overrides it
+        jc(full != 2 || P.joint_consensus != 0), aoa(full != 2 || P.act_on_append != 0),
+        trb(full != 2 || P.truncation_rollback != 0), rconf(full != 2 || P.read_confirm != 0),
+        xel(full != 2 || P.xfer_election != 0), pvote(full != 2 || P.persist_vote != 0) {}
 };
 
 // ---- The exchange: shared memory on the card, a host buffer in the CPU build.
@@ -499,7 +531,7 @@ RS_HD int qmatch(const IdxT* mrow, int64_t B, int n, int i, int self, const uint
 }
 
 // ---- phase 0: this node's mailbox header and liveness into the exchange.
-template <class IdxT, class AckT, class NodeT, int MW, bool FULL>
+template <class IdxT, class AckT, class NodeT, int MW, int FULL>
 RS_HD void phase_headers(RS_PHASE_ARGS) {
   const Gates g(P, FULL);
   const int64_t B = P.b;
@@ -523,7 +555,7 @@ RS_HD void phase_headers(RS_PHASE_ARGS) {
 // ---- phase 1: everything a node decides from the tick's inputs and its own
 // state: restart and recovery, term adoption, votes, AppendEntries, its
 // PreVote grants, TimeoutNow receipt, responses and commit. -----------------
-template <class IdxT, class AckT, class NodeT, int MW, bool FULL>
+template <class IdxT, class AckT, class NodeT, int MW, int FULL>
 RS_HD void phase_load_to_commit(RS_PHASE_ARGS) {
   const Gates g(P, FULL);
   const int64_t B = P.b;
@@ -554,7 +586,7 @@ RS_HD void phase_load_to_commit(RS_PHASE_ARGS) {
     // Crash recovery: term and vote rewind to the durable snapshot; the log
     // keeps its fsynced prefix (a floor) and the rest less a torn tail.
     x.term = RS_IN(int32_t, S_DUR_TERM)[RS_AT1(i)];
-    x.vf = RS_IN(int32_t, S_DUR_VOTE)[RS_AT1(i)];
+    x.vf = g.pvote ? RS_IN(int32_t, S_DUR_VOTE)[RS_AT1(i)] : NIL;  // the volatile-vote mutant
     x.len0 = imax(RS_IN(int32_t, S_DUR_LEN)[RS_AT1(i)],
                   x.len0 - RS_IN(int32_t, I_TORN_DROP)[RS_AT1(i)]);
   }
@@ -781,6 +813,15 @@ RS_HD void phase_load_to_commit(RS_PHASE_ARGS) {
                   RS_H(X_HXTGT, s) == i && RS_RTERM(s) == x.term);
     x.xfer_elect = tn && x.alive && x.role != LEADER && (!g.rcf || x.member_b);
   }
+  // The blind-transfer mutant: the target takes leadership at once, a coup
+  // that rides the election win's bookkeeping below.
+  const bool coup = g.xfr && !g.xel && x.xfer_elect;
+  if (coup) {
+    x.term += 1;
+    x.role = LEADER;
+    x.lid = i;
+    x.xfer_elect = false;
+  }
 
   // ---- phases 4 + 5: responses, PreVote promotion, then leader commit.
   if (x.role == CANDIDATE) {
@@ -791,7 +832,8 @@ RS_HD void phase_load_to_commit(RS_PHASE_ARGS) {
     }
   }
   // A removed node cannot win on banked votes.
-  x.win = x.role == CANDIDATE && RS_QUORUM(x.votes) && x.alive && (!g.rcf || x.member_b);
+  x.win = (x.role == CANDIDATE && RS_QUORUM(x.votes) && x.alive && (!g.rcf || x.member_b)) ||
+          coup;
   if (x.win) {
     x.role = LEADER;
     x.lid = i;
@@ -883,7 +925,7 @@ RS_HD void phase_load_to_commit(RS_PHASE_ARGS) {
 // ---- phase 2: what needs the other nodes' phase-1 commit, leadership and
 // eligibility: the max-commit node, transfer keep/accept, serving reads,
 // offer latency, compaction and the ring checksum, the no-op slot. --------
-template <class IdxT, class AckT, class NodeT, int MW, bool FULL>
+template <class IdxT, class AckT, class NodeT, int MW, int FULL>
 RS_HD void phase_serve_and_compact(RS_PHASE_ARGS) {
   using XT = XTail<MW>;
   const Gates g(P, FULL);
@@ -933,7 +975,7 @@ RS_HD void phase_serve_and_compact(RS_PHASE_ARGS) {
     uint32_t row[MW];
     self_row<MW>(row, i);
     for (int w = 0; w < MW; ++w) row[w] |= x.acks[w];
-    x.serve = keep_r && x.alive && RS_QUORUM(row);
+    x.serve = keep_r && x.alive && (!g.rconf || RS_QUORUM(row));  // stale-read: no round
     if (g.rdl) {
       self_row<MW>(row, i);
       for (int w = 0; w < MW; ++w) row[w] |= x.fresh[w];
@@ -952,7 +994,7 @@ RS_HD void phase_serve_and_compact(RS_PHASE_ARGS) {
     const bool cur_committed =
         term_at(RS_ROW(log_term, i), B, cap, g.comp, x.base, x.bterm, x.commit) == x.term;
     X.at(XT::CANCAP, i, ci) = read_cmd != NIL && x.is_leader && x.alive && !pend0 &&
-                              cur_committed && !RS_XPEND;
+                              (cur_committed || !g.rconf) && !RS_XPEND;
   }
 
   // ---- offer->commit latency (offer-tick plane): entries newly past the
@@ -997,9 +1039,9 @@ RS_HD void phase_serve_and_compact(RS_PHASE_ARGS) {
     x.bterm = term_at(RS_ROW(log_term, i), B, cap, true, base_mid, x.bterm, base2);
     if (g.rcf) {
       const CfgFold<MW> f = fold_cfg<MW>(RS_ROW(RS_OUT(int32_t, O_LOG_CFG), i), B, cap, n,
-                                         true, base_mid, base_mid, base2);
+                                         true, base_mid, base_mid, base2, !g.jc);
       for (int w = 0; w < MW; ++w) x.bmold[w] ^= f.fold[w];
-      if (f.hi > 0) x.bpend = f.code_hi > 0 ? f.code_hi : 0;
+      if (g.jc && f.hi > 0) x.bpend = f.code_hi > 0 ? f.code_hi : 0;
       x.bepoch += f.count;
     }
     x.base = base2;
@@ -1074,7 +1116,7 @@ RS_HD int redirect_fresh_slot(const TickParams& P, void* const* ptr, int64_t b) 
 
 // ---- phase 3: read capture, the one append a node makes (no-op > config
 // entry > client), timers, and the fsync flush. ---------------------------
-template <class IdxT, class AckT, class NodeT, int MW, bool FULL>
+template <class IdxT, class AckT, class NodeT, int MW, int FULL>
 RS_HD void phase_append_and_timers(RS_PHASE_ARGS) {
   using XT = XTail<MW>;
   const Gates g(P, FULL);
@@ -1123,7 +1165,7 @@ RS_HD void phase_append_and_timers(RS_PHASE_ARGS) {
     int pend_v = n;  // the open toggle: the lowest bit the two rows differ on
     for (int v = 0; v < n && pend_v == n; ++v)
       if (has_bit<MW>(x.m_old, v) != has_bit<MW>(x.m_new, v)) pend_v = v;
-    const bool accept_f = ld_ok && x.joint && x.commit >= x.cfg_pend0;
+    const bool accept_f = g.jc && ld_ok && x.joint && x.commit >= x.cfg_pend0;
     x.cfg_code = accept_j ? t_r + 1 : accept_f ? -(pend_v + 1) : 0;
     x.cfg_write = accept_j || accept_f;
   }
@@ -1251,7 +1293,7 @@ struct NodeSet<2> {
 // accepted by its target when the target takes a client command and this is
 // the lowest pending slot naming it; the rest chase the target's believed
 // leader, or bounce while the target is down or knows none.
-template <int MW, bool FULL>
+template <int MW, int FULL>
 RS_HD void cluster_redirect(const TickParams& P, void* const* ptr, const Xch<MW>& X, int64_t b,
                             int ci) {
   if (!Gates(P, FULL).redir) return;
@@ -1285,7 +1327,7 @@ RS_HD void cluster_redirect(const TickParams& P, void* const* ptr, const Xch<MW>
 
 // ---- phase 4: outbox, prefix checksum, end-of-tick configuration, state
 // out, and this node's StepInfo terms. -------------------------------------
-template <class IdxT, class AckT, class NodeT, int MW, bool FULL>
+template <class IdxT, class AckT, class NodeT, int MW, int FULL>
 RS_HD void phase_outbox_and_state(RS_PHASE_ARGS) {
   using XT = XTail<MW>;
   const Gates g(P, FULL);
@@ -1341,7 +1383,7 @@ RS_HD void phase_outbox_and_state(RS_PHASE_ARGS) {
     // TimeoutNow replaces the heartbeat once the target's match reaches the
     // leader's (post-injection) log length.
     const bool fire = send && x.xto != NIL &&
-        (int)RS_OUT(IdxT, O_MATCH_INDEX)[RS_AT2(i, iclamp(x.xto, 0, n - 1), n)] >= l;
+        (!g.xel || (int)RS_OUT(IdxT, O_MATCH_INDEX)[RS_AT2(i, iclamp(x.xto, 0, n - 1), n)] >= l);
     if (fire) req_type = REQ_TIMEOUT_NOW;
     RS_OUT(NodeT, OM_XFER_TGT)[RS_AT1(i)] = (NodeT)(fire ? x.xto : NIL);
     if (g.disrupt_live) RS_OUT(int8_t, OM_REQ_DISRUPT)[RS_AT1(i)] = (int8_t)x.xe;
@@ -1418,23 +1460,39 @@ RS_HD void phase_outbox_and_state(RS_PHASE_ARGS) {
     // context: C_old folds the final entries' toggles; the latest entry's
     // sign decides jointness. A removed leader steps down once its removal
     // commits on it; a removed candidate stops campaigning.
+    // The act-on-commit mutant derives from the committed prefix only; the
+    // single-server mutant is never joint; the truncation-rollback mutant
+    // keeps the tick-start configuration where the entry count dropped.
     const CfgFold<MW> f = fold_cfg<MW>(RS_ROW(RS_OUT(int32_t, O_LOG_CFG), i), B, cap, n,
-                                       g.comp, x.base, x.base, x.llen);
+                                       g.comp, x.base, x.base,
+                                       g.aoa ? x.llen : imin(x.commit, x.llen), !g.jc);
     const int pend_code = f.hi > 0 ? f.code_hi : x.bpend;
-    const bool joint2 = pend_code > 0;
+    const bool joint2 = g.jc && pend_code > 0;
     const int pv_ = pend_code - 1;
+    int epoch = x.bepoch + f.count;
+    int cfg_pend = joint2 ? (f.hi > 0 ? f.hi : imax(x.base, 1)) : 0;
+    const int epoch0 = g.trb ? 0 : RS_IN(int32_t, S_CFG_EPOCH)[RS_AT1(i)];
+    const bool rolled = !g.trb && epoch < epoch0;
     uint32_t d_old[MW], d_new[MW];
     for (int w = 0; w < MW; ++w) {
       d_old[w] = x.bmold[w] ^ f.fold[w];
       const uint32_t tb = (joint2 && pv_ < n && w == (pv_ >> 5)) ? 1u << (pv_ & 31) : 0u;
       d_new[w] = d_old[w] ^ tb;
+      if (rolled) {
+        d_old[w] = x.m_old[w];
+        d_new[w] = x.m_new[w];
+      }
       if (w < W) {
         RS_OUT(uint32_t, O_MEMBER_OLD)[RS_AT2(i, w, W)] = d_old[w];
         RS_OUT(uint32_t, O_MEMBER_NEW)[RS_AT2(i, w, W)] = d_new[w];
       }
     }
-    RS_OUT(int32_t, O_CFG_PEND)[RS_AT1(i)] = joint2 ? (f.hi > 0 ? f.hi : imax(x.base, 1)) : 0;
-    RS_OUT(int32_t, O_CFG_EPOCH)[RS_AT1(i)] = x.bepoch + f.count;
+    if (rolled) {
+      epoch = epoch0;
+      cfg_pend = x.cfg_pend0;
+    }
+    RS_OUT(int32_t, O_CFG_PEND)[RS_AT1(i)] = cfg_pend;
+    RS_OUT(int32_t, O_CFG_EPOCH)[RS_AT1(i)] = epoch;
     const bool self_in = has_bit<MW>(d_old, i) || has_bit<MW>(d_new, i);
     const bool cand = x.role == CANDIDATE || x.role == PRECANDIDATE;
     if (!self_in && ((x.role == LEADER && x.commit >= imax(f.hi, x.base)) || cand)) {
@@ -1531,7 +1589,7 @@ RS_HD void ring_pair_checks(const TickParams& P, void* const* ptr, const NodeCtx
 // min(commit) >= max(base), so transitivity breaks at an incomparable pair:
 // each node checks every partner j > i from j's final rows, commit, base and
 // base checksum (`ring_pair_checks`), and counts the incomparable pairs. --
-template <class IdxT, class AckT, class NodeT, int MW, bool FULL>
+template <class IdxT, class AckT, class NodeT, int MW, int FULL>
 RS_HD void phase_pair_checks(RS_PHASE_ARGS) {
   using XT = XTail<MW>;
   const Gates g(P, FULL);
@@ -1573,7 +1631,7 @@ RS_HD void cluster_init(const Xch<MW>& X, int ci) {
 }
 
 // Phase 6, per cluster: StepInfo out.
-template <int MW, bool FULL>
+template <int MW, int FULL>
 RS_HD void cluster_info(const TickParams& P, void* const* ptr, const Xch<MW>& X, int64_t b,
                         int ci) {
   const Gates g(P, FULL);
@@ -1614,7 +1672,7 @@ RS_HD void cluster_info(const TickParams& P, void* const* ptr, const Xch<MW>& X,
 }
 
 // The node part of phase PH (a barrier ends each phase).
-template <class IdxT, class AckT, class NodeT, int MW, bool FULL, int PH>
+template <class IdxT, class AckT, class NodeT, int MW, int FULL, int PH>
 RS_HD void node_phase(RS_PHASE_ARGS) {
   if (PH == 0) phase_headers<IdxT, AckT, NodeT, MW, FULL>(P, ptr, x, X, b, ci, i);
   if (PH == 1) phase_load_to_commit<IdxT, AckT, NodeT, MW, FULL>(P, ptr, x, X, b, ci, i);
@@ -1626,7 +1684,7 @@ RS_HD void node_phase(RS_PHASE_ARGS) {
 
 // The cluster part of phase PH. It reads exchange values of earlier phases
 // only, so it may run before, after or beside the same phase's node parts.
-template <int MW, bool FULL, int PH>
+template <int MW, int FULL, int PH>
 RS_HD void cluster_phase(const TickParams& P, void* const* ptr, const Xch<MW>& X, int64_t b,
                          int ci) {
   if (PH == 0) cluster_init(X, ci);

@@ -39,7 +39,7 @@ namespace {
 constexpr int TILE = 4;  // clusters per tile; batches of 5, 7 and 3 leave a ragged tile
 constexpr int MW = RS_HOST_WIDTH;
 
-template <class I, class A, class N, bool FULL, int PH>
+template <class I, class A, class N, int FULL, int PH>
 void run_phase(const rs::TickParams& p, void* const* ptrs, std::vector<rs::NodeCtx<MW>>& ctx,
                const rs::Xch<MW>& X, int64_t b0, bool reverse, bool poison) {
   const int n = p.n;
@@ -60,7 +60,7 @@ void run_phase(const rs::TickParams& p, void* const* ptrs, std::vector<rs::NodeC
   }
 }
 
-template <class I, class A, class N, bool FULL>
+template <class I, class A, class N, int FULL>
 void run_tick(const rs::TickParams& p, void* const* ptrs, bool reverse, bool poison) {
   std::vector<rs::NodeCtx<MW>> ctx((std::size_t)TILE * p.n);
   std::vector<int32_t> xbuf((std::size_t)(rs::smem_bytes(p.n, TILE) / 4));
@@ -76,11 +76,14 @@ void run_tick(const rs::TickParams& p, void* const* ptrs, bool reverse, bool poi
   }
 }
 
-// The body for the config's gate set: lean (FULL = false) or every gate.
+// The body for the config's gate set (tick.cuh `body_for`): lean (FULL =
+// 0), every gate (1), or every gate with the mutant hooks read from p (2).
 template <class I, class A>
 void run_gates(const rs::TickParams& p, void* const* ptrs, bool reverse, bool poison) {
-  if (rs::lean_gates(p)) run_tick<I, A, PartNode, false>(p, ptrs, reverse, poison);
-  else run_tick<I, A, PartNode, true>(p, ptrs, reverse, poison);
+  const int body = rs::body_for(p);
+  if (body == 0) run_tick<I, A, PartNode, 0>(p, ptrs, reverse, poison);
+  else if (body == 2) run_tick<I, A, PartNode, 2>(p, ptrs, reverse, poison);
+  else run_tick<I, A, PartNode, 1>(p, ptrs, reverse, poison);
 }
 
 }  // namespace
@@ -131,4 +134,5 @@ extern "C" int rs_tick_host(const rs::TickParams* p, void* const* ptrs, int idx_
 extern "C" int rs_tick_n_ptr() { return rs::N_PTR; }
 extern "C" long long rs_tick_smem_bytes(int n, int tc) { return rs::smem_bytes(n, tc); }
 extern "C" int rs_tick_lean(const rs::TickParams* p) { return rs::lean_gates(*p); }
+extern "C" int rs_tick_body(const rs::TickParams* p) { return rs::body_for(*p); }
 #endif

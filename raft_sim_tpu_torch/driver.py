@@ -23,9 +23,14 @@ what the apply log and the progress line ask for.
 flag per RaftConfig field (`add_config_flags`, `build_config`), --batch,
 --ticks, --seed, --chunk, --save, --resume (exclusive with every flag that
 sets the experiment), --apply-log, --apply-cluster, --telemetry-dir,
---telemetry-window, --telemetry-ring, --progress and --device.
+--telemetry-window, --telemetry-ring, --mutant (a TEST-ONLY weakened tick,
+scenario/mutation.py), --progress and --device.
 `add_serve_arguments` / `serve` are the `serve` subcommand: the standing
 fleet of serve/loop.py fed from a JSONL command source.
+`add_scenario_arguments` / `scenario` are the `scenario` subcommands: `run`
+(a fleet under a JSON nemesis program, `run_scenario`; its checkpoints carry
+the program), `search` (the violation hunt, scenario/search.py) and
+`shrink` (a hit to a repro artifact, scenario/shrink.py).
 """
 
 from __future__ import annotations
@@ -332,8 +337,24 @@ def add_run_arguments(p: argparse.ArgumentParser) -> None:
     p.add_argument("--telemetry-ring", type=int, default=32, metavar="K",
                    help="flight-recorder depth: the last K ticks of StepInfo per cluster, "
                         "frozen at the first violation (0 disables; default 32)")
+    p.add_argument("--mutant", default=None, metavar="NAME",
+                   help="TEST-ONLY: run a deliberately weakened tick (scenario/mutation.py "
+                        "registry, e.g. 'weak-quorum')")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     add_config_flags(p)
+
+
+def _mutant(ap: argparse.ArgumentParser, name: str | None, cfg: RaftConfig) -> RaftConfig:
+    """`cfg` under the named TEST-ONLY mutant (unchanged for None); an unknown
+    name is a usage error."""
+    if not name:
+        return cfg
+    from raft_sim_tpu_torch.scenario.mutation import mutant_config
+
+    try:
+        return mutant_config(name, cfg)
+    except ValueError as ex:
+        ap.error(str(ex))
 
 
 def run(ap: argparse.ArgumentParser, args) -> int:
@@ -346,13 +367,14 @@ def run(ap: argparse.ArgumentParser, args) -> int:
         conflicting = [
             f.name for f in dataclasses.fields(RaftConfig) if getattr(args, f.name) is not None
         ]
-        conflicting += [flag for flag in ("preset", "batch", "seed")
+        conflicting += [flag for flag in ("preset", "batch", "seed", "mutant")
                         if getattr(args, flag) is not None]
         if conflicting:
             ap.error(f"--resume is exclusive with config flags: {', '.join(conflicting)}")
         sess = Session.restore(args.resume, device=args.device)
     else:
         cfg, batch = build_config(args)
+        cfg = _mutant(ap, args.mutant, cfg)
         sess = Session(cfg, batch=batch, seed=args.seed if args.seed is not None else 0,
                        device=args.device)
     if args.apply_log:
@@ -518,4 +540,186 @@ def serve(ap: argparse.ArgumentParser, args) -> int:
         out["sink"] = args.sink
     out["device"] = _device_name(dev)
     print(json.dumps(out))
+    return 0
+
+
+def _nondefault_config(cfg: RaftConfig) -> dict:
+    """cfg's non-default fields: the portable config encoding of hit files
+    and repro artifacts (RaftConfig(**this) rebuilds it)."""
+    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(RaftConfig)
+            if getattr(cfg, f.name) != f.default}
+
+
+def run_scenario(cfg: RaftConfig, program, n_ticks: int, state, keys, chunk: int = 4096,
+                 callback=None):
+    """Run the [B, ...]-leading fleet (`state`, `keys`) `n_ticks` under the
+    nemesis `program` (scenario/program.py), every cluster on its genome, in
+    chunks; returns (state, RunMetrics of these ticks). The segments follow
+    the absolute tick in the state, so a resumed run stays in phase."""
+    from raft_sim_tpu_torch.scenario import genome as genome_mod
+
+    batch = state.role.shape[0]
+    g = genome_mod.to_device(genome_mod.broadcast(program.genome, batch), state.role.device)
+    return chunked.run_chunked(cfg, state, keys, n_ticks, chunk=chunk, callback=callback,
+                               genome=g, seg_len=program.seg_len)
+
+
+def add_scenario_arguments(sc: argparse.ArgumentParser) -> dict:
+    """The `scenario` subcommands' parsers, by name (`run`, `search`,
+    `shrink`)."""
+    ssub = sc.add_subparsers(dest="scmd", required=True)
+    srun = ssub.add_parser("run", help="run a fleet under a JSON nemesis program")
+    srun.add_argument("--scenario", metavar="FILE", default=None,
+                      help="declarative scenario file (scenario/program.py schema)")
+    srun.add_argument("--preset", choices=sorted(PRESETS), default=None)
+    srun.add_argument("--batch", type=int, default=None)
+    srun.add_argument("--ticks", type=int, default=1000)
+    srun.add_argument("--seed", type=int, default=None)
+    srun.add_argument("--chunk", type=int, default=4096)
+    srun.add_argument("--progress", action="store_true")
+    srun.add_argument("--save", metavar="PATH",
+                      help="checkpoint at the end (it records the scenario)")
+    srun.add_argument("--resume", metavar="PATH",
+                      help="resume a scenario checkpoint (plain checkpoints are refused)")
+    srun.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    add_config_flags(srun)
+
+    ssearch = ssub.add_parser("search", help="cross-entropy hunt for violating fault genomes")
+    ssearch.add_argument("--preset", choices=sorted(PRESETS), default=None)
+    # build_config reads args.batch; the search population is the batch.
+    ssearch.add_argument("--batch", type=int, default=None, help=argparse.SUPPRESS)
+    ssearch.add_argument("--mutant", default=None, metavar="NAME",
+                         help="TEST-ONLY: hunt a deliberately weakened tick "
+                              "(scenario/mutation.py registry, e.g. 'weak-quorum')")
+    ssearch.add_argument("--generations", type=int, default=8)
+    ssearch.add_argument("--population", type=int, default=64,
+                         help="genomes per generation = fleet batch size")
+    ssearch.add_argument("--ticks", type=int, default=512)
+    ssearch.add_argument("--window", type=int, default=64,
+                         help="telemetry window (fitness resolution)")
+    ssearch.add_argument("--elite-frac", type=float, default=0.25)
+    # Coverage fitness and guided proposals need the trace plane (not ported).
+    ssearch.add_argument("--fitness", choices=("scalar",), default="scalar")
+    ssearch.add_argument("--proposal", choices=("gaussian",), default="gaussian")
+    ssearch.add_argument("--seed", type=int, default=None)
+    ssearch.add_argument("--out", metavar="FILE", default=None,
+                         help="write the first violating hit (feeds `scenario shrink --hit`)")
+    ssearch.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    add_config_flags(ssearch)
+
+    sshrink = ssub.add_parser("shrink", help="minimize a search hit to a repro artifact")
+    sshrink.add_argument("--hit", metavar="FILE", required=True,
+                         help="hit file from `scenario search --out`")
+    sshrink.add_argument("--out", metavar="FILE", required=True, help="repro artifact path")
+    sshrink.add_argument("--halving-rounds", type=int, default=3)
+    sshrink.add_argument("--context", type=int, default=30)
+    sshrink.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    return {"run": srun, "search": ssearch, "shrink": sshrink}
+
+
+def scenario(parsers: dict, args) -> int:
+    """The `scenario` subcommands (`parsers` from add_scenario_arguments)."""
+    ap = parsers[args.scmd]
+    return {"run": _scenario_run, "search": _scenario_search,
+            "shrink": _scenario_shrink}[args.scmd](ap, args)
+
+
+def _scenario_run(ap: argparse.ArgumentParser, args) -> int:
+    """`scenario run`: a fleet under a nemesis program; prints the fleet
+    summary with the program's shape, the wall time and the device."""
+    from raft_sim_tpu_torch.scenario import program as program_mod
+
+    dev = device_mod.resolve(args.device)
+    if args.resume:
+        conflicting = [f.name for f in dataclasses.fields(RaftConfig)
+                       if getattr(args, f.name) is not None]
+        conflicting += [flag for flag in ("preset", "scenario", "batch", "seed")
+                        if getattr(args, flag) is not None]
+        if conflicting:
+            ap.error(f"--resume is exclusive with config/scenario flags: {', '.join(conflicting)}")
+        cfg, state, keys, metrics, seed, scen = checkpoint.load(args.resume, dev)
+        if scen is None:
+            ap.error(f"{args.resume!r} is a plain checkpoint (no scenario); resume it with "
+                     "`run --resume`")
+        prog = program_mod.from_dict(scen, cfg)
+    else:
+        if not args.scenario:
+            ap.error("scenario run needs --scenario FILE (or --resume)")
+        cfg, batch = build_config(args)
+        try:
+            prog = program_mod.load(args.scenario, cfg)
+        except ValueError as ex:
+            ap.error(f"--scenario {args.scenario}: {ex}")
+        seed = args.seed if args.seed is not None else 0
+        state, keys = scan.seed_fleet(cfg, seed, batch, dev)
+        metrics = scan.init_metrics_batch(batch, dev)
+    batch = state.role.shape[0]
+
+    def cb(done, _state, m):
+        if args.progress:
+            print(f"  {done}/{args.ticks} ticks, violations={int(m.violations.sum())}",
+                  file=sys.stderr)
+        return False
+
+    t0 = time.perf_counter()
+    state, m = run_scenario(cfg, prog, args.ticks, state, keys, chunk=args.chunk, callback=cb)
+    metrics = chunked.merge_metrics(metrics, m)
+    out = summarize(metrics)._asdict()  # copies to the host: waits for the device
+    dt = time.perf_counter() - t0
+    out.update(scenario=prog.name, segments=prog.n_segments, seg_len=prog.seg_len, wall_s=dt,
+               cluster_ticks_per_s=batch * args.ticks / dt, device=_device_name(dev))
+    print(json.dumps(out))
+    if args.save:
+        # exact=True carries the integer genome leaves: a resumed run draws
+        # from the identical thresholds, not a rounding of them.
+        checkpoint.save(args.save, cfg, state, keys, metrics, seed=seed,
+                        scenario=program_mod.to_dict(prog, exact=True))
+    return 0
+
+
+def _scenario_search(ap: argparse.ArgumentParser, args) -> int:
+    """`scenario search`: the cross-entropy hunt; prints the result JSON, and
+    with --out writes a replayable hit file for `scenario shrink`."""
+    from raft_sim_tpu_torch.scenario import search as search_mod
+
+    cfg, _ = build_config(args)
+    cfg = _mutant(ap, args.mutant, cfg)
+    spec = search_mod.SearchSpec(
+        generations=args.generations, population=args.population, ticks=args.ticks,
+        window=args.window, elite_frac=args.elite_frac,
+        seed=args.seed if args.seed is not None else 0, fitness=args.fitness,
+        proposal=args.proposal,
+    )
+    try:
+        res = search_mod.search(cfg, spec, device=args.device)
+    except ValueError as ex:
+        ap.error(str(ex))
+    doc = {"found": res.hit is not None, "hit": res.hit, "generations": res.generations,
+           "spec": res.spec, "mutant": args.mutant}
+    if res.hit is not None and args.out:
+        with open(args.out, "w") as f:
+            json.dump({"config": _nondefault_config(cfg), "mutant": args.mutant, **res.hit}, f,
+                      indent=1)
+            f.write("\n")
+        doc["hit_file"] = args.out
+    print(json.dumps(doc))
+    return 0
+
+
+def _scenario_shrink(ap: argparse.ArgumentParser, args) -> int:
+    """`scenario shrink`: minimize a hit file to a repro artifact."""
+    from raft_sim_tpu_torch.scenario import shrink as shrink_mod
+
+    with open(args.hit) as f:
+        hit = json.load(f)
+    cfg = _mutant(ap, hit.get("mutant"), RaftConfig(**hit.get("config", {})))
+    try:
+        art = shrink_mod.shrink(cfg, hit, mutant=hit.get("mutant"),
+                                halving_rounds=args.halving_rounds, context=args.context,
+                                device=args.device)
+    except ValueError as ex:
+        ap.error(str(ex))
+    shrink_mod.save_artifact(args.out, art)
+    print(json.dumps({"artifact": args.out, "tick": art["tick"], "kinds": art["kinds"],
+                      "removed": art["removed"], "segments": art["segments"]}))
     return 0

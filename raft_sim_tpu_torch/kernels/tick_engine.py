@@ -144,14 +144,15 @@ _GATED = {
 }
 # Legs whose read and write sides differ: (read gate, write gate). log_base
 # and base_chk are read on every config (a restart resumes commit at the
-# snapshot) but written only under compaction; cfg_epoch is only derived; the
-# snapshot config context is read under reconfig (the end-of-tick
-# derivation) but moves only under compaction.
+# snapshot) but written only under compaction; cfg_epoch is only derived
+# (read back by the truncation-rollback mutant alone); the snapshot config
+# context is read under reconfig (the end-of-tick derivation) but moves only
+# under compaction.
 _always = lambda c: True  # noqa: E731
 _SPLIT = {
     "log_base": (_always, lambda c: c.compaction),
     "base_chk": (_always, lambda c: c.compaction),
-    "cfg_epoch": (lambda c: False, _rcf),
+    "cfg_epoch": (lambda c: c.reconfig and not c.truncation_rollback, _rcf),
     "base_mold": (_rcf, _rcf_comp),
     "base_pend": (_rcf, _rcf_comp),
     "base_epoch": (_rcf, _rcf_comp),
@@ -199,6 +200,12 @@ class TickParams(ctypes.Structure):
         ("lease_ticks", ctypes.c_int32),
         ("durable", ctypes.c_int32),
         ("durable_acks", ctypes.c_int32),
+        ("joint_consensus", ctypes.c_int32),
+        ("act_on_append", ctypes.c_int32),
+        ("truncation_rollback", ctypes.c_int32),
+        ("read_confirm", ctypes.c_int32),
+        ("xfer_election", ctypes.c_int32),
+        ("persist_vote", ctypes.c_int32),
     ]
 
 
@@ -293,21 +300,22 @@ def ptxas_report(text: str | None = None) -> dict:
 
 
 _ITANIUM = {1: "a", 2: "s", 4: "i"}  # int8_t, int16_t, int32_t in a mangled name
+BODIES = ("lean", "full", "mutant")  # csrc/tick.cuh `body_for`
 
 
 def kernel_report(cfg: T.RaftConfig, s: T.ClusterState, nodes_per_thread: int, lib=None) -> dict:
     """The body a launch on state `s` runs, at `nodes_per_thread` (from
-    `launch_shape`): its gate set, as the library `lib` (default: the card's)
-    decides it (csrc/tick.cuh `lean_gates`), and ptxas's report of its
-    instantiation tick_kernel<IdxT, AckT, NodeT, width tier, nodes per thread,
-    full gate set>."""
+    `launch_shape`): lean, full or mutant, as the library `lib` (default:
+    the card's) decides it (csrc/tick.cuh `body_for`), and ptxas's report of
+    its instantiation tick_kernel<IdxT, AckT, NodeT, width tier, nodes per
+    thread, body>."""
     lib = _load_cuda() if lib is None else lib
-    lean = bool(lib.rs_tick_lean(ctypes.byref(_params(cfg, s, False))))
+    body = int(lib.rs_tick_body(ctypes.byref(_params(cfg, s, False))))
     tag = "tick_kernelI" + "".join(
         _ITANIUM[x.element_size()] for x in (s.next_index, s.ack_age, s.mailbox.v_to)
-    ) + f"Li{width_tier(cfg.n_nodes)}ELi{nodes_per_thread}ELb{int(not lean)}E"
+    ) + f"Li{width_tier(cfg.n_nodes)}ELi{nodes_per_thread}ELi{body}E"
     hits = [v for k, v in ptxas_report().items() if tag in k]
-    return dict(hits[0] if hits else {}, instantiation=tag, gate_set="lean" if lean else "full")
+    return dict(hits[0] if hits else {}, instantiation=tag, gate_set=BODIES[body])
 
 
 _LIBS: dict = {}
@@ -341,6 +349,8 @@ def _check_lib(lib) -> None:
     lib.rs_tick_n_ptr.restype = ctypes.c_int
     lib.rs_tick_lean.argtypes = [ctypes.POINTER(TickParams)]
     lib.rs_tick_lean.restype = ctypes.c_int
+    lib.rs_tick_body.argtypes = [ctypes.POINTER(TickParams)]
+    lib.rs_tick_body.restype = ctypes.c_int
     if lib.rs_tick_n_ptr() != len(PTR_ORDER):
         raise RuntimeError("csrc/tick.cuh Ptr enum and PTR_ORDER disagree")
 
@@ -408,8 +418,11 @@ def _params(cfg: T.RaftConfig, s: T.ClusterState, lm_due: bool) -> TickParams:
         redirect=int(cfg.client_redirect), k=cfg.client_pipeline,
         reconfig=int(cfg.reconfig), transfer=int(cfg.leader_transfer),
         reads=int(cfg.read_index), lease=int(cfg.read_lease),
-        lease_ticks=cfg.read_lease_ticks,
+        lease_ticks=raft_batched.lease_window(cfg),
         durable=int(cfg.durable_storage), durable_acks=int(cfg.durable_acks),
+        joint_consensus=int(cfg.joint_consensus), act_on_append=int(cfg.act_on_append),
+        truncation_rollback=int(cfg.truncation_rollback), read_confirm=int(cfg.read_confirm),
+        xfer_election=int(cfg.xfer_election), persist_vote=int(cfg.persist_vote),
     )
 
 

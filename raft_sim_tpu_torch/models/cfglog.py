@@ -16,8 +16,11 @@ sign alone decides jointness. Read the JAX module for the reasoning.
 
 Shapes: log_cfg [N, CAP, B]; vectors [N, B]; member rows [N, W, B] packed
 words (int32 carriers of the JAX uint32 bit patterns, ops/bitplane.py).
-The TEST-ONLY mutant rules of the JAX module are not ported: the tick
-refuses a config whose mutant hook is off (models/raft_batched.py).
+
+TEST-ONLY mutant hooks (scenario/mutation.py) weaken one rule each:
+`act_on_append` off derives from the committed prefix, `joint_consensus` off
+makes every entry final at append (the single-server change);
+`truncation_rollback` is applied by the caller (models/raft_batched.py).
 """
 
 from __future__ import annotations
@@ -57,7 +60,9 @@ def _fold_core(cfg: RaftConfig, log_cfg, anchor, lo, hi):
     span = (abs1 > lo[:, None, :]) & (abs1 <= hi[:, None, :])
     code = torch.where(span, log_cfg, 0)
     is_cfg = code != 0
-    fold_mask = code < 0  # final entries fold into C_old
+    # Final entries fold into C_old; under the single-server mutant every
+    # entry is final.
+    fold_mask = (code < 0) if cfg.joint_consensus else is_cfg
     vfold = code.abs() - 1
     tgt = torch.arange(n, dtype=I32, device=log_cfg.device)[None, None, :, None]
     hits = fold_mask[:, :, None, :] & (vfold[:, :, None, :] == tgt)  # [N, CAP, n, B]
@@ -69,23 +74,29 @@ def _fold_core(cfg: RaftConfig, log_cfg, anchor, lo, hi):
     return fold, hi_idx, code_hi, count
 
 
-def derive(cfg: RaftConfig, log_cfg, log_len, base, base_mold, base_pend, base_epoch):
+def derive(cfg: RaftConfig, log_cfg, log_len, base, base_mold, base_pend, base_epoch,
+           commit=None):
     """Each node's effective configuration from its log prefix (base, log_len]
     and snapshot context: (member_old, member_new [N, W, B], cfg_pend,
     cfg_epoch, cfg_hi [N, B]). cfg_hi is the latest live config entry's
     index (base when none): the removed-leader stepdown compares commit
-    against it. Entries act on append, so the JAX form's `commit` argument
-    (read only by its act-on-commit mutant) is not taken."""
+    against it. `commit` ([N, B]) is read only by the act-on-commit mutant,
+    whose prefix ends at min(commit, log_len)."""
     n = cfg.n_nodes
-    fold, hi, code_hi, count = _fold_core(cfg, log_cfg, base, base, log_len)
+    horizon = log_len if cfg.act_on_append else torch.minimum(commit, log_len)
+    fold, hi, code_hi, count = _fold_core(cfg, log_cfg, base, base, horizon)
     m_old = base_mold ^ fold
-    has = hi > 0
-    # No live entry: the snapshot context rules.
-    pend_code = torch.where(has, code_hi, base_pend)
-    joint = pend_code > 0
-    pend_idx = torch.where(has, hi, base.clamp(min=1))
-    m_new = torch.where(joint[:, None, :], m_old ^ _one_bit_rows(pend_code - 1, n), m_old)
-    cfg_pend = torch.where(joint, pend_idx, 0)
+    if cfg.joint_consensus:
+        has = hi > 0
+        # No live entry: the snapshot context rules.
+        pend_code = torch.where(has, code_hi, base_pend)
+        joint = pend_code > 0
+        pend_idx = torch.where(has, hi, base.clamp(min=1))
+        m_new = torch.where(joint[:, None, :], m_old ^ _one_bit_rows(pend_code - 1, n), m_old)
+        cfg_pend = torch.where(joint, pend_idx, 0)
+    else:  # the single-server mutant: never joint
+        m_new = m_old
+        cfg_pend = torch.zeros_like(hi)
     cfg_epoch = base_epoch + count
     cfg_hi = torch.maximum(hi, base)
     return m_old, m_new, cfg_pend, cfg_epoch, cfg_hi
@@ -97,5 +108,8 @@ def fold_span(cfg: RaftConfig, log_cfg, b0, b1, base_mold, base_pend, base_epoch
     entry's jointness into base_pend, the count into base_epoch). Slots are
     anchored at b0, the pre-advance base."""
     fold, hi, code_hi, count = _fold_core(cfg, log_cfg, b0, b0, b1)
-    new_pend = torch.where(hi > 0, torch.where(code_hi > 0, code_hi, 0), base_pend)
+    if cfg.joint_consensus:
+        new_pend = torch.where(hi > 0, torch.where(code_hi > 0, code_hi, 0), base_pend)
+    else:  # the single-server mutant: never joint
+        new_pend = base_pend
     return base_mold ^ fold, new_pend, base_epoch + count

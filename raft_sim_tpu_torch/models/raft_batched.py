@@ -19,14 +19,22 @@ log-carried joint-consensus membership (`reconfig`, with its snapshot config
 context under compaction), TimeoutNow leadership transfer (`transfer`),
 ReadIndex reads (`reads`) and lease reads (`lease`), and the durable
 storage plane (`dur`: fsync watermarks, the durability gate on acks and vote
-grants, crash recovery to the durable snapshot). Every other structural
-gate raises NotImplementedError naming the gate (`unsupported_gates`): the
-compacted layout, trace tracking, serve ingest
-(writes and reads: their overrides come from the serve plane), and a
-TEST-ONLY mutant hook turned off. Under compaction log matching takes the
-JAX ring form (comparable pairs, checksums at the larger base) and counts
-the pairs it cannot compare (`lm_skipped_pairs`). Gated-off legs pass through
-untouched; gated-off StepInfo leaves are zeros with the JAX dtype and shape.
+grants, crash recovery to the durable snapshot). The serve gates
+(`serve_ingest`, `serve_reads`) add no leg: their offers arrive as the
+inputs' client_cmd/read_cmd planes. The eight TEST-ONLY mutant hooks
+(RaftConfig properties, True in production; scenario/mutation.py turns one
+off) each weaken one rule at its JAX site: `joint_consensus` and
+`act_on_append` in the config derivation (models/cfglog.py) and the config
+entry of phase 6, `truncation_rollback` at the end-of-tick configuration,
+`read_confirm` in ReadIndex serving and capture, `xfer_election` in
+TimeoutNow receipt and fire, `lease_skew_safe` in the lease window,
+`durable_acks` in the durability gate and `persist_vote` in crash recovery
+(storage/plane.py). The compacted layout and trace tracking raise
+NotImplementedError naming the gate (`unsupported_gates`). Under compaction
+log matching takes the JAX ring form (comparable pairs, checksums at the
+larger base) and counts the pairs it cannot compare (`lm_skipped_pairs`).
+Gated-off legs pass through untouched; gated-off StepInfo leaves are zeros
+with the JAX dtype and shape.
 """
 
 from __future__ import annotations
@@ -61,23 +69,19 @@ from raft_sim_tpu_torch.utils.config import RaftConfig
 I32 = torch.int32
 BIG = 2**31 - 1
 
-# TEST-ONLY mutant hooks of the reconfiguration and storage planes (RaftConfig
-# properties, True in production): each weakens one rule. The port runs the
-# production rules only and refuses a config that turns a hook off.
-MUTANT_HOOKS = (
-    "joint_consensus", "act_on_append", "truncation_rollback", "read_confirm",
-    "xfer_election", "lease_skew_safe", "durable_acks", "persist_vote",
-)
-
-
 def unsupported_gates(cfg: RaftConfig) -> list[str]:
     """Structural gates of `cfg` the port's tick does not take yet."""
     checks = [
         ("compact_planes", cfg.compact_planes),
         ("track_trace", cfg.track_trace),
     ]
-    checks += [(f"mutant hook {h}", not getattr(cfg, h)) for h in MUTANT_HOOKS]
     return [name for name, on in checks if on]
+
+
+def lease_window(cfg: RaftConfig) -> int:
+    """The lease window on the ack_age plane: read_lease_ticks, or the no-skew
+    bound election_min_ticks + 2 under the lease_skew_safe mutant."""
+    return cfg.read_lease_ticks if cfg.lease_skew_safe else cfg.election_min_ticks + 2
 
 
 def check_gates(cfg: RaftConfig, who: str) -> None:
@@ -385,6 +389,13 @@ def step_b(
         xfer_elect = tn_cur.any(0) & alive & (role != LEADER)
         if rcf:
             xfer_elect = xfer_elect & member_b  # non-voters never campaign
+        if not cfg.xfer_election:
+            # TEST-ONLY mutant: the target takes leadership directly, a coup.
+            coup = xfer_elect
+            term = term + coup.to(I32)
+            role = torch.where(coup, LEADER, role)
+            leader_id = torch.where(coup, ids2, leader_id)
+            xfer_elect = torch.zeros_like(coup)
 
     # ---- phase 4: responses ---------------------------------------------------
     vresp = resp_in & (mb.resp_kind == RESP_VOTE)
@@ -398,6 +409,8 @@ def step_b(
     win = (role == CANDIDATE) & packed_quorum(votes) & alive
     if rcf:
         win = win & member_b  # a removed node cannot win on banked votes
+    if xfr and not cfg.xfer_election:
+        win = win | coup  # mutant coups ride the fresh-leader bookkeeping
     role = torch.where(win, LEADER, role)
     leader_id = torch.where(win, ids2, leader_id)
     len_i = log_len.to(idt)
@@ -502,9 +515,12 @@ def step_b(
         pend0 = s.read_idx > 0
         keep_r = is_leader & pend0
         read_acks = torch.where(keep_r[:, None, :], s.read_acks | bitplane.pack(aresp, axis=1), 0)
-        serve = keep_r & alive & packed_quorum(read_acks | eye_p3)
+        if cfg.read_confirm:
+            serve = keep_r & alive & packed_quorum(read_acks | eye_p3)
+        else:
+            serve = keep_r & alive  # TEST-ONLY mutant: no confirmation round
         if rdl:  # the lease fast path on the global-tick ack_age plane
-            fresh_p = bitplane.pack(ack_age <= cfg.read_lease_ticks, axis=1)
+            fresh_p = bitplane.pack(ack_age <= lease_window(cfg), axis=1)
             lease_ok = packed_quorum(fresh_p | eye_p3)
             if xfr:
                 lease_ok = lease_ok & ~xfer_pend  # the transfer handoff covers reads
@@ -516,7 +532,9 @@ def step_b(
         bin_r = log_ops.log2_bin(lat_r, LAT_HIST_BINS)
         read_hist = ((bins_r == bin_r[:, None, :]) & serve[:, None, :]).sum(0).to(I32)
         cur_committed = term_at(log_term_arr, commit) == term
-        can_cap = (inp.read_cmd != NIL)[None, :] & is_leader & alive & ~pend0 & cur_committed
+        can_cap = (inp.read_cmd != NIL)[None, :] & is_leader & alive & ~pend0
+        if cfg.read_confirm:
+            can_cap = can_cap & cur_committed
         if xfr:
             can_cap = can_cap & ~xfer_pend
         low_cap = torch.where(can_cap, ids2, n).amin(0)
@@ -612,13 +630,17 @@ def step_b(
             & (bitplane.count(tbit, axis=0) > 0)[None, :]
             & (bitplane.count(toggled, axis=1) >= 2)
         )
-        pvbits = bitplane.unpack(m_old ^ m_new, n, axis=1)  # [N, N, B]
-        pend_v = torch.where(pvbits, ids[None, :, None], n).amin(1)  # the open toggle
-        accept_f = ld_ok & joint & (commit >= s.cfg_pend)
-        cfg_code = torch.where(
-            accept_j, t_r[None, :] + 1, torch.where(accept_f, -(pend_v + 1), 0)
-        ).to(I32)
-        cfg_write = accept_j | accept_f
+        if cfg.joint_consensus:
+            pvbits = bitplane.unpack(m_old ^ m_new, n, axis=1)  # [N, N, B]
+            pend_v = torch.where(pvbits, ids[None, :, None], n).amin(1)  # the open toggle
+            accept_f = ld_ok & joint & (commit >= s.cfg_pend)
+            cfg_code = torch.where(
+                accept_j, t_r[None, :] + 1, torch.where(accept_f, -(pend_v + 1), 0)
+            ).to(I32)
+            cfg_write = accept_j | accept_f
+        else:  # TEST-ONLY mutant: a single-server change, one entry
+            cfg_code = torch.where(accept_j, t_r[None, :] + 1, 0).to(I32)
+            cfg_write = accept_j
     node_ok = is_leader & alive & room & ~noop
     if rcf:
         node_ok = node_ok & ~cfg_write  # the slot holds a config entry
@@ -759,7 +781,9 @@ def step_b(
         # TimeoutNow replaces the heartbeat once the target has caught up.
         tgt_oh8 = ids[None, :, None] == xfer_to.clamp(0, n - 1)[:, None, :]
         t_match = torch.where(tgt_oh8, match_index.to(I32), 0).sum(1)
-        fire = send_append & (xfer_to != NIL) & (t_match >= log_len)
+        # The TEST-ONLY xfer_election mutant fires without waiting.
+        caught = (t_match >= log_len) if cfg.xfer_election else torch.ones_like(send_append)
+        fire = send_append & (xfer_to != NIL) & caught
         out_req_type = torch.where(fire, REQ_TIMEOUT_NOW, out_req_type).to(I32)
         out_xfer_tgt = torch.where(fire, xfer_to, NIL).to(ndt)
     else:
@@ -891,8 +915,16 @@ def step_b(
     # ---- end of tick: each node's configuration from its own log ---------------
     if rcf:
         d_mold, d_mnew, d_pend, d_epoch, d_hi = cfglog.derive(
-            cfg, log_cfg_arr, log_len, base, bmold, bpend, bepoch
+            cfg, log_cfg_arr, log_len, base, bmold, bpend, bepoch, commit=commit
         )
+        if not cfg.truncation_rollback:
+            # TEST-ONLY mutant: a truncation that dropped config entries
+            # keeps the stale tick-start configuration.
+            rolled = d_epoch < s.cfg_epoch
+            d_mold = torch.where(rolled[:, None, :], s.member_old, d_mold)
+            d_mnew = torch.where(rolled[:, None, :], s.member_new, d_mnew)
+            d_pend = torch.where(rolled, s.cfg_pend, d_pend)
+            d_epoch = torch.where(rolled, s.cfg_epoch, d_epoch)
         # A removed leader steps down once its removal commits on it; a
         # removed candidate stops campaigning.
         self_in = (((d_mold | d_mnew) & eye_p3) != 0).any(1)

@@ -65,6 +65,8 @@ def run_chunked(
     chunk: int = 1024,
     callback: Callable[[int, ClusterState, scan.RunMetrics], bool] | None = None,
     now: int | None = None,
+    genome=None,
+    seg_len: int = 1,
 ):
     """Run the [B, ...]-leading `state` forward `n_ticks` in chunks of
     `chunk` ticks; returns (final state, merged RunMetrics), [B, ...]-leading.
@@ -72,7 +74,9 @@ def run_chunked(
     that chunk's state; returning True stops the run there. `now` is the
     host's copy of the state's tick (read once from the state when not
     given). Each tick is `scan.tick_batch_minor` through the kernel wrapper
-    (the plain tick for CPU tensors)."""
+    (the plain tick for CPU tensors). `genome` ([B, S] rows on the state's
+    device) and `seg_len` select the scenario input path; segments follow
+    the absolute tick, so chunking never shifts a phase."""
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     batch = state.role.shape[0]
@@ -84,7 +88,7 @@ def run_chunked(
     done = 0
     while done < n_ticks:
         n = min(chunk, n_ticks - done)
-        s, m = scan.run_minor(cfg, s, keys, n, now + done)
+        s, m = scan.run_minor(cfg, s, keys, n, now + done, genome=genome, seg_len=seg_len)
         metrics = merge_metrics(metrics, raft_batched.from_batch_minor(m))
         done += n
         out = raft_batched.from_batch_minor(s)

@@ -16,6 +16,16 @@ storage plane's disk draws (`fsync_fire`, `torn_drop`). Gated-off fields come
 out exactly as the JAX function emits them (zeros / NIL). The compacted
 layout is not ported; a config that turns it on raises NotImplementedError
 naming it.
+
+The scenario path (`genome=`, `seg_len=`; scenario/genome.py) takes each
+cluster's fault parameters from its row of a `[B, S]` genome, the segment
+active at `now` (`genome_at`): per-cluster drop, partition period and
+threshold (so each cluster has its own partition window), crash threshold and
+down-span, skew, the client cadence, the three admin cadences and the disk
+draws. It draws every mechanism from the same key streams as the scalar path,
+even those the scalar path gates off, so a homogeneous genome built from a
+config (`genome.from_config`) reproduces the scalar path bit for bit.
+Thresholds ride int64 tensors holding the uint32 values, the draws' own form.
 """
 
 from __future__ import annotations
@@ -47,9 +57,13 @@ def unsupported_input_gates(cfg: RaftConfig) -> list[str]:
     return ["compact_planes"] if cfg.compact_planes else []
 
 
-def _partition_cut(n: int, k_part: torch.Tensor, now: int, period: int, part_t: int):
-    """[B, N, N] bool: edges cut by the rolling partition this tick."""
-    window = now // max(period, 1)
+def _partition_cut(n: int, k_part: torch.Tensor, now, period, part_t):
+    """[B, N, N] bool: edges cut by the rolling partition this tick. `now`,
+    `period` and `part_t` are ints, or [B] tensors on the scenario path."""
+    if isinstance(period, torch.Tensor):
+        window = now // period.clamp(min=1)
+    else:
+        window = now // max(period, 1)
     wkey = threefry.fold_in(k_part, window)
     k_group, k_active = threefry.split(wkey, 2).unbind(dim=-2)
     group = bern_u32(k_group, HALF_U32, (n,))  # [B, N]
@@ -58,8 +72,9 @@ def _partition_cut(n: int, k_part: torch.Tensor, now: int, period: int, part_t: 
     return ~same_side & active[:, None, None]
 
 
-def _skew_draw(n: int, k_skew: torch.Tensor, skew_t: int) -> torch.Tensor:
-    """[B, N] int32 clock increments: 0 below skew_t >> 1, 2 below skew_t, else 1."""
+def _skew_draw(n: int, k_skew: torch.Tensor, skew_t) -> torch.Tensor:
+    """[B, N] int32 clock increments: 0 below skew_t >> 1, 2 below skew_t, else 1
+    (`skew_t` an int, or a [B, 1] tensor on the scenario path)."""
     r = threefry.bits(k_skew, (n,))
     one = torch.ones_like(r)
     return torch.where(
@@ -73,25 +88,44 @@ def crash_key(keys: torch.Tensor) -> torch.Tensor:
     return threefry.fold_in(threefry.split(keys, 3)[..., 2, :], -1)
 
 
+def _alive_at_t(cfg: RaftConfig, ckey: torch.Tensor, now, crash_t, crash_down):
+    """The windowed renewal body `alive_at` runs, with the tick, the crash
+    threshold and the down-span bound as ints or as per-cluster [B] tensors
+    (the scenario path); the window stays cfg.crash_period. A tick below 0
+    reports alive."""
+    n = cfg.n_nodes
+    lead = ckey.shape[:-1]
+    per_row = isinstance(now, torch.Tensor)
+    if not per_row and now < 0:
+        return torch.ones(lead + (n,), dtype=torch.bool, device=ckey.device)
+    period = cfg.crash_period
+    window = now // period
+    off = now - window * period
+    if per_row:
+        off = off[..., None]
+    wkey = threefry.fold_in(ckey, window)
+    k_sel, k_start, k_dur = threefry.split(wkey, 3).unbind(dim=-2)
+    if isinstance(crash_t, torch.Tensor):
+        crash_t = crash_t[..., None]
+        crash_down = crash_down[..., None]
+    crashed = bern_u32(k_sel, crash_t, (n,))
+    start = threefry.randint(k_start, (n,), 0, period)
+    dur = threefry.randint(k_dur, (n,), 1, crash_down + 1)
+    down = crashed & (off >= start) & (off < start + dur)
+    if per_row:
+        down = down & (now >= 0)[..., None]
+    return ~down
+
+
 def alive_at(cfg: RaftConfig, ckey: torch.Tensor, now: int) -> torch.Tensor:
     """[..., N] bool node liveness at tick `now` (the JAX `alive_at`): in
     window w = now // crash_period each node crashes with prob crash_prob and
     is down over [start, start + dur) of the window, start uniform in
     [0, period), dur uniform in [1, crash_down_ticks]. A tick below 0 reports
     alive, so tick 0 is never a restart."""
-    n = cfg.n_nodes
-    lead = ckey.shape[:-1]
-    if cfg.crash_prob <= 0 or now < 0:
-        return torch.ones(lead + (n,), dtype=torch.bool, device=ckey.device)
-    period = cfg.crash_period
-    window = now // period
-    off = now - window * period
-    wkey = threefry.fold_in(ckey, window)
-    k_sel, k_start, k_dur = threefry.split(wkey, 3).unbind(dim=-2)
-    crashed = bern_u32(k_sel, p_to_u32(cfg.crash_prob), (n,))
-    start = threefry.randint(k_start, (n,), 0, period)
-    dur = threefry.randint(k_dur, (n,), 1, cfg.crash_down_ticks + 1)
-    return ~(crashed & (off >= start) & (off < start + dur))
+    if cfg.crash_prob <= 0:
+        return torch.ones(ckey.shape[:-1] + (cfg.n_nodes,), dtype=torch.bool, device=ckey.device)
+    return _alive_at_t(cfg, ckey, now, p_to_u32(cfg.crash_prob), cfg.crash_down_ticks)
 
 
 def _client_routing(cfg: RaftConfig, tkey: torch.Tensor):
@@ -148,10 +182,78 @@ def _storage_draws(cfg: RaftConfig, tkey: torch.Tensor, now: int):
     return fire, torch.where(torn, extra, 0).to(torch.int32)
 
 
-def make_inputs(cfg: RaftConfig, keys: torch.Tensor, now: int) -> StepInputs:
+def genome_at(genome, now, seg_len: int):
+    """The segment of a `[B, S]` genome active at tick `now` (an int, or a
+    [B] tensor of per-row ticks): each leaf's column clip(now // seg_len, 0,
+    S - 1), so the final segment holds past the program's end. Returns the
+    genome with [B] leaves."""
+    s_count = genome.drop.shape[-1]
+    if isinstance(now, torch.Tensor):
+        seg = (now // seg_len).clamp(0, s_count - 1).long()[:, None]
+        return type(genome)(*(leaf.gather(-1, seg)[:, 0] for leaf in genome))
+    seg = min(max(now // seg_len, 0), s_count - 1)
+    return type(genome)(*(leaf[..., seg] for leaf in genome))
+
+
+def _cadence(interval: torch.Tensor, now) -> torch.Tensor:
+    """[B] bool: a per-cluster cadence `interval` (0 = off) fires at `now`."""
+    return (interval > 0) & (now % interval.clamp(min=1) == 0)
+
+
+def _genome_inputs(cfg: RaftConfig, keys, k_part, tkey, k_drop, k_skew, now, g):
+    """The scenario path's per-cluster draws (`g`: the genome's [B] leaves at
+    `now`, an int or a [B] tensor): (deliver, skew, client_cmd, alive,
+    restarted, reconfig_cmd, transfer_cmd, read_cmd, fsync_fire, torn_drop)."""
+    n = cfg.n_nodes
+    nil = torch.full(g.drop.shape, NIL, dtype=torch.int32, device=keys.device)
+    deliver = ~bern_u32(k_drop, g.drop[:, None, None], (n, n))
+    deliver = deliver & ~_partition_cut(n, k_part, now, g.part_period, g.part)
+    skew = _skew_draw(n, k_skew, g.skew[:, None])
+    client_cmd = torch.where(_cadence(g.client_interval, now), now + 1, nil)
+    ckey = crash_key(keys)
+    alive = _alive_at_t(cfg, ckey, now, g.crash, g.crash_down)
+    # The restart edge reads both ticks under the segment active at `now`.
+    restarted = alive & ~_alive_at_t(cfg, ckey, now - 1, g.crash, g.crash_down)
+    k_rcfg, k_xfer = threefry.split(threefry.fold_in(tkey, 5), 2).unbind(dim=-2)
+    reconfig_cmd = torch.where(_cadence(g.reconfig_interval, now) & (now > 0),
+                               threefry.randint(k_rcfg, (), 0, n), nil)
+    transfer_cmd = torch.where(_cadence(g.transfer_interval, now) & (now > 0),
+                               threefry.randint(k_xfer, (), 0, n), nil)
+    read_cmd = torch.where(_cadence(g.read_interval, now), 1, nil).to(torch.int32)
+    k_jit, k_torn, k_span = threefry.split(threefry.fold_in(tkey, 7), 3).unbind(dim=-2)
+    stall = bern_u32(k_jit, g.fsync_jitter[:, None], (n,))
+    fsync_fire = _cadence(g.fsync_interval, now)[:, None] & ~stall
+    torn = bern_u32(k_torn, g.torn[:, None], (n,))
+    extra = threefry.randint(k_span, (n,), 1, g.torn_span[:, None] + 1)
+    torn_drop = torch.where(torn, extra, 0).to(torch.int32)
+    return (deliver, skew, client_cmd, alive, restarted, reconfig_cmd, transfer_cmd, read_cmd,
+            fsync_fire, torn_drop)
+
+
+def draw_span(cfg: RaftConfig, keys: torch.Tensor, t0: int, n_ticks: int, genome,
+              seg_len: int = 1) -> StepInputs:
+    """The scenario-path inputs of ticks t0 .. t0 + n_ticks - 1 for the
+    clusters keyed by `keys` ([B, 2]) under `genome` ([B, S]), drawn in one
+    call with a row per (tick, cluster): each leaf [n_ticks, B, ...], row t
+    equal to `make_inputs(cfg, keys, t0 + t, genome, seg_len)`. A replay of a
+    few clusters is launch-bound per call, so a span of ticks costs about
+    what one tick does."""
+    b = keys.shape[0]
+    now = torch.arange(t0, t0 + n_ticks, dtype=torch.int32, device=keys.device)
+    rows = lambda x: x.repeat((n_ticks,) + (1,) * (x.dim() - 1))  # noqa: E731
+    inp = make_inputs(cfg, rows(keys), now.repeat_interleave(b), genome=type(genome)(
+        *(rows(leaf) for leaf in genome)), seg_len=seg_len)
+    return StepInputs(*(x.reshape((n_ticks, b) + tuple(x.shape[1:])) for x in inp))
+
+
+def make_inputs(cfg: RaftConfig, keys: torch.Tensor, now: int, genome=None,
+                seg_len: int = 1) -> StepInputs:
     """Inputs at tick `now` for the clusters keyed by `keys` ([B, 2]), batch-
     leading ([B, ...]) like `jax.vmap(make_inputs)`. All clusters run in
-    lockstep, so `now` is one host int."""
+    lockstep, so `now` is one host int. `genome` (a ScenarioGenome with
+    [B, S] leaves on the keys' device) switches to the scenario path, each
+    segment `seg_len` ticks long; there `now` may also be a [B] int32 tensor
+    of per-row ticks (`draw_span`: many ticks of one fleet in one call)."""
     gates = unsupported_input_gates(cfg)
     if gates:
         raise NotImplementedError(
@@ -165,6 +267,24 @@ def make_inputs(cfg: RaftConfig, keys: torch.Tensor, now: int) -> StepInputs:
     k_drop, k_timeout, k_skew = threefry.split(tkey, 3).unbind(dim=-2)
 
     timeout_draw = draw_timeouts(cfg, k_timeout, n)
+    if cfg.client_redirect:
+        client_target, client_bounce = _client_routing(cfg, tkey)
+    else:
+        client_target = torch.zeros((bsz,), dtype=torch.int32, device=dev)
+        client_bounce = torch.zeros((bsz, cfg.client_pipeline), dtype=torch.int32, device=dev)
+    if genome is None and isinstance(now, torch.Tensor):
+        raise TypeError("make_inputs: per-row ticks are taken on the scenario path only")
+    if genome is not None:
+        (deliver, skew, client_cmd, alive, restarted, reconfig_cmd, transfer_cmd, read_cmd,
+         fsync_fire, torn_drop) = _genome_inputs(
+            cfg, keys, k_part, tkey, k_drop, k_skew, now, genome_at(genome, now, seg_len))
+        return StepInputs(
+            deliver_mask=bitplane.pack(deliver, axis=2), skew=skew, timeout_draw=timeout_draw,
+            client_cmd=client_cmd, client_target=client_target, client_bounce=client_bounce,
+            alive=alive, restarted=restarted, reconfig_cmd=reconfig_cmd,
+            transfer_cmd=transfer_cmd, read_cmd=read_cmd, fsync_fire=fsync_fire,
+            torn_drop=torn_drop,
+        )
 
     if cfg.drop_prob > 0:
         if cfg.drop_prob_uniform:
@@ -187,11 +307,6 @@ def make_inputs(cfg: RaftConfig, keys: torch.Tensor, now: int) -> StepInputs:
 
     ci = cfg.client_interval
     cmd = now + 1 if ci > 0 and now % ci == 0 else NIL
-    if cfg.client_redirect:
-        client_target, client_bounce = _client_routing(cfg, tkey)
-    else:
-        client_target = torch.zeros((bsz,), dtype=torch.int32, device=dev)
-        client_bounce = torch.zeros((bsz, cfg.client_pipeline), dtype=torch.int32, device=dev)
 
     if cfg.crash_prob > 0:
         ckey = crash_key(keys)

@@ -7,10 +7,18 @@ then `n_ticks` of `tick_batch_minor` -- input draws (sim/faults.py), the tick
 PyTorch step for CPU tensors) and the metric fold. The JAX `lax.scan` becomes a
 Python loop. All clusters run in lockstep, so the loop keeps `now` on the host
 and reads nothing back from the device per tick.
+
+The scenario path: `genome` ([B, S] ScenarioGenome leaves on the fleet's
+device, scenario/genome.py) and `seg_len` switch the input draws to each
+cluster's own fault setting (faults.make_inputs); `simulate_scenario` is
+`simulate` through it, and `run_traced` replays one cluster tick by tick with
+its states (the JAX `run(..., trace_states=True, genome=...)`), as a B=1 view
+of the same batch-minor path, so on the card it runs the kernel.
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import NamedTuple
 
 import torch
@@ -135,17 +143,22 @@ def _override(plane: torch.Tensor, value) -> torch.Tensor:
 
 
 def tick_batch_minor(cfg, s, keys, metrics, now: int, step_fn=None, client_cmd=None,
-                     read_cmd=None):
+                     read_cmd=None, genome=None, seg_len: int = 1, inputs=None):
     """ONE tick of the batch-minor path: input draws, step, metric fold.
     `s`/`metrics` are batch-minor, `keys` [B, 2], `now` the host's copy of the
     lockstep tick. `client_cmd` replaces the scheduled client input this
     tick, and `read_cmd` the scheduled ReadIndex offer: each a scalar (one
     offer fleet-wide, Session.offer/offer_read) or a [B] plane (one slot per
     cluster, NIL = none: the serve loop). A read plane needs cfg.read_index.
-    Returns (state, metrics, StepInfo), all batch-minor."""
+    `genome`/`seg_len` select the scenario input path; `inputs` (this tick's
+    [B, ...]-leading StepInputs, drawn ahead by `input_ticks`) replaces the
+    draw. Returns (state, metrics, StepInfo), all batch-minor."""
     if step_fn is None:
         step_fn = tick_engine.step_cuda
-    inp = faults.make_inputs(cfg, keys, now)
+    if inputs is not None:
+        inp = inputs
+    else:
+        inp = faults.make_inputs(cfg, keys, now, genome=genome, seg_len=seg_len)
     if client_cmd is not None:
         inp = inp._replace(client_cmd=_override(inp.client_cmd, client_cmd))
     if read_cmd is not None:
@@ -162,27 +175,73 @@ def run_batch_minor(
     n_ticks: int,
     step_fn=None,
     now: int | None = None,
+    genome=None,
+    seg_len: int = 1,
 ):
     """`n_ticks` ticks from a [B, ...]-leading `state`; returns (final state,
     RunMetrics), both [B, ...]-leading. The batch axis moves minor once at
     entry and back once at exit. `now` is the host's copy of the state's tick
-    (read once from the state when not given)."""
+    (read once from the state when not given). `genome` ([B, S] rows) and
+    `seg_len` select the scenario input path."""
     batch = state.role.shape[0]
     if now is None:
         now = int(state.now.reshape(-1)[0]) if batch else 0
-    s, m = run_minor(cfg, raft_batched.to_batch_minor(state), keys, n_ticks, now, step_fn)
+    s, m = run_minor(cfg, raft_batched.to_batch_minor(state), keys, n_ticks, now, step_fn,
+                     genome=genome, seg_len=seg_len)
     return raft_batched.from_batch_minor(s), raft_batched.from_batch_minor(m)
 
 
 def run_minor(cfg: RaftConfig, s: ClusterState, keys: torch.Tensor, n_ticks: int, now: int,
-              step_fn=None):
+              step_fn=None, genome=None, seg_len: int = 1):
     """`n_ticks` ticks from a batch-minor state `s` whose lockstep tick is the
     host's `now`; returns (state, RunMetrics of these ticks), batch-minor."""
     batch = s.role.shape[-1]
     m = raft_batched.to_batch_minor(init_metrics_batch(batch, s.role.device))
     for t in range(now, now + n_ticks):
-        s, m, _ = tick_batch_minor(cfg, s, keys, m, t, step_fn=step_fn)
+        s, m, _ = tick_batch_minor(cfg, s, keys, m, t, step_fn=step_fn, genome=genome,
+                                   seg_len=seg_len)
     return s, m
+
+
+SPAN_ROWS = 16384  # (tick, cluster) rows a span of scenario draws holds (`input_ticks`)
+
+
+def input_ticks(cfg: RaftConfig, keys: torch.Tensor, t0: int, n_ticks: int, genome,
+                seg_len: int = 1):
+    """Each tick's [B, ...]-leading scenario-path inputs for ticks t0 ..
+    t0 + n_ticks - 1, drawn a span at a time (faults.draw_span, at most
+    SPAN_ROWS rows a call): equal to drawing them tick by tick, at a fraction
+    of the launches when B is small (a replay, a shrink trial)."""
+    block = max(1, SPAN_ROWS // max(keys.shape[0], 1))
+    for a in range(t0, t0 + n_ticks, block):
+        span = faults.draw_span(cfg, keys, a, min(block, t0 + n_ticks - a), genome, seg_len)
+        for k in range(span.alive.shape[0]):
+            yield type(span)(*(x[k] for x in span))
+
+
+def run_traced(cfg: RaftConfig, state: ClusterState, keys: torch.Tensor, n_ticks: int,
+               genome=None, seg_len: int = 1, step_fn=None):
+    """Replay clusters tick by tick, keeping every tick's StepInfo and
+    post-tick state: the JAX `run(..., trace_states=True, genome=...)` for
+    each cluster of a [B, ...]-leading `state` (one cluster: B = 1) with
+    `keys` [B, 2] and `genome` [B, S] rows. Returns (final state, RunMetrics,
+    (infos, states)) where infos and states lead with [B, T] -- row b is the
+    stacked trajectory `sim/trace.py` renders for cluster b. With a genome
+    the inputs are drawn a span of ticks at a time (`input_ticks`)."""
+    batch = state.role.shape[0]
+    now = int(state.now.reshape(-1)[0]) if batch else 0
+    s = raft_batched.to_batch_minor(state)
+    m = raft_batched.to_batch_minor(init_metrics_batch(batch, s.role.device))
+    infos, states = [], []
+    drawn = (input_ticks(cfg, keys, now, n_ticks, genome, seg_len) if genome is not None
+             else itertools.repeat(None))
+    for t, inp in zip(range(now, now + n_ticks), drawn):
+        s, m, info = tick_batch_minor(cfg, s, keys, m, t, step_fn=step_fn, genome=genome,
+                                      seg_len=seg_len, inputs=inp)
+        infos.append(info)
+        states.append(s)
+    return (raft_batched.from_batch_minor(s), raft_batched.from_batch_minor(m),
+            (_stack_leaf(infos), _stack_leaf(states)))
 
 
 def simulate(
@@ -194,6 +253,27 @@ def simulate(
     overrides the tick (default: kernels/tick_engine.step_cuda)."""
     state, keys = seed_fleet(cfg, seed, batch, device_mod.resolve(device))
     return run_batch_minor(cfg, state, keys, n_ticks, step_fn=step_fn, now=0)
+
+
+def _stack_leaf(leaves):
+    """T batch-minor leaves (or NamedTuples of them, nested) -> [B, T, ...]."""
+    if isinstance(leaves[0], tuple) and hasattr(leaves[0], "_fields"):
+        return type(leaves[0])(*(_stack_leaf([getattr(x, f) for x in leaves])
+                                 for f in leaves[0]._fields))
+    return torch.stack([x.movedim(-1, 0) for x in leaves], dim=1)
+
+
+def simulate_scenario(cfg: RaftConfig, seed: int, batch: int, n_ticks: int, genome,
+                      seg_len: int = 1, device="cuda", step_fn=None):
+    """`simulate` through the scenario path: cluster b under genome row b
+    ([B, S] leaves, moved to the fleet's device). The same init and key
+    derivation as `simulate`, so a homogeneous genome (genome.from_config)
+    reproduces `simulate(cfg, seed, ...)` bit for bit."""
+    dev = device_mod.resolve(device)
+    state, keys = seed_fleet(cfg, seed, batch, dev)
+    genome = type(genome)(*(leaf.to(dev) for leaf in genome))
+    return run_batch_minor(cfg, state, keys, n_ticks, step_fn=step_fn, now=0, genome=genome,
+                           seg_len=seg_len)
 
 
 def seed_fleet(cfg: RaftConfig, seed: int, batch: int, device):

@@ -1,5 +1,5 @@
 """Fleet telemetry: windowed aggregation and a violation flight recorder (the
-port of raft_sim_tpu/sim/telemetry.py, less its trace and genome branches).
+port of raft_sim_tpu/sim/telemetry.py, less its trace branch).
 
 Two mechanisms over the same tick as the main path (`scan.tick_batch_minor`,
 so telemetry never observes another trajectory than the one it reports):
@@ -18,9 +18,11 @@ so telemetry never observes another trajectory than the one it reports):
 
 The loops keep `now` on the host, as sim/scan.py does; the per-window and
 per-tick values that land in the records come from the state's own `now`
-leaf, as in the JAX package. The scenario input path (`genome`,
-ROADMAP item 17) and the protocol trace plane (`trace_spec`,
-`trigger_kind`, item 14) are not ported: passing them raises.
+leaf, as in the JAX package. Every loop takes the scenario input path
+(`genome`: [B, S] rows on the fleet's device, with `seg_len`;
+scenario/search.py's fitness reads these windows). The protocol trace plane
+(`trace_spec`, `trigger_kind`, ROADMAP item 14) is not ported: passing it
+raises.
 """
 
 from __future__ import annotations
@@ -59,10 +61,7 @@ class FlightRecorder(NamedTuple):
     frozen: torch.Tensor  # [B] bool: latched by the first viol_* tick
 
 
-def _refuse_unported(genome=None, trace_spec=None, trigger_kind=None) -> None:
-    if genome is not None:
-        raise NotImplementedError(
-            "telemetry: the scenario input path (genome) is not ported yet (ROADMAP item 17)")
+def _refuse_unported(trace_spec=None, trigger_kind=None) -> None:
     if trace_spec is not None or trigger_kind is not None:
         raise NotImplementedError(
             "telemetry: the protocol trace plane (trace_spec / trigger_kind) is not ported "
@@ -121,12 +120,13 @@ def _stack_records(recs: list[WindowRecord]) -> WindowRecord:
 
 def run_minor_telemetry(cfg: RaftConfig, s, keys: torch.Tensor, n_ticks: int, window: int,
                         now: int, recorder: FlightRecorder | None = None, step_fn=None,
-                        cmds=None, reads=None):
+                        cmds=None, reads=None, genome=None, seg_len: int = 1):
     """The windowed loop on a batch-minor state `s` whose lockstep tick is the
     host's `now`: returns (state, RunMetrics of these ticks, records,
     recorder) -- state and metrics batch-minor, records public. `cmds` and
     `reads` ([n_ticks, B] planes or None) are the per-tick offer overrides of
-    the serve loop (serve/loop.py). `n_ticks` must divide by `window`."""
+    the serve loop (serve/loop.py); `genome`/`seg_len` select the scenario
+    input path. `n_ticks` must divide by `window`."""
     if n_ticks % window:
         raise ValueError(f"n_ticks {n_ticks} must divide by window {window}")
     batch = s.role.shape[-1]
@@ -146,6 +146,7 @@ def run_minor_telemetry(cfg: RaftConfig, s, keys: torch.Tensor, n_ticks: int, wi
                 cfg, s, keys, wm, t, step_fn=step_fn,
                 client_cmd=None if cmds is None else cmds[t - now],
                 read_cmd=None if reads is None else reads[t - now],
+                genome=genome, seg_len=seg_len,
             )
             bad = scan.step_bad(info)
             fv = torch.minimum(fv, torch.where(bad, tick_now, NEVER))
@@ -159,42 +160,47 @@ def run_minor_telemetry(cfg: RaftConfig, s, keys: torch.Tensor, n_ticks: int, wi
 
 def run_batch_minor_telemetry(cfg: RaftConfig, state, keys: torch.Tensor, n_ticks: int,
                               window: int, recorder: FlightRecorder | None = None,
-                              step_fn=None, genome=None, trace_spec=None,
+                              step_fn=None, genome=None, seg_len: int = 1, trace_spec=None,
                               trigger_kind: int | None = None, now: int | None = None):
     """The windowed run from a [B, ...]-leading `state`: the same trajectory
     as `scan.run_batch_minor`, plus [n_ticks/window] WindowRecords and the
     optional flight recorder (batch-minor in and out). Returns (final_state,
     metrics, records, recorder); state, metrics and records [B, ...]-leading.
     `now` is the host's copy of the state's tick (read once when not given).
-    `genome` and the trace plane (`trace_spec`, `trigger_kind`) raise (not
-    ported)."""
-    _refuse_unported(genome, trace_spec, trigger_kind)
+    `genome` ([B, S] rows) and `seg_len` select the scenario input path; the
+    trace plane (`trace_spec`, `trigger_kind`) raises (not ported)."""
+    _refuse_unported(trace_spec, trigger_kind)
     batch = state.role.shape[0]
     if now is None:
         now = int(state.now.reshape(-1)[0]) if batch else 0
     s, metrics, recs, rec = run_minor_telemetry(
-        cfg, raft_batched.to_batch_minor(state), keys, n_ticks, window, now, recorder, step_fn)
+        cfg, raft_batched.to_batch_minor(state), keys, n_ticks, window, now, recorder, step_fn,
+        genome=genome, seg_len=seg_len)
     return raft_batched.from_batch_minor(s), raft_batched.from_batch_minor(metrics), recs, rec
 
 
 def simulate_windowed(cfg: RaftConfig, seed: int, batch: int, n_ticks: int, window: int,
-                      ring: int = 0, genome=None, trace=None, trigger_kind: int | None = None,
-                      device="cuda", step_fn=None):
+                      ring: int = 0, genome=None, seg_len: int = 1, trace=None,
+                      trigger_kind: int | None = None, device="cuda", step_fn=None):
     """`scan.simulate` with telemetry: the same key derivation and
     trajectory, returning (final_state, metrics, records, recorder).
-    `ring` > 0 arms the flight recorder at that depth."""
-    _refuse_unported(genome, trace, trigger_kind)
+    `ring` > 0 arms the flight recorder at that depth. `genome` ([B, S]
+    rows, moved to the fleet's device) runs a heterogeneous fleet, cluster b
+    under row b, each segment `seg_len` ticks."""
+    _refuse_unported(trace, trigger_kind)
     dev = device_mod.resolve(device)
     state, keys = scan.seed_fleet(cfg, seed, batch, dev)
     rec = init_recorder(cfg, ring, batch, dev) if ring else None
+    if genome is not None:
+        genome = type(genome)(*(leaf.to(dev) for leaf in genome))
     return run_batch_minor_telemetry(cfg, state, keys, n_ticks, window, rec, step_fn=step_fn,
-                                     now=0)
+                                     genome=genome, seg_len=seg_len, now=0)
 
 
 def run_chunked_telemetry(cfg: RaftConfig, state, keys: torch.Tensor, n_ticks: int,
                           window: int, recorder: FlightRecorder | None = None,
-                          chunk: int = 4096, callback=None, genome=None, perf=None,
-                          trace_spec=None, trigger_kind: int | None = None,
+                          chunk: int = 4096, callback=None, genome=None, seg_len: int = 1,
+                          perf=None, trace_spec=None, trigger_kind: int | None = None,
                           now: int | None = None):
     """Long telemetry runs: `chunked.run_chunked` with the window records
     handed to the host between chunks. Chunks are whole windows; a final
@@ -203,9 +209,10 @@ def run_chunked_telemetry(cfg: RaftConfig, state, keys: torch.Tensor, n_ticks: i
     `callback(ticks_done, state, merged_metrics, records)` gets each chunk's
     records in the public layout; returning True stops the run. Returns
     (final_state, merged_metrics, recorder). The caller's `state` is never
-    written (every tick is out of place). `perf` (ROADMAP item 18), `genome`
-    and the trace plane raise (not ported)."""
-    _refuse_unported(genome, trace_spec, trigger_kind)
+    written (every tick is out of place). `genome`/`seg_len` select the
+    scenario input path; `perf` (ROADMAP item 18) and the trace plane raise
+    (not ported)."""
+    _refuse_unported(trace_spec, trigger_kind)
     if perf is not None:
         raise NotImplementedError(
             "run_chunked_telemetry: perf attribution is not ported yet (ROADMAP item 18)")
@@ -224,7 +231,8 @@ def run_chunked_telemetry(cfg: RaftConfig, state, keys: torch.Tensor, n_ticks: i
             w = window
         else:
             n = w = left  # the remainder: one final short window
-        s, m, recs, recorder = run_minor_telemetry(cfg, s, keys, n, w, now + done, recorder)
+        s, m, recs, recorder = run_minor_telemetry(cfg, s, keys, n, w, now + done, recorder,
+                                                   genome=genome, seg_len=seg_len)
         metrics = merge_metrics(metrics, raft_batched.from_batch_minor(m))
         done += n
         out = raft_batched.from_batch_minor(s)

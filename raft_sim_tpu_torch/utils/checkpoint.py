@@ -13,8 +13,10 @@ dtype. So the two packages load each other's files. The port's carriers
 differ in two places and are converted at the file's edge: the uint32 legs
 (types.U32_LEAVES, int32 bit patterns here) are written as uint32, and the
 keys (int64 [B, 2] words here, utils/threefry.py) as JAX's uint32
-`key_data` [B, 2]. The port writes no scenario (`scenario_json` is `{}`);
-`load` returns a file's scenario so that a plain resume can refuse it.
+`key_data` [B, 2]. `scenario_json` records the nemesis program of a
+scenario run (scenario/program.py `to_dict(exact=True)`), `{}` for a plain
+run; `load` returns it, so `scenario run --resume` restores the genome path
+and a plain `Session.restore` refuses the file.
 """
 
 from __future__ import annotations
@@ -62,9 +64,11 @@ def save(
     keys: torch.Tensor,
     metrics: RunMetrics,
     seed: int = 0,
+    scenario: dict | None = None,
 ) -> str:
     """Write (config, [B, ...] state, [B, 2] run keys, accumulated metrics,
-    seed); returns the path written (always .npz-suffixed)."""
+    seed, and the scenario program of a scenario run -- None for a plain
+    run); returns the path written (always .npz-suffixed)."""
     path = _normalize(path)
     _check_dtypes(cfg, state, metrics, "checkpoint.save")
     st = bridge.to_numpy(state)
@@ -77,7 +81,7 @@ def save(
         __version__=np.int32(FORMAT_VERSION),
         seed=np.int64(seed),
         config_json=np.bytes_(json.dumps(dataclasses.asdict(cfg)).encode()),
-        scenario_json=np.bytes_(json.dumps({}).encode()),
+        scenario_json=np.bytes_(json.dumps(scenario or {}).encode()),
         **arrays,
     )
     return path

@@ -11,7 +11,8 @@ with it needs the same streams, so the port computes them itself:
   bits(k, shape)       bits1 ^ bits2 of threefry2x32(k, (hi, lo)) over the flat
                        row-major position hi:lo of each element (iota_2x32_shape)
   randint(k, shape, lo, hi)
-                       jax's two-draw algorithm: split(k) -> two bits draws,
+                       jax's two-draw algorithm (int or per-key tensor
+                       bounds): split(k) -> two bits draws,
                        offset = (higher % span * multiplier + lower % span) % span
                        with multiplier = (2^16 % span)^2 % span, all wrapping uint32
 
@@ -93,14 +94,22 @@ def bits(k: torch.Tensor, shape=()) -> torch.Tensor:
     return (b1 ^ b2).reshape(lead + shape)
 
 
-def randint(k: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
-    """`jax.random.randint(k, shape, minval, maxval, int32)` for Python-int
-    bounds inside int32: the split-then-two-draws algorithm, wrapping uint32."""
-    span = maxval - minval if maxval > minval else 1
+def randint(k: torch.Tensor, shape, minval, maxval) -> torch.Tensor:
+    """`jax.random.randint(k, shape, minval, maxval, int32)`: the
+    split-then-two-draws algorithm, wrapping uint32. The bounds are Python
+    ints inside int32, or integer tensors broadcastable against the draws (a
+    per-key bound of the scenario path, as JAX takes traced bounds)."""
+    if isinstance(minval, torch.Tensor) or isinstance(maxval, torch.Tensor):
+        lo = torch.as_tensor(minval, dtype=torch.int64, device=k.device)
+        hi = torch.as_tensor(maxval, dtype=torch.int64, device=k.device)
+        span = torch.where(hi > lo, hi - lo, torch.ones_like(hi - lo))
+    else:
+        lo = minval
+        span = maxval - minval if maxval > minval else 1
     multiplier = (1 << 16) % span
     multiplier = (multiplier * multiplier) % span
     k_hi, k_lo = split(k, 2).unbind(dim=-2)
     higher = bits(k_hi, shape)
     lower = bits(k_lo, shape)
     off = ((higher % span) * multiplier + lower % span) & MASK32
-    return (off % span + minval).to(torch.int32)
+    return (off % span + lo).to(torch.int32)

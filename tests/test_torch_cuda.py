@@ -287,3 +287,134 @@ def test_serve_session_card_matches_cpu(card):
     assert bridge.first_difference(c.state, g.state) is None
     assert bridge.first_difference(c.metrics, g.metrics) is None
     assert c.delta_rows == g.delta_rows
+
+
+# K1-d: a config per registry name on which its hook's plane runs and the
+# hook fires within 150 ticks at 8 clusters (tests/test_torch_mutation.py
+# holds the plain tick to the JAX tick on them; tests/test_torch_tick_body.py
+# the kernel's body), as RaftConfig keyword arguments.
+_RECONFIG = dict(n_nodes=5, log_capacity=8, client_interval=2, reconfig_interval=5, drop_prob=0.2,
+                 crash_prob=0.4, crash_period=16, crash_down_ticks=8, partition_period=16,
+                 partition_prob=0.3)
+_DURABLE = dict(n_nodes=5, log_capacity=8, client_interval=2, fsync_interval=3,
+                fsync_jitter_prob=0.25, torn_tail_prob=0.3, lost_suffix_span=3, drop_prob=0.2,
+                crash_prob=0.5, crash_period=16, crash_down_ticks=8)
+MUTANT_ROWS = {
+    "weak-quorum": dict(n_nodes=5, client_interval=4, drop_prob=0.2, partition_period=16,
+                        partition_prob=0.3),
+    "single-server-change": _RECONFIG,
+    "joint-bypass": _RECONFIG,
+    "act-on-commit": _RECONFIG,
+    "ignore-truncation-rollback": dict(_RECONFIG, compact_margin=4),
+    "stale-read": dict(n_nodes=5, log_capacity=8, client_interval=2, read_interval=2,
+                       drop_prob=0.2, partition_period=16, partition_prob=0.5),
+    "blind-transfer": dict(n_nodes=5, log_capacity=16, client_interval=2, transfer_interval=5,
+                           drop_prob=0.2),
+    "lease-skew": dict(n_nodes=5, log_capacity=16, election_min_ticks=12, election_range_ticks=1,
+                       drop_prob=0.05, clock_skew_prob=0.2, compact_margin=4, client_interval=2,
+                       read_interval=2, read_lease_ticks=4, partition_period=16,
+                       partition_prob=0.4),
+    "ack-before-fsync": _DURABLE,
+    "volatile-vote": _DURABLE,
+}
+
+
+def mutant_genome(cfg, batch: int, seed: int):
+    """A [batch, 2] genome from a numpy seed: every cluster and segment its
+    own drop, partitions, crashes, skew and (where the plane runs) cadences
+    and disk faults."""
+    from raft_sim_tpu_torch.scenario import genome as genome_mod
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(batch):
+        row = []
+        for _ in range(2):
+            kw = dict(drop_prob=rng.uniform(0, 0.4), partition_period=int(rng.integers(0, 40)),
+                      partition_prob=rng.uniform(0, 1), crash_prob=rng.uniform(0, 0.5),
+                      crash_down_ticks=int(rng.integers(1, cfg.crash_period + 1)),
+                      clock_skew_prob=rng.uniform(0, 0.3))
+            for f, on in (("client_interval", cfg.client_interval > 0),
+                          ("reconfig_interval", cfg.reconfig),
+                          ("transfer_interval", cfg.leader_transfer),
+                          ("read_interval", cfg.read_index)):
+                if on:
+                    kw[f] = int(rng.integers(1, 2 * getattr(cfg, f) + 1))
+            if cfg.durable_storage:
+                kw.update(fsync_interval=int(rng.integers(1, 6)),
+                          fsync_jitter_prob=rng.uniform(0, 0.5), torn_tail_prob=rng.uniform(0, 0.5),
+                          lost_suffix_span=int(rng.integers(1, cfg.log_capacity // 2 + 1)))
+            row.append(genome_mod.segment(**kw))
+        rows.append(row)
+    g = genome_mod.ScenarioGenome(**{
+        f: torch.tensor([[sg[f] for sg in r] for r in rows], dtype=genome_mod.leaf_dtype(f))
+        for f in genome_mod.ScenarioGenome._fields
+    })
+    genome_mod.validate(cfg, g)
+    return g
+
+
+@pytest.mark.parametrize("proxy", [False, True], ids=["kernel", "proxy"])
+@pytest.mark.parametrize("name", list(MUTANT_ROWS))
+def test_step_cuda_matches_plain_step_under_mutants(card, name, proxy):
+    """Each mutant's hook on the card: the kernel (and its race proxy, on a
+    ragged 45) equals the plain tick every tick, inputs drawn on the
+    scenario path from a per-cluster two-segment genome."""
+    from raft_sim_tpu_torch.scenario import genome as genome_mod
+    from raft_sim_tpu_torch.scenario.mutation import mutant_config
+
+    cfg = mutant_config(name, tconfig.RaftConfig(**MUTANT_ROWS[name]))
+    batch, ticks = (45, 96) if proxy else (200, 128)
+    g = genome_mod.to_device(mutant_genome(cfg, batch, 7), card)
+    s = trb.to_batch_minor(ttypes.init_batch(cfg, threefry.key(0, card), batch))
+    keys = threefry.split(threefry.key(1, card), batch)
+    for t, inp in zip(range(ticks), scan.input_ticks(cfg, keys, 0, ticks, g, ticks // 2)):
+        inp = trb.to_batch_minor(inp)
+        want = trb.step_b(cfg, s, inp, t)
+        got = tick_engine.step_cuda(cfg, s, inp, t, proxy=proxy)
+        diff = bridge.first_difference(want[0], got[0]) or bridge.first_difference(want[1], got[1])
+        assert diff is None, f"tick {t}: {diff}"
+        s = got[0]
+
+
+def test_corpus_replays_on_the_card(card):
+    """Every tests/corpus artifact replays through the kernel to its tick
+    and kinds, with its events and state lines, one launch a tick."""
+    import glob
+    import os
+
+    from raft_sim_tpu_torch.scenario import shrink as shrink_mod
+
+    paths = sorted(glob.glob(os.path.join(os.path.dirname(__file__), "corpus", "*.json")))
+    assert len(paths) == 7
+    for path in paths:
+        art = shrink_mod.load_artifact(path)
+        horizon = art["tick"] + 31
+        tick_engine.step_cuda.launches = 0
+        rep = shrink_mod.replay_artifact(art, horizon=horizon, device=card)
+        assert tick_engine.step_cuda.launches == horizon, path
+        assert rep["tick"] == art["tick"] and rep["kinds"] == art["kinds"], path
+        last = max(t for t, _ in art["events"])
+        assert [[t, e] for t, e in rep["events"] if t <= last] == art["events"], path
+        assert rep["state_lines"] == art["state_lines"], path
+
+
+def test_search_and_shrink_card_match_cpu(card):
+    """A weak-quorum hunt on the kitchen-sink config and the shrink of its
+    hit: the card's generation log, hit and artifact equal the CPU's."""
+    import json
+
+    from raft_sim_tpu_torch.scenario import search as search_mod
+    from raft_sim_tpu_torch.scenario import shrink as shrink_mod
+    from raft_sim_tpu_torch.scenario.mutation import mutant_config
+
+    cfg = mutant_config("weak-quorum", tconfig.RaftConfig(
+        n_nodes=5, log_capacity=8, client_interval=4, drop_prob=0.2, partition_period=16,
+        partition_prob=0.3, crash_prob=0.3, crash_period=32, crash_down_ticks=8,
+        clock_skew_prob=0.1))
+    spec = search_mod.SearchSpec(generations=2, population=16, ticks=64, window=32)
+    g, c = (search_mod.search(cfg, spec, device=d) for d in (card, "cpu"))
+    assert g.to_json() == c.to_json() and g.hit is not None
+    art_g = shrink_mod.shrink(cfg, g.hit, mutant="weak-quorum", device=card)
+    art_c = shrink_mod.shrink(cfg, c.hit, mutant="weak-quorum", device="cpu")
+    assert json.dumps(art_g) == json.dumps(art_c)

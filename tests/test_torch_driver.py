@@ -83,8 +83,9 @@ def test_config_flags_reach_the_config():
         (("--preset", "config6"), "preset"),
         (("--batch", "4"), "batch"),
         (("--seed", "3"), "seed"),
+        (("--mutant", "weak-quorum"), "mutant"),
     ],
-    ids=["config-field", "preset", "batch", "seed"],
+    ids=["config-field", "preset", "batch", "seed", "mutant"],
 )
 def test_resume_is_exclusive_with_config_flags(capsys, flags, named):
     with pytest.raises(SystemExit) as ex:
@@ -94,7 +95,7 @@ def test_resume_is_exclusive_with_config_flags(capsys, flags, named):
     assert "--resume is exclusive with config flags" in err and named in err
 
 
-@pytest.mark.parametrize("flag", ["--mutant", "--trace", "--perf", "--health",
+@pytest.mark.parametrize("flag", ["--trace", "--perf", "--health",
                                   "--devices", "--sanitize", "--profile", "--backend"])
 def test_unported_flags_are_unknown(capsys, flag):
     """A flag of the JAX `run` the port has not taken is refused, never
@@ -160,3 +161,57 @@ def test_session_run_equals_simulate():
     assert bridge.first_difference(want_s, sess.state) is None
     assert bridge.first_difference(want_m, sess.metrics) is None
     assert sess.now == 50
+
+
+def test_run_takes_a_mutant(capsys):
+    """`run --mutant NAME` (once refused as an unported flag) runs the
+    TEST-ONLY weakened tick: its summary is `simulate` under the mutant
+    config's, which differs from the real config's; an unknown name is a
+    usage error."""
+    from raft_sim_tpu_torch.scenario.mutation import mutant_config
+    from raft_sim_tpu_torch.sim import scan
+    from raft_sim_tpu_torch.summary import summarize
+
+    flags = ["--preset", "config2", "--batch", "6", "--ticks", "80", "--drop-prob", "0.3",
+             "--partition-period", "16", "--partition-prob", "0.5"]
+    assert cli.main(["run", "--device", "cpu", "--mutant", "weak-quorum", *flags]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    base = dataclasses.replace(tconfig.PRESETS["config2"][0], drop_prob=0.3, partition_period=16,
+                               partition_prob=0.5)
+    want = summarize(scan.simulate(mutant_config("weak-quorum", base), 0, 6, 80, device="cpu")[1])
+    real = summarize(scan.simulate(base, 0, 6, 80, device="cpu")[1])
+    assert {k: out[k] for k in want._asdict()} == want._asdict() != real._asdict()
+    with pytest.raises(SystemExit) as ex:
+        cli.main(["run", "--device", "cpu", "--mutant", "no-such", *flags])
+    assert ex.value.code == 2 and "unknown mutant" in capsys.readouterr().err
+
+
+def test_scenario_search_then_shrink(tmp_path, capsys):
+    """`scenario search --mutant ... --out HIT` writes the hit the library's
+    search finds; `scenario shrink --hit HIT --out ART` writes the
+    library's shrink of it, and the artifact replays to its tick."""
+    from raft_sim_tpu_torch.scenario import search as search_mod
+    from raft_sim_tpu_torch.scenario import shrink as shrink_mod
+    from raft_sim_tpu_torch.scenario.mutation import mutant_config
+
+    hit_path, art_path = str(tmp_path / "hit.json"), str(tmp_path / "art.json")
+    assert cli.main(["scenario", "search", "--device", "cpu", "--preset", "config2",
+                     "--mutant", "weak-quorum", "--client-interval", "4", "--generations", "2",
+                     "--population", "8", "--ticks", "64", "--window", "32",
+                     "--out", hit_path]) == 0
+    doc = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    cfg = mutant_config("weak-quorum", dataclasses.replace(tconfig.PRESETS["config2"][0],
+                                                           client_interval=4))
+    res = search_mod.search(cfg, search_mod.SearchSpec(generations=2, population=8, ticks=64,
+                                                       window=32), device="cpu")
+    assert doc["found"] and doc["hit"] == json.loads(json.dumps(res.hit))
+    hit = json.load(open(hit_path))
+    assert hit["mutant"] == "weak-quorum" and hit["config"]["client_interval"] == 4
+    assert cli.main(["scenario", "shrink", "--device", "cpu", "--hit", hit_path,
+                     "--out", art_path]) == 0
+    printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    art = shrink_mod.load_artifact(art_path)
+    assert art == json.loads(json.dumps(shrink_mod.shrink(cfg, res.hit, mutant="weak-quorum",
+                                                          device="cpu")))
+    assert printed["tick"] == art["tick"] and printed["kinds"] == art["kinds"]
+    assert shrink_mod.replay_artifact(art, device="cpu")["reproduced"]

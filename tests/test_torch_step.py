@@ -836,12 +836,8 @@ class _VolatileVote(tconfig.RaftConfig):
 @pytest.mark.parametrize(
     "kw,gate",
     [
-        (dict(cls=_SingleServerChange, reconfig_interval=10), "mutant hook joint_consensus"),
-        (dict(cls=_AckBeforeFsync, fsync_interval=3), "mutant hook durable_acks"),
-        (dict(cls=_VolatileVote, fsync_interval=3), "mutant hook persist_vote"),
         (dict(compact_planes=True), "compact_planes"),
         (dict(track_trace=True), "track_trace"),
-        (dict(cls=_LeaseSkewUnsafe, **LEASE_KW), "mutant hook lease_skew_safe"),
     ],
     ids=lambda x: x if isinstance(x, str) else None,
 )
@@ -854,3 +850,31 @@ def test_unsupported_gates_raise(kw, gate):
         trb.step_b(cfg, s, None, 0)
     with pytest.raises(NotImplementedError, match=gate):
         tick_engine.check_supported(cfg)
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [
+        dict(cls=_SingleServerChange, reconfig_interval=10),
+        dict(cls=_AckBeforeFsync, fsync_interval=3),
+        dict(cls=_VolatileVote, fsync_interval=3),
+        dict(cls=_LeaseSkewUnsafe, **LEASE_KW),
+    ],
+    ids=["joint_consensus", "durable_acks", "persist_vote", "lease_skew_safe"],
+)
+def test_mutant_hooks_are_accepted(kw):
+    """K1-d: a config with a TEST-ONLY mutant hook off runs through the plain
+    tick and passes the kernel's gate check (the refusal these configs met
+    before the scenario slice); tests/test_torch_mutation.py holds each hook
+    to the JAX tick."""
+    kw = dict(kw)
+    cfg = kw.pop("cls")(**kw)
+    assert trb.unsupported_gates(cfg) == []
+    tick_engine.check_supported(cfg)
+    from raft_sim_tpu_torch.sim import faults as tfaults
+    from raft_sim_tpu_torch.utils import threefry
+
+    s = trb.to_batch_minor(ttypes.init_batch(cfg, torch.tensor([0, 1]), 2))
+    inp = trb.to_batch_minor(tfaults.make_inputs(cfg, threefry.split(threefry.key(0), 2), 0))
+    s2, _ = trb.step_b(cfg, s, inp, 0)
+    assert int(s2.now[0]) == 1

@@ -264,8 +264,6 @@ def test_session_telemetry_matches_jax_session(tmp_path):
 
 def test_unported_telemetry_options_raise():
     cfg = tconfig.PRESETS["config2"][0]
-    with pytest.raises(NotImplementedError, match="item 17"):
-        ttel.simulate_windowed(cfg, 0, 2, 16, 16, genome=np.zeros((2, 4)), device="cpu")
     with pytest.raises(NotImplementedError, match="item 14"):
         ttel.simulate_windowed(cfg, 0, 2, 16, 16, trace=object(), device="cpu")
     state, keys = tscan.seed_fleet(cfg, 0, 2, "cpu")
@@ -273,3 +271,28 @@ def test_unported_telemetry_options_raise():
         ttel.run_chunked_telemetry(cfg, state, keys, 16, 16, perf=object())
     with pytest.raises(ValueError, match="divide"):
         ttel.run_batch_minor_telemetry(cfg, state, keys, 20, 16)
+
+
+def test_telemetry_loops_take_a_genome():
+    """The scenario input path through the telemetry loops (refused before
+    the scenario slice): simulate_windowed with a homogeneous genome is the
+    scalar run, and run_batch_minor_telemetry and run_chunked_telemetry with
+    a two-segment genome agree with each other. tests/test_torch_scenario.py
+    holds them to the JAX package."""
+    from raft_sim_tpu_torch.scenario import genome as tgenome
+
+    cfg = tconfig.PRESETS["config2"][0]
+    g = tgenome.broadcast(tgenome.from_config(cfg), B)
+    got = ttel.simulate_windowed(cfg, 3, B, T, W, genome=g, device="cpu")
+    want = ttel.simulate_windowed(cfg, 3, B, T, W, device="cpu")
+    for part, w, x in zip(("state", "metrics", "records"), want, got):
+        assert bridge.first_difference(w, x) is None, part
+    two = tgenome.broadcast(tgenome.from_segments([
+        tgenome.segment(drop_prob=0.5, client_interval=8), tgenome.segment(client_interval=8)]), B)
+    state, keys = tscan.seed_fleet(cfg, 3, B, "cpu")
+    s1, m1, r1, _ = ttel.run_batch_minor_telemetry(cfg, state, keys, T, W, genome=two, seg_len=32)
+    s2, m2, _ = ttel.run_chunked_telemetry(cfg, state, keys, T, W, chunk=32, genome=two,
+                                           seg_len=32)
+    assert bridge.first_difference(s1, s2) is None and bridge.first_difference(m1, m2) is None
+    assert bridge.first_difference(m1, ttel.reduce_records(r1)) is None
+    assert bridge.first_difference(s1, got[0]) is not None  # the genome changed the run

@@ -23,10 +23,12 @@ from raft_sim_tpu_torch import bridge
 from raft_sim_tpu_torch import types as ttypes
 from raft_sim_tpu_torch.kernels import tick_engine
 from raft_sim_tpu_torch.models import raft_batched as trb
+from raft_sim_tpu_torch.scenario.mutation import MUTANTS, mutant_config
 from raft_sim_tpu_torch.sim import faults
 from raft_sim_tpu_torch.utils import config as tconfig
 from raft_sim_tpu_torch.utils import threefry
-from tests.test_torch_cuda import SERVED, served_inputs, served_planes
+from tests.test_torch_cuda import MUTANT_ROWS as MUTANT_CONFIGS
+from tests.test_torch_cuda import SERVED, mutant_genome, served_inputs, served_planes
 from tests.test_torch_step import (
     DURABLE_CRASHES,
     DURABLE_PREVOTE_DENSE,
@@ -282,6 +284,77 @@ def test_tick_body_matches_plain_step_under_served_planes(host_lib, name, batch,
     assert served > 0 or not cfg.read_index
 
 
+@dataclasses.dataclass(frozen=True)
+class _AllHooksOff(tconfig.RaftConfig):
+    """A TEST-ONLY config with all eight mutant hooks off at once: the wide
+    rows run every hook of the mutant body together."""
+
+    joint_consensus = act_on_append = truncation_rollback = read_confirm = property(
+        lambda self: False)
+    xfer_election = lease_skew_safe = durable_acks = persist_vote = property(lambda self: False)
+
+
+# K1-d: each registry name on a config that runs its hook's plane (the plain
+# tick's rows, tests/test_torch_mutation.py), then every hook at once at the
+# wider width tiers: N=65 (width 4) with membership, transfers, reads, leases
+# and compaction, N=129 (width 8) with durable storage and transfers.
+MUTANT_ROWS = [
+    *(pytest.param(name, None, 8, 120, 0.05, id=name) for name in MUTANTS),
+    pytest.param("all-hooks", _AllHooksOff(
+        n_nodes=65, log_capacity=12, compact_margin=3, max_entries_per_rpc=3, client_interval=2,
+        reconfig_interval=5, transfer_interval=7, read_interval=2, read_lease_ticks=2,
+        election_min_ticks=8, election_range_ticks=6, drop_prob=0.1, partition_period=16,
+        partition_prob=0.3), 2, 60, 0.03, id="all-hooks-n65-reconfig-lease-compaction"),
+    pytest.param("all-hooks", _AllHooksOff(
+        n_nodes=129, log_capacity=12, client_interval=2, fsync_interval=2, fsync_jitter_prob=0.3,
+        torn_tail_prob=0.5, lost_suffix_span=4, transfer_interval=7, election_min_ticks=8,
+        election_range_ticks=6, drop_prob=0.1), 2, 48, 0.04, id="all-hooks-n129-durable-transfer"),
+]
+
+
+@pytest.mark.parametrize("name,cfg,batch,ticks,p_down", MUTANT_ROWS)
+def test_tick_body_matches_plain_step_under_mutants(host_lib, name, cfg, batch, ticks, p_down):
+    """K1-d: the body under each TEST-ONLY mutant hook, in both worker
+    orders with the race proxy's poison, equals the plain tick every tick;
+    the inputs come from a heterogeneous two-segment genome (scenario path)
+    plus crash fuzz."""
+    if cfg is None:
+        cfg = mutant_config(name, tconfig.RaftConfig(**MUTANT_CONFIGS[name]))
+    g = mutant_genome(cfg, batch, 7)
+    rng = np.random.default_rng(5)
+    s = trb.to_batch_minor(ttypes.init_batch(cfg, threefry.key(2), batch))
+    keys = threefry.split(threefry.key(3), batch)
+    led = 0
+    for t in range(ticks):
+        inp = trb.to_batch_minor(faults.make_inputs(cfg, keys, t, genome=g, seg_len=ticks // 2))
+        inp = _fuzz(inp, rng, p_down)
+        want = trb.step_b(cfg, s, inp, t)
+        for reverse in (False, True):
+            got = tick_engine.step_host(host_lib, cfg, s, inp, t, reverse=reverse, poison=True)
+            diff = bridge.first_difference(want[0], got[0]) or bridge.first_difference(want[1], got[1])
+            assert diff is None, f"tick {t}, {'reverse' if reverse else 'forward'} order: {diff}"
+        led += int(want[1].n_leaders.sum() > 0)
+        s = want[0]
+    assert led > 0
+
+
+@pytest.mark.parametrize("name,body", [
+    ("weak-quorum", 0), ("single-server-change", 2), ("act-on-commit", 2),
+    ("ignore-truncation-rollback", 2), ("stale-read", 2), ("blind-transfer", 2),
+    ("lease-skew", 1), ("ack-before-fsync", 1), ("volatile-vote", 2),
+])
+def test_mutants_pick_their_body(host_lib, name, body):
+    """Which body a mutant runs (csrc/tick.cuh `body_for`): a lean config the
+    lean one whatever its hooks; the quorum, the lease window and the
+    durability gate are runtime parameters of the lean or full bodies; the
+    other hooks take the mutant body."""
+    import ctypes
+
+    cfg = mutant_config(name, tconfig.RaftConfig(**MUTANT_CONFIGS[name]))
+    s = trb.to_batch_minor(ttypes.init_batch(cfg, threefry.key(0), 1))
+    assert host_lib.rs_tick_body(ctypes.byref(tick_engine._params(cfg, s, False))) == body
+
+
 @pytest.mark.parametrize("name,lean", [("config2-served", True), ("config7-served", True),
                                        ("config9-served", False), ("config6r-served", False),
                                        ("config10-served", False), ("n129-full-served", False)])
@@ -400,12 +473,12 @@ def test_every_dense_cluster_size_is_taken(host_lib):
 def test_kernel_report_names_each_cells_instantiation(host_lib, monkeypatch):
     """chip_smoke.py's per-cell ptxas line: the report is parsed per kernel,
     and each preset maps to its (index, ack, node, width tier, nodes a
-    thread, gate set) instantiation, with the gate set as the body's
-    `lean_gates` decides it -- config7 at width 4 with int8 node ids, N=255
-    at width 8 with int16 ones."""
-    entries = {"IaaaLi2ELi1ELb0E": (63, 0), "IaaaLi2ELi2ELb0E": (64, 136),
-               "IiaaLi2ELi1ELb1E": (112, 0), "IaaaLi4ELi2ELb0E": (128, 512),
-               "IaasLi8ELi2ELb0E": (128, 1024)}
+    thread, body) instantiation, with the body as `body_for` decides it --
+    config7 at width 4 with int8 node ids, N=255 at width 8 with int16 ones,
+    a mutant with a full plane on the mutant body."""
+    entries = {"IaaaLi2ELi1ELi0E": (63, 0), "IaaaLi2ELi2ELi0E": (64, 136),
+               "IiaaLi2ELi1ELi1E": (112, 0), "IaaaLi4ELi2ELi0E": (128, 512),
+               "IaasLi8ELi2ELi0E": (128, 1024), "IsaaLi2ELi1ELi2E": (120, 8)}
     text = "".join(
         f"ptxas info    : Compiling entry function '_ZN4anon11tick_kernel{tag}EvN2rs8TickArgsEii' for 'sm_90a'\n"
         f"ptxas info    : Function properties for _ZN4anon11tick_kernel{tag}EvN2rs8TickArgsEii\n"
@@ -415,16 +488,18 @@ def test_kernel_report_names_each_cells_instantiation(host_lib, monkeypatch):
     )
     monkeypatch.setitem(tick_engine.BUILD_INFO, "ptxas", text)
     wide = dataclasses.replace(tconfig.PRESETS["config7"][0], n_nodes=255)
-    for name, npt, tag in (("config3", 1, "IaaaLi2ELi1ELb0E"), ("config5", 2, "IaaaLi2ELi2ELb0E"),
-                           ("config6", 1, "IiaaLi2ELi1ELb1E"), ("config7", 2, "IaaaLi4ELi2ELb0E"),
-                           ("config7-n255", 2, "IaasLi8ELi2ELb0E")):
-        cfg = wide if name == "config7-n255" else tconfig.PRESETS[name][0]
+    blind = mutant_config("blind-transfer", tconfig.PRESETS["config8"][0])
+    for name, npt, tag in (("config3", 1, "IaaaLi2ELi1ELi0E"), ("config5", 2, "IaaaLi2ELi2ELi0E"),
+                           ("config6", 1, "IiaaLi2ELi1ELi1E"), ("config7", 2, "IaaaLi4ELi2ELi0E"),
+                           ("config7-n255", 2, "IaasLi8ELi2ELi0E"),
+                           ("config8-blind", 1, "IsaaLi2ELi1ELi2E")):
+        cfg = {"config7-n255": wide, "config8-blind": blind}.get(name) or tconfig.PRESETS[name][0]
         s = trb.to_batch_minor(ttypes.init_batch(cfg, threefry.key(0), 1))
         got = tick_engine.kernel_report(cfg, s, npt, host_lib)
         regs, stack = entries[tag]
+        body = {"config6": "full", "config8-blind": "mutant"}.get(name, "lean")
         assert got == {"instantiation": "tick_kernel" + tag, "registers": regs, "stack": stack,
-                       "spill_stores": stack, "spill_loads": 2 * stack,
-                       "gate_set": "full" if name == "config6" else "lean"}, name
+                       "spill_stores": stack, "spill_loads": 2 * stack, "gate_set": body}, name
 
 
 @pytest.mark.parametrize(
