@@ -11,13 +11,14 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    (tick_kernel<index, ack, node dtype, width tier, nodes per thread, body:
    0 lean, 1 full, 2 mutant>), nine nvcc runs in parallel. The race proxy's library (below)
    builds in the background from here on.
-2. kernel_vs_plain -- presets config1-config5 and config3p for 96 ticks,
-   config6 and config6r for 160 (their CAP=32 rings wrap near tick 130),
-   config8, config9 and config10 for 160, at a batch of 200 (config1 at its
-   batch of 1), config2 and config5 at a batch of 45 for 96 (a ragged last
+2. kernel_vs_plain -- presets config1-config5 and config3p for 64 ticks,
+   config6 and config6r for 96 (config6-cap8 and the ring-LM rows carry
+   the compactions), config8 for 160 (its first membership toggle is
+   offered at tick 97), config9 for 96 and config10 for 128, at a batch of 200 (config1 at its
+   batch of 1), config2 and config5 at a batch of 45 for 64 (a ragged last
    block of clusters at N=5 and at N=51, two nodes a thread), plus
    config6-cap8 (config6 on an
-   8-slot ring with 2-entry windows and an offer every 2 ticks) for 160
+   8-slot ring with 2-entry windows and an offer every 2 ticks) for 96
    ticks: every tick, the kernel (`step_cuda`) on the card equals the plain
    PyTorch tick (`raft_batched.step_b`) on the card from the same state and
    inputs, leaf for leaf; then `simulate` through the kernel equals
@@ -26,7 +27,7 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    integer-only. Over the slice-2 runs it counts restarts drawn, compactions
    (log_base advanced), InstallSnapshot sentinels sent (AppendEntries edges
    with offset -1) and redirect bounces to a down target (config6r), and
-   requires each above 0. config6 itself sends no sentinel in 160 ticks at
+   requires each above 0. config6 itself sends no sentinel in 96 ticks at
    this batch (no follower falls 24 entries behind); config6-cap8 does. Over
    config8 and config9 it counts the slice-3 events -- config entries
    appended (a node's cfg_epoch rising), joint exits, TimeoutNow requests
@@ -39,15 +40,15 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    snapshot, late vote responses and AppendEntries acks held at the
    watermark -- and requires each above 0 (jitter stalls are reported); every
    tick, every node's dur_len must stay at or below its log_len. Slice 6
-   adds config4c (200 x 96), config7 (N=101: 200 x 96 and a ragged 45 x 96),
-   config7's mix dense at N=128 and at N=255 under partitions (45 x 64), and
+   adds config4c (200 x 64), config7 (N=101: 200 x 64 and a ragged 45 x 64),
+   config7's mix dense at N=128 and at N=255 under partitions (45 x 48), and
    a full-gate row at N=101 (crash churn, compaction, PreVote, membership,
-   transfers, reads; 200 x 160), whose restarts, compactions, config
+   transfers, reads; 200 x 96), whose restarts, compactions, config
    appends, joint exits, TimeoutNow requests and reads must each be above 0
    (the `slice6_events` line). Slice 7 adds log matching on the compacting
-   ring (K1-b): config6 and config9 with the check every tick (200 x 200 and
+   ring (K1-b): config6 and config9 with the check every tick (200 x 160 and
    200 x 400),
-   config6-cap8 with it (200 x 200; its incomparable pairs,
+   config6-cap8 with it (200 x 128; its incomparable pairs,
    `lm_skipped_pairs`, must sum above 0) and config7's mix at N=101
    compacting with it (45 x 96, width tier 4, two nodes a thread); each row
    prints a `slice7_events` line and must show no log-matching violation.
@@ -57,17 +58,17 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    tick every tick on config1 and config7 at 1 cluster, on a ragged 45 of
    config2, config5, config3p, config6, config6r, config8, config9,
    config10, config4c, config7 and config6-cap8 with log matching, and on
-   the N=128 and N=255 rows, for 64 ticks each. It stands in for a race
+   the N=128 and N=255 rows, for 32 ticks each. It stands in for a race
    checker, which the card's machine refuses.
 3. card_vs_cpu -- the port's `simulate` on the card equals the port on the CPU
    (config2, config4, config6r, config3p, config8, config9 and config10 at
-   64 x 100; config7 at 16 x 100). The CPU tests hold the CPU
+   64 x 32; config7 at 16 x 32). The CPU tests hold the CPU
    port equal to the JAX package.
 4. full_width -- the main path, `simulate` at the presets' own batch through the
    kernel: config2, config6, config6r, config7, config8, config9 and config10
    at 1,000 clusters, config3, config3p, config4 and config4c at 100,000, for
-   200 ticks (config6 and config6r 300, config9 and config4c 400: their
-   liveness checks need the depth), config5 at 10,000 for 200. Launch counts are zeroed just before each run
+   128 ticks (config6 and config6r 256, config9 352 and config4c 320: their
+   liveness checks need the depth), config5 at 10,000 for 128. Launch counts are zeroed just before each run
    and read just after; each must equal the tick count. Every run must have
    zero invariant violations (stale lease reads included) and a leader
    elected in every cluster, the client presets a commit in every cluster,
@@ -134,8 +135,8 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    scenario tests' kitchen-sink config (16 x 128, 2 generations) on the card
    equals it on the CPU. (d) Full width on config4c: `scenario run`'s
    library path (driver.run_scenario) over a calm / storm (drop 0.2,
-   partitions of period 32 at 0.3, skew 0.1) / calm program of 100-tick
-   segments at the preset batch of 100,000 for 300 ticks -- launches ==
+   partitions of period 32 at 0.3, skew 0.1) / calm program of 64-tick
+   segments at the preset batch of 100,000 for 192 ticks -- launches ==
    ticks, zero violations, a leader in every cluster, FULL_HOLD_TICKS ticks
    of kernel == plain after it, the wall ms a tick, the input draws', the
    kernel's against its bound, peak memory; then a weak-quorum hunt at a
@@ -143,6 +144,33 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    generations, which must hit; its hit is shrunk and the artifact replays
    to the identical tick through the kernel, and the real config4c on the
    hunt's last generation of genomes shows zero violations.
+4e. trace -- the slice-10 path: the protocol trace plane
+   (raft_sim_tpu_torch/trace/), every traced tick one launch of the kernel.
+   (a) Under track_trace, the kernel on the card == the plain tick on the
+   CPU (in a worker process, over the card's inputs) every tick on
+   TRACE_ROWS (config2, config3p, config5, config6, config8, config9,
+   config10 and config4c under a two-segment genome fleet; TRACE_B x
+   TRACE_T): state, StepInfo and the extracted TickEvents equal, and the
+   untraced config's kernel tick gives the same state; each kind's event
+   count equals the CPU plain tick's and the JAX run's
+   (tests/trace_kind_counts_jax.json, written by
+   tests/trace_kind_counts_jax.py), and the kinds never emitted are the
+   JAX run's. (b) `run --trace` (config6, 16 x 128) writes the same trace
+   files on the card as on the CPU. (c) `run --trace` at config6's batch
+   (1,000 x 320, window 64, depth 256, doubled until no window drops an
+   event): launches == ticks, validate() clean, the checker's history
+   complete with all six properties passing; ms a tick traced and untraced
+   on the same seed, the extraction's and the ring fold's ms (CUDA
+   events), events written, sink bytes, the checker's seconds. (d) A
+   coverage hunt (coverage fitness, guided proposals) at config4c's
+   batch of 100,000, 2 generations x 256 ticks, window 64, depth 32: 0
+   violations, launches == ticks, the guided clones of generation 1 and
+   its new bits, ms a tick, peak memory; then a weak-quorum coverage hunt
+   at 10,000 must hit, and its shrunk artifact's checker replay must be
+   rejected naming a property, with a witness. (e) Every tests/corpus
+   artifact through `farm/corpus.check_artifact` both ways: the mutant
+   replay rejected on a complete history naming its provenance's
+   property, with a witness; the real config passing all six.
 5. bench_row -- the port's bench (raft_sim_tpu_torch/bench.py) on config2 at
    64 x 100 ticks, 3 quality seeds and 2 repeats, on the card and on the CPU:
    every quality field equal; the card's row carries backend "cuda", the
@@ -165,25 +193,53 @@ from concurrent.futures import ThreadPoolExecutor
 HERE = os.path.dirname(os.path.abspath(__file__))
 BW_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 SEED = 0
-FULL_HOLD_TICKS = 16  # kernel-vs-plain ticks at full width, per cell
+FULL_HOLD_TICKS = 8  # kernel-vs-plain ticks at full width, per cell
 LONG_T = 150  # long_run: the resumed run's half (2 x LONG_T uninterrupted)
-SIM_TICKS = 32  # phase 2: ticks of `simulate` through the kernel vs the plain tick
+SIM_TICKS = 4  # phase 2: ticks of `simulate` through the kernel vs the plain tick
 LONG_CHUNK = 50  # long_run's chunk: commit moves < CAP - margin a chunk
-SERVE_T = 256  # serve (a): ticks of kernel vs plain under served planes
-SERVE_CHUNKS = 8  # serve (c): serving chunks of the config9-serve row
-SCEN_T = 128  # scenario (a): ticks of kernel vs plain under each mutant
-SCEN_SEG = 64  # scenario (a): ticks a genome segment
-HUNT_POP, HUNT_T, HUNT_WINDOW = 10_000, 256, 64  # scenario (d): the weak-quorum hunt
+SERVE_T = 64  # serve (a): ticks of kernel vs plain under served planes
+SERVE_CHUNKS = 3  # serve (c): serving chunks of the config9-serve row
+SCEN_T = 48  # scenario (a): ticks of kernel vs plain under each mutant
+SCEN_SEG = 24  # scenario (a): ticks a genome segment
+HUNT_POP, HUNT_T, HUNT_WINDOW = 10_000, 192, 64  # scenario (d): the weak-quorum hunt
+TRACE_T, TRACE_B = 128, 200  # trace (a): ticks and clusters of kernel vs plain under track_trace
+# trace (a)'s rows: presets, and config4c under a two-segment genome fleet.
+TRACE_ROWS = ("config2", "config3p", "config5", "config6", "config8", "config9", "config10",
+              "config4c-genome")
+# The per-kind event counts of the JAX package's run of each trace (a) row
+# (tests/trace_kind_counts_jax.py writes them): the card's must equal them.
+TRACE_COUNTS = os.path.join("tests", "trace_kind_counts_jax.json")
+TRACE_RUN = (1_000, 320, 64, 256)  # trace (c): config6's batch, ticks, window, first depth
+COV_POP, COV_T, COV_WINDOW, COV_DEPTH = 100_000, 256, 64, 32  # trace (d): the coverage hunt
+WQ_POP, WQ_T = 10_000, 192  # trace (d): the weak-quorum coverage hunt's population, ticks
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def _leaves(tree) -> list:
+    """The leaves of a NamedTuple tree (nested NamedTuples flattened)."""
+    out = []
+    for x in tree:
+        out += _leaves(x) if isinstance(x, tuple) and hasattr(x, "_fields") else [x]
+    return out
+
+
 def check_equal(want, got, what: str) -> None:
-    """Raise unless trees `want` and `got` agree exactly on every leaf."""
+    """Raise unless trees `want` and `got` agree exactly on every leaf. Two
+    trees of one type whose tensor leaves pair up on one device, dtype and
+    shape are compared on that device with one read back; any other pair,
+    or a difference, goes through bridge.first_difference, which names it."""
+    import torch
     from raft_sim_tpu_torch import bridge
 
+    a, b = _leaves(want), _leaves(got)
+    if type(want) is type(got) and len(a) == len(b) and all(
+            isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor) and x.device == y.device
+            and x.dtype == y.dtype and x.shape == y.shape for x, y in zip(a, b)):
+        if bool(torch.stack([(x == y).all() for x, y in zip(a, b)]).all()):
+            return
     diff = bridge.first_difference(want, got)
     if diff is not None:
         raise AssertionError(f"{what}: {diff}")
@@ -652,7 +708,7 @@ KITCHEN_SINK = dict(n_nodes=5, log_capacity=8, client_interval=4, drop_prob=0.2,
 
 # scenario (d): the three-segment nemesis program of the config4c run row.
 STORM_PROGRAM = {
-    "name": "calm-storm-calm", "seg_len": 100,
+    "name": "calm-storm-calm", "seg_len": 64,
     "segments": [
         {"client_interval": 8},
         {"client_interval": 8, "drop_prob": 0.2, "partition_period": 32, "partition_prob": 0.3,
@@ -697,6 +753,22 @@ def random_genome(cfg, batch: int, seed: int, segments: int, device):
     })
     genome_mod.validate(cfg, g)
     return genome_mod.to_device(g, device)
+
+
+def trace_rows(device):
+    """trace (a)'s rows: [(name, config under track_trace, batch, ticks,
+    genome or None, seg_len)], each row's state from init_batch(key(SEED))
+    and its run keys split from key(SEED + 1), as phase 2's."""
+    from raft_sim_tpu_torch.utils.config import PRESETS
+
+    rows = []
+    for name in TRACE_ROWS:
+        preset = name.split("-")[0]
+        cfg = dataclasses.replace(PRESETS[preset][0], track_trace=True)
+        genome = random_genome(cfg, TRACE_B, SEED + 100, 2, device) if name.endswith(
+            "-genome") else None
+        rows.append((name, cfg, TRACE_B, TRACE_T, genome, TRACE_T // 2))
+    return rows
 
 
 def scenario_phase(dev, wall_ms, hold_ticks) -> dict:
@@ -905,6 +977,368 @@ def scenario_phase(dev, wall_ms, hold_ticks) -> dict:
     return run_cell
 
 
+def _cli(argv) -> dict:
+    """Run `python -m raft_sim_tpu_torch` in process with `argv`; returns the
+    summary JSON line it prints (its other output is dropped)."""
+    import contextlib
+    import io
+
+    from raft_sim_tpu_torch import __main__ as cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    if rc != 0:
+        raise AssertionError(f"{argv}: exit {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def _cpu_row(cfg, s, ticks):
+    """trace (a)'s plain tick on the CPU, run in a worker process over one
+    row's card-drawn inputs: each tick's state, StepInfo and TickEvents must
+    equal the kernel's on the card. `s` and `ticks` ((t, inputs, fault facts,
+    the card's (state, StepInfo, TickEvents))) are numpy trees, batch-minor.
+    Returns the per-kind event counts."""
+    import torch
+    from raft_sim_tpu_torch.models import raft_batched
+    from raft_sim_tpu_torch.trace import events as tev
+
+    def tensors(tree):
+        return raft_batched._map(torch.from_numpy, tree)
+
+    kinds = torch.from_numpy(tev.slot_kinds(cfg.n_nodes)).long()
+    counts = torch.zeros(tev.N_KINDS, dtype=torch.int64)
+    s = tensors(s)
+    for t, inp, facts, card in ticks:
+        inp = tensors(inp)
+        s2, info = raft_batched.step_b(cfg, s, inp, t)
+        ev = tev.extract(cfg, s, s2, inp, info, *(torch.from_numpy(x) for x in facts))
+        for part, want, got in zip(("state", "StepInfo", "TickEvents"), (s2, info, ev), card):
+            check_equal(want, tensors(got), f"tick {t}: the kernel's {part} != the CPU plain tick's")
+        counts.index_add_(0, kinds, ev.flags.sum(dim=1))
+        s = s2
+    return counts
+
+
+def _trace_files(directory: str) -> dict:
+    """{name: bytes} of a sink directory's trace files."""
+    out = {}
+    for name in ("trace.jsonl", "trace_windows.jsonl", "trace_meta.json"):
+        with open(os.path.join(directory, name), "rb") as f:
+            out[name] = f.read()
+    return out
+
+
+def trace_phase(dev, wall_ms) -> list:
+    """Phase 4e: the protocol trace plane (raft_sim_tpu_torch/trace/) on the
+    card, every traced tick one launch of the kernel. Returns the cells of
+    its main-path runs ((c) and (d)), each with its launches."""
+    import collections
+    import glob
+    import shutil
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor as Pool
+
+    import multiprocessing
+
+    import torch
+    from raft_sim_tpu_torch.farm import corpus as corpus_mod
+    from raft_sim_tpu_torch.kernels import tick_engine
+    from raft_sim_tpu_torch.models import raft_batched
+    from raft_sim_tpu_torch.scenario import search as search_mod
+    from raft_sim_tpu_torch.scenario import shrink as shrink_mod
+    from raft_sim_tpu_torch.scenario.mutation import mutant_config
+    from raft_sim_tpu_torch.sim import faults, scan
+    from raft_sim_tpu_torch.trace import checker, history
+    from raft_sim_tpu_torch.trace import events as tev
+    from raft_sim_tpu_torch.trace import ring as tring
+    from raft_sim_tpu_torch.types import init_batch
+    from raft_sim_tpu_torch.utils import telemetry_sink, threefry
+    from raft_sim_tpu_torch.utils.config import PRESETS
+
+    cells = []
+    work = tempfile.mkdtemp(prefix="trace_", dir=HERE)
+    from raft_sim_tpu_torch.utils import device as device_mod
+
+    def host(tree):
+        """A tree (NamedTuples and lists) of tensors as numpy arrays."""
+        return device_mod.host_numpy(*device_mod.to_host_async(tree))
+
+    # ---- (a) kernel == plain under track_trace, TickEvents included --------
+    with open(os.path.join(HERE, TRACE_COUNTS)) as f:
+        jax_counts = json.load(f)
+    totals = collections.Counter()
+    # The CPU rows run in a worker process beside the card's (their Python
+    # would contend with the card loop's for one interpreter's lock).
+    pool = Pool(max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+    pending = []
+    t_a = time.perf_counter()
+    for name, cfg, batch, ticks, genome, seg_len in trace_rows(dev):
+        untraced = dataclasses.replace(cfg, track_trace=False)
+        s = raft_batched.to_batch_minor(init_batch(cfg, threefry.key(SEED, dev), batch))
+        s0 = host(s)
+        keys = threefry.split(threefry.key(SEED + 1, dev), batch)
+        kinds = torch.from_numpy(tev.slot_kinds(cfg.n_nodes)).long().to(dev)
+        counts = torch.zeros(tev.N_KINDS, dtype=torch.int64, device=dev)
+        drawn = (scan.input_ticks(cfg, keys, 0, ticks, genome, seg_len, trace=True)
+                 if genome is not None else None)
+        cpu_ticks = []
+        for t in range(ticks):
+            if drawn is not None:
+                inp, facts = next(drawn)
+            else:
+                inp, facts = faults.make_inputs(cfg, keys, t, facts=True)
+            inp = raft_batched.to_batch_minor(inp)
+            facts = [facts[0].movedim(0, -1).contiguous(), facts[1], facts[2]]
+            got_s, got_i = tick_engine.step_cuda(cfg, s, inp, t)
+            got_e = tev.extract(cfg, s, got_s, inp, got_i, *facts)
+            check_equal(tick_engine.step_cuda(untraced, s, inp, t)[0], got_s,
+                        f"trace {name} tick {t}: traced state != untraced")
+            counts.index_add_(0, kinds, got_e.flags.sum(dim=1))
+            inp_h, facts_h, s_h, i_h, e_h = host([inp, facts, got_s, got_i, got_e])
+            cpu_ticks.append((t, inp_h, facts_h, (s_h, i_h, e_h)))
+            s = got_s
+        pending.append((name, batch, ticks, genome is not None, counts,
+                        pool.submit(_cpu_row, cfg, s0, cpu_ticks)))
+    for name, batch, ticks, genomed, counts, fut in pending:
+        try:
+            counts_cpu = fut.result()
+        except AssertionError as ex:
+            raise AssertionError(f"trace {name}: {ex}") from None
+        card = {k: int(counts[code]) for k, code in sorted(tev.KINDS.items())}
+        on_cpu = {k: int(counts_cpu[code]) for k, code in sorted(tev.KINDS.items())}
+        if card != on_cpu:
+            raise AssertionError(f"trace {name}: event counts card {card} != CPU {on_cpu}")
+        if card != jax_counts[name]["counts"]:
+            raise AssertionError(f"trace {name}: event counts {card} != the JAX run's "
+                                 f"{jax_counts[name]['counts']} ({TRACE_COUNTS})")
+        totals.update(card)
+        emit({"phase": "trace_kernel_vs_plain", "preset": name, "batch": batch, "ticks": ticks,
+              "genome": genomed, "per_tick": "equal", "plain": "cpu",
+              "equal": ["state", "info", "events", "untraced_state"], "max_abs_err": 0,
+              "events": sum(card.values()), "counts": card, "counts_cpu": "equal",
+              "counts_jax": "equal"})
+    pool.shutdown()
+    never = sorted(k for k in tev.KINDS if totals[k] == 0)
+    jax_never = sorted(k for k in tev.KINDS
+                       if sum(r["counts"][k] for r in jax_counts.values()) == 0)
+    if never != jax_never:
+        raise AssertionError(f"trace: kinds never emitted {never}, the JAX run's {jax_never}")
+    emit({"phase": "trace_kinds", "rows": list(TRACE_ROWS), "totals": dict(sorted(totals.items())),
+          "never_emitted": never, "jax_never_emitted": jax_never,
+          "seconds": time.perf_counter() - t_a})
+
+    # ---- (b) run --trace on the card == on the CPU ---------------------------
+    small = ["run", "--preset", "config6", "--batch", "16", "--ticks", "128", "--seed", str(SEED),
+             "--telemetry-window", "64", "--trace", "--trace-depth", "256"]
+    files = {}
+    for d in ("card", "cpu"):
+        _cli([*small, "--telemetry-dir", os.path.join(work, f"b_{d}"), "--device",
+              dev.type if d == "card" else "cpu"])
+        files[d] = _trace_files(os.path.join(work, f"b_{d}"))
+    if files["card"] != files["cpu"]:
+        raise AssertionError("trace (b): the card's trace files != the CPU's")
+    emit({"phase": "trace_card_vs_cpu", "preset": "config6", "batch": 16, "ticks": 128,
+          "equal": sorted(files["card"]), "bytes": {k: len(v) for k, v in files["card"].items()},
+          "max_abs_err": 0})
+
+    # ---- (c) run --trace at config6's own batch ------------------------------
+    batch, ticks, window, depth = TRACE_RUN
+    cfg6 = dataclasses.replace(PRESETS["config6"][0], track_trace=True)
+    base = ["run", "--preset", "config6", "--batch", str(batch), "--ticks", str(ticks),
+            "--seed", str(SEED), "--telemetry-window", str(window), "--device", dev.type]
+    while True:
+        tdir = os.path.join(work, f"c_depth{depth}")
+        tick_engine.step_cuda.launches = 0
+        t0 = time.perf_counter()
+        out = _cli([*base, "--telemetry-dir", tdir, "--trace", "--trace-depth", str(depth)])
+        wall = time.perf_counter() - t0
+        launches = tick_engine.step_cuda.launches
+        with open(os.path.join(tdir, "trace_windows.jsonl")) as f:
+            dropped = sum(json.loads(line)["dropped"] for line in f)
+        if not dropped:
+            break
+        emit({"phase": "trace_run_overflow", "depth": depth, "dropped": dropped})
+        depth *= 2
+    if launches != ticks:
+        raise AssertionError(f"trace run: {launches} kernel launches for {ticks} ticks")
+    if out["total_violations"] != 0:
+        raise AssertionError(f"trace run: {out['total_violations']} violations")
+    errors = telemetry_sink.validate(tdir)
+    if errors:
+        raise AssertionError(f"trace run: validate() {errors[:4]}")
+    t0 = time.perf_counter()
+    hist = history.load(tdir)
+    rep = checker.check_history(hist)
+    check_s = time.perf_counter() - t0
+    if not (rep.complete and rep.ok and all(r.ok is True for r in rep.results.values())):
+        raise AssertionError(f"trace run: checker {rep.to_dict()['violated']}, complete "
+                             f"{rep.complete}: {[r.note for r in rep.results.values()][:2]}")
+    udir = os.path.join(work, "c_untraced")
+    t0 = time.perf_counter()
+    out_u = _cli([*base, "--telemetry-dir", udir])
+    wall_u = time.perf_counter() - t0
+    for k in ("total_violations", "max_term", "total_msgs", "total_cmds"):
+        if out_u[k] != out[k]:
+            raise AssertionError(f"trace run: untraced {k} {out_u[k]} != traced {out[k]}")
+    # The extraction and the ring fold on a full-width mid-run state (CUDA events).
+    state, keys = scan.seed_fleet(cfg6, SEED, batch, dev)
+    s = raft_batched.to_batch_minor(state)
+    m = raft_batched.to_batch_minor(scan.init_metrics_batch(batch, dev))
+    t_mid = window
+    for t in range(t_mid):
+        s, m, _ = scan.tick_batch_minor(cfg6, s, keys, m, t)
+    inp, facts = faults.make_inputs(cfg6, keys, t_mid, facts=True)
+    inp = raft_batched.to_batch_minor(inp)
+    facts = (facts[0].movedim(0, -1),) + tuple(facts[1:])
+    s2, info = tick_engine.step_cuda(cfg6, s, inp, t_mid)
+    spec = tring.TraceSpec(depth=depth)
+    tw, tp = tring.init_window(spec, batch, dev), tring.init_persist(spec, batch, dev)
+
+    def events_ms(fn, reps=20):
+        fn()
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / reps
+
+    ev = tev.extract(cfg6, s, s2, inp, info, *facts)
+    extract_ms = events_ms(lambda: tev.extract(cfg6, s, s2, inp, info, *facts))
+    record_ms = events_ms(lambda: tring.record(cfg6, spec, tw, tp, ev, s.now))
+    inputs_ms = wall_ms(lambda: faults.make_inputs(cfg6, keys, t_mid), 5)
+    inputs_facts_ms = wall_ms(lambda: faults.make_inputs(cfg6, keys, t_mid, facts=True), 5)
+    kernel_ms = tick_engine.time_kernel(cfg6, s, inp, reps=20, now=t_mid)
+    plain_ms = wall_ms(lambda: raft_batched.step_b(cfg6, s, inp, t_mid), 3)
+    sizes = {f: os.path.getsize(os.path.join(tdir, f)) for f in sorted(os.listdir(tdir))}
+    with open(os.path.join(tdir, "trace.jsonl"), "rb") as f:
+        n_events = sum(1 for _ in f)
+    rd, wr = tick_engine.traffic_bytes(cfg6, batch)
+    run_cell = {
+        "phase": "trace_run", "preset": "config6", "batch": batch, "ticks": ticks,
+        "window": window, "depth": depth, "launches": launches, "dropped": 0,
+        "validate": "clean", "checker": {"complete": rep.complete, "ok": rep.ok,
+                                         "properties": list(rep.results)},
+        "wall_s": wall, "ms_per_tick": wall * 1e3 / ticks,
+        "wall_s_untraced": wall_u, "ms_per_tick_untraced": wall_u * 1e3 / ticks,
+        "extract_ms": extract_ms, "record_ms": record_ms, "inputs_ms": inputs_ms,
+        "inputs_with_facts_ms": inputs_facts_ms, "kernel_ms": kernel_ms,
+        "bound_ms": (rd + wr) / BW_BYTES_PER_S * 1e3, "plain_ms": plain_ms,
+        "events_written": n_events, "sink_bytes": sizes, "checker_s": check_s,
+    }
+    emit(run_cell)
+    cells.append(dict(run_cell, preset="trace-config6", kernel_vs_plain_ticks=0))
+    del s, s2, m, inp, info, ev, tw, tp, state, hist
+    shutil.rmtree(work, ignore_errors=True)
+    work = tempfile.mkdtemp(prefix="trace_", dir=HERE)
+    torch.cuda.empty_cache()
+
+    # ---- (d) the coverage hunt at config4c's preset batch -------------------
+    cfg4c, pop = PRESETS["config4c"]
+    if pop != COV_POP:
+        raise AssertionError(f"config4c's preset batch is {pop}, expected {COV_POP}")
+    spec = search_mod.SearchSpec(generations=2, population=pop, ticks=COV_T, window=COV_WINDOW,
+                                 seed=SEED, fitness="coverage", proposal="coverage-guided",
+                                 trace_depth=COV_DEPTH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tick_engine.step_cuda.launches = 0
+    t0 = time.perf_counter()
+    res = search_mod.search(cfg4c, spec, device=dev)
+    hunt_wall = time.perf_counter() - t0
+    hunt_launches = tick_engine.step_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+    gens = res.generations
+    if hunt_launches != COV_T * len(gens) or len(gens) != 2:
+        raise AssertionError(f"coverage hunt: {hunt_launches} launches, {len(gens)} generations")
+    if res.hit is not None or any(g["violating_clusters"] for g in gens):
+        raise AssertionError(f"coverage hunt: the real config4c violated: {gens}")
+    # Generation 1 draws guided clones iff generation 0 lit a new bit.
+    guided = min(round(spec.guided_frac * pop), pop) if gens[0]["cov_new_bits"] > 0 else 0
+    if guided <= 0:
+        raise AssertionError("coverage hunt: generation 0 lit no coverage bit")
+    hunt_cell = {
+        "phase": "trace_coverage_hunt", "preset": "config4c", "population": pop,
+        "ticks": COV_T, "window": COV_WINDOW, "depth": COV_DEPTH, "generations": len(gens),
+        "launches": hunt_launches, "violations": 0, "guided_proposals_gen1": guided,
+        "cov_new_bits": [g["cov_new_bits"] for g in gens],
+        "cov_total_bits": gens[-1]["cov_total_bits"], "wall_s": hunt_wall,
+        "ms_per_tick": hunt_wall * 1e3 / hunt_launches, "peak_mem_bytes": peak,
+    }
+    emit(hunt_cell)
+    cells.append(dict(hunt_cell, preset="trace-coverage-config4c", batch=pop,
+                      kernel_vs_plain_ticks=0))
+    torch.cuda.empty_cache()
+
+    wq = mutant_config("weak-quorum", cfg4c)
+    spec = search_mod.SearchSpec(generations=4, population=WQ_POP, ticks=WQ_T, window=COV_WINDOW,
+                                 seed=SEED, fitness="coverage", proposal="coverage-guided",
+                                 trace_depth=COV_DEPTH)
+    tick_engine.step_cuda.launches = 0
+    t0 = time.perf_counter()
+    res = search_mod.search(wq, spec, device=dev)
+    wq_wall = time.perf_counter() - t0
+    wq_launches = tick_engine.step_cuda.launches
+    if res.hit is None:
+        raise AssertionError(f"weak-quorum coverage hunt: no hit in {res.generations}")
+    if wq_launches != WQ_T * len(res.generations):
+        raise AssertionError(f"weak-quorum coverage hunt: {wq_launches} launches")
+    art = shrink_mod.shrink(wq, res.hit, mutant="weak-quorum", device=dev)
+    rep = corpus_mod.check_artifact(art, device=dev)
+    if not (rep.complete and rep.violated and rep.results[rep.violated[0]].witness):
+        raise AssertionError(f"weak-quorum coverage hunt: the checker did not reject the "
+                             f"artifact with a witness: {rep.to_dict()}")
+    emit({"phase": "trace_coverage_hunt_weak_quorum", "preset": "config4c",
+          "population": WQ_POP, "ticks": WQ_T, "generations": len(res.generations),
+          "launches": wq_launches, "wall_s": wq_wall,
+          "hit": {k: res.hit[k] for k in ("seed", "cluster", "first_viol_tick")},
+          "cov_new_bits": [g["cov_new_bits"] for g in res.generations],
+          "shrunk": {"tick": art["tick"], "kinds": art["kinds"], "removed": art["removed"]},
+          "checker": {"complete": rep.complete, "violated": rep.violated,
+                      "witness": rep.results[rep.violated[0]].witness}})
+    torch.cuda.empty_cache()
+
+    # ---- (e) the corpus checker on the card, both ways -----------------------
+    paths = sorted(glob.glob(os.path.join(HERE, "tests", "corpus", "*.json")))
+    if len(paths) != 7:
+        raise AssertionError(f"trace corpus: {len(paths)} artifacts, expected 7")
+    t_e = time.perf_counter()
+    replayed = 0
+    for path in paths:
+        art = shrink_mod.load_artifact(path)
+        prop = art["provenance"]["checker_property"]
+        horizon = -(-int(art["ticks"]) // 64) * 64
+        verdicts = {}
+        for real in (False, True):
+            tick_engine.step_cuda.launches = 0
+            rep = corpus_mod.check_artifact(art, real=real, device=dev)
+            if tick_engine.step_cuda.launches != horizon:
+                raise AssertionError(f"trace corpus {path}: {tick_engine.step_cuda.launches} "
+                                     f"launches for {horizon} ticks")
+            replayed += horizon
+            if not rep.complete:
+                raise AssertionError(f"trace corpus {path}: incomplete history ({rep.problems})")
+            if real and not (rep.ok and all(r.ok is True for r in rep.results.values())):
+                raise AssertionError(f"trace corpus {path}: the real config failed {rep.violated}")
+            if not real and not (rep.violated and rep.violated[0] == prop
+                                 and rep.results[prop].witness):
+                raise AssertionError(f"trace corpus {path}: rejected {rep.violated}, expected "
+                                     f"{prop} with a witness")
+            verdicts["real" if real else "mutant"] = rep.violated or "all six pass"
+        emit({"phase": "trace_corpus", "artifact": os.path.relpath(path, HERE),
+              "mutant": art["mutant"], "checker_property": prop, "horizon": horizon,
+              "launches": 2 * horizon, **verdicts})
+    emit({"phase": "trace_corpus_done", "artifacts": len(paths), "ticks_replayed": replayed,
+          "seconds": time.perf_counter() - t_e})
+    cells.append({"preset": "trace-corpus", "batch": 1, "launches": replayed,
+                  "kernel_vs_plain_ticks": 0})
+    shutil.rmtree(work, ignore_errors=True)
+    return cells
+
+
 def main() -> int:
     import collections
 
@@ -982,15 +1416,15 @@ def main() -> int:
     # leader's base, so the InstallSnapshot path runs (config6 itself sends no
     # sentinel at this size).
     cfg6 = PRESETS["config6"][0]
-    parity = [(name, PRESETS[name][0], 1 if name == "config1" else 200, 96)
+    parity = [(name, PRESETS[name][0], 1 if name == "config1" else 200, 64)
               for name in ("config1", "config2", "config3", "config4", "config5", "config3p")]
-    parity += [(f"{name}-ragged-b45", PRESETS[name][0], 45, 96) for name in ("config2", "config5")]
+    parity += [(f"{name}-ragged-b45", PRESETS[name][0], 45, 64) for name in ("config2", "config5")]
     cap8 = dataclasses.replace(cfg6, log_capacity=8, compact_margin=4, max_entries_per_rpc=2,
                                client_interval=2)
-    parity += [("config6", cfg6, 200, 160), ("config6r", PRESETS["config6r"][0], 200, 160),
-               ("config6-cap8", cap8, 200, 160),
-               ("config8", PRESETS["config8"][0], 200, 160), ("config9", PRESETS["config9"][0], 200, 160),
-               ("config10", PRESETS["config10"][0], 200, 160)]
+    parity += [("config6", cfg6, 200, 96), ("config6r", PRESETS["config6r"][0], 200, 96),
+               ("config6-cap8", cap8, 200, 96),
+               ("config8", PRESETS["config8"][0], 200, 160), ("config9", PRESETS["config9"][0], 200, 96),
+               ("config10", PRESETS["config10"][0], 200, 128)]
     # Slice 6: config4c, and clusters above 64 nodes -- config7 (N=101, width
     # tier 4), its mix dense at N=128 (int16 node ids) and at N=255 (width
     # tier 8) under partitions, and the full gate body at N=101.
@@ -1001,16 +1435,16 @@ def main() -> int:
         "config7-mix-n255-partitions": dataclasses.replace(cfg7, n_nodes=255, partition_period=32,
                                                            partition_prob=0.25),
     }
-    parity += [("config4c", PRESETS["config4c"][0], 200, 96), ("config7", cfg7, 200, 96),
-               ("config7-ragged-b45", cfg7, 45, 96)]
-    parity += [(f"{name}-b45", cfg, 45, 64) for name, cfg in wide.items()]
-    parity += [("n101-full-gates", n101_full_gates(), 200, 160)]
+    parity += [("config4c", PRESETS["config4c"][0], 200, 64), ("config7", cfg7, 200, 64),
+               ("config7-ragged-b45", cfg7, 45, 64)]
+    parity += [(f"{name}-b45", cfg, 45, 48) for name, cfg in wide.items()]
+    parity += [("n101-full-gates", n101_full_gates(), 200, 96)]
     # Slice 7: log matching on the compacting ring (K1-b).
     ring_lm = {
-        "config6-lm": (dataclasses.replace(cfg6, check_log_matching=True), 200, 200),
+        "config6-lm": (dataclasses.replace(cfg6, check_log_matching=True), 200, 160),
         # config9's CAP=64 ring first compacts near tick 300 at this batch.
         "config9-lm": (dataclasses.replace(PRESETS["config9"][0], check_log_matching=True), 200, 400),
-        "config6-cap8-lm": (dataclasses.replace(cap8, check_log_matching=True), 200, 200),
+        "config6-cap8-lm": (dataclasses.replace(cap8, check_log_matching=True), 200, 128),
         "config7-mix-n101-compaction-lm-b45": (
             dataclasses.replace(cfg7, compact_margin=4, check_log_matching=True), 45, 96),
     }
@@ -1085,12 +1519,12 @@ def main() -> int:
     emit({"phase": "race_proxy_build", "waited_s": time.perf_counter() - t0,
           "nvcc_seconds": tick_engine.PROXY_BUILD_INFO.get("seconds"),
           "library": os.path.relpath(proxy_path, HERE)})
-    proxy_rows = [("config1", PRESETS["config1"][0], 1, 64), ("config7", cfg7, 1, 64)]
-    proxy_rows += [(name, PRESETS[name][0], 45, 64)
+    proxy_rows = [("config1", PRESETS["config1"][0], 1, 32), ("config7", cfg7, 1, 32)]
+    proxy_rows += [(name, PRESETS[name][0], 45, 32)
                    for name in ("config2", "config5", "config3p", "config6", "config6r", "config8",
                                 "config9", "config10", "config4c", "config7")]
-    proxy_rows += [(name, cfg, 45, 64) for name, cfg in wide.items()]
-    proxy_rows += [("config6-cap8-lm", ring_lm["config6-cap8-lm"][0], 45, 64)]
+    proxy_rows += [(name, cfg, 45, 32) for name, cfg in wide.items()]
+    proxy_rows += [("config6-cap8-lm", ring_lm["config6-cap8-lm"][0], 45, 32)]
     for name, cfg, batch, ticks in proxy_rows:
         s = raft_batched.to_batch_minor(init_batch(cfg, threefry.key(SEED, dev), batch))
         keys = threefry.split(threefry.key(SEED + 1, dev), batch)
@@ -1100,9 +1534,9 @@ def main() -> int:
     emit({"phase": "phase_end", "name": "race_proxy", "seconds": time.perf_counter() - t_start})
 
     # ---- 3: card vs CPU --------------------------------------------------------
-    for name, batch, ticks in (("config2", 64, 100), ("config4", 64, 100), ("config6r", 64, 100),
-                               ("config3p", 64, 100), ("config8", 64, 100), ("config9", 64, 100),
-                               ("config10", 64, 100), ("config7", 16, 100)):
+    for name, batch, ticks in (("config2", 64, 32), ("config4", 64, 32), ("config6r", 64, 32),
+                               ("config3p", 64, 32), ("config8", 64, 32), ("config9", 64, 32),
+                               ("config10", 64, 32), ("config7", 16, 32)):
         cfg, _ = PRESETS[name]
         f_g, m_g = scan.simulate(cfg, SEED, batch, ticks, device=dev)
         f_c, m_c = scan.simulate(cfg, SEED, batch, ticks, device="cpu")
@@ -1115,14 +1549,14 @@ def main() -> int:
     # ---- 4: full width, the main path -----------------------------------------
     cells = []
     total_launches = 0
-    # 200 full-width ticks a cell, so the script keeps well inside its time
-    # limit with the long-horizon and serve phases beside them (the crash
-    # cells' input draws take 50-75 ms a tick); longer where a liveness check
+    # 128 full-width ticks a cell, so the script keeps well inside its time
+    # limit with the later phases beside them (the crash cells' input draws
+    # take 50-120 ms a tick, by the host); longer where a liveness check
     # needs the depth: config6/config6r's and config9's rings must wrap
-    # (300 and 400), and every config4c cluster must commit (400).
-    full_cells = (("config2", 200), ("config3", 200), ("config4", 200), ("config5", 200),
-                  ("config6", 300), ("config6r", 300), ("config3p", 200), ("config8", 200),
-                  ("config9", 400), ("config10", 200), ("config4c", 400), ("config7", 200))
+    # (256 and 352), and every config4c cluster must commit (320).
+    full_cells = (("config2", 128), ("config3", 128), ("config4", 128), ("config5", 128),
+                  ("config6", 256), ("config6r", 256), ("config3p", 128), ("config8", 128),
+                  ("config9", 352), ("config10", 128), ("config4c", 320), ("config7", 128))
     for name, ticks in full_cells:
         cfg, batch = PRESETS[name]
         torch.cuda.synchronize()
@@ -1216,6 +1650,12 @@ def main() -> int:
     cells.append(scen_cell)
     total_launches += scen_cell["launches"]
     emit({"phase": "phase_end", "name": "scenario", "seconds": time.perf_counter() - t_start})
+
+    # ---- 4e: the protocol trace plane --------------------------------------------
+    for cell in trace_phase(dev, wall_ms):
+        cells.append(cell)
+        total_launches += cell["launches"]
+    emit({"phase": "phase_end", "name": "trace", "seconds": time.perf_counter() - t_start})
 
     # ---- 5: the port's bench row, card vs CPU -----------------------------------
     cfg2 = PRESETS["config2"][0]

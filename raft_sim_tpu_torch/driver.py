@@ -23,14 +23,17 @@ what the apply log and the progress line ask for.
 flag per RaftConfig field (`add_config_flags`, `build_config`), --batch,
 --ticks, --seed, --chunk, --save, --resume (exclusive with every flag that
 sets the experiment), --apply-log, --apply-cluster, --telemetry-dir,
---telemetry-window, --telemetry-ring, --mutant (a TEST-ONLY weakened tick,
-scenario/mutation.py), --progress and --device.
+--telemetry-window, --telemetry-ring, the protocol trace plane (--trace,
+--trace-depth, --trace-freeze, --trace-trigger: `Session.attach_trace`;
+--trace-ticks, --trace-events, --trace-cluster: `Session.trace`), --mutant
+(a TEST-ONLY weakened tick, scenario/mutation.py), --progress and --device.
 `add_serve_arguments` / `serve` are the `serve` subcommand: the standing
 fleet of serve/loop.py fed from a JSONL command source.
 `add_scenario_arguments` / `scenario` are the `scenario` subcommands: `run`
 (a fleet under a JSON nemesis program, `run_scenario`; its checkpoints carry
 the program), `search` (the violation hunt, scenario/search.py) and
-`shrink` (a hit to a repro artifact, scenario/shrink.py).
+`shrink` (a hit to a repro artifact, scenario/shrink.py); `search` takes
+--fitness coverage, --proposal coverage-guided and --trace-depth.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ import torch
 
 from raft_sim_tpu_torch.models import raft_batched
 from raft_sim_tpu_torch.sim import chunked, scan, telemetry
+from raft_sim_tpu_torch.sim import trace as trace_view
 from raft_sim_tpu_torch.summary import summarize
 from raft_sim_tpu_torch.utils import checkpoint
 from raft_sim_tpu_torch.utils import device as device_mod
@@ -67,6 +71,9 @@ class Session:
         self.telemetry = None  # TelemetrySink (attach_telemetry)
         self._tel_rec = None  # the flight recorder's carry (batch-minor)
         self._deltas = None  # serve.deltas.DeltaStream: offer()'s ack watcher
+        self._trace_spec = None  # trace.TraceSpec (attach_trace)
+        self._trace_persist = None  # the trace plane's cross-chunk carry (batch-minor)
+        self._trace_trigger = None  # the flight recorder's event-kind trigger
         self.reset()
 
     def reset(self) -> None:
@@ -83,6 +90,11 @@ class Session:
         if self.telemetry is not None:
             self.attach_telemetry(self.telemetry.directory, window=self.telemetry.window,
                                   ring=self.telemetry.ring)
+        # The re-attach truncated the trace files: re-arming rewrites the meta
+        # and starts the cross-window carry over.
+        self._trace_persist = None
+        if self._trace_spec is not None and self.telemetry is not None:
+            self.telemetry.write_trace_meta(self._trace_spec)
 
     def attach_apply_log(self, directory: str, cluster: int = 0) -> None:
         """Stream cluster `cluster`'s committed values to
@@ -112,10 +124,43 @@ class Session:
         self._tel_rec = (telemetry.init_recorder(self.cfg, ring, self.batch, self.device)
                          if ring else None)
 
+    def attach_trace(self, depth: int = 128, freeze: str | None = None,
+                     trigger: str | None = None, coverage: bool = True) -> None:
+        """Arm the protocol trace plane (raft_sim_tpu_torch/trace; needs
+        cfg.track_trace and an attached telemetry sink): run() extracts each
+        cluster's protocol events and streams them per window as trace.jsonl
+        and trace_windows.jsonl, for the whole-history checker (`python -m
+        raft_sim_tpu_torch.trace.checker DIR`). `freeze` (an event-kind name,
+        trace.KINDS) stops a cluster's recording after that kind's first
+        event; `trigger` freezes the flight recorder on that kind's first
+        event instead of the first violation."""
+        from raft_sim_tpu_torch.trace import KINDS, TraceSpec
+
+        if not self.cfg.track_trace:
+            raise ValueError("attach_trace needs cfg.track_trace=True (the trace plane is a "
+                             "structural config gate)")
+        if self.telemetry is None:
+            raise RuntimeError("attach_trace needs an attached telemetry sink "
+                               "(attach_telemetry): trace windows stream through it")
+
+        def kind_code(name, what):
+            if name is None:
+                return None
+            if name not in KINDS:
+                raise ValueError(f"unknown {what} event kind {name!r} (have {sorted(KINDS)})")
+            return KINDS[name]
+
+        self._trace_spec = TraceSpec(depth=depth, coverage=coverage,
+                                     freeze_kind=kind_code(freeze, "freeze") or 0)
+        self._trace_trigger = kind_code(trigger, "trigger")
+        self._trace_persist = None
+        self.telemetry.write_trace_meta(self._trace_spec)
+
     def run(self, n_ticks: int, chunk: int = 4096, progress: bool = False) -> None:
         """Step the fleet `n_ticks` in chunks of `chunk` ticks through the
         tick kernel (the plain tick on the CPU), folding the metrics; with a
-        telemetry sink attached, each chunk's windows stream to it."""
+        telemetry sink attached, each chunk's windows stream to it, and with
+        a trace armed its trace windows too."""
 
         def after_chunk(done, state, metrics):
             if self.apply_writer is not None:
@@ -130,9 +175,15 @@ class Session:
                 self.telemetry.append_windows(records)
                 return after_chunk(done, state, metrics)
 
-            self.state, m, self._tel_rec = telemetry.run_chunked_telemetry(
+            out = telemetry.run_chunked_telemetry(
                 self.cfg, self.state, self.keys, n_ticks, window=self.telemetry.window,
-                recorder=self._tel_rec, chunk=chunk, callback=cb_t, now=self.now)
+                recorder=self._tel_rec, chunk=chunk, callback=cb_t, now=self.now,
+                trace_spec=self._trace_spec, trace_persist=self._trace_persist,
+                trigger_kind=self._trace_trigger,
+                trace_callback=lambda done, traws: self.telemetry.append_trace(traws))
+            self.state, m, self._tel_rec = out[:3]
+            if self._trace_spec is not None:
+                self._trace_persist = out[3]
         else:
             self.state, m = chunked.run_chunked(
                 self.cfg, self.state, self.keys, n_ticks, chunk=chunk, callback=after_chunk,
@@ -164,6 +215,15 @@ class Session:
         summary = self.summary()
         summary["flights_frozen"] = frozen_total
         summary["flights_exported"] = len(flights)
+        if self._trace_persist is not None:
+            from raft_sim_tpu_torch.trace.ring import cov_popcount
+
+            tp = self._trace_persist
+            summary["trace"] = {
+                "events_emitted": int(tp.total.to(torch.int64).sum()),
+                "frozen_clusters": int(tp.frozen.sum()),
+                "cov_bits_max": int(cov_popcount(tp.cov).max()),
+            }
         path = self.telemetry.write_summary(summary)
         return {"flights": flights, "flights_frozen": frozen_total,
                 "flights_exported": len(flights), "summary": path}
@@ -191,7 +251,13 @@ class Session:
         apply stream, serve/deltas.py) delivered the pair (value, offer
         tick + 1) after the offer. Any int32 but NIL/NOOP is a legal value.
         With the offer-tick plane off (no client cadence, no serve_ingest)
-        the match is by value alone."""
+        the match is by value alone. Refused while a trace is armed: the
+        offer's ticks run outside the windowed loop, so their events would be
+        missing from the trace stream, a hole the checker could not see."""
+        if self._trace_spec is not None:
+            raise RuntimeError("Session.offer() ticks are not covered by the armed trace "
+                               "stream; detach the trace, or ingest via run()'s scheduled "
+                               "cadence / the serve loop instead")
         from raft_sim_tpu_torch.serve.deltas import DeltaStream
         from raft_sim_tpu_torch.serve.ingest import check_value
 
@@ -227,7 +293,12 @@ class Session:
         advance a tick; then step up to `wait` more ticks while reads are
         unserved. Returns {"captured", "served", "waited"}: `captured` counts
         clusters whose leader took the read on the offer tick, `served` the
-        reads served since (the reads_served counter). Needs cfg.read_index."""
+        reads served since (the reads_served counter). Needs cfg.read_index;
+        refused while a trace is armed, as offer() is."""
+        if self._trace_spec is not None:
+            raise RuntimeError("Session.offer_read() ticks are not covered by the armed trace "
+                               "stream; detach the trace, or ingest reads via the scheduled "
+                               "cadence / the serve loop instead")
         if not self.cfg.read_index:
             raise ValueError(
                 "offer_read needs the ReadIndex plane: set read_interval > 0 or serve_reads=True")
@@ -248,6 +319,20 @@ class Session:
             waited += 1
             served = served_now()
         return {"captured": captured, "served": served, "waited": waited}
+
+    def trace(self, n_ticks: int, cluster: int = 0):
+        """Step one cluster `n_ticks` from the session's state with every
+        tick's StepInfo and state kept (heavy; for debugging), without
+        advancing the session: a B=1 view over `scan.run_traced`, so on the
+        card each tick is one launch of the kernel. Returns (stacked StepInfo,
+        stacked states), each leaf leading with [n_ticks]."""
+        if not 0 <= cluster < self.batch:
+            raise IndexError(f"cluster {cluster} out of range for batch {self.batch}")
+        one = lambda x: x[cluster:cluster + 1].contiguous()  # noqa: E731
+        _, _, (infos, states) = scan.run_traced(
+            self.cfg, raft_batched._map(one, self.state), one(self.keys), n_ticks)
+        first = lambda tree: raft_batched._map(lambda x: x[0], tree)  # noqa: E731
+        return first(infos), first(states)
 
     def summary(self) -> dict:
         """The fleet rollup (summary.summarize) as a dict."""
@@ -278,6 +363,9 @@ class Session:
         self.telemetry = None
         self._tel_rec = None
         self._deltas = None
+        self._trace_spec = None
+        self._trace_persist = None
+        self._trace_trigger = None
         self.state = state
         self.keys = keys
         self.metrics = metrics
@@ -337,6 +425,25 @@ def add_run_arguments(p: argparse.ArgumentParser) -> None:
     p.add_argument("--telemetry-ring", type=int, default=32, metavar="K",
                    help="flight-recorder depth: the last K ticks of StepInfo per cluster, "
                         "frozen at the first violation (0 disables; default 32)")
+    p.add_argument("--trace", action="store_true",
+                   help="protocol trace plane (needs --telemetry-dir): stream each cluster's "
+                        "protocol events as trace.jsonl for the whole-history checker "
+                        "(python -m raft_sim_tpu_torch.trace.checker DIR); sets "
+                        "cfg.track_trace, the trajectory is the untraced one")
+    p.add_argument("--trace-depth", type=int, default=128, metavar="R",
+                   help="events kept per cluster per telemetry window (overflow is counted "
+                        "and the checker then reports the history incomplete; default 128)")
+    p.add_argument("--trace-freeze", metavar="KIND", default=None,
+                   help="stop a cluster's trace recording after its first event of KIND "
+                        "(e.g. 'leader'); the checker reports such a stream undecided")
+    p.add_argument("--trace-trigger", metavar="KIND", default=None,
+                   help="freeze the flight recorder on the first event of KIND instead of "
+                        "the first violation (implies cfg.track_trace)")
+    p.add_argument("--trace-ticks", type=int, default=0,
+                   help="print per-tick info lines for one cluster (does not run the session)")
+    p.add_argument("--trace-events", action="store_true",
+                   help="print decoded state-change events for one cluster")
+    p.add_argument("--trace-cluster", type=int, default=0)
     p.add_argument("--mutant", default=None, metavar="NAME",
                    help="TEST-ONLY: run a deliberately weakened tick (scenario/mutation.py "
                         "registry, e.g. 'weak-quorum')")
@@ -360,7 +467,9 @@ def _mutant(ap: argparse.ArgumentParser, name: str | None, cfg: RaftConfig) -> R
 def run(ap: argparse.ArgumentParser, args) -> int:
     """The `run` subcommand: build or restore a Session, run it, print the
     fleet summary with the wall time and the device as one JSON line, and
-    save a checkpoint if asked."""
+    save a checkpoint if asked. --trace-ticks / --trace-events print one
+    cluster's trajectory instead of running the session."""
+    traced = args.trace or args.trace_trigger or args.trace_freeze
     if args.resume:
         # A checkpoint IS the experiment: rerunning it under other flags
         # would mislabel the results.
@@ -369,14 +478,38 @@ def run(ap: argparse.ArgumentParser, args) -> int:
         ]
         conflicting += [flag for flag in ("preset", "batch", "seed", "mutant")
                         if getattr(args, flag) is not None]
+        if traced:
+            conflicting.append("trace")  # track_trace is part of the config
         if conflicting:
             ap.error(f"--resume is exclusive with config flags: {', '.join(conflicting)}")
         sess = Session.restore(args.resume, device=args.device)
     else:
         cfg, batch = build_config(args)
         cfg = _mutant(ap, args.mutant, cfg)
+        if traced:
+            # --trace-trigger / --trace-freeze imply the trace plane: both
+            # read the extracted event stream.
+            if not args.telemetry_dir:
+                ap.error("--trace/--trace-trigger/--trace-freeze need --telemetry-dir (trace "
+                         "windows stream through the telemetry sink)")
+            cfg = dataclasses.replace(cfg, track_trace=True)
         sess = Session(cfg, batch=batch, seed=args.seed if args.seed is not None else 0,
                        device=args.device)
+    if args.trace_ticks or args.trace_events:
+        if args.save or args.apply_log or args.telemetry_dir:
+            ap.error("--save/--apply-log/--telemetry-dir have no effect with --trace-ticks/"
+                     "--trace-events (tracing does not advance the session)")
+        try:
+            infos, states = sess.trace(args.trace_ticks or args.ticks, cluster=args.trace_cluster)
+        except IndexError as ex:
+            ap.error(str(ex))
+        if args.trace_events:
+            for t, ev in trace_view.events(states):
+                print(f"tick {t:>6}  {ev}")
+        else:
+            for line in trace_view.info_lines(infos):
+                print(line)
+        return 0
     if args.apply_log:
         try:
             sess.attach_apply_log(args.apply_log, cluster=args.apply_cluster)
@@ -388,6 +521,12 @@ def run(ap: argparse.ArgumentParser, args) -> int:
                                   ring=args.telemetry_ring)
         except ValueError as ex:
             ap.error(str(ex))
+        if traced:
+            try:
+                sess.attach_trace(depth=args.trace_depth, freeze=args.trace_freeze,
+                                  trigger=args.trace_trigger)
+            except ValueError as ex:
+                ap.error(str(ex))
     t0 = time.perf_counter()
     sess.run(args.ticks, chunk=args.chunk, progress=args.progress)
     out = sess.summary()  # copies to the host: waits for the device
@@ -598,9 +737,15 @@ def add_scenario_arguments(sc: argparse.ArgumentParser) -> dict:
     ssearch.add_argument("--window", type=int, default=64,
                          help="telemetry window (fitness resolution)")
     ssearch.add_argument("--elite-frac", type=float, default=0.25)
-    # Coverage fitness and guided proposals need the trace plane (not ported).
-    ssearch.add_argument("--fitness", choices=("scalar",), default="scalar")
-    ssearch.add_argument("--proposal", choices=("gaussian",), default="gaussian")
+    ssearch.add_argument("--fitness", choices=("scalar", "coverage"), default="scalar",
+                         help="'scalar': the distress weights; 'coverage': transition-coverage "
+                              "novelty from the protocol trace plane (violations stay dominant)")
+    ssearch.add_argument("--trace-depth", type=int, default=32, metavar="R",
+                         help="coverage mode's per-window event-buffer depth (default 32)")
+    ssearch.add_argument("--proposal", choices=("gaussian", "coverage-guided"),
+                         default="gaussian",
+                         help="'gaussian': CE draws; 'coverage-guided': mutate the previous "
+                              "generation's novelty-lit parents (needs --fitness coverage)")
     ssearch.add_argument("--seed", type=int, default=None)
     ssearch.add_argument("--out", metavar="FILE", default=None,
                          help="write the first violating hit (feeds `scenario shrink --hit`)")
@@ -688,7 +833,7 @@ def _scenario_search(ap: argparse.ArgumentParser, args) -> int:
         generations=args.generations, population=args.population, ticks=args.ticks,
         window=args.window, elite_frac=args.elite_frac,
         seed=args.seed if args.seed is not None else 0, fitness=args.fitness,
-        proposal=args.proposal,
+        proposal=args.proposal, trace_depth=args.trace_depth,
     )
     try:
         res = search_mod.search(cfg, spec, device=args.device)

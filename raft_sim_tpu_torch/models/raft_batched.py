@@ -29,8 +29,10 @@ entry of phase 6, `truncation_rollback` at the end-of-tick configuration,
 `read_confirm` in ReadIndex serving and capture, `xfer_election` in
 TimeoutNow receipt and fire, `lease_skew_safe` in the lease window,
 `durable_acks` in the durability gate and `persist_vote` in crash recovery
-(storage/plane.py). The compacted layout and trace tracking raise
-NotImplementedError naming the gate (`unsupported_gates`). Under compaction
+(storage/plane.py). `track_trace` changes nothing in the tick: the trace
+plane reads its state delta outside it (trace/events.py). The compacted
+layout raises NotImplementedError naming the gate (`unsupported_gates`).
+Under compaction
 log matching takes the JAX ring form (comparable pairs, checksums at the
 larger base) and counts the pairs it cannot compare (`lm_skipped_pairs`).
 Gated-off legs pass through untouched; gated-off StepInfo leaves are zeros
@@ -71,11 +73,7 @@ BIG = 2**31 - 1
 
 def unsupported_gates(cfg: RaftConfig) -> list[str]:
     """Structural gates of `cfg` the port's tick does not take yet."""
-    checks = [
-        ("compact_planes", cfg.compact_planes),
-        ("track_trace", cfg.track_trace),
-    ]
-    return [name for name, on in checks if on]
+    return ["compact_planes"] if cfg.compact_planes else []
 
 
 def lease_window(cfg: RaftConfig) -> int:

@@ -116,3 +116,18 @@ def set_bit(plane: torch.Tensor, row, col, value: bool = True) -> torch.Tensor:
 def get_bit(plane: torch.Tensor, row, col) -> torch.Tensor:
     """Test bit `col` of `plane[row]` on a [N, W] packed plane -> bool."""
     return ((u32(plane[row, col // WORD]) >> (col % WORD)) & 1) != 0
+
+
+def np_popcount_u32(arr):
+    """Host-side per-word popcount of a numpy array of uint32 words (int32
+    bit patterns are taken as their uint32 view): the numpy counterpart of
+    `popcount` for exported planes (the sink's coverage rollup, the coverage
+    search)."""
+    import numpy as np
+
+    a = np.ascontiguousarray(arr)
+    if a.dtype == np.int32:
+        a = a.view(np.uint32)
+    a = a.astype(np.uint32, copy=False)
+    bytes_ = a.view(np.uint8).reshape(a.shape + (4,))
+    return np.unpackbits(bytes_, axis=-1).sum(axis=-1, dtype=np.int64)

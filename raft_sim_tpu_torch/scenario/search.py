@@ -1,6 +1,5 @@
 """Violation-hunting search: a cross-entropy loop where the fleet is the
-population (the port of raft_sim_tpu/scenario/search.py, scalar fitness and
-gaussian proposals).
+population (the port of raft_sim_tpu/scenario/search.py).
 
 One generation is one fleet run: the population of candidate fault genomes
 becomes the `[B, 1]` genome of a heterogeneous fleet
@@ -16,8 +15,15 @@ generation g runs under seed `spec.seed + SEED_STRIDE * g`, the population
 comes from `np.random.default_rng(spec.seed)`, and a hit is described by
 (genome row, seed, batch, cluster, horizon) -- what shrink.py minimizes.
 The same spec gives the same generation log, hit and `genome_raw` as the
-JAX `search`. Coverage fitness and coverage-guided proposals need the
-protocol trace plane (ROADMAP item 14) and raise; so does `perf` (item 18).
+JAX `search`.
+
+`fitness="coverage"` scores each cluster by the transition-coverage bits
+(trace/ring.py) it sets that no earlier generation of the hunt set, with
+violations still dominant; it runs the config's trace variant
+(track_trace) through `telemetry.simulate_windowed(trace=...)`.
+`proposal="coverage-guided"` (coverage fitness only) draws part of each
+generation as small mutations of the previous generation's novelty-lit
+genomes. `perf` (ROADMAP item 18) raises.
 """
 
 from __future__ import annotations
@@ -95,10 +101,10 @@ class SearchSpec:
     seed: int = 0
     init_sigma: float = 0.35
     min_sigma: float = 0.05
-    fitness: str = "scalar"  # "coverage" needs the trace plane (item 14)
-    trace_depth: int = 32
-    proposal: str = "gaussian"  # "coverage-guided" needs the trace plane
-    guided_frac: float = 0.5
+    fitness: str = "scalar"  # or "coverage": transition-coverage novelty
+    trace_depth: int = 32  # the coverage run's event-buffer depth
+    proposal: str = "gaussian"  # or "coverage-guided" (needs fitness="coverage")
+    guided_frac: float = 0.5  # share of a guided generation cloned from lit parents
     smoothing: float = 0.6  # CE smoothing toward the elite statistics
     carry_best: bool = True  # re-inject the best-so-far vector into slot 0
     stop_on_hit: bool = True
@@ -186,10 +192,71 @@ def fitness_from_records(records, metrics) -> np.ndarray:
     )
 
 
+def _popcount_words(words: np.ndarray) -> np.ndarray:
+    """Set bits along the leading word axis ([C, B] -> [B])."""
+    from raft_sim_tpu_torch.ops.bitplane import np_popcount_u32
+
+    return np_popcount_u32(words).sum(axis=0)
+
+
+def _u32(cov) -> np.ndarray:
+    """Coverage words as uint32 (the port carries them as int32 patterns)."""
+    a = np.asarray(cov)
+    return a.view(np.uint32) if a.dtype == np.int32 else a.astype(np.uint32)
+
+
+def coverage_novelty(cov: np.ndarray, seen: np.ndarray) -> np.ndarray:
+    """[B] bits each cluster's [C, B] coverage sets beyond the [C] seen-bit
+    union as handed in (every cluster of a generation against the same
+    baseline); the caller unions `cov` in afterwards (`seen_union`)."""
+    return _popcount_words(_u32(cov) & ~seen[:, None])
+
+
+def seen_union(cov: np.ndarray, seen: np.ndarray) -> np.ndarray:
+    """The updated [C] seen-bit union after a [C, B] generation bitmap."""
+    return seen | np.bitwise_or.reduce(_u32(cov), axis=1)
+
+
+def coverage_fitness(cov: np.ndarray, seen: np.ndarray, violations):
+    """([B] fitness, updated seen): novelty against the union seen before this
+    generation, with violations lexicographically dominant."""
+    fit = W_VIOLATION * np.asarray(violations, np.float64) + coverage_novelty(cov, seen)
+    return fit, seen_union(cov, seen)
+
+
 def propose_gaussian(rng, mu: np.ndarray, sigma: np.ndarray, n: int) -> np.ndarray:
     """The classic CE proposal: n knob vectors ~ N(mu, sigma), clipped to the
     normalized cube."""
     return np.clip(rng.normal(mu, sigma, size=(n, mu.shape[0])), 0.0, 1.0)
+
+
+def _parent_entropy(seed: int, x: np.ndarray) -> list[int]:
+    """rng entropy for one parent genome: the base seed plus its knob vector
+    on the uint32 grid, so a mutation stream depends on (genome, seed) only."""
+    return [int(seed) & 0xFFFFFFFF] + [
+        int(v) for v in (np.clip(x, 0.0, 1.0) * 0xFFFFFFFF).astype(np.uint64)
+    ]
+
+
+def propose_coverage_guided(rng, mu: np.ndarray, sigma: np.ndarray, n: int,
+                            parents: np.ndarray | None, parent_novelty: np.ndarray | None,
+                            seed: int, frac: float = 0.5, mut_scale: float = 0.25) -> np.ndarray:
+    """Coverage-guided mutation: up to `frac` of the n proposals (the last
+    ones) are clones of the previous generation's novelty-lit parents,
+    richest first, perturbed by `mut_scale` x sigma from each parent's own
+    stream (`_parent_entropy`); the rest are gaussian draws. With no lit
+    parent this is the gaussian proposal."""
+    if parents is None or parent_novelty is None or not np.any(parent_novelty > 0):
+        return propose_gaussian(rng, mu, sigma, n)
+    lit = np.flatnonzero(parent_novelty > 0)
+    lit = lit[np.argsort(-parent_novelty[lit], kind="stable")]
+    n_guided = min(int(round(frac * n)), n)
+    xs = propose_gaussian(rng, mu, sigma, n)
+    for j in range(n_guided):
+        p = parents[lit[j % lit.size]]
+        crng = np.random.default_rng(_parent_entropy(seed, p) + [j])
+        xs[n - 1 - j] = np.clip(p + crng.normal(0.0, sigma * mut_scale), 0.0, 1.0)
+    return xs
 
 
 @dataclasses.dataclass
@@ -211,7 +278,10 @@ def search(cfg: RaftConfig, spec: SearchSpec | None = None, perf=None,
     a weakened tick) on `device`. Returns the generation log and, if a
     cluster tripped an invariant, the replayable hit. `on_generation(gen,
     genome, seed)`, if given, sees each generation's [B, 1] population
-    genome and fleet seed after its run."""
+    genome and fleet seed after its run. In coverage mode each generation's
+    row also carries `cov_new_bits` and `cov_total_bits`; a guided
+    generation draws its clones when the generation before it lit a new
+    bit (its `cov_new_bits` > 0)."""
     spec = spec or SearchSpec()
     knobs = spec.knobs or default_knobs(cfg)
     if spec.ticks % spec.window:
@@ -221,14 +291,20 @@ def search(cfg: RaftConfig, spec: SearchSpec | None = None, perf=None,
     if spec.proposal not in ("gaussian", "coverage-guided"):
         raise ValueError(f"unknown proposal mode {spec.proposal!r} "
                          "(have: gaussian, coverage-guided)")
-    if spec.fitness == "coverage" or spec.proposal == "coverage-guided":
-        raise NotImplementedError(
-            "search: coverage fitness and coverage-guided proposals need the protocol "
-            "trace plane, which is not ported yet (ROADMAP item 14)")
+    if spec.proposal == "coverage-guided" and spec.fitness != "coverage":
+        raise ValueError("proposal='coverage-guided' needs fitness='coverage': guided mutation "
+                         "selects parents by the novelty bits only the coverage bitmap provides")
     if perf is not None:
         raise NotImplementedError(
             "search: perf attribution is not ported yet (ROADMAP item 18)")
     dev = device_mod.resolve(device)
+    trace_spec = seen = None
+    if spec.fitness == "coverage":
+        from raft_sim_tpu_torch.trace.ring import COV_WORDS, TraceSpec
+
+        cfg = dataclasses.replace(cfg, track_trace=True)
+        trace_spec = TraceSpec(depth=spec.trace_depth, coverage=True)
+        seen = np.zeros(COV_WORDS, np.uint32)
     rng = np.random.default_rng(spec.seed)
     dim = len(knobs)
     mu = np.full(dim, 0.5)
@@ -237,21 +313,38 @@ def search(cfg: RaftConfig, spec: SearchSpec | None = None, perf=None,
     gens: list[dict] = []
     hit: dict | None = None
     best_x, best_fit = None, -np.inf
+    prev_xs = prev_novelty = None  # the coverage-guided parent pool
 
     for gen in range(spec.generations):
-        xs = propose_gaussian(rng, mu, sigma, spec.population)
+        if spec.proposal == "coverage-guided":
+            xs = propose_coverage_guided(rng, mu, sigma, spec.population, prev_xs, prev_novelty,
+                                         spec.seed, frac=spec.guided_frac)
+        else:
+            xs = propose_gaussian(rng, mu, sigma, spec.population)
         if spec.carry_best and best_x is not None:
             xs[0] = best_x
         g, segs = _population_genome(cfg, knobs, xs)  # [B, 1] leaves
         genome_mod.validate(cfg, g)
         sim_seed = spec.seed + SEED_STRIDE * gen
-        _, metrics, records, _ = telemetry.simulate_windowed(
+        out = telemetry.simulate_windowed(
             cfg, sim_seed, spec.population, spec.ticks, spec.window, genome=g, device=dev,
+            trace=trace_spec,
         )
-        metrics, records = device_mod.host_numpy(*device_mod.to_host_async([metrics, records]))
+        fetched = [out[1], out[2]] + ([out[5].cov] if trace_spec is not None else [])
+        metrics, records, *tp_cov = device_mod.host_numpy(*device_mod.to_host_async(fetched))
+        del out
         if on_generation is not None:
             on_generation(gen, g, sim_seed)
-        fit = fitness_from_records(records, metrics)
+        if trace_spec is None:
+            fit = fitness_from_records(records, metrics)
+            cov_new = None
+        else:
+            before = int(_popcount_words(seen[:, None])[0])
+            novelty = coverage_novelty(tp_cov[0], seen)
+            fit = W_VIOLATION * np.asarray(metrics.violations, np.float64) + novelty
+            seen = seen_union(tp_cov[0], seen)
+            cov_new = int(_popcount_words(seen[:, None])[0]) - before
+            prev_xs, prev_novelty = xs, novelty
         order = np.argsort(-fit)
         elites = xs[order[:n_elite]]
         a = spec.smoothing
@@ -261,14 +354,18 @@ def search(cfg: RaftConfig, spec: SearchSpec | None = None, perf=None,
             best_fit, best_x = float(fit[order[0]]), xs[order[0]].copy()
         violating = np.flatnonzero(np.asarray(metrics.violations) > 0)
         best = int(order[0])
-        gens.append({
+        row = {
             "gen": gen,
             "seed": int(sim_seed),
             "best_fitness": float(fit[best]),
             "mean_fitness": float(fit.mean()),
             "violating_clusters": int(violating.size),
             "best_genome": genome_mod.decode(genome_mod.from_segments([segs[best]]))[0],
-        })
+        }
+        if cov_new is not None:
+            row["cov_new_bits"] = cov_new
+            row["cov_total_bits"] = int(_popcount_words(seen[:, None])[0])
+        gens.append(row)
         if violating.size and hit is None:
             c = int(violating[0])
             fv = np.asarray(records.first_viol_tick)[c]

@@ -26,6 +26,11 @@ draws. It draws every mechanism from the same key streams as the scalar path,
 even those the scalar path gates off, so a homogeneous genome built from a
 config (`genome.from_config`) reproduces the scalar path bit for bit.
 Thresholds ride int64 tensors holding the uint32 values, the draws' own form.
+
+`make_inputs(..., facts=True)` (and `draw_span`'s) also returns the fault
+facts the trace plane needs and the inputs do not carry (`trace_fault_inputs`):
+the crash edge and the partition's cut-edge counts at now and now - 1, from
+the liveness and cut draws the inputs make.
 """
 
 from __future__ import annotations
@@ -203,17 +208,20 @@ def _cadence(interval: torch.Tensor, now) -> torch.Tensor:
 def _genome_inputs(cfg: RaftConfig, keys, k_part, tkey, k_drop, k_skew, now, g):
     """The scenario path's per-cluster draws (`g`: the genome's [B] leaves at
     `now`, an int or a [B] tensor): (deliver, skew, client_cmd, alive,
-    restarted, reconfig_cmd, transfer_cmd, read_cmd, fsync_fire, torn_drop)."""
+    restarted, reconfig_cmd, transfer_cmd, read_cmd, fsync_fire, torn_drop),
+    then the liveness at now - 1 and the partition's cut edges, which the
+    trace plane's fault facts reuse."""
     n = cfg.n_nodes
     nil = torch.full(g.drop.shape, NIL, dtype=torch.int32, device=keys.device)
-    deliver = ~bern_u32(k_drop, g.drop[:, None, None], (n, n))
-    deliver = deliver & ~_partition_cut(n, k_part, now, g.part_period, g.part)
+    cut = _partition_cut(n, k_part, now, g.part_period, g.part)
+    deliver = ~bern_u32(k_drop, g.drop[:, None, None], (n, n)) & ~cut
     skew = _skew_draw(n, k_skew, g.skew[:, None])
     client_cmd = torch.where(_cadence(g.client_interval, now), now + 1, nil)
     ckey = crash_key(keys)
     alive = _alive_at_t(cfg, ckey, now, g.crash, g.crash_down)
     # The restart edge reads both ticks under the segment active at `now`.
-    restarted = alive & ~_alive_at_t(cfg, ckey, now - 1, g.crash, g.crash_down)
+    alive_prev = _alive_at_t(cfg, ckey, now - 1, g.crash, g.crash_down)
+    restarted = alive & ~alive_prev
     k_rcfg, k_xfer = threefry.split(threefry.fold_in(tkey, 5), 2).unbind(dim=-2)
     reconfig_cmd = torch.where(_cadence(g.reconfig_interval, now) & (now > 0),
                                threefry.randint(k_rcfg, (), 0, n), nil)
@@ -227,33 +235,66 @@ def _genome_inputs(cfg: RaftConfig, keys, k_part, tkey, k_drop, k_skew, now, g):
     extra = threefry.randint(k_span, (n,), 1, g.torn_span[:, None] + 1)
     torn_drop = torch.where(torn, extra, 0).to(torch.int32)
     return (deliver, skew, client_cmd, alive, restarted, reconfig_cmd, transfer_cmd, read_cmd,
-            fsync_fire, torn_drop)
+            fsync_fire, torn_drop), (alive_prev, cut)
+
+
+def _count_cut(cut: torch.Tensor, now) -> torch.Tensor:
+    """[B] int32 edges of a [B, N, N] cut plane at tick `now` (an int or a [B]
+    tensor), 0 before tick 0: window -1's layout is no partition onset."""
+    count = cut.sum(dim=(-2, -1), dtype=torch.int32)
+    if isinstance(now, torch.Tensor):
+        return torch.where(now >= 0, count, 0)
+    return count if now >= 0 else torch.zeros_like(count)
+
+
+def _cut_count(n: int, k_part: torch.Tensor, now, period, part_t) -> torch.Tensor:
+    """[B] int32 edges cut by the rolling partition at tick `now`."""
+    return _count_cut(_partition_cut(n, k_part, now, period, part_t), now)
+
+
+def trace_fault_inputs(cfg: RaftConfig, keys: torch.Tensor, now, genome=None,
+                       seg_len: int = 1):
+    """(crashed [B, N] bool, cut_now [B] int32, cut_prev [B] int32): the fault
+    facts event extraction (trace/events.py) needs that StepInputs does not
+    carry -- the crash edge (down now, up the tick before) and the partition's
+    cut-edge counts at `now` and `now - 1` -- from the same key streams and
+    draws as `make_inputs` (`make_inputs(..., facts=True)` returns both). On
+    the genome path both ticks read the segment active at `now`."""
+    return make_inputs(cfg, keys, now, genome=genome, seg_len=seg_len, facts=True)[1]
 
 
 def draw_span(cfg: RaftConfig, keys: torch.Tensor, t0: int, n_ticks: int, genome,
-              seg_len: int = 1) -> StepInputs:
+              seg_len: int = 1, facts: bool = False):
     """The scenario-path inputs of ticks t0 .. t0 + n_ticks - 1 for the
     clusters keyed by `keys` ([B, 2]) under `genome` ([B, S]), drawn in one
     call with a row per (tick, cluster): each leaf [n_ticks, B, ...], row t
     equal to `make_inputs(cfg, keys, t0 + t, genome, seg_len)`. A replay of a
     few clusters is launch-bound per call, so a span of ticks costs about
-    what one tick does."""
+    what one tick does. With `facts`, returns (inputs, fault facts), the facts
+    `trace_fault_inputs`'s drawn the same way."""
     b = keys.shape[0]
     now = torch.arange(t0, t0 + n_ticks, dtype=torch.int32, device=keys.device)
     rows = lambda x: x.repeat((n_ticks,) + (1,) * (x.dim() - 1))  # noqa: E731
-    inp = make_inputs(cfg, rows(keys), now.repeat_interleave(b), genome=type(genome)(
-        *(rows(leaf) for leaf in genome)), seg_len=seg_len)
-    return StepInputs(*(x.reshape((n_ticks, b) + tuple(x.shape[1:])) for x in inp))
+    out = make_inputs(cfg, rows(keys), now.repeat_interleave(b),
+                      genome=type(genome)(*(rows(leaf) for leaf in genome)), seg_len=seg_len,
+                      facts=facts)
+    split = lambda x: x.reshape((n_ticks, b) + tuple(x.shape[1:]))  # noqa: E731
+    if not facts:
+        return StepInputs(*(split(x) for x in out))
+    return StepInputs(*(split(x) for x in out[0])), tuple(split(x) for x in out[1])
 
 
 def make_inputs(cfg: RaftConfig, keys: torch.Tensor, now: int, genome=None,
-                seg_len: int = 1) -> StepInputs:
+                seg_len: int = 1, facts: bool = False):
     """Inputs at tick `now` for the clusters keyed by `keys` ([B, 2]), batch-
     leading ([B, ...]) like `jax.vmap(make_inputs)`. All clusters run in
     lockstep, so `now` is one host int. `genome` (a ScenarioGenome with
     [B, S] leaves on the keys' device) switches to the scenario path, each
     segment `seg_len` ticks long; there `now` may also be a [B] int32 tensor
-    of per-row ticks (`draw_span`: many ticks of one fleet in one call)."""
+    of per-row ticks (`draw_span`: many ticks of one fleet in one call).
+    With `facts`, returns (StepInputs, fault facts): `trace_fault_inputs`'s
+    (crashed, cut_now, cut_prev), from the liveness and cut draws the inputs
+    already make (the JAX program shares them the same way)."""
     gates = unsupported_input_gates(cfg)
     if gates:
         raise NotImplementedError(
@@ -275,16 +316,21 @@ def make_inputs(cfg: RaftConfig, keys: torch.Tensor, now: int, genome=None,
     if genome is None and isinstance(now, torch.Tensor):
         raise TypeError("make_inputs: per-row ticks are taken on the scenario path only")
     if genome is not None:
-        (deliver, skew, client_cmd, alive, restarted, reconfig_cmd, transfer_cmd, read_cmd,
-         fsync_fire, torn_drop) = _genome_inputs(
-            cfg, keys, k_part, tkey, k_drop, k_skew, now, genome_at(genome, now, seg_len))
-        return StepInputs(
+        g = genome_at(genome, now, seg_len)
+        ((deliver, skew, client_cmd, alive, restarted, reconfig_cmd, transfer_cmd, read_cmd,
+          fsync_fire, torn_drop), (alive_prev, cut)) = _genome_inputs(
+            cfg, keys, k_part, tkey, k_drop, k_skew, now, g)
+        inp = StepInputs(
             deliver_mask=bitplane.pack(deliver, axis=2), skew=skew, timeout_draw=timeout_draw,
             client_cmd=client_cmd, client_target=client_target, client_bounce=client_bounce,
             alive=alive, restarted=restarted, reconfig_cmd=reconfig_cmd,
             transfer_cmd=transfer_cmd, read_cmd=read_cmd, fsync_fire=fsync_fire,
             torn_drop=torn_drop,
         )
+        if not facts:
+            return inp
+        return inp, (alive_prev & ~alive, _count_cut(cut, now),
+                     _cut_count(n, k_part, now - 1, g.part_period, g.part))
 
     if cfg.drop_prob > 0:
         if cfg.drop_prob_uniform:
@@ -295,10 +341,15 @@ def make_inputs(cfg: RaftConfig, keys: torch.Tensor, now: int, genome=None,
         deliver = ~bern_u32(k_drop, p_t, (n, n))
     else:
         deliver = torch.ones((bsz, n, n), dtype=torch.bool, device=dev)
+    zero = torch.zeros((bsz,), dtype=torch.int32, device=dev)
+    cut_now = cut_prev = zero
     if cfg.partition_period > 0:
-        deliver = deliver & ~_partition_cut(
-            n, k_part, now, cfg.partition_period, p_to_u32(cfg.partition_prob)
-        )
+        part_t = p_to_u32(cfg.partition_prob)
+        cut = _partition_cut(n, k_part, now, cfg.partition_period, part_t)
+        deliver = deliver & ~cut
+        if facts:
+            cut_now = _count_cut(cut, now)
+            cut_prev = _cut_count(n, k_part, now - 1, cfg.partition_period, part_t)
 
     if cfg.clock_skew_prob > 0:
         skew = _skew_draw(n, k_skew, p_to_u32(cfg.clock_skew_prob))
@@ -311,10 +362,11 @@ def make_inputs(cfg: RaftConfig, keys: torch.Tensor, now: int, genome=None,
     if cfg.crash_prob > 0:
         ckey = crash_key(keys)
         alive = alive_at(cfg, ckey, now)
-        restarted = alive & ~alive_at(cfg, ckey, now - 1)
+        alive_prev = alive_at(cfg, ckey, now - 1)
+        restarted, crashed = alive & ~alive_prev, alive_prev & ~alive
     else:
         alive = torch.ones((bsz, n), dtype=torch.bool, device=dev)
-        restarted = torch.zeros((bsz, n), dtype=torch.bool, device=dev)
+        restarted = crashed = torch.zeros((bsz, n), dtype=torch.bool, device=dev)
 
     reconfig_cmd, transfer_cmd, read_cmd = _admin_cmds(cfg, tkey, now)
     fsync_fire, torn_drop = _storage_draws(cfg, tkey, now)
@@ -322,7 +374,7 @@ def make_inputs(cfg: RaftConfig, keys: torch.Tensor, now: int, genome=None,
     def full(shape, value, dtype=torch.int32):
         return torch.full((bsz,) + shape, value, dtype=dtype, device=dev)
 
-    return StepInputs(
+    inp = StepInputs(
         deliver_mask=bitplane.pack(deliver, axis=2),
         skew=skew,
         timeout_draw=timeout_draw,
@@ -337,3 +389,4 @@ def make_inputs(cfg: RaftConfig, keys: torch.Tensor, now: int, genome=None,
         fsync_fire=fsync_fire,
         torn_drop=torn_drop,
     )
+    return (inp, (crashed, cut_now, cut_prev)) if facts else inp

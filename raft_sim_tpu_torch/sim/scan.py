@@ -14,6 +14,9 @@ cluster's own fault setting (faults.make_inputs); `simulate_scenario` is
 `simulate` through it, and `run_traced` replays one cluster tick by tick with
 its states (the JAX `run(..., trace_states=True, genome=...)`), as a B=1 view
 of the same batch-minor path, so on the card it runs the kernel.
+
+`tick_batch_minor(..., events=True)` also extracts the tick's protocol events
+(trace/events.py) for the trace plane's loops (sim/telemetry.py).
 """
 
 from __future__ import annotations
@@ -143,7 +146,8 @@ def _override(plane: torch.Tensor, value) -> torch.Tensor:
 
 
 def tick_batch_minor(cfg, s, keys, metrics, now: int, step_fn=None, client_cmd=None,
-                     read_cmd=None, genome=None, seg_len: int = 1, inputs=None):
+                     read_cmd=None, genome=None, seg_len: int = 1, inputs=None,
+                     events: bool = False, facts=None):
     """ONE tick of the batch-minor path: input draws, step, metric fold.
     `s`/`metrics` are batch-minor, `keys` [B, 2], `now` the host's copy of the
     lockstep tick. `client_cmd` replaces the scheduled client input this
@@ -152,11 +156,21 @@ def tick_batch_minor(cfg, s, keys, metrics, now: int, step_fn=None, client_cmd=N
     cluster, NIL = none: the serve loop). A read plane needs cfg.read_index.
     `genome`/`seg_len` select the scenario input path; `inputs` (this tick's
     [B, ...]-leading StepInputs, drawn ahead by `input_ticks`) replaces the
-    draw. Returns (state, metrics, StepInfo), all batch-minor."""
+    draw. Returns (state, metrics, StepInfo), all batch-minor.
+
+    `events=True` (the trace plane, cfg.track_trace) also extracts the tick's
+    protocol events from the state delta (trace/events.py) and returns
+    (state, metrics, StepInfo, TickEvents); the first three are the same
+    either way. The fault facts (`faults.trace_fault_inputs`) come with the
+    input draw (`make_inputs(..., facts=True)`), or as `facts` with `inputs`
+    drawn ahead (`input_ticks(..., trace=True)`)."""
     if step_fn is None:
         step_fn = tick_engine.step_cuda
     if inputs is not None:
         inp = inputs
+    elif events and facts is None:
+        inp, facts = faults.make_inputs(cfg, keys, now, genome=genome, seg_len=seg_len,
+                                        facts=True)
     else:
         inp = faults.make_inputs(cfg, keys, now, genome=genome, seg_len=seg_len)
     if client_cmd is not None:
@@ -165,7 +179,16 @@ def tick_batch_minor(cfg, s, keys, metrics, now: int, step_fn=None, client_cmd=N
         inp = inp._replace(read_cmd=_override(inp.read_cmd, read_cmd))
     inp_t = raft_batched.to_batch_minor(inp)
     s2, info = step_fn(cfg, s, inp_t, now)
-    return s2, _accumulate(metrics, info, s.now), info
+    m2 = _accumulate(metrics, info, s.now)
+    if not events:
+        return s2, m2, info
+    from raft_sim_tpu_torch.trace import events as tev
+
+    if facts is None:  # inputs drawn ahead without them
+        facts = faults.trace_fault_inputs(cfg, keys, now, genome=genome, seg_len=seg_len)
+    crashed, cut_now, cut_prev = facts
+    ev = tev.extract(cfg, s, s2, inp_t, info, crashed.movedim(0, -1), cut_now, cut_prev)
+    return s2, m2, info, ev
 
 
 def run_batch_minor(
@@ -206,17 +229,28 @@ def run_minor(cfg: RaftConfig, s: ClusterState, keys: torch.Tensor, n_ticks: int
 SPAN_ROWS = 16384  # (tick, cluster) rows a span of scenario draws holds (`input_ticks`)
 
 
+def spans_pay(batch: int) -> bool:
+    """Whether drawing a fleet's scenario inputs a span of ticks at a time
+    (`input_ticks`) beats drawing them tick by tick: at least 8 ticks a span."""
+    return batch * 8 <= SPAN_ROWS
+
+
 def input_ticks(cfg: RaftConfig, keys: torch.Tensor, t0: int, n_ticks: int, genome,
-                seg_len: int = 1):
+                seg_len: int = 1, trace: bool = False):
     """Each tick's [B, ...]-leading scenario-path inputs for ticks t0 ..
     t0 + n_ticks - 1, drawn a span at a time (faults.draw_span, at most
     SPAN_ROWS rows a call): equal to drawing them tick by tick, at a fraction
-    of the launches when B is small (a replay, a shrink trial)."""
+    of the launches when B is small (a replay, a shrink trial). With `trace`
+    each tick comes as (inputs, fault facts): the trace plane's
+    `faults.trace_fault_inputs`, drawn with them (`draw_span(facts=True)`)."""
     block = max(1, SPAN_ROWS // max(keys.shape[0], 1))
     for a in range(t0, t0 + n_ticks, block):
-        span = faults.draw_span(cfg, keys, a, min(block, t0 + n_ticks - a), genome, seg_len)
-        for k in range(span.alive.shape[0]):
-            yield type(span)(*(x[k] for x in span))
+        k_n = min(block, t0 + n_ticks - a)
+        span = faults.draw_span(cfg, keys, a, k_n, genome, seg_len, facts=trace)
+        inps, facts = span if trace else (span, None)
+        for k in range(k_n):
+            inp = type(inps)(*(x[k] for x in inps))
+            yield (inp, tuple(x[k] for x in facts)) if trace else inp
 
 
 def run_traced(cfg: RaftConfig, state: ClusterState, keys: torch.Tensor, n_ticks: int,

@@ -1,7 +1,7 @@
-"""Fleet telemetry: windowed aggregation and a violation flight recorder (the
-port of raft_sim_tpu/sim/telemetry.py, less its trace branch).
+"""Fleet telemetry: windowed aggregation, a violation flight recorder and the
+trace plane's window loop (the port of raft_sim_tpu/sim/telemetry.py).
 
-Two mechanisms over the same tick as the main path (`scan.tick_batch_minor`,
+Three mechanisms over the same tick as the main path (`scan.tick_batch_minor`,
 so telemetry never observes another trajectory than the one it reports):
 
 1. **Windowed aggregation** (`run_batch_minor_telemetry`): each tick's
@@ -20,9 +20,15 @@ The loops keep `now` on the host, as sim/scan.py does; the per-window and
 per-tick values that land in the records come from the state's own `now`
 leaf, as in the JAX package. Every loop takes the scenario input path
 (`genome`: [B, S] rows on the fleet's device, with `seg_len`;
-scenario/search.py's fitness reads these windows). The protocol trace plane
-(`trace_spec`, `trigger_kind`, ROADMAP item 14) is not ported: passing it
-raises.
+scenario/search.py's fitness reads these windows); a small fleet on it (a
+replay) draws its inputs a span of ticks at a time (`scan.input_ticks`).
+
+3. **The protocol trace plane** (raft_sim_tpu_torch/trace; needs
+   cfg.track_trace): `trace_spec` extracts each tick's events, folds them
+   into the window's event buffer and the coverage bitmap, and exports one
+   `TraceWindowOut` per window; `trigger_kind` freezes the flight recorder
+   on the first event of that kind instead of the first violation. The
+   tick, and so the trajectory, is the same either way.
 """
 
 from __future__ import annotations
@@ -59,13 +65,6 @@ class FlightRecorder(NamedTuple):
     tick: torch.Tensor  # [K, B] int32: the tick each slot holds (-1 = empty)
     pos: torch.Tensor  # [B] int32: ticks recorded so far (next slot = pos % K)
     frozen: torch.Tensor  # [B] bool: latched by the first viol_* tick
-
-
-def _refuse_unported(trace_spec=None, trigger_kind=None) -> None:
-    if trace_spec is not None or trigger_kind is not None:
-        raise NotImplementedError(
-            "telemetry: the protocol trace plane (trace_spec / trigger_kind) is not ported "
-            "yet (ROADMAP item 14)")
 
 
 def init_recorder(cfg: RaftConfig, k: int, batch: int, device="cpu") -> FlightRecorder:
@@ -120,87 +119,130 @@ def _stack_records(recs: list[WindowRecord]) -> WindowRecord:
 
 def run_minor_telemetry(cfg: RaftConfig, s, keys: torch.Tensor, n_ticks: int, window: int,
                         now: int, recorder: FlightRecorder | None = None, step_fn=None,
-                        cmds=None, reads=None, genome=None, seg_len: int = 1):
+                        cmds=None, reads=None, genome=None, seg_len: int = 1, trace_spec=None,
+                        trace_persist=None, trigger_kind: int | None = None):
     """The windowed loop on a batch-minor state `s` whose lockstep tick is the
     host's `now`: returns (state, RunMetrics of these ticks, records,
-    recorder) -- state and metrics batch-minor, records public. `cmds` and
-    `reads` ([n_ticks, B] planes or None) are the per-tick offer overrides of
-    the serve loop (serve/loop.py); `genome`/`seg_len` select the scenario
-    input path. `n_ticks` must divide by `window`."""
+    recorder) -- state and metrics batch-minor, records public -- plus
+    (trace windows, trace persist) when `trace_spec` is given: the windows a
+    stacked TraceWindowOut (leaves [n_windows, ..., B]), the persist carried
+    from `trace_persist` (None starts fresh). `cmds` and `reads` ([n_ticks, B]
+    planes or None) are the per-tick offer overrides of the serve loop
+    (serve/loop.py); `genome`/`seg_len` select the scenario input path.
+    `trigger_kind` freezes the recorder on an event kind (trace/events.py)
+    instead of the first violation. `n_ticks` must divide by `window`."""
     if n_ticks % window:
         raise ValueError(f"n_ticks {n_ticks} must divide by window {window}")
+    need_events = trace_spec is not None or trigger_kind is not None
+    if need_events and not cfg.track_trace:
+        raise ValueError(
+            "protocol tracing / event triggers need cfg.track_trace=True (a telemetry run "
+            "of an untraced config carries no trace leg)")
     batch = s.role.shape[-1]
     dev = s.role.device
     ring_k = 0 if recorder is None else recorder.tick.shape[0]
+    if need_events:
+        from raft_sim_tpu_torch.trace import events as tev
+        from raft_sim_tpu_torch.trace import ring as tring
+    tp = trace_persist
+    if trace_spec is not None and tp is None:
+        tp = tring.init_persist(trace_spec, batch, dev)
+    # A small fleet on the scenario path (a replay) draws its inputs a span
+    # of ticks at a time; a served loop overrides them tick by tick.
+    drawn = None
+    if genome is not None and cmds is None and reads is None and scan.spans_pay(batch):
+        drawn = scan.input_ticks(cfg, keys, now, n_ticks, genome, seg_len, trace=need_events)
     m0 = raft_batched.to_batch_minor(scan.init_metrics_batch(batch, dev))
     metrics = m0
-    recs = []
+    recs, traws = [], []
     t = now
     for _ in range(n_ticks // window):
         start = s.now
         wm = m0
         fv = torch.full((batch,), NEVER, dtype=torch.int32, device=dev)
+        if trace_spec is not None:
+            tw = tring.init_window(trace_spec, batch, dev)
         for _ in range(window):
             tick_now = s.now
-            s, wm, info = scan.tick_batch_minor(
+            inp = facts = None
+            if drawn is not None:
+                inp = next(drawn)
+                if need_events:
+                    inp, facts = inp
+            out = scan.tick_batch_minor(
                 cfg, s, keys, wm, t, step_fn=step_fn,
                 client_cmd=None if cmds is None else cmds[t - now],
                 read_cmd=None if reads is None else reads[t - now],
-                genome=genome, seg_len=seg_len,
+                genome=genome, seg_len=seg_len, inputs=inp, events=need_events, facts=facts,
             )
+            s, wm, info = out[:3]
             bad = scan.step_bad(info)
             fv = torch.minimum(fv, torch.where(bad, tick_now, NEVER))
             if ring_k:
-                recorder = _record(recorder, info, tick_now, ring_k, bad)
+                trig = bad if trigger_kind is None else tev.any_of_kind(cfg, out[3], trigger_kind)
+                recorder = _record(recorder, info, tick_now, ring_k, trig)
+            if trace_spec is not None:
+                tw, tp = tring.record(cfg, trace_spec, tw, tp, out[3], tick_now)
             t += 1
         recs.append(WindowRecord(start=start, first_viol_tick=fv, metrics=wm))
+        if trace_spec is not None:
+            traws.append(tring.TraceWindowOut(win=tw, cov=tp.cov))
         metrics = merge_metrics(metrics, wm)
-    return s, metrics, _stack_records(recs), recorder
+    base = (s, metrics, _stack_records(recs), recorder)
+    if trace_spec is None:
+        return base
+    return base + (tring.stack_windows(traws), tp)
 
 
 def run_batch_minor_telemetry(cfg: RaftConfig, state, keys: torch.Tensor, n_ticks: int,
                               window: int, recorder: FlightRecorder | None = None,
                               step_fn=None, genome=None, seg_len: int = 1, trace_spec=None,
-                              trigger_kind: int | None = None, now: int | None = None):
+                              trace_persist=None, trigger_kind: int | None = None,
+                              now: int | None = None):
     """The windowed run from a [B, ...]-leading `state`: the same trajectory
     as `scan.run_batch_minor`, plus [n_ticks/window] WindowRecords and the
     optional flight recorder (batch-minor in and out). Returns (final_state,
-    metrics, records, recorder); state, metrics and records [B, ...]-leading.
-    `now` is the host's copy of the state's tick (read once when not given).
-    `genome` ([B, S] rows) and `seg_len` select the scenario input path; the
-    trace plane (`trace_spec`, `trigger_kind`) raises (not ported)."""
-    _refuse_unported(trace_spec, trigger_kind)
+    metrics, records, recorder); state, metrics and records [B, ...]-leading,
+    with (trace windows, trace persist) appended when `trace_spec` is given
+    (both batch-minor, as `run_minor_telemetry` returns them). `now` is the
+    host's copy of the state's tick (read once when not given). `genome`
+    ([B, S] rows) and `seg_len` select the scenario input path."""
     batch = state.role.shape[0]
     if now is None:
         now = int(state.now.reshape(-1)[0]) if batch else 0
-    s, metrics, recs, rec = run_minor_telemetry(
+    out = run_minor_telemetry(
         cfg, raft_batched.to_batch_minor(state), keys, n_ticks, window, now, recorder, step_fn,
-        genome=genome, seg_len=seg_len)
-    return raft_batched.from_batch_minor(s), raft_batched.from_batch_minor(metrics), recs, rec
+        genome=genome, seg_len=seg_len, trace_spec=trace_spec, trace_persist=trace_persist,
+        trigger_kind=trigger_kind)
+    s, metrics = out[:2]
+    return (raft_batched.from_batch_minor(s), raft_batched.from_batch_minor(metrics)) + out[2:]
 
 
 def simulate_windowed(cfg: RaftConfig, seed: int, batch: int, n_ticks: int, window: int,
                       ring: int = 0, genome=None, seg_len: int = 1, trace=None,
                       trigger_kind: int | None = None, device="cuda", step_fn=None):
     """`scan.simulate` with telemetry: the same key derivation and
-    trajectory, returning (final_state, metrics, records, recorder).
-    `ring` > 0 arms the flight recorder at that depth. `genome` ([B, S]
+    trajectory, returning (final_state, metrics, records, recorder), plus
+    (trace windows, trace persist) when `trace` (a TraceSpec; needs
+    cfg.track_trace) is given. `ring` > 0 arms the flight recorder at that
+    depth, and `trigger_kind` freezes it on an event kind. `genome` ([B, S]
     rows, moved to the fleet's device) runs a heterogeneous fleet, cluster b
     under row b, each segment `seg_len` ticks."""
-    _refuse_unported(trace, trigger_kind)
     dev = device_mod.resolve(device)
     state, keys = scan.seed_fleet(cfg, seed, batch, dev)
     rec = init_recorder(cfg, ring, batch, dev) if ring else None
     if genome is not None:
         genome = type(genome)(*(leaf.to(dev) for leaf in genome))
     return run_batch_minor_telemetry(cfg, state, keys, n_ticks, window, rec, step_fn=step_fn,
-                                     genome=genome, seg_len=seg_len, now=0)
+                                     genome=genome, seg_len=seg_len, trace_spec=trace,
+                                     trigger_kind=trigger_kind, now=0)
 
 
 def run_chunked_telemetry(cfg: RaftConfig, state, keys: torch.Tensor, n_ticks: int,
                           window: int, recorder: FlightRecorder | None = None,
                           chunk: int = 4096, callback=None, genome=None, seg_len: int = 1,
-                          perf=None, trace_spec=None, trigger_kind: int | None = None,
+                          perf=None, trace_spec=None, trace_persist=None,
+                          trigger_kind: int | None = None, trace_callback=None,
                           now: int | None = None):
     """Long telemetry runs: `chunked.run_chunked` with the window records
     handed to the host between chunks. Chunks are whole windows; a final
@@ -208,17 +250,23 @@ def run_chunked_telemetry(cfg: RaftConfig, state, keys: torch.Tensor, n_ticks: i
     (`metrics.ticks` carries each window's width).
     `callback(ticks_done, state, merged_metrics, records)` gets each chunk's
     records in the public layout; returning True stops the run. Returns
-    (final_state, merged_metrics, recorder). The caller's `state` is never
+    (final_state, merged_metrics, recorder), with the trace persist appended
+    when `trace_spec` is given. The trace plane streams like the records:
+    each chunk's stacked TraceWindowOut goes to `trace_callback(ticks_done,
+    trace_windows)` (the sink's `append_trace`) before `callback`, and the
+    persist threads from chunk to chunk. The caller's `state` is never
     written (every tick is out of place). `genome`/`seg_len` select the
-    scenario input path; `perf` (ROADMAP item 18) and the trace plane raise
-    (not ported)."""
-    _refuse_unported(trace_spec, trigger_kind)
+    scenario input path; `perf` (ROADMAP item 18) raises (not ported)."""
     if perf is not None:
         raise NotImplementedError(
             "run_chunked_telemetry: perf attribution is not ported yet (ROADMAP item 18)")
     batch = state.role.shape[0]
     if now is None:
         now = int(state.now.reshape(-1)[0]) if batch else 0
+    if trace_spec is not None and trace_persist is None:
+        from raft_sim_tpu_torch.trace import ring as tring
+
+        trace_persist = tring.init_persist(trace_spec, batch, state.role.device)
     win_per_chunk = max(1, chunk // window)
     metrics = scan.init_metrics_batch(batch, state.role.device)
     s = raft_batched.to_batch_minor(state)
@@ -231,13 +279,21 @@ def run_chunked_telemetry(cfg: RaftConfig, state, keys: torch.Tensor, n_ticks: i
             w = window
         else:
             n = w = left  # the remainder: one final short window
-        s, m, recs, recorder = run_minor_telemetry(cfg, s, keys, n, w, now + done, recorder,
-                                                   genome=genome, seg_len=seg_len)
+        res = run_minor_telemetry(cfg, s, keys, n, w, now + done, recorder, genome=genome,
+                                  seg_len=seg_len, trace_spec=trace_spec,
+                                  trace_persist=trace_persist, trigger_kind=trigger_kind)
+        s, m, recs, recorder = res[:4]
         metrics = merge_metrics(metrics, raft_batched.from_batch_minor(m))
         done += n
         out = raft_batched.from_batch_minor(s)
+        if trace_spec is not None:
+            traws, trace_persist = res[4:]
+            if trace_callback is not None:
+                trace_callback(done, traws)
         if callback is not None and callback(done, out, metrics, recs):
             break
+    if trace_spec is not None:
+        return out, metrics, recorder, trace_persist
     return out, metrics, recorder
 
 

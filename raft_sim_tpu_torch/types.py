@@ -58,9 +58,11 @@ NOOP = -2
 MAX_INT8_LOG_CAPACITY = config_mod.max_log_capacity_for(127)
 MAX_INT8_NODES = config_mod.max_nodes_for(127)
 
-# Leaves whose JAX dtype is uint32 (carried here as int32 bit patterns).
+# Leaves whose JAX dtype is uint32 (carried here as int32 bit patterns);
+# `cov` is the trace plane's coverage bitmap (trace/ring.py).
 U32_LEAVES = frozenset(
     {
+        "cov",
         "votes",
         "commit_chk",
         "base_chk",

@@ -11,14 +11,22 @@ summary half). The files are the JAX package's, line for line:
                              (violating clusters only): every StepInfo field
     <dir>/summary.json       the end-of-run FleetSummary rollup plus extras
 
+    <dir>/trace_meta.json    the trace stream's self-description (kinds, depth,
+                             coverage geometry, freeze kind), when tracing
+    <dir>/trace.jsonl        one line per protocol event {w, c, t, node, k, d},
+                             window-major, then cluster, then slot order
+    <dir>/trace_windows.jsonl  one line per trace window: emitted, retained and
+                             dropped events, the per-cluster drop map and the
+                             fleet's best coverage popcount
+
 Every line is JSON with integer-exact values, so two runs diff as text and
 `validate()` checks a directory without a schema library. The JAX package's
 `validate()` accepts the port's directories: the manifest carries every
 field it requires, with `jax_version` null (the port imports no jax),
 `torch_version` beside it, and the device type (`cuda` or `cpu`) as
-`backend`. The trace, perf and health streams are not written by the port
-yet (ROADMAP items 14 and 18); this `validate()` reports such a file as
-unchecked rather than passing it.
+`backend`. The perf and health streams are not written by the port yet
+(ROADMAP item 18); this `validate()` reports such a file as unchecked rather
+than passing it.
 """
 
 from __future__ import annotations
@@ -55,10 +63,10 @@ MANIFEST_FIELDS = (
 
 # Streams of the JAX sink the port neither writes nor checks yet.
 UNCHECKED_STREAMS = {
-    "trace.jsonl": "ROADMAP item 14", "trace_windows.jsonl": "ROADMAP item 14",
-    "trace_meta.json": "ROADMAP item 14", "perf.jsonl": "ROADMAP item 18",
-    "health.jsonl": "ROADMAP item 18", "alerts.jsonl": "ROADMAP item 18",
+    "perf.jsonl": "ROADMAP item 18", "health.jsonl": "ROADMAP item 18",
+    "alerts.jsonl": "ROADMAP item 18",
 }
+TRACE_STREAMS = ("trace.jsonl", "trace_windows.jsonl", "trace_meta.json")
 
 
 def _np(x) -> np.ndarray:
@@ -166,9 +174,10 @@ class TelemetrySink:
             if name.startswith("evidence_") and os.path.isdir(p):
                 shutil.rmtree(p)
             elif (name.startswith("flight_") and name.endswith(".jsonl")) or (
-                name == "summary.json" or name in UNCHECKED_STREAMS
+                name == "summary.json" or name in UNCHECKED_STREAMS or name in TRACE_STREAMS
             ):
                 os.remove(p)
+        self._n_trace_windows = 0
 
     def _path(self, name: str) -> str:
         return os.path.join(self.directory, name)
@@ -182,6 +191,70 @@ class TelemetrySink:
                 f.write(json.dumps(line) + "\n")
         self._n_windows += len(lines)
         return len(lines)
+
+    def write_trace_meta(self, spec) -> str:
+        """The trace stream's self-description (a trace.TraceSpec), written
+        when tracing is armed, so trace.jsonl decodes on its own."""
+        from raft_sim_tpu_torch.trace import KINDS
+        from raft_sim_tpu_torch.trace.ring import COV_BITS, COV_WORDS
+
+        path = self._path("trace_meta.json")
+        doc = {
+            "trace_schema": 1,
+            "kinds": dict(KINDS),
+            "depth": int(spec.depth),
+            "coverage": bool(spec.coverage),
+            "coverage_bits": COV_BITS,
+            "coverage_words": COV_WORDS,
+            "freeze_kind": int(spec.freeze_kind),
+        }
+        with open(path, "w") as f:
+            json.dump(doc, f, indent=2, sort_keys=True)
+            f.write("\n")
+        return path
+
+    def append_trace(self, tracewins) -> int:
+        """Append one chunk's stacked trace windows (a batch-minor
+        TraceWindowOut, leaves [n_windows, ..., B], on any device) as
+        trace.jsonl event lines and trace_windows.jsonl rows; returns the
+        windows appended. Events go window-major, then cluster, then slot
+        order, so each cluster's ticks never decrease."""
+        from raft_sim_tpu_torch.ops.bitplane import np_popcount_u32
+        from raft_sim_tpu_torch.trace.history import iter_window_events
+        from raft_sim_tpu_torch.utils import device as device_mod
+
+        host = device_mod.host_numpy(*device_mod.to_host_async(tracewins))
+        n = host.win.n  # [W, B]
+        n_windows = n.shape[0]
+        depth = host.win.ev_kind.shape[1]
+        kept = np.minimum(n, depth)
+        dropped = n - kept
+        # The fleet's best per-cluster coverage popcount at each window's end.
+        cov_per = np.max(np_popcount_u32(host.cov).sum(axis=1), axis=-1)
+        per_window: dict[int, list] = {w: [] for w in range(n_windows)}
+        for w, c, evs in iter_window_events(host):
+            per_window[w].append((c, evs))
+        with open(self._path("trace.jsonl"), "a") as f:
+            for w in range(n_windows):
+                widx = self._n_trace_windows + w
+                for c, evs in per_window[w]:
+                    for e in evs:
+                        f.write(json.dumps({"w": widx, "c": int(c), "t": e.tick, "node": e.node,
+                                            "k": e.kind, "d": e.detail}) + "\n")
+        with open(self._path("trace_windows.jsonl"), "a") as f:
+            for w in range(n_windows):
+                row = {
+                    "window": self._n_trace_windows + w,
+                    "emitted": int(n[w].sum()),
+                    "retained": int(kept[w].sum()),
+                    "dropped": int(dropped[w].sum()),
+                    "dropped_by_cluster": {str(c): int(d) for c, d in enumerate(dropped[w])
+                                           if d > 0},
+                    "cov_bits_max": int(cov_per[w]),
+                }
+                f.write(json.dumps(row) + "\n")
+        self._n_trace_windows += n_windows
+        return n_windows
 
     def write_flight(self, cluster: int, ticks, infos: StepInfo) -> str:
         """Write one cluster's flight recording as flight_<cluster>.jsonl."""
@@ -241,11 +314,82 @@ def _validate_windows(path: str) -> list[str]:
     return errors
 
 
+def _int_fields(row: dict, keys) -> list[str]:
+    """The keys of `row` that are missing, not ints, or True (the JAX
+    validate()'s rule)."""
+    return [k for k in keys if not isinstance(row.get(k), int) or row.get(k) is True]
+
+
+def _validate_trace(directory: str) -> list[str]:
+    """The trace stream's checks (when trace.jsonl is present): the meta file
+    and its kinds map, every event line's int fields and kind range, each
+    cluster's ticks never decreasing, and contiguous trace window rows."""
+    trace_path = os.path.join(directory, "trace.jsonl")
+    if not os.path.isfile(trace_path):
+        return []
+    errors = []
+    meta_path = os.path.join(directory, "trace_meta.json")
+    n_kinds = None
+    if not os.path.isfile(meta_path):
+        errors.append("trace.jsonl present but trace_meta.json missing")
+    else:
+        try:
+            with open(meta_path) as f:
+                kinds = json.load(f).get("kinds")
+            if not isinstance(kinds, dict) or not kinds:
+                errors.append("trace_meta.json: missing kinds map")
+            else:
+                n_kinds = max(kinds.values()) + 1
+        except (OSError, json.JSONDecodeError) as ex:
+            errors.append(f"trace_meta.json unreadable: {ex}")
+    last_tick: dict[int, int] = {}
+    with open(trace_path) as f:
+        for ln, raw in enumerate(f, 1):
+            try:
+                row = json.loads(raw)
+            except json.JSONDecodeError as ex:
+                errors.append(f"trace.jsonl:{ln}: not JSON: {ex}")
+                continue
+            bad = _int_fields(row, ("w", "c", "t", "node", "k", "d"))
+            if bad:
+                errors.append(f"trace.jsonl:{ln}: fields {bad} missing or non-int")
+                continue
+            if n_kinds is not None and not 1 <= row["k"] < n_kinds:
+                errors.append(f"trace.jsonl:{ln}: kind {row['k']} outside [1, {n_kinds})")
+            c = row["c"]
+            if row["t"] < last_tick.get(c, -1):
+                errors.append(f"trace.jsonl:{ln}: cluster {c} tick {row['t']} regresses "
+                              "(stream truncated or reordered)")
+            last_tick[c] = max(last_tick.get(c, -1), row["t"])
+    tw_path = os.path.join(directory, "trace_windows.jsonl")
+    if not os.path.isfile(tw_path):
+        errors.append("trace.jsonl present but trace_windows.jsonl missing")
+        return errors
+    prev = -1
+    with open(tw_path) as f:
+        for ln, raw in enumerate(f, 1):
+            try:
+                row = json.loads(raw)
+            except json.JSONDecodeError as ex:
+                errors.append(f"trace_windows.jsonl:{ln}: not JSON: {ex}")
+                continue
+            for k in _int_fields(row, ("window", "emitted", "retained", "dropped")):
+                errors.append(f"trace_windows.jsonl:{ln}: field {k!r} missing or non-int")
+            if not isinstance(row.get("dropped_by_cluster"), dict):
+                errors.append(f"trace_windows.jsonl:{ln}: dropped_by_cluster must be a map")
+            if isinstance(row.get("window"), int):
+                if row["window"] != prev + 1:
+                    errors.append(f"trace_windows.jsonl:{ln}: window index {row['window']} "
+                                  f"(expected {prev + 1})")
+                prev = row["window"]
+    return errors
+
+
 def validate(directory: str) -> list[str]:
     """Check a telemetry directory against the schema: the manifest, the
-    window stream and every flight file. Returns the problems found ([] =
-    valid). A stream the port does not check yet (trace, perf, health) is
-    reported, never passed over."""
+    window stream, the trace stream and every flight file. Returns the
+    problems found ([] = valid). A stream the port does not check yet (perf,
+    health) is reported, never passed over."""
     man_path = os.path.join(directory, "manifest.json")
     if not os.path.isfile(man_path):
         return [f"missing manifest.json in {directory}"]
@@ -273,6 +417,7 @@ def validate(directory: str) -> list[str]:
         return errors
     errors += _validate_windows(win_path)
 
+    errors += _validate_trace(directory)
     for name in sorted(os.listdir(directory)):
         if name in UNCHECKED_STREAMS:
             errors.append(f"{name}: not checked by this package yet ({UNCHECKED_STREAMS[name]})")

@@ -418,3 +418,50 @@ def test_search_and_shrink_card_match_cpu(card):
     art_g = shrink_mod.shrink(cfg, g.hit, mutant="weak-quorum", device=card)
     art_c = shrink_mod.shrink(cfg, c.hit, mutant="weak-quorum", device="cpu")
     assert json.dumps(art_g) == json.dumps(art_c)
+
+
+@pytest.mark.parametrize("name", ["config2", "config5", "config6", "config8", "config10"])
+def test_step_cuda_matches_plain_step_with_trace_events(card, name):
+    """Under track_trace, each tick through the kernel (scan.tick_batch_minor
+    with events) equals the plain tick's state, StepInfo and TickEvents from
+    the same state and inputs, the pre-tick state the extractor reads is
+    intact after the launch, and the traced trajectory is the untraced one."""
+    cfg = dataclasses.replace(tconfig.PRESETS[name][0], track_trace=True)
+    batch = 45
+    s = trb.to_batch_minor(ttypes.init_batch(cfg, threefry.key(0, card), batch))
+    untraced = s
+    keys = threefry.split(threefry.key(1, card), batch)
+    m = trb.to_batch_minor(scan.init_metrics_batch(batch, card))
+    fired = 0
+    for t in range(96):
+        before = trb._map(torch.clone, s)
+        got = scan.tick_batch_minor(cfg, s, keys, m, t, events=True)
+        want = scan.tick_batch_minor(cfg, s, keys, m, t, step_fn=trb.step_b, events=True)
+        for part, w, g in zip(("state", "metrics", "info", "events"), want, got):
+            assert bridge.first_difference(w, g) is None, f"tick {t} {part}"
+        assert bridge.first_difference(before, s) is None, f"tick {t}: pre-tick state written"
+        untraced = scan.tick_batch_minor(tconfig.PRESETS[name][0], untraced, keys, m, t)[0]
+        assert bridge.first_difference(untraced, got[0]) is None, f"tick {t}: traced != untraced"
+        fired += int(got[3].flags.sum())
+        s, m = got[0], got[1]
+    assert fired > 0
+
+
+def test_trace_sink_card_matches_cpu(card, tmp_path):
+    """run --trace's library path (Session with a telemetry sink and a trace
+    armed) on the card writes the CPU's trace files byte for byte."""
+    import os
+
+    from raft_sim_tpu_torch.driver import Session
+
+    cfg = dataclasses.replace(tconfig.PRESETS["config6"][0], track_trace=True)
+    for dev in (card, "cpu"):
+        sess = Session(cfg, batch=16, seed=0, device=dev)
+        sess.attach_telemetry(str(tmp_path / str(dev)), window=64, ring=8)
+        sess.attach_trace(depth=256)
+        sess.run(128, chunk=64)
+        sess.finalize_telemetry()
+    for f in ("trace.jsonl", "trace_windows.jsonl", "trace_meta.json", "windows.jsonl",
+              "summary.json"):
+        a = open(os.path.join(tmp_path, str(card), f), "rb").read()
+        assert a == open(os.path.join(tmp_path, "cpu", f), "rb").read(), f

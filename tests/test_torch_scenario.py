@@ -369,17 +369,31 @@ def test_scenario_run_cli_saves_and_resumes(tmp_path, capsys):
         cli.main(["run", "--device", "cpu", "--resume", ck, "--ticks", "4"])
 
 
+_HUNT = ["--preset", "config2", "--generations", "1", "--population", "4", "--ticks", "32",
+         "--window", "32"]
+
+
 @pytest.mark.parametrize("argv", [
     ["scenario", "farm", "--device", "cpu"],
-    ["scenario", "search", "--device", "cpu", "--fitness", "coverage"],
-    ["scenario", "search", "--device", "cpu", "--proposal", "coverage-guided"],
+    ["scenario", "search", "--device", "cpu", *_HUNT, "--fitness", "coverage"],
+    ["scenario", "search", "--device", "cpu", *_HUNT, "--fitness", "coverage", "--proposal",
+     "coverage-guided"],
     ["scenario", "search", "--device", "cpu", "--profile", "x"],
     ["scenario", "run", "--device", "cpu", "--backend", "x"],
-    ["scenario", "search", "--device", "cpu", "--trace-depth", "8"],
+    ["scenario", "search", "--device", "cpu", *_HUNT, "--fitness", "coverage", "--trace-depth",
+     "8"],
 ], ids=["farm", "coverage-fitness", "guided-proposal", "profile", "backend", "trace-depth"])
 def test_scenario_unported_options_are_refused(capsys, argv):
-    """The farm, coverage fitness, guided proposals and the JAX-only flags
-    are refused as usage errors, never accepted and ignored."""
+    """The farm and the JAX-only flags are refused as usage errors, never
+    accepted and ignored. Coverage fitness, guided proposals and the trace
+    depth, refused until the trace plane was ported, are taken: the hunt runs
+    and prints its generation log with the coverage counts."""
+    if "--fitness" in argv:
+        assert cli.main(argv) == 0
+        doc = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert doc["spec"]["fitness"] == "coverage"
+        assert doc["generations"][0]["cov_new_bits"] > 0
+        return
     with pytest.raises(SystemExit) as ex:
         cli.main(argv)
     assert ex.value.code == 2

@@ -156,6 +156,14 @@ def test_default_device_raises_without_a_card(tmp_path):
     ids=lambda x: x if isinstance(x, str) else None,
 )
 def test_simulate_unsupported_gate_raises(kw, gate):
+    """compact_planes is refused by name; track_trace (refused until the trace
+    plane was ported) is taken, and a plain run under it is the untraced run."""
+    if gate == "track_trace":
+        want = tscan.simulate(tconfig.RaftConfig(), 0, 2, 3, device="cpu")
+        got = tscan.simulate(tconfig.RaftConfig(**kw), 0, 2, 3, device="cpu")
+        assert bridge.first_difference(want[0], got[0]) is None
+        assert bridge.first_difference(want[1], got[1]) is None
+        return
     with pytest.raises(NotImplementedError, match=gate):
         tscan.simulate(tconfig.RaftConfig(**kw), 0, 2, 3, device="cpu")
 

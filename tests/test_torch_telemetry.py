@@ -11,6 +11,7 @@ Tolerance: exact equality of every leaf (value, dtype, shape) and of every
 line written.
 """
 
+import dataclasses
 import json
 
 import jax
@@ -219,8 +220,9 @@ def test_sink_files_match_jax(tmp_path, windowed):
 
 
 def test_validate_reports_what_is_wrong(tmp_path):
-    """A damaged window line, a config that no longer matches its hash, and
-    a stream the port does not check yet are each reported."""
+    """A damaged window line, a config that no longer matches its hash, a
+    trace stream without its meta file, and a stream the port does not check
+    yet (perf) are each reported."""
     _, ts, _, tdir = _sinks(tmp_path, "config2")
     assert tsink.validate(str(tdir)) == []
     with open(tdir / "windows.jsonl", "a") as f:
@@ -229,11 +231,13 @@ def test_validate_reports_what_is_wrong(tmp_path):
     man["config"]["n_nodes"] = 7
     (tdir / "manifest.json").write_text(json.dumps(man))
     (tdir / "trace.jsonl").write_text("")
+    (tdir / "perf.jsonl").write_text("")
     errors = tsink.validate(str(tdir))
     assert any("window index 3" in e for e in errors)
     assert any("ticks must be >= 1" in e for e in errors)
     assert any("config_hash does not match" in e for e in errors)
-    assert any("trace.jsonl: not checked" in e for e in errors)
+    assert any("trace_meta.json missing" in e for e in errors)
+    assert any("perf.jsonl: not checked" in e for e in errors)
 
 
 def test_session_telemetry_matches_jax_session(tmp_path):
@@ -263,9 +267,17 @@ def test_session_telemetry_matches_jax_session(tmp_path):
 
 
 def test_unported_telemetry_options_raise():
+    """perf attribution is refused by name. The trace plane, refused until it
+    was ported, is taken on a track_trace config (a traced window comes out)
+    and refused as JAX refuses it without the gate."""
+    from raft_sim_tpu_torch.trace.ring import TraceSpec
+
     cfg = tconfig.PRESETS["config2"][0]
-    with pytest.raises(NotImplementedError, match="item 14"):
-        ttel.simulate_windowed(cfg, 0, 2, 16, 16, trace=object(), device="cpu")
+    with pytest.raises(ValueError, match="track_trace"):
+        ttel.simulate_windowed(cfg, 0, 2, 16, 16, trace=TraceSpec(depth=8), device="cpu")
+    traced = ttel.simulate_windowed(dataclasses.replace(cfg, track_trace=True), 0, 2, 16, 16,
+                                    trace=TraceSpec(depth=8), device="cpu")
+    assert len(traced) == 6 and tuple(traced[4].win.ev_kind.shape) == (1, 8, 2)
     state, keys = tscan.seed_fleet(cfg, 0, 2, "cpu")
     with pytest.raises(NotImplementedError, match="item 18"):
         ttel.run_chunked_telemetry(cfg, state, keys, 16, 16, perf=object())

@@ -207,6 +207,9 @@ ROWS = [
                                        log_matching_interval=k), 4, ticks, 0.0, id=f"{name}-lm-every-{k}")
       for name, ticks in (("config6", 160), ("config9", 260)) for k in (1, 4)),
     pytest.param(_port_cfg(RING_LM_CAP8), 4, 120, 0.06, id="config6-cap8-lm-crash-fuzz"),
+    # The trace plane's gate: the tick takes it and reads nothing of it.
+    pytest.param(dataclasses.replace(tconfig.PRESETS["config8"][0], track_trace=True), 3, 64,
+                 0.03, id="config8-track-trace-crash-fuzz"),
     pytest.param(N101_RING_LM, 2, 80, 0.0, id="config7-mix-n101-compaction-lm"),
 ]
 
