@@ -171,6 +171,28 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    artifact through `farm/corpus.check_artifact` both ways: the mutant
    replay rejected on a complete history naming its provenance's
    property, with a witness; the real config passing all six.
+4f. compact -- the compacted carry layout (cfg.compact_planes,
+   raft_sim_tpu_torch/ops/tile.py): `step_cuda` unpacks the packed carry,
+   launches the kernel on the dense view and repacks (plain torch on the
+   card, outside the kernel). (a) kernel == plain every leaf every tick
+   under that boundary: config5c (200 x 64: log-matching ticks 16, 32, 48),
+   config7x (250 x 48), the compacting config6 twin (200 x 96) and the
+   N=31/32/33 fault-churn twins (64 x 48, the word boundaries). (b) compact
+   == dense: config5c against config5 from one seed at 10,000 x 64, every
+   tick the unpacked compacted state equal to the dense one. (c) config5c at
+   10,000 x 128 and config7x at 250 x 128 through `simulate`: launches ==
+   ticks, 0 violations, a leader somewhere (the clusters that never led are
+   reported: N=255 under partitions leaves some leaderless); ms a tick end to end, the input
+   draws, the kernel on the dense view and the unpack+pack (CUDA events),
+   the bound (the dense bytes once over 3.35 TB/s), the plain tick, peak
+   memory, beside config5's row of phase 4, then FULL_HOLD_TICKS of kernel
+   vs plain at full width. (d) `simulate` card == CPU at config5c (16 x 32)
+   and config7x (4 x 32). (e) The entry points this layout's slice added, on
+   the card against the CPU: `bench --preset config5c` at 16 x 64 (quality
+   equal, "layout": "compact"), `bench --preset config2 --telemetry-dir D
+   --scenario P` at 64 x 100 (windows.jsonl and summary.json byte-equal),
+   `scan.run` (B=1) and `scan.run_batch` (B=4) traced for 32 ticks, and
+   `run --backend cuda` equal to `run --device cuda` at config7x.
 5. bench_row -- the port's bench (raft_sim_tpu_torch/bench.py) on config2 at
    64 x 100 ticks, 3 quality seeds and 2 repeats, on the card and on the CPU:
    every quality field equal; the card's row carries backend "cuda", the
@@ -1339,6 +1361,201 @@ def trace_phase(dev, wall_ms) -> list:
     return cells
 
 
+# compact (a): the N=31/32/33 twins, tests/test_tile.py's fault churn.
+def churn_twin(n: int):
+    from raft_sim_tpu_torch.utils.config import RaftConfig
+
+    return RaftConfig(n_nodes=n, log_capacity=8, max_entries_per_rpc=2, client_interval=2,
+                      drop_prob=0.25, crash_prob=0.4, crash_period=16, crash_down_ticks=8,
+                      compact_planes=True)
+
+
+COMPACT_T = 128  # compact (c): full-width ticks a cell
+
+
+def compact_phase(dev, wall_ms, hold_ticks, config5_cell) -> list:
+    """Phase 4f (module docstring): the compacted carry layout on the card.
+    Returns the (c) cells for the kernels line."""
+    import shutil
+    import tempfile
+
+    import torch
+    from raft_sim_tpu_torch import bench, types
+    from raft_sim_tpu_torch.kernels import tick_engine
+    from raft_sim_tpu_torch.models import raft_batched
+    from raft_sim_tpu_torch.ops import tile
+    from raft_sim_tpu_torch.sim import faults, scan
+    from raft_sim_tpu_torch.summary import summarize
+    from raft_sim_tpu_torch.utils import threefry
+    from raft_sim_tpu_torch.utils.config import PRESETS
+
+    cfg5c, cfg7x = PRESETS["config5c"][0], PRESETS["config7x"][0]
+
+    # (a) kernel == plain under the boundary.
+    rows = [("config5c", cfg5c, 200, 64), ("config7x", cfg7x, 250, 48),
+            ("config6-compact", types.compact_twin(PRESETS["config6"][0]), 200, 96)]
+    rows += [(f"n{n}-compact", churn_twin(n), 64, 48) for n in (31, 32, 33)]
+    for name, cfg, batch, ticks in rows:
+        s = raft_batched.to_batch_minor(types.init_batch(cfg, threefry.key(SEED, dev), batch))
+        keys = threefry.split(threefry.key(SEED + 1, dev), batch)
+        before = tick_engine.step_cuda.launches
+        s = hold_ticks(cfg, s, keys, 0, ticks, name)
+        if tick_engine.step_cuda.launches - before != ticks:
+            raise AssertionError(f"compact {name}: {tick_engine.step_cuda.launches - before} "
+                                 f"launches for {ticks} ticks")
+        if s.ack_age.dim() != 2:
+            raise AssertionError(f"compact {name}: the carry came back unpacked")
+        emit({"phase": "compact_kernel_vs_plain", "preset": name, "batch": batch, "ticks": ticks,
+              "max_abs_err": 0, "packed_words": {f: list(getattr(s, f).shape[:-1])
+                                                 for f in ("votes", "ack_age")}})
+
+    # (b) compact == dense from one seed at config5's batch.
+    batch = PRESETS["config5"][1]
+    cfg5 = PRESETS["config5"][0]
+    sc, keys = scan.seed_fleet(cfg5c, SEED, batch, dev)
+    sd, _ = scan.seed_fleet(cfg5, SEED, batch, dev)
+    sc, sd = raft_batched.to_batch_minor(sc), raft_batched.to_batch_minor(sd)
+    mc = md = raft_batched.to_batch_minor(scan.init_metrics_batch(batch, dev))
+    for t in range(64):
+        sc, mc, _ = scan.tick_batch_minor(cfg5c, sc, keys, mc, t)
+        sd, md, _ = scan.tick_batch_minor(cfg5, sd, keys, md, t)
+        check_equal(sd, tile.unpack_state(cfg5c, sc), f"compact (b) tick {t}: unpacked != dense")
+    check_equal(md, mc, "compact (b): RunMetrics compact != dense")
+    emit({"phase": "compact_vs_dense", "preset": "config5c", "batch": batch, "ticks": 64,
+          "max_abs_err": 0})
+    del sc, sd, mc, md
+
+    # (c) full width, timed.
+    cells = []
+    for name, cfg in (("config5c", cfg5c), ("config7x", cfg7x)):
+        batch = PRESETS[name][1]
+        dcfg = types.compact_twin(cfg, on=False)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tick_engine.step_cuda.launches = 0
+        t0 = time.perf_counter()
+        final, metrics = scan.simulate(cfg, SEED, batch, COMPACT_T, device=dev)
+        summ = summarize(metrics)  # copies to the host: waits for the device
+        wall = time.perf_counter() - t0
+        launches = tick_engine.step_cuda.launches
+        peak = torch.cuda.max_memory_allocated()
+        if launches != COMPACT_T:
+            raise AssertionError(f"compact {name}: {launches} kernel launches for {COMPACT_T} ticks")
+        if summ.total_violations != 0:
+            raise AssertionError(f"compact {name}: {summ.total_violations} violations")
+        # N=255 under rolling partitions: some clusters stay leaderless for
+        # 128 ticks, the dense twin's trajectory too (compact (b), (d)).
+        never_led = int((metrics.first_leader_tick >= scan.NEVER).sum())
+        if never_led == batch:
+            raise AssertionError(f"compact {name}: no cluster elected a leader")
+        s = raft_batched.to_batch_minor(final)
+        keys = threefry.split(threefry.split(threefry.key(SEED, dev), 2)[1], batch)
+        hold_ticks(cfg, s, keys, COMPACT_T, FULL_HOLD_TICKS, f"compact {name} full width")
+        inp = raft_batched.to_batch_minor(faults.make_inputs(cfg, keys, COMPACT_T))
+        ds, dinp = tile.unpack_state(cfg, s), tile.unpack_inputs(cfg, inp)
+        kernel_ms = tick_engine.time_kernel(dcfg, ds, dinp, reps=20, now=COMPACT_T)
+
+        def boundary():
+            tile.unpack_inputs(cfg, inp)
+            return tile.pack_state(cfg, tile.unpack_state(cfg, s), reuse=s)
+
+        boundary()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(20):
+            boundary()
+        end.record()
+        torch.cuda.synchronize()
+        rd, wr = tick_engine.traffic_bytes(dcfg, batch)
+        bound_ms = (rd + wr) / BW_BYTES_PER_S * 1e3
+        cell = {
+            "phase": "compact_full_width", "preset": name, "batch": batch, "ticks": COMPACT_T,
+            "launches": launches, "kernel_vs_plain_ticks": FULL_HOLD_TICKS, "wall_s": wall,
+            "ms_per_tick": wall * 1e3 / COMPACT_T,
+            "inputs_ms": wall_ms(lambda: faults.make_inputs(cfg, keys, COMPACT_T), 5),
+            "kernel_ms": kernel_ms, "unpack_pack_ms": start.elapsed_time(end) / 20,
+            "unpack_pack_host_ms": wall_ms(boundary, 10),
+            "step_ms": wall_ms(lambda: tick_engine.step_cuda(cfg, s, inp, COMPACT_T), 10),
+            "plain_ms": wall_ms(lambda: raft_batched.step_b(cfg, s, inp, COMPACT_T), 3),
+            "bound_ms": bound_ms, "bytes_read": rd, "bytes_written": wr,
+            "bound_share": bound_ms / kernel_ms, "peak_mem_bytes": peak,
+            "clusters_never_led": never_led,
+            "packed_carry_bytes": sum(x.numel() * x.element_size() for x in _leaves(s)),
+            "dense_carry_bytes": sum(x.numel() * x.element_size() for x in _leaves(ds)),
+            "summary": summ._asdict(),
+        }
+        if name == "config5c":
+            cell["config5"] = {k: config5_cell[k] for k in (
+                "batch", "ticks", "wall_s", "inputs_ms", "kernel_ms", "step_ms", "plain_ms",
+                "bound_ms", "peak_mem_bytes", "launches")}
+            cell["config5"]["ms_per_tick"] = config5_cell["wall_s"] * 1e3 / config5_cell["ticks"]
+        cells.append(cell)
+        emit(cell)
+        del final, metrics, s, inp, ds, dinp
+        torch.cuda.empty_cache()
+
+    # (d) card == CPU.
+    for name, batch in (("config5c", 16), ("config7x", 4)):
+        cfg = PRESETS[name][0]
+        f_g, m_g = scan.simulate(cfg, SEED, batch, 32, device=dev)
+        f_c, m_c = scan.simulate(cfg, SEED, batch, 32, device="cpu")
+        check_equal(f_c, f_g, f"compact {name}: simulate state, card != CPU")
+        check_equal(m_c, m_g, f"compact {name}: simulate RunMetrics, card != CPU")
+        emit({"phase": "compact_card_vs_cpu", "preset": name, "batch": batch, "ticks": 32,
+              "max_abs_err": 0})
+
+    # (e) the entry points, card against CPU.
+    quality = ("p50_stable_tick", "pct_stable", "p50_commit_latency", "lat_p50", "lat_p95",
+               "lat_p99", "lat_excluded", "total_cmds", "violations", "noop_blocked",
+               "lm_skipped_pairs", "multi_leader", "layout")
+    rows = {d: bench.bench(cfg5c, 16, 64, repeats=1, quality_seeds=3, config_name="config5c",
+                           smoke=True, device=d) for d in ("cuda", "cpu")}
+    differ = [k for k in quality if rows["cuda"][k] != rows["cpu"][k]]
+    if differ or rows["cuda"]["layout"] != "compact":
+        raise AssertionError(f"compact (e): bench config5c card != CPU on {differ}: {rows}")
+    work = tempfile.mkdtemp(prefix="compact_", dir=HERE)
+    prog = os.path.join(work, "storm.json")
+    with open(prog, "w") as f:
+        json.dump({**STORM_PROGRAM, "seg_len": 32}, f)
+    docs = {}
+    for d in ("cuda", "cpu"):
+        docs[d] = _cli(["bench", "--preset", "config2", "--batch", "64", "--ticks", "100",
+                        "--repeats", "1", "--telemetry-dir", os.path.join(work, d),
+                        "--scenario", prog, "--device", d])["matrix"]["config2"]
+    for fname in ("windows.jsonl", "summary.json"):
+        a, b = (open(os.path.join(work, d, "config2", fname), "rb").read() for d in ("cuda", "cpu"))
+        if a != b:
+            raise AssertionError(f"compact (e): bench --telemetry-dir {fname} card != CPU")
+    differ = [k for k in quality if docs["cuda"][k] != docs["cpu"][k]]
+    if differ or docs["cuda"].get("scenario") != STORM_PROGRAM["name"]:
+        raise AssertionError(f"compact (e): bench --scenario card != CPU on {differ}")
+    shutil.rmtree(work, ignore_errors=True)
+    runs = {}
+    for d in ("cuda", "cpu"):
+        key = threefry.key(SEED + 3, d)
+        one = scan.run(cfg5c, types.init_state(cfg5c, key), threefry.key(SEED + 4, d), 32,
+                       trace_states=True)
+        many = scan.run_batch(cfg5c, types.init_batch(cfg5c, key, 4),
+                              threefry.split(threefry.key(SEED + 4, d), 4), 32, trace=True)
+        runs[d] = (*one[:2], *one[2], *many)
+    for part, want, got in zip(("run state", "run metrics", "run infos", "run states",
+                                "run_batch state", "run_batch metrics", "run_batch infos"),
+                               runs["cpu"], runs["cuda"]):
+        check_equal(want, got, f"compact (e): scan.{part} card != CPU")
+    argv = ["run", "--preset", "config7x", "--batch", "8", "--ticks", "32"]
+    summaries = [_cli(argv + flag) for flag in (["--backend", "cuda"], ["--device", "cuda"])]
+    for r in summaries:
+        r.pop("wall_s")
+        r.pop("cluster_ticks_per_s")
+    if summaries[0] != summaries[1] or summaries[0]["device"] == "cpu":
+        raise AssertionError(f"compact (e): run --backend cuda != run --device cuda: {summaries}")
+    emit({"phase": "compact_entry_points", "bench_config5c_layout": rows["cuda"]["layout"],
+          "bench_telemetry_scenario_equal": True, "scan_run_equal": True,
+          "backend_equals_device": True, "max_abs_err": 0})
+    return cells
+
+
 def main() -> int:
     import collections
 
@@ -1656,6 +1873,13 @@ def main() -> int:
         cells.append(cell)
         total_launches += cell["launches"]
     emit({"phase": "phase_end", "name": "trace", "seconds": time.perf_counter() - t_start})
+
+    # ---- 4f: the compacted carry layout -------------------------------------------
+    config5_cell = next(c for c in cells if c["preset"] == "config5")
+    for cell in compact_phase(dev, wall_ms, hold_ticks, config5_cell):
+        cells.append(cell)
+        total_launches += cell["launches"]
+    emit({"phase": "phase_end", "name": "compact", "seconds": time.perf_counter() - t_start})
 
     # ---- 5: the port's bench row, card vs CPU -----------------------------------
     cfg2 = PRESETS["config2"][0]

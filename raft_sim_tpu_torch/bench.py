@@ -4,6 +4,7 @@
     python -m raft_sim_tpu_torch bench                    # the matrix, on the card
     python -m raft_sim_tpu_torch bench --preset config2   # one row
     python -m raft_sim_tpu_torch bench --smoke --device cpu
+    python -m raft_sim_tpu_torch bench --preset config2 --scenario P.json --telemetry-dir D
 
 A row keeps the reference's discipline and field names. Quality runs use the
 fixed seeds 0..quality_seeds-1 and pool their per-cluster metrics through
@@ -14,15 +15,22 @@ statistics leave out the first repeat. Throughput means something only from a
 card run (`backend: "cuda"`, with the card's name and power limit as
 `nvidia-smi` prints them).
 
-The serve-throughput row (`serve_bench`, `--serve`, and `config9-serve` in
-the matrix) runs a multi-tenant `ServeSession` under saturating load and
+With `telemetry_dir` the seed-0 quality run goes through the windowed
+telemetry loop and its windows land in `telemetry_dir/<config_name>/` in the
+sink's schema (source "bench"), with `summary.json` of seed 0 alone. With
+`scenario` (a nemesis program, scenario/program.py) every run takes the
+scenario input path, the program's genome broadcast over the fleet, and the
+row is marked `"scenario"`. `"layout"` is the config's carry layout
+("compact" under `compact_planes`, ops/tile.py).
+
+The serve-throughput row (`serve_bench`, `--serve`, and `<serve preset>-serve`
+in the matrix) runs a multi-tenant `ServeSession` under saturating load and
 counts commands+reads/s, the service's unit of work.
 
-Not ported yet: the telemetry sink (`telemetry_dir`), the scenario input path,
-the measurement pass and its mesh leg, the serve row's per-chunk `perf`
-rollup (ROADMAP item 18), and the roofline-pin fields and the serve row's
-`reconciliation` (the JAX cost model's TPU prices are no yardstick for the
-card).
+Not ported yet: the measurement pass and its mesh leg, the serve row's
+per-chunk `perf` rollup (ROADMAP item 18a), and the roofline-pin fields and
+the serve row's `reconciliation` (the JAX cost model's TPU prices are no
+yardstick for the card).
 """
 
 from __future__ import annotations
@@ -75,14 +83,13 @@ SMOKE_BATCH = {
 }
 SMOKE_TICKS = {"config1": 1_000, "config6": 1_000, "config6r": 1_000}
 
-# The reference matrix (bench.py main) minus the rows the port cannot run yet.
+# The reference matrix (bench.py main); NOT_PORTED names any row the port
+# cannot run yet (none since the compacted layout, config5c's, was ported).
 MATRIX = (
     "config1", "config2", "config3", "config3p", "config4", "config4c",
-    "config5", "config6", "config6r",
+    "config5", "config5c", "config6", "config6r",
 )
-NOT_PORTED = {
-    "config5c": "the compacted carry layout (ROADMAP item 9)",
-}
+NOT_PORTED: dict[str, str] = {}
 SERVE_PRESET = "config9"  # the serve row's read-carrying preset (bench.py main)
 # bench.py's TPU artifacts; cost_model reads these names.
 _RESERVED_OUT = re.compile(r"BENCH_r\d+\.json")
@@ -105,6 +112,15 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
+def _telemetry_window(ticks: int) -> int:
+    """A window that divides the run (bench.py's): the finest of a few round
+    divisors, else one whole-run window."""
+    for d in (16, 10, 8, 5, 4, 2):
+        if ticks % d == 0:
+            return ticks // d
+    return ticks
+
+
 def _pool(runs: list[scan.RunMetrics]) -> scan.RunMetrics:
     """Per-cluster metrics of several runs as one [sum of batches] RunMetrics."""
     return scan.RunMetrics(*(torch.cat([getattr(m, f).cpu() for m in runs])
@@ -112,18 +128,45 @@ def _pool(runs: list[scan.RunMetrics]) -> scan.RunMetrics:
 
 
 def bench(cfg: RaftConfig, batch: int, ticks: int, repeats: int = 3,
-          quality_seeds: int = 3, config_name: str = "custom", smoke: bool = False,
+          quality_seeds: int = 3, telemetry_dir: str | None = None,
+          config_name: str = "custom", scenario=None, smoke: bool = False,
           device="cuda") -> dict:
     """One bench row for `cfg` (named `config_name` in the row): quality over
     the fixed seeds, throughput over `repeats` time-salted runs (the first
-    also pays the kernel build and warm-up)."""
+    also pays the kernel build and warm-up). `telemetry_dir` writes the
+    seed-0 quality run's windows; `scenario` (a ScenarioProgram) runs every
+    run on the scenario input path."""
     dev = device_mod.resolve(device)
     on_card = dev.type == "cuda"
+    g, seg_len = None, 1
+    if scenario is not None:
+        from raft_sim_tpu_torch.scenario import genome as genome_mod
+
+        g = genome_mod.to_device(genome_mod.broadcast(scenario.genome, batch), dev)
+        seg_len = scenario.seg_len
 
     def sim(seed):
-        return scan.simulate(cfg, seed, batch, ticks, device=dev)
+        if g is None:
+            return scan.simulate(cfg, seed, batch, ticks, device=dev)
+        return scan.simulate_scenario(cfg, seed, batch, ticks, g, seg_len, device=dev)
 
-    q_metrics = _pool([sim(qs)[1] for qs in range(quality_seeds)])
+    pooled = []
+    for qs in range(quality_seeds):
+        if qs == 0 and telemetry_dir is not None:
+            from raft_sim_tpu_torch.sim import telemetry
+            from raft_sim_tpu_torch.utils.telemetry_sink import TelemetrySink
+
+            window = _telemetry_window(ticks)
+            sink = TelemetrySink(os.path.join(telemetry_dir, config_name), cfg, seed=qs,
+                                 batch=batch, window=window, ring=0, source="bench",
+                                 backend=dev.type)
+            _, m, records, _ = telemetry.simulate_windowed(cfg, qs, batch, ticks, window,
+                                                           genome=g, seg_len=seg_len, device=dev)
+            sink.append_windows(records)
+        else:
+            m = sim(qs)[1]
+        pooled.append(m)
+    q_metrics = _pool(pooled)
 
     seed_base = int(time.time_ns() % ((1 << 31) - 1 - repeats))
     walls = []
@@ -144,6 +187,9 @@ def bench(cfg: RaftConfig, batch: int, ticks: int, repeats: int = 3,
     )
 
     s = summarize(q_metrics)
+    if telemetry_dir is not None:
+        # summary.json describes the run the windows do: seed 0 alone.
+        sink.write_summary(summarize(_pool(pooled[:1]))._asdict())
     value = batch * ticks / best
     row = {
         "cluster_ticks_per_s": round(value, 1),
@@ -153,7 +199,7 @@ def bench(cfg: RaftConfig, batch: int, ticks: int, repeats: int = 3,
         "repeat_walls_s": [round(w, 4) for w in walls],
         "repeat_cv": steady_cv,
         "backend": dev.type,
-        "layout": "dense",
+        "layout": "compact" if cfg.compact_planes else "dense",
         "batch": batch,
         "n_nodes": cfg.n_nodes,
         "ticks": ticks,
@@ -178,6 +224,8 @@ def bench(cfg: RaftConfig, batch: int, ticks: int, repeats: int = 3,
         row["nvidia_smi"] = card_line()
     if smoke:
         row["smoke"] = True
+    if scenario is not None:
+        row["scenario"] = scenario.name
     return row
 
 
@@ -274,8 +322,17 @@ def add_arguments(ap: argparse.ArgumentParser) -> None:
                          "headline (BENCH_r<N>.json names are refused)")
     ap.add_argument("--serve", action="store_true",
                     help="bench only the serve-throughput row (commands+reads/s)")
+    ap.add_argument("--serve-preset", default=SERVE_PRESET, metavar="NAME",
+                    choices=sorted(PRESETS),
+                    help=f"read-carrying preset the serve row runs (default {SERVE_PRESET})")
     ap.add_argument("--serve-chunks", type=int, default=8,
                     help="serving chunks of the serve row (default 8)")
+    ap.add_argument("--telemetry-dir", default=None, metavar="DIR",
+                    help="write each row's seed-0 quality run as telemetry windows under "
+                         "DIR/<preset>/ (the sink's schema, source 'bench')")
+    ap.add_argument("--scenario", default=None, metavar="FILE",
+                    help="run the row on the scenario input path under this nemesis "
+                         "program (scenario/program.py schema); needs --preset")
     ap.add_argument("--device", default="cuda")
 
 
@@ -284,9 +341,17 @@ def run(ap: argparse.ArgumentParser, args) -> int:
         ap.error(f"--out {args.out}: BENCH_r<N>.json files are the JAX package's "
                  "TPU artifacts; name the port's document otherwise")
     if args.serve:
-        print(json.dumps(serve_bench(batch=args.batch, chunks=args.serve_chunks,
-                                     smoke=args.smoke, device=args.device)))
+        print(json.dumps(serve_bench(args.serve_preset, batch=args.batch,
+                                     chunks=args.serve_chunks, smoke=args.smoke,
+                                     device=args.device)))
         return 0
+    scenario = None
+    if args.scenario:
+        if not args.preset:
+            ap.error("--scenario requires --preset (one labeled row)")
+        from raft_sim_tpu_torch.scenario import program as program_mod
+
+        scenario = program_mod.load(args.scenario, PRESETS[args.preset][0])
     names = [args.preset] if args.preset else list(MATRIX)
     matrix = {}
     for name in names:
@@ -294,12 +359,13 @@ def run(ap: argparse.ArgumentParser, args) -> int:
         batch, ticks = args.batch or batch, args.ticks or ticks
         print(f"bench {name}: batch={batch} ticks={ticks}...", file=sys.stderr)
         matrix[name] = bench(PRESETS[name][0], batch, ticks, args.repeats,
-                             config_name=name, smoke=args.smoke, device=args.device)
+                             telemetry_dir=args.telemetry_dir, config_name=name,
+                             scenario=scenario, smoke=args.smoke, device=args.device)
     if not args.preset:
         # The standing serve-throughput row rides every full-matrix run.
-        print(f"bench {SERVE_PRESET}-serve: serve-throughput row...", file=sys.stderr)
-        matrix[f"{SERVE_PRESET}-serve"] = serve_bench(chunks=args.serve_chunks, smoke=args.smoke,
-                                                      device=args.device)
+        print(f"bench {args.serve_preset}-serve: serve-throughput row...", file=sys.stderr)
+        matrix[f"{args.serve_preset}-serve"] = serve_bench(
+            args.serve_preset, chunks=args.serve_chunks, smoke=args.smoke, device=args.device)
     headline_name = "config3" if "config3" in matrix else names[0]
     headline = matrix[headline_name]
     doc = {

@@ -5,7 +5,10 @@ The JAX package's pytrees (`ClusterState` with its `mailbox`, `StepInputs`,
 NamedTuples of numpy arrays. `to_port` builds the port's NamedTuple of the same
 field names from any such object (or a dict), on a given device; `to_numpy`
 goes back. uint32 legs cross as `.view(np.int32)` / `.view(np.uint32)`, since
-the port carries them as int32 bit patterns (types.py). Conversion is leaf by
+the port carries them as int32 bit patterns (types.py); `to_numpy` and
+`first_difference` take the names of those legs as `u32` (default
+types.U32_LEAVES; `types.u32_leaves(cfg)` adds a compacted carry's packed
+legs). Conversion is leaf by
 leaf and keeps every shape, so both the batch-leading and the batch-minor
 layouts cross unchanged.
 
@@ -49,38 +52,38 @@ def to_port(obj, cls, device="cpu"):
     return cls(**out)
 
 
-def to_numpy(tree):
+def to_numpy(tree, u32=U32_LEAVES):
     """Port NamedTuple -> the same NamedTuple type holding numpy arrays, with
-    the uint32 legs viewed back as uint32."""
+    the uint32 legs (named in `u32`) viewed back as uint32."""
     out = {}
     for f, x in _fields(tree):
         if f == "mailbox":
-            out[f] = to_numpy(x)
+            out[f] = to_numpy(x, u32)
             continue
         a = x.detach().cpu().numpy()
-        out[f] = a.view(np.uint32) if f in U32_LEAVES else a
+        out[f] = a.view(np.uint32) if f in u32 else a
     return type(tree)(**out)
 
 
-def _as_numpy(name, x):
+def _as_numpy(name, x, u32):
     if isinstance(x, torch.Tensor):
         a = x.detach().cpu().numpy()
-        return a.view(np.uint32) if name in U32_LEAVES else a
+        return a.view(np.uint32) if name in u32 else a
     return np.asarray(x)
 
 
-def first_difference(a, b, prefix: str = "") -> str | None:
+def first_difference(a, b, prefix: str = "", u32=U32_LEAVES) -> str | None:
     """None when trees `a` and `b` agree exactly on every leaf (same field
     names, dtypes, shapes and values); else a line naming the first leaf that
     differs and, for values, its first differing index. Leaves may be numpy
-    arrays or port tensors (uint32 legs compared as uint32)."""
+    arrays or port tensors (the legs named in `u32` compared as uint32)."""
     fa, fb = dict(_fields(a)), dict(_fields(b))
     if list(fa) != list(fb):
         return f"{prefix or 'tree'}: fields {list(fa)} != {list(fb)}"
     for f in fa:
         name = f"{prefix}.{f}" if prefix else f
         if f == "mailbox" or hasattr(fa[f], "_fields"):
-            d = first_difference(fa[f], fb[f], name)
+            d = first_difference(fa[f], fb[f], name, u32)
             if d:
                 return d
             continue
@@ -94,7 +97,7 @@ def first_difference(a, b, prefix: str = "") -> str | None:
             and torch.equal(x, y)
         ):
             continue  # equal where they lie: no copy to the host
-        x, y = _as_numpy(f, x), _as_numpy(f, y)
+        x, y = _as_numpy(f, x, u32), _as_numpy(f, y, u32)
         if x.dtype != y.dtype:
             return f"{name}: dtype {x.dtype} != {y.dtype}"
         if x.shape != y.shape:

@@ -26,7 +26,9 @@ sets the experiment), --apply-log, --apply-cluster, --telemetry-dir,
 --telemetry-window, --telemetry-ring, the protocol trace plane (--trace,
 --trace-depth, --trace-freeze, --trace-trigger: `Session.attach_trace`;
 --trace-ticks, --trace-events, --trace-cluster: `Session.trace`), --mutant
-(a TEST-ONLY weakened tick, scenario/mutation.py), --progress and --device.
+(a TEST-ONLY weakened tick, scenario/mutation.py), --progress, --device and
+--backend (`select_device`: the JAX driver's backend names mapped to a torch
+device).
 `add_serve_arguments` / `serve` are the `serve` subcommand: the standing
 fleet of serve/loop.py fed from a JSONL command source.
 `add_scenario_arguments` / `scenario` are the `scenario` subcommands: `run`
@@ -447,8 +449,31 @@ def add_run_arguments(p: argparse.ArgumentParser) -> None:
     p.add_argument("--mutant", default=None, metavar="NAME",
                    help="TEST-ONLY: run a deliberately weakened tick (scenario/mutation.py "
                         "registry, e.g. 'weak-quorum')")
-    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    add_device_arguments(p)
     add_config_flags(p)
+
+
+# The JAX driver's --backend names and the torch device each runs on: the
+# JAX "tpu" and "auto" mean the accelerator, here the card.
+BACKENDS = {"auto": "cuda", "tpu": "cuda", "gpu": "cuda", "cuda": "cuda", "cpu": "cpu"}
+
+
+def add_device_arguments(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    p.add_argument("--backend", default=None, choices=sorted(BACKENDS),
+                   help="the JAX driver's backend names: auto, tpu, gpu and cuda run on "
+                        "the card (and fail without one), cpu on the CPU")
+
+
+def select_device(ap: argparse.ArgumentParser, args) -> None:
+    """Settle `args.device` from --device and --backend (the card when
+    neither is given); a --backend that contradicts --device is a usage
+    error."""
+    mapped = BACKENDS[args.backend] if args.backend else None
+    if args.device is None:
+        args.device = mapped or "cuda"
+    elif mapped and torch.device(args.device).type != mapped:
+        ap.error(f"--backend {args.backend} runs on {mapped}, but --device is {args.device}")
 
 
 def _mutant(ap: argparse.ArgumentParser, name: str | None, cfg: RaftConfig) -> RaftConfig:
@@ -469,6 +494,7 @@ def run(ap: argparse.ArgumentParser, args) -> int:
     fleet summary with the wall time and the device as one JSON line, and
     save a checkpoint if asked. --trace-ticks / --trace-events print one
     cluster's trajectory instead of running the session."""
+    select_device(ap, args)
     traced = args.trace or args.trace_trigger or args.trace_freeze
     if args.resume:
         # A checkpoint IS the experiment: rerunning it under other flags
@@ -582,7 +608,7 @@ def add_serve_arguments(p: argparse.ArgumentParser) -> None:
                    help="stream telemetry windows (windows.jsonl) and commit deltas "
                         "(deltas.jsonl) to DIR")
     p.add_argument("--progress", action="store_true", help="a line on stderr per chunk")
-    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    add_device_arguments(p)
     add_config_flags(p)
 
 
@@ -624,6 +650,7 @@ def serve(ap: argparse.ArgumentParser, args) -> int:
     from raft_sim_tpu_torch.serve.tenancy import Tenant, split_even
     from raft_sim_tpu_torch.utils.telemetry_sink import TelemetrySink
 
+    select_device(ap, args)
     cfg, batch = build_config(args)
     cfg = serve_config(cfg)
     dev = device_mod.resolve(args.device)
@@ -720,7 +747,7 @@ def add_scenario_arguments(sc: argparse.ArgumentParser) -> dict:
                       help="checkpoint at the end (it records the scenario)")
     srun.add_argument("--resume", metavar="PATH",
                       help="resume a scenario checkpoint (plain checkpoints are refused)")
-    srun.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    add_device_arguments(srun)
     add_config_flags(srun)
 
     ssearch = ssub.add_parser("search", help="cross-entropy hunt for violating fault genomes")
@@ -749,7 +776,7 @@ def add_scenario_arguments(sc: argparse.ArgumentParser) -> dict:
     ssearch.add_argument("--seed", type=int, default=None)
     ssearch.add_argument("--out", metavar="FILE", default=None,
                          help="write the first violating hit (feeds `scenario shrink --hit`)")
-    ssearch.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    add_device_arguments(ssearch)
     add_config_flags(ssearch)
 
     sshrink = ssub.add_parser("shrink", help="minimize a search hit to a repro artifact")
@@ -758,13 +785,14 @@ def add_scenario_arguments(sc: argparse.ArgumentParser) -> dict:
     sshrink.add_argument("--out", metavar="FILE", required=True, help="repro artifact path")
     sshrink.add_argument("--halving-rounds", type=int, default=3)
     sshrink.add_argument("--context", type=int, default=30)
-    sshrink.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    add_device_arguments(sshrink)
     return {"run": srun, "search": ssearch, "shrink": sshrink}
 
 
 def scenario(parsers: dict, args) -> int:
     """The `scenario` subcommands (`parsers` from add_scenario_arguments)."""
     ap = parsers[args.scmd]
+    select_device(ap, args)
     return {"run": _scenario_run, "search": _scenario_search,
             "shrink": _scenario_shrink}[args.scmd](ap, args)
 

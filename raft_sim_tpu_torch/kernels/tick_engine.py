@@ -13,6 +13,12 @@ raise: unsupported gates raise NotImplementedError, a leaf of the wrong device,
 dtype, shape or layout raises ValueError, and a refused launch raises
 RuntimeError. Nothing falls back.
 
+The compacted carry layout (`compact_planes`, ops/tile.py) never reaches the
+launch, as the reference kernel refuses it too: `step_cuda` (and
+`step_host`) unpack the state and inputs, launch on the dense view under the
+config's dense twin, and repack the result with the gated-off legs of the
+input state (plain torch on the card, outside the kernel).
+
 Build: at first use, `nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17
 -O3 -Xcompiler -fPIC -c` compiles csrc/tick.cu once per (index dtype tier,
 width tier) (-DRS_IDX_BYTES=1, 2, 4 x -DRS_WIDTH=2, 4, 8: nine nvcc processes
@@ -39,7 +45,7 @@ from pathlib import Path
 import torch
 
 from raft_sim_tpu_torch import types as T
-from raft_sim_tpu_torch.ops import bitplane
+from raft_sim_tpu_torch.ops import bitplane, tile
 from raft_sim_tpu_torch.models import raft_batched
 
 PKG = Path(__file__).resolve().parent.parent
@@ -209,9 +215,9 @@ class TickParams(ctypes.Structure):
     ]
 
 
-def _source_tag() -> str:
+def _source_tag(sources=SOURCES) -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in sources:
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
@@ -362,7 +368,8 @@ def leaf_specs(cfg: T.RaftConfig, b: int) -> dict:
     Cached per (config, batch): the boot state it is read from is built on
     the meta device, whose ops run as Python reference code (milliseconds a
     launch under reconfig). Callers only read the dict."""
-    boot = T.boot_state(cfg, torch.empty((b, cfg.n_nodes), dtype=torch.int32, device="meta"))
+    boot = T.boot_state(T.compact_twin(cfg, on=False),
+                        torch.empty((b, cfg.n_nodes), dtype=torch.int32, device="meta"))
     minor = lambda x: (tuple(x.shape[1:]) + (b,), x.dtype)  # noqa: E731
     specs = {("state", f): minor(getattr(boot, f)) for f in STATE_IO}
     specs.update({("mailbox", f): minor(getattr(boot.mailbox, f)) for f in MAILBOX_IO})
@@ -394,8 +401,12 @@ def _info_spec(name: str, b: int):
 
 
 def check_supported(cfg: T.RaftConfig) -> None:
-    """Raise NotImplementedError for what the kernel does not take."""
-    raft_batched.check_gates(cfg, "step_cuda")
+    """Raise NotImplementedError for what the kernel does not take: the
+    launch takes the dense layout only (`step_cuda` unpacks compacted
+    carries before it)."""
+    if cfg.compact_planes:
+        raise NotImplementedError("the tick kernel's launch does not take compact_planes "
+                                  "(packed legs): launch on the dense view")
     if cfg.max_entries_per_rpc > MAX_ENTRIES:
         raise NotImplementedError(
             f"step_cuda takes max_entries_per_rpc <= {MAX_ENTRIES}, got {cfg.max_entries_per_rpc}"
@@ -546,6 +557,8 @@ def step_cuda(cfg: T.RaftConfig, s: T.ClusterState, inp: T.StepInputs, now: int 
         return raft_batched.step_b(cfg, s, inp, now)
     if s.role.device.type != "cuda":
         raise ValueError(f"step_cuda: tensors on {s.role.device}, expected cpu or cuda")
+    if cfg.compact_planes:
+        return tile.through_dense(cfg, s, inp, lambda *a: step_cuda(*a, now=now, proxy=proxy))
     with torch.cuda.device(s.role.device):
         params, ptrs, tiers, outs = _prepare(cfg, s, inp, now, "cuda")
         _cuda_launch(params, ptrs, tiers, s.role.device, proxy)
@@ -602,6 +615,25 @@ def build_host(out: Path, cxx: str) -> Path:
     return out
 
 
+def host_library(cxx: str) -> Path:
+    """The CPU build of the tick body for the current sources, in BUILD_DIR
+    under their hash: built once (`build_host`, under a file lock, so
+    processes that ask at once build it once) and reused after."""
+    import fcntl
+
+    out = BUILD_DIR / f"libtick_host_{_source_tag(('tick.cuh', 'tick_host.cpp'))}.so"
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "host_build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not out.exists():
+            tmp = out.with_name(f"{out.stem}.{os.getpid()}.so")
+            build_host(tmp, cxx)
+            os.replace(tmp, out)
+            for obj in BUILD_DIR.glob(f"{tmp.stem}_w*.o"):
+                obj.unlink()
+    return out
+
+
 def load_host(path) -> ctypes.CDLL:
     """Load a CPU build of the tick body (`build_host`) for `step_host`."""
     lib = ctypes.CDLL(str(path))
@@ -621,7 +653,11 @@ def step_host(lib, cfg, s, inp, now: int | None = None, reverse: bool = False,
     `step_cuda`, so tests hold the kernel's own logic against the plain tick.
     `reverse` runs each phase's (cluster, node) workers in reverse order;
     `poison` overwrites each exchange field after its last reader's phase
-    (the race proxy's schedule, csrc/tick.cuh `poison_fields`)."""
+    (the race proxy's schedule, csrc/tick.cuh `poison_fields`). A compacted
+    carry goes through the same boundary as in `step_cuda`."""
+    if cfg.compact_planes:
+        return tile.through_dense(cfg, s, inp,
+                                  lambda c, d, i: step_host(lib, c, d, i, now, reverse, poison))
     params, ptrs, tiers, outs = _prepare(cfg, s, inp, now, "cpu")
     rc = lib.rs_tick_host(ctypes.byref(params), ptrs, *tiers, int(reverse), int(poison))
     if rc != 0:

@@ -30,8 +30,9 @@ entry of phase 6, `truncation_rollback` at the end-of-tick configuration,
 TimeoutNow receipt and fire, `lease_skew_safe` in the lease window,
 `durable_acks` in the durability gate and `persist_vote` in crash recovery
 (storage/plane.py). `track_trace` changes nothing in the tick: the trace
-plane reads its state delta outside it (trace/events.py). The compacted
-layout raises NotImplementedError naming the gate (`unsupported_gates`).
+plane reads its state delta outside it (trace/events.py). Under the
+compacted carry layout (`compact_planes`, ops/tile.py) `step_b` unpacks the
+state and inputs, runs the dense tick and repacks, as the JAX `step_b` does.
 Under compaction
 log matching takes the JAX ring form (comparable pairs, checksums at the
 larger base) and counts the pairs it cannot compare (`lm_skipped_pairs`).
@@ -71,21 +72,10 @@ from raft_sim_tpu_torch.utils.config import RaftConfig
 I32 = torch.int32
 BIG = 2**31 - 1
 
-def unsupported_gates(cfg: RaftConfig) -> list[str]:
-    """Structural gates of `cfg` the port's tick does not take yet."""
-    return ["compact_planes"] if cfg.compact_planes else []
-
-
 def lease_window(cfg: RaftConfig) -> int:
     """The lease window on the ack_age plane: read_lease_ticks, or the no-skew
     bound election_min_ticks + 2 under the lease_skew_safe mutant."""
     return cfg.read_lease_ticks if cfg.lease_skew_safe else cfg.election_min_ticks + 2
-
-
-def check_gates(cfg: RaftConfig, who: str) -> None:
-    gates = unsupported_gates(cfg)
-    if gates:
-        raise NotImplementedError(f"{who} does not support {', '.join(gates)} yet")
 
 
 def to_batch_minor(tree):
@@ -120,8 +110,20 @@ def step_b(
     cfg: RaftConfig, s: ClusterState, inp: StepInputs, now: int | None = None
 ) -> tuple[ClusterState, StepInfo]:
     """One tick for B clusters at once; every tensor carries a trailing batch
-    axis. `now` is the host's copy of `s.now` (all clusters in lockstep)."""
-    check_gates(cfg, "step_b")
+    axis. `now` is the host's copy of `s.now` (all clusters in lockstep).
+    Under `compact_planes` the state and inputs are unpacked, the dense tick
+    runs, and the new state is repacked with the gated-off legs of `s`."""
+    if not cfg.compact_planes:
+        return _step_b(cfg, s, inp, now)
+    from raft_sim_tpu_torch.ops import tile
+
+    return tile.through_dense(cfg, s, inp, lambda c, d, i: _step_b(c, d, i, now))
+
+
+def _step_b(
+    cfg: RaftConfig, s: ClusterState, inp: StepInputs, now: int | None = None
+) -> tuple[ClusterState, StepInfo]:
+    """The dense batch-minor tick body."""
     n, e, cap = cfg.n_nodes, cfg.max_entries_per_rpc, cfg.log_capacity
     track = cfg.track_offer_ticks
     comp = cfg.compaction

@@ -13,9 +13,9 @@ clock skew, election-timeout draws, the client's cadence, the crash schedule
 routing draws (`client_target`, `client_bounce`), the reconfiguration
 plane's admin commands (`reconfig_cmd`, `transfer_cmd`, `read_cmd`) and the
 storage plane's disk draws (`fsync_fire`, `torn_drop`). Gated-off fields come
-out exactly as the JAX function emits them (zeros / NIL). The compacted
-layout is not ported; a config that turns it on raises NotImplementedError
-naming it.
+out exactly as the JAX function emits them (zeros / NIL). Under the compacted
+layout (`compact_planes`, ops/tile.py) the delivery mask ships flat: `[B, N*W]`
+instead of `[B, N, W]`, the same words.
 
 The scenario path (`genome=`, `seg_len=`; scenario/genome.py) takes each
 cluster's fault parameters from its row of a `[B, S]` genome, the segment
@@ -57,9 +57,11 @@ def bern_u32(key: torch.Tensor, thresh, shape=()) -> torch.Tensor:
     return threefry.bits(key, shape) < thresh
 
 
-def unsupported_input_gates(cfg: RaftConfig) -> list[str]:
-    """Input mechanisms of `cfg` the port does not draw yet."""
-    return ["compact_planes"] if cfg.compact_planes else []
+def _mask(cfg: RaftConfig, deliver: torch.Tensor) -> torch.Tensor:
+    """The [B, N, N] delivery plane packed over the source axis: [B, N, W]
+    words, shipped flat ([B, N*W]) under the compacted layout."""
+    words = bitplane.pack(deliver, axis=2)
+    return words.reshape(words.shape[0], -1) if cfg.compact_planes else words
 
 
 def _partition_cut(n: int, k_part: torch.Tensor, now, period, part_t):
@@ -295,11 +297,6 @@ def make_inputs(cfg: RaftConfig, keys: torch.Tensor, now: int, genome=None,
     With `facts`, returns (StepInputs, fault facts): `trace_fault_inputs`'s
     (crashed, cut_now, cut_prev), from the liveness and cut draws the inputs
     already make (the JAX program shares them the same way)."""
-    gates = unsupported_input_gates(cfg)
-    if gates:
-        raise NotImplementedError(
-            f"make_inputs does not support {', '.join(gates)} yet"
-        )
     n = cfg.n_nodes
     bsz = keys.shape[0]
     dev = keys.device
@@ -321,7 +318,7 @@ def make_inputs(cfg: RaftConfig, keys: torch.Tensor, now: int, genome=None,
           fsync_fire, torn_drop), (alive_prev, cut)) = _genome_inputs(
             cfg, keys, k_part, tkey, k_drop, k_skew, now, g)
         inp = StepInputs(
-            deliver_mask=bitplane.pack(deliver, axis=2), skew=skew, timeout_draw=timeout_draw,
+            deliver_mask=_mask(cfg, deliver), skew=skew, timeout_draw=timeout_draw,
             client_cmd=client_cmd, client_target=client_target, client_bounce=client_bounce,
             alive=alive, restarted=restarted, reconfig_cmd=reconfig_cmd,
             transfer_cmd=transfer_cmd, read_cmd=read_cmd, fsync_fire=fsync_fire,
@@ -375,7 +372,7 @@ def make_inputs(cfg: RaftConfig, keys: torch.Tensor, now: int, genome=None,
         return torch.full((bsz,) + shape, value, dtype=dtype, device=dev)
 
     inp = StepInputs(
-        deliver_mask=bitplane.pack(deliver, axis=2),
+        deliver_mask=_mask(cfg, deliver),
         skew=skew,
         timeout_draw=timeout_draw,
         client_cmd=full((), cmd),

@@ -15,6 +15,10 @@ cluster's own fault setting (faults.make_inputs); `simulate_scenario` is
 its states (the JAX `run(..., trace_states=True, genome=...)`), as a B=1 view
 of the same batch-minor path, so on the card it runs the kernel.
 
+`run(cfg, state, key, n_ticks, ...)` and `run_batch` are the JAX package's
+single-cluster API (one unbatched cluster; a leading batch of them), as B=1
+and B-wide views of the same batch-minor path.
+
 `tick_batch_minor(..., events=True)` also extracts the tick's protocol events
 (trace/events.py) for the trace plane's loops (sim/telemetry.py).
 """
@@ -254,14 +258,15 @@ def input_ticks(cfg: RaftConfig, keys: torch.Tensor, t0: int, n_ticks: int, geno
 
 
 def run_traced(cfg: RaftConfig, state: ClusterState, keys: torch.Tensor, n_ticks: int,
-               genome=None, seg_len: int = 1, step_fn=None):
+               genome=None, seg_len: int = 1, step_fn=None, keep_states: bool = True):
     """Replay clusters tick by tick, keeping every tick's StepInfo and
     post-tick state: the JAX `run(..., trace_states=True, genome=...)` for
     each cluster of a [B, ...]-leading `state` (one cluster: B = 1) with
     `keys` [B, 2] and `genome` [B, S] rows. Returns (final state, RunMetrics,
     (infos, states)) where infos and states lead with [B, T] -- row b is the
-    stacked trajectory `sim/trace.py` renders for cluster b. With a genome
-    the inputs are drawn a span of ticks at a time (`input_ticks`)."""
+    stacked trajectory `sim/trace.py` renders for cluster b (states None
+    without `keep_states`). With a genome the inputs are drawn a span of
+    ticks at a time (`input_ticks`)."""
     batch = state.role.shape[0]
     now = int(state.now.reshape(-1)[0]) if batch else 0
     s = raft_batched.to_batch_minor(state)
@@ -273,9 +278,47 @@ def run_traced(cfg: RaftConfig, state: ClusterState, keys: torch.Tensor, n_ticks
         s, m, info = tick_batch_minor(cfg, s, keys, m, t, step_fn=step_fn, genome=genome,
                                       seg_len=seg_len, inputs=inp)
         infos.append(info)
-        states.append(s)
+        if keep_states:
+            states.append(s)
     return (raft_batched.from_batch_minor(s), raft_batched.from_batch_minor(m),
-            (_stack_leaf(infos), _stack_leaf(states)))
+            (_stack_leaf(infos), _stack_leaf(states) if keep_states else None))
+
+
+def run_batch(cfg: RaftConfig, state: ClusterState, keys: torch.Tensor, n_ticks: int,
+              trace: bool = False, genome=None, seg_len: int = 1, step_fn=None):
+    """The JAX `run_batch`: `n_ticks` ticks of each cluster of a
+    [B, ...]-leading `state` with `keys` [B, 2] (and `genome` [B, S] rows).
+    Returns (final state, RunMetrics, outs), outs None or, with `trace`, the
+    stacked StepInfo [B, T, ...]."""
+    if not trace:
+        final, metrics = run_batch_minor(cfg, state, keys, n_ticks, step_fn=step_fn,
+                                         genome=genome, seg_len=seg_len)
+        return final, metrics, None
+    final, metrics, (infos, _) = run_traced(cfg, state, keys, n_ticks, genome=genome,
+                                            seg_len=seg_len, step_fn=step_fn, keep_states=False)
+    return final, metrics, infos
+
+
+def run(cfg: RaftConfig, state: ClusterState, key: torch.Tensor, n_ticks: int,
+        trace: bool = False, trace_states: bool = False, genome=None, seg_len: int = 1,
+        step_fn=None):
+    """The JAX `run`: one unbatched cluster `state` with its `[2]` key
+    forward `n_ticks` (its inputs under `genome`, `[S]` leaves, with
+    `seg_len`). Returns (final state, RunMetrics, outs): outs None, the
+    stacked StepInfo [T, ...] (`trace`), or (StepInfo, stacked states)
+    (`trace_states`). A B=1 view of `run_batch`."""
+    one = lambda tree: raft_batched._map(lambda x: x.unsqueeze(0), tree)  # noqa: E731
+    first = lambda tree: raft_batched._map(lambda x: x[0], tree)  # noqa: E731
+    g = None if genome is None else one(genome)
+    if trace_states:
+        final, metrics, (infos, states) = run_traced(cfg, one(state), key.unsqueeze(0), n_ticks,
+                                                     genome=g, seg_len=seg_len, step_fn=step_fn)
+        outs = (first(infos), first(states))
+    else:
+        final, metrics, outs = run_batch(cfg, one(state), key.unsqueeze(0), n_ticks, trace=trace,
+                                         genome=g, seg_len=seg_len, step_fn=step_fn)
+        outs = None if outs is None else first(outs)
+    return first(final), first(metrics), outs
 
 
 def simulate(

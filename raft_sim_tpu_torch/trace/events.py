@@ -184,8 +184,12 @@ def extract(
         return (new.role == role_code) & (old.role != role_code)
 
     # Incoming drops per receiver: the packed delivery row's popcount (the
-    # diagonal self-bit counts, so delivered <= n).
-    delivered = bitplane.count(inp.deliver_mask, axis=1)  # [N, B]
+    # diagonal self-bit counts, so delivered <= n). Under the compacted
+    # layout the word plane ships flat ([N*W, B]): restore the row view.
+    dm = inp.deliver_mask
+    if cfg.compact_planes:
+        dm = dm.reshape((n, -1) + tuple(dm.shape[1:]))
+    delivered = bitplane.count(dm, axis=1)  # [N, B]
     dropped = n - delivered
     burst = dropped >= max(1, (n + 1) // 2)
 

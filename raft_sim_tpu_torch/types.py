@@ -12,7 +12,8 @@ bit-planes `votes`, `member_*`, `base_mold`, `read_acks`, `pv_grant`,
 `req_base_mold`, `deliver_mask`, and the checksums `commit_chk`, `base_chk`,
 `req_base_chk`) ride `torch.int32` holding the same bit patterns, because
 torch's CPU uint32 lacks add/lt/rshift/sum. `U32_LEAVES` names them; the bridge
-views them back as uint32.
+views them back as uint32. Under `compact_planes` (ops/tile.py) the packed legs
+are uint32 too: `u32_leaves(cfg)` names every uint32 leg of a config.
 
 Public shapes are `[B, ...]`-leading like the JAX package's `init_batch`; the
 tick runs batch-minor `[..., B]` (sim/scan.py moves the axis once per run).
@@ -20,6 +21,7 @@ tick runs batch-minor `[..., B]` (sim/scan.py moves the axis once per run).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -76,6 +78,18 @@ U32_LEAVES = frozenset(
         "deliver_mask",
     }
 )
+
+
+def u32_leaves(cfg: RaftConfig) -> frozenset:
+    """Leaves whose JAX dtype is uint32 under `cfg`: U32_LEAVES, and under
+    the compacted layout its packed legs (tile.packed_carry_dtypes)."""
+    if not cfg.compact_planes:
+        return U32_LEAVES
+    from raft_sim_tpu_torch.ops import tile
+
+    packed = {f.removeprefix("mb.") for f, dt in tile.packed_carry_dtypes(cfg).items()
+              if dt == "uint32"}
+    return U32_LEAVES | packed
 
 
 def ack_dtype(cfg: RaftConfig) -> torch.dtype:
@@ -254,11 +268,8 @@ def empty_mailbox(cfg: RaftConfig, lead=(), device="cpu") -> Mailbox:
 
 
 def boot_state(cfg: RaftConfig, deadline: torch.Tensor) -> ClusterState:
-    """Boot state around `deadline` ([*lead, N] int32): the JAX init_state."""
-    if cfg.compact_planes:
-        raise NotImplementedError(
-            "compact_planes (the compacted carry layout) is not ported yet"
-        )
+    """Boot state around `deadline` ([*lead, N] int32): the JAX init_state,
+    in the compacted carry form under `compact_planes` (ops/tile.py)."""
     lead = tuple(deadline.shape[:-1])
     dev = deadline.device
     n, cap, k = cfg.n_nodes, cfg.log_capacity, cfg.client_pipeline
@@ -272,7 +283,7 @@ def boot_state(cfg: RaftConfig, deadline: torch.Tensor) -> ClusterState:
             return bitplane.full_row(n, dev).expand(lead + (n, w)).clone()
         return full((n, w), 0)
 
-    return ClusterState(
+    state = ClusterState(
         role=full((n,), FOLLOWER),
         term=full((n,), 1),
         voted_for=full((n,), NIL),
@@ -316,6 +327,11 @@ def boot_state(cfg: RaftConfig, deadline: torch.Tensor) -> ClusterState:
         now=full((), 0),
         mailbox=empty_mailbox(cfg, lead, dev),
     )
+    if cfg.compact_planes:
+        from raft_sim_tpu_torch.ops import tile
+
+        state = tile.pack_state(cfg, state, lead=len(lead))
+    return state
 
 
 def init_state(cfg: RaftConfig, key: torch.Tensor) -> ClusterState:
@@ -329,3 +345,9 @@ def init_batch(cfg: RaftConfig, key: torch.Tensor, batch: int) -> ClusterState:
     JAX `jax.vmap(init_state)(jax.random.split(key, batch))`."""
     keys = threefry.split(key, batch)
     return boot_state(cfg, draw_timeouts(cfg, keys, cfg.n_nodes))
+
+
+def compact_twin(cfg: RaftConfig, on: bool = True) -> RaftConfig:
+    """`cfg` with the compacted carry layout toggled (ops/tile.py): the
+    trajectory is the same either way, only the carry's physical form moves."""
+    return dataclasses.replace(cfg, compact_planes=on)

@@ -11,7 +11,8 @@ The file is the JAX package's, format v25: one .npz with the keys
 `mb_<field>`, `metrics_<field>` and `keys`, each leaf with the JAX leaf's
 dtype. So the two packages load each other's files. The port's carriers
 differ in two places and are converted at the file's edge: the uint32 legs
-(types.U32_LEAVES, int32 bit patterns here) are written as uint32, and the
+(`types.u32_leaves(cfg)`, int32 bit patterns here; a compacted carry's packed
+legs among them) are written as uint32, and the
 keys (int64 [B, 2] words here, utils/threefry.py) as JAX's uint32
 `key_data` [B, 2]. `scenario_json` records the nemesis program of a
 scenario run (scenario/program.py `to_dict(exact=True)`), `{}` for a plain
@@ -40,7 +41,8 @@ FORMAT_VERSION = 25
 
 def _check_dtypes(cfg: RaftConfig, state: ClusterState, metrics: RunMetrics, where: str) -> None:
     """Raise TypeError unless every leaf has the dtype the JAX package gives
-    it under `cfg` (the port's boot state's, built on the meta device) and
+    it under `cfg` (the port's boot state's, built on the meta device in
+    the config's layout) and
     every metric is int32: a JAX load would widen a stray int64 silently."""
     boot = types.boot_state(cfg, torch.empty(state.role.shape, dtype=torch.int32, device="meta"))
     pairs = [(f, getattr(state, f), getattr(boot, f)) for f in ClusterState._fields if f != "mailbox"]
@@ -71,7 +73,7 @@ def save(
     run); returns the path written (always .npz-suffixed)."""
     path = _normalize(path)
     _check_dtypes(cfg, state, metrics, "checkpoint.save")
-    st = bridge.to_numpy(state)
+    st = bridge.to_numpy(state, types.u32_leaves(cfg))
     arrays = {f"state_{f}": getattr(st, f) for f in ClusterState._fields if f != "mailbox"}
     arrays |= {f"mb_{f}": getattr(st.mailbox, f) for f in Mailbox._fields}
     arrays |= {f"metrics_{f}": v for f, v in zip(RunMetrics._fields, bridge.to_numpy(metrics))}

@@ -98,16 +98,16 @@ def test_validator_rejects_like_jax(bad):
         tconfig.RaftConfig(**bad)
 
 
-def _leaf_sig(tree, prefix=""):
+def _leaf_sig(tree, prefix="", u32=ttypes.U32_LEAVES):
     out = []
     for f in tree._fields:
         x = getattr(tree, f)
         if hasattr(x, "_fields"):
-            out += _leaf_sig(x, prefix + f + ".")
+            out += _leaf_sig(x, prefix + f + ".", u32)
         else:
             a = np.asarray(x) if not isinstance(x, torch.Tensor) else x
             if isinstance(a, torch.Tensor):
-                dt = np.uint32 if f in ttypes.U32_LEAVES else DTYPES[a.dtype]
+                dt = np.uint32 if f in u32 else DTYPES[a.dtype]
             else:
                 dt = a.dtype
             out.append((prefix + f, tuple(a.shape), np.dtype(dt)))
@@ -116,19 +116,14 @@ def _leaf_sig(tree, prefix=""):
 
 @pytest.mark.parametrize("name", sorted(jconfig.PRESETS))
 def test_init_batch_leaves_match(name):
-    """Leaf names, shapes and dtypes of init_batch equal the JAX package's.
-    The compacted carry layout (config5c, config7x) is not ported: the port
-    raises for it, and its dense twin is compared instead."""
+    """Leaf names, shapes and dtypes of init_batch equal the JAX package's,
+    the compacted carry layout (config5c, config7x: packed legs uint32)
+    included."""
     jcfg, _ = jconfig.PRESETS[name]
     tcfg, _ = tconfig.PRESETS[name]
-    if tcfg.compact_planes:
-        with pytest.raises(NotImplementedError, match="compact_planes"):
-            ttypes.init_batch(tcfg, threefry.key(0), 2)
-        jcfg = jtypes.compact_twin(jcfg, on=False)
-        tcfg = dataclasses.replace(tcfg, compact_planes=False)
     want = jax.device_get(rst.init_batch(jcfg, jax.random.key(0), 3))
     got = ttypes.init_batch(tcfg, threefry.key(0), 3)
-    assert _leaf_sig(got) == _leaf_sig(want)
+    assert _leaf_sig(got, u32=ttypes.u32_leaves(tcfg)) == _leaf_sig(want)
     assert len(jax.tree.leaves(want)) == 69
 
 

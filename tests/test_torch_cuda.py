@@ -225,6 +225,38 @@ def test_race_proxy_matches_plain_step_on_small_and_ragged_batches(card, name, b
           proxy=True)
 
 
+# The compacted carry layout: config5c (N=51, LM every 16), config7x (N=255,
+# partitions) and the compacting config6 twin (full body, index planes dense).
+COMPACT = {
+    "config5c": (tconfig.PRESETS["config5c"][0], 200, 48),
+    "config7x": (tconfig.PRESETS["config7x"][0], 45, 32),
+    "config6-compact": (ttypes.compact_twin(tconfig.PRESETS["config6"][0]), 45, 96),
+}
+
+
+@pytest.mark.parametrize("proxy", [False, True], ids=["kernel", "proxy"])
+@pytest.mark.parametrize("name", list(COMPACT))
+def test_step_cuda_matches_plain_step_under_compact_planes(card, name, proxy):
+    """step_cuda on a compacted carry (unpack, K1 or its race proxy on the
+    dense view, repack with the gated-off legs passed through) equals the
+    plain compacted tick every tick, one launch a tick; the state stays
+    packed."""
+    cfg, batch, ticks = COMPACT[name]
+    before = tick_engine.step_cuda.launches
+    s = _hold(cfg, batch, ticks if not proxy else 16, card, proxy=proxy)
+    assert tick_engine.step_cuda.launches == before + (ticks if not proxy else 16)
+    assert s.ack_age.dim() == 2 and s.mailbox.resp_kind.dim() == 2
+
+
+@pytest.mark.parametrize("name", ["config5c", "config7x"])
+def test_simulate_compact_card_matches_cpu(card, name):
+    cfg, _ = tconfig.PRESETS[name]
+    got = scan.simulate(cfg, 3, 8, 32, device=card)
+    want = scan.simulate(cfg, 3, 8, 32, device="cpu")
+    assert bridge.first_difference(want[0], got[0]) is None
+    assert bridge.first_difference(want[1], got[1]) is None
+
+
 @pytest.mark.parametrize("name", ["config2", "config4", "config6r", "config8", "config9", "config10",
                                   "config7"])
 def test_simulate_card_matches_cpu(card, name):

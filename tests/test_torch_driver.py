@@ -99,22 +99,25 @@ def test_resume_is_exclusive_with_config_flags(capsys, flags, named):
                                   "--devices", "--sanitize", "--profile", "--backend"])
 def test_unported_flags_are_unknown(capsys, flag):
     """A flag of the JAX `run` the port has not taken is refused, never
-    accepted and ignored."""
+    accepted and ignored; --backend, now taken, refuses a name it does not
+    know."""
     with pytest.raises(SystemExit) as ex:
         cli.main(["run", "--device", "cpu", flag, "x"])
     assert ex.value.code == 2
-    assert "unrecognized arguments" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert ("invalid choice" if flag == "--backend" else "unrecognized arguments") in err
 
 
 @pytest.mark.parametrize("flag", ["--perf", "--health", "--profile", "--sanitize", "--backend"])
 def test_serve_unported_flags_are_unknown(capsys, flag):
     """The JAX `serve` flags the port has not taken (chunk timing, SLO
-    monitors, the profiler, the donation sanitizer, the JAX backend) are
-    refused by the port's `serve`."""
+    monitors, the profiler, the donation sanitizer) are refused by the
+    port's `serve`; --backend, now taken, refuses a name it does not know."""
     with pytest.raises(SystemExit) as ex:
         cli.main(["serve", "--device", "cpu", flag, "x"])
     assert ex.value.code == 2
-    assert "unrecognized arguments" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert ("invalid choice" if flag == "--backend" else "unrecognized arguments") in err
 
 
 def test_telemetry_dir_matches_jax(tmp_path):
@@ -215,3 +218,54 @@ def test_scenario_search_then_shrink(tmp_path, capsys):
                                                           device="cpu")))
     assert printed["tick"] == art["tick"] and printed["kinds"] == art["kinds"]
     assert shrink_mod.replay_artifact(art, device="cpu")["reproduced"]
+
+
+@pytest.mark.parametrize("backend,device", [("cpu", "cpu"), ("cpu", None), ("auto", "cuda"),
+                                            ("tpu", None), ("gpu", None), ("cuda", "cuda"),
+                                            (None, None), (None, "cpu")])
+def test_backend_maps_to_a_device(backend, device):
+    """The JAX driver's --backend names map to the port's device: cpu to the
+    CPU, auto/tpu/gpu/cuda to the card; with neither flag, the card."""
+    ap = argparse.ArgumentParser()
+    args = argparse.Namespace(backend=backend, device=device)
+    driver.select_device(ap, args)
+    want = device or (driver.BACKENDS[backend] if backend else "cuda")
+    assert args.device == want
+    assert args.device == ("cpu" if "cpu" in (backend, device) else "cuda")
+
+
+@pytest.mark.parametrize("argv", [
+    ["run", "--backend", "cuda", "--device", "cpu"],
+    ["run", "--backend", "cpu", "--device", "cuda"],
+    ["serve", "--backend", "tpu", "--device", "cpu"],
+    ["scenario", "run", "--backend", "auto", "--device", "cpu"],
+    ["scenario", "search", "--backend", "gpu", "--device", "cpu"],
+    ["scenario", "shrink", "--hit", "h.json", "--out", "a.json", "--backend", "cpu",
+     "--device", "cuda"],
+], ids=["run-cuda", "run-cpu", "serve", "scenario-run", "scenario-search", "scenario-shrink"])
+def test_backend_conflicting_with_device_is_refused(capsys, argv):
+    with pytest.raises(SystemExit) as ex:
+        cli.main(argv)
+    assert ex.value.code == 2
+    assert "--backend" in capsys.readouterr().err
+
+
+def test_backend_without_a_card_raises_and_cpu_runs(capsys):
+    """--backend cuda (and tpu, which means the accelerator) fails without a
+    card, naming the missing device; --backend cpu runs there, as --device
+    cpu does, with the same summary."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the refusal cannot show")
+    for name in ("cuda", "tpu"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(["run", "--preset", "config2", "--batch", "2", "--ticks", "5",
+                      "--backend", name])
+    out = []
+    for flag in (("--backend", "cpu"), ("--device", "cpu")):
+        assert cli.main(["run", "--preset", "config7x", "--batch", "2", "--ticks", "8", *flag]) == 0
+        doc = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        doc.pop("wall_s"), doc.pop("cluster_ticks_per_s")
+        out.append(doc)
+    assert out[0] == out[1] and out[0]["device"] == "cpu" and out[0]["total_violations"] == 0

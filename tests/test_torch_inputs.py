@@ -191,6 +191,13 @@ def test_crash_and_redirect_inputs_are_accepted(kw):
     ids=lambda x: x if isinstance(x, str) else None,
 )
 def test_unported_input_gates_raise(kw, gate):
+    """compact_planes, refused until the compacted layout was ported, is
+    taken: the delivery mask ships flat ([B, N*W]), the dense words, and
+    every other leaf is the dense config's."""
     cfg = tconfig.RaftConfig(**kw)
-    with pytest.raises(NotImplementedError, match=gate):
-        tfaults.make_inputs(cfg, threefry.split(threefry.key(0), 2), 0)
+    keys = threefry.split(threefry.key(0), 2)
+    got = tfaults.make_inputs(cfg, keys, 0)
+    want = tfaults.make_inputs(dataclasses.replace(cfg, **{gate: False}), keys, 0)
+    assert got.deliver_mask.shape == (2, cfg.n_nodes * 1)
+    assert torch.equal(got.deliver_mask, want.deliver_mask.reshape(2, -1))
+    assert bridge.first_difference(want._replace(deliver_mask=got.deliver_mask), got) is None

@@ -41,7 +41,7 @@ CASES = [
     pytest.param("config3p", 8, 80, id="config3p"),
     # Slice 3: config8 past its first transfers (61, 122) and membership
     # toggle (97); config9's lease reads until its CAP=64 ring wraps.
-    pytest.param("config8", 4, 200, id="config8"),
+    pytest.param("config8", 4, 128, id="config8"),
     pytest.param("config9", 4, 320, id="config9"),
     # Slice 4: config10's fsync cadence, recovery and durability gate under
     # crash churn (its first crash windows end at ticks 64 and 128).
@@ -156,16 +156,17 @@ def test_default_device_raises_without_a_card(tmp_path):
     ids=lambda x: x if isinstance(x, str) else None,
 )
 def test_simulate_unsupported_gate_raises(kw, gate):
-    """compact_planes is refused by name; track_trace (refused until the trace
-    plane was ported) is taken, and a plain run under it is the untraced run."""
-    if gate == "track_trace":
-        want = tscan.simulate(tconfig.RaftConfig(), 0, 2, 3, device="cpu")
-        got = tscan.simulate(tconfig.RaftConfig(**kw), 0, 2, 3, device="cpu")
-        assert bridge.first_difference(want[0], got[0]) is None
-        assert bridge.first_difference(want[1], got[1]) is None
-        return
-    with pytest.raises(NotImplementedError, match=gate):
-        tscan.simulate(tconfig.RaftConfig(**kw), 0, 2, 3, device="cpu")
+    """Both gates, once refused, are taken. A plain run under track_trace is
+    the untraced run; under compact_planes the final state, unpacked
+    (ops/tile.py), and the metrics are the dense run's."""
+    from raft_sim_tpu_torch.ops import tile
+
+    cfg = tconfig.RaftConfig(**kw)
+    want = tscan.simulate(tconfig.RaftConfig(), 0, 2, 3, device="cpu")
+    got = tscan.simulate(cfg, 0, 2, 3, device="cpu")
+    final = tile.unpack_state(cfg, got[0], lead=1) if gate == "compact_planes" else got[0]
+    assert bridge.first_difference(want[0], final) is None
+    assert bridge.first_difference(want[1], got[1]) is None
 
 
 @pytest.mark.parametrize("name,gate", [("config9", "serve_reads"), ("config2", "serve_ingest")],
