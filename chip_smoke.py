@@ -3,14 +3,21 @@
 
     python3 chip_smoke.py
 
-Phases (each prints one JSON line; any failure raises and exits non-zero):
+Phases (each prints JSON lines, a phase's with `at_s`, the seconds since
+the start; any failure raises and exits non-zero):
 
 1. device  -- `nvidia-smi` name and power limit, torch and CUDA versions, then
    the tick kernel's build from raft_sim_tpu_torch/csrc (nvcc, sm_90a) with its
    seconds and the compiler's register/stack/spill report per instantiation
    (tick_kernel<index, ack, node dtype, width tier, nodes per thread, body:
    0 lean, 1 full, 2 mutant>), nine nvcc runs in parallel. The race proxy's library (below)
-   builds in the background from here on.
+   builds in the background from here on. PARITY_WORKERS worker processes,
+   each with its own context on the card and a lower priority than nvcc,
+   start before the build; the rows that time nothing -- phases 2, 2b and
+   3, serve (a), trace (a), compact (a), (d) and (e), observe (b) and (e)
+   -- run in them (those on the CPU alone beside the build), and all are
+   done before phase 4 times anything (`parity_workers`' phase_end line).
+   Their lines print in each phase's place and order.
 2. kernel_vs_plain -- presets config1-config5 and config3p for 64 ticks,
    config6 and config6r for 96 (config6-cap8 and the ring-LM rows carry
    the compactions), config8 for 160 (its first membership toggle is
@@ -147,7 +154,7 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
 4e. trace -- the slice-10 path: the protocol trace plane
    (raft_sim_tpu_torch/trace/), every traced tick one launch of the kernel.
    (a) Under track_trace, the kernel on the card == the plain tick on the
-   CPU (in a worker process, over the card's inputs) every tick on
+   CPU (in the same parity worker, over the card's inputs) every tick on
    TRACE_ROWS (config2, config3p, config5, config6, config8, config9,
    config10 and config4c under a two-segment genome fleet; TRACE_B x
    TRACE_T): state, StepInfo and the extracted TickEvents equal, and the
@@ -157,13 +164,13 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    tests/trace_kind_counts_jax.py), and the kinds never emitted are the
    JAX run's. (b) `run --trace` (config6, 16 x 128) writes the same trace
    files on the card as on the CPU. (c) `run --trace` at config6's batch
-   (1,000 x 320, window 64, depth 256, doubled until no window drops an
+   (1,000 x 192, window 64, depth 256, doubled until no window drops an
    event): launches == ticks, validate() clean, the checker's history
    complete with all six properties passing; ms a tick traced and untraced
    on the same seed, the extraction's and the ring fold's ms (CUDA
    events), events written, sink bytes, the checker's seconds. (d) A
    coverage hunt (coverage fitness, guided proposals) at config4c's
-   batch of 100,000, 2 generations x 256 ticks, window 64, depth 32: 0
+   batch of 100,000, 2 generations x 128 ticks, window 64, depth 32: 0
    violations, launches == ticks, the guided clones of generation 1 and
    its new bits, ms a tick, peak memory; then a weak-quorum coverage hunt
    at 10,000 must hit, and its shrunk artifact's checker replay must be
@@ -193,6 +200,34 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    --scenario P` at 64 x 100 (windows.jsonl and summary.json byte-equal),
    `scan.run` (B=1) and `scan.run_batch` (B=4) traced for 32 ticks, and
    `run --backend cuda` equal to `run --device cuda` at config7x.
+4g. observe -- the observability planes (obs/ chunk timer, health/ SLO
+   monitors) and the fuzzing farm (farm/). (a) `run --perf --health` at
+   config6's batch (OBS_RUN: 1,000 x 256, chunks of 64, window 64, a flight
+   ring of 8) equals the same run unarmed: state and metrics (--save), the
+   window, flight and summary files; perf.jsonl validates with 4 rows, 2 of
+   them warmup, none recompiled, live_bytes an int, the library loaded once;
+   launches == ticks; the steady ms a chunk, the device-wait share and the
+   armed wall beside the unarmed one. (b) The same at OBS_SMALL (16 x 128)
+   on the card and on the CPU: health.jsonl, alerts.jsonl and the evidence
+   bundles equal (the device-wait share and the bundles' perf rows, clock
+   readings, left out); (b) and (e) run in the parity workers beside
+   phase 2. (c) The config9-serve session of the serve phase (1,000 clusters, 4
+   tenants, 256 warmup ticks and SERVE_CHUNKS chunks of 256) with perf= and
+   health=: commands acked, reads served and the final state equal the serve
+   phase's unarmed run; the bench row's `perf` filled; ops/s armed beside
+   unarmed. (d) `scenario farm` on config4c under weak-quorum (scalar,
+   coverage, guided; FARM_RUN: population 10,000, 192 ticks, window 64,
+   depth 32; at most 4 generations, stop on a hit; a copy of tests/corpus,
+   --freeze, --health): a hit found, shrunk and frozen or dedup-rejected,
+   the out-dir valid; ms a generation (perf.jsonl), the host's share of it,
+   K1's ms a tick on the hunt's tick at the population (CUDA events) beside
+   its bound and the plain tick, after FULL_HOLD_TICKS ticks of kernel ==
+   plain on that state, peak memory, launches. (e) The fresh-freeze
+   farm of the CPU tests (blind-transfer, 16 x 192, 4 generations) gives the
+   same manifest, hunt rows and frozen artifact on the card as on the CPU.
+   (f) `run --profile DIR` at config2 8 x PROFILE_T (32) equals the
+   unprofiled run and writes a trace whose kernel rows hold the tick
+   kernel's launches; the card's busy share over the profiled span.
 5. bench_row -- the port's bench (raft_sim_tpu_torch/bench.py) on config2 at
    64 x 100 ticks, 3 quality seeds and 2 repeats, on the card and on the CPU:
    every quality field equal; the card's row carries backend "cuda", the
@@ -207,15 +242,18 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import multiprocessing
 import os
+import shutil
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 BW_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 SEED = 0
 FULL_HOLD_TICKS = 8  # kernel-vs-plain ticks at full width, per cell
+PARITY_WORKERS = 6  # processes for the rows that time nothing (phase 1)
 LONG_T = 150  # long_run: the resumed run's half (2 x LONG_T uninterrupted)
 SIM_TICKS = 4  # phase 2: ticks of `simulate` through the kernel vs the plain tick
 LONG_CHUNK = 50  # long_run's chunk: commit moves < CAP - margin a chunk
@@ -231,12 +269,26 @@ TRACE_ROWS = ("config2", "config3p", "config5", "config6", "config8", "config9",
 # The per-kind event counts of the JAX package's run of each trace (a) row
 # (tests/trace_kind_counts_jax.py writes them): the card's must equal them.
 TRACE_COUNTS = os.path.join("tests", "trace_kind_counts_jax.json")
-TRACE_RUN = (1_000, 320, 64, 256)  # trace (c): config6's batch, ticks, window, first depth
-COV_POP, COV_T, COV_WINDOW, COV_DEPTH = 100_000, 256, 64, 32  # trace (d): the coverage hunt
+TRACE_RUN = (1_000, 192, 64, 256)  # trace (c): config6's batch, ticks, window, first depth
+COV_POP, COV_T, COV_WINDOW, COV_DEPTH = 100_000, 128, 64, 32  # trace (d): the coverage hunt
 WQ_POP, WQ_T = 10_000, 192  # trace (d): the weak-quorum coverage hunt's population, ticks
+OBS_RUN = (1_000, 256, 64)  # observe (a): config6's batch, ticks, chunk (4 perf rows)
+OBS_SMALL = (16, 128)  # observe (b): batch, ticks of the card == CPU health run
+OBS_SMALL_ARGV = ["run", "--preset", "config6", "--batch", str(OBS_SMALL[0]), "--ticks",
+                  str(OBS_SMALL[1]), "--chunk", "64", "--telemetry-window", "64",
+                  "--telemetry-ring", "8", "--perf", "--health"]
+PROFILE_T = 32  # observe (f): ticks of the profiled config2 run
+FARM_RUN = (10_000, 192, 64, 32)  # observe (d): population, ticks, window, trace depth
+
+
+T_START = time.perf_counter()
 
 
 def emit(obj) -> None:
+    """Print `obj` as a JSON line; a phase's line gains `at_s`, the seconds
+    since the script started."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -371,6 +423,104 @@ def count_events(cfg, t, s, inp, new, info, ev) -> None:
         ev["ack_clamps"] += int(held.sum())
         if t % cfg.fsync_interval == 0:
             ev["jitter_stalls"] += int((inp.alive & ~inp.fsync_fire).sum())
+
+
+def hold_ticks(cfg, s, keys, t0: int, n: int, what: str, events=None, proxy=False,
+               genome=None, seg_len=1):
+    """`n` ticks from batch-minor state `s`: each tick the kernel (with
+    `proxy`, its race proxy) equals the plain tick on the card, state and
+    StepInfo, leaf for leaf. `events`, a Counter, accumulates the
+    slice-2/3/4 event counts and the violating cluster-ticks. `genome`
+    ([B, S] rows on the card) draws the inputs on the scenario path, a span
+    of ticks at a time (scan.input_ticks)."""
+    from raft_sim_tpu_torch.kernels import tick_engine
+    from raft_sim_tpu_torch.models import raft_batched
+    from raft_sim_tpu_torch.sim import faults, scan
+
+    drawn = (scan.input_ticks(cfg, keys, t0, n, genome, seg_len) if genome is not None
+             else (faults.make_inputs(cfg, keys, t) for t in range(t0, t0 + n)))
+    for t, inp in zip(range(t0, t0 + n), drawn):
+        inp = raft_batched.to_batch_minor(inp)
+        ref_s, ref_i = raft_batched.step_b(cfg, s, inp, t)
+        got_s, got_i = tick_engine.step_cuda(cfg, s, inp, t, proxy=proxy)
+        check_equal(ref_s, got_s, f"{what} tick {t}: step_cuda state != step_b")
+        check_equal(ref_i, got_i, f"{what} tick {t}: step_cuda StepInfo != step_b")
+        if events is not None:
+            count_events(cfg, t, s, inp, got_s, got_i, events)
+        s = got_s
+    return s
+
+
+def _parity_init() -> None:
+    """A parity worker's start: its share of the host's threads, a lower
+    priority than the kernels' nvcc runs (which the race proxy's rows wait
+    for), and its context on the card, made while the main process builds
+    the kernel. The worker loads the library the main process built."""
+    import torch
+
+    os.nice(10)
+    torch.set_num_threads(2)
+    torch.zeros(1, device="cuda")
+
+
+def _fleet(cfg, batch: int):
+    """A fresh batch-minor fleet on the card from SEED, and its keys."""
+    import torch
+    from raft_sim_tpu_torch.models import raft_batched
+    from raft_sim_tpu_torch.types import init_batch
+    from raft_sim_tpu_torch.utils import threefry
+
+    dev = torch.device("cuda")
+    s = raft_batched.to_batch_minor(init_batch(cfg, threefry.key(SEED, dev), batch))
+    return s, threefry.split(threefry.key(SEED + 1, dev), batch)
+
+
+def _parity_row(name: str, cfg, batch: int, ticks: int) -> tuple:
+    """Phase 2's row `name`, in a parity worker: `ticks` ticks of kernel ==
+    plain from a fresh fleet, then `simulate` through each for SIM_TICKS.
+    Returns its kernel_vs_plain line and its event Counter."""
+    import collections
+
+    import torch
+    from raft_sim_tpu_torch.models import raft_batched
+    from raft_sim_tpu_torch.sim import scan
+
+    dev = torch.device("cuda")
+    s, keys = _fleet(cfg, batch)
+    ev = collections.Counter()
+    hold_ticks(cfg, s, keys, 0, ticks, name, ev)
+    sim_ticks = min(ticks, SIM_TICKS)
+    f_k, m_k = scan.simulate(cfg, SEED, batch, sim_ticks, device=dev)
+    f_p, m_p = scan.simulate(cfg, SEED, batch, sim_ticks, device=dev, step_fn=raft_batched.step_b)
+    check_equal(f_p, f_k, f"{name}: simulate state, kernel != plain")
+    check_equal(m_p, m_k, f"{name}: simulate RunMetrics, kernel != plain")
+    return {"phase": "kernel_vs_plain", "preset": name, "batch": batch, "ticks": ticks,
+            "per_tick": "equal", "simulate_ticks": sim_ticks, "simulate": "equal", "max_abs_err": 0,
+            "max_commit": int(m_k.max_commit.max()), "violations": int(m_k.violations.sum()),
+            "events": dict(ev)}, ev
+
+
+def _proxy_row(name: str, cfg, batch: int, ticks: int) -> dict:
+    """Phase 2b's row `name`, in a parity worker: the race proxy == plain."""
+    s, keys = _fleet(cfg, batch)
+    hold_ticks(cfg, s, keys, 0, ticks, f"race proxy {name}", proxy=True)
+    return {"phase": "race_proxy", "preset": name, "batch": batch, "ticks": ticks,
+            "per_tick": "equal", "max_abs_err": 0}
+
+
+def _card_vs_cpu_row(name: str, batch: int, ticks: int) -> dict:
+    """Phase 3's row `name`, in a parity worker: `simulate` card == CPU."""
+    from raft_sim_tpu_torch.sim import scan
+    from raft_sim_tpu_torch.summary import summarize
+    from raft_sim_tpu_torch.utils.config import PRESETS
+
+    cfg, _ = PRESETS[name]
+    f_g, m_g = scan.simulate(cfg, SEED, batch, ticks, device="cuda")
+    f_c, m_c = scan.simulate(cfg, SEED, batch, ticks, device="cpu")
+    check_equal(f_c, f_g, f"{name}: simulate state, card != CPU")
+    check_equal(m_c, m_g, f"{name}: simulate RunMetrics, card != CPU")
+    return {"phase": "card_vs_cpu", "preset": name, "batch": batch, "ticks": ticks,
+            "max_abs_err": 0, "summary_equal": summarize(m_g) == summarize(m_c)}
 
 
 def stream_check(writer, n_nodes: int) -> dict:
@@ -532,20 +682,88 @@ def readback_check(rows: list[dict], state, quorum: int) -> dict:
             "min_holders": int(held.sum(axis=1).min()) if idx.size else None}
 
 
-def serve_phase(dev, wall_ms) -> dict:
-    """Phase 4c: the serve path (see the module docstring). Returns its cell."""
+def served_rows() -> list:
+    """serve (a)'s rows: (name, served config, batch, ticks, proxy)."""
+    from raft_sim_tpu_torch.serve.loop import serve_config
+    from raft_sim_tpu_torch.utils.config import PRESETS
+
+    rows = [(f"{name}-served", serve_config(PRESETS[name][0]), 200, SERVE_T, False)
+            for name in ("config9", "config6r", "config10", "config2")]
+    return rows + [(name, cfg, 45, 96, True) for name, cfg, *_ in rows
+                   if name in ("config9-served", "config2-served")]
+
+
+def served_inputs(cfg, keys, t: int, cmds, reads, k: int):
+    """Tick `t`'s batch-minor inputs with row `k` of the packed command and
+    read planes in place of the scheduled offers."""
+    from raft_sim_tpu_torch.models import raft_batched
+    from raft_sim_tpu_torch.sim import faults
+
+    inp = faults.make_inputs(cfg, keys, t)._replace(client_cmd=cmds[k])
+    if reads is not None:
+        inp = inp._replace(read_cmd=reads[k])
+    return raft_batched.to_batch_minor(inp)
+
+
+def _served_row(name: str, cfg, batch: int, ticks: int, proxy: bool) -> dict:
+    """serve (a)'s row `name`, in a parity worker: `ticks` ticks of kernel
+    (or proxy) == plain under the bench load's planes for `batch` clusters
+    split among 4 tenants. Returns its line, with the per-tenant acks and
+    reads."""
+    import torch
+    from raft_sim_tpu_torch import bench
+    from raft_sim_tpu_torch.kernels import tick_engine
+    from raft_sim_tpu_torch.models import raft_batched
+    from raft_sim_tpu_torch.serve import TenantRouter
+    from raft_sim_tpu_torch.serve.deltas import DeltaStream
+
+    dev = torch.device("cuda")
+    router = TenantRouter(bench.serve_tenants(batch, 4, reads=cfg.read_index), batch,
+                          cfg.read_index)
+    cmds_np, reads_np = router.pack(ticks)
+    cmds = torch.from_numpy(cmds_np).to(dev)
+    reads = None if reads_np is None else torch.from_numpy(reads_np).to(dev)
+    s, keys = _fleet(cfg, batch)
+    served = torch.zeros(batch, dtype=torch.int64, device=dev)
+    viol = 0
+    for t in range(ticks):
+        inp = served_inputs(cfg, keys, t, cmds, reads, t)
+        ref_s, ref_i = raft_batched.step_b(cfg, s, inp, t)
+        got_s, got_i = tick_engine.step_cuda(cfg, s, inp, t, proxy=proxy)
+        check_equal(ref_s, got_s, f"serve {name} tick {t}: step_cuda state != step_b")
+        check_equal(ref_i, got_i, f"serve {name} tick {t}: step_cuda StepInfo != step_b")
+        served += got_i.reads_served
+        viol += int((got_i.viol_election_safety | got_i.viol_commit | got_i.viol_log_matching
+                     | got_i.viol_read_stale).sum())
+        s = got_s
+    router.route_deltas(DeltaStream(batch, depth=64, device=dev, batch_minor=True).drain(s))
+    acked = [len(t.acked_values) for t in router.tenants]
+    reads_t = [int(served[t.lo:t.hi].sum()) for t in router.tenants]
+    if viol or min(acked) <= 0 or (cfg.read_index and min(reads_t) <= 0):
+        raise AssertionError(f"serve {name}: violations {viol}, acked per tenant {acked}, "
+                             f"reads per tenant {reads_t}")
+    if proxy:
+        return {"phase": "race_proxy", "preset": name, "batch": batch, "ticks": ticks,
+                "per_tick": "equal", "max_abs_err": 0}
+    return {"phase": "serve_kernel_vs_plain", "preset": name, "batch": batch, "ticks": ticks,
+            "per_tick": "equal", "max_abs_err": 0, "acked_per_tenant": acked,
+            "reads_per_tenant": reads_t}
+
+
+def serve_phase(dev, wall_ms, served) -> tuple:
+    """Phase 4c: the serve path (see the module docstring). `served` holds
+    (a)'s lines (`_served_row`, in `served_rows` order). Returns its cell
+    and (c)'s unarmed outcome (acks, reads, final state, rates), which the
+    observe phase's armed run of the same session is held to."""
     import shutil
 
     import torch
     from raft_sim_tpu_torch import bench
     from raft_sim_tpu_torch.kernels import tick_engine
     from raft_sim_tpu_torch.models import raft_batched
-    from raft_sim_tpu_torch.serve import ServeSession, TenantRouter
-    from raft_sim_tpu_torch.serve.deltas import DeltaStream
+    from raft_sim_tpu_torch.serve import ServeSession
     from raft_sim_tpu_torch.serve.loop import serve_config
     from raft_sim_tpu_torch.sim import faults
-    from raft_sim_tpu_torch.types import init_batch
-    from raft_sim_tpu_torch.utils import threefry
     from raft_sim_tpu_torch.utils.config import PRESETS
     from raft_sim_tpu_torch.utils.telemetry_sink import TelemetrySink, read_windows, validate
 
@@ -553,56 +771,10 @@ def serve_phase(dev, wall_ms) -> dict:
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
 
-    def served_inputs(cfg, keys, t, cmds, reads, k):
-        inp = faults.make_inputs(cfg, keys, t)
-        inp = inp._replace(client_cmd=cmds[k])
-        if reads is not None:
-            inp = inp._replace(read_cmd=reads[k])
-        return raft_batched.to_batch_minor(inp)
-
-    def hold_served(name, cfg, batch, ticks, proxy=False):
-        """`ticks` ticks of kernel (or proxy) == plain under the bench load's
-        planes for `batch` clusters split among 4 tenants; returns the
-        per-tenant acks and reads."""
-        router = TenantRouter(bench.serve_tenants(batch, 4, reads=cfg.read_index), batch,
-                              cfg.read_index)
-        cmds_np, reads_np = router.pack(ticks)
-        cmds = torch.from_numpy(cmds_np).to(dev)
-        reads = None if reads_np is None else torch.from_numpy(reads_np).to(dev)
-        s = raft_batched.to_batch_minor(init_batch(cfg, threefry.key(SEED, dev), batch))
-        keys = threefry.split(threefry.key(SEED + 1, dev), batch)
-        served = torch.zeros(batch, dtype=torch.int64, device=dev)
-        viol = 0
-        for t in range(ticks):
-            inp = served_inputs(cfg, keys, t, cmds, reads, t)
-            ref_s, ref_i = raft_batched.step_b(cfg, s, inp, t)
-            got_s, got_i = tick_engine.step_cuda(cfg, s, inp, t, proxy=proxy)
-            check_equal(ref_s, got_s, f"serve {name} tick {t}: step_cuda state != step_b")
-            check_equal(ref_i, got_i, f"serve {name} tick {t}: step_cuda StepInfo != step_b")
-            served += got_i.reads_served
-            viol += int((got_i.viol_election_safety | got_i.viol_commit | got_i.viol_log_matching
-                         | got_i.viol_read_stale).sum())
-            s = got_s
-        router.route_deltas(DeltaStream(batch, depth=64, device=dev, batch_minor=True).drain(s))
-        acked = [len(t.acked_values) for t in router.tenants]
-        reads_t = [int(served[t.lo:t.hi].sum()) for t in router.tenants]
-        if viol or min(acked) <= 0 or (cfg.read_index and min(reads_t) <= 0):
-            raise AssertionError(f"serve {name}: violations {viol}, acked per tenant {acked}, "
-                                 f"reads per tenant {reads_t}")
-        return {"acked_per_tenant": acked, "reads_per_tenant": reads_t}
-
     # ---- (a) kernel == plain under served planes, then the race proxy ------
-    rows = [(f"{name}-served", serve_config(PRESETS[name][0]))
-            for name in ("config9", "config6r", "config10", "config2")]
-    for name, cfg in rows:
-        out = hold_served(name, cfg, 200, SERVE_T)
-        emit({"phase": "serve_kernel_vs_plain", "preset": name, "batch": 200, "ticks": SERVE_T,
-              "per_tick": "equal", "max_abs_err": 0, **out})
-    for name, cfg in rows:
-        if name in ("config9-served", "config2-served"):
-            hold_served(name, cfg, 45, 96, proxy=True)
-            emit({"phase": "race_proxy", "preset": name, "batch": 45, "ticks": 96,
-                  "per_tick": "equal", "max_abs_err": 0})
+    # The rows ran in the parity workers beside phase 2 (`_served_row`).
+    for line in served:
+        emit(line)
 
     # ---- (b) a served ServeSession, card == CPU -----------------------------
     cfg9, batch9 = PRESETS["config9"]
@@ -716,10 +888,12 @@ def serve_phase(dev, wall_ms) -> dict:
         "nvidia_smi": row["nvidia_smi"],
     }
     emit(cell)
-    del sess, state, s, s_h, inp, inp_served, inp_plain
+    unarmed = {"commands_acked": stats["commands_acked"], "reads_served": stats["reads_served"],
+               "state": state, "ops_per_s": row["ops_per_s"], "wall_s": stats["wall_s"]}
+    del sess, s, s_h, inp, inp_served, inp_plain
     shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
-    return cell
+    return cell, unarmed
 
 
 # The kitchen-sink config of the JAX scenario tests (tests/test_scenario.py):
@@ -1016,8 +1190,7 @@ def _cli(argv) -> dict:
 
 
 def _cpu_row(cfg, s, ticks):
-    """trace (a)'s plain tick on the CPU, run in a worker process over one
-    row's card-drawn inputs: each tick's state, StepInfo and TickEvents must
+    """trace (a)'s plain tick on the CPU over one row's card-drawn inputs: each tick's state, StepInfo and TickEvents must
     equal the kernel's on the card. `s` and `ticks` ((t, inputs, fault facts,
     the card's (state, StepInfo, TickEvents))) are numpy trees, batch-minor.
     Returns the per-kind event counts."""
@@ -1042,6 +1215,59 @@ def _cpu_row(cfg, s, ticks):
     return counts
 
 
+def _trace_row(name: str) -> tuple:
+    """trace (a)'s row `name`, in a parity worker: every tick under
+    track_trace the kernel on the card (its state equal to the untraced
+    config's kernel tick) and the extraction of its TickEvents, then the
+    plain tick on the CPU over the card's inputs (`_cpu_row`). Returns
+    (batch, ticks, genome or not, the card's and the CPU's per-kind event
+    counts, the row's seconds)."""
+    import torch
+    from raft_sim_tpu_torch.kernels import tick_engine
+    from raft_sim_tpu_torch.models import raft_batched
+    from raft_sim_tpu_torch.sim import faults, scan
+    from raft_sim_tpu_torch.trace import events as tev
+    from raft_sim_tpu_torch.utils import device as device_mod
+
+    def host(tree):
+        """A tree (NamedTuples and lists) of tensors as numpy arrays."""
+        return device_mod.host_numpy(*device_mod.to_host_async(tree))
+
+    t_row = time.perf_counter()
+    dev = torch.device("cuda")
+    _, cfg, batch, ticks, genome, seg_len = next(r for r in trace_rows(dev) if r[0] == name)
+    untraced = dataclasses.replace(cfg, track_trace=False)
+    s, keys = _fleet(cfg, batch)
+    s0 = host(s)
+    kinds = torch.from_numpy(tev.slot_kinds(cfg.n_nodes)).long().to(dev)
+    counts = torch.zeros(tev.N_KINDS, dtype=torch.int64, device=dev)
+    drawn = (scan.input_ticks(cfg, keys, 0, ticks, genome, seg_len, trace=True)
+             if genome is not None else None)
+    cpu_ticks = []
+    for t in range(ticks):
+        if drawn is not None:
+            inp, facts = next(drawn)
+        else:
+            inp, facts = faults.make_inputs(cfg, keys, t, facts=True)
+        inp = raft_batched.to_batch_minor(inp)
+        facts = [facts[0].movedim(0, -1).contiguous(), facts[1], facts[2]]
+        got_s, got_i = tick_engine.step_cuda(cfg, s, inp, t)
+        got_e = tev.extract(cfg, s, got_s, inp, got_i, *facts)
+        check_equal(tick_engine.step_cuda(untraced, s, inp, t)[0], got_s,
+                    f"trace {name} tick {t}: traced state != untraced")
+        counts.index_add_(0, kinds, got_e.flags.sum(dim=1))
+        inp_h, facts_h, s_h, i_h, e_h = host([inp, facts, got_s, got_i, got_e])
+        cpu_ticks.append((t, inp_h, facts_h, (s_h, i_h, e_h)))
+        s = got_s
+    try:
+        counts_cpu = _cpu_row(cfg, s0, cpu_ticks)
+    except AssertionError as ex:
+        raise AssertionError(f"trace {name}: {ex}") from None
+    by_kind = lambda c: {k: int(c[code]) for k, code in sorted(tev.KINDS.items())}  # noqa: E731
+    return (batch, ticks, genome is not None, by_kind(counts.cpu()), by_kind(counts_cpu),
+            time.perf_counter() - t_row)
+
+
 def _trace_files(directory: str) -> dict:
     """{name: bytes} of a sink directory's trace files."""
     out = {}
@@ -1051,17 +1277,15 @@ def _trace_files(directory: str) -> dict:
     return out
 
 
-def trace_phase(dev, wall_ms) -> list:
+def trace_phase(dev, wall_ms, trace_a) -> list:
     """Phase 4e: the protocol trace plane (raft_sim_tpu_torch/trace/) on the
-    card, every traced tick one launch of the kernel. Returns the cells of
+    card, every traced tick one launch of the kernel. `trace_a` holds (a)'s
+    rows' results (`_trace_row`, in TRACE_ROWS order). Returns the cells of
     its main-path runs ((c) and (d)), each with its launches."""
     import collections
     import glob
     import shutil
     import tempfile
-    from concurrent.futures import ProcessPoolExecutor as Pool
-
-    import multiprocessing
 
     import torch
     from raft_sim_tpu_torch.farm import corpus as corpus_mod
@@ -1074,61 +1298,18 @@ def trace_phase(dev, wall_ms) -> list:
     from raft_sim_tpu_torch.trace import checker, history
     from raft_sim_tpu_torch.trace import events as tev
     from raft_sim_tpu_torch.trace import ring as tring
-    from raft_sim_tpu_torch.types import init_batch
-    from raft_sim_tpu_torch.utils import telemetry_sink, threefry
+    from raft_sim_tpu_torch.utils import telemetry_sink
     from raft_sim_tpu_torch.utils.config import PRESETS
 
     cells = []
     work = tempfile.mkdtemp(prefix="trace_", dir=HERE)
-    from raft_sim_tpu_torch.utils import device as device_mod
-
-    def host(tree):
-        """A tree (NamedTuples and lists) of tensors as numpy arrays."""
-        return device_mod.host_numpy(*device_mod.to_host_async(tree))
 
     # ---- (a) kernel == plain under track_trace, TickEvents included --------
+    # The rows ran in the parity workers beside phase 2 (`_trace_row`).
     with open(os.path.join(HERE, TRACE_COUNTS)) as f:
         jax_counts = json.load(f)
     totals = collections.Counter()
-    # The CPU rows run in a worker process beside the card's (their Python
-    # would contend with the card loop's for one interpreter's lock).
-    pool = Pool(max_workers=1, mp_context=multiprocessing.get_context("spawn"))
-    pending = []
-    t_a = time.perf_counter()
-    for name, cfg, batch, ticks, genome, seg_len in trace_rows(dev):
-        untraced = dataclasses.replace(cfg, track_trace=False)
-        s = raft_batched.to_batch_minor(init_batch(cfg, threefry.key(SEED, dev), batch))
-        s0 = host(s)
-        keys = threefry.split(threefry.key(SEED + 1, dev), batch)
-        kinds = torch.from_numpy(tev.slot_kinds(cfg.n_nodes)).long().to(dev)
-        counts = torch.zeros(tev.N_KINDS, dtype=torch.int64, device=dev)
-        drawn = (scan.input_ticks(cfg, keys, 0, ticks, genome, seg_len, trace=True)
-                 if genome is not None else None)
-        cpu_ticks = []
-        for t in range(ticks):
-            if drawn is not None:
-                inp, facts = next(drawn)
-            else:
-                inp, facts = faults.make_inputs(cfg, keys, t, facts=True)
-            inp = raft_batched.to_batch_minor(inp)
-            facts = [facts[0].movedim(0, -1).contiguous(), facts[1], facts[2]]
-            got_s, got_i = tick_engine.step_cuda(cfg, s, inp, t)
-            got_e = tev.extract(cfg, s, got_s, inp, got_i, *facts)
-            check_equal(tick_engine.step_cuda(untraced, s, inp, t)[0], got_s,
-                        f"trace {name} tick {t}: traced state != untraced")
-            counts.index_add_(0, kinds, got_e.flags.sum(dim=1))
-            inp_h, facts_h, s_h, i_h, e_h = host([inp, facts, got_s, got_i, got_e])
-            cpu_ticks.append((t, inp_h, facts_h, (s_h, i_h, e_h)))
-            s = got_s
-        pending.append((name, batch, ticks, genome is not None, counts,
-                        pool.submit(_cpu_row, cfg, s0, cpu_ticks)))
-    for name, batch, ticks, genomed, counts, fut in pending:
-        try:
-            counts_cpu = fut.result()
-        except AssertionError as ex:
-            raise AssertionError(f"trace {name}: {ex}") from None
-        card = {k: int(counts[code]) for k, code in sorted(tev.KINDS.items())}
-        on_cpu = {k: int(counts_cpu[code]) for k, code in sorted(tev.KINDS.items())}
+    for name, (batch, ticks, genomed, card, on_cpu, _) in zip(TRACE_ROWS, trace_a):
         if card != on_cpu:
             raise AssertionError(f"trace {name}: event counts card {card} != CPU {on_cpu}")
         if card != jax_counts[name]["counts"]:
@@ -1140,7 +1321,6 @@ def trace_phase(dev, wall_ms) -> list:
               "equal": ["state", "info", "events", "untraced_state"], "max_abs_err": 0,
               "events": sum(card.values()), "counts": card, "counts_cpu": "equal",
               "counts_jax": "equal"})
-    pool.shutdown()
     never = sorted(k for k in tev.KINDS if totals[k] == 0)
     jax_never = sorted(k for k in tev.KINDS
                        if sum(r["counts"][k] for r in jax_counts.values()) == 0)
@@ -1148,7 +1328,7 @@ def trace_phase(dev, wall_ms) -> list:
         raise AssertionError(f"trace: kinds never emitted {never}, the JAX run's {jax_never}")
     emit({"phase": "trace_kinds", "rows": list(TRACE_ROWS), "totals": dict(sorted(totals.items())),
           "never_emitted": never, "jax_never_emitted": jax_never,
-          "seconds": time.perf_counter() - t_a})
+          "worker_seconds": sum(r[-1] for r in trace_a)})
 
     # ---- (b) run --trace on the card == on the CPU ---------------------------
     small = ["run", "--preset", "config6", "--batch", "16", "--ticks", "128", "--seed", str(SEED),
@@ -1373,14 +1553,113 @@ def churn_twin(n: int):
 COMPACT_T = 128  # compact (c): full-width ticks a cell
 
 
-def compact_phase(dev, wall_ms, hold_ticks, config5_cell) -> list:
-    """Phase 4f (module docstring): the compacted carry layout on the card.
-    Returns the (c) cells for the kernels line."""
-    import shutil
-    import tempfile
+def compact_rows() -> list:
+    """compact (a)'s rows: (name, config, batch, ticks)."""
+    from raft_sim_tpu_torch import types
+    from raft_sim_tpu_torch.utils.config import PRESETS
 
+    rows = [("config5c", PRESETS["config5c"][0], 200, 64),
+            ("config7x", PRESETS["config7x"][0], 250, 48),
+            ("config6-compact", types.compact_twin(PRESETS["config6"][0]), 200, 96)]
+    return rows + [(f"n{n}-compact", churn_twin(n), 64, 48) for n in (31, 32, 33)]
+
+
+def _compact_row(name: str, cfg, batch: int, ticks: int) -> dict:
+    """compact (a)'s row `name`, in a parity worker: kernel == plain under
+    the unpack/pack boundary, a launch a tick, the carry still packed."""
+    from raft_sim_tpu_torch.kernels import tick_engine
+
+    s, keys = _fleet(cfg, batch)
+    before = tick_engine.step_cuda.launches
+    s = hold_ticks(cfg, s, keys, 0, ticks, name)
+    if tick_engine.step_cuda.launches - before != ticks:
+        raise AssertionError(f"compact {name}: {tick_engine.step_cuda.launches - before} "
+                             f"launches for {ticks} ticks")
+    if s.ack_age.dim() != 2:
+        raise AssertionError(f"compact {name}: the carry came back unpacked")
+    return {"phase": "compact_kernel_vs_plain", "preset": name, "batch": batch, "ticks": ticks,
+            "max_abs_err": 0, "packed_words": {f: list(getattr(s, f).shape[:-1])
+                                               for f in ("votes", "ack_age")}}
+
+
+def _compact_cpu_row(name: str, batch: int) -> dict:
+    """compact (d)'s row `name`, in a parity worker: `simulate` card == CPU."""
+    from raft_sim_tpu_torch.sim import scan
+    from raft_sim_tpu_torch.utils.config import PRESETS
+
+    cfg = PRESETS[name][0]
+    f_g, m_g = scan.simulate(cfg, SEED, batch, 32, device="cuda")
+    f_c, m_c = scan.simulate(cfg, SEED, batch, 32, device="cpu")
+    check_equal(f_c, f_g, f"compact {name}: simulate state, card != CPU")
+    check_equal(m_c, m_g, f"compact {name}: simulate RunMetrics, card != CPU")
+    return {"phase": "compact_card_vs_cpu", "preset": name, "batch": batch, "ticks": 32,
+            "max_abs_err": 0}
+
+
+def _compact_bench_leg(device: str, work: str) -> tuple:
+    """compact (e)'s bench runs on `device`, in a parity worker: `bench` of
+    config5c at 16 x 64, and `bench --preset config2 --telemetry-dir
+    --scenario` at 64 x 100. Returns (the config5c row, the config2 row, its
+    windows.jsonl and summary.json bytes)."""
+    from raft_sim_tpu_torch import bench
+    from raft_sim_tpu_torch.utils.config import PRESETS
+
+    row = bench.bench(PRESETS["config5c"][0], 16, 64, repeats=1, quality_seeds=3,
+                      config_name="config5c", smoke=True, device=device)
+    prog = os.path.join(work, f"storm_{device}.json")
+    with open(prog, "w") as f:
+        json.dump({**STORM_PROGRAM, "seg_len": 32}, f)
+    out = os.path.join(work, device)
+    doc = _cli(["bench", "--preset", "config2", "--batch", "64", "--ticks", "100", "--repeats",
+                "1", "--telemetry-dir", out, "--scenario", prog, "--device", device])
+    files = {}
+    for fname in ("windows.jsonl", "summary.json"):
+        with open(os.path.join(out, "config2", fname), "rb") as f:
+            files[fname] = f.read()
+    return row, doc["matrix"]["config2"], files
+
+
+def _compact_scan_runs() -> dict:
+    """compact (e)'s other entry points, in a parity worker: `scan.run` (B=1)
+    and `scan.run_batch` (B=4) traced for 32 ticks, card == CPU, and `run
+    --backend cuda` == `run --device cuda` at config7x. Returns the fields
+    of (e)'s line."""
+    from raft_sim_tpu_torch import types
+    from raft_sim_tpu_torch.sim import scan
+    from raft_sim_tpu_torch.utils import threefry
+    from raft_sim_tpu_torch.utils.config import PRESETS
+
+    cfg5c = PRESETS["config5c"][0]
+    runs = {}
+    for d in ("cuda", "cpu"):
+        key = threefry.key(SEED + 3, d)
+        one = scan.run(cfg5c, types.init_state(cfg5c, key), threefry.key(SEED + 4, d), 32,
+                       trace_states=True)
+        many = scan.run_batch(cfg5c, types.init_batch(cfg5c, key, 4),
+                              threefry.split(threefry.key(SEED + 4, d), 4), 32, trace=True)
+        runs[d] = (*one[:2], *one[2], *many)
+    for part, want, got in zip(("run state", "run metrics", "run infos", "run states",
+                                "run_batch state", "run_batch metrics", "run_batch infos"),
+                               runs["cpu"], runs["cuda"]):
+        check_equal(want, got, f"compact (e): scan.{part} card != CPU")
+    argv = ["run", "--preset", "config7x", "--batch", "8", "--ticks", "32"]
+    summaries = [_cli(argv + flag) for flag in (["--backend", "cuda"], ["--device", "cuda"])]
+    for r in summaries:
+        r.pop("wall_s")
+        r.pop("cluster_ticks_per_s")
+    if summaries[0] != summaries[1] or summaries[0]["device"] == "cpu":
+        raise AssertionError(f"compact (e): run --backend cuda != run --device cuda: {summaries}")
+    return {"scan_run_equal": True, "backend_equals_device": True, "max_abs_err": 0}
+
+
+def compact_phase(dev, wall_ms, hold_ticks, config5_cell, legs) -> list:
+    """Phase 4f (module docstring): the compacted carry layout on the card.
+    `legs` holds the results of its rows that ran in the parity workers:
+    (a)'s and (d)'s lines ("rows", "card_vs_cpu"), (e)'s bench legs by
+    device ("bench") and its scan and backend checks ("scan"). Returns the
+    (c) cells for the kernels line."""
     import torch
-    from raft_sim_tpu_torch import bench, types
+    from raft_sim_tpu_torch import types
     from raft_sim_tpu_torch.kernels import tick_engine
     from raft_sim_tpu_torch.models import raft_batched
     from raft_sim_tpu_torch.ops import tile
@@ -1391,23 +1670,10 @@ def compact_phase(dev, wall_ms, hold_ticks, config5_cell) -> list:
 
     cfg5c, cfg7x = PRESETS["config5c"][0], PRESETS["config7x"][0]
 
-    # (a) kernel == plain under the boundary.
-    rows = [("config5c", cfg5c, 200, 64), ("config7x", cfg7x, 250, 48),
-            ("config6-compact", types.compact_twin(PRESETS["config6"][0]), 200, 96)]
-    rows += [(f"n{n}-compact", churn_twin(n), 64, 48) for n in (31, 32, 33)]
-    for name, cfg, batch, ticks in rows:
-        s = raft_batched.to_batch_minor(types.init_batch(cfg, threefry.key(SEED, dev), batch))
-        keys = threefry.split(threefry.key(SEED + 1, dev), batch)
-        before = tick_engine.step_cuda.launches
-        s = hold_ticks(cfg, s, keys, 0, ticks, name)
-        if tick_engine.step_cuda.launches - before != ticks:
-            raise AssertionError(f"compact {name}: {tick_engine.step_cuda.launches - before} "
-                                 f"launches for {ticks} ticks")
-        if s.ack_age.dim() != 2:
-            raise AssertionError(f"compact {name}: the carry came back unpacked")
-        emit({"phase": "compact_kernel_vs_plain", "preset": name, "batch": batch, "ticks": ticks,
-              "max_abs_err": 0, "packed_words": {f: list(getattr(s, f).shape[:-1])
-                                                 for f in ("votes", "ack_age")}})
+    # (a) kernel == plain under the boundary, (d) card == CPU: the rows ran in
+    # the parity workers beside phase 2 (`_compact_row`, `_compact_cpu_row`).
+    for line in legs["rows"]:
+        emit(line)
 
     # (b) compact == dense from one seed at config5's batch.
     batch = PRESETS["config5"][1]
@@ -1495,137 +1761,324 @@ def compact_phase(dev, wall_ms, hold_ticks, config5_cell) -> list:
         del final, metrics, s, inp, ds, dinp
         torch.cuda.empty_cache()
 
-    # (d) card == CPU.
-    for name, batch in (("config5c", 16), ("config7x", 4)):
-        cfg = PRESETS[name][0]
-        f_g, m_g = scan.simulate(cfg, SEED, batch, 32, device=dev)
-        f_c, m_c = scan.simulate(cfg, SEED, batch, 32, device="cpu")
-        check_equal(f_c, f_g, f"compact {name}: simulate state, card != CPU")
-        check_equal(m_c, m_g, f"compact {name}: simulate RunMetrics, card != CPU")
-        emit({"phase": "compact_card_vs_cpu", "preset": name, "batch": batch, "ticks": 32,
-              "max_abs_err": 0})
+    for line in legs["card_vs_cpu"]:
+        emit(line)
 
-    # (e) the entry points, card against CPU.
+    # (e) the entry points, card against CPU (`_compact_bench_leg` on each,
+    # `_compact_scan_runs`, in the parity workers).
     quality = ("p50_stable_tick", "pct_stable", "p50_commit_latency", "lat_p50", "lat_p95",
                "lat_p99", "lat_excluded", "total_cmds", "violations", "noop_blocked",
                "lm_skipped_pairs", "multi_leader", "layout")
-    rows = {d: bench.bench(cfg5c, 16, 64, repeats=1, quality_seeds=3, config_name="config5c",
-                           smoke=True, device=d) for d in ("cuda", "cpu")}
-    differ = [k for k in quality if rows["cuda"][k] != rows["cpu"][k]]
-    if differ or rows["cuda"]["layout"] != "compact":
-        raise AssertionError(f"compact (e): bench config5c card != CPU on {differ}: {rows}")
-    work = tempfile.mkdtemp(prefix="compact_", dir=HERE)
-    prog = os.path.join(work, "storm.json")
-    with open(prog, "w") as f:
-        json.dump({**STORM_PROGRAM, "seg_len": 32}, f)
-    docs = {}
-    for d in ("cuda", "cpu"):
-        docs[d] = _cli(["bench", "--preset", "config2", "--batch", "64", "--ticks", "100",
-                        "--repeats", "1", "--telemetry-dir", os.path.join(work, d),
-                        "--scenario", prog, "--device", d])["matrix"]["config2"]
-    for fname in ("windows.jsonl", "summary.json"):
-        a, b = (open(os.path.join(work, d, "config2", fname), "rb").read() for d in ("cuda", "cpu"))
-        if a != b:
+    (row_g, doc_g, files_g), (row_c, doc_c, files_c) = legs["bench"]["cuda"], legs["bench"]["cpu"]
+    differ = [k for k in quality if row_g[k] != row_c[k]]
+    if differ or row_g["layout"] != "compact":
+        raise AssertionError(f"compact (e): bench config5c card != CPU on {differ}: {row_g} {row_c}")
+    for fname in files_g:
+        if files_g[fname] != files_c[fname]:
             raise AssertionError(f"compact (e): bench --telemetry-dir {fname} card != CPU")
-    differ = [k for k in quality if docs["cuda"][k] != docs["cpu"][k]]
-    if differ or docs["cuda"].get("scenario") != STORM_PROGRAM["name"]:
+    differ = [k for k in quality if doc_g[k] != doc_c[k]]
+    if differ or doc_g.get("scenario") != STORM_PROGRAM["name"]:
         raise AssertionError(f"compact (e): bench --scenario card != CPU on {differ}")
-    shutil.rmtree(work, ignore_errors=True)
-    runs = {}
-    for d in ("cuda", "cpu"):
-        key = threefry.key(SEED + 3, d)
-        one = scan.run(cfg5c, types.init_state(cfg5c, key), threefry.key(SEED + 4, d), 32,
-                       trace_states=True)
-        many = scan.run_batch(cfg5c, types.init_batch(cfg5c, key, 4),
-                              threefry.split(threefry.key(SEED + 4, d), 4), 32, trace=True)
-        runs[d] = (*one[:2], *one[2], *many)
-    for part, want, got in zip(("run state", "run metrics", "run infos", "run states",
-                                "run_batch state", "run_batch metrics", "run_batch infos"),
-                               runs["cpu"], runs["cuda"]):
-        check_equal(want, got, f"compact (e): scan.{part} card != CPU")
-    argv = ["run", "--preset", "config7x", "--batch", "8", "--ticks", "32"]
-    summaries = [_cli(argv + flag) for flag in (["--backend", "cuda"], ["--device", "cuda"])]
-    for r in summaries:
-        r.pop("wall_s")
-        r.pop("cluster_ticks_per_s")
-    if summaries[0] != summaries[1] or summaries[0]["device"] == "cpu":
-        raise AssertionError(f"compact (e): run --backend cuda != run --device cuda: {summaries}")
-    emit({"phase": "compact_entry_points", "bench_config5c_layout": rows["cuda"]["layout"],
-          "bench_telemetry_scenario_equal": True, "scan_run_equal": True,
-          "backend_equals_device": True, "max_abs_err": 0})
+    emit({"phase": "compact_entry_points", "bench_config5c_layout": row_g["layout"],
+          "bench_telemetry_scenario_equal": True, **legs["scan"]})
     return cells
 
 
-def main() -> int:
-    import collections
+def _health_files(directory: str) -> dict:
+    """{name: content} of a directory's health.jsonl (each line's clock-derived
+    SLI, the device-wait share, left out), alerts.jsonl and evidence bundles
+    (their perf.jsonl, clock readings, left out)."""
+    out = {}
+    for root, _, names in os.walk(directory):
+        for name in names:
+            rel = os.path.relpath(os.path.join(root, name), directory)
+            if rel in ("health.jsonl", "alerts.jsonl") or (
+                    rel.startswith("evidence_") and not rel.endswith("perf.jsonl")):
+                with open(os.path.join(root, name)) as f:
+                    text = f.read()
+                if rel == "health.jsonl":
+                    rows = [json.loads(x) for x in text.splitlines()]
+                    for r in rows:
+                        r["slis"]["device_wait"].pop("share")
+                    text = rows
+                out[rel] = text
+    return out
+
+
+def _fresh_farm(device: str, out: str, corpus: str) -> tuple:
+    """observe (e): the fresh-freeze farm of the CPU tests (blind-transfer,
+    16 x 192, 4 generations, freezing into the empty `corpus`) on `device`:
+    (manifest without its dedup paths, hunt rows, frozen artifacts' bytes)."""
+    from raft_sim_tpu_torch.farm import FarmSpec, run_farm
+    from raft_sim_tpu_torch.scenario.mutation import mutant_config
+    from raft_sim_tpu_torch.utils.config import RaftConfig
+
+    cfg = mutant_config("blind-transfer", RaftConfig(n_nodes=5, log_capacity=16,
+                                                     client_interval=2, transfer_interval=9))
+    spec = FarmSpec(portfolio=("scalar", "coverage"), budget_gens=4, population=16, ticks=192,
+                    window=32, trace_depth=16, seed=0)
+    os.makedirs(corpus)
+    res = run_farm(cfg, spec, mutant="blind-transfer", out_dir=out, corpus_dir=corpus,
+                   freeze=True, device=device)
+    man = res.manifest
+    for d in man["dedup_rejected"]:
+        d.pop("path")
+    hunts = []
+    for m in ("scalar", "coverage"):
+        with open(os.path.join(out, "members", m, "hunt.jsonl"), "rb") as f:
+            hunts.append(f.read())
+    frozen = []
+    for p in res.frozen:
+        with open(p, "rb") as f:
+            frozen.append(f.read())
+    return man, hunts, frozen
+
+
+def _observe_leg(device: str, work: str) -> tuple:
+    """observe (b) and (e) on `device` ("cuda" or "cpu"), in a parity worker
+    beside phase 2: (b)'s health files, (e)'s farm outcome."""
+    small = os.path.join(work, f"small_{device}")
+    _cli([*OBS_SMALL_ARGV, "--device", device, "--telemetry-dir", small])
+    return (_health_files(small),
+            _fresh_farm(device, os.path.join(work, f"fresh_{device}"),
+                        os.path.join(work, f"fresh_corpus_{device}")))
+
+
+def observe_phase(dev, serve_unarmed, legs) -> list:
+    """Phase 4g: the chunk timer, the health plane and the fuzzing farm on the
+    card (see the module docstring). `legs` holds (b) and (e)'s results on
+    the card and on the CPU ({"cuda": ..., "cpu": ...}, `_observe_leg`).
+    Returns the cells of its main-path runs ((a), (c), (d)), each with its
+    launches."""
+    import glob
+    import shutil
 
     import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
-        return 2
-    sys.path.insert(0, HERE)
-    import raft_sim_tpu_torch
-    from raft_sim_tpu_torch.kernels import tick_engine
     from raft_sim_tpu_torch import bench
+    from raft_sim_tpu_torch.farm import validate_farm_dir
+    from raft_sim_tpu_torch.kernels import tick_engine
     from raft_sim_tpu_torch.models import raft_batched
+    from raft_sim_tpu_torch.obs import ChunkTimer, summarize_rows
+    from raft_sim_tpu_torch.scenario.mutation import mutant_config
+    from raft_sim_tpu_torch.serve import ServeSession
+    from raft_sim_tpu_torch.serve.loop import serve_config
     from raft_sim_tpu_torch.sim import faults, scan
-    from raft_sim_tpu_torch.summary import summarize
-    from raft_sim_tpu_torch.types import init_batch
-    from raft_sim_tpu_torch.utils import threefry
+    from raft_sim_tpu_torch.utils import checkpoint
     from raft_sim_tpu_torch.utils.config import PRESETS
+    from raft_sim_tpu_torch.utils.telemetry_sink import TelemetrySink, validate
 
-    if not os.path.abspath(raft_sim_tpu_torch.__file__).startswith(HERE + os.sep):
-        raise RuntimeError(f"raft_sim_tpu_torch imported from {raft_sim_tpu_torch.__file__}, not {HERE}")
-    dev = torch.device("cuda")
-    t_start = time.perf_counter()
+    work = os.path.join(HERE, "raft_sim_tpu_torch", "build", "observe")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cells = []
 
-    # ---- 1: device and build ---------------------------------------------------
-    smi = bench.card_line()
-    emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
-          "cuda": torch.version.cuda, "kind": torch.cuda.get_device_name(0),
-          "count": torch.cuda.device_count()})
+    def read_bytes(path):
+        with open(path, "rb") as f:
+            return f.read()
+
+    # ---- (a) run --perf --health at config6's batch, armed == unarmed -------
+    b_a, t_a, chunk_a = OBS_RUN
+    base = ["run", "--device", "cuda", "--preset", "config6", "--batch", str(b_a), "--ticks",
+            str(t_a), "--chunk", str(chunk_a), "--telemetry-window", "64", "--telemetry-ring", "8"]
+    runs = {}
+    libs_before = len(tick_engine._LIBS)
+    for label, extra in (("unarmed", []), ("armed", ["--perf", "--health"])):
+        d = os.path.join(work, label)
+        torch.cuda.synchronize()
+        tick_engine.step_cuda.launches = 0
+        out = _cli([*base, "--telemetry-dir", d, "--save", d + ".npz", *extra])
+        runs[label] = (d, out, tick_engine.step_cuda.launches)
+    (ud, u_out, _), (ad, a_out, a_launches) = runs["unarmed"], runs["armed"]
+    if a_launches != t_a:
+        raise AssertionError(f"observe (a): {a_launches} kernel launches for {t_a} ticks")
+    _, s_u, _, m_u, *_ = checkpoint.load(ud + ".npz", dev)
+    _, s_a, _, m_a, *_ = checkpoint.load(ad + ".npz", dev)
+    check_equal(s_u, s_a, "observe (a): armed state != unarmed")
+    check_equal(m_u, m_a, "observe (a): armed metrics != unarmed")
+    files = sorted(os.path.basename(p) for p in glob.glob(os.path.join(ud, "*.json*"))
+                   if not p.endswith("manifest.json"))
+    for name in files:
+        if read_bytes(os.path.join(ud, name)) != read_bytes(os.path.join(ad, name)):
+            raise AssertionError(f"observe (a): {name} differs armed vs unarmed")
+    problems = validate(ad)
+    if problems:
+        raise AssertionError(f"observe (a): sink invalid: {problems[:5]}")
+    with open(os.path.join(ad, "perf.jsonl")) as f:
+        perf = [json.loads(x) for x in f]
+    if (len(perf) != t_a // chunk_a or sum(r["warmup"] for r in perf) != 2
+            or any(r["recompiled"] for r in perf)
+            or not all(isinstance(r["live_bytes"], int) for r in perf)
+            or {r["jit_cache"]["tick_engine._load_cuda"] for r in perf} != {libs_before}):
+        raise AssertionError(f"observe (a): perf rows off: {perf}")
+    roll = summarize_rows(perf, label="run", batch=b_a)
+    cell = {
+        "phase": "observe_run", "preset": "observe-config6", "batch": b_a, "ticks": t_a,
+        "chunk": chunk_a, "launches": a_launches, "perf_rows": len(perf), "warmup_rows": 2,
+        "equal": ["state", "metrics", *files], "sink_valid": True,
+        "library_loads": libs_before, "recompiled": False,
+        "steady_ms_per_chunk": roll["steady_wall_s"] * 1e3 / roll["steady_chunks"],
+        "device_wait_share": roll["device_wait_s"] / roll["steady_wall_s"],
+        "host_gap_frac": roll["host_gap_frac"],
+        "dispatch_share": sum(r["dispatch_s"] for r in perf[2:]) / roll["steady_wall_s"],
+        "live_bytes_peak": roll["live_bytes_peak"],
+        "armed_wall_s": a_out["wall_s"], "unarmed_wall_s": u_out["wall_s"],
+        "health": a_out["health"], "perf_rollup": roll,
+    }
+    emit(cell)
+    cells.append(cell)
+
+    # ---- (b) the health plane, card == CPU (run beside phase 2) ---------------
+    (got, card_farm), (cpu_health, cpu_farm) = legs["cuda"], legs["cpu"]
+    if got != cpu_health:
+        raise AssertionError("observe (b): the health files differ card vs CPU")
+    n_alerts = len(got["alerts.jsonl"].splitlines())
+    emit({"phase": "observe_health_card_vs_cpu", "preset": "config6", "batch": OBS_SMALL[0],
+          "ticks": OBS_SMALL[1],
+          "equal": sorted(got), "left_out": ["slis.device_wait.share", "evidence_*/perf.jsonl"],
+          "alerts": n_alerts, "max_abs_err": 0})
+
+    # ---- (c) serve with its planes armed ---------------------------------------
+    cfg9, batch9 = PRESETS["config9"]
+    sd = os.path.join(work, "serve")
+    sink = TelemetrySink(sd, serve_config(cfg9), seed=0, batch=batch9, window=64, ring=0,
+                         source="serve", backend="cuda")
+    torch.cuda.synchronize()
+    tick_engine.step_cuda.launches = 0
+    sess = ServeSession(cfg9, batch=batch9, seed=0, chunk=256, window=64, sink=sink,
+                        warmup_ticks=256, tenants=bench.serve_tenants(batch9, 4), device=dev,
+                        perf=ChunkTimer(label="serve", batch=batch9, sink=sink), health="default")
+    stats = sess.serve(chunks=SERVE_CHUNKS)
+    torch.cuda.synchronize()
+    launches = tick_engine.step_cuda.launches
+    row = bench.serve_row(sess, stats, "config9", 4, smoke=False)
+    for k in ("commands_acked", "reads_served"):
+        if stats[k] != serve_unarmed[k]:
+            raise AssertionError(f"observe (c): {k} {stats[k]} armed != {serve_unarmed[k]}")
+    check_equal(serve_unarmed["state"], sess.state, "observe (c): armed final state != unarmed")
+    if not row["perf"] or row["perf"]["steady_chunks"] < 1:
+        raise AssertionError(f"observe (c): the bench row's perf is not filled: {row['perf']}")
+    problems = validate(sd)
+    if problems:
+        raise AssertionError(f"observe (c): sink invalid: {problems[:5]}")
+    cell = {
+        "phase": "observe_serve", "preset": "observe-config9-serve", "batch": batch9,
+        "ticks": (sess.warmup_chunks + sess.chunks_done) * sess.chunk, "launches": launches,
+        "commands_acked": stats["commands_acked"], "reads_served": stats["reads_served"],
+        "equal": ["commands_acked", "reads_served", "state"], "sink_valid": True,
+        "ops_per_s_armed": row["ops_per_s"], "ops_per_s_unarmed": serve_unarmed["ops_per_s"],
+        "wall_s_armed": stats["wall_s"], "wall_s_unarmed": serve_unarmed["wall_s"],
+        "perf": row["perf"], "health": stats["health"],
+    }
+    emit(cell)
+    cells.append(cell)
+    del sess, sink
+
+    # ---- (d) the farm at full width -------------------------------------------
+    pop, ticks, window, depth = FARM_RUN
+    fd, corpus = os.path.join(work, "farm"), os.path.join(work, "corpus")
+    shutil.copytree(os.path.join(HERE, "tests", "corpus"), corpus)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tick_engine.step_cuda.launches = 0
     t0 = time.perf_counter()
-    lib_path = tick_engine.build()
-    tick_engine._load_cuda()
-    # One entry per instantiation: its name, then stack/spill and registers.
-    ptxas = [ln.split("ptxas info    :")[-1].strip()
-             for ln in tick_engine.BUILD_INFO.get("ptxas", "").splitlines()
-             if "Compiling entry" in ln or "registers" in ln or "stack frame" in ln]
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc_seconds": tick_engine.BUILD_INFO.get("seconds"), "library": os.path.relpath(lib_path, HERE),
-          "ptxas": ptxas})
-    # The race proxy's library builds beside phase 2 (its nvcc runs share the
-    # host's cores with the input draws); phase 2b waits for it, and a
-    # failed build raises there. The pool's thread is joined at exit, so no
-    # nvcc outlives the script.
-    pool = ThreadPoolExecutor(max_workers=1)
-    proxy_build = pool.submit(tick_engine.build, proxy=True)
+    doc = _cli(["scenario", "farm", "--device", "cuda", "--preset", "config4c", "--mutant",
+                "weak-quorum", "--portfolio", "scalar,coverage", "--population", str(pop),
+                "--ticks", str(ticks), "--window", str(window), "--trace-depth", str(depth),
+                "--budget-gens", "4", "--stop-on", "hit", "--out-dir", fd, "--corpus-dir", corpus,
+                "--freeze", "--health"])
+    wall = time.perf_counter() - t0
+    launches = tick_engine.step_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+    if not doc["found"] or not (doc["frozen"] or doc["dedup_rejected"]):
+        raise AssertionError(f"observe (d): the farm found or processed no hit: {doc}")
+    problems = validate_farm_dir(fd)
+    if problems:
+        raise AssertionError(f"observe (d): farm dir invalid: {problems[:5]}")
+    with open(os.path.join(fd, "perf.jsonl")) as f:
+        gens = [json.loads(x) for x in f]
+    eval_launches = ticks * len(gens)
+    # K1 on the hunt's tick (the weak-quorum body, traced) at the population,
+    # from a state 32 ticks in; these launches are not the farm's.
+    run_cfg = dataclasses.replace(mutant_config("weak-quorum", PRESETS["config4c"][0]),
+                                  track_trace=True)
+    final, _ = scan.simulate(run_cfg, SEED, pop, 32, device=dev)
+    s = raft_batched.to_batch_minor(final)
+    keys = scan.seed_fleet(run_cfg, SEED, pop, dev)[1]
+    # FULL_HOLD_TICKS ticks of kernel == plain on that state first.
+    hold_ticks(run_cfg, s, keys, 32, FULL_HOLD_TICKS, "farm full width")
+    inp = raft_batched.to_batch_minor(faults.make_inputs(run_cfg, keys, 32))
+    kernel_ms = tick_engine.time_kernel(run_cfg, s, inp, reps=20, now=32)
+    plain_ms = wall_ms(lambda: raft_batched.step_b(run_cfg, s, inp, 32), 3)
+    rd, wr = tick_engine.traffic_bytes(run_cfg, pop)
+    bound_ms = (rd + wr) / BW_BYTES_PER_S * 1e3
+    gen_ms = [r["wall_s"] * 1e3 for r in gens]
+    gen_host = [(r["dispatch_s"] + r["host_s"]) / r["wall_s"] for r in gens]
+    cell = {
+        "phase": "observe_farm", "preset": "farm-config4c-weak-quorum", "batch": pop,
+        "ticks": ticks, "window": window, "trace_depth": depth, "launches": launches,
+        "evaluation_launches": eval_launches, "generations": len(gens),
+        "hits": doc["hits"], "frozen": doc["frozen"],
+        "dedup_rejected": [d["duplicate_of"] for d in doc["dedup_rejected"]],
+        "outcome": "frozen" if doc["frozen"] else "dedup-rejected", "farm_dir_valid": True,
+        "wall_s": wall, "ms_per_generation": gen_ms, "host_share_per_generation": gen_host,
+        "device_wait_s": [r["device_wait_s"] for r in gens],
+        "kernel_ms": kernel_ms, "bound_ms": bound_ms, "bytes_read": rd, "bytes_written": wr,
+        "bound_share": bound_ms / kernel_ms, "plain_ms": plain_ms, "peak_mem_bytes": peak,
+        "kernel_vs_plain_ticks": FULL_HOLD_TICKS,
+        "health": json.load(open(os.path.join(fd, "farm_manifest.json"))).get("health"),
+    }
+    emit(cell)
+    cells.append(cell)
+    del final, s, inp, keys
+    torch.cuda.empty_cache()
 
-    def hold_ticks(cfg, s, keys, t0: int, n: int, what: str, events=None, proxy=False,
-                   genome=None, seg_len=1):
-        """`n` ticks from batch-minor state `s`: each tick the kernel (with
-        `proxy`, its race proxy) equals the plain tick on the card, state and
-        StepInfo, leaf for leaf. `events`, a Counter, accumulates the
-        slice-2/3/4 event counts and the violating cluster-ticks. `genome`
-        ([B, S] rows on the card) draws the inputs on the scenario path, a span
-        of ticks at a time (scan.input_ticks)."""
-        drawn = (scan.input_ticks(cfg, keys, t0, n, genome, seg_len) if genome is not None
-                 else (faults.make_inputs(cfg, keys, t) for t in range(t0, t0 + n)))
-        for t, inp in zip(range(t0, t0 + n), drawn):
-            inp = raft_batched.to_batch_minor(inp)
-            ref_s, ref_i = raft_batched.step_b(cfg, s, inp, t)
-            got_s, got_i = tick_engine.step_cuda(cfg, s, inp, t, proxy=proxy)
-            check_equal(ref_s, got_s, f"{what} tick {t}: step_cuda state != step_b")
-            check_equal(ref_i, got_i, f"{what} tick {t}: step_cuda StepInfo != step_b")
-            if events is not None:
-                count_events(cfg, t, s, inp, got_s, got_i, events)
-            s = got_s
-        return s
+    # ---- (e) the farm, card == CPU (run beside phase 2) ------------------------
+    if card_farm != cpu_farm:
+        raise AssertionError("observe (e): the fresh-freeze farm differs card vs CPU")
+    emit({"phase": "observe_farm_card_vs_cpu", "batch": 16, "ticks": 192, "generations": 4,
+          "equal": ["manifest", "hunt rows", "frozen artifact"], "frozen": cpu_farm[0]["frozen"],
+          "max_abs_err": 0})
 
-    # Every comparison below raises on the first differing leaf, so an exact
-    # match (max |err| 0) is what reaching the kernels line means.
-    max_err = 0
+    # ---- (f) --profile ---------------------------------------------------------
+    prof = ["run", "--device", "cuda", "--preset", "config2", "--batch", "8", "--ticks",
+            str(PROFILE_T), "--chunk", "32"]
+    pd = os.path.join(work, "profile")
+    got, want = _cli([*prof, "--profile", pd]), _cli(prof)
+    clocks = ("wall_s", "cluster_ticks_per_s")
+    if {k: v for k, v in got.items() if k not in clocks} != {
+            k: v for k, v in want.items() if k not in clocks}:
+        raise AssertionError("observe (f): the profiled run differs from the unprofiled one")
+    with open(os.path.join(pd, "torch_trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernel_rows = [e for e in events if e.get("cat") == "kernel"]
+    tick_rows = [e for e in kernel_rows if "tick_kernel" in e.get("name", "")]
+    # The card's busy share over the profiled run: its kernel and copy rows'
+    # time over the span from the first one's start to the last one's end.
+    device_rows = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    span_us = (max(e["ts"] + e.get("dur", 0) for e in device_rows)
+               - min(e["ts"] for e in device_rows))
+    if len(tick_rows) < PROFILE_T:
+        raise AssertionError(f"observe (f): {len(tick_rows)} tick_kernel rows in the trace "
+                             f"({len(kernel_rows)} kernel rows)")
+    emit({"phase": "observe_profile", "preset": "config2", "batch": 8, "ticks": PROFILE_T,
+          "equal": True, "kernel_rows": len(kernel_rows), "tick_kernel_rows": len(tick_rows),
+          "tick_kernel_us_mean": sum(e.get("dur", 0) for e in tick_rows) / len(tick_rows),
+          "device_rows": len(device_rows), "device_span_us": span_us,
+          "device_busy_share": sum(e.get("dur", 0) for e in device_rows) / span_us,
+          "trace_bytes": os.path.getsize(os.path.join(pd, "torch_trace.json"))})
+    shutil.rmtree(work, ignore_errors=True)
+    return cells
+
+
+def parity_phases(pool, proxy_build, t_start: float) -> None:
+    """Phases 2, 2b and 3 (see the module docstring): rows that time nothing,
+    run in `pool`'s worker processes on the card (`_parity_row`,
+    `_proxy_row`, `_card_vs_cpu_row`), their lines printed in row order.
+    `proxy_build` is the race proxy's build (a future); 2b's rows are queued
+    once it is done. Every comparison raises on the first differing leaf,
+    so an exact match (max |err| 0) is what reaching the kernels line means."""
+    from raft_sim_tpu_torch.kernels import tick_engine
+    from raft_sim_tpu_torch.utils.config import PRESETS
 
     # ---- 2: kernel vs plain, on the card ---------------------------------------
     # 45 clusters: a ragged, masked last block at any block shape (8, 16 or
@@ -1666,15 +2119,38 @@ def main() -> int:
             dataclasses.replace(cfg7, compact_margin=4, check_log_matching=True), 45, 96),
     }
     parity += [(name, cfg, batch, ticks) for name, (cfg, batch, ticks) in ring_lm.items()]
+    # The longest rows are queued first, so that the workers end together.
+    futs = {name: None for name, *_ in parity}
+    for name, cfg, batch, ticks in sorted(parity, key=lambda r: -r[3]):
+        futs[name] = pool.submit(_parity_row, name, cfg, batch, ticks)
+
+    # 2b's rows: the race proxy on one cluster and on a ragged 45 of every
+    # gate set and width tier. No race checker runs on this machine
+    # (PERF.md), so the proxy build of the kernel (csrc/tick.cu with
+    # RS_RACE_PROXY: node slots and clusters mapped to threads in reverse,
+    # each exchange field poisoned once its last reader's phase is over) is
+    # held to the plain tick. Its library builds beside phase 2's rows.
+    t0 = time.perf_counter()
+    proxy_path = proxy_build.result()
+    proxy_waited = time.perf_counter() - t0
+    proxy_rows = [("config1", PRESETS["config1"][0], 1, 32), ("config7", cfg7, 1, 32)]
+    proxy_rows += [(name, PRESETS[name][0], 45, 32)
+                   for name in ("config2", "config5", "config3p", "config6", "config6r", "config8",
+                                "config9", "config10", "config4c", "config7")]
+    proxy_rows += [(name, cfg, 45, 32) for name, cfg in wide.items()]
+    proxy_rows += [("config6-cap8-lm", ring_lm["config6-cap8-lm"][0], 45, 32)]
+    proxy_futs = [pool.submit(_proxy_row, *row) for row in proxy_rows]
+    # ---- 3: card vs CPU --------------------------------------------------------
+    cpu_futs = [pool.submit(_card_vs_cpu_row, *row) for row in (
+        ("config2", 64, 32), ("config4", 64, 32), ("config6r", 64, 32), ("config3p", 64, 32),
+        ("config8", 64, 32), ("config9", 64, 32), ("config10", 64, 32), ("config7", 16, 32))]
+
     events = {"restarts": 0, "compactions": 0, "snapshot_sentinels": 0, "redirect_bounces": 0}
     slice3 = {"config_appends": 0, "joint_exits": 0, "timeout_now_sent": 0, "sanctioned_votes": 0,
               "reads_served_config8": 0, "one_tick_reads_config9": 0,
               "config_rollbacks": 0, "removed_leader_stepdowns": 0}
     for name, cfg, batch, ticks in parity:
-        s = raft_batched.to_batch_minor(init_batch(cfg, threefry.key(SEED, dev), batch))
-        keys = threefry.split(threefry.key(SEED + 1, dev), batch)
-        ev = collections.Counter()
-        hold_ticks(cfg, s, keys, 0, ticks, name, ev)
+        line, ev = futs[name].result()
         if name == "config10":
             slice4 = {k: ev[k] for k in (*SLICE4_REQUIRED, "jitter_stalls", "restarts")}
         elif name in ("config8", "config9"):
@@ -1697,15 +2173,7 @@ def main() -> int:
                 raise AssertionError(f"{name}: {slice7}")
             if name == "config6-cap8-lm" and slice7["lm_skipped_pairs"] <= 0:
                 raise AssertionError(f"{name}: no incomparable pair met ({slice7})")
-        sim_ticks = min(ticks, SIM_TICKS)
-        f_k, m_k = scan.simulate(cfg, SEED, batch, sim_ticks, device=dev)
-        f_p, m_p = scan.simulate(cfg, SEED, batch, sim_ticks, device=dev, step_fn=raft_batched.step_b)
-        check_equal(f_p, f_k, f"{name}: simulate state, kernel != plain")
-        check_equal(m_p, m_k, f"{name}: simulate RunMetrics, kernel != plain")
-        emit({"phase": "kernel_vs_plain", "preset": name, "batch": batch, "ticks": ticks,
-              "per_tick": "equal", "simulate_ticks": sim_ticks, "simulate": "equal", "max_abs_err": max_err,
-              "max_commit": int(m_k.max_commit.max()), "violations": int(m_k.violations.sum()),
-              "events": dict(ev)})
+        emit(line)
     emit({"phase": "slice2_events", **events})
     for k, v in events.items():
         if v <= 0:
@@ -1724,44 +2192,96 @@ def main() -> int:
             raise AssertionError(f"kernel_vs_plain: no {k} on the n101-full-gates run")
     emit({"phase": "phase_end", "name": "kernel_vs_plain", "seconds": time.perf_counter() - t_start})
 
-    # ---- 2b: the race proxy, on the card ---------------------------------------
-    # No race checker runs on this machine (PERF.md), so the proxy build of
-    # the kernel (csrc/tick.cu with RS_RACE_PROXY: node slots and clusters
-    # mapped to threads in reverse, each exchange field poisoned once its last
-    # reader's phase is over) is held to the plain tick on one cluster and on
-    # a ragged 45 of every gate set and width tier.
-    t0 = time.perf_counter()
-    proxy_path = proxy_build.result()
-    pool.shutdown()
-    emit({"phase": "race_proxy_build", "waited_s": time.perf_counter() - t0,
+    emit({"phase": "race_proxy_build", "waited_s": proxy_waited,
           "nvcc_seconds": tick_engine.PROXY_BUILD_INFO.get("seconds"),
           "library": os.path.relpath(proxy_path, HERE)})
-    proxy_rows = [("config1", PRESETS["config1"][0], 1, 32), ("config7", cfg7, 1, 32)]
-    proxy_rows += [(name, PRESETS[name][0], 45, 32)
-                   for name in ("config2", "config5", "config3p", "config6", "config6r", "config8",
-                                "config9", "config10", "config4c", "config7")]
-    proxy_rows += [(name, cfg, 45, 32) for name, cfg in wide.items()]
-    proxy_rows += [("config6-cap8-lm", ring_lm["config6-cap8-lm"][0], 45, 32)]
-    for name, cfg, batch, ticks in proxy_rows:
-        s = raft_batched.to_batch_minor(init_batch(cfg, threefry.key(SEED, dev), batch))
-        keys = threefry.split(threefry.key(SEED + 1, dev), batch)
-        hold_ticks(cfg, s, keys, 0, ticks, f"race proxy {name}", proxy=True)
-        emit({"phase": "race_proxy", "preset": name, "batch": batch, "ticks": ticks,
-              "per_tick": "equal", "max_abs_err": max_err})
+    for fut in proxy_futs:
+        emit(fut.result())
     emit({"phase": "phase_end", "name": "race_proxy", "seconds": time.perf_counter() - t_start})
-
-    # ---- 3: card vs CPU --------------------------------------------------------
-    for name, batch, ticks in (("config2", 64, 32), ("config4", 64, 32), ("config6r", 64, 32),
-                               ("config3p", 64, 32), ("config8", 64, 32), ("config9", 64, 32),
-                               ("config10", 64, 32), ("config7", 16, 32)):
-        cfg, _ = PRESETS[name]
-        f_g, m_g = scan.simulate(cfg, SEED, batch, ticks, device=dev)
-        f_c, m_c = scan.simulate(cfg, SEED, batch, ticks, device="cpu")
-        check_equal(f_c, f_g, f"{name}: simulate state, card != CPU")
-        check_equal(m_c, m_g, f"{name}: simulate RunMetrics, card != CPU")
-        emit({"phase": "card_vs_cpu", "preset": name, "batch": batch, "ticks": ticks,
-              "max_abs_err": max_err, "summary_equal": summarize(m_g) == summarize(m_c)})
+    for fut in cpu_futs:
+        emit(fut.result())
     emit({"phase": "phase_end", "name": "card_vs_cpu", "seconds": time.perf_counter() - t_start})
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    import raft_sim_tpu_torch
+    from raft_sim_tpu_torch.kernels import tick_engine
+    from raft_sim_tpu_torch import bench
+    from raft_sim_tpu_torch.models import raft_batched
+    from raft_sim_tpu_torch.sim import faults, scan
+    from raft_sim_tpu_torch.summary import summarize
+    from raft_sim_tpu_torch.utils import threefry
+    from raft_sim_tpu_torch.utils.config import PRESETS
+
+    if not os.path.abspath(raft_sim_tpu_torch.__file__).startswith(HERE + os.sep):
+        raise RuntimeError(f"raft_sim_tpu_torch imported from {raft_sim_tpu_torch.__file__}, not {HERE}")
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+
+    # ---- 1: device and build ---------------------------------------------------
+    smi = bench.card_line()
+    emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
+          "cuda": torch.version.cuda, "kind": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count()})
+    # The parity workers start now, their start-up (torch, a context on the
+    # card) beside the build. The rows on the CPU alone need no library and
+    # start beside it too (observe (b) and (e), compact (e)'s bench runs).
+    # The race proxy's library builds after the card's, beside the workers
+    # (which run at a lower priority); phase 2b waits for it. On any failure
+    # the workers are stopped and the build's thread joined, so no process
+    # outlives the script.
+    parity_pool = ProcessPoolExecutor(max_workers=PARITY_WORKERS, initializer=_parity_init,
+                                      mp_context=multiprocessing.get_context("spawn"))
+    pool = ThreadPoolExecutor(max_workers=1)
+    legs_dir = os.path.join(HERE, "raft_sim_tpu_torch", "build", "parity_legs")
+    shutil.rmtree(legs_dir, ignore_errors=True)
+    os.makedirs(legs_dir)
+    try:
+        obs_legs = {"cpu": parity_pool.submit(_observe_leg, "cpu", legs_dir)}
+        bench_legs = {"cpu": parity_pool.submit(_compact_bench_leg, "cpu", legs_dir)}
+        t0 = time.perf_counter()
+        lib_path = tick_engine.build()
+        tick_engine._load_cuda()
+        # One entry per instantiation: its name, then stack/spill and registers.
+        ptxas = [ln.split("ptxas info    :")[-1].strip()
+                 for ln in tick_engine.BUILD_INFO.get("ptxas", "").splitlines()
+                 if "Compiling entry" in ln or "registers" in ln or "stack frame" in ln]
+        emit({"phase": "build", "seconds": time.perf_counter() - t0,
+              "nvcc_seconds": tick_engine.BUILD_INFO.get("seconds"),
+              "library": os.path.relpath(lib_path, HERE), "ptxas": ptxas})
+        proxy_build = pool.submit(tick_engine.build, proxy=True)
+        # The other rows that time nothing join phase 2's, the longest first:
+        # observe (b) and (e) and compact (e)'s bench runs on the card, trace
+        # (a), serve (a), compact (a), (d) and (e)'s other entry points. Every
+        # worker is done before phase 4 times anything; each phase prints its
+        # rows' lines in its place.
+        obs_legs["cuda"] = parity_pool.submit(_observe_leg, "cuda", legs_dir)
+        bench_legs["cuda"] = parity_pool.submit(_compact_bench_leg, "cuda", legs_dir)
+        trace_futs = [parity_pool.submit(_trace_row, name) for name in TRACE_ROWS]
+        served_futs = [parity_pool.submit(_served_row, *row) for row in served_rows()]
+        compact_futs = [parity_pool.submit(_compact_row, *row) for row in compact_rows()]
+        compact_cpu_futs = [parity_pool.submit(_compact_cpu_row, name, batch)
+                            for name, batch in (("config5c", 16), ("config7x", 4))]
+        scan_fut = parity_pool.submit(_compact_scan_runs)
+        parity_phases(parity_pool, proxy_build, t_start)
+        trace_a = [f.result() for f in trace_futs]
+        served = [f.result() for f in served_futs]
+        compact_legs = {"rows": [f.result() for f in compact_futs],
+                        "card_vs_cpu": [f.result() for f in compact_cpu_futs],
+                        "bench": {d: f.result() for d, f in bench_legs.items()},
+                        "scan": scan_fut.result()}
+        obs_legs = {d: f.result() for d, f in obs_legs.items()}
+    finally:
+        parity_pool.shutdown(cancel_futures=True)
+        pool.shutdown()
+    shutil.rmtree(legs_dir, ignore_errors=True)
+    emit({"phase": "phase_end", "name": "parity_workers", "seconds": time.perf_counter() - t_start})
 
     # ---- 4: full width, the main path -----------------------------------------
     cells = []
@@ -1857,7 +2377,7 @@ def main() -> int:
     emit({"phase": "phase_end", "name": "long_run", "seconds": time.perf_counter() - t_start})
 
     # ---- 4c: the serve path, the config9-serve row at 1,000 -------------------
-    serve_cell = serve_phase(dev, wall_ms)
+    serve_cell, serve_unarmed = serve_phase(dev, wall_ms, served)
     cells.append(serve_cell)
     total_launches += serve_cell["launches"]
     emit({"phase": "phase_end", "name": "serve", "seconds": time.perf_counter() - t_start})
@@ -1869,17 +2389,24 @@ def main() -> int:
     emit({"phase": "phase_end", "name": "scenario", "seconds": time.perf_counter() - t_start})
 
     # ---- 4e: the protocol trace plane --------------------------------------------
-    for cell in trace_phase(dev, wall_ms):
+    for cell in trace_phase(dev, wall_ms, trace_a):
         cells.append(cell)
         total_launches += cell["launches"]
     emit({"phase": "phase_end", "name": "trace", "seconds": time.perf_counter() - t_start})
 
     # ---- 4f: the compacted carry layout -------------------------------------------
     config5_cell = next(c for c in cells if c["preset"] == "config5")
-    for cell in compact_phase(dev, wall_ms, hold_ticks, config5_cell):
+    for cell in compact_phase(dev, wall_ms, hold_ticks, config5_cell, compact_legs):
         cells.append(cell)
         total_launches += cell["launches"]
     emit({"phase": "phase_end", "name": "compact", "seconds": time.perf_counter() - t_start})
+
+    # ---- 4g: the observability planes and the farm --------------------------------
+    for cell in observe_phase(dev, serve_unarmed, obs_legs):
+        cells.append(cell)
+        total_launches += cell["launches"]
+    del serve_unarmed
+    emit({"phase": "phase_end", "name": "observe", "seconds": time.perf_counter() - t_start})
 
     # ---- 5: the port's bench row, card vs CPU -----------------------------------
     cfg2 = PRESETS["config2"][0]
@@ -1906,7 +2433,7 @@ def main() -> int:
         "source": "raft_sim_tpu_torch/csrc/tick.cu",
         "replaces": "raft_sim_tpu/experiments/pallas_engine.py:70",
         "launches": total_launches,
-        "max_abs_err": max_err,
+        "max_abs_err": 0,  # every comparison above raises on a differing leaf
         "ms": main_cell["kernel_ms"],
         "plain_ms": main_cell["plain_ms"],
         "bound_ms": main_cell["bound_ms"],

@@ -6,8 +6,11 @@ subcommands: `run` drives a `driver.Session` (chunked runs, checkpoints with
 RaftConfig field) and prints the fleet summary as one JSON line, with the
 wall time and the device it ran on (driver.py); `serve` runs the standing
 fleet of serve/loop.py on a JSONL command source (tenants, read demands, the
-telemetry and delta streams); `scenario run|search|shrink` is the scenario
-engine (scenario/: nemesis programs, the violation hunt, repro artifacts).
+telemetry and delta streams); `scenario run|search|farm|shrink` is the
+scenario engine (scenario/: nemesis programs, the violation hunt, repro
+artifacts) and the fuzzing farm (farm/). `run` and `serve` take --perf (the
+chunk timer, obs/) and --health (the SLO monitors, health/); they and
+`scenario search|farm` take --profile DIR (a torch.profiler trace).
 `bench` is the port of bench.py (bench.py in
 this package): one JSON document of bench rows. The default device is the
 card; with none present `run`, `serve` and `bench` fail rather than running

@@ -25,12 +25,12 @@ row is marked `"scenario"`. `"layout"` is the config's carry layout
 
 The serve-throughput row (`serve_bench`, `--serve`, and `<serve preset>-serve`
 in the matrix) runs a multi-tenant `ServeSession` under saturating load and
-counts commands+reads/s, the service's unit of work.
+counts commands+reads/s, the service's unit of work; its `"perf"` is the
+session's chunk-timer rollup (obs/timer.py, label "serve-bench").
 
-Not ported yet: the measurement pass and its mesh leg, the serve row's
-per-chunk `perf` rollup (ROADMAP item 18a), and the roofline-pin fields and
-the serve row's `reconciliation` (the JAX cost model's TPU prices are no
-yardstick for the card).
+Not ported: the measurement pass and its mesh leg, the roofline-pin fields
+and the serve row's `reconciliation` (always None): they join rows to the
+JAX cost model's TPU prices, which are no yardstick for the card.
 """
 
 from __future__ import annotations
@@ -277,7 +277,7 @@ def serve_row(sess, stats: dict, preset: str, tenants_n: int, smoke: bool) -> di
         "steady_ticks_per_s": (round(sess.batch * sess.chunk * (len(syncs) - 1) / steady_s, 1)
                                if steady_s > 0 else None),
         "wall_s": wall,
-        "perf": None,
+        "perf": stats.get("perf"),
         "reconciliation": None,
     }
     if sess.device.type == "cuda":
@@ -294,6 +294,7 @@ def serve_bench(preset: str = SERVE_PRESET, batch: int | None = None, chunks: in
     """The serve-throughput row: a `serve_tenants` load on `preset` at its
     batch (64 under `smoke`), one warmup chunk, then `chunks` serving
     chunks, counted in commands+reads/s."""
+    from raft_sim_tpu_torch.obs import ChunkTimer
     from raft_sim_tpu_torch.serve import ServeSession
 
     cfg, preset_batch = PRESETS[preset]
@@ -303,7 +304,7 @@ def serve_bench(preset: str = SERVE_PRESET, batch: int | None = None, chunks: in
         raise ValueError(f"serve bench needs a read-carrying preset, got {preset}")
     sess = ServeSession(cfg, batch=batch, seed=0, chunk=chunk, window=window, sink=None,
                         warmup_ticks=chunk, tenants=serve_tenants(batch, tenants_n),
-                        device=device)
+                        perf=ChunkTimer(label="serve-bench", batch=batch), device=device)
     return serve_row(sess, sess.serve(chunks=chunks), preset, tenants_n, smoke)
 
 

@@ -26,23 +26,29 @@ sets the experiment), --apply-log, --apply-cluster, --telemetry-dir,
 --telemetry-window, --telemetry-ring, the protocol trace plane (--trace,
 --trace-depth, --trace-freeze, --trace-trigger: `Session.attach_trace`;
 --trace-ticks, --trace-events, --trace-cluster: `Session.trace`), --mutant
-(a TEST-ONLY weakened tick, scenario/mutation.py), --progress, --device and
---backend (`select_device`: the JAX driver's backend names mapped to a torch
-device).
+(a TEST-ONLY weakened tick, scenario/mutation.py), --perf (the chunk timer,
+`Session.attach_perf`), --health [SPEC] (the SLO monitor,
+`Session.attach_health`), --profile DIR (`profile_ctx`), --progress,
+--device and --backend (`select_device`: the JAX driver's backend names
+mapped to a torch device).
 `add_serve_arguments` / `serve` are the `serve` subcommand: the standing
-fleet of serve/loop.py fed from a JSONL command source.
+fleet of serve/loop.py fed from a JSONL command source, with --perf,
+--health and --profile.
 `add_scenario_arguments` / `scenario` are the `scenario` subcommands: `run`
 (a fleet under a JSON nemesis program, `run_scenario`; its checkpoints carry
-the program), `search` (the violation hunt, scenario/search.py) and
-`shrink` (a hit to a repro artifact, scenario/shrink.py); `search` takes
---fitness coverage, --proposal coverage-guided and --trace-depth.
+the program), `search` (the violation hunt, scenario/search.py), `farm` (the
+fuzzing farm, farm/core.py) and `shrink` (a hit to a repro artifact,
+scenario/shrink.py); `search` takes --fitness coverage, --proposal
+coverage-guided, --trace-depth and --profile.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import os
 import sys
 import time
 
@@ -56,13 +62,13 @@ from raft_sim_tpu_torch.summary import summarize
 from raft_sim_tpu_torch.utils import checkpoint
 from raft_sim_tpu_torch.utils import device as device_mod
 from raft_sim_tpu_torch.utils.apply_log import ApplyLogWriter
-from raft_sim_tpu_torch.utils.config import PRESETS, RaftConfig
+from raft_sim_tpu_torch.utils.config import PRESETS, RaftConfig, nondefault_fields
 
 
 class Session:
     """One experiment and the verbs over it: run, reset, summary, save,
-    restore, offer, offer_read, the apply-log export and the telemetry
-    sink."""
+    restore, offer, offer_read, the apply-log export, the telemetry sink,
+    the trace plane, the chunk timer and the health plane."""
 
     def __init__(self, cfg: RaftConfig, batch: int = 1, seed: int = 0, device="cuda"):
         self.cfg = cfg
@@ -76,13 +82,17 @@ class Session:
         self._trace_spec = None  # trace.TraceSpec (attach_trace)
         self._trace_persist = None  # the trace plane's cross-chunk carry (batch-minor)
         self._trace_trigger = None  # the flight recorder's event-kind trigger
+        self.perf = None  # obs.ChunkTimer (attach_perf)
+        self.health = None  # health.HealthMonitor (attach_health)
+        self._health_args = None  # (spec, directory) for reset's re-attach
+        self._live_rec = None  # this chunk's recorder (the health evidence hook)
         self.reset()
 
     def reset(self) -> None:
         """Back to tick 0 with the same seed: the same key derivation as
         `scan.simulate`, so a Session's run equals `simulate` leaf for leaf.
-        An attached apply log or telemetry sink starts over (files
-        truncated)."""
+        An attached apply log, telemetry sink, chunk timer or health monitor
+        starts over (files truncated, burn state back to ok)."""
         self.state, self.keys = scan.seed_fleet(self.cfg, self.seed, self.batch, self.device)
         self.metrics = scan.init_metrics_batch(self.batch, self.device)
         self.now = 0
@@ -97,6 +107,11 @@ class Session:
         self._trace_persist = None
         if self._trace_spec is not None and self.telemetry is not None:
             self.telemetry.write_trace_meta(self._trace_spec)
+        if self.perf is not None:
+            self.attach_perf(warmup_chunks=self.perf.warmup_chunks)
+        self._live_rec = None
+        if self._health_args is not None:
+            self.attach_health(*self._health_args)
 
     def attach_apply_log(self, directory: str, cluster: int = 0) -> None:
         """Stream cluster `cluster`'s committed values to
@@ -158,11 +173,57 @@ class Session:
         self._trace_persist = None
         self.telemetry.write_trace_meta(self._trace_spec)
 
+    def attach_perf(self, warmup_chunks: int | None = None) -> None:
+        """Arm per-chunk runtime attribution (obs.ChunkTimer): run() writes
+        one perf row a chunk into the attached telemetry sink's perf.jsonl
+        (or keeps them on `self.perf.rows` with no sink). Host-side only:
+        the trajectory is the unarmed one's."""
+        from raft_sim_tpu_torch.obs import ChunkTimer
+
+        kwargs = {} if warmup_chunks is None else {"warmup_chunks": warmup_chunks}
+        self.perf = ChunkTimer(label="run", batch=self.batch, sink=self.telemetry, **kwargs)
+        if self.health is not None:
+            # Either attach order works: an armed monitor takes the new timer
+            # for its runtime SLIs.
+            self.health.perf = self.perf
+
+    def attach_health(self, spec="default", directory: str | None = None) -> None:
+        """Arm the fleet health plane (health/): run() evaluates the SLO spec
+        every `eval_windows` telemetry windows (or chunks, on the plain
+        path) and streams health.jsonl and alerts.jsonl into the telemetry
+        sink's directory, or `directory` with no sink attached. A firing
+        alert triages the worst clusters and freezes an evidence bundle,
+        with their live flight rings when the recorder is armed. Host-side
+        only: the trajectory is the unmonitored one's."""
+        from raft_sim_tpu_torch.health import HealthMonitor, HealthWriter, load_spec
+
+        target = directory or (self.telemetry.directory if self.telemetry is not None else None)
+        if target is None:
+            raise RuntimeError("attach_health needs somewhere to stream health.jsonl: attach a "
+                               "telemetry sink first (attach_telemetry) or pass directory=")
+        self._health_args = (spec, directory)
+        self.health = HealthMonitor(load_spec(spec) if not isinstance(spec, dict) else spec,
+                                    batch=self.batch, writer=HealthWriter(target), scope="fleet",
+                                    perf=self.perf, capture=self._health_capture)
+
+    def _health_capture(self, alert, clusters):
+        """The monitor's evidence hook: the triaged clusters' live flight
+        rings (telemetry path with a ring; the plain path gives refs only)."""
+        flights = {}
+        rec = self._live_rec if self._live_rec is not None else self._tel_rec
+        if rec is not None:
+            for c in clusters:
+                flights[int(c)] = telemetry.export_cluster(rec, int(c))
+        return {"flights": flights,
+                "refs": {"seed": self.seed, "batch": self.batch, "source": "run"}}
+
     def run(self, n_ticks: int, chunk: int = 4096, progress: bool = False) -> None:
         """Step the fleet `n_ticks` in chunks of `chunk` ticks through the
         tick kernel (the plain tick on the CPU), folding the metrics; with a
         telemetry sink attached, each chunk's windows stream to it, and with
-        a trace armed its trace windows too."""
+        a trace armed its trace windows too. An armed chunk timer writes a
+        row a chunk; an armed health monitor observes each chunk's windows
+        (the plain path: its metric deltas)."""
 
         def after_chunk(done, state, metrics):
             if self.apply_writer is not None:
@@ -174,22 +235,41 @@ class Session:
 
         if self.telemetry is not None:
             def cb_t(done, state, metrics, records):
+                if self.health is not None:
+                    # One host copy, read by the sink and the monitor alike.
+                    records = device_mod.host_numpy(*device_mod.to_host_async(records))
                 self.telemetry.append_windows(records)
+                if self.health is not None:
+                    self.health.observe_records(records)
                 return after_chunk(done, state, metrics)
+
+            def hook(done, rec):
+                # A firing alert snapshots this chunk's carried recorder.
+                self._live_rec = rec
 
             out = telemetry.run_chunked_telemetry(
                 self.cfg, self.state, self.keys, n_ticks, window=self.telemetry.window,
                 recorder=self._tel_rec, chunk=chunk, callback=cb_t, now=self.now,
-                trace_spec=self._trace_spec, trace_persist=self._trace_persist,
+                perf=self.perf, trace_spec=self._trace_spec, trace_persist=self._trace_persist,
                 trigger_kind=self._trace_trigger,
-                trace_callback=lambda done, traws: self.telemetry.append_trace(traws))
+                trace_callback=lambda done, traws: self.telemetry.append_trace(traws),
+                chunk_hook=hook if self.health is not None else None)
             self.state, m, self._tel_rec = out[:3]
             if self._trace_spec is not None:
                 self._trace_persist = out[3]
         else:
+            def cb(done, state, metrics):
+                if self.health is not None:
+                    # The chunk is this path's window.
+                    self.health.observe_chunk(done, metrics)
+                return after_chunk(done, state, metrics)
+
+            if self.health is not None:
+                # run_chunked restarts its metrics and tick count each call.
+                self.health.begin_run()
             self.state, m = chunked.run_chunked(
-                self.cfg, self.state, self.keys, n_ticks, chunk=chunk, callback=after_chunk,
-                now=self.now)
+                self.cfg, self.state, self.keys, n_ticks, chunk=chunk, callback=cb,
+                now=self.now, perf=self.perf)
         self.metrics = chunked.merge_metrics(self.metrics, m)
         self.now += n_ticks
 
@@ -368,6 +448,10 @@ class Session:
         self._trace_spec = None
         self._trace_persist = None
         self._trace_trigger = None
+        self.perf = None
+        self.health = None
+        self._health_args = None
+        self._live_rec = None
         self.state = state
         self.keys = keys
         self.metrics = metrics
@@ -449,8 +533,45 @@ def add_run_arguments(p: argparse.ArgumentParser) -> None:
     p.add_argument("--mutant", default=None, metavar="NAME",
                    help="TEST-ONLY: run a deliberately weakened tick (scenario/mutation.py "
                         "registry, e.g. 'weak-quorum')")
+    p.add_argument("--perf", action="store_true",
+                   help="per-chunk runtime attribution (obs.ChunkTimer): device-vs-host wall "
+                        "split, warmup vs steady state, card memory, the kernel-cache "
+                        "watchdog; streams perf.jsonl into --telemetry-dir when given and "
+                        "prints the steady-state rollup")
+    p.add_argument("--health", nargs="?", const="default", default=None, metavar="SPEC",
+                   help="arm the fleet health plane (needs --telemetry-dir): evaluate the SLO "
+                        "spec (the built-in default, or a JSON spec file) every eval period, "
+                        "streaming health.jsonl and alerts.jsonl; firing burn-rate alerts "
+                        "freeze evidence bundles with live flight-ring snapshots")
+    add_profile_argument(p)
     add_device_arguments(p)
     add_config_flags(p)
+
+
+def add_profile_argument(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--profile", metavar="DIR", default=None,
+                   help="record a torch.profiler trace (CPU activity, and CUDA activity on "
+                        "the card) into DIR/torch_trace.json (Chrome trace format); the "
+                        "profiled run equals the unprofiled one")
+
+
+@contextlib.contextmanager
+def profile_ctx(path: str | None, device):
+    """The --profile capture of run, serve and scenario search/farm: a
+    torch.profiler trace of the block, written to `path`/torch_trace.json
+    on exit; a no-op without a path."""
+    if not path:
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(path, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(path, "torch_trace.json"))
 
 
 # The JAX driver's --backend names and the torch device each runs on: the
@@ -522,9 +643,11 @@ def run(ap: argparse.ArgumentParser, args) -> int:
         sess = Session(cfg, batch=batch, seed=args.seed if args.seed is not None else 0,
                        device=args.device)
     if args.trace_ticks or args.trace_events:
-        if args.save or args.apply_log or args.telemetry_dir:
-            ap.error("--save/--apply-log/--telemetry-dir have no effect with --trace-ticks/"
-                     "--trace-events (tracing does not advance the session)")
+        if (args.save or args.apply_log or args.telemetry_dir or args.perf or args.health
+                or args.profile):
+            ap.error("--save/--profile/--apply-log/--telemetry-dir/--perf/--health have no "
+                     "effect with --trace-ticks/--trace-events (tracing does not advance the "
+                     "session)")
         try:
             infos, states = sess.trace(args.trace_ticks or args.ticks, cluster=args.trace_cluster)
         except IndexError as ex:
@@ -553,13 +676,31 @@ def run(ap: argparse.ArgumentParser, args) -> int:
                                   trigger=args.trace_trigger)
             except ValueError as ex:
                 ap.error(str(ex))
+    if args.perf:
+        # After the sink, so perf.jsonl streams into its directory.
+        sess.attach_perf()
+    if args.health:
+        if not args.telemetry_dir:
+            ap.error("--health needs --telemetry-dir (the health/alert streams ride the "
+                     "telemetry sink directory; Session.attach_health(directory=) is the "
+                     "sink-free form)")
+        try:
+            sess.attach_health(args.health)
+        except ValueError as ex:
+            ap.error(str(ex))
     t0 = time.perf_counter()
-    sess.run(args.ticks, chunk=args.chunk, progress=args.progress)
-    out = sess.summary()  # copies to the host: waits for the device
+    with profile_ctx(args.profile, sess.device):
+        sess.run(args.ticks, chunk=args.chunk, progress=args.progress)
+        out = sess.summary()  # copies to the host: waits for the device
     dt = time.perf_counter() - t0
     out["wall_s"] = dt
     out["cluster_ticks_per_s"] = sess.batch * args.ticks / dt
     out["device"] = _device_name(sess.device)
+    if args.perf:
+        out["perf"] = sess.perf.finish()  # prints the watchdog's finding, if any
+    if sess.health is not None:
+        out["health"] = sess.health.finalize()
+        print(sess.health.status_line(), file=sys.stderr)
     print(json.dumps(out))
     if args.telemetry_dir:
         fin = sess.finalize_telemetry()
@@ -608,6 +749,15 @@ def add_serve_arguments(p: argparse.ArgumentParser) -> None:
                    help="stream telemetry windows (windows.jsonl) and commit deltas "
                         "(deltas.jsonl) to DIR")
     p.add_argument("--progress", action="store_true", help="a line on stderr per chunk")
+    p.add_argument("--perf", action="store_true",
+                   help="per-chunk runtime attribution of the serving loop (dispatch, export "
+                        "and packing inside the host window, device wait; the kernel-cache "
+                        "watchdog); streams perf.jsonl into --sink when given")
+    p.add_argument("--health", nargs="?", const="default", default=None, metavar="SPEC",
+                   help="arm fleet and per-tenant SLO monitors (needs --sink): health.jsonl "
+                        "and alerts.jsonl, status lines on stderr, evidence bundles on firing "
+                        "alerts; the built-in default spec, or a JSON spec file")
+    add_profile_argument(p)
     add_device_arguments(p)
     add_config_flags(p)
 
@@ -664,6 +814,11 @@ def serve(ap: argparse.ArgumentParser, args) -> int:
     if args.sink:
         sink = TelemetrySink(args.sink, cfg, seed=seed, batch=batch, window=args.window, ring=0,
                              source="serve", backend=dev.type)
+    perf = None
+    if args.perf:
+        from raft_sim_tpu_torch.obs import ChunkTimer
+
+        perf = ChunkTimer(label="serve", batch=batch, sink=sink)
     if args.reads_per_tenant < 0:
         ap.error("--reads-per-tenant must be >= 0")
     if args.tenants is not None and not 1 <= args.tenants <= batch:
@@ -679,10 +834,13 @@ def serve(ap: argparse.ArgumentParser, args) -> int:
         shards = _shard_round_robin(jsonl_commands(args.source), sizes)
         tenants = [Tenant(f"tenant{i}", sizes[i], source=shards[i], reads=args.reads_per_tenant)
                    for i in range(args.tenants)]
+    if args.health and not args.sink:
+        ap.error("--health needs --sink (the health/alert streams ride the telemetry sink "
+                 "directory)")
     try:
         sess = ServeSession(cfg, batch=batch, seed=seed, chunk=args.chunk, window=args.window,
                             delta_depth=args.delta_depth, sink=sink, warmup_ticks=args.warmup,
-                            tenants=tenants, device=dev)
+                            perf=perf, tenants=tenants, health=args.health, device=dev)
     except ValueError as ex:
         ap.error(str(ex))
     source = None if tenants is not None else CommandSource(jsonl_commands(args.source))
@@ -693,8 +851,9 @@ def serve(ap: argparse.ArgumentParser, args) -> int:
                   f"{st['reads_served']} reads, violations={st['violations']}", file=sys.stderr)
 
     try:
-        stats = sess.serve(source, chunks=args.chunks, drain_chunks=args.drain_chunks,
-                           progress=progress)
+        with profile_ctx(args.profile, dev):
+            stats = sess.serve(source, chunks=args.chunks, drain_chunks=args.drain_chunks,
+                               progress=progress)
     except ValueError as ex:
         ap.error(str(ex))
     out = summarize(sess.metrics)._asdict()
@@ -707,13 +866,6 @@ def serve(ap: argparse.ArgumentParser, args) -> int:
     out["device"] = _device_name(dev)
     print(json.dumps(out))
     return 0
-
-
-def _nondefault_config(cfg: RaftConfig) -> dict:
-    """cfg's non-default fields: the portable config encoding of hit files
-    and repro artifacts (RaftConfig(**this) rebuilds it)."""
-    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(RaftConfig)
-            if getattr(cfg, f.name) != f.default}
 
 
 def run_scenario(cfg: RaftConfig, program, n_ticks: int, state, keys, chunk: int = 4096,
@@ -731,7 +883,7 @@ def run_scenario(cfg: RaftConfig, program, n_ticks: int, state, keys, chunk: int
 
 
 def add_scenario_arguments(sc: argparse.ArgumentParser) -> dict:
-    """The `scenario` subcommands' parsers, by name (`run`, `search`,
+    """The `scenario` subcommands' parsers, by name (`run`, `search`, `farm`,
     `shrink`)."""
     ssub = sc.add_subparsers(dest="scmd", required=True)
     srun = ssub.add_parser("run", help="run a fleet under a JSON nemesis program")
@@ -776,8 +928,56 @@ def add_scenario_arguments(sc: argparse.ArgumentParser) -> dict:
     ssearch.add_argument("--seed", type=int, default=None)
     ssearch.add_argument("--out", metavar="FILE", default=None,
                          help="write the first violating hit (feeds `scenario shrink --hit`)")
+    add_profile_argument(ssearch)
     add_device_arguments(ssearch)
     add_config_flags(ssearch)
+
+    sfarm = ssub.add_parser("farm", help="the fuzzing farm: portfolio hunts, coverage-guided "
+                            "mutation and the self-growing safety corpus (farm/)")
+    sfarm.add_argument("--preset", choices=sorted(PRESETS), default=None)
+    # build_config reads args.batch; the farm population is the batch.
+    sfarm.add_argument("--batch", type=int, default=None, help=argparse.SUPPRESS)
+    sfarm.add_argument("--mutant", default=None, metavar="NAME",
+                       help="TEST-ONLY: hunt a deliberately weakened tick (scenario/mutation.py "
+                            "registry)")
+    sfarm.add_argument("--portfolio", default="scalar,coverage", metavar="M1,M2,...",
+                       help="fitness members hunted in parallel over disjoint slices of the "
+                            "fleet (farm/portfolio.py: scalar, coverage, multi_leader, "
+                            "commit_stall, read_staleness, durability; default scalar,coverage)")
+    sfarm.add_argument("--budget-gens", type=int, default=8,
+                       help="generation budget; spending it without a hit pins a negative "
+                            "result (out-dir/negative.json)")
+    sfarm.add_argument("--population", type=int, default=64,
+                       help="fleet batch, split among the members")
+    sfarm.add_argument("--mesh", type=int, default=None, metavar="D",
+                       help="the JAX farm's sharded evaluation: not ported (a usage error)")
+    sfarm.add_argument("--ticks", type=int, default=512)
+    sfarm.add_argument("--window", type=int, default=64,
+                       help="telemetry window (fitness resolution)")
+    sfarm.add_argument("--elite-frac", type=float, default=0.25)
+    sfarm.add_argument("--trace-depth", type=int, default=32, metavar="R")
+    sfarm.add_argument("--no-guided", action="store_true",
+                       help="no coverage-guided mutation (pure per-member CE; a trace-free "
+                            "portfolio then runs untraced)")
+    sfarm.add_argument("--stop-on", choices=("hit", "frozen", "budget"), default="hit",
+                       help="stop at the first processed hit (default), the first newly frozen "
+                            "artifact, or never")
+    sfarm.add_argument("--seed", type=int, default=None)
+    sfarm.add_argument("--out-dir", metavar="DIR", required=True,
+                       help="farm output: farm_manifest.json, members/<name>/hunt.jsonl, "
+                            "perf.jsonl, negative.json on a hitless budget")
+    sfarm.add_argument("--corpus-dir", metavar="DIR", default=None,
+                       help="arm the auto-corpus policy against DIR (hits shrunk and dedup'd "
+                            "by (kernel, kinds, mechanism-set) signature; e.g. tests/corpus)")
+    sfarm.add_argument("--freeze", action="store_true",
+                       help="let the farm write new checker-gated, provenance-stamped "
+                            "artifacts into --corpus-dir")
+    sfarm.add_argument("--health", nargs="?", const="default", default=None, metavar="SPEC",
+                       help="arm health monitoring over the hunt fleet: health.jsonl and "
+                            "alerts.jsonl into --out-dir")
+    add_profile_argument(sfarm)
+    add_device_arguments(sfarm)
+    add_config_flags(sfarm)
 
     sshrink = ssub.add_parser("shrink", help="minimize a search hit to a repro artifact")
     sshrink.add_argument("--hit", metavar="FILE", required=True,
@@ -786,14 +986,14 @@ def add_scenario_arguments(sc: argparse.ArgumentParser) -> dict:
     sshrink.add_argument("--halving-rounds", type=int, default=3)
     sshrink.add_argument("--context", type=int, default=30)
     add_device_arguments(sshrink)
-    return {"run": srun, "search": ssearch, "shrink": sshrink}
+    return {"run": srun, "search": ssearch, "farm": sfarm, "shrink": sshrink}
 
 
 def scenario(parsers: dict, args) -> int:
     """The `scenario` subcommands (`parsers` from add_scenario_arguments)."""
     ap = parsers[args.scmd]
     select_device(ap, args)
-    return {"run": _scenario_run, "search": _scenario_search,
+    return {"run": _scenario_run, "search": _scenario_search, "farm": _scenario_farm,
             "shrink": _scenario_shrink}[args.scmd](ap, args)
 
 
@@ -864,18 +1064,56 @@ def _scenario_search(ap: argparse.ArgumentParser, args) -> int:
         proposal=args.proposal, trace_depth=args.trace_depth,
     )
     try:
-        res = search_mod.search(cfg, spec, device=args.device)
+        with profile_ctx(args.profile, args.device):
+            res = search_mod.search(cfg, spec, device=args.device)
     except ValueError as ex:
         ap.error(str(ex))
     doc = {"found": res.hit is not None, "hit": res.hit, "generations": res.generations,
            "spec": res.spec, "mutant": args.mutant}
     if res.hit is not None and args.out:
         with open(args.out, "w") as f:
-            json.dump({"config": _nondefault_config(cfg), "mutant": args.mutant, **res.hit}, f,
+            json.dump({"config": nondefault_fields(cfg), "mutant": args.mutant, **res.hit}, f,
                       indent=1)
             f.write("\n")
         doc["hit_file"] = args.out
     print(json.dumps(doc))
+    return 0
+
+
+def _scenario_farm(ap: argparse.ArgumentParser, args) -> int:
+    """`scenario farm`: the fuzzing farm (farm/core.py); prints its summary
+    line, ending in a frozen hit or a pinned negative result."""
+    from raft_sim_tpu_torch.farm import FarmSpec, parse_portfolio, run_farm
+
+    if args.mesh is not None:
+        ap.error("--mesh: the sharded farm is not ported yet (ROADMAP item 19)")
+    cfg, _ = build_config(args)
+    cfg = _mutant(ap, args.mutant, cfg)
+    try:
+        spec = FarmSpec(
+            portfolio=parse_portfolio(args.portfolio), budget_gens=args.budget_gens,
+            population=args.population, ticks=args.ticks, window=args.window,
+            elite_frac=args.elite_frac, seed=args.seed if args.seed is not None else 0,
+            trace_depth=args.trace_depth, guided=not args.no_guided, stop_on=args.stop_on,
+        )
+        with profile_ctx(args.profile, args.device):
+            res = run_farm(cfg, spec, mutant=args.mutant, out_dir=args.out_dir,
+                           corpus_dir=args.corpus_dir, freeze=args.freeze, health=args.health,
+                           device=args.device)
+    except ValueError as ex:
+        ap.error(str(ex))
+    print(json.dumps({
+        "found": bool(res.hits),
+        "hits": res.manifest["hits"],
+        "frozen": res.manifest["frozen"],
+        "dedup_rejected": res.dedup_rejected,
+        "negative": res.negative,
+        "generations_run": res.manifest["generations_run"],
+        "evaluations": res.manifest["evaluations"],
+        "cov_bits_total": res.manifest["cov_bits_total"],
+        "manifest_hash": res.manifest["manifest_hash"],
+        "out_dir": args.out_dir,
+    }))
     return 0
 
 

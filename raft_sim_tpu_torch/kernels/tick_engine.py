@@ -534,6 +534,20 @@ def launch_shape(cfg: T.RaftConfig, b: int, device=None) -> dict:
             "blocks": -(-b // tc), "smem_bytes": smem}
 
 
+def cache_probes() -> dict:
+    """{name: zero-argument int callable}: the kernel path's caches, for the
+    chunk timer's recompile watchdog (obs/timer.py). A growth after warmup
+    is a new library loaded (`_load_cuda`) or a new launch template worked
+    out mid-run (`leaf_specs`, `block_shape`: their lru_cache misses, which
+    keep counting once a cache is full). The CPU path runs the plain tick
+    and builds nothing, so these stay flat there."""
+    return {
+        "tick_engine._load_cuda": lambda: len(_LIBS),
+        "tick_engine.leaf_specs": lambda: leaf_specs.cache_info().misses,
+        "tick_engine.block_shape": lambda: block_shape.cache_info().misses,
+    }
+
+
 def _cuda_launch(params, ptrs, tiers, device, proxy: bool = False) -> None:
     """THE launch site: one tick kernel on the current stream, counted."""
     lib = _load_cuda(proxy)

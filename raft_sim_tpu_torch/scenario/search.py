@@ -23,7 +23,7 @@ violations still dominant; it runs the config's trace variant
 (track_trace) through `telemetry.simulate_windowed(trace=...)`.
 `proposal="coverage-guided"` (coverage fitness only) draws part of each
 generation as small mutations of the previous generation's novelty-lit
-genomes. `perf` (ROADMAP item 18) raises.
+genomes. `perf` (an obs.ChunkTimer) times each generation as one chunk.
 """
 
 from __future__ import annotations
@@ -281,7 +281,10 @@ def search(cfg: RaftConfig, spec: SearchSpec | None = None, perf=None,
     genome and fleet seed after its run. In coverage mode each generation's
     row also carries `cov_new_bits` and `cov_total_bits`; a guided
     generation draws its clones when the generation before it lit a new
-    bit (its `cov_new_bits` > 0)."""
+    bit (its `cov_new_bits` > 0). `perf` (an obs.ChunkTimer) writes one row
+    a generation: the generation's fleet run is the chunk, its device wait a
+    host copy of `metrics.ticks`; the genome decode before it and the
+    fitness and CE update after it land in the rows' gap_s."""
     spec = spec or SearchSpec()
     knobs = spec.knobs or default_knobs(cfg)
     if spec.ticks % spec.window:
@@ -294,10 +297,9 @@ def search(cfg: RaftConfig, spec: SearchSpec | None = None, perf=None,
     if spec.proposal == "coverage-guided" and spec.fitness != "coverage":
         raise ValueError("proposal='coverage-guided' needs fitness='coverage': guided mutation "
                          "selects parents by the novelty bits only the coverage bitmap provides")
-    if perf is not None:
-        raise NotImplementedError(
-            "search: perf attribution is not ported yet (ROADMAP item 18)")
     dev = device_mod.resolve(device)
+    if perf is not None:
+        perf.watch(dev)
     trace_spec = seen = None
     if spec.fitness == "coverage":
         from raft_sim_tpu_torch.trace.ring import COV_WORDS, TraceSpec
@@ -326,10 +328,15 @@ def search(cfg: RaftConfig, spec: SearchSpec | None = None, perf=None,
         g, segs = _population_genome(cfg, knobs, xs)  # [B, 1] leaves
         genome_mod.validate(cfg, g)
         sim_seed = spec.seed + SEED_STRIDE * gen
+        if perf is not None:
+            perf.begin(spec.ticks)
         out = telemetry.simulate_windowed(
             cfg, sim_seed, spec.population, spec.ticks, spec.window, genome=g, device=dev,
             trace=trace_spec,
         )
+        if perf is not None:
+            perf.dispatched()
+            perf.end(sync=lambda: out[1].ticks.cpu())
         fetched = [out[1], out[2]] + ([out[5].cov] if trace_spec is not None else [])
         metrics, records, *tp_cov = device_mod.host_numpy(*device_mod.to_host_async(fetched))
         del out

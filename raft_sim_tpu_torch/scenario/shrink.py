@@ -19,7 +19,6 @@ same first violating tick and kinds came back.
 
 from __future__ import annotations
 
-import dataclasses
 import json
 
 import numpy as np
@@ -28,7 +27,7 @@ import torch
 from raft_sim_tpu_torch.scenario import genome as genome_mod
 from raft_sim_tpu_torch.sim import scan, trace
 from raft_sim_tpu_torch.utils import device as device_mod
-from raft_sim_tpu_torch.utils.config import RaftConfig
+from raft_sim_tpu_torch.utils.config import RaftConfig, nondefault_fields
 
 VIOL_FIELDS = (
     "viol_election_safety", "viol_commit", "viol_log_matching", "viol_read_stale",
@@ -158,11 +157,7 @@ def shrink(cfg: RaftConfig, hit: dict, mutant: str | None = None, halving_rounds
     state_lines = [trace.node_line(states, tick, i) for i in range(cfg.n_nodes)]
     return {
         "schema": "scenario-repro-v1",
-        "config": {
-            f.name: getattr(cfg, f.name)
-            for f in dataclasses.fields(RaftConfig)
-            if getattr(cfg, f.name) != f.default
-        },
+        "config": nondefault_fields(cfg),
         "mutant": mutant,
         "seed": int(seed),
         "batch": int(batch),

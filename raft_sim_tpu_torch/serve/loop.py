@@ -21,12 +21,21 @@ of them closed by a CUDA event, so the host waits only where it reads.
 The session holds one fleet on the device: it keeps the state in the
 batch-minor layout and hands it to the chunk without keeping a reference,
 so each tick's input state is freed once the next exists.
+
+`perf` (an obs.ChunkTimer) gets one row a chunk at the loop's own phase
+boundaries: begun before the chunk's first launch, dispatched after its
+last, closed at the sync on a host copy of the chunk's `metrics.ticks`
+(queued right behind the chunk, ahead of the extraction rounds), with the
+host window's export and packing times as `export_s` and `pack_s` inside
+`host_s`. `health` arms SLO monitors over the exported windows (one for the
+fleet, one per tenant), after the warmup.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import sys
 import time
 
 import numpy as np
@@ -111,16 +120,18 @@ class ServeSession:
     (serve/tenancy.py). `sink` (utils/telemetry_sink.TelemetrySink) streams
     windows to windows.jsonl and delta rows to deltas.jsonl; with tenants,
     their views land under tenants/<name>/. The session runs on the card
-    unless it is given device="cpu". `perf=` and `health=` (chunk timing and
-    SLO monitors, ROADMAP item 18) are not ported and raise.
+    unless it is given device="cpu". `perf` (an obs.ChunkTimer) times each
+    chunk; its warmup grows to cover the warmup chunks and the first serving
+    chunk. `health` (an SLO spec: "default", a path or a dict; needs `sink`)
+    arms one monitor for the fleet, which owns the runtime SLIs, and one per
+    tenant slice, all streaming into the sink's directory; they are armed
+    after the warmup, so electing leaders is never billed against the
+    availability budget.
     """
 
     def __init__(self, cfg: RaftConfig, batch: int = 1, seed: int = 0, chunk: int = 256,
                  window: int = 64, delta_depth: int = 64, sink=None, warmup_ticks: int = 0,
                  perf=None, tenants=None, health=None, device="cuda"):
-        if perf is not None or health is not None:
-            raise NotImplementedError(
-                "ServeSession: perf= and health= are not ported yet (ROADMAP item 18)")
         if chunk % window:
             raise ValueError(f"chunk {chunk} must divide by window {window}")
         self.device = device_mod.resolve(device)
@@ -142,6 +153,15 @@ class ServeSession:
         self.chunk = chunk
         self.window = window
         self.sink = sink
+        self.perf = perf
+        if perf is not None:
+            perf.watch(self.device)
+            if warmup_ticks:
+                # The warmup chunks (leader election) and the first serving
+                # chunk (its wall runs from the loop's start) are not steady
+                # serving.
+                perf.warmup_chunks = max(perf.warmup_chunks,
+                                         self._round_up(warmup_ticks) // chunk + 1)
         if sink is not None:
             # The session owns the delta stream; truncate a stale one so
             # every cluster's stream starts dense at index 1.
@@ -162,6 +182,8 @@ class ServeSession:
         # chunk's extraction rounds (CUDA events; on the card only).
         self.sync_times: list[float] = []
         self.extract_ms: list[float] = []
+        self.monitors: list = []
+        self._health_status: tuple | None = None
         if warmup_ticks:
             # Elect leaders before the first offer (an offer into a
             # leaderless tick is dropped). Warmup is not serving: the chunk
@@ -169,6 +191,30 @@ class ServeSession:
             self._advance(self._round_up(warmup_ticks))
             self.warmup_chunks, self.chunks_done = self.chunks_done, 0
             self.ticks_done = 0
+        if health is not None:
+            self._arm_health(health, seed)
+
+    def _arm_health(self, health, seed: int) -> None:
+        """One fleet monitor (the perf rows are loop-wide: it owns the
+        runtime SLIs) and one per tenant slice, sharing one writer."""
+        from raft_sim_tpu_torch.health import HealthMonitor, HealthWriter, load_spec
+        from raft_sim_tpu_torch.utils.telemetry_sink import config_hash
+
+        if self.sink is None:
+            raise ValueError("health monitoring needs a sink: the health/alert streams and "
+                             "evidence bundles live in its directory")
+        spec = load_spec(health)
+        writer = HealthWriter(self.sink.directory)
+        refs = {"config_hash": config_hash(self.cfg), "seed": int(seed),
+                "batch": int(self.batch), "source": "serve"}
+        capture = lambda alert, clusters: {"refs": refs}  # noqa: E731
+        self.monitors.append(HealthMonitor(spec, batch=self.batch, writer=writer, scope="fleet",
+                                           perf=self.perf, capture=capture))
+        if self.router is not None:
+            for t in self.router.tenants:
+                self.monitors.append(HealthMonitor(
+                    spec, batch=t.hi - t.lo, writer=writer, scope=f"tenant:{t.name}",
+                    cluster_base=t.lo, capture=capture))
 
     @property
     def state(self):
@@ -197,6 +243,8 @@ class ServeSession:
         """Enqueue one chunk; its records start home behind it."""
         _check_planes(self.cfg, cmds_np, reads_np, self.window)
         n = int(cmds_np.shape[0])
+        if self.perf is not None:
+            self.perf.begin(n)
         cmds = _plane(cmds_np, self.device)
         reads = None if reads_np is None else _plane(reads_np, self.device)
         # The state goes to the chunk by value only (_take): no reference to
@@ -204,6 +252,11 @@ class ServeSession:
         self._s, self._m_pending, recs, _ = telemetry.run_minor_telemetry(
             self.cfg, self._take(), self.keys, n, self.window, self.now, cmds=cmds, reads=reads)
         self._recs_pending = device_mod.to_host_async(recs)
+        if self.perf is not None:
+            self.perf.dispatched()
+            # The timer's sync: a host copy of the chunk's metrics.ticks,
+            # queued right behind the chunk.
+            self._ticks_pending = device_mod.to_host_async(self._m_pending.ticks)
         self.now += n
         self.chunks_done += 1
         self.ticks_done += n
@@ -219,15 +272,36 @@ class ServeSession:
                 self.sink.append_windows(recs)
             if self.router is not None:
                 self.router.credit_windows(recs)
+            if self.monitors:
+                self._observe_health(recs)
         self.delta_rows.extend(rows)
         if self.sink is not None and rows:
             deltas_mod.append_delta_rows(self._deltas_path, rows)
         if self.router is not None and rows:
             self.router.route_deltas(rows)
 
+    def _observe_health(self, recs) -> None:
+        """Fan one collected chunk's window units (split once) to the fleet
+        and tenant monitors, and print the status lines to stderr whenever a
+        scope changes state."""
+        from raft_sim_tpu_torch.health.monitor import slice_units
+
+        units = telemetry.window_cluster_counters(recs)
+        for m in self.monitors:
+            if m.cluster_base == 0 and m.batch == self.batch:
+                m.observe_units(units)
+            else:
+                m.observe_units(slice_units(units, m.cluster_base, m.cluster_base + m.batch))
+        status = tuple(m.status for m in self.monitors)
+        if self._health_status is not None and status != self._health_status:
+            print("; ".join(m.status_line() for m in self.monitors), file=sys.stderr)
+        self._health_status = status
+
     def _merge_pending(self) -> None:
         self.metrics = merge_metrics(self.metrics, raft_batched.from_batch_minor(self._m_pending))
         self._m_pending = None
+        if self.perf is not None:
+            self.perf.end(sync=lambda: device_mod.host_numpy(*self._ticks_pending))
 
     def _collect(self) -> list[dict]:
         """Synchronous collect (warmup): merge the chunk's metrics, drain its
@@ -280,8 +354,10 @@ class ServeSession:
         self._dispatch(*router.pack(self.chunk))
         while True:
             # ---- host window: chunk k is queued on the device -------------
+            e0 = time.perf_counter()
             if pending is not None:
                 self._export(*pending)
+            e1 = time.perf_counter()
             if chunks is not None:
                 stop = self.chunks_done >= chunks
             else:
@@ -301,7 +377,10 @@ class ServeSession:
                             f"on tenants {stuck}: the demand may be unservable under this "
                             "config (e.g. read-only tenants need elections that append no-ops)")
             next_planes = None if stop else router.pack(self.chunk)
+            e2 = time.perf_counter()
             futs, timing = self._begin_extraction()
+            if self.perf is not None:
+                self.perf.annotate(export_s=round(e1 - e0, 6), pack_s=round(e2 - e1, 6))
             # ---- sync: the chunk's rows wait for its extraction copies ----
             self._merge_pending()
             pending = (self._recs_pending, self.deltas.finish_rounds(futs))
@@ -321,6 +400,12 @@ class ServeSession:
         stats["wall_s"] = round(time.perf_counter() - t0, 3)
         stats["offered"] = router.offered
         stats["reads_offered"] = router.reads_offered
+        if self.perf is not None:
+            stats["perf"] = self.perf.finish()  # prints the watchdog's finding, if any
+        if self.monitors:
+            # The trailing partial period is evaluated; each scope's rollup
+            # replaces the live status map.
+            stats["health"] = [m.finalize() for m in self.monitors]
         if self.sink is not None:
             from raft_sim_tpu_torch.summary import summarize
 
@@ -346,6 +431,7 @@ class ServeSession:
             "reads_served": reads_served,
             "ops_done": self.deltas.applied + reads_served,
             "violations": int(self.metrics.violations.sum()),
+            **({"health": {m.scope: m.status for m in self.monitors}} if self.monitors else {}),
         }
 
     def acked_values(self, cluster: int = 0) -> list[int]:

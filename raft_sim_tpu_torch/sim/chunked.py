@@ -14,7 +14,8 @@ the caller's state is never written and no copy is taken. The state moves
 batch-minor once at entry, stays so through every tick, and crosses back to
 the [B, ...] layout once per chunk, for the callback. The lockstep tick
 `now` lives on the host: it is read from the state once (or passed in), and
-nothing is read back from the device per chunk unless the callback asks.
+nothing is read back from the device per chunk unless the callback asks
+(or a chunk timer is armed: `perf`, obs/timer.py, syncs once a chunk).
 """
 
 from __future__ import annotations
@@ -67,6 +68,7 @@ def run_chunked(
     now: int | None = None,
     genome=None,
     seg_len: int = 1,
+    perf=None,
 ):
     """Run the [B, ...]-leading `state` forward `n_ticks` in chunks of
     `chunk` ticks; returns (final state, merged RunMetrics), [B, ...]-leading.
@@ -76,7 +78,11 @@ def run_chunked(
     given). Each tick is `scan.tick_batch_minor` through the kernel wrapper
     (the plain tick for CPU tensors). `genome` ([B, S] rows on the state's
     device) and `seg_len` select the scenario input path; segments follow
-    the absolute tick, so chunking never shifts a phase."""
+    the absolute tick, so chunking never shifts a phase. `perf` (an
+    obs.ChunkTimer) gets one row a chunk: begun before its first launch,
+    dispatched after its last, closed after the callback on a host copy of
+    the chunk's `metrics.ticks` (the device wait). None leaves the loop as
+    it was."""
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     batch = state.role.shape[0]
@@ -86,12 +92,22 @@ def run_chunked(
     s = raft_batched.to_batch_minor(state)
     out = state
     done = 0
+    if perf is not None:
+        perf.watch(state.role.device)
     while done < n_ticks:
         n = min(chunk, n_ticks - done)
+        if perf is not None:
+            perf.begin(n)
         s, m = scan.run_minor(cfg, s, keys, n, now + done, genome=genome, seg_len=seg_len)
+        if perf is not None:
+            perf.dispatched()
         metrics = merge_metrics(metrics, raft_batched.from_batch_minor(m))
         done += n
         out = raft_batched.from_batch_minor(s)
-        if callback is not None and callback(done, out, metrics):
+        # The callback's host work is this chunk's; the row closes after it.
+        stop = callback is not None and callback(done, out, metrics)
+        if perf is not None:
+            perf.end(sync=lambda: m.ticks.cpu())
+        if stop:
             break
     return out, metrics

@@ -243,7 +243,7 @@ def run_chunked_telemetry(cfg: RaftConfig, state, keys: torch.Tensor, n_ticks: i
                           chunk: int = 4096, callback=None, genome=None, seg_len: int = 1,
                           perf=None, trace_spec=None, trace_persist=None,
                           trigger_kind: int | None = None, trace_callback=None,
-                          now: int | None = None):
+                          chunk_hook=None, now: int | None = None):
     """Long telemetry runs: `chunked.run_chunked` with the window records
     handed to the host between chunks. Chunks are whole windows; a final
     window shorter than `window` closes a run that does not divide
@@ -256,10 +256,11 @@ def run_chunked_telemetry(cfg: RaftConfig, state, keys: torch.Tensor, n_ticks: i
     trace_windows)` (the sink's `append_trace`) before `callback`, and the
     persist threads from chunk to chunk. The caller's `state` is never
     written (every tick is out of place). `genome`/`seg_len` select the
-    scenario input path; `perf` (ROADMAP item 18) raises (not ported)."""
-    if perf is not None:
-        raise NotImplementedError(
-            "run_chunked_telemetry: perf attribution is not ported yet (ROADMAP item 18)")
+    scenario input path. `chunk_hook(ticks_done, recorder)` sees the carried
+    flight recorder (batch-minor) after each chunk, before the callbacks:
+    the health plane's evidence hook, read-only. `perf` (an obs.ChunkTimer)
+    gets one row a chunk, as in `chunked.run_chunked`: closed after the
+    callbacks on a host copy of the chunk's `metrics.ticks`."""
     batch = state.role.shape[0]
     if now is None:
         now = int(state.now.reshape(-1)[0]) if batch else 0
@@ -272,6 +273,8 @@ def run_chunked_telemetry(cfg: RaftConfig, state, keys: torch.Tensor, n_ticks: i
     s = raft_batched.to_batch_minor(state)
     out = state
     done = 0
+    if perf is not None:
+        perf.watch(state.role.device)
     while done < n_ticks:
         left = n_ticks - done
         if left >= window:
@@ -279,10 +282,14 @@ def run_chunked_telemetry(cfg: RaftConfig, state, keys: torch.Tensor, n_ticks: i
             w = window
         else:
             n = w = left  # the remainder: one final short window
+        if perf is not None:
+            perf.begin(n)
         res = run_minor_telemetry(cfg, s, keys, n, w, now + done, recorder, genome=genome,
                                   seg_len=seg_len, trace_spec=trace_spec,
                                   trace_persist=trace_persist, trigger_kind=trigger_kind)
         s, m, recs, recorder = res[:4]
+        if perf is not None:
+            perf.dispatched()
         metrics = merge_metrics(metrics, raft_batched.from_batch_minor(m))
         done += n
         out = raft_batched.from_batch_minor(s)
@@ -290,7 +297,12 @@ def run_chunked_telemetry(cfg: RaftConfig, state, keys: torch.Tensor, n_ticks: i
             traws, trace_persist = res[4:]
             if trace_callback is not None:
                 trace_callback(done, traws)
-        if callback is not None and callback(done, out, metrics, recs):
+        if chunk_hook is not None:
+            chunk_hook(done, recorder)
+        stop = callback is not None and callback(done, out, metrics, recs)
+        if perf is not None:
+            perf.end(sync=lambda: m.ticks.cpu())
+        if stop:
             break
     if trace_spec is not None:
         return out, metrics, recorder, trace_persist

@@ -584,6 +584,14 @@ class RaftConfig:
         return self.n_nodes // 2 + 1
 
 
+def nondefault_fields(cfg: RaftConfig) -> dict:
+    """cfg's fields that differ from their defaults: the portable config
+    encoding of hit files, repro artifacts and the farm's identity
+    (RaftConfig(**this) rebuilds cfg)."""
+    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(RaftConfig)
+            if getattr(cfg, f.name) != f.default}
+
+
 # The five BASELINE.json configs as named presets (see BASELINE.md). config1 is the
 # 10k-tick correctness reference: its log capacity must hold every command injected
 # over the run (10k ticks / interval 8 = 1250 commands).

@@ -1,6 +1,6 @@
 """Host-side telemetry sink: the schema'd on-disk record of a run (the port of
-raft_sim_tpu/utils/telemetry_sink.py: the manifest, window, flight and
-summary half). The files are the JAX package's, line for line:
+raft_sim_tpu/utils/telemetry_sink.py). The files are the JAX package's,
+line for line:
 
     <dir>/manifest.json      run identity: schema version, full config and its
                              hash, seed, batch, window and ring sizes, and the
@@ -19,14 +19,23 @@ summary half). The files are the JAX package's, line for line:
                              dropped events, the per-cluster drop map and the
                              fleet's best coverage popcount
 
+    <dir>/perf.jsonl         per-chunk runtime attribution rows (obs/timer.py
+                             ChunkTimer), when armed: the one stream with
+                             clock readings (floats) in it
+    <dir>/health.jsonl       one line per SLO evaluation period per scope
+                             (health/monitor.py), when armed
+    <dir>/alerts.jsonl       one line per burn-rate alert transition, with
+                             the triaged clusters and, on firing, the
+                             evidence_NNNN bundle it froze
+    <dir>/evidence_NNNN/     a firing alert's forensics (health/evidence.py)
+
 Every line is JSON with integer-exact values, so two runs diff as text and
 `validate()` checks a directory without a schema library. The JAX package's
 `validate()` accepts the port's directories: the manifest carries every
 field it requires, with `jax_version` null (the port imports no jax),
 `torch_version` beside it, and the device type (`cuda` or `cpu`) as
-`backend`. The perf and health streams are not written by the port yet
-(ROADMAP item 18); this `validate()` reports such a file as unchecked rather
-than passing it.
+`backend`. The multichip artifact's check (`validate_multichip`) is not
+ported.
 """
 
 from __future__ import annotations
@@ -61,12 +70,25 @@ MANIFEST_FIELDS = (
     "window", "ring", "jax_version", "backend",
 )
 
-# Streams of the JAX sink the port neither writes nor checks yet.
-UNCHECKED_STREAMS = {
-    "perf.jsonl": "ROADMAP item 18", "health.jsonl": "ROADMAP item 18",
-    "alerts.jsonl": "ROADMAP item 18",
-}
-TRACE_STREAMS = ("trace.jsonl", "trace_windows.jsonl", "trace_meta.json")
+# Per-line required fields of perf.jsonl (obs/timer.py ChunkTimer rows):
+# ints, bools and non-negative float seconds; live_bytes is int or null (no
+# count on the CPU) and jit_cache a {probe: int} map.
+PERF_INT_FIELDS = ("chunk", "ticks")
+PERF_BOOL_FIELDS = ("warmup", "recompiled")
+PERF_FLOAT_FIELDS = ("wall_s", "dispatch_s", "host_s", "device_wait_s", "gap_s")
+
+# Per-line required fields of health.jsonl / alerts.jsonl (health/monitor.py).
+# `eval` indices are contiguous per scope; status and state values are the
+# burn engine's lifecycle words.
+HEALTH_INT_FIELDS = ("eval", "window_start", "windows", "ticks")
+HEALTH_STATUSES = ("ok", "pending", "firing")
+ALERT_FLOAT_FIELDS = ("burn_short", "burn_long")
+ALERT_STATES = ("ok", "pending", "firing", "resolved")
+
+# Streams a new sink removes, so a rebuilt run inherits none of them (the
+# armed planes re-create theirs).
+STALE_STREAMS = ("summary.json", "perf.jsonl", "health.jsonl", "alerts.jsonl", "trace.jsonl",
+                 "trace_windows.jsonl", "trace_meta.json")
 
 
 def _np(x) -> np.ndarray:
@@ -174,7 +196,7 @@ class TelemetrySink:
             if name.startswith("evidence_") and os.path.isdir(p):
                 shutil.rmtree(p)
             elif (name.startswith("flight_") and name.endswith(".jsonl")) or (
-                name == "summary.json" or name in UNCHECKED_STREAMS or name in TRACE_STREAMS
+                name in STALE_STREAMS
             ):
                 os.remove(p)
         self._n_trace_windows = 0
@@ -191,6 +213,14 @@ class TelemetrySink:
                 f.write(json.dumps(line) + "\n")
         self._n_windows += len(lines)
         return len(lines)
+
+    def append_perf(self, rows: list[dict]) -> int:
+        """Append chunk-timer rows (obs/timer.py) to perf.jsonl; returns the
+        lines written."""
+        with open(self._path("perf.jsonl"), "a") as f:
+            for row in rows:
+                f.write(json.dumps(row) + "\n")
+        return len(rows)
 
     def write_trace_meta(self, spec) -> str:
         """The trace stream's self-description (a trace.TraceSpec), written
@@ -314,6 +344,47 @@ def _validate_windows(path: str) -> list[str]:
     return errors
 
 
+def _bad_number(v) -> bool:
+    return not isinstance(v, (int, float)) or isinstance(v, bool) or v < 0
+
+
+def perf_row_errors(row: dict, where: str) -> list[str]:
+    """The field problems of one perf.jsonl row (`where`: "perf.jsonl:<line>")."""
+    errors = [f"{where}: field {k!r} missing or non-int" for k in _int_fields(row, PERF_INT_FIELDS)]
+    errors += [f"{where}: field {k!r} missing or non-bool" for k in PERF_BOOL_FIELDS
+               if not isinstance(row.get(k), bool)]
+    errors += [f"{where}: field {k!r} missing or not a non-negative number"
+               for k in PERF_FLOAT_FIELDS if _bad_number(row.get(k))]
+    return errors
+
+
+def _validate_perf(path: str) -> list[str]:
+    errors = []
+    prev_chunk = -1
+    with open(path) as f:
+        for ln, raw in enumerate(f, 1):
+            try:
+                row = json.loads(raw)
+            except json.JSONDecodeError as ex:
+                errors.append(f"perf.jsonl:{ln}: not JSON: {ex}")
+                continue
+            errors += perf_row_errors(row, f"perf.jsonl:{ln}")
+            lb = row.get("live_bytes")
+            if lb is not None and (not isinstance(lb, int) or isinstance(lb, bool)):
+                errors.append(f"perf.jsonl:{ln}: live_bytes must be int or null")
+            jc = row.get("jit_cache")
+            if not isinstance(jc, dict) or not all(
+                    isinstance(k, str) and isinstance(v, int) and not isinstance(v, bool)
+                    for k, v in jc.items()):
+                errors.append(f"perf.jsonl:{ln}: jit_cache must map entry points to int sizes")
+            if isinstance(row.get("chunk"), int):
+                if row["chunk"] != prev_chunk + 1:
+                    errors.append(f"perf.jsonl:{ln}: chunk index {row['chunk']} "
+                                  f"(expected {prev_chunk + 1})")
+                prev_chunk = row["chunk"]
+    return errors
+
+
 def _int_fields(row: dict, keys) -> list[str]:
     """The keys of `row` that are missing, not ints, or True (the JAX
     validate()'s rule)."""
@@ -387,9 +458,9 @@ def _validate_trace(directory: str) -> list[str]:
 
 def validate(directory: str) -> list[str]:
     """Check a telemetry directory against the schema: the manifest, the
-    window stream, the trace stream and every flight file. Returns the
-    problems found ([] = valid). A stream the port does not check yet (perf,
-    health) is reported, never passed over."""
+    window, perf and trace streams, every flight file and the health plane's
+    files (`validate_health_files`). Returns the problems found ([] =
+    valid)."""
     man_path = os.path.join(directory, "manifest.json")
     if not os.path.isfile(man_path):
         return [f"missing manifest.json in {directory}"]
@@ -417,10 +488,11 @@ def validate(directory: str) -> list[str]:
         return errors
     errors += _validate_windows(win_path)
 
+    perf_path = os.path.join(directory, "perf.jsonl")
+    if os.path.isfile(perf_path):
+        errors += _validate_perf(perf_path)
     errors += _validate_trace(directory)
     for name in sorted(os.listdir(directory)):
-        if name in UNCHECKED_STREAMS:
-            errors.append(f"{name}: not checked by this package yet ({UNCHECKED_STREAMS[name]})")
         if not (name.startswith("flight_") and name.endswith(".jsonl")):
             continue
         with open(os.path.join(directory, name)) as f:
@@ -433,6 +505,101 @@ def validate(directory: str) -> list[str]:
                 missing = [k for k in ("tick", *StepInfo._fields) if k not in row]
                 if missing:
                     errors.append(f"{name}:{ln}: missing fields {missing}")
+    return errors + validate_health_files(directory)
+
+
+def _validate_health(path: str) -> list[str]:
+    errors = []
+    prev_eval: dict[str, int] = {}
+    with open(path) as f:
+        for ln, raw in enumerate(f, 1):
+            try:
+                row = json.loads(raw)
+            except json.JSONDecodeError as ex:
+                errors.append(f"health.jsonl:{ln}: not JSON: {ex}")
+                continue
+            errors += [f"health.jsonl:{ln}: field {k!r} missing or non-int"
+                       for k in _int_fields(row, HEALTH_INT_FIELDS)]
+            scope = row.get("scope")
+            if not isinstance(scope, str) or not scope:
+                errors.append(f"health.jsonl:{ln}: scope missing")
+                scope = "?"
+            if row.get("status") not in HEALTH_STATUSES:
+                errors.append(f"health.jsonl:{ln}: status {row.get('status')!r} "
+                              f"(have: {', '.join(HEALTH_STATUSES)})")
+            for k in ("slis", "burn"):
+                if not isinstance(row.get(k), dict):
+                    errors.append(f"health.jsonl:{ln}: {k} must be a map")
+            if isinstance(row.get("eval"), int):
+                want = prev_eval.get(scope, -1) + 1
+                if row["eval"] != want:
+                    errors.append(f"health.jsonl:{ln}: scope {scope!r} eval {row['eval']} "
+                                  f"(expected {want})")
+                prev_eval[scope] = row["eval"]
+    return errors
+
+
+def _validate_alerts(directory: str, path: str) -> tuple[list[str], list[str]]:
+    """(problems, evidence dirs named) of alerts.jsonl."""
+    errors, named = [], []
+    with open(path) as f:
+        for ln, raw in enumerate(f, 1):
+            try:
+                row = json.loads(raw)
+            except json.JSONDecodeError as ex:
+                errors.append(f"alerts.jsonl:{ln}: not JSON: {ex}")
+                continue
+            if _int_fields(row, ("eval",)):
+                errors.append(f"alerts.jsonl:{ln}: field 'eval' missing or non-int")
+            for k in ("scope", "objective", "rule"):
+                if not isinstance(row.get(k), str) or not row.get(k):
+                    errors.append(f"alerts.jsonl:{ln}: field {k!r} missing")
+            if row.get("state") not in ALERT_STATES:
+                errors.append(f"alerts.jsonl:{ln}: state {row.get('state')!r} "
+                              f"(have: {', '.join(ALERT_STATES)})")
+            errors += [f"alerts.jsonl:{ln}: field {k!r} missing or not a non-negative number"
+                       for k in ALERT_FLOAT_FIELDS if _bad_number(row.get(k))]
+            wc = row.get("worst_clusters")
+            if not isinstance(wc, list) or not all(
+                    isinstance(w, dict) and isinstance(w.get("cluster"), int) for w in wc):
+                errors.append(f"alerts.jsonl:{ln}: worst_clusters must be a list of "
+                              "{cluster, value, score} maps")
+            ev = row.get("evidence")
+            if ev is not None:
+                if not isinstance(ev, str):
+                    errors.append(f"alerts.jsonl:{ln}: evidence must be a dir name or null")
+                else:
+                    named.append(ev)
+                    if not os.path.isdir(os.path.join(directory, ev)):
+                        errors.append(f"alerts.jsonl:{ln}: evidence dir {ev} missing")
+            if row.get("state") == "firing" and ev is None:
+                errors.append(f"alerts.jsonl:{ln}: firing alert carries no evidence")
+    return errors, named
+
+
+def validate_health_files(directory: str) -> list[str]:
+    """Check a directory's health.jsonl, alerts.jsonl and evidence bundles
+    ([] = valid, also when there are none). Farm out-dirs, which carry the
+    farm manifest and no telemetry manifest, check theirs through it too
+    (farm/core.py validate_farm_dir)."""
+    from raft_sim_tpu_torch.health.evidence import validate_bundle
+
+    errors = []
+    health_path = os.path.join(directory, "health.jsonl")
+    alerts_path = os.path.join(directory, "alerts.jsonl")
+    if os.path.isfile(health_path):
+        if not os.path.isfile(alerts_path):
+            errors.append("health.jsonl present but alerts.jsonl missing")
+        errors += _validate_health(health_path)
+    named: list[str] = []
+    if os.path.isfile(alerts_path):
+        alert_errors, named = _validate_alerts(directory, alerts_path)
+        errors += alert_errors
+    for name in sorted(os.listdir(directory)):
+        if name.startswith("evidence_") and os.path.isdir(os.path.join(directory, name)):
+            errors += validate_bundle(os.path.join(directory, name))
+            if name not in named:
+                errors.append(f"{name}: evidence bundle not named by any alerts.jsonl row")
     return errors
 
 

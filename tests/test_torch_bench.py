@@ -95,7 +95,8 @@ def test_cli_bench_refuses_bench_artifact_names(tmp_path):
 def test_serve_row_matches_bench_py():
     """The config9-serve row at a small size (16 clusters, 4 tenants, chunks
     of 32, one warmup chunk, 3 serving chunks): its work counts equal
-    bench.py's `serve_bench` row's; no matrix row stays unported."""
+    bench.py's `serve_bench` row's, and so do the counts of its chunk-timer
+    rollup (`perf`); no matrix row stays unported."""
     kw = dict(batch=16, chunks=3, chunk=32, window=16, tenants_n=4, smoke=True)
     want = jbench.serve_bench("config9", **kw)
     got = tbench.serve_bench("config9", device="cpu", **kw)
@@ -103,7 +104,11 @@ def test_serve_row_matches_bench_py():
               "ticks", "commands_acked", "reads_served", "ops_done", "violations")
     assert {k: got[k] for k in counts} == {k: want[k] for k in counts}
     assert got["commands_acked"] > 0 and got["reads_served"] > 0 and got["violations"] == 0
-    assert got["backend"] == "cpu" and got["perf"] is None and got["reconciliation"] is None
+    assert got["backend"] == "cpu" and got["reconciliation"] is None
+    # The chunk timer's rollup: its counts equal the JAX row's.
+    keep = ("label", "batch", "chunks", "steady_chunks", "steady_ticks",
+            "recompiled_after_warmup")
+    assert {k: got["perf"][k] for k in keep} == {k: want["perf"][k] for k in keep}
     assert got["ops_per_s"] > 0 and got["steady_ticks_per_s"] > 0
     assert set(want) - set(got) == set() and set(got) - set(want) == {"wall_s"}
     assert list(tbench.NOT_PORTED) == []

@@ -5,7 +5,8 @@ no CUDA device; on a machine with one H100:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 
-Tolerance: exact equality of every leaf.
+Tolerance: exact equality of every leaf (the health rows' device-wait share,
+a clock reading, left out).
 """
 
 import dataclasses
@@ -497,3 +498,67 @@ def test_trace_sink_card_matches_cpu(card, tmp_path):
               "summary.json"):
         a = open(os.path.join(tmp_path, str(card), f), "rb").read()
         assert a == open(os.path.join(tmp_path, "cpu", f), "rb").read(), f
+
+
+def test_farm_fresh_freeze_card_matches_cpu(card, tmp_path):
+    """The farm's fresh-freeze hunt (blind-transfer, scalar,coverage, 16 x
+    192, 4 generations, freezing into an empty corpus) on the card writes
+    the CPU's hunt rows, manifest and frozen artifact."""
+    import os
+
+    from raft_sim_tpu_torch.farm import FarmSpec, run_farm, validate_farm_dir
+    from raft_sim_tpu_torch.scenario.mutation import mutant_config
+
+    cfg = mutant_config("blind-transfer", tconfig.RaftConfig(
+        n_nodes=5, log_capacity=16, client_interval=2, transfer_interval=9))
+    spec = FarmSpec(portfolio=("scalar", "coverage"), budget_gens=4, population=16, ticks=192,
+                    window=32, trace_depth=16, seed=0)
+    files = {}
+    for dev in (card, "cpu"):
+        out, corpus = tmp_path / f"out_{dev}", tmp_path / f"corpus_{dev}"
+        corpus.mkdir()
+        res = run_farm(cfg, spec, mutant="blind-transfer", out_dir=str(out),
+                       corpus_dir=str(corpus), freeze=True, device=dev)
+        assert validate_farm_dir(str(out)) == [] and len(res.frozen) == 1
+        man = res.manifest
+        for d in man["dedup_rejected"]:
+            d.pop("path")
+        files[str(dev)] = (man, *(open(os.path.join(out, "members", m, "hunt.jsonl")).read()
+                                  for m in ("scalar", "coverage")),
+                           open(res.frozen[0]).read())
+    assert files[str(card)] == files["cpu"]
+
+
+def test_run_perf_health_card_matches_cpu(card, tmp_path):
+    """`run --perf --health` through Session on the card: the trajectory,
+    the window stream and the health and alert lines equal the CPU run's,
+    and the perf rows carry the card's allocated bytes as an int."""
+    import json
+    import os
+
+    from raft_sim_tpu_torch.driver import Session
+    from raft_sim_tpu_torch.utils import telemetry_sink
+
+    cfg = tconfig.PRESETS["config6"][0]
+    runs = {}
+    for dev in (card, "cpu"):
+        d = str(tmp_path / str(dev))
+        sess = Session(cfg, batch=16, seed=0, device=dev)
+        sess.attach_telemetry(d, window=64, ring=8)
+        sess.attach_perf()
+        sess.attach_health()
+        sess.run(256, chunk=64)
+        assert telemetry_sink.validate(d) == []
+        runs[str(dev)] = (sess, d)
+    (gs, gd), (cs, cd) = runs[str(card)], runs["cpu"]
+    assert bridge.first_difference(cs.state, gs.state) is None
+    assert bridge.first_difference(cs.metrics, gs.metrics) is None
+    for f in ("windows.jsonl", "alerts.jsonl"):
+        assert open(os.path.join(gd, f)).read() == open(os.path.join(cd, f)).read(), f
+    strip = lambda r: {**r, "slis": {k: v for k, v in r["slis"].items() if k != "device_wait"}}  # noqa: E731
+    rows = [[strip(json.loads(x)) for x in open(os.path.join(d, "health.jsonl"))]
+            for d in (gd, cd)]
+    assert rows[0] == rows[1]
+    perf = [json.loads(x) for x in open(os.path.join(gd, "perf.jsonl"))]
+    assert len(perf) == 4 and all(isinstance(r["live_bytes"], int) for r in perf)
+    assert not any(r["recompiled"] for r in perf)

@@ -95,29 +95,57 @@ def test_resume_is_exclusive_with_config_flags(capsys, flags, named):
     assert "--resume is exclusive with config flags" in err and named in err
 
 
+TAKEN_RUN_FLAGS = {
+    # --perf/--health/--profile, taken since the observability slice, follow
+    # the JAX driver's usage rules: no effect (so refused) under --trace-ticks,
+    # and --health needs a telemetry directory.
+    "--perf": (["--perf", "--trace-ticks", "4"], "have no effect"),
+    "--health": (["--health", "x"], "--health needs --telemetry-dir"),
+    "--profile": (["--profile", "x", "--trace-events"], "have no effect"),
+}
+
+
 @pytest.mark.parametrize("flag", ["--trace", "--perf", "--health",
                                   "--devices", "--sanitize", "--profile", "--backend"])
 def test_unported_flags_are_unknown(capsys, flag):
     """A flag of the JAX `run` the port has not taken is refused, never
     accepted and ignored; --backend, now taken, refuses a name it does not
-    know."""
+    know; --perf, --health and --profile, now taken, are refused where the
+    JAX driver refuses them."""
+    argv, named = TAKEN_RUN_FLAGS.get(flag, ([flag, "x"], None))
     with pytest.raises(SystemExit) as ex:
-        cli.main(["run", "--device", "cpu", flag, "x"])
+        cli.main(["run", "--device", "cpu", *argv])
     assert ex.value.code == 2
     err = capsys.readouterr().err
-    assert ("invalid choice" if flag == "--backend" else "unrecognized arguments") in err
+    if named is None:
+        named = "invalid choice" if flag == "--backend" else "unrecognized arguments"
+    assert named in err
 
 
 @pytest.mark.parametrize("flag", ["--perf", "--health", "--profile", "--sanitize", "--backend"])
 def test_serve_unported_flags_are_unknown(capsys, flag):
-    """The JAX `serve` flags the port has not taken (chunk timing, SLO
-    monitors, the profiler, the donation sanitizer) are refused by the
-    port's `serve`; --backend, now taken, refuses a name it does not know."""
+    """The JAX `serve` flag the port has not taken (the donation sanitizer)
+    is refused by the port's `serve`; --backend refuses a name it does not
+    know. --perf, --health and --profile are taken since the observability
+    slice: the parser keeps their values, and --health without --sink is
+    the JAX driver's usage error."""
+    if flag in ("--perf", "--profile"):
+        import argparse
+
+        from raft_sim_tpu_torch import driver
+
+        p = argparse.ArgumentParser()
+        driver.add_serve_arguments(p)
+        args = p.parse_args([flag] + (["x"] if flag == "--profile" else []))
+        assert args.perf is True if flag == "--perf" else args.profile == "x"
+        return
+    argv = ["--health", "--source", __file__] if flag == "--health" else [flag, "x"]
     with pytest.raises(SystemExit) as ex:
-        cli.main(["serve", "--device", "cpu", flag, "x"])
+        cli.main(["serve", "--device", "cpu", *argv])
     assert ex.value.code == 2
     err = capsys.readouterr().err
-    assert ("invalid choice" if flag == "--backend" else "unrecognized arguments") in err
+    named = {"--backend": "invalid choice", "--health": "--health needs --sink"}
+    assert named.get(flag, "unrecognized arguments") in err
 
 
 def test_telemetry_dir_matches_jax(tmp_path):

@@ -383,11 +383,25 @@ _HUNT = ["--preset", "config2", "--generations", "1", "--population", "4", "--ti
     ["scenario", "search", "--device", "cpu", *_HUNT, "--fitness", "coverage", "--trace-depth",
      "8"],
 ], ids=["farm", "coverage-fitness", "guided-proposal", "profile", "backend", "trace-depth"])
-def test_scenario_unported_options_are_refused(capsys, argv):
-    """The farm and the JAX-only flags are refused as usage errors, never
-    accepted and ignored. Coverage fitness, guided proposals and the trace
-    depth, refused until the trace plane was ported, are taken: the hunt runs
-    and prints its generation log with the coverage counts."""
+def test_scenario_unported_options_are_refused(capsys, argv, tmp_path):
+    """The JAX-only flags are refused as usage errors, never accepted and
+    ignored. Coverage fitness, guided proposals and the trace depth, refused
+    until the trace plane was ported, are taken: the hunt runs and prints
+    its generation log with the coverage counts. `scenario farm` and
+    `search --profile`, refused until the observability slice, are taken:
+    the farm refuses a run without --out-dir as JAX's parser does, and a
+    profiled hunt writes its trace."""
+    if argv[1] == "farm":
+        with pytest.raises(SystemExit) as ex:
+            cli.main(argv)
+        assert ex.value.code == 2 and "--out-dir" in capsys.readouterr().err
+        return
+    if "--profile" in argv:
+        d = tmp_path / "prof"
+        assert cli.main([*argv[:-2], *_HUNT, "--profile", str(d)]) == 0
+        doc = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert len(doc["generations"]) == 1 and (d / "torch_trace.json").exists()
+        return
     if "--fitness" in argv:
         assert cli.main(argv) == 0
         doc = json.loads(capsys.readouterr().out.strip().splitlines()[-1])

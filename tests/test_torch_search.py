@@ -115,10 +115,11 @@ def test_knobs_and_decoding_match_jax():
 @pytest.mark.parametrize("kw,item", [(dict(fitness="coverage"), "item 14"),
                                      (dict(proposal="coverage-guided"), "item 14")])
 def test_unported_search_modes_raise(kw, item):
-    """perf attribution is refused by name. The coverage modes, refused until
-    the trace plane was ported, are taken: coverage fitness runs, its
-    generations carrying coverage counts, and so do guided proposals over it
-    (without it they are the JAX package's usage error)."""
+    """The coverage modes, refused until the trace plane was ported, are
+    taken: coverage fitness runs, its generations carrying coverage counts,
+    and so do guided proposals over it (without it they are the JAX
+    package's usage error). perf attribution, refused until the chunk timer
+    was ported, is taken too: one row a generation, the same hunt."""
     cov = dict(SPEC, fitness="coverage", stop_on_hit=False, generations=2)
     if "proposal" in kw:
         with pytest.raises(ValueError, match="coverage"):
@@ -129,6 +130,9 @@ def test_unported_search_modes_raise(kw, item):
     assert res.spec["fitness"] == "coverage" and res.spec["proposal"] == kw.get(
         "proposal", "gaussian")
     assert res.generations[0]["cov_new_bits"] > 0 and len(res.generations) == 2
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tsearch.search(tconfig.RaftConfig(**KW), tsearch.SearchSpec(**SPEC), perf=object(),
-                       device="cpu")
+    from raft_sim_tpu_torch.obs import ChunkTimer
+
+    timer = ChunkTimer(label="search", batch=SPEC["population"])
+    timed = tsearch.search(tconfig.RaftConfig(**KW), tsearch.SearchSpec(**{**cov, **kw}),
+                           perf=timer, device="cpu")
+    assert timed.to_json() == res.to_json() and len(timer.rows) == len(res.generations)

@@ -215,10 +215,19 @@ def test_serve_session_matches_jax(tmp_path, name):
 
 
 def test_serve_session_refusals():
+    """perf= and health=, refused until the chunk timer and the health plane
+    were ported, are taken; health without a sink is refused as JAX refuses
+    it, and perf's warmup grows over the warmup chunks and the first serving
+    chunk by JAX's rule (max(2, ceil(40 / 16) + 1) = 4)."""
+    from raft_sim_tpu_torch.obs import ChunkTimer
+
     cfg = tconfig.PRESETS["config2"][0]
-    for kw in (dict(perf=object()), dict(health="default")):
-        with pytest.raises(NotImplementedError, match="item 18"):
-            tloop.ServeSession(cfg, batch=2, device="cpu", **kw)
+    with pytest.raises(ValueError, match="needs a sink"):
+        tloop.ServeSession(cfg, batch=2, chunk=16, window=16, health="default", device="cpu")
+    timer = ChunkTimer(batch=2)
+    tloop.ServeSession(cfg, batch=2, chunk=16, window=16, warmup_ticks=40, perf=timer,
+                       device="cpu")
+    assert timer.warmup_chunks == 4 and [r["warmup"] for r in timer.rows] == [True] * 3
     with pytest.raises(ValueError, match="divide"):
         tloop.ServeSession(cfg, batch=2, chunk=30, window=16, device="cpu")
     sess = tloop.ServeSession(cfg, batch=2, chunk=16, window=16, device="cpu")

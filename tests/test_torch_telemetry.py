@@ -221,8 +221,8 @@ def test_sink_files_match_jax(tmp_path, windowed):
 
 def test_validate_reports_what_is_wrong(tmp_path):
     """A damaged window line, a config that no longer matches its hash, a
-    trace stream without its meta file, and a stream the port does not check
-    yet (perf) are each reported."""
+    trace stream without its meta file, and a damaged perf row (checked
+    since the chunk timer was ported) are each reported."""
     _, ts, _, tdir = _sinks(tmp_path, "config2")
     assert tsink.validate(str(tdir)) == []
     with open(tdir / "windows.jsonl", "a") as f:
@@ -231,13 +231,13 @@ def test_validate_reports_what_is_wrong(tmp_path):
     man["config"]["n_nodes"] = 7
     (tdir / "manifest.json").write_text(json.dumps(man))
     (tdir / "trace.jsonl").write_text("")
-    (tdir / "perf.jsonl").write_text("")
+    (tdir / "perf.jsonl").write_text(json.dumps({"chunk": 0, "ticks": 8}) + "\n")
     errors = tsink.validate(str(tdir))
     assert any("window index 3" in e for e in errors)
     assert any("ticks must be >= 1" in e for e in errors)
     assert any("config_hash does not match" in e for e in errors)
     assert any("trace_meta.json missing" in e for e in errors)
-    assert any("perf.jsonl: not checked" in e for e in errors)
+    assert any("perf.jsonl:1: field 'wall_s' missing" in e for e in errors)
 
 
 def test_session_telemetry_matches_jax_session(tmp_path):
@@ -267,9 +267,10 @@ def test_session_telemetry_matches_jax_session(tmp_path):
 
 
 def test_unported_telemetry_options_raise():
-    """perf attribution is refused by name. The trace plane, refused until it
-    was ported, is taken on a track_trace config (a traced window comes out)
-    and refused as JAX refuses it without the gate."""
+    """The trace plane, refused until it was ported, is taken on a
+    track_trace config (a traced window comes out) and refused as JAX
+    refuses it without the gate. perf attribution, refused until the chunk
+    timer was ported, is taken: a row a chunk, the same run."""
     from raft_sim_tpu_torch.trace.ring import TraceSpec
 
     cfg = tconfig.PRESETS["config2"][0]
@@ -279,8 +280,13 @@ def test_unported_telemetry_options_raise():
                                     trace=TraceSpec(depth=8), device="cpu")
     assert len(traced) == 6 and tuple(traced[4].win.ev_kind.shape) == (1, 8, 2)
     state, keys = tscan.seed_fleet(cfg, 0, 2, "cpu")
-    with pytest.raises(NotImplementedError, match="item 18"):
-        ttel.run_chunked_telemetry(cfg, state, keys, 16, 16, perf=object())
+    from raft_sim_tpu_torch.obs import ChunkTimer
+
+    timer = ChunkTimer(batch=2)
+    timed = ttel.run_chunked_telemetry(cfg, state, keys, 32, 16, chunk=16, perf=timer)
+    plain = ttel.run_chunked_telemetry(cfg, state, keys, 32, 16, chunk=16)
+    assert bridge.first_difference(plain[0], timed[0]) is None
+    assert [(r["chunk"], r["ticks"]) for r in timer.rows] == [(0, 16), (1, 16)]
     with pytest.raises(ValueError, match="divide"):
         ttel.run_batch_minor_telemetry(cfg, state, keys, 20, 16)
 
