@@ -10,14 +10,15 @@ the start; any failure raises and exits non-zero):
    the tick kernel's build from raft_sim_tpu_torch/csrc (nvcc, sm_90a) with its
    seconds and the compiler's register/stack/spill report per instantiation
    (tick_kernel<index, ack, node dtype, width tier, nodes per thread, body:
-   0 lean, 1 full, 2 mutant>), nine nvcc runs in parallel. The race proxy's library (below)
-   builds in the background from here on. PARITY_WORKERS worker processes,
-   each with its own context on the card and a lower priority than nvcc,
-   start before the build; the rows that time nothing -- phases 2, 2b and
-   3, serve (a), trace (a), compact (a), (d) and (e), observe (b) and (e)
-   -- run in them (those on the CPU alone beside the build), and all are
-   done before phase 4 times anything (`parity_workers`' phase_end line).
-   Their lines print in each phase's place and order.
+   0 lean, 1 full, 2 mutant>), nine nvcc runs in parallel, and the race
+   proxy's library (below) with it, nine more: both are built before any
+   row runs on the card. PARITY_WORKERS worker processes, each with its
+   own context on the card and a lower priority than nvcc, start before
+   the build; the rows that time nothing -- phases 2, 2b and 3, serve (a),
+   trace (a), compact (a), (d) and (e), observe (b) and (e) -- run in them
+   (those on the CPU alone beside the build), and all are done before
+   phase 4 times anything (`parity_workers`' phase_end line). Their lines
+   print in each phase's place and order.
 2. kernel_vs_plain -- presets config1-config5 and config3p for 64 ticks,
    config6 and config6r for 96 (config6-cap8 and the ring-LM rows carry
    the compactions), config8 for 160 (its first membership toggle is
@@ -228,6 +229,16 @@ the start; any failure raises and exits non-zero):
    (f) `run --profile DIR` at config2 8 x PROFILE_T (32) equals the
    unprofiled run and writes a trace whose kernel rows hold the tick
    kernel's launches; the card's busy share over the profiled span.
+4h. shard -- the multi-device tier (raft_sim_tpu_torch/parallel/) with every
+   shard on the one card (the cards in turn, where there are more): (a) config3 at 100,000 over 4 cluster shards
+   (launches == 4 x 64, state and metrics == the unsharded `simulate`),
+   (b) config7x at 250 over 4 node shards (the plain tick on each shard;
+   `unshard_state` and metrics == the unsharded run; one mailbox gather a
+   tick), (c) the two-process gloo check on the card, (d) the farm's mesh
+   leg (config4c weak-quorum, 2 x 64, 2 generations == unsharded). One
+   card proves the partition, the key split, the padding, the exchange
+   points and the multi-process control plane; not NCCL, nor copies
+   between cards (`shard_phase`).
 5. bench_row -- the port's bench (raft_sim_tpu_torch/bench.py) on config2 at
    64 x 100 ticks, 3 quality seeds and 2 repeats, on the card and on the CPU:
    every quality field equal; the card's row carries backend "cuda", the
@@ -2070,12 +2081,195 @@ def observe_phase(dev, serve_unarmed, legs) -> list:
     return cells
 
 
+SHARD_T = 64  # shard (a), (b): ticks of the sharded runs and their references
+SHARD_SHARDS = 4  # shard (a), (b): shards on the one card
+SHARD_FARM = (64, 64, 32, 2)  # shard (d): population a shard, ticks, window, generations
+MULTIHOST_T = 32  # shard (c): ticks of the two-process check's workload
+
+
+def shard_devices(n: int) -> list:
+    """n shard devices: the cards in turn, so one card carries all n and
+    four cards one each."""
+    import torch
+
+    count = torch.cuda.device_count()
+    return [torch.device("cuda", i % count) for i in range(n)]
+
+
+def shard_phase(dev) -> list:
+    """Phase 4h: the multi-device tier (raft_sim_tpu_torch/parallel/). With
+    one card every shard shares it: these rows then prove the partition,
+    the key split, the padding, the exchange points and the multi-process
+    control plane, not NCCL or copies between cards (with several cards the
+    shards spread over them and copy between them; the process group is
+    gloo, never NCCL). Sharding is slower than one shard today: every
+    shard's input draws are host work on one thread (PERF.md). (a) The
+    cluster axis at full width: config3 at its batch of 100,000 over
+    SHARD_SHARDS shards (`simulate_sharded`), every tick of every shard one
+    K1 launch: launches == shards x ticks, zeroed and read
+    around the run; the final state and RunMetrics equal the unsharded
+    `simulate`'s; 0 violations; wall ms a tick both ways. (b) The node axis
+    at full width: config7x (N=255) at its batch of 250 on the dense twin
+    over SHARD_SHARDS node shards (n_pad 256), the plain tick on each shard
+    as in JAX (no K1 launch): `unshard_state` and the metrics equal the
+    unsharded run's (through K1); the exchange's per-tick counts (one
+    mailbox gather, the folds, the leaders gather). (c) `python -m
+    raft_sim_tpu_torch.multihost_check --device cuda`: two processes on
+    the card over gloo, match true, 0 violations, the multichip-v2 artifact
+    valid. (d) The farm's mesh leg: config4c under weak-quorum, 2 shards x
+    a population of 64, 2 generations: the unsharded farm's hunt rows, hits
+    and manifest. Each row prints its seconds; nothing here is caught.
+    The shards take the cards in turn (`shard_devices`): with one card, all
+    of them share it. Returns the cells whose launches count."""
+    import subprocess
+
+    import torch
+    from raft_sim_tpu_torch.farm import FarmSpec, run_farm
+    from raft_sim_tpu_torch.kernels import tick_engine
+    from raft_sim_tpu_torch.parallel import comm, mesh as mesh_mod, nodeshard
+    from raft_sim_tpu_torch.scenario.mutation import mutant_config
+    from raft_sim_tpu_torch.sim import scan
+    from raft_sim_tpu_torch.summary import summarize
+    from raft_sim_tpu_torch.types import compact_twin
+    from raft_sim_tpu_torch.utils.config import PRESETS
+    from raft_sim_tpu_torch.utils.telemetry_sink import validate_multichip
+
+    cells = []
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        tick_engine.step_cuda.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, tick_engine.step_cuda.launches
+
+    # ---- (a) the cluster axis: config3 at 100,000 over 4 shards ----------------
+    t_row = time.perf_counter()
+    cfg, batch = PRESETS["config3"]
+    mesh = mesh_mod.make_mesh(devices=shard_devices(SHARD_SHARDS))
+    (fs, ms), wall_s, launches = timed(
+        lambda: mesh_mod.simulate_sharded(cfg, SEED, batch, SHARD_T, mesh))
+    if launches != SHARD_SHARDS * SHARD_T:
+        raise AssertionError(f"shard (a): {launches} kernel launches for {SHARD_SHARDS} shards x "
+                             f"{SHARD_T} ticks")
+    (fd, md), wall_d, launches_d = timed(lambda: scan.simulate(cfg, SEED, batch, SHARD_T, device=dev))
+    if launches_d != SHARD_T:
+        raise AssertionError(f"shard (a): {launches_d} kernel launches unsharded for {SHARD_T} ticks")
+    check_equal(fd, fs, "shard (a): sharded final state != unsharded")
+    check_equal(md, ms, "shard (a): sharded metrics != unsharded")
+    summ = mesh_mod.summarize(ms)
+    if summ.total_violations:
+        raise AssertionError(f"shard (a): {summ.total_violations} violations")
+    cell = {"phase": "shard_cluster_axis", "preset": "shard-config3", "batch": batch,
+            "ticks": SHARD_T, "shards": SHARD_SHARDS, "devices": [str(d) for d in mesh.flat()],
+            "launches": launches + launches_d, "launches_sharded": launches,
+            "launches_unsharded": launches_d, "equal": ["state", "metrics"], "max_abs_err": 0,
+            "violations": summ.total_violations, "ms_per_tick_sharded": wall_s * 1e3 / SHARD_T,
+            "ms_per_tick_unsharded": wall_d * 1e3 / SHARD_T,
+            "seconds": time.perf_counter() - t_row}
+    emit(cell)
+    cells.append(cell)
+    del fs, ms, fd, md
+    torch.cuda.empty_cache()
+
+    # ---- (b) the node axis: config7x (N=255) over 4 node shards ----------------
+    t_row = time.perf_counter()
+    cfg, batch = PRESETS["config7x"]
+    dense = compact_twin(cfg, False)
+    nmesh = nodeshard.make_node_mesh(SHARD_SHARDS, devices=shard_devices(SHARD_SHARDS))
+    counts = {}
+    (fs, ms), wall_s, launches = timed(lambda: nodeshard.simulate_node_sharded(
+        cfg, SEED, batch, SHARD_T, nmesh, counts=counts))
+    if launches:
+        raise AssertionError(f"shard (b): {launches} kernel launches on the node axis (the "
+                             "plain tick runs each shard)")
+    (fd, md), wall_d, launches_d = timed(lambda: scan.simulate(dense, SEED, batch, SHARD_T,
+                                                               device=dev))
+    if launches_d != SHARD_T:
+        raise AssertionError(f"shard (b): {launches_d} kernel launches unsharded")
+    check_equal(fd, nodeshard.unshard_state(cfg, fs), "shard (b): unshard_state != unsharded")
+    check_equal(md, ms, "shard (b): node-sharded metrics != unsharded")
+    per_tick = {k: v / SHARD_T for k, v in counts.items()}
+    if (per_tick.get("mailbox_gather") != 1 or per_tick.get("leaders_gather") != 1
+            or set(per_tick) - {"mailbox_gather", "leaders_gather", "meetings", *comm.FOLDS}):
+        raise AssertionError(f"shard (b): collectives a tick {per_tick}")
+    summ = summarize(ms)
+    if summ.total_violations:
+        raise AssertionError(f"shard (b): {summ.total_violations} violations")
+    cell = {"phase": "shard_node_axis", "preset": "shard-config7x", "batch": batch,
+            "ticks": SHARD_T, "node_shards": SHARD_SHARDS, "n_pad": int(fs.role.shape[1]),
+            "devices": [str(d) for d in nmesh.flat()],
+            "launches": launches_d, "launches_sharded": launches,
+            "launches_unsharded": launches_d, "collectives_per_tick": per_tick,
+            "equal": ["unshard_state", "metrics"], "max_abs_err": 0,
+            "violations": summ.total_violations, "ms_per_tick_sharded": wall_s * 1e3 / SHARD_T,
+            "ms_per_tick_unsharded": wall_d * 1e3 / SHARD_T,
+            "seconds": time.perf_counter() - t_row}
+    emit(cell)
+    cells.append(cell)
+    del fs, ms, fd, md
+    torch.cuda.empty_cache()
+
+    # ---- (c) two processes on the card over gloo --------------------------------
+    t_row = time.perf_counter()
+    art = os.path.join(HERE, "raft_sim_tpu_torch", "build", "multichip_cuda.json")
+    proc = subprocess.run([sys.executable, "-m", "raft_sim_tpu_torch.multihost_check",
+                           "--device", "cuda", "--ticks", str(MULTIHOST_T), "--out", art,
+                           "--timeout", "300"],
+                          capture_output=True, text=True, cwd=HERE, timeout=360)
+    if proc.returncode != 0:
+        raise AssertionError(f"shard (c): multihost_check exit {proc.returncode}: "
+                             f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    verdict = json.loads(proc.stdout.strip().splitlines()[-1])
+    problems = validate_multichip(art)
+    if not verdict["match"] or verdict["violations"] or problems:
+        raise AssertionError(f"shard (c): {verdict} {problems}")
+    with open(art) as f:
+        doc = json.load(f)
+    emit({"phase": "shard_multihost", "n_processes": verdict["n_processes"],
+          "global_shards": verdict["global_devices"], "device": verdict["device"],
+          "batch": verdict["batch"], "ticks": verdict["ticks"], "match": True,
+          "violations": 0, "artifact_valid": True,
+          "throughput_ticks_per_s": doc["throughput_ticks_per_s"],
+          "reference_ticks_per_s": doc["reference_ticks_per_s"],
+          "seconds": time.perf_counter() - t_row})
+
+    # ---- (d) the farm's mesh leg -------------------------------------------------
+    t_row = time.perf_counter()
+    pop, ticks, window, gens = SHARD_FARM
+    fcfg = mutant_config("weak-quorum", PRESETS["config4c"][0])
+    spec = FarmSpec(portfolio=("scalar", "coverage"), budget_gens=gens, population=2 * pop,
+                    ticks=ticks, window=window, trace_depth=16, seed=SEED, stop_on="budget")
+    r_s, wall_s, launches = timed(lambda: run_farm(
+        fcfg, spec, mutant="weak-quorum", mesh=mesh_mod.make_mesh(devices=shard_devices(2)),
+        device=dev))
+    r_d, wall_d, launches_d = timed(lambda: run_farm(fcfg, spec, mutant="weak-quorum",
+                                                     device=dev))
+    if launches != 2 * ticks * gens or launches_d != ticks * gens:
+        raise AssertionError(f"shard (d): launches {launches} sharded, {launches_d} unsharded")
+    rows = lambda r: json.dumps(r.generations, sort_keys=True)  # noqa: E731
+    if rows(r_s) != rows(r_d) or r_s.hits != r_d.hits or r_s.manifest != r_d.manifest:
+        raise AssertionError("shard (d): the mesh farm's hunt differs from the unsharded farm's")
+    cell = {"phase": "shard_farm", "preset": "shard-farm-config4c-weak-quorum",
+            "batch": 2 * pop, "shards": 2, "ticks": ticks, "window": window,
+            "generations": gens, "launches": launches + launches_d,
+            "launches_sharded": launches, "launches_unsharded": launches_d,
+            "hits": len(r_s.hits), "manifest_hash": r_s.manifest["manifest_hash"],
+            "equal": ["hunt rows", "hits", "manifest"],
+            "s_per_generation_sharded": wall_s / gens, "s_per_generation_unsharded": wall_d / gens,
+            "seconds": time.perf_counter() - t_row}
+    emit(cell)
+    cells.append(cell)
+    return cells
+
+
 def parity_phases(pool, proxy_build, t_start: float) -> None:
     """Phases 2, 2b and 3 (see the module docstring): rows that time nothing,
     run in `pool`'s worker processes on the card (`_parity_row`,
     `_proxy_row`, `_card_vs_cpu_row`), their lines printed in row order.
-    `proxy_build` is the race proxy's build (a future); 2b's rows are queued
-    once it is done. Every comparison raises on the first differing leaf,
+    `proxy_build` is the race proxy's build (a future, done with the card's
+    build); 2b's rows are queued after phase 2's. Every comparison raises on the first differing leaf,
     so an exact match (max |err| 0) is what reaching the kernels line means."""
     from raft_sim_tpu_torch.kernels import tick_engine
     from raft_sim_tpu_torch.utils.config import PRESETS
@@ -2129,7 +2323,8 @@ def parity_phases(pool, proxy_build, t_start: float) -> None:
     # (PERF.md), so the proxy build of the kernel (csrc/tick.cu with
     # RS_RACE_PROXY: node slots and clusters mapped to threads in reverse,
     # each exchange field poisoned once its last reader's phase is over) is
-    # held to the plain tick. Its library builds beside phase 2's rows.
+    # held to the plain tick. Its library built with the card's, before any
+    # card row.
     t0 = time.perf_counter()
     proxy_path = proxy_build.result()
     proxy_waited = time.perf_counter() - t0
@@ -2232,10 +2427,11 @@ def main() -> int:
     # The parity workers start now, their start-up (torch, a context on the
     # card) beside the build. The rows on the CPU alone need no library and
     # start beside it too (observe (b) and (e), compact (e)'s bench runs).
-    # The race proxy's library builds after the card's, beside the workers
-    # (which run at a lower priority); phase 2b waits for it. On any failure
-    # the workers are stopped and the build's thread joined, so no process
-    # outlives the script.
+    # The race proxy's library builds together with the card's, both before
+    # any card row is queued: beside the workers' card rows its nvcc ran
+    # 1.4-2.8x slower than alone (PERF.md). On any failure the workers are
+    # stopped and the build's thread joined, so no process outlives the
+    # script.
     parity_pool = ProcessPoolExecutor(max_workers=PARITY_WORKERS, initializer=_parity_init,
                                       mp_context=multiprocessing.get_context("spawn"))
     pool = ThreadPoolExecutor(max_workers=1)
@@ -2246,16 +2442,20 @@ def main() -> int:
         obs_legs = {"cpu": parity_pool.submit(_observe_leg, "cpu", legs_dir)}
         bench_legs = {"cpu": parity_pool.submit(_compact_bench_leg, "cpu", legs_dir)}
         t0 = time.perf_counter()
+        proxy_build = pool.submit(tick_engine.build, proxy=True)
         lib_path = tick_engine.build()
         tick_engine._load_cuda()
+        card_s = time.perf_counter() - t0
+        proxy_path = proxy_build.result()
         # One entry per instantiation: its name, then stack/spill and registers.
         ptxas = [ln.split("ptxas info    :")[-1].strip()
                  for ln in tick_engine.BUILD_INFO.get("ptxas", "").splitlines()
                  if "Compiling entry" in ln or "registers" in ln or "stack frame" in ln]
-        emit({"phase": "build", "seconds": time.perf_counter() - t0,
+        emit({"phase": "build", "seconds": time.perf_counter() - t0, "card_seconds": card_s,
               "nvcc_seconds": tick_engine.BUILD_INFO.get("seconds"),
-              "library": os.path.relpath(lib_path, HERE), "ptxas": ptxas})
-        proxy_build = pool.submit(tick_engine.build, proxy=True)
+              "proxy_nvcc_seconds": tick_engine.PROXY_BUILD_INFO.get("seconds"),
+              "library": os.path.relpath(lib_path, HERE),
+              "proxy_library": os.path.relpath(proxy_path, HERE), "ptxas": ptxas})
         # The other rows that time nothing join phase 2's, the longest first:
         # observe (b) and (e) and compact (e)'s bench runs on the card, trace
         # (a), serve (a), compact (a), (d) and (e)'s other entry points. Every
@@ -2407,6 +2607,12 @@ def main() -> int:
         total_launches += cell["launches"]
     del serve_unarmed
     emit({"phase": "phase_end", "name": "observe", "seconds": time.perf_counter() - t_start})
+
+    # ---- 4h: the multi-device tier on the one card --------------------------------
+    for cell in shard_phase(dev):
+        cells.append(cell)
+        total_launches += cell["launches"]
+    emit({"phase": "phase_end", "name": "shard", "seconds": time.perf_counter() - t_start})
 
     # ---- 5: the port's bench row, card vs CPU -----------------------------------
     cfg2 = PRESETS["config2"][0]

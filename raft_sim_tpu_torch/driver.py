@@ -17,7 +17,12 @@ package's file format):
 
 A Session runs on the card unless it is given device="cpu". It keeps the
 lockstep tick `now` on the host, so a run reads nothing back per chunk but
-what the apply log and the progress line ask for.
+what the apply log and the progress line ask for. `devices=N` splits the
+cluster batch over N shards (parallel/mesh.py: the first N cards, or N
+shards on the CPU; a list names the devices): each shard's state, keys and
+metrics stay on its device between chunks, its ticks interleaved with the
+others', and `summary()`, `save()` and the `state` attribute gather the
+shards in cluster order. Trajectories are the same at any shard count.
 
 `add_run_arguments` / `run` are the CLI's `run` subcommand: --preset, one
 flag per RaftConfig field (`add_config_flags`, `build_config`), --batch,
@@ -26,7 +31,8 @@ sets the experiment), --apply-log, --apply-cluster, --telemetry-dir,
 --telemetry-window, --telemetry-ring, the protocol trace plane (--trace,
 --trace-depth, --trace-freeze, --trace-trigger: `Session.attach_trace`;
 --trace-ticks, --trace-events, --trace-cluster: `Session.trace`), --mutant
-(a TEST-ONLY weakened tick, scenario/mutation.py), --perf (the chunk timer,
+(a TEST-ONLY weakened tick, scenario/mutation.py), --devices N (shard the
+batch, `Session(devices=)`), --perf (the chunk timer,
 `Session.attach_perf`), --health [SPEC] (the SLO monitor,
 `Session.attach_health`), --profile DIR (`profile_ctx`), --progress,
 --device and --backend (`select_device`: the JAX driver's backend names
@@ -39,7 +45,8 @@ fleet of serve/loop.py fed from a JSONL command source, with --perf,
 the program), `search` (the violation hunt, scenario/search.py), `farm` (the
 fuzzing farm, farm/core.py) and `shrink` (a hit to a repro artifact,
 scenario/shrink.py); `search` takes --fitness coverage, --proposal
-coverage-guided, --trace-depth and --profile.
+coverage-guided, --trace-depth and --profile; `farm --mesh D` shards each
+generation over D devices (--population is then the per-device share).
 """
 
 from __future__ import annotations
@@ -56,6 +63,7 @@ import numpy as np
 import torch
 
 from raft_sim_tpu_torch.models import raft_batched
+from raft_sim_tpu_torch.parallel import mesh as mesh_mod
 from raft_sim_tpu_torch.sim import chunked, scan, telemetry
 from raft_sim_tpu_torch.sim import trace as trace_view
 from raft_sim_tpu_torch.summary import summarize
@@ -68,13 +76,20 @@ from raft_sim_tpu_torch.utils.config import PRESETS, RaftConfig, nondefault_fiel
 class Session:
     """One experiment and the verbs over it: run, reset, summary, save,
     restore, offer, offer_read, the apply-log export, the telemetry sink,
-    the trace plane, the chunk timer and the health plane."""
+    the trace plane, the chunk timer and the health plane.
 
-    def __init__(self, cfg: RaftConfig, batch: int = 1, seed: int = 0, device="cuda"):
+    `devices` (None, an int N, a list of devices or a parallel Mesh) shards
+    the cluster batch (module docstring). A sharded Session runs the plain
+    chunked path, with the apply log, the chunk timer and the health plane;
+    the telemetry sink, the trace plane and the offers are refused on it."""
+
+    def __init__(self, cfg: RaftConfig, batch: int = 1, seed: int = 0, device="cuda",
+                 devices=None):
         self.cfg = cfg
         self.batch = batch
         self.seed = seed
         self.device = device_mod.resolve(device)
+        self.devices = devices
         self.apply_writer = None
         self.telemetry = None  # TelemetrySink (attach_telemetry)
         self._tel_rec = None  # the flight recorder's carry (batch-minor)
@@ -93,8 +108,10 @@ class Session:
         `scan.simulate`, so a Session's run equals `simulate` leaf for leaf.
         An attached apply log, telemetry sink, chunk timer or health monitor
         starts over (files truncated, burn state back to ok)."""
+        self._mesh = None  # the parallel Mesh while sharded (_apply_sharding)
         self.state, self.keys = scan.seed_fleet(self.cfg, self.seed, self.batch, self.device)
         self.metrics = scan.init_metrics_batch(self.batch, self.device)
+        self._apply_sharding()
         self.now = 0
         self._deltas = None
         if self.apply_writer is not None:
@@ -112,6 +129,66 @@ class Session:
         self._live_rec = None
         if self._health_args is not None:
             self.attach_health(*self._health_args)
+
+    # ---- the cluster-axis shards -------------------------------------------------
+    # `_state`, `_keys` and `_metrics` hold the shards' slices, each on its
+    # device (one shard when unsharded); the attributes `state`, `keys` and
+    # `metrics` gather them (reads) or split a whole-fleet value (writes).
+
+    def _apply_sharding(self) -> None:
+        """Validate `devices` and split the fleet over its shards (the JAX
+        `_apply_sharding`, with its errors); one shard is no sharding."""
+        if self.devices is None:
+            return
+        whole = (self.state, self.keys, self.metrics)
+        if isinstance(self.devices, mesh_mod.Mesh):
+            mesh = self.devices
+        elif isinstance(self.devices, int):
+            if self.devices < 1:
+                raise ValueError(f"devices must be >= 1, got {self.devices}")
+            if self.batch % self.devices:
+                raise ValueError(f"batch {self.batch} must divide over {self.devices} devices")
+            mesh = _device_mesh(self.device, self.devices)
+        else:
+            mesh = mesh_mod.make_mesh(devices=list(self.devices))
+        mesh_mod.check_batch(self.batch, mesh)
+        self._mesh = mesh if mesh.size > 1 else None
+        self.state, self.keys, self.metrics = whole
+
+    def _split(self, tree) -> list:
+        if self._mesh is None:
+            return [tree]
+        return [mesh_mod.take(tree, lo, hi, device=dev)
+                for dev, lo, hi in mesh_mod.shard_rows(self.batch, self._mesh)]
+
+    @property
+    def state(self):
+        return mesh_mod.concat(self._state)
+
+    @state.setter
+    def state(self, value):
+        self._state = self._split(value)
+
+    @property
+    def keys(self):
+        return mesh_mod.concat(self._keys)
+
+    @keys.setter
+    def keys(self, value):
+        self._keys = self._split(value)
+
+    @property
+    def metrics(self):
+        return mesh_mod.concat(self._metrics)
+
+    @metrics.setter
+    def metrics(self, value):
+        self._metrics = self._split(value)
+
+    def _refuse_sharded(self, what: str) -> None:
+        if self._mesh is not None:
+            raise ValueError(f"{what} is not available on a sharded Session (devices="
+                             f"{self.devices!r}): it runs the plain chunked path only")
 
     def attach_apply_log(self, directory: str, cluster: int = 0) -> None:
         """Stream cluster `cluster`'s committed values to
@@ -132,6 +209,7 @@ class Session:
         the flights and the summary at the end."""
         from raft_sim_tpu_torch.utils.telemetry_sink import TelemetrySink
 
+        self._refuse_sharded("the telemetry sink")
         if window < 1:
             raise ValueError(f"telemetry window must be >= 1, got {window}")
         if ring < 0:
@@ -255,22 +333,27 @@ class Session:
                 trace_callback=lambda done, traws: self.telemetry.append_trace(traws),
                 chunk_hook=hook if self.health is not None else None)
             self.state, m, self._tel_rec = out[:3]
+            m = [m]
             if self._trace_spec is not None:
                 self._trace_persist = out[3]
         else:
-            def cb(done, state, metrics):
+            def cb(done, states, metrics):
+                # The shards gathered where read: the metrics, and the state
+                # for the apply log.
+                metrics = mesh_mod.concat(metrics)
                 if self.health is not None:
                     # The chunk is this path's window.
                     self.health.observe_chunk(done, metrics)
+                state = mesh_mod.concat(states) if self.apply_writer is not None else None
                 return after_chunk(done, state, metrics)
 
             if self.health is not None:
                 # run_chunked restarts its metrics and tick count each call.
                 self.health.begin_run()
-            self.state, m = chunked.run_chunked(
-                self.cfg, self.state, self.keys, n_ticks, chunk=chunk, callback=cb,
+            self._state, m = chunked.run_chunked(
+                self.cfg, self._state, self._keys, n_ticks, chunk=chunk, callback=cb,
                 now=self.now, perf=self.perf)
-        self.metrics = chunked.merge_metrics(self.metrics, m)
+        self._metrics = [chunked.merge_metrics(a, b) for a, b in zip(self._metrics, m)]
         self.now += n_ticks
 
     def finalize_telemetry(self, max_flights: int = 8) -> dict:
@@ -336,6 +419,7 @@ class Session:
         the match is by value alone. Refused while a trace is armed: the
         offer's ticks run outside the windowed loop, so their events would be
         missing from the trace stream, a hole the checker could not see."""
+        self._refuse_sharded("Session.offer()")
         if self._trace_spec is not None:
             raise RuntimeError("Session.offer() ticks are not covered by the armed trace "
                                "stream; detach the trace, or ingest via run()'s scheduled "
@@ -377,6 +461,7 @@ class Session:
         clusters whose leader took the read on the offer tick, `served` the
         reads served since (the reads_served counter). Needs cfg.read_index;
         refused while a trace is armed, as offer() is."""
+        self._refuse_sharded("Session.offer_read()")
         if self._trace_spec is not None:
             raise RuntimeError("Session.offer_read() ticks are not covered by the armed trace "
                                "stream; detach the trace, or ingest reads via the scheduled "
@@ -417,17 +502,19 @@ class Session:
         return first(infos), first(states)
 
     def summary(self) -> dict:
-        """The fleet rollup (summary.summarize) as a dict."""
+        """The fleet rollup (summary.summarize) as a dict, over the gathered
+        shards when sharded."""
         return summarize(self.metrics)._asdict()
 
     def save(self, path: str) -> str:
         return checkpoint.save(path, self.cfg, self.state, self.keys, self.metrics, seed=self.seed)
 
     @classmethod
-    def restore(cls, path: str, device="cuda") -> "Session":
+    def restore(cls, path: str, device="cuda", devices=None) -> "Session":
         """Resume exactly: state, keys, metrics and the seed come back, so
         runs after the restore equal an uninterrupted session's and reset()
-        rebuilds the same experiment. A checkpoint that carries a scenario
+        rebuilds the same experiment. `devices` shards on load: a checkpoint
+        does not depend on the layout. A checkpoint that carries a scenario
         is refused: a Session has no scenario path, and running one here
         would continue a different experiment."""
         cfg, state, keys, metrics, seed, scenario = checkpoint.load(path, device)
@@ -441,6 +528,8 @@ class Session:
         self.batch = state.role.shape[0]
         self.seed = seed
         self.device = state.role.device
+        self.devices = devices
+        self._mesh = None
         self.apply_writer = None
         self.telemetry = None
         self._tel_rec = None
@@ -456,6 +545,7 @@ class Session:
         self.keys = keys
         self.metrics = metrics
         self.now = int(state.now.reshape(-1)[0]) if self.batch else 0
+        self._apply_sharding()
         return self
 
 
@@ -533,6 +623,10 @@ def add_run_arguments(p: argparse.ArgumentParser) -> None:
     p.add_argument("--mutant", default=None, metavar="NAME",
                    help="TEST-ONLY: run a deliberately weakened tick (scenario/mutation.py "
                         "registry, e.g. 'weak-quorum')")
+    p.add_argument("--devices", type=int, default=None, metavar="N",
+                   help="shard the cluster batch over N devices: the first N cards, or N "
+                        "shards on the CPU with --device cpu (trajectories are shard-count "
+                        "invariant; the plain chunked path only)")
     p.add_argument("--perf", action="store_true",
                    help="per-chunk runtime attribution (obs.ChunkTimer): device-vs-host wall "
                         "split, warmup vs steady state, card memory, the kernel-cache "
@@ -630,6 +724,14 @@ def run(ap: argparse.ArgumentParser, args) -> int:
         if conflicting:
             ap.error(f"--resume is exclusive with config flags: {', '.join(conflicting)}")
         sess = Session.restore(args.resume, device=args.device)
+        # Checkpoint problems (a bad path, a stale format) surface as real
+        # errors; only --devices misuse gets the usage-error framing.
+        if args.devices is not None:
+            try:
+                sess.devices = args.devices
+                sess._apply_sharding()
+            except ValueError as ex:
+                ap.error(str(ex))
     else:
         cfg, batch = build_config(args)
         cfg = _mutant(ap, args.mutant, cfg)
@@ -640,8 +742,11 @@ def run(ap: argparse.ArgumentParser, args) -> int:
                 ap.error("--trace/--trace-trigger/--trace-freeze need --telemetry-dir (trace "
                          "windows stream through the telemetry sink)")
             cfg = dataclasses.replace(cfg, track_trace=True)
-        sess = Session(cfg, batch=batch, seed=args.seed if args.seed is not None else 0,
-                       device=args.device)
+        try:
+            sess = Session(cfg, batch=batch, seed=args.seed if args.seed is not None else 0,
+                           device=args.device, devices=args.devices)
+        except ValueError as ex:
+            ap.error(str(ex))
     if args.trace_ticks or args.trace_events:
         if (args.save or args.apply_log or args.telemetry_dir or args.perf or args.health
                 or args.profile):
@@ -710,6 +815,17 @@ def run(ap: argparse.ArgumentParser, args) -> int:
     if args.save:
         sess.save(args.save)
     return 0
+
+
+def _device_mesh(device, n: int):
+    """The cluster mesh of `--mesh n` / `--devices n` on `device`: the first n
+    cards (0: every card), or n shards on the CPU (0: one)."""
+    dev = device_mod.resolve(device)
+    if n < 0:
+        raise ValueError(f"--mesh must be >= 0, got {n}")
+    if dev.type == "cuda":
+        return mesh_mod.make_mesh(n or None)
+    return mesh_mod.make_mesh(devices=[dev] * (n or 1))
 
 
 def _device_name(dev: torch.device) -> str:
@@ -948,9 +1064,13 @@ def add_scenario_arguments(sc: argparse.ArgumentParser) -> dict:
                        help="generation budget; spending it without a hit pins a negative "
                             "result (out-dir/negative.json)")
     sfarm.add_argument("--population", type=int, default=64,
-                       help="fleet batch, split among the members")
+                       help="fleet batch, split among the members; under --mesh this is the "
+                            "PER-DEVICE population (the total scales with the device count)")
     sfarm.add_argument("--mesh", type=int, default=None, metavar="D",
-                       help="the JAX farm's sharded evaluation: not ported (a usage error)")
+                       help="shard each generation over D devices (0 = every card; D shards "
+                            "on the CPU with --device cpu): one sharded evaluation a "
+                            "generation, the same hits at any device count "
+                            "(parallel.simulate_windowed_sharded)")
     sfarm.add_argument("--ticks", type=int, default=512)
     sfarm.add_argument("--window", type=int, default=64,
                        help="telemetry window (fitness resolution)")
@@ -1085,21 +1205,28 @@ def _scenario_farm(ap: argparse.ArgumentParser, args) -> int:
     line, ending in a frozen hit or a pinned negative result."""
     from raft_sim_tpu_torch.farm import FarmSpec, parse_portfolio, run_farm
 
-    if args.mesh is not None:
-        ap.error("--mesh: the sharded farm is not ported yet (ROADMAP item 19)")
     cfg, _ = build_config(args)
     cfg = _mutant(ap, args.mutant, cfg)
+    mesh = None
+    if args.mesh is not None:
+        try:
+            mesh = _device_mesh(args.device, args.mesh)
+        except ValueError as ex:
+            ap.error(str(ex))
     try:
         spec = FarmSpec(
             portfolio=parse_portfolio(args.portfolio), budget_gens=args.budget_gens,
-            population=args.population, ticks=args.ticks, window=args.window,
+            # Under --mesh the population scales with the device count:
+            # --population is the per-device share of the fleet.
+            population=args.population * (mesh.size if mesh else 1), ticks=args.ticks,
+            window=args.window,
             elite_frac=args.elite_frac, seed=args.seed if args.seed is not None else 0,
             trace_depth=args.trace_depth, guided=not args.no_guided, stop_on=args.stop_on,
         )
         with profile_ctx(args.profile, args.device):
             res = run_farm(cfg, spec, mutant=args.mutant, out_dir=args.out_dir,
                            corpus_dir=args.corpus_dir, freeze=args.freeze, health=args.health,
-                           device=args.device)
+                           mesh=mesh, device=args.device)
     except ValueError as ex:
         ap.error(str(ex))
     print(json.dumps({

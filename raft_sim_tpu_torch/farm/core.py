@@ -26,7 +26,9 @@ one copy; the members score numpy slices of it. Out-dir streams:
 farm_manifest.json, members/<name>/hunt.jsonl (one row per generation per
 member), negative.json (hitless budgets) and perf.jsonl (one chunk-timer row
 a generation), with health.jsonl/alerts.jsonl beside them under `health`.
-The mesh-sharded farm is not ported (ROADMAP item 19).
+With a mesh (`mesh=`, `scenario farm --mesh D`) each generation's one fleet
+run is sharded over the cluster axis (parallel/mesh.simulate_windowed_sharded):
+the same hunt, bit for bit, at any shard count.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ import numpy as np
 
 from raft_sim_tpu_torch.farm import corpus as corpus_mod
 from raft_sim_tpu_torch.farm import portfolio as portfolio_mod
+from raft_sim_tpu_torch.parallel import mesh as mesh_mod
 from raft_sim_tpu_torch.scenario import genome as genome_mod
 from raft_sim_tpu_torch.scenario import search as search_mod
 from raft_sim_tpu_torch.scenario import shrink as shrink_mod
@@ -221,12 +224,19 @@ def run_farm(cfg: RaftConfig, spec: FarmSpec | None = None, mutant: str | None =
 
     Hit processing is bounded: each generation, each member's first
     violating cluster is shrunk; the other violating clusters are counted in
-    the hunt rows and the manifest's violating_clusters_total. `mesh` (the
-    JAX farm's sharded evaluation) is not ported and raises."""
-    if mesh is not None:
-        raise NotImplementedError("run_farm: the mesh-sharded farm is not ported yet "
-                                  "(ROADMAP item 19)")
+    the hunt rows and the manifest's violating_clusters_total.
+
+    `mesh` (a parallel.make_mesh cluster mesh) shards each generation's
+    evaluation over its devices (parallel.simulate_windowed_sharded), the
+    results gathered onto the mesh's first device; the population must
+    divide by the shard count. Hits, coverage and the manifest hash are
+    bit-identical to the unsharded farm's at any shard count, so the mesh is
+    not part of the hashed identity: provenance names the hunt, not the
+    hardware it ran on."""
     spec = spec or FarmSpec()
+    if mesh is not None and spec.population % mesh.size:
+        raise ValueError(f"population {spec.population} must divide over the mesh's "
+                         f"{mesh.size} devices")
     dev = device_mod.resolve(device)
     portfolio = portfolio_mod.parse_portfolio(spec.portfolio)
     knobs = spec.knobs or search_mod.default_knobs(cfg)
@@ -325,11 +335,17 @@ def run_farm(cfg: RaftConfig, spec: FarmSpec | None = None, mutant: str | None =
         # --- evaluate: the whole portfolio in one fleet run.
         if perf is not None:
             perf.begin(spec.ticks)
-        out = telemetry.simulate_windowed(run_cfg, sim_seed, spec.population, spec.ticks,
-                                          spec.window, genome=g, trace=trace_spec, device=dev)
+        if mesh is not None:
+            out = mesh_mod.simulate_windowed_sharded(run_cfg, sim_seed, spec.population,
+                                                     spec.ticks, spec.window, mesh, genome=g,
+                                                     trace=trace_spec)
+        else:
+            out = telemetry.simulate_windowed(run_cfg, sim_seed, spec.population, spec.ticks,
+                                              spec.window, genome=g, trace=trace_spec,
+                                              device=dev)
         if perf is not None:
             perf.dispatched()
-            perf.annotate(n_devices=1, backend=dev.type)
+            perf.annotate(n_devices=1 if mesh is None else mesh.size, backend=dev.type)
             perf.end(sync=lambda: out[1].ticks.cpu())
         # One host copy of the generation: records, metrics, coverage words.
         fetched = [out[1], out[2]] + ([out[5].cov] if trace_spec is not None else [])

@@ -38,9 +38,22 @@ log matching takes the JAX ring form (comparable pairs, checksums at the
 larger base) and counts the pairs it cannot compare (`lm_skipped_pairs`).
 Gated-off legs pass through untouched; gated-off StepInfo leaves are zeros
 with the JAX dtype and shape.
+
+Node-axis sharding (parallel/nodeshard.py): with a `NodeShardCtx`, `step_b`
+ticks this shard's `nl` node rows of every cluster (peer axes padded to
+`n_pad`), meeting the other shards at the JAX package's collective points
+through the context's exchange (parallel/comm.py): the mailbox gather at
+tick start (`_gather_mailbox`), the folds of the per-cluster `[B]`
+reductions, and the leaders-by-term gather of the election-safety check.
+The sharded surface is the JAX one (`nodeshard.check_shardable`): no
+reconfiguration, transfer, reads, durable storage, redirect client or log
+matching. With `sh=None` the tick is the single-device one, unchanged.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -71,6 +84,69 @@ from raft_sim_tpu_torch.utils.config import RaftConfig
 
 I32 = torch.int32
 BIG = 2**31 - 1
+
+
+def _local_folds(pairs) -> list:
+    """Node-axis folds on one device: each value is already the cluster's."""
+    return [x for x, _ in pairs]
+
+
+class NodeShardCtx(NamedTuple):
+    """This shard's place on the node axis (the JAX NodeShardCtx): the
+    padded node count `n_pad` = shards x `nl`, this shard's `rank`, and the
+    `exchange` (parallel/comm.Exchange) the shards' collectives meet at.
+    Every state and mailbox leg carries this shard's `nl` rows, the rows its
+    own nodes write; pad rows (ids >= n_nodes) are nodes dead every tick."""
+
+    exchange: object
+    rank: int
+    nl: int
+    n_pad: int
+
+    @property
+    def row0(self) -> int:
+        """The first global node row of this shard."""
+        return self.rank * self.nl
+
+
+def _loc(x: torch.Tensor, sh: NodeShardCtx) -> torch.Tensor:
+    """This shard's node rows of a full [n_pad, ...] per-node tensor."""
+    return x[sh.row0:sh.row0 + sh.nl]
+
+
+# The mailbox legs the sharded tick reads from every sender (JAX
+# `_gather_mailbox`); the rest stay local: gated off on the sharded surface,
+# never read, passed through.
+_GATHERED = ("req_type", "req_term", "req_commit", "req_last_index", "req_last_term",
+             "ent_start", "ent_prev_term", "ent_count", "ent_term", "ent_val",
+             "req_off", "resp_kind", "v_to", "a_ok_to", "a_match", "a_hint", "resp_term")
+
+
+def _gather_mailbox(cfg: RaftConfig, mb, sh: NodeShardCtx):
+    """THE tick-start collective: one gather of the writer-major local
+    mailbox over the node axis, reoriented to the receiver view the body
+    reads. Headers [nl, ...] -> [n_pad, ...]; req_off [nl(snd), n_pad(rcv)]
+    -> [n_pad(snd), nl(local rcv)]; resp_kind, carried transposed
+    [nl(responder), n_pad(receiver)] -> [nl(local receiver), n_pad];
+    pv_grant, carried [nl(voter), W(candidate bits)] -> [nl(local
+    candidate), W(voter bits)]."""
+    names = list(_GATHERED)
+    if cfg.track_offer_ticks:
+        names.append("ent_tick")
+    if cfg.compaction:
+        names += ["req_base", "req_base_term", "req_base_chk"]
+    if cfg.pre_vote:
+        names.append("pv_grant")
+    got = dict(zip(names, sh.exchange.all_gather(
+        sh.rank, tuple(getattr(mb, f) for f in names), 0, kind="mailbox_gather")))
+    lo, hi = sh.row0, sh.row0 + sh.nl
+    got["req_off"] = got["req_off"][:, lo:hi]
+    got["resp_kind"] = got["resp_kind"].transpose(0, 1)[lo:hi]
+    if cfg.pre_vote:
+        pv = bitplane.unpack(got["pv_grant"], sh.n_pad, axis=1).transpose(0, 1)[lo:hi]
+        got["pv_grant"] = bitplane.pack(pv, axis=1)
+    return mb._replace(**got)
+
 
 def lease_window(cfg: RaftConfig) -> int:
     """The lease window on the ack_age plane: read_lease_ticks, or the no-skew
@@ -107,23 +183,28 @@ def log_matching_due(cfg: RaftConfig, s: ClusterState, now: int | None) -> bool:
 
 
 def step_b(
-    cfg: RaftConfig, s: ClusterState, inp: StepInputs, now: int | None = None
+    cfg: RaftConfig, s: ClusterState, inp: StepInputs, now: int | None = None,
+    sh: NodeShardCtx | None = None,
 ) -> tuple[ClusterState, StepInfo]:
     """One tick for B clusters at once; every tensor carries a trailing batch
     axis. `now` is the host's copy of `s.now` (all clusters in lockstep).
     Under `compact_planes` the state and inputs are unpacked, the dense tick
-    runs, and the new state is repacked with the gated-off legs of `s`."""
+    runs, and the new state is repacked with the gated-off legs of `s`.
+    `sh` ticks one node shard (module docstring): `s` holds its rows, `inp`
+    the full padded inputs."""
     if not cfg.compact_planes:
-        return _step_b(cfg, s, inp, now)
+        return _step_b(cfg, s, inp, now, sh)
+    assert sh is None  # sharded carries run dense (parallel/nodeshard.py)
     from raft_sim_tpu_torch.ops import tile
 
     return tile.through_dense(cfg, s, inp, lambda c, d, i: _step_b(c, d, i, now))
 
 
 def _step_b(
-    cfg: RaftConfig, s: ClusterState, inp: StepInputs, now: int | None = None
+    cfg: RaftConfig, s: ClusterState, inp: StepInputs, now: int | None = None,
+    sh: NodeShardCtx | None = None,
 ) -> tuple[ClusterState, StepInfo]:
-    """The dense batch-minor tick body."""
+    """The dense batch-minor tick body; one node shard's with `sh`."""
     n, e, cap = cfg.n_nodes, cfg.max_entries_per_rpc, cfg.log_capacity
     track = cfg.track_offer_ticks
     comp = cfg.compaction
@@ -141,10 +222,32 @@ def _step_b(
     adt = s.ack_age.dtype
     ndt = node_dtype(cfg)
     ids = torch.arange(n, dtype=I32, device=dev)
-    ids2 = ids[:, None]  # [N, 1]
-    snd_ids = ids[:, None, None]  # [sender, 1, 1]
-    eye3 = torch.eye(n, dtype=torch.bool, device=dev)[:, :, None]  # [N, N, 1]
-    eye_p3 = bitplane.eye(n, dev)[:, :, None]  # [N, W, 1]
+    if sh is None:
+        nl = npd = n  # local rows and the peer axis: the full square
+        ids2 = ids[:, None]  # [N, 1]
+        snd_ids = ids[:, None, None]  # [sender, 1, 1]
+        eye3 = torch.eye(n, dtype=torch.bool, device=dev)[:, :, None]  # [N, N, 1]
+        pad_self = eye3  # self (and, sharded, pad) peers: skipped by the window min
+        eye_p3 = bitplane.eye(n, dev)[:, :, None]  # [N, W, 1]
+        gfolds = _local_folds
+        alive_full = inp.alive
+    else:
+        assert not (rcf or xfr or rdx or rdl or dur or cfg.client_redirect
+                    or cfg.check_log_matching)  # nodeshard.check_shardable
+        nl, npd = sh.nl, sh.n_pad
+        ids2 = sh.row0 + torch.arange(nl, dtype=I32, device=dev)[:, None]  # global ids
+        peers = torch.arange(npd, dtype=I32, device=dev)
+        snd_ids = peers[:, None, None]
+        eye3 = ids2[:, :, None] == peers[None, :, None]  # [nl(self), n_pad(peer), 1]
+        pad_self = eye3 | (peers >= n)[None, :, None]
+        eye_p3 = _loc(bitplane.eye(npd, dev), sh)[:, :, None]  # [nl, W, 1]
+        gfolds = functools.partial(sh.exchange.folds, sh.rank)  # one meeting a call
+        # The delivery gates read the senders' liveness; everything else
+        # reads this shard's rows.
+        alive_full = inp.alive
+        inp = inp._replace(alive=_loc(inp.alive, sh), restarted=_loc(inp.restarted, sh),
+                           skew=_loc(inp.skew, sh), timeout_draw=_loc(inp.timeout_draw, sh),
+                           deliver_mask=_loc(inp.deliver_mask, sh))
     alive = inp.alive
 
     # ---- phase -1: restart ----------------------------------------------------
@@ -181,7 +284,7 @@ def _step_b(
         )
         if rdl:
             s = s._replace(read_fr=torch.where(rs, 0, s.read_fr))
-    mb = s.mailbox
+    mb = s.mailbox if sh is None else _gather_mailbox(cfg, s.mailbox, sh)
     base, bterm, bchk = s.log_base, s.base_term, s.base_chk
 
     def term_at(log_term, index1):  # reads base/bterm as they stand at the call
@@ -209,8 +312,8 @@ def _step_b(
 
     # ---- phase 0: delivery ----------------------------------------------------
     dst_up = alive & ~rs
-    dmask = bitplane.unpack(inp.deliver_mask, n, axis=1)  # [dst, src, B]
-    deliver = dmask & ~eye3 & alive[None, :, :] & dst_up[:, None, :]  # [dst, src, B]
+    dmask = bitplane.unpack(inp.deliver_mask, npd, axis=1)  # [dst, src, B]
+    deliver = dmask & ~eye3 & alive_full[None, :, :] & dst_up[:, None, :]  # [dst, src, B]
     req_in = deliver.transpose(0, 1) & (mb.req_type != 0)[:, None, :]  # [snd, rcv, B]
     resp_in = deliver & (mb.resp_kind != 0)  # [rcv, responder, B]
 
@@ -269,7 +372,7 @@ def _step_b(
         return torch.where(has_ae, torch.gather(h, 0, src), 0)
 
     def pick_w(w):  # [N(sender), E, B] window of each receiver's selected sender
-        got = torch.gather(w, 0, src[:, None, :].expand(n, e, b))
+        got = torch.gather(w, 0, src[:, None, :].expand(nl, e, b))
         return torch.where(has_ae[:, None, :], got, 0)
 
     j_in = torch.where(
@@ -562,16 +665,19 @@ def _step_b(
         cli = (log_tick_arr >= 1) & (log_tick_arr <= s.now[None, None, :])
         lm = (is_leader & alive)[:, None, :] & newly & cli
         lats = torch.where(lm, s.now[None, None, :] - log_tick_arr + 1, 0)
-        lat_sum = lats.sum((0, 1)).to(I32)
-        lat_cnt = lm.sum((0, 1)).to(I32)
-        is_maxc = commit == commit.amax(0)[None, :]
-        hnode = torch.where(is_maxc, ids2, n).amin(0)
+        lat_sum, lat_cnt, cmax = gfolds([(lats.sum((0, 1)).to(I32), "sum"),
+                                         (lm.sum((0, 1)).to(I32), "sum"),
+                                         (commit.amax(0), "max")])
+        is_maxc = commit == cmax[None, :]
+        (hnode,) = gfolds([(torch.where(is_maxc, ids2, n).amin(0), "min")])
         crossed = (ids2 == hnode[None, :])[:, None, :] & newly & cli
-        lat_excluded = (crossed.sum((0, 1)).to(I32) - lat_cnt).clamp(min=0)
         bin_ = log_ops.log2_bin(lats, LAT_HIST_BINS)
         bins = torch.arange(LAT_HIST_BINS, dtype=I32, device=dev)[None, None, :, None]
-        lat_hist = ((bins == bin_[:, :, None, :]) & lm[:, :, None, :]).sum((0, 1)).to(I32)
-        lat_frontier = torch.maximum(s.lat_frontier, commit.amax(0))
+        n_crossed, lat_hist = gfolds([
+            (crossed.sum((0, 1)).to(I32), "sum"),
+            (((bins == bin_[:, :, None, :]) & lm[:, :, None, :]).sum((0, 1)).to(I32), "sum")])
+        lat_excluded = (n_crossed - lat_cnt).clamp(min=0)
+        lat_frontier = torch.maximum(s.lat_frontier, cmax)
     else:
         lat_sum = torch.zeros_like(s.now)
         lat_cnt = torch.zeros_like(s.now)
@@ -608,7 +714,7 @@ def _step_b(
         has_slot = log_len - base < cap
         noop = win & has_slot
         room = log_len - base < cap - reserve
-        noop_blocked = (win & ~has_slot).sum(0).to(I32)
+        (noop_blocked,) = gfolds([((win & ~has_slot).sum(0).to(I32), "sum")])
     else:
         noop = torch.zeros_like(is_leader)
         room = log_len - base < cap
@@ -674,9 +780,9 @@ def _step_b(
         client_tick = torch.where(pend_on, ptick, 0) if track else s.client_tick
     else:
         client_ok = (inp.client_cmd[None, :] != NIL) & node_ok
-        wval_cl = inp.client_cmd[None, :].expand(n, b)
-        wtick_cl = (s.now + 1)[None, :].expand(n, b)
-        cmds_cnt = client_ok.any(0).to(I32)
+        wval_cl = inp.client_cmd[None, :].expand(nl, b)
+        wtick_cl = (s.now + 1)[None, :].expand(nl, b)
+        cmds_cnt = gfolds([(client_ok.any(0), "any")])[0].to(I32)
         client_pend, client_dst, client_tick = s.client_pend, s.client_dst, s.client_tick
     do_write = noop | client_ok
     wval = torch.where(noop, NOOP, wval_cl)
@@ -797,12 +903,13 @@ def _step_b(
     responsive = ack_age <= cfg.ack_timeout_ticks
     if comp:
         # Absolute indices: the two-pass min (responsive peers, else all peers).
-        ws_resp = torch.where(eye3 | ~responsive, BIG, prev_out).amin(1)
-        ws_all = torch.where(eye3, BIG, prev_out).amin(1)
+        ws_resp = torch.where(pad_self | ~responsive, BIG, prev_out).amin(1)
+        ws_all = torch.where(pad_self, BIG, prev_out).amin(1)
         ws = torch.where(ws_resp == BIG, ws_all, ws_resp)
     else:
         k_ = cap + 1
-        enc = prev_out + torch.where(eye3, 2 * k_, torch.where(responsive, 0, k_)).to(I32)
+        # Pad peers ride the self lane: a win resets their ack ages too.
+        enc = prev_out + torch.where(pad_self, 2 * k_, torch.where(responsive, 0, k_)).to(I32)
         m = enc.amin(1)
         ws = torch.where(m >= k_, m - k_, m).clamp(min=0)
     ws = torch.minimum(ws, len32)
@@ -826,7 +933,10 @@ def _step_b(
     out_resp_kind = torch.where(is_rv, RESP_VOTE, 0) + torch.where(is_ae, RESP_APPEND, 0)
     if pv:
         out_resp_kind = out_resp_kind + torch.where(is_pv, RESP_PREVOTE, 0)
-        out_pv_grant = bitplane.pack(pv_grant, axis=1)  # [cand, W(bit = voter), B]
+        if sh is None:
+            out_pv_grant = bitplane.pack(pv_grant, axis=1)  # [cand, W(bit = voter), B]
+        else:  # writer-major: local voter rows, candidate bits (_gather_mailbox)
+            out_pv_grant = bitplane.pack(pv_grant.transpose(0, 1), axis=1)
     else:
         out_pv_grant = mb.pv_grant
     if dacks:  # the late RESP_VOTE, only on an edge with no other response
@@ -854,7 +964,9 @@ def _step_b(
         req_disrupt=out_req_disrupt,
         ent_cfg=out_ent_cfg,
         req_off=out_req_off,
-        resp_kind=out_resp_kind.to(torch.int8),
+        # Sharded carries are writer-major: the [receiver, responder] plane
+        # is stored transposed, responder rows local (_gather_mailbox).
+        resp_kind=(out_resp_kind if sh is None else out_resp_kind.transpose(0, 1)).to(torch.int8),
         pv_grant=out_pv_grant,
         v_to=grant_to,
         a_ok_to=out_a_ok_to,
@@ -955,7 +1067,7 @@ def _step_b(
         cfg, s, new_state, req_in, resp_in, alive, cmds_cnt, chk_ok,
         lat_sum, lat_cnt, lat_hist, lat_excluded, noop_blocked,
         reads_served, read_lat_sum, read_hist, viol_read_stale,
-        fsync_lag_sum, fsync_lag_max, log_matching_due(cfg, s, now),
+        fsync_lag_sum, fsync_lag_max, log_matching_due(cfg, s, now), sh,
     )
     # Broadcasts over the transposed request plane leave some results in a
     # permuted layout; the carry is kept contiguous (the kernel requires it).
@@ -966,26 +1078,37 @@ def _step_info_b(
     cfg, old, new, req_in, resp_in, alive, cmds_cnt, chk_ok,
     lat_sum, lat_cnt, lat_hist, lat_excluded, noop_blocked,
     reads_served, read_lat_sum, read_hist, viol_read_stale,
-    fsync_lag_sum, fsync_lag_max, lm_due,
+    fsync_lag_sum, fsync_lag_max, lm_due, sh: NodeShardCtx | None = None,
 ) -> StepInfo:
     """Batched phase 9 (the JAX `_step_info_b`). All outputs [B] (histograms
-    [BINS, B])."""
+    [BINS, B]). With `sh`, the per-cluster reductions fold over the shards."""
     n = cfg.n_nodes
     dev = new.role.device
     b = new.role.shape[-1]
     f = torch.zeros((b,), dtype=torch.bool, device=dev)
     z = torch.zeros((b,), dtype=I32, device=dev)
-    ids1 = torch.arange(n, dtype=I32, device=dev)[:, None]
     is_leader = new.role == LEADER
     live_leader = is_leader & alive
+    if sh is None:
+        ids1 = torch.arange(n, dtype=I32, device=dev)[:, None]
+    else:
+        ids1 = sh.row0 + torch.arange(sh.nl, dtype=I32, device=dev)[:, None]
     if cfg.check_invariants:
-        eye3 = torch.eye(n, dtype=torch.bool, device=dev)[:, :, None]
-        pair_bad = (
-            is_leader[:, None, :]
-            & is_leader[None, :, :]
-            & (new.term[:, None, :] == new.term[None, :, :])
-            & ~eye3
-        )
+        if sh is None:
+            eye3 = torch.eye(n, dtype=torch.bool, device=dev)[:, :, None]
+            pair_bad = (
+                is_leader[:, None, :]
+                & is_leader[None, :, :]
+                & (new.term[:, None, :] == new.term[None, :, :])
+                & ~eye3
+            )
+        else:
+            # One [n_pad, B] gather: leaders encoded by term (terms start at
+            # 1, so 0 reads as no leader; pad rows never lead).
+            lv = sh.exchange.all_gather(sh.rank, torch.where(is_leader, new.term, 0), 0,
+                                        kind="leaders_gather")
+            eye_p = torch.eye(sh.n_pad, dtype=torch.bool, device=dev)[:, :, None]
+            pair_bad = (lv[:, None, :] > 0) & (lv[:, None, :] == lv[None, :, :]) & ~eye_p
         viol_election = pair_bad.any(0).any(0)
         viol_commit = (
             (new.commit_index < old.commit_index)
@@ -1009,17 +1132,31 @@ def _step_info_b(
         lm_skipped = z
     else:
         viol_match, lm_skipped = f, z
-    leader = torch.where(live_leader, ids1, n).amin(0)
+    # The per-cluster reductions, folded over the shards in one meeting; pad
+    # rows (ids >= n) sit at commit 0 forever, so they are out of the min.
+    pairs = [(torch.where(live_leader, ids1, n).amin(0), "min"),
+             (live_leader.sum(0).to(I32), "sum"),
+             (new.term.amax(0), "max"),
+             (new.commit_index.amax(0), "max"),
+             (torch.where(ids1 < n, new.commit_index, BIG).amin(0), "min"),
+             ((req_in.sum((0, 1)) + resp_in.sum((0, 1))).to(I32), "sum")]
+    if cfg.check_invariants:
+        pairs.append((viol_commit, "any"))
+    folds = _local_folds if sh is None else functools.partial(sh.exchange.folds, sh.rank)
+    got = folds(pairs)
+    leader, n_leaders, max_term, max_commit, min_commit, msgs = got[:6]
+    if cfg.check_invariants:
+        viol_commit = got[6]
     return StepInfo(
         viol_election_safety=viol_election,
         viol_commit=viol_commit,
         viol_log_matching=viol_match,
         leader=torch.where(leader < n, leader, NIL).to(I32),
-        n_leaders=live_leader.sum(0).to(I32),
-        max_term=new.term.amax(0),
-        max_commit=new.commit_index.amax(0),
-        min_commit=new.commit_index.amin(0),
-        msgs_delivered=(req_in.sum((0, 1)) + resp_in.sum((0, 1))).to(I32),
+        n_leaders=n_leaders,
+        max_term=max_term,
+        max_commit=max_commit,
+        min_commit=min_commit,
+        msgs_delivered=msgs,
         cmds_injected=cmds_cnt,
         lat_sum=lat_sum,
         lat_cnt=lat_cnt,

@@ -82,32 +82,45 @@ def run_chunked(
     obs.ChunkTimer) gets one row a chunk: begun before its first launch,
     dispatched after its last, closed after the callback on a host copy of
     the chunk's `metrics.ticks` (the device wait). None leaves the loop as
-    it was."""
+    it was.
+
+    `state` and `keys` (and `genome`, if given) may also be lists, the
+    shards of the batch in cluster order, each on its own device
+    (`driver.Session(devices=)`): every chunk ticks each shard, their
+    launches interleaved tick by tick (`scan.interleave`), and the callback
+    and the result get lists of the shards' states and metrics."""
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
-    batch = state.role.shape[0]
+    sharded = isinstance(state, list)
+    states, keys = (state, keys) if sharded else ([state], [keys])
+    genomes = genome if isinstance(genome, list) else [genome] * len(states)
     if now is None:
-        now = int(state.now.reshape(-1)[0]) if batch else 0
-    metrics = scan.init_metrics_batch(batch, state.role.device)
-    s = raft_batched.to_batch_minor(state)
-    out = state
+        now = int(states[0].now.reshape(-1)[0]) if states[0].role.shape[0] else 0
+    metrics = [scan.init_metrics_batch(st.role.shape[0], st.role.device) for st in states]
+    ss = [raft_batched.to_batch_minor(st) for st in states]
+    out = states
     done = 0
     if perf is not None:
-        perf.watch(state.role.device)
+        perf.watch(states[0].role.device)
     while done < n_ticks:
         n = min(chunk, n_ticks - done)
         if perf is not None:
             perf.begin(n)
-        s, m = scan.run_minor(cfg, s, keys, n, now + done, genome=genome, seg_len=seg_len)
+        outs = scan.interleave([scan.minor_ticks(cfg, s, k, n, now + done, genome=g,
+                                                 seg_len=seg_len)
+                                for s, k, g in zip(ss, keys, genomes)])
         if perf is not None:
             perf.dispatched()
-        metrics = merge_metrics(metrics, raft_batched.from_batch_minor(m))
+        ss = [s for s, _ in outs]
+        metrics = [merge_metrics(a, raft_batched.from_batch_minor(m))
+                   for a, (_, m) in zip(metrics, outs)]
         done += n
-        out = raft_batched.from_batch_minor(s)
+        out = [raft_batched.from_batch_minor(s) for s in ss]
         # The callback's host work is this chunk's; the row closes after it.
-        stop = callback is not None and callback(done, out, metrics)
+        stop = callback is not None and (callback(done, out, metrics) if sharded
+                                         else callback(done, out[0], metrics[0]))
         if perf is not None:
-            perf.end(sync=lambda: m.ticks.cpu())
+            perf.end(sync=lambda: [m.ticks.cpu() for _, m in outs])
         if stop:
             break
-    return out, metrics
+    return (out, metrics) if sharded else (out[0], metrics[0])

@@ -33,7 +33,7 @@ import torch
 from raft_sim_tpu_torch.kernels import tick_engine
 from raft_sim_tpu_torch.models import raft_batched
 from raft_sim_tpu_torch.sim import faults
-from raft_sim_tpu_torch.types import LAT_HIST_BINS, NIL, ClusterState, StepInfo, init_batch
+from raft_sim_tpu_torch.types import LAT_HIST_BINS, NIL, ClusterState, StepInfo, init_rows
 from raft_sim_tpu_torch.utils import device as device_mod
 from raft_sim_tpu_torch.utils import threefry
 from raft_sim_tpu_torch.utils.config import RaftConfig
@@ -222,12 +222,42 @@ def run_minor(cfg: RaftConfig, s: ClusterState, keys: torch.Tensor, n_ticks: int
               step_fn=None, genome=None, seg_len: int = 1):
     """`n_ticks` ticks from a batch-minor state `s` whose lockstep tick is the
     host's `now`; returns (state, RunMetrics of these ticks), batch-minor."""
+    loop = minor_ticks(cfg, s, keys, n_ticks, now, step_fn, genome, seg_len)
+    del s  # the loop holds the only reference, so each tick frees the last state
+    return interleave([loop])[0]
+
+
+def minor_ticks(cfg: RaftConfig, s: ClusterState, keys: torch.Tensor, n_ticks: int, now: int,
+                step_fn=None, genome=None, seg_len: int = 1):
+    """`run_minor`'s loop as a generator, one step a tick; its return value
+    is run_minor's result."""
     batch = s.role.shape[-1]
     m = raft_batched.to_batch_minor(init_metrics_batch(batch, s.role.device))
     for t in range(now, now + n_ticks):
         s, m, _ = tick_batch_minor(cfg, s, keys, m, t, step_fn=step_fn, genome=genome,
                                    seg_len=seg_len)
+        yield
     return s, m
+
+
+def interleave(loops: list) -> list:
+    """Drive tick-loop generators (`minor_ticks`,
+    telemetry.minor_telemetry_ticks) in turns, one tick of each a round,
+    until all are done; returns their results in order. The shards of a
+    batch (parallel/mesh.py) run so, their launches interleaved tick by
+    tick; one loop is simply run to its end."""
+    out = [None] * len(loops)
+    live = list(range(len(loops)))
+    while live:
+        still = []
+        for i in live:
+            try:
+                next(loops[i])
+                still.append(i)
+            except StopIteration as stop:
+                out[i] = stop.value
+        live = still
+    return out
 
 
 SPAN_ROWS = 16384  # (tick, cluster) rows a span of scenario draws holds (`input_ticks`)
@@ -354,11 +384,20 @@ def simulate_scenario(cfg: RaftConfig, seed: int, batch: int, n_ticks: int, geno
 
 
 def seed_fleet(cfg: RaftConfig, seed: int, batch: int, device):
-    """(state, keys) of a fresh fleet on `device`: the JAX key derivation (the
-    root key split into init and run streams, the run stream split per
-    cluster), so runs from it equal the JAX package's on the same seed."""
+    """(state, keys) of a fresh fleet on `device` (`fleet_keys`,
+    types.init_rows), so runs from it equal the JAX package's on the same
+    seed."""
+    k_init, k_run = fleet_keys(seed, batch, device)
+    return init_rows(cfg, k_init), k_run
+
+
+def fleet_keys(seed: int, batch: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The per-cluster (init, run) keys of a fleet, [batch, 2] each: the JAX
+    key derivation (the root key split into init and run streams, each split
+    per cluster). A sharded run (parallel/) splits them before sharding, so
+    its trajectories do not depend on the shard count."""
     k_init, k_run = threefry.split(threefry.key(seed, device), 2).unbind(dim=-2)
-    return init_batch(cfg, k_init, batch), threefry.split(k_run, batch)
+    return threefry.split(k_init, batch), threefry.split(k_run, batch)
 
 
 def stable_leader_ticks(metrics: RunMetrics) -> torch.Tensor:

@@ -121,9 +121,24 @@ def run_minor_telemetry(cfg: RaftConfig, s, keys: torch.Tensor, n_ticks: int, wi
                         now: int, recorder: FlightRecorder | None = None, step_fn=None,
                         cmds=None, reads=None, genome=None, seg_len: int = 1, trace_spec=None,
                         trace_persist=None, trigger_kind: int | None = None):
-    """The windowed loop on a batch-minor state `s` whose lockstep tick is the
-    host's `now`: returns (state, RunMetrics of these ticks, records,
-    recorder) -- state and metrics batch-minor, records public -- plus
+    """The windowed loop (`minor_telemetry_ticks`, run to its end)."""
+    loop = minor_telemetry_ticks(cfg, s, keys, n_ticks, window, now, recorder, step_fn, cmds,
+                                 reads, genome, seg_len, trace_spec, trace_persist, trigger_kind)
+    # The loop holds the only references to the carries it replaces tick by
+    # tick, so each tick frees the last.
+    del s, recorder, trace_persist
+    return scan.interleave([loop])[0]
+
+
+def minor_telemetry_ticks(cfg: RaftConfig, s, keys: torch.Tensor, n_ticks: int, window: int,
+                          now: int, recorder: FlightRecorder | None = None, step_fn=None,
+                          cmds=None, reads=None, genome=None, seg_len: int = 1, trace_spec=None,
+                          trace_persist=None, trigger_kind: int | None = None):
+    """The windowed loop as a generator, one step a tick (the sharded
+    evaluator, parallel/mesh.py, interleaves the shards' loops by it:
+    scan.interleave); its return value is the loop's result. The loop runs
+    on a batch-minor state `s` whose lockstep tick is the host's `now` and
+    returns (state, RunMetrics of these ticks, records, recorder) -- state and metrics batch-minor, records public -- plus
     (trace windows, trace persist) when `trace_spec` is given: the windows a
     stacked TraceWindowOut (leaves [n_windows, ..., B]), the persist carried
     from `trace_persist` (None starts fresh). `cmds` and `reads` ([n_ticks, B]
@@ -184,6 +199,7 @@ def run_minor_telemetry(cfg: RaftConfig, s, keys: torch.Tensor, n_ticks: int, wi
             if trace_spec is not None:
                 tw, tp = tring.record(cfg, trace_spec, tw, tp, out[3], tick_now)
             t += 1
+            yield
         recs.append(WindowRecord(start=start, first_viol_tick=fv, metrics=wm))
         if trace_spec is not None:
             traws.append(tring.TraceWindowOut(win=tw, cov=tp.cov))

@@ -343,7 +343,13 @@ def init_state(cfg: RaftConfig, key: torch.Tensor) -> ClusterState:
 def init_batch(cfg: RaftConfig, key: torch.Tensor, batch: int) -> ClusterState:
     """[batch, ...] clusters, cluster b keyed by split(key, batch)[b] -- the
     JAX `jax.vmap(init_state)(jax.random.split(key, batch))`."""
-    keys = threefry.split(key, batch)
+    return init_rows(cfg, threefry.split(key, batch))
+
+
+def init_rows(cfg: RaftConfig, keys: torch.Tensor) -> ClusterState:
+    """[b, ...] fresh clusters, cluster i keyed by keys[i], on the keys'
+    device: the JAX `vmap(init_state)` over them (a shard's rows of a fleet
+    whose keys were split before sharding, parallel/)."""
     return boot_state(cfg, draw_timeouts(cfg, keys, cfg.n_nodes))
 
 

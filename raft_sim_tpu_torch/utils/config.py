@@ -744,14 +744,15 @@ PRESETS: dict[str, tuple[RaftConfig, int]] = {
         ),
         1_000,
     ),
-    # Giant-N tier (node-axis sharding, parallel/nodeshard.py): one cluster
-    # too large for comfortable single-chip batches, partitioned row-wise
-    # across the mesh's "nodes" axis. N=101 keeps W=4 packed words and the
-    # threshold-quorum form (log_capacity < N), with client traffic + drops so
-    # replication is exercised at scale, not just elections. The feature set
-    # deliberately stays inside the sharded v1 surface (no reconfig/transfer/
-    # reads/redirect/log-matching); the same preset runs unsharded for the
-    # bit-exactness acceptance (tests/test_nodeshard.py).
+    # Giant-N tier (node-axis sharding, raft_sim_tpu_torch/parallel/
+    # nodeshard.py): one cluster too large for comfortable single-device
+    # batches, partitioned row-wise across the mesh's "nodes" axis. N=101
+    # keeps W=4 packed words and the threshold-quorum form (log_capacity <
+    # N), with client traffic + drops so replication is exercised at scale,
+    # not just elections. The feature set deliberately stays inside the
+    # sharded surface (no reconfig/transfer/reads/redirect/log-matching);
+    # the same preset runs unsharded for the bit-exactness acceptance
+    # (tests/test_torch_nodeshard.py).
     "config7": (
         RaftConfig(
             n_nodes=101,
@@ -764,10 +765,10 @@ PRESETS: dict[str, tuple[RaftConfig, int]] = {
     ),
     # The N=255 ceiling tier (W=8 words, node ids at the int16 dtype tier):
     # config7's workload at the largest supported cluster, under rolling
-    # partitions, carried in the COMPACTED layout on the single-chip
-    # path -- the node-sharded program runs the same preset dense internally
-    # (types.compact_twin; parallel/nodeshard.py), so one preset prices both
-    # the packed single-chip carry and the per-device mesh bytes.
+    # partitions, carried in the COMPACTED layout on the single-device
+    # path -- the node-sharded run takes the same preset dense
+    # (types.compact_twin; raft_sim_tpu_torch/parallel/nodeshard.py), so one
+    # preset prices both the packed carry and the per-shard bytes.
     "config7x": (
         RaftConfig(
             n_nodes=255,

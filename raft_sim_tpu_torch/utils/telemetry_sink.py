@@ -34,8 +34,9 @@ Every line is JSON with integer-exact values, so two runs diff as text and
 `validate()` accepts the port's directories: the manifest carries every
 field it requires, with `jax_version` null (the port imports no jax),
 `torch_version` beside it, and the device type (`cuda` or `cpu`) as
-`backend`. The multichip artifact's check (`validate_multichip`) is not
-ported.
+`backend`. `validate_multichip` checks the multi-device proof artifact
+(`multichip-v2`, written by `python -m raft_sim_tpu_torch.multihost_check
+--out P`), as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -600,6 +601,53 @@ def validate_health_files(directory: str) -> list[str]:
             errors += validate_bundle(os.path.join(directory, name))
             if name not in named:
                 errors.append(f"{name}: evidence bundle not named by any alerts.jsonl row")
+    return errors
+
+
+# --------------------------------------------------------------- multichip
+# The multi-device proof artifact (raft_sim_tpu_torch/multihost_check.py
+# --out): one diffable row. `throughput_ticks_per_s` is cluster-ticks/s of
+# the sharded run on the machine that ran it; `per_device_bytes_per_tick`
+# the bytes one shard's slice moves a tick; `parity_hash` the sha256 of the
+# gathered metrics' JSON, equal across the multi-process run and the
+# single-process reference when (and only when) the trajectories matched.
+MULTICHIP_SCHEMA = "multichip-v2"
+MULTICHIP_INT_FIELDS = ("n_devices", "n_processes", "batch", "ticks", "violations")
+MULTICHIP_BOOL_FIELDS = ("match",)
+MULTICHIP_FLOAT_FIELDS = ("throughput_ticks_per_s", "per_device_bytes_per_tick")
+MULTICHIP_STR_FIELDS = ("schema", "platform", "parity_hash")
+
+
+def validate_multichip(path: str) -> list[str]:
+    """Schema-check a multichip artifact ([] = valid). A legacy rc-only stub
+    (no "schema" key) is reported as legacy, not passed."""
+    try:
+        with open(path) as f:
+            doc = json.load(f)
+    except (OSError, json.JSONDecodeError) as ex:
+        return [f"{path}: unreadable: {ex}"]
+    if "schema" not in doc:
+        return [f"{path}: legacy rc-only stub (pre-{MULTICHIP_SCHEMA}); regenerate with "
+                "python -m raft_sim_tpu_torch.multihost_check --out"]
+    errors = []
+    if doc.get("schema") != MULTICHIP_SCHEMA:
+        errors.append(f"{path}: schema {doc.get('schema')!r}, expected {MULTICHIP_SCHEMA}")
+    for k in MULTICHIP_INT_FIELDS:
+        if not isinstance(doc.get(k), int) or doc.get(k) is True:
+            errors.append(f"{path}: field {k!r} missing or non-int")
+    for k in MULTICHIP_BOOL_FIELDS:
+        if not isinstance(doc.get(k), bool):
+            errors.append(f"{path}: field {k!r} missing or non-bool")
+    for k in MULTICHIP_FLOAT_FIELDS:
+        v = doc.get(k)
+        if not isinstance(v, (int, float)) or isinstance(v, bool) or v < 0:
+            errors.append(f"{path}: field {k!r} missing or not a non-negative number")
+    for k in MULTICHIP_STR_FIELDS:
+        if not isinstance(doc.get(k), str) or not doc.get(k):
+            errors.append(f"{path}: field {k!r} missing or empty")
+    ph = doc.get("parity_hash")
+    if isinstance(ph, str) and len(ph) != 64:
+        errors.append(f"{path}: parity_hash must be a sha256 hex digest")
     return errors
 
 

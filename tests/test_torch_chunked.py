@@ -127,3 +127,38 @@ def test_run_chunked_resumes_from_a_mid_run_state():
     want_s, want_m = chunked.run_chunked(cfg, state, keys, 96, chunk=96)
     assert bridge.first_difference(want_s, s2) is None
     assert bridge.first_difference(want_m, chunked.merge_metrics(m1, m2)) is None
+
+
+@pytest.mark.parametrize("loop", ["run_minor", "run_minor_telemetry"])
+def test_tick_loops_free_each_replaced_state(loop):
+    """The tick loops (scan.run_minor, telemetry.run_minor_telemetry, both
+    driving their per-tick generators) keep no reference to the state they
+    were given once a tick has replaced it, so a run holds one carry, not
+    two: by the third tick the starting state is gone."""
+    import gc
+    import weakref
+
+    from raft_sim_tpu_torch.kernels import tick_engine
+    from raft_sim_tpu_torch.models import raft_batched
+    from raft_sim_tpu_torch.sim import telemetry
+    from raft_sim_tpu_torch.trace import ring as tring
+
+    cfg = tconfig.RaftConfig(n_nodes=5, client_interval=4, track_trace=True)
+    state, keys = _start(cfg, 0, 4)
+    carry = [raft_batched.to_batch_minor(state)]
+    start = weakref.ref(carry[0].role)
+    freed, calls = [], [0]
+
+    def step(c, s, inp, now):
+        calls[0] += 1
+        if calls[0] == 3:
+            gc.collect()
+            freed.append(start() is None)
+        return tick_engine.step_cuda(c, s, inp, now)
+
+    if loop == "run_minor":
+        scan.run_minor(cfg, carry.pop(), keys, 4, 0, step_fn=step)
+    else:
+        telemetry.run_minor_telemetry(cfg, carry.pop(), keys, 4, 2, 0, step_fn=step,
+                                      trace_spec=tring.TraceSpec(depth=8))
+    assert freed == [True]

@@ -102,6 +102,9 @@ TAKEN_RUN_FLAGS = {
     "--perf": (["--perf", "--trace-ticks", "4"], "have no effect"),
     "--health": (["--health", "x"], "--health needs --telemetry-dir"),
     "--profile": (["--profile", "x", "--trace-events"], "have no effect"),
+    # --devices, taken since the sharding slice: a batch the shards do not
+    # divide is the JAX driver's usage error.
+    "--devices": (["--devices", "3", "--batch", "4"], "batch 4 must divide over 3 devices"),
 }
 
 
@@ -110,8 +113,8 @@ TAKEN_RUN_FLAGS = {
 def test_unported_flags_are_unknown(capsys, flag):
     """A flag of the JAX `run` the port has not taken is refused, never
     accepted and ignored; --backend, now taken, refuses a name it does not
-    know; --perf, --health and --profile, now taken, are refused where the
-    JAX driver refuses them."""
+    know; --perf, --health, --profile and --devices, now taken, are refused
+    where the JAX driver refuses them."""
     argv, named = TAKEN_RUN_FLAGS.get(flag, ([flag, "x"], None))
     with pytest.raises(SystemExit) as ex:
         cli.main(["run", "--device", "cpu", *argv])

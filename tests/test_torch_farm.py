@@ -243,8 +243,9 @@ def test_fresh_freeze_hunt_matches_jax(fresh, fresh_cli):
 
 def test_farm_cli_summary_matches_jax(fresh, fresh_cli):
     """`scenario farm` exits 0 and prints the JAX driver's summary fields for
-    the same hunt; --mesh is a usage error until the sharded farm is
-    ported."""
+    the same hunt; a bad --mesh is a usage error, and a population the mesh
+    does not divide is refused (the mesh farm itself:
+    tests/test_torch_farm_mesh.py)."""
     jres, _, tout, _, _, flags = fresh
     rc, doc = fresh_cli
     want = {
@@ -259,10 +260,13 @@ def test_farm_cli_summary_matches_jax(fresh, fresh_cli):
     assert doc["out_dir"] == tout and doc["found"] and len(doc["dedup_rejected"]) == 1
     with pytest.raises(SystemExit) as ex:
         cli.main(["scenario", "farm", "--device", "cpu", *flags, "--out-dir", tout,
-                  "--mesh", "2"])
+                  "--mesh", "-1"])
     assert ex.value.code == 2
-    with pytest.raises(NotImplementedError, match="item 19"):
-        tfarm.run_farm(tconfig.RaftConfig(), tfarm.FarmSpec(), mesh=object(), device="cpu")
+    from raft_sim_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(ValueError, match="population 64 must divide over the mesh's 3"):
+        tfarm.run_farm(tconfig.RaftConfig(), tfarm.FarmSpec(),
+                       mesh=make_mesh(devices=["cpu"] * 3), device="cpu")
 
 
 def test_negative_hunt_matches_jax(negative):
