@@ -15,7 +15,8 @@ the start; any failure raises and exits non-zero):
    row runs on the card. PARITY_WORKERS worker processes, each with its
    own context on the card and a lower priority than nvcc, start before
    the build; the rows that time nothing -- phases 2, 2b and 3, serve (a),
-   trace (a), compact (a), (d) and (e), observe (b) and (e) -- run in them
+   trace (a), compact (a), (d) and (e), observe (b) and (e), and the CPU
+   and card legs of tools (b) and (c) -- run in them
    (those on the CPU alone beside the build), and all are done before
    phase 4 times anything (`parity_workers`' phase_end line). Their lines
    print in each phase's place and order.
@@ -239,6 +240,23 @@ the start; any failure raises and exits non-zero):
    card proves the partition, the key split, the padding, the exchange
    points and the multi-process control plane; not NCCL, nor copies
    between cards (`shard_phase`).
+4i. tools -- a sharded Session's planes and the tools tier (`tools_phase`):
+   (a) `run --devices 4 --telemetry-dir D --trace` at config6's batch
+   (1,000 x 64, windows of 32, trace depth 256, the four shards on the one
+   card) writes every file the
+   unsharded run writes, byte for byte, with the same summary and checker
+   verdict (all six properties ok); config9 at 1,000 through a 4-shard
+   Session's offer/offer_read returns the unsharded Session's dicts, state
+   and metrics; ms a tick both ways. (b) `device_parity_check` at its own
+   sizes: the card's five runs equal the CPU's (both legs in the parity
+   workers). (c) `repro.shrink` of the broken quorum (64 x 1,024, chunks of
+   256) equals the CPU's; `repro --corpus tests/corpus` exits 0 (both in the
+   parity workers). (d) `bench
+   --measurement-pass` (config3 and config5c, A/Bs on config2, the mesh leg
+   on config3; 4 ticks a row and 1 timed repeat, the matrix batches)
+   rendered by
+   `metrics_report --perf`, the anchor-eligible rows named, and
+   `traffic_audit --json` on config3 and config7x against it.
 5. bench_row -- the port's bench (raft_sim_tpu_torch/bench.py) on config2 at
    64 x 100 ticks, 3 quality seeds and 2 repeats, on the card and on the CPU:
    every quality field equal; the card's row carries backend "cuda", the
@@ -2085,6 +2103,14 @@ SHARD_T = 64  # shard (a), (b): ticks of the sharded runs and their references
 SHARD_SHARDS = 4  # shard (a), (b): shards on the one card
 SHARD_FARM = (64, 64, 32, 2)  # shard (d): population a shard, ticks, window, generations
 MULTIHOST_T = 32  # shard (c): ticks of the two-process check's workload
+TOOLS_RUN = (1_000, 64, 32, 256)  # tools (a): config6's batch, ticks, window, trace depth
+TOOLS_OFFERS = (1_000, 32, 16)  # tools (a): config9's batch, ticks before the offers, wait
+REPRO_RUN = (64, 1_024, 256)  # tools (c): the broken quorum's batch, ticks, chunk
+# tools (d): the measurement pass's rows cut to 4 ticks and 1 timed repeat
+# (the JAX pass's defaults: each row's preset ticks, 3 repeats); batches are
+# the matrix's.
+MEASURE = ["--configs", "config3,config5c", "--ab-preset", "config2", "--mesh-preset", "config3",
+           "--ticks", "4", "--repeats", "1"]
 
 
 def shard_devices(n: int) -> list:
@@ -2261,6 +2287,263 @@ def shard_phase(dev) -> list:
             "seconds": time.perf_counter() - t_row}
     emit(cell)
     cells.append(cell)
+    return cells
+
+
+def _device_parity_leg(name: str, device: str) -> tuple:
+    """tools (b): one device-parity config at its own size on `device`, in a
+    parity worker beside phase 2 (it times nothing); returns its leaves and
+    the kernel launches it made."""
+    from raft_sim_tpu_torch import device_parity_check
+    from raft_sim_tpu_torch.kernels import tick_engine
+
+    before = getattr(tick_engine.step_cuda, "launches", 0)
+    out = device_parity_check.leaves(name, device)
+    return out, getattr(tick_engine.step_cuda, "launches", 0) - before
+
+
+def _broken_quorum():
+    """The repro test's deliberately unsafe config: quorum one vote short."""
+    from raft_sim_tpu_torch.utils.config import RaftConfig
+
+    class BrokenQuorum(RaftConfig):
+        @property
+        def quorum(self):
+            return self.n_nodes // 2
+
+    return BrokenQuorum(n_nodes=5, drop_prob=0.3)
+
+
+def _repro_leg(device: str) -> tuple:
+    """tools (c), in a parity worker (it times nothing): `repro.shrink` of
+    the broken quorum on `device`, the kernel launches it made and its
+    seconds; on the card, then `repro --corpus tests/corpus` too (its exit
+    code, last line, launches and seconds)."""
+    from raft_sim_tpu_torch import repro
+    from raft_sim_tpu_torch.kernels import tick_engine
+
+    def launches():
+        return getattr(tick_engine.step_cuda, "launches", 0)
+
+    batch, ticks, chunk = REPRO_RUN
+    n0, t0 = launches(), time.perf_counter()
+    got = repro.shrink(_broken_quorum(), 1, batch, ticks, chunk=chunk, device=device)
+    shrink = (got, launches() - n0, time.perf_counter() - t0)
+    if device == "cpu":
+        return shrink, None
+    n0, t0 = launches(), time.perf_counter()
+    rc, text = _tool_main(repro.main, ["--corpus", os.path.join(HERE, "tests", "corpus"),
+                                       "--device", device])
+    return shrink, (rc, json.loads(text.strip().splitlines()[-1]), launches() - n0,
+                    time.perf_counter() - t0)
+
+
+def _sink_files(directory: str) -> dict:
+    """{name: bytes} of a telemetry directory's files, the manifest without
+    its creation time."""
+    out = {}
+    for name in sorted(os.listdir(directory)):
+        with open(os.path.join(directory, name), "rb") as f:
+            data = f.read()
+        if name == "manifest.json":
+            data = {k: v for k, v in json.loads(data).items() if k != "created_unix"}
+        out[name] = data
+    return out
+
+
+def _tool_main(main, argv) -> tuple:
+    """(exit code, stdout) of a package tool's `main(argv)`, in process (its
+    stderr, progress lines and tables, dropped)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
+        rc = main(argv)
+    return rc, buf.getvalue()
+
+
+def tools_phase(dev, legs) -> list:
+    """Phase 4i: a sharded Session's planes and the tools tier on the card.
+    (a) `run --devices 4 --telemetry-dir D --trace` at config6's batch
+    (TOOLS_RUN: 1,000 x 64, windows of 32, trace depth 256) on the one
+    card: every sink and trace file byte-equal to the unsharded run's (the
+    manifest but its creation time), the same summary line, the checker's
+    verdict equal and all six properties ok; launches 4 x 64 and 64; ms a
+    tick both ways.
+    Then config9 at 1,000 through a 4-shard Session's offer/offer_read
+    (after TOOLS_OFFERS' 32 ticks, waits of 16): every returned dict, the
+    state and the metrics equal the unsharded Session's. (b)
+    `device_parity_check` at its own sizes: the card's run of each of its
+    five configs equals the CPU's, every non-mailbox state leaf and metric
+    (both legs ran in the parity workers beside phase 2: they time
+    nothing). (c) `repro.shrink` of the broken quorum (REPRO_RUN: 64 x
+    1,024 in chunks of 256) on the card equals the CPU's, and `repro
+    --corpus tests/corpus` on the card exits 0 (all in the parity workers). (d) `bench --measurement-pass` (MEASURE: config3
+    and config5c, the A/Bs on config2, the mesh leg on config3, 4 ticks a
+    row, 1 timed repeat, the matrix batches) renders through `metrics_report
+    --perf`, with the anchor-eligible rows named; `traffic_audit --json` on
+    config3 and config7x against that document. Nothing here is caught.
+    Returns the cells whose launches count."""
+    import torch
+    from raft_sim_tpu_torch import __main__ as cli
+    from raft_sim_tpu_torch import device_parity_check, metrics_report, traffic_audit
+    from raft_sim_tpu_torch.driver import Session
+    from raft_sim_tpu_torch.kernels import tick_engine
+    from raft_sim_tpu_torch.parallel import mesh as mesh_mod
+    from raft_sim_tpu_torch.trace import checker
+    from raft_sim_tpu_torch.utils.config import PRESETS
+
+    cells = []
+    work = os.path.join(HERE, "raft_sim_tpu_torch", "build", "tools")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        tick_engine.step_cuda.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, tick_engine.step_cuda.launches
+
+    # ---- (a) the sharded planes: config6 traced over 4 shards, config9's offers ----
+    t_row = time.perf_counter()
+    batch, ticks, window, depth = TOOLS_RUN
+    argv = ["run", "--preset", "config6", "--batch", str(batch), "--ticks", str(ticks),
+            "--telemetry-window", str(window), "--trace", "--trace-depth", str(depth),
+            "--device", "cuda"]
+    runs = {}
+    for name, extra in (("unsharded", []), ("sharded", ["--devices", str(SHARD_SHARDS)])):
+        d = os.path.join(work, name)
+        out, wall, launches = counted(lambda: _cli([*argv, *extra, "--telemetry-dir", d]))
+        for k in ("wall_s", "cluster_ticks_per_s"):
+            out.pop(k)
+        runs[name] = (out, wall, launches, _sink_files(d), checker.check_directory(d).to_dict())
+    (out1, wall1, l1, files1, verdict1), (out4, wall4, l4, files4, verdict4) = (
+        runs["unsharded"], runs["sharded"])
+    if l1 != ticks or l4 != SHARD_SHARDS * ticks:
+        raise AssertionError(f"tools (a): launches {l1} unsharded, {l4} sharded for {ticks} ticks")
+    if files4 != files1:
+        raise AssertionError("tools (a): the sharded run's files differ: "
+                             f"{sorted(k for k in files1 if files1[k] != files4.get(k))}")
+    if out4 != out1:
+        raise AssertionError(f"tools (a): the sharded summary differs: {out4} != {out1}")
+    if verdict4 != verdict1 or not (verdict1["complete"] and verdict1["ok"]):
+        raise AssertionError(f"tools (a): checker verdicts {verdict1} / {verdict4}")
+    if out1["total_violations"]:
+        raise AssertionError(f"tools (a): {out1['total_violations']} violations")
+    cell = {"phase": "tools_sharded_planes", "preset": "tools-config6-sharded", "batch": batch,
+            "ticks": ticks, "window": window, "shards": SHARD_SHARDS, "trace_depth": depth,
+            "launches": l1 + l4, "launches_sharded": l4, "launches_unsharded": l1,
+            "files_equal": sorted(files1), "summary_equal": True, "checker": "all six ok",
+            "ms_per_tick_sharded": wall4 * 1e3 / ticks, "ms_per_tick_unsharded": wall1 * 1e3 / ticks,
+            "seconds": time.perf_counter() - t_row}
+    emit(cell)
+    cells.append(cell)
+
+    t_row = time.perf_counter()
+    batch, warm, wait = TOOLS_OFFERS
+    cfg9 = PRESETS["config9"][0]
+
+    def offers(devices):
+        sess = Session(cfg9, batch=batch, seed=SEED, device=dev, devices=devices)
+        sess.run(warm, chunk=warm)
+        got = [sess.offer(7, wait=wait), sess.offer_read(wait=wait), sess.offer(9, wait=wait),
+               sess.offer_read(wait=wait)]
+        return got, sess.state, sess.metrics, sess.now
+
+    (got1, st1, m1, now1), wall1, l1 = counted(lambda: offers(None))
+    (got4, st4, m4, now4), wall4, l4 = counted(lambda: offers(shard_devices(SHARD_SHARDS)))
+    if got4 != got1 or now4 != now1:
+        raise AssertionError(f"tools (a): sharded offers {got4} != unsharded {got1}")
+    check_equal(st1, st4, "tools (a): the offers' sharded state != unsharded")
+    check_equal(m1, m4, "tools (a): the offers' sharded metrics != unsharded")
+    if not (got1[0]["committed"] and got1[1]["served"]) or l1 != now1 or l4 != SHARD_SHARDS * now1:
+        raise AssertionError(f"tools (a): offers {got1}, launches {l1}/{l4} for {now1} ticks")
+    cell = {"phase": "tools_sharded_offers", "preset": "tools-config9-offers", "batch": batch,
+            "ticks": now1, "shards": SHARD_SHARDS, "offers": got1, "launches": l1 + l4,
+            "launches_sharded": l4, "launches_unsharded": l1, "equal": ["dicts", "state", "metrics"],
+            "ms_per_tick_sharded": wall4 * 1e3 / now1, "ms_per_tick_unsharded": wall1 * 1e3 / now1,
+            "seconds": time.perf_counter() - t_row}
+    emit(cell)
+    cells.append(cell)
+    del st1, st4, m1, m4
+    torch.cuda.empty_cache()
+
+    # ---- (b) the device parity check: the card against the CPU ------------------
+    # Both legs ran in the parity workers (they time nothing); the card's
+    # launches were counted there.
+    t_row = time.perf_counter()
+    result, launches = {}, 0
+    for name, (card_fut, cpu_fut) in legs["parity"].items():
+        card, n = card_fut.result()
+        launches += n
+        result[name] = device_parity_check.mismatches(card, cpu_fut.result()[0])
+    ticks = sum(t for *_, t in device_parity_check.CONFIGS.values())
+    if any(result.values()) or launches != ticks:
+        raise AssertionError(f"tools (b): {result}, {launches} launches for {ticks} ticks")
+    cell = {"phase": "tools_device_parity", "preset": "tools-device-parity",
+            "configs": {n: list(c[1:]) for n, c in device_parity_check.CONFIGS.items()},
+            "launches": 0, "launches_in_workers": launches, "mismatched": {}, "max_abs_err": 0,
+            "seconds": time.perf_counter() - t_row}
+    emit(cell)
+    cells.append(cell)
+
+    # ---- (c) repro: the broken quorum's shrink, the corpus replay ----------------
+    # Both ran in the parity workers (they time nothing).
+    t_row = time.perf_counter()
+    (got, launches, wall), (rc, last, launches_c, wall_c) = legs["repro"]["cuda"].result()
+    want = legs["repro"]["cpu"].result()[0][0]
+    brief = lambda r: r and {k: r[k] for k in ("cluster", "tick", "kinds")}  # noqa: E731
+    if got is None or got != want:
+        raise AssertionError(f"tools (c): the card's shrink {brief(got)} != the CPU's {brief(want)}")
+    if rc != 0 or last.get("reproduced") != last.get("artifacts"):
+        raise AssertionError(f"tools (c): repro --corpus exit {rc}: {last}")
+    cell = {"phase": "tools_repro", "preset": "tools-repro", "batch": REPRO_RUN[0],
+            "ticks": REPRO_RUN[1], "chunk": REPRO_RUN[2], "cluster": got["cluster"],
+            "tick": got["tick"], "kinds": got["kinds"], "equal_cpu": True,
+            "corpus": last, "launches": 0, "launches_in_workers": launches + launches_c,
+            "launches_shrink": launches, "launches_corpus": launches_c, "shrink_s": wall,
+            "corpus_s": wall_c, "seconds": time.perf_counter() - t_row}
+    emit(cell)
+    cells.append(cell)
+
+    # ---- (d) the measurement pass, its report, the traffic audit ----------------
+    t_row = time.perf_counter()
+    doc_path = os.path.join(work, "measurement.json")
+    (rc, _), wall, launches = counted(lambda: _tool_main(cli.main, [
+        "bench", "--measurement-pass", *MEASURE, "--device", "cuda", "--out", doc_path]))
+    with open(doc_path) as f:
+        doc = json.load(f)
+    rc_r, report = _tool_main(metrics_report.main, ["--perf", doc_path])
+    rc_a, audit = _tool_main(traffic_audit.main, ["--configs", "config3,config7x", "--json",
+                                                  "--measurement", doc_path])
+    if rc or rc_r or rc_a or doc["backend"] != "cuda" or "mesh scaling" not in report:
+        raise AssertionError(f"tools (d): exits {rc}/{rc_r}/{rc_a}")
+    if launches <= 0 or any(r.get("violations") for r in doc["matrix"].values()):
+        raise AssertionError(f"tools (d): {launches} launches")
+    rec = doc["reconciliation"]
+    cell = {"phase": "tools_measurement", "preset": "tools-measurement-pass", "argv": MEASURE,
+            "launches": launches, "wall_s": wall,
+            "matrix": {n: {k: r[k] for k in ("batch", "ticks", "steady_ticks_per_s",
+                                               "repeat_walls_s")}
+                       for n, r in doc["matrix"].items()},
+            "ab": {k: (v or {}).get("on_over_off_ticks_per_s") for k, v in doc["ab"].items()},
+            "mesh_ticks_per_s": {k: r["cluster_ticks_per_s"]
+                                 for k, r in doc["mesh_scaling"]["rows"].items()},
+            "reconciliation": [{k: r[k] for k in ("config", "measured_ticks_per_s",
+                                                  "predicted_roofline_ticks_per_s",
+                                                  "roofline_fraction", "anchor")}
+                               for r in rec["rows"]],
+            "anchor_eligible": rec["anchor_eligible"], "report_lines": len(report.splitlines()),
+            "traffic_audit": [{k: r.get(k) for k in ("config", "packed_logical", "k1_read",
+                                                     "k1_written", "recorded_ticks_per_s")}
+                              for r in json.loads(audit)],
+            "seconds": time.perf_counter() - t_row}
+    emit(cell)
+    cells.append(cell)
+    shutil.rmtree(work, ignore_errors=True)
     return cells
 
 
@@ -2469,6 +2752,16 @@ def main() -> int:
         compact_cpu_futs = [parity_pool.submit(_compact_cpu_row, name, batch)
                             for name, batch in (("config5c", 16), ("config7x", 4))]
         scan_fut = parity_pool.submit(_compact_scan_runs)
+        # tools (b) and (c)'s legs on the card and on the CPU: the device
+        # parity configs at their own sizes, the repro shrink and the corpus
+        # replay. The CPU legs wait for the build, whose two nvcc runs take
+        # every core.
+        from raft_sim_tpu_torch import device_parity_check
+
+        tools_legs = {"parity": {name: tuple(parity_pool.submit(_device_parity_leg, name, d)
+                                             for d in ("cuda", "cpu"))
+                                 for name in device_parity_check.CONFIGS},
+                      "repro": {d: parity_pool.submit(_repro_leg, d) for d in ("cuda", "cpu")}}
         parity_phases(parity_pool, proxy_build, t_start)
         trace_a = [f.result() for f in trace_futs]
         served = [f.result() for f in served_futs]
@@ -2477,6 +2770,9 @@ def main() -> int:
                         "bench": {d: f.result() for d, f in bench_legs.items()},
                         "scan": scan_fut.result()}
         obs_legs = {d: f.result() for d, f in obs_legs.items()}
+        for fut in (*(f for pair in tools_legs["parity"].values() for f in pair),
+                    *tools_legs["repro"].values()):
+            fut.result()
     finally:
         parity_pool.shutdown(cancel_futures=True)
         pool.shutdown()
@@ -2613,6 +2909,12 @@ def main() -> int:
         cells.append(cell)
         total_launches += cell["launches"]
     emit({"phase": "phase_end", "name": "shard", "seconds": time.perf_counter() - t_start})
+
+    # ---- 4i: the sharded planes and the tools tier ---------------------------------
+    for cell in tools_phase(dev, tools_legs):
+        cells.append(cell)
+        total_launches += cell["launches"]
+    emit({"phase": "phase_end", "name": "tools", "seconds": time.perf_counter() - t_start})
 
     # ---- 5: the port's bench row, card vs CPU -----------------------------------
     cfg2 = PRESETS["config2"][0]

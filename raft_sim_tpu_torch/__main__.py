@@ -12,9 +12,25 @@ artifacts) and the fuzzing farm (farm/). `run` and `serve` take --perf (the
 chunk timer, obs/) and --health (the SLO monitors, health/); they and
 `scenario search|farm` take --profile DIR (a torch.profiler trace).
 `bench` is the port of bench.py (bench.py in
-this package): one JSON document of bench rows. The default device is the
-card; with none present `run`, `serve` and `bench` fail rather than running
-on the CPU (pass --device cpu for that); so does `scenario`.
+this package): one JSON document of bench rows, or with --measurement-pass
+--out P the measurement pass (the A/B pairs, the mesh-scaling leg and the
+reconciliation against the card's roofline for K1's bytes). `run --devices
+N` shards the fleet, telemetry, trace and offers included. The default
+device is the card; with none present `run`, `serve` and `bench` fail
+rather than running on the CPU (pass --device cpu for that); so does
+`scenario`.
+
+The tools run as modules of the package, each on the card unless given
+--device cpu where it runs a tick:
+  python -m raft_sim_tpu_torch.repro                the first violation of a seeded run;
+                                                    --scenario/--corpus replay artifacts
+  python -m raft_sim_tpu_torch.metrics_report       render, validate and diff telemetry
+                                                    directories and measurement documents
+  python -m raft_sim_tpu_torch.device_parity_check  the card against the CPU, bit for bit
+  python -m raft_sim_tpu_torch.traffic_audit        bytes per cluster-tick, leaf by leaf
+  python -m raft_sim_tpu_torch.multihost_check      two processes against one run
+  python -m raft_sim_tpu_torch.kernel_times         the kernel's time per cell (the card)
+  python -m raft_sim_tpu_torch.profile              a torch.profiler trace of a run
 """
 
 from __future__ import annotations
@@ -27,7 +43,9 @@ from raft_sim_tpu_torch.utils.config import PRESETS
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(prog="python -m raft_sim_tpu_torch")
+    ap = argparse.ArgumentParser(
+        prog="python -m raft_sim_tpu_torch", formatter_class=argparse.RawDescriptionHelpFormatter,
+        epilog="tools: " + __doc__[__doc__.index("The tools run"):])
     sub = ap.add_subparsers(dest="cmd", required=True)
     run_p = sub.add_parser("run", help="simulate a batch of clusters")
     driver.add_run_arguments(run_p)

@@ -28,24 +28,40 @@ in the matrix) runs a multi-tenant `ServeSession` under saturating load and
 counts commands+reads/s, the service's unit of work; its `"perf"` is the
 session's chunk-timer rollup (obs/timer.py, label "serve-bench").
 
-Not ported: the measurement pass and its mesh leg, the roofline-pin fields
-and the serve row's `reconciliation` (always None): they join rows to the
-JAX cost model's TPU prices, which are no yardstick for the card.
+The serve row's `reconciliation` and the measurement pass's join measured
+rows to the card's roofline for K1's own traffic (obs/reconcile.py), never
+to the JAX cost model's TPU pins.
+
+The measurement pass (`measurement_pass`, `bench --measurement-pass --out
+P`) is the standing matrix (or `--configs`), the A/B pairs (the fault
+lattice and the serve offer plane on `--ab-preset`, dense vs compacted
+carry layout on config5/config5c, durability on config10,
+transfer-during-joint on config8), the strong-scaling leg over the cluster
+mesh (`--mesh-preset`, one global batch at 1/2/4/8 shards) and the
+reconciliation of every row, written to P (required: the port writes no
+MEASUREMENT_r*.json of its own). On a CPU device it shrinks to smoke sizing
+(`--full` forces production sizing) and every row is non-anchor. Two JAX
+legs compare against the JAX package's TPU records and are left out, as
+null with a note: `bitpack_vs_r05` (the archived BENCH_r05 rows) and
+`trajectory` (the BENCH_r*.json history).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import re
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
+from raft_sim_tpu_torch.obs import reconcile
 from raft_sim_tpu_torch.sim import scan
 from raft_sim_tpu_torch.summary import summarize
 from raft_sim_tpu_torch.utils import device as device_mod
@@ -91,8 +107,20 @@ MATRIX = (
 )
 NOT_PORTED: dict[str, str] = {}
 SERVE_PRESET = "config9"  # the serve row's read-carrying preset (bench.py main)
-# bench.py's TPU artifacts; cost_model reads these names.
-_RESERVED_OUT = re.compile(r"BENCH_r\d+\.json")
+# bench.py's TPU artifacts (cost_model reads these names) and the JAX
+# measurement pass's documents.
+_RESERVED_OUT = re.compile(r"(BENCH|MEASUREMENT)_r\d+\.json")
+# Schema tag of the port's measurement-pass document; metrics_report --perf
+# renders only documents that carry it.
+MEASUREMENT_SCHEMA = "measurement-pass-torch-v1"
+# The JAX legs the port leaves out: both compare against TPU records.
+LEFT_OUT = {
+    "bitpack_vs_r05": "left out: it compares this pass with the archived BENCH_r05 rows, "
+                      "measured on a TPU; a ratio across backends means nothing",
+    "trajectory": "left out: it draws the BENCH_r*.json history, measured on a TPU; a "
+                  "ratio across backends means nothing",
+}
+MESH_WIDTHS = (1, 2, 4, 8)
 
 
 def _matrix_sizing(name: str, smoke: bool) -> tuple[int, int]:
@@ -125,6 +153,13 @@ def _pool(runs: list[scan.RunMetrics]) -> scan.RunMetrics:
     """Per-cluster metrics of several runs as one [sum of batches] RunMetrics."""
     return scan.RunMetrics(*(torch.cat([getattr(m, f).cpu() for m in runs])
                              for f in scan.RunMetrics._fields))
+
+
+def _sync(dev: torch.device, metrics) -> None:
+    """Wait for a run on `dev` to finish: a synchronize, then a host copy."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    metrics.ticks.cpu().numpy()  # a host copy: the data is there
 
 
 def bench(cfg: RaftConfig, batch: int, ticks: int, repeats: int = 3,
@@ -172,10 +207,7 @@ def bench(cfg: RaftConfig, batch: int, ticks: int, repeats: int = 3,
     walls = []
     for r in range(1, repeats + 1):
         t0 = time.perf_counter()
-        _, metrics = sim(seed_base + r)
-        if on_card:
-            torch.cuda.synchronize(dev)
-        metrics.ticks.cpu().numpy()  # a host copy: the data is there
+        _sync(dev, sim(seed_base + r)[1])
         walls.append(time.perf_counter() - t0)
     best = min(walls)
     steady_walls = walls[1:] if len(walls) > 1 else walls
@@ -199,7 +231,7 @@ def bench(cfg: RaftConfig, batch: int, ticks: int, repeats: int = 3,
         "repeat_walls_s": [round(w, 4) for w in walls],
         "repeat_cv": steady_cv,
         "backend": dev.type,
-        "layout": "compact" if cfg.compact_planes else "dense",
+        "layout": reconcile.layout_of(cfg),
         "batch": batch,
         "n_nodes": cfg.n_nodes,
         "ticks": ticks,
@@ -278,13 +310,15 @@ def serve_row(sess, stats: dict, preset: str, tenants_n: int, smoke: bool) -> di
                                if steady_s > 0 else None),
         "wall_s": wall,
         "perf": stats.get("perf"),
-        "reconciliation": None,
     }
     if sess.device.type == "cuda":
         row["device"] = torch.cuda.get_device_name(sess.device)
         row["nvidia_smi"] = card_line()
         row["extract_ms_per_round"] = (sum(sess.extract_ms) / len(sess.extract_ms)
                                        if sess.extract_ms else None)
+    # Priced on K1's bytes under the serve-mode config (obs/reconcile.py).
+    row["reconciliation"] = reconcile.reconcile_row(
+        preset, row, reconcile.load_pins(configs=[preset]), program="serve_simulate")
     return row
 
 
@@ -306,6 +340,217 @@ def serve_bench(preset: str = SERVE_PRESET, batch: int | None = None, chunks: in
                         warmup_ticks=chunk, tenants=serve_tenants(batch, tenants_n),
                         perf=ChunkTimer(label="serve-bench", batch=batch), device=device)
     return serve_row(sess, sess.serve(chunks=chunks), preset, tenants_n, smoke)
+
+
+def _ab_pair(label: str, off_row: dict, on_row: dict, notes: list[str]) -> dict:
+    """One A/B arm: both rows and the steady throughput ratio on/off (< 1:
+    the feature costs throughput; 1.0: free)."""
+    off_v = off_row.get("steady_ticks_per_s") or off_row.get("cluster_ticks_per_s")
+    on_v = on_row.get("steady_ticks_per_s") or on_row.get("cluster_ticks_per_s")
+    return {
+        "label": label,
+        "off": off_row,
+        "on": on_row,
+        "on_over_off_ticks_per_s": round(on_v / off_v, 4) if on_v and off_v else None,
+        "notes": notes,
+    }
+
+
+def _homogeneous(cfg: RaftConfig, name: str = "homogeneous-from-config"):
+    """The scenario path under `cfg`'s own homogeneous genome (bit-exact
+    with the plain input path)."""
+    from raft_sim_tpu_torch.scenario import genome as genome_mod
+
+    return SimpleNamespace(genome=genome_mod.from_config(cfg), seg_len=1, name=name)
+
+
+def _mesh_scaling_leg(name: str, smoke: bool, repeats: int, dev: torch.device,
+                      ticks: int | None = None) -> dict:
+    """Strong scaling over the cluster mesh: ONE global batch sharded over
+    1/2/4/8 shards through parallel.simulate_windowed_sharded. The shards are
+    dealt over the cards there are (parallel/mesh.mesh_devices; the CPU is
+    one device), so where there are fewer cards than shards, shards share a
+    card: on a one-card machine every width runs on that card, and the
+    ratio prices the partition's host cost, not more silicon. Trajectories
+    are equal at every width (keys split before sharding), so the quality
+    fields are too. Every row carries `n_devices` (its shard count): rows
+    above 1 are non-anchor in the reconciliation."""
+    from raft_sim_tpu_torch.parallel import mesh as mesh_mod
+
+    cfg, _ = PRESETS[name]
+    batch, n = _matrix_sizing(name, smoke)
+    batch = max(8, batch - batch % 8)  # one global batch, divisible at 8 shards
+    window = max(1, (ticks or n) // 4)
+    ticks = window * 4
+    n_cards = len(mesh_mod.mesh_devices()) if dev.type == "cuda" else 1
+    notes = [
+        f"fixed global batch {batch}: strong scaling -- the per-shard slice shrinks with the "
+        "shard count, the work does not",
+        f"{n_cards} device(s) of {dev.type}: shards beyond the device count share a device, "
+        "so a width above it measures the partition's cost on shared silicon, not added "
+        "silicon",
+        "rows carry n_devices (the shard count); rows above 1 are non-anchor "
+        "(obs/reconcile.non_anchor_reasons)",
+    ]
+    rows = {}
+    for d in MESH_WIDTHS:
+        mesh = mesh_mod.dealt_mesh(d, dev)
+        print(f"measurement mesh_scaling {name}: {d} shards...", file=sys.stderr)
+        t0 = time.perf_counter()
+        out = mesh_mod.simulate_windowed_sharded(cfg, 0, batch, ticks, window, mesh)
+        _sync(dev, out[1])
+        compile_s = time.perf_counter() - t0
+        walls = []
+        for _ in range(max(1, repeats)):
+            t0 = time.perf_counter()
+            timed = mesh_mod.simulate_windowed_sharded(cfg, 0, batch, ticks, window, mesh)
+            _sync(dev, timed[1])
+            walls.append(time.perf_counter() - t0)
+        best = min(walls)
+        s = summarize(out[1])
+        row = {
+            "n_devices": d,
+            "devices_used": min(d, n_cards),
+            "batch": batch,
+            "ticks": ticks,
+            "window": window,
+            "smoke": smoke,
+            "backend": dev.type,
+            "layout": reconcile.layout_of(cfg),
+            "compile_s": round(compile_s, 3),
+            "wall_s": round(best, 4),
+            "cluster_ticks_per_s": round(batch * ticks / best, 1),
+            "steady_ticks_per_s": round(batch * ticks / best, 1),
+            "violations": s.total_violations,
+            "total_cmds": s.total_cmds,
+            "p50_stable_tick": s.p50_stable_tick,
+            "lat_p50": s.lat_p50,
+            "multi_leader": s.multi_leader,
+        }
+        reasons = reconcile.non_anchor_reasons(name, row, dev.type)
+        row["anchor"] = not reasons
+        row["non_anchor_reasons"] = reasons
+        rows[f"{d}dev"] = row
+    base = rows["1dev"]["cluster_ticks_per_s"]
+    return {
+        "label": f"{name}: one global batch across 1/2/4/8 shards",
+        "config": name,
+        "rows": rows,
+        "speedup_vs_1dev": {k: round(v["cluster_ticks_per_s"] / base, 3) for k, v in rows.items()},
+        "notes": notes,
+    }
+
+
+def measurement_pass(configs=None, ab_preset: str = "config3", mesh_preset: str = "config3",
+                     repeats: int = 3, smoke: bool = False, full: bool = False,
+                     ticks: int | None = None, device="cuda") -> dict:
+    """The measurement pass as one call (the port of bench.py
+    `measurement_pass`): the standing matrix (or `configs`), the A/B pairs,
+    the mesh-scaling leg and the reconciliation of every row against the
+    card's roofline for K1's traffic; returns the document (the CLI writes
+    it to --out). On a CPU device it runs at smoke sizing unless `full`.
+    `ticks` cuts every row's ticks (never its batch) where a run must fit a
+    time limit; the document records the cut."""
+    dev = device_mod.resolve(device)
+    smoke = smoke or (dev.type == "cpu" and not full)
+    configs = list(configs) if configs else list(MATRIX)
+    for c in (*configs, ab_preset, mesh_preset):
+        if c not in PRESETS:
+            raise ValueError(f"unknown preset {c!r}")
+
+    def row(name, cfg=None, **kw):
+        batch, n = _matrix_sizing(name, smoke)
+        return bench(cfg or PRESETS[name][0], batch, ticks or n, repeats, config_name=name,
+                     smoke=smoke, device=dev, **kw)
+
+    matrix = {}
+    for name in configs:
+        print(f"measurement {name}...", file=sys.stderr)
+        matrix[name] = row(name)
+    ab_cfg = PRESETS[ab_preset][0]
+    plain = matrix.get(ab_preset) or row(ab_preset)
+    print(f"measurement A/B fault lattice and serve offer plane ({ab_preset})...",
+          file=sys.stderr)
+    lattice = row(ab_preset, scenario=_homogeneous(ab_cfg))
+    serve_on = row(ab_preset, dataclasses.replace(ab_cfg, serve_ingest=True))
+    serve_on["config_variant"] = "serve_ingest=True"
+    if "config5" in matrix and "config5c" in matrix:
+        layout_ab = _ab_pair(
+            "config5: dense vs compacted carry layout (config5c)", matrix["config5"],
+            matrix["config5c"],
+            ["trajectories are bit-exact across the two arms (the layout is physical only, "
+             "ops/tile.py); K1 ticks the dense view of both, so the ratio prices the "
+             "unpack/repack boundary (tick_engine.step_cuda)"])
+    else:
+        layout_ab = {"label": "config5: dense vs compacted carry layout",
+                     "notes": ["skipped: the matrix dropped config5 and/or config5c"]}
+    print("measurement A/B transfer-during-joint (config8)...", file=sys.stderr)
+    from raft_sim_tpu_torch.scenario import genome as genome_mod
+
+    xj_cfg = PRESETS["config8"][0]
+    xj_plain = row("config8", scenario=_homogeneous(xj_cfg))
+    xj_on = row("config8", scenario=SimpleNamespace(
+        genome=genome_mod.from_segments([genome_mod.segment(
+            drop_prob=xj_cfg.drop_prob, crash_prob=xj_cfg.crash_prob,
+            crash_down_ticks=xj_cfg.crash_down_ticks, client_interval=xj_cfg.client_interval,
+            reconfig_interval=24, transfer_interval=5, read_interval=xj_cfg.read_interval)]),
+        seg_len=1, name="xfer-joint"))
+    print("measurement A/B durability (config10)...", file=sys.stderr)
+    dur_cfg = PRESETS["config10"][0]
+    dur_on = row("config10")
+    dur_off = row("config10", dataclasses.replace(
+        dur_cfg, fsync_interval=0, fsync_jitter_prob=0.0, torn_tail_prob=0.0,
+        lost_suffix_span=1))
+    dur_off["config_variant"] = "fsync_interval=0 (storage plane off)"
+    mesh_scaling = _mesh_scaling_leg(mesh_preset, smoke, repeats, dev, ticks)
+    reconciliation = reconcile.reconcile_matrix(
+        {"matrix": {**matrix, "config8": xj_plain, "config8/xfer-joint": xj_on,
+                    "config10": dur_on, "config10/durability-off": dur_off}},
+        default_backend=dev.type)
+    doc = {
+        "schema": MEASUREMENT_SCHEMA,
+        "created_unix": int(time.time()),
+        "backend": dev.type,
+        "torch_version": torch.__version__,
+        "smoke": smoke,
+        "repeats": repeats,
+        "ticks_cut": ticks,
+        "matrix": matrix,
+        "ab": {
+            "bitpack_vs_r05": None,
+            "fault_lattice": _ab_pair(
+                f"{ab_preset}: plain vs scenario-path homogeneous genome", plain, lattice,
+                ["trajectories are bit-exact across the two arms (the homogeneous genome "
+                 "reproduces the plain input path); the ratio prices the genome-path draws"]),
+            "serve_offer_plane": _ab_pair(
+                f"{ab_preset}: plain vs serve_ingest=True (plane legs live, no offered "
+                "traffic)", plain, serve_on,
+                ["prices the offer-tick plane's carry legs the serve mode keeps live "
+                 "(traffic_audit --serve counts them)"]),
+            "layout_dense_vs_compact": layout_ab,
+            "durability": _ab_pair(
+                "config10: storage plane off (fsync_interval=0) vs on (fsync@3 + jitter/torn "
+                "disk faults)", dur_off, dur_on,
+                ["the off arm is config10 with the durable-storage gate off: K1 leaves the "
+                 "watermark legs untouched, so the ratio prices the plane itself",
+                 "the off arm is not the preset's config: it carries config_variant"]),
+            "transfer_during_joint": _ab_pair(
+                "config8: homogeneous cadences (reconfig@97/transfer@61) vs forced "
+                "transfer-during-joint overlap (reconfig@24/transfer@5)", xj_plain, xj_on,
+                ["both arms ride the scenario input path, so the ratio prices the "
+                 "joint-phase/transfer contention itself",
+                 "scenario rows: neither arm can anchor config8's roofline"]),
+        },
+        "mesh_scaling": mesh_scaling,
+        "reconciliation": reconciliation,
+        "trajectory": None,
+        "left_out": dict(LEFT_OUT),
+        "notes": [f"{k}: {v}" for k, v in LEFT_OUT.items()],
+    }
+    if dev.type == "cuda":
+        doc["device"] = torch.cuda.get_device_name(dev)
+        doc["nvidia_smi"] = card_line()
+    return doc
 
 
 def add_arguments(ap: argparse.ArgumentParser) -> None:
@@ -334,13 +579,56 @@ def add_arguments(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--scenario", default=None, metavar="FILE",
                     help="run the row on the scenario input path under this nemesis "
                          "program (scenario/program.py schema); needs --preset")
+    ap.add_argument("--measurement-pass", action="store_true",
+                    help="the one-command measurement pass: the matrix, the A/B pairs, the "
+                         "mesh-scaling leg and the reconciliation against the card's roofline "
+                         "for K1's bytes, written to --out (required); smoke sizing on the CPU")
+    ap.add_argument("--full", action="store_true",
+                    help="with --measurement-pass: production sizing even on the CPU")
+    ap.add_argument("--configs", default=None, metavar="A,B,...",
+                    help="with --measurement-pass: the matrix rows (default: every row)")
+    ap.add_argument("--ab-preset", default="config3", metavar="NAME",
+                    help="with --measurement-pass: the preset of the fault-lattice and "
+                         "serve-plane A/Bs (default config3)")
+    ap.add_argument("--mesh-preset", default="config3", metavar="NAME",
+                    help="with --measurement-pass: the preset the mesh-scaling leg runs at "
+                         "one global batch over 1/2/4/8 shards (default config3)")
     ap.add_argument("--device", default="cuda")
+
+
+def _measurement(ap: argparse.ArgumentParser, args) -> int:
+    """`bench --measurement-pass --out P`: the pass's document to P and a
+    one-line headline to stdout."""
+    if args.preset or args.scenario or args.batch or args.serve:
+        ap.error("--measurement-pass runs the standard matrix sizing; it is exclusive with "
+                 "--preset/--scenario/--batch/--serve (use --configs/--ab-preset/--full)")
+    if not args.out:
+        ap.error("--measurement-pass needs --out PATH (the port writes no MEASUREMENT_r*.json "
+                 "of its own)")
+    configs = [c.strip() for c in args.configs.split(",") if c.strip()] if args.configs else None
+    try:
+        doc = measurement_pass(configs, ab_preset=args.ab_preset, mesh_preset=args.mesh_preset,
+                               repeats=args.repeats, smoke=args.smoke, full=args.full,
+                               ticks=args.ticks, device=args.device)
+    except ValueError as ex:
+        ap.error(str(ex))
+    with open(args.out, "w") as f:
+        json.dump(doc, f, indent=1)
+        f.write("\n")
+    anchored = ", ".join(doc["reconciliation"]["anchor_eligible"]) or "none"
+    per_cfg = " ".join(f"{n}={r.get('steady_ticks_per_s', 0):g}" for n, r in doc["matrix"].items())
+    print(f"measurement pass [{doc['backend']}{' smoke' if doc['smoke'] else ''}]: {per_cfg} | "
+          f"anchor-eligible rows: {anchored} | render: python -m "
+          f"raft_sim_tpu_torch.metrics_report --perf {args.out}")
+    return 0
 
 
 def run(ap: argparse.ArgumentParser, args) -> int:
     if args.out and _RESERVED_OUT.fullmatch(os.path.basename(args.out)):
-        ap.error(f"--out {args.out}: BENCH_r<N>.json files are the JAX package's "
-                 "TPU artifacts; name the port's document otherwise")
+        ap.error(f"--out {args.out}: BENCH_r<N>.json and MEASUREMENT_r<N>.json files are the "
+                 "JAX package's artifacts; name the port's document otherwise")
+    if args.measurement_pass:
+        return _measurement(ap, args)
     if args.serve:
         print(json.dumps(serve_bench(args.serve_preset, batch=args.batch,
                                      chunks=args.serve_chunks, smoke=args.smoke,

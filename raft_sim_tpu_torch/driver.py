@@ -18,11 +18,16 @@ package's file format):
 A Session runs on the card unless it is given device="cpu". It keeps the
 lockstep tick `now` on the host, so a run reads nothing back per chunk but
 what the apply log and the progress line ask for. `devices=N` splits the
-cluster batch over N shards (parallel/mesh.py: the first N cards, or N
+cluster batch over N shards (parallel/mesh.py: dealt over the cards in
+turn, so they share a card where there are fewer cards than shards, or N
 shards on the CPU; a list names the devices): each shard's state, keys and
 metrics stay on its device between chunks, its ticks interleaved with the
 others', and `summary()`, `save()` and the `state` attribute gather the
-shards in cluster order. Trajectories are the same at any shard count.
+shards in cluster order. Every plane runs sharded: each shard runs its own
+windowed loop under a telemetry sink (its flight recorder and trace carry
+stay on its device), the window records, trace windows and flights reach
+the sink gathered in cluster order, and the offers tick each shard.
+Trajectories and files are the same at any shard count.
 
 `add_run_arguments` / `run` are the CLI's `run` subcommand: --preset, one
 flag per RaftConfig field (`add_config_flags`, `build_config`), --batch,
@@ -79,9 +84,8 @@ class Session:
     the trace plane, the chunk timer and the health plane.
 
     `devices` (None, an int N, a list of devices or a parallel Mesh) shards
-    the cluster batch (module docstring). A sharded Session runs the plain
-    chunked path, with the apply log, the chunk timer and the health plane;
-    the telemetry sink, the trace plane and the offers are refused on it."""
+    the cluster batch (module docstring); every verb runs on a sharded
+    Session as on an unsharded one, with the same results."""
 
     def __init__(self, cfg: RaftConfig, batch: int = 1, seed: int = 0, device="cuda",
                  devices=None):
@@ -92,15 +96,15 @@ class Session:
         self.devices = devices
         self.apply_writer = None
         self.telemetry = None  # TelemetrySink (attach_telemetry)
-        self._tel_rec = None  # the flight recorder's carry (batch-minor)
+        self._tel_recs = None  # the flight recorder's carry per shard (batch-minor)
         self._deltas = None  # serve.deltas.DeltaStream: offer()'s ack watcher
         self._trace_spec = None  # trace.TraceSpec (attach_trace)
-        self._trace_persist = None  # the trace plane's cross-chunk carry (batch-minor)
+        self._trace_persists = None  # the trace plane's cross-chunk carry per shard
         self._trace_trigger = None  # the flight recorder's event-kind trigger
         self.perf = None  # obs.ChunkTimer (attach_perf)
         self.health = None  # health.HealthMonitor (attach_health)
         self._health_args = None  # (spec, directory) for reset's re-attach
-        self._live_rec = None  # this chunk's recorder (the health evidence hook)
+        self._live_recs = None  # this chunk's recorders (the health evidence hook)
         self.reset()
 
     def reset(self) -> None:
@@ -121,12 +125,12 @@ class Session:
                                   ring=self.telemetry.ring)
         # The re-attach truncated the trace files: re-arming rewrites the meta
         # and starts the cross-window carry over.
-        self._trace_persist = None
+        self._trace_persists = None
         if self._trace_spec is not None and self.telemetry is not None:
             self.telemetry.write_trace_meta(self._trace_spec)
         if self.perf is not None:
             self.attach_perf(warmup_chunks=self.perf.warmup_chunks)
-        self._live_rec = None
+        self._live_recs = None
         if self._health_args is not None:
             self.attach_health(*self._health_args)
 
@@ -134,6 +138,8 @@ class Session:
     # `_state`, `_keys` and `_metrics` hold the shards' slices, each on its
     # device (one shard when unsharded); the attributes `state`, `keys` and
     # `metrics` gather them (reads) or split a whole-fleet value (writes).
+    # `_tel_recs` and `_trace_persists` hold the batch-minor carries the same
+    # way, gathered by `_tel_rec` and `_trace_persist`.
 
     def _apply_sharding(self) -> None:
         """Validate `devices` and split the fleet over its shards (the JAX
@@ -155,10 +161,10 @@ class Session:
         self._mesh = mesh if mesh.size > 1 else None
         self.state, self.keys, self.metrics = whole
 
-    def _split(self, tree) -> list:
+    def _split(self, tree, dim: int = 0) -> list:
         if self._mesh is None:
             return [tree]
-        return [mesh_mod.take(tree, lo, hi, device=dev)
+        return [mesh_mod.take(tree, lo, hi, dim=dim, device=dev)
                 for dev, lo, hi in mesh_mod.shard_rows(self.batch, self._mesh)]
 
     @property
@@ -185,10 +191,18 @@ class Session:
     def metrics(self, value):
         self._metrics = self._split(value)
 
-    def _refuse_sharded(self, what: str) -> None:
-        if self._mesh is not None:
-            raise ValueError(f"{what} is not available on a sharded Session (devices="
-                             f"{self.devices!r}): it runs the plain chunked path only")
+    @property
+    def _tel_rec(self):
+        return None if self._tel_recs is None else mesh_mod.concat(self._tel_recs, dim=-1)
+
+    @_tel_rec.setter
+    def _tel_rec(self, value):
+        self._tel_recs = None if value is None else self._split(value, dim=-1)
+
+    @property
+    def _trace_persist(self):
+        tps = self._trace_persists
+        return None if tps is None else mesh_mod.concat(tps, dim=-1)
 
     def attach_apply_log(self, directory: str, cluster: int = 0) -> None:
         """Stream cluster `cluster`'s committed values to
@@ -209,7 +223,6 @@ class Session:
         the flights and the summary at the end."""
         from raft_sim_tpu_torch.utils.telemetry_sink import TelemetrySink
 
-        self._refuse_sharded("the telemetry sink")
         if window < 1:
             raise ValueError(f"telemetry window must be >= 1, got {window}")
         if ring < 0:
@@ -248,7 +261,7 @@ class Session:
         self._trace_spec = TraceSpec(depth=depth, coverage=coverage,
                                      freeze_kind=kind_code(freeze, "freeze") or 0)
         self._trace_trigger = kind_code(trigger, "trigger")
-        self._trace_persist = None
+        self._trace_persists = None
         self.telemetry.write_trace_meta(self._trace_spec)
 
     def attach_perf(self, warmup_chunks: int | None = None) -> None:
@@ -288,7 +301,8 @@ class Session:
         """The monitor's evidence hook: the triaged clusters' live flight
         rings (telemetry path with a ring; the plain path gives refs only)."""
         flights = {}
-        rec = self._live_rec if self._live_rec is not None else self._tel_rec
+        recs = self._live_recs if self._live_recs is not None else self._tel_recs
+        rec = None if recs is None else mesh_mod.concat(recs, dim=-1)
         if rec is not None:
             for c in clusters:
                 flights[int(c)] = telemetry.export_cluster(rec, int(c))
@@ -303,55 +317,53 @@ class Session:
         row a chunk; an armed health monitor observes each chunk's windows
         (the plain path: its metric deltas)."""
 
-        def after_chunk(done, state, metrics):
+        def after_chunk(done, states, metrics):
+            # The shards gathered where read: the metrics, and the state for
+            # the apply log.
+            metrics = mesh_mod.concat(metrics)
+            if self.health is not None and self.telemetry is None:
+                # The chunk is the plain path's window.
+                self.health.observe_chunk(done, metrics)
             if self.apply_writer is not None:
-                self.apply_writer.update(state)
+                self.apply_writer.update(mesh_mod.concat(states))
             if progress:
                 v = int(metrics.violations.sum())
                 print(f"  {done}/{n_ticks} ticks, violations={v}", file=sys.stderr)
             return False
 
         if self.telemetry is not None:
-            def cb_t(done, state, metrics, records):
+            def cb_t(done, states, metrics, records):
                 if self.health is not None:
                     # One host copy, read by the sink and the monitor alike.
                     records = device_mod.host_numpy(*device_mod.to_host_async(records))
                 self.telemetry.append_windows(records)
                 if self.health is not None:
                     self.health.observe_records(records)
-                return after_chunk(done, state, metrics)
+                return after_chunk(done, states, metrics)
 
-            def hook(done, rec):
-                # A firing alert snapshots this chunk's carried recorder.
-                self._live_rec = rec
+            def hook(done, recs):
+                # A firing alert snapshots this chunk's carried recorders
+                # (none with ring=0).
+                self._live_recs = recs if recs[0] is not None else None
 
             out = telemetry.run_chunked_telemetry(
-                self.cfg, self.state, self.keys, n_ticks, window=self.telemetry.window,
-                recorder=self._tel_rec, chunk=chunk, callback=cb_t, now=self.now,
-                perf=self.perf, trace_spec=self._trace_spec, trace_persist=self._trace_persist,
-                trigger_kind=self._trace_trigger,
+                self.cfg, self._state, self._keys, n_ticks, window=self.telemetry.window,
+                recorder=self._tel_recs, chunk=chunk, callback=cb_t, now=self.now,
+                perf=self.perf, trace_spec=self._trace_spec,
+                trace_persist=self._trace_persists, trigger_kind=self._trace_trigger,
                 trace_callback=lambda done, traws: self.telemetry.append_trace(traws),
                 chunk_hook=hook if self.health is not None else None)
-            self.state, m, self._tel_rec = out[:3]
-            m = [m]
+            self._state, m, recs = out[:3]
+            if self._tel_recs is not None:
+                self._tel_recs = recs
             if self._trace_spec is not None:
-                self._trace_persist = out[3]
+                self._trace_persists = out[3]
         else:
-            def cb(done, states, metrics):
-                # The shards gathered where read: the metrics, and the state
-                # for the apply log.
-                metrics = mesh_mod.concat(metrics)
-                if self.health is not None:
-                    # The chunk is this path's window.
-                    self.health.observe_chunk(done, metrics)
-                state = mesh_mod.concat(states) if self.apply_writer is not None else None
-                return after_chunk(done, state, metrics)
-
             if self.health is not None:
                 # run_chunked restarts its metrics and tick count each call.
                 self.health.begin_run()
             self._state, m = chunked.run_chunked(
-                self.cfg, self._state, self._keys, n_ticks, chunk=chunk, callback=cb,
+                self.cfg, self._state, self._keys, n_ticks, chunk=chunk, callback=after_chunk,
                 now=self.now, perf=self.perf)
         self._metrics = [chunked.merge_metrics(a, b) for a, b in zip(self._metrics, m)]
         self.now += n_ticks
@@ -366,11 +378,12 @@ class Session:
             raise RuntimeError("no telemetry attached (attach_telemetry)")
         flights = []
         frozen_total = 0
-        if self._tel_rec is not None:
-            frozen = np.flatnonzero(self._tel_rec.frozen.cpu().numpy())
+        rec = self._tel_rec  # the shards' recorders in cluster order
+        if rec is not None:
+            frozen = np.flatnonzero(rec.frozen.cpu().numpy())
             frozen_total = int(frozen.size)
             for cluster in frozen[:max_flights]:
-                ticks, infos = telemetry.export_cluster(self._tel_rec, int(cluster))
+                ticks, infos = telemetry.export_cluster(rec, int(cluster))
                 self.telemetry.write_flight(int(cluster), ticks, infos)
                 flights.append(int(cluster))
             if frozen.size > max_flights:
@@ -380,10 +393,10 @@ class Session:
         summary = self.summary()
         summary["flights_frozen"] = frozen_total
         summary["flights_exported"] = len(flights)
-        if self._trace_persist is not None:
+        tp = self._trace_persist
+        if tp is not None:
             from raft_sim_tpu_torch.trace.ring import cov_popcount
 
-            tp = self._trace_persist
             summary["trace"] = {
                 "events_emitted": int(tp.total.to(torch.int64).sum()),
                 "frozen_clusters": int(tp.frozen.sum()),
@@ -394,14 +407,15 @@ class Session:
                 "flights_exported": len(flights), "summary": path}
 
     def _offer_step(self, client_cmd=None, read_cmd=None):
-        """One tick through the shared tick body with an offer override;
-        returns its StepInfo."""
-        s, m, info = scan.tick_batch_minor(
-            self.cfg, raft_batched.to_batch_minor(self.state), self.keys,
-            raft_batched.to_batch_minor(self.metrics), self.now,
-            client_cmd=client_cmd, read_cmd=read_cmd)
-        self.state = raft_batched.from_batch_minor(s)
-        self.metrics = raft_batched.from_batch_minor(m)
+        """One tick of every shard through the shared tick body with an offer
+        override; returns its StepInfo, gathered in cluster order."""
+        outs = [scan.tick_batch_minor(self.cfg, raft_batched.to_batch_minor(st), keys,
+                                      raft_batched.to_batch_minor(m), self.now,
+                                      client_cmd=client_cmd, read_cmd=read_cmd)
+                for st, keys, m in zip(self._state, self._keys, self._metrics)]
+        self._state = [raft_batched.from_batch_minor(o[0]) for o in outs]
+        self._metrics = [raft_batched.from_batch_minor(o[1]) for o in outs]
+        info = mesh_mod.concat([o[2] for o in outs], dim=-1)
         self.now += 1
         if self.apply_writer is not None:
             self.apply_writer.update(self.state)
@@ -419,7 +433,6 @@ class Session:
         the match is by value alone. Refused while a trace is armed: the
         offer's ticks run outside the windowed loop, so their events would be
         missing from the trace stream, a hole the checker could not see."""
-        self._refuse_sharded("Session.offer()")
         if self._trace_spec is not None:
             raise RuntimeError("Session.offer() ticks are not covered by the armed trace "
                                "stream; detach the trace, or ingest via run()'s scheduled "
@@ -461,7 +474,6 @@ class Session:
         clusters whose leader took the read on the offer tick, `served` the
         reads served since (the reads_served counter). Needs cfg.read_index;
         refused while a trace is armed, as offer() is."""
-        self._refuse_sharded("Session.offer_read()")
         if self._trace_spec is not None:
             raise RuntimeError("Session.offer_read() ticks are not covered by the armed trace "
                                "stream; detach the trace, or ingest reads via the scheduled "
@@ -532,15 +544,15 @@ class Session:
         self._mesh = None
         self.apply_writer = None
         self.telemetry = None
-        self._tel_rec = None
+        self._tel_recs = None
         self._deltas = None
         self._trace_spec = None
-        self._trace_persist = None
+        self._trace_persists = None
         self._trace_trigger = None
         self.perf = None
         self.health = None
         self._health_args = None
-        self._live_rec = None
+        self._live_recs = None
         self.state = state
         self.keys = keys
         self.metrics = metrics
@@ -624,9 +636,10 @@ def add_run_arguments(p: argparse.ArgumentParser) -> None:
                    help="TEST-ONLY: run a deliberately weakened tick (scenario/mutation.py "
                         "registry, e.g. 'weak-quorum')")
     p.add_argument("--devices", type=int, default=None, metavar="N",
-                   help="shard the cluster batch over N devices: the first N cards, or N "
-                        "shards on the CPU with --device cpu (trajectories are shard-count "
-                        "invariant; the plain chunked path only)")
+                   help="shard the cluster batch over N shards: dealt over the cards in turn "
+                        "(shards beyond the card count share a card), or N "
+                        "shards on the CPU with --device cpu (trajectories and telemetry, "
+                        "trace and checkpoint files are shard-count invariant)")
     p.add_argument("--perf", action="store_true",
                    help="per-chunk runtime attribution (obs.ChunkTimer): device-vs-host wall "
                         "split, warmup vs steady state, card memory, the kernel-cache "
@@ -818,14 +831,16 @@ def run(ap: argparse.ArgumentParser, args) -> int:
 
 
 def _device_mesh(device, n: int):
-    """The cluster mesh of `--mesh n` / `--devices n` on `device`: the first n
-    cards (0: every card), or n shards on the CPU (0: one)."""
+    """The cluster mesh of `--mesh n` / `--devices n` on `device`: n shards
+    dealt over the cards in turn (the first n cards where there are n; 0:
+    every card), so shards beyond the card count share a card as they
+    share the CPU; or n shards on the CPU (0: one)."""
     dev = device_mod.resolve(device)
     if n < 0:
         raise ValueError(f"--mesh must be >= 0, got {n}")
-    if dev.type == "cuda":
-        return mesh_mod.make_mesh(n or None)
-    return mesh_mod.make_mesh(devices=[dev] * (n or 1))
+    if n == 0:
+        n = len(mesh_mod.mesh_devices()) if dev.type == "cuda" else 1
+    return mesh_mod.dealt_mesh(n, dev)
 
 
 def _device_name(dev: torch.device) -> str:

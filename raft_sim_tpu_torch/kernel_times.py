@@ -9,13 +9,15 @@ old), each in its own process. Both build their states the same way: the
 preset's own batch, `simulate` through the kernel for WARM_TICKS ticks from
 seed 0, then the next tick's inputs; the port is bit-exact, so both time the
 same state. A cell the checkout's kernel refuses prints one "refused" line.
-Cells are presets, and config6-lm: config6 with log matching every tick
-(the ring form, K1-b).
+Cells are presets, config6-lm: config6 with log matching every tick
+(the ring form, K1-b), and config4c-trace: config4c with `track_trace`, the
+coverage hunt's tick (`--cells` picks some).
 Per cell it prints one JSON line: device ms per launch (CUDA
 events over REPS back-to-back launches, `tick_engine.time_kernel`, as
 chip_smoke.py's full-width phase times it), the
-bound (bytes read + written once over 3.35 TB/s) and, where the checkout has
-them, the block shape and shared-memory bytes. The last line names the card
+bound (bytes read + written once over 3.35 TB/s), the plain PyTorch step's
+ms (host clock to a synchronize, PLAIN_REPS calls) and, where the checkout
+has them, the block shape and shared-memory bytes. The last line names the card
 and its power limit. Needs a card; exits 2 without one.
 """
 
@@ -36,13 +38,18 @@ sys.path[:] = [q for q in sys.path if os.path.abspath(q or os.curdir) != HERE]
 BW_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 WARM_TICKS = 200  # ticks simulated before timing (config5's full-width run is 200 long)
 REPS = 20  # launches timed per cell
+PLAIN_REPS = 3  # plain steps timed per cell
 CELLS = ("config2", "config3", "config4", "config5", "config3p", "config6", "config6r", "config8",
-         "config9", "config10", "config4c", "config7", "config6-lm")
+         "config9", "config10", "config4c", "config7", "config6-lm", "config4c-trace")
+# A cell's suffix: the config field it turns on.
+SUFFIXES = {"-lm": "check_log_matching", "-trace": "track_trace"}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=os.path.dirname(HERE), help="the checkout to time")
+    ap.add_argument("--cells", default=",".join(CELLS), metavar="A,B,...",
+                    help="the cells to time (default: all)")
     args = ap.parse_args(argv)
     import torch
 
@@ -66,10 +73,14 @@ def main(argv=None) -> int:
     tick_engine.build()
     tick_engine._load_cuda()
     print(json.dumps({"root": root, "build_s": time.perf_counter() - t0}), flush=True)
-    for name in CELLS:
-        cfg, batch = PRESETS[name.removesuffix("-lm")]
-        if name.endswith("-lm"):
-            cfg = dataclasses.replace(cfg, check_log_matching=True)
+    for name in args.cells.split(","):
+        base, field = name, None
+        for suffix, f in SUFFIXES.items():
+            if name.endswith(suffix):
+                base, field = name.removesuffix(suffix), f
+        cfg, batch = PRESETS[base]
+        if field:
+            cfg = dataclasses.replace(cfg, **{field: True})
         try:
             tick_engine.check_supported(cfg)
         except NotImplementedError as e:  # an older checkout's kernel refuses the cell
@@ -81,8 +92,15 @@ def main(argv=None) -> int:
         inp = raft_batched.to_batch_minor(faults.make_inputs(cfg, keys, WARM_TICKS))
         ms = tick_engine.time_kernel(cfg, s, inp, reps=REPS, now=WARM_TICKS)
         rd, wr = tick_engine.traffic_bytes(cfg, batch)
+        raft_batched.step_b(cfg, s, inp, WARM_TICKS)  # warm
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(PLAIN_REPS):
+            raft_batched.step_b(cfg, s, inp, WARM_TICKS)
+        torch.cuda.synchronize()
         row = {"preset": name, "batch": batch, "warm_ticks": WARM_TICKS, "kernel_ms": ms,
-               "bound_ms": (rd + wr) / BW_BYTES_PER_S * 1e3}
+               "bound_ms": (rd + wr) / BW_BYTES_PER_S * 1e3,
+               "plain_ms": (time.perf_counter() - t1) * 1e3 / PLAIN_REPS}
         if hasattr(tick_engine, "launch_shape"):
             row["shape"] = tick_engine.launch_shape(cfg, batch, dev)
         print(json.dumps(row), flush=True)

@@ -136,6 +136,15 @@ def make_mesh(n_devices: int | None = None, devices=None) -> Mesh:
     return Mesh(devices, (AXIS,), n_processes=procs, process_index=index)
 
 
+def dealt_mesh(n: int, device) -> Mesh:
+    """A mesh of n shards on `device`'s kind: on the card, dealt over the
+    cards in turn (the first n cards where there are n), so shards beyond
+    the card count share a card; on the CPU, n shards on the one device."""
+    dev = device_mod.resolve(device)
+    cards = mesh_devices() if dev.type == "cuda" else [dev]
+    return make_mesh(devices=[cards[i % len(cards)] for i in range(n)])
+
+
 def check_batch(batch: int, mesh: Mesh) -> None:
     if batch % mesh.size:
         raise ValueError(f"batch {batch} must divide over {mesh.size} devices")

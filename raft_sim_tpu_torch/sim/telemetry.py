@@ -276,21 +276,44 @@ def run_chunked_telemetry(cfg: RaftConfig, state, keys: torch.Tensor, n_ticks: i
     flight recorder (batch-minor) after each chunk, before the callbacks:
     the health plane's evidence hook, read-only. `perf` (an obs.ChunkTimer)
     gets one row a chunk, as in `chunked.run_chunked`: closed after the
-    callbacks on a host copy of the chunk's `metrics.ticks`."""
-    batch = state.role.shape[0]
+    callbacks on a host copy of the chunk's `metrics.ticks`.
+
+    As in `chunked.run_chunked`, `state` and `keys` (and `genome`,
+    `recorder` and `trace_persist`, if given) may be lists: the shards of
+    the batch in cluster order, each on its own device
+    (`driver.Session(devices=)`). Each shard then runs its own windowed
+    loop (`minor_telemetry_ticks`), the loops interleaved tick by tick
+    (`scan.interleave`), and the records and trace windows come out
+    gathered in cluster order (onto the first shard's device), so the sink
+    sees the unsharded stream. State, metrics, recorders and persists stay
+    per shard: the callback and `chunk_hook` get them as lists, and so does
+    the result."""
+    from raft_sim_tpu_torch.parallel.mesh import concat  # the shards in cluster order
+
+    sharded = isinstance(state, list)
+    if sharded:
+        states = state
+        n = len(states)
+        recorders = recorder if recorder is not None else [None] * n
+        persists = trace_persist if trace_persist is not None else [None] * n
+        genomes = genome if isinstance(genome, list) else [genome] * n
+    else:
+        states, keys, recorders, persists, genomes = (
+            [state], [keys], [recorder], [trace_persist], [genome])
     if now is None:
-        now = int(state.now.reshape(-1)[0]) if batch else 0
-    if trace_spec is not None and trace_persist is None:
+        now = int(states[0].now.reshape(-1)[0]) if states[0].role.shape[0] else 0
+    if trace_spec is not None:
         from raft_sim_tpu_torch.trace import ring as tring
 
-        trace_persist = tring.init_persist(trace_spec, batch, state.role.device)
+        persists = [tring.init_persist(trace_spec, st.role.shape[0], st.role.device)
+                    if tp is None else tp for st, tp in zip(states, persists)]
     win_per_chunk = max(1, chunk // window)
-    metrics = scan.init_metrics_batch(batch, state.role.device)
-    s = raft_batched.to_batch_minor(state)
-    out = state
+    metrics = [scan.init_metrics_batch(st.role.shape[0], st.role.device) for st in states]
+    ss = [raft_batched.to_batch_minor(st) for st in states]
+    out = states
     done = 0
     if perf is not None:
-        perf.watch(state.role.device)
+        perf.watch(states[0].role.device)
     while done < n_ticks:
         left = n_ticks - done
         if left >= window:
@@ -300,29 +323,38 @@ def run_chunked_telemetry(cfg: RaftConfig, state, keys: torch.Tensor, n_ticks: i
             n = w = left  # the remainder: one final short window
         if perf is not None:
             perf.begin(n)
-        res = run_minor_telemetry(cfg, s, keys, n, w, now + done, recorder, genome=genome,
-                                  seg_len=seg_len, trace_spec=trace_spec,
-                                  trace_persist=trace_persist, trigger_kind=trigger_kind)
-        s, m, recs, recorder = res[:4]
+        loops = [minor_telemetry_ticks(cfg, s, k, n, w, now + done, rec, genome=g,
+                                       seg_len=seg_len, trace_spec=trace_spec,
+                                       trace_persist=tp, trigger_kind=trigger_kind)
+                 for s, k, rec, g, tp in zip(ss, keys, recorders, genomes, persists)]
+        # The loops hold the only references to the carries they replace
+        # tick by tick, so each tick frees the last.
+        ss = recorders = persists = None
+        res = scan.interleave(loops)
         if perf is not None:
             perf.dispatched()
-        metrics = merge_metrics(metrics, raft_batched.from_batch_minor(m))
+        ss = [r[0] for r in res]
+        recorders = [r[3] for r in res]
+        persists = [r[5] if trace_spec is not None else None for r in res]
+        metrics = [merge_metrics(a, raft_batched.from_batch_minor(r[1]))
+                   for a, r in zip(metrics, res)]
+        recs = concat([r[2] for r in res])
         done += n
-        out = raft_batched.from_batch_minor(s)
-        if trace_spec is not None:
-            traws, trace_persist = res[4:]
-            if trace_callback is not None:
-                trace_callback(done, traws)
+        out = [raft_batched.from_batch_minor(s) for s in ss]
+        if trace_spec is not None and trace_callback is not None:
+            trace_callback(done, concat([r[4] for r in res], dim=-1))
         if chunk_hook is not None:
-            chunk_hook(done, recorder)
-        stop = callback is not None and callback(done, out, metrics, recs)
+            chunk_hook(done, recorders if sharded else recorders[0])
+        stop = callback is not None and (callback(done, out, metrics, recs) if sharded
+                                         else callback(done, out[0], metrics[0], recs))
         if perf is not None:
-            perf.end(sync=lambda: m.ticks.cpu())
+            perf.end(sync=lambda: [r[1].ticks.cpu() for r in res])
         if stop:
             break
+    result = (out, metrics, recorders) if sharded else (out[0], metrics[0], recorders[0])
     if trace_spec is not None:
-        return out, metrics, recorder, trace_persist
-    return out, metrics, recorder
+        return result + ((persists if sharded else persists[0]),)
+    return result
 
 
 def reduce_records(records: WindowRecord) -> scan.RunMetrics:

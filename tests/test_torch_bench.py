@@ -96,7 +96,8 @@ def test_serve_row_matches_bench_py():
     """The config9-serve row at a small size (16 clusters, 4 tenants, chunks
     of 32, one warmup chunk, 3 serving chunks): its work counts equal
     bench.py's `serve_bench` row's, and so do the counts of its chunk-timer
-    rollup (`perf`); no matrix row stays unported."""
+    rollup (`perf`), and its reconciliation's anchor verdict; no matrix row
+    stays unported."""
     kw = dict(batch=16, chunks=3, chunk=32, window=16, tenants_n=4, smoke=True)
     want = jbench.serve_bench("config9", **kw)
     got = tbench.serve_bench("config9", device="cpu", **kw)
@@ -104,7 +105,13 @@ def test_serve_row_matches_bench_py():
               "ticks", "commands_acked", "reads_served", "ops_done", "violations")
     assert {k: got[k] for k in counts} == {k: want[k] for k in counts}
     assert got["commands_acked"] > 0 and got["reads_served"] > 0 and got["violations"] == 0
-    assert got["backend"] == "cpu" and got["reconciliation"] is None
+    assert got["backend"] == "cpu"
+    # The reconciliation, priced on K1's bytes under the serve config: the
+    # JAX row's keys and anchor verdict (a CPU smoke row never anchors).
+    rec, jrec = got["reconciliation"], want["reconciliation"]
+    assert set(rec) == set(jrec) and rec["anchor"] is jrec["anchor"] is False
+    assert rec["non_anchor_reasons"] == jrec["non_anchor_reasons"]
+    assert rec["bytes_per_tick_padded"] > 0 and rec["roofline_fraction"] > 0
     # The chunk timer's rollup: its counts equal the JAX row's.
     keep = ("label", "batch", "chunks", "steady_chunks", "steady_ticks",
             "recompiled_after_warmup")

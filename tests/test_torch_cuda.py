@@ -562,3 +562,57 @@ def test_run_perf_health_card_matches_cpu(card, tmp_path):
     perf = [json.loads(x) for x in open(os.path.join(gd, "perf.jsonl"))]
     assert len(perf) == 4 and all(isinstance(r["live_bytes"], int) for r in perf)
     assert not any(r["recompiled"] for r in perf)
+
+
+def test_sharded_session_planes_card_match_unsharded(card, tmp_path):
+    """A 4-shard Session on the card with the sink, the flight ring and the
+    trace plane writes the unsharded card run's files; its offers return
+    the unsharded dicts."""
+    import os
+
+    from raft_sim_tpu_torch.driver import Session
+
+    cfg = dataclasses.replace(tconfig.PRESETS["config6"][0], track_trace=True)
+    files = {}
+    for devices in (None, [card] * 4):
+        d = tmp_path / str(bool(devices))
+        sess = Session(cfg, batch=64, seed=0, device=card, devices=devices)
+        sess.attach_telemetry(str(d), window=32, ring=4)
+        sess.attach_trace(depth=128, trigger="leader")
+        sess.run(96, chunk=64)
+        sess.finalize_telemetry()
+        files[bool(devices)] = {f: open(d / f, "rb").read() for f in sorted(os.listdir(d))
+                                if f != "manifest.json"}
+    assert files[True] == files[False] and "trace.jsonl" in files[True]
+    offers = []
+    for devices in (None, [card] * 4):
+        sess = Session(tconfig.PRESETS["config9"][0], batch=64, seed=0, device=card,
+                       devices=devices)
+        sess.run(32, chunk=32)
+        offers.append([sess.offer(7, wait=16), sess.offer_read(wait=16)])
+    assert offers[0] == offers[1]
+
+
+def test_tools_card_match_cpu(card, tmp_path):
+    """The tools tier on the card: repro's shrink equals the CPU's, the
+    corpus replays, the device parity check passes, the measurement pass
+    writes a document metrics_report renders."""
+    from raft_sim_tpu_torch import __main__ as cli
+    from raft_sim_tpu_torch import device_parity_check, metrics_report, repro
+
+    class BrokenQuorum(tconfig.RaftConfig):
+        @property
+        def quorum(self):
+            return self.n_nodes // 2
+
+    cfg = BrokenQuorum(n_nodes=5, drop_prob=0.3)
+    got = repro.shrink(cfg, 1, 16, 512, chunk=256, device=card)
+    assert got is not None and got == repro.shrink(cfg, 1, 16, 512, chunk=256, device="cpu")
+    assert repro.main(["--corpus", "tests/corpus"]) == 0
+    assert device_parity_check.check(batch=8, ticks=64, device=card) == {
+        name: [] for name in device_parity_check.CONFIGS}
+    doc = tmp_path / "pass.json"
+    assert cli.main(["bench", "--measurement-pass", "--configs", "config2", "--ab-preset",
+                     "config2", "--mesh-preset", "config2", "--ticks", "8", "--repeats", "1",
+                     "--out", str(doc)]) == 0
+    assert metrics_report.main(["--perf", str(doc)]) == 0

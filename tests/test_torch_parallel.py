@@ -210,19 +210,23 @@ def test_session_sharded_plain_path_planes(tmp_path):
 
 
 def test_session_sharding_errors(tmp_path):
-    """The JAX `_apply_sharding` errors, and the paths a sharded Session
-    does not take."""
+    """The JAX `_apply_sharding` errors; a sharded Session refuses nothing
+    the unsharded one takes: the telemetry sink attaches and an offer
+    returns the unsharded session's dict (tests/test_torch_sharded_planes.py
+    holds the files and dicts against the JAX package)."""
     cfg = tconfig.RaftConfig(n_nodes=5)
     with pytest.raises(ValueError, match="devices must be >= 1, got 0"):
         Session(cfg, batch=4, device="cpu", devices=0)
     with pytest.raises(ValueError, match="batch 4 must divide over 3 devices"):
         Session(cfg, batch=4, device="cpu", devices=3)
     assert Session(cfg, batch=4, device="cpu", devices=1)._mesh is None
-    s = Session(cfg, batch=4, device="cpu", devices=2)
-    with pytest.raises(ValueError, match="sharded Session"):
-        s.attach_telemetry(str(tmp_path / "tel"))
-    with pytest.raises(ValueError, match="sharded Session"):
-        s.offer(5)
+    offers = []
+    for devices in (None, 2):
+        s = Session(cfg, batch=4, device="cpu", devices=devices)
+        s.attach_telemetry(str(tmp_path / f"tel{devices}"))
+        s.run(16, chunk=16)
+        offers.append(s.offer(5, wait=8))
+    assert offers[0] == offers[1]
 
 
 def _run_cli(*args):
