@@ -82,7 +82,9 @@ the start; any failure raises and exits non-zero):
    zero invariant violations (stale lease reads included) and a leader
    elected in every cluster, the client presets a commit in every cluster,
    config6/config6r/config9 every cluster's max commit above CAP (its ring
-   wrapped), config8/config9 reads served in every cluster, and config10 an
+   wrapped), config8/config9 reads served in every cluster, config8 a config
+   entry appended in some cluster (its first toggle is offered at tick
+   97), and config10 an
    fsync lag in every cluster and dur_len <= log_len on every node of the
    final state. A `kernel_shape` line gives the launch's block shape (tc
    clusters x s node slots, nodes per thread), its dynamic shared-memory
@@ -144,8 +146,9 @@ the start; any failure raises and exits non-zero):
    scenario tests' kitchen-sink config (16 x 128, 2 generations) on the card
    equals it on the CPU. (d) Full width on config4c: `scenario run`'s
    library path (driver.run_scenario) over a calm / storm (drop 0.2,
-   partitions of period 32 at 0.3, skew 0.1) / calm program of 64-tick
-   segments at the preset batch of 100,000 for 192 ticks -- launches ==
+   partitions of period 32 at 0.3, skew 0.1) / calm program of
+   STORM_RUN_SEG-tick (32) segments at the preset batch of 100,000 for 96
+   ticks -- launches ==
    ticks, zero violations, a leader in every cluster, FULL_HOLD_TICKS ticks
    of kernel == plain after it, the wall ms a tick, the input draws', the
    kernel's against its bound, peak memory; then a weak-quorum hunt at a
@@ -165,14 +168,15 @@ the start; any failure raises and exits non-zero):
    (tests/trace_kind_counts_jax.json, written by
    tests/trace_kind_counts_jax.py), and the kinds never emitted are the
    JAX run's. (b) `run --trace` (config6, 16 x 128) writes the same trace
-   files on the card as on the CPU. (c) `run --trace` at config6's batch
-   (1,000 x 192, window 64, depth 256, doubled until no window drops an
-   event): launches == ticks, validate() clean, the checker's history
+   files on the card as on the CPU (both in the parity workers). (c) `run
+   --trace` at config6's batch (TRACE_RUN: 1,000 x 128, two windows of 64,
+   depth 256, doubled until no window drops an event): launches == ticks, validate() clean, the checker's history
    complete with all six properties passing; ms a tick traced and untraced
    on the same seed, the extraction's and the ring fold's ms (CUDA
    events), events written, sink bytes, the checker's seconds. (d) A
    coverage hunt (coverage fitness, guided proposals) at config4c's
-   batch of 100,000, 2 generations x 128 ticks, window 64, depth 32: 0
+   batch of 100,000, 2 generations x COV_T (64) ticks, two windows of 32,
+   depth 32: 0
    violations, launches == ticks, the guided clones of generation 1 and
    its new bits, ms a tick, peak memory; then a weak-quorum coverage hunt
    at 10,000 must hit, and its shrunk artifact's checker replay must be
@@ -204,9 +208,9 @@ the start; any failure raises and exits non-zero):
    `run --backend cuda` equal to `run --device cuda` at config7x.
 4g. observe -- the observability planes (obs/ chunk timer, health/ SLO
    monitors) and the fuzzing farm (farm/). (a) `run --perf --health` at
-   config6's batch (OBS_RUN: 1,000 x 256, chunks of 64, window 64, a flight
+   config6's batch (OBS_RUN: 1,000 x 192, chunks of 64, window 64, a flight
    ring of 8) equals the same run unarmed: state and metrics (--save), the
-   window, flight and summary files; perf.jsonl validates with 4 rows, 2 of
+   window, flight and summary files; perf.jsonl validates with 3 rows, 2 of
    them warmup, none recompiled, live_bytes an int, the library loaded once;
    launches == ticks; the steady ms a chunk, the device-wait share and the
    armed wall beside the unarmed one. (b) The same at OBS_SMALL (16 x 128)
@@ -233,17 +237,18 @@ the start; any failure raises and exits non-zero):
 4h. shard -- the multi-device tier (raft_sim_tpu_torch/parallel/) with every
    shard on the one card (the cards in turn, where there are more): (a) config3 at 100,000 over 4 cluster shards
    (launches == 4 x 64, state and metrics == the unsharded `simulate`),
-   (b) config7x at 250 over 4 node shards (the plain tick on each shard;
+   (b) config7x at 250 x SHARD_NODE_T (16) over 4 node shards (the plain tick on each shard;
    `unshard_state` and metrics == the unsharded run; one mailbox gather a
-   tick), (c) the two-process gloo check on the card, (d) the farm's mesh
+   tick), (c) the two-process gloo check on the card (MULTIHOST_T ticks, run
+   in a parity worker beside phase 2), (d) the farm's mesh
    leg (config4c weak-quorum, 2 x 64, 2 generations == unsharded). One
    card proves the partition, the key split, the padding, the exchange
    points and the multi-process control plane; not NCCL, nor copies
    between cards (`shard_phase`).
 4i. tools -- a sharded Session's planes and the tools tier (`tools_phase`):
    (a) `run --devices 4 --telemetry-dir D --trace` at config6's batch
-   (1,000 x 64, windows of 32, trace depth 256, the four shards on the one
-   card) writes every file the
+   (TOOLS_RUN: 1,000 x 32, two windows of 16, trace depth 256, the four shards on
+   the one card) writes every file the
    unsharded run writes, byte for byte, with the same summary and checker
    verdict (all six properties ok); config9 at 1,000 through a 4-shard
    Session's offer/offer_read returns the unsharded Session's dicts, state
@@ -257,6 +262,21 @@ the start; any failure raises and exits non-zero):
    rendered by
    `metrics_report --perf`, the anchor-eligible rows named, and
    `traffic_audit --json` on config3 and config7x against it.
+4j. analysis -- the analyzer's runtime legs on the card (`analysis_phase`;
+   raft_sim_tpu_torch/analysis): (a) `run --sanitize`'s path (a Session's run
+   inside `driver.sanitize_ctx`) at config6's batch, SAN_RUN (1,000 x 128,
+   chunks and telemetry windows of 32), armed against unarmed: state,
+   metrics and sink files equal, the sanitizer's counters above 0, the
+   caller's state bit-unchanged. (b) `serve --sanitize`'s path on a
+   config9-serve session (SAN_SERVE: 1,000 clusters, 4 tenants, a warmup of
+   64 and 2 chunks of 64), armed against unarmed: acks, delta rows, state
+   and stats equal. (c) `check --race --dynamic --device cuda` exits 0 (in a
+   parity worker). (d) `op_audit`'s programs, one tick of each audit tier's
+   four variants on the card: no finding, and each program's op dtypes (its
+   (op, output dtypes) histogram) equal to the CPU's (both in the parity
+   workers). (e) `cost-kernel-resources`: ptxas's registers, stack and
+   spills of every K1 instantiation of this build within the pins of
+   tests/golden_torch_cost.json. The phase's K1 launches print with it.
 5. bench_row -- the port's bench (raft_sim_tpu_torch/bench.py) on config2 at
    64 x 100 ticks, 3 quality seeds and 2 repeats, on the card and on the CPU:
    every quality field equal; the card's row carries backend "cuda", the
@@ -283,11 +303,11 @@ BW_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 SEED = 0
 FULL_HOLD_TICKS = 8  # kernel-vs-plain ticks at full width, per cell
 PARITY_WORKERS = 6  # processes for the rows that time nothing (phase 1)
-LONG_T = 150  # long_run: the resumed run's half (2 x LONG_T uninterrupted)
+LONG_T = 128  # long_run: the resumed run's half (2 x LONG_T uninterrupted; 150 before PR 15)
 SIM_TICKS = 4  # phase 2: ticks of `simulate` through the kernel vs the plain tick
 LONG_CHUNK = 50  # long_run's chunk: commit moves < CAP - margin a chunk
 SERVE_T = 64  # serve (a): ticks of kernel vs plain under served planes
-SERVE_CHUNKS = 3  # serve (c): serving chunks of the config9-serve row
+SERVE_CHUNKS = 2  # serve (c): serving chunks of the config9-serve row (3 before PR 15)
 SCEN_T = 48  # scenario (a): ticks of kernel vs plain under each mutant
 SCEN_SEG = 24  # scenario (a): ticks a genome segment
 HUNT_POP, HUNT_T, HUNT_WINDOW = 10_000, 192, 64  # scenario (d): the weak-quorum hunt
@@ -298,10 +318,14 @@ TRACE_ROWS = ("config2", "config3p", "config5", "config6", "config8", "config9",
 # The per-kind event counts of the JAX package's run of each trace (a) row
 # (tests/trace_kind_counts_jax.py writes them): the card's must equal them.
 TRACE_COUNTS = os.path.join("tests", "trace_kind_counts_jax.json")
-TRACE_RUN = (1_000, 192, 64, 256)  # trace (c): config6's batch, ticks, window, first depth
-COV_POP, COV_T, COV_WINDOW, COV_DEPTH = 100_000, 128, 64, 32  # trace (d): the coverage hunt
-WQ_POP, WQ_T = 10_000, 192  # trace (d): the weak-quorum coverage hunt's population, ticks
-OBS_RUN = (1_000, 256, 64)  # observe (a): config6's batch, ticks, chunk (4 perf rows)
+TRACE_RUN = (1_000, 128, 64, 256)  # trace (c): config6's batch, ticks (192 before PR 15), window,
+#   first depth
+COV_POP, COV_T, COV_WINDOW, COV_DEPTH = 100_000, 64, 32, 32  # trace (d): the coverage hunt
+#   (before PR 15: COV_T 128, window 64)
+WQ_POP, WQ_T, WQ_WINDOW = 10_000, 192, 64  # trace (d): the weak-quorum coverage hunt's
+#   population, ticks, window
+OBS_RUN = (1_000, 192, 64)  # observe (a): config6's batch, ticks, chunk (3 perf rows, 2 of them
+#   warmup; 256 ticks before PR 15)
 OBS_SMALL = (16, 128)  # observe (b): batch, ticks of the card == CPU health run
 OBS_SMALL_ARGV = ["run", "--preset", "config6", "--batch", str(OBS_SMALL[0]), "--ticks",
                   str(OBS_SMALL[1]), "--chunk", "64", "--telemetry-window", "64",
@@ -943,6 +967,10 @@ STORM_PROGRAM = {
 }
 
 
+# scenario (d): the run row's segment length (64 before PR 15: 192 ticks).
+STORM_RUN_SEG = 32
+
+
 def random_genome(cfg, batch: int, seed: int, segments: int, device):
     """A [batch, segments] genome from a numpy seed: a different fault
     setting in every cluster and segment (drop, partitions, crashes, skew,
@@ -1094,7 +1122,7 @@ def scenario_phase(dev, wall_ms, hold_ticks) -> dict:
 
     # ---- (d) full width: a program run and a hunt on config4c ---------------
     cfg4c, batch = PRESETS["config4c"]
-    prog = program_mod.from_dict(STORM_PROGRAM, cfg4c)
+    prog = program_mod.from_dict(dict(STORM_PROGRAM, seg_len=STORM_RUN_SEG), cfg4c)
     run_t = prog.seg_len * prog.n_segments
     state, keys = scan.seed_fleet(cfg4c, SEED, batch, dev)
     torch.cuda.synchronize()
@@ -1306,11 +1334,25 @@ def _trace_files(directory: str) -> dict:
     return out
 
 
-def trace_phase(dev, wall_ms, trace_a) -> list:
+TRACE_SMALL_ARGV = ["run", "--preset", "config6", "--batch", "16", "--ticks", "128", "--seed",
+                    str(SEED), "--telemetry-window", "64", "--trace", "--trace-depth", "256"]
+
+
+def _trace_small_leg(device: str, work: str) -> dict:
+    """trace (b) on `device` ("cuda" or "cpu"), in a parity worker: `run
+    --trace` at TRACE_SMALL_ARGV's 16 x 128; returns its trace files."""
+    tdir = os.path.join(work, f"trace_b_{device}")
+    _cli([*TRACE_SMALL_ARGV, "--telemetry-dir", tdir, "--device", device])
+    return _trace_files(tdir)
+
+
+def trace_phase(dev, wall_ms, trace_a, trace_b) -> list:
     """Phase 4e: the protocol trace plane (raft_sim_tpu_torch/trace/) on the
     card, every traced tick one launch of the kernel. `trace_a` holds (a)'s
-    rows' results (`_trace_row`, in TRACE_ROWS order). Returns the cells of
-    its main-path runs ((c) and (d)), each with its launches."""
+    rows' results (`_trace_row`, in TRACE_ROWS order), `trace_b` (b)'s trace
+    files on the card and on the CPU ({"cuda": ..., "cpu": ...},
+    `_trace_small_leg`). Returns the cells of its main-path runs ((c) and
+    (d)), each with its launches."""
     import collections
     import glob
     import shutil
@@ -1359,19 +1401,13 @@ def trace_phase(dev, wall_ms, trace_a) -> list:
           "never_emitted": never, "jax_never_emitted": jax_never,
           "worker_seconds": sum(r[-1] for r in trace_a)})
 
-    # ---- (b) run --trace on the card == on the CPU ---------------------------
-    small = ["run", "--preset", "config6", "--batch", "16", "--ticks", "128", "--seed", str(SEED),
-             "--telemetry-window", "64", "--trace", "--trace-depth", "256"]
-    files = {}
-    for d in ("card", "cpu"):
-        _cli([*small, "--telemetry-dir", os.path.join(work, f"b_{d}"), "--device",
-              dev.type if d == "card" else "cpu"])
-        files[d] = _trace_files(os.path.join(work, f"b_{d}"))
-    if files["card"] != files["cpu"]:
+    # ---- (b) run --trace on the card == on the CPU (in the parity workers) ----
+    if trace_b["cuda"] != trace_b["cpu"]:
         raise AssertionError("trace (b): the card's trace files != the CPU's")
     emit({"phase": "trace_card_vs_cpu", "preset": "config6", "batch": 16, "ticks": 128,
-          "equal": sorted(files["card"]), "bytes": {k: len(v) for k, v in files["card"].items()},
-          "max_abs_err": 0})
+          "equal": sorted(trace_b["cuda"]),
+          "bytes": {k: len(v) for k, v in trace_b["cuda"].items()}, "max_abs_err": 0,
+          "in_worker": True})
 
     # ---- (c) run --trace at config6's own batch ------------------------------
     batch, ticks, window, depth = TRACE_RUN
@@ -1505,7 +1541,7 @@ def trace_phase(dev, wall_ms, trace_a) -> list:
     torch.cuda.empty_cache()
 
     wq = mutant_config("weak-quorum", cfg4c)
-    spec = search_mod.SearchSpec(generations=4, population=WQ_POP, ticks=WQ_T, window=COV_WINDOW,
+    spec = search_mod.SearchSpec(generations=4, population=WQ_POP, ticks=WQ_T, window=WQ_WINDOW,
                                  seed=SEED, fitness="coverage", proposal="coverage-guided",
                                  trace_depth=COV_DEPTH)
     tick_engine.step_cuda.launches = 0
@@ -2099,12 +2135,17 @@ def observe_phase(dev, serve_unarmed, legs) -> list:
     return cells
 
 
-SHARD_T = 64  # shard (a), (b): ticks of the sharded runs and their references
+SHARD_T = 64  # shard (a): ticks of the sharded run and its reference
+SHARD_NODE_T = 16  # shard (b): ticks of the node-sharded run and its reference
+#   (64 before PR 15)
 SHARD_SHARDS = 4  # shard (a), (b): shards on the one card
 SHARD_FARM = (64, 64, 32, 2)  # shard (d): population a shard, ticks, window, generations
-MULTIHOST_T = 32  # shard (c): ticks of the two-process check's workload
-TOOLS_RUN = (1_000, 64, 32, 256)  # tools (a): config6's batch, ticks, window, trace depth
+MULTIHOST_T = 16  # shard (c): ticks of the two-process check's workload (32 before PR 15)
+TOOLS_RUN = (1_000, 32, 16, 256)  # tools (a): config6's batch, ticks, window (before PR 15:
+#   64 ticks, windows of 32), trace depth
 TOOLS_OFFERS = (1_000, 32, 16)  # tools (a): config9's batch, ticks before the offers, wait
+SAN_RUN = (1_000, 128, 32)  # analysis (a): config6's batch, ticks, chunk and window
+SAN_SERVE = (1_000, 64, 2, 64)  # analysis (b): batch, warmup ticks, chunks, chunk (= window)
 REPRO_RUN = (64, 1_024, 256)  # tools (c): the broken quorum's batch, ticks, chunk
 # tools (d): the measurement pass's rows cut to 4 ticks and 1 timed repeat
 # (the JAX pass's defaults: each row's preset ticks, 3 repeats); batches are
@@ -2122,7 +2163,24 @@ def shard_devices(n: int) -> list:
     return [torch.device("cuda", i % count) for i in range(n)]
 
 
-def shard_phase(dev) -> list:
+def _multihost_leg() -> dict:
+    """shard (c)'s two-process check, in a parity worker beside phase 2 (it
+    times nothing): `python -m raft_sim_tpu_torch.multihost_check --device
+    cuda` at MULTIHOST_T ticks; returns its exit code, output, artifact path
+    and seconds for the shard phase to check."""
+    import subprocess
+
+    t0 = time.perf_counter()
+    art = os.path.join(HERE, "raft_sim_tpu_torch", "build", "multichip_cuda.json")
+    proc = subprocess.run([sys.executable, "-m", "raft_sim_tpu_torch.multihost_check",
+                           "--device", "cuda", "--ticks", str(MULTIHOST_T), "--out", art,
+                           "--timeout", "300"],
+                          capture_output=True, text=True, cwd=HERE, timeout=360)
+    return {"rc": proc.returncode, "stdout": proc.stdout, "stderr": proc.stderr,
+            "artifact": art, "seconds": time.perf_counter() - t0}
+
+
+def shard_phase(dev, multihost) -> list:
     """Phase 4h: the multi-device tier (raft_sim_tpu_torch/parallel/). With
     one card every shard shares it: these rows then prove the partition,
     the key split, the padding, the exchange points and the multi-process
@@ -2142,17 +2200,18 @@ def shard_phase(dev) -> list:
     mailbox gather, the folds, the leaders gather). (c) `python -m
     raft_sim_tpu_torch.multihost_check --device cuda`: two processes on
     the card over gloo, match true, 0 violations, the multichip-v2 artifact
-    valid. (d) The farm's mesh leg: config4c under weak-quorum, 2 shards x
+    valid (run in a parity worker beside phase 2: `multihost`, the
+    future of `_multihost_leg`). (d) The farm's mesh leg: config4c under
+    weak-quorum, 2 shards x
     a population of 64, 2 generations: the unsharded farm's hunt rows, hits
     and manifest. Each row prints its seconds; nothing here is caught.
     The shards take the cards in turn (`shard_devices`): with one card, all
     of them share it. Returns the cells whose launches count."""
-    import subprocess
-
     import torch
+    from raft_sim_tpu_torch.analysis import op_audit
     from raft_sim_tpu_torch.farm import FarmSpec, run_farm
     from raft_sim_tpu_torch.kernels import tick_engine
-    from raft_sim_tpu_torch.parallel import comm, mesh as mesh_mod, nodeshard
+    from raft_sim_tpu_torch.parallel import mesh as mesh_mod, nodeshard
     from raft_sim_tpu_torch.scenario.mutation import mutant_config
     from raft_sim_tpu_torch.sim import scan
     from raft_sim_tpu_torch.summary import summarize
@@ -2206,52 +2265,51 @@ def shard_phase(dev) -> list:
     nmesh = nodeshard.make_node_mesh(SHARD_SHARDS, devices=shard_devices(SHARD_SHARDS))
     counts = {}
     (fs, ms), wall_s, launches = timed(lambda: nodeshard.simulate_node_sharded(
-        cfg, SEED, batch, SHARD_T, nmesh, counts=counts))
+        cfg, SEED, batch, SHARD_NODE_T, nmesh, counts=counts))
     if launches:
         raise AssertionError(f"shard (b): {launches} kernel launches on the node axis (the "
                              "plain tick runs each shard)")
-    (fd, md), wall_d, launches_d = timed(lambda: scan.simulate(dense, SEED, batch, SHARD_T,
+    (fd, md), wall_d, launches_d = timed(lambda: scan.simulate(dense, SEED, batch, SHARD_NODE_T,
                                                                device=dev))
-    if launches_d != SHARD_T:
+    if launches_d != SHARD_NODE_T:
         raise AssertionError(f"shard (b): {launches_d} kernel launches unsharded")
     check_equal(fd, nodeshard.unshard_state(cfg, fs), "shard (b): unshard_state != unsharded")
     check_equal(md, ms, "shard (b): node-sharded metrics != unsharded")
-    per_tick = {k: v / SHARD_T for k, v in counts.items()}
-    if (per_tick.get("mailbox_gather") != 1 or per_tick.get("leaders_gather") != 1
-            or set(per_tick) - {"mailbox_gather", "leaders_gather", "meetings", *comm.FOLDS}):
-        raise AssertionError(f"shard (b): collectives a tick {per_tick}")
+    per_tick = {k: v / SHARD_NODE_T for k, v in counts.items()}
+    # The kinds and gathers a tick that parallel/comm.py declares (the
+    # analyzer's node-collectives rule).
+    bad = op_audit.check_node_collectives(dense, counts, SHARD_NODE_T, name="shard-config7x")
+    if bad:
+        raise AssertionError(f"shard (b): collectives a tick {per_tick}: "
+                             f"{[f.message for f in bad]}")
     summ = summarize(ms)
     if summ.total_violations:
         raise AssertionError(f"shard (b): {summ.total_violations} violations")
     cell = {"phase": "shard_node_axis", "preset": "shard-config7x", "batch": batch,
-            "ticks": SHARD_T, "node_shards": SHARD_SHARDS, "n_pad": int(fs.role.shape[1]),
+            "ticks": SHARD_NODE_T, "node_shards": SHARD_SHARDS, "n_pad": int(fs.role.shape[1]),
             "devices": [str(d) for d in nmesh.flat()],
             "launches": launches_d, "launches_sharded": launches,
             "launches_unsharded": launches_d, "collectives_per_tick": per_tick,
             "equal": ["unshard_state", "metrics"], "max_abs_err": 0,
-            "violations": summ.total_violations, "ms_per_tick_sharded": wall_s * 1e3 / SHARD_T,
-            "ms_per_tick_unsharded": wall_d * 1e3 / SHARD_T,
+            "violations": summ.total_violations,
+            "ms_per_tick_sharded": wall_s * 1e3 / SHARD_NODE_T,
+            "ms_per_tick_unsharded": wall_d * 1e3 / SHARD_NODE_T,
             "seconds": time.perf_counter() - t_row}
     emit(cell)
     cells.append(cell)
     del fs, ms, fd, md
     torch.cuda.empty_cache()
 
-    # ---- (c) two processes on the card over gloo --------------------------------
-    t_row = time.perf_counter()
-    art = os.path.join(HERE, "raft_sim_tpu_torch", "build", "multichip_cuda.json")
-    proc = subprocess.run([sys.executable, "-m", "raft_sim_tpu_torch.multihost_check",
-                           "--device", "cuda", "--ticks", str(MULTIHOST_T), "--out", art,
-                           "--timeout", "300"],
-                          capture_output=True, text=True, cwd=HERE, timeout=360)
-    if proc.returncode != 0:
-        raise AssertionError(f"shard (c): multihost_check exit {proc.returncode}: "
-                             f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
-    verdict = json.loads(proc.stdout.strip().splitlines()[-1])
-    problems = validate_multichip(art)
+    # ---- (c) two processes on the card over gloo (run beside phase 2) -----------
+    leg = multihost.result()
+    if leg["rc"] != 0:
+        raise AssertionError(f"shard (c): multihost_check exit {leg['rc']}: "
+                             f"{leg['stdout'][-2000:]} {leg['stderr'][-2000:]}")
+    verdict = json.loads(leg["stdout"].strip().splitlines()[-1])
+    problems = validate_multichip(leg["artifact"])
     if not verdict["match"] or verdict["violations"] or problems:
         raise AssertionError(f"shard (c): {verdict} {problems}")
-    with open(art) as f:
+    with open(leg["artifact"]) as f:
         doc = json.load(f)
     emit({"phase": "shard_multihost", "n_processes": verdict["n_processes"],
           "global_shards": verdict["global_devices"], "device": verdict["device"],
@@ -2259,7 +2317,7 @@ def shard_phase(dev) -> list:
           "violations": 0, "artifact_valid": True,
           "throughput_ticks_per_s": doc["throughput_ticks_per_s"],
           "reference_ticks_per_s": doc["reference_ticks_per_s"],
-          "seconds": time.perf_counter() - t_row})
+          "seconds": leg["seconds"], "in_worker": True})
 
     # ---- (d) the farm's mesh leg -------------------------------------------------
     t_row = time.perf_counter()
@@ -2366,10 +2424,10 @@ def _tool_main(main, argv) -> tuple:
 def tools_phase(dev, legs) -> list:
     """Phase 4i: a sharded Session's planes and the tools tier on the card.
     (a) `run --devices 4 --telemetry-dir D --trace` at config6's batch
-    (TOOLS_RUN: 1,000 x 64, windows of 32, trace depth 256) on the one
+    (TOOLS_RUN: 1,000 x 32, two windows of 16, trace depth 256) on the one
     card: every sink and trace file byte-equal to the unsharded run's (the
     manifest but its creation time), the same summary line, the checker's
-    verdict equal and all six properties ok; launches 4 x 64 and 64; ms a
+    verdict equal and all six properties ok; launches 4 x 32 and 32; ms a
     tick both ways.
     Then config9 at 1,000 through a 4-shard Session's offer/offer_read
     (after TOOLS_OFFERS' 32 ticks, waits of 16): every returned dict, the
@@ -2543,6 +2601,192 @@ def tools_phase(dev, legs) -> list:
             "seconds": time.perf_counter() - t_row}
     emit(cell)
     cells.append(cell)
+    shutil.rmtree(work, ignore_errors=True)
+    return cells
+
+
+def _analysis_dynamic_leg() -> dict:
+    """analysis (c): `check --race --dynamic --device cuda` in a parity
+    worker (it times nothing): its exit code, JSON report and K1 launches."""
+    import contextlib
+    import io
+
+    from raft_sim_tpu_torch import check
+    from raft_sim_tpu_torch.kernels import tick_engine
+
+    tick_engine.step_cuda.launches = 0
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = check.main(["--race", "--dynamic", "--device", "cuda", "--format", "json"])
+    return {"rc": rc, "report": json.loads(buf.getvalue()),
+            "launches": tick_engine.step_cuda.launches, "seconds": time.perf_counter() - t0}
+
+
+def _analysis_ops_leg(device: str) -> dict:
+    """analysis (d): one recorded tick of each audit tier's four programs on
+    `device` (analysis/op_audit.py), in a parity worker: the per-program
+    rules' findings, each program's (op, output dtypes) histogram
+    (`op_audit.op_dtypes`: fills, literal tables and their copies to the
+    card left out), the peak
+    device memory and, on the card, K1's passthrough notes."""
+    import torch
+    from raft_sim_tpu_torch.analysis import op_audit
+    from raft_sim_tpu_torch.utils.config import PRESETS
+
+    t0 = time.perf_counter()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    found, hists = [], {}
+    for name in op_audit.AUDIT_CONFIGS:
+        for prog in op_audit.programs(name, PRESETS[name][0], device):
+            found += (op_audit.check_float_ops(prog) + op_audit.check_plane_widening(prog)
+                      + op_audit.check_carry(prog) + op_audit.check_large_constants(prog))
+            hists[prog.label] = op_audit.op_dtypes(prog.records)
+    out = {"findings": [f.to_json() for f in found], "hists": hists,
+           "seconds": time.perf_counter() - t0}
+    if device == "cuda":
+        out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        out["k1_passthrough"] = op_audit.k1_notes(device=device)
+    return out
+
+
+def analysis_phase(dev, legs, resources) -> list:
+    """Phase 4j: the analyzer's runtime legs on the card (the module
+    docstring's 4j). (a) and (b) run here, armed against unarmed; (c) and
+    (d) ran in the parity workers (`legs`), (e) on the build's ptxas report
+    (`resources`, checked right after the build). Returns the cells whose
+    launches count."""
+    import argparse
+
+    import torch
+    from raft_sim_tpu_torch import bench, driver
+    from raft_sim_tpu_torch.analysis import sanitizer
+    from raft_sim_tpu_torch.kernels import tick_engine
+    from raft_sim_tpu_torch.serve import ServeSession
+    from raft_sim_tpu_torch.utils.config import PRESETS
+
+    cells = []
+    work = os.path.join(HERE, "raft_sim_tpu_torch", "build", "analysis_phase")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+
+    # ---- (a) run --sanitize at config6's batch, armed == unarmed ---------------
+    t_row = time.perf_counter()
+    batch, ticks, chunk = SAN_RUN
+    runs = {}
+    for label, arm in (("unarmed", False), ("armed", True)):
+        d = os.path.join(work, label)
+        sess = driver.Session(PRESETS["config6"][0], batch=batch, seed=SEED, device=dev)
+        sess.attach_telemetry(d, window=chunk, ring=8)
+        before = sess.state
+        snap = sanitizer.snapshot(before)
+        torch.cuda.synchronize()
+        tick_engine.step_cuda.launches = 0
+        t0 = time.perf_counter()
+        with driver.sanitize_ctx(argparse.Namespace(sanitize=arm)) as san:
+            sess.run(ticks, chunk=chunk)
+            summ = sess.summary()  # copies to the host: waits for the device
+        wall = time.perf_counter() - t0
+        driver.sanitize_report(san)
+        sess.finalize_telemetry()
+        changed = sanitizer.mismatched_leaves(snap, sanitizer.snapshot(before))
+        runs[label] = (sess, d, san, tick_engine.step_cuda.launches, wall, summ, changed)
+    us, ud, _, u_launch, u_wall, u_summ, _ = runs["unarmed"]
+    as_, ad, san, a_launch, a_wall, a_summ, changed = runs["armed"]
+    if a_launch != ticks or u_launch != ticks:
+        raise AssertionError(f"analysis (a): {u_launch}/{a_launch} kernel launches for {ticks}")
+    check_equal(us.state, as_.state, "analysis (a): armed state != unarmed")
+    check_equal(us.metrics, as_.metrics, "analysis (a): armed metrics != unarmed")
+    if changed:
+        raise AssertionError(f"analysis (a): the caller's state changed at {changed[:3]}")
+    files = sorted(f for f in os.listdir(ud)
+                   if f != "manifest.json" and f.endswith((".json", ".jsonl")))
+    for name in files:
+        with open(os.path.join(ud, name), "rb") as fu, open(os.path.join(ad, name), "rb") as fa:
+            if fu.read() != fa.read():
+                raise AssertionError(f"analysis (a): {name} differs armed vs unarmed")
+    if san["calls"] != {"sim.telemetry._chunk_t": ticks // chunk} or not (
+            san["poisoned"] > 0 and san["released"] > 0):
+        raise AssertionError(f"analysis (a): sanitizer counters {san}")
+    if a_summ["total_violations"] or a_summ != u_summ:
+        raise AssertionError(f"analysis (a): summaries {a_summ} vs {u_summ}")
+    cell = {"phase": "analysis_run_sanitize", "preset": "config6", "batch": batch,
+            "ticks": ticks, "chunk": chunk, "launches": a_launch + u_launch,
+            "equal": ["state", "metrics", *files], "caller_unchanged": True,
+            "sanitizer": {k: v for k, v in san.items()},
+            "ms_per_tick_armed": a_wall * 1e3 / ticks, "ms_per_tick_unarmed": u_wall * 1e3 / ticks,
+            "seconds": time.perf_counter() - t_row}
+    emit(cell)
+    cells.append(cell)
+    del runs, us, as_
+    torch.cuda.empty_cache()
+
+    # ---- (b) serve --sanitize on config9-serve, armed == unarmed ----------------
+    t_row = time.perf_counter()
+    batch9, warm, n_chunks, chunk9 = SAN_SERVE
+    serves = {}
+    for label, arm in (("unarmed", False), ("armed", True)):
+        sess = ServeSession(PRESETS["config9"][0], batch=batch9, seed=0, chunk=chunk9,
+                            window=chunk9, warmup_ticks=warm,
+                            tenants=bench.serve_tenants(batch9, 4), device=dev)
+        torch.cuda.synchronize()
+        tick_engine.step_cuda.launches = 0
+        with driver.sanitize_ctx(argparse.Namespace(sanitize=arm)) as san:
+            stats = sess.serve(chunks=n_chunks)
+        driver.sanitize_report(san)
+        stats = {k: v for k, v in stats.items() if not k.endswith("_s")}
+        serves[label] = (sanitizer.snapshot((sess.state, sess.metrics)), sess.delta_rows,
+                         [t.acked_values for t in sess.router.tenants], stats, san,
+                         tick_engine.step_cuda.launches)
+    u_tree, u_rows, u_acks, u_stats, _, u_launch = serves["unarmed"]
+    a_tree, a_rows, a_acks, a_stats, san, a_launch = serves["armed"]
+    bad = sanitizer.mismatched_leaves(u_tree, a_tree)
+    if bad or u_rows != a_rows or u_acks != a_acks or u_stats != a_stats:
+        raise AssertionError(f"analysis (b): armed serve differs from unarmed ({bad[:3]})")
+    if a_launch != n_chunks * chunk9 or san["calls"] != {"serve.loop._serve_chunk": n_chunks} \
+            or san["released"] <= 0 or a_stats["commands_acked"] <= 0:
+        raise AssertionError(f"analysis (b): launches {a_launch}, sanitizer {san}, {a_stats}")
+    cell = {"phase": "analysis_serve_sanitize", "preset": "config9-serve", "batch": batch9,
+            "warmup": warm, "chunks": n_chunks, "chunk": chunk9, "launches": a_launch + u_launch,
+            "equal": ["acks", "delta rows", "state", "metrics", "stats"],
+            "commands_acked": a_stats["commands_acked"], "reads_served": a_stats["reads_served"],
+            "sanitizer": {k: v for k, v in san.items()}, "seconds": time.perf_counter() - t_row}
+    emit(cell)
+    cells.append(cell)
+    del serves
+    torch.cuda.empty_cache()
+
+    # ---- (c) check --race --dynamic on the card (run beside phase 2) ------------
+    dyn = legs["dynamic"]
+    rep = dyn["report"]
+    if dyn["rc"] != 0 or rep["n_unwaived"] or not rep["device"].startswith("cuda"):
+        raise AssertionError(f"analysis (c): check --race --dynamic exit {dyn['rc']}: {rep}")
+    loops = rep["info"]["dynamic"]["loops"]
+    if len(loops) != 3 or any(st["poisoned"] + st["released"] <= 0 for st in loops.values()):
+        raise AssertionError(f"analysis (c): loop counters {loops}")
+    emit({"phase": "analysis_check_dynamic", "exit": 0, "loops": loops,
+          "launches_in_worker": dyn["launches"], "seconds": dyn["seconds"]})
+
+    # ---- (d) the op audit's programs on the card == on the CPU (beside phase 2) --
+    card, cpu = legs["ops"]["cuda"], legs["ops"]["cpu"]
+    if card["findings"] or cpu["findings"]:
+        raise AssertionError(f"analysis (d): findings {card['findings'][:3]} {cpu['findings'][:3]}")
+    differ = [k for k in cpu["hists"] if card["hists"].get(k) != cpu["hists"][k]]
+    if differ or set(card["hists"]) != set(cpu["hists"]):
+        raise AssertionError(f"analysis (d): op dtypes differ card vs CPU in {differ[:4]}")
+    emit({"phase": "analysis_op_audit", "programs": len(card["hists"]), "findings": 0,
+          "op_dtypes_equal": True, "peak_mem_bytes": card["peak_mem_bytes"],
+          "k1_passthrough": card["k1_passthrough"], "seconds_card": card["seconds"],
+          "seconds_cpu": cpu["seconds"]})
+
+    # ---- (e) cost-kernel-resources against the build's ptxas report -----------
+    if resources["findings"]:
+        raise AssertionError(f"analysis (e): {resources['findings'][:3]}")
+    emit({"phase": "analysis_kernel_resources", "instantiations": resources["instantiations"],
+          "classes": resources["classes"], "findings": 0})
+    launches = sum(c["launches"] for c in cells)
+    emit({"phase": "analysis_launches", "main": launches, "workers": dyn["launches"]})
     shutil.rmtree(work, ignore_errors=True)
     return cells
 
@@ -2723,6 +2967,7 @@ def main() -> int:
     os.makedirs(legs_dir)
     try:
         obs_legs = {"cpu": parity_pool.submit(_observe_leg, "cpu", legs_dir)}
+        trace_b = {"cpu": parity_pool.submit(_trace_small_leg, "cpu", legs_dir)}
         bench_legs = {"cpu": parity_pool.submit(_compact_bench_leg, "cpu", legs_dir)}
         t0 = time.perf_counter()
         proxy_build = pool.submit(tick_engine.build, proxy=True)
@@ -2734,6 +2979,15 @@ def main() -> int:
         ptxas = [ln.split("ptxas info    :")[-1].strip()
                  for ln in tick_engine.BUILD_INFO.get("ptxas", "").splitlines()
                  if "Compiling entry" in ln or "registers" in ln or "stack frame" in ln]
+        # analysis (e): the build's ptxas report against its pins.
+        from raft_sim_tpu_torch.analysis import cost_model
+
+        with open(cost_model.golden_path()) as f:
+            pins = json.load(f)["kernel_resources"]
+        report = tick_engine.ptxas_report()
+        resources = {"findings": [x.to_json()
+                                  for x in cost_model.check_kernel_resources(report, pins)],
+                     "instantiations": len(report), "classes": sorted(pins)}
         emit({"phase": "build", "seconds": time.perf_counter() - t0, "card_seconds": card_s,
               "nvcc_seconds": tick_engine.BUILD_INFO.get("seconds"),
               "proxy_nvcc_seconds": tick_engine.PROXY_BUILD_INFO.get("seconds"),
@@ -2744,7 +2998,14 @@ def main() -> int:
         # (a), serve (a), compact (a), (d) and (e)'s other entry points. Every
         # worker is done before phase 4 times anything; each phase prints its
         # rows' lines in its place.
+        # shard (c)'s two processes first: their start-up overlaps the rest;
+        # then analysis (c) and (d)'s legs.
+        multihost = parity_pool.submit(_multihost_leg)
+        analysis_legs = {"dynamic": parity_pool.submit(_analysis_dynamic_leg),
+                         "ops": {d: parity_pool.submit(_analysis_ops_leg, d)
+                                 for d in ("cuda", "cpu")}}
         obs_legs["cuda"] = parity_pool.submit(_observe_leg, "cuda", legs_dir)
+        trace_b["cuda"] = parity_pool.submit(_trace_small_leg, "cuda", legs_dir)
         bench_legs["cuda"] = parity_pool.submit(_compact_bench_leg, "cuda", legs_dir)
         trace_futs = [parity_pool.submit(_trace_row, name) for name in TRACE_ROWS]
         served_futs = [parity_pool.submit(_served_row, *row) for row in served_rows()]
@@ -2770,9 +3031,12 @@ def main() -> int:
                         "bench": {d: f.result() for d, f in bench_legs.items()},
                         "scan": scan_fut.result()}
         obs_legs = {d: f.result() for d, f in obs_legs.items()}
+        trace_b = {d: f.result() for d, f in trace_b.items()}
         for fut in (*(f for pair in tools_legs["parity"].values() for f in pair),
-                    *tools_legs["repro"].values()):
+                    *tools_legs["repro"].values(), multihost):
             fut.result()
+        analysis_legs = {"dynamic": analysis_legs["dynamic"].result(),
+                         "ops": {d: f.result() for d, f in analysis_legs["ops"].items()}}
     finally:
         parity_pool.shutdown(cancel_futures=True)
         pool.shutdown()
@@ -2786,7 +3050,9 @@ def main() -> int:
     # limit with the later phases beside them (the crash cells' input draws
     # take 50-120 ms a tick, by the host); longer where a liveness check
     # needs the depth: config6/config6r's and config9's rings must wrap
-    # (256 and 352), and every config4c cluster must commit (320).
+    # (256 and 352), and every config4c cluster must commit (320); config8
+    # offers its first membership toggle at tick 97, so its 128 ticks see
+    # config entries appended (checked below).
     full_cells = (("config2", 128), ("config3", 128), ("config4", 128), ("config5", 128),
                   ("config6", 256), ("config6r", 256), ("config3p", 128), ("config8", 128),
                   ("config9", 352), ("config10", 128), ("config4c", 320), ("config7", 128))
@@ -2815,6 +3081,10 @@ def main() -> int:
             raise AssertionError(f"{name}: a cluster's ring never wrapped (min max_commit {min_commit})")
         if cfg.read_index and int((metrics.reads_served <= 0).sum()) != 0:
             raise AssertionError(f"{name}: a cluster served no read")
+        # Clusters in which a node holds a config entry (cfg_epoch above 0).
+        member_clusters = int((final.cfg_epoch > 0).any(dim=-1).sum())
+        if cfg.reconfig_interval and member_clusters == 0:
+            raise AssertionError(f"{name}: no membership change was appended in {ticks} ticks")
         if cfg.durable_storage:
             if int((metrics.fsync_lag_sum <= 0).sum()) != 0:
                 raise AssertionError(f"{name}: a cluster's disk never lagged its log")
@@ -2856,6 +3126,7 @@ def main() -> int:
             "max_commit_median": float(metrics.max_commit.float().median()),
             "noop_blocked": int(metrics.noop_blocked.sum()),
             "reads_served_min": int(metrics.reads_served.min()),
+            "membership_clusters": member_clusters,
             "fsync_lag_sum_min": int(metrics.fsync_lag_sum.min()),
             "summary": summ._asdict(), "shape": shape,
         }
@@ -2885,7 +3156,7 @@ def main() -> int:
     emit({"phase": "phase_end", "name": "scenario", "seconds": time.perf_counter() - t_start})
 
     # ---- 4e: the protocol trace plane --------------------------------------------
-    for cell in trace_phase(dev, wall_ms, trace_a):
+    for cell in trace_phase(dev, wall_ms, trace_a, trace_b):
         cells.append(cell)
         total_launches += cell["launches"]
     emit({"phase": "phase_end", "name": "trace", "seconds": time.perf_counter() - t_start})
@@ -2905,7 +3176,7 @@ def main() -> int:
     emit({"phase": "phase_end", "name": "observe", "seconds": time.perf_counter() - t_start})
 
     # ---- 4h: the multi-device tier on the one card --------------------------------
-    for cell in shard_phase(dev):
+    for cell in shard_phase(dev, multihost):
         cells.append(cell)
         total_launches += cell["launches"]
     emit({"phase": "phase_end", "name": "shard", "seconds": time.perf_counter() - t_start})
@@ -2915,6 +3186,12 @@ def main() -> int:
         cells.append(cell)
         total_launches += cell["launches"]
     emit({"phase": "phase_end", "name": "tools", "seconds": time.perf_counter() - t_start})
+
+    # ---- 4j: the analyzer's runtime legs ------------------------------------------
+    for cell in analysis_phase(dev, analysis_legs, resources):
+        cells.append(cell)
+        total_launches += cell["launches"]
+    emit({"phase": "phase_end", "name": "analysis", "seconds": time.perf_counter() - t_start})
 
     # ---- 5: the port's bench row, card vs CPU -----------------------------------
     cfg2 = PRESETS["config2"][0]

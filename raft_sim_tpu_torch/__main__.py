@@ -1,4 +1,4 @@
-"""Command line: `python -m raft_sim_tpu_torch run|serve|scenario|bench|presets`.
+"""Command line: `python -m raft_sim_tpu_torch run|serve|scenario|bench|presets|check`.
 
 `run`, `serve` and `presets` are the port of raft_sim_tpu/driver.py's
 subcommands: `run` drives a `driver.Session` (chunked runs, checkpoints with
@@ -11,6 +11,9 @@ scenario engine (scenario/: nemesis programs, the violation hunt, repro
 artifacts) and the fuzzing farm (farm/). `run` and `serve` take --perf (the
 chunk timer, obs/) and --health (the SLO monitors, health/); they and
 `scenario search|farm` take --profile DIR (a torch.profiler trace).
+`check` is the analyzer's gate (check.py: the five passes of
+raft_sim_tpu_torch/analysis, the port of tools/check.py). `run` and `serve`
+take --sanitize (the release-poison sanitizer, analysis/sanitizer.py).
 `bench` is the port of bench.py (bench.py in
 this package): one JSON document of bench rows, or with --measurement-pass
 --out P the measurement pass (the A/B pairs, the mesh-scaling leg and the
@@ -43,6 +46,11 @@ from raft_sim_tpu_torch.utils.config import PRESETS
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["check"]:
+        from raft_sim_tpu_torch import check
+
+        return check.main(argv[1:])
     ap = argparse.ArgumentParser(
         prog="python -m raft_sim_tpu_torch", formatter_class=argparse.RawDescriptionHelpFormatter,
         epilog="tools: " + __doc__[__doc__.index("The tools run"):])
@@ -58,6 +66,8 @@ def main(argv=None) -> int:
     bench_p = sub.add_parser("bench", help="cluster-ticks/s and quality rows per preset")
     bench.add_arguments(bench_p)
     sub.add_parser("presets", help="list the config presets")
+    sub.add_parser("check", help="the analyzer's gate (raft_sim_tpu_torch/check.py; "
+                   "`check --help` for its flags)")
     args = ap.parse_args(argv)
 
     if args.cmd == "bench":

@@ -39,12 +39,13 @@ sets the experiment), --apply-log, --apply-cluster, --telemetry-dir,
 (a TEST-ONLY weakened tick, scenario/mutation.py), --devices N (shard the
 batch, `Session(devices=)`), --perf (the chunk timer,
 `Session.attach_perf`), --health [SPEC] (the SLO monitor,
-`Session.attach_health`), --profile DIR (`profile_ctx`), --progress,
+`Session.attach_health`), --profile DIR (`profile_ctx`), --sanitize (the
+release-poison sanitizer, `sanitize_ctx`), --progress,
 --device and --backend (`select_device`: the JAX driver's backend names
 mapped to a torch device).
 `add_serve_arguments` / `serve` are the `serve` subcommand: the standing
 fleet of serve/loop.py fed from a JSONL command source, with --perf,
---health and --profile.
+--health, --profile and --sanitize (the warmup runs unarmed, as in JAX).
 `add_scenario_arguments` / `scenario` are the `scenario` subcommands: `run`
 (a fleet under a JSON nemesis program, `run_scenario`; its checkpoints carry
 the program), `search` (the violation hunt, scenario/search.py), `farm` (the
@@ -650,9 +651,36 @@ def add_run_arguments(p: argparse.ArgumentParser) -> None:
                         "spec (the built-in default, or a JSON spec file) every eval period, "
                         "streaming health.jsonl and alerts.jsonl; firing burn-rate alerts "
                         "freeze evidence bundles with live flight-ring snapshots")
+    add_sanitize_argument(p)
     add_profile_argument(p)
     add_device_arguments(p)
     add_config_flags(p)
+
+
+def add_sanitize_argument(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--sanitize", action="store_true",
+                   help="arm the release-poison sanitizer (analysis/sanitizer.py): once each "
+                        "chunk is synchronized, the carry its loop handed over is poisoned in "
+                        "place, so a late read of it changes the run; the armed run equals the "
+                        "unarmed one (the overlap is serialized). One report line on stderr")
+
+
+def sanitize_ctx(args):
+    """The --sanitize arming of run and serve: the sanitizer over every
+    registered releasing chunk step, or nothing without the flag. Yields
+    the sanitizer's counters (None unarmed)."""
+    if not getattr(args, "sanitize", False):
+        return contextlib.nullcontext()
+    from raft_sim_tpu_torch.analysis import sanitizer
+
+    return sanitizer.armed()
+
+
+def sanitize_report(san) -> None:
+    if san is not None:
+        from raft_sim_tpu_torch.analysis import sanitizer
+
+        print(sanitizer.report_line(san), file=sys.stderr)
 
 
 def add_profile_argument(p: argparse.ArgumentParser) -> None:
@@ -807,10 +835,11 @@ def run(ap: argparse.ArgumentParser, args) -> int:
         except ValueError as ex:
             ap.error(str(ex))
     t0 = time.perf_counter()
-    with profile_ctx(args.profile, sess.device):
+    with profile_ctx(args.profile, sess.device), sanitize_ctx(args) as san:
         sess.run(args.ticks, chunk=args.chunk, progress=args.progress)
         out = sess.summary()  # copies to the host: waits for the device
     dt = time.perf_counter() - t0
+    sanitize_report(san)
     out["wall_s"] = dt
     out["cluster_ticks_per_s"] = sess.batch * args.ticks / dt
     out["device"] = _device_name(sess.device)
@@ -888,6 +917,7 @@ def add_serve_arguments(p: argparse.ArgumentParser) -> None:
                    help="arm fleet and per-tenant SLO monitors (needs --sink): health.jsonl "
                         "and alerts.jsonl, status lines on stderr, evidence bundles on firing "
                         "alerts; the built-in default spec, or a JSON spec file")
+    add_sanitize_argument(p)
     add_profile_argument(p)
     add_device_arguments(p)
     add_config_flags(p)
@@ -982,11 +1012,12 @@ def serve(ap: argparse.ArgumentParser, args) -> int:
                   f"{st['reads_served']} reads, violations={st['violations']}", file=sys.stderr)
 
     try:
-        with profile_ctx(args.profile, dev):
+        with profile_ctx(args.profile, dev), sanitize_ctx(args) as san:
             stats = sess.serve(source, chunks=args.chunks, drain_chunks=args.drain_chunks,
                                progress=progress)
     except ValueError as ex:
         ap.error(str(ex))
+    sanitize_report(san)
     out = summarize(sess.metrics)._asdict()
     out.update(stats)
     if stats["wall_s"] > 0:

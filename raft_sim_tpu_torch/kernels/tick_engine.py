@@ -279,6 +279,7 @@ def build(proxy: bool = False) -> Path:
     finally:
         for obj in objs:
             obj.unlink(missing_ok=True)
+    out.with_suffix(".ptxas.txt").write_text("".join(reports))
     os.replace(tmp, out)
     info = PROXY_BUILD_INFO if proxy else BUILD_INFO
     info.update(seconds=time.perf_counter() - t0, ptxas="".join(reports), path=str(out))
@@ -287,8 +288,13 @@ def build(proxy: bool = False) -> Path:
 
 def ptxas_report(text: str | None = None) -> dict:
     """{mangled kernel name: {"registers", "stack", "spill_stores",
-    "spill_loads"}} from nvcc's -Xptxas -v output (the last build's)."""
-    text = BUILD_INFO.get("ptxas", "") if text is None else text
+    "spill_loads"}} from nvcc's -Xptxas -v output: the last build's in this
+    process, else the one `build` saved beside the library."""
+    if text is None:
+        text = BUILD_INFO.get("ptxas", "")
+        saved = BUILD_DIR / f"libtick_{_source_tag()}.ptxas.txt"
+        if not text and saved.exists():
+            text = saved.read_text()
     out, name = {}, None
     for ln in text.splitlines():
         m = re.search(r"Function properties for (\S+)", ln)

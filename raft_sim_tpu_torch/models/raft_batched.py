@@ -909,7 +909,9 @@ def _step_b(
     else:
         k_ = cap + 1
         # Pad peers ride the self lane: a win resets their ack ages too.
-        enc = prev_out + torch.where(pad_self, 2 * k_, torch.where(responsive, 0, k_)).to(I32)
+        # (~responsive) * k_ keeps the select int32: a where of two Python
+        # scalars would build an int64 plane.
+        enc = prev_out + torch.where(pad_self, 2 * k_, (~responsive).to(I32) * k_)
         m = enc.amin(1)
         ws = torch.where(m >= k_, m - k_, m).clamp(min=0)
     ws = torch.minimum(ws, len32)
@@ -930,9 +932,11 @@ def _step_b(
     else:
         out_ent_tick = mb.ent_tick
     out_ent_cfg = torch.where(ship_used, window(log_cfg_arr, ws, e), 0) if rcf else mb.ent_cfg
-    out_resp_kind = torch.where(is_rv, RESP_VOTE, 0) + torch.where(is_ae, RESP_APPEND, 0)
+    # The kinds as int8 products (the leaf's dtype): a where of two Python
+    # scalars would build int64 planes.
+    out_resp_kind = is_rv.to(torch.int8) * RESP_VOTE + is_ae.to(torch.int8) * RESP_APPEND
     if pv:
-        out_resp_kind = out_resp_kind + torch.where(is_pv, RESP_PREVOTE, 0)
+        out_resp_kind = out_resp_kind + is_pv.to(torch.int8) * RESP_PREVOTE
         if sh is None:
             out_pv_grant = bitplane.pack(pv_grant, axis=1)  # [cand, W(bit = voter), B]
         else:  # writer-major: local voter rows, candidate bits (_gather_mailbox)

@@ -41,7 +41,7 @@ def pack(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
     xm = x.movedim(ax, -1).to(torch.int64)
     pad = w * WORD - n
     if pad:
-        xm = torch.nn.functional.pad(xm, (0, pad))
+        xm = torch.constant_pad_nd(xm, (0, pad), 0)  # an int fill: F.pad's is a float
     xm = xm.reshape(xm.shape[:-1] + (w, WORD))
     weights = torch.ones(WORD, dtype=torch.int64, device=x.device) << torch.arange(
         WORD, dtype=torch.int64, device=x.device

@@ -50,6 +50,13 @@ DEFAULT_TIMEOUT = 120.0
 
 FOLDS = ("max", "min", "sum", "any")
 
+# The gathers the node-sharded tick declares, with the most it takes of each
+# a tick: ONE gather of the outbound mailbox, and one of the leaders by term
+# under check_invariants. With FOLDS they are every kind `counts` may hold
+# (the analyzer's `node-collectives` rule, analysis/op_audit.py).
+GATHERS_PER_TICK = {"mailbox_gather": 1, "leaders_gather": 1}
+DECLARED_KINDS = frozenset(GATHERS_PER_TICK) | frozenset(FOLDS)
+
 
 def _fold(st: torch.Tensor, op: str, dtype) -> torch.Tensor:
     if op == "max":

@@ -49,6 +49,7 @@ from raft_sim_tpu_torch.sim.chunked import merge_metrics
 from raft_sim_tpu_torch.types import NIL
 from raft_sim_tpu_torch.utils import device as device_mod
 from raft_sim_tpu_torch.utils.config import RaftConfig
+from raft_sim_tpu_torch.utils.release import releases
 
 
 def serve_config(cfg: RaftConfig) -> RaftConfig:
@@ -106,6 +107,20 @@ def simulate_serve(cfg: RaftConfig, seed: int, batch: int, cmds, window: int, re
     state, keys = scan.seed_fleet(cfg, seed, batch, device_mod.resolve(device))
     return run_windowed_served(cfg, state, keys, cmds, window, reads=reads, now=0,
                                step_fn=step_fn)
+
+
+@releases("state")
+def _serve_chunk(cfg: RaftConfig, state, keys: torch.Tensor, n: int, window: int, now: int,
+                 cmds: torch.Tensor, reads):
+    """One served chunk of `n` ticks over the batch-minor fleet `state`, with
+    the [n, B] offer planes `cmds` and `reads` (None without reads): the
+    windowed loop's (state, chunk metrics, records, recorder). The chunk takes
+    over the fleet it is given (`releases`): its caller keeps no reference,
+    and the loop holds the only one, so each tick frees the last."""
+    loop = telemetry.minor_telemetry_ticks(cfg, state, keys, n, window, now, cmds=cmds,
+                                           reads=reads)
+    del state
+    return scan.interleave([loop])[0]
 
 
 class ServeSession:
@@ -249,8 +264,8 @@ class ServeSession:
         reads = None if reads_np is None else _plane(reads_np, self.device)
         # The state goes to the chunk by value only (_take): no reference to
         # the chunk's input fleet outlives its first tick.
-        self._s, self._m_pending, recs, _ = telemetry.run_minor_telemetry(
-            self.cfg, self._take(), self.keys, n, self.window, self.now, cmds=cmds, reads=reads)
+        self._s, self._m_pending, recs, _ = _serve_chunk(
+            self.cfg, self._take(), self.keys, n, self.window, self.now, cmds, reads)
         self._recs_pending = device_mod.to_host_async(recs)
         if self.perf is not None:
             self.perf.dispatched()

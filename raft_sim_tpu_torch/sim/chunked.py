@@ -10,9 +10,11 @@ absolute tick numbers (`state.now`), which the state carries across chunks.
 
 The JAX loop donates each chunk's state to the next and takes one copy up
 front so the caller's arrays stay valid. Here every tick is out of place, so
-the caller's state is never written and no copy is taken. The state moves
-batch-minor once at entry, stays so through every tick, and crosses back to
-the [B, ...] layout once per chunk, for the callback. The lockstep tick
+the caller's state is never written and no copy is taken; the loop hands
+each chunk's state to the chunk step (`_chunk`, marked `releases`: the
+release registry of analysis/policy.py) and reads only what it returns.
+The state moves batch-minor once at entry, stays so through every tick,
+and crosses back to the [B, ...] layout once per chunk, for the callback. The lockstep tick
 `now` lives on the host: it is read from the state once (or passed in), and
 nothing is read back from the device per chunk unless the callback asks
 (or a chunk timer is armed: `perf`, obs/timer.py, syncs once a chunk).
@@ -28,6 +30,7 @@ from raft_sim_tpu_torch.models import raft_batched
 from raft_sim_tpu_torch.sim import scan
 from raft_sim_tpu_torch.types import ClusterState
 from raft_sim_tpu_torch.utils.config import RaftConfig
+from raft_sim_tpu_torch.utils.release import releases
 
 
 def merge_metrics(a: scan.RunMetrics, b: scan.RunMetrics) -> scan.RunMetrics:
@@ -56,6 +59,17 @@ def merge_metrics(a: scan.RunMetrics, b: scan.RunMetrics) -> scan.RunMetrics:
         multi_leader=a.multi_leader + b.multi_leader,
         ticks=a.ticks + b.ticks,
     )
+
+
+@releases("state")
+def _chunk(cfg: RaftConfig, state: list, keys: list, n: int, now: int, genomes: list,
+           seg_len: int) -> list:
+    """One chunk of `n` ticks of each shard's batch-minor state in `state`
+    (their launches interleaved tick by tick): [(state, chunk metrics)] a
+    shard. The chunk takes over the states it is given (`releases`): the
+    loop reads only what it returns."""
+    return scan.interleave([scan.minor_ticks(cfg, s, k, n, now, genome=g, seg_len=seg_len)
+                            for s, k, g in zip(state, keys, genomes)])
 
 
 def run_chunked(
@@ -106,9 +120,7 @@ def run_chunked(
         n = min(chunk, n_ticks - done)
         if perf is not None:
             perf.begin(n)
-        outs = scan.interleave([scan.minor_ticks(cfg, s, k, n, now + done, genome=g,
-                                                 seg_len=seg_len)
-                                for s, k, g in zip(ss, keys, genomes)])
+        outs = _chunk(cfg, ss, keys, n, now + done, genomes, seg_len)
         if perf is not None:
             perf.dispatched()
         ss = [s for s, _ in outs]

@@ -44,6 +44,7 @@ from raft_sim_tpu_torch.sim.chunked import merge_metrics
 from raft_sim_tpu_torch.types import LAT_HIST_BINS, StepInfo
 from raft_sim_tpu_torch.utils import device as device_mod
 from raft_sim_tpu_torch.utils.config import RaftConfig
+from raft_sim_tpu_torch.utils.release import releases
 
 NEVER = scan.NEVER
 
@@ -254,6 +255,25 @@ def simulate_windowed(cfg: RaftConfig, seed: int, batch: int, n_ticks: int, wind
                                      trigger_kind=trigger_kind, now=0)
 
 
+@releases("state")
+def _chunk_t(cfg: RaftConfig, state: list, keys: list, n: int, window: int, now: int,
+             recorders: list, genomes: list, seg_len: int, trace_spec, persists: list,
+             trigger_kind):
+    """One chunk of `run_chunked_telemetry`: each shard's windowed loop
+    (`minor_telemetry_ticks`) over its batch-minor state in `state`, the
+    loops interleaved tick by tick; returns each loop's result. The chunk
+    takes over the states, recorders and persists it is given (`releases`):
+    the lists are emptied, so the loops hold the only references to the
+    carries they replace tick by tick and each tick frees the last."""
+    loops = [minor_telemetry_ticks(cfg, s, k, n, window, now, rec, genome=g, seg_len=seg_len,
+                                   trace_spec=trace_spec, trace_persist=tp,
+                                   trigger_kind=trigger_kind)
+             for s, k, rec, g, tp in zip(state, keys, recorders, genomes, persists)]
+    for carried in (state, recorders, persists):
+        carried.clear()
+    return scan.interleave(loops)
+
+
 def run_chunked_telemetry(cfg: RaftConfig, state, keys: torch.Tensor, n_ticks: int,
                           window: int, recorder: FlightRecorder | None = None,
                           chunk: int = 4096, callback=None, genome=None, seg_len: int = 1,
@@ -294,8 +314,8 @@ def run_chunked_telemetry(cfg: RaftConfig, state, keys: torch.Tensor, n_ticks: i
     if sharded:
         states = state
         n = len(states)
-        recorders = recorder if recorder is not None else [None] * n
-        persists = trace_persist if trace_persist is not None else [None] * n
+        recorders = list(recorder) if recorder is not None else [None] * n
+        persists = list(trace_persist) if trace_persist is not None else [None] * n
         genomes = genome if isinstance(genome, list) else [genome] * n
     else:
         states, keys, recorders, persists, genomes = (
@@ -323,14 +343,8 @@ def run_chunked_telemetry(cfg: RaftConfig, state, keys: torch.Tensor, n_ticks: i
             n = w = left  # the remainder: one final short window
         if perf is not None:
             perf.begin(n)
-        loops = [minor_telemetry_ticks(cfg, s, k, n, w, now + done, rec, genome=g,
-                                       seg_len=seg_len, trace_spec=trace_spec,
-                                       trace_persist=tp, trigger_kind=trigger_kind)
-                 for s, k, rec, g, tp in zip(ss, keys, recorders, genomes, persists)]
-        # The loops hold the only references to the carries they replace
-        # tick by tick, so each tick frees the last.
-        ss = recorders = persists = None
-        res = scan.interleave(loops)
+        res = _chunk_t(cfg, ss, keys, n, w, now + done, recorders, genomes, seg_len,
+                       trace_spec, persists, trigger_kind)
         if perf is not None:
             perf.dispatched()
         ss = [r[0] for r in res]

@@ -110,120 +110,120 @@ def node_dtype(cfg: RaftConfig) -> torch.dtype:
 
 
 class Mailbox(NamedTuple):
-    req_type: torch.Tensor  # [N] int32
-    req_term: torch.Tensor  # [N] int32
-    req_commit: torch.Tensor  # [N] int32
-    req_last_index: torch.Tensor  # [N] int32
-    req_last_term: torch.Tensor  # [N] int32
-    ent_start: torch.Tensor  # [N] int32
-    ent_prev_term: torch.Tensor  # [N] int32
-    ent_count: torch.Tensor  # [N] int32
-    ent_term: torch.Tensor  # [N, E] int32
-    ent_val: torch.Tensor  # [N, E] int32
-    ent_tick: torch.Tensor  # [N, E] int32
-    req_base: torch.Tensor  # [N] int32
-    req_base_term: torch.Tensor  # [N] int32
-    req_base_chk: torch.Tensor  # [N] uint32 (int32 carrier)
-    xfer_tgt: torch.Tensor  # [N] node_dtype
-    req_disrupt: torch.Tensor  # [N] int8
-    ent_cfg: torch.Tensor  # [N, E] int32
-    req_base_mold: torch.Tensor  # [N, W] uint32 (int32 carrier)
-    req_base_pend: torch.Tensor  # [N] int32
-    req_base_epoch: torch.Tensor  # [N] int32
-    req_off: torch.Tensor  # [N(sender), N(receiver)] int8
-    resp_kind: torch.Tensor  # [N(receiver), N(responder)] int8
-    pv_grant: torch.Tensor  # [N, W] uint32 (int32 carrier)
-    v_to: torch.Tensor  # [N] node_dtype
-    a_ok_to: torch.Tensor  # [N] node_dtype
-    a_match: torch.Tensor  # [N] index_dtype
-    a_hint: torch.Tensor  # [N] index_dtype
-    resp_term: torch.Tensor  # [N] int32
+    req_type: torch.Tensor  # [N(sender)] int32 in [0, 4] (REQ_*): this tick's broadcast, if any
+    req_term: torch.Tensor  # [N] int32: sender's term at send time
+    req_commit: torch.Tensor  # [N] int32: AE leaderCommit
+    req_last_index: torch.Tensor  # [N] int32: RV lastLogIndex
+    req_last_term: torch.Tensor  # [N] int32: RV lastLogTerm
+    ent_start: torch.Tensor  # [N] int32 in [0, cap]: 1-based index before src's shared window (= prev at j=0)
+    ent_prev_term: torch.Tensor  # [N] int32: term of the 1-based entry ent_start (j=0 prev)
+    ent_count: torch.Tensor  # [N] int32 in [0, E]: entries shipped = min(log_len - ent_start, E)
+    ent_term: torch.Tensor  # [N, E] int32: src's shared entry window (terms)
+    ent_val: torch.Tensor  # [N, E] int32: src's shared entry window (values)
+    ent_tick: torch.Tensor  # [N, E] int32: src's shared entry window (offer stamps)
+    req_base: torch.Tensor  # [N] int32: sender's log_base (snapshot lastIncludedIndex)
+    req_base_term: torch.Tensor  # [N] int32: snapshot lastIncludedTerm
+    req_base_chk: torch.Tensor  # [N] uint32 (int32 carrier): checksum of the compacted prefix
+    xfer_tgt: torch.Tensor  # [N(sender)] int8/int16 (node_dtype) in [NIL, N-1]: TimeoutNow target node (NIL = none)
+    req_disrupt: torch.Tensor  # [N(sender)] int8 in [0, 1]: 1 = transfer-sanctioned RequestVote
+    ent_cfg: torch.Tensor  # [N, E] int32: src's shared entry window (config commands)
+    req_base_mold: torch.Tensor  # [N, W] uint32 (int32 carrier): sender's C_old at its base
+    req_base_pend: torch.Tensor  # [N] int32: sender's pending toggle code at base
+    req_base_epoch: torch.Tensor  # [N] int32: sender's config-entry count at base
+    req_off: torch.Tensor  # [N(sender), N(receiver)] int8 in [-1, E]: AE window offset j; -1 = snapshot
+    resp_kind: torch.Tensor  # [N(receiver), N(responder)] int8 in [0, 3] (RESP_*): response type per edge
+    pv_grant: torch.Tensor  # [N(receiver), W] uint32 (int32 carrier): packed pre-vote grant bits (bit = responder)
+    v_to: torch.Tensor  # [N(responder)] int8/int16 (node_dtype) in [NIL, N]: candidate granted this tick (NIL = none; N = masked no-sender sentinel)
+    a_ok_to: torch.Tensor  # [N(responder)] int8/int16 (node_dtype) in [NIL, N]: AE sender acked OK this tick (NIL = none; N = masked no-sender sentinel)
+    a_match: torch.Tensor  # [N(responder)] int16/int32 (index_dtype) in [0, cap]: acked index of the successful append
+    a_hint: torch.Tensor  # [N(responder)] int16/int32 (index_dtype) in [0, cap]: nack hint (responder's log length)
+    resp_term: torch.Tensor  # [N(responder)] int32: responder's term at send time
 
 
 class ClusterState(NamedTuple):
-    role: torch.Tensor  # [N] int32
-    term: torch.Tensor  # [N] int32
-    voted_for: torch.Tensor  # [N] int32
-    leader_id: torch.Tensor  # [N] int32
-    votes: torch.Tensor  # [N, W] uint32 (int32 carrier)
-    next_index: torch.Tensor  # [N, N] index_dtype
-    match_index: torch.Tensor  # [N, N] index_dtype
-    ack_age: torch.Tensor  # [N, N] ack_dtype
-    commit_index: torch.Tensor  # [N] int32
+    role: torch.Tensor  # [N] int32 in [0, 3] (FOLLOWER..PRECANDIDATE)
+    term: torch.Tensor  # [N] int32 (starts at 1, core.clj:34)
+    voted_for: torch.Tensor  # [N] int32 in [NIL, N] (NIL = none; N = masked no-candidate sentinel)
+    leader_id: torch.Tensor  # [N] int32 in [NIL, N] (NIL = unknown; N = masked no-sender sentinel)
+    votes: torch.Tensor  # [N, W] uint32 (int32 carrier); bit j of votes[i] = i holds a vote from j
+    next_index: torch.Tensor  # [N, N] index_dtype in [1, cap+1]; leader i's next index for peer j
+    match_index: torch.Tensor  # [N, N] index_dtype in [0, cap]
+    ack_age: torch.Tensor  # [N, N] ack_dtype in [0, sat] (int8/int16)
+    commit_index: torch.Tensor  # [N] int32 in [0, cap]
     commit_chk: torch.Tensor  # [N] uint32 (int32 carrier)
-    log_base: torch.Tensor  # [N] int32
-    base_term: torch.Tensor  # [N] int32
-    base_chk: torch.Tensor  # [N] uint32 (int32 carrier)
+    log_base: torch.Tensor  # [N] int32: snapshot lastIncludedIndex
+    base_term: torch.Tensor  # [N] int32: snapshot lastIncludedTerm
+    base_chk: torch.Tensor  # [N] uint32 (int32 carrier): checksum of entries 1..log_base
     log_term: torch.Tensor  # [N, CAP] int32
     log_val: torch.Tensor  # [N, CAP] int32
     log_tick: torch.Tensor  # [N, CAP] int32
-    log_len: torch.Tensor  # [N] int32
-    dur_len: torch.Tensor  # [N] int32
-    dur_term: torch.Tensor  # [N] int32
-    dur_vote: torch.Tensor  # [N] int32
-    clock: torch.Tensor  # [N] int32
-    deadline: torch.Tensor  # [N] int32
+    log_len: torch.Tensor  # [N] int32 in [0, cap]
+    dur_len: torch.Tensor  # [N] int32 in [0, cap]: fsynced log prefix length (<= log_len)
+    dur_term: torch.Tensor  # [N] int32: term at the last flush (boot: 1)
+    dur_vote: torch.Tensor  # [N] int32: votedFor at the last flush (NIL = none)
+    clock: torch.Tensor  # [N] int32 local (skewable) clock
+    deadline: torch.Tensor  # [N] int32 next timer fire on the local clock
     heard_clock: torch.Tensor  # [N] int32
-    member_old: torch.Tensor  # [N, W] uint32 (int32 carrier)
-    member_new: torch.Tensor  # [N, W] uint32 (int32 carrier)
-    cfg_epoch: torch.Tensor  # [N] int32
-    cfg_pend: torch.Tensor  # [N] int32
+    member_old: torch.Tensor  # [N, W] uint32 (int32 carrier): node i's C_old from its own log prefix
+    member_new: torch.Tensor  # [N, W] uint32 (int32 carrier): node i's C_new (== C_old outside joint)
+    cfg_epoch: torch.Tensor  # [N] int32: config entries in node i's prefix (+ base_epoch)
+    cfg_pend: torch.Tensor  # [N] int32: abs index of the governing joint entry (0 = none)
     log_cfg: torch.Tensor  # [N, CAP] int32
-    base_mold: torch.Tensor  # [N, W] uint32 (int32 carrier)
-    base_pend: torch.Tensor  # [N] int32
-    base_epoch: torch.Tensor  # [N] int32
-    xfer_to: torch.Tensor  # [N] int32
-    read_idx: torch.Tensor  # [N] int32
-    read_tick: torch.Tensor  # [N] int32
-    read_acks: torch.Tensor  # [N, W] uint32 (int32 carrier)
-    read_fr: torch.Tensor  # [N] int32
-    client_pend: torch.Tensor  # [K] int32
-    client_dst: torch.Tensor  # [K] int32
-    client_tick: torch.Tensor  # [K] int32
+    base_mold: torch.Tensor  # [N, W] uint32 (int32 carrier): C_old at log_base
+    base_pend: torch.Tensor  # [N] int32: pending toggle code at base (0 = none)
+    base_epoch: torch.Tensor  # [N] int32: config entries at or below base
+    xfer_to: torch.Tensor  # [N] int32 in [NIL, N-1]: pending transfer target (NIL = idle)
+    read_idx: torch.Tensor  # [N] int32: pending read's captured index + 1 (0 = none)
+    read_tick: torch.Tensor  # [N] int32: offer stamp of the pending read
+    read_acks: torch.Tensor  # [N, W] uint32 (int32 carrier): packed acks banked since capture
+    read_fr: torch.Tensor  # [N] int32: frontier at the pending read's capture
+    client_pend: torch.Tensor  # [K] int32 command values in flight (NIL = free slot)
+    client_dst: torch.Tensor  # [K] int32 node each pending command targets
+    client_tick: torch.Tensor  # [K] int32 offer stamps of the in-flight commands
     lat_frontier: torch.Tensor  # scalar int32
-    now: torch.Tensor  # scalar int32
+    now: torch.Tensor  # scalar int32 global tick counter
     mailbox: Mailbox
 
 
 class StepInputs(NamedTuple):
     deliver_mask: torch.Tensor  # [N, W] uint32 (int32 carrier); bit src of row dst
-    skew: torch.Tensor  # [N] int32
-    timeout_draw: torch.Tensor  # [N] int32
-    client_cmd: torch.Tensor  # scalar int32
-    client_target: torch.Tensor  # scalar int32
-    client_bounce: torch.Tensor  # [K] int32
-    alive: torch.Tensor  # [N] bool
-    restarted: torch.Tensor  # [N] bool
-    reconfig_cmd: torch.Tensor  # scalar int32
-    transfer_cmd: torch.Tensor  # scalar int32
-    read_cmd: torch.Tensor  # scalar int32
-    fsync_fire: torch.Tensor  # [N] bool
-    torn_drop: torch.Tensor  # [N] int32
+    skew: torch.Tensor  # [N] int32 in [0, 2] local-clock increment this tick (normally 1)
+    timeout_draw: torch.Tensor  # [N] int32 election timeout to use on any timer reset
+    client_cmd: torch.Tensor  # scalar int32 command value offered this tick; NIL = none
+    client_target: torch.Tensor  # scalar int32 in [0, N-1]
+    client_bounce: torch.Tensor  # [K] int32 in [0, N-1]
+    alive: torch.Tensor  # [N] bool; False = node crashed this tick (silent, frozen)
+    restarted: torch.Tensor  # [N] bool; True = node came back up this tick (volatile wipe)
+    reconfig_cmd: torch.Tensor  # scalar int32 in [NIL, N-1]; NIL = none
+    transfer_cmd: torch.Tensor  # scalar int32 in [NIL, N-1]; NIL = none
+    read_cmd: torch.Tensor  # scalar int32 in [NIL, 1]: 0/1 flag encoded as value; NIL = none
+    fsync_fire: torch.Tensor  # [N] bool; True = flush completes this tick
+    torn_drop: torch.Tensor  # [N] int32: torn-tail entries dropped at recovery
 
 
 class StepInfo(NamedTuple):
-    viol_election_safety: torch.Tensor  # bool
-    viol_commit: torch.Tensor  # bool
-    viol_log_matching: torch.Tensor  # bool
-    leader: torch.Tensor  # int32
-    n_leaders: torch.Tensor  # int32
+    viol_election_safety: torch.Tensor  # bool: two leaders share a term
+    viol_commit: torch.Tensor  # bool: commit regressed or exceeds log length
+    viol_log_matching: torch.Tensor  # bool (False unless cfg.check_log_matching)
+    leader: torch.Tensor  # int32: lowest-id current leader, NIL if none
+    n_leaders: torch.Tensor  # int32: number of nodes in LEADER role
     max_term: torch.Tensor  # int32
     max_commit: torch.Tensor  # int32
     min_commit: torch.Tensor  # int32
-    msgs_delivered: torch.Tensor  # int32
-    cmds_injected: torch.Tensor  # int32
-    lat_sum: torch.Tensor  # int32
-    lat_cnt: torch.Tensor  # int32
-    lat_hist: torch.Tensor  # [LAT_HIST_BINS] int32
-    lat_excluded: torch.Tensor  # int32
-    noop_blocked: torch.Tensor  # int32
-    lm_skipped_pairs: torch.Tensor  # int32
-    reads_served: torch.Tensor  # int32
-    read_lat_sum: torch.Tensor  # int32
-    read_hist: torch.Tensor  # [LAT_HIST_BINS] int32
-    viol_read_stale: torch.Tensor  # bool
-    fsync_lag_sum: torch.Tensor  # int32
-    fsync_lag_max: torch.Tensor  # int32
+    msgs_delivered: torch.Tensor  # int32: request+response records delivered this tick
+    cmds_injected: torch.Tensor  # int32 0/1: an offered command was accepted by a live leader
+    lat_sum: torch.Tensor  # int32: sum of commit latencies of entries committed this tick
+    lat_cnt: torch.Tensor  # int32: number of client entries committed this tick
+    lat_hist: torch.Tensor  # [LAT_HIST_BINS] int32 (zeros unless track_offer_ticks)
+    lat_excluded: torch.Tensor  # int32 (zero unless track_offer_ticks)
+    noop_blocked: torch.Tensor  # int32: count of win & no-noop-room events this tick
+    lm_skipped_pairs: torch.Tensor  # int32: unordered pairs skipped by the check
+    reads_served: torch.Tensor  # int32: ReadIndex reads served this tick
+    read_lat_sum: torch.Tensor  # int32: summed offer->serve latency of served reads
+    read_hist: torch.Tensor  # [LAT_HIST_BINS] int32 (zeros unless read_index)
+    viol_read_stale: torch.Tensor  # bool: a stale lease read was served
+    fsync_lag_sum: torch.Tensor  # int32: sum over nodes of log_len - dur_len
+    fsync_lag_max: torch.Tensor  # int32: max over nodes of log_len - dur_len
 
 
 def empty_mailbox(cfg: RaftConfig, lead=(), device="cpu") -> Mailbox:

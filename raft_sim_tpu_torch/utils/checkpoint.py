@@ -38,6 +38,16 @@ from raft_sim_tpu_torch.utils.config import RaftConfig
 # a file of any other version is refused.
 FORMAT_VERSION = 25
 
+# Fingerprint of the serialized schema: (version, sha256 of the ordered field
+# names and each leaf's rank and public dtype of ClusterState / Mailbox /
+# RunMetrics under the analyzer's canonical config). The JAX package pins the
+# same pair for the same file format. The analyzer (raft_sim_tpu_torch/
+# analysis, rule `checkpoint-version`) recomputes the hash from the live
+# NamedTuples and fails when the field set changed without bumping
+# FORMAT_VERSION and refreshing this pin. Refresh with:
+#     python -c "from raft_sim_tpu_torch.analysis import policy; print(policy.schema_fingerprint())"
+_SCHEMA_FINGERPRINT = (25, "541dcec1cfa9709e")
+
 
 def _check_dtypes(cfg: RaftConfig, state: ClusterState, metrics: RunMetrics, where: str) -> None:
     """Raise TypeError unless every leaf has the dtype the JAX package gives

@@ -1,6 +1,8 @@
 """The Hopper tick kernel on the card (marker `cuda`): `step_cuda` on CUDA
 tensors against the plain PyTorch tick on the same CUDA tensors, tick by tick,
-and `simulate` on the card against the port on the CPU. Skips where torch sees
+and `simulate` on the card against the port on the CPU; the sanitizer's
+armed runs against unarmed ones and K1's ptxas resources against their pins
+(raft_sim_tpu_torch/analysis). Skips where torch sees
 no CUDA device; on a machine with one H100:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
@@ -616,3 +618,53 @@ def test_tools_card_match_cpu(card, tmp_path):
                      "config2", "--mesh-preset", "config2", "--ticks", "8", "--repeats", "1",
                      "--out", str(doc)]) == 0
     assert metrics_report.main(["--perf", str(doc)]) == 0
+
+
+def test_sanitized_loops_on_the_card_equal_unarmed(card):
+    """The release-poison sanitizer on the card: each chunk loop's armed run
+    (chunked, telemetry, serve) equals its unarmed run leaf for leaf, the
+    wrapper fired, and the caller's input is unchanged."""
+    from raft_sim_tpu_torch.analysis import sanitizer
+
+    found, info = sanitizer.run_dynamic(str(card))
+    assert found == []
+    assert all(sum(st["calls"].values()) >= 2 for st in info["loops"].values())
+    assert all(st["poisoned"] + st["released"] > 0 for st in info["loops"].values())
+
+
+def test_run_sanitize_on_the_card_equals_unarmed(card):
+    """`Session.run` armed and unarmed at config6, 4 chunks:
+    state and metrics equal; the caller's state unchanged."""
+    import contextlib
+
+    from raft_sim_tpu_torch.analysis import sanitizer
+    from raft_sim_tpu_torch.driver import Session
+
+    cfg = tconfig.PRESETS["config6"][0]
+    runs = []
+    for arm in (False, True):
+        sess = Session(cfg, batch=64, seed=0, device=card)
+        before = sess.state
+        snap = sanitizer.snapshot(before)
+        ctx = sanitizer.armed() if arm else contextlib.nullcontext(None)
+        with ctx as stats:
+            sess.run(128, chunk=32)
+        assert sanitizer.mismatched_leaves(snap, sanitizer.snapshot(before)) == []
+        runs.append((sanitizer.snapshot(sess.state), sanitizer.snapshot(sess.metrics)))
+    assert stats["calls"] == {"sim.chunked._chunk": 4} and stats["poisoned"] > 0
+    assert sanitizer.mismatched_leaves(runs[0], runs[1]) == []
+
+
+def test_kernel_resources_hold_the_pins(card):
+    """ptxas's registers, stack and spills of every K1 instantiation of the
+    build against tests/golden_torch_cost.json (cost-kernel-resources)."""
+    import json
+
+    from raft_sim_tpu_torch.analysis import cost_model
+
+    tick_engine.build()
+    report = tick_engine.ptxas_report()
+    assert len(report) >= 12
+    with open(cost_model.golden_path()) as f:
+        pins = json.load(f)["kernel_resources"]
+    assert cost_model.check_kernel_resources(report, pins) == []
