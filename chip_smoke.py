@@ -10,16 +10,18 @@ the start; any failure raises and exits non-zero):
    the tick kernel's build from raft_sim_tpu_torch/csrc (nvcc, sm_90a) with its
    seconds and the compiler's register/stack/spill report per instantiation
    (tick_kernel<index, ack, node dtype, width tier, nodes per thread, body:
-   0 lean, 1 full, 2 mutant>), nine nvcc runs in parallel, and the race
-   proxy's library (below) with it, nine more: both are built before any
-   row runs on the card. PARITY_WORKERS worker processes, each with its
+   0 lean, 1 full, 2 mutant>), nine nvcc runs in parallel, the draw kernel's
+   (K2, raft_sim_tpu_torch/csrc/draws.cu: one nvcc run, started beside them,
+   its ptxas line printed too), and the race proxy's library (below) with
+   them, nine more: all are built before any row runs on the card. PARITY_WORKERS worker processes, each with its
    own context on the card and a lower priority than nvcc, start before
    the build; the rows that time nothing -- phases 2, 2b and 3, serve (a),
    trace (a), compact (a), (d) and (e), observe (b) and (e), and the CPU
    and card legs of tools (b) and (c) -- run in them
    (those on the CPU alone beside the build), and all are done before
    phase 4 times anything (`parity_workers`' phase_end line). Their lines
-   print in each phase's place and order.
+   print in each phase's place and order. The draws_vs_plain rows (2c) run
+   there too.
 2. kernel_vs_plain -- presets config1-config5 and config3p for 64 ticks,
    config6 and config6r for 96 (config6-cap8 and the ring-LM rows carry
    the compactions), config8 for 160 (its first membership toggle is
@@ -61,6 +63,8 @@ the start; any failure raises and exits non-zero):
    `lm_skipped_pairs`, must sum above 0) and config7's mix at N=101
    compacting with it (45 x 96, width tier 4, two nodes a thread); each row
    prints a `slice7_events` line and must show no log-matching violation.
+   Then n5-e32-cap64 (200 x 96): AppendEntries windows of up to 32 entries,
+   one above K1's old limit of 16 required (`widest_window`).
 2b. race_proxy -- the kernel built with RS_RACE_PROXY (csrc/tick.cu: node
    slots and clusters-in-tile mapped to threads in reverse, each exchange
    field poisoned once its last reader's phase is over) equals the plain
@@ -69,6 +73,16 @@ the start; any failure raises and exits non-zero):
    config10, config4c, config7 and config6-cap8 with log matching, and on
    the N=128 and N=255 rows, for 32 ticks each. It stands in for a race
    checker, which the card's machine refuses.
+2c. draws_vs_plain -- the draw kernel (K2, `draw_engine.draw_cuda`) on the
+   card equals the plain draws (sim/faults.py `make_inputs`) on the card,
+   every StepInputs leaf and fault fact, on phase 2's presets and wide mixes,
+   config5c and config7x (the flat mask), config4c under a numpy-seeded
+   genome (every mechanism drawn, a different setting in every cluster and
+   segment) and served config9: at ticks 0, 1, 2 and around the first two
+   edges of every crash and partition window, cadence and genome segment
+   (`draws_ticks`), with and without the facts; on the genome row also
+   per-row ticks; and one `draw_span` (DRAWS_SPAN: 16 clusters x 24 ticks,
+   one launch) with its facts against the plain span.
 3. card_vs_cpu -- the port's `simulate` on the card equals the port on the CPU
    (config2, config4, config6r, config3p, config8, config9 and config10 at
    64 x 32; config7 at 16 x 32). The CPU tests hold the CPU
@@ -86,15 +100,31 @@ the start; any failure raises and exits non-zero):
    entry appended in some cluster (its first toggle is offered at tick
    97), and config10 an
    fsync lag in every cluster and dur_len <= log_len on every node of the
-   final state. A `kernel_shape` line gives the launch's block shape (tc
+   final state. Every tick of every run draws through K2, whose launches are
+   zeroed with the tick kernel's and must equal the ticks too; while it
+   runs, the plain draws raise on the card (`main_path_run`). A
+   `kernel_shape` line gives the launch's block shape (tc
    clusters x s node slots, nodes per thread), its dynamic shared-memory
    bytes, the gate set of the body it runs (as the kernel's library decides
    it) and ptxas's registers/stack/spills for that instantiation.
    Then, from the run's final state: FULL_HOLD_TICKS ticks
    of kernel == plain tick at full width (state and StepInfo, exact), kernel
    ms/tick (CUDA events) against its bound (bytes read + written over
-   3.35 TB/s), and ms/tick for input generation, the wrapped step, the plain
-   step and the metric fold (host clock to a synchronize).
+   3.35 TB/s), and ms/tick for input generation (the plain draws), the
+   wrapped step, the plain step and the metric fold (host clock to a
+   synchronize); then K2 at the run's next tick (`draws_cell`): equal to the
+   plain draws, its ms a launch (CUDA events) against its bound
+   (`draw_engine.bound_ms`: the larger of the threefry blocks' instructions,
+   counted from this build's SASS in phase 1 (`draws_block_ops`), over the
+   ALU and issue lanes of 132 SMs at the SM clock nvidia-smi reads under the
+   draws' load, the `sm_clock` line, and its bytes over 3.35 TB/s), and the
+   run's ms a tick end to end. The serve (c), scenario (d), trace (c) and
+   compact (c) cells report the same K2 fields. Every later run of the main
+   path goes through `main_path_run` too: K2's launches must equal K1's
+   wherever K1's are checked (one a span on the B=1 replays and the small
+   searches, `span_launches`), and the plain draws raise on the card. Each
+   phase prints both kernels' launches in its counted runs
+   (`draws_launches`); those of a check or a timing are left out.
 4b. long_run -- the slice-7 path at full width: config6 with log matching
    every tick at its preset batch of 1,000 through `driver.Session` and the
    kernel. `simulate` for LONG_T ticks (timed: its ms a tick); a Session run
@@ -281,14 +311,17 @@ the start; any failure raises and exits non-zero):
    64 x 100 ticks, 3 quality seeds and 2 repeats, on the card and on the CPU:
    every quality field equal; the card's row carries backend "cuda", the
    card's name and its power limit.
-6. The kernels line, the card's name and power limit, and the result line.
+6. The kernels line (the tick kernel K1 and the draw kernel K2), the card's
+   name and power limit, and the result line.
 
-Exits 2 without a result when torch sees no CUDA device. It imports nothing of
-jax and nothing of the JAX package.
+Exits 2 without a result when torch sees no CUDA device, or when the port's
+package is not beside the script (the script alone in a directory). It
+imports nothing of jax and nothing of the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import multiprocessing
@@ -422,6 +455,8 @@ def count_events(cfg, t, s, inp, new, info, ev) -> None:
     from raft_sim_tpu_torch.ops import bitplane
 
     ev["restarts"] += int(inp.restarted.sum())
+    if cfg.max_entries_per_rpc > 16:  # windows above K1's old limit
+        ev["widest_window"] = max(ev["widest_window"], int(new.mailbox.ent_count.max()))
     ev["violation_ticks"] += int((info.viol_election_safety | info.viol_commit
                                   | info.viol_log_matching | info.viol_read_stale).sum())
     if cfg.reconfig:
@@ -482,18 +517,17 @@ def hold_ticks(cfg, s, keys, t0: int, n: int, what: str, events=None, proxy=Fals
                genome=None, seg_len=1):
     """`n` ticks from batch-minor state `s`: each tick the kernel (with
     `proxy`, its race proxy) equals the plain tick on the card, state and
-    StepInfo, leaf for leaf. `events`, a Counter, accumulates the
-    slice-2/3/4 event counts and the violating cluster-ticks. `genome`
-    ([B, S] rows on the card) draws the inputs on the scenario path, a span
-    of ticks at a time (scan.input_ticks)."""
-    from raft_sim_tpu_torch.kernels import tick_engine
+    StepInfo, leaf for leaf, on inputs the draw kernel drew. `events`, a
+    Counter, accumulates the slice-2/3/4 event counts and the violating
+    cluster-ticks. `genome` ([B, S] rows on the card) draws the inputs on
+    the scenario path, a span of ticks at a time (scan.input_ticks)."""
+    from raft_sim_tpu_torch.kernels import draw_engine, tick_engine
     from raft_sim_tpu_torch.models import raft_batched
-    from raft_sim_tpu_torch.sim import faults, scan
+    from raft_sim_tpu_torch.sim import scan
 
     drawn = (scan.input_ticks(cfg, keys, t0, n, genome, seg_len) if genome is not None
-             else (faults.make_inputs(cfg, keys, t) for t in range(t0, t0 + n)))
+             else (draw_engine.draw_cuda(cfg, keys, t) for t in range(t0, t0 + n)))
     for t, inp in zip(range(t0, t0 + n), drawn):
-        inp = raft_batched.to_batch_minor(inp)
         ref_s, ref_i = raft_batched.step_b(cfg, s, inp, t)
         got_s, got_i = tick_engine.step_cuda(cfg, s, inp, t, proxy=proxy)
         check_equal(ref_s, got_s, f"{what} tick {t}: step_cuda state != step_b")
@@ -576,6 +610,186 @@ def _card_vs_cpu_row(name: str, batch: int, ticks: int) -> dict:
             "max_abs_err": 0, "summary_equal": summarize(m_g) == summarize(m_c)}
 
 
+# draws_vs_plain's genome rows: segments of DRAWS_SEG ticks; its spans: a
+# fleet of DRAWS_SPAN[0] clusters for DRAWS_SPAN[1] ticks in one launch.
+DRAWS_SEG = 8
+DRAWS_SPAN = (16, 24)
+
+
+def draws_rows() -> list:
+    """draws_vs_plain's rows: (name, config, batch, genome seed or None) --
+    phase 2's presets and wide mixes, config5c and config7x (the flat
+    mask), config4c under a numpy-seeded genome with a different fault
+    setting in every cluster and segment, and served config9."""
+    from raft_sim_tpu_torch.serve.loop import serve_config
+    from raft_sim_tpu_torch.utils.config import PRESETS
+
+    cfg6, cfg7 = PRESETS["config6"][0], PRESETS["config7"][0]
+    rows = [(name, PRESETS[name][0], 200, None)
+            for name in ("config2", "config3", "config4", "config5", "config3p", "config6",
+                         "config6r", "config8", "config9", "config10", "config4c", "config7",
+                         "config5c")]
+    rows += [("config1", PRESETS["config1"][0], 1, None),
+             ("config6-cap8", dataclasses.replace(cfg6, log_capacity=8, compact_margin=4,
+                                                  max_entries_per_rpc=2, client_interval=2), 200, None),
+             ("config7-mix-n128", dataclasses.replace(cfg7, n_nodes=128), 45, None),
+             ("config7-mix-n255-partitions", dataclasses.replace(cfg7, n_nodes=255, partition_period=32,
+                                                                 partition_prob=0.25), 45, None),
+             ("n101-full-gates", n101_full_gates(), 200, None),
+             ("config7x", PRESETS["config7x"][0], 250, None),
+             ("config4c-genome", PRESETS["config4c"][0], 200, 3),
+             ("config9-served", serve_config(PRESETS["config9"][0]), 200, None)]
+    return rows
+
+
+def draws_ticks(cfg, seg_len: int = 0) -> list:
+    """Ticks 0, 1 and 2, and the ticks around the first two edges of every
+    window and cadence `cfg` runs (the crash and partition windows, the
+    client, admin and fsync cadences) and of a genome's segments."""
+    edges = {0, 1, 2}
+    for p in (cfg.crash_period if cfg.crash_prob > 0 else 0, cfg.partition_period,
+              cfg.client_interval, cfg.reconfig_interval, cfg.transfer_interval,
+              cfg.read_interval, cfg.fsync_interval, seg_len):
+        for m in ((p, 2 * p) if p > 0 else ()):
+            edges |= {m - 1, m, m + 1}
+    return sorted(edges)
+
+
+def _facts_tuple(facts):
+    import collections
+
+    return collections.namedtuple("FaultFacts", "crashed cut_now cut_prev")(*facts)
+
+
+def check_draws(cfg, keys, now, what: str, genome=None, seg_len: int = 1, facts=False) -> None:
+    """The draw kernel (`draw_cuda`) on the card equals the plain draws on
+    the card, leaf for leaf, at tick `now` (an int, or per-row ticks)."""
+    from raft_sim_tpu_torch.kernels import draw_engine
+
+    got = draw_engine.draw_cuda(cfg, keys, now, genome, seg_len, facts)
+    want = draw_engine.draw_plain(cfg, keys, now, genome, seg_len, facts)
+    if facts:
+        check_equal(want[0], got[0], f"{what}: draw_cuda inputs != plain")
+        check_equal(_facts_tuple(want[1]), _facts_tuple(got[1]), f"{what}: draw_cuda facts != plain")
+    else:
+        check_equal(want, got, f"{what}: draw_cuda inputs != plain")
+
+
+def _draws_row(name: str, cfg, batch: int, genome_seed) -> dict:
+    """draws_vs_plain's row `name`, in a parity worker: at every tick of
+    `draws_ticks`, with and without the facts, the draw kernel == the plain
+    draws; on a genome row also per-row ticks; then one `draw_span` of a
+    DRAWS_SPAN fleet under a three-segment genome, with its facts, against
+    the plain span (its rows in the kernel's layout, [T, ..., B])."""
+    import torch
+    from raft_sim_tpu_torch.kernels import draw_engine
+    from raft_sim_tpu_torch.sim import faults
+    from raft_sim_tpu_torch.utils import threefry
+
+    dev = torch.device("cuda")
+    keys = threefry.split(threefry.key(SEED + 1, dev), batch)
+    g = None if genome_seed is None else random_genome(cfg, batch, genome_seed, 3, dev)
+    seg = DRAWS_SEG if g is not None else 1
+    ticks = draws_ticks(cfg, DRAWS_SEG if g is not None else 0)
+    draw_engine.draw_cuda.launches = 0
+    for t in ticks:
+        for facts in (False, True):
+            check_draws(cfg, keys, t, f"draws {name} tick {t}", g, seg, facts)
+    if g is not None:
+        now = torch.tensor([ticks[k % len(ticks)] for k in range(batch)], dtype=torch.int32,
+                           device=dev)
+        check_draws(cfg, keys, now, f"draws {name} per-row ticks", g, seg, True)
+    b_s, t_s = DRAWS_SPAN
+    g_s = random_genome(cfg, b_s, 7, 3, dev)
+    k_s = keys[:b_s] if batch >= b_s else threefry.split(threefry.key(SEED + 2, dev), b_s)
+    got = draw_engine.draw_span(cfg, k_s, 1, t_s, g_s, DRAWS_SEG, facts=True)
+    want = faults.draw_span(cfg, k_s, 1, t_s, g_s, DRAWS_SEG, facts=True)
+    rows = lambda leaves: [x.movedim(1, -1) for x in leaves]  # noqa: E731
+    check_equal(type(want[0])(*rows(want[0])), got[0], f"draws {name} span: inputs != plain")
+    check_equal(_facts_tuple(rows(want[1])), _facts_tuple(got[1]),
+                f"draws {name} span: facts != plain")
+    return {"phase": "draws_vs_plain", "preset": name, "batch": batch, "ticks": ticks,
+            "genome": g is not None, "facts": [False, True],
+            "span": {"batch": b_s, "ticks": t_s, "seg_len": DRAWS_SEG},
+            "launches": draw_engine.draw_cuda.launches, "max_abs_err": 0}
+
+
+SM_CLOCK = {}  # the SM clock (MHz) nvidia-smi read under the draws' load (phase 4)
+BLOCK_OPS = {}  # K2's instructions a drop draw, read from this build's SASS (phase 1)
+PLAIN_DRAWS = ("make_inputs", "draw_span", "trace_fault_inputs")  # sim/faults.py
+MAIN_PATH = {"tick": 0, "draws": 0}  # K1's and K2's launches in phase 4's counted runs
+
+
+@contextlib.contextmanager
+def main_path_run(what: str):
+    """One run of the main path on the card, counted: K1's and K2's launch
+    counts are zeroed on entry and read on exit into the yielded `n.tick`
+    and `n.draws` (and added to MAIN_PATH), and the plain draws (sim/faults.py
+    PLAIN_DRAWS) raise on CUDA keys meanwhile, so a run that skips K2 fails."""
+    import types
+
+    from raft_sim_tpu_torch.kernels import draw_engine, tick_engine
+    from raft_sim_tpu_torch.sim import faults
+
+    def refuse(name, fn):
+        def guarded(cfg, keys, *args, **kw):
+            if keys.device.type == "cuda":
+                raise AssertionError(f"{what}: the plain draws (faults.{name}) ran on the card")
+            return fn(cfg, keys, *args, **kw)
+        return guarded
+
+    saved = {name: getattr(faults, name) for name in PLAIN_DRAWS}
+    for name, fn in saved.items():
+        setattr(faults, name, refuse(name, fn))
+    n = types.SimpleNamespace(tick=0, draws=0)
+    tick_engine.step_cuda.launches = draw_engine.draw_cuda.launches = 0
+    try:
+        yield n
+    finally:
+        for name, fn in saved.items():
+            setattr(faults, name, fn)
+        n.tick, n.draws = tick_engine.step_cuda.launches, draw_engine.draw_cuda.launches
+        MAIN_PATH["tick"] += n.tick
+        MAIN_PATH["draws"] += n.draws
+
+
+def expect_launches(n, what: str, ticks: int, draws: int | None = None) -> None:
+    """Raise unless a `main_path_run` launched K1 `ticks` times and K2
+    `draws` times (default: once a tick as well)."""
+    draws = ticks if draws is None else draws
+    if (n.tick, n.draws) != (ticks, draws):
+        raise AssertionError(f"{what}: {n.tick} tick and {n.draws} draw launches, expected "
+                             f"{ticks} and {draws}")
+
+
+def span_launches(batch: int, ticks: int) -> int:
+    """K2's launches for `ticks` ticks of a `batch` fleet drawn a span at a
+    time (scan.input_ticks: at most SPAN_ROWS rows a span)."""
+    from raft_sim_tpu_torch.sim import scan
+
+    return -(-ticks // max(1, scan.SPAN_ROWS // batch))
+
+
+def draws_cell(cfg, keys, now: int, batch: int, genome=None, seg_len: int = 1,
+               facts: bool = False) -> dict:
+    """The draw kernel at a cell's full width, after its run: K2 == the
+    plain draws at tick `now` (batch-minor, with the facts the run draws),
+    then its device ms a launch (CUDA events), its bound and the counts
+    behind it. Its own launches are taken back off `draw_cuda.launches`, so
+    a phase's count holds its runs' alone."""
+    from raft_sim_tpu_torch.kernels import draw_engine
+
+    counted = draw_engine.draw_cuda.launches
+    check_draws(cfg, keys, now, f"draws full width tick {now}", genome, seg_len, facts)
+    ms = draw_engine.time_draws(cfg, keys, now, genome, seg_len, facts)
+    draw_engine.draw_cuda.launches = counted  # a check's and a timing's launches are no run's
+    bound = draw_engine.bound_ms(cfg, batch, now, SM_CLOCK["mhz"], genome=genome,
+                                 seg_len=seg_len, facts=facts, block_ops=BLOCK_OPS)
+    return {"draws_ms": ms, "draws_bound_ms": bound["bound_ms"],
+            "draws_bound_by": bound["bound_by"], "draws_bound_share": bound["bound_ms"] / ms,
+            "draws_bound": dict(bound, sm_clock_mhz=SM_CLOCK["mhz"]), "draws_vs_plain_tick": now}
+
+
 def stream_check(writer, n_nodes: int) -> dict:
     """The apply-log streams of one cluster agree. A client value is its
     offer tick + 1, and a log holds entries in the order they were offered,
@@ -618,9 +832,9 @@ def long_run(dev, hold_ticks, wall_ms) -> dict:
 
     import torch
     from raft_sim_tpu_torch.driver import Session
-    from raft_sim_tpu_torch.kernels import tick_engine
+    from raft_sim_tpu_torch.kernels import draw_engine, tick_engine
     from raft_sim_tpu_torch.models import raft_batched
-    from raft_sim_tpu_torch.sim import faults, scan
+    from raft_sim_tpu_torch.sim import scan
     from raft_sim_tpu_torch.utils.config import PRESETS
 
     base, batch = PRESETS["config6"]
@@ -637,25 +851,31 @@ def long_run(dev, hold_ticks, wall_ms) -> dict:
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
-    (sim_s, sim_m), sim_wall = timed(lambda: scan.simulate(cfg, SEED, batch, t_len, device=dev))
+    with main_path_run("long_run simulate") as n:
+        (sim_s, sim_m), sim_wall = timed(lambda: scan.simulate(cfg, SEED, batch, t_len,
+                                                               device=dev))
+    expect_launches(n, "long_run simulate", t_len)
 
     whole = Session(cfg, batch=batch, seed=SEED, device=dev)
     whole.attach_apply_log(os.path.join(work, "apply_whole"), cluster=0)
-    tick_engine.step_cuda.launches = 0
-    _, whole_wall = timed(lambda: whole.run(2 * t_len, chunk=LONG_CHUNK))
-    launches = tick_engine.step_cuda.launches
-    if launches != 2 * t_len:
-        raise AssertionError(f"long_run: {launches} kernel launches for {2 * t_len} ticks")
+    with main_path_run("long_run") as n:
+        _, whole_wall = timed(lambda: whole.run(2 * t_len, chunk=LONG_CHUNK))
+    expect_launches(n, "long_run", 2 * t_len)
+    launches, draw_launches = n.tick, n.draws
     streams = stream_check(whole.apply_writer, cfg.n_nodes)
 
     half = Session(cfg, batch=batch, seed=SEED, device=dev)
-    half.run(t_len, chunk=LONG_CHUNK)
+    with main_path_run("long_run half") as n:
+        half.run(t_len, chunk=LONG_CHUNK)
+    expect_launches(n, "long_run half", t_len)
     check_equal(sim_s, half.state, "long_run: Session state != simulate")
     check_equal(sim_m, half.metrics, "long_run: Session RunMetrics != simulate")
     path, save_s = timed(lambda: half.save(os.path.join(work, "ck")))
     size = os.path.getsize(path)
     again, load_s = timed(lambda: Session.restore(path, device=dev))
-    again.run(t_len, chunk=LONG_CHUNK)
+    with main_path_run("long_run resumed") as n:
+        again.run(t_len, chunk=LONG_CHUNK)
+    expect_launches(n, "long_run resumed", t_len)
     check_equal(whole.state, again.state, "long_run: resumed state != uninterrupted")
     check_equal(whole.metrics, again.metrics, "long_run: resumed RunMetrics != uninterrupted")
     summ = whole.summary()
@@ -669,7 +889,7 @@ def long_run(dev, hold_ticks, wall_ms) -> dict:
     s = raft_batched.to_batch_minor(whole.state)
     now = 2 * t_len
     hold_ticks(cfg, s, whole.keys, now, FULL_HOLD_TICKS, "config6-lm full width")
-    inp = raft_batched.to_batch_minor(faults.make_inputs(cfg, whole.keys, now))
+    inp = draw_engine.draw_cuda(cfg, whole.keys, now)
     lm_ms, nolm_ms = [], []
     for _ in range(2):
         lm_ms.append(tick_engine.time_kernel(cfg, s, inp, reps=20, now=now))
@@ -682,7 +902,8 @@ def long_run(dev, hold_ticks, wall_ms) -> dict:
     cell = {
         "phase": "long_run", "preset": "config6-lm", "batch": batch, "ticks": 5 * t_len,
         "chunk": LONG_CHUNK, "resumed_equal": True, "violations": summ["total_violations"],
-        "launches": launches, "lm_skipped_pairs": summ["lm_skipped_pairs"],
+        "launches": launches, "draws_launches": draw_launches,
+        "lm_skipped_pairs": summ["lm_skipped_pairs"],
         "max_commit_min": int(whole.metrics.max_commit.min()),
         "simulate_ms_per_tick": sim_wall * 1e3 / t_len,
         "chunked_ms_per_tick": whole_wall * 1e3 / (2 * t_len),
@@ -749,13 +970,12 @@ def served_rows() -> list:
 def served_inputs(cfg, keys, t: int, cmds, reads, k: int):
     """Tick `t`'s batch-minor inputs with row `k` of the packed command and
     read planes in place of the scheduled offers."""
-    from raft_sim_tpu_torch.models import raft_batched
-    from raft_sim_tpu_torch.sim import faults
+    from raft_sim_tpu_torch.kernels import draw_engine
 
-    inp = faults.make_inputs(cfg, keys, t)._replace(client_cmd=cmds[k])
+    inp = draw_engine.draw_cuda(cfg, keys, t)._replace(client_cmd=cmds[k])
     if reads is not None:
         inp = inp._replace(read_cmd=reads[k])
-    return raft_batched.to_batch_minor(inp)
+    return inp
 
 
 def _served_row(name: str, cfg, batch: int, ticks: int, proxy: bool) -> dict:
@@ -812,7 +1032,7 @@ def serve_phase(dev, wall_ms, served) -> tuple:
 
     import torch
     from raft_sim_tpu_torch import bench
-    from raft_sim_tpu_torch.kernels import tick_engine
+    from raft_sim_tpu_torch.kernels import draw_engine, tick_engine
     from raft_sim_tpu_torch.models import raft_batched
     from raft_sim_tpu_torch.serve import ServeSession
     from raft_sim_tpu_torch.serve.loop import serve_config
@@ -862,15 +1082,15 @@ def serve_phase(dev, wall_ms, served) -> tuple:
     sink = TelemetrySink(full_dir, scfg, seed=0, batch=batch9, window=64, ring=0, source="serve",
                          backend="cuda")
     torch.cuda.synchronize()
-    tick_engine.step_cuda.launches = 0
-    sess = ServeSession(cfg9, batch=batch9, seed=0, chunk=256, window=64, sink=sink,
-                        warmup_ticks=256, tenants=bench.serve_tenants(batch9, 4), device=dev)
-    stats = sess.serve(chunks=SERVE_CHUNKS)
-    torch.cuda.synchronize()
-    launches = tick_engine.step_cuda.launches
+    with main_path_run("serve") as n:
+        sess = ServeSession(cfg9, batch=batch9, seed=0, chunk=256, window=64, sink=sink,
+                            warmup_ticks=256, tenants=bench.serve_tenants(batch9, 4),
+                            device=dev)
+        stats = sess.serve(chunks=SERVE_CHUNKS)
+        torch.cuda.synchronize()
+    launches, draw_launches = n.tick, n.draws
     ticks_run = (sess.warmup_chunks + sess.chunks_done) * sess.chunk
-    if launches != ticks_run:
-        raise AssertionError(f"serve: {launches} kernel launches for {ticks_run} ticks")
+    expect_launches(n, "serve", ticks_run)
     if stats["violations"] != 0:
         raise AssertionError(f"serve: {stats['violations']} violations")
     row = bench.serve_row(sess, stats, "config9", 4, smoke=False)
@@ -897,12 +1117,13 @@ def serve_phase(dev, wall_ms, served) -> tuple:
     cmds_np, reads_np = sess.router.pack(FULL_HOLD_TICKS)
     cmds, reads = torch.from_numpy(cmds_np).to(dev), torch.from_numpy(reads_np).to(dev)
     inp_served = served_inputs(scfg, sess.keys, now, cmds, reads, 0)
-    inp_plain = raft_batched.to_batch_minor(faults.make_inputs(cfg9, sess.keys, now))
+    inp_plain = draw_engine.draw_cuda(cfg9, sess.keys, now)
     served_ms, plain_cfg_ms = [], []
     for _ in range(2):
         served_ms.append(tick_engine.time_kernel(scfg, s, inp_served, reps=20, now=now))
         plain_cfg_ms.append(tick_engine.time_kernel(cfg9, s, inp_plain, reps=20, now=now))
     inputs_ms = wall_ms(lambda: faults.make_inputs(scfg, sess.keys, now), 5)
+    draws = draws_cell(scfg, sess.keys, now, batch9)
     plain_ms = wall_ms(lambda: raft_batched.step_b(scfg, s, inp_served, now), 3)
     # FULL_HOLD_TICKS more served ticks at full width: kernel == plain.
     s_h = s
@@ -923,7 +1144,8 @@ def serve_phase(dev, wall_ms, served) -> tuple:
     kernel_ms = sum(served_ms) / len(served_ms)
     cell = {
         "phase": "serve", "preset": "config9-serve", "batch": batch9, "ticks": ticks_run,
-        "launches": launches, "violations": stats["violations"], "tenants": 4,
+        "launches": launches, "draws_launches": draw_launches,
+        "violations": stats["violations"], "tenants": 4,
         "chunk": sess.chunk, "chunks": stats["chunks"], "warmup_chunks": stats["warmup_chunks"],
         "commands_acked": stats["commands_acked"], "reads_served": stats["reads_served"],
         "ops_per_s": row["ops_per_s"], "commands_per_s": row["commands_per_s"],
@@ -935,7 +1157,7 @@ def serve_phase(dev, wall_ms, served) -> tuple:
         "kernel_ms_unserved": sum(plain_cfg_ms) / len(plain_cfg_ms),
         "kernel_ms_unserved_runs": plain_cfg_ms, "bound_ms": bound_ms, "bytes_read": rd,
         "bytes_written": wr, "bound_share": bound_ms / kernel_ms, "inputs_ms": inputs_ms,
-        "plain_ms": plain_ms, "acked_per_tenant": acked, "reads_per_tenant": reads_t,
+        **draws, "plain_ms": plain_ms, "acked_per_tenant": acked, "reads_per_tenant": reads_t,
         "readback": readback, "sink_valid": True, "kernel_vs_plain_ticks": FULL_HOLD_TICKS,
         "shape": shape,
         "nvidia_smi": row["nvidia_smi"],
@@ -991,7 +1213,7 @@ def random_genome(cfg, batch: int, seed: int, segments: int, device):
             for f, on in (("client_interval", cfg.client_interval > 0),
                           ("reconfig_interval", cfg.reconfig),
                           ("transfer_interval", cfg.leader_transfer),
-                          ("read_interval", cfg.read_index)):
+                          ("read_interval", cfg.read_interval > 0)):
                 if on:
                     kw[f] = int(rng.integers(1, 2 * getattr(cfg, f) + 1))
             if cfg.durable_storage:
@@ -1033,7 +1255,7 @@ def scenario_phase(dev, wall_ms, hold_ticks) -> dict:
 
     import torch
     from raft_sim_tpu_torch import driver
-    from raft_sim_tpu_torch.kernels import tick_engine
+    from raft_sim_tpu_torch.kernels import draw_engine, tick_engine
     from raft_sim_tpu_torch.models import raft_batched
     from raft_sim_tpu_torch.scenario import genome as genome_mod
     from raft_sim_tpu_torch.scenario import program as program_mod
@@ -1090,13 +1312,11 @@ def scenario_phase(dev, wall_ms, hold_ticks) -> dict:
         # Past the violation by the artifact's event context, so the events
         # after it come back too (the file's stop where its hunt's run did).
         horizon = art["tick"] + 31
-        tick_engine.step_cuda.launches = 0
         t0 = time.perf_counter()
-        rep = shrink_mod.replay_artifact(art, horizon=horizon, device=dev)
+        with main_path_run(f"scenario corpus {path}") as n:
+            rep = shrink_mod.replay_artifact(art, horizon=horizon, device=dev)
         wall = time.perf_counter() - t0
-        if tick_engine.step_cuda.launches != horizon:
-            raise AssertionError(f"scenario corpus {path}: {tick_engine.step_cuda.launches} "
-                                 f"launches for {horizon} ticks")
+        expect_launches(n, f"scenario corpus {path}", horizon, span_launches(1, horizon))
         last = max(t for t, _ in art["events"])
         events = [[t, e] for t, e in rep["events"] if t <= last]
         ok = (rep["tick"] == art["tick"] and rep["kinds"] == art["kinds"]
@@ -1107,12 +1327,16 @@ def scenario_phase(dev, wall_ms, hold_ticks) -> dict:
         replayed += horizon
         emit({"phase": "scenario_corpus", "artifact": path, "mutant": mutant, "tick": rep["tick"],
               "kinds": rep["kinds"], "events": len(events), "state_lines": "equal",
-              "horizon": horizon, "launches": horizon, "wall_s": wall})
+              "horizon": horizon, "launches": horizon, "draws_launches": n.draws,
+              "wall_s": wall})
 
     # ---- (c) a search on the card equals it on the CPU ----------------------
     ks = mutant_config("weak-quorum", RaftConfig(**KITCHEN_SINK))
     spec = search_mod.SearchSpec(generations=2, population=16, ticks=128, window=32, seed=SEED)
-    res_g = search_mod.search(ks, spec, device=dev)
+    with main_path_run("scenario search") as n:
+        res_g = search_mod.search(ks, spec, device=dev)
+    gens = len(res_g.generations)  # a hit stops the search
+    expect_launches(n, "scenario search", 128 * gens, gens * span_launches(16, 128))
     res_c = search_mod.search(ks, spec, device="cpu")
     if res_g.to_json() != res_c.to_json():
         raise AssertionError("scenario search: card != CPU")
@@ -1127,15 +1351,15 @@ def scenario_phase(dev, wall_ms, hold_ticks) -> dict:
     state, keys = scan.seed_fleet(cfg4c, SEED, batch, dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    tick_engine.step_cuda.launches = 0
     t0 = time.perf_counter()
-    final, metrics = driver.run_scenario(cfg4c, prog, run_t, state, keys, chunk=prog.seg_len)
-    summ = summarize(metrics)  # copies to the host: waits for the device
+    with main_path_run("scenario run") as n:
+        final, metrics = driver.run_scenario(cfg4c, prog, run_t, state, keys,
+                                             chunk=prog.seg_len)
+        summ = summarize(metrics)  # copies to the host: waits for the device
     wall = time.perf_counter() - t0
-    launches = tick_engine.step_cuda.launches
+    launches, draw_launches = n.tick, n.draws
     peak = torch.cuda.max_memory_allocated()
-    if launches != run_t:
-        raise AssertionError(f"scenario run: {launches} kernel launches for {run_t} ticks")
+    expect_launches(n, "scenario run", run_t)
     if summ.total_violations != 0:
         raise AssertionError(f"scenario run: {summ.total_violations} violations")
     if int((metrics.first_leader_tick >= scan.NEVER).sum()) != 0:
@@ -1145,10 +1369,10 @@ def scenario_phase(dev, wall_ms, hold_ticks) -> dict:
     hold_ticks(cfg4c, s, keys, run_t, FULL_HOLD_TICKS, "scenario run full width", genome=g,
                seg_len=prog.seg_len)
     storm = prog.seg_len  # the storm segment's first tick: every mechanism draws
-    inp = raft_batched.to_batch_minor(faults.make_inputs(cfg4c, keys, storm, genome=g,
-                                                         seg_len=prog.seg_len))
+    inp = draw_engine.draw_cuda(cfg4c, keys, storm, genome=g, seg_len=prog.seg_len)
     inputs_ms = wall_ms(lambda: faults.make_inputs(cfg4c, keys, storm, genome=g,
                                                    seg_len=prog.seg_len), 5)
+    draws = draws_cell(cfg4c, keys, storm, batch, genome=g, seg_len=prog.seg_len)
     kernel_ms = tick_engine.time_kernel(cfg4c, s, inp, reps=20, now=run_t)
     plain_ms = wall_ms(lambda: raft_batched.step_b(cfg4c, s, inp, run_t), 3)
     rd, wr = tick_engine.traffic_bytes(cfg4c, batch)
@@ -1156,9 +1380,10 @@ def scenario_phase(dev, wall_ms, hold_ticks) -> dict:
     run_cell = {
         "phase": "scenario_run", "preset": "config4c-storm", "program": prog.name, "batch": batch,
         "ticks": run_t, "segments": prog.n_segments, "seg_len": prog.seg_len,
-        "launches": launches, "violations": summ.total_violations,
+        "launches": launches, "draws_launches": draw_launches,
+        "violations": summ.total_violations,
         "wall_s": wall, "wall_ms_per_tick": wall * 1e3 / run_t,
-        "inputs_ms": inputs_ms, "kernel_ms": kernel_ms, "bound_ms": bound_ms,
+        "inputs_ms": inputs_ms, **draws, "kernel_ms": kernel_ms, "bound_ms": bound_ms,
         "bound_share": bound_ms / kernel_ms, "plain_ms": plain_ms, "bytes_read": rd,
         "bytes_written": wr, "peak_mem_bytes": peak, "kernel_vs_plain_ticks": FULL_HOLD_TICKS,
         "max_term": summ.max_term, "total_cmds": summ.total_cmds,
@@ -1174,23 +1399,25 @@ def scenario_phase(dev, wall_ms, hold_ticks) -> dict:
     last = {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    tick_engine.step_cuda.launches = 0
     t0 = time.perf_counter()
-    res = search_mod.search(wq, spec, device=dev,
-                            on_generation=lambda gen, g, seed: last.update(genome=g, seed=seed))
+    with main_path_run("scenario hunt") as n:
+        res = search_mod.search(wq, spec, device=dev,
+                                on_generation=lambda gen, g, seed: last.update(genome=g,
+                                                                               seed=seed))
     hunt_wall = time.perf_counter() - t0
-    hunt_launches = tick_engine.step_cuda.launches
+    hunt_launches, hunt_draws = n.tick, n.draws
     hunt_peak = torch.cuda.max_memory_allocated()
-    if hunt_launches != hunt_t * len(res.generations):
-        raise AssertionError(f"scenario hunt: {hunt_launches} launches for "
-                             f"{len(res.generations)} generations")
+    expect_launches(n, "scenario hunt", hunt_t * len(res.generations))
     if res.hit is None:
         raise AssertionError(f"scenario hunt: weak-quorum survived {res.generations}")
-    tick_engine.step_cuda.launches = 0
     t0 = time.perf_counter()
-    art = shrink_mod.shrink(wq, res.hit, mutant="weak-quorum", device=dev)
+    with main_path_run("scenario shrink") as n:
+        art = shrink_mod.shrink(wq, res.hit, mutant="weak-quorum", device=dev)
     shrink_wall = time.perf_counter() - t0
-    shrink_launches = tick_engine.step_cuda.launches
+    shrink_launches, shrink_draws = n.tick, n.draws
+    if shrink_draws <= 0 or shrink_draws > shrink_launches:  # a span of ticks a trial
+        raise AssertionError(f"scenario shrink: {shrink_draws} draw launches for "
+                             f"{shrink_launches} ticks")
     rep = shrink_mod.replay_artifact(art, device=dev)
     if not rep["reproduced"] or rep["tick"] != art["tick"]:
         raise AssertionError(f"scenario hunt: the artifact replayed to {rep['tick']} "
@@ -1205,8 +1432,9 @@ def scenario_phase(dev, wall_ms, hold_ticks) -> dict:
                              f"({real_viol} violating cluster-ticks)")
     keys = scan.seed_fleet(cfg4c, last["seed"], pop, dev)[1]
     s = raft_batched.to_batch_minor(final)
-    inp = raft_batched.to_batch_minor(faults.make_inputs(wq, keys, hunt_t, genome=g_last))
+    inp = draw_engine.draw_cuda(wq, keys, hunt_t, genome=g_last)
     inputs_ms = wall_ms(lambda: faults.make_inputs(wq, keys, hunt_t, genome=g_last), 5)
+    draws = draws_cell(wq, keys, hunt_t, pop, genome=g_last)
     kernel_ms = tick_engine.time_kernel(wq, s, inp, reps=20, now=hunt_t)
     plain_ms = wall_ms(lambda: raft_batched.step_b(wq, s, inp, hunt_t), 3)
     rd, wr = tick_engine.traffic_bytes(wq, pop)
@@ -1216,12 +1444,14 @@ def scenario_phase(dev, wall_ms, hold_ticks) -> dict:
           "generations": len(res.generations), "hit": {k: res.hit[k] for k in (
               "seed", "cluster", "first_viol_tick")},
           "violating_clusters": [gn["violating_clusters"] for gn in res.generations],
-          "launches": hunt_launches, "wall_s": hunt_wall,
+          "launches": hunt_launches, "draws_launches": hunt_draws, "wall_s": hunt_wall,
           "wall_ms_per_tick": hunt_wall * 1e3 / (hunt_t * len(res.generations)),
           "shrink": {"tick": art["tick"], "kinds": art["kinds"], "removed": art["removed"],
-                     "launches": shrink_launches, "wall_s": shrink_wall},
+                     "launches": shrink_launches, "draws_launches": shrink_draws,
+                     "wall_s": shrink_wall},
           "replay": {"reproduced": rep["reproduced"], "tick": rep["tick"]},
-          "real_config_violations": real_viol, "inputs_ms": inputs_ms, "kernel_ms": kernel_ms,
+          "real_config_violations": real_viol, "inputs_ms": inputs_ms, **draws,
+          "kernel_ms": kernel_ms,
           "bound_ms": hunt_bound, "bound_share": hunt_bound / kernel_ms, "plain_ms": plain_ms,
           "bytes_read": rd, "bytes_written": wr, "peak_mem_bytes": hunt_peak,
           "corpus_ticks_replayed": replayed})
@@ -1280,9 +1510,8 @@ def _trace_row(name: str) -> tuple:
     (batch, ticks, genome or not, the card's and the CPU's per-kind event
     counts, the row's seconds)."""
     import torch
-    from raft_sim_tpu_torch.kernels import tick_engine
-    from raft_sim_tpu_torch.models import raft_batched
-    from raft_sim_tpu_torch.sim import faults, scan
+    from raft_sim_tpu_torch.kernels import draw_engine, tick_engine
+    from raft_sim_tpu_torch.sim import scan
     from raft_sim_tpu_torch.trace import events as tev
     from raft_sim_tpu_torch.utils import device as device_mod
 
@@ -1302,12 +1531,9 @@ def _trace_row(name: str) -> tuple:
              if genome is not None else None)
     cpu_ticks = []
     for t in range(ticks):
-        if drawn is not None:
-            inp, facts = next(drawn)
-        else:
-            inp, facts = faults.make_inputs(cfg, keys, t, facts=True)
-        inp = raft_batched.to_batch_minor(inp)
-        facts = [facts[0].movedim(0, -1).contiguous(), facts[1], facts[2]]
+        inp, facts = next(drawn) if drawn is not None else draw_engine.draw_cuda(cfg, keys, t,
+                                                                                 facts=True)
+        facts = list(facts)
         got_s, got_i = tick_engine.step_cuda(cfg, s, inp, t)
         got_e = tev.extract(cfg, s, got_s, inp, got_i, *facts)
         check_equal(tick_engine.step_cuda(untraced, s, inp, t)[0], got_s,
@@ -1360,7 +1586,7 @@ def trace_phase(dev, wall_ms, trace_a, trace_b) -> list:
 
     import torch
     from raft_sim_tpu_torch.farm import corpus as corpus_mod
-    from raft_sim_tpu_torch.kernels import tick_engine
+    from raft_sim_tpu_torch.kernels import draw_engine, tick_engine
     from raft_sim_tpu_torch.models import raft_batched
     from raft_sim_tpu_torch.scenario import search as search_mod
     from raft_sim_tpu_torch.scenario import shrink as shrink_mod
@@ -1416,19 +1642,18 @@ def trace_phase(dev, wall_ms, trace_a, trace_b) -> list:
             "--seed", str(SEED), "--telemetry-window", str(window), "--device", dev.type]
     while True:
         tdir = os.path.join(work, f"c_depth{depth}")
-        tick_engine.step_cuda.launches = 0
         t0 = time.perf_counter()
-        out = _cli([*base, "--telemetry-dir", tdir, "--trace", "--trace-depth", str(depth)])
+        with main_path_run("trace run") as n:
+            out = _cli([*base, "--telemetry-dir", tdir, "--trace", "--trace-depth", str(depth)])
         wall = time.perf_counter() - t0
-        launches = tick_engine.step_cuda.launches
+        launches, draw_launches = n.tick, n.draws
         with open(os.path.join(tdir, "trace_windows.jsonl")) as f:
             dropped = sum(json.loads(line)["dropped"] for line in f)
         if not dropped:
             break
         emit({"phase": "trace_run_overflow", "depth": depth, "dropped": dropped})
         depth *= 2
-    if launches != ticks:
-        raise AssertionError(f"trace run: {launches} kernel launches for {ticks} ticks")
+    expect_launches(n, "trace run", ticks)
     if out["total_violations"] != 0:
         raise AssertionError(f"trace run: {out['total_violations']} violations")
     errors = telemetry_sink.validate(tdir)
@@ -1443,8 +1668,10 @@ def trace_phase(dev, wall_ms, trace_a, trace_b) -> list:
                              f"{rep.complete}: {[r.note for r in rep.results.values()][:2]}")
     udir = os.path.join(work, "c_untraced")
     t0 = time.perf_counter()
-    out_u = _cli([*base, "--telemetry-dir", udir])
+    with main_path_run("trace run untraced") as n:
+        out_u = _cli([*base, "--telemetry-dir", udir])
     wall_u = time.perf_counter() - t0
+    expect_launches(n, "trace run untraced", ticks)
     for k in ("total_violations", "max_term", "total_msgs", "total_cmds"):
         if out_u[k] != out[k]:
             raise AssertionError(f"trace run: untraced {k} {out_u[k]} != traced {out[k]}")
@@ -1455,9 +1682,7 @@ def trace_phase(dev, wall_ms, trace_a, trace_b) -> list:
     t_mid = window
     for t in range(t_mid):
         s, m, _ = scan.tick_batch_minor(cfg6, s, keys, m, t)
-    inp, facts = faults.make_inputs(cfg6, keys, t_mid, facts=True)
-    inp = raft_batched.to_batch_minor(inp)
-    facts = (facts[0].movedim(0, -1),) + tuple(facts[1:])
+    inp, facts = draw_engine.draw_cuda(cfg6, keys, t_mid, facts=True)
     s2, info = tick_engine.step_cuda(cfg6, s, inp, t_mid)
     spec = tring.TraceSpec(depth=depth)
     tw, tp = tring.init_window(spec, batch, dev), tring.init_persist(spec, batch, dev)
@@ -1478,6 +1703,7 @@ def trace_phase(dev, wall_ms, trace_a, trace_b) -> list:
     record_ms = events_ms(lambda: tring.record(cfg6, spec, tw, tp, ev, s.now))
     inputs_ms = wall_ms(lambda: faults.make_inputs(cfg6, keys, t_mid), 5)
     inputs_facts_ms = wall_ms(lambda: faults.make_inputs(cfg6, keys, t_mid, facts=True), 5)
+    draws = draws_cell(cfg6, keys, t_mid, batch, facts=True)
     kernel_ms = tick_engine.time_kernel(cfg6, s, inp, reps=20, now=t_mid)
     plain_ms = wall_ms(lambda: raft_batched.step_b(cfg6, s, inp, t_mid), 3)
     sizes = {f: os.path.getsize(os.path.join(tdir, f)) for f in sorted(os.listdir(tdir))}
@@ -1486,13 +1712,14 @@ def trace_phase(dev, wall_ms, trace_a, trace_b) -> list:
     rd, wr = tick_engine.traffic_bytes(cfg6, batch)
     run_cell = {
         "phase": "trace_run", "preset": "config6", "batch": batch, "ticks": ticks,
-        "window": window, "depth": depth, "launches": launches, "dropped": 0,
+        "window": window, "depth": depth, "launches": launches,
+        "draws_launches": draw_launches, "dropped": 0,
         "validate": "clean", "checker": {"complete": rep.complete, "ok": rep.ok,
                                          "properties": list(rep.results)},
         "wall_s": wall, "ms_per_tick": wall * 1e3 / ticks,
         "wall_s_untraced": wall_u, "ms_per_tick_untraced": wall_u * 1e3 / ticks,
         "extract_ms": extract_ms, "record_ms": record_ms, "inputs_ms": inputs_ms,
-        "inputs_with_facts_ms": inputs_facts_ms, "kernel_ms": kernel_ms,
+        "inputs_with_facts_ms": inputs_facts_ms, **draws, "kernel_ms": kernel_ms,
         "bound_ms": (rd + wr) / BW_BYTES_PER_S * 1e3, "plain_ms": plain_ms,
         "events_written": n_events, "sink_bytes": sizes, "checker_s": check_s,
     }
@@ -1512,15 +1739,16 @@ def trace_phase(dev, wall_ms, trace_a, trace_b) -> list:
                                  trace_depth=COV_DEPTH)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    tick_engine.step_cuda.launches = 0
     t0 = time.perf_counter()
-    res = search_mod.search(cfg4c, spec, device=dev)
+    with main_path_run("coverage hunt") as n:
+        res = search_mod.search(cfg4c, spec, device=dev)
     hunt_wall = time.perf_counter() - t0
-    hunt_launches = tick_engine.step_cuda.launches
+    hunt_launches = n.tick
     peak = torch.cuda.max_memory_allocated()
     gens = res.generations
-    if hunt_launches != COV_T * len(gens) or len(gens) != 2:
-        raise AssertionError(f"coverage hunt: {hunt_launches} launches, {len(gens)} generations")
+    if len(gens) != 2:
+        raise AssertionError(f"coverage hunt: {len(gens)} generations")
+    expect_launches(n, "coverage hunt", COV_T * len(gens))
     if res.hit is not None or any(g["violating_clusters"] for g in gens):
         raise AssertionError(f"coverage hunt: the real config4c violated: {gens}")
     # Generation 1 draws guided clones iff generation 0 lit a new bit.
@@ -1530,7 +1758,8 @@ def trace_phase(dev, wall_ms, trace_a, trace_b) -> list:
     hunt_cell = {
         "phase": "trace_coverage_hunt", "preset": "config4c", "population": pop,
         "ticks": COV_T, "window": COV_WINDOW, "depth": COV_DEPTH, "generations": len(gens),
-        "launches": hunt_launches, "violations": 0, "guided_proposals_gen1": guided,
+        "launches": hunt_launches, "draws_launches": n.draws, "violations": 0,
+        "guided_proposals_gen1": guided,
         "cov_new_bits": [g["cov_new_bits"] for g in gens],
         "cov_total_bits": gens[-1]["cov_total_bits"], "wall_s": hunt_wall,
         "ms_per_tick": hunt_wall * 1e3 / hunt_launches, "peak_mem_bytes": peak,
@@ -1544,23 +1773,26 @@ def trace_phase(dev, wall_ms, trace_a, trace_b) -> list:
     spec = search_mod.SearchSpec(generations=4, population=WQ_POP, ticks=WQ_T, window=WQ_WINDOW,
                                  seed=SEED, fitness="coverage", proposal="coverage-guided",
                                  trace_depth=COV_DEPTH)
-    tick_engine.step_cuda.launches = 0
     t0 = time.perf_counter()
-    res = search_mod.search(wq, spec, device=dev)
+    with main_path_run("weak-quorum coverage hunt") as n:
+        res = search_mod.search(wq, spec, device=dev)
     wq_wall = time.perf_counter() - t0
-    wq_launches = tick_engine.step_cuda.launches
+    wq_launches, wq_draws = n.tick, n.draws
     if res.hit is None:
         raise AssertionError(f"weak-quorum coverage hunt: no hit in {res.generations}")
-    if wq_launches != WQ_T * len(res.generations):
-        raise AssertionError(f"weak-quorum coverage hunt: {wq_launches} launches")
-    art = shrink_mod.shrink(wq, res.hit, mutant="weak-quorum", device=dev)
-    rep = corpus_mod.check_artifact(art, device=dev)
+    expect_launches(n, "weak-quorum coverage hunt", WQ_T * len(res.generations))
+    with main_path_run("weak-quorum coverage shrink") as n:
+        art = shrink_mod.shrink(wq, res.hit, mutant="weak-quorum", device=dev)
+        rep = corpus_mod.check_artifact(art, device=dev)
+    if not 0 < n.draws <= n.tick:  # a span of ticks a trial and a check
+        raise AssertionError(f"weak-quorum coverage shrink: {n.draws} draw launches for "
+                             f"{n.tick} ticks")
     if not (rep.complete and rep.violated and rep.results[rep.violated[0]].witness):
         raise AssertionError(f"weak-quorum coverage hunt: the checker did not reject the "
                              f"artifact with a witness: {rep.to_dict()}")
     emit({"phase": "trace_coverage_hunt_weak_quorum", "preset": "config4c",
           "population": WQ_POP, "ticks": WQ_T, "generations": len(res.generations),
-          "launches": wq_launches, "wall_s": wq_wall,
+          "launches": wq_launches, "draws_launches": wq_draws, "wall_s": wq_wall,
           "hit": {k: res.hit[k] for k in ("seed", "cluster", "first_viol_tick")},
           "cov_new_bits": [g["cov_new_bits"] for g in res.generations],
           "shrunk": {"tick": art["tick"], "kinds": art["kinds"], "removed": art["removed"]},
@@ -1580,11 +1812,9 @@ def trace_phase(dev, wall_ms, trace_a, trace_b) -> list:
         horizon = -(-int(art["ticks"]) // 64) * 64
         verdicts = {}
         for real in (False, True):
-            tick_engine.step_cuda.launches = 0
-            rep = corpus_mod.check_artifact(art, real=real, device=dev)
-            if tick_engine.step_cuda.launches != horizon:
-                raise AssertionError(f"trace corpus {path}: {tick_engine.step_cuda.launches} "
-                                     f"launches for {horizon} ticks")
+            with main_path_run(f"trace corpus {path}") as n:
+                rep = corpus_mod.check_artifact(art, real=real, device=dev)
+            expect_launches(n, f"trace corpus {path}", horizon, span_launches(1, horizon))
             replayed += horizon
             if not rep.complete:
                 raise AssertionError(f"trace corpus {path}: incomplete history ({rep.problems})")
@@ -1725,7 +1955,7 @@ def compact_phase(dev, wall_ms, hold_ticks, config5_cell, legs) -> list:
     (c) cells for the kernels line."""
     import torch
     from raft_sim_tpu_torch import types
-    from raft_sim_tpu_torch.kernels import tick_engine
+    from raft_sim_tpu_torch.kernels import draw_engine, tick_engine
     from raft_sim_tpu_torch.models import raft_batched
     from raft_sim_tpu_torch.ops import tile
     from raft_sim_tpu_torch.sim import faults, scan
@@ -1763,15 +1993,14 @@ def compact_phase(dev, wall_ms, hold_ticks, config5_cell, legs) -> list:
         dcfg = types.compact_twin(cfg, on=False)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        tick_engine.step_cuda.launches = 0
         t0 = time.perf_counter()
-        final, metrics = scan.simulate(cfg, SEED, batch, COMPACT_T, device=dev)
-        summ = summarize(metrics)  # copies to the host: waits for the device
+        with main_path_run(f"compact {name}") as n:
+            final, metrics = scan.simulate(cfg, SEED, batch, COMPACT_T, device=dev)
+            summ = summarize(metrics)  # copies to the host: waits for the device
         wall = time.perf_counter() - t0
-        launches = tick_engine.step_cuda.launches
+        launches, draw_launches = n.tick, n.draws
         peak = torch.cuda.max_memory_allocated()
-        if launches != COMPACT_T:
-            raise AssertionError(f"compact {name}: {launches} kernel launches for {COMPACT_T} ticks")
+        expect_launches(n, f"compact {name}", COMPACT_T)
         if summ.total_violations != 0:
             raise AssertionError(f"compact {name}: {summ.total_violations} violations")
         # N=255 under rolling partitions: some clusters stay leaderless for
@@ -1782,7 +2011,7 @@ def compact_phase(dev, wall_ms, hold_ticks, config5_cell, legs) -> list:
         s = raft_batched.to_batch_minor(final)
         keys = threefry.split(threefry.split(threefry.key(SEED, dev), 2)[1], batch)
         hold_ticks(cfg, s, keys, COMPACT_T, FULL_HOLD_TICKS, f"compact {name} full width")
-        inp = raft_batched.to_batch_minor(faults.make_inputs(cfg, keys, COMPACT_T))
+        inp = draw_engine.draw_cuda(cfg, keys, COMPACT_T)
         ds, dinp = tile.unpack_state(cfg, s), tile.unpack_inputs(cfg, inp)
         kernel_ms = tick_engine.time_kernel(dcfg, ds, dinp, reps=20, now=COMPACT_T)
 
@@ -1802,9 +2031,11 @@ def compact_phase(dev, wall_ms, hold_ticks, config5_cell, legs) -> list:
         bound_ms = (rd + wr) / BW_BYTES_PER_S * 1e3
         cell = {
             "phase": "compact_full_width", "preset": name, "batch": batch, "ticks": COMPACT_T,
-            "launches": launches, "kernel_vs_plain_ticks": FULL_HOLD_TICKS, "wall_s": wall,
+            "launches": launches, "draws_launches": draw_launches,
+            "kernel_vs_plain_ticks": FULL_HOLD_TICKS, "wall_s": wall,
             "ms_per_tick": wall * 1e3 / COMPACT_T,
             "inputs_ms": wall_ms(lambda: faults.make_inputs(cfg, keys, COMPACT_T), 5),
+            **draws_cell(cfg, keys, COMPACT_T, batch),
             "kernel_ms": kernel_ms, "unpack_pack_ms": start.elapsed_time(end) / 20,
             "unpack_pack_host_ms": wall_ms(boundary, 10),
             "step_ms": wall_ms(lambda: tick_engine.step_cuda(cfg, s, inp, COMPACT_T), 10),
@@ -1921,13 +2152,13 @@ def observe_phase(dev, serve_unarmed, legs) -> list:
     import torch
     from raft_sim_tpu_torch import bench
     from raft_sim_tpu_torch.farm import validate_farm_dir
-    from raft_sim_tpu_torch.kernels import tick_engine
+    from raft_sim_tpu_torch.kernels import draw_engine, tick_engine
     from raft_sim_tpu_torch.models import raft_batched
     from raft_sim_tpu_torch.obs import ChunkTimer, summarize_rows
     from raft_sim_tpu_torch.scenario.mutation import mutant_config
     from raft_sim_tpu_torch.serve import ServeSession
     from raft_sim_tpu_torch.serve.loop import serve_config
-    from raft_sim_tpu_torch.sim import faults, scan
+    from raft_sim_tpu_torch.sim import scan
     from raft_sim_tpu_torch.utils import checkpoint
     from raft_sim_tpu_torch.utils.config import PRESETS
     from raft_sim_tpu_torch.utils.telemetry_sink import TelemetrySink, validate
@@ -1950,12 +2181,11 @@ def observe_phase(dev, serve_unarmed, legs) -> list:
     for label, extra in (("unarmed", []), ("armed", ["--perf", "--health"])):
         d = os.path.join(work, label)
         torch.cuda.synchronize()
-        tick_engine.step_cuda.launches = 0
-        out = _cli([*base, "--telemetry-dir", d, "--save", d + ".npz", *extra])
-        runs[label] = (d, out, tick_engine.step_cuda.launches)
+        with main_path_run(f"observe (a) {label}") as n:
+            out = _cli([*base, "--telemetry-dir", d, "--save", d + ".npz", *extra])
+        expect_launches(n, f"observe (a) {label}", t_a)
+        runs[label] = (d, out, n.tick)
     (ud, u_out, _), (ad, a_out, a_launches) = runs["unarmed"], runs["armed"]
-    if a_launches != t_a:
-        raise AssertionError(f"observe (a): {a_launches} kernel launches for {t_a} ticks")
     _, s_u, _, m_u, *_ = checkpoint.load(ud + ".npz", dev)
     _, s_a, _, m_a, *_ = checkpoint.load(ad + ".npz", dev)
     check_equal(s_u, s_a, "observe (a): armed state != unarmed")
@@ -2008,13 +2238,15 @@ def observe_phase(dev, serve_unarmed, legs) -> list:
     sink = TelemetrySink(sd, serve_config(cfg9), seed=0, batch=batch9, window=64, ring=0,
                          source="serve", backend="cuda")
     torch.cuda.synchronize()
-    tick_engine.step_cuda.launches = 0
-    sess = ServeSession(cfg9, batch=batch9, seed=0, chunk=256, window=64, sink=sink,
-                        warmup_ticks=256, tenants=bench.serve_tenants(batch9, 4), device=dev,
-                        perf=ChunkTimer(label="serve", batch=batch9, sink=sink), health="default")
-    stats = sess.serve(chunks=SERVE_CHUNKS)
-    torch.cuda.synchronize()
-    launches = tick_engine.step_cuda.launches
+    with main_path_run("observe (c)") as n:
+        sess = ServeSession(cfg9, batch=batch9, seed=0, chunk=256, window=64, sink=sink,
+                            warmup_ticks=256, tenants=bench.serve_tenants(batch9, 4), device=dev,
+                            perf=ChunkTimer(label="serve", batch=batch9, sink=sink),
+                            health="default")
+        stats = sess.serve(chunks=SERVE_CHUNKS)
+        torch.cuda.synchronize()
+    expect_launches(n, "observe (c)", (sess.warmup_chunks + sess.chunks_done) * sess.chunk)
+    launches = n.tick
     row = bench.serve_row(sess, stats, "config9", 4, smoke=False)
     for k in ("commands_acked", "reads_served"):
         if stats[k] != serve_unarmed[k]:
@@ -2044,15 +2276,15 @@ def observe_phase(dev, serve_unarmed, legs) -> list:
     shutil.copytree(os.path.join(HERE, "tests", "corpus"), corpus)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    tick_engine.step_cuda.launches = 0
     t0 = time.perf_counter()
-    doc = _cli(["scenario", "farm", "--device", "cuda", "--preset", "config4c", "--mutant",
-                "weak-quorum", "--portfolio", "scalar,coverage", "--population", str(pop),
-                "--ticks", str(ticks), "--window", str(window), "--trace-depth", str(depth),
-                "--budget-gens", "4", "--stop-on", "hit", "--out-dir", fd, "--corpus-dir", corpus,
-                "--freeze", "--health"])
+    with main_path_run("observe (d)") as n:
+        doc = _cli(["scenario", "farm", "--device", "cuda", "--preset", "config4c", "--mutant",
+                    "weak-quorum", "--portfolio", "scalar,coverage", "--population", str(pop),
+                    "--ticks", str(ticks), "--window", str(window), "--trace-depth", str(depth),
+                    "--budget-gens", "4", "--stop-on", "hit", "--out-dir", fd,
+                    "--corpus-dir", corpus, "--freeze", "--health"])
     wall = time.perf_counter() - t0
-    launches = tick_engine.step_cuda.launches
+    launches, farm_draws = n.tick, n.draws
     peak = torch.cuda.max_memory_allocated()
     if not doc["found"] or not (doc["frozen"] or doc["dedup_rejected"]):
         raise AssertionError(f"observe (d): the farm found or processed no hit: {doc}")
@@ -2062,6 +2294,9 @@ def observe_phase(dev, serve_unarmed, legs) -> list:
     with open(os.path.join(fd, "perf.jsonl")) as f:
         gens = [json.loads(x) for x in f]
     eval_launches = ticks * len(gens)
+    if not eval_launches <= farm_draws <= launches:  # a draw a tick, a span a replay
+        raise AssertionError(f"observe (d): {farm_draws} draw launches for {launches} tick "
+                             f"launches, {eval_launches} of them the hunt's")
     # K1 on the hunt's tick (the weak-quorum body, traced) at the population,
     # from a state 32 ticks in; these launches are not the farm's.
     run_cfg = dataclasses.replace(mutant_config("weak-quorum", PRESETS["config4c"][0]),
@@ -2071,7 +2306,7 @@ def observe_phase(dev, serve_unarmed, legs) -> list:
     keys = scan.seed_fleet(run_cfg, SEED, pop, dev)[1]
     # FULL_HOLD_TICKS ticks of kernel == plain on that state first.
     hold_ticks(run_cfg, s, keys, 32, FULL_HOLD_TICKS, "farm full width")
-    inp = raft_batched.to_batch_minor(faults.make_inputs(run_cfg, keys, 32))
+    inp = draw_engine.draw_cuda(run_cfg, keys, 32)
     kernel_ms = tick_engine.time_kernel(run_cfg, s, inp, reps=20, now=32)
     plain_ms = wall_ms(lambda: raft_batched.step_b(run_cfg, s, inp, 32), 3)
     rd, wr = tick_engine.traffic_bytes(run_cfg, pop)
@@ -2081,7 +2316,8 @@ def observe_phase(dev, serve_unarmed, legs) -> list:
     cell = {
         "phase": "observe_farm", "preset": "farm-config4c-weak-quorum", "batch": pop,
         "ticks": ticks, "window": window, "trace_depth": depth, "launches": launches,
-        "evaluation_launches": eval_launches, "generations": len(gens),
+        "draws_launches": farm_draws, "evaluation_launches": eval_launches,
+        "generations": len(gens),
         "hits": doc["hits"], "frozen": doc["frozen"],
         "dedup_rejected": [d["duplicate_of"] for d in doc["dedup_rejected"]],
         "outcome": "frozen" if doc["frozen"] else "dedup-rejected", "farm_dir_valid": True,
@@ -2210,7 +2446,6 @@ def shard_phase(dev, multihost) -> list:
     import torch
     from raft_sim_tpu_torch.analysis import op_audit
     from raft_sim_tpu_torch.farm import FarmSpec, run_farm
-    from raft_sim_tpu_torch.kernels import tick_engine
     from raft_sim_tpu_torch.parallel import mesh as mesh_mod, nodeshard
     from raft_sim_tpu_torch.scenario.mutation import mutant_config
     from raft_sim_tpu_torch.sim import scan
@@ -2221,24 +2456,30 @@ def shard_phase(dev, multihost) -> list:
 
     cells = []
 
-    def timed(fn):
+    def timed(fn, what: str, draws: int):
+        """(fn's result, seconds, K1's launches) of one counted run, whose
+        K2 launches must be `draws`."""
         torch.cuda.synchronize()
-        tick_engine.step_cuda.launches = 0
         t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0, tick_engine.step_cuda.launches
+        with main_path_run(what) as n:
+            out = fn()
+            torch.cuda.synchronize()
+        if n.draws != draws:
+            raise AssertionError(f"{what}: {n.draws} draw launches, expected {draws}")
+        return out, time.perf_counter() - t0, n.tick
 
     # ---- (a) the cluster axis: config3 at 100,000 over 4 shards ----------------
     t_row = time.perf_counter()
     cfg, batch = PRESETS["config3"]
     mesh = mesh_mod.make_mesh(devices=shard_devices(SHARD_SHARDS))
     (fs, ms), wall_s, launches = timed(
-        lambda: mesh_mod.simulate_sharded(cfg, SEED, batch, SHARD_T, mesh))
+        lambda: mesh_mod.simulate_sharded(cfg, SEED, batch, SHARD_T, mesh), "shard (a) sharded",
+        SHARD_SHARDS * SHARD_T)
     if launches != SHARD_SHARDS * SHARD_T:
         raise AssertionError(f"shard (a): {launches} kernel launches for {SHARD_SHARDS} shards x "
                              f"{SHARD_T} ticks")
-    (fd, md), wall_d, launches_d = timed(lambda: scan.simulate(cfg, SEED, batch, SHARD_T, device=dev))
+    (fd, md), wall_d, launches_d = timed(lambda: scan.simulate(cfg, SEED, batch, SHARD_T, device=dev),
+                                         "shard (a) unsharded", SHARD_T)
     if launches_d != SHARD_T:
         raise AssertionError(f"shard (a): {launches_d} kernel launches unsharded for {SHARD_T} ticks")
     check_equal(fd, fs, "shard (a): sharded final state != unsharded")
@@ -2265,12 +2506,14 @@ def shard_phase(dev, multihost) -> list:
     nmesh = nodeshard.make_node_mesh(SHARD_SHARDS, devices=shard_devices(SHARD_SHARDS))
     counts = {}
     (fs, ms), wall_s, launches = timed(lambda: nodeshard.simulate_node_sharded(
-        cfg, SEED, batch, SHARD_NODE_T, nmesh, counts=counts))
+        cfg, SEED, batch, SHARD_NODE_T, nmesh, counts=counts), "shard (b) sharded",
+        SHARD_SHARDS * SHARD_NODE_T)  # every node shard draws the real N
     if launches:
         raise AssertionError(f"shard (b): {launches} kernel launches on the node axis (the "
                              "plain tick runs each shard)")
     (fd, md), wall_d, launches_d = timed(lambda: scan.simulate(dense, SEED, batch, SHARD_NODE_T,
-                                                               device=dev))
+                                                               device=dev),
+                                         "shard (b) unsharded", SHARD_NODE_T)
     if launches_d != SHARD_NODE_T:
         raise AssertionError(f"shard (b): {launches_d} kernel launches unsharded")
     check_equal(fd, nodeshard.unshard_state(cfg, fs), "shard (b): unshard_state != unsharded")
@@ -2327,9 +2570,10 @@ def shard_phase(dev, multihost) -> list:
                     ticks=ticks, window=window, trace_depth=16, seed=SEED, stop_on="budget")
     r_s, wall_s, launches = timed(lambda: run_farm(
         fcfg, spec, mutant="weak-quorum", mesh=mesh_mod.make_mesh(devices=shard_devices(2)),
-        device=dev))
+        device=dev), "shard (d) sharded", 2 * gens * span_launches(pop, ticks))
     r_d, wall_d, launches_d = timed(lambda: run_farm(fcfg, spec, mutant="weak-quorum",
-                                                     device=dev))
+                                                     device=dev), "shard (d) unsharded",
+                                    gens * span_launches(2 * pop, ticks))  # small fleets: spans
     if launches != 2 * ticks * gens or launches_d != ticks * gens:
         raise AssertionError(f"shard (d): launches {launches} sharded, {launches_d} unsharded")
     rows = lambda r: json.dumps(r.generations, sort_keys=True)  # noqa: E731
@@ -2447,8 +2691,6 @@ def tools_phase(dev, legs) -> list:
     from raft_sim_tpu_torch import __main__ as cli
     from raft_sim_tpu_torch import device_parity_check, metrics_report, traffic_audit
     from raft_sim_tpu_torch.driver import Session
-    from raft_sim_tpu_torch.kernels import tick_engine
-    from raft_sim_tpu_torch.parallel import mesh as mesh_mod
     from raft_sim_tpu_torch.trace import checker
     from raft_sim_tpu_torch.utils.config import PRESETS
 
@@ -2457,13 +2699,18 @@ def tools_phase(dev, legs) -> list:
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
 
-    def counted(fn):
+    def counted(fn, what: str, spans: bool = False):
+        """(fn's result, seconds, K1's launches) of one counted run, which
+        must launch K2 once a K1 launch (with `spans`, where small fleets
+        draw a span of ticks a launch: at least once, at most so)."""
         torch.cuda.synchronize()
-        tick_engine.step_cuda.launches = 0
         t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0, tick_engine.step_cuda.launches
+        with main_path_run(what) as n:
+            out = fn()
+            torch.cuda.synchronize()
+        if not (0 < n.draws <= n.tick if spans else n.draws == n.tick):
+            raise AssertionError(f"{what}: {n.draws} draw launches for {n.tick} tick launches")
+        return out, time.perf_counter() - t0, n.tick
 
     # ---- (a) the sharded planes: config6 traced over 4 shards, config9's offers ----
     t_row = time.perf_counter()
@@ -2474,7 +2721,8 @@ def tools_phase(dev, legs) -> list:
     runs = {}
     for name, extra in (("unsharded", []), ("sharded", ["--devices", str(SHARD_SHARDS)])):
         d = os.path.join(work, name)
-        out, wall, launches = counted(lambda: _cli([*argv, *extra, "--telemetry-dir", d]))
+        out, wall, launches = counted(lambda: _cli([*argv, *extra, "--telemetry-dir", d]),
+                                      f"tools (a) {name}")
         for k in ("wall_s", "cluster_ticks_per_s"):
             out.pop(k)
         runs[name] = (out, wall, launches, _sink_files(d), checker.check_directory(d).to_dict())
@@ -2511,8 +2759,9 @@ def tools_phase(dev, legs) -> list:
                sess.offer_read(wait=wait)]
         return got, sess.state, sess.metrics, sess.now
 
-    (got1, st1, m1, now1), wall1, l1 = counted(lambda: offers(None))
-    (got4, st4, m4, now4), wall4, l4 = counted(lambda: offers(shard_devices(SHARD_SHARDS)))
+    (got1, st1, m1, now1), wall1, l1 = counted(lambda: offers(None), "tools (a) offers")
+    (got4, st4, m4, now4), wall4, l4 = counted(lambda: offers(shard_devices(SHARD_SHARDS)),
+                                               "tools (a) sharded offers")
     if got4 != got1 or now4 != now1:
         raise AssertionError(f"tools (a): sharded offers {got4} != unsharded {got1}")
     check_equal(st1, st4, "tools (a): the offers' sharded state != unsharded")
@@ -2571,7 +2820,8 @@ def tools_phase(dev, legs) -> list:
     t_row = time.perf_counter()
     doc_path = os.path.join(work, "measurement.json")
     (rc, _), wall, launches = counted(lambda: _tool_main(cli.main, [
-        "bench", "--measurement-pass", *MEASURE, "--device", "cuda", "--out", doc_path]))
+        "bench", "--measurement-pass", *MEASURE, "--device", "cuda", "--out", doc_path]),
+        "tools (d)", spans=True)  # the scenario-path A/B draws its small rows in spans
     with open(doc_path) as f:
         doc = json.load(f)
     rc_r, report = _tool_main(metrics_report.main, ["--perf", doc_path])
@@ -2662,7 +2912,6 @@ def analysis_phase(dev, legs, resources) -> list:
     import torch
     from raft_sim_tpu_torch import bench, driver
     from raft_sim_tpu_torch.analysis import sanitizer
-    from raft_sim_tpu_torch.kernels import tick_engine
     from raft_sim_tpu_torch.serve import ServeSession
     from raft_sim_tpu_torch.utils.config import PRESETS
 
@@ -2682,16 +2931,17 @@ def analysis_phase(dev, legs, resources) -> list:
         before = sess.state
         snap = sanitizer.snapshot(before)
         torch.cuda.synchronize()
-        tick_engine.step_cuda.launches = 0
         t0 = time.perf_counter()
-        with driver.sanitize_ctx(argparse.Namespace(sanitize=arm)) as san:
+        with main_path_run(f"analysis (a) {label}") as n, \
+                driver.sanitize_ctx(argparse.Namespace(sanitize=arm)) as san:
             sess.run(ticks, chunk=chunk)
             summ = sess.summary()  # copies to the host: waits for the device
         wall = time.perf_counter() - t0
+        expect_launches(n, f"analysis (a) {label}", ticks)
         driver.sanitize_report(san)
         sess.finalize_telemetry()
         changed = sanitizer.mismatched_leaves(snap, sanitizer.snapshot(before))
-        runs[label] = (sess, d, san, tick_engine.step_cuda.launches, wall, summ, changed)
+        runs[label] = (sess, d, san, n.tick, wall, summ, changed)
     us, ud, _, u_launch, u_wall, u_summ, _ = runs["unarmed"]
     as_, ad, san, a_launch, a_wall, a_summ, changed = runs["armed"]
     if a_launch != ticks or u_launch != ticks:
@@ -2731,14 +2981,14 @@ def analysis_phase(dev, legs, resources) -> list:
                             window=chunk9, warmup_ticks=warm,
                             tenants=bench.serve_tenants(batch9, 4), device=dev)
         torch.cuda.synchronize()
-        tick_engine.step_cuda.launches = 0
-        with driver.sanitize_ctx(argparse.Namespace(sanitize=arm)) as san:
+        with main_path_run(f"analysis (b) {label}") as n, \
+                driver.sanitize_ctx(argparse.Namespace(sanitize=arm)) as san:
             stats = sess.serve(chunks=n_chunks)
+        expect_launches(n, f"analysis (b) {label}", n_chunks * chunk9)  # warmup ran before
         driver.sanitize_report(san)
         stats = {k: v for k, v in stats.items() if not k.endswith("_s")}
         serves[label] = (sanitizer.snapshot((sess.state, sess.metrics)), sess.delta_rows,
-                         [t.acked_values for t in sess.router.tenants], stats, san,
-                         tick_engine.step_cuda.launches)
+                         [t.acked_values for t in sess.router.tenants], stats, san, n.tick)
     u_tree, u_rows, u_acks, u_stats, _, u_launch = serves["unarmed"]
     a_tree, a_rows, a_acks, a_stats, san, a_launch = serves["armed"]
     bad = sanitizer.mismatched_leaves(u_tree, a_tree)
@@ -2840,6 +3090,12 @@ def parity_phases(pool, proxy_build, t_start: float) -> None:
             dataclasses.replace(cfg7, compact_margin=4, check_log_matching=True), 45, 96),
     }
     parity += [(name, cfg, batch, ticks) for name, (cfg, batch, ticks) in ring_lm.items()]
+    # K1's AppendEntries windows above its old limit of 16: E = 32 on a
+    # 64-slot log, a client every tick under drop (lagging followers are
+    # sent windows of up to 25-27 entries in 96 ticks, the CPU's plain tick).
+    parity += [("n5-e32-cap64", dataclasses.replace(PRESETS["config2"][0], log_capacity=64,
+                                                    max_entries_per_rpc=32, client_interval=1,
+                                                    drop_prob=0.3), 200, 96)]
     # The longest rows are queued first, so that the workers end together.
     futs = {name: None for name, *_ in parity}
     for name, cfg, batch, ticks in sorted(parity, key=lambda r: -r[3]):
@@ -2895,6 +3151,8 @@ def parity_phases(pool, proxy_build, t_start: float) -> None:
                 raise AssertionError(f"{name}: {slice7}")
             if name == "config6-cap8-lm" and slice7["lm_skipped_pairs"] <= 0:
                 raise AssertionError(f"{name}: no incomparable pair met ({slice7})")
+        elif name == "n5-e32-cap64" and ev["widest_window"] <= 16:
+            raise AssertionError(f"{name}: no window above 16 entries was sent ({dict(ev)})")
         emit(line)
     emit({"phase": "slice2_events", **events})
     for k, v in events.items():
@@ -2931,12 +3189,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
+    if not os.path.isdir(os.path.join(HERE, "raft_sim_tpu_torch")):
+        print(f"chip_smoke: no raft_sim_tpu_torch package beside {__file__}: run it from a "
+              "checkout of the repository", file=sys.stderr)
+        return 2
     sys.path.insert(0, HERE)
     import raft_sim_tpu_torch
-    from raft_sim_tpu_torch.kernels import tick_engine
+    from raft_sim_tpu_torch.kernels import draw_engine, tick_engine
     from raft_sim_tpu_torch import bench
     from raft_sim_tpu_torch.models import raft_batched
-    from raft_sim_tpu_torch.sim import faults, scan
+    from raft_sim_tpu_torch.sim import scan
     from raft_sim_tpu_torch.summary import summarize
     from raft_sim_tpu_torch.utils import threefry
     from raft_sim_tpu_torch.utils.config import PRESETS
@@ -2965,14 +3227,19 @@ def main() -> int:
     legs_dir = os.path.join(HERE, "raft_sim_tpu_torch", "build", "parity_legs")
     shutil.rmtree(legs_dir, ignore_errors=True)
     os.makedirs(legs_dir)
+    draws_build = None
     try:
         obs_legs = {"cpu": parity_pool.submit(_observe_leg, "cpu", legs_dir)}
         trace_b = {"cpu": parity_pool.submit(_trace_small_leg, "cpu", legs_dir)}
         bench_legs = {"cpu": parity_pool.submit(_compact_bench_leg, "cpu", legs_dir)}
         t0 = time.perf_counter()
+        draws_build = draw_engine.start_build()  # K2's one nvcc, beside K1's nine
         proxy_build = pool.submit(tick_engine.build, proxy=True)
         lib_path = tick_engine.build()
         tick_engine._load_cuda()
+        draws_path = draw_engine.finish_build(draws_build)
+        draw_engine._load_cuda()
+        BLOCK_OPS.update(draw_engine.sass_block_ops(draws_path))  # K2's bound, from its SASS
         card_s = time.perf_counter() - t0
         proxy_path = proxy_build.result()
         # One entry per instantiation: its name, then stack/spill and registers.
@@ -2988,11 +3255,17 @@ def main() -> int:
         resources = {"findings": [x.to_json()
                                   for x in cost_model.check_kernel_resources(report, pins)],
                      "instantiations": len(report), "classes": sorted(pins)}
+        draws_ptxas = [ln.split("ptxas info    :")[-1].strip()
+                       for ln in draw_engine.BUILD_INFO.get("ptxas", "").splitlines()
+                       if "Compiling entry" in ln or "registers" in ln or "stack frame" in ln]
         emit({"phase": "build", "seconds": time.perf_counter() - t0, "card_seconds": card_s,
               "nvcc_seconds": tick_engine.BUILD_INFO.get("seconds"),
               "proxy_nvcc_seconds": tick_engine.PROXY_BUILD_INFO.get("seconds"),
+              "draws_nvcc_seconds": draw_engine.BUILD_INFO.get("seconds"),
               "library": os.path.relpath(lib_path, HERE),
-              "proxy_library": os.path.relpath(proxy_path, HERE), "ptxas": ptxas})
+              "draws_library": os.path.relpath(draws_path, HERE),
+              "proxy_library": os.path.relpath(proxy_path, HERE), "ptxas": ptxas,
+              "draws_ptxas": draws_ptxas, "draws_block_ops": BLOCK_OPS})
         # The other rows that time nothing join phase 2's, the longest first:
         # observe (b) and (e) and compact (e)'s bench runs on the card, trace
         # (a), serve (a), compact (a), (d) and (e)'s other entry points. Every
@@ -3007,6 +3280,7 @@ def main() -> int:
         obs_legs["cuda"] = parity_pool.submit(_observe_leg, "cuda", legs_dir)
         trace_b["cuda"] = parity_pool.submit(_trace_small_leg, "cuda", legs_dir)
         bench_legs["cuda"] = parity_pool.submit(_compact_bench_leg, "cuda", legs_dir)
+        draws_futs = [parity_pool.submit(_draws_row, *row) for row in draws_rows()]
         trace_futs = [parity_pool.submit(_trace_row, name) for name in TRACE_ROWS]
         served_futs = [parity_pool.submit(_served_row, *row) for row in served_rows()]
         compact_futs = [parity_pool.submit(_compact_row, *row) for row in compact_rows()]
@@ -3024,6 +3298,10 @@ def main() -> int:
                                  for name in device_parity_check.CONFIGS},
                       "repro": {d: parity_pool.submit(_repro_leg, d) for d in ("cuda", "cpu")}}
         parity_phases(parity_pool, proxy_build, t_start)
+        for fut in draws_futs:
+            emit(fut.result())
+        emit({"phase": "phase_end", "name": "draws_vs_plain",
+              "seconds": time.perf_counter() - t_start})
         trace_a = [f.result() for f in trace_futs]
         served = [f.result() for f in served_futs]
         compact_legs = {"rows": [f.result() for f in compact_futs],
@@ -3040,12 +3318,21 @@ def main() -> int:
     finally:
         parity_pool.shutdown(cancel_futures=True)
         pool.shutdown()
+        if draws_build is not None:  # K2's nvcc, if the build failed before it was waited for
+            draws_build[0].kill()
     shutil.rmtree(legs_dir, ignore_errors=True)
     emit({"phase": "phase_end", "name": "parity_workers", "seconds": time.perf_counter() - t_start})
 
     # ---- 4: full width, the main path -----------------------------------------
     cells = []
     total_launches = 0
+    # The SM clock under the draws' load, for K2's bound: config3's draws at
+    # its batch, over and over for a second.
+    cfg3, b3 = PRESETS["config3"]
+    k3 = scan.fleet_keys(SEED, b3, dev)[1]
+    SM_CLOCK["mhz"] = bench.sm_clock_mhz(lambda: draw_engine.draw_cuda(cfg3, k3, 0))
+    emit({"phase": "sm_clock", "mhz": SM_CLOCK["mhz"], "load": "config3 draws, 100,000 clusters"})
+    del k3
     # 128 full-width ticks a cell, so the script keeps well inside its time
     # limit with the later phases beside them (the crash cells' input draws
     # take 50-120 ms a tick, by the host); longer where a liveness check
@@ -3060,16 +3347,15 @@ def main() -> int:
         cfg, batch = PRESETS[name]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        tick_engine.step_cuda.launches = 0
         t0 = time.perf_counter()
-        final, metrics = scan.simulate(cfg, SEED, batch, ticks, device=dev)
-        summ = summarize(metrics)  # copies to the host: waits for the device
+        with main_path_run(name) as n:
+            final, metrics = scan.simulate(cfg, SEED, batch, ticks, device=dev)
+            summ = summarize(metrics)  # copies to the host: waits for the device
         wall = time.perf_counter() - t0
-        launches = tick_engine.step_cuda.launches
+        launches, draw_launches = n.tick, n.draws
         peak = torch.cuda.max_memory_allocated()
         total_launches += launches
-        if launches != ticks:
-            raise AssertionError(f"{name}: {launches} kernel launches for {ticks} ticks")
+        expect_launches(n, name, ticks)
         if summ.total_violations != 0:
             raise AssertionError(f"{name}: {summ.total_violations} violations")
         if int((metrics.first_leader_tick >= scan.NEVER).sum()) != 0:
@@ -3103,12 +3389,12 @@ def main() -> int:
         hold_ticks(cfg, s, keys, ticks, FULL_HOLD_TICKS, f"{name} full width")
 
         # Per-tick breakdown on the run's final state, at full width.
-        inp = raft_batched.to_batch_minor(faults.make_inputs(cfg, keys, ticks))
+        inp = draw_engine.draw_cuda(cfg, keys, ticks)
         m_t = raft_batched.to_batch_minor(scan.init_metrics_batch(batch, dev))
         _, info = tick_engine.step_cuda(cfg, s, inp, ticks)
         kernel_ms = tick_engine.time_kernel(cfg, s, inp, reps=20, now=ticks)
-        inputs_ms = wall_ms(
-            lambda: raft_batched.to_batch_minor(faults.make_inputs(cfg, keys, ticks)), 5)
+        inputs_ms = wall_ms(lambda: draw_engine.draw_plain(cfg, keys, ticks), 5)
+        draws = draws_cell(cfg, keys, ticks, batch)
         step_ms = wall_ms(lambda: tick_engine.step_cuda(cfg, s, inp, ticks), 10)
         plain_ms = wall_ms(lambda: raft_batched.step_b(cfg, s, inp, ticks), 3)
         acc_ms = wall_ms(lambda: scan._accumulate(m_t, info, s.now), 10)
@@ -3116,11 +3402,12 @@ def main() -> int:
         bound_ms = (rd + wr) / BW_BYTES_PER_S * 1e3
         cell = {
             "phase": "full_width", "preset": name, "batch": batch, "ticks": ticks,
-            "launches": launches, "kernel_vs_plain_ticks": FULL_HOLD_TICKS, "wall_s": wall,
-            "cluster_ticks_per_s": batch * ticks / wall,
+            "launches": launches, "draws_launches": draw_launches,
+            "kernel_vs_plain_ticks": FULL_HOLD_TICKS, "wall_s": wall,
+            "ms_per_tick": wall * 1e3 / ticks, "cluster_ticks_per_s": batch * ticks / wall,
             "kernel_ms": kernel_ms, "bound_ms": bound_ms, "bytes_read": rd,
             "bytes_written": wr, "bound_share": bound_ms / kernel_ms,
-            "inputs_ms": inputs_ms, "step_ms": step_ms, "plain_ms": plain_ms,
+            "inputs_ms": inputs_ms, **draws, "step_ms": step_ms, "plain_ms": plain_ms,
             "accumulate_ms": acc_ms, "peak_mem_bytes": peak,
             "max_commit_min": min_commit,
             "max_commit_median": float(metrics.max_commit.float().median()),
@@ -3137,28 +3424,40 @@ def main() -> int:
 
     emit({"phase": "phase_end", "name": "full_width", "seconds": time.perf_counter() - t_start})
 
+    def phase_draws(name: str) -> None:
+        """Print K1's and K2's launches over phase `name`'s counted runs
+        (MAIN_PATH since the last call)."""
+        emit({"phase": "draws_launches", "name": name, "tick_launches": MAIN_PATH["tick"] - seen[0],
+              "launches": MAIN_PATH["draws"] - seen[1]})
+        seen[:] = [MAIN_PATH["tick"], MAIN_PATH["draws"]]
+
+    seen = [MAIN_PATH["tick"], MAIN_PATH["draws"]]
     # ---- 4b: the long-horizon path, config6 with log matching at 1,000 ---------
     long_cell = long_run(dev, hold_ticks, wall_ms)
     cells.append(long_cell)
     total_launches += long_cell["launches"]
+    phase_draws("long_run")
     emit({"phase": "phase_end", "name": "long_run", "seconds": time.perf_counter() - t_start})
 
     # ---- 4c: the serve path, the config9-serve row at 1,000 -------------------
     serve_cell, serve_unarmed = serve_phase(dev, wall_ms, served)
     cells.append(serve_cell)
     total_launches += serve_cell["launches"]
+    phase_draws("serve")
     emit({"phase": "phase_end", "name": "serve", "seconds": time.perf_counter() - t_start})
 
     # ---- 4d: the scenario engine under the mutant hooks ------------------------
     scen_cell = scenario_phase(dev, wall_ms, hold_ticks)
     cells.append(scen_cell)
     total_launches += scen_cell["launches"]
+    phase_draws("scenario")
     emit({"phase": "phase_end", "name": "scenario", "seconds": time.perf_counter() - t_start})
 
     # ---- 4e: the protocol trace plane --------------------------------------------
     for cell in trace_phase(dev, wall_ms, trace_a, trace_b):
         cells.append(cell)
         total_launches += cell["launches"]
+    phase_draws("trace")
     emit({"phase": "phase_end", "name": "trace", "seconds": time.perf_counter() - t_start})
 
     # ---- 4f: the compacted carry layout -------------------------------------------
@@ -3166,6 +3465,7 @@ def main() -> int:
     for cell in compact_phase(dev, wall_ms, hold_ticks, config5_cell, compact_legs):
         cells.append(cell)
         total_launches += cell["launches"]
+    phase_draws("compact")
     emit({"phase": "phase_end", "name": "compact", "seconds": time.perf_counter() - t_start})
 
     # ---- 4g: the observability planes and the farm --------------------------------
@@ -3173,29 +3473,38 @@ def main() -> int:
         cells.append(cell)
         total_launches += cell["launches"]
     del serve_unarmed
+    phase_draws("observe")
     emit({"phase": "phase_end", "name": "observe", "seconds": time.perf_counter() - t_start})
 
     # ---- 4h: the multi-device tier on the one card --------------------------------
     for cell in shard_phase(dev, multihost):
         cells.append(cell)
         total_launches += cell["launches"]
+    phase_draws("shard")
     emit({"phase": "phase_end", "name": "shard", "seconds": time.perf_counter() - t_start})
 
     # ---- 4i: the sharded planes and the tools tier ---------------------------------
     for cell in tools_phase(dev, tools_legs):
         cells.append(cell)
         total_launches += cell["launches"]
+    phase_draws("tools")
     emit({"phase": "phase_end", "name": "tools", "seconds": time.perf_counter() - t_start})
 
     # ---- 4j: the analyzer's runtime legs ------------------------------------------
     for cell in analysis_phase(dev, analysis_legs, resources):
         cells.append(cell)
         total_launches += cell["launches"]
+    phase_draws("analysis")
     emit({"phase": "phase_end", "name": "analysis", "seconds": time.perf_counter() - t_start})
 
     # ---- 5: the port's bench row, card vs CPU -----------------------------------
     cfg2 = PRESETS["config2"][0]
-    row_g = bench.bench(cfg2, 64, 100, repeats=2, quality_seeds=3, config_name="config2", device=dev)
+    with main_path_run("bench_row") as n:
+        row_g = bench.bench(cfg2, 64, 100, repeats=2, quality_seeds=3, config_name="config2",
+                            device=dev)
+    if n.tick <= 0 or n.draws != n.tick:
+        raise AssertionError(f"bench_row: {n.tick} tick and {n.draws} draw launches")
+    phase_draws("bench_row")
     row_c = bench.bench(cfg2, 64, 100, repeats=2, quality_seeds=3, config_name="config2", device="cpu")
     quality = ("p50_stable_tick", "pct_stable", "p50_commit_latency", "lat_p50", "lat_p95", "lat_p99",
                "lat_excluded", "total_cmds", "violations", "noop_blocked", "lm_skipped_pairs",
@@ -3212,6 +3521,8 @@ def main() -> int:
     emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start})
     # config3: the 100,000-cluster BASELINE throughput row.
     main_cell = next(c for c in cells if c["preset"] == "config3")
+    draws_keys = ("batch", "draws_ms", "draws_bound_ms", "draws_bound_by", "draws_bound_share",
+                  "inputs_ms", "draws_launches", "ms_per_tick", "wall_ms_per_tick")
     emit({"kernels": [{
         "name": "tick",
         "route": "cuda",
@@ -3230,6 +3541,24 @@ def main() -> int:
                                                   "launches", "kernel_vs_plain_ticks", "shape")
                                 if k in c}
                   for c in cells},
+    }, {
+        "name": "draws",
+        "route": "cuda",
+        "source": "raft_sim_tpu_torch/csrc/draws.cu",
+        "replaces": "raft_sim_tpu/sim/faults.py:302 (XLA-fused on the TPU; no Pallas kernel)",
+        "launches": MAIN_PATH["draws"],  # K2 in the counted runs (checks and timings left out)
+        "max_abs_err": 0,  # every draws_vs_plain row and cell check raises on a differing leaf
+        "ms": main_cell["draws_ms"],
+        "plain_ms": main_cell["inputs_ms"],
+        "bound_ms": main_cell["draws_bound_ms"],
+        "bound_by": main_cell["draws_bound_by"],
+        "library_ms": None,
+        "match": True,
+        "measured_at": f"{main_cell['preset']} batch {main_cell['batch']}",
+        "sm_clock_mhz": SM_CLOCK["mhz"],
+        "block_ops": BLOCK_OPS,
+        "cells": {c["preset"]: {k: c[k] for k in draws_keys if k in c}
+                  for c in cells if "draws_ms" in c},
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

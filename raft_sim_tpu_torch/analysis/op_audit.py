@@ -357,7 +357,11 @@ def run_tick(cfg: RaftConfig, variant: str, device="cpu", batch: int = AUDIT_BAT
     state, keys = scan.seed_fleet(vcfg, 0, batch, dev)
     s = raft_batched.to_batch_minor(state)
     m = raft_batched.to_batch_minor(scan.init_metrics_batch(batch, dev))
-    kw: dict = {"step_fn": raft_batched.step_b}
+    from raft_sim_tpu_torch.kernels import draw_engine
+
+    # The plain draws and tick on either device, so the card's op stream is
+    # the CPU's (the kernels' launches are no torch ops).
+    kw: dict = {"step_fn": raft_batched.step_b, "draw_fn": draw_engine.draw_plain}
     if variant == "scenario_simulate":
         kw.update(genome=audit_genome(vcfg, batch, dev), seg_len=AUDIT_SEG_LEN)
     elif variant == "serve_simulate":

@@ -203,8 +203,9 @@ def run_tier(name: str, cfg: RaftConfig, ticks: int | None = None,
     """Run one tier's audit ticks (the plain tick) on `device`, watching
     the values. `tick_fn` replaces `scan.tick_batch_minor` (the tests'
     seeded faults)."""
+    from raft_sim_tpu_torch.kernels import draw_engine
     from raft_sim_tpu_torch.models import raft_batched
-    from raft_sim_tpu_torch.sim import faults, scan
+    from raft_sim_tpu_torch.sim import scan
 
     ticks = AUDIT_TICKS.get(name, DEFAULT_TICKS) if ticks is None else ticks
     tick = scan.tick_batch_minor if tick_fn is None else tick_fn
@@ -240,7 +241,7 @@ def run_tier(name: str, cfg: RaftConfig, ticks: int | None = None,
     for t in range(ticks):
         checker = RangeChecker() if t % check_every == 0 else contextlib.nullcontext()
         with checker:
-            inp = faults.make_inputs(cfg, keys, t)
+            inp = draw_engine.draw_plain(cfg, keys, t)
             s, m, _ = tick(cfg, s, keys, m, t, step_fn=raft_batched.step_b, inputs=inp)
         if isinstance(checker, RangeChecker):
             found.extend(checker.found)

@@ -140,6 +140,28 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
+def sm_clock_mhz(load, seconds: float = 1.0) -> float:
+    """The first card's SM clock under `load` (a callable that enqueues work
+    on the card): `nvidia-smi --query-gpu=clocks.sm` sampled every 50 ms
+    while `load` runs over and over for `seconds`; the highest reading. The
+    sampler is stopped before this returns."""
+    proc = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits",
+                             "-lms", "50"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+                            text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            load()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out = proc.communicate(timeout=10)[0]
+    readings = [float(x) for x in out.split() if x.replace(".", "", 1).isdigit()]
+    if not readings:
+        raise RuntimeError("nvidia-smi gave no clocks.sm reading")
+    return max(readings)
+
+
 def _telemetry_window(ticks: int) -> int:
     """A window that divides the run (bench.py's): the finest of a few round
     divisors, else one whole-run window."""

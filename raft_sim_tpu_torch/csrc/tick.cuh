@@ -100,7 +100,7 @@ namespace rs {
 
 constexpr int MAXN = 255;  // nodes per cluster this body supports (RaftConfig's ceiling)
 constexpr int MAXW = 8;    // packed words per node row (ceil(MAXN / 32))
-constexpr int MAXE = 16;  // entries per AppendEntries window
+constexpr int MAXE = 127;  // entries per AppendEntries window (RaftConfig's ceiling; the int8 offset)
 constexpr int MAXK = 16;  // redirect pipeline slots (RaftConfig.client_pipeline <= 16)
 constexpr int BINS = 16;  // latency histogram bins (types.LAT_HIST_BINS)
 constexpr int MAX_THREADS = 512;  // workers per block (tick.cu)
@@ -1746,7 +1746,7 @@ struct TickArgs {
 inline int check_params(const TickParams& p) {
   if (p.n < 2 || p.n > MAXN) return 1;
   if (p.w != (p.n + 31) / 32 || p.w > MAXW) return 2;
-  if (p.e < 1 || p.e > MAXE || p.cap < 1) return 3;
+  if (p.e < 1 || p.e > MAXE || p.cap < 1 || p.e > p.cap) return 3;
   if (p.quorum < 1 || p.b < 0) return 4;
   if (p.redirect && (p.k < 1 || p.k > MAXK)) return 5;
   return 0;

@@ -1,4 +1,4 @@
-"""Time the tick kernel of one checkout at full width, per cell, on one card.
+"""Time the tick and draw kernels of one checkout at full width, per cell, on one card.
 
     python3 raft_sim_tpu_torch/kernel_times.py [--root DIR]
 
@@ -17,8 +17,15 @@ events over REPS back-to-back launches, `tick_engine.time_kernel`, as
 chip_smoke.py's full-width phase times it), the
 bound (bytes read + written once over 3.35 TB/s), the plain PyTorch step's
 ms (host clock to a synchronize, PLAIN_REPS calls) and, where the checkout
-has them, the block shape and shared-memory bytes. The last line names the card
-and its power limit. Needs a card; exits 2 without one.
+has them, the block shape and shared-memory bytes; then, where the checkout
+has the draw kernel (kernels/draw_engine.py), the same tick's draws: the
+kernel's device ms per launch (CUDA events, `draw_engine.time_draws`),
+its bound (`draw_engine.bound_ms`: the larger of the threefry blocks'
+integer instructions, counted from the built kernel's SASS, at the SMs'
+ALU and issue rates at the SM clock nvidia-smi reads under the draws' load,
+and the bytes over 3.35 TB/s) and the plain draws' ms
+(`draw_engine.draw_plain`, host clock to a synchronize). The last line names the card and its power limit. Needs a
+card; exits 2 without one.
 """
 
 from __future__ import annotations
@@ -70,9 +77,20 @@ def main(argv=None) -> int:
         raise RuntimeError(f"raft_sim_tpu_torch imported from {raft_sim_tpu_torch.__file__}, not {root}")
     dev = torch.device("cuda")
     t0 = time.perf_counter()
+    try:
+        from raft_sim_tpu_torch.kernels import draw_engine
+    except ImportError:  # a checkout from before the draw kernel
+        draw_engine = None
+    started = draw_engine.start_build() if draw_engine else None
     tick_engine.build()
     tick_engine._load_cuda()
-    print(json.dumps({"root": root, "build_s": time.perf_counter() - t0}), flush=True)
+    block_ops = None
+    if draw_engine:
+        draw_engine.finish_build(started)
+        draw_engine._load_cuda()
+        block_ops = draw_engine.sass_block_ops()  # K2's instructions a drop draw, from its SASS
+    print(json.dumps({"root": root, "build_s": time.perf_counter() - t0,
+                      "draws_block_ops": block_ops}), flush=True)
     for name in args.cells.split(","):
         base, field = name, None
         for suffix, f in SUFFIXES.items():
@@ -103,6 +121,20 @@ def main(argv=None) -> int:
                "plain_ms": (time.perf_counter() - t1) * 1e3 / PLAIN_REPS}
         if hasattr(tick_engine, "launch_shape"):
             row["shape"] = tick_engine.launch_shape(cfg, batch, dev)
+        if draw_engine:
+            row["draws_ms"] = draw_engine.time_draws(cfg, keys, WARM_TICKS, reps=REPS)
+            clock = bench.sm_clock_mhz(lambda: draw_engine.draw_cuda(cfg, keys, WARM_TICKS), 0.5)
+            row["draws_bound"] = draw_engine.bound_ms(cfg, batch, WARM_TICKS, clock,
+                                                      block_ops=block_ops)
+            row["draws_sm_clock_mhz"] = clock
+            plain = lambda: draw_engine.draw_plain(cfg, keys, WARM_TICKS)  # noqa: E731
+            plain()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(PLAIN_REPS):
+                plain()
+            torch.cuda.synchronize()
+            row["draws_plain_ms"] = (time.perf_counter() - t1) * 1e3 / PLAIN_REPS
         print(json.dumps(row), flush=True)
         del final, s, inp
         torch.cuda.empty_cache()

@@ -174,7 +174,7 @@ def leg_live(cfg: T.RaftConfig, group: str, name: str) -> bool:
     return gate is None or gate(cfg)
 
 
-MAX_ENTRIES = 16
+MAX_ENTRIES = 127  # csrc/tick.cuh MAXE: RaftConfig's ceiling min(log_capacity, 127)
 
 
 class TickParams(ctypes.Structure):
@@ -233,6 +233,63 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def spawn(cmd: list[str]) -> subprocess.Popen:
+    """Start one compiler run with its output captured (`reap` waits)."""
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def reap(procs, names) -> list[str]:
+    """Wait for every compiler run of `procs` and return their reports
+    (stderr: ptxas's, under -Xptxas -v); raise naming the first that failed."""
+    errs = [proc.communicate()[1] for proc in procs]  # waits for every one
+    for name, proc, err in zip(names, procs, errs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"{name} failed ({proc.returncode}):\n{err[-4000:]}")
+    return errs
+
+
+def install(tmp: Path, out: Path, report: str, t0: float, info: dict) -> Path:
+    """Move a built library into place beside its ptxas report; `info`
+    records the seconds since `t0`, the report and the path."""
+    out.with_suffix(".ptxas.txt").write_text(report)
+    os.replace(tmp, out)
+    info.update(seconds=time.perf_counter() - t0, ptxas=report, path=str(out))
+    return out
+
+
+def locked_build(out: Path, make) -> Path:
+    """`out` built once by `make(tmp)` and moved into place, under a file
+    lock, so processes that ask at once build it once."""
+    import fcntl
+
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with open(out.parent / "host_build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not out.exists():
+            tmp = out.with_name(f"{out.stem}.{os.getpid()}.so")
+            make(tmp)
+            os.replace(tmp, out)
+    return out
+
+
+def time_launches(launch, reps: int) -> float:
+    """Device milliseconds per call of `launch` (one kernel launch on the
+    current stream): one warm-up, then `reps` calls back to back between two
+    CUDA events, behind a device-side sleep so the host's enqueueing stays
+    off the clock."""
+    launch()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(reps):
+        launch()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 BUILD_INFO: dict = {}
 PROXY_BUILD_INFO: dict = {}
 
@@ -259,18 +316,12 @@ def build(proxy: bool = False) -> Path:
     defs = ["-DRS_RACE_PROXY"] if proxy else []
     parts = [(k, w) for k in IDX_TIERS for w in WIDTH_TIERS]
     t0 = time.perf_counter()
-    objs, procs = [], []
-    for k, w in parts:
-        obj = BUILD_DIR / f"{name}_i{k}_w{w}_{tag}.{pid}.o"
-        cmd = [nvcc, *arch, *defs, "-Xptxas", "-v", "-c", f"-DRS_IDX_BYTES={k}", f"-DRS_WIDTH={w}",
-               "-o", str(obj), str(CSRC / "tick.cu")]
-        objs.append(obj)
-        procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    objs = [BUILD_DIR / f"{name}_i{k}_w{w}_{tag}.{pid}.o" for k, w in parts]
+    procs = [spawn([nvcc, *arch, *defs, "-Xptxas", "-v", "-c", f"-DRS_IDX_BYTES={k}",
+                    f"-DRS_WIDTH={w}", "-o", str(obj), str(CSRC / "tick.cu")])
+             for (k, w), obj in zip(parts, objs)]
     try:
-        reports = [proc.communicate()[1] for proc in procs]  # waits for every one
-        for part, proc, err in zip(parts, procs, reports):
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc (index, width tier {part}) failed ({proc.returncode}):\n{err[-4000:]}")
+        reports = reap(procs, [f"nvcc (index, width tier {part})" for part in parts])
         tmp = out.with_suffix(f".{pid}.tmp")
         link = subprocess.run([nvcc, *arch, "-shared", "-o", str(tmp), *map(str, objs)],
                               capture_output=True, text=True)
@@ -279,11 +330,7 @@ def build(proxy: bool = False) -> Path:
     finally:
         for obj in objs:
             obj.unlink(missing_ok=True)
-    out.with_suffix(".ptxas.txt").write_text("".join(reports))
-    os.replace(tmp, out)
-    info = PROXY_BUILD_INFO if proxy else BUILD_INFO
-    info.update(seconds=time.perf_counter() - t0, ptxas="".join(reports), path=str(out))
-    return out
+    return install(tmp, out, "".join(reports), t0, PROXY_BUILD_INFO if proxy else BUILD_INFO)
 
 
 def ptxas_report(text: str | None = None) -> dict:
@@ -409,13 +456,15 @@ def _info_spec(name: str, b: int):
 def check_supported(cfg: T.RaftConfig) -> None:
     """Raise NotImplementedError for what the kernel does not take: the
     launch takes the dense layout only (`step_cuda` unpacks compacted
-    carries before it)."""
+    carries before it), and AppendEntries windows of 1 to min(CAP, 127)
+    entries, RaftConfig's own range."""
     if cfg.compact_planes:
         raise NotImplementedError("the tick kernel's launch does not take compact_planes "
                                   "(packed legs): launch on the dense view")
-    if cfg.max_entries_per_rpc > MAX_ENTRIES:
+    if not 1 <= cfg.max_entries_per_rpc <= min(cfg.log_capacity, MAX_ENTRIES):
         raise NotImplementedError(
-            f"step_cuda takes max_entries_per_rpc <= {MAX_ENTRIES}, got {cfg.max_entries_per_rpc}"
+            f"step_cuda takes 1 <= max_entries_per_rpc <= min(log_capacity, {MAX_ENTRIES}), "
+            f"got {cfg.max_entries_per_rpc}"
         )
 
 
@@ -595,18 +644,7 @@ def time_kernel(cfg, s, inp, reps: int = 20, now: int | None = None) -> float:
     sleep so the host's enqueueing stays off the clock. Each launch counts."""
     with torch.cuda.device(s.role.device):
         params, ptrs, tiers, outs = _prepare(cfg, s, inp, now, "cuda")
-        _cuda_launch(params, ptrs, tiers, s.role.device)  # warm-up
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(50_000_000)
-        start.record()
-        for _ in range(reps):
-            _cuda_launch(params, ptrs, tiers, s.role.device)
-        end.record()
-        torch.cuda.synchronize()
-        del outs
-        return start.elapsed_time(end) / reps
+        return time_launches(lambda: _cuda_launch(params, ptrs, tiers, s.role.device), reps)
 
 
 # csrc/tick_host.cpp's parts: (width tier, node-id bytes) pairs the body is
@@ -620,18 +658,16 @@ def build_host(out: Path, cxx: str) -> Path:
     part of HOST_PARTS, the compilers started together, then one link."""
     flags = ["-std=c++17", "-O2", "-Wall", "-Werror", "-fPIC"]
     objs = [out.with_name(f"{out.stem}_w{w}_n{nb}.o") for w, nb in HOST_PARTS]
-    procs = [
-        subprocess.Popen([cxx, *flags, "-c", f"-DRS_HOST_WIDTH={w}", f"-DRS_HOST_NODE_BYTES={nb}",
-                          "-o", str(obj), str(CSRC / "tick_host.cpp")],
-                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for (w, nb), obj in zip(HOST_PARTS, objs)
-    ]
-    errs = [proc.communicate()[1] for proc in procs]  # waits for every one
-    for part, proc, err in zip(HOST_PARTS, procs, errs):
-        if proc.returncode != 0:
-            raise RuntimeError(f"{cxx} (part {part}) failed ({proc.returncode}):\n{err[-4000:]}")
-    subprocess.run([cxx, "-shared", "-o", str(out), *map(str, objs)], check=True,
-                   capture_output=True, text=True)
+    procs = [spawn([cxx, *flags, "-c", f"-DRS_HOST_WIDTH={w}", f"-DRS_HOST_NODE_BYTES={nb}",
+                    "-o", str(obj), str(CSRC / "tick_host.cpp")])
+             for (w, nb), obj in zip(HOST_PARTS, objs)]
+    try:
+        reap(procs, [f"{cxx} (part {part})" for part in HOST_PARTS])
+        subprocess.run([cxx, "-shared", "-o", str(out), *map(str, objs)], check=True,
+                       capture_output=True, text=True)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return out
 
 
@@ -639,19 +675,8 @@ def host_library(cxx: str) -> Path:
     """The CPU build of the tick body for the current sources, in BUILD_DIR
     under their hash: built once (`build_host`, under a file lock, so
     processes that ask at once build it once) and reused after."""
-    import fcntl
-
     out = BUILD_DIR / f"libtick_host_{_source_tag(('tick.cuh', 'tick_host.cpp'))}.so"
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / "host_build.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if not out.exists():
-            tmp = out.with_name(f"{out.stem}.{os.getpid()}.so")
-            build_host(tmp, cxx)
-            os.replace(tmp, out)
-            for obj in BUILD_DIR.glob(f"{tmp.stem}_w*.o"):
-                obj.unlink()
-    return out
+    return locked_build(out, lambda tmp: build_host(tmp, cxx))
 
 
 def load_host(path) -> ctypes.CDLL:

@@ -2,16 +2,20 @@
 
     python -m raft_sim_tpu_torch.profile --preset config3 --ticks 20
 
-Warms a fleet up for --warmup ticks of the main path (sim/scan.py), then
-traces --ticks more with torch.profiler and prints one JSON line:
+Warms a fleet up for --warmup ticks of the main path (sim/scan.py `simulate`,
+its wall ms a tick and then `summarize`'s ms on its metrics, host clock to a
+synchronize, reported as `warmup`), then traces --ticks more with
+torch.profiler and prints one JSON line:
 
   - window: host wall ms per tick (to a synchronize), device kernel ms per
     tick, the device's busy share of the window (kernel time over wall time;
     one stream, so kernels never overlap), kernel launches per tick, and the
     kernels with the most device time;
   - parts: the same device ms and launches per tick for each part of the tick
-    traced on its own -- input draws (sim/faults.make_inputs + the move to
-    batch-minor), the step (kernels/tick_engine.step_cuda) and the metric fold
+    traced on its own -- the input draws (kernels/draw_engine.draw_cuda: the
+    draw kernel, as the main path draws), the plain draws beside them
+    (`inputs`: draw_engine.draw_plain),
+    the step (kernels/tick_engine.step_cuda) and the metric fold
     (scan._accumulate).
 
 Needs a CUDA device; exits 2 without one. Where the profiler sees no device
@@ -82,16 +86,24 @@ def main(argv=None) -> int:
         print("profile: torch sees no CUDA device", file=sys.stderr)
         return 2
 
-    from raft_sim_tpu_torch.kernels import tick_engine
+    from raft_sim_tpu_torch.kernels import draw_engine, tick_engine
     from raft_sim_tpu_torch.models import raft_batched
-    from raft_sim_tpu_torch.sim import faults, scan
+    from raft_sim_tpu_torch.sim import scan
+    from raft_sim_tpu_torch.summary import summarize
     from raft_sim_tpu_torch.utils import threefry
     from raft_sim_tpu_torch.utils.config import PRESETS
 
     cfg, batch = PRESETS[args.preset]
     batch = args.batch or batch
     dev = torch.device("cuda")
-    state, _ = scan.simulate(cfg, args.seed, batch, args.warmup, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = scan.simulate(cfg, args.seed, batch, args.warmup, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    summarize(metrics)
+    warmup = {"ticks": args.warmup, "ms_per_tick": (t1 - t0) * 1e3 / max(args.warmup, 1),
+              "summarize_ms": (time.perf_counter() - t1) * 1e3}
     keys = threefry.split(threefry.split(threefry.key(args.seed, dev), 2)[1], batch)
     s = raft_batched.to_batch_minor(state)
     m = raft_batched.to_batch_minor(scan.init_metrics_batch(batch, dev))
@@ -102,14 +114,15 @@ def main(argv=None) -> int:
         loop["now"] += 1
 
     now = args.warmup
-    inp = raft_batched.to_batch_minor(faults.make_inputs(cfg, keys, now))
+    inp = draw_engine.draw_plain(cfg, keys, now)
     _, info = tick_engine.step_cuda(cfg, s, inp, now)
     out = {
         "preset": args.preset, "batch": batch, "ticks": args.ticks,
-        "device": torch.cuda.get_device_name(0),
+        "device": torch.cuda.get_device_name(0), "warmup": warmup,
         "window": _trace(tick, args.ticks),
         "parts": {
-            "inputs": _trace(lambda: raft_batched.to_batch_minor(faults.make_inputs(cfg, keys, now)), args.ticks),
+            "draws": _trace(lambda: draw_engine.draw_cuda(cfg, keys, now), args.ticks),
+            "inputs": _trace(lambda: draw_engine.draw_plain(cfg, keys, now), args.ticks),
             "step": _trace(lambda: tick_engine.step_cuda(cfg, s, inp, now), args.ticks),
             "accumulate": _trace(lambda: scan._accumulate(m, info, s.now), args.ticks),
         },

@@ -2,7 +2,9 @@
 batch-minor path).
 
 `simulate(cfg, seed, batch, n_ticks)` is the main path: init from the seed,
-then `n_ticks` of `tick_batch_minor` -- input draws (sim/faults.py), the tick
+then `n_ticks` of `tick_batch_minor` -- input draws
+(kernels/draw_engine.draw_cuda: the Hopper draw kernel for CUDA keys, the
+plain draws of sim/faults.py for CPU keys), the tick
 (kernels/tick_engine.step_cuda: the Hopper kernel for CUDA tensors, the plain
 PyTorch step for CPU tensors) and the metric fold. The JAX `lax.scan` becomes a
 Python loop. All clusters run in lockstep, so the loop keeps `now` on the host
@@ -30,9 +32,8 @@ from typing import NamedTuple
 
 import torch
 
-from raft_sim_tpu_torch.kernels import tick_engine
+from raft_sim_tpu_torch.kernels import draw_engine, tick_engine
 from raft_sim_tpu_torch.models import raft_batched
-from raft_sim_tpu_torch.sim import faults
 from raft_sim_tpu_torch.types import LAT_HIST_BINS, NIL, ClusterState, StepInfo, init_rows
 from raft_sim_tpu_torch.utils import device as device_mod
 from raft_sim_tpu_torch.utils import threefry
@@ -151,7 +152,7 @@ def _override(plane: torch.Tensor, value) -> torch.Tensor:
 
 def tick_batch_minor(cfg, s, keys, metrics, now: int, step_fn=None, client_cmd=None,
                      read_cmd=None, genome=None, seg_len: int = 1, inputs=None,
-                     events: bool = False, facts=None):
+                     events: bool = False, facts=None, draw_fn=None):
     """ONE tick of the batch-minor path: input draws, step, metric fold.
     `s`/`metrics` are batch-minor, `keys` [B, 2], `now` the host's copy of the
     lockstep tick. `client_cmd` replaces the scheduled client input this
@@ -159,39 +160,41 @@ def tick_batch_minor(cfg, s, keys, metrics, now: int, step_fn=None, client_cmd=N
     offer fleet-wide, Session.offer/offer_read) or a [B] plane (one slot per
     cluster, NIL = none: the serve loop). A read plane needs cfg.read_index.
     `genome`/`seg_len` select the scenario input path; `inputs` (this tick's
-    [B, ...]-leading StepInputs, drawn ahead by `input_ticks`) replaces the
-    draw. Returns (state, metrics, StepInfo), all batch-minor.
+    batch-minor StepInputs, drawn ahead by `input_ticks`) replaces the draw.
+    `draw_fn` overrides the draws as `step_fn` does the tick (default:
+    kernels/draw_engine.draw_cuda). Returns (state, metrics, StepInfo), all
+    batch-minor.
 
     `events=True` (the trace plane, cfg.track_trace) also extracts the tick's
     protocol events from the state delta (trace/events.py) and returns
     (state, metrics, StepInfo, TickEvents); the first three are the same
     either way. The fault facts (`faults.trace_fault_inputs`) come with the
-    input draw (`make_inputs(..., facts=True)`), or as `facts` with `inputs`
+    input draw (`draw_fn(..., facts=True)`), or as `facts` with `inputs`
     drawn ahead (`input_ticks(..., trace=True)`)."""
     if step_fn is None:
         step_fn = tick_engine.step_cuda
+    if draw_fn is None:
+        draw_fn = draw_engine.draw_cuda
     if inputs is not None:
-        inp = inputs
-    elif events and facts is None:
-        inp, facts = faults.make_inputs(cfg, keys, now, genome=genome, seg_len=seg_len,
-                                        facts=True)
+        inp_t = inputs
+        if facts is None and events:  # inputs drawn ahead without them
+            facts = draw_fn(cfg, keys, now, genome=genome, seg_len=seg_len, facts=True)[1]
+    elif events:
+        inp_t, facts = draw_fn(cfg, keys, now, genome=genome, seg_len=seg_len, facts=True)
     else:
-        inp = faults.make_inputs(cfg, keys, now, genome=genome, seg_len=seg_len)
+        inp_t = draw_fn(cfg, keys, now, genome=genome, seg_len=seg_len)
     if client_cmd is not None:
-        inp = inp._replace(client_cmd=_override(inp.client_cmd, client_cmd))
+        inp_t = inp_t._replace(client_cmd=_override(inp_t.client_cmd, client_cmd))
     if read_cmd is not None:
-        inp = inp._replace(read_cmd=_override(inp.read_cmd, read_cmd))
-    inp_t = raft_batched.to_batch_minor(inp)
+        inp_t = inp_t._replace(read_cmd=_override(inp_t.read_cmd, read_cmd))
     s2, info = step_fn(cfg, s, inp_t, now)
     m2 = _accumulate(metrics, info, s.now)
     if not events:
         return s2, m2, info
     from raft_sim_tpu_torch.trace import events as tev
 
-    if facts is None:  # inputs drawn ahead without them
-        facts = faults.trace_fault_inputs(cfg, keys, now, genome=genome, seg_len=seg_len)
     crashed, cut_now, cut_prev = facts
-    ev = tev.extract(cfg, s, s2, inp_t, info, crashed.movedim(0, -1), cut_now, cut_prev)
+    ev = tev.extract(cfg, s, s2, inp_t, info, crashed, cut_now, cut_prev)
     return s2, m2, info, ev
 
 
@@ -271,16 +274,17 @@ def spans_pay(batch: int) -> bool:
 
 def input_ticks(cfg: RaftConfig, keys: torch.Tensor, t0: int, n_ticks: int, genome,
                 seg_len: int = 1, trace: bool = False):
-    """Each tick's [B, ...]-leading scenario-path inputs for ticks t0 ..
-    t0 + n_ticks - 1, drawn a span at a time (faults.draw_span, at most
-    SPAN_ROWS rows a call): equal to drawing them tick by tick, at a fraction
-    of the launches when B is small (a replay, a shrink trial). With `trace`
-    each tick comes as (inputs, fault facts): the trace plane's
-    `faults.trace_fault_inputs`, drawn with them (`draw_span(facts=True)`)."""
+    """Each tick's batch-minor scenario-path inputs for ticks t0 ..
+    t0 + n_ticks - 1, drawn a span at a time (`draw_engine.draw_span`, at
+    most SPAN_ROWS rows a call): equal to drawing them tick by tick, at a
+    fraction of the launches when B is small (a replay, a shrink trial).
+    With `trace` each tick comes as (inputs, fault facts): the trace plane's
+    `faults.trace_fault_inputs`, drawn with them (`facts=True`). On the card
+    each span is one launch of the draw kernel."""
     block = max(1, SPAN_ROWS // max(keys.shape[0], 1))
     for a in range(t0, t0 + n_ticks, block):
         k_n = min(block, t0 + n_ticks - a)
-        span = faults.draw_span(cfg, keys, a, k_n, genome, seg_len, facts=trace)
+        span = draw_engine.draw_span(cfg, keys, a, k_n, genome, seg_len, facts=trace)
         inps, facts = span if trace else (span, None)
         for k in range(k_n):
             inp = type(inps)(*(x[k] for x in inps))

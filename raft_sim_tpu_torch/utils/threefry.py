@@ -14,7 +14,8 @@ with it needs the same streams, so the port computes them itself:
                        jax's two-draw algorithm (int or per-key tensor
                        bounds): split(k) -> two bits draws,
                        offset = (higher % span * multiplier + lower % span) % span
-                       with multiplier = (2^16 % span)^2 % span, all wrapping uint32
+                       with multiplier = ((2^16 % span)^2 mod 2^32) % span, all
+                       wrapping uint32
 
 A key is a `[..., 2]` int64 tensor holding two uint32 words; every function is
 vectorised over the leading `...` batch of keys (the key for cluster b is row b)
@@ -107,7 +108,7 @@ def randint(k: torch.Tensor, shape, minval, maxval) -> torch.Tensor:
         lo = minval
         span = maxval - minval if maxval > minval else 1
     multiplier = (1 << 16) % span
-    multiplier = (multiplier * multiplier) % span
+    multiplier = ((multiplier * multiplier) & MASK32) % span  # the square wraps, as uint32
     k_hi, k_lo = split(k, 2).unbind(dim=-2)
     higher = bits(k_hi, shape)
     lower = bits(k_lo, shape)

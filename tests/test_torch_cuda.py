@@ -404,7 +404,6 @@ def test_step_cuda_matches_plain_step_under_mutants(card, name, proxy):
     s = trb.to_batch_minor(ttypes.init_batch(cfg, threefry.key(0, card), batch))
     keys = threefry.split(threefry.key(1, card), batch)
     for t, inp in zip(range(ticks), scan.input_ticks(cfg, keys, 0, ticks, g, ticks // 2)):
-        inp = trb.to_batch_minor(inp)
         want = trb.step_b(cfg, s, inp, t)
         got = tick_engine.step_cuda(cfg, s, inp, t, proxy=proxy)
         diff = bridge.first_difference(want[0], got[0]) or bridge.first_difference(want[1], got[1])
@@ -668,3 +667,86 @@ def test_kernel_resources_hold_the_pins(card):
     with open(cost_model.golden_path()) as f:
         pins = json.load(f)["kernel_resources"]
     assert cost_model.check_kernel_resources(report, pins) == []
+
+
+@pytest.mark.parametrize("name", ["config3", "config4", "config6r", "config8", "config10", "config5c",
+                                  "config7x"])
+def test_draw_cuda_matches_plain_draws(card, name):
+    """The draw kernel (K2) on the card equals the plain draws on the card,
+    every StepInputs leaf and fault fact, with and without the facts, at
+    ticks across the first crash window's edge; on a two-segment genome with
+    per-row ticks; and in one `draw_span` launch."""
+    from raft_sim_tpu_torch.kernels import draw_engine
+    from raft_sim_tpu_torch.scenario import genome as gmod
+
+    cfg, _ = tconfig.PRESETS[name]
+    batch = 45
+    keys = threefry.split(threefry.key(1, card), batch)
+    for t in (0, 1, 2, 31, 32, 63, 64, 65, 97):
+        for facts in (False, True):
+            want = draw_engine.draw_plain(cfg, keys, t, facts=facts)
+            got = draw_engine.draw_cuda(cfg, keys, t, facts=facts)
+            inp_w, inp_g = (want[0], got[0]) if facts else (want, got)
+            assert bridge.first_difference(inp_w, inp_g) is None, f"tick {t}"
+            if facts:
+                assert all(torch.equal(a, b) for a, b in zip(want[1], got[1])), f"tick {t} facts"
+    rng = np.random.default_rng(3)
+    segs = [gmod.segment(drop_prob=rng.uniform(0, 0.4), partition_period=int(rng.integers(0, 20)),
+                         partition_prob=rng.uniform(), crash_prob=rng.uniform(0, 0.5),
+                         crash_down_ticks=8, clock_skew_prob=rng.uniform(0, 0.3),
+                         client_interval=int(rng.integers(0, 5))) for _ in range(2)]
+    g = gmod.to_device(gmod.broadcast(gmod.from_segments(segs), batch), card)
+    now = torch.arange(batch, dtype=torch.int32, device=card)
+    want = draw_engine.draw_plain(cfg, keys, now, g, 16, facts=True)
+    got = draw_engine.draw_cuda(cfg, keys, now, g, 16, facts=True)
+    assert bridge.first_difference(want[0], got[0]) is None
+    assert all(torch.equal(a, b) for a, b in zip(want[1], got[1]))
+    launches = draw_engine.draw_cuda.launches
+    g8 = gmod.to_device(gmod.broadcast(gmod.from_segments(segs), 8), card)
+    want = faults.draw_span(cfg, keys[:8], 3, 24, g8, 16)
+    got = draw_engine.draw_span(cfg, keys[:8], 3, 24, g8, 16)
+    assert draw_engine.draw_cuda.launches == launches + 1
+    assert bridge.first_difference(want, type(got)(*(x.movedim(-1, 1) for x in got))) is None
+
+
+def test_card_runs_never_take_the_plain_draws(card, monkeypatch):
+    """On the card every path draws through K2: with the plain draws patched
+    to raise, `simulate`, `simulate_scenario` (a draw a tick), a traced
+    replay (a span a launch) and a traced windowed run (the facts) run, and
+    K2 launches once a tick (once a span on the replay)."""
+    from raft_sim_tpu_torch.kernels import draw_engine
+    from raft_sim_tpu_torch.scenario import genome as gmod
+    from raft_sim_tpu_torch.sim import telemetry
+    from raft_sim_tpu_torch.trace import ring as tring
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain draws ran on the card")
+
+    monkeypatch.setattr(faults, "make_inputs", refuse)
+    monkeypatch.setattr(faults, "draw_span", refuse)
+    monkeypatch.setattr(faults, "trace_fault_inputs", refuse)
+    cfg = tconfig.PRESETS["config6r"][0]
+    draw_engine.draw_cuda.launches = 0
+    scan.simulate(cfg, 0, 64, 32, device=card)
+    assert draw_engine.draw_cuda.launches == 32
+    g = gmod.from_config(cfg)
+    draw_engine.draw_cuda.launches = 0
+    scan.simulate_scenario(cfg, 0, 64, 32, gmod.broadcast(g, 64), seg_len=16, device=card)
+    assert draw_engine.draw_cuda.launches == 32
+    state, keys = scan.seed_fleet(cfg, 0, 1, card)
+    draw_engine.draw_cuda.launches = 0
+    scan.run_traced(cfg, state, keys, 48, genome=gmod.to_device(gmod.broadcast(g, 1), card))
+    assert draw_engine.draw_cuda.launches == 1  # one span: 48 ticks x 1 cluster
+    tcfg = dataclasses.replace(cfg, track_trace=True)
+    draw_engine.draw_cuda.launches = 0
+    telemetry.simulate_windowed(tcfg, 0, 64, 32, 16, trace=tring.TraceSpec(depth=64), device=card)
+    assert draw_engine.draw_cuda.launches == 32
+
+
+@pytest.mark.parametrize("cap,e", [(64, 32), (24, 24), (127, 127)])
+def test_step_cuda_takes_windows_up_to_the_config_ceiling(card, cap, e):
+    """K1 at max_entries_per_rpc above its old limit of 16, up to min(CAP,
+    127), equals the plain tick every tick under heavy drop."""
+    cfg = tconfig.RaftConfig(n_nodes=5, log_capacity=cap, max_entries_per_rpc=e,
+                             client_interval=1, drop_prob=0.45)
+    _hold(cfg, 64, 128, card)

@@ -62,6 +62,11 @@ def _fuzz(inp, rng, p_down):
 N101_RING_LM = dataclasses.replace(tconfig.PRESETS["config7"][0], compact_margin=4,
                                    check_log_matching=True)
 
+# A client every tick under heavy drop: followers fall far behind, so the
+# leader ships its widest windows.
+E32_CFG = tconfig.RaftConfig(n_nodes=5, log_capacity=64, max_entries_per_rpc=32, client_interval=1,
+                             drop_prob=0.45)
+
 ROWS = [
     pytest.param(tconfig.RaftConfig(n_nodes=3, log_capacity=8, max_entries_per_rpc=2), 8, 120, 0.0, id="n3-small"),
     pytest.param(tconfig.RaftConfig(n_nodes=5, client_interval=4, drop_prob=0.2), 8, 120, 0.0, id="n5-faults"),
@@ -196,6 +201,17 @@ ROWS = [
     pytest.param(dataclasses.replace(tconfig.PRESETS["config8"][0], track_trace=True), 3, 64,
                  0.03, id="config8-track-trace-crash-fuzz"),
     pytest.param(N101_RING_LM, 2, 80, 0.0, id="config7-mix-n101-compaction-lm"),
+    # AppendEntries windows past 16 entries, up to RaftConfig's ceiling
+    # min(CAP, 127): E = 32 on a 64-slot log, and E = CAP on a plain log and
+    # on a compacting ring, under drop and crash fuzz so lagging followers
+    # are sent wide windows.
+    *(pytest.param(cfg, 4, 120, 0.08, id=name) for name, cfg in (
+        ("n5-e32-cap64-crash-fuzz", E32_CFG),
+        ("n5-e24-cap24-crash-fuzz", dataclasses.replace(E32_CFG, log_capacity=24,
+                                                        max_entries_per_rpc=24)),
+        ("n5-e16-cap16-ring-crash-fuzz", dataclasses.replace(E32_CFG, log_capacity=16,
+                                                             max_entries_per_rpc=16,
+                                                             compact_margin=4, drop_prob=0.2)))),
 ]
 
 @pytest.fixture(scope="module")
@@ -267,6 +283,28 @@ def test_wrapper_rejects_bad_leaves(host_lib):
         tick_engine.step_host(host_lib, cfg, s, inp._replace(skew=inp.skew[:, :2]), 0)
     with pytest.raises(NotImplementedError, match="compact_planes"):
         tick_engine.check_supported(tconfig.RaftConfig(n_nodes=101, compact_planes=True))
+
+
+def test_append_windows_up_to_the_config_ceiling_are_taken(host_lib):
+    """The kernel takes every window width RaftConfig admits, 1 to
+    min(CAP, 127) (the int8 window offset), and E32_CFG's trajectory ships
+    windows wider than 16 entries through the host body equal to the plain
+    tick's."""
+    for cap, e in ((8, 8), (16, 16), (64, 17), (64, 32), (64, 64), (128, 127), (256, 127)):
+        tick_engine.check_supported(tconfig.RaftConfig(n_nodes=5, log_capacity=cap,
+                                                       max_entries_per_rpc=e))
+    cfg = E32_CFG
+    s = trb.to_batch_minor(ttypes.init_batch(cfg, threefry.key(2), 4))
+    keys = threefry.split(threefry.key(3), 4)
+    widest = 0
+    for t in range(120):
+        inp = trb.to_batch_minor(faults.make_inputs(cfg, keys, t))
+        want = trb.step_b(cfg, s, inp, t)
+        got = tick_engine.step_host(host_lib, cfg, s, inp, t)
+        assert bridge.first_difference(want[0], got[0]) is None, f"tick {t}"
+        s = got[0]
+        widest = max(widest, int(s.mailbox.ent_count.max()))
+    assert widest > 16
 
 
 def test_every_dense_cluster_size_is_taken(host_lib):
