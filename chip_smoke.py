@@ -10,10 +10,12 @@ the start; any failure raises and exits non-zero):
    the tick kernel's build from raft_sim_tpu_torch/csrc (nvcc, sm_90a) with its
    seconds and the compiler's register/stack/spill report per instantiation
    (tick_kernel<index, ack, node dtype, width tier, nodes per thread, body:
-   0 lean, 1 full, 2 mutant>), nine nvcc runs in parallel, the draw kernel's
+   0 lean, 1 full, 2 mutant; the lean two-nodes-a-thread ones named
+   wide_tick_kernel<...>), nine nvcc runs in parallel, the draw kernel's
    (K2, raft_sim_tpu_torch/csrc/draws.cu: one nvcc run, started beside them,
-   its ptxas line printed too), and the race proxy's library (below) with
-   them, nine more: all are built before any row runs on the card. PARITY_WORKERS worker processes, each with its
+   its ptxas line printed too) and its race proxy's (one more), and the
+   tick kernel's race proxy library (below) with them, nine more: all are
+   built before any row runs on the card. PARITY_WORKERS worker processes, each with its
    own context on the card and a lower priority than nvcc, start before
    the build; the rows that time nothing -- phases 2, 2b and 3, serve (a),
    trace (a), compact (a), (d) and (e), observe (b) and (e), and the CPU
@@ -82,7 +84,11 @@ the start; any failure raises and exits non-zero):
    edges of every crash and partition window, cadence and genome segment
    (`draws_ticks`), with and without the facts; on the genome row also
    per-row ticks; and one `draw_span` (DRAWS_SPAN: 16 clusters x 24 ticks,
-   one launch) with its facts against the plain span.
+   one launch) with its facts against the plain span. Two more rows run
+   K2's race proxy (csrc/draws.cu built with RS_RACE_PROXY: a tile's rows
+   and nodes mapped to threads in reverse, the staged partition side bits
+   poisoned before the stage phase) on config5 and the N=255 partitioned
+   mix at a ragged 45, every tick equal to the plain draws.
 3. card_vs_cpu -- the port's `simulate` on the card equals the port on the CPU
    (config2, config4, config6r, config3p, config8, config9 and config10 at
    64 x 32; config7 at 16 x 32). The CPU tests hold the CPU
@@ -617,10 +623,11 @@ DRAWS_SPAN = (16, 24)
 
 
 def draws_rows() -> list:
-    """draws_vs_plain's rows: (name, config, batch, genome seed or None) --
-    phase 2's presets and wide mixes, config5c and config7x (the flat
-    mask), config4c under a numpy-seeded genome with a different fault
-    setting in every cluster and segment, and served config9."""
+    """draws_vs_plain's rows: (name, config, batch, genome seed or None,
+    race proxy) -- phase 2's presets and wide mixes, config5c and config7x
+    (the flat mask), config4c under a numpy-seeded genome with a different
+    fault setting in every cluster and segment, and served config9; then
+    K2's race proxy on config5 and the N=255 partitioned mix."""
     from raft_sim_tpu_torch.serve.loop import serve_config
     from raft_sim_tpu_torch.utils.config import PRESETS
 
@@ -639,6 +646,12 @@ def draws_rows() -> list:
              ("config7x", PRESETS["config7x"][0], 250, None),
              ("config4c-genome", PRESETS["config4c"][0], 200, 3),
              ("config9-served", serve_config(PRESETS["config9"][0]), 200, None)]
+    rows = [row + (False,) for row in rows]
+    # K2's race proxy on the staged side bits: N=51 and N=255 partitioned.
+    rows += [("config5-proxy", PRESETS["config5"][0], 45, None, True),
+             ("config7-mix-n255-partitions-proxy",
+              dataclasses.replace(cfg7, n_nodes=255, partition_period=32, partition_prob=0.25), 45,
+              None, True)]
     return rows
 
 
@@ -661,12 +674,14 @@ def _facts_tuple(facts):
     return collections.namedtuple("FaultFacts", "crashed cut_now cut_prev")(*facts)
 
 
-def check_draws(cfg, keys, now, what: str, genome=None, seg_len: int = 1, facts=False) -> None:
-    """The draw kernel (`draw_cuda`) on the card equals the plain draws on
-    the card, leaf for leaf, at tick `now` (an int, or per-row ticks)."""
+def check_draws(cfg, keys, now, what: str, genome=None, seg_len: int = 1, facts=False,
+                proxy=False) -> None:
+    """The draw kernel (`draw_cuda`; `proxy`: its race proxy) on the card
+    equals the plain draws on the card, leaf for leaf, at tick `now` (an
+    int, or per-row ticks)."""
     from raft_sim_tpu_torch.kernels import draw_engine
 
-    got = draw_engine.draw_cuda(cfg, keys, now, genome, seg_len, facts)
+    got = draw_engine.draw_cuda(cfg, keys, now, genome, seg_len, facts, proxy=proxy)
     want = draw_engine.draw_plain(cfg, keys, now, genome, seg_len, facts)
     if facts:
         check_equal(want[0], got[0], f"{what}: draw_cuda inputs != plain")
@@ -675,12 +690,15 @@ def check_draws(cfg, keys, now, what: str, genome=None, seg_len: int = 1, facts=
         check_equal(want, got, f"{what}: draw_cuda inputs != plain")
 
 
-def _draws_row(name: str, cfg, batch: int, genome_seed) -> dict:
+def _draws_row(name: str, cfg, batch: int, genome_seed, proxy: bool = False) -> dict:
     """draws_vs_plain's row `name`, in a parity worker: at every tick of
-    `draws_ticks`, with and without the facts, the draw kernel == the plain
-    draws; on a genome row also per-row ticks; then one `draw_span` of a
-    DRAWS_SPAN fleet under a three-segment genome, with its facts, against
-    the plain span (its rows in the kernel's layout, [T, ..., B])."""
+    `draws_ticks`, with and without the facts, the draw kernel (`proxy`:
+    its race proxy, which maps the tile's rows and nodes to threads in
+    reverse and poisons the staged side bits before they are staged) ==
+    the plain draws; on a genome row also per-row ticks; then one
+    `draw_span` of a DRAWS_SPAN fleet under a three-segment genome, with
+    its facts, against the plain span (its rows in the kernel's layout,
+    [T, ..., B])."""
     import torch
     from raft_sim_tpu_torch.kernels import draw_engine
     from raft_sim_tpu_torch.sim import faults
@@ -694,7 +712,7 @@ def _draws_row(name: str, cfg, batch: int, genome_seed) -> dict:
     draw_engine.draw_cuda.launches = 0
     for t in ticks:
         for facts in (False, True):
-            check_draws(cfg, keys, t, f"draws {name} tick {t}", g, seg, facts)
+            check_draws(cfg, keys, t, f"draws {name} tick {t}", g, seg, facts, proxy)
     if g is not None:
         now = torch.tensor([ticks[k % len(ticks)] for k in range(batch)], dtype=torch.int32,
                            device=dev)
@@ -709,7 +727,7 @@ def _draws_row(name: str, cfg, batch: int, genome_seed) -> dict:
     check_equal(_facts_tuple(rows(want[1])), _facts_tuple(got[1]),
                 f"draws {name} span: facts != plain")
     return {"phase": "draws_vs_plain", "preset": name, "batch": batch, "ticks": ticks,
-            "genome": g is not None, "facts": [False, True],
+            "race_proxy": proxy, "genome": g is not None, "facts": [False, True],
             "span": {"batch": b_s, "ticks": t_s, "seg_len": DRAWS_SEG},
             "launches": draw_engine.draw_cuda.launches, "max_abs_err": 0}
 
@@ -3227,18 +3245,20 @@ def main() -> int:
     legs_dir = os.path.join(HERE, "raft_sim_tpu_torch", "build", "parity_legs")
     shutil.rmtree(legs_dir, ignore_errors=True)
     os.makedirs(legs_dir)
-    draws_build = None
+    draws_build = draws_proxy_build = None
     try:
         obs_legs = {"cpu": parity_pool.submit(_observe_leg, "cpu", legs_dir)}
         trace_b = {"cpu": parity_pool.submit(_trace_small_leg, "cpu", legs_dir)}
         bench_legs = {"cpu": parity_pool.submit(_compact_bench_leg, "cpu", legs_dir)}
         t0 = time.perf_counter()
         draws_build = draw_engine.start_build()  # K2's one nvcc, beside K1's nine
+        draws_proxy_build = draw_engine.start_build(proxy=True)  # and its race proxy's
         proxy_build = pool.submit(tick_engine.build, proxy=True)
         lib_path = tick_engine.build()
         tick_engine._load_cuda()
         draws_path = draw_engine.finish_build(draws_build)
         draw_engine._load_cuda()
+        draws_proxy_path = draw_engine.finish_build(draws_proxy_build, proxy=True)
         BLOCK_OPS.update(draw_engine.sass_block_ops(draws_path))  # K2's bound, from its SASS
         card_s = time.perf_counter() - t0
         proxy_path = proxy_build.result()
@@ -3264,7 +3284,8 @@ def main() -> int:
               "draws_nvcc_seconds": draw_engine.BUILD_INFO.get("seconds"),
               "library": os.path.relpath(lib_path, HERE),
               "draws_library": os.path.relpath(draws_path, HERE),
-              "proxy_library": os.path.relpath(proxy_path, HERE), "ptxas": ptxas,
+              "proxy_library": os.path.relpath(proxy_path, HERE),
+              "draws_proxy_library": os.path.relpath(draws_proxy_path, HERE), "ptxas": ptxas,
               "draws_ptxas": draws_ptxas, "draws_block_ops": BLOCK_OPS})
         # The other rows that time nothing join phase 2's, the longest first:
         # observe (b) and (e) and compact (e)'s bench runs on the card, trace
@@ -3318,8 +3339,9 @@ def main() -> int:
     finally:
         parity_pool.shutdown(cancel_futures=True)
         pool.shutdown()
-        if draws_build is not None:  # K2's nvcc, if the build failed before it was waited for
-            draws_build[0].kill()
+        for started in (draws_build, draws_proxy_build):  # K2's nvcc runs, if the build failed
+            if started is not None:                       # before they were waited for
+                started[0].kill()
     shutil.rmtree(legs_dir, ignore_errors=True)
     emit({"phase": "phase_end", "name": "parity_workers", "seconds": time.perf_counter() - t_start})
 

@@ -19,15 +19,16 @@
 // launch, with no copy of the keys or the genome.
 //
 // Work split: worker (r, i) derives the row's keys itself (a handful of
-// threefry blocks: cheaper than a barrier to share them), then draws node
-// i's row of the delivery plane (its N drop bits and the partition's cut
-// edges, packed into W words as it goes), its skew, election timeout,
-// liveness at the tick and the tick before, and its storage draws. Worker
-// (r, 0) also writes the row's scalars: the client command, the redirect
-// routing, the admin offers and the fact counts. A partition's cut-edge count
-// is 2 x n1 x (N - n1) on an active window (n1 nodes on one side), so worker
-// 0 counts it from the side draws it makes anyway: no reduction across
-// workers, no shared memory, no barrier.
+// threefry blocks: cheaper than a barrier to share them) and, in a stage
+// phase, draws node i's side bit of the row's partition window (and of the
+// tick before's, with the facts) into the tile's staging; after a barrier
+// it draws node i's row of the delivery plane (its N drop bits, and the
+// partition's cut edges from the staged side bits, packed into W words),
+// its skew, election timeout, liveness at the tick and the tick before,
+// and its storage draws. Worker (r, 0) also writes the row's scalars: the
+// client command, the redirect routing, the admin offers and the fact
+// counts. A partition's cut-edge count is 2 x n1 x (N - n1) on an active
+// window (n1 nodes on one side), counted from the staged words.
 //
 // Output layout: every leaf [T, F, kb], batch-minor within each tick group
 // (the layout the tick kernel reads), F the leaf's per-row width (N*W
@@ -261,14 +262,6 @@ RD_HD Window partition_at(Key k_part, int64_t now, int32_t period, uint32_t part
   return w;
 }
 
-// Edges the window cuts (0 before tick 0): 2 x n1 x (N - n1).
-RD_HD int32_t cut_count(const Window& w, int n, int64_t now) {
-  if (!w.active || now < 0) return 0;
-  int n1 = 0;
-  for (int j = 0; j < n; ++j) n1 += bits(w.k_group, (uint64_t)j) < HALF_U32;
-  return 2 * n1 * (n - n1);
-}
-
 // Node i alive at tick t under the crash schedule keyed by ckey (a tick below
 // 0 reports alive): in window t // period, node i crashes with threshold
 // crash_t and is down over [start, start + dur) of the window.
@@ -283,6 +276,80 @@ RD_HD bool alive_at(Key ckey, int64_t t, int i, int32_t period, uint32_t crash_t
   return !(off >= start && off < (int64_t)start + dur);
 }
 
+// ---- the side-bit staging ----------------------------------------------------
+//
+// A partition window's side draws are one per node (group[j] = bits(k_group,
+// j) < 2^31), shared by every node of the row: each worker draws its own
+// node's side bit once and stages it as a byte, a barrier, then every worker
+// of the row packs the bytes into words where its delivery row needs them.
+// Two staged rows a row of the tile: the window at the row's tick, and (with
+// the facts) the window at the tick before, for the cut counts.
+
+constexpr int MAX_THREADS = 512;  // workers a tile (draws.cu's blocks)
+
+// Whether some row of a launch may draw under an active partition window:
+// the genome path (any segment may partition), or the scalar path with a
+// partition period and probability. Without, nothing is ever staged, and
+// draws.cu launches its flat form.
+RD_HD bool may_partition(const DrawParams& p) {
+  return p.genome || (p.part_period > 0 && p.part_t != 0u);
+}
+constexpr uint8_t POISON = 0xA5;  // the race proxy's staged byte
+
+// Rows a tile for N nodes: the largest power of two up to 32 whose rows x N
+// workers fit MAX_THREADS (32 at N <= 16, 8 at N = 51, 4 at N = 101, 2 at
+// N = 255), so a warp's stores are runs of that many consecutive rows.
+RD_HD int tile_rows(int n) {
+  int rt = 32;
+  while (rt > 1 && rt * n > MAX_THREADS) rt >>= 1;
+  return rt;
+}
+
+// Bytes a staged row: N rounded up to whole words of four bytes.
+RD_HD int stage_stride(int n) { return (n + 3) & ~3; }
+
+// The staging bytes of a tile of `rt` rows: [2][rt][stride].
+RD_HD int64_t stage_bytes(int n, int rt) { return 2 * (int64_t)rt * stage_stride(n); }
+
+struct Stage {
+  uint8_t* base;
+  int rt, stride;
+  RD_HD uint8_t* row(int which, int local) const {
+    return base + ((int64_t)which * rt + local) * stride;
+  }
+};
+
+// Word wd of a staged row (bits j - 32 wd for nodes j of the word below n).
+RD_HD uint32_t staged_word(const uint8_t* row, int n, int wd) {
+  uint32_t word = 0u;
+  for (int q = 0; q < 8; ++q) {
+    const int j = wd * 32 + q * 4;
+    if (j >= n) break;
+    const uint8_t* at = row + j;
+    // Bit 0 of each byte (a padding byte past n holds whatever the memory
+    // held; its bit lands above `live` and is cut below).
+    const uint32_t b = ((uint32_t)at[0] | ((uint32_t)at[1] << 8) | ((uint32_t)at[2] << 16) |
+                        ((uint32_t)at[3] << 24)) & 0x01010101u;
+    word |= ((b | (b >> 7) | (b >> 14) | (b >> 21)) & 0xFu) << (q * 4);
+  }
+  const int live = n - wd * 32;  // bits of the word that are nodes
+  return live >= 32 ? word : word & ((1u << live) - 1u);
+}
+
+// Edges a window cuts from its staged row: 2 x n1 x (N - n1).
+RD_HD int32_t staged_cut(const uint8_t* row, int n, int w) {
+  int n1 = 0;
+  for (int wd = 0; wd < w; ++wd) {
+    const uint32_t word = staged_word(row, n, wd);
+#ifdef __CUDA_ARCH__
+    n1 += __popc(word);
+#else
+    n1 += __builtin_popcount(word);
+#endif
+  }
+  return 2 * n1 * (n - n1);
+}
+
 // ---- one worker -----------------------------------------------------------
 
 // Element f of a leaf F wide for row r (cluster c of tick group g).
@@ -291,34 +358,72 @@ RD_HD int64_t at(const DrawParams& p, int64_t r, int64_t F, int64_t f) {
   return (g * F + f) * p.kb + c;
 }
 
-// Row r, node i: node i's draws, and (i == 0) the row's scalars.
-RD_HD void draw_node(const DrawArgs& a, int64_t r, int i) {
+// What a worker carries from its stage phase to its draw phase.
+struct RowCtx {
+  int64_t now, c;
+  Key tkey, k_part;
+  Fault f;
+  Window win, prev;  // the windows at now and now - 1 (prev: with the facts)
+  bool side_i;
+};
+
+// Phase 1, row r (slot `local` of the tile), node i: the row's keys and
+// fault setting, and node i's side bits staged for the row's windows.
+RD_HD void stage_node(const DrawArgs& a, const Stage& st, int64_t r, int local, int i,
+                      RowCtx& x) {
   const DrawParams& p = a.p;
-  const int n = p.n;
-  const int64_t c = r % p.kb;
-  const int64_t now = a.ptr[D_NOW] ? (int64_t)((const int32_t*)a.ptr[D_NOW])[r]
-                                   : p.now0 + r / p.kb;
+  x.c = r % p.kb;
+  x.now = a.ptr[D_NOW] ? (int64_t)((const int32_t*)a.ptr[D_NOW])[r] : p.now0 + r / p.kb;
   const int64_t* kw = (const int64_t*)a.ptr[D_KEYS];
-  const Key key{(uint32_t)kw[2 * c], (uint32_t)kw[2 * c + 1]};
+  const Key key{(uint32_t)kw[2 * x.c], (uint32_t)kw[2 * x.c + 1]};
   // split(key, 3) = (k_ticks, k_rate, k_part); tkey = fold_in(k_ticks, now);
   // split(tkey, 3) = (k_drop, k_timeout, k_skew).
-  const Key tkey = fold_in(fold_in(key, 0u), (uint32_t)now);
-  const Key k_part = fold_in(key, 2u);
-  const Fault f = fault_at(a, c, now, key);
-#define RD_OUT(T, P, F, x) ((T*)a.ptr[P])[at(p, r, (F), (x))]
+  x.tkey = fold_in(fold_in(key, 0u), (uint32_t)x.now);
+  x.k_part = fold_in(key, 2u);
+  x.f = fault_at(a, x.c, x.now, key);
+  x.win = partition_at(x.k_part, x.now, x.f.part_period, x.f.part);
+  x.side_i = x.win.active && bits(x.win.k_group, (uint64_t)i) < HALF_U32;
+  if (x.win.active) st.row(0, local)[i] = (uint8_t)x.side_i;
+  x.prev = Window{false, Key{0u, 0u}};
+  if (p.facts && x.now - 1 >= 0) {
+    // The tick before shares the window unless it crosses a window's edge.
+    const bool same = x.f.part_period > 0 &&
+                      floordiv(x.now - 1, x.f.part_period) == floordiv(x.now, x.f.part_period);
+    x.prev = same ? x.win : partition_at(x.k_part, x.now - 1, x.f.part_period, x.f.part);
+    if (x.prev.active)
+      st.row(1, local)[i] = same ? (uint8_t)x.side_i
+                                 : (uint8_t)(bits(x.prev.k_group, (uint64_t)i) < HALF_U32);
+  }
+}
+
+// Phase 2 (after every worker of the tile staged): node i's draws, and
+// (i == 0) the row's scalars.
+RD_HD void draw_node(const DrawArgs& a, const Stage& st, int64_t r, int local, int i,
+                     const RowCtx& x) {
+  const DrawParams& p = a.p;
+  const int n = p.n;
+  const int64_t now = x.now;
+  const Fault& f = x.f;
+  const Key tkey = x.tkey, k_part = x.k_part;
+#define RD_OUT(T, P, F, v) ((T*)a.ptr[P])[at(p, r, (F), (v))]
 
   // The delivery row: bit j of word j / 32 is the edge j -> i, delivered
-  // unless its drop draw fires or the partition cuts it.
-  const Window win = partition_at(k_part, now, f.part_period, f.part);
-  const bool side_i = win.active && bits(win.k_group, (uint64_t)i) < HALF_U32;
+  // unless its drop draw fires or the partition puts j on the other side.
+  const uint8_t* sides = st.row(0, local);
   const Key k_drop = fold_in(tkey, 0u);
   for (int wd = 0; wd < p.w; ++wd) {
     uint32_t word = 0u;
     const int hi = (wd + 1) * 32 < n ? (wd + 1) * 32 : n;
-    for (int j = wd * 32; j < hi; ++j) {
-      bool ok = !(f.drop != 0u && bits(k_drop, (uint64_t)i * n + j) < f.drop);
-      if (win.active && ok) ok = (bits(win.k_group, (uint64_t)j) < HALF_U32) == side_i;
+    // The drop draw's counter i * N + j runs beside j, so a draw adds
+    // nothing to its threefry block but the counter's two words.
+    uint64_t ctr = (uint64_t)i * n + (uint64_t)(wd * 32);
+    for (int j = wd * 32; j < hi; ++j, ++ctr) {
+      const bool ok = !(f.drop != 0u && bits(k_drop, ctr) < f.drop);
       word |= (uint32_t)ok << (j - wd * 32);
+    }
+    if (x.win.active) {  // the edges from node i's own side of the window
+      const uint32_t side = staged_word(sides, n, wd);
+      word &= x.side_i ? side : ~side;
     }
     RD_OUT(int32_t, O_DELIVER_MASK, (int64_t)n * p.w, (int64_t)i * p.w + wd) = (int32_t)word;
   }
@@ -373,9 +478,10 @@ RD_HD void draw_node(const DrawArgs& a, int64_t r, int i) {
                                               : NIL;
   RD_OUT(int32_t, O_READ_CMD, 1, 0) = cadence(f.read_interval, now) ? 1 : NIL;
   if (p.facts) {
-    RD_OUT(int32_t, F_CUT_NOW, 1, 0) = cut_count(win, n, now);
-    RD_OUT(int32_t, F_CUT_PREV, 1, 0) =
-        cut_count(partition_at(k_part, now - 1, f.part_period, f.part), n, now - 1);
+    // The cut counts from the staged rows (0 before tick 0 or off a window).
+    RD_OUT(int32_t, F_CUT_NOW, 1, 0) =
+        x.win.active && now >= 0 ? staged_cut(st.row(0, local), n, p.w) : 0;
+    RD_OUT(int32_t, F_CUT_PREV, 1, 0) = x.prev.active ? staged_cut(st.row(1, local), n, p.w) : 0;
   }
 #undef RD_OUT
 }

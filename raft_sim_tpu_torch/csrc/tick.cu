@@ -12,14 +12,16 @@
 // tc = 32 a warp is 32 consecutive clusters of one node slot; with tc = 16, 8
 // or 4 it is 2, 4 or 8 runs of 16, 8 or 4; every [.., B] leaf access by a
 // warp stays runs of consecutive addresses, as the layout is batch-minor.
-// s = N for N <= 32, else 32 x the width tier (below) with two nodes a
+// s = N for N <= 32, else 16 x the width tier (below) with two nodes a
 // thread: 32 for N <= 64, 64 for N <= 128, 128 above (node slot, then slot +
 // s, so a warp is on one node at a time). The wrapper (kernels/tick_engine.py
 // `block_shape`) picks tc from N and B: 32 while s <= 16, 16 at s = 32 (at
-// most 512 threads a block, so up to 128 registers a thread), each halved
-// down to 8 while that gives fewer than two blocks per SM; 8 at s = 64 and 4
-// at s = 128 (512 threads, and an exchange of 119,152 bytes at N = 255 where
-// 8 clusters would pass the 232,448 a block may have).
+// most 512 threads a block), each halved down to 8 while that gives fewer
+// than two blocks per SM; 8 at s = 64 and 4 at s = 128 (512 threads, and an
+// exchange of 119,168 bytes at N = 255 where 8 clusters would pass the
+// 232,448 a block may have). A smaller tc would fill more SMs at config7
+// and config7x but doubles the memory sectors a warp's per-edge reads touch,
+// which is what bounds the wide tiers (block_shape's note).
 //
 // Width tiers. Packed rows (votes, deliver mask, member rows, grant rows)
 // are MW = 2, 4 or 8 words in registers and in the exchange, a template
@@ -62,9 +64,26 @@
 // Not yet done (later work): drawing the threefry inputs inside the kernel
 // instead of reading them, and a CUDA graph over ticks.
 //
-// Above 64 nodes a leader's quorum match walks N x N match entries on one
-// thread (about 10,000 steps at N = 101, 65,000 at N = 255), and each
-// worker walks N staged headers a phase: correct, not yet fast.
+// The wide tiers (N > 32, two nodes a thread; the lean body's kernel is
+// `wide_tick_kernel`). The phase clock (below) split their time: phase 1
+// takes 66-71% of a block's cycles at config5, config7 and config7x, phase
+// 4 28-30%, and a leader's
+// O(N^2) quorum walk only 6.5-10% of its block's phase 1. What bounds them
+// is latency: each loop over a node's N edges read a per-edge leaf and
+// stored an output row an edge at a time, so every edge waited a trip to
+// memory (a block's phase 1 at config7x is ~5,000 cycles a node-edge). The
+// wide forms of the lean body (tick.cuh `RS_WIDE_FORMS`: NPT == 2, FULL ==
+// 0 -- config5, config7, config7x; the N <= 32 bodies keep their code, the
+// full and mutant ones their loops): the edge loops read EDGE_BATCH edges'
+// leaves together before using them, and the leader's commit comes from a
+// histogram folded as the responder loop writes the row (tick.cuh `QHist`:
+// O(N + 16), exact, the walk only when a majority lies above the window).
+// The lean wide body takes a minimum of one 512-thread block an SM at
+// widths 4 and 8, so up to 128 registers, where ptxas had held it at 64
+// and spilled; at width 2 (config5) it takes two, which runs faster there,
+// and keeps its spills. What bounds them after that is the memory sectors
+// of their per-edge reads: a warp is tc clusters x 32 / tc node slots, so
+// each read touches 32 / tc rows for tc bytes each.
 //
 // Build (kernels/tick_engine.py does this at first use): this file is
 // compiled once per (index dtype tier, width tier), the nine nvcc runs in
@@ -85,7 +104,35 @@
 // part a node poisons its exchange fields whose last reader's phase is over
 // (tick.cuh `poison_fields`), so a read that depends on the thread order or
 // outlives the barrier schedule shows as a difference from the plain tick.
+//
+// The phase clock (-DRS_PHASE_CLOCK, a library of its own that
+// kernel_times.py --phases builds; never the main path): at each barrier
+// thread 0 of a block adds the block's clock64() cycles since the last one
+// to that phase's counter, and each live leader adds the cycles of its
+// quorum order statistic to one more (`rs_tick_phase_clock` reads them,
+// tick_engine.phase_split prints the shares).
 #include <cuda_runtime.h>
+
+#ifdef RS_PHASE_CLOCK
+// The phase clock's counters, one set per object (each object is its own
+// module without relocatable device code, so `rs_tick_phase_clock` sums the
+// nine): block-cycles of phases 0-6 (thread 0 of each block, barrier to
+// barrier), then the cycles leaders spend in the quorum order statistic,
+// its calls, and the blocks run.
+namespace rs_clock {
+constexpr int SLOTS = 10, QUORUM = 7, QUORUM_CALLS = 8, BLOCKS = 9;
+__device__ unsigned long long cycles[SLOTS];
+}  // namespace rs_clock
+#ifdef __CUDA_ARCH__
+#define RS_QUORUM_TIMED(...)                                                    \
+  {                                                                             \
+    const long long q0_ = clock64();                                            \
+    __VA_ARGS__;                                                                \
+    atomicAdd(&rs_clock::cycles[rs_clock::QUORUM], (unsigned long long)(clock64() - q0_)); \
+    atomicAdd(&rs_clock::cycles[rs_clock::QUORUM_CALLS], 1ull);                 \
+  }
+#endif
+#endif
 
 #include "tick.cuh"
 
@@ -108,6 +155,7 @@ typedef int32_t TierIdx;
 #define RS_CAT4(a, b, c, d) a##b##c##d
 #define RS_LAUNCH_NAME(k, w) RS_CAT4(rs_tick_launch_i, k, _w, w)
 #define RS_PART_LAUNCH RS_LAUNCH_NAME(RS_IDX_BYTES, RS_WIDTH)
+#define RS_CLOCK_NAME(k, w) RS_CAT4(rs_tick_phase_clock_i, k, _w, w)
 
 struct LaunchShape {
   unsigned grid;
@@ -127,6 +175,19 @@ RS_DECLARE_PART(4, 2)
 RS_DECLARE_PART(4, 4)
 RS_DECLARE_PART(4, 8)
 #undef RS_DECLARE_PART
+#ifdef RS_PHASE_CLOCK
+#define RS_DECLARE_CLOCK(k, w) extern "C" int RS_CLOCK_NAME(k, w)(unsigned long long*, int);
+RS_DECLARE_CLOCK(1, 2)
+RS_DECLARE_CLOCK(1, 4)
+RS_DECLARE_CLOCK(1, 8)
+RS_DECLARE_CLOCK(2, 2)
+RS_DECLARE_CLOCK(2, 4)
+RS_DECLARE_CLOCK(2, 8)
+RS_DECLARE_CLOCK(4, 2)
+RS_DECLARE_CLOCK(4, 4)
+RS_DECLARE_CLOCK(4, 8)
+#undef RS_DECLARE_CLOCK
+#endif
 
 namespace {
 
@@ -145,48 +206,102 @@ __device__ __forceinline__ void run_phase(const rs::TickArgs& a, rs::NodeCtx<MW>
 #ifdef RS_RACE_PROXY
       rs::poison_fields<MW, PH>(X, ci, i);
 #endif
-      rs::node_phase<I, A, N, MW, FULL, PH>(a.p, a.ptr, x[k], X, b, ci, i);
+      rs::node_phase<I, A, N, MW, FULL, PH, NPT>(a.p, a.ptr, x[k], X, b, ci, i);
     }
   }
   if (slot == 0) rs::cluster_phase<MW, FULL, PH>(a.p, a.ptr, X, b, ci);
 }
 
-template <class I, class A, class N, int W, int NPT, int FULL>
-__global__ void __launch_bounds__(rs::MAX_THREADS) tick_kernel(const rs::TickArgs a, int tc, int s) {
-  static_assert(W == MW, "one width tier an object");
-  extern __shared__ int32_t smem[];
-  const int t = threadIdx.x;
+// The race proxy: node slots and clusters-in-tile to threads in reverse.
 #ifdef RS_RACE_PROXY
-  // The race proxy: node slots and clusters-in-tile to threads in reverse.
-  const int ci = tc - 1 - t % tc, slot = s - 1 - t / tc;
+#define RS_THREAD_MAP const int ci = tc - 1 - t % tc, slot = s - 1 - t / tc;
 #else
-  const int ci = t % tc, slot = t / tc;
+#define RS_THREAD_MAP const int ci = t % tc, slot = t / tc;
 #endif
-  const int64_t b = (int64_t)blockIdx.x * tc + ci;
-  const bool live = b < a.p.b;  // ragged edge masked; every barrier still reached
-  const rs::Xch<MW> X{smem, a.p.n, tc};
-  rs::NodeCtx<MW> x[NPT];
+#ifdef RS_PHASE_CLOCK
+// Thread 0 adds the block's cycles since the last barrier to phase PH's
+// counter once every thread has passed PH's barrier.
+#define RS_CLOCK_START long long clk = clock64();
+#define RS_CLOCK(PH)                                                           \
+  if (t == 0) {                                                                \
+    const long long c = clock64();                                             \
+    atomicAdd(&rs_clock::cycles[PH], (unsigned long long)(c - clk));           \
+    clk = c;                                                                   \
+  }
+#define RS_CLOCK_END \
+  __syncthreads();   \
+  RS_CLOCK(6)        \
+  if (t == 0) atomicAdd(&rs_clock::cycles[rs_clock::BLOCKS], 1ull);
+#else
+#define RS_CLOCK_START
+#define RS_CLOCK(PH)
+#define RS_CLOCK_END
+#endif
 #define RS_PHASE(PH) \
   if (live) run_phase<I, A, N, NPT, FULL, PH>(a, x, X, b, ci, slot, s)
-  RS_PHASE(0);
-  __syncthreads();
-  RS_PHASE(1);
-  __syncthreads();
-  RS_PHASE(2);
-  __syncthreads();
-  RS_PHASE(3);
-  __syncthreads();
-  RS_PHASE(4);
-  __syncthreads();
-  RS_PHASE(5);
-  __syncthreads();
-  RS_PHASE(6);
-#undef RS_PHASE
+// One block's tick: the seven phases between barriers.
+#define RS_TICK_BODY                                                                   \
+  static_assert(W == MW, "one width tier an object");                                  \
+  extern __shared__ int32_t smem[];                                                    \
+  const int t = threadIdx.x;                                                           \
+  RS_THREAD_MAP                                                                        \
+  const int64_t b = (int64_t)blockIdx.x * tc + ci;                                     \
+  const bool live = b < a.p.b; /* ragged edge masked; every barrier still reached */   \
+  const rs::Xch<MW> X{smem, a.p.n, tc};                                                \
+  rs::NodeCtx<MW> x[NPT];                                                              \
+  RS_CLOCK_START                                                                       \
+  RS_PHASE(0);                                                                         \
+  __syncthreads();                                                                     \
+  RS_CLOCK(0)                                                                          \
+  RS_PHASE(1);                                                                         \
+  __syncthreads();                                                                     \
+  RS_CLOCK(1)                                                                          \
+  RS_PHASE(2);                                                                         \
+  __syncthreads();                                                                     \
+  RS_CLOCK(2)                                                                          \
+  RS_PHASE(3);                                                                         \
+  __syncthreads();                                                                     \
+  RS_CLOCK(3)                                                                          \
+  RS_PHASE(4);                                                                         \
+  __syncthreads();                                                                     \
+  RS_CLOCK(4)                                                                          \
+  RS_PHASE(5);                                                                         \
+  __syncthreads();                                                                     \
+  RS_CLOCK(5)                                                                          \
+  RS_PHASE(6);                                                                         \
+  RS_CLOCK_END
+
+// One node a thread (N <= 32): up to 512 threads, and ptxas free to keep
+// two blocks an SM (the lean body's 63 registers).
+template <class I, class A, class N, int W, int NPT, int FULL>
+__global__ void __launch_bounds__(rs::MAX_THREADS) tick_kernel(const rs::TickArgs a, int tc, int s) {
+  RS_TICK_BODY
 }
 
-template <class A, class N, int NPT, int FULL>
-int launch(const rs::TickArgs* args, const LaunchShape* sh, cudaStream_t st) {
-  auto kern = tick_kernel<TierIdx, A, N, MW, NPT, FULL>;
+// The lean body at two nodes a thread (N > 32: config5, config7, config7x),
+// with a minimum of blocks an SM. Without one ptxas held it at 64 registers
+// (two 512-thread blocks an SM) and spilled 240-268 B a thread. One block
+// an SM at widths 4 and 8 lets it keep both NodeCtx in up to 128
+// registers: config7's and config7x's bodies (one wave of the card) run 8%
+// and 6% faster so, with 0 B of spills. config5's (width 2, 10,000
+// clusters, five waves) runs 13% faster at two blocks an SM though it
+// spills, as latency wants warps more than registers there, so it keeps
+// two (PERF.md §6). The full and mutant bodies at two nodes a thread run
+// `tick_kernel` above, as before.
+template <class I, class A, class N, int W, int NPT, int FULL>
+__global__ void __launch_bounds__(rs::MAX_THREADS, W == 2 ? 2 : 1)
+    wide_tick_kernel(const rs::TickArgs a, int tc, int s) {
+  RS_TICK_BODY
+}
+#undef RS_TICK_BODY
+#undef RS_PHASE
+#undef RS_CLOCK_END
+#undef RS_CLOCK
+#undef RS_CLOCK_START
+#undef RS_THREAD_MAP
+
+int launch_kernel(void (*kern)(const rs::TickArgs, int, int), const rs::TickArgs* args,
+                  const LaunchShape* sh, cudaStream_t st) {
   if (sh->smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, sh->smem);
@@ -194,6 +309,14 @@ int launch(const rs::TickArgs* args, const LaunchShape* sh, cudaStream_t st) {
   }
   kern<<<sh->grid, sh->tc * sh->s, sh->smem, st>>>(*args, sh->tc, sh->s);
   return 0;
+}
+
+template <class A, class N, int NPT, int FULL>
+int launch(const rs::TickArgs* args, const LaunchShape* sh, cudaStream_t st) {
+  if constexpr (NPT == 1 || FULL != 0)
+    return launch_kernel(tick_kernel<TierIdx, A, N, MW, NPT, FULL>, args, sh, st);
+  else
+    return launch_kernel(wide_tick_kernel<TierIdx, A, N, MW, NPT, FULL>, args, sh, st);
 }
 
 // The body for the config's gate set (tick.cuh `body_for`): lean (the gates
@@ -246,7 +369,39 @@ extern "C" int RS_PART_LAUNCH(const rs::TickArgs* args, int ack_bytes, int node_
   return 99;
 }
 
+#ifdef RS_PHASE_CLOCK
+// This object's phase-clock counters into `out` (rs_clock::SLOTS values,
+// added to what it holds), zeroed after with `reset`; a CUDA error code.
+extern "C" int RS_CLOCK_NAME(RS_IDX_BYTES, RS_WIDTH)(unsigned long long* out, int reset) {
+  unsigned long long got[rs_clock::SLOTS];
+  cudaError_t e = cudaMemcpyFromSymbol(got, rs_clock::cycles, sizeof(got));
+  if (e != cudaSuccess) return (int)e;
+  for (int k = 0; k < rs_clock::SLOTS; ++k) out[k] += got[k];
+  if (reset) {
+    for (int k = 0; k < rs_clock::SLOTS; ++k) got[k] = 0ull;
+    e = cudaMemcpyToSymbol(rs_clock::cycles, got, sizeof(got));
+  }
+  return (int)e;
+}
+#endif
+
 #if RS_IDX_BYTES == 1 && RS_WIDTH == 2
+#ifdef RS_PHASE_CLOCK
+// The phase clock summed over the nine objects (each its own module).
+extern "C" int rs_tick_phase_clock(unsigned long long* out, int reset) {
+  for (int k = 0; k < rs_clock::SLOTS; ++k) out[k] = 0ull;
+  int rc = 0;
+#define RS_SUM(k, w) \
+  if (!rc) rc = RS_CLOCK_NAME(k, w)(out, reset);
+  RS_SUM(1, 2) RS_SUM(1, 4) RS_SUM(1, 8)
+  RS_SUM(2, 2) RS_SUM(2, 4) RS_SUM(2, 8)
+  RS_SUM(4, 2) RS_SUM(4, 4) RS_SUM(4, 8)
+#undef RS_SUM
+  return rc;
+}
+extern "C" int rs_tick_clock_slots() { return rs_clock::SLOTS; }
+#endif
+
 // Launches one tick on `stream` with blocks of `tc` clusters x `s` node
 // slots; returns cudaGetLastError() (0 = launched), or 100+ / 99 for shapes,
 // block shapes or dtype tiers this kernel does not take.

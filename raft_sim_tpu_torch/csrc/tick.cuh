@@ -92,8 +92,10 @@
 
 #ifdef __CUDACC__
 #define RS_HD __host__ __device__ __forceinline__
+#define RS_UNROLL _Pragma("unroll")
 #else
 #define RS_HD inline
+#define RS_UNROLL
 #endif
 
 namespace rs {
@@ -508,6 +510,25 @@ struct NodeCtx {
 #define RS_PHASE_ARGS \
   const TickParams &P, void *const *ptr, NodeCtx<MW> &x, const Xch<MW> &X, int64_t b, int ci, int i
 
+// In the wide forms (below) a worker's loops over a node's edges read the
+// per-edge leaves of EDGE_BATCH edges together before it uses them: each read
+// is a trip to memory, and one edge at a time (a store between two reads,
+// which the compiler may not reorder) kept a wide node's loops
+// latency-bound.
+constexpr int EDGE_BATCH = 4;
+// The wide forms -- these batched reads and the quorum histogram (`QHist`)
+// -- are the lean wide body's (config5, config7, config7x): the full and
+// mutant bodies already spill at 128 registers, and the forms took their
+// stack frame from 192 to 800-848 B at width 4 (PERF.md §6), so they keep
+// the one-edge loops and the walk.
+#define RS_WIDE_FORMS (NPT == 2 && FULL == 0)
+
+// The phase clock's hook around a leader's quorum order statistic (tick.cu
+// defines it under RS_PHASE_CLOCK); elsewhere the statement runs alone.
+#ifndef RS_QUORUM_TIMED
+#define RS_QUORUM_TIMED(...) __VA_ARGS__
+#endif
+
 // The maj-th largest of a leader's match_with_self row over the members of
 // `mask` (nullptr: every node; 0 when fewer qualify): the row is this node's
 // own match_index output row, with `self` at its own slot. A candidate value
@@ -528,6 +549,63 @@ RS_HD int qmatch(const IdxT* mrow, int64_t B, int n, int i, int self, const uint
     if (cnt >= maj) qm = vc;
   }
   return qm;
+}
+
+// The quorum commit of the wide forms (`RS_WIDE_FORMS`; the host build takes
+// them for the same N and gates). `qmatch` re-reads the row up to N^2 times on one
+// thread (65,025 reads at N = 255) while the cluster's other threads wait at
+// the next barrier; this form folds each member's value into a histogram as
+// the responder loop writes it, then scans the histogram. The result is used
+// only where it exceeds the leader's commit `base`, so only values above
+// base matter: the maj-th largest value exceeds base iff at least maj
+// member values do, and it is then the maj-th largest among those alone --
+// a value at or below base cannot change the commit. Values in the window
+// (base, base + QH] get a byte counter each (QH = 16: CAP at config5/7/7x,
+// and a leader's values rarely pass len_i - commit <= CAP); the values above
+// it are counted, and if maj of them or more lie there the exact walk
+// (`qmatch`) runs instead, so the result is always exact.
+constexpr int QH = 16;  // window values a histogram counts
+
+struct QHist {
+  uint32_t h[QH / 4];  // byte counter d (word d / 4, byte d % 4): value base + 1 + d
+  int hi;              // member values above base + QH
+};
+
+RS_HD void qhist_clear(QHist& q) {
+  for (int w = 0; w < QH / 4; ++w) q.h[w] = 0u;
+  q.hi = 0;
+}
+
+RS_HD void qhist_add(QHist& q, int base, int v) {
+  const unsigned d = (unsigned)(v - base - 1);  // wraps past QH for v <= base
+  if (d < (unsigned)QH) {
+    const uint32_t inc = 1u << ((d & 3u) * 8u);
+    for (int w = 0; w < QH / 4; ++w) q.h[w] += (unsigned)w == (d >> 2) ? inc : 0u;
+  } else if (v > base) {
+    ++q.hi;
+  }
+}
+
+// max(the maj-th largest value added, base), or -1 when maj or more values
+// lie above the window (the caller runs the exact walk).
+RS_HD int qhist_select(const QHist& q, int base, int maj) {
+  if (q.hi >= maj) return -1;
+  int cum = q.hi;
+  for (int d = QH - 1; d >= 0; --d) {
+    cum += (int)((q.h[d >> 2] >> ((d & 3) * 8)) & 0xFFu);
+    if (cum >= maj) return base + 1 + d;
+  }
+  return base;
+}
+
+// The quorum commit candidate from a histogram of one member set:
+// max(maj-th largest of the row over `mask`, base), exact (the walk on the
+// rare overflow).
+template <int MW, class IdxT>
+RS_HD int quorum_select(const QHist& q, int base, const IdxT* mrow, int64_t B, int n, int i,
+                        int self, const uint32_t* mask, int maj) {
+  const int qm = qhist_select(q, base, maj);
+  return qm >= 0 ? qm : imax(qmatch<MW>(mrow, B, n, i, self, mask, maj), base);
 }
 
 // ---- phase 0: this node's mailbox header and liveness into the exchange.
@@ -555,7 +633,7 @@ RS_HD void phase_headers(RS_PHASE_ARGS) {
 // ---- phase 1: everything a node decides from the tick's inputs and its own
 // state: restart and recovery, term adoption, votes, AppendEntries, its
 // PreVote grants, TimeoutNow receipt, responses and commit. -----------------
-template <class IdxT, class AckT, class NodeT, int MW, int FULL>
+template <class IdxT, class AckT, class NodeT, int MW, int FULL, int NPT>
 RS_HD void phase_load_to_commit(RS_PHASE_ARGS) {
   const Gates g(P, FULL);
   const int64_t B = P.b;
@@ -646,20 +724,38 @@ RS_HD void phase_load_to_commit(RS_PHASE_ARGS) {
   // ---- phase 1: term adoption (PreVote probes carry a prospective term,
   // never adopted; a denied RequestVote under reconfig is not processed).
   int msgs = 0, in_term = 0;
-  for (int s = 0; s < n; ++s) {
-    if (!RS_DELIVERED(s)) continue;
-    const int rt = RS_RTYPE(s);
-    if (rt != 0) {
-      ++msgs;
-      const bool probe = g.pv && rt == REQ_PREVOTE;
-      const bool denied = g.rcf && rt == REQ_VOTE && RS_DENIED(s);
-      if (!probe && !denied) in_term = imax(in_term, RS_RTERM(s));
-    }
-    if (resp_kind_in[RS_AT2(i, s, n)] != 0) {
-      ++msgs;
-      in_term = imax(in_term, RS_H(X_HRESP_TERM, s));
-    }
+  // Sender s's message and response (RK: its response-kind read).
+#define RS_ADOPT(RK)                                                      \
+  if (RS_DELIVERED(s)) {                                                  \
+    const int rt = RS_RTYPE(s);                                           \
+    if (rt != 0) {                                                        \
+      ++msgs;                                                             \
+      const bool probe = g.pv && rt == REQ_PREVOTE;                       \
+      const bool denied = g.rcf && rt == REQ_VOTE && RS_DENIED(s);        \
+      if (!probe && !denied) in_term = imax(in_term, RS_RTERM(s));        \
+    }                                                                     \
+    if ((RK) != 0) {                                                      \
+      ++msgs;                                                             \
+      in_term = imax(in_term, RS_H(X_HRESP_TERM, s));                     \
+    }                                                                     \
   }
+  if (RS_WIDE_FORMS) {
+    // In the wide forms the per-edge reads of EDGE_BATCH senders are issued
+    // together, ahead of their use (`EDGE_BATCH`).
+    for (int s0 = 0; s0 < n; s0 += EDGE_BATCH) {
+      int8_t rk[EDGE_BATCH];
+RS_UNROLL
+      for (int u = 0; u < EDGE_BATCH; ++u) rk[u] = resp_kind_in[RS_AT2(i, imin(s0 + u, n - 1), n)];
+RS_UNROLL
+      for (int u = 0; u < EDGE_BATCH; ++u) {
+        const int s = s0 + u;
+        if (s < n) RS_ADOPT(rk[u])
+      }
+    }
+  } else {
+    for (int s = 0; s < n; ++s) RS_ADOPT(resp_kind_in[RS_AT2(i, s, n)])
+  }
+#undef RS_ADOPT
   if (msgs) acc_add(X.acc(A_MSGS, ci), msgs);
   x.saw_higher = in_term > x.term;
   if (x.saw_higher) {
@@ -866,34 +962,68 @@ RS_HD void phase_load_to_commit(RS_PHASE_ARGS) {
     const int xt = g.xfr ? iclamp(x.xfer0, 0, n - 1) : -1;  // the pending transfer's target
     uint32_t aresp_bits[MW] = {};
     x.age_t = 0;
-    for (int r = 0; r < n; ++r) {
-      int nx = x.rs ? 1 : (int)next_in[RS_AT2(i, r, n)];
-      int mt = x.rs ? 0 : (int)match_in[RS_AT2(i, r, n)];
-      int ag = x.rs ? P.ack_sat : (int)ack_in[RS_AT2(i, r, n)];
-      if (x.win) {
-        nx = len_i + 1;
-        mt = 0;
-      }
-      const bool aresp = RS_DELIVERED(r) && resp_kind_in[RS_AT2(i, r, n)] == RESP_APPEND &&
-                         x.role == LEADER && RS_H(X_HRESP_TERM, r) == x.term;
-      if (aresp) {
-        if (g.rdx) set_bit<MW>(aresp_bits, r);
-        const int am = RS_H(X_HAMATCH, r);
-        if (RS_H(X_HAOKTO, r) == i) {
-          mt = imax(mt, am);
-          nx = imax(nx, am + 1);
-        } else {
-          nx = imax(imin(nx - 1, RS_H(X_HAHINT, r) + 1), 1);
+    // In the lean wide body a live leader folds its row into the quorum
+    // histogram (`QHist`) as it writes it, its own slot read as its length
+    // (the lean gates have no durability gate and no member sets).
+    const bool fold = RS_WIDE_FORMS && x.role == LEADER && x.alive;
+    QHist q;
+    if (RS_WIDE_FORMS) qhist_clear(q);
+    // Receiver r's next, match and ack age (NX, MT, AG: the reads of its
+    // leaves, RK its response kind).
+#define RS_RESPOND(NX, MT, AG, RK)                                                     \
+  {                                                                                    \
+    int nx = x.rs ? 1 : (NX);                                                          \
+    int mt = x.rs ? 0 : (MT);                                                          \
+    int ag = x.rs ? P.ack_sat : (AG);                                                  \
+    if (x.win) {                                                                       \
+      nx = len_i + 1;                                                                  \
+      mt = 0;                                                                          \
+    }                                                                                  \
+    const bool aresp = RS_DELIVERED(r) && (RK) == RESP_APPEND && x.role == LEADER &&   \
+                       RS_H(X_HRESP_TERM, r) == x.term;                                \
+    if (aresp) {                                                                       \
+      if (g.rdx) set_bit<MW>(aresp_bits, r);                                           \
+      const int am = RS_H(X_HAMATCH, r);                                               \
+      if (RS_H(X_HAOKTO, r) == i) {                                                    \
+        mt = imax(mt, am);                                                             \
+        nx = imax(nx, am + 1);                                                         \
+      } else {                                                                         \
+        nx = imax(imin(nx - 1, RS_H(X_HAHINT, r) + 1), 1);                             \
+      }                                                                                \
+    }                                                                                  \
+    ag = imin(ag + 1, P.ack_sat);                                                      \
+    if (x.win || aresp) ag = 0;                                                        \
+    if (g.rdl && ag <= P.lease_ticks) set_bit<MW>(x.fresh, r);                         \
+    if (r == xt) x.age_t = ag;                                                         \
+    next_out[RS_AT2(i, r, n)] = (IdxT)nx;                                              \
+    match_out[RS_AT2(i, r, n)] = (IdxT)mt;                                             \
+    ack_out[RS_AT2(i, r, n)] = (AckT)ag;                                               \
+    /* What the walk would read back: the stored value, its length at i. */          \
+    if (RS_WIDE_FORMS && fold) qhist_add(q, x.commit, r == i ? len_i : (int)(IdxT)mt); \
+  }
+    if (RS_WIDE_FORMS) {
+      for (int r0 = 0; r0 < n; r0 += EDGE_BATCH) {
+        int nxu[EDGE_BATCH], mtu[EDGE_BATCH], agu[EDGE_BATCH], rku[EDGE_BATCH];
+RS_UNROLL
+        for (int u = 0; u < EDGE_BATCH; ++u) {
+          const int64_t at = RS_AT2(i, imin(r0 + u, n - 1), n);
+          nxu[u] = next_in[at];
+          mtu[u] = match_in[at];
+          agu[u] = ack_in[at];
+          rku[u] = resp_kind_in[at];
+        }
+RS_UNROLL
+        for (int u = 0; u < EDGE_BATCH; ++u) {
+          const int r = r0 + u;
+          if (r < n) RS_RESPOND(nxu[u], mtu[u], agu[u], rku[u])
         }
       }
-      ag = imin(ag + 1, P.ack_sat);
-      if (x.win || aresp) ag = 0;
-      if (g.rdl && ag <= P.lease_ticks) set_bit<MW>(x.fresh, r);
-      if (r == xt) x.age_t = ag;
-      next_out[RS_AT2(i, r, n)] = (IdxT)nx;
-      match_out[RS_AT2(i, r, n)] = (IdxT)mt;
-      ack_out[RS_AT2(i, r, n)] = (AckT)ag;
+    } else {
+      for (int r = 0; r < n; ++r)
+        RS_RESPOND((int)next_in[RS_AT2(i, r, n)], (int)match_in[RS_AT2(i, r, n)],
+                   (int)ack_in[RS_AT2(i, r, n)], resp_kind_in[RS_AT2(i, r, n)])
     }
+#undef RS_RESPOND
     if (g.rdx) {  // a pending read on a leader banks this tick's acks
       const bool keep_r = x.role == LEADER && x.read_idx0 > 0;
       for (int w = 0; w < MW; ++w) x.acks[w] = keep_r ? (x.acks[w] | aresp_bits[w]) : 0u;
@@ -904,15 +1034,23 @@ RS_HD void phase_load_to_commit(RS_PHASE_ARGS) {
       // `quorum` entries of the row (an exact order statistic); under
       // reconfig, over the leader's own members, the min of both while joint.
       // Under the durability gate a leader's own slot is its durable length.
+      // The lean wide body takes it from the histogram (`QHist`):
+      // max(that, commit), which moves the commit exactly when the walk's
+      // value does.
       const IdxT* mrow = match_out + RS_AT2(i, 0, n);
       const int self = g.dacks ? x.dur_mid : len_i;
       int qm;
-      if (g.rcf) {
-        qm = qmatch<MW>(mrow, B, n, i, self, x.m_old, x.maj_old);
-        if (x.joint) qm = imin(qm, qmatch<MW>(mrow, B, n, i, self, x.m_new, x.maj_new));
-      } else {
-        qm = qmatch<MW>(mrow, B, n, i, self, (const uint32_t*)nullptr, P.quorum);
-      }
+      RS_QUORUM_TIMED(
+        if (RS_WIDE_FORMS) {
+          qm = quorum_select<MW>(q, x.commit, mrow, B, n, i, self, (const uint32_t*)nullptr,
+                                 P.quorum);
+        } else if (g.rcf) {
+          qm = qmatch<MW>(mrow, B, n, i, self, x.m_old, x.maj_old);
+          if (x.joint) qm = imin(qm, qmatch<MW>(mrow, B, n, i, self, x.m_new, x.maj_new));
+        } else {
+          qm = qmatch<MW>(mrow, B, n, i, self, (const uint32_t*)nullptr, P.quorum);
+        }
+      )
       const int qt = term_at(RS_ROW(log_term, i), B, cap, g.comp, x.base, x.bterm, qm);
       if (qm > x.commit && qt == x.term) x.commit = qm;
     }
@@ -1327,7 +1465,7 @@ RS_HD void cluster_redirect(const TickParams& P, void* const* ptr, const Xch<MW>
 
 // ---- phase 4: outbox, prefix checksum, end-of-tick configuration, state
 // out, and this node's StepInfo terms. -------------------------------------
-template <class IdxT, class AckT, class NodeT, int MW, int FULL>
+template <class IdxT, class AckT, class NodeT, int MW, int FULL, int NPT>
 RS_HD void phase_outbox_and_state(RS_PHASE_ARGS) {
   using XT = XTail<MW>;
   const Gates g(P, FULL);
@@ -1344,20 +1482,56 @@ RS_HD void phase_outbox_and_state(RS_PHASE_ARGS) {
   // Shared window start: the minimum prev over responsive peers, else over
   // all peers, clamped to the pre-injection length and (ring) the base.
   int ws_resp = I32_MAX, ws_all = I32_MAX;
-  for (int j = 0; j < n; ++j) {
-    if (j == i) continue;
-    const int prev = imin(imax((int)next_out[RS_AT2(i, j, n)] - 1, 0), len_i);
-    ws_all = imin(ws_all, prev);
-    if ((int)ack_out[RS_AT2(i, j, n)] <= P.ack_timeout) ws_resp = imin(ws_resp, prev);
+  // Peer j's prev (NX: its next-index read, AG its ack-age read).
+#define RS_WINDOW(NX, AG)                                                   \
+  if (j != i) {                                                             \
+    const int prev = imin(imax((int)(NX) - 1, 0), len_i);                   \
+    ws_all = imin(ws_all, prev);                                            \
+    if ((int)(AG) <= P.ack_timeout) ws_resp = imin(ws_resp, prev);          \
+  }
+#define RS_OFFSET(NX)                                                                   \
+  {                                                                                     \
+    const int prev = imin(imax((int)(NX) - 1, 0), len_i);                               \
+    int off_j = 0;                                                                      \
+    if (send && j != i) off_j = (g.comp && prev < x.base) ? -1 : iclamp(prev - ws, 0, e); \
+    RS_OUT(int8_t, OM_REQ_OFF)[RS_AT2(i, j, n)] = (int8_t)off_j;                        \
+  }
+  if (RS_WIDE_FORMS) {  // the reads of EDGE_BATCH peers together (`EDGE_BATCH`)
+    for (int j0 = 0; j0 < n; j0 += EDGE_BATCH) {
+      int nxu[EDGE_BATCH], agu[EDGE_BATCH];
+RS_UNROLL
+      for (int u = 0; u < EDGE_BATCH; ++u) {
+        const int64_t at = RS_AT2(i, imin(j0 + u, n - 1), n);
+        nxu[u] = next_out[at];
+        agu[u] = ack_out[at];
+      }
+RS_UNROLL
+      for (int u = 0; u < EDGE_BATCH; ++u) {
+        const int j = j0 + u;
+        if (j < n) RS_WINDOW(nxu[u], agu[u])
+      }
+    }
+  } else {
+    for (int j = 0; j < n; ++j) RS_WINDOW(next_out[RS_AT2(i, j, n)], ack_out[RS_AT2(i, j, n)])
   }
   int ws = imin(ws_resp == I32_MAX ? ws_all : ws_resp, len_i);
   if (g.comp) ws = imax(ws, x.base);
-  for (int j = 0; j < n; ++j) {
-    const int prev = imin(imax((int)next_out[RS_AT2(i, j, n)] - 1, 0), len_i);
-    int off_j = 0;
-    if (send && j != i) off_j = (g.comp && prev < x.base) ? -1 : iclamp(prev - ws, 0, e);
-    RS_OUT(int8_t, OM_REQ_OFF)[RS_AT2(i, j, n)] = (int8_t)off_j;
+  if (RS_WIDE_FORMS) {
+    for (int j0 = 0; j0 < n; j0 += EDGE_BATCH) {
+      int nxu[EDGE_BATCH];
+RS_UNROLL
+      for (int u = 0; u < EDGE_BATCH; ++u) nxu[u] = next_out[RS_AT2(i, imin(j0 + u, n - 1), n)];
+RS_UNROLL
+      for (int u = 0; u < EDGE_BATCH; ++u) {
+        const int j = j0 + u;
+        if (j < n) RS_OFFSET(nxu[u])
+      }
+    }
+  } else {
+    for (int j = 0; j < n; ++j) RS_OFFSET(next_out[RS_AT2(i, j, n)])
   }
+#undef RS_OFFSET
+#undef RS_WINDOW
   const int n_ship = iclamp(x.llen - ws, 0, e);
   for (int k = 0; k < e; ++k) {
     const bool used = send && k < n_ship;
@@ -1672,13 +1846,15 @@ RS_HD void cluster_info(const TickParams& P, void* const* ptr, const Xch<MW>& X,
 }
 
 // The node part of phase PH (a barrier ends each phase).
-template <class IdxT, class AckT, class NodeT, int MW, int FULL, int PH>
+// NPT: the card's nodes a thread, 1 up to 32 nodes, else 2 (the host build
+// mirrors it); 2 selects the wide forms (the quorum histograms).
+template <class IdxT, class AckT, class NodeT, int MW, int FULL, int PH, int NPT>
 RS_HD void node_phase(RS_PHASE_ARGS) {
   if (PH == 0) phase_headers<IdxT, AckT, NodeT, MW, FULL>(P, ptr, x, X, b, ci, i);
-  if (PH == 1) phase_load_to_commit<IdxT, AckT, NodeT, MW, FULL>(P, ptr, x, X, b, ci, i);
+  if (PH == 1) phase_load_to_commit<IdxT, AckT, NodeT, MW, FULL, NPT>(P, ptr, x, X, b, ci, i);
   if (PH == 2) phase_serve_and_compact<IdxT, AckT, NodeT, MW, FULL>(P, ptr, x, X, b, ci, i);
   if (PH == 3) phase_append_and_timers<IdxT, AckT, NodeT, MW, FULL>(P, ptr, x, X, b, ci, i);
-  if (PH == 4) phase_outbox_and_state<IdxT, AckT, NodeT, MW, FULL>(P, ptr, x, X, b, ci, i);
+  if (PH == 4) phase_outbox_and_state<IdxT, AckT, NodeT, MW, FULL, NPT>(P, ptr, x, X, b, ci, i);
   if (PH == 5) phase_pair_checks<IdxT, AckT, NodeT, MW, FULL>(P, ptr, x, X, b, ci, i);
 }
 

@@ -39,7 +39,7 @@ namespace {
 constexpr int TILE = 4;  // clusters per tile; batches of 5, 7 and 3 leave a ragged tile
 constexpr int MW = RS_HOST_WIDTH;
 
-template <class I, class A, class N, int FULL, int PH>
+template <class I, class A, class N, int FULL, int NPT, int PH>
 void run_phase(const rs::TickParams& p, void* const* ptrs, std::vector<rs::NodeCtx<MW>>& ctx,
                const rs::Xch<MW>& X, int64_t b0, bool reverse, bool poison) {
   const int n = p.n;
@@ -47,7 +47,8 @@ void run_phase(const rs::TickParams& p, void* const* ptrs, std::vector<rs::NodeC
   auto cluster = [&](int ci) { rs::cluster_phase<MW, FULL, PH>(p, ptrs, X, b0 + ci, ci); };
   auto node = [&](int ci, int i) {
     if (poison) rs::poison_fields<MW, PH>(X, ci, i);
-    rs::node_phase<I, A, N, MW, FULL, PH>(p, ptrs, ctx[(std::size_t)ci * n + i], X, b0 + ci, ci, i);
+    rs::node_phase<I, A, N, MW, FULL, PH, NPT>(p, ptrs, ctx[(std::size_t)ci * n + i], X, b0 + ci,
+                                               ci, i);
   };
   if (reverse) {
     for (int ci = live - 1; ci >= 0; --ci) cluster(ci);
@@ -60,20 +61,28 @@ void run_phase(const rs::TickParams& p, void* const* ptrs, std::vector<rs::NodeC
   }
 }
 
-template <class I, class A, class N, int FULL>
+template <class I, class A, class N, int FULL, int NPT>
 void run_tick(const rs::TickParams& p, void* const* ptrs, bool reverse, bool poison) {
   std::vector<rs::NodeCtx<MW>> ctx((std::size_t)TILE * p.n);
   std::vector<int32_t> xbuf((std::size_t)(rs::smem_bytes(p.n, TILE) / 4));
   const rs::Xch<MW> X{xbuf.data(), p.n, TILE};
   for (int64_t b0 = 0; b0 < p.b; b0 += TILE) {
-    run_phase<I, A, N, FULL, 0>(p, ptrs, ctx, X, b0, reverse, poison);
-    run_phase<I, A, N, FULL, 1>(p, ptrs, ctx, X, b0, reverse, poison);
-    run_phase<I, A, N, FULL, 2>(p, ptrs, ctx, X, b0, reverse, poison);
-    run_phase<I, A, N, FULL, 3>(p, ptrs, ctx, X, b0, reverse, poison);
-    run_phase<I, A, N, FULL, 4>(p, ptrs, ctx, X, b0, reverse, poison);
-    run_phase<I, A, N, FULL, 5>(p, ptrs, ctx, X, b0, reverse, poison);
-    run_phase<I, A, N, FULL, 6>(p, ptrs, ctx, X, b0, reverse, poison);
+    run_phase<I, A, N, FULL, NPT, 0>(p, ptrs, ctx, X, b0, reverse, poison);
+    run_phase<I, A, N, FULL, NPT, 1>(p, ptrs, ctx, X, b0, reverse, poison);
+    run_phase<I, A, N, FULL, NPT, 2>(p, ptrs, ctx, X, b0, reverse, poison);
+    run_phase<I, A, N, FULL, NPT, 3>(p, ptrs, ctx, X, b0, reverse, poison);
+    run_phase<I, A, N, FULL, NPT, 4>(p, ptrs, ctx, X, b0, reverse, poison);
+    run_phase<I, A, N, FULL, NPT, 5>(p, ptrs, ctx, X, b0, reverse, poison);
+    run_phase<I, A, N, FULL, NPT, 6>(p, ptrs, ctx, X, b0, reverse, poison);
   }
+}
+
+// The card's nodes a thread for N (block_shape: 1 up to 32 nodes, else 2),
+// which selects the body's wide forms.
+template <class I, class A, int FULL>
+void run_npt(const rs::TickParams& p, void* const* ptrs, bool reverse, bool poison) {
+  if (MW == 2 && p.n <= 32) run_tick<I, A, PartNode, FULL, 1>(p, ptrs, reverse, poison);
+  else run_tick<I, A, PartNode, FULL, 2>(p, ptrs, reverse, poison);
 }
 
 // The body for the config's gate set (tick.cuh `body_for`): lean (FULL =
@@ -81,9 +90,9 @@ void run_tick(const rs::TickParams& p, void* const* ptrs, bool reverse, bool poi
 template <class I, class A>
 void run_gates(const rs::TickParams& p, void* const* ptrs, bool reverse, bool poison) {
   const int body = rs::body_for(p);
-  if (body == 0) run_tick<I, A, PartNode, 0>(p, ptrs, reverse, poison);
-  else if (body == 2) run_tick<I, A, PartNode, 2>(p, ptrs, reverse, poison);
-  else run_tick<I, A, PartNode, 1>(p, ptrs, reverse, poison);
+  if (body == 0) run_npt<I, A, 0>(p, ptrs, reverse, poison);
+  else if (body == 2) run_npt<I, A, 2>(p, ptrs, reverse, poison);
+  else run_npt<I, A, 1>(p, ptrs, reverse, poison);
 }
 
 }  // namespace
@@ -135,4 +144,19 @@ extern "C" int rs_tick_n_ptr() { return rs::N_PTR; }
 extern "C" long long rs_tick_smem_bytes(int n, int tc) { return rs::smem_bytes(n, tc); }
 extern "C" int rs_tick_lean(const rs::TickParams* p) { return rs::lean_gates(*p); }
 extern "C" int rs_tick_body(const rs::TickParams* p) { return rs::body_for(*p); }
+
+// The wide quorum commit (tick.cuh `QHist`, `quorum_select`) on one leader's
+// row of n int32 values (its own slot i read as `self`), over the members of
+// `mask` (rs::MAXW words, or null for every node) with majority `maj`:
+// max(the maj-th largest, base), as the card's leaders compute it above 32
+// nodes; `walk` 1 runs `qmatch` alone instead (clamped the same way).
+extern "C" int rs_tick_quorum_match(const int32_t* row, int n, int i, int self,
+                                    const uint32_t* mask, int maj, int base, int walk) {
+  if (walk) return rs::imax(rs::qmatch<rs::MAXW>(row, 1, n, i, self, mask, maj), base);
+  rs::QHist q;
+  rs::qhist_clear(q);
+  for (int r = 0; r < n; ++r)
+    if (!mask || rs::has_bit<rs::MAXW>(mask, r)) rs::qhist_add(q, base, r == i ? self : row[r]);
+  return rs::quorum_select<rs::MAXW>(q, base, row, 1, n, i, self, mask, maj);
+}
 #endif

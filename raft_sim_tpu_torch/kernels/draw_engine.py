@@ -25,7 +25,11 @@ the sources (chip_smoke.py starts it beside the tick kernel's nine objects:
 `start_build`, `finish_build`); ctypes loads it. `draw_cuda.launches` counts kernel
 launches (and nothing else). The same body compiled by g++
 (csrc/draws_host.cpp, `host_library`, `draw_host`) is what the CPU tests
-hold against the plain draws.
+hold against the plain draws, in both worker orders with the staging
+poisoned. The race proxy (`build(proxy=True)`, -DRS_RACE_PROXY: the tile's
+rows and nodes mapped to threads in reverse, the staged side bits poisoned
+before they are staged) is a library of its own that `draw_cuda(...,
+proxy=True)` launches for chip_smoke.py; the main path never loads it.
 """
 
 from __future__ import annotations
@@ -69,11 +73,11 @@ PTR_ORDER = (
 # pipe (IMAD.IADD, 4 x 16 more).
 ISSUE_LANES_PER_SM = 128
 ALU_LANES_PER_SM = 64
-# One drop draw as draws_kernel runs it, read from its SASS
-# (`sass_block_ops`; nvcc 12.9, sm_90a): the counter, the threefry block
-# with its key hoisted out of the loop, the output xor and the threshold
-# compare -- 69 instructions, 42 of them ALU-only (rotates, xors, the
-# counter's high word, the compare), the rest adds.
+# One drop draw as the leaner of the draw kernels runs it, read from their
+# SASS (`sass_block_ops`; nvcc 12.9, sm_90a): the counter, the threefry
+# block with its key hoisted out of the loop, the output xor and the
+# threshold compare -- 69 instructions, 42 of them ALU-only (rotates, xors,
+# the counter's high word, the compare), the rest adds.
 BLOCK_OPS = {"total": 69, "alu_only": 42}
 # SASS opcodes the FMA pipe cannot run (the rest of a block's are adds).
 ALU_ONLY = ("SHF", "LOP3", "ISETP", "LEA", "SEL", "PLOP3", "PRMT")
@@ -117,53 +121,58 @@ class DrawParams(ctypes.Structure):
 
 
 BUILD_INFO: dict = {}
+PROXY_BUILD_INFO: dict = {}
 _LIBS: dict = {}
 _COUNT = threading.Lock()  # node shards launch from threads of their own
 
 
-def build_cmd(out: Path) -> list[str]:
-    """The nvcc command that compiles csrc/draws.cu into the library `out`."""
+def build_cmd(out: Path, proxy: bool = False) -> list[str]:
+    """The nvcc command that compiles csrc/draws.cu into the library `out`
+    (`proxy`: the race proxy's)."""
     return [tick_engine._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-            "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-shared", "-o", str(out),
-            str(CSRC / "draws.cu")]
+            "-Xcompiler", "-fPIC", "-Xptxas", "-v", *(["-DRS_RACE_PROXY"] if proxy else []),
+            "-shared", "-o", str(out), str(CSRC / "draws.cu")]
 
 
-def library_path() -> Path:
-    return BUILD_DIR / f"libdraws_{tick_engine._source_tag(SOURCES)}.so"
+def library_path(proxy: bool = False) -> Path:
+    name = "libdraws_proxy" if proxy else "libdraws"
+    return BUILD_DIR / f"{name}_{tick_engine._source_tag(SOURCES)}.so"
 
 
-def start_build():
-    """Start the nvcc run of a missing library: (process, temporary output,
-    start time), or None when the library is built; `finish_build` waits
-    for it. A caller may start it beside `tick_engine.build`'s nine."""
-    out = library_path()
+def start_build(proxy: bool = False):
+    """Start the nvcc run of a missing library (`proxy`: the race proxy's):
+    (process, temporary output, start time, proxy), or None when the library
+    is built; `finish_build` waits for it. A caller may start it beside
+    `tick_engine.build`'s nine."""
+    out = library_path(proxy)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    return tick_engine.spawn(build_cmd(tmp)), tmp, time.perf_counter()
+    return tick_engine.spawn(build_cmd(tmp, proxy)), tmp, time.perf_counter(), proxy
 
 
-def finish_build(started) -> Path:
+def finish_build(started, proxy: bool = False) -> Path:
     """Wait for `start_build`'s nvcc run and move its library into place;
-    BUILD_INFO records the seconds and ptxas's report."""
+    BUILD_INFO (PROXY_BUILD_INFO) records the seconds and ptxas's report."""
     if started is None:
-        return library_path()
-    proc, tmp, t0 = started
+        return library_path(proxy)
+    proc, tmp, t0, proxy = started
     (report,) = tick_engine.reap([proc], ["nvcc (csrc/draws.cu)"])
-    return tick_engine.install(tmp, library_path(), report, t0, BUILD_INFO)
+    return tick_engine.install(tmp, library_path(proxy), report, t0,
+                               PROXY_BUILD_INFO if proxy else BUILD_INFO)
 
 
-def build() -> Path:
+def build(proxy: bool = False) -> Path:
     """Compile csrc/draws.cu for sm_90a into BUILD_DIR (once per source hash)
-    and return the library's path."""
-    return finish_build(start_build())
+    and return the library's path (`proxy`: the race proxy's)."""
+    return finish_build(start_build(proxy), proxy)
 
 
 def _declare(lib, entry: str) -> ctypes.CDLL:
     fn = getattr(lib, entry)
     fn.argtypes = [ctypes.POINTER(DrawParams), ctypes.POINTER(ctypes.c_void_p)] + (
-        [ctypes.c_void_p] if entry == "rs_draws_launch" else [])
+        [ctypes.c_void_p] if entry == "rs_draws_launch" else [ctypes.c_int, ctypes.c_int])
     fn.restype = ctypes.c_int
     lib.rs_draws_n_ptr.restype = ctypes.c_int
     if lib.rs_draws_n_ptr() != len(PTR_ORDER):
@@ -171,10 +180,11 @@ def _declare(lib, entry: str) -> ctypes.CDLL:
     return lib
 
 
-def _load_cuda() -> ctypes.CDLL:
-    if "cuda" not in _LIBS:
-        _LIBS["cuda"] = _declare(ctypes.CDLL(str(build())), "rs_draws_launch")
-    return _LIBS["cuda"]
+def _load_cuda(proxy: bool = False) -> ctypes.CDLL:
+    name = "proxy" if proxy else "cuda"
+    if name not in _LIBS:
+        _LIBS[name] = _declare(ctypes.CDLL(str(build(proxy))), "rs_draws_launch")
+    return _LIBS[name]
 
 
 def host_library(cxx: str) -> Path:
@@ -189,6 +199,8 @@ def host_library(cxx: str) -> Path:
 def load_host(path) -> ctypes.CDLL:
     """Load a g++ build of the draw body (`host_library`) for `draw_host`."""
     lib = _declare(ctypes.CDLL(str(path)), "rs_draws_host")
+    lib.rs_draws_tile_rows.argtypes = [ctypes.c_int]
+    lib.rs_draws_tile_rows.restype = ctypes.c_int
     lib.rs_draws_threefry.argtypes = [ctypes.c_int, ctypes.c_int64] + [ctypes.c_void_p] * 3 + [
         ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
     lib.rs_draws_threefry.restype = None
@@ -339,9 +351,9 @@ def _assemble(outs, facts: bool):
     return inp, tuple(outs[("facts", f)] for f in FACTS_OUT)
 
 
-def _cuda_launch(p: DrawParams, ptrs, device) -> None:
+def _cuda_launch(p: DrawParams, ptrs, device, proxy: bool = False) -> None:
     """THE launch site: one draw kernel on the current stream, counted."""
-    lib = _load_cuda()
+    lib = _load_cuda(proxy)
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = lib.rs_draws_launch(ctypes.byref(p), ptrs, ctypes.c_void_p(stream))
     if rc != 0:
@@ -351,13 +363,14 @@ def _cuda_launch(p: DrawParams, ptrs, device) -> None:
 
 
 def draw_cuda(cfg: T.RaftConfig, keys: torch.Tensor, now, genome=None, seg_len: int = 1,
-              facts: bool = False):
+              facts: bool = False, proxy: bool = False):
     """`faults.make_inputs(cfg, keys, now, genome, seg_len, facts)` for the
     clusters keyed by `keys` ([B, 2]), batch-minor: CPU keys run the plain
     draws, CUDA keys the kernel (or raise). `now` is an int, or on the
     genome path a [B] int32 tensor of per-row ticks. Returns StepInputs
     (with `facts`, (StepInputs, (crashed [N, B], cut_now [B], cut_prev
-    [B])))."""
+    [B]))). `proxy` launches the race proxy's build instead (a check for
+    chip_smoke.py, never the main path)."""
     if keys.device.type == "cpu":
         return draw_plain(cfg, keys, now, genome, seg_len, facts)
     if keys.device.type != "cuda":
@@ -365,7 +378,7 @@ def draw_cuda(cfg: T.RaftConfig, keys: torch.Tensor, now, genome=None, seg_len: 
     with torch.cuda.device(keys.device):
         p, ptrs, outs = _prepare(cfg, keys, now, genome, seg_len, facts, None)
         if keys.shape[0]:
-            _cuda_launch(p, ptrs, keys.device)
+            _cuda_launch(p, ptrs, keys.device, proxy)
         return _assemble(outs, facts)
 
 
@@ -391,18 +404,27 @@ def draw_span(cfg: T.RaftConfig, keys: torch.Tensor, t0: int, n_ticks: int, geno
 
 
 def draw_host(lib, cfg: T.RaftConfig, keys: torch.Tensor, now, genome=None, seg_len: int = 1,
-              facts: bool = False, ticks: int | None = None):
+              facts: bool = False, ticks: int | None = None, reverse: bool = False,
+              poison: bool = False):
     """The kernel's body built for the CPU (`load_host`), on CPU tensors: the
     same leaf checks, pointer table and outputs as `draw_cuda` (with `ticks`,
     as `draw_span` from tick `now`), so tests hold the kernel's own logic
-    against the plain draws."""
+    against the plain draws. `reverse` runs each phase's (row, node) workers
+    in reverse order; `poison` fills the side-bit staging with the race
+    proxy's byte before each tile's stage phase."""
     p, ptrs, outs = _prepare(cfg, keys, now, genome, seg_len, facts, ticks)
-    _host_launch(lib, p, ptrs)
+    _host_launch(lib, p, ptrs, reverse, poison)
     return _assemble(outs, facts)
 
 
-def _host_launch(lib, p: DrawParams, ptrs) -> None:
-    rc = lib.rs_draws_host(ctypes.byref(p), ptrs)
+def _host_tile_rows(lib, n: int) -> int:
+    """Rows a tile (a block on the card) for `n` nodes (csrc/draws.cuh
+    `tile_rows`), from a library of the body."""
+    return int(lib.rs_draws_tile_rows(n))
+
+
+def _host_launch(lib, p: DrawParams, ptrs, reverse: bool = False, poison: bool = False) -> None:
+    rc = lib.rs_draws_host(ctypes.byref(p), ptrs, int(reverse), int(poison))
     if rc != 0:
         raise RuntimeError(f"draw body refused the parameters (code {rc})")
 
@@ -488,9 +510,7 @@ def bound_ms(cfg: T.RaftConfig, b: int, now: int, sm_clock_mhz: float, sms: int 
     them over the issue lanes, whichever is slower -- and the bytes over
     `bytes_per_s`; which bounds it."""
     blocks = threefry_blocks(cfg, b, now, genome, seg_len, facts)
-    clocks = max(block_ops["alu_only"] / ALU_LANES_PER_SM,
-                 block_ops["total"] / ISSUE_LANES_PER_SM)  # an SM's clocks a block
-    ops_ms = blocks * clocks / (sms * sm_clock_mhz * 1e6) * 1e3
+    ops_ms = blocks * block_clocks(block_ops) / (sms * sm_clock_mhz * 1e6) * 1e3
     rd, wr = traffic_bytes(cfg, b, genome is not None, facts)
     bytes_ms = (rd + wr) / bytes_per_s * 1e3
     return {"bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms
@@ -501,11 +521,33 @@ def bound_ms(cfg: T.RaftConfig, b: int, now: int, sm_clock_mhz: float, sms: int 
 
 
 def parse_block_ops(sass: str) -> dict:
-    """{"total", "alu_only"} instructions of one drop draw in draws_kernel's
-    SASS (`cuobjdump -sass`): the first region that an innermost loop
-    branches over and that holds one threefry block (20 funnel-shift
-    rotates) ending in an unsigned threshold compare."""
-    kernel = sass.split("draws_kernel", 1)[1].split("Function :", 1)[0]
+    """{"total", "alu_only"} instructions of one drop draw in the draw
+    kernels' SASS (`cuobjdump -sass`): in each kernel (draws_kernel, the
+    tile, and draws_flat_kernel, the flat grid), the first region that an
+    innermost loop branches over and that holds one threefry block (20
+    funnel-shift rotates) ending in an unsigned threshold compare; of the
+    kernels', the one that takes the fewest clocks (`block_clocks`). Both do
+    the same work a draw, so the bound counts what the leaner form needs."""
+    found = []
+    for fn in sass.split("Function :")[1:]:
+        name = fn.split(None, 1)[0] if fn.strip() else ""
+        if "draws_kernel" in name or "draws_flat_kernel" in name:
+            ops = _drop_draw(fn)
+            if ops is not None:
+                found.append(ops)
+    if not found:
+        raise ValueError("no drop draw found in the draw kernels' SASS")
+    return min(found, key=lambda o: (block_clocks(o), o["total"]))
+
+
+def block_clocks(block_ops: dict) -> float:
+    """An SM's clocks a threefry block: its ALU-only instructions over the
+    ALU lanes or all of them over the issue lanes, whichever is slower."""
+    return max(block_ops["alu_only"] / ALU_LANES_PER_SM, block_ops["total"] / ISSUE_LANES_PER_SM)
+
+
+def _drop_draw(kernel: str) -> dict | None:
+    """`parse_block_ops`' count in one function's SASS, or None."""
     ins = [(int(m.group(1), 16), m.group(2).strip())
            for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", kernel)]
     at = {a: i for i, (a, _) in enumerate(ins)}
@@ -525,7 +567,7 @@ def parse_block_ops(sass: str) -> dict:
                     region[-1].startswith("ISETP") and ".U32" in region[-1]:
                 alu = sum(op.split(".")[0] in ALU_ONLY for op in region)
                 return {"total": len(region), "alu_only": alu}
-    raise ValueError("no drop draw found in draws_kernel's SASS")
+    return None
 
 
 def sass_block_ops(path: Path | None = None) -> dict:

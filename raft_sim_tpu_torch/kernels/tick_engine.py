@@ -292,28 +292,41 @@ def time_launches(launch, reps: int) -> float:
 
 BUILD_INFO: dict = {}
 PROXY_BUILD_INFO: dict = {}
+CLOCK_BUILD_INFO: dict = {}
+# The library builds of csrc/tick.cu: (name, defines, build record).
+VARIANTS = {
+    "card": ("libtick", [], BUILD_INFO),
+    "proxy": ("libtick_proxy", ["-DRS_RACE_PROXY"], PROXY_BUILD_INFO),
+    "clock": ("libtick_clock", ["-DRS_PHASE_CLOCK"], CLOCK_BUILD_INFO),
+}
 
 IDX_TIERS = (1, 2, 4)  # index dtype byte widths
 WIDTH_TIERS = (2, 4, 8)  # packed words a row (`width_tier`): one object per (index, width) pair
 
 
-def build(proxy: bool = False) -> Path:
+def _variant(proxy: bool, clock: bool) -> str:
+    if proxy and clock:
+        raise ValueError("the race proxy and the phase clock are libraries of their own")
+    return "proxy" if proxy else "clock" if clock else "card"
+
+
+def build(proxy: bool = False, clock: bool = False) -> Path:
     """Compile csrc/tick.cu for sm_90a into BUILD_DIR (once per source hash)
     and return the library's path: one nvcc per (index tier, width tier), all
     started together, then one link. BUILD_INFO records the seconds and the
     compiler's register/stack/spill report of the last build. `proxy` builds
     the race proxy instead (-DRS_RACE_PROXY: reversed thread map, poisoned
-    exchange; csrc/tick.cu), a library of its own that the main path never
-    loads; PROXY_BUILD_INFO records its build."""
+    exchange; csrc/tick.cu), and `clock` the phase clock (-DRS_PHASE_CLOCK:
+    per-phase cycle counters, `phase_split`): libraries of their own that the
+    main path never loads; PROXY_BUILD_INFO and CLOCK_BUILD_INFO record them."""
+    name, defs, info = VARIANTS[_variant(proxy, clock)]
     tag = _source_tag()
-    name = "libtick_proxy" if proxy else "libtick"
     out = BUILD_DIR / f"{name}_{tag}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc, pid = _nvcc(), os.getpid()
     arch = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
-    defs = ["-DRS_RACE_PROXY"] if proxy else []
     parts = [(k, w) for k in IDX_TIERS for w in WIDTH_TIERS]
     t0 = time.perf_counter()
     objs = [BUILD_DIR / f"{name}_i{k}_w{w}_{tag}.{pid}.o" for k, w in parts]
@@ -330,7 +343,7 @@ def build(proxy: bool = False) -> Path:
     finally:
         for obj in objs:
             obj.unlink(missing_ok=True)
-    return install(tmp, out, "".join(reports), t0, PROXY_BUILD_INFO if proxy else BUILD_INFO)
+    return install(tmp, out, "".join(reports), t0, info)
 
 
 def ptxas_report(text: str | None = None) -> dict:
@@ -385,10 +398,12 @@ def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _load_cuda(proxy: bool = False):
-    """The card's library (`build`), or the race proxy's with `proxy`."""
-    if proxy not in _LIBS:
-        lib = ctypes.CDLL(str(build(proxy)))
+def _load_cuda(proxy: bool = False, clock: bool = False):
+    """The card's library (`build`), or the race proxy's with `proxy`, or
+    the phase clock's with `clock`."""
+    variant = _variant(proxy, clock)
+    if variant not in _LIBS:
+        lib = ctypes.CDLL(str(build(proxy, clock)))
         lib.rs_tick_launch.argtypes = [
             ctypes.POINTER(TickParams), ctypes.POINTER(ctypes.c_void_p),
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -397,9 +412,12 @@ def _load_cuda(proxy: bool = False):
         lib.rs_tick_launch.restype = ctypes.c_int
         lib.rs_tick_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.rs_tick_smem_bytes.restype = ctypes.c_longlong
+        if clock:
+            lib.rs_tick_phase_clock.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int]
+            lib.rs_tick_phase_clock.restype = ctypes.c_int
         _check_lib(lib)
-        _LIBS[proxy] = lib
-    return _LIBS[proxy]
+        _LIBS[variant] = lib
+    return _LIBS[variant]
 
 
 def _check_lib(lib) -> None:
@@ -565,11 +583,22 @@ def width_tier(n: int) -> int:
 def block_shape(n: int, b: int, sms: int) -> tuple[int, int]:
     """(tc, s): a block of `tc` consecutive clusters x `s` node slots for `b`
     clusters of `n` nodes on a card of `sms` SMs. s = n up to 32 nodes, else
-    the width tier's 32 x words (32, 64 or 128) with two nodes a thread; tc =
-    32 while s <= 16, 16 at s = 32 -- each halved down to 8 while that leaves
-    fewer than two blocks per SM -- and 512 / s above (8 or 4): at most 512
-    threads a block (csrc/tick.cuh MAX_THREADS), and the exchange of 4 x 255
-    nodes fits a block's shared memory where 8 would not."""
+    16 x the width tier's words (32, 64 or 128) with two nodes a thread; tc =
+    32 while s <= 16, 16 at s = 32 -- each halved down to 8 while that
+    leaves fewer than two blocks per SM -- and 512 / s above (8 or 4): at
+    most 512 threads a block (csrc/tick.cuh MAX_THREADS), and the exchange
+    of 4 x 255 nodes fits a block's shared memory where 8 would not.
+
+    Why the wide tiers keep 512 / s, though config7x's 250 clusters then
+    fill 63 of 132 SMs and config7's 1,000 125: their kernel
+    (`wide_tick_kernel`) is bound by the memory sectors its per-edge reads
+    touch, and a warp of tc clusters x 32 / tc node slots reads tc
+    consecutive bytes of each of 32 / tc rows. Halving tc to fill the card
+    doubles the sectors a warp touches: K1 at config7x 1.623 ms at tc = 4,
+    2.519 at 2, 6.173 at 1; config7 0.4508 at 8, 0.6406 at 4, 1.190 at 2;
+    config5 1.048 at 16, 1.085 at 8, 1.415 at 4 (PERF.md §6). One node a
+    thread at s = 128/256 halves each thread's chain but not the sectors a
+    cluster's edges take."""
     s = n if n <= 32 else 16 * width_tier(n)
     if s > 32:
         return 512 // s, s
@@ -603,9 +632,9 @@ def cache_probes() -> dict:
     }
 
 
-def _cuda_launch(params, ptrs, tiers, device, proxy: bool = False) -> None:
+def _cuda_launch(params, ptrs, tiers, device, proxy: bool = False, clock: bool = False) -> None:
     """THE launch site: one tick kernel on the current stream, counted."""
-    lib = _load_cuda(proxy)
+    lib = _load_cuda(proxy, clock)
     stream = torch.cuda.current_stream(device).cuda_stream
     tc, s = block_shape(params.n, params.b, _sm_count(device))
     rc = lib.rs_tick_launch(ctypes.byref(params), ptrs, *tiers, tc, s, ctypes.c_void_p(stream))
@@ -645,6 +674,48 @@ def time_kernel(cfg, s, inp, reps: int = 20, now: int | None = None) -> float:
     with torch.cuda.device(s.role.device):
         params, ptrs, tiers, outs = _prepare(cfg, s, inp, now, "cuda")
         return time_launches(lambda: _cuda_launch(params, ptrs, tiers, s.role.device), reps)
+
+
+PHASES = ("headers", "load_to_commit", "serve_and_compact", "append_and_timers",
+          "outbox_and_state", "pair_checks", "cluster_info")  # csrc/tick.cuh phases 0-6
+
+
+def phase_split(cfg, s, inp, reps: int = 5, now: int | None = None) -> dict:
+    """Where K1's time goes on CUDA state `s` and inputs `inp`: `reps`
+    launches of the phase clock's build (`build(clock=True)`), whose thread 0
+    of each block adds the block's cycles between barriers to each phase's
+    counter, and whose leaders add the cycles of the quorum order statistic
+    to one more. Returns each phase's share of the block-cycles, the quorum
+    statistic's mean cycles a call and its share of a block's phase 1
+    (`quorum_share_of_phase1`: one leader's statistic against its block's
+    whole phase 1, the part of the phase a leader's walk holds the barrier
+    at most), and the raw counters."""
+    with torch.cuda.device(s.role.device):
+        params, ptrs, tiers, _ = _prepare(cfg, s, inp, now, "cuda")
+        lib = _load_cuda(clock=True)
+        slots = lib.rs_tick_clock_slots()
+        buf = (ctypes.c_ulonglong * slots)()
+        torch.cuda.synchronize()
+        if lib.rs_tick_phase_clock(buf, 1) != 0:
+            raise RuntimeError("phase clock: reading the counters failed")
+        for _ in range(reps):
+            _cuda_launch(params, ptrs, tiers, s.role.device, clock=True)
+        torch.cuda.synchronize()
+        if lib.rs_tick_phase_clock(buf, 1) != 0:
+            raise RuntimeError("phase clock: reading the counters failed")
+    cyc = list(buf)
+    total = sum(cyc[:len(PHASES)]) or 1
+    blocks = cyc[9] or 1
+    calls = cyc[8]
+    per_call = cyc[7] / calls if calls else 0.0
+    phase1_per_block = cyc[1] / blocks
+    return {"phase_share": {name: cyc[k] / total for k, name in enumerate(PHASES)},
+            "block_cycles_per_launch": total / reps,
+            "blocks_per_launch": blocks / reps,
+            "quorum_calls_per_launch": calls / reps,
+            "quorum_cycles_per_call": per_call,
+            "quorum_share_of_phase1": per_call / phase1_per_block if phase1_per_block else 0.0,
+            "counters": cyc}
 
 
 # csrc/tick_host.cpp's parts: (width tier, node-id bytes) pairs the body is

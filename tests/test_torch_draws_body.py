@@ -5,8 +5,10 @@ the same leaf checks, pointer table and outputs as the CUDA wrapper
 (kernels/draw_engine.py `draw_host`). It is held against the plain draws
 (sim/faults.py `make_inputs`, `draw_span`, `trace_fault_inputs`), which
 tests/test_torch_inputs.py holds against the JAX package: on every preset,
-a numpy-seeded genome, per-row ticks, spans and the fault facts; and its
-threefry functions against utils/threefry.py and jax.random.
+a numpy-seeded genome, per-row ticks, spans and the fault facts, and the
+partition side bits staged once a row in both worker orders with the
+staging poisoned; and its threefry functions against utils/threefry.py and
+jax.random.
 tests/test_torch_draws_jax.py holds the body against the JAX package
 directly, alone and with the tick kernel's host body in `simulate`.
 
@@ -311,17 +313,17 @@ def test_step_inputs_fields_are_the_outputs():
     assert [f for g, f in draw_engine.PTR_ORDER if g == "inputs"] == list(StepInputs._fields)
 
 
-def _listing(body: list[str]) -> str:
-    """A cuobjdump -sass listing of draws_kernel: a region of `body` that
-    a predicate branches over, before it a lone block outside any loop,
-    the region inside a loop, and another function after."""
+def _listing(body: list[str], name: str = "_ZN4anon12draws_kernelEN2rd8DrawArgsE") -> str:
+    """A cuobjdump -sass listing of draw kernel `name`: a region of `body`
+    that a predicate branches over, before it a lone block outside any
+    loop, the region inside a loop, and another function after."""
     decoy = ["SHF.L.W.U32.HI R1, R1, 0xd, R1"] * 20 + ["ISETP.LT.U32.AND P0, PT, R1, R2, PT"]
     lines = ["ISETP.NE.AND P3, PT, R9, RZ, PT", *decoy, "BSSY B0, END"]
     top = len(lines)
     lines += ["@!P3 BRA END", *body, "BSYNC B0", "ISETP.GE.AND P0, PT, R4, R5, PT",
               f"@!P0 BRA {top * 16:#x}", "EXIT"]
     end = (lines.index("BSYNC B0")) * 16
-    out = ["\t\tFunction : _ZN4anon12draws_kernelEN2rd8DrawArgsE"]
+    out = [f"\t\tFunction : {name}"]
     out += [f"        /*{k * 16:04x}*/    {ln.replace('END', f'{end:#x}')} ;  /* 0x0 */"
             for k, ln in enumerate(lines)]
     out += ["\t\tFunction : other", "        /*0000*/    SHF.L.W.U32.HI R1, R1, 0xd, R1 ;"]
@@ -344,6 +346,17 @@ def test_block_ops_come_from_the_drop_loop_sass():
     assert draw_engine.parse_block_ops(_listing(body)) == {"total": 71, "alu_only": 43}
     with pytest.raises(ValueError, match="no drop draw"):
         draw_engine.parse_block_ops(_listing(body[:-1]))
+    # Both draw kernels in one listing: the leaner form's draw prices the
+    # bound, whichever comes first (one more add, then one more rotate-free
+    # ALU op, in the tile's).
+    flat = _listing(body, "_ZN4anon17draws_flat_kernelEN2rd8DrawArgsE")
+    for extra, want in ((["IADD3 R47, R45, R47, R24"], {"total": 71, "alu_only": 43}),
+                        (["LOP3.LUT R42, R42, R47, RZ, 0x3c, !PT"], {"total": 71, "alu_only": 43})):
+        tile = _listing(body[:-1] + extra + body[-1:])
+        assert draw_engine.parse_block_ops(tile + "\n" + flat) == want
+        assert draw_engine.parse_block_ops(flat + "\n" + tile) == want
+    assert draw_engine.parse_block_ops(_listing(body[:-1] + ["LOP3.LUT R1, R1, R2, RZ, 0x3c, !PT"]
+                                                + body[-1:])) == {"total": 72, "alu_only": 44}
     cfg = tconfig.PRESETS["config7"][0]
     blocks = draw_engine.threefry_blocks(cfg, 100, 5)
     alu = draw_engine.bound_ms(cfg, 100, 5, 1980.0, block_ops={"total": 71, "alu_only": 43})
@@ -351,3 +364,40 @@ def test_block_ops_come_from_the_drop_loop_sass():
     issue = draw_engine.bound_ms(cfg, 100, 5, 1980.0, block_ops={"total": 100, "alu_only": 20})
     assert issue["ops_ms"] == pytest.approx(blocks * 100 / 128 / (132 * 1980e6) * 1e3)
     assert alu["bound_by"] == "operations" and alu["int32_ops"] == 71 * blocks
+
+
+# A partition's side bits staged once a row (csrc/draws.cuh `stage_node`): N
+# at the tile edges the card's blocks take (8 rows of 33 and of 51 nodes, 2
+# of 255; batches that leave a ragged last tile), a window of 8 ticks cut at
+# p = 0.5 so most windows are active, drop on so both parts of a delivery
+# row show, and ticks at and beside each window edge (the facts' tick before
+# in another window).
+STAGED_TICKS = [0, 1, 2, 7, 8, 9, 15, 16, 17, 24, 31, 32, 33, 40]
+
+
+def staged_cfg(n: int):
+    return dataclasses.replace(tconfig.PRESETS["config7"][0], n_nodes=n, partition_period=8,
+                               partition_prob=0.5, drop_prob=0.1)
+
+
+@pytest.mark.parametrize("order", ["forward", "reverse-poison"])
+@pytest.mark.parametrize("n,batch", [(33, 11), (51, 9), (255, 3)], ids=["n33", "n51", "n255"])
+def test_staged_side_bits_match_plain(lib, n, batch, order):
+    """The staged body (each node's side bit drawn once, read by every node
+    of its row after the stage phase, the cut counts from the staged rows)
+    equals the plain draws with the facts, in the forward worker order and
+    in reverse with the staging poisoned before each tile's stage phase;
+    some window cut edges and some tick's cut differed from the tick
+    before."""
+    assert draw_engine._host_tile_rows(lib, n) == {33: 8, 51: 8, 255: 2}[n]
+    cfg = staged_cfg(n)
+    keys = threefry.split(threefry.key(13), batch)
+    cut, changed = 0, 0
+    rev = order != "forward"
+    for t in STAGED_TICKS:
+        want = minor(faults.make_inputs(cfg, keys, t, facts=True))
+        got = draw_engine.draw_host(lib, cfg, keys, t, facts=True, reverse=rev, poison=rev)
+        assert_same(want, got, f"n={n} {order} tick {t}")
+        cut += int((got[1][1] > 0).sum())
+        changed += int((got[1][1] != got[1][2]).sum())
+    assert cut > 0 and changed > 0

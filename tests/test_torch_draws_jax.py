@@ -2,7 +2,9 @@
 CPU: the g++ build of csrc/draws.cuh (kernels/draw_engine.py `draw_host`;
 tests/test_torch_draws_body.py holds it against the plain draws) directly
 against `jax.vmap(raft_sim_tpu.sim.faults.make_inputs)` on config3,
-config6, config8, config10 and config7x, and the slice as a whole: the
+config6, config8, config10 and config7x, the staged side bits with the
+facts (`trace_fault_inputs`) at N = 33, 51 and 255 in both worker orders,
+and the slice as a whole: the
 main path's loop (`scan.tick_batch_minor`) with every tick's draws from
 the draw body and every tick from the tick kernel's host body
 (`tick_engine.step_host`) against the JAX package's `simulate`.
@@ -94,3 +96,36 @@ def test_simulate_through_both_host_bodies_matches_jax(lib, tick_lib, name):
         s, m, _ = scan.tick_batch_minor(cfg, s, keys, m, t, step_fn=step, draw_fn=draw)
     assert bridge.first_difference(want_s, trb.from_batch_minor(s)) is None
     assert bridge.first_difference(want_m, trb.from_batch_minor(m)) is None
+
+
+@pytest.mark.parametrize("order", ["forward", "reverse-poison"])
+@pytest.mark.parametrize("n", [33, 51, 255])
+def test_staged_side_bits_match_jax_with_facts(lib, n, order):
+    """The staged body (a partition's side bits drawn once a row and shared
+    through the stage, csrc/draws.cuh `stage_node`) against
+    `jax.vmap(make_inputs)` and `jax.vmap(trace_fault_inputs)` under rolling
+    partitions, at the card's tile edges (N = 33, 51, 255), forward and in
+    reverse with the staging poisoned: every input leaf, the crash edge and
+    both cut counts."""
+    jcfg = dataclasses.replace(rst.PRESETS["config7"][0], n_nodes=n, partition_period=8,
+                               partition_prob=0.5, drop_prob=0.1)
+    cfg = _port_cfg(jcfg)
+    batch = 3
+    jkeys = jax.random.split(jax.random.key(23), batch)
+    keys = threefry.split(threefry.key(23), batch)
+    draw = jax.jit(lambda k, now: jax.vmap(lambda kk: jfaults.make_inputs(jcfg, kk, now))(k))
+    facts = jax.jit(lambda k, now: jax.vmap(
+        lambda kk: jfaults.trace_fault_inputs(jcfg, kk, now))(k))
+    rev = order != "forward"
+    cut = 0
+    for t in (0, 1, 7, 8, 9, 16, 17, 33):
+        want = jax.device_get(draw(jkeys, jnp.int32(t)))
+        want_f = jax.device_get(facts(jkeys, jnp.int32(t)))
+        got, got_f = draw_engine.draw_host(lib, cfg, keys, t, facts=True, reverse=rev, poison=rev)
+        diff = bridge.first_difference(want, trb.from_batch_minor(got))
+        assert diff is None, f"tick {t}: {diff}"
+        assert (got_f[0].T.numpy() == want_f[0]).all(), f"tick {t}: crashed"
+        assert (got_f[1].numpy() == want_f[1]).all(), f"tick {t}: cut_now"
+        assert (got_f[2].numpy() == want_f[2]).all(), f"tick {t}: cut_prev"
+        cut += int((got_f[1] > 0).sum())
+    assert cut > 0

@@ -14,6 +14,7 @@ Tolerance: exact equality of every ClusterState and StepInfo leaf.
 Skips only where no g++ is installed.
 """
 
+import ctypes
 import dataclasses
 import re
 import shutil
@@ -174,6 +175,11 @@ ROWS = [
                             partition_prob=0.25),
         2, 48, 0.0, id="config7-mix-n255-partitions",
     ),
+    # The wide quorum commit (csrc/tick.cuh `QHist`) under drop 0.3: leaders
+    # come and go, their match rows spread over several values, so the walk
+    # it replaced would recount.
+    *(pytest.param(dataclasses.replace(tconfig.PRESETS["config7"][0], n_nodes=n, drop_prob=0.3),
+                   b, 128, 0.0, id=f"config7-mix-n{n}-drop03") for n, b in ((65, 4), (101, 3))),
     pytest.param(
         tconfig.RaftConfig(n_nodes=101, log_capacity=12, compact_margin=3, max_entries_per_rpc=3,
                            client_interval=2, client_redirect=True, client_pipeline=3,
@@ -323,6 +329,69 @@ def test_every_dense_cluster_size_is_taken(host_lib):
     assert host_lib.rs_tick_smem_bytes(101, 8) == 82_496
     assert host_lib.rs_tick_smem_bytes(255, 4) == 119_168
     assert host_lib.rs_tick_smem_bytes(51, 16) == 78_464
+
+
+def _order_statistic(vals, maj: int) -> int:
+    """The maj-th largest of `vals` (0 when fewer than maj): the leader's
+    quorum match, by a sort."""
+    ranked = np.sort(np.asarray(vals, dtype=np.int64))[::-1]
+    return int(ranked[maj - 1]) if len(ranked) >= maj else 0
+
+
+@pytest.mark.parametrize("n", [33, 51, 65, 101, 128, 255])
+def test_quorum_histogram_matches_a_sort(host_lib, n):
+    """The lean wide body's quorum commit (csrc/tick.cuh `QHist`,
+    `quorum_select`: a histogram over the window (base, base + QH] and a
+    count above it, the exact walk when a majority lies above) equals
+    max(the order statistic by a numpy sort, base) -- as does the walk
+    (`qmatch`) it replaces -- on random rows: values spread below and
+    through the window and past it (some beyond the leader's length), the
+    leader's own slot read as `self` (its length or a durable length below
+    it), every node or a random member set (two a trial, as the old and new
+    sets of a joint configuration), majorities from 1 to N."""
+    fn = host_lib.rs_tick_quorum_match
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    qh = int(re.search(r"constexpr int QH = (\d+);",
+                       (tick_engine.CSRC / "tick.cuh").read_text())[1])
+    rng = np.random.default_rng(n)
+    above = 0  # trials whose majority lay above the window: the walk ran
+    for trial in range(300):
+        base = int(rng.integers(0, 40))
+        length = base + int(rng.integers(0, 2 * qh))
+        spread = trial % 4
+        if spread == 0:  # caught-up followers: most at the leader's length
+            row = np.where(rng.random(n) < 0.7, length, rng.integers(0, length + 1, n))
+        elif spread == 1:  # spread through the window and below it
+            row = rng.integers(max(base - 5, 0), length + 1, n)
+        elif spread == 2:  # values past the window, some past the length
+            row = rng.integers(base, base + 4 * qh, n)
+        else:  # duplicates on a few values
+            row = rng.choice(rng.integers(0, length + 3 * qh, 4), n)
+        row = np.ascontiguousarray(row, dtype=np.int32)
+        i = int(rng.integers(0, n))
+        self_ = length if trial % 3 else int(rng.integers(max(base - 2, 0), length + 1))
+        vals = row.astype(np.int64).copy()
+        vals[i] = self_
+        sets = [None] if trial % 2 else [rng.random(n) < rng.uniform(0.2, 1.0) for _ in range(2)]
+        for members in sets:
+            if members is None:
+                mask, maj, picked = None, n // 2 + 1, vals
+            else:
+                words = np.zeros(8, dtype=np.uint32)
+                for j in np.flatnonzero(members):
+                    words[j // 32] |= np.uint32(1 << (j % 32))
+                mask = words.ctypes.data
+                maj, picked = int(members.sum()) // 2 + 1, vals[members]
+            if trial % 5 == 4:
+                maj = int(rng.integers(1, n + 1))
+            want = max(_order_statistic(picked, maj), base)
+            above += int((picked > base + qh).sum() >= maj)
+            got = fn(row.ctypes.data, n, i, self_, mask, maj, base, 0)
+            walk = fn(row.ctypes.data, n, i, self_, mask, maj, base, 1)
+            assert got == want == walk, (trial, members is not None, maj, base, got, want, walk)
+    assert above > 0
 
 
 def test_kernel_report_names_each_cells_instantiation(host_lib, monkeypatch):
