@@ -309,8 +309,11 @@ the start; any failure raises and exits non-zero):
    and stats equal. (c) `check --race --dynamic --device cuda` exits 0 (in a
    parity worker). (d) `op_audit`'s programs, one tick of each audit tier's
    four variants on the card: no finding, and each program's op dtypes (its
-   (op, output dtypes) histogram) equal to the CPU's (both in the parity
-   workers). (e) `cost-kernel-resources`: ptxas's registers, stack and
+   (op, output dtypes) histogram) equal to the CPU's; and Pass E's interval
+   leg (analysis/interval.py) on the card: each tier's programs captured
+   there with the CPU's op hashes, no finding, and the interval records
+   (each leg's proven range, rate and horizon, `jax_differs`) equal to the
+   CPU's (both in the parity workers). (e) `cost-kernel-resources`: ptxas's registers, stack and
    spills of every K1 instantiation of this build within the pins of
    tests/golden_torch_cost.json. The phase's K1 launches print with it.
 5. bench_row -- the port's bench (raft_sim_tpu_torch/bench.py) on config2 at
@@ -2916,6 +2919,18 @@ def _analysis_ops_leg(device: str) -> dict:
     if device == "cuda":
         out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
         out["k1_passthrough"] = op_audit.k1_notes(device=device)
+    # Pass E's interval leg: every tier's programs captured on `device` and
+    # interpreted (analysis/interval.py); the records and op hashes must be
+    # the CPU's.
+    from raft_sim_tpu_torch.analysis import range_audit
+
+    t0 = time.perf_counter()
+    dint, captures, ifound = range_audit.derive_intervals(device=device)
+    out["interval"] = {"tiers": dint["tiers"], "programs": dint["programs"],
+                       "findings": [f.to_json() for f in ifound],
+                       "hashes": {f"{n}/{v}": c.get("hash") for n, caps in captures.items()
+                                  for v, c in caps.items() if "hash" in c},
+                       "seconds": time.perf_counter() - t0}
     return out
 
 
@@ -3043,10 +3058,27 @@ def analysis_phase(dev, legs, resources) -> list:
     differ = [k for k in cpu["hists"] if card["hists"].get(k) != cpu["hists"][k]]
     if differ or set(card["hists"]) != set(cpu["hists"]):
         raise AssertionError(f"analysis (d): op dtypes differ card vs CPU in {differ[:4]}")
+    ci, pi = card["interval"], cpu["interval"]
+    if ci["findings"] or pi["findings"]:
+        raise AssertionError(f"analysis (d): interval findings {ci['findings'][:3]} "
+                             f"{pi['findings'][:3]}")
+    if ci["hashes"] != pi["hashes"]:
+        raise AssertionError(f"analysis (d): capture op hashes differ card vs CPU in "
+                             f"{[k for k in pi['hashes'] if ci['hashes'].get(k) != pi['hashes'][k]][:4]}")
+    if ci["tiers"] != pi["tiers"]:
+        raise AssertionError(f"analysis (d): interval records differ card vs CPU in "
+                             f"{[k for k in pi['tiers'] if ci['tiers'].get(k) != pi['tiers'][k]]}")
     emit({"phase": "analysis_op_audit", "programs": len(card["hists"]), "findings": 0,
           "op_dtypes_equal": True, "peak_mem_bytes": card["peak_mem_bytes"],
           "k1_passthrough": card["k1_passthrough"], "seconds_card": card["seconds"],
-          "seconds_cpu": cpu["seconds"]})
+          "seconds_cpu": cpu["seconds"],
+          "interval_programs_proven": len(ci["programs"]) * len(ci["tiers"]),
+          "interval_tiers": len(ci["tiers"]),
+          "interval_jax_differs": sum(len(t.get("jax_differs") or {}) for t in ci["tiers"].values()),
+          "interval_legs_equal_jax": sum(len(t["legs"]) - len(t.get("jax_differs") or {})
+                                         for t in ci["tiers"].values()),
+          "interval_hashes_equal": True, "interval_records_equal": True,
+          "interval_seconds_card": ci["seconds"], "interval_seconds_cpu": pi["seconds"]})
 
     # ---- (e) cost-kernel-resources against the build's ptxas report -----------
     if resources["findings"]:

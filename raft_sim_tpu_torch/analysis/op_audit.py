@@ -133,17 +133,20 @@ def _op_name(func) -> str:
 
 
 _DTYPE_NAMES: dict = {}
+_SCALARS = frozenset({int, float, bool, str, type(None)})
 
 
 def _sig(x):
+    if type(x) in _SCALARS:  # before isinstance(x, torch.Tensor), which is slow for them
+        return type(x).__name__
     if isinstance(x, torch.Tensor):
         name = _DTYPE_NAMES.get(x.dtype)
         if name is None:
             name = _DTYPE_NAMES[x.dtype] = policy.dtype_name(x.dtype)
         return (name, tuple(x.shape))
-    if isinstance(x, (torch.dtype, torch.device, torch.layout, torch.memory_format)):
+    if isinstance(x, (torch.dtype, torch.layout, torch.memory_format)):
         return str(x)
-    return type(x).__name__
+    return type(x).__name__  # a device too: the card's stream must hash as the CPU's
 
 
 def _flat(args, kwargs) -> list:
@@ -266,9 +269,15 @@ def op_hash(records: list[OpRecord]) -> str:
     ignored (a scalar contributes its type only), `_structural` ops only."""
     h = hashlib.sha256()
     for r in records:
-        if _structural(r):
-            h.update(repr((r.name, r.ins, r.outs)).encode())
+        hash_op(h, r)
     return h.hexdigest()[:16]
+
+
+def hash_op(h, r: OpRecord) -> None:
+    """Fold one op into `h`, a running op_hash (a recorder that keeps no
+    records)."""
+    if _structural(r):
+        h.update(repr((r.name, r.ins, r.outs)).encode())
 
 
 def op_dtypes(records: list[OpRecord]) -> list[tuple[str, int]]:

@@ -330,6 +330,17 @@ def carry_leaf_names() -> list[str]:
     return names
 
 
+def trace_carry_leaf_names() -> list[str]:
+    """Leaf names of the traced loop's carry: the (state, metrics) legs, the
+    window's first-violation tick, then the trace ring's window and persist
+    legs (trace/ring.py), `trace.<f>` (the JAX package's names)."""
+    from raft_sim_tpu_torch.trace.ring import TracePersist, TraceWin
+
+    return (carry_leaf_names() + ["first_viol"]
+            + [f"trace.{f}" for f in TraceWin._fields]
+            + [f"trace.{f}" for f in TracePersist._fields])
+
+
 def state_leaves(state: ClusterState) -> dict[str, torch.Tensor]:
     """{carry leaf name: tensor} of a state (`carry_leaf_names` order)."""
     out = {f: getattr(state, f) for f in ClusterState._fields if f != "mailbox"}

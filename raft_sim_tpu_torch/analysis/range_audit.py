@@ -1,42 +1,57 @@
-"""Pass E: value ranges (the counterpart of
-the JAX package's analysis/range_audit.py, which abstract-interprets lowered
-jaxprs over integer intervals).
+"""Pass E: value ranges (the counterpart of the JAX package's
+analysis/range_audit.py), in two legs.
 
-The config arithmetic carries over as it is: the narrow-dtype ceilings,
-`range-pack-width` (ops/tile.py's widths against the declared ranges) and
-`range-horizon` (each monotone protocol leg's wrap horizon against
-SOAK_TICKS, from the growth rate per tick the port declares for it in
-`monotone_rates`). In place of the interval interpreter, the audit runs each
-tier's real plain tick (B = AUDIT_BATCH, AUDIT_TICKS ticks: enough to
-reach its crash, compaction and membership states, which the audit checks
-it reached) and watches the values:
+The proof (analysis/interval.py): an interval interpreter over a captured,
+tick-generic graph of each audited program of a tier -- `step`, `simulate`
+(whose capture `scenario_simulate` shares), `serve_simulate` and
+`trace_simulate` -- seeded from the config and the types.py range clauses,
+with JAX's widening fixed point over the tick loop. It proves each carry
+leg stable, or measures its growth rate and wrap horizon, and proves every
+gather, index, index_select, scatter and index_put index inside its
+extent. Each tier's `simulate` record is pinned in JAX's shape
+(tests/golden_torch_ranges.json `interval`), with `jax_differs` naming every
+leg whose record is not tests/golden_ranges.json's, with its reason from the
+hand-kept table analysis/jax_differs.json.
 
-  range-dtype-overflow    a narrowing cast (`.to` an int8/int16/int32) whose
-                          input does not fit the target, on the ticks a
-                          `RangeChecker` dispatch mode watches (every
-                          CHECK_EVERY-th, and the first). A cast to int32 of
-                          values in [0, 2^32) is a uint32 leg's carrier bit
-                          pattern (types.U32_LEAVES) and fits.
-  range-index-oob         an index, gather, index_select, scatter or
-                          index_put index outside the indexed extent --
-                          negative ones included, which torch would wrap
-                          silently. trace/ring.py's `record` scatters past
-                          the window's depth on purpose, into a buffer one
-                          row deeper that it then cuts off: in bounds here.
-  range-annotation-stale  a carry leg left its declared range (the types.py
+The witness (`run_tier`): each tier's real plain tick (B = AUDIT_BATCH,
+AUDIT_TICKS ticks: enough to reach its crash, compaction and membership
+states, which the audit checks it reached), its values watched. Every value
+it sees must lie inside the proof's interval for its leg (`check_witness`);
+and the config arithmetic carries over: the narrow-dtype ceilings,
+`range-pack-width` and the observed horizons from the hand rates
+(`monotone_rates`, `BOUNDED_BY`).
+
+  range-dtype-overflow    a proven interval escapes its dtype, or a narrowing
+                          cast whose fit is unproven (only the package's
+                          uint32 word arithmetic, interval.WORD_ARITHMETIC,
+                          may leave its dtype as a uint32 pattern); a
+                          declared range that does not fit its
+                          plane; and on the watched ticks (a `RangeChecker`
+                          dispatch mode, every CHECK_EVERY-th and the first)
+                          a narrowing `.to` whose input does not fit.
+  range-index-oob         an index not proven inside its extent -- negative
+                          ones included, which torch would wrap silently --
+                          or, on the watched ticks, one seen outside it. A
+                          clip (`clamp`) on the index discharges the proof.
+  range-annotation-stale  a declared range the initial carry contradicts, or
+                          wildly looser than the proven image; a carry leg
+                          seen outside its declared range (the types.py
                           clause in force, policy.declared_ranges; the dense
                           view under compact_planes).
-  range-horizon           a monotone protocol leg grew faster than its
-                          declared rate in some tick, or its horizon at the
-                          declared rate is under SOAK_TICKS; or a leg that
-                          jumps but copies one (BOUNDED_BY: a heard clock,
-                          a wire term, the latency frontier) rose above it.
+  range-horizon           a protocol leg whose measured horizon (its dtype's
+                          headroom over its rate) is under SOAK_TICKS; on the
+                          watched ticks, a monotone leg that grew faster than
+                          its hand rate, or a BOUNDED_BY leg above its bound.
   range-pack-width        a compacted plane's range does not fit its packed
                           width, or disagrees with the declared range.
-  range-golden            the pins in tests/golden_torch_ranges.json (each
-                          leg's observed [lo, hi] per tier, the horizons, the
-                          pack widths, the ceilings) drifted or are missing,
-                          or a tier's audit did not reach the states it must.
+  range-golden            the pins drifted or are missing; a program whose
+                          capture is not tick-generic, reads the device on
+                          the host, or whose loop or derivation fails ("NOT
+                          being checked"); a witness value outside its proven
+                          interval; a leg that differs from JAX's record with
+                          no reason in analysis/jax_differs.json, or a reason
+                          there for a leg that no longer differs; or an
+                          audit run that did not reach the states it must.
 """
 
 from __future__ import annotations
@@ -52,7 +67,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from raft_sim_tpu_torch import types as port_types
-from raft_sim_tpu_torch.analysis import op_audit, policy
+from raft_sim_tpu_torch.analysis import interval, op_audit, policy
 from raft_sim_tpu_torch.analysis.findings import Finding
 from raft_sim_tpu_torch.utils.config import PRESETS, RaftConfig
 
@@ -61,8 +76,7 @@ RULES = frozenset({
     "range-annotation-stale", "range-horizon", "range-golden",
 })
 
-#: The soak budget a monotone protocol leg must survive.
-SOAK_TICKS = 10_000_000
+SOAK_TICKS = interval.SOAK_TICKS
 
 AUDIT_BATCH = 4
 #: Ticks a tier runs: enough for its crash (crash_period 64), compaction
@@ -106,6 +120,16 @@ _REGEN = "regenerate with `python -m raft_sim_tpu_torch check --update-goldens` 
 
 def golden_path() -> str:
     return os.path.join(_REPO_ROOT, "tests", "golden_torch_ranges.json")
+
+
+def jax_golden_path() -> str:
+    """The JAX package's range pins, read (never written) for `jax_differs`."""
+    return os.path.join(_REPO_ROOT, "tests", "golden_ranges.json")
+
+
+def jax_reasons_path() -> str:
+    """The hand-kept table of why a leg's record differs from JAX's."""
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "jax_differs.json")
 
 
 _INT_BOUNDS = {torch.int8: (-128, 127), torch.int16: (-(2**15), 2**15 - 1),
@@ -451,11 +475,18 @@ def compare(derived: dict, golden: dict, *, full: bool = True) -> list[Finding]:
 
 def run_pass(config_names=op_audit.AUDIT_CONFIGS, golden_file: str | None = None,
              device: str = "cpu") -> list[Finding]:
-    """The full value-range pass: derive, load the pins, compare. A missing
-    golden file is itself a finding."""
+    """The full value-range pass: both legs derived, the witness held to the
+    proof, the pins loaded and compared. A missing golden file is itself a
+    finding."""
     golden_file = golden_file or golden_path()
     rel = os.path.relpath(golden_file, _REPO_ROOT)
     derived, findings = derive_all(config_names, device)
+    dint, _, ifinds = derive_intervals(config_names, device)
+    findings = findings + ifinds
+    for name, tier in derived["tiers"].items():
+        legs = (dint["tiers"].get(name) or {}).get("legs")
+        if legs is not None:
+            findings += check_witness(name, PRESETS[name][0], tier, legs)
     try:
         with open(golden_file) as f:
             golden = json.load(f)
@@ -466,15 +497,30 @@ def run_pass(config_names=op_audit.AUDIT_CONFIGS, golden_file: str | None = None
         return findings + [Finding(rule="range-golden", path=rel,
                                    message=f"golden range file unreadable: {ex}")]
     full = tuple(config_names) == tuple(op_audit.AUDIT_CONFIGS)
-    return findings + compare(derived, golden, full=full)
+    return findings + compare(derived, golden, full=full) + compare_intervals(dint, golden,
+                                                                              full=full)
+
+
+class UnexplainedDivergence(Exception):
+    """update_golden's refusal: a leg differs from JAX's record with no
+    reason in analysis/jax_differs.json."""
 
 
 def update_golden(path: str | None = None, config_names=op_audit.AUDIT_CONFIGS) -> str:
-    """Regenerate tests/golden_torch_ranges.json from the tree."""
+    """Regenerate tests/golden_torch_ranges.json from the tree: the observed
+    pins and the proof's `interval` section. Refuses (UnexplainedDivergence,
+    nothing written) while a leg differs from JAX's record with no reason."""
     path = path or golden_path()
+    dint, _, _ = derive_intervals(config_names)
+    missing = [f"{name}/{leg}" for name, tier in dint["tiers"].items()
+               for leg, e in (tier.get("jax_differs") or {}).items() if e["reason"] is None]
+    if missing:
+        raise UnexplainedDivergence(
+            f"{len(missing)} leg(s) differ from JAX's record with no reason in "
+            f"analysis/jax_differs.json: {', '.join(missing)}")
     derived, _ = derive_all(config_names)
     with open(path, "w") as f:
-        json.dump(derived, f, indent=1, sort_keys=True)
+        json.dump(dict(derived, interval=dint), f, indent=1, sort_keys=True)
         f.write("\n")
     return path
 
@@ -498,3 +544,285 @@ def diff_table(derived: dict, golden: dict, out=None) -> None:
     if derived.get("ceilings") != golden.get("ceilings"):
         print(f"{'ceilings':44} {str(golden.get('ceilings')):>24} "
               f"{str(derived.get('ceilings')):>24}", file=out)
+    dint = derived.get("interval")
+    if dint is None:
+        return
+    g_int = (golden.get("interval") or {}).get("tiers") or {}
+    show = lambda rec: "-" if rec is None else _span(rec) + (  # noqa: E731
+        f" +{rec['rate']}/t" if "rate" in rec else "")
+    for name in sorted(dint["tiers"]):
+        dl = dint["tiers"][name].get("legs") or {}
+        gl = (g_int.get(name) or {}).get("legs") or {}
+        for leg in sorted(set(dl) | set(gl)):
+            if dl.get(leg) != gl.get(leg):
+                print(f"{name + '/interval/' + leg:44} {show(gl.get(leg)):>24} "
+                      f"{show(dl.get(leg)):>24}", file=out)
+
+
+# ------------------------------------------------------------- the interval leg
+
+
+def packed_legs(cfg: RaftConfig) -> set[str]:
+    """The legs the compacted layout carries as packed words."""
+    if not cfg.compact_planes:
+        return set()
+    from raft_sim_tpu_torch.ops import tile
+
+    return ({f for f, mode, *_ in tile.state_plan(cfg) if mode == "pack"}
+            | {f"mb.{f}" for f, mode, *_ in tile.mailbox_plan(cfg) if mode == "pack"})
+
+
+def proof_declared(cfg: RaftConfig) -> dict:
+    """The declared ranges the proof seeds and pins: under compact_planes the
+    packed legs' value-domain declarations are dropped (their words live in
+    another domain; check_pack_widths holds them to the tile table)."""
+    packed = packed_legs(cfg)
+    return {k: v for k, v in policy.declared_ranges(cfg).items() if k not in packed}
+
+
+def _u32_legs(cfg: RaftConfig, names) -> set[str]:
+    u32 = port_types.u32_leaves(cfg)
+    return {n for n in names if not n.startswith(("metric.", "first_viol"))
+            and n.removeprefix("mb.").removeprefix("trace.") in u32}
+
+
+def _not_checked(label: str, why: str) -> Finding:
+    return Finding(rule="range-golden", path=label,
+                   message=f"{why}: the value-range gates for this program are NOT being checked")
+
+
+def audit_program(prog: interval.Program, *, declared=None, leg_names=None):
+    """Interpret one captured program. Returns (findings, record, unknown
+    ops): the record is the tick loop's per-leg record, None when the
+    program could not be checked (a finding says why). `declared` and
+    `leg_names` are injectable for the seeded negatives."""
+    findings: list[Finding] = []
+    cfg, body = prog.cfg, prog.body
+    if body.host_reads:
+        op, site = body.host_reads[0]
+        findings.append(_not_checked(
+            prog.label, f"the tick reads a device value on the host ('{op}' at "
+                        f"{interval.site_str(site)}): the capture bakes one arm of its branch"))
+        return findings, None, {}
+    if body.hash != prog.hash_b:
+        findings.append(_not_checked(
+            prog.label, f"the tick's op stream differs between ticks {prog.ticks[0]} and "
+                        f"{prog.ticks[1]} ({body.hash} -> {prog.hash_b}): a host branch on the "
+                        "tick bakes one arm into the capture"))
+        return findings, None, {}
+    declared = proof_declared(cfg) if declared is None else declared
+    names = prog.names if leg_names is None else leg_names
+    it = interval.Interp(prog.label, findings)
+    env = it.run(prog.init, it.env(prog.init, dict.fromkeys(prog.init.inputs, interval.TOP)))
+    entry = {n: env[s] for n, s in prog.init.outputs.items()}
+    public = {n: policy.public_dtype(n, body.in_meta(n)[0], cfg) for n in names
+              if n in body.inputs and not n.startswith(("metric.", "trace.", "first_viol"))}
+    record = interval.audit_loop(
+        it, body, entry, prog.consts, names, declared=declared,
+        invariant=policy.invariant_leaves(cfg), u32=_u32_legs(cfg, names),
+        public_dtypes=public)
+    if record is None:
+        findings.append(_not_checked(
+            prog.label, f"no loop with the expected {len(names)}-leg carry found"))
+    return findings, record, dict(it.unknown)
+
+
+def audit_step_program(prog: interval.Program, label: str, declared=None) -> list[Finding]:
+    """The `step` program: the simulate body's step_b span alone, state
+    seeded from the declared ranges, inputs unknown (JAX `_step_seed`)."""
+    findings: list[Finding] = []
+    it = interval.Interp(label, findings)
+    declared = proof_declared(prog.cfg) if declared is None else declared
+    if not interval.audit_step(it, prog.body, declared):
+        findings.append(_not_checked(label, "the capture marks no step span"))
+    return findings
+
+
+def _span(rec: dict) -> str:
+    return f"[{rec.get('lo')}, {rec.get('hi')}]"
+
+
+def load_jax_reasons(path: str | None = None) -> dict:
+    """{(tier, leg): reason} from analysis/jax_differs.json: each entry names
+    tiers, legs and one reason for all their pairs. A pair named twice is a
+    ValueError."""
+    with open(path or jax_reasons_path()) as f:
+        doc = json.load(f)
+    out: dict = {}
+    for e in doc["reasons"]:
+        for tier in e["tiers"]:
+            for leg in e["legs"]:
+                if (tier, leg) in out:
+                    raise ValueError(f"jax_differs.json gives {tier}/{leg} two reasons")
+                out[(tier, leg)] = e["reason"]
+    return out
+
+
+def jax_differs(name: str, legs: dict, jax_tiers: dict | None, reasons: dict) -> dict:
+    """{leg: {port, jax, reason}} for every leg of `legs` whose record is not
+    JAX's for tier `name` (empty without the JAX pins); `reason` is the
+    table's (`reasons`, load_jax_reasons), None where it gives none."""
+    if jax_tiers is None or name not in jax_tiers:
+        return {}
+    jlegs = jax_tiers[name].get("legs") or {}
+    return {leg: {"port": rec, "jax": jlegs.get(leg), "reason": reasons.get((name, leg))}
+            for leg, rec in sorted(legs.items()) if jlegs.get(leg) != rec}
+
+
+def reason_findings(name: str, differs: dict, reasons: dict) -> list[Finding]:
+    """range-golden for a leg that differs from JAX's record with no reason
+    in the table, and for a reason the table gives a leg of tier `name`
+    that no longer differs."""
+    out = []
+    for leg, e in differs.items():
+        if e["reason"] is None:
+            out.append(Finding(
+                rule="range-golden", path=f"range:{name}/jax",
+                message=(f"`{leg}`: the proof's record {e['port']} is not JAX's {e['jax']}, and "
+                         f"analysis/jax_differs.json gives no reason -- trace the cause and add "
+                         "one")))
+    for tier, leg in sorted(reasons):
+        if tier == name and leg not in differs:
+            out.append(Finding(
+                rule="range-golden", path=f"range:{name}/jax",
+                message=(f"`{leg}`: analysis/jax_differs.json gives a reason, but the proof's "
+                         "record now equals JAX's -- remove the entry")))
+    return out
+
+
+def _load_jax_tiers():
+    try:
+        with open(jax_golden_path()) as f:
+            return json.load(f).get("tiers") or {}
+    except (OSError, json.JSONDecodeError):
+        return None
+
+
+@functools.lru_cache(maxsize=4)
+def _derive_intervals(config_names: tuple, device: str):
+    import time
+
+    findings: list[Finding] = []
+    tiers: dict[str, dict] = {}
+    captures: dict[str, dict] = {}
+    jax_tiers = _load_jax_tiers()
+    try:
+        reasons = load_jax_reasons()
+    except (OSError, ValueError, KeyError) as ex:
+        reasons = {}
+        findings.append(Finding(rule="range-golden", path="range:jax_differs",
+                                message=f"analysis/jax_differs.json unreadable: {ex}"))
+    for name in config_names:
+        cfg, _ = PRESETS[name]
+        tier: dict = {}
+        unknown: dict = {}
+        caps: dict = {}
+        for variant in interval.PROGRAMS:
+            label = f"range:{name}/{variant}"
+            t0 = time.process_time()
+            try:
+                prog = interval.capture_program(name, cfg, variant, AUDIT_BATCH, device)
+                fs, record, unk = audit_program(prog)
+                if variant == "simulate":
+                    fs += audit_step_program(prog, f"range:{name}/step")
+                caps[variant] = {"hash": prog.body.hash, "hash_second_tick": prog.hash_b,
+                                 "nodes": len(prog.body.nodes),
+                                 "ticks": list(prog.ticks), "capture_cpu_s": round(prog.seconds, 3),
+                                 "cpu_s": round(time.process_time() - t0, 3)}
+            except Exception as ex:  # a derivation failure must be visible
+                fs, record, unk = [_not_checked(
+                    label, f"range derivation failed ({type(ex).__name__}: {ex})")], None, {}
+            findings.extend(fs)
+            for op, n in unk.items():
+                unknown[op] = unknown.get(op, 0) + n
+            if variant == "simulate" and record is not None:
+                tier["legs"] = record
+        caps["scenario_simulate"] = {"same_capture_as": "simulate"}
+        tier["unknown_ops"] = sorted(unknown)
+        if "legs" in tier:
+            tier["jax_differs"] = jax_differs(name, tier["legs"], jax_tiers, reasons)
+            findings.extend(reason_findings(name, tier["jax_differs"], reasons))
+        tiers[name] = tier
+        captures[name] = caps
+    doc = {"audit_horizon": interval.H_AUDIT, "max_iters": interval.MAX_ITERS,
+           "max_rounds": interval.MAX_ROUNDS, "audit_batch": AUDIT_BATCH,
+           "programs": ["step", "simulate", "scenario_simulate", "serve_simulate",
+                        "trace_simulate"],
+           "shared_captures": {"scenario_simulate": "simulate"}, "tiers": tiers}
+    return doc, captures, tuple(findings)
+
+
+def derive_intervals(config_names=op_audit.AUDIT_CONFIGS, device: str = "cpu"):
+    """(interval document, captures, findings) of the proof leg (cached):
+    the document is what the golden pins; `captures` gives each program's
+    op hash, node count, probe ticks and CPU seconds."""
+    doc, captures, findings = _derive_intervals(tuple(config_names), str(device))
+    return doc, captures, list(findings)
+
+
+def check_witness(name: str, cfg: RaftConfig, observed: dict, legs: dict) -> list[Finding]:
+    """The observing pass as the proof's witness: every value `run_tier`
+    saw (`observed`: its `legs`, `entry` and `ticks`) lies inside the proven
+    interval of its leg -- a rate leg's within entry + rate x tick. The
+    packed legs of the compacted layout are watched in their dense view and
+    proven as words: check_pack_widths holds them."""
+    out = []
+    packed = packed_legs(cfg)
+    ticks = observed["ticks"]
+    for leg, (lo, hi) in sorted(observed["legs"].items()):
+        rec = legs.get(leg)
+        if rec is None or leg in packed or rec.get("widened"):
+            continue
+        plo, phi = rec.get("lo"), rec.get("hi")
+        if "rate" in rec and phi is not None:
+            phi = phi + rec["rate"] * ticks
+        if (plo is not None and lo < plo) or (phi is not None and hi > phi):
+            out.append(Finding(
+                rule="range-golden", path=f"range:{name}/witness",
+                message=(f"the audit run saw `{leg}` in [{lo}, {hi}] over {ticks} ticks, outside "
+                         f"its proven interval [{plo}, {phi}]: the proof is unsound there")))
+    return out
+
+
+def compare_intervals(dint: dict, golden: dict, *, full: bool = True) -> list[Finding]:
+    """The interval pins' drift: each tier's leg records, jax_differs and
+    unknown ops against the golden's `interval` section."""
+    out: list[Finding] = []
+    g_tiers = (golden.get("interval") or {}).get("tiers") or {}
+    for name, d in dint["tiers"].items():
+        g = g_tiers.get(name)
+        if g is None:
+            out.append(Finding(rule="range-golden", path=f"range:{name}/golden",
+                               message=f"tier has no interval pin -- {_REGEN}"))
+            continue
+        diffs = []
+        dl, gl = d.get("legs") or {}, g.get("legs") or {}
+        for leg in sorted(set(dl) | set(gl)):
+            if dl.get(leg) != gl.get(leg):
+                diffs.append(f"interval/{leg}: {gl.get(leg)} -> {dl.get(leg)}")
+        dj, gj = d.get("jax_differs") or {}, g.get("jax_differs") or {}
+        for leg in sorted(set(dj) | set(gj)):
+            if dj.get(leg) != gj.get(leg):
+                diffs.append(f"jax_differs/{leg}: pinned {'yes' if leg in gj else 'no'}, "
+                             f"now {'yes' if leg in dj else 'no'}")
+        if d.get("unknown_ops") != g.get("unknown_ops"):
+            diffs.append(f"unknown_ops: {g.get('unknown_ops')} -> {d.get('unknown_ops')}")
+        if diffs:
+            more = f" (+{len(diffs) - 4} more)" if len(diffs) > 4 else ""
+            out.append(Finding(rule="range-golden", path=f"range:{name}/golden",
+                               message=f"interval pins drifted: {'; '.join(diffs[:4])}{more} -- "
+                                       f"{_REGEN}"))
+    if full:
+        for name in g_tiers:
+            if name not in dint["tiers"]:
+                out.append(Finding(rule="range-golden", path=f"range:{name}/golden",
+                                   message=f"golden pins a tier the proof no longer derives -- "
+                                           f"{_REGEN}"))
+    return out
+
+
+def report(config_names=op_audit.AUDIT_CONFIGS, device: str = "cpu") -> dict:
+    """Both legs' derived documents and the captures (`check --range-report`)."""
+    derived, _ = derive_all(config_names, device)
+    dint, captures, _ = derive_intervals(config_names, device)
+    return dict(derived, interval=dict(dint, captures=captures))

@@ -7,8 +7,10 @@ Pass B lints the package source and checks the types.py comments and the
 checkpoint pin; Pass C prices the carry, the inputs, a tick's live bytes,
 the chunk loops' release and K1's bytes against tests/golden_torch_cost.json;
 Pass D audits the host/device concurrency of the chunk loops (with the
-runtime release-poison leg under --dynamic); Pass E checks the ceilings,
-pack widths and horizons and the values of real audit ticks against
+runtime release-poison leg under --dynamic); Pass E proves value ranges
+with an interval interpreter over a captured graph of each tier's tick
+(analysis/interval.py), holds the values of real audit ticks to the proof,
+and checks the ceilings, pack widths and horizons against
 tests/golden_torch_ranges.json. The audit ticks and the dynamic leg run on
 --device: the card by default, which fails without one, as every entry
 point of the package does; pass --device cpu to run on the CPU.
@@ -19,6 +21,8 @@ point of the package does; pass --device cpu to run on the CPU.
     python -m raft_sim_tpu_torch check --ops --configs config3,config5 --device cpu
     python -m raft_sim_tpu_torch check --race --dynamic       # + the sanitizer, on the card
     python -m raft_sim_tpu_torch check --cost-diff --device cpu
+    python -m raft_sim_tpu_torch check --range --device cpu   # Pass E: the proof and its witness
+    python -m raft_sim_tpu_torch check --range-diff --device cpu
     python -m raft_sim_tpu_torch check --update-goldens --device cpu
 
 Exit codes: 0 = no unwaived findings, 1 = unwaived findings (or a stale or
@@ -44,7 +48,8 @@ def main(argv=None) -> int:
                     help="Pass D only (use-after-release dataflow, overlap window, key reuse, "
                          "sink writers)")
     ap.add_argument("--range", action="store_true", dest="range_",
-                    help="Pass E only (ceilings, pack widths, horizons, the audit ticks' values)")
+                    help="Pass E only (the interval proof, its witness run, ceilings, pack "
+                         "widths, horizons)")
     ap.add_argument("--dynamic", action="store_true",
                     help="with the race pass: also run the release-poison sanitizer over short "
                          "sessions of each chunk loop, armed against unarmed")
@@ -95,7 +100,12 @@ def main(argv=None) -> int:
         if args.configs:
             print("--update-goldens ignores --configs: the golden files pin all audited tiers",
                   file=sys.stderr)
-        for path in (cost_model.update_golden(), range_audit.update_golden()):
+        try:
+            paths = (range_audit.update_golden(), cost_model.update_golden())
+        except range_audit.UnexplainedDivergence as ex:
+            print(f"refused: {ex}", file=sys.stderr)
+            return 1
+        for path in paths:
             print(f"wrote {path} (torch {torch.__version__})")
         print("review the diff and commit the files alongside the change they pin")
         return 0
@@ -108,7 +118,7 @@ def main(argv=None) -> int:
         return 0
 
     if args.range_diff:
-        derived, _ = range_audit.derive_all(config_names, device)
+        derived = range_audit.report(config_names, device)
         try:
             with open(range_audit.golden_path()) as f:
                 golden = json.load(f)
@@ -139,7 +149,7 @@ def main(argv=None) -> int:
 
     for flag, key, derive in (
             (args.cost_report, "cost", lambda: cost_model.derive_all(config_names, device)),
-            (args.range_report, "range", lambda: range_audit.derive_all(config_names, device)[0])):
+            (args.range_report, "range", lambda: range_audit.report(config_names, device))):
         if flag and do[key]:
             with open(flag, "w") as f:
                 json.dump(derive(), f, indent=1, sort_keys=True)

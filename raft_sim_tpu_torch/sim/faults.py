@@ -286,6 +286,18 @@ def draw_span(cfg: RaftConfig, keys: torch.Tensor, t0: int, n_ticks: int, genome
     return StepInputs(*(split(x) for x in out[0])), tuple(split(x) for x in out[1])
 
 
+def _uniform_rate(cfg: RaftConfig, k_rate: torch.Tensor) -> torch.Tensor:
+    base = min(p_to_u32(cfg.drop_prob), (1 << 32) - 2)
+    return threefry.bits(k_rate, ()) % (base + 1)
+
+
+def uniform_drop_rate(cfg: RaftConfig, keys: torch.Tensor) -> torch.Tensor:
+    """[B] int64: each cluster's hidden drop threshold under
+    drop_prob_uniform (uniform in [0, p_to_u32(drop_prob)], drawn once a
+    run from the cluster's rate key), as `make_inputs` draws it."""
+    return _uniform_rate(cfg, threefry.split(keys, 3).unbind(dim=-2)[1])
+
+
 def make_inputs(cfg: RaftConfig, keys: torch.Tensor, now: int, genome=None,
                 seg_len: int = 1, facts: bool = False):
     """Inputs at tick `now` for the clusters keyed by `keys` ([B, 2]), batch-
@@ -331,8 +343,7 @@ def make_inputs(cfg: RaftConfig, keys: torch.Tensor, now: int, genome=None,
 
     if cfg.drop_prob > 0:
         if cfg.drop_prob_uniform:
-            base = min(p_to_u32(cfg.drop_prob), (1 << 32) - 2)
-            p_t = (threefry.bits(k_rate, ()) % (base + 1))[:, None, None]
+            p_t = _uniform_rate(cfg, k_rate)[:, None, None]
         else:
             p_t = p_to_u32(cfg.drop_prob)
         deliver = ~bern_u32(k_drop, p_t, (n, n))

@@ -38,7 +38,9 @@ COV_BITS = ROLE_KIND_BITS + tev.N_KINDS * tev.N_KINDS
 COV_WORDS = bitplane.n_words(COV_BITS)
 
 # int32 weight of each bit of a word: 1, 2, ..., 2^30 and -2^31. A sum of
-# distinct ones is the word's bit pattern and never leaves int32's range.
+# distinct ones is the word's bit pattern; it is summed in int64 and taken
+# back to int32 by bitplane.i32, so the bound is provable without knowing
+# the bits are distinct.
 _BIT_WEIGHTS = [1 << j for j in range(31)] + [-(1 << 31)]
 
 
@@ -120,7 +122,7 @@ def _coverage(cov, write, role, kv, prev_kind) -> torch.Tensor:
     bits.scatter_(0, idx, True)
     weights = torch.tensor(_BIT_WEIGHTS, dtype=torch.int32, device=write.device)[:, None]
     words = torch.where(bits[:rows].view(COV_WORDS, bitplane.WORD, b), weights, 0)
-    return cov | words.sum(dim=1, dtype=torch.int32)
+    return cov | bitplane.i32(words.sum(dim=1, dtype=torch.int64))
 
 
 def record(cfg: RaftConfig, spec: TraceSpec, tw: TraceWin, tp: TracePersist,
@@ -138,7 +140,7 @@ def record(cfg: RaftConfig, spec: TraceSpec, tw: TraceWin, tp: TracePersist,
     cum = wi.cumsum(dim=0, dtype=torch.int32)
     emitted = cum[-1]
     pos = tw.n[None, :] + cum - wi  # exclusive cumsum offset
-    slot = torch.where(write & (pos < depth), pos, depth).long()
+    slot = torch.where(write, pos.clamp(0, depth), depth).long()  # pos >= 0: the clip proves it
 
     def put(plane, val):
         ext = torch.cat([plane, plane.new_zeros((1, batch))])
